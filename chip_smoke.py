@@ -6,23 +6,37 @@
 Phases, each of which ends the run with a non-zero exit code on failure:
 
 1. the card (``nvidia-smi`` name and power limit) and the torch/CUDA versions;
-2. build every CUDA kernel of the serving path from ``stmgcn_tpu_torch/csrc``
-   with ``nvcc`` (into ``build/kernels/``);
-3. hold each kernel against its plain PyTorch version on the card at the
-   serving path's shape (the 64-request rung of the flagship at a 16x16
-   grid: M=3 branches x 64 x 256 nodes = 49,152 rows, a 12-step window,
-   L=3, H=64), with residuals on and off, on a ragged row count, and at
-   every hidden width and layer count the kernel's wrapper accepts; then
-   time kernel, plain version and the cuDNN ``nn.LSTM`` yardstick with
-   CUDA events;
-4. serve the ``default``-width ST-MGCN (seeded random weights, synthetic
+2. build every CUDA kernel from ``stmgcn_tpu_torch/csrc`` with ``nvcc``
+   (into ``build/kernels/``), one ``nvcc`` per source, all at once;
+3. hold the LSTM forward kernel against its plain PyTorch version on the
+   card at the main paths' shape (the flagship at a 16x16 grid, batch 64:
+   M=3 branches x 64 x 256 nodes = 49,152 rows, a 12-step window, L=3,
+   H=64), with residuals on and off, on a ragged row count, and at every
+   hidden width and layer count the wrapper accepts; then time kernel,
+   plain version and the cuDNN ``nn.LSTM`` yardstick with CUDA events;
+4. the same for the LSTM backward kernel (nonzero cotangents at every step
+   and on the final states), plus two runs that must agree bitwise; its
+   yardstick is cuDNN's forward + backward against forward (with
+   residuals) + backward kernels;
+5. serve the ``default``-width ST-MGCN (seeded random weights, synthetic
    16x16 city) through ``Forecaster`` and ``ServingEngine``: requests of
    1, 3, 16, 64 and 100 rows and four concurrent callers, every response
    finite and equal to ``Forecaster.predict`` on the same rows, one
-   bucket-4 batch equal to the same model on the CPU, and the kernel's
-   launch counter showing the path went through it, once per forward;
-5. trace the smallest and largest rung with ``torch.profiler``: device
-   busy time, idle share and the LSTM kernel's share per dispatch.
+   bucket-4 batch equal to the same model on the CPU, and the forward
+   kernel's launch counter showing one launch per forward (and no
+   backward launch);
+6. trace the smallest and largest rung with ``torch.profiler``: device
+   busy time, idle share and the LSTM kernel's share per dispatch;
+7. train the flagship at the bench point through ``build_trainer`` ->
+   ``train()`` (two epochs, batch 64, blocks of 4 steps) -> ``test()``:
+   finite losses and metrics, a finite gradient on every parameter after
+   the first step, one backward launch per optimizer step and one forward
+   launch per model forward;
+8. the p50 time of an optimizer step (host clock, synchronized);
+9. the same model from one initial state, three steps at batch 4 on the
+   card and on the CPU's plain path: losses and parameters agree;
+10. trace two training steps: device busy time, idle share, and the
+    forward and backward kernels' shares.
 
 The last three lines are the card, one JSON object describing each kernel,
 and ``{"ok": true, "device": {...}}``. There is no CPU mode: without a CUDA
@@ -50,9 +64,31 @@ SIZES, OVERSIZED, CALLERS, ROUNDS = (1, 3, 16, 64), 100, 4, 5
 #: kernel vs plain version, fp32: the two sum each gate's K=64/128 products
 #: in different orders, and 36 dependent cell steps carry the difference
 KERNEL_RTOL, KERNEL_ATOL = 1e-4, 1e-5
+#: backward kernel vs plain version, fp32. dxp: each entry runs the same
+#: 36-step reverse chain in another summation order, as the forward does.
+#: Weight gradients: each entry sums R*T = 196,608 products at the training
+#: shape, the kernel in 4,096-row chunks then chunk by chunk, the plain
+#: version per step through cuBLAS; the rounding of such sums scales with the sum of
+#: |terms|, so they are held normwise, to 1e-5 of their largest entry.
+BWD_RTOL, BWD_ATOL = 1e-4, 1e-5
+WGRAD_RTOL = 1e-5
 #: engine vs forecaster vs CPU, raw demand units (normalizer range ~1e2):
 #: float32 GEMMs at different batch shapes and devices sum in other orders
 SERVE_RTOL, SERVE_ATOL = 1e-4, 1e-3
+#: training phase: epochs of the flagship at the bench point, optimizer
+#: steps per block (one loss readback each), steps timed for the p50
+EPOCHS, SUPERSTEP, TIMED_STEPS = 2, 4, 10
+#: card vs CPU over CPU_STEPS optimizer steps at batch CPU_BATCH from one
+#: initial state. Losses: the same model on float32 kernels vs the CPU's
+#: plain path differ in summation order only. Parameters: Adam scales each
+#: entry's step by that entry's own gradient size, so an entry whose
+#: gradient is near zero carries a relative error of its gradient, up to
+#: O(1), into its step (elementwise differences of several 1e-6 at lr
+#: 2e-3 were seen), while each tensor's update as a whole agrees to float32
+#: rounding. So each tensor's total update is held normwise:
+#: |p_card - p_cpu| / |p_cpu - p_initial| <= CPU_UPDATE_RTOL.
+CPU_STEPS, CPU_BATCH = 3, 4
+CPU_LOSS_RTOL, CPU_UPDATE_RTOL = 1e-5, 1e-3
 #: H100 SXM peaks (NVIDIA data sheet, dense, 700 W): fp32 outside the
 #: tensor cores, and HBM3 bandwidth
 PEAK_FP32_FLOPS = 67e12
@@ -69,6 +105,26 @@ def card_line() -> str:
         capture_output=True, text=True, timeout=60, check=True,
     )
     return out.stdout.strip().splitlines()[0]
+
+
+def build_kernels() -> None:
+    """Phase 2: every kernel library of the port's paths, one ``nvcc`` per
+    source, all started together; ptxas's register and spill lines."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from stmgcn_tpu_torch.ops.fused_lstm import bwd_kernel_library, kernel_library
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(max_workers=2) as pool:
+        infos = [f.result()[-1] for f in [pool.submit(kernel_library),
+                                          pool.submit(bwd_kernel_library)]]
+    print(f"built {', '.join(i.path.name for i in infos)} in "
+          f"{time.perf_counter() - t0:.1f} s (nvcc in parallel: "
+          f"{', '.join(f'{i.seconds:.1f} s' for i in infos)})")
+    for info in infos:
+        for line in info.log.splitlines():
+            if "registers" in line or "spill" in line or "Compiling entry" in line:
+                print(f"  ptxas: {line.strip()}")
 
 
 def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
@@ -121,6 +177,26 @@ def max_err(got, want, rtol, atol, what: str) -> float:
     return err
 
 
+def cudnn_lstms(wx0, b0, wh, wx, b):
+    """cuDNN ``nn.LSTM``s on the same weights (TF32 off): one per branch,
+    each computing that branch's projection and recurrence."""
+    import torch
+
+    M, L, H = wh.shape[0], wh.shape[1], wh.shape[2]
+    cudnn = []
+    for m in range(M):
+        lstm = torch.nn.LSTM(1, H, L, batch_first=True).to(wh.device)
+        with torch.no_grad():
+            for layer in range(L):
+                w_in = wx0[m] if layer == 0 else wx[m, layer - 1]
+                getattr(lstm, f"weight_ih_l{layer}").copy_(w_in.T)
+                getattr(lstm, f"weight_hh_l{layer}").copy_(wh[m, layer].T)
+                getattr(lstm, f"bias_ih_l{layer}").copy_(b0[m] if layer == 0 else b[m, layer - 1])
+                getattr(lstm, f"bias_hh_l{layer}").zero_()
+        cudnn.append(lstm)
+    return cudnn
+
+
 def check_lstm_kernel(device) -> dict:
     """Phase 3: kernel vs plain version on the card, then timings."""
     import torch
@@ -168,19 +244,7 @@ def check_lstm_kernel(device) -> dict:
     print(f"fused_lstm vs plain at H in {KERNEL_HIDDEN}, L in 1..{KERNEL_MAX_LAYERS} "
           f"(M=2, R=77, T=5): max |err| {sweep:.3e}")
 
-    # cuDNN nn.LSTM on the same rows and weights (TF32 off): one call per
-    # branch, each computing that branch's projection and recurrence
-    cudnn = []
-    for m in range(M):
-        lstm = torch.nn.LSTM(1, H, L, batch_first=True).to(device)
-        with torch.no_grad():
-            for layer in range(L):
-                w_in = wx0[m] if layer == 0 else wx[m, layer - 1]
-                getattr(lstm, f"weight_ih_l{layer}").copy_(w_in.T)
-                getattr(lstm, f"weight_hh_l{layer}").copy_(wh[m, layer].T)
-                getattr(lstm, f"bias_ih_l{layer}").copy_(b0[m] if layer == 0 else b[m, layer - 1])
-                getattr(lstm, f"bias_hh_l{layer}").zero_()
-        cudnn.append(lstm)
+    cudnn = cudnn_lstms(wx0, b0, wh, wx, b)
     with torch.no_grad():
         lib_out = torch.stack([cudnn[m](x[m])[0] for m in range(M)])
         ker_out = fused_lstm(xp, wh, wx, b)[0]
@@ -217,8 +281,128 @@ def check_lstm_kernel(device) -> dict:
     }
 
 
+def lstm_bwd_case(M, R, T, L, H, device, seed):
+    """Forward operands, the forward kernel's residuals and random
+    cotangents, nonzero at every step and on both final states."""
+    import torch
+
+    from stmgcn_tpu_torch.ops.fused_lstm import fused_lstm
+
+    x, wx0, b0, xp, wh, wx, b = lstm_inputs(M, R, T, L, H, device, seed)
+    hseq, cseq = fused_lstm(xp, wh, wx, b, with_residuals=True)[3:]
+    g = torch.Generator(device=device).manual_seed(seed + 1000)
+    g_out = torch.randn(M, R, T, H, generator=g, device=device)
+    g_hfin = torch.randn(M, L, R, H, generator=g, device=device)
+    g_cfin = torch.randn(M, L, R, H, generator=g, device=device)
+    return (x, wx0, b0), (xp, wh, wx, b, hseq, cseq, g_out, g_hfin, g_cfin)
+
+
+def bwd_err(got, want, what: str) -> float:
+    """dxp elementwise (BWD_RTOL/BWD_ATOL); the weight gradients normwise
+    (WGRAD_RTOL of their largest entry)."""
+    import torch
+
+    err = max_err(got[:1], want[:1], BWD_RTOL, BWD_ATOL, f"{what} dxp")
+    for name, a, b in zip(("dwh0", "dwxh", "db"), got[1:], want[1:]):
+        if a.shape != b.shape or not torch.isfinite(a).all():
+            fail(f"{what} {name}: shape {tuple(a.shape)} vs {tuple(b.shape)} or non-finite")
+        e, scale = (a - b).abs().max().item(), b.abs().max().item()
+        if e > WGRAD_RTOL * scale:
+            fail(f"{what} {name}: max |err| {e:.3e} over {WGRAD_RTOL} x max |want| {scale:.3e}")
+        err = max(err, e)
+    return err
+
+
+def check_lstm_bwd_kernel(device) -> dict:
+    """Phase 4: the backward kernel against its plain version on the card,
+    its determinism, then timings beside cuDNN's forward + backward."""
+    import torch
+
+    from stmgcn_tpu_torch.ops.fused_lstm import (
+        KERNEL_HIDDEN,
+        KERNEL_MAX_LAYERS,
+        fused_lstm,
+        fused_lstm_bwd,
+        fused_lstm_bwd_reference,
+    )
+
+    M, R, T, L, H = 3, BATCH * GRID * GRID, SERIAL + 2, 3, 64
+    (x, wx0, b0), ops = lstm_bwd_case(M, R, T, L, H, device, seed=2)
+    got = fused_lstm_bwd(*ops)
+    want = fused_lstm_bwd_reference(*ops)
+    torch.cuda.synchronize()
+    worst = bwd_err(got, want, f"fused_lstm_bwd M={M} R={R}")
+    del want
+    again = fused_lstm_bwd(*ops)
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        fail("fused_lstm_bwd: two runs on the same inputs differ")
+    print(f"fused_lstm_bwd: two runs bitwise equal (dxp, dwh0, dwxh, db) at M={M} R={R}")
+    del got, again
+    _, ragged = lstm_bwd_case(1, 1000, T, L, H, device, seed=3)
+    worst = max(worst, bwd_err(fused_lstm_bwd(*ragged), fused_lstm_bwd_reference(*ragged),
+                               "fused_lstm_bwd ragged R=1000"))
+    print(f"fused_lstm_bwd vs plain: max |err| {worst:.3e} (dxp rtol {BWD_RTOL}, atol "
+          f"{BWD_ATOL}; weight grads {WGRAD_RTOL} x their max) at M={M} R={R} T={T} "
+          f"L={L} H={H} and ragged R=1000")
+    sweep = 0.0
+    for h in KERNEL_HIDDEN:
+        for layers in range(1, KERNEL_MAX_LAYERS + 1):
+            _, case = lstm_bwd_case(2, 77, 5, layers, h, device, seed=h + layers)
+            sweep = max(sweep, bwd_err(fused_lstm_bwd(*case), fused_lstm_bwd_reference(*case),
+                                       f"fused_lstm_bwd H={h} L={layers}"))
+    worst = max(worst, sweep)
+    print(f"fused_lstm_bwd vs plain at H in {KERNEL_HIDDEN}, L in 1..{KERNEL_MAX_LAYERS} "
+          f"(M=2, R=77, T=5): max |err| {sweep:.3e}")
+
+    xp, wh, wx, b, hseq, cseq, g_out, g_hfin, g_cfin = ops
+    ms = cuda_ms(lambda: fused_lstm_bwd(*ops), iters=10)
+    plain_ms = cuda_ms(lambda: fused_lstm_bwd_reference(*ops), iters=3)
+
+    def ours():
+        res = fused_lstm(xp, wh, wx, b, with_residuals=True)
+        fused_lstm_bwd(xp, wh, wx, b, res[3], res[4], g_out, g_hfin, g_cfin)
+
+    cudnn = cudnn_lstms(wx0, b0, wh, wx, b)
+    xs = [x[m].clone().requires_grad_(True) for m in range(M)]
+    params = [p for lstm in cudnn for p in lstm.parameters()]
+
+    def library():
+        outs, grads = [], []
+        for m in range(M):
+            out, (h_n, c_n) = cudnn[m](xs[m])
+            outs += [out, h_n, c_n]
+            grads += [g_out[m], g_hfin[m], g_cfin[m]]
+        torch.autograd.grad(outs, xs + params, grads)
+
+    fwd_bwd_ms = cuda_ms(ours, iters=10)
+    library_ms = cuda_ms(library, iters=5)
+
+    flops = 3 * M * R * T * (2 * H * 4 * H + (L - 1) * 2 * (2 * H) * (4 * H))
+    n_bytes = 4 * (sum(t.numel() for t in ops) + xp.numel()  # inputs + dxp
+                   + wh.numel() + wx.numel() + b.numel())     # weight grads
+    t_ops, t_bytes = flops / PEAK_FP32_FLOPS * 1e3, n_bytes / PEAK_BYTES_PER_S * 1e3
+    print(f"fused_lstm_bwd times (ms, CUDA events, mean): kernel {ms:.4f}, plain "
+          f"{plain_ms:.4f}; forward with residuals + backward kernels {fwd_bwd_ms:.4f} vs "
+          f"cuDNN forward + backward x{M} {library_ms:.4f}; bound {max(t_ops, t_bytes):.4f} "
+          f"({flops / 1e9:.2f} GFLOP, {n_bytes / 1e6:.1f} MB)")
+    return {
+        "name": "fused_lstm_bwd",
+        "route": "cuda",
+        "source": "stmgcn_tpu_torch/csrc/fused_lstm_bwd.cu",
+        "replaces": "stmgcn_tpu/ops/pallas_lstm.py:212",
+        "launches": None,  # filled from the main path's run
+        "max_abs_err": worst,
+        "ms": ms,
+        "plain_ms": plain_ms,
+        "bound_ms": max(t_ops, t_bytes),
+        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+        "library_ms": library_ms,
+    }
+
+
 def trace_rungs(engine, windows, rungs, iters: int = 10) -> None:
-    """Phase 5: where one dispatch's time goes, per rung, from a
+    """Phase 6: where one dispatch's time goes, per rung, from a
     ``torch.profiler`` trace of ``iters`` direct dispatches: wall time per
     dispatch (profiler on), device busy time (CUDA kernels and copies),
     the idle share, and the LSTM kernel's share of busy time."""
@@ -254,7 +438,7 @@ def trace_rungs(engine, windows, rungs, iters: int = 10) -> None:
 
 
 def serve(device, grid: int = GRID):
-    """Phases 4 and 5: the serving path end to end, then its trace.
+    """Phases 5 and 6: the serving path end to end, then its trace.
     Returns the engine's stats snapshot, the number of model forwards run
     on ``device`` and the LSTM kernel launches they made (read before the
     trace); raises SystemExit on any failed check."""
@@ -348,6 +532,163 @@ def serve(device, grid: int = GRID):
         engine.close()
 
 
+def flagship_config(batch: int):
+    """The ``default`` flagship at the bench point (``bench.py:68-71``)."""
+    from stmgcn_tpu_torch import preset
+
+    cfg = preset("default")
+    cfg.data.rows, cfg.data.serial_len = GRID, SERIAL
+    cfg.train.batch_size, cfg.train.epochs = batch, EPOCHS
+    cfg.train.steps_per_superstep = SUPERSTEP
+    return cfg
+
+
+def train_on_card(device):
+    """Phase 7: ``build_trainer`` -> ``train()`` -> ``test()`` on the card,
+    with the launch counts of both LSTM kernels read around it. Returns the
+    trainer and the counts."""
+    import torch
+
+    from stmgcn_tpu_torch import build_trainer
+    from stmgcn_tpu_torch.ops.fused_lstm import fused_lstm, fused_lstm_bwd
+
+    trainer = build_trainer(flagship_config(BATCH), device=device)
+    first: dict = {}
+    step = trainer.optimizer.step
+
+    def step_checking_grads():
+        if not first:  # every parameter's gradient, after the first backward
+            first.update({n: p.grad is not None and bool(torch.isfinite(p.grad).all())
+                          for n, p in trainer.model.named_parameters()})
+        step()
+
+    trainer.optimizer.step = step_checking_grads
+    fused_lstm.launches = fused_lstm_bwd.launches = 0
+    history = trainer.train()
+    results = trainer.test()
+    torch.cuda.synchronize()
+    fwd, bwd = fused_lstm.launches, fused_lstm_bwd.launches
+    trainer.optimizer.step = step
+
+    print(f"training history: {json.dumps(history)}")
+    if not all(np.isfinite(history[m]).all() for m in history):
+        fail("non-finite epoch loss")
+    for mode, report in results.items():
+        print(f"test(), {mode}: " + ", ".join(f"{k} {v:.6g}" for k, v in report.items()))
+        if not all(np.isfinite(v) for v in report.values()):
+            fail(f"non-finite {mode} metrics")
+    bad = sorted(n for n, ok in first.items() if not ok)
+    if not first or bad:
+        fail(f"parameters without a finite gradient after the first step: {bad}")
+    print(f"every parameter ({len(first)}) has a finite gradient after the first step")
+    ds, bs, epochs = trainer.dataset, trainer.batch_size, len(history["train"])
+    steps = trainer.global_step
+    forwards = steps + epochs * ds.num_batches("validate", bs) + sum(
+        ds.num_batches(m, bs) for m in results)
+    if steps != epochs * trainer.train_steps_per_epoch or steps != trainer.optimizer.count:
+        fail(f"{steps} optimizer steps for {epochs} epochs")
+    if bwd != steps:
+        fail(f"{bwd} backward kernel launches for {steps} optimizer steps")
+    if fwd != forwards:
+        fail(f"{fwd} forward kernel launches for {forwards} model forwards "
+             f"({steps} train steps + validation and test() batches)")
+    print(f"training path: {steps} optimizer steps ({epochs} epochs x "
+          f"{trainer.train_steps_per_epoch}, blocks of {SUPERSTEP}); backward kernel "
+          f"launches {bwd} (one per step), forward kernel launches {fwd} (one per model "
+          f"forward: {steps} train + {forwards - steps} validation/test)")
+    return trainer, fwd, bwd
+
+
+def step_times(trainer) -> None:
+    """Phase 8: host clock around single optimizer steps that end in a
+    synchronize, at batch 64."""
+    import torch
+
+    batches = list(trainer.batches("train"))[:TIMED_STEPS + 2]
+    times = []
+    for i, batch in enumerate(batches):
+        t0 = time.perf_counter()
+        trainer.train_batch(batch)
+        torch.cuda.synchronize()
+        if i >= 2:  # two warm-up steps
+            times.append((time.perf_counter() - t0) * 1e3)
+    print(f"training step (batch {trainer.batch_size}, host clock to synchronize): p50 "
+          f"{float(np.median(times)):.4f} ms, min {min(times):.4f} ms over {len(times)} steps")
+
+
+def card_vs_cpu(device) -> None:
+    """Phase 9: the same model from one initial state, CPU_STEPS optimizer
+    steps on the card (kernels) and on the CPU (plain path)."""
+    import torch
+
+    from stmgcn_tpu_torch import build_trainer
+
+    cfg = flagship_config(CPU_BATCH)
+    card = build_trainer(cfg, device=device, verbose=False)
+    state = {k: v.detach().cpu().clone() for k, v in card.model.state_dict().items()}
+    cpu = build_trainer(cfg, device="cpu", initial_state=state, verbose=False)
+    batches = list(card.batches("train"))[:CPU_STEPS]
+    for i, batch in enumerate(batches):
+        got, want = card.train_batch(batch).item(), cpu.train_batch(batch).item()
+        print(f"step {i + 1}: loss card {got:.8g}, CPU {want:.8g}")
+        if not math.isclose(got, want, rel_tol=CPU_LOSS_RTOL):
+            fail(f"step {i + 1}: card loss {got} vs CPU {want} (rtol {CPU_LOSS_RTOL})")
+    want = cpu.model.state_dict()
+    rel, elem = {}, {}
+    for k, v in card.model.state_dict().items():
+        diff = v.cpu() - want[k]
+        rel[k] = (diff.norm() / (want[k] - state[k]).norm()).item()
+        elem[k] = diff.abs().max().item()
+    worst = max(rel, key=rel.get)
+    if not rel[worst] <= CPU_UPDATE_RTOL:
+        fail(f"after {CPU_STEPS} steps, {worst}'s update differs by {rel[worst]:.3e} of "
+             f"its norm (rtol {CPU_UPDATE_RTOL})")
+    print(f"card vs CPU over {CPU_STEPS} steps at batch {CPU_BATCH}: losses within rtol "
+          f"{CPU_LOSS_RTOL}; each tensor's update within {rel[worst]:.3e} of its norm "
+          f"({worst}; rtol {CPU_UPDATE_RTOL}); parameters max |diff| "
+          f"{max(elem.values()):.3e}")
+
+
+def trace_training(trainer, steps: int = 2) -> None:
+    """Phase 10: ``torch.profiler`` over ``steps`` optimizer steps at batch
+    64: device busy time, idle share, and each LSTM kernel's share."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    batches = list(trainer.batches("train"))[:steps + 1]
+    trainer.train_batch(batches[0])
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for batch in batches[1:]:
+            trainer.train_batch(batch)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / steps
+    device = {
+        e.key: e.self_device_time_total / 1e3 / steps
+        for e in prof.key_averages()
+        if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
+    }
+    busy = sum(device.values())
+    if busy == 0.0:
+        print("trace, training step: no device time recorded (not measured)")
+        return
+    parts = {name: sum(v for k, v in device.items() if key in k) for name, key in (
+        ("forward kernel", "lstm_fwd_kernel"), ("backward sweep", "lstm_bwd_sweep"),
+        ("backward weight gradients", "lstm_bwd_wgrad"), ("backward reduce", "reduce_partials"))}
+    bwd = sum(v for k, v in parts.items() if k.startswith("backward"))
+    top = sorted(device.items(), key=lambda kv: -kv[1])[:6]
+    print(f"trace, training step (batch {trainer.batch_size}): wall {wall:.4f} ms/step "
+          f"(profiler on), device busy {busy:.4f} ms, idle share {1 - busy / wall:.3f}; "
+          f"forward kernel {parts['forward kernel']:.4f} ms = "
+          f"{parts['forward kernel'] / busy:.3f} of busy, backward kernel {bwd:.4f} ms = "
+          f"{bwd / busy:.3f} (" + ", ".join(f"{k.split()[1]} {v:.4f}" for k, v in parts.items()
+                                            if k.startswith("backward")) + ")")
+    print("trace, training step, top device time (ms/step): "
+          + "; ".join(f"{k[:48]} {v:.4f}" for k, v in top))
+
+
 def main() -> int:
     import torch
 
@@ -355,7 +696,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device; this script runs the port on the GPU "
               "and has no CPU mode", file=sys.stderr)
         return 1
-    from stmgcn_tpu_torch.ops.fused_lstm import fused_lstm, kernel_library
+    from stmgcn_tpu_torch.ops.fused_lstm import fused_lstm, fused_lstm_bwd
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -365,33 +706,39 @@ def main() -> int:
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
 
-    t0 = time.perf_counter()
-    _, info = kernel_library()
-    print(f"built {info.path.name} in {info.seconds:.1f} s "
-          f"(nvcc; {time.perf_counter() - t0:.1f} s with load)")
-    for line in info.log.splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"  ptxas: {line.strip()}")
+    build_kernels()
 
-    record = check_lstm_kernel(device)
+    records = [check_lstm_kernel(device)]
+    torch.cuda.empty_cache()
+    records.append(check_lstm_bwd_kernel(device))
     torch.cuda.empty_cache()
 
-    fused_lstm.launches = 0
+    fused_lstm.launches = fused_lstm_bwd.launches = 0
     snapshot, forwards, launches = serve(device)
     if launches == 0:
         fail("the serving path never launched the LSTM kernel")
     if launches != forwards:
         fail(f"{launches} LSTM kernel launches for {forwards} model forwards "
              "(expected one launch, all branches, per forward)")
-    record["launches"] = launches
+    if fused_lstm_bwd.launches:
+        fail(f"serving launched the backward kernel {fused_lstm_bwd.launches} times")
     print(f"LSTM kernel launches on the serving path: {launches} "
-          f"(one per model forward; {forwards} forwards)")
+          f"(one per model forward; {forwards} forwards; no backward launches)")
     for b, s in snapshot["buckets"].items():
         print(f"bucket {b}: {s['dispatches']} dispatches, p50 latency "
               f"{s['latency_ms']['p50']} ms, p50 dispatch {s['device_ms']['p50']} ms")
+    torch.cuda.empty_cache()
+
+    trainer, fwd, bwd = train_on_card(device)
+    if fwd == 0 or bwd == 0:
+        fail("the training path did not launch both LSTM kernels")
+    records[0]["launches"], records[1]["launches"] = fwd, bwd
+    step_times(trainer)
+    card_vs_cpu(device)
+    trace_training(trainer)
 
     print(card)
-    print(json.dumps({"kernels": [record]}))
+    print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -10,10 +10,12 @@ Entry points run on the GPU unless the caller passes ``device="cpu"``;
 there the hand-written kernels give way to their plain PyTorch versions.
 """
 
-from stmgcn_tpu_torch.config import ExperimentConfig, ServingConfig, preset
+from stmgcn_tpu_torch.config import ExperimentConfig, ServingConfig, TrainConfig, preset
+from stmgcn_tpu_torch.experiment import build_trainer, run
 from stmgcn_tpu_torch.inference import Forecaster
 from stmgcn_tpu_torch.models import STMGCN, from_jax_params, to_jax_params
 from stmgcn_tpu_torch.serving import ServingEngine
+from stmgcn_tpu_torch.train import Trainer
 
 __all__ = [
     "ExperimentConfig",
@@ -21,7 +23,11 @@ __all__ = [
     "STMGCN",
     "ServingConfig",
     "ServingEngine",
+    "TrainConfig",
+    "Trainer",
+    "build_trainer",
     "from_jax_params",
     "preset",
+    "run",
     "to_jax_params",
 ]

@@ -1,12 +1,15 @@
-"""Typed configuration for the serving slice: data, model and serving.
+"""Typed configuration of the ported slices: data, model, training and
+serving.
 
-The port's counterpart of ``stmgcn_tpu/config.py``, holding only what the
-slice reads: :class:`DataConfig`, :class:`ModelConfig` and
-:class:`ServingConfig`, grouped in an :class:`ExperimentConfig` that reads
-the same JSON dicts as the JAX package's ``ExperimentConfig.from_dict``.
-Sections the slice does not use (train, mesh, obs, ...) and fields of the
-JAX model config that choose XLA schedules or other support
-representations are ignored on read. ``n_nodes`` is derived from data,
+The port's counterpart of ``stmgcn_tpu/config.py``, holding what the port
+reads: :class:`DataConfig`, :class:`ModelConfig`, :class:`TrainConfig`,
+:class:`MeshConfig` and :class:`ServingConfig`, grouped in an
+:class:`ExperimentConfig` that reads the same JSON dicts as the JAX
+package's ``ExperimentConfig.from_dict``. Sections the port does not use
+(obs, health, ...) and fields of the JAX model config that choose XLA
+schedules are ignored on read. :class:`TrainConfig` instead copies every
+JAX training field and raises, naming it, on any field that the port does
+not implement set away from its default. ``n_nodes`` is derived from data,
 never configured.
 """
 
@@ -23,7 +26,9 @@ __all__ = [
     "ExperimentConfig",
     "ModelConfig",
     "PRESETS",
+    "MeshConfig",
     "ServingConfig",
+    "TrainConfig",
     "preset",
 ]
 
@@ -81,6 +86,10 @@ class ModelConfig:
     gcn_hidden_dim: int = 64
     use_bias: bool = True
     shared_gate_fc: bool = True
+    #: the JAX package's block-CSR and tiled-sparse support routes; not
+    #: ported yet (``build_model`` raises when either is set)
+    sparse: bool = False
+    tiled: bool = False
     dtype: str = "float32"
 
     @property
@@ -90,6 +99,102 @@ class ModelConfig:
     @property
     def support_config(self) -> SupportConfig:
         return SupportConfig(self.kernel_type, self.K, self.bidirectional)
+
+
+@dataclasses.dataclass
+class TrainConfig:
+    """Optimization recipe; every field of the JAX package's
+    ``TrainConfig`` (``stmgcn_tpu/config.py:178-273``), defaults included,
+    so a JAX config dict reads as it is.
+
+    The port trains on one device from the window-free resident series.
+    The fields in :data:`UNPORTED` belong to features it does not have yet
+    (checkpoint files, sanitizers, fleet classes, the divergence guard,
+    bf16); setting one away from its default raises a ``ValueError`` naming
+    it, so nothing is silently ignored.
+    """
+
+    epochs: int = 100
+    batch_size: int = 32
+    lr: float = 2e-3
+    weight_decay: float = 1e-4
+    #: "none" (constant lr) | "cosine" (linear warmup, then cosine decay to
+    #: lr * min_lr_fraction over the run), counted in optimizer steps
+    lr_schedule: str = "none"
+    warmup_epochs: float = 0.0
+    min_lr_fraction: float = 0.0
+    #: global-norm gradient clipping before the L2 term and Adam moments
+    grad_clip_norm: Optional[float] = None
+    loss: str = "mse"
+    checks: Optional[str] = None
+    patience: int = 10
+    top_k: int = 1
+    shuffle: bool = False
+    prefetch: int = 1
+    #: "auto" and "resident" both mean the resident series here
+    data_placement: str = "auto"
+    #: None/True: the window-free resident series (the only path ported)
+    window_free: Optional[bool] = None
+    #: optimizer steps per block, with one loss readback per block
+    steps_per_superstep: int = 1
+    fleet: Optional[bool] = None
+    fleet_max_classes: int = 8
+    fleet_max_pad_waste: float = 0.5
+    async_checkpoint: bool = True
+    checkpoint_every_steps: int = 0
+    divergence_guard: bool = False
+    divergence_action: str = "skip"
+    divergence_patience: int = 3
+    divergence_lr_cut: Optional[float] = None
+    precision: str = "fp32"
+    sr_seed: Optional[int] = None
+    seed: int = 0
+    out_dir: str = "output"
+
+    #: fields of features not ported yet, with the values the port accepts
+    UNPORTED = {
+        "checks": (None,),
+        "top_k": (1,),
+        "prefetch": (1,),
+        "data_placement": ("auto", "resident"),
+        "window_free": (None, True),
+        "fleet": (None, False),
+        "fleet_max_classes": (8,),
+        "fleet_max_pad_waste": (0.5,),
+        "async_checkpoint": (True,),
+        "checkpoint_every_steps": (0,),
+        "divergence_guard": (False,),
+        "divergence_action": ("skip",),
+        "divergence_patience": (3,),
+        "divergence_lr_cut": (None,),
+        "precision": ("fp32",),
+        "sr_seed": (None,),
+        "out_dir": ("output",),
+    }
+
+    def __post_init__(self):
+        for name, accepted in self.UNPORTED.items():
+            value = getattr(self, name)
+            if not any(value is a or (type(value) is type(a) and value == a)
+                       for a in accepted):
+                raise ValueError(
+                    f"train.{name}={value!r} is not ported to the PyTorch port "
+                    f"yet (it accepts {accepted}); see ROADMAP.md"
+                )
+
+
+@dataclasses.dataclass
+class MeshConfig:
+    """The JAX package's device-mesh extents. The port runs on one device:
+    ``build_trainer`` raises when they ask for more."""
+
+    dp: int = 1
+    region: int = 1
+    branch: int = 1
+
+    @property
+    def n_devices(self) -> int:
+        return self.dp * self.region * self.branch
 
 
 @dataclasses.dataclass
@@ -221,6 +326,8 @@ class ExperimentConfig:
     name: str = "default"
     data: DataConfig = dataclasses.field(default_factory=DataConfig)
     model: ModelConfig = dataclasses.field(default_factory=ModelConfig)
+    train: TrainConfig = dataclasses.field(default_factory=TrainConfig)
+    mesh: MeshConfig = dataclasses.field(default_factory=MeshConfig)
     serving: ServingConfig = dataclasses.field(default_factory=ServingConfig)
 
     def to_dict(self) -> dict:
@@ -233,6 +340,8 @@ class ExperimentConfig:
             name=d.get("name", "default"),
             data=DataConfig(**_known(DataConfig, d.get("data", {}))),
             model=ModelConfig(**_known(ModelConfig, d.get("model", {}))),
+            train=TrainConfig(**d.get("train", {})),
+            mesh=MeshConfig(**_known(MeshConfig, d.get("mesh", {}))),
             serving=ServingConfig(**_known(ServingConfig, d.get("serving", {}))),
         )
 
@@ -244,6 +353,7 @@ def _smoke() -> ExperimentConfig:
         data=DataConfig(rows=10, n_timesteps=24 * 7 * 4),
         model=ModelConfig(m_graphs=1, lstm_hidden_dim=32, lstm_num_layers=1,
                           gcn_hidden_dim=32),
+        train=TrainConfig(epochs=5, batch_size=32),
     )
 
 

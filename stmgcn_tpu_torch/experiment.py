@@ -1,9 +1,10 @@
-"""Experiment assembly for the serving slice: config -> data, supports, model.
+"""Experiment assembly: config -> data, supports, model, trainer.
 
 Counterpart of ``stmgcn_tpu/experiment.py`` (``build_dataset``,
-``build_supports``, ``build_model``) for homogeneous cities and dense
-supports — the representation serving uses. Heterogeneous cities, node
-padding for region meshes and the sparse/tiled supports are not ported.
+``build_supports``, ``build_model``, ``build_trainer``, ``run``) for
+homogeneous cities, dense supports and one device. Heterogeneous cities,
+node padding for region meshes, meshes and the sparse/tiled supports are
+not ported: configs asking for them raise.
 """
 
 from __future__ import annotations
@@ -20,8 +21,10 @@ from stmgcn_tpu_torch.data.splits import date_splits, fraction_splits
 from stmgcn_tpu_torch.data.synthetic import synthetic_dataset
 from stmgcn_tpu_torch.data.windowing import WindowSpec
 from stmgcn_tpu_torch.models.st_mgcn import STMGCN
+from stmgcn_tpu_torch.ops.layers import resolve_device
+from stmgcn_tpu_torch.train.trainer import Trainer
 
-__all__ = ["build_dataset", "build_model", "build_supports"]
+__all__ = ["build_dataset", "build_model", "build_supports", "build_trainer", "run"]
 
 
 def build_dataset(cfg: ExperimentConfig) -> DemandDataset:
@@ -78,6 +81,9 @@ def build_model(cfg: ExperimentConfig, input_dim: int, *, device=None,
     """The dense flagship from config plus the one data-derived scalar
     (feature count). ``device=None`` means the GPU."""
     m = cfg.model
+    if m.sparse or m.tiled:
+        raise ValueError("model.sparse/model.tiled: the sparse and tiled support "
+                         "routes are not ported yet (dense supports only)")
     if m.dtype not in DTYPES:
         raise ValueError(
             f"model.dtype={m.dtype!r}: the port takes {DTYPES} storage so far"
@@ -96,3 +102,37 @@ def build_model(cfg: ExperimentConfig, input_dim: int, *, device=None,
         device=device,
         generator=generator,
     )
+
+
+def build_trainer(cfg: ExperimentConfig, *, device=None, initial_state: Optional[dict] = None,
+                  verbose: bool = True) -> Trainer:
+    """The trainer for a homogeneous, dense, single-device config; weights
+    drawn from ``cfg.train.seed`` unless ``initial_state`` is given.
+    ``device=None`` means the GPU, and raises without one."""
+    if cfg.mesh.n_devices > 1:
+        raise ValueError(
+            f"mesh dp={cfg.mesh.dp} region={cfg.mesh.region} branch={cfg.mesh.branch}: "
+            "the port trains on one device (multi-device is not ported yet)"
+        )
+    device = resolve_device(device)
+    dataset = build_dataset(cfg)
+    supports = build_supports(cfg, dataset)
+    model = build_model(cfg, dataset.n_feats, device=device,
+                        generator=torch.Generator().manual_seed(cfg.train.seed))
+    t = cfg.train
+    return Trainer(
+        model, dataset, supports, lr=t.lr, weight_decay=t.weight_decay,
+        lr_schedule=t.lr_schedule, warmup_epochs=t.warmup_epochs,
+        min_lr_fraction=t.min_lr_fraction, grad_clip_norm=t.grad_clip_norm, loss=t.loss,
+        n_epochs=t.epochs, batch_size=t.batch_size, patience=t.patience, shuffle=t.shuffle,
+        seed=t.seed, steps_per_superstep=t.steps_per_superstep,
+        initial_state=initial_state, device=device, verbose=verbose,
+    )
+
+
+def run(cfg: ExperimentConfig, *, device=None, verbose: bool = True) -> dict:
+    """Train, then test on the best parameters (the reference's
+    ``Main.py:78-88`` flow): ``{"history": ..., "results": ...}``."""
+    trainer = build_trainer(cfg, device=device, verbose=verbose)
+    history = trainer.train()
+    return {"history": history, "results": trainer.test(modes=("train", "test"))}

@@ -30,7 +30,8 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-_LOCK = threading.Lock()
+_LOCKS: dict = {}  # one lock per library, so different kernels build in parallel
+_LOCKS_GUARD = threading.Lock()
 _LOADED: dict = {}
 
 
@@ -85,8 +86,12 @@ def load_library(sources, name: str) -> tuple[ctypes.CDLL, BuildInfo]:
 
     Raises when ``nvcc`` is missing or the build fails — there is no
     fallback: a caller holding CUDA tensors gets the kernel or an error.
+    Different libraries may be built from several threads at once (one
+    ``nvcc`` each); one library is built once.
     """
-    with _LOCK:
+    with _LOCKS_GUARD:
+        lock = _LOCKS.setdefault(name, threading.Lock())
+    with lock:
         if name not in _LOADED:
             info = _build(sources, name)
             _LOADED[name] = (ctypes.CDLL(str(info.path)), info)

@@ -1,12 +1,16 @@
-"""Fused multi-layer LSTM recurrence: the hand-written CUDA kernel and its
-plain PyTorch version.
+"""Fused multi-layer LSTM recurrence: the hand-written CUDA kernels and
+their plain PyTorch versions.
 
-Counterpart of ``stmgcn_tpu/ops/pallas_lstm.py`` (``fused_lstm``, forward
-kernel ``_fwd_kernel``). The kernel (``csrc/fused_lstm_fwd.cu``) runs the
-whole ``T x L`` recurrence for a block of rows with h and c kept on chip;
-layer 0's input projection is hoisted outside it as one large matmul
-(``ops/lstm.py``), and layers >= 1 contract ``[h_below, h_prev]`` against
-one packed ``(2H, 4H)`` weight.
+Counterpart of ``stmgcn_tpu/ops/pallas_lstm.py`` (``fused_lstm`` with its
+forward kernel ``_fwd_kernel`` and backward kernel ``_bwd_kernel``). The
+forward kernel (``csrc/fused_lstm_fwd.cu``) runs the whole ``T x L``
+recurrence for a block of rows with h and c kept on chip; layer 0's input
+projection is hoisted outside it as one large matmul (``ops/lstm.py``), and
+layers >= 1 contract ``[h_below, h_prev]`` against one packed ``(2H, 4H)``
+weight. The backward kernel (``csrc/fused_lstm_bwd.cu``) runs the reverse
+sweep from the forward's saved per-step h/c, recomputing the gates, and
+returns the packed weight gradients; :class:`FusedLSTM` ties the two into
+one ``torch.autograd.Function``.
 
 Every operand may carry a leading branch axis ``M`` (what ``vmap`` over the
 model's branches gives the TPU kernel): all ``M`` branches then run in one
@@ -15,14 +19,16 @@ launch over ``M * R`` rows, each CTA reading its branch's weights.
 :func:`fused_lstm` dispatches on where its tensors live: CUDA tensors
 launch the kernel (or raise — no fallback), CPU tensors take
 :func:`fused_lstm_reference`, the plain version the CPU tests and
-``chip_smoke.py`` hold the kernel against. Storage is float32 only in this
-slice; cell math is float32 either way.
+``chip_smoke.py`` hold the kernel against; :func:`fused_lstm_bwd` and
+:func:`fused_lstm_bwd_reference` are the backward's pair. Storage is
+float32 only so far; cell math is float32 either way.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+import math
 import threading
 from pathlib import Path
 
@@ -30,9 +36,21 @@ import torch
 
 from stmgcn_tpu_torch.ops._build import load_library
 
-__all__ = ["fused_lstm", "fused_lstm_reference", "kernel_library", "pack_weights"]
+__all__ = [
+    "FusedLSTM",
+    "bwd_kernel_library",
+    "fused_lstm",
+    "fused_lstm_autograd",
+    "fused_lstm_bwd",
+    "fused_lstm_bwd_reference",
+    "fused_lstm_reference",
+    "kernel_library",
+    "pack_weights",
+    "unpack_weight_grads",
+]
 
 SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "fused_lstm_fwd.cu"
+BWD_SOURCE = SOURCE.with_name("fused_lstm_bwd.cu")
 #: hidden widths the kernel's thread mapping takes (H | 256, 32 | H)
 KERNEL_HIDDEN = (32, 64, 128, 256)
 KERNEL_MAX_LAYERS = 4
@@ -49,6 +67,20 @@ def kernel_library():
     fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn, info
+
+
+@functools.lru_cache(maxsize=None)
+def bwd_kernel_library():
+    """The backward kernel's entry point, its workspace-size query and its
+    build record; built on first call."""
+    lib, info = load_library([BWD_SOURCE], "fused_lstm_bwd")
+    fn = lib.stmgcn_lstm_bwd
+    fn.argtypes = [ctypes.c_void_p] * 16 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    workspace = lib.stmgcn_lstm_bwd_workspace
+    workspace.argtypes = [ctypes.c_int] * 5
+    workspace.restype = ctypes.c_size_t
+    return fn, workspace, info
 
 
 def pack_weights(wh_stack: torch.Tensor, wx_stack: torch.Tensor):
@@ -115,6 +147,40 @@ def fused_lstm_reference(x_proj0, wh_stack, wx_stack, b_stack, *, with_residuals
     return result
 
 
+def _on_cuda(name, operands) -> bool:
+    """False when every operand lies on the CPU (the plain version runs);
+    True when all are float32, contiguous and on one CUDA device (the
+    kernel runs); raises on anything else — no fallback."""
+    if all(t.device.type == "cpu" for t in operands):
+        return False
+    device = operands[0].device
+    if device.type != "cuda" or any(t.device != device for t in operands):
+        raise ValueError(
+            f"{name}: operands must all be on one CUDA device (or all on "
+            f"the CPU), got {[str(t.device) for t in operands]}"
+        )
+    if any(t.dtype != torch.float32 for t in operands):
+        raise TypeError(
+            f"{name}: the CUDA kernel takes float32 storage only, got "
+            f"{[str(t.dtype) for t in operands]}"
+        )
+    if not all(t.is_contiguous() for t in operands):
+        raise ValueError(f"{name}: the CUDA kernel needs contiguous operands")
+    return True
+
+
+def _kernel_shapes(name, operands):
+    lead, R, T, L, H = _check_shapes(*operands[:4])
+    if H not in KERNEL_HIDDEN or not 1 <= L <= KERNEL_MAX_LAYERS:
+        raise ValueError(
+            f"{name}: the CUDA kernel takes H in {KERNEL_HIDDEN} and "
+            f"1 <= L <= {KERNEL_MAX_LAYERS}, got H={H}, L={L}"
+        )
+    if R == 0 or T == 0:
+        raise ValueError(f"{name}: empty recurrence (R={R}, T={T})")
+    return lead, math.prod(lead), R, T, L, H
+
+
 def fused_lstm(x_proj0, wh_stack, wx_stack, b_stack, *, with_residuals=False):
     """Run the fused recurrence from zero initial state.
 
@@ -137,32 +203,10 @@ def fused_lstm(x_proj0, wh_stack, wx_stack, b_stack, *, with_residuals=False):
     ``KERNEL_HIDDEN``, more than ``KERNEL_MAX_LAYERS`` layers.
     """
     operands = (x_proj0, wh_stack, wx_stack, b_stack)
-    if all(t.device.type == "cpu" for t in operands):
+    if not _on_cuda("fused_lstm", operands):
         return fused_lstm_reference(*operands, with_residuals=with_residuals)
+    lead, M, R, T, L, H = _kernel_shapes("fused_lstm", operands)
     device = x_proj0.device
-    if device.type != "cuda" or any(t.device != device for t in operands):
-        raise ValueError(
-            "fused_lstm: operands must all be on one CUDA device (or all on "
-            f"the CPU), got {[str(t.device) for t in operands]}"
-        )
-    if any(t.dtype != torch.float32 for t in operands):
-        raise TypeError(
-            "fused_lstm: the CUDA kernel takes float32 storage only, got "
-            f"{[str(t.dtype) for t in operands]}"
-        )
-    if not all(t.is_contiguous() for t in operands):
-        raise ValueError("fused_lstm: the CUDA kernel needs contiguous operands")
-    lead, R, T, L, H = _check_shapes(*operands)
-    if H not in KERNEL_HIDDEN or not 1 <= L <= KERNEL_MAX_LAYERS:
-        raise ValueError(
-            f"fused_lstm: the CUDA kernel takes H in {KERNEL_HIDDEN} and "
-            f"1 <= L <= {KERNEL_MAX_LAYERS}, got H={H}, L={L}"
-        )
-    if R == 0 or T == 0:
-        raise ValueError(f"fused_lstm: empty recurrence (R={R}, T={T})")
-    M = 1
-    for n in lead:
-        M *= n
     wh0, wxh = pack_weights(wh_stack, wx_stack)
     wh0, wxh = wh0.contiguous(), wxh.contiguous()
     out = torch.empty(lead + (R, T, H), device=device, dtype=torch.float32)
@@ -192,3 +236,190 @@ def fused_lstm(x_proj0, wh_stack, wx_stack, b_stack, *, with_residuals=False):
 
 #: kernel launches since the last reset (set to 0 to start a count)
 fused_lstm.launches = 0
+
+
+def _cotangents(x_proj0, L, g_out, g_hfin, g_cfin):
+    """Autograd passes ``None`` for an output whose gradient is unused
+    (``CGLSTM`` reads only the last step, so the final-state cotangents
+    usually are): those become zeros."""
+    lead, (R, T, four_h) = x_proj0.shape[:-3], x_proj0.shape[-3:]
+    H = four_h // 4
+
+    def zeros(shape):
+        return torch.zeros(lead + shape, device=x_proj0.device, dtype=torch.float32)
+
+    return (
+        zeros((R, T, H)) if g_out is None else g_out,
+        zeros((L, R, H)) if g_hfin is None else g_hfin,
+        zeros((L, R, H)) if g_cfin is None else g_cfin,
+    )
+
+
+def fused_lstm_bwd_reference(x_proj0, wh_stack, wx_stack, b_stack, hseq, cseq,
+                             g_out, g_hfin, g_cfin):
+    """Plain PyTorch version of :func:`fused_lstm_bwd`: the reverse sweep of
+    ``_bwd_kernel`` as a Python loop over t and layers with ``torch.matmul``
+    — recompute each step's pre-activations from the saved h/c, form the
+    gate cotangents, carry dh/dc back — with the same arguments and the same
+    packed outputs."""
+    lead, R, T, L, H = _check_shapes(x_proj0, wh_stack, wx_stack, b_stack)
+    g_out, g_hfin, g_cfin = _cotangents(x_proj0, L, g_out, g_hfin, g_cfin)
+    wh0, wxh = pack_weights(wh_stack, wx_stack)
+    dh = [g_hfin[..., layer, :, :] for layer in range(L)]
+    dc = [g_cfin[..., layer, :, :] for layer in range(L)]
+    zeros = x_proj0.new_zeros(lead + (R, H))
+    dxp = [None] * T
+    dwh0 = torch.zeros_like(wh0)
+    dwxh = [torch.zeros_like(wxh[..., 0, :, :]) for _ in range(wxh.shape[-3])]
+    db = [torch.zeros_like(b_stack[..., 0, :]) for _ in range(b_stack.shape[-2])]
+    for t in reversed(range(T)):
+        dh[L - 1] = dh[L - 1] + g_out[..., t, :]
+        for layer in reversed(range(L)):
+            h_prev = hseq[..., t - 1, layer, :, :] if t > 0 else zeros
+            c_prev = cseq[..., t - 1, layer, :, :] if t > 0 else zeros
+            c_t = cseq[..., t, layer, :, :]
+            if layer == 0:
+                hin = h_prev
+                pre = x_proj0[..., t, :] + h_prev @ wh0
+            else:
+                hin = torch.cat([hseq[..., t, layer - 1, :, :], h_prev], dim=-1)
+                pre = hin @ wxh[..., layer - 1, :, :] + b_stack[..., layer - 1 : layer, :]
+            i, f, g, o = (act(p) for act, p in zip(
+                (torch.sigmoid, torch.sigmoid, torch.tanh, torch.sigmoid), pre.chunk(4, dim=-1)))
+            tc = torch.tanh(c_t)
+            d_o = dh[layer] * tc
+            dct = dc[layer] + dh[layer] * o * (1.0 - tc * tc)
+            dgates = torch.cat([
+                dct * g * i * (1.0 - i),
+                dct * c_prev * f * (1.0 - f),
+                dct * i * (1.0 - g * g),
+                d_o * o * (1.0 - o),
+            ], dim=-1)
+            dc[layer] = dct * f
+            if layer == 0:
+                dh[0] = dgates @ wh0.transpose(-1, -2)
+                dwh0 = dwh0 + hin.transpose(-1, -2) @ dgates
+                dxp[t] = dgates
+            else:
+                dcat = dgates @ wxh[..., layer - 1, :, :].transpose(-1, -2)
+                dh[layer - 1] = dh[layer - 1] + dcat[..., :H]
+                dh[layer] = dcat[..., H:]
+                dwxh[layer - 1] = dwxh[layer - 1] + hin.transpose(-1, -2) @ dgates
+                db[layer - 1] = db[layer - 1] + dgates.sum(dim=-2)
+    return (torch.stack(dxp, dim=-2), dwh0, torch.stack(dwxh, dim=-3),
+            torch.stack(db, dim=-2))
+
+
+def fused_lstm_bwd(x_proj0, wh_stack, wx_stack, b_stack, hseq, cseq,
+                   g_out=None, g_hfin=None, g_cfin=None):
+    """Backward of :func:`fused_lstm`: the reverse sweep over its saved
+    per-step states.
+
+    Args: the forward's four operands; its residuals ``hseq``/``cseq``
+    ``([M,] T, L, R, H)``; the cotangents of its three outputs, ``g_out``
+    ``([M,] R, T, H)`` and ``g_hfin``/``g_cfin`` ``([M,] L, R, H)``, each
+    of which may be ``None`` (zeros).
+
+    Returns the packed gradients of ``_fused_bwd``'s kernel: ``dxp ([M,]
+    R, T, 4H)``, ``dwh0 ([M,] H, 4H)``, ``dwxh ([M,] max(L-1, 1), 2H, 4H)``
+    and ``db ([M,] max(L-1, 1), 4H)`` (the last two zeros when L == 1);
+    :func:`unpack_weight_grads` turns them into per-stack gradients.
+
+    On CPU tensors this is :func:`fused_lstm_bwd_reference`. On CUDA
+    tensors it launches ``csrc/fused_lstm_bwd.cu`` on the current stream,
+    with the scratch it needs, and raises on what the kernel does not take
+    (the forward's rules). The result is deterministic: no atomics, a
+    fixed summation order.
+    """
+    L = wh_stack.shape[-3]
+    g_out, g_hfin, g_cfin = _cotangents(x_proj0, L, g_out, g_hfin, g_cfin)
+    operands = (x_proj0, wh_stack, wx_stack, b_stack, hseq, cseq, g_out, g_hfin, g_cfin)
+    if not _on_cuda("fused_lstm_bwd", operands):
+        return fused_lstm_bwd_reference(*operands)
+    lead, M, R, T, L, H = _kernel_shapes("fused_lstm_bwd", operands)
+    want = {"hseq": lead + (T, L, R, H), "cseq": lead + (T, L, R, H),
+            "g_out": lead + (R, T, H), "g_hfin": lead + (L, R, H), "g_cfin": lead + (L, R, H)}
+    for name, t in zip(want, operands[4:]):
+        if tuple(t.shape) != want[name]:
+            raise ValueError(f"fused_lstm_bwd: {name} must be {want[name]}, got {tuple(t.shape)}")
+    if hseq.data_ptr() % 16:  # the weight-gradient pass reads it 16 bytes at a time
+        raise ValueError("fused_lstm_bwd: hseq must start on a 16-byte boundary")
+    device = x_proj0.device
+    wh0, wxh = pack_weights(wh_stack, wx_stack)
+    wh0, wxh = wh0.contiguous(), wxh.contiguous()
+    # transposed copies: the kernel's dgates @ W^T reads them coalesced
+    wh0t = wh0.transpose(-1, -2).contiguous()
+    wxht = wxh.transpose(-1, -2).contiguous()
+    fn, workspace_floats, _ = bwd_kernel_library()
+    dxp = torch.empty_like(x_proj0)
+    dwh0 = torch.empty_like(wh0)
+    new = torch.empty if L > 1 else torch.zeros  # L == 1: unwritten placeholders
+    dwxh = new(wxh.shape, device=device, dtype=torch.float32)
+    db = new(b_stack.shape, device=device, dtype=torch.float32)
+    work = torch.empty(workspace_floats(M, R, T, L, H), device=device, dtype=torch.float32)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = fn(
+            *(t.data_ptr() for t in (x_proj0, wh0, wxh, b_stack, wh0t, wxht, hseq, cseq,
+                                     g_out, g_hfin, g_cfin, dxp, dwh0, dwxh, db, work)),
+            M, R, T, L, H, stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"fused_lstm_bwd: kernel launch failed with cudaError {err}")
+    with _COUNT_LOCK:
+        fused_lstm_bwd.launches += 1
+    return dxp, dwh0, dwxh, db
+
+
+#: kernel launches since the last reset (set to 0 to start a count)
+fused_lstm_bwd.launches = 0
+
+
+def unpack_weight_grads(dwh0, dwxh, wh_stack, wx_stack):
+    """``(dwh_stack, dwx_stack)`` from the packed ``(dwh0, dwxh)``, as
+    ``_fused_bwd`` unpacks them: rows ``0:H`` of ``dwxh`` are layer l's
+    input-weight gradient, rows ``H:2H`` its recurrent one; ``dwx`` is zeros
+    when L == 1 (its slab is never read)."""
+    L, H = wh_stack.shape[-3], wh_stack.shape[-2]
+    if L == 1:
+        return dwh0.unsqueeze(-3), torch.zeros_like(wx_stack)
+    dwh = torch.cat([dwh0.unsqueeze(-3), dwxh[..., H:, :]], dim=-3)
+    return dwh, dwxh[..., :H, :]
+
+
+class FusedLSTM(torch.autograd.Function):
+    """:func:`fused_lstm` with :func:`fused_lstm_bwd` as its backward: the
+    forward keeps the residuals the backward reads (``x_proj0``, the
+    weights, ``hseq``, ``cseq``). Use :func:`fused_lstm_autograd`, which
+    takes this route only when a gradient is wanted."""
+
+    @staticmethod
+    def forward(ctx, x_proj0, wh_stack, wx_stack, b_stack):
+        out, h_fin, c_fin, hseq, cseq = fused_lstm(
+            x_proj0, wh_stack, wx_stack, b_stack, with_residuals=True)
+        ctx.save_for_backward(x_proj0, wh_stack, wx_stack, b_stack, hseq, cseq)
+        return out, h_fin, c_fin
+
+    @staticmethod
+    def backward(ctx, g_out, g_hfin, g_cfin):
+        x_proj0, wh_stack, wx_stack, b_stack, hseq, cseq = ctx.saved_tensors
+
+        def dense(g):
+            return None if g is None else g.contiguous()
+
+        dxp, dwh0, dwxh, db = fused_lstm_bwd(
+            x_proj0, wh_stack, wx_stack, b_stack, hseq, cseq,
+            dense(g_out), dense(g_hfin), dense(g_cfin))
+        dwh, dwx = unpack_weight_grads(dwh0, dwxh, wh_stack, wx_stack)
+        return dxp, dwh, dwx, db
+
+
+def fused_lstm_autograd(x_proj0, wh_stack, wx_stack, b_stack):
+    """:func:`fused_lstm` for a model: through :class:`FusedLSTM` (residuals
+    kept, backward kernel on ``.backward()``) when grad is enabled and an
+    operand requires it; otherwise the forward alone, without residuals, as
+    serving calls it. Returns ``(hs_top, h_fin, c_fin)``."""
+    operands = (x_proj0, wh_stack, wx_stack, b_stack)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in operands):
+        return FusedLSTM.apply(*operands)
+    return fused_lstm(*operands)

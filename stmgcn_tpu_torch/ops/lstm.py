@@ -11,7 +11,10 @@ Two routes, chosen by where the input lives:
   input projection ``x @ wx_0 + b_0`` for all T steps is one matmul, and
   the whole ``T x L`` recurrence is one launch of the hand-written kernel
   (:func:`~stmgcn_tpu_torch.ops.fused_lstm.fused_lstm`) — for every branch
-  at once when the module carries a branch axis;
+  at once when the module carries a branch axis. Under autograd it goes
+  through :class:`~stmgcn_tpu_torch.ops.fused_lstm.FusedLSTM`, whose
+  backward is one launch of the backward kernel, so every parameter gets
+  its gradient;
 - CPU tensors take the layered path: per layer, the hoisted input
   projection, then a Python loop over t of ``h @ wh``.
 
@@ -26,7 +29,7 @@ from typing import Optional
 import torch
 from torch import nn
 
-from stmgcn_tpu_torch.ops.fused_lstm import fused_lstm
+from stmgcn_tpu_torch.ops.fused_lstm import fused_lstm_autograd
 from stmgcn_tpu_torch.ops.layers import branch_view, lstm_uniform, new_param
 
 __all__ = ["StackedLSTM"]
@@ -91,7 +94,8 @@ class StackedLSTM(nn.Module):
         return inputs, final_states
 
     def fused(self, x: torch.Tensor):
-        """Kernel route: hoisted layer-0 projection + one fused launch."""
+        """Kernel route: hoisted layer-0 projection + one fused launch (and
+        one backward launch under autograd)."""
         L, h4 = self.num_layers, 4 * self.hidden_dim
         wx0, _, b0 = self.layer_params(0)
         x_proj0 = x @ wx0.unsqueeze(-3) if self.branches else x @ wx0
@@ -106,6 +110,6 @@ class StackedLSTM(nn.Module):
             lead = x_proj0.shape[:-3]
             wx_stack = x_proj0.new_zeros(lead + (1, self.hidden_dim, h4))
             b_stack = x_proj0.new_zeros(lead + (1, h4))
-        hs_top, h_fin, c_fin = fused_lstm(x_proj0, wh_stack, wx_stack, b_stack)
+        hs_top, h_fin, c_fin = fused_lstm_autograd(x_proj0, wh_stack, wx_stack, b_stack)
         return hs_top, [(h_fin[..., layer, :, :], c_fin[..., layer, :, :])
                         for layer in range(L)]

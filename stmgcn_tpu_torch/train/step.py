@@ -1,0 +1,199 @@
+"""Train/eval steps, the masked loss, the window gather and the optimizer.
+
+Counterpart of ``stmgcn_tpu/train/step.py`` for fp32 on one device. The
+JAX package jits pure functions over explicit state; here the state is the
+model's parameters and an :class:`Optimizer`, and a step runs eagerly:
+
+- **Optimizer parity** (``make_optimizer``, ``step.py:135-209``): optax's
+  chain of global-norm clipping, ``add_decayed_weights`` (L2 added to the
+  gradient before the moments, which is how ``torch.optim.Adam``'s
+  ``weight_decay`` couples it), Adam (b1 0.9, b2 0.999, eps 1e-8,
+  eps_root 0) and ``-lr`` from optax's ``warmup_cosine_decay_schedule``,
+  counted in optimizer steps. The clip divides by the norm only past
+  ``max_norm``, as optax does (not ``clip_grad_norm_``'s ``norm + 1e-6``).
+- **Loss parity** (``_elementwise_loss``/``loss_fn``): MSE, MAE and Huber
+  (delta 1) over real elements only, with ``(B,)`` sample masks or
+  ``(B, N)`` sample-by-node masks and the same denominator.
+- **Window gather** (``gather_window_batch``): the microbatch is indexed
+  out of the device-resident ``(T, N, C)`` series, bit-identical to the
+  materialized windows.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Callable, Optional
+
+import torch
+
+__all__ = [
+    "LOSSES",
+    "Optimizer",
+    "clip_by_global_norm_",
+    "elementwise_loss",
+    "eval_step",
+    "gather_window_batch",
+    "lr_schedule",
+    "make_optimizer",
+    "masked_loss",
+    "train_step",
+]
+
+LOSSES = ("mse", "mae", "huber")
+
+
+def lr_schedule(lr: float, schedule: str = "none", warmup_steps: int = 0,
+                decay_steps: int = 0, min_lr_fraction: float = 0.0) -> Callable[[int], float]:
+    """The learning rate at optimizer step ``k`` (0-based), with the JAX
+    package's validation: ``"none"`` is constant; ``"cosine"`` is optax's
+    ``warmup_cosine_decay_schedule`` (linear warmup from 0, or from ``lr``
+    without warmup, then cosine decay to ``lr * min_lr_fraction`` at
+    ``decay_steps``)."""
+    if not 0.0 <= min_lr_fraction <= 1.0:
+        raise ValueError(f"min_lr_fraction must be in [0, 1], got {min_lr_fraction}")
+    if schedule == "none":
+        if warmup_steps or min_lr_fraction:
+            raise ValueError(
+                "warmup_steps/min_lr_fraction only apply to schedule='cosine' "
+                f"(got schedule='none' with warmup_steps={warmup_steps}, "
+                f"min_lr_fraction={min_lr_fraction})"
+            )
+        return lambda step: lr
+    if schedule != "cosine":
+        raise ValueError(f"schedule must be none|cosine, got {schedule!r}")
+    if decay_steps <= 0:
+        raise ValueError("schedule='cosine' needs decay_steps > 0")
+    if warmup_steps >= decay_steps:
+        raise ValueError(
+            f"warmup_steps ({warmup_steps}) must be shorter than the run "
+            f"(decay_steps={decay_steps})"
+        )
+    init = 0.0 if warmup_steps else lr
+    end = lr * min_lr_fraction
+    alpha = 0.0 if lr == 0.0 else end / lr
+    span = decay_steps - warmup_steps
+
+    def at(step: int) -> float:
+        if step < warmup_steps:  # optax linear_schedule(init, lr, warmup_steps)
+            frac = 1.0 - min(step, warmup_steps) / warmup_steps
+            return (init - lr) * frac + lr
+        count = min(step - warmup_steps, span)
+        cosine = 0.5 * (1.0 + math.cos(math.pi * count / span))
+        return lr * ((1.0 - alpha) * cosine + alpha)
+
+    return at
+
+
+@torch.no_grad()
+def clip_by_global_norm_(params, max_norm: float) -> torch.Tensor:
+    """optax ``clip_by_global_norm`` on the ``.grad`` of ``params``, in
+    place and without a host sync: unchanged while the global norm is below
+    ``max_norm``, else every gradient becomes ``g / norm * max_norm``.
+    Returns the norm (a device scalar)."""
+    grads = [p.grad for p in params if p.grad is not None]
+    norm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
+    keep = norm < max_norm
+    for g in grads:
+        g.copy_(torch.where(keep, g, g / norm * max_norm))
+    return norm
+
+
+class Optimizer:
+    """Adam with L2 regularization, clipping and a schedule, with optax's
+    semantics (see the module docstring). ``step()`` takes the parameters'
+    ``.grad``; a parameter without one steps on a zero gradient, as under
+    ``jax.grad`` (its L2 term still applies)."""
+
+    def __init__(self, params, lr: float, weight_decay: float,
+                 schedule: Callable[[int], float], grad_clip_norm: Optional[float]):
+        self.params = list(params)
+        self.schedule = schedule
+        self.grad_clip_norm = grad_clip_norm
+        #: optimizer steps taken (optax's ``count``: the schedule's input)
+        self.count = 0
+        self.adam = torch.optim.Adam(self.params, lr=schedule(0), betas=(0.9, 0.999),
+                                     eps=1e-8, weight_decay=weight_decay)
+
+    def zero_grad(self) -> None:
+        self.adam.zero_grad(set_to_none=True)
+
+    def step(self) -> None:
+        for p in self.params:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        if self.grad_clip_norm is not None:
+            clip_by_global_norm_(self.params, self.grad_clip_norm)
+        for group in self.adam.param_groups:
+            group["lr"] = self.schedule(self.count)
+        self.adam.step()
+        self.count += 1
+
+
+def make_optimizer(params, lr: float, weight_decay: float = 0.0, schedule: str = "none",
+                   warmup_steps: int = 0, decay_steps: int = 0,
+                   min_lr_fraction: float = 0.0,
+                   grad_clip_norm: Optional[float] = None) -> Optimizer:
+    """An :class:`Optimizer` over ``params``; arguments as the JAX
+    package's ``make_optimizer``."""
+    if grad_clip_norm is not None and grad_clip_norm <= 0:
+        raise ValueError(f"grad_clip_norm must be > 0, got {grad_clip_norm}")
+    sched = lr_schedule(lr, schedule, warmup_steps, decay_steps, min_lr_fraction)
+    return Optimizer(params, lr, weight_decay, sched, grad_clip_norm)
+
+
+def elementwise_loss(kind: str, pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+    if kind == "mse":
+        return torch.square(pred - target)
+    if kind == "mae":
+        return torch.abs(pred - target)
+    if kind == "huber":  # optax.losses.huber_loss, delta 1
+        abs_err = torch.abs(pred - target)
+        quadratic = torch.clamp(abs_err, max=1.0)
+        return 0.5 * quadratic * quadratic + (abs_err - quadratic)
+    raise ValueError(f"loss must be one of {LOSSES}, got {kind!r}")
+
+
+def masked_loss(kind: str, pred: torch.Tensor, y: torch.Tensor,
+                mask: torch.Tensor) -> torch.Tensor:
+    """Mean loss over real elements. ``y`` is ``(B, N, C)`` or ``(B, H, N,
+    C)``; ``mask`` is ``(B,)`` (per sample) or ``(B, N)`` (sample x real
+    node), 0/1."""
+    err = elementwise_loss(kind, pred.float(), y.float())
+    if mask.dim() == 1:
+        w = mask.reshape(mask.shape + (1,) * (y.dim() - 1))
+        denom = mask.sum() * math.prod(y.shape[1:])
+    else:
+        w = mask[:, None, :, None] if y.dim() == 4 else mask[:, :, None]
+        per_node = y.shape[-1] * (y.shape[1] if y.dim() == 4 else 1)
+        denom = mask.sum() * per_node
+    return (err * w).sum() / denom
+
+
+def gather_window_batch(series, targets, offsets, idx, horizon: int = 1):
+    """A microbatch ``(x, y)`` from the resident series: ``x[b] =
+    series[targets[idx[b]] + offsets]`` and ``y[b] = series[targets[idx[b]]
+    (+ arange(horizon))]``. Pure index copies, so bit-identical to the
+    materialized windows."""
+    tgt = targets.index_select(0, idx)
+    x = series[tgt[:, None] + offsets[None, :]]
+    if horizon == 1:
+        return x, series[tgt]
+    steps = torch.arange(horizon, device=tgt.device, dtype=tgt.dtype)
+    return x, series[tgt[:, None] + steps[None, :]]
+
+
+def train_step(model, optimizer: Optimizer, supports, x, y, mask,
+               loss: str = "mse") -> torch.Tensor:
+    """One optimizer step; returns the (device, detached) loss, unsynced."""
+    optimizer.zero_grad()
+    value = masked_loss(loss, model(supports, x), y, mask)
+    value.backward()
+    optimizer.step()
+    return value.detach()
+
+
+@torch.no_grad()
+def eval_step(model, supports, x, y, mask, loss: str = "mse"):
+    """``(loss, prediction)`` without gradients."""
+    pred = model(supports, x)
+    return masked_loss(loss, pred, y, mask), pred

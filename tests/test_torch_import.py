@@ -18,7 +18,7 @@ import pytest
 import torch
 
 import stmgcn_tpu_torch
-from stmgcn_tpu_torch import Forecaster, ServingEngine, STMGCN, preset
+from stmgcn_tpu_torch import Forecaster, ServingEngine, STMGCN, Trainer, build_trainer, preset
 from stmgcn_tpu_torch.ops import _build
 
 torch.set_num_threads(1)
@@ -83,6 +83,13 @@ def test_entry_points_need_a_gpu_unless_told_cpu():
         ServingEngine.from_forecaster(fc, supports)
     with ServingEngine.from_forecaster(fc, supports, device="cpu") as eng:
         assert eng.predict(np.ones((2, 5, 4, 1), np.float32)).shape == (2, 4, 1)
+    cfg.data.rows, cfg.data.n_timesteps = 3, 24 * 7 + 60
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        build_trainer(cfg)
+    trainer = build_trainer(cfg, device="cpu", verbose=False)
+    assert trainer.device.type == "cpu"
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Trainer(trainer.model, trainer.dataset, trainer.supports.numpy())
 
 
 def test_kernel_build_has_no_fallback(monkeypatch, tmp_path):
