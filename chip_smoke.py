@@ -36,7 +36,30 @@ Phases, each of which ends the run with a non-zero exit code on failure:
 9. the same model from one initial state, three steps at batch 4 on the
    card and on the CPU's plain path: losses and parameters agree;
 10. trace two training steps: device busy time, idle share, and the
-    forward and backward kernels' shares.
+    forward and backward kernels' shares;
+11. the metro city of ``bench.py``'s largeN point on the host: a 64x128 grid
+    (N = 8,192) with structured transit and district-similarity graphs
+    (this file's own copy of the builder), its dense Chebyshev supports and
+    their tiled plan at tile 128, with the host seconds of each;
+12. the block-CSR kernels against their plain versions on the card: the
+    stacked forward (B3) and backward (B4, two runs bitwise equal) at the
+    plan's gate-conv and graph-conv shapes for batch 2 and the top serving
+    rung, shared and per-branch signals, a ragged sub-city at tiles 128 and
+    64; the single-support kernel (B5) and its transpose on one unpermuted
+    support; each timed against its bound, its plain version and the dense
+    cuBLAS product over the same supports;
+13. serve the ``default``-width flagship on the plan (ladder 1, 2, 4;
+    requests of 1, 2, 4 and 5 rows), every response equal to
+    ``Forecaster.predict``, the same weights through the dense model on the
+    dense stack agreeing, and two B3 launches, one B1 launch and no backward
+    launch per forward;
+14. train it on the plan (batch 2, two epochs, blocks of 4 steps), with one
+    B1, one B2, two B3 and one B4 launch per optimizer step, the step p50,
+    the tiled model against the dense one over three steps from one state,
+    and a trace of two steps with each kernel's share;
+15. the block-sparse mode at the metro city: per-branch ``BlockSparseStack``
+    supports (B3/B4) and the K-tuple of ``BlockSparse`` (B5), one forward
+    and backward each, equal to the dense model's output and input gradient.
 
 The last three lines are the card, one JSON object describing each kernel,
 and ``{"ok": true, "device": {...}}``. There is no CPU mode: without a CUDA
@@ -45,6 +68,7 @@ device the script exits non-zero before printing any result.
 
 from __future__ import annotations
 
+import importlib
 import json
 import math
 import subprocess
@@ -93,6 +117,30 @@ CPU_LOSS_RTOL, CPU_UPDATE_RTOL = 1e-5, 1e-3
 #: tensor cores, and HBM3 bandwidth
 PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
+#: the metro city of bench.py's largeN point (bench.py:1155-1235): a
+#: METRO_ROWS x 2*METRO_ROWS grid, N = 8,192, planned at tile 128; batch 2
+#: and a 3+1+1-step window as bench.py runs it. 200 timesteps give 22
+#: training windows: 11 optimizer steps per epoch at batch 2.
+METRO_ROWS, METRO_TILE, METRO_BATCH, METRO_SERIAL = 64, 128, 2, 3
+METRO_TIMESTEPS, METRO_EPOCHS = 200, 2
+METRO_BUCKETS, METRO_SIZES, METRO_ROUNDS = (1, 2, 4), (1, 2, 4, 5), 3
+#: the ragged kernel checks: a sub-city of the first RAGGED_N nodes and a
+#: RAGGED_F-column signal, neither a multiple of a tile
+RAGGED_N, RAGGED_F = 1000, 37
+#: block-CSR kernels vs plain versions, fp32: each output entry sums at
+#: most C*t products (1,920 at the metro plan's C = 15, t = 128) in another order, so it is
+#: held at rtol 1e-5 plus 1e-5 of the output's largest entry
+SPMM_RTOL, SPMM_ATOL = 1e-5, 1e-5
+#: the tiled/sparse model vs the dense one on the card, fp32: the two sum
+#: each support row's products in other orders. Outputs (normalized
+#: units) rtol 1e-4, atol 1e-5. Input gradients are held normwise,
+#: |g - g_dense| <= GRAD_RTOL |g_dense|: a ReLU pre-activation within
+#: rounding of zero can take the other sign under the other order (one of
+#: the graph conv's 3.1M at the metro city, |v| ~ 1e-9, seen on the card),
+#: and the gradient through it jumps, moving a few dozen entries of the
+#: input gradient by up to 4% of its largest entry; a wrong product moves
+#: the whole gradient by O(1).
+MODEL_RTOL, MODEL_ATOL, GRAD_RTOL = 1e-4, 1e-5, 1e-2
 
 
 def fail(msg: str) -> None:
@@ -114,10 +162,12 @@ def build_kernels() -> None:
 
     from stmgcn_tpu_torch.ops.fused_lstm import bwd_kernel_library, kernel_library
 
+    spmm_library = importlib.import_module("stmgcn_tpu_torch.ops.spmm").kernel_library
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=2) as pool:
+    with ThreadPoolExecutor(max_workers=3) as pool:
         infos = [f.result()[-1] for f in [pool.submit(kernel_library),
-                                          pool.submit(bwd_kernel_library)]]
+                                          pool.submit(bwd_kernel_library),
+                                          pool.submit(spmm_library)]]
     print(f"built {', '.join(i.path.name for i in infos)} in "
           f"{time.perf_counter() - t0:.1f} s (nvcc in parallel: "
           f"{', '.join(f'{i.seconds:.1f} s' for i in infos)})")
@@ -401,40 +451,69 @@ def check_lstm_bwd_kernel(device) -> dict:
     }
 
 
-def trace_rungs(engine, windows, rungs, iters: int = 10) -> None:
-    """Phase 6: where one dispatch's time goes, per rung, from a
-    ``torch.profiler`` trace of ``iters`` direct dispatches: wall time per
-    dispatch (profiler on), device busy time (CUDA kernels and copies),
-    the idle share, and the LSTM kernel's share of busy time."""
+#: kernel-name pieces in a profiler trace, by the kernel whose share they are
+LSTM_PARTS = {
+    "B1 forward": ("lstm_fwd_kernel",),
+    "B2 sweep": ("lstm_bwd_sweep",),
+    "B2 weight gradients": ("lstm_bwd_wgrad",),
+    "B2 reduce": ("reduce_partials",),
+}
+SPMM_PARTS = {"B3": ("spmm_stack_fwd_kernel",), "B4": ("spmm_stack_bwd_kernel",)}
+
+
+def profiled(run, iters: int):
+    """Wall ms per call of ``run`` under ``torch.profiler`` (profiler on,
+    so an upper bound) and each CUDA kernel's device ms per call."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            run()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / iters
+    device = {
+        e.key: e.self_device_time_total / 1e3 / iters
+        for e in prof.key_averages()
+        if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
+    }
+    return wall, device
+
+
+def shares(what, wall, device, parts, top: int = 4) -> None:
+    """One line: device busy ms, idle share, each part's ms and share of
+    busy time, the rest; then the top kernels."""
+    busy = sum(device.values())
+    if busy == 0.0:
+        print(f"trace, {what}: no device time recorded (not measured)")
+        return
+    ms = {name: sum(v for k, v in device.items() if any(key in k for key in keys))
+          for name, keys in parts.items()}
+    rest = busy - sum(ms.values())
+    print(f"trace, {what}: wall {wall:.4f} ms (profiler on), device busy {busy:.4f} ms, "
+          f"idle share {1 - busy / wall:.3f}; "
+          + "; ".join(f"{n} {v:.4f} ms = {v / busy:.3f}" for n, v in ms.items())
+          + f"; rest {rest:.4f} ms = {rest / busy:.3f}")
+    print(f"trace, {what}, top device time (ms): " + "; ".join(
+        f"{k[:48]} {v:.4f}" for k, v in sorted(device.items(), key=lambda kv: -kv[1])[:top]))
+
+
+def trace_rungs(engine, windows, rungs, parts, what: str, iters: int = 10) -> None:
+    """Phase 6: where one dispatch's time goes, per rung, from a
+    ``torch.profiler`` trace of ``iters`` direct dispatches: wall time per
+    dispatch (profiler on), device busy time (CUDA kernels and copies),
+    the idle share, and each kernel's share of busy time."""
+    import torch
 
     for b in rungs:
         for _ in range(3):
             engine.predict_direct(windows[:b])
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            for _ in range(iters):
-                engine.predict_direct(windows[:b])
-            torch.cuda.synchronize()
-            wall = (time.perf_counter() - t0) * 1e3 / iters
-        device = {
-            e.key: e.self_device_time_total / 1e3 / iters
-            for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
-        }
-        busy = sum(device.values())
-        if busy == 0.0:
-            print(f"trace, rung {b}: no device time recorded (not measured)")
-            continue
-        lstm = sum(v for k, v in device.items() if "lstm_fwd_kernel" in k)
-        top = sorted(device.items(), key=lambda kv: -kv[1])[:4]
-        print(f"trace, rung {b}: wall {wall:.4f} ms/dispatch (profiler on), device "
-              f"busy {busy:.4f} ms, idle share {1 - busy / wall:.3f}, LSTM kernel "
-              f"{lstm:.4f} ms = {lstm / busy:.3f} of busy; top: "
-              + "; ".join(f"{k[:48]} {v:.4f}" for k, v in top))
+        wall, device = profiled(lambda: engine.predict_direct(windows[:b]), iters)
+        shares(f"{what}, rung {b}, per dispatch", wall, device, parts)
 
 
 def serve(device, grid: int = GRID):
@@ -526,7 +605,8 @@ def serve(device, grid: int = GRID):
         forwards = len(BUCKETS) + snapshot["totals"]["dispatches"] + fc_calls
         launches = fused_lstm.launches
         if device.type == "cuda":
-            trace_rungs(engine, windows, (BUCKETS[0], BUCKETS[-1]))
+            trace_rungs(engine, windows, (BUCKETS[0], BUCKETS[-1]),
+                        {"B1": LSTM_PARTS["B1 forward"]}, "dense serving")
         return snapshot, forwards, launches
     finally:
         engine.close()
@@ -543,16 +623,49 @@ def flagship_config(batch: int):
     return cfg
 
 
-def train_on_card(device):
-    """Phase 7: ``build_trainer`` -> ``train()`` -> ``test()`` on the card,
-    with the launch counts of both LSTM kernels read around it. Returns the
-    trainer and the counts."""
-    import torch
-
-    from stmgcn_tpu_torch import build_trainer
+def kernels() -> dict:
+    """Every kernel wrapper of the port by kernel number; each counts its
+    launches in ``.launches``."""
     from stmgcn_tpu_torch.ops.fused_lstm import fused_lstm, fused_lstm_bwd
 
-    trainer = build_trainer(flagship_config(BATCH), device=device)
+    spmm = importlib.import_module("stmgcn_tpu_torch.ops.spmm")
+    return {"B1": fused_lstm, "B2": fused_lstm_bwd, "B3": spmm.spmm_stack,
+            "B4": spmm.spmm_stack_bwd, "B5": spmm.spmm}
+
+
+def reset_counts() -> None:
+    for fn in kernels().values():
+        fn.launches = 0
+
+
+def read_counts() -> dict:
+    import torch
+
+    torch.cuda.synchronize()
+    return {k: fn.launches for k, fn in kernels().items()}
+
+
+def check_counts(counts, per_forward, per_step, forwards, steps, what) -> None:
+    """Each kernel launched ``per_forward[k]`` times per model forward and
+    ``per_step[k]`` times per optimizer step, and never otherwise."""
+    for k, got in counts.items():
+        want = per_forward.get(k, 0) * forwards + per_step.get(k, 0) * steps
+        if got != want:
+            fail(f"{what}: {got} {k} launches, expected {want} ({per_forward.get(k, 0)} per "
+                 f"forward x {forwards} forwards + {per_step.get(k, 0)} per step x {steps} steps)")
+
+
+def counts_text(counts) -> str:
+    return ", ".join(f"{k} {v}" for k, v in counts.items())
+
+
+def train_and_test(trainer, per_forward, per_step, what):
+    """``train()`` then ``test()`` with every kernel's launches counted
+    around them (set to 0 just before, read just after): finite losses and
+    metrics, a finite gradient on every parameter after the first step,
+    and ``per_forward``/``per_step`` launches. Returns history and counts."""
+    import torch
+
     first: dict = {}
     step = trainer.optimizer.step
 
@@ -563,45 +676,51 @@ def train_on_card(device):
         step()
 
     trainer.optimizer.step = step_checking_grads
-    fused_lstm.launches = fused_lstm_bwd.launches = 0
+    reset_counts()
     history = trainer.train()
     results = trainer.test()
-    torch.cuda.synchronize()
-    fwd, bwd = fused_lstm.launches, fused_lstm_bwd.launches
+    counts = read_counts()
     trainer.optimizer.step = step
 
-    print(f"training history: {json.dumps(history)}")
+    print(f"{what}, history: {json.dumps(history)}")
     if not all(np.isfinite(history[m]).all() for m in history):
-        fail("non-finite epoch loss")
+        fail(f"{what}: non-finite epoch loss")
     for mode, report in results.items():
-        print(f"test(), {mode}: " + ", ".join(f"{k} {v:.6g}" for k, v in report.items()))
+        print(f"{what}, test(), {mode}: " + ", ".join(f"{k} {v:.6g}" for k, v in report.items()))
         if not all(np.isfinite(v) for v in report.values()):
-            fail(f"non-finite {mode} metrics")
+            fail(f"{what}: non-finite {mode} metrics")
     bad = sorted(n for n, ok in first.items() if not ok)
     if not first or bad:
-        fail(f"parameters without a finite gradient after the first step: {bad}")
-    print(f"every parameter ({len(first)}) has a finite gradient after the first step")
+        fail(f"{what}: parameters without a finite gradient after the first step: {bad}")
+    print(f"{what}: every parameter ({len(first)}) has a finite gradient after the first step")
     ds, bs, epochs = trainer.dataset, trainer.batch_size, len(history["train"])
     steps = trainer.global_step
     forwards = steps + epochs * ds.num_batches("validate", bs) + sum(
         ds.num_batches(m, bs) for m in results)
     if steps != epochs * trainer.train_steps_per_epoch or steps != trainer.optimizer.count:
-        fail(f"{steps} optimizer steps for {epochs} epochs")
-    if bwd != steps:
-        fail(f"{bwd} backward kernel launches for {steps} optimizer steps")
-    if fwd != forwards:
-        fail(f"{fwd} forward kernel launches for {forwards} model forwards "
-             f"({steps} train steps + validation and test() batches)")
-    print(f"training path: {steps} optimizer steps ({epochs} epochs x "
-          f"{trainer.train_steps_per_epoch}, blocks of {SUPERSTEP}); backward kernel "
-          f"launches {bwd} (one per step), forward kernel launches {fwd} (one per model "
-          f"forward: {steps} train + {forwards - steps} validation/test)")
-    return trainer, fwd, bwd
+        fail(f"{what}: {steps} optimizer steps for {epochs} epochs")
+    check_counts(counts, per_forward, per_step, forwards, steps, what)
+    print(f"{what}: {steps} optimizer steps ({epochs} epochs x {trainer.train_steps_per_epoch}, "
+          f"batch {bs}, blocks of {trainer.steps_per_superstep}) and {forwards - steps} "
+          f"validation/test forwards; launches {counts_text(counts)} (per forward: "
+          f"{counts_text(per_forward)}; per step: {counts_text(per_step)})")
+    return history, counts
 
 
-def step_times(trainer) -> None:
-    """Phase 8: host clock around single optimizer steps that end in a
-    synchronize, at batch 64."""
+def train_on_card(device):
+    """Phase 7: ``build_trainer`` -> ``train()`` -> ``test()`` on the card:
+    one B1 launch per model forward, one B2 launch per optimizer step.
+    Returns the trainer and the launch counts."""
+    from stmgcn_tpu_torch import build_trainer
+
+    trainer = build_trainer(flagship_config(BATCH), device=device)
+    _, counts = train_and_test(trainer, {"B1": 1}, {"B2": 1}, "dense training")
+    return trainer, counts
+
+
+def step_times(trainer, what: str) -> None:
+    """Phase 8 (and 14): host clock around single optimizer steps that end
+    in a synchronize."""
     import torch
 
     batches = list(trainer.batches("train"))[:TIMED_STEPS + 2]
@@ -612,81 +731,459 @@ def step_times(trainer) -> None:
         torch.cuda.synchronize()
         if i >= 2:  # two warm-up steps
             times.append((time.perf_counter() - t0) * 1e3)
-    print(f"training step (batch {trainer.batch_size}, host clock to synchronize): p50 "
+    print(f"{what} (batch {trainer.batch_size}, host clock to synchronize): p50 "
           f"{float(np.median(times)):.4f} ms, min {min(times):.4f} ms over {len(times)} steps")
+
+
+def agree_over_steps(a, b, state, what: str) -> None:
+    """CPU_STEPS optimizer steps of trainers ``a`` and ``b`` from one
+    initial ``state`` on the same batches: losses within CPU_LOSS_RTOL,
+    each tensor's total update within CPU_UPDATE_RTOL of its norm."""
+    for i, batch in enumerate(list(a.batches("train"))[:CPU_STEPS]):
+        got, want = a.train_batch(batch).item(), b.train_batch(batch).item()
+        print(f"{what}, step {i + 1}: loss {got:.8g} vs {want:.8g}")
+        if not math.isclose(got, want, rel_tol=CPU_LOSS_RTOL):
+            fail(f"{what}, step {i + 1}: loss {got} vs {want} (rtol {CPU_LOSS_RTOL})")
+    want = {k: v.cpu() for k, v in b.model.state_dict().items()}
+    rel, elem = {}, {}
+    for k, v in a.model.state_dict().items():
+        diff = v.cpu() - want[k]
+        rel[k] = (diff.norm() / (want[k] - state[k]).norm()).item()
+        elem[k] = diff.abs().max().item()
+    worst = max(rel, key=rel.get)
+    if not rel[worst] <= CPU_UPDATE_RTOL:
+        fail(f"{what}: after {CPU_STEPS} steps, {worst}'s update differs by {rel[worst]:.3e} "
+             f"of its norm (rtol {CPU_UPDATE_RTOL})")
+    print(f"{what} over {CPU_STEPS} steps at batch {a.batch_size}: losses within rtol "
+          f"{CPU_LOSS_RTOL}; each tensor's update within {rel[worst]:.3e} of its norm "
+          f"({worst}; rtol {CPU_UPDATE_RTOL}); parameters max |diff| {max(elem.values()):.3e}")
 
 
 def card_vs_cpu(device) -> None:
     """Phase 9: the same model from one initial state, CPU_STEPS optimizer
     steps on the card (kernels) and on the CPU (plain path)."""
-    import torch
-
     from stmgcn_tpu_torch import build_trainer
 
     cfg = flagship_config(CPU_BATCH)
     card = build_trainer(cfg, device=device, verbose=False)
     state = {k: v.detach().cpu().clone() for k, v in card.model.state_dict().items()}
     cpu = build_trainer(cfg, device="cpu", initial_state=state, verbose=False)
-    batches = list(card.batches("train"))[:CPU_STEPS]
-    for i, batch in enumerate(batches):
-        got, want = card.train_batch(batch).item(), cpu.train_batch(batch).item()
-        print(f"step {i + 1}: loss card {got:.8g}, CPU {want:.8g}")
-        if not math.isclose(got, want, rel_tol=CPU_LOSS_RTOL):
-            fail(f"step {i + 1}: card loss {got} vs CPU {want} (rtol {CPU_LOSS_RTOL})")
-    want = cpu.model.state_dict()
-    rel, elem = {}, {}
-    for k, v in card.model.state_dict().items():
-        diff = v.cpu() - want[k]
-        rel[k] = (diff.norm() / (want[k] - state[k]).norm()).item()
-        elem[k] = diff.abs().max().item()
-    worst = max(rel, key=rel.get)
-    if not rel[worst] <= CPU_UPDATE_RTOL:
-        fail(f"after {CPU_STEPS} steps, {worst}'s update differs by {rel[worst]:.3e} of "
-             f"its norm (rtol {CPU_UPDATE_RTOL})")
-    print(f"card vs CPU over {CPU_STEPS} steps at batch {CPU_BATCH}: losses within rtol "
-          f"{CPU_LOSS_RTOL}; each tensor's update within {rel[worst]:.3e} of its norm "
-          f"({worst}; rtol {CPU_UPDATE_RTOL}); parameters max |diff| "
-          f"{max(elem.values()):.3e}")
+    agree_over_steps(card, cpu, state, "card vs CPU")
 
 
-def trace_training(trainer, steps: int = 2) -> None:
-    """Phase 10: ``torch.profiler`` over ``steps`` optimizer steps at batch
-    64: device busy time, idle share, and each LSTM kernel's share."""
+def trace_training(trainer, parts, what: str, steps: int = 2) -> None:
+    """Phase 10 (and 14): ``torch.profiler`` over ``steps`` optimizer
+    steps: device busy time, idle share, and each kernel's share."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
-    batches = list(trainer.batches("train"))[:steps + 1]
-    trainer.train_batch(batches[0])
+    batches = iter(list(trainer.batches("train"))[:steps + 1])
+    trainer.train_batch(next(batches))
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for batch in batches[1:]:
-            trainer.train_batch(batch)
+    wall, device = profiled(lambda: trainer.train_batch(next(batches)), steps)
+    shares(f"{what} (batch {trainer.batch_size}), per step", wall, device, parts, top=6)
+
+
+# -- the metro city: the tiled and block-sparse path ---------------------------
+
+def metro_city(rows: int, cols: int, n_timesteps: int, seed: int = 0):
+    """Synthetic metro city with three STRUCTURED sparse graphs: a copy of
+    ``bench.py``'s ``_largen_city`` (which imports the JAX package).
+
+    Uniform random links (``synthetic_dataset``'s transport graph) would
+    weld distant regions together and defeat the bandwidth reorder, so the
+    graphs follow a city's structure:
+
+    - spatial: grid rook adjacency (degree <= 4);
+    - transport: transit lines along every 8th row/column with stops
+      every 4 cells, consecutive stops linked — sparse corridor paths;
+    - similarity: top-3 demand-profile similarity *within 8x8 districts*.
+    """
+    from stmgcn_tpu_torch.data.loader import ADJ_KEYS, DemandData
+    from stmgcn_tpu_torch.data.synthetic import grid_adjacency, synthetic_demand
+
+    n = rows * cols
+    demand = synthetic_demand(n_timesteps, n, 1, 24, seed)
+
+    trans = np.zeros((n, n), np.float32)
+
+    def _line(ids):
+        for a, b in zip(ids, ids[1:]):
+            trans[a, b] = trans[b, a] = 1.0
+
+    for r in range(0, rows, 8):
+        _line([r * cols + c for c in range(0, cols, 4)])
+    for c in range(0, cols, 8):
+        _line([r * cols + c for r in range(0, rows, 4)])
+
+    profile = demand[:, :, 0].T  # (N, T)
+    profile = profile - profile.mean(axis=1, keepdims=True)
+    norms = np.linalg.norm(profile, axis=1, keepdims=True)
+    norms[norms == 0] = 1.0
+    profile = profile / norms
+    sim = np.zeros((n, n), np.float32)
+    for r0 in range(0, rows, 8):
+        for c0 in range(0, cols, 8):
+            ids = np.array(
+                [r * cols + c
+                 for r in range(r0, min(r0 + 8, rows))
+                 for c in range(c0, min(c0 + 8, cols))]
+            )
+            s = profile[ids] @ profile[ids].T
+            np.fill_diagonal(s, -np.inf)
+            top = np.argsort(s, axis=1)[:, -3:]
+            for i, js in enumerate(top):
+                sim[ids[i], ids[js]] = 1.0
+    sim = np.maximum(sim, sim.T)
+
+    return DemandData(
+        demand=demand,
+        adjs={
+            ADJ_KEYS[0]: grid_adjacency(rows, cols),
+            ADJ_KEYS[1]: trans,
+            ADJ_KEYS[2]: sim,
+        },
+    )
+
+
+def metro_host():
+    """Phase 11: the metro city, its dense Chebyshev supports and their
+    tiled plan, built on the host as ``bench.py`` builds them."""
+    from stmgcn_tpu_torch.data import DemandDataset, WindowSpec
+    from stmgcn_tpu_torch.ops import SupportConfig
+    from stmgcn_tpu_torch.ops.tiling import plan_tiling
+
+    rows, cols = METRO_ROWS, 2 * METRO_ROWS
+    t0 = time.perf_counter()
+    ds = DemandDataset(metro_city(rows, cols, METRO_TIMESTEPS),
+                       WindowSpec(METRO_SERIAL, 1, 1, 24))
+    t1 = time.perf_counter()
+    dense = SupportConfig("chebyshev", 2).build_all(ds.adjs.values())
+    t2 = time.perf_counter()
+    plan = plan_tiling(dense, tile=METRO_TILE)
+    t3 = time.perf_counter()
+    st = plan.tile_stats()
+    stored = plan.m_graphs * plan.n_supports * plan.block_rows * plan.block_cols
+    print(f"metro city: {rows}x{cols} grid, N={ds.n_nodes}, {METRO_TIMESTEPS} timesteps "
+          f"({ds.mode_size('train')} training windows); host seconds: city {t1 - t0:.2f}, "
+          f"dense (M, K, N, N) supports {t2 - t1:.2f}, tiled plan {t3 - t2:.2f}")
+    print(f"metro plan at tile {plan.tile}: R={plan.block_rows} block rows, C={plan.block_cols} "
+          f"stored block columns (C_t={plan.data_t.shape[3]} transposed); {st['blocks_kept']} of "
+          f"{stored} stored blocks nonzero (waste {1 - st['blocks_kept'] / stored:.3f}), density "
+          f"{st['density']:.4f} of the dense block grid; plan {st['nbytes'] / 1e6:.1f} MB vs "
+          f"dense {st['dense_nbytes'] / 1e6:.1f} MB")
+    return ds, dense, plan
+
+
+def spmm_err(got, want, what: str) -> float:
+    """Max |got - want|; fails past rtol SPMM_RTOL plus SPMM_ATOL of the
+    largest |want|."""
+    import torch
+
+    torch.cuda.synchronize()
+    if got.shape != want.shape or not torch.isfinite(got).all():
+        fail(f"{what}: shape {tuple(got.shape)} vs {tuple(want.shape)} or non-finite")
+    scale = want.abs().max().item()
+    err = (got - want).abs().max().item()
+    if not torch.allclose(got, want, rtol=SPMM_RTOL, atol=SPMM_ATOL * scale):
+        fail(f"{what}: max |err| {err:.3e} over rtol {SPMM_RTOL} + {SPMM_ATOL} x {scale:.3e}")
+    return err
+
+
+def nonzero_blocks(data) -> int:
+    """The stored ``(t, t)`` blocks of ``data`` that hold a nonzero."""
+    return int((data != 0).any(dim=-1).any(dim=-1).sum().item())
+
+
+def spmm_bound(n_blocks: int, n_nonzero: int, tile: int, F: int, src_elems: int,
+               out_elems: int):
+    """``(bound ms, bound_by, GFLOP, MB)`` of one block-CSR product: the
+    ``n_nonzero`` blocks that hold a nonzero multiplied once (the padding
+    blocks' products are zero; fp32, 67 TFLOP/s); all ``n_blocks`` stored
+    blocks (a padding block is known only by reading it), their indices and
+    the signal read once and the output written once (3.35 TB/s)."""
+    flops = 2 * n_nonzero * tile * tile * F
+    n_bytes = 4 * (n_blocks * tile * tile + n_blocks + src_elems + out_elems)
+    t_ops, t_bytes = flops / PEAK_FP32_FLOPS * 1e3, n_bytes / PEAK_BYTES_PER_S * 1e3
+    return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes", flops / 1e9, n_bytes / 1e6
+
+
+def spmm_record(name, replaces, err, ms, plain_ms, library_ms, bound) -> dict:
+    return {"name": name, "route": "cuda", "source": "stmgcn_tpu_torch/csrc/spmm_stack.cu",
+            "replaces": replaces, "launches": None,  # filled from the main path's run
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound[0],
+            "bound_by": bound[1], "library_ms": library_ms}
+
+
+def check_spmm_kernels(device, dense, dense_dev, plan) -> list:
+    """Phase 12: B3, B4 and B5 against their plain versions on the card at
+    the metro city's shapes, then each timed beside its bound, its plain
+    version and the dense cuBLAS product over the same supports (TF32 off,
+    in the plan's node order)."""
+    import torch
+
+    from stmgcn_tpu_torch.ops.tiling import plan_tiling
+
+    S = importlib.import_module("stmgcn_tpu_torch.ops.spmm")
+    M, K, N, t = plan.m_graphs, plan.n_supports, plan.n, plan.tile
+    T, H, B = METRO_SERIAL + 2, 64, METRO_BATCH
+    gen = torch.Generator(device=device).manual_seed(11)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device=device)
+
+    stack = plan.as_stack().to(device)
+    cases = [
+        ("gate conv, batch 2, shared x", stack, randn(N, B * T)),
+        ("graph conv, batch 2, per-branch x", stack, randn(M, N, B * H)),
+        ("gate conv, rung 4", stack, randn(N, 4 * T)),
+        ("graph conv, rung 4", stack, randn(M, N, 4 * H)),
+    ]
+    n, f = RAGGED_N, RAGGED_F
+    for tile in (128, 64):  # a sub-city: N and F not multiples of the tile
+        sub = plan_tiling(dense[:, :, :n, :n], tile=tile).as_stack().to(device)
+        cases += [(f"ragged N={n} F={f} t={tile}, shared x", sub, randn(n, f)),
+                  (f"ragged N={n} F={f} t={tile}, per-branch x", sub, randn(M, n, f))]
+    err3 = err4 = 0.0
+    for what, st, x in cases:
+        shared = x.dim() == 2
+        with torch.no_grad():
+            got = S.spmm_stack(st, x)
+        err3 = max(err3, spmm_err(got, S.spmm_stack_reference(st, x), f"B3 {what}"))
+        g = randn(*got.shape)
+        dx = S.spmm_stack_bwd(st, g, shared=shared)
+        again = S.spmm_stack_bwd(st, g, shared=shared)
         torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3 / steps
-    device = {
-        e.key: e.self_device_time_total / 1e3 / steps
-        for e in prof.key_averages()
-        if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
-    }
-    busy = sum(device.values())
-    if busy == 0.0:
-        print("trace, training step: no device time recorded (not measured)")
-        return
-    parts = {name: sum(v for k, v in device.items() if key in k) for name, key in (
-        ("forward kernel", "lstm_fwd_kernel"), ("backward sweep", "lstm_bwd_sweep"),
-        ("backward weight gradients", "lstm_bwd_wgrad"), ("backward reduce", "reduce_partials"))}
-    bwd = sum(v for k, v in parts.items() if k.startswith("backward"))
-    top = sorted(device.items(), key=lambda kv: -kv[1])[:6]
-    print(f"trace, training step (batch {trainer.batch_size}): wall {wall:.4f} ms/step "
-          f"(profiler on), device busy {busy:.4f} ms, idle share {1 - busy / wall:.3f}; "
-          f"forward kernel {parts['forward kernel']:.4f} ms = "
-          f"{parts['forward kernel'] / busy:.3f} of busy, backward kernel {bwd:.4f} ms = "
-          f"{bwd / busy:.3f} (" + ", ".join(f"{k.split()[1]} {v:.4f}" for k, v in parts.items()
-                                            if k.startswith("backward")) + ")")
-    print("trace, training step, top device time (ms/step): "
-          + "; ".join(f"{k[:48]} {v:.4f}" for k, v in top))
+        if not torch.equal(dx, again):
+            fail(f"B4 {what}: two runs on the same inputs differ")
+        err4 = max(err4, spmm_err(dx, S.spmm_stack_bwd_reference(st, g, shared=shared),
+                                  f"B4 {what}"))
+        del got, g, dx, again
+    print(f"B3 (spmm_stack) vs plain: max |err| {err3:.3e}; B4 (its backward) vs plain: max "
+          f"|err| {err4:.3e}, two runs bitwise equal; tolerance rtol {SPMM_RTOL} + {SPMM_ATOL} x "
+          "max |want|; cases: " + "; ".join(w for w, _, _ in cases))
+
+    bs = S.from_dense(dense[0, 2], tile=METRO_TILE).to(device)  # T_2 of the spatial graph
+    bs_ragged = S.from_dense(dense[1, 2, :n, :n], tile=64).to(device)
+    err5 = 0.0
+    for what, b, x in (("metro T_2 spatial, F=10", bs, randn(N, B * T)),
+                       ("metro T_2 spatial, F=128", bs, randn(N, B * H)),
+                       (f"ragged N={n} F={f} t=64", bs_ragged, randn(n, f))):
+        for transpose in (False, True):
+            err5 = max(err5, spmm_err(S.block_spmm(b, x, transpose=transpose),
+                                      S.spmm_reference(b, x, transpose=transpose),
+                                      f"B5 {what} transpose={transpose}"))
+    print(f"B5 (spmm) vs plain, A @ x and A^T @ x: max |err| {err5:.3e} (metro support C="
+          f"{bs.block_cols_per_row}, ragged sub-support)")
+
+    R, C, C_t = plan.block_rows, plan.block_cols, plan.data_t.shape[3]
+    x_gate, x_gcn, g_gcn = cases[0][2], cases[1][2], randn(M, K, N, B * H)
+    x5 = randn(N, B * H)
+    perm = plan.perm.to(device).long()
+    dense_p = dense_dev.index_select(2, perm).index_select(3, perm)  # the plan's order
+    with torch.no_grad():
+        gate = (cuda_ms(lambda: S.spmm_stack(stack, x_gate), 20),
+                cuda_ms(lambda: S.spmm_stack_reference(stack, x_gate), 5),
+                cuda_ms(lambda: torch.einsum("mkij,jf->mkif", dense_p, x_gate), 5))
+        fwd = (cuda_ms(lambda: S.spmm_stack(stack, x_gcn), 20),
+               cuda_ms(lambda: S.spmm_stack_reference(stack, x_gcn), 5),
+               cuda_ms(lambda: torch.einsum("mkij,mjf->mkif", dense_p, x_gcn), 5))
+        bwd = (cuda_ms(lambda: S.spmm_stack_bwd(stack, g_gcn, shared=False), 20),
+               cuda_ms(lambda: S.spmm_stack_bwd_reference(stack, g_gcn, shared=False), 5),
+               cuda_ms(lambda: torch.einsum("mkij,mkif->mjf", dense_p, g_gcn), 5))
+        a5 = dense_dev[0, 2]
+        one = (cuda_ms(lambda: S.block_spmm(bs, x5), 20),
+               cuda_ms(lambda: S.spmm_reference(bs, x5), 5),
+               cuda_ms(lambda: a5 @ x5, 10))
+        try:  # torch.sparse's block-CSR product, where this build runs it on the card
+            bsr = a5.to_sparse_bsr((METRO_TILE, METRO_TILE))
+            bsr_ms = f"{cuda_ms(lambda: bsr @ x5, 10):.4f} ms"
+        except (RuntimeError, NotImplementedError) as e:
+            bsr_ms = f"not measured ({type(e).__name__}: {str(e).splitlines()[0][:100]})"
+    del dense_p
+    nz, nz_t, nz_one = (nonzero_blocks(d) for d in (stack.data, stack.data_t, bs.data))
+    b_gate = spmm_bound(M * K * R * C, nz, t, B * T, N * B * T, M * K * N * B * T)
+    b_fwd = spmm_bound(M * K * R * C, nz, t, B * H, M * N * B * H, M * K * N * B * H)
+    b_bwd = spmm_bound(M * K * R * C_t, nz_t, t, B * H, M * K * N * B * H, M * N * B * H)
+    b_one = spmm_bound(bs.block_rows * bs.block_cols_per_row, nz_one, t, B * H, N * B * H,
+                       N * B * H)
+    for what, (ms, plain, lib), b in (
+            ("B3 gate conv (shared x, F=10)", gate, b_gate),
+            ("B3 graph conv (per-branch x, F=128)", fwd, b_fwd),
+            ("B4 graph-conv backward (F=128)", bwd, b_bwd),
+            (f"B5 one support (C={bs.block_cols_per_row}, F=128)", one, b_one)):
+        print(f"{what} at the metro city, batch 2 (ms, CUDA events, mean): kernel {ms:.4f}, "
+              f"plain {plain:.4f}, dense cuBLAS {lib:.4f}; bound {b[0]:.4f} ({b[1]}; "
+              f"{b[2]:.2f} GFLOP, {b[3]:.1f} MB) = {b[0] / ms:.3f} of the kernel's time")
+    print(f"bounds count the products of the nonzero blocks ({nz} of {M * K * R * C} stored, "
+          f"{nz_t} of {M * K * R * C_t} transposed, B5 {nz_one} of "
+          f"{bs.block_rows * bs.block_cols_per_row}) and every stored byte")
+    print(f"torch.sparse BSR matmul on B5's support and signal: {bsr_ms}")
+    return [
+        spmm_record("spmm_stack_fwd", "stmgcn_tpu/ops/spmm.py:339", err3, *fwd, b_fwd),
+        spmm_record("spmm_stack_bwd", "stmgcn_tpu/ops/spmm.py:379", err4, *bwd, b_bwd),
+        spmm_record("spmm", "stmgcn_tpu/ops/spmm.py:125", err5, *one, b_one),
+    ]
+
+
+def metro_config(mode: str):
+    """The ``default`` flagship at full width, at the metro point, in
+    support mode ``mode``."""
+    from stmgcn_tpu_torch import preset
+
+    cfg = preset("default")
+    cfg.data.serial_len = METRO_SERIAL
+    cfg.model.tiled, cfg.model.sparse = mode == "tiled", mode == "sparse"
+    cfg.model.tile_size = METRO_TILE
+    cfg.train.batch_size, cfg.train.epochs = METRO_BATCH, METRO_EPOCHS
+    cfg.train.steps_per_superstep = SUPERSTEP
+    return cfg
+
+
+def metro_model(mode: str, ds, device):
+    """The flagship in support mode ``mode``, weights from seed 0 (the
+    same in every mode: the parameters do not depend on it)."""
+    import torch
+
+    from stmgcn_tpu_torch.experiment import build_model
+
+    return build_model(metro_config(mode), ds.n_feats, device=device,
+                       generator=torch.Generator().manual_seed(0))
+
+
+def metro_serve(device, ds, dense_dev, plan_dev) -> None:
+    """Phase 13: ``Forecaster`` and ``ServingEngine`` on the tiled plan."""
+    from stmgcn_tpu_torch import Forecaster, ServingConfig
+
+    model = metro_model("tiled", ds, device)
+    state = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+    derived = {"input_dim": ds.n_feats, "n_nodes": ds.n_nodes}
+    fc = Forecaster(model, state, ds.normalizer, metro_config("tiled"), derived, device=device)
+    windows = ds.denormalize(ds.arrays("test")[0])  # raw demand units
+    if windows.shape[0] < METRO_SIZES[-1] + METRO_ROUNDS - 1:
+        fail(f"metro test split holds only {windows.shape[0]} windows")
+    config = ServingConfig(buckets=METRO_BUCKETS, max_batch=METRO_BUCKETS[-1])
+    engine = fc.serving_engine(plan_dev, config=config, device=device)
+    try:
+        for b in METRO_BUCKETS:  # warm every rung
+            engine.predict_direct(windows[:b])
+        engine.stats.reset()
+        reset_counts()
+        fc_calls = 0
+        for r in range(METRO_ROUNDS):
+            for n in METRO_SIZES:
+                rows = windows[r:r + n]
+                got, want = engine.predict(rows), fc.predict(plan_dev, rows)
+                fc_calls += 1
+                if got.shape != want.shape or not np.isfinite(got).all():
+                    fail(f"tiled predict({n} rows): got {got.shape}, want {want.shape}")
+                if not np.allclose(got, want, rtol=SERVE_RTOL, atol=SERVE_ATOL):
+                    fail(f"tiled predict({n} rows): max |engine - forecaster| "
+                         f"{np.abs(got - want).max():.3e}")
+        counts = read_counts()
+        snapshot = engine.stats.snapshot()
+        dispatches = snapshot["totals"]["dispatches"]
+        forwards = dispatches + fc_calls
+        check_counts(counts, {"B1": 1, "B3": 2}, {}, forwards, 0, "tiled serving")
+        print(f"tiled serving at the metro city: requests of {METRO_SIZES} rows x "
+              f"{METRO_ROUNDS} rounds, every response finite and equal to Forecaster.predict; "
+              f"{forwards} model forwards ({dispatches} engine dispatches + {fc_calls} "
+              f"Forecaster calls), launches {counts_text(counts)} (per forward: B1 1, B3 2)")
+        for b, s in snapshot["buckets"].items():
+            print(f"tiled bucket {b}: {s['dispatches']} dispatches, p50 latency "
+                  f"{s['latency_ms']['p50']} ms, p50 dispatch {s['device_ms']['p50']} ms")
+        trace_rungs(engine, windows, (METRO_BUCKETS[0], METRO_BUCKETS[-1]),
+                    {"B1": LSTM_PARTS["B1 forward"], "B3": SPMM_PARTS["B3"]}, "tiled serving")
+    finally:
+        engine.close()
+    dense_fc = Forecaster(metro_model("dense", ds, device), state, ds.normalizer,
+                          metro_config("dense"), derived, device=device)
+    rows = windows[:METRO_BUCKETS[-1]]
+    got, want = fc.predict(plan_dev, rows), dense_fc.predict(dense_dev, rows)
+    err = np.abs(got - want).max()
+    if not np.allclose(got, want, rtol=SERVE_RTOL, atol=SERVE_ATOL):
+        fail(f"tiled vs dense model on the card: max |err| {err:.3e}")
+    print(f"tiled vs dense model on the card, {len(rows)} windows: max |err| {err:.3e} "
+          f"(rtol {SERVE_RTOL}, atol {SERVE_ATOL}, raw units)")
+
+
+def metro_train(device, ds, dense_dev, plan_dev) -> dict:
+    """Phase 14: ``Trainer(model, dataset, plan)`` at the metro city, then
+    its step p50, the tiled model against the dense one over CPU_STEPS
+    steps from one state, and a trace of two steps. Returns the counts."""
+    from stmgcn_tpu_torch import Trainer
+
+    def trainer(mode, supports, state=None):
+        t = metro_config(mode).train
+        return Trainer(metro_model(mode, ds, device), ds, supports, lr=t.lr,
+                       weight_decay=t.weight_decay, n_epochs=METRO_EPOCHS,
+                       batch_size=METRO_BATCH, steps_per_superstep=SUPERSTEP,
+                       initial_state=state, device=device, verbose=False)
+
+    tiled = trainer("tiled", plan_dev)
+    state = {k: v.detach().cpu().clone() for k, v in tiled.model.state_dict().items()}
+    _, counts = train_and_test(tiled, {"B1": 1, "B3": 2}, {"B2": 1, "B4": 1},
+                               "tiled training at the metro city")
+    step_times(tiled, "tiled training step at the metro city")
+    agree_over_steps(trainer("tiled", plan_dev, state), trainer("dense", dense_dev, state),
+                     state, "tiled vs dense training on the card")
+    trace_training(tiled, {**LSTM_PARTS, **SPMM_PARTS}, "tiled training at the metro city")
+    return counts
+
+
+def metro_sparse(device, ds, dense, dense_dev, plan_dev) -> int:
+    """Phase 15: the block-sparse mode (per-branch ``BlockSparseStack``,
+    B3/B4) and the K-tuple of ``BlockSparse`` (B5), plus the tiled plan
+    with an input gradient (B4 on the shared gate signal): one forward and
+    backward each against the dense model's output and input gradient.
+    Returns the K-tuple run's B5 launches."""
+    import torch
+
+    S = importlib.import_module("stmgcn_tpu_torch.ops.spmm")
+    M, K = dense.shape[:2]
+    t0 = time.perf_counter()
+    stacks = S.place_supports(tuple(S.stack_from_dense(dense[m]) for m in range(M)), device)
+    t1 = time.perf_counter()
+    ktuples = S.place_supports(
+        tuple(tuple(S.from_dense(dense[m, k]) for k in range(K)) for m in range(M)), device)
+    t2 = time.perf_counter()
+    print(f"block-sparse supports of the metro city in the original node order, host seconds: "
+          f"per-branch stacks {t1 - t0:.2f} (C {[s.data.shape[2] for s in stacks]}), K-tuples "
+          f"{t2 - t1:.2f} (C {[[b.block_cols_per_row for b in g] for g in ktuples]})")
+    obs = torch.as_tensor(ds.arrays("test")[0][:METRO_BATCH], device=device)
+    w = torch.randn(obs.shape[0], obs.shape[2], obs.shape[3], device=device,
+                    generator=torch.Generator(device=device).manual_seed(3))
+
+    def fwd_bwd(mode, supports):
+        x = obs.clone().requires_grad_(True)
+        out = metro_model(mode, ds, device)(supports, x)
+        (out * w).sum().backward()
+        return out.detach(), x.grad
+
+    ref_out, ref_grad = fwd_bwd("dense", dense_dev)
+    runs = {}
+    for what, mode, supports, per_forward in (
+            ("block-sparse stacks", "sparse", stacks, {"B1": 1, "B2": 1, "B3": 2 * M, "B4": 2 * M}),
+            ("K-tuples of BlockSparse", "sparse", ktuples, {"B1": 1, "B2": 1, "B5": 4 * M * K}),
+            ("tiled plan with an input gradient", "tiled", plan_dev,
+             {"B1": 1, "B2": 1, "B3": 2, "B4": 2})):
+        reset_counts()
+        out, grad = fwd_bwd(mode, supports)
+        counts = read_counts()
+        check_counts(counts, per_forward, {}, 1, 0, what)
+        out_err = (out - ref_out).abs().max().item()
+        if not torch.allclose(out, ref_out, rtol=MODEL_RTOL, atol=MODEL_ATOL):
+            fail(f"{what}: output max |err| {out_err:.3e} vs the dense model")
+        rel = ((grad - ref_grad).norm() / ref_grad.norm()).item()
+        if not rel <= GRAD_RTOL:
+            fail(f"{what}: input gradient differs by {rel:.3e} of its norm (rtol {GRAD_RTOL})")
+        print(f"{what} at the metro city, one forward + backward (batch {METRO_BATCH}): output "
+              f"max |err| {out_err:.3e} (rtol {MODEL_RTOL}, atol {MODEL_ATOL}), input gradient "
+              f"within {rel:.3e} of its norm (rtol {GRAD_RTOL}; max |err| "
+              f"{(grad - ref_grad).abs().max().item():.3e} of max "
+              f"{ref_grad.abs().max().item():.3e}) vs the dense model; launches "
+              f"{counts_text(counts)}")
+        runs[what] = counts
+    return runs["K-tuples of BlockSparse"]["B5"]
 
 
 def main() -> int:
@@ -696,7 +1193,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device; this script runs the port on the GPU "
               "and has no CPU mode", file=sys.stderr)
         return 1
-    from stmgcn_tpu_torch.ops.fused_lstm import fused_lstm, fused_lstm_bwd
+    from stmgcn_tpu_torch.ops.fused_lstm import fused_lstm_bwd
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -705,6 +1202,7 @@ def main() -> int:
     print(card)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
+    t_start = time.perf_counter()
 
     build_kernels()
 
@@ -713,7 +1211,7 @@ def main() -> int:
     records.append(check_lstm_bwd_kernel(device))
     torch.cuda.empty_cache()
 
-    fused_lstm.launches = fused_lstm_bwd.launches = 0
+    reset_counts()
     snapshot, forwards, launches = serve(device)
     if launches == 0:
         fail("the serving path never launched the LSTM kernel")
@@ -729,13 +1227,31 @@ def main() -> int:
               f"{s['latency_ms']['p50']} ms, p50 dispatch {s['device_ms']['p50']} ms")
     torch.cuda.empty_cache()
 
-    trainer, fwd, bwd = train_on_card(device)
-    if fwd == 0 or bwd == 0:
+    trainer, counts = train_on_card(device)
+    if counts["B1"] == 0 or counts["B2"] == 0:
         fail("the training path did not launch both LSTM kernels")
-    records[0]["launches"], records[1]["launches"] = fwd, bwd
-    step_times(trainer)
+    records[0]["launches"], records[1]["launches"] = counts["B1"], counts["B2"]
+    step_times(trainer, "training step")
     card_vs_cpu(device)
-    trace_training(trainer)
+    trace_training(trainer, LSTM_PARTS, "dense training")
+    del trainer
+    torch.cuda.empty_cache()
+    print(f"dense phases done at {time.perf_counter() - t_start:.1f} s")
+
+    ds, dense, plan = metro_host()
+    dense_dev, plan_dev = torch.as_tensor(dense, device=device), plan.to(device)
+    records += check_spmm_kernels(device, dense, dense_dev, plan)
+    torch.cuda.empty_cache()
+    metro_serve(device, ds, dense_dev, plan_dev)
+    counts = metro_train(device, ds, dense_dev, plan_dev)
+    if counts["B3"] == 0 or counts["B4"] == 0:
+        fail("the tiled training path did not launch B3 and B4")
+    records[2]["launches"], records[3]["launches"] = counts["B3"], counts["B4"]
+    torch.cuda.empty_cache()
+    records[4]["launches"] = metro_sparse(device, ds, dense, dense_dev, plan_dev)
+    if records[4]["launches"] == 0:
+        fail("the K-tuple route never launched B5")
+    print(f"all phases done at {time.perf_counter() - t_start:.1f} s")
 
     print(card)
     print(json.dumps({"kernels": records}))

@@ -75,7 +75,7 @@ class DataConfig:
 
 @dataclasses.dataclass
 class ModelConfig:
-    """Architecture of the dense flagship."""
+    """Architecture of the flagship and its support representation."""
 
     m_graphs: int = 3
     kernel_type: str = "chebyshev"
@@ -86,10 +86,17 @@ class ModelConfig:
     gcn_hidden_dim: int = 64
     use_bias: bool = True
     shared_gate_fc: bool = True
-    #: the JAX package's block-CSR and tiled-sparse support routes; not
-    #: ported yet (``build_model`` raises when either is set)
+    #: block-CSR supports: one ``BlockSparseStack`` per branch (kernels B3/B4)
     sparse: bool = False
+    #: the large-N path: an offline reorder + condense of all M x K supports
+    #: into one ``TiledSupports`` plan (kernels B3/B4); excludes ``sparse``
+    #: and a mesh of more than one device
     tiled: bool = False
+    #: the plan's block size (the CUDA kernels take 64 or 128)
+    tile_size: int = 128
+    #: ``build_supports`` raises when more than this fraction of the plan's
+    #: stored blocks would be all-zero padding
+    tile_waste_budget: float = 0.75
     dtype: str = "float32"
 
     @property

@@ -2,16 +2,16 @@
 
 Counterpart of ``stmgcn_tpu/experiment.py`` (``build_dataset``,
 ``build_supports``, ``build_model``, ``build_trainer``, ``run``) for
-homogeneous cities, dense supports and one device. Heterogeneous cities,
-node padding for region meshes, meshes and the sparse/tiled supports are
-not ported: configs asking for them raise.
+homogeneous cities on one device, with dense, block-sparse
+(``model.sparse``) or tiled (``model.tiled``) supports. Heterogeneous
+cities, node padding for region meshes and meshes are not ported: configs
+asking for them raise.
 """
 
 from __future__ import annotations
 
 from typing import Optional
 
-import numpy as np
 import torch
 
 from stmgcn_tpu_torch.config import DTYPES, ExperimentConfig
@@ -22,6 +22,8 @@ from stmgcn_tpu_torch.data.synthetic import synthetic_dataset
 from stmgcn_tpu_torch.data.windowing import WindowSpec
 from stmgcn_tpu_torch.models.st_mgcn import STMGCN
 from stmgcn_tpu_torch.ops.layers import resolve_device
+from stmgcn_tpu_torch.ops.spmm import stack_from_dense
+from stmgcn_tpu_torch.ops.tiling import plan_tiling
 from stmgcn_tpu_torch.train.trainer import Trainer
 
 __all__ = ["build_dataset", "build_model", "build_supports", "build_trainer", "run"]
@@ -68,22 +70,63 @@ def build_dataset(cfg: ExperimentConfig) -> DemandDataset:
     )
 
 
-def build_supports(cfg: ExperimentConfig, dataset: DemandDataset) -> np.ndarray:
-    """The dense ``(M, n_supports, N, N)`` support stack of the dataset's
-    (shared) graphs, built on the host in float64 and returned float32."""
+def _check_support_route(cfg: ExperimentConfig) -> None:
+    """The JAX package's refusals of the tiled route."""
+    if cfg.model.tiled and cfg.model.sparse:
+        raise ValueError(
+            "model.tiled and model.sparse are mutually exclusive — each is "
+            "a complete support representation; pick one"
+        )
+    if cfg.model.tiled and cfg.mesh.n_devices > 1:
+        raise ValueError(
+            "model.tiled does not compose with a >1-device mesh — the "
+            "reordered tile plan owns the whole node axis; use dense "
+            "GSPMD or sharded sparse supports for multi-device configs"
+        )
+
+
+def build_supports(cfg: ExperimentConfig, dataset: DemandDataset):
+    """Supports from the dataset's (shared) graphs, built on the host.
+
+    Dense mode: the ``(M, n_supports, N, N)`` float32 stack (float64 on the
+    way). Sparse mode: an M-tuple of
+    :class:`~stmgcn_tpu_torch.ops.spmm.BlockSparseStack`, one per branch
+    in the original node order. Tiled mode: one
+    :class:`~stmgcn_tpu_torch.ops.tiling.TiledSupports` plan at
+    ``model.tile_size``, refused when more than ``model.tile_waste_budget``
+    of its stored blocks would be all-zero padding.
+    """
+    _check_support_route(cfg)
     if not dataset.shared_graphs:
         raise ValueError("per-city graph stacks are not ported yet")
-    return cfg.model.support_config.build_all(dataset.adjs.values())
+    dense = cfg.model.support_config.build_all(dataset.adjs.values())
+    if cfg.model.tiled:
+        plan = plan_tiling(dense, tile=cfg.model.tile_size)
+        stats = plan.tile_stats()
+        stored = plan.m_graphs * plan.n_supports * plan.block_rows * plan.block_cols
+        waste = 1.0 - stats["blocks_kept"] / max(stored, 1)
+        if waste > cfg.model.tile_waste_budget:
+            raise ValueError(
+                f"tiled condensation wastes {waste:.3f} of stored blocks "
+                f"on all-zero padding (> model.tile_waste_budget="
+                f"{cfg.model.tile_waste_budget}) — the graph's nonzeros "
+                "do not cluster under the reorder; use dense/sparse "
+                "supports, a smaller model.tile_size, or raise the budget"
+            )
+        return plan
+    if cfg.model.sparse:
+        return tuple(stack_from_dense(dense[m]) for m in range(dense.shape[0]))
+    return dense
 
 
 def build_model(cfg: ExperimentConfig, input_dim: int, *, device=None,
                 generator: Optional[torch.Generator] = None) -> STMGCN:
-    """The dense flagship from config plus the one data-derived scalar
-    (feature count). ``device=None`` means the GPU."""
+    """The flagship from config plus the one data-derived scalar (feature
+    count), in the config's support mode (``model.sparse`` /
+    ``model.tiled``; the parameters are the same in every mode).
+    ``device=None`` means the GPU."""
     m = cfg.model
-    if m.sparse or m.tiled:
-        raise ValueError("model.sparse/model.tiled: the sparse and tiled support "
-                         "routes are not ported yet (dense supports only)")
+    _check_support_route(cfg)
     if m.dtype not in DTYPES:
         raise ValueError(
             f"model.dtype={m.dtype!r}: the port takes {DTYPES} storage so far"
@@ -99,6 +142,8 @@ def build_model(cfg: ExperimentConfig, input_dim: int, *, device=None,
         gcn_hidden_dim=m.gcn_hidden_dim,
         use_bias=m.use_bias,
         shared_gate_fc=m.shared_gate_fc,
+        sparse=m.sparse,
+        support_modes=("tiled",) * m.m_graphs if m.tiled else None,
         device=device,
         generator=generator,
     )
@@ -106,9 +151,11 @@ def build_model(cfg: ExperimentConfig, input_dim: int, *, device=None,
 
 def build_trainer(cfg: ExperimentConfig, *, device=None, initial_state: Optional[dict] = None,
                   verbose: bool = True) -> Trainer:
-    """The trainer for a homogeneous, dense, single-device config; weights
-    drawn from ``cfg.train.seed`` unless ``initial_state`` is given.
-    ``device=None`` means the GPU, and raises without one."""
+    """The trainer for a homogeneous, single-device config in any of the
+    three support modes; weights drawn from ``cfg.train.seed`` unless
+    ``initial_state`` is given. ``device=None`` means the GPU, and raises
+    without one."""
+    _check_support_route(cfg)
     if cfg.mesh.n_devices > 1:
         raise ValueError(
             f"mesh dp={cfg.mesh.dp} region={cfg.mesh.region} branch={cfg.mesh.branch}: "

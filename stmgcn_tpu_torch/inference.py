@@ -7,7 +7,13 @@ Counterpart of ``stmgcn_tpu/inference.py`` (``Forecaster``)::
 
 ``supports`` are rebuilt from the city's adjacency matrices
 (:class:`~stmgcn_tpu_torch.ops.graph.SupportConfig`), which are data, not
-model state. ``from_checkpoint`` waits for the checkpoint slice.
+model state: a dense stack, or for a metro-scale city a
+:class:`~stmgcn_tpu_torch.ops.tiling.TiledSupports` plan (``plan_tiling``)
+served by a model built with ``model.tiled=True``. The parameters are the
+same in every support mode, so weights trained on dense supports serve on
+a plan as they are: the port's counterpart of the JAX package's
+``to_tiled_serving`` is the identity. ``from_checkpoint`` waits for the
+checkpoint slice.
 """
 
 from __future__ import annotations
@@ -16,6 +22,7 @@ import numpy as np
 import torch
 
 from stmgcn_tpu_torch.ops.layers import resolve_device
+from stmgcn_tpu_torch.ops.spmm import place_supports
 from stmgcn_tpu_torch.serving.predict import serve_predict
 
 __all__ = ["Forecaster"]
@@ -39,6 +46,17 @@ class Forecaster:
         self.normalizer = normalizer
         self.config = config
         self.derived = derived
+        self._placed = None  # (supports as given, supports on the device)
+
+    def place(self, supports):
+        """``supports`` on this forecaster's device, checked against the
+        model; the last object placed is kept, so repeated calls with the
+        same supports upload them once."""
+        if self._placed is None or self._placed[0] is not supports:
+            placed = place_supports(supports, self.device)
+            self.model.check_supports(placed)
+            self._placed = (supports, placed)
+        return self._placed[1]
 
     @property
     def seq_len(self) -> int:
@@ -58,10 +76,12 @@ class Forecaster:
 
         ``history``: ``(B, seq_len, N, C)`` windowed observations in raw
         demand units (``normalized=True`` if already model-scaled);
-        ``supports``: the stacked ``(M, K, N, N)`` array. Returns raw-unit
-        forecasts ``(B, N, C)`` or ``(B, H, N, C)``.
+        ``supports``: the model's support form — the stacked ``(M, K, N,
+        N)`` array, a ``TiledSupports`` plan, or M block-sparse groups —
+        placed on the device once per object (:meth:`place`). Returns
+        raw-unit forecasts ``(B, N, C)`` or ``(B, H, N, C)``.
         """
-        sup = torch.as_tensor(np.asarray(supports, dtype=np.float32), device=self.device)
+        sup = self.place(supports)
 
         def call(h: np.ndarray) -> np.ndarray:
             with torch.inference_mode():

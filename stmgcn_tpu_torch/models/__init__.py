@@ -1,4 +1,5 @@
-"""Model layer: the dense ST-MGCN flagship and its weight converter."""
+"""Model layer: the ST-MGCN flagship (dense, block-sparse or tiled supports)
+and its weight converter."""
 
 from stmgcn_tpu_torch.models.cg_lstm import CGLSTM, ContextualGate
 from stmgcn_tpu_torch.models.params import from_jax_params, to_jax_params

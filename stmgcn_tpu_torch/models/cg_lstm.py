@@ -14,6 +14,9 @@ Counterpart of ``stmgcn_tpu/models/cg_lstm.py`` (paper eqs. 6-9):
 the same Dense twice in eq. 8; ``False`` gives the paper's two layers.
 ``n_real_nodes`` masks node-padding rows out of the eq. 7 mean. The traced
 per-call real-node count of fleet serving is not ported yet.
+``support_mode`` (``"dense" | "sparse" | "tiled"``) picks the gate's graph
+conv (:func:`~stmgcn_tpu_torch.ops.chebconv.make_conv`); its parameters are
+the same in every mode.
 """
 
 from __future__ import annotations
@@ -23,7 +26,7 @@ from typing import Optional
 import torch
 from torch import nn
 
-from stmgcn_tpu_torch.ops.chebconv import ChebGraphConv
+from stmgcn_tpu_torch.ops.chebconv import make_conv
 from stmgcn_tpu_torch.ops.layers import Dense
 from stmgcn_tpu_torch.ops.lstm import StackedLSTM
 
@@ -36,16 +39,17 @@ class ContextualGate(nn.Module):
 
     def __init__(self, n_supports: int, seq_len: int, *, use_bias: bool = True,
                  shared_gate_fc: bool = True, n_real_nodes: Optional[int] = None,
+                 support_mode: str = "dense",
                  branches: Optional[int] = None, device=None, generator=None):
         super().__init__()
         self.n_real_nodes = n_real_nodes
         kw = dict(branches=branches, device=device, generator=generator)
-        self.temporal_gconv = ChebGraphConv(n_supports, seq_len, seq_len,
-                                            use_bias=use_bias, **kw)
+        self.temporal_gconv = make_conv(support_mode, n_supports, seq_len, seq_len,
+                                        use_bias=use_bias, **kw)
         self.gate_fc = Dense(seq_len, seq_len, **kw)
         self.gate_fc2 = None if shared_gate_fc else Dense(seq_len, seq_len, **kw)
 
-    def forward(self, supports: torch.Tensor, obs_seq: torch.Tensor) -> torch.Tensor:
+    def forward(self, supports, obs_seq: torch.Tensor) -> torch.Tensor:
         x_nt = obs_seq.sum(dim=-1).transpose(-1, -2)  # (B, N, T): history as features
         x_hat = x_nt + self.temporal_gconv(supports, x_nt)  # eq. 6 residual
         n_nodes = x_hat.shape[-2]
@@ -66,17 +70,18 @@ class CGLSTM(nn.Module):
     def __init__(self, n_supports: int, seq_len: int, input_dim: int,
                  lstm_hidden_dim: int, lstm_num_layers: int, *,
                  use_bias: bool = True, shared_gate_fc: bool = True,
-                 n_real_nodes: Optional[int] = None,
+                 n_real_nodes: Optional[int] = None, support_mode: str = "dense",
                  branches: Optional[int] = None, device=None, generator=None):
         super().__init__()
         kw = dict(branches=branches, device=device, generator=generator)
         self.lstm_hidden_dim = lstm_hidden_dim
         self.gate = ContextualGate(n_supports, seq_len, use_bias=use_bias,
                                    shared_gate_fc=shared_gate_fc,
-                                   n_real_nodes=n_real_nodes, **kw)
+                                   n_real_nodes=n_real_nodes, support_mode=support_mode,
+                                   **kw)
         self.lstm = StackedLSTM(input_dim, lstm_hidden_dim, lstm_num_layers, **kw)
 
-    def forward(self, supports: torch.Tensor, obs_seq: torch.Tensor) -> torch.Tensor:
+    def forward(self, supports, obs_seq: torch.Tensor) -> torch.Tensor:
         gated = self.gate(supports, obs_seq)  # ([M,] B, T, N, C)
         *lead, batch, seq_len, n_nodes, n_feats = gated.shape
         # fold nodes into rows for the shared recurrence

@@ -1,24 +1,35 @@
-"""ST-MGCN: the multi-graph flagship model (dense supports).
+"""ST-MGCN: the multi-graph flagship model.
 
-Counterpart of ``stmgcn_tpu/models/st_mgcn.py`` in its vmapped dense form:
-the M graph branches are one :class:`Branch` whose parameters carry a
-leading ``M`` axis, run as one batched computation over a stacked
-``(M, K, N, N)`` support tensor — so the shared LSTM of all M branches is
-one kernel launch on the GPU. Fusion sums the M branch outputs in float32,
-then a ``Dense(gcn_hidden -> horizon * input_dim)`` head gives the
-``(B, N, C)`` next-step prediction, or ``(B, H, N, C)`` for ``horizon > 1``.
+Counterpart of ``stmgcn_tpu/models/st_mgcn.py`` in its vmapped form: the M
+graph branches are one :class:`Branch` whose parameters carry a leading
+``M`` axis, run as one batched computation — so the shared LSTM of all M
+branches is one kernel launch on the GPU, and so is each graph conv over a
+tiled plan. Fusion sums the M branch outputs in float32, then a
+``Dense(gcn_hidden -> horizon * input_dim)`` head gives the ``(B, N, C)``
+next-step prediction, or ``(B, H, N, C)`` for ``horizon > 1``.
+
+The support representation is one mode for the whole model (``"dense"``,
+``"sparse"`` or ``"tiled"``, from ``sparse=`` or a uniform
+``support_modes=``); the parameters are the same in every mode, so weights
+trained on one representation serve on another unchanged. The JAX package
+runs non-dense branches as a Python loop (its Pallas SpMM has no batching
+rule) and stores them as ``branch_0 .. branch_{M-1}``;
+:func:`~stmgcn_tpu_torch.models.params.from_jax_params` reads that layout
+into this one. Mixed per-branch modes and the banded mode are not ported.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Sequence
 
 import torch
 from torch import nn
 
 from stmgcn_tpu_torch.models.cg_lstm import CGLSTM
-from stmgcn_tpu_torch.ops.chebconv import ChebGraphConv
+from stmgcn_tpu_torch.ops.chebconv import conv_cls, make_conv
 from stmgcn_tpu_torch.ops.layers import Dense, resolve_device
+from stmgcn_tpu_torch.ops.spmm import BlockSparseStack
+from stmgcn_tpu_torch.ops.tiling import TiledSupports
 
 __all__ = ["Branch", "STMGCN"]
 
@@ -29,18 +40,18 @@ class Branch(nn.Module):
     def __init__(self, n_supports: int, seq_len: int, input_dim: int,
                  lstm_hidden_dim: int, lstm_num_layers: int, gcn_hidden_dim: int, *,
                  use_bias: bool = True, shared_gate_fc: bool = True,
-                 n_real_nodes: Optional[int] = None,
+                 n_real_nodes: Optional[int] = None, support_mode: str = "dense",
                  branches: Optional[int] = None, device=None, generator=None):
         super().__init__()
         kw = dict(branches=branches, device=device, generator=generator)
         self.cg_lstm = CGLSTM(n_supports, seq_len, input_dim, lstm_hidden_dim,
                               lstm_num_layers, use_bias=use_bias,
                               shared_gate_fc=shared_gate_fc,
-                              n_real_nodes=n_real_nodes, **kw)
-        self.gcn = ChebGraphConv(n_supports, lstm_hidden_dim, gcn_hidden_dim,
-                                 use_bias=use_bias, **kw)
+                              n_real_nodes=n_real_nodes, support_mode=support_mode, **kw)
+        self.gcn = make_conv(support_mode, n_supports, lstm_hidden_dim, gcn_hidden_dim,
+                             use_bias=use_bias, **kw)
 
-    def forward(self, supports: torch.Tensor, obs_seq: torch.Tensor) -> torch.Tensor:
+    def forward(self, supports, obs_seq: torch.Tensor) -> torch.Tensor:
         return self.gcn(supports, self.cg_lstm(supports, obs_seq))
 
 
@@ -56,6 +67,7 @@ class STMGCN(nn.Module):
                  horizon: int = 1, lstm_hidden_dim: int = 64, lstm_num_layers: int = 3,
                  gcn_hidden_dim: int = 64, use_bias: bool = True,
                  shared_gate_fc: bool = True, n_real_nodes: Optional[int] = None,
+                 sparse: bool = False, support_modes: Optional[Sequence[str]] = None,
                  device=None, generator: Optional[torch.Generator] = None):
         super().__init__()
         device = resolve_device(device)
@@ -66,27 +78,65 @@ class STMGCN(nn.Module):
         self.seq_len = seq_len
         self.input_dim = input_dim
         self.horizon = horizon
+        self.support_mode = self._mode(m_graphs, sparse, support_modes)
         self.branches = Branch(
             n_supports, seq_len, input_dim, lstm_hidden_dim, lstm_num_layers,
             gcn_hidden_dim, use_bias=use_bias, shared_gate_fc=shared_gate_fc,
-            n_real_nodes=n_real_nodes, branches=m_graphs, device=device,
-            generator=generator,
+            n_real_nodes=n_real_nodes, support_mode=self.support_mode, branches=m_graphs,
+            device=device, generator=generator,
         )
         self.head = Dense(gcn_hidden_dim, horizon * input_dim, device=device,
                           generator=generator)
 
-    def forward(self, supports_stack: torch.Tensor, obs_seq: torch.Tensor) -> torch.Tensor:
-        """``supports_stack`` ``(M, K, N, N)``; ``obs_seq`` ``(B, T, N, C)``."""
-        want = (self.m_graphs, self.n_supports)
-        if supports_stack.dim() != 4 or tuple(supports_stack.shape[:2]) != want:
+    @staticmethod
+    def _mode(m_graphs, sparse, support_modes) -> str:
+        """The one support mode of every branch."""
+        if support_modes is None:
+            return "sparse" if sparse else "dense"
+        if sparse:
+            raise ValueError("pass either sparse=True or support_modes, not both")
+        modes = tuple(support_modes)
+        if len(modes) != m_graphs:
+            raise ValueError(f"support_modes needs {m_graphs} entries, got {len(modes)}")
+        if len(set(modes)) != 1:
+            raise ValueError(f"mixed per-branch support modes {modes} are not ported yet")
+        conv_cls(modes[0])  # rejects unknown and unported modes
+        return modes[0]
+
+    def check_supports(self, supports) -> None:
+        """Raise unless ``supports`` is this model's form: a dense ``(M, K,
+        N, N)`` tensor, a :class:`~stmgcn_tpu_torch.ops.tiling.TiledSupports`
+        plan of M branches x K supports, or M per-branch block-sparse
+        groups (or one branch-stacked ``BlockSparseStack``)."""
+        mode, want = self.support_mode, (self.m_graphs, self.n_supports)
+        if mode != "tiled" and isinstance(supports, TiledSupports):
             raise ValueError(
-                f"supports_stack must be ({want[0]}, {want[1]}, N, N), "
-                f"got {tuple(supports_stack.shape)}"
-            )
+                f"a {mode} model got a TiledSupports plan: build the model with "
+                "model.tiled=True to serve a plan (the weights load unchanged)")
+        if mode == "dense":
+            if not isinstance(supports, torch.Tensor) or supports.dim() != 4 or (
+                    tuple(supports.shape[:2]) != want):
+                got = tuple(supports.shape) if hasattr(supports, "shape") else type(supports)
+                raise ValueError(f"supports_stack must be ({want[0]}, {want[1]}, N, N), "
+                                 f"got {got}")
+        elif mode == "tiled":
+            if not isinstance(supports, TiledSupports) or (
+                    (supports.m_graphs, supports.n_supports) != want):
+                raise ValueError(
+                    f"a tiled model takes a TiledSupports plan of (M, K)={want}, got "
+                    f"{type(supports).__name__}; a dense-built model serves a plan once "
+                    "rebuilt with model.tiled=True (its weights load unchanged)")
+        elif not isinstance(supports, BlockSparseStack) and len(supports) != self.m_graphs:
+            raise ValueError(
+                f"need {self.m_graphs} per-branch support groups, got {len(supports)}")
+
+    def forward(self, supports_stack, obs_seq: torch.Tensor) -> torch.Tensor:
+        """``supports_stack`` in the model's support form (see
+        :meth:`check_supports`); ``obs_seq`` ``(B, T, N, C)``."""
+        self.check_supports(supports_stack)
         feats = self.branches(supports_stack, obs_seq)  # (M, B, N, gcn_hidden)
         out = self.head(feats.sum(dim=0))
         if self.horizon == 1:
             return out  # (B, N, C)
         batch, n_nodes = out.shape[:2]
         return out.reshape(batch, n_nodes, self.horizon, self.input_dim).transpose(1, 2)
-

@@ -6,6 +6,8 @@ compiled by ``nvcc`` for ``sm_90a`` into a shared library under
 carries a hash of the sources and flags, so an edited source rebuilds and
 an unchanged one loads in milliseconds. Nothing here runs at import time:
 the CPU tests import every module on a host with no ``nvcc``.
+:func:`on_cuda` is every wrapper's choice between its kernel and its
+plain version.
 """
 
 from __future__ import annotations
@@ -19,7 +21,9 @@ import threading
 import time
 from pathlib import Path
 
-__all__ = ["BUILD_DIR", "BuildInfo", "load_library"]
+import torch
+
+__all__ = ["BUILD_DIR", "BuildInfo", "load_library", "on_cuda"]
 
 _REPO_ROOT = Path(__file__).resolve().parents[2]
 BUILD_DIR = _REPO_ROOT / "build" / "kernels"
@@ -79,6 +83,35 @@ def _build(sources, name: str) -> BuildInfo:
         )
     os.replace(tmp, path)  # atomic: a concurrent loader never sees half a file
     return BuildInfo(path, seconds, proc.stdout + proc.stderr)
+
+
+def on_cuda(name, operands, int_operands=()) -> bool:
+    """Where a kernel wrapper's operands send it: False when every operand
+    lies on the CPU (the plain version runs); True when all are contiguous
+    and on one CUDA device, ``operands`` float32 and ``int_operands`` int32
+    (the kernel runs); raises on anything else — no fallback."""
+    every = tuple(operands) + tuple(int_operands)
+    if all(t.device.type == "cpu" for t in every):
+        return False
+    device = every[0].device
+    if device.type != "cuda" or any(t.device != device for t in every):
+        raise ValueError(
+            f"{name}: operands must all be on one CUDA device (or all on "
+            f"the CPU), got {[str(t.device) for t in every]}"
+        )
+    if any(t.dtype != torch.float32 for t in operands):
+        raise TypeError(
+            f"{name}: the CUDA kernel takes float32 storage only, got "
+            f"{[str(t.dtype) for t in operands]}"
+        )
+    if any(t.dtype != torch.int32 for t in int_operands):
+        raise TypeError(
+            f"{name}: the CUDA kernel takes int32 block indices, got "
+            f"{[str(t.dtype) for t in int_operands]}"
+        )
+    if not all(t.is_contiguous() for t in every):
+        raise ValueError(f"{name}: the CUDA kernel needs contiguous operands")
+    return True
 
 
 def load_library(sources, name: str) -> tuple[ctypes.CDLL, BuildInfo]:

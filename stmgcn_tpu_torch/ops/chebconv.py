@@ -1,23 +1,43 @@
-"""K-support graph convolution as one fused contraction (dense supports).
+"""K-support graph convolution over dense, block-sparse or tiled supports.
 
-Counterpart of ``stmgcn_tpu/ops/chebconv.py`` (``ChebGraphConv`` and its
-``_project`` tail): all K support propagations in one
-``einsum('kij,bjf->bikf')``, a k-major flatten (matching
-``torch.cat(support_list, dim=-1)``), then the shared ``(K*F_in, F_out)``
-projection with bias and ReLU. Xavier-normal weight, zero bias. Float32
-throughout. The sparse, banded and tiled convolutions are not ported yet.
+Counterpart of ``stmgcn_tpu/ops/chebconv.py``. All three convolutions hold
+the same parameters — one k-major ``(K*F_in, F_out)`` weight (matching
+``torch.cat(support_list, dim=-1)``) and a bias, Xavier-normal and zero —
+so trained weights move between them unchanged, and share the projection
+tail ``act(stacked @ W + b)``. They differ in how the K propagations run:
+
+- :class:`ChebGraphConv`: one ``einsum('kij,bjf->bikf')`` over a dense
+  ``([M,] K, N, N)`` stack;
+- :class:`SparseChebGraphConv`: block-CSR supports through the kernels of
+  :mod:`~stmgcn_tpu_torch.ops.spmm` (B3/B4 for a
+  :class:`~stmgcn_tpu_torch.ops.spmm.BlockSparseStack`, B5 per support
+  for a K-tuple of :class:`~stmgcn_tpu_torch.ops.spmm.BlockSparse`);
+- :class:`TiledChebGraphConv`: a reordered and condensed plan
+  (:mod:`~stmgcn_tpu_torch.ops.tiling`), all branches in one B3 launch.
+
+Neither block conv has a backend switch: CUDA tensors take the kernels,
+CPU tensors their plain versions. The banded (mesh) convolution is not
+ported. Float32 throughout.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Optional
+from typing import Callable, Optional, Sequence
 
 import torch
 from torch import nn
 
 from stmgcn_tpu_torch.ops.layers import branch_view, new_param, xavier_normal
+from stmgcn_tpu_torch.ops.spmm import BlockSparseStack, spmm, spmm_stack
+from stmgcn_tpu_torch.ops.tiling import TiledBranchSupports, TiledSupports
 
-__all__ = ["ChebGraphConv"]
+__all__ = [
+    "ChebGraphConv",
+    "SparseChebGraphConv",
+    "TiledChebGraphConv",
+    "conv_cls",
+    "make_conv",
+]
 
 
 def _project(stacked, w, b, activation):
@@ -28,6 +48,21 @@ def _project(stacked, w, b, activation):
     if activation is not None:
         out = activation(out)
     return out
+
+
+def _signal_matrix(x):
+    """``([M,] B, N, F)`` -> ``([M,] N, B*F)``: every batch row and
+    feature of a node side by side, one product per support."""
+    *lead, batch, n_nodes, f_in = x.shape
+    return x.transpose(-3, -2).reshape(*lead, n_nodes, batch * f_in)
+
+
+def _k_major(propagated, batch, f_in):
+    """``([M,] K, N, B*F)`` -> ``([M,] B, N, K*F)``, k-major as the dense
+    layout."""
+    *lead, k, n_nodes, _ = propagated.shape
+    return (propagated.reshape(*lead, k, n_nodes, batch, f_in)
+            .transpose(-4, -2).flatten(-2))
 
 
 class ChebGraphConv(nn.Module):
@@ -56,13 +91,119 @@ class ChebGraphConv(nn.Module):
         )
         self.b = new_param(torch.zeros(lead + (features,)), device) if use_bias else None
 
-    def forward(self, supports: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-        if supports.shape[-3] != self.n_supports:
-            raise ValueError(
-                f"expected {self.n_supports} supports, got {supports.shape[-3]}"
-            )
-        propagated = torch.einsum("...kij,...bjf->...bikf", supports, x)
-        stacked = propagated.flatten(-2)  # k-major (B, N, K*F_in)
+    def _check_count(self, k: int) -> None:
+        if k != self.n_supports:
+            raise ValueError(f"expected {self.n_supports} supports, got {k}")
+
+    def project(self, stacked: torch.Tensor) -> torch.Tensor:
+        """The shared tail on the k-major ``([M,] B, N, K*F_in)`` stack."""
         w = branch_view(self.W, self.branches, 1)
         b = None if self.b is None else branch_view(self.b, self.branches, 2)
         return _project(stacked, w, b, self.activation)
+
+    def forward(self, supports: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+        self._check_count(supports.shape[-3])
+        propagated = torch.einsum("...kij,...bjf->...bikf", supports, x)
+        return self.project(propagated.flatten(-2))  # k-major (B, N, K*F_in)
+
+
+class SparseChebGraphConv(ChebGraphConv):
+    """Graph convolution over K block-sparse supports.
+
+    Same parameters and math as :class:`ChebGraphConv`. Accepted support
+    forms, for one branch (``branches=None``):
+
+    - a :class:`~stmgcn_tpu_torch.ops.spmm.BlockSparseStack` — all K
+      propagations in one launch of B3;
+    - a K-sequence of :class:`~stmgcn_tpu_torch.ops.spmm.BlockSparse` —
+      one launch of B5 per support.
+
+    With ``branches=M``: a branch-stacked ``BlockSparseStack`` (one launch
+    for every branch), or an M-sequence of the one-branch forms (one launch
+    group per branch: each branch's stack has its own block-column count).
+    """
+
+    def _one_branch(self, supports, x_mat):
+        if isinstance(supports, BlockSparseStack):
+            self._check_count(supports.n_supports)
+            return spmm_stack(supports, x_mat)
+        self._check_count(len(supports))
+        return torch.stack([spmm(bs, x_mat) for bs in supports])
+
+    def forward(self, supports, x: torch.Tensor) -> torch.Tensor:
+        batch, f_in = x.shape[-3], x.shape[-1]
+        x_mat = _signal_matrix(x)
+        if self.branches is None or isinstance(supports, BlockSparseStack):
+            if isinstance(supports, BlockSparseStack) and supports.branches != self.branches:
+                raise ValueError(
+                    f"a BlockSparseStack with branch axis {supports.branches} for a conv "
+                    f"with branches={self.branches}"
+                )
+            propagated = self._one_branch(supports, x_mat)
+        else:
+            if not isinstance(supports, Sequence) or len(supports) != self.branches:
+                raise ValueError(
+                    f"need {self.branches} per-branch support groups, got "
+                    f"{len(supports) if isinstance(supports, Sequence) else type(supports)}"
+                )
+            propagated = torch.stack([
+                self._one_branch(s, x_mat if x_mat.dim() == 2 else x_mat[m])
+                for m, s in enumerate(supports)
+            ])
+        return self.project(_k_major(propagated, batch, f_in))
+
+
+class TiledChebGraphConv(ChebGraphConv):
+    """Graph convolution over a reordered and condensed tiled plan.
+
+    Same parameters and math as :class:`ChebGraphConv`. With
+    ``branches=M`` it takes the whole
+    :class:`~stmgcn_tpu_torch.ops.tiling.TiledSupports` plan (M branches);
+    without, one :class:`~stmgcn_tpu_torch.ops.tiling.TiledBranchSupports`.
+    The signal permutes into the plan's node order once (one
+    ``index_select``), every branch's K propagations run over the stored
+    blocks only in one launch of B3 (B4 for the gradient), and the
+    projected output permutes back out (one ``index_select``): the
+    permutation never touches the contraction.
+    """
+
+    def forward(self, supports, x: torch.Tensor) -> torch.Tensor:
+        want = TiledBranchSupports if self.branches is None else TiledSupports
+        if not isinstance(supports, want):
+            raise TypeError(
+                f"tiled mode consumes a {want.__name__} (a plan_tiling artifact"
+                f"{'' if self.branches is None else ' with every branch'}), "
+                f"got {type(supports).__name__}"
+            )
+        if self.branches is not None and supports.m_graphs != self.branches:
+            raise ValueError(f"plan has {supports.m_graphs} branches, conv {self.branches}")
+        self._check_count(supports.n_supports)
+        batch, n_nodes, f_in = x.shape[-3:]
+        if n_nodes != supports.n:
+            raise ValueError(f"x has {n_nodes} nodes, plan expects {supports.n}")
+        x_mat = _signal_matrix(x).index_select(-2, supports.perm)
+        propagated = spmm_stack(supports.as_stack(), x_mat)
+        out = self.project(_k_major(propagated, batch, f_in))
+        # the node axis back out AFTER the (node-wise) projection
+        return out.index_select(-2, supports.inv)
+
+
+def conv_cls(mode):
+    """The graph-conv class for a support representation: ``"dense" |
+    "sparse" | "tiled"`` (bools accepted: ``True`` = sparse, ``False`` =
+    dense). The JAX package's ``"banded"`` (mesh) mode is not ported."""
+    if isinstance(mode, bool):
+        mode = "sparse" if mode else "dense"
+    classes = {"dense": ChebGraphConv, "sparse": SparseChebGraphConv,
+               "tiled": TiledChebGraphConv}
+    if mode == "banded":
+        raise ValueError("support mode 'banded' (the mesh halo plan) is not ported yet")
+    if mode not in classes:
+        raise ValueError(f"support mode must be one of {sorted(classes)}, got {mode!r}")
+    return classes[mode]
+
+
+def make_conv(mode, *args, **kwargs) -> ChebGraphConv:
+    """Construct the graph conv for ``mode`` (arguments as
+    :class:`ChebGraphConv`'s)."""
+    return conv_cls(mode)(*args, **kwargs)

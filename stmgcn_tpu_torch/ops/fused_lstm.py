@@ -34,7 +34,7 @@ from pathlib import Path
 
 import torch
 
-from stmgcn_tpu_torch.ops._build import load_library
+from stmgcn_tpu_torch.ops._build import load_library, on_cuda
 
 __all__ = [
     "FusedLSTM",
@@ -147,28 +147,6 @@ def fused_lstm_reference(x_proj0, wh_stack, wx_stack, b_stack, *, with_residuals
     return result
 
 
-def _on_cuda(name, operands) -> bool:
-    """False when every operand lies on the CPU (the plain version runs);
-    True when all are float32, contiguous and on one CUDA device (the
-    kernel runs); raises on anything else — no fallback."""
-    if all(t.device.type == "cpu" for t in operands):
-        return False
-    device = operands[0].device
-    if device.type != "cuda" or any(t.device != device for t in operands):
-        raise ValueError(
-            f"{name}: operands must all be on one CUDA device (or all on "
-            f"the CPU), got {[str(t.device) for t in operands]}"
-        )
-    if any(t.dtype != torch.float32 for t in operands):
-        raise TypeError(
-            f"{name}: the CUDA kernel takes float32 storage only, got "
-            f"{[str(t.dtype) for t in operands]}"
-        )
-    if not all(t.is_contiguous() for t in operands):
-        raise ValueError(f"{name}: the CUDA kernel needs contiguous operands")
-    return True
-
-
 def _kernel_shapes(name, operands):
     lead, R, T, L, H = _check_shapes(*operands[:4])
     if H not in KERNEL_HIDDEN or not 1 <= L <= KERNEL_MAX_LAYERS:
@@ -203,7 +181,7 @@ def fused_lstm(x_proj0, wh_stack, wx_stack, b_stack, *, with_residuals=False):
     ``KERNEL_HIDDEN``, more than ``KERNEL_MAX_LAYERS`` layers.
     """
     operands = (x_proj0, wh_stack, wx_stack, b_stack)
-    if not _on_cuda("fused_lstm", operands):
+    if not on_cuda("fused_lstm", operands):
         return fused_lstm_reference(*operands, with_residuals=with_residuals)
     lead, M, R, T, L, H = _kernel_shapes("fused_lstm", operands)
     device = x_proj0.device
@@ -334,7 +312,7 @@ def fused_lstm_bwd(x_proj0, wh_stack, wx_stack, b_stack, hseq, cseq,
     L = wh_stack.shape[-3]
     g_out, g_hfin, g_cfin = _cotangents(x_proj0, L, g_out, g_hfin, g_cfin)
     operands = (x_proj0, wh_stack, wx_stack, b_stack, hseq, cseq, g_out, g_hfin, g_cfin)
-    if not _on_cuda("fused_lstm_bwd", operands):
+    if not on_cuda("fused_lstm_bwd", operands):
         return fused_lstm_bwd_reference(*operands)
     lead, M, R, T, L, H = _kernel_shapes("fused_lstm_bwd", operands)
     want = {"hseq": lead + (T, L, R, H), "cseq": lead + (T, L, R, H),

@@ -1,0 +1,269 @@
+"""Offline tiled-sparse support planning: reorder + condense.
+
+Counterpart of ``stmgcn_tpu/ops/tiling.py``. A metro-scale city's
+Chebyshev supports are overwhelmingly zero, but a dense ``(M, K, N, N)``
+stack multiplies every entry. The plan fixes that offline, on the host, in
+numpy, as the JAX package does (copied, not imported, so that a plan here
+is array-equal to the JAX one):
+
+1. **Reorder** — one reverse Cuthill-McKee-style BFS permutation over the
+   symmetrized union pattern of all M x K supports clusters each row's
+   neighbours into few ``(tile, tile)`` blocks;
+2. **Condense** — each permuted support's nonzero blocks packed into
+   uniform block-CSR (``ops/spmm.py``) at one common block-column count
+   for the whole city, so every kernel operand has a static shape.
+
+The :class:`TiledSupports` plan holds the permutation and its inverse and
+the forward and pre-transposed block stacks of every branch, as tensors
+(``.to(device)`` moves them). The online apply is
+:class:`~stmgcn_tpu_torch.ops.chebconv.TiledChebGraphConv`: the signal
+permutes in once, all branches' K propagations run as one launch of kernel
+B3 over :meth:`TiledSupports.as_stack` (B4 for the gradient), and the
+projected output permutes back out. :func:`gathered_tiles_apply` is the
+plain version of that apply on one branch, with its prepared backward.
+
+Left out: fleet rung padding (``pad_to``, ``with_block_cols``) and the
+sharded plans (``ShardedTiledBranch``, ``shard_tiled_plan``,
+``sharded_gathered_tiles_apply``).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import functools
+
+import numpy as np
+import torch
+
+from stmgcn_tpu_torch.ops.spmm import (
+    TILE,
+    BlockCSRApply,
+    BlockSparseStack,
+    _assemble_blocks,
+    _moved,
+    _nbytes,
+    _scan_blocks,
+    spmm_stack_bwd_reference,
+    spmm_stack_reference,
+)
+
+__all__ = [
+    "TiledBranchSupports",
+    "TiledSupports",
+    "gathered_tiles_apply",
+    "plan_tiling",
+    "rcm_permutation",
+]
+
+
+def rcm_permutation(pattern: np.ndarray) -> np.ndarray:
+    """Reverse-Cuthill-McKee-style BFS ordering of a sparsity pattern.
+
+    ``pattern`` is a boolean ``(N, N)`` adjacency (symmetrized inside —
+    bandwidth is a property of the symmetric closure). Components are
+    seeded from their minimum-degree node and BFS levels visit neighbors
+    in ascending-degree order; the final order is reversed (the RCM
+    refinement — same bandwidth, better profile). Pure numpy, no scipy.
+
+    Returns ``perm`` (int32): new position ``p`` holds original node
+    ``perm[p]``, i.e. ``A_reordered = A[perm][:, perm]``.
+    """
+    pattern = np.asarray(pattern)
+    if pattern.ndim != 2 or pattern.shape[0] != pattern.shape[1]:
+        raise ValueError(f"pattern must be square (N, N), got {pattern.shape}")
+    sym = (pattern != 0) | (pattern.T != 0)
+    np.fill_diagonal(sym, False)
+    n = sym.shape[0]
+    deg = sym.sum(axis=1)
+    order = np.empty(n, dtype=np.int64)
+    visited = np.zeros(n, dtype=bool)
+    pos = 0
+    for start in np.argsort(deg, kind="stable"):
+        if visited[start]:
+            continue
+        visited[start] = True
+        order[pos] = start
+        head, pos = pos, pos + 1
+        while head < pos:
+            u = order[head]
+            head += 1
+            nbrs = np.flatnonzero(sym[u] & ~visited)
+            if nbrs.size:
+                nbrs = nbrs[np.argsort(deg[nbrs], kind="stable")]
+                visited[nbrs] = True
+                order[pos : pos + nbrs.size] = nbrs
+                pos += nbrs.size
+    return order[::-1].astype(np.int32)
+
+
+@dataclasses.dataclass
+class TiledBranchSupports:
+    """One branch's slice of a :class:`TiledSupports` plan (K supports)."""
+
+    perm: torch.Tensor  # (N,) int32 — x_reordered = x[perm]
+    inv: torch.Tensor  # (N,) int32 — y = y_reordered[inv]
+    data: torch.Tensor  # (K, R, C, tile, tile) f32
+    idx: torch.Tensor  # (K, R, C) int32
+    data_t: torch.Tensor  # (K, R, C_t, tile, tile) f32
+    idx_t: torch.Tensor  # (K, R, C_t) int32
+    n: int
+    tile: int
+
+    @property
+    def n_supports(self) -> int:
+        return self.data.shape[0]
+
+    def as_stack(self) -> BlockSparseStack:
+        """This branch's blocks as the kernels' operand (square N x N in the
+        *permuted* node order — callers permute the signal)."""
+        return BlockSparseStack(
+            data=self.data, idx=self.idx, data_t=self.data_t, idx_t=self.idx_t,
+            n_rows=self.n, n_cols=self.n, tile=self.tile,
+        )
+
+    def to(self, device) -> "TiledBranchSupports":
+        return _moved(self, device)
+
+
+@dataclasses.dataclass
+class TiledSupports:
+    """One city's tiled-sparse support plan: all M graphs x K supports.
+
+    ``data``/``idx`` carry a leading ``(M, K, ...)`` pair with ONE common
+    block-column count across every support (and one for the transposes),
+    so all branches run in one kernel launch (:meth:`as_stack`). Indexing
+    (``plan[m]``) yields one branch's view. Occupancy accounting is derived
+    on demand (:meth:`tile_stats`), never stored.
+    """
+
+    perm: torch.Tensor  # (N,) int32
+    inv: torch.Tensor  # (N,) int32
+    data: torch.Tensor  # (M, K, R, C, tile, tile) f32
+    idx: torch.Tensor  # (M, K, R, C) int32
+    data_t: torch.Tensor  # (M, K, R, C_t, tile, tile) f32
+    idx_t: torch.Tensor  # (M, K, R, C_t) int32
+    n: int
+    tile: int
+
+    @property
+    def m_graphs(self) -> int:
+        return self.data.shape[0]
+
+    @property
+    def n_supports(self) -> int:
+        return self.data.shape[1]
+
+    @property
+    def block_rows(self) -> int:
+        return self.data.shape[2]
+
+    @property
+    def block_cols(self) -> int:
+        return self.data.shape[3]
+
+    @property
+    def nbytes(self) -> int:
+        return _nbytes(self.data, self.idx, self.data_t, self.idx_t)
+
+    def __len__(self) -> int:
+        return self.m_graphs
+
+    def __getitem__(self, m: int) -> TiledBranchSupports:
+        if not isinstance(m, (int, np.integer)):
+            raise TypeError(f"branch index must be an int, got {type(m)!r}")
+        return TiledBranchSupports(
+            perm=self.perm, inv=self.inv, data=self.data[m], idx=self.idx[m],
+            data_t=self.data_t[m], idx_t=self.idx_t[m], n=self.n, tile=self.tile,
+        )
+
+    def as_stack(self) -> BlockSparseStack:
+        """Every branch's blocks as one branch-stacked kernel operand."""
+        return BlockSparseStack(
+            data=self.data, idx=self.idx, data_t=self.data_t, idx_t=self.idx_t,
+            n_rows=self.n, n_cols=self.n, tile=self.tile,
+        )
+
+    def to(self, device) -> "TiledSupports":
+        return _moved(self, device)
+
+    def tile_stats(self) -> dict:
+        """Occupancy accounting (reads block values).
+
+        ``blocks_kept`` counts truly-nonzero forward blocks;
+        ``blocks_dense_equivalent`` is what a dense padded plan would
+        carry (``M * K * R * R``); their ratio is the density that bounds
+        the support-apply FLOP win (``flops_ratio`` uses the *stored*
+        ``C / R`` — what the kernels actually execute, padding included).
+        """
+        r = self.block_rows
+        kept = int((self.data != 0.0).any(dim=-1).any(dim=-1).sum())
+        dense_eq = self.m_graphs * self.n_supports * r * r
+        return {
+            "n": self.n,
+            "tile": self.tile,
+            "block_rows": r,
+            "block_cols": self.block_cols,
+            "blocks_kept": kept,
+            "blocks_dense_equivalent": dense_eq,
+            "density": kept / dense_eq,
+            "flops_ratio": self.block_cols / r,
+            "nbytes": int(self.nbytes),
+            "dense_nbytes": int(self.m_graphs * self.n_supports * self.n * self.n * 4),
+        }
+
+
+def plan_tiling(dense, tile: int = TILE) -> TiledSupports:
+    """Plan one city's tiled supports from its dense ``(M, K, N, N)`` stack.
+
+    Offline, numpy-only: RCM-style permutation over the symmetrized union
+    pattern of all M x K supports (one ordering for the whole city — the
+    signal permutes once, not per branch), then block condensation of
+    each permuted support at one common block-column count.
+    """
+    dense = np.asarray(dense, dtype=np.float32)
+    if dense.ndim != 4 or dense.shape[2] != dense.shape[3]:
+        raise ValueError(f"supports must be dense (M, K, N, N), got {dense.shape}")
+    if tile < 1:
+        raise ValueError(f"tile must be >= 1, got {tile}")
+    m_graphs, k, n, _ = dense.shape
+    union = np.any(dense != 0.0, axis=(0, 1))
+    perm = rcm_permutation(union)
+    inv = np.argsort(perm).astype(np.int32)
+    permuted = dense[:, :, perm][:, :, :, perm]
+
+    fwd_scan = [[_scan_blocks(permuted[mi, ki], tile) for ki in range(k)]
+                for mi in range(m_graphs)]
+    bwd_scan = [[_scan_blocks(np.ascontiguousarray(permuted[mi, ki].T), tile)
+                 for ki in range(k)] for mi in range(m_graphs)]
+
+    def width(scans):
+        return max(max(int(nz.sum(axis=1).max()), 1) for row in scans for _, nz in row)
+
+    def assemble(scans, c):
+        parts = [[_assemble_blocks(b, nz, c, tile) for b, nz in row] for row in scans]
+        data = np.stack([np.stack([d for d, _ in row]) for row in parts])
+        idx = np.stack([np.stack([i for _, i in row]) for row in parts])
+        return torch.from_numpy(data), torch.from_numpy(idx)
+
+    data, idx = assemble(fwd_scan, width(fwd_scan))
+    data_t, idx_t = assemble(bwd_scan, width(bwd_scan))
+    return TiledSupports(
+        perm=torch.from_numpy(perm), inv=torch.from_numpy(inv),
+        data=data, idx=idx, data_t=data_t, idx_t=idx_t, n=n, tile=tile,
+    )
+
+
+def gathered_tiles_apply(branch: TiledBranchSupports, x_mat: torch.Tensor) -> torch.Tensor:
+    """``out[k] = A_k @ x`` through the plain gathered-tiles contraction —
+    the plain version of kernels B3/B4 on one branch, on any device.
+
+    ``x_mat`` is the *permuted* ``(N, F)`` signal; returns ``(K, N, F)``.
+    **Prepared backward**: instead of autograd's scatter-add transpose of
+    the gather, the gradient runs the same gathered-tiles shape over the
+    pre-transposed blocks the plan already holds: ``dx = sum_k A_k^T @
+    g_k``. Gradients flow to ``x_mat`` only (the supports are constants).
+    """
+    stack = branch.as_stack()
+    return BlockCSRApply.apply(
+        x_mat, functools.partial(spmm_stack_reference, stack),
+        functools.partial(spmm_stack_bwd_reference, stack, shared=True))

@@ -7,8 +7,8 @@ Counterpart of ``stmgcn_tpu/serving/engine.py`` (``ServingEngine``):
   smallest covering rung, so the device only ever sees ladder shapes. The
   JAX engine compiles each rung ahead of time; here a rung is a plain
   eager forward (per-rung CUDA graphs are later work);
-- **device-resident operands** — the support stack is placed on the
-  device once; the model lives behind one atomic ``(generation, model)``
+- **device-resident operands** — the support stack (for a metro-scale
+  city, the tiled plan) is placed on the device once; the model lives behind one atomic ``(generation, model)``
   reference, so the history window is the only per-request upload and
   :meth:`ServingEngine.swap_params` hot-swaps new weights between
   dispatches. Every response can report the generation that produced it
@@ -38,6 +38,8 @@ import torch
 
 from stmgcn_tpu_torch.obs.registry import REGISTRY
 from stmgcn_tpu_torch.ops.layers import resolve_device
+from stmgcn_tpu_torch.ops.spmm import place_supports
+from stmgcn_tpu_torch.ops.tiling import TiledSupports
 from stmgcn_tpu_torch.serving.admission import (
     AdmissionController,
     BatcherWedged,
@@ -54,9 +56,10 @@ __all__ = ["ServingEngine"]
 _SWAP_RETRIES = 20
 
 
-def _bucket_program(sup_dev: torch.Tensor, device: torch.device):
+def _bucket_program(sup_dev, device: torch.device):
     """One rung's serving program: ``(model, history) -> predictions`` on
-    the host, supports bound device-resident."""
+    the host, supports (a dense stack or a tiled plan) bound
+    device-resident."""
 
     def run(model, history: np.ndarray) -> np.ndarray:
         with torch.inference_mode():
@@ -125,8 +128,11 @@ class ServingEngine:
         """Engine over a :class:`~stmgcn_tpu_torch.inference.Forecaster`.
 
         ``device=None`` means the GPU (and raises without one). The
-        supports are validated against the model and placed on the device
-        once; the engine serves its own copy of the forecaster's model.
+        supports — a dense ``(M, K, N, N)`` stack, or for the large-N path
+        a :class:`~stmgcn_tpu_torch.ops.tiling.TiledSupports` plan served
+        by a tiled model — are validated against the model and placed on
+        the device once, where they stay across ``swap_params``; the
+        engine serves its own copy of the forecaster's model.
         """
         device = resolve_device(device)
         cfg = cls._resolve_config(
@@ -134,11 +140,18 @@ class ServingEngine:
         )
         model = fc.model
         n_nodes = fc.derived["n_nodes"]
-        want = (model.m_graphs, model.n_supports, n_nodes, n_nodes)
-        supports_np = np.asarray(supports, dtype=np.float32)
-        if supports_np.shape != want:
-            raise ValueError(f"supports must be {want}, got {supports_np.shape}")
-        sup_dev = torch.as_tensor(supports_np, device=device)
+        if isinstance(supports, TiledSupports):
+            got = (supports.m_graphs, supports.n_supports, supports.n)
+            want = (model.m_graphs, model.n_supports, n_nodes)
+            if got != want:
+                raise ValueError(f"tiled supports must plan (M, K, N)={want}, got {got}")
+        else:
+            want = (model.m_graphs, model.n_supports, n_nodes, n_nodes)
+            supports = np.asarray(supports, dtype=np.float32)
+            if supports.shape != want:
+                raise ValueError(f"supports must be {want}, got {supports.shape}")
+        sup_dev = place_supports(supports, device)
+        model.check_supports(sup_dev)
         program = _bucket_program(sup_dev, device)
         served = copy.deepcopy(model).to(device).eval()
         return cls({b: program for b in cfg.buckets}, served, fc.normalizer,

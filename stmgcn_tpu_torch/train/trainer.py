@@ -34,6 +34,7 @@ import torch
 
 from stmgcn_tpu_torch.data.splits import MODES
 from stmgcn_tpu_torch.ops.layers import resolve_device
+from stmgcn_tpu_torch.ops.spmm import place_supports
 from stmgcn_tpu_torch.train.metrics import regression_report
 from stmgcn_tpu_torch.train.step import (
     LOSSES,
@@ -50,7 +51,9 @@ class Trainer:
     """Trains an :class:`~stmgcn_tpu_torch.models.STMGCN` over a
     :class:`~stmgcn_tpu_torch.data.DemandDataset`.
 
-    ``supports`` is the dense ``(M, K, N, N)`` stack; ``initial_state`` a
+    ``supports`` is the model's support form — the dense ``(M, K, N, N)``
+    stack, a ``TiledSupports`` plan or the M per-branch block-sparse
+    groups — placed on the device once, here; ``initial_state`` a
     ``state_dict`` to start from (e.g. the JAX trainer's converted initial
     parameters, ``from_jax_params``). ``device=None`` means the GPU, and
     raises without one. Other arguments as the JAX ``Trainer``'s.
@@ -91,7 +94,8 @@ class Trainer:
             self.model.load_state_dict(initial_state)
 
         dev = self.device
-        self.supports = torch.as_tensor(np.asarray(supports, np.float32), device=dev)
+        self.supports = place_supports(supports, dev)
+        self.model.check_supports(self.supports)
         # the resident data, uploaded once: one series serves every mode
         self.series = torch.as_tensor(np.asarray(dataset.series_stack(), np.float32), device=dev)
         self.offsets = torch.as_tensor(np.asarray(dataset.window.offsets, np.int32), device=dev)

@@ -320,12 +320,15 @@ def test_jax_config_dict_reads_with_its_train_section():
     assert ExperimentConfig.from_dict(cfg.to_dict()) == cfg
 
 
-@pytest.mark.parametrize("section,field,value", [
-    ("mesh", "dp", 2), ("model", "sparse", True), ("model", "tiled", True),
-])
-def test_build_trainer_refuses_unported_layouts(section, field, value):
+@pytest.mark.parametrize("edits,match", [
+    ({"mesh": {"dp": 2}}, "one device"),
+    ({"mesh": {"dp": 2}, "model": {"tiled": True}}, "does not compose"),
+    ({"model": {"tiled": True, "sparse": True}}, "mutually exclusive"),
+], ids=["mesh-dp-2", "model-tiled-True", "model-sparse-True"])
+def test_build_trainer_refuses_unported_layouts(edits, match):
     d = jax_preset("smoke").to_dict()
     d["data"].update(rows=4, n_timesteps=24 * 7 + 80)
-    d[section][field] = value
-    with pytest.raises(ValueError, match="not ported|one device"):
+    for section, fields in edits.items():
+        d[section].update(fields)
+    with pytest.raises(ValueError, match=match):
         build_trainer(ExperimentConfig.from_dict(d), device="cpu", verbose=False)
