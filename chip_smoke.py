@@ -7,13 +7,16 @@ Phases, each of which ends the run with a non-zero exit code on failure:
 
 1. the card (``nvidia-smi`` name and power limit) and the torch/CUDA versions;
 2. build every CUDA kernel from ``stmgcn_tpu_torch/csrc`` with ``nvcc``
-   (into ``build/kernels/``), one ``nvcc`` per source, all at once;
+   (into ``build/kernels/``), one ``nvcc`` per source, all at once, and
+   time the ``mma.sync`` TF32 probe built beside them: the rate the LSTM
+   kernels' tensor-core products can reach;
 3. hold the LSTM forward kernel against its plain PyTorch version on the
    card at the main paths' shape (the flagship at a 16x16 grid, batch 64:
    M=3 branches x 64 x 256 nodes = 49,152 rows, a 12-step window, L=3,
    H=64), with residuals on and off, on a ragged row count, and at every
    hidden width and layer count the wrapper accepts; then time kernel,
-   plain version and the cuDNN ``nn.LSTM`` yardstick with CUDA events;
+   plain version and the cuDNN ``nn.LSTM`` yardstick with CUDA events,
+   beside the fp32 bound and the tensor-core (3xTF32) bound;
 4. the same for the LSTM backward kernel (nonzero cotangents at every step
    and on the final states), plus two runs that must agree bitwise; its
    yardstick is cuDNN's forward + backward against forward (with
@@ -114,9 +117,16 @@ EPOCHS, SUPERSTEP, TIMED_STEPS = 2, 4, 10
 CPU_STEPS, CPU_BATCH = 3, 4
 CPU_LOSS_RTOL, CPU_UPDATE_RTOL = 1e-5, 1e-3
 #: H100 SXM peaks (NVIDIA data sheet, dense, 700 W): fp32 outside the
-#: tensor cores, and HBM3 bandwidth
+#: tensor cores, TF32 on them, and HBM3 bandwidth
 PEAK_FP32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 495e12
 PEAK_BYTES_PER_S = 3.35e12
+#: B1/B2 take every product as three TF32 passes (3xTF32) on the tensor
+#: cores: their bound is that route's, TF32_PASSES x FLOPs over the TF32
+#: peak (or their bytes, if longer); the fp32-FMA bound stands beside it
+TF32_PASSES = 3
+#: the mma.sync probe: rounds of 16 products per warp, 8 warps per CTA
+MMA_PROBE_ITERS = 4000
 #: the metro city of bench.py's largeN point (bench.py:1155-1235): a
 #: METRO_ROWS x 2*METRO_ROWS grid, N = 8,192, planned at tile 128; batch 2
 #: and a 3+1+1-step window as bench.py runs it. 200 timesteps give 22
@@ -155,19 +165,24 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def build_kernels() -> None:
-    """Phase 2: every kernel library of the port's paths, one ``nvcc`` per
-    source, all started together; ptxas's register and spill lines."""
+def build_kernels():
+    """Phase 2: every kernel library of the port's paths and the ``mma.sync``
+    probe, one ``nvcc`` per source, all started together; ptxas's register
+    and spill lines. Returns the probe's library."""
     from concurrent.futures import ThreadPoolExecutor
 
-    from stmgcn_tpu_torch.ops.fused_lstm import bwd_kernel_library, kernel_library
+    from stmgcn_tpu_torch.ops import _build
+    from stmgcn_tpu_torch.ops.fused_lstm import SOURCE, bwd_kernel_library, kernel_library
 
     spmm_library = importlib.import_module("stmgcn_tpu_torch.ops.spmm").kernel_library
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=3) as pool:
-        infos = [f.result()[-1] for f in [pool.submit(kernel_library),
-                                          pool.submit(bwd_kernel_library),
-                                          pool.submit(spmm_library)]]
+    with ThreadPoolExecutor(max_workers=4) as pool:
+        builds = [f.result() for f in [
+            pool.submit(kernel_library), pool.submit(bwd_kernel_library),
+            pool.submit(spmm_library),
+            pool.submit(_build.load_library, [SOURCE.with_name("mma_tf32_rate.cu")],
+                        "mma_tf32_rate")]]
+    infos = [b[-1] for b in builds]
     print(f"built {', '.join(i.path.name for i in infos)} in "
           f"{time.perf_counter() - t0:.1f} s (nvcc in parallel: "
           f"{', '.join(f'{i.seconds:.1f} s' for i in infos)})")
@@ -175,6 +190,39 @@ def build_kernels() -> None:
         for line in info.log.splitlines():
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 print(f"  ptxas: {line.strip()}")
+    from stmgcn_tpu_torch.ops.fused_lstm import KERNEL_HIDDEN, kernel_resources
+
+    for h in KERNEL_HIDDEN:
+        res = [kernel_resources(layers, h) for layers in (1, 2, 3, 4)]
+        print(f"  LSTM kernels at H={h}: {res[0]['block_rows']} rows per CTA; dynamic "
+              "shared memory per CTA at L=1..4 (bytes): " + "; ".join(
+                  f"{k} {[r[k] for r in res]}" for k in
+                  ("lstm_fwd_kernel", "lstm_bwd_sweep", "lstm_bwd_wgrad")))
+    return builds[-1][0]
+
+
+def tensor_core_rate(probe) -> None:
+    """Phase 2, end: the ``mma.sync`` m16n8k8 TF32 rate, one pass and the
+    LSTM kernels' three, at one and two 8-warp CTAs per SM (CUDA events in
+    the probe), against the TF32 peak."""
+    import ctypes
+
+    import torch
+
+    fn = probe.stmgcn_mma_tf32_ms
+    fn.argtypes = [ctypes.c_int] * 3
+    fn.restype = ctypes.c_float
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for passes in (1, TF32_PASSES):
+        for per_sm in (1, 2):
+            ms = fn(sms * per_sm, MMA_PROBE_ITERS, passes)
+            if ms <= 0:
+                fail("the mma.sync probe did not launch")
+            flops = sms * per_sm * 8 * 16 * MMA_PROBE_ITERS * passes * 2 * 16 * 8 * 8
+            rate = flops / (ms * 1e-3)
+            print(f"mma.sync TF32, {passes} pass(es), {per_sm} CTA(s) x 8 warps per SM: "
+                  f"{ms:.4f} ms, {rate / 1e12:.1f} TFLOP/s = {rate / PEAK_TF32_FLOPS:.3f} "
+                  "of the TF32 peak")
 
 
 def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
@@ -311,11 +359,10 @@ def check_lstm_kernel(device) -> dict:
     flops = M * R * T * (2 * H * 4 * H + (L - 1) * 2 * (2 * H) * (4 * H))
     n_bytes = 4 * (xp.numel() + wh.numel() + wx.numel() + b.numel()
                    + M * R * T * H + 2 * M * L * R * H)
-    t_ops, t_bytes = flops / PEAK_FP32_FLOPS * 1e3, n_bytes / PEAK_BYTES_PER_S * 1e3
+    bound = lstm_bounds(flops, n_bytes)
     print(f"fused_lstm times (ms, CUDA events, mean): kernel {ms:.4f}, kernel with "
           f"residuals {ms_res:.4f}, plain {plain_ms:.4f}, cuDNN x{M} {library_ms:.4f}; "
-          f"bound {max(t_ops, t_bytes):.4f} ({flops / 1e9:.2f} GFLOP, "
-          f"{n_bytes / 1e6:.1f} MB)")
+          f"{bounds_text(bound, flops, n_bytes, ms)}")
     return {
         "name": "fused_lstm_fwd",
         "route": "cuda",
@@ -325,10 +372,28 @@ def check_lstm_kernel(device) -> dict:
         "max_abs_err": worst,
         "ms": ms,
         "plain_ms": plain_ms,
-        "bound_ms": max(t_ops, t_bytes),
-        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+        **bound,
         "library_ms": library_ms,
     }
+
+
+def lstm_bounds(flops: float, n_bytes: float) -> dict:
+    """B1/B2's bounds (ms): ``bound_ms`` on the route they take, 3xTF32 on
+    the tensor cores, or their bytes if longer; ``bound_fp32_ms`` the same
+    work as fp32 FMAs."""
+    t_tc = TF32_PASSES * flops / PEAK_TF32_FLOPS * 1e3
+    t_fp32 = flops / PEAK_FP32_FLOPS * 1e3
+    t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
+    return {"bound_ms": max(t_tc, t_bytes),
+            "bound_by": "operations" if t_tc >= t_bytes else "bytes",
+            "bound_fp32_ms": max(t_fp32, t_bytes)}
+
+
+def bounds_text(bound: dict, flops: float, n_bytes: float, ms: float) -> str:
+    return (f"bound ({TF32_PASSES}xTF32 on the tensor cores) {bound['bound_ms']:.4f} "
+            f"({flops / 1e9:.2f} GFLOP, {n_bytes / 1e6:.1f} MB) = "
+            f"{bound['bound_ms'] / ms:.3f} of the kernel's time; fp32-FMA bound "
+            f"{bound['bound_fp32_ms']:.4f} = {bound['bound_fp32_ms'] / ms:.3f}")
 
 
 def lstm_bwd_case(M, R, T, L, H, device, seed):
@@ -431,11 +496,11 @@ def check_lstm_bwd_kernel(device) -> dict:
     flops = 3 * M * R * T * (2 * H * 4 * H + (L - 1) * 2 * (2 * H) * (4 * H))
     n_bytes = 4 * (sum(t.numel() for t in ops) + xp.numel()  # inputs + dxp
                    + wh.numel() + wx.numel() + b.numel())     # weight grads
-    t_ops, t_bytes = flops / PEAK_FP32_FLOPS * 1e3, n_bytes / PEAK_BYTES_PER_S * 1e3
+    bound = lstm_bounds(flops, n_bytes)
     print(f"fused_lstm_bwd times (ms, CUDA events, mean): kernel {ms:.4f}, plain "
           f"{plain_ms:.4f}; forward with residuals + backward kernels {fwd_bwd_ms:.4f} vs "
-          f"cuDNN forward + backward x{M} {library_ms:.4f}; bound {max(t_ops, t_bytes):.4f} "
-          f"({flops / 1e9:.2f} GFLOP, {n_bytes / 1e6:.1f} MB)")
+          f"cuDNN forward + backward x{M} {library_ms:.4f}; "
+          f"{bounds_text(bound, flops, n_bytes, ms)}")
     return {
         "name": "fused_lstm_bwd",
         "route": "cuda",
@@ -445,13 +510,14 @@ def check_lstm_bwd_kernel(device) -> dict:
         "max_abs_err": worst,
         "ms": ms,
         "plain_ms": plain_ms,
-        "bound_ms": max(t_ops, t_bytes),
-        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+        **bound,
         "library_ms": library_ms,
     }
 
 
-#: kernel-name pieces in a profiler trace, by the kernel whose share they are
+#: kernel-name pieces in a profiler trace, by the kernel whose share they
+#: are: B1 is one kernel, B2 its reverse sweep, its split-K weight-gradient
+#: product (which also sums db) and the fixed-order reduce of the partials
 LSTM_PARTS = {
     "B1 forward": ("lstm_fwd_kernel",),
     "B2 sweep": ("lstm_bwd_sweep",),
@@ -1204,7 +1270,7 @@ def main() -> int:
           f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
     t_start = time.perf_counter()
 
-    build_kernels()
+    tensor_core_rate(build_kernels())
 
     records = [check_lstm_kernel(device)]
     torch.cuda.empty_cache()

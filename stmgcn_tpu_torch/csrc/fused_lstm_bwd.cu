@@ -1,4 +1,5 @@
-// Fused multi-layer LSTM backward (zero initial state), fp32, for Hopper (sm_90a).
+// Fused multi-layer LSTM backward (zero initial state), fp32 storage, for
+// Hopper (sm_90a).
 //
 // Replaces the TPU kernel `_bwd_kernel` in stmgcn_tpu/ops/pallas_lstm.py
 // (launched by `_fused_bwd`): the reverse sweep over t and layers that
@@ -7,512 +8,750 @@
 // cotangents (`dgates`), carries dh/dc back through time and down the layers,
 // and produces the weight gradients dWh0, dWxh and db.
 //
-// What bounds it on this card: operations. At the training shape (M=3
-// branches x 64 samples x 256 nodes = 49,152 rows, T=12, L=3, H=64) it does
-// the forward's 163,840 FLOP per row-step three times over (gate recompute,
-// dgates @ W^T, hin^T @ dgates): ~290 GFLOP, a 4.33 ms floor at the 67
-// TFLOP/s fp32 (non-tensor-core) peak, against ~2.3 GB of compulsory traffic
-// (0.68 ms at 3.35 TB/s). True fp32 throughout: no TF32, no fast-math.
+// What bounds it on this card: the tensor cores' issue rate, then the
+// weights' trips from L2 and the cell math between the products. At the
+// training shape (M=3 branches x 64 samples x 256 nodes = 49,152 rows,
+// T=12, L=3, H=64) it does the forward's 96.6 GFLOP three times over (gate
+// recompute, dgates @ W^T, hin^T @ dgates): 290 GFLOP, 4.33 ms at the 67
+// TFLOP/s fp32 FMA peak, 1.76 ms as three TF32 passes at 495 TFLOP/s,
+// against ~2.3 GB of compulsory traffic (0.68 ms at 3.35 TB/s). mma.sync
+// itself reaches about two thirds of the 495 TFLOP/s (chip_smoke.py's
+// probe, csrc/mma_tf32_rate.cu).
 //
-// What the design does about it. The TPU kernel adds every row block's
-// weight gradient into one output block (`+=` across grid steps), which is
-// race-free only because a TPU grid runs in order. A CUDA grid does not, and
-// one CTA's full partial weight gradient (82,432 floats at L=3, H=64) fits
-// neither its shared memory nor its registers. So the work is split in two
-// passes, with no atomics (bitwise-deterministic results):
+// What the design does about it. All three products run on the tensor
+// cores (mma.sync m16n8k8 .tf32) in 3xTF32 with fp32 accumulation
+// (lstm_mma.cuh). The TPU kernel adds every row block's weight gradient
+// into one output block across in-order grid steps; a CUDA grid has no
+// order, and one CTA's partial weight gradient does not fit on chip, so
+// the work is two phases with no atomics (bitwise-deterministic results):
 //
-// 1. `lstm_bwd_sweep`: the recurrence. One CTA per (branch, block of rows),
-//    blockIdx.y the branch, as in the forward. One thread per (hidden unit j,
-//    8 rows) owns that unit's four gate columns, so the recompute reuses the
-//    forward's FMA loop (h tiles k-major in shared memory, weight reads
-//    coalesced across j) and dh/dc of every layer stay in registers. The
-//    cotangent product dgates @ W^T reads *transposed* packed weights
-//    (W^T (4H, K), passed by the wrapper), so its weight reads are coalesced
-//    across j too, while dgates go through shared memory as warp-wide
-//    broadcasts. Layer 0's dgates are the output dxp; layers >= 1 write theirs
-//    to a scratch tensor (M, T, L-1, R, 4H), and db is summed per CTA in
-//    registers and written as one partial per CTA.
-// 2. `lstm_bwd_wgrad`: dW = sum_{t,r} hin^T dgates for every (branch, layer)
-//    as a tiled split-K product: each CTA owns a 64x64 tile of dW and one
-//    chunk of (t, r) rows, reads hin straight from hseq (zeros at t = 0) and
-//    dgates from dxp / the scratch, and writes its partial tile.
-// 3. `reduce_partials`: sums the split-K partials (and the db partials) in a
-//    fixed order into the outputs.
-// Rows past R compute on zeros and are never stored. Tensor cores (wgmma
-// with a split-precision scheme), TMA and a fused weight-gradient epilogue are
-// later work.
+// 1. `lstm_bwd_sweep`: the recurrence, one CTA per (branch, block of BR
+//    rows: 64 at H=64, twice the first version's), with the forward's
+//    tiling (lstm_mma.cuh `Tile`): a thread's accumulators hold all four
+//    gates of its (row, unit) pairs, so the gate cotangents and dh of every
+//    layer stay in registers for the whole sweep (dc in thread-private
+//    shared memory where it fits, to spare registers). Per (t, l): the
+//    recompute hin @ W reads W in row chunks and hin from shared tiles
+//    (cp.async-loaded during the previous step's last phase); the cell
+//    backward writes dgates to a shared tile; dgates @ W^T reads W in
+//    column chunks, transposed in the fragment load, sums each chunk from
+//    zero and adds it to dh in fp32, while the dgates tile goes out to dxp
+//    (layer 0) or the scratch (layers >= 1) in coalesced 16-byte pieces.
+//    Both products read one untransposed copy of W through one ring of 2-4
+//    cp.async stages that runs ahead across phases, layers and steps (the
+//    stage sequence is data-independent).
+// 2. `lstm_bwd_wgrad`: dW = sum_{t,r} hin^T dgates, and db = sum_{t,r}
+//    dgates, for every (branch, layer): a split-K product whose CTA owns a
+//    64 x 128 tile of dW and a 4,096-row chunk of (t, r), with both
+//    operands staged through a 3-stage cp.async ring of 32-row slabs, each
+//    slab summed from zero and added to the tile in fp32 (the tensor cores'
+//    own accumulation truncates: over a whole chunk that bias broke the
+//    1e-5 weight-gradient check). CTAs that share a chunk are neighbours in
+//    the grid, so the dgates slab several k-tiles read comes from L2.
+// 3. `reduce_partials`: sums the split-K partials in a fixed order.
+// Rows past R compute on zeros and are never stored. The cell math is fp32
+// with expf/tanhf (no fast-math).
 
 #include <cuda_runtime.h>
 
 #include <cstddef>
 
+#include "lstm_mma.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kRowsPerThread = 8;
-// weight-gradient tiles: 64 (k) x 64 (gate column), 16 rows per stage,
-// 4096 (t, r) rows per split-K chunk
-constexpr int kTile = 64;
-constexpr int kStage = 16;
-constexpr int kChunk = 4096;
+using namespace lstm_mma;
 
-__device__ __forceinline__ float sigmoid_f32(float x) {
-    return 1.0f / (1.0f + expf(-x));
-}
+constexpr int cmax(int a, int b) { return a > b ? a : b; }
 
-// acc[r][q] += sum_k hs[k * stride + r] * w[k * h4 + q * H + j], k < K
-// (the forward kernel's gate product, used here to recompute the gates).
-__device__ __forceinline__ void accumulate(float (&acc)[kRowsPerThread][4],
-                                           const float* hs,
-                                           const float* __restrict__ w,
-                                           int K, int stride, int H, int j) {
-    const int h4 = 4 * H;
-    const float* wj = w + j;
-#pragma unroll 4
-    for (int k = 0; k < K; ++k) {
-        const float4 lo = *reinterpret_cast<const float4*>(hs + k * stride);
-        const float4 hi = *reinterpret_cast<const float4*>(hs + k * stride + 4);
-        const float hv[kRowsPerThread] = {lo.x, lo.y, lo.z, lo.w,
-                                          hi.x, hi.y, hi.z, hi.w};
-        const float* wk = wj + static_cast<size_t>(k) * h4;
-        const float w0 = __ldg(wk);
-        const float w1 = __ldg(wk + H);
-        const float w2 = __ldg(wk + 2 * H);
-        const float w3 = __ldg(wk + 3 * H);
+// The sweep's tiling: 16 warps, each with half the forward's accumulators.
+// Its state (dh of every layer, the gate accumulators, the next cell
+// states) is heavier than the forward's, and at 8 warps of 255 registers
+// the SM has too few warps to hide the fragment loads and the cell math:
+// on an H100 SXM (700 W) the sweep took 10.2 ms at 8 warps and 6.5 ms at
+// 16 in chip_smoke.py's dense training trace, at the same rows per CTA
+// and weight traffic.
+template <int H>
+using SweepTile = Tile<H, 16>;
+constexpr int NT = SweepTile<64>::Threads;
+
+template <int H, int L>
+struct BwdPlan {
+    using C = SweepTile<H>;
+    static constexpr int HT = C::BR * C::HS;  // one hin tile
+    static constexpr int hin = 2 * HT;        // h_below, h_prev
+    static constexpr int DS = 4 * H + 4;      // dgates tile row stride
+    static constexpr int dgt = C::BR * DS;
+    // dgates @ W^T reads W in column chunks of CC columns x all K rows, as
+    // many floats as a row chunk: CC = KC * 4H / K
+    static constexpr int CC0 = 4 * C::KC;  // K = H
+    static constexpr int CC1 = 2 * C::KC;  // K = 2H
+    static constexpr int stage =
+        cmax(C::KC * C::WS, cmax(H * (CC0 + 4), 2 * H * (CC1 + 4)));
+    // the cell-state cotangents dc live in shared memory, thread-private
+    // (one float per thread per slot, so no bank conflicts), where that
+    // leaves room for a ring of 3 or more stages; else in registers. At the
+    // training shape (H=64, L=3) registers spill more and the whole
+    // backward took 9.06-9.08 ms against 8.76-8.79 ms with dc in shared
+    // memory (H100 SXM, 700 W; chip_smoke.py's phase 4 from both trees)
+    static constexpr int dc_slots = L * C::MT * C::UT * 4;
+    static constexpr bool dc_shared =
+        (hin + dgt + dc_slots * NT + 3 * stage) * 4 <= kSmemLimit;
+    static constexpr int dcs = dc_shared ? dc_slots * NT : 0;
+    // a step's hin tiles are loaded with its first stage, S-1 stages ahead:
+    // inside the previous step's dgates @ W^T stages (at least H / KC), once
+    // its recompute has read the tiles it shares with them
+    static constexpr int S = ring_stages(hin + dgt + dcs, stage, H / C::KC + 1);
+    static constexpr int smem_bytes = 4 * (hin + dgt + dcs + S * stage);
+    static_assert(smem_bytes <= kSmemLimit, "the sweep's tiles and ring fit in shared memory");
+    static constexpr int Q0 = 2 * H / C::KC;      // stages of layer 0 per step
+    static constexpr int Q1 = 4 * H / C::KC;      // of a layer >= 1
+    static constexpr int Q = Q0 + (L - 1) * Q1;   // per step
+    static_assert(H / C::KC >= S - 1, "hin must be loaded inside the previous step's last phase");
+};
+
+// row chunk: KC rows of w (K x 4H) from row k0, stride WS
+template <int H>
+__device__ __forceinline__ void load_rows(float* dst, const float* w, int k0, int tid) {
+    using C = SweepTile<H>;
+    const float* src = w + static_cast<size_t>(k0) * 4 * H;
 #pragma unroll
-        for (int r = 0; r < kRowsPerThread; ++r) {
-            acc[r][0] = fmaf(hv[r], w0, acc[r][0]);
-            acc[r][1] = fmaf(hv[r], w1, acc[r][1]);
-            acc[r][2] = fmaf(hv[r], w2, acc[r][2]);
-            acc[r][3] = fmaf(hv[r], w3, acc[r][3]);
-        }
+    for (int j = 0; j < C::KC * H / NT; ++j) {
+        const int i = tid + j * NT;
+        const int r = i / H, c = (i % H) * 4;
+        cp_async16(dst + r * C::WS + c, src + r * 4 * H + c, true);
     }
 }
 
-// out[r] += sum_c dg[c * stride + r] * wt[c * K + j], c < 4H: one column j
-// of dgates @ W^T for this thread's rows, from transposed weights wt (4H, K).
-__device__ __forceinline__ void accumulate_t(float (&out)[kRowsPerThread],
-                                             const float* dg,
-                                             const float* __restrict__ wt,
-                                             int h4, int K, int stride, int j) {
-    const float* wj = wt + j;
-#pragma unroll 4
-    for (int c = 0; c < h4; ++c) {
-        const float4 lo = *reinterpret_cast<const float4*>(dg + c * stride);
-        const float4 hi = *reinterpret_cast<const float4*>(dg + c * stride + 4);
-        const float w = __ldg(wj + static_cast<size_t>(c) * K);
-        out[0] = fmaf(lo.x, w, out[0]);
-        out[1] = fmaf(lo.y, w, out[1]);
-        out[2] = fmaf(lo.z, w, out[2]);
-        out[3] = fmaf(lo.w, w, out[3]);
-        out[4] = fmaf(hi.x, w, out[4]);
-        out[5] = fmaf(hi.y, w, out[5]);
-        out[6] = fmaf(hi.z, w, out[6]);
-        out[7] = fmaf(hi.w, w, out[7]);
-    }
-}
-
-// Two-output variant for layers >= 1: columns j (h_below) and H + j (h_prev).
-__device__ __forceinline__ void accumulate_t2(float (&lo_out)[kRowsPerThread],
-                                              float (&hi_out)[kRowsPerThread],
-                                              const float* dg,
-                                              const float* __restrict__ wt,
-                                              int h4, int K, int stride, int H,
-                                              int j) {
-    const float* wj = wt + j;
-#pragma unroll 4
-    for (int c = 0; c < h4; ++c) {
-        const float4 lo = *reinterpret_cast<const float4*>(dg + c * stride);
-        const float4 hi = *reinterpret_cast<const float4*>(dg + c * stride + 4);
-        const float dv[kRowsPerThread] = {lo.x, lo.y, lo.z, lo.w,
-                                          hi.x, hi.y, hi.z, hi.w};
-        const float* wc = wj + static_cast<size_t>(c) * K;
-        const float wa = __ldg(wc);
-        const float wb = __ldg(wc + H);
+// column chunk: all K rows x CC columns of w (K x 4H) from column c0, stride CC + 4
+template <int H, int K, int CC>
+__device__ __forceinline__ void load_cols(float* dst, const float* w, int c0, int tid) {
+    constexpr int PR = CC / 4;  // 16-byte pieces per row
+    static_assert(K * PR % NT == 0, "pieces divide the block");
 #pragma unroll
-        for (int r = 0; r < kRowsPerThread; ++r) {
-            lo_out[r] = fmaf(dv[r], wa, lo_out[r]);
-            hi_out[r] = fmaf(dv[r], wb, hi_out[r]);
-        }
+    for (int j = 0; j < K * PR / NT; ++j) {
+        const int i = tid + j * NT;
+        const int r = i / PR, c = (i % PR) * 4;
+        cp_async16(dst + r * (CC + 4) + c, w + static_cast<size_t>(r) * 4 * H + c0 + c, true);
     }
-}
-
-// Stores this thread's 8 rows of one unit into a k-major smem tile
-// (two 16-byte stores; stride and row offsets are multiples of 4).
-__device__ __forceinline__ void store_rows(float* tile, const float (&v)[kRowsPerThread]) {
-    reinterpret_cast<float4*>(tile)[0] = make_float4(v[0], v[1], v[2], v[3]);
-    reinterpret_cast<float4*>(tile)[1] = make_float4(v[4], v[5], v[6], v[7]);
 }
 
 // Layouts (M = branches, leading everywhere):
 //   xp (M, R, T, 4H); wh0 (M, H, 4H); wxh (M, max(L-1,1), 2H, 4H);
-//   bias (M, max(L-1,1), 4H); wh0t (M, 4H, H); wxht (M, max(L-1,1), 4H, 2H);
-//   hseq/cseq (M, T, L, R, H); gout (M, R, T, H); ghfin/gcfin (M, L, R, H);
-//   dxp (M, R, T, 4H); dg (M, T, L-1, R, 4H); part_db (gridDim.x, M, L-1, 4H).
-template <int L>
-__global__ void __launch_bounds__(kThreads, 2)
+//   bias (M, max(L-1,1), 4H); hseq/cseq (M, T, L, R, H); gout (M, R, T, H);
+//   ghfin/gcfin (M, L, R, H); dxp (M, R, T, 4H); dg (M, T, L-1, R, 4H).
+template <int H, int L>
+__global__ void __launch_bounds__(NT, 1)
 lstm_bwd_sweep(const float* __restrict__ xp, const float* __restrict__ wh0,
                const float* __restrict__ wxh, const float* __restrict__ bias,
-               const float* __restrict__ wh0t, const float* __restrict__ wxht,
                const float* __restrict__ hseq, const float* __restrict__ cseq,
                const float* __restrict__ gout, const float* __restrict__ ghfin,
                const float* __restrict__ gcfin, float* __restrict__ dxp,
-               float* __restrict__ dg, float* __restrict__ part_db, int M,
-               int R, int T, int H) {
-    extern __shared__ float4 smem4[];
-    float* smem = reinterpret_cast<float*>(smem4);
-
-    const int groups = kThreads / H;
-    const int block_rows = groups * kRowsPerThread;
-    const int stride = block_rows + 4;
-    const int j = threadIdx.x % H;
-    const int g = threadIdx.x / H;
-    const int m = blockIdx.y;
-    const int row0 = blockIdx.x * block_rows + g * kRowsPerThread;
-    const int h4 = 4 * H;
+               float* __restrict__ dg, int R, int T) {
+    using C = SweepTile<H>;
+    using P = BwdPlan<H, L>;
+    constexpr int S = P::S, KC = C::KC, HS = C::HS, WS = C::WS, BR = C::BR;
+    constexpr int MT = C::MT, UT = C::UT, H4 = 4 * H, DS = P::DS, HT = P::HT;
     constexpr int LW = L > 1 ? L - 1 : 1;
 
-    // shared memory: h_below and h_prev tiles (H x stride each, k-major),
-    // then the dgates tile (4H x stride, gate-column-major)
-    float* hb_tile = smem;
-    float* hp_tile = smem + H * stride;
-    float* dg_tile = smem + 2 * H * stride;
-    const int my = g * kRowsPerThread;
+    extern __shared__ float4 smem4[];
+    float* hin = reinterpret_cast<float*>(smem4);
+    float* dgt = hin + P::hin;
+    float* dcs = dgt + P::dgt;
+    float* ring = dcs + P::dcs;
 
-    xp += static_cast<size_t>(m) * R * T * h4;
-    wh0 += static_cast<size_t>(m) * H * h4;
-    wxh += static_cast<size_t>(m) * LW * 2 * H * h4;
-    bias += static_cast<size_t>(m) * LW * h4;
-    wh0t += static_cast<size_t>(m) * h4 * H;
-    wxht += static_cast<size_t>(m) * LW * h4 * 2 * H;
+    const int tid = threadIdx.x;
+    const int warp = tid >> 5, lane = tid & 31;
+    const int wm = warp / C::WN, wn = warp % C::WN;
+    const int g = lane >> 2, q = lane & 3;
+    const int m = blockIdx.y;
+    const int row_base = blockIdx.x * BR;
+    const int wrow = wm * C::RW;
+    const int wunit = wn * C::UW;
+
+    xp += static_cast<size_t>(m) * R * T * H4;
+    wh0 += static_cast<size_t>(m) * H * H4;
+    wxh += static_cast<size_t>(m) * LW * 2 * H * H4;
+    bias += static_cast<size_t>(m) * LW * H4;
     hseq += static_cast<size_t>(m) * T * L * R * H;
     cseq += static_cast<size_t>(m) * T * L * R * H;
     gout += static_cast<size_t>(m) * R * T * H;
-    dxp += static_cast<size_t>(m) * R * T * h4;
+    dxp += static_cast<size_t>(m) * R * T * H4;
+    dg += static_cast<size_t>(m) * T * LW * R * H4;
 
-    // h/c sequence element (t, l, row, j)
     auto seq_at = [&](int t, int l, int row) -> size_t {
-        return ((static_cast<size_t>(t) * L + l) * R + row) * H + j;
+        return ((static_cast<size_t>(t) * L + l) * R + row) * H;
     };
 
-    float dh[L][kRowsPerThread], dc[L][kRowsPerThread];
-    float dbacc[LW][4];
+    const int total = T * P::Q;
+    // Stage n of the stream: step (t, l) in reverse order, then its recompute
+    // row chunks and its dgates @ W^T column chunks. A step's first stage
+    // also brings its hin tiles (zeros past R and at t = 0).
+    auto issue = [&](int n) {
+        if (n < total) {
+            const int step_t = n / P::Q;
+            const int t = T - 1 - step_t;
+            const int p = n % P::Q;
+            int l, r;
+            if (p < (L - 1) * P::Q1) {
+                l = L - 1 - p / P::Q1;
+                r = p % P::Q1;
+            } else {
+                l = 0;
+                r = p - (L - 1) * P::Q1;
+            }
+            float* dst = ring + (n % S) * P::stage;
+            if (l == 0) {
+                if (r < H / KC) load_rows<H>(dst, wh0, r * KC, tid);
+                else load_cols<H, H, P::CC0>(dst, wh0, (r - H / KC) * P::CC0, tid);
+            } else {
+                const float* w = wxh + static_cast<size_t>(l - 1) * 2 * H * H4;
+                if (r < 2 * H / KC) load_rows<H>(dst, w, r * KC, tid);
+                else load_cols<H, 2 * H, P::CC1>(dst, w, (r - 2 * H / KC) * P::CC1, tid);
+            }
+            if (r == 0) {
+                float* hb = hin;
+                constexpr int PR = H / 4;
+#pragma unroll
+                for (int j = 0; j < BR * PR / NT; ++j) {
+                    const int i = tid + j * NT;
+                    const int rr = i / PR, c = (i % PR) * 4;
+                    const int row = row_base + rr;
+                    const bool live = row < R;
+                    const int srow = live ? row : 0;
+                    if (l > 0)
+                        cp_async16(hb + rr * HS + c, hseq + seq_at(t, l - 1, srow) + c, live);
+                    cp_async16(hb + HT + rr * HS + c,
+                               hseq + seq_at(t > 0 ? t - 1 : 0, l, srow) + c, live && t > 0);
+                }
+            }
+        }
+        cp_async_commit();
+    };
+
+#pragma unroll
+    for (int s = 0; s < S - 1; ++s) issue(s);
+
+    float dh[L][MT][UT][4];
+    float dc_reg[P::dc_shared ? 1 : L][MT][UT][4];
+    auto dc = [&](int l, int mt, int ut, int e) -> float& {
+        if constexpr (P::dc_shared)
+            return dcs[(((l * MT + mt) * UT + ut) * 4 + e) * NT + tid];
+        else
+            return dc_reg[l][mt][ut][e];
+    };
 #pragma unroll
     for (int l = 0; l < L; ++l)
 #pragma unroll
-        for (int r = 0; r < kRowsPerThread; ++r) {
-            const int row = row0 + r;
-            const size_t o = ((static_cast<size_t>(m) * L + l) * R + row) * H + j;
-            dh[l][r] = row < R ? ghfin[o] : 0.0f;
-            dc[l][r] = row < R ? gcfin[o] : 0.0f;
-        }
+        for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
-    for (int l = 0; l < LW; ++l)
+            for (int hf = 0; hf < 2; ++hf) {
+                const int row = row_base + wrow + mt * 16 + g + 8 * hf;
 #pragma unroll
-        for (int q = 0; q < 4; ++q) dbacc[l][q] = 0.0f;
+                for (int ut = 0; ut < UT; ++ut) {
+                    float2 a = make_float2(0.0f, 0.0f), b = a;
+                    if (row < R) {
+                        const size_t o = ((static_cast<size_t>(m) * L + l) * R + row) * H +
+                                         wunit + ut * 8 + 2 * q;
+                        a = *reinterpret_cast<const float2*>(ghfin + o);
+                        b = *reinterpret_cast<const float2*>(gcfin + o);
+                    }
+                    dh[l][mt][ut][2 * hf] = a.x;
+                    dh[l][mt][ut][2 * hf + 1] = a.y;
+                    dc(l, mt, ut, 2 * hf) = b.x;
+                    dc(l, mt, ut, 2 * hf + 1) = b.y;
+                }
+            }
 
+    int n = 0;  // next stage to consume
     for (int t = T - 1; t >= 0; --t) {
 #pragma unroll
-        for (int r = 0; r < kRowsPerThread; ++r) {
-            const int row = row0 + r;
-            if (row < R) dh[L - 1][r] += gout[(static_cast<size_t>(row) * T + t) * H + j];
-        }
+        for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
-        for (int l = L - 1; l >= 0; --l) {
-            // (a) this step's inputs into shared memory: h_prev = h[t-1, l]
-            // (zero at t = 0) and, for l >= 1, h_below = h[t, l-1]
-            {
-                float hp[kRowsPerThread], hb[kRowsPerThread];
-#pragma unroll
-                for (int r = 0; r < kRowsPerThread; ++r) {
-                    const int row = row0 + r;
-                    hp[r] = (t > 0 && row < R) ? hseq[seq_at(t - 1, l, row)] : 0.0f;
-                    hb[r] = (l > 0 && row < R) ? hseq[seq_at(t, l > 0 ? l - 1 : 0, row)] : 0.0f;
-                }
-                store_rows(hp_tile + j * stride + my, hp);
-                if (l > 0) store_rows(hb_tile + j * stride + my, hb);
-            }
-            __syncthreads();
-
-            // (b) recompute the pre-activations, as the forward did
-            float acc[kRowsPerThread][4];
-            if (l == 0) {
-#pragma unroll
-                for (int r = 0; r < kRowsPerThread; ++r) {
-                    const int row = row0 + r;
-                    const float* x = xp + (static_cast<size_t>(row) * T + t) * h4 + j;
-#pragma unroll
-                    for (int q = 0; q < 4; ++q) acc[r][q] = row < R ? x[q * H] : 0.0f;
-                }
-                accumulate(acc, hp_tile + my, wh0, H, stride, H, j);
-            } else {
-                const float* w = wxh + static_cast<size_t>(l - 1) * 2 * H * h4;
-                const float* b = bias + (l - 1) * h4 + j;
-#pragma unroll
-                for (int r = 0; r < kRowsPerThread; ++r)
-#pragma unroll
-                    for (int q = 0; q < 4; ++q) acc[r][q] = b[q * H];
-                accumulate(acc, hb_tile + my, w, H, stride, H, j);
-                accumulate(acc, hp_tile + my, w + static_cast<size_t>(H) * h4, H,
-                           stride, H, j);
-            }
-
-            // (c) gate cotangents; acc becomes dgates in place
-#pragma unroll
-            for (int r = 0; r < kRowsPerThread; ++r) {
-                const int row = row0 + r;
-                const bool live = row < R;
-                const float c_t = live ? cseq[seq_at(t, l, row)] : 0.0f;
-                const float c_prev = (live && t > 0) ? cseq[seq_at(t - 1, l, row)] : 0.0f;
-                const float ig = sigmoid_f32(acc[r][0]);
-                const float fg = sigmoid_f32(acc[r][1]);
-                const float gg = tanhf(acc[r][2]);
-                const float og = sigmoid_f32(acc[r][3]);
-                const float tc = tanhf(c_t);
-                const float d_o = dh[l][r] * tc;
-                const float dct = dc[l][r] + dh[l][r] * og * (1.0f - tc * tc);
-                const float zero_pad = live ? 1.0f : 0.0f;
-                acc[r][0] = zero_pad * (dct * gg * ig * (1.0f - ig));
-                acc[r][1] = zero_pad * (dct * c_prev * fg * (1.0f - fg));
-                acc[r][2] = zero_pad * (dct * ig * (1.0f - gg * gg));
-                acc[r][3] = zero_pad * (d_o * og * (1.0f - og));
-                dc[l][r] = dct * fg;
-            }
-
-            // (d) dgates out: dxp for layer 0, the scratch for layers >= 1
-            // (read back by lstm_bwd_wgrad), the db sums, and the smem tile
-#pragma unroll
-            for (int r = 0; r < kRowsPerThread; ++r) {
-                const int row = row0 + r;
+            for (int hf = 0; hf < 2; ++hf) {
+                const int row = row_base + wrow + mt * 16 + g + 8 * hf;
                 if (row >= R) continue;
-                float* dst = l == 0
-                    ? dxp + (static_cast<size_t>(row) * T + t) * h4 + j
-                    : dg + ((((static_cast<size_t>(m) * T + t) * LW + (l - 1)) * R + row) * h4) + j;
 #pragma unroll
-                for (int q = 0; q < 4; ++q) dst[q * H] = acc[r][q];
-            }
-            if (l > 0) {
-#pragma unroll
-                for (int q = 0; q < 4; ++q) {
-                    float s = 0.0f;
-#pragma unroll
-                    for (int r = 0; r < kRowsPerThread; ++r) s += acc[r][q];
-                    dbacc[l > 0 ? l - 1 : 0][q] += s;
+                for (int ut = 0; ut < UT; ++ut) {
+                    const float2 v = *reinterpret_cast<const float2*>(
+                        gout + (static_cast<size_t>(row) * T + t) * H + wunit + ut * 8 + 2 * q);
+                    dh[L - 1][mt][ut][2 * hf] += v.x;
+                    dh[L - 1][mt][ut][2 * hf + 1] += v.y;
                 }
             }
 #pragma unroll
-            for (int q = 0; q < 4; ++q) {
-                const float v[kRowsPerThread] = {acc[0][q], acc[1][q], acc[2][q], acc[3][q],
-                                                 acc[4][q], acc[5][q], acc[6][q], acc[7][q]};
-                store_rows(dg_tile + (q * H + j) * stride + my, v);
-            }
-            __syncthreads();
+        for (int li = 0; li < L; ++li) {
+            const int l = L - 1 - li;
+            const int K = l == 0 ? H : 2 * H;
+            const float* hb = hin;       // h_below
+            const float* hp = hin + HT;  // h_prev
 
-            // (e) dh through the weights: dgates @ W^T from the smem tile
-            if (l == 0) {
-                float out[kRowsPerThread] = {};
-                accumulate_t(out, dg_tile + my, wh0t, h4, H, stride, j);
+            // this step's cell states, loaded now, read after the recompute
+            float2 c_t[MT][2][UT], c_prev[MT][2][UT];
 #pragma unroll
-                for (int r = 0; r < kRowsPerThread; ++r) dh[0][r] = out[r];
-            } else {
-                float below[kRowsPerThread] = {}, rec[kRowsPerThread] = {};
-                accumulate_t2(below, rec, dg_tile + my,
-                              wxht + static_cast<size_t>(l - 1) * h4 * 2 * H, h4,
-                              2 * H, stride, H, j);
+            for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
-                for (int r = 0; r < kRowsPerThread; ++r) {
-                    dh[l > 0 ? l - 1 : 0][r] += below[r];
-                    dh[l][r] = rec[r];
+                for (int hf = 0; hf < 2; ++hf) {
+                    const int row = row_base + wrow + mt * 16 + g + 8 * hf;
+#pragma unroll
+                    for (int ut = 0; ut < UT; ++ut) {
+                        const int unit = wunit + ut * 8 + 2 * q;
+                        c_t[mt][hf][ut] = c_prev[mt][hf][ut] = make_float2(0.0f, 0.0f);
+                        if (row < R) {
+                            c_t[mt][hf][ut] =
+                                *reinterpret_cast<const float2*>(cseq + seq_at(t, l, row) + unit);
+                            if (t > 0)
+                                c_prev[mt][hf][ut] = *reinterpret_cast<const float2*>(
+                                    cseq + seq_at(t - 1, l, row) + unit);
+                        }
+                    }
+                }
+
+            // (a) recompute the pre-activations, as the forward did
+            float acc[MT][4][UT][4];
+#pragma unroll
+            for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+                for (int hf = 0; hf < 2; ++hf) {
+                    const int row = row_base + wrow + mt * 16 + g + 8 * hf;
+#pragma unroll
+                    for (int gt = 0; gt < 4; ++gt)
+#pragma unroll
+                        for (int ut = 0; ut < UT; ++ut) {
+                            const int col = gt * H + wunit + ut * 8 + 2 * q;
+                            float2 v = make_float2(0.0f, 0.0f);
+                            if (l == 0) {
+                                if (row < R)
+                                    v = *reinterpret_cast<const float2*>(
+                                        xp + (static_cast<size_t>(row) * T + t) * H4 + col);
+                            } else {
+                                v = *reinterpret_cast<const float2*>(bias + (l - 1) * H4 + col);
+                            }
+                            acc[mt][gt][ut][2 * hf] = v.x;
+                            acc[mt][gt][ut][2 * hf + 1] = v.y;
+                        }
+                }
+#pragma unroll 1
+            for (int k0 = 0; k0 < K; k0 += KC, ++n) {
+                cp_async_wait<S - 2>();
+                __syncthreads();
+                issue(n + S - 1);
+                const float* wt = ring + (n % S) * P::stage;
+                const float* a = l == 0 ? hp + k0 : k0 < H ? hb + k0 : hp + (k0 - H);
+                a += wrow * HS;
+#pragma unroll
+                for (int kk = 0; kk < KC; kk += 8) {
+                    FragA fa[MT];
+#pragma unroll
+                    for (int mt = 0; mt < MT; ++mt)
+                        load_a(fa[mt], a + mt * 16 * HS + kk, HS, g, q);
+#pragma unroll
+                    for (int gt = 0; gt < 4; ++gt)
+#pragma unroll
+                        for (int ut = 0; ut < UT; ++ut) {
+                            FragB fb;
+                            load_b(fb, wt + kk * WS + gt * H + wunit + ut * 8, WS, g, q);
+#pragma unroll
+                            for (int mt = 0; mt < MT; ++mt) mma3(acc[mt][gt][ut], fa[mt], fb);
+                        }
                 }
             }
-            // the next step's first __syncthreads orders these smem reads
-            // before the tiles are overwritten
-        }
-    }
 
-    if (L > 1) {
-        // db: this CTA's row groups summed in a fixed order via shared memory
-        __syncthreads();
-        float* red = dg_tile;  // groups x (L-1) x 4H floats, fits the tile
+            // (b) gate cotangents into the dgates tile
 #pragma unroll
-        for (int l = 0; l < LW; ++l)
+            for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
-            for (int q = 0; q < 4; ++q) red[(g * LW + l) * h4 + q * H + j] = dbacc[l][q];
-        __syncthreads();
-        for (int i = threadIdx.x; i < LW * h4; i += kThreads) {
-            float s = 0.0f;
-            for (int gg = 0; gg < groups; ++gg) s += red[gg * LW * h4 + i];
-            part_db[(static_cast<size_t>(blockIdx.x) * M + m) * LW * h4 + i] = s;
+                for (int hf = 0; hf < 2; ++hf) {
+                    const int lrow = wrow + mt * 16 + g + 8 * hf;
+                    const int row = row_base + lrow;
+                    const bool live = row < R;
+#pragma unroll
+                    for (int ut = 0; ut < UT; ++ut) {
+                        const int unit = wunit + ut * 8 + 2 * q;
+                        const float ct[2] = {c_t[mt][hf][ut].x, c_t[mt][hf][ut].y};
+                        const float cp[2] = {c_prev[mt][hf][ut].x, c_prev[mt][hf][ut].y};
+                        float d[4][2];
+#pragma unroll
+                        for (int x = 0; x < 2; ++x) {
+                            const int e = 2 * hf + x;
+                            const float ig = sigmoid_f32(acc[mt][0][ut][e]);
+                            const float fg = sigmoid_f32(acc[mt][1][ut][e]);
+                            const float gg = tanhf(acc[mt][2][ut][e]);
+                            const float og = sigmoid_f32(acc[mt][3][ut][e]);
+                            const float tc = tanhf(ct[x]);
+                            const float dhv = dh[l][mt][ut][e];
+                            const float d_o = dhv * tc;
+                            const float dct = dc(l, mt, ut, e) + dhv * og * (1.0f - tc * tc);
+                            const float zero_pad = live ? 1.0f : 0.0f;
+                            d[0][x] = zero_pad * (dct * gg * ig * (1.0f - ig));
+                            d[1][x] = zero_pad * (dct * cp[x] * fg * (1.0f - fg));
+                            d[2][x] = zero_pad * (dct * ig * (1.0f - gg * gg));
+                            d[3][x] = zero_pad * (d_o * og * (1.0f - og));
+                            dc(l, mt, ut, e) = dct * fg;
+                            dh[l][mt][ut][e] = 0.0f;  // (c) accumulates the recurrent part
+                        }
+#pragma unroll
+                        for (int gt = 0; gt < 4; ++gt)
+                            *reinterpret_cast<float2*>(dgt + lrow * DS + gt * H + unit) =
+                                make_float2(d[gt][0], d[gt][1]);
+                    }
+                }
+
+            // (c) dh through the weights: dgates @ W^T, W read transposed from
+            // its column chunks; h_below's part adds to dh[l-1], h_prev's is
+            // dh[l] for step t-1. Meanwhile the dgates tile goes out to dxp
+            // (layer 0) or the scratch lstm_bwd_wgrad reads (layers >= 1) in
+            // 16-byte pieces, whole rows per warp, a share in each stage.
+            const int CC = l == 0 ? P::CC0 : P::CC1;
+            float* out = l == 0 ? dxp + static_cast<size_t>(t) * H4
+                                : dg + (static_cast<size_t>(t) * LW + (l > 0 ? l - 1 : 0)) * R * H4;
+            const size_t row_stride = l == 0 ? static_cast<size_t>(T) * H4 : H4;
+            const int out_stride = (H4 / CC) * NT;  // pieces apart per thread
+#pragma unroll 1
+            for (int c0 = 0; c0 < H4; c0 += CC, ++n) {
+                cp_async_wait<S - 2>();
+                __syncthreads();
+                issue(n + S - 1);
+                for (int p = tid + (c0 / CC) * NT; p < BR * H; p += out_stride) {
+                    const int rr = p / H, c = (p % H) * 4;
+                    if (row_base + rr < R)
+                        *reinterpret_cast<float4*>(out + (row_base + rr) * row_stride + c) =
+                            *reinterpret_cast<const float4*>(dgt + rr * DS + c);
+                }
+                const float* wt = ring + (n % S) * P::stage;
+                // this chunk's sums start from zero and join dh with an fp32
+                // add (round to nearest): the tensor cores' own accumulation
+                // truncates, and over all 4H columns at once that biases dh
+                float below[MT][UT][4] = {}, rec[MT][UT][4] = {};
+#pragma unroll
+                for (int kk = 0; kk < CC; kk += 8) {
+                    FragA fa[MT];
+#pragma unroll
+                    for (int mt = 0; mt < MT; ++mt)
+                        load_a(fa[mt], dgt + (wrow + mt * 16) * DS + c0 + kk, DS, g, q);
+#pragma unroll
+                    for (int ut = 0; ut < UT; ++ut) {
+                        FragB fb;
+                        load_b_t(fb, wt + (wunit + ut * 8) * (CC + 4) + kk, CC + 4, g, q);
+#pragma unroll
+                        for (int mt = 0; mt < MT; ++mt) mma3(below[mt][ut], fa[mt], fb);
+                        if (l > 0) {
+                            load_b_t(fb, wt + (H + wunit + ut * 8) * (CC + 4) + kk, CC + 4, g, q);
+#pragma unroll
+                            for (int mt = 0; mt < MT; ++mt) mma3(rec[mt][ut], fa[mt], fb);
+                        }
+                    }
+                }
+#pragma unroll
+                for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+                    for (int ut = 0; ut < UT; ++ut)
+#pragma unroll
+                        for (int e = 0; e < 4; ++e) {
+                            dh[l > 0 ? l - 1 : 0][mt][ut][e] += below[mt][ut][e];
+                            if (l > 0) dh[l][mt][ut][e] += rec[mt][ut][e];
+                        }
+            }
+            // the next stage's __syncthreads orders these dgates-tile reads
+            // before the tile is rewritten
         }
     }
+    cp_async_wait<0>();
 }
 
-// Split-K weight gradients. Grid: (chunks, tiles, M * L). The CTA for
-// (chunk, tile, m * L + l) sums hin[n, k] * dgates[n, c] over rows
-// n = t * R + r of its chunk, for its 64x64 (k, c) tile of layer l's dW, and
-// writes the partial to part[chunk][...], laid out as dwh0 (M, H, 4H)
-// followed by dwxh (M, L-1, 2H, 4H).
-__global__ void __launch_bounds__(kThreads)
+// Weight gradients: split-K tiles of 64 (k) x 128 (gate column) over
+// chunks of kChunk (t, r) rows, 32 rows per ring stage.
+constexpr int kWK = 64, kWC = 128, kWN = 32, kWStages = 3;
+constexpr int kWAS = kWK + 8, kWBS = kWC + 8;  // padded slab strides
+constexpr int kChunk = 4096;
+constexpr int kWSmem = 4 * kWStages * kWN * (kWAS + kWBS);
+
+// Grid: (k-tiles x c-tiles, chunks, M * L); x = ct * k_tiles + kt, so the
+// k-tiles that read the same dgates slab are neighbours. The CTA sums
+// hin[n, k] * dgates[n, c] over its chunk's rows n = t * R + r and writes
+// its tile to part[chunk], laid out as dwh0 (M, H, 4H), dwxh (M, L-1, 2H,
+// 4H), then db (M, L-1, 4H); the kt == 0 CTAs of layers >= 1 also sum
+// their dgates columns into db.
+__global__ void __launch_bounds__(kThreads, 2)
 lstm_bwd_wgrad(const float* __restrict__ hseq, const float* __restrict__ dxp,
                const float* __restrict__ dg, float* __restrict__ part, int M,
                int R, int T, int L, int H) {
-    __shared__ __align__(16) float a_s[kStage][kTile];
-    __shared__ __align__(16) float g_s[kStage][kTile];
+    extern __shared__ float4 smem4[];
+    float* As = reinterpret_cast<float*>(smem4);  // [stage][n][k]
+    float* Bs = As + kWStages * kWN * kWAS;      // [stage][n][c]
+    __shared__ float red[kThreads];
 
     const int m = blockIdx.z / L;
     const int l = blockIdx.z % L;
-    const int h4 = 4 * H;
+    const int H4 = 4 * H;
     const int K = l == 0 ? H : 2 * H;
-    const int c_tiles = h4 / kTile;
-    const int k_tiles = (K + kTile - 1) / kTile;
-    if (static_cast<int>(blockIdx.y) >= k_tiles * c_tiles) return;
-    const int kt = blockIdx.y / c_tiles;
-    const int ct = blockIdx.y % c_tiles;
+    const int k_tiles = (K + kWK - 1) / kWK;
+    const int c_tiles = H4 / kWC;
+    if (static_cast<int>(blockIdx.x) >= k_tiles * c_tiles) return;
+    const int kt = blockIdx.x % k_tiles;
+    const int ct = blockIdx.x / k_tiles;
     const int LW = L > 1 ? L - 1 : 1;
     const long long n_total = static_cast<long long>(T) * R;
-    const long long n_begin = static_cast<long long>(blockIdx.x) * kChunk;
+    const long long n_begin = static_cast<long long>(blockIdx.y) * kChunk;
     const long long n_end = n_begin + kChunk < n_total ? n_begin + kChunk : n_total;
+    const int stages = static_cast<int>((n_end - n_begin + kWN - 1) / kWN);
+    const bool with_db = l > 0 && kt == 0;
 
     const int tid = threadIdx.x;
-    const int ld_row = tid / 16;       // staged row this thread loads
-    const int ld_col = (tid % 16) * 4;  // its 4 columns within the tile
-    const int tx = tid % 16;            // output columns tx*4 .. +4
-    const int ty = tid / 16;            // output k rows ty*4 .. +4
-    const int k_ld = kt * kTile + ld_col;
-    const int c_ld = ct * kTile + ld_col;
+    const int warp = tid >> 5, lane = tid & 31;
+    const int g = lane >> 2, q = lane & 3;
+    const int wk = warp / 4, wc = warp % 4;  // warp tile: 32 k x 32 c
 
-    float acc[4][4] = {};
-    for (long long n0 = n_begin; n0 < n_end; n0 += kStage) {
-        const long long n = n0 + ld_row;
-        float4 a4 = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-        float4 g4 = a4;
-        if (n < n_end) {
-            const int t = static_cast<int>(n / R);
-            const int r = static_cast<int>(n % R);
-            auto seq = [&](int tt, int ll) {
-                return hseq + ((((static_cast<size_t>(m) * T + tt) * L + ll) * R + r) * H);
+    const float* hs = hseq + static_cast<size_t>(m) * T * L * R * H;
+    // (t, r) of the next slab's first row n = t * R + r, advanced one slab
+    // per issue (slabs are issued in order), so no division per load
+    int t_next = static_cast<int>(n_begin / R), r_next = static_cast<int>(n_begin % R);
+    auto issue = [&](int s) {
+        if (s < stages) {
+            float* a_dst = As + (s % kWStages) * kWN * kWAS;
+            float* b_dst = Bs + (s % kWStages) * kWN * kWBS;
+            const long long n0 = n_begin + static_cast<long long>(s) * kWN;
+            auto row_at = [&](int rr, int& t, int& r) {  // rr < kWN
+                t = t_next;
+                r = r_next + rr;
+                while (r >= R) {
+                    r -= R;
+                    ++t;
+                }
             };
-            if (l == 0) {
-                if (t > 0 && k_ld < H) a4 = *reinterpret_cast<const float4*>(seq(t - 1, 0) + k_ld);
-                g4 = *reinterpret_cast<const float4*>(
-                    dxp + ((static_cast<size_t>(m) * R + r) * T + t) * h4 + c_ld);
-            } else {
-                if (k_ld < H)
-                    a4 = *reinterpret_cast<const float4*>(seq(t, l - 1) + k_ld);
-                else if (t > 0)
-                    a4 = *reinterpret_cast<const float4*>(seq(t - 1, l) + (k_ld - H));
-                g4 = *reinterpret_cast<const float4*>(
-                    dg + (((static_cast<size_t>(m) * T + t) * LW + (l - 1)) * R + r) * h4 + c_ld);
+#pragma unroll
+            for (int j = 0; j < kWN * kWK / 4 / kThreads; ++j) {
+                const int i = tid + j * kThreads;
+                const int rr = i / (kWK / 4), kc = (i % (kWK / 4)) * 4;
+                const int k = kt * kWK + kc;
+                const float* src = hs;
+                bool valid = false;
+                if (n0 + rr < n_end && k < K) {
+                    int t, r;
+                    row_at(rr, t, r);
+                    const bool below = l > 0 && k < H;
+                    const int tt = below ? t : t - 1;
+                    const int ll = below ? l - 1 : l;
+                    valid = tt >= 0;
+                    if (valid)
+                        src = hs + ((static_cast<size_t>(tt) * L + ll) * R + r) * H + (k < H ? k : k - H);
+                }
+                cp_async16(a_dst + rr * kWAS + kc, src, valid);
+            }
+#pragma unroll
+            for (int j = 0; j < kWN * kWC / 4 / kThreads; ++j) {
+                const int i = tid + j * kThreads;
+                const int rr = i / (kWC / 4), cc = (i % (kWC / 4)) * 4;
+                const int c = ct * kWC + cc;
+                const float* src = dxp;
+                const bool valid = n0 + rr < n_end;
+                if (valid) {
+                    int t, r;
+                    row_at(rr, t, r);
+                    src = l == 0
+                        ? dxp + ((static_cast<size_t>(m) * R + r) * T + t) * H4 + c
+                        : dg + (((static_cast<size_t>(m) * T + t) * LW + (l - 1)) * R + r) * H4 + c;
+                }
+                cp_async16(b_dst + rr * kWBS + cc, src, valid);
+            }
+            r_next += kWN;
+            while (r_next >= R) {
+                r_next -= R;
+                ++t_next;
             }
         }
-        *reinterpret_cast<float4*>(&a_s[ld_row][ld_col]) = a4;
-        *reinterpret_cast<float4*>(&g_s[ld_row][ld_col]) = g4;
-        __syncthreads();
-#pragma unroll
-        for (int s = 0; s < kStage; ++s) {
-            const float4 a = *reinterpret_cast<const float4*>(&a_s[s][ty * 4]);
-            const float4 b = *reinterpret_cast<const float4*>(&g_s[s][tx * 4]);
-            const float av[4] = {a.x, a.y, a.z, a.w};
-            const float bv[4] = {b.x, b.y, b.z, b.w};
-#pragma unroll
-            for (int i = 0; i < 4; ++i)
-#pragma unroll
-                for (int q = 0; q < 4; ++q) acc[i][q] = fmaf(av[i], bv[q], acc[i][q]);
-        }
-        __syncthreads();
-    }
+        cp_async_commit();
+    };
 
-    const size_t x_total = static_cast<size_t>(M) * H * h4 +
-                           (L > 1 ? static_cast<size_t>(M) * (L - 1) * 2 * H * h4 : 0);
-    float* out = part + blockIdx.x * x_total +
-                 (l == 0 ? static_cast<size_t>(m) * H * h4
-                         : static_cast<size_t>(M) * H * h4 +
-                               (static_cast<size_t>(m) * (L - 1) + (l - 1)) * 2 * H * h4);
+    float acc[2][4][4] = {};
+    float db_sum = 0.0f;
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-        const int k = kt * kTile + ty * 4 + i;
-        if (k < K)
-            *reinterpret_cast<float4*>(out + static_cast<size_t>(k) * h4 + ct * kTile + tx * 4) =
-                make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+    for (int s = 0; s < kWStages - 1; ++s) issue(s);
+    for (int s = 0; s < stages; ++s) {
+        cp_async_wait<kWStages - 2>();
+        __syncthreads();
+        issue(s + kWStages - 1);
+        const float* a = As + (s % kWStages) * kWN * kWAS;
+        const float* b = Bs + (s % kWStages) * kWN * kWBS;
+        if (with_db) {  // this thread's column, its half of the slab's rows, in order
+            const float* col = b + (tid >> 7) * (kWN / 2) * kWBS + (tid & 127);
+#pragma unroll
+            for (int r = 0; r < kWN / 2; ++r) db_sum += col[r * kWBS];
+        }
+        // the slab's sums start from zero and join acc with an fp32 add
+        // (round to nearest): the tensor cores' own accumulation truncates,
+        // which over a 4,096-row chunk would bias the sum toward zero
+        float part_acc[2][4][4] = {};
+#pragma unroll
+        for (int kk = 0; kk < kWN; kk += 8) {
+            FragA fa[2];
+#pragma unroll
+            for (int mt = 0; mt < 2; ++mt)
+                load_a_t(fa[mt], a + kk * kWAS + wk * 32 + mt * 16, kWAS, g, q);
+#pragma unroll
+            for (int nt = 0; nt < 4; ++nt) {
+                FragB fb;
+                load_b(fb, b + kk * kWBS + wc * 32 + nt * 8, kWBS, g, q);
+#pragma unroll
+                for (int mt = 0; mt < 2; ++mt) mma3(part_acc[mt][nt], fa[mt], fb);
+            }
+        }
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+            for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+                for (int e = 0; e < 4; ++e) acc[mt][nt][e] += part_acc[mt][nt][e];
+    }
+    cp_async_wait<0>();
+
+    const size_t dw0 = static_cast<size_t>(M) * H * H4;
+    const size_t dwx = L > 1 ? static_cast<size_t>(M) * (L - 1) * 2 * H * H4 : 0;
+    const size_t x_total = dw0 + dwx + (L > 1 ? static_cast<size_t>(M) * (L - 1) * H4 : 0);
+    float* base = part + blockIdx.y * x_total;
+    float* out = base + (l == 0 ? static_cast<size_t>(m) * H * H4
+                                : dw0 + (static_cast<size_t>(m) * (L - 1) + (l - 1)) * 2 * H * H4);
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf) {
+            const int k = kt * kWK + wk * 32 + mt * 16 + g + 8 * hf;
+            if (k >= K) continue;
+#pragma unroll
+            for (int nt = 0; nt < 4; ++nt)
+                *reinterpret_cast<float2*>(out + static_cast<size_t>(k) * H4 + ct * kWC +
+                                           wc * 32 + nt * 8 + 2 * q) =
+                    make_float2(acc[mt][nt][2 * hf], acc[mt][nt][2 * hf + 1]);
+        }
+    if (with_db) {
+        red[tid] = db_sum;
+        __syncthreads();
+        if (tid < kWC)
+            base[dw0 + dwx + (static_cast<size_t>(m) * (L - 1) + (l - 1)) * H4 + ct * kWC + tid] =
+                red[tid] + red[tid + kWC];
     }
 }
 
 // out[i] = sum_{p < P} part[p * X + i] in order p = 0, 1, ...; entries below
-// `split` go to out0, the rest to out1[i - split].
+// s1 go to out0, those in [s1, s2) to out1[i - s1], the rest to out2[i - s2].
 __global__ void reduce_partials(const float* __restrict__ part, int P, size_t X,
-                                size_t split, float* __restrict__ out0,
-                                float* __restrict__ out1) {
+                                size_t s1, size_t s2, float* __restrict__ out0,
+                                float* __restrict__ out1, float* __restrict__ out2) {
     for (size_t i = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x; i < X;
          i += static_cast<size_t>(gridDim.x) * blockDim.x) {
         float s = 0.0f;
         for (int p = 0; p < P; ++p) s += part[static_cast<size_t>(p) * X + i];
-        if (i < split)
+        if (i < s1)
             out0[i] = s;
+        else if (i < s2)
+            out1[i - s1] = s;
         else
-            out1[i - split] = s;
+            out2[i - s2] = s;
     }
 }
 
 struct Plan {
     int block_rows, row_blocks, chunks;
-    size_t dg_floats, db_floats, dw_floats, dw_split, smem;
+    size_t dg_floats, dw_floats, s1, s2;
 };
 
-Plan plan(int M, int R, int T, int L, int H) {
+Plan plan(int M, int R, int T, int L, int H, int block_rows) {
     Plan p;
-    p.block_rows = (kThreads / H) * kRowsPerThread;
-    p.row_blocks = (R + p.block_rows - 1) / p.block_rows;
+    p.block_rows = block_rows;
+    p.row_blocks = (R + block_rows - 1) / block_rows;
     const long long n_total = static_cast<long long>(T) * R;
     p.chunks = static_cast<int>((n_total + kChunk - 1) / kChunk);
     const size_t h4 = 4 * static_cast<size_t>(H);
     p.dg_floats = L > 1 ? static_cast<size_t>(M) * T * (L - 1) * R * h4 : 0;
-    p.db_floats = L > 1 ? static_cast<size_t>(p.row_blocks) * M * (L - 1) * h4 : 0;
-    p.dw_split = static_cast<size_t>(M) * H * h4;
-    p.dw_floats = p.dw_split + (L > 1 ? static_cast<size_t>(M) * (L - 1) * 2 * H * h4 : 0);
-    p.smem = sizeof(float) * (2 * H + 4 * H) * static_cast<size_t>(p.block_rows + 4);
+    p.s1 = static_cast<size_t>(M) * H * h4;
+    p.s2 = p.s1 + (L > 1 ? static_cast<size_t>(M) * (L - 1) * 2 * H * h4 : 0);
+    p.dw_floats = p.s2 + (L > 1 ? static_cast<size_t>(M) * (L - 1) * h4 : 0);
     return p;
 }
 
-bool bad_shape(int M, int R, int T, int L, int H) {
-    return H < 32 || H % 32 != 0 || kThreads % H != 0 || M < 1 || R < 1 ||
-           T < 1 || L < 1 || L > 4;
+int block_rows(int H) {
+    switch (H) {
+        case 32: return SweepTile<32>::BR;
+        case 64: return SweepTile<64>::BR;
+        case 128: return SweepTile<128>::BR;
+        case 256: return SweepTile<256>::BR;
+        default: return 0;
+    }
 }
 
-template <int L>
+bool bad_shape(int M, int R, int T, int L, int H) {
+    return block_rows(H) == 0 || M < 1 || R < 1 || T < 1 || L < 1 || L > 4;
+}
+
+template <int H, int L>
 cudaError_t launch_sweep(const Plan& p, const float* xp, const float* wh0,
-                         const float* wxh, const float* bias, const float* wh0t,
-                         const float* wxht, const float* hseq, const float* cseq,
-                         const float* gout, const float* ghfin, const float* gcfin,
-                         float* dxp, float* dg, float* part_db, int M, int R, int T,
-                         int H, cudaStream_t stream) {
+                         const float* wxh, const float* bias, const float* hseq,
+                         const float* cseq, const float* gout, const float* ghfin,
+                         const float* gcfin, float* dxp, float* dg, int M, int R,
+                         int T, cudaStream_t stream) {
+    constexpr int smem = BwdPlan<H, L>::smem_bytes;
     cudaError_t err = cudaFuncSetAttribute(
-        lstm_bwd_sweep<L>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(p.smem));
+        lstm_bwd_sweep<H, L>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return err;
     const dim3 grid(p.row_blocks, M);
-    lstm_bwd_sweep<L><<<grid, kThreads, p.smem, stream>>>(
-        xp, wh0, wxh, bias, wh0t, wxht, hseq, cseq, gout, ghfin, gcfin, dxp, dg,
-        part_db, M, R, T, H);
+    lstm_bwd_sweep<H, L><<<grid, NT, smem, stream>>>(
+        xp, wh0, wxh, bias, hseq, cseq, gout, ghfin, gcfin, dxp, dg, R, T);
     return cudaGetLastError();
+}
+
+template <int H>
+cudaError_t sweep_h(int L, const Plan& p, const float* xp, const float* wh0,
+                    const float* wxh, const float* bias, const float* hseq,
+                    const float* cseq, const float* gout, const float* ghfin,
+                    const float* gcfin, float* dxp, float* dg, int M, int R, int T,
+                    cudaStream_t s) {
+    switch (L) {
+        case 1: return launch_sweep<H, 1>(p, xp, wh0, wxh, bias, hseq, cseq, gout, ghfin, gcfin, dxp, dg, M, R, T, s);
+        case 2: return launch_sweep<H, 2>(p, xp, wh0, wxh, bias, hseq, cseq, gout, ghfin, gcfin, dxp, dg, M, R, T, s);
+        case 3: return launch_sweep<H, 3>(p, xp, wh0, wxh, bias, hseq, cseq, gout, ghfin, gcfin, dxp, dg, M, R, T, s);
+        default: return launch_sweep<H, 4>(p, xp, wh0, wxh, bias, hseq, cseq, gout, ghfin, gcfin, dxp, dg, M, R, T, s);
+    }
+}
+
+template <int H>
+int smem_h(int L) {
+    switch (L) {
+        case 1: return BwdPlan<H, 1>::smem_bytes;
+        case 2: return BwdPlan<H, 2>::smem_bytes;
+        case 3: return BwdPlan<H, 3>::smem_bytes;
+        case 4: return BwdPlan<H, 4>::smem_bytes;
+        default: return 0;
+    }
 }
 
 }  // namespace
 
-// Floats of scratch the backward needs (layer >= 1 dgates, per-CTA db
-// partials, split-K weight-gradient partials); the wrapper allocates them.
+// Floats of scratch the backward needs (layer >= 1 dgates, split-K
+// weight-gradient partials); the wrapper allocates them.
 extern "C" size_t stmgcn_lstm_bwd_workspace(int M, int R, int T, int L, int H) {
     if (bad_shape(M, R, T, L, H)) return 0;
-    const Plan p = plan(M, R, T, L, H);
-    return p.dg_floats + p.db_floats + p.chunks * p.dw_floats;
+    const Plan p = plan(M, R, T, L, H, block_rows(H));
+    return p.dg_floats + p.chunks * p.dw_floats;
+}
+
+// Dynamic shared memory (bytes) of one sweep CTA at (L, H), and of one
+// weight-gradient CTA (L = 0); 0 for a shape the kernel does not take.
+extern "C" int stmgcn_lstm_bwd_smem(int L, int H) {
+    if (L == 0) return kWSmem;
+    switch (H) {
+        case 32: return smem_h<32>(L);
+        case 64: return smem_h<64>(L);
+        case 128: return smem_h<128>(L);
+        case 256: return smem_h<256>(L);
+        default: return 0;
+    }
 }
 
 // C entry point bound with ctypes. Returns a cudaError_t (0 = launched).
-// Same shape rules as the forward: H divides 256 and is a multiple of 32,
-// 1 <= L <= 4. wh0t/wxht are wh0/wxh with their last two axes swapped. For
+// H in {32, 64, 128, 256}, 1 <= L <= 4; every pointer 16-byte aligned. For
 // L == 1, dwxh and db are placeholders that are not written.
 extern "C" int stmgcn_lstm_bwd(const float* xp, const float* wh0, const float* wxh,
-                               const float* bias, const float* wh0t,
-                               const float* wxht, const float* hseq,
+                               const float* bias, const float* hseq,
                                const float* cseq, const float* gout,
                                const float* ghfin, const float* gcfin, float* dxp,
                                float* dwh0, float* dwxh, float* db,
@@ -520,36 +759,30 @@ extern "C" int stmgcn_lstm_bwd(const float* xp, const float* wh0, const float* w
                                void* stream) {
     if (bad_shape(M, R, T, L, H)) return static_cast<int>(cudaErrorInvalidValue);
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-    const Plan p = plan(M, R, T, L, H);
+    const Plan p = plan(M, R, T, L, H, block_rows(H));
     float* dg = workspace;
-    float* part_db = dg + p.dg_floats;
-    float* part_dw = part_db + p.db_floats;
+    float* part = dg + p.dg_floats;
 
     cudaError_t err;
-    switch (L) {
-        case 1: err = launch_sweep<1>(p, xp, wh0, wxh, bias, wh0t, wxht, hseq, cseq, gout, ghfin, gcfin, dxp, dg, part_db, M, R, T, H, s); break;
-        case 2: err = launch_sweep<2>(p, xp, wh0, wxh, bias, wh0t, wxht, hseq, cseq, gout, ghfin, gcfin, dxp, dg, part_db, M, R, T, H, s); break;
-        case 3: err = launch_sweep<3>(p, xp, wh0, wxh, bias, wh0t, wxht, hseq, cseq, gout, ghfin, gcfin, dxp, dg, part_db, M, R, T, H, s); break;
-        default: err = launch_sweep<4>(p, xp, wh0, wxh, bias, wh0t, wxht, hseq, cseq, gout, ghfin, gcfin, dxp, dg, part_db, M, R, T, H, s); break;
+    switch (H) {
+        case 32: err = sweep_h<32>(L, p, xp, wh0, wxh, bias, hseq, cseq, gout, ghfin, gcfin, dxp, dg, M, R, T, s); break;
+        case 64: err = sweep_h<64>(L, p, xp, wh0, wxh, bias, hseq, cseq, gout, ghfin, gcfin, dxp, dg, M, R, T, s); break;
+        case 128: err = sweep_h<128>(L, p, xp, wh0, wxh, bias, hseq, cseq, gout, ghfin, gcfin, dxp, dg, M, R, T, s); break;
+        default: err = sweep_h<256>(L, p, xp, wh0, wxh, bias, hseq, cseq, gout, ghfin, gcfin, dxp, dg, M, R, T, s); break;
     }
     if (err != cudaSuccess) return static_cast<int>(err);
 
-    const int max_tiles = ((2 * H + kTile - 1) / kTile) * (4 * H / kTile);
-    const dim3 wgrid(p.chunks, max_tiles, M * L);
-    lstm_bwd_wgrad<<<wgrid, kThreads, 0, s>>>(hseq, dxp, dg, part_dw, M, R, T, L, H);
+    err = cudaFuncSetAttribute(lstm_bwd_wgrad, cudaFuncAttributeMaxDynamicSharedMemorySize, kWSmem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const int max_tiles = ((2 * H + kWK - 1) / kWK) * (4 * H / kWC);
+    const dim3 wgrid(max_tiles, p.chunks, M * L);
+    lstm_bwd_wgrad<<<wgrid, kThreads, kWSmem, s>>>(hseq, dxp, dg, part, M, R, T, L, H);
     err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
 
     const size_t rblocks = (p.dw_floats + kThreads - 1) / kThreads;
     const int rgrid = rblocks < 2048 ? static_cast<int>(rblocks) : 2048;
-    reduce_partials<<<rgrid, kThreads, 0, s>>>(part_dw, p.chunks, p.dw_floats,
-                                               p.dw_split, dwh0, dwxh);
-    err = cudaGetLastError();
-    if (err != cudaSuccess || L == 1) return static_cast<int>(err);
-
-    const size_t db_x = static_cast<size_t>(M) * (L - 1) * 4 * H;
-    const int dblocks = static_cast<int>((db_x + kThreads - 1) / kThreads);
-    reduce_partials<<<dblocks, kThreads, 0, s>>>(part_db, p.row_blocks, db_x, db_x,
-                                                 db, db);
+    reduce_partials<<<rgrid, kThreads, 0, s>>>(part, p.chunks, p.dw_floats, p.s1, p.s2,
+                                               dwh0, dwxh, db);
     return static_cast<int>(cudaGetLastError());
 }

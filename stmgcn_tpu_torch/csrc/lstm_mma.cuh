@@ -1,0 +1,146 @@
+// Building blocks shared by the LSTM forward (fused_lstm_fwd.cu) and
+// backward (fused_lstm_bwd.cu) kernels: the tile shapes per hidden width,
+// 3xTF32 tensor-core products (mma.sync m16n8k8) and cp.async copies.
+//
+// 3xTF32: an fp32 operand x is split as x = hi + lo, hi rounded to TF32 (10
+// mantissa bits, round to nearest) and lo truncated to TF32 by the tensor
+// core, and a product a*b is taken as a_lo*b_hi + a_hi*b_lo + a_hi*b_hi with
+// fp32 accumulation: the small terms first, the lo*lo term (2^-22 of the
+// product) dropped. That keeps each product within a few fp32 roundings,
+// where one TF32 pass (2^-11) misses the kernels' fp32 tolerances
+// (tests/test_torch_lstm_tf32.py rehearses both on the CPU). The split is
+// integer and fp32 arithmetic, not cvt: conversions issue at a fraction of
+// the ALU rate, and there are 24 splits per 48 mma in every k-step.
+//
+// Fragment layouts (PTX ISA, mma.m16n8k8 .tf32), lane = 4 * g + q:
+//   A (16 x 8, row-major): a0 (g, q), a1 (g + 8, q), a2 (g, q + 4), a3 (g + 8, q + 4)
+//   B (8 x 8, k x n):      b0 (q, g), b1 (q + 4, g)
+//   C (16 x 8):            c0 (g, 2q), c1 (g, 2q + 1), c2 (g + 8, 2q), c3 (g + 8, 2q + 1)
+
+#pragma once
+
+#include <cuda_runtime.h>
+
+#include <cstdint>
+
+namespace lstm_mma {
+
+constexpr int kThreads = 256;  // 8 warps
+constexpr int kWarps = kThreads / 32;
+constexpr int kSmemLimit = 232448;  // bytes of shared memory a block may use on sm_90
+
+// The per-(step, layer) product is rows x K against K x 4H. The Warps warps
+// of a CTA split it as WM (rows) x WN (hidden units); each warp owns MT
+// m-tiles of 16 rows and, for each of the four gates, UT n-tiles of 8 units,
+// so one thread holds all four gates of the same (row, unit) pairs and the
+// cell update runs in the accumulator registers. MT * UT = 32 / Warps: 64
+// fp32 accumulators per thread with 8 warps, 32 with 16; the rows per CTA
+// (BR) are the same either way.
+template <int H, int Warps = kWarps>
+struct Tile {
+    static_assert(H == 32 || H == 64 || H == 128 || H == 256, "H in {32, 64, 128, 256}");
+    static_assert(Warps == 8 || Warps == 16, "8 or 16 warps");
+    static constexpr int Threads = 32 * Warps;
+    static constexpr int WN = H <= 64 ? 4 : Warps == 8 ? 8 : H / 16;
+    static constexpr int WM = Warps / WN;
+    static constexpr int UW = H / WN;       // units per warp
+    static constexpr int UT = UW / 8;
+    static constexpr int MT = 32 / (Warps * UT);
+    static constexpr int RW = 16 * MT;      // rows per warp
+    static constexpr int BR = WM * RW;      // rows per CTA: 128, 64, 32, 16
+    static constexpr int KC = H <= 64 ? 16 : 8;  // weight rows per ring stage
+    static constexpr int HS = H + 4;        // h tile row stride (floats)
+    static constexpr int WS = 4 * H + 8;    // weight row-chunk stride
+    static_assert(MT >= 1 && WM * WN == Warps, "tiling covers the warps");
+};
+
+__device__ __forceinline__ float sigmoid_f32(float x) {
+    return 1.0f / (1.0f + expf(-x));
+}
+
+// x = hi + lo: hi is x rounded to TF32 (round to nearest, ties away from
+// zero, as cvt.rna.tf32.f32, but in two integer operations: a carry out of
+// the mantissa correctly bumps the exponent); lo = x - hi is exact in fp32
+// and goes to the tensor core as it is, which reads a .tf32 operand's top
+// 19 bits (so lo is truncated to TF32: 2^-21 of x at most)
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+    hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+    lo = __float_as_uint(x - __uint_as_float(hi));
+}
+
+struct FragA {
+    uint32_t hi[4], lo[4];
+};
+struct FragB {
+    uint32_t hi[2], lo[2];
+};
+
+// A from a row-major tile (p at its (row 0, k 0), row stride s)
+__device__ __forceinline__ void load_a(FragA& f, const float* p, int s, int g, int q) {
+    split(p[g * s + q], f.hi[0], f.lo[0]);
+    split(p[(g + 8) * s + q], f.hi[1], f.lo[1]);
+    split(p[g * s + q + 4], f.hi[2], f.lo[2]);
+    split(p[(g + 8) * s + q + 4], f.hi[3], f.lo[3]);
+}
+
+// A = P^T from a k-major tile P (p at its (k 0, row 0), k stride s)
+__device__ __forceinline__ void load_a_t(FragA& f, const float* p, int s, int g, int q) {
+    split(p[q * s + g], f.hi[0], f.lo[0]);
+    split(p[q * s + g + 8], f.hi[1], f.lo[1]);
+    split(p[(q + 4) * s + g], f.hi[2], f.lo[2]);
+    split(p[(q + 4) * s + g + 8], f.hi[3], f.lo[3]);
+}
+
+// B from a k-major tile (p at its (k 0, n 0), k stride s)
+__device__ __forceinline__ void load_b(FragB& f, const float* p, int s, int g, int q) {
+    split(p[q * s + g], f.hi[0], f.lo[0]);
+    split(p[(q + 4) * s + g], f.hi[1], f.lo[1]);
+}
+
+// B = P^T from an n-major tile P (p at its (n 0, k 0), n stride s)
+__device__ __forceinline__ void load_b_t(FragB& f, const float* p, int s, int g, int q) {
+    split(p[g * s + q], f.hi[0], f.lo[0]);
+    split(p[g * s + q + 4], f.hi[1], f.lo[1]);
+}
+
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+    asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// d += a * b in 3xTF32, the small terms first
+__device__ __forceinline__ void mma3(float (&d)[4], const FragA& a, const FragB& b) {
+    mma_tf32(d, a.lo, b.hi);
+    mma_tf32(d, a.hi, b.lo);
+    mma_tf32(d, a.hi, b.hi);
+}
+
+// 16-byte global -> shared copy; zero-fills the 16 bytes when !valid (src
+// must still be a mapped address)
+__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool valid) {
+    const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(s), "l"(src),
+                 "r"(valid ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+    asm volatile("cp.async.commit_group;");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+    asm volatile("cp.async.wait_group %0;" ::"n"(N));
+}
+
+// The largest ring depth in [2, cap] (cap <= 4) whose stages fit beside
+// `fixed` floats; each plan static_asserts that its total fits, 2 stages too
+constexpr int ring_stages(int fixed_floats, int stage_floats, int cap = 4) {
+    return cap >= 4 && (fixed_floats + 4 * stage_floats) * 4 <= kSmemLimit ? 4
+         : cap >= 3 && (fixed_floats + 3 * stage_floats) * 4 <= kSmemLimit ? 3
+                                                                          : 2;
+}
+
+}  // namespace lstm_mma

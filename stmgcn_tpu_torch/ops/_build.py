@@ -3,8 +3,9 @@
 Each kernel source in ``stmgcn_tpu_torch/csrc/`` is a plain C interface
 compiled by ``nvcc`` for ``sm_90a`` into a shared library under
 ``build/kernels/`` at the repository root, at first use. The library name
-carries a hash of the sources and flags, so an edited source rebuilds and
-an unchanged one loads in milliseconds. Nothing here runs at import time:
+carries a hash of the sources, the ``*.cuh`` headers beside them and the
+flags, so an edited source or header rebuilds and an unchanged one loads
+in milliseconds. Nothing here runs at import time:
 the CPU tests import every module on a host with no ``nvcc``.
 :func:`on_cuda` is every wrapper's choice between its kernel and its
 plain version.
@@ -65,8 +66,10 @@ def _nvcc() -> str:
 
 def _build(sources, name: str) -> BuildInfo:
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources:
-        digest.update(Path(src).read_bytes())
+    # the sources and every header beside them, which they may include
+    headers = sorted({h for src in sources for h in Path(src).parent.glob("*.cuh")})
+    for path in [*sources, *headers]:
+        digest.update(Path(path).read_bytes())
     path = BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
     if path.exists():
         return BuildInfo(path, 0.0, "")

@@ -8,9 +8,17 @@ recurrence for a block of rows with h and c kept on chip; layer 0's input
 projection is hoisted outside it as one large matmul (``ops/lstm.py``), and
 layers >= 1 contract ``[h_below, h_prev]`` against one packed ``(2H, 4H)``
 weight. The backward kernel (``csrc/fused_lstm_bwd.cu``) runs the reverse
-sweep from the forward's saved per-step h/c, recomputing the gates, and
-returns the packed weight gradients; :class:`FusedLSTM` ties the two into
-one ``torch.autograd.Function``.
+sweep from the forward's saved per-step h/c, recomputing the gates, then a
+split-K weight-gradient pass, and returns the packed weight gradients;
+:class:`FusedLSTM` ties the two into one ``torch.autograd.Function``.
+
+Both kernels stream the packed weights through a ring of shared-memory
+stages and do every matrix product on the tensor cores in 3xTF32 (each
+fp32 operand split into two TF32 halves, three products, fp32
+accumulation: ``csrc/lstm_mma.cuh``), which keeps fp32 accuracy where one
+TF32 pass would not (``tests/test_torch_lstm_tf32.py``). The wrapper passes
+the packed weights as they are: the kernels read ``W^T`` by transposing in
+the fragment load, so no transposed copy is made.
 
 Every operand may carry a leading branch axis ``M`` (what ``vmap`` over the
 model's branches gives the TPU kernel): all ``M`` branches then run in one
@@ -45,13 +53,14 @@ __all__ = [
     "fused_lstm_bwd_reference",
     "fused_lstm_reference",
     "kernel_library",
+    "kernel_resources",
     "pack_weights",
     "unpack_weight_grads",
 ]
 
 SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "fused_lstm_fwd.cu"
 BWD_SOURCE = SOURCE.with_name("fused_lstm_bwd.cu")
-#: hidden widths the kernel's thread mapping takes (H | 256, 32 | H)
+#: hidden widths the kernels' tilings take (csrc/lstm_mma.cuh ``Tile``)
 KERNEL_HIDDEN = (32, 64, 128, 256)
 KERNEL_MAX_LAYERS = 4
 
@@ -75,12 +84,37 @@ def bwd_kernel_library():
     build record; built on first call."""
     lib, info = load_library([BWD_SOURCE], "fused_lstm_bwd")
     fn = lib.stmgcn_lstm_bwd
-    fn.argtypes = [ctypes.c_void_p] * 16 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     workspace = lib.stmgcn_lstm_bwd_workspace
     workspace.argtypes = [ctypes.c_int] * 5
     workspace.restype = ctypes.c_size_t
     return fn, workspace, info
+
+
+def kernel_resources(L: int, H: int) -> dict:
+    """Rows per CTA and dynamic shared memory (bytes) per CTA of each LSTM
+    kernel at ``(L, H)``, as the built libraries report them (builds them
+    on first call)."""
+    fwd = load_library([SOURCE], "fused_lstm_fwd")[0]
+    bwd = load_library([BWD_SOURCE], "fused_lstm_bwd")[0]
+    for f in (fwd.stmgcn_lstm_fwd_smem, fwd.stmgcn_lstm_block_rows, bwd.stmgcn_lstm_bwd_smem):
+        f.restype = ctypes.c_int
+    return {
+        "block_rows": fwd.stmgcn_lstm_block_rows(H),
+        "lstm_fwd_kernel": fwd.stmgcn_lstm_fwd_smem(L, H),
+        "lstm_bwd_sweep": bwd.stmgcn_lstm_bwd_smem(L, H),
+        "lstm_bwd_wgrad": bwd.stmgcn_lstm_bwd_smem(0, H),
+    }
+
+
+def _check_aligned(name, copied, paired):
+    """The kernels copy the weights and ``hseq`` 16 bytes at a time
+    (cp.async) and read or write every other operand two floats at a time."""
+    for tensors, nbytes in ((copied, 16), (paired, 8)):
+        if any(t.data_ptr() % nbytes for t in tensors):
+            raise ValueError(f"{name}: operands must start on a {nbytes}-byte boundary "
+                             "(16 for the weights and hseq)")
 
 
 def pack_weights(wh_stack: torch.Tensor, wx_stack: torch.Tensor):
@@ -187,6 +221,7 @@ def fused_lstm(x_proj0, wh_stack, wx_stack, b_stack, *, with_residuals=False):
     device = x_proj0.device
     wh0, wxh = pack_weights(wh_stack, wx_stack)
     wh0, wxh = wh0.contiguous(), wxh.contiguous()
+    _check_aligned("fused_lstm", (wh0, wxh), (x_proj0, b_stack))
     out = torch.empty(lead + (R, T, H), device=device, dtype=torch.float32)
     h_fin = torch.empty(lead + (L, R, H), device=device, dtype=torch.float32)
     c_fin = torch.empty_like(h_fin)
@@ -320,14 +355,10 @@ def fused_lstm_bwd(x_proj0, wh_stack, wx_stack, b_stack, hseq, cseq,
     for name, t in zip(want, operands[4:]):
         if tuple(t.shape) != want[name]:
             raise ValueError(f"fused_lstm_bwd: {name} must be {want[name]}, got {tuple(t.shape)}")
-    if hseq.data_ptr() % 16:  # the weight-gradient pass reads it 16 bytes at a time
-        raise ValueError("fused_lstm_bwd: hseq must start on a 16-byte boundary")
     device = x_proj0.device
     wh0, wxh = pack_weights(wh_stack, wx_stack)
     wh0, wxh = wh0.contiguous(), wxh.contiguous()
-    # transposed copies: the kernel's dgates @ W^T reads them coalesced
-    wh0t = wh0.transpose(-1, -2).contiguous()
-    wxht = wxh.transpose(-1, -2).contiguous()
+    _check_aligned("fused_lstm_bwd", (wh0, wxh, hseq), (x_proj0, b_stack) + operands[5:])
     fn, workspace_floats, _ = bwd_kernel_library()
     dxp = torch.empty_like(x_proj0)
     dwh0 = torch.empty_like(wh0)
@@ -338,7 +369,7 @@ def fused_lstm_bwd(x_proj0, wh_stack, wx_stack, b_stack, hseq, cseq,
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = fn(
-            *(t.data_ptr() for t in (x_proj0, wh0, wxh, b_stack, wh0t, wxht, hseq, cseq,
+            *(t.data_ptr() for t in (x_proj0, wh0, wxh, b_stack, hseq, cseq,
                                      g_out, g_hfin, g_cfin, dxp, dwh0, dwxh, db, work)),
             M, R, T, L, H, stream,
         )
