@@ -1,6 +1,7 @@
 // Building blocks shared by the LSTM forward (fused_lstm_fwd.cu) and
-// backward (fused_lstm_bwd.cu) kernels: the tile shapes per hidden width,
-// 3xTF32 tensor-core products (mma.sync m16n8k8) and cp.async copies.
+// backward (fused_lstm_bwd.cu) kernels and the block-CSR SpMMs
+// (spmm_stack.cu): the LSTM tile shapes per hidden width, 3xTF32
+// tensor-core products (mma.sync m16n8k8) and cp.async copies.
 //
 // 3xTF32: an fp32 operand x is split as x = hi + lo, hi rounded to TF32 (10
 // mantissa bits, round to nearest) and lo truncated to TF32 by the tensor
@@ -124,6 +125,15 @@ __device__ __forceinline__ void cp_async16(float* dst, const float* src, bool va
     const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
     asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(s), "l"(src),
                  "r"(valid ? 16 : 0));
+}
+
+// 4-byte global -> shared copy, for rows that do not start on a 16-byte
+// boundary (.ca: .cg takes 16 bytes only); zero-fills when !valid (src must
+// still be a mapped address)
+__device__ __forceinline__ void cp_async4(float* dst, const float* src, bool valid) {
+    const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;" ::"r"(s), "l"(src),
+                 "r"(valid ? 4 : 0));
 }
 
 __device__ __forceinline__ void cp_async_commit() {

@@ -5,8 +5,12 @@ Counterpart of ``stmgcn_tpu/ops/spmm.py``. A support is stored as
 **uniform block-CSR**: the ``(N_r, N_c)`` matrix cut into ``(tile, tile)``
 blocks, only the blocks holding a nonzero kept, every block row padded to
 the same number ``C`` of stored slots with zero blocks at block column 0,
-so every operand has a static shape. The transposed structure
-(``data_t``/``idx_t``) is built beside it for the backward pass. The
+so every operand has a static shape. Each row's nonzero blocks come first,
+and ``nblk`` counts them, so the kernels skip the padding; ``row_order``,
+derived from the counts on first use, lists the block rows by descending
+count, the order the kernels' grid takes them in. The transposed structure
+(``data_t``, ``idx_t``, ``nblk_t``, ``row_order_t``) is built beside it for
+the backward pass. The
 builders (:func:`from_dense`, :func:`stack_from_dense` and the scan and
 assembly helpers) are numpy on the host, copied from the JAX package (its
 optional C++ block scan is left out: the numpy scan gives the same map).
@@ -27,9 +31,11 @@ Each wrapper dispatches on where its tensors live: CUDA tensors launch the
 kernel (or raise — no fallback), CPU tensors take the plain version
 (:func:`spmm_stack_reference`, :func:`spmm_stack_bwd_reference`,
 :func:`spmm_reference`: a gather of the signal's row blocks by the index
-lists and one batched tile contraction). Each launch adds one to its
-wrapper's ``launches`` count. Gradients flow to ``x`` only: the supports
-are offline constants and get no gradient, as in the JAX package.
+lists and one batched tile contraction over every stored slot, padding
+included). Each launch adds one to its wrapper's ``launches`` count (and
+B3's to ``launches_shared`` when its signal is shared). Gradients flow to
+``x`` only: the supports are offline constants and get no gradient, as in
+the JAX package.
 """
 
 from __future__ import annotations
@@ -53,7 +59,9 @@ __all__ = [
     "KERNEL_TILES",
     "TILE",
     "from_dense",
+    "heavy_first",
     "kernel_library",
+    "kernel_plan",
     "place_supports",
     "spmm",
     "spmm_dense_reference",
@@ -91,9 +99,12 @@ def _scan_blocks(mat: np.ndarray, tile: int):
 
 
 def _assemble_blocks(blocks, nonzero, c_max: int, tile: int):
-    """Scanned blocks -> uniform block-CSR (data, idx) at an imposed width."""
+    """Scanned blocks -> uniform block-CSR ``(data, idx, nblk)`` at an
+    imposed width: each row's nonzero blocks first, ``nblk`` (R,) int32
+    counting them (the slots from ``nblk`` on are zero blocks at index 0)."""
     r = blocks.shape[0]
-    need = max(int(nonzero.sum(axis=1).max()), 1)
+    nblk = nonzero.sum(axis=1).astype(np.int32)
+    need = max(int(nblk.max()), 1)
     if need > c_max:
         raise ValueError(f"row needs {need} block-columns > imposed c_max {c_max}")
     data = np.zeros((r, c_max, tile, tile), dtype=np.float32)
@@ -102,16 +113,38 @@ def _assemble_blocks(blocks, nonzero, c_max: int, tile: int):
         cols = np.flatnonzero(nonzero[i])
         data[i, : len(cols)] = blocks[i, cols]
         idx[i, : len(cols)] = cols
-    return data, idx
+    return data, idx, nblk
 
 
 def _to_blocks_rect(mat: np.ndarray, tile: int, c_max: Optional[int] = None):
-    """Dense (Nr, Nc) -> uniform block-CSR (data, idx); optionally padded to
-    an externally-imposed ``c_max`` (for uniform stacking)."""
+    """Dense (Nr, Nc) -> uniform block-CSR (data, idx, nblk); optionally
+    padded to an externally-imposed ``c_max`` (for uniform stacking)."""
     blocks, nonzero = _scan_blocks(mat, tile)
     if c_max is None:
         c_max = max(int(nonzero.sum(axis=1).max()), 1)
     return _assemble_blocks(blocks, nonzero, c_max, tile)
+
+
+def heavy_first(nblk) -> torch.Tensor:
+    """The block rows of the counts ``nblk`` (flattened) by descending
+    count, ties in row order, int32: the order the kernels' grid takes them
+    in, so the longest rows start first and the short ones fill the tail."""
+    nblk = torch.as_tensor(nblk)
+    return torch.argsort(nblk.reshape(-1), descending=True, stable=True).to(torch.int32)
+
+
+class _RowOrder:
+    """``row_order`` and ``row_order_t``: :func:`heavy_first` of ``nblk`` and
+    ``nblk_t``, derived on first use and kept with the structure, so the
+    order the kernels' grid takes always lists every row once."""
+
+    @functools.cached_property
+    def row_order(self) -> torch.Tensor:
+        return heavy_first(self.nblk)
+
+    @functools.cached_property
+    def row_order_t(self) -> torch.Tensor:
+        return heavy_first(self.nblk_t)
 
 
 def _moved(obj, device):
@@ -127,13 +160,15 @@ def _nbytes(*tensors) -> int:
 
 
 @dataclasses.dataclass
-class BlockSparse:
+class BlockSparse(_RowOrder):
     """One square support in uniform block-CSR, plus its transpose."""
 
     data: torch.Tensor  # (R, C, tile, tile) stored blocks (zero-padded rows)
     idx: torch.Tensor  # (R, C) int32 block-column indices
+    nblk: torch.Tensor  # (R,) int32: the leading slots of each row that hold a nonzero
     data_t: torch.Tensor  # transpose structure, same layout
     idx_t: torch.Tensor
+    nblk_t: torch.Tensor
     n: int  # original (unpadded) dimension
     tile: int
 
@@ -152,6 +187,8 @@ class BlockSparse:
 
     @property
     def nbytes(self) -> int:
+        """Bytes of the blocks and indices (as the JAX package counts them;
+        the counts add 4 bytes per block row)."""
         return _nbytes(self.data, self.idx, self.data_t, self.idx_t)
 
     def to(self, device) -> "BlockSparse":
@@ -163,21 +200,24 @@ def from_dense(mat, tile: int = TILE) -> BlockSparse:
     mat = np.asarray(mat, dtype=np.float32)
     if mat.ndim != 2 or mat.shape[0] != mat.shape[1]:
         raise ValueError(f"support must be square (N, N), got {mat.shape}")
-    data, idx = _to_blocks_rect(mat, tile)
-    data_t, idx_t = _to_blocks_rect(mat.T, tile)
+    data, idx, nblk = _to_blocks_rect(mat, tile)
+    data_t, idx_t, nblk_t = _to_blocks_rect(mat.T, tile)
     return BlockSparse(
-        data=torch.from_numpy(data), idx=torch.from_numpy(idx),
+        data=torch.from_numpy(data), idx=torch.from_numpy(idx), nblk=torch.from_numpy(nblk),
         data_t=torch.from_numpy(data_t), idx_t=torch.from_numpy(idx_t),
-        n=mat.shape[0], tile=tile,
+        nblk_t=torch.from_numpy(nblk_t), n=mat.shape[0], tile=tile,
     )
 
 
 @dataclasses.dataclass
-class BlockSparseStack:
+class BlockSparseStack(_RowOrder):
     """K same-shape supports in uniform block-CSR, plus transposes.
 
-    ``data`` ``([M,] K, R, C, tile, tile)``, ``idx`` ``([M,] K, R, C)``; the
-    transpose structure mirrors it for the backward pass. The optional
+    ``data`` ``([M,] K, R, C, tile, tile)``, ``idx`` ``([M,] K, R, C)``,
+    ``nblk`` ``([M,] K, R)`` the count of each row's leading nonzero slots,
+    ``row_order`` ``(M*K*R,)`` the rows by descending count (derived,
+    :func:`heavy_first`); the transpose structure mirrors it for the
+    backward pass. The optional
     leading ``M`` axis holds one stack per graph branch at one common ``C``
     (a tiled plan's :meth:`~stmgcn_tpu_torch.ops.tiling.TiledSupports.as_stack`),
     so all branches run in one launch. ``n_rows``/``n_cols`` are the
@@ -186,8 +226,10 @@ class BlockSparseStack:
 
     data: torch.Tensor
     idx: torch.Tensor
+    nblk: torch.Tensor
     data_t: torch.Tensor
     idx_t: torch.Tensor
+    nblk_t: torch.Tensor
     n_rows: int
     n_cols: int
     tile: int
@@ -230,11 +272,10 @@ def stack_from_dense(mats, tile: int = TILE) -> BlockSparseStack:
     c_max_t = max(max(int(nz.sum(axis=1).max()), 1) for _, nz in bwd_scan)
     fwd = [_assemble_blocks(b, nz, c_max, tile) for b, nz in fwd_scan]
     bwd = [_assemble_blocks(b, nz, c_max_t, tile) for b, nz in bwd_scan]
+    data, idx, nblk = (torch.from_numpy(np.stack(a)) for a in zip(*fwd))
+    data_t, idx_t, nblk_t = (torch.from_numpy(np.stack(a)) for a in zip(*bwd))
     return BlockSparseStack(
-        data=torch.from_numpy(np.stack([d for d, _ in fwd])),
-        idx=torch.from_numpy(np.stack([i for _, i in fwd])),
-        data_t=torch.from_numpy(np.stack([d for d, _ in bwd])),
-        idx_t=torch.from_numpy(np.stack([i for _, i in bwd])),
+        data=data, idx=idx, nblk=nblk, data_t=data_t, idx_t=idx_t, nblk_t=nblk_t,
         n_rows=mats.shape[1], n_cols=mats.shape[2], tile=tile,
     )
 
@@ -325,29 +366,56 @@ def kernel_library():
     lib, info = load_library([SOURCE], "spmm_stack")
     fns = (lib.stmgcn_spmm_stack_fwd, lib.stmgcn_spmm_stack_bwd, lib.stmgcn_spmm)
     for fn in fns:
-        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 9
-                       + [ctypes.c_longlong, ctypes.c_void_p])
+        # data, idx, nblk, order, src, out, part; L, S, R, C, tile, F,
+        # n_out_rows, n_src_rows, src_div; src_stride; vec; stream
+        fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 9
+                       + [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fns, info
 
 
-def _launch(name, role, data, idx, src, out, *, O, S, tile, n_src_rows,
-            src_div=1, src_stride=0):
-    """One kernel launch on the current stream; ``data`` ``(L, R, C, t,
-    t)`` with ``L = O * S``; ``out`` ``(O, n_out_rows, F)``."""
+def kernel_plan(tile: int, F: int) -> dict:
+    """The plan a launch at ``(tile, F)`` takes, as the built library
+    reports it: column tile, ring stages, dynamic shared memory (bytes) per
+    CTA and the rows and columns one warp owns (builds it on first call)."""
+    lib, _ = load_library([SOURCE], "spmm_stack")
+    info = (ctypes.c_int * 5)()
+    if lib.stmgcn_spmm_plan(tile, F, info) != 0:
+        raise ValueError(f"the CUDA kernel takes tile in {KERNEL_TILES}, got {tile}")
+    return dict(zip(("column_tile", "stages", "smem_bytes", "warp_rows", "warp_cols"), info))
+
+
+def _launch(name, role, data, idx, nblk, order, src, out, *, S, tile, n_src_rows, src_div=1,
+            src_stride=0):
+    """One kernel launch on the current stream: one CTA per block row of
+    ``data`` ``(L, R, C, t, t)`` (``nblk`` ``(L, R)``), taken in ``order``
+    (a permutation of the ``L * R`` flat rows), row ``l`` adding source
+    ``l % S`` of output group ``l // S`` of ``out`` ``(L // S, n_out_rows,
+    F)``. With ``S`` > 1 each source's partial goes to scratch (allocated
+    here) and the kernel library sums them in order."""
     if tile not in KERNEL_TILES:
         raise ValueError(f"{name}: the CUDA kernel takes tile in {KERNEL_TILES}, got {tile}")
     R, C = idx.shape[-2:]
+    L = idx.numel() // (R * C)
     F, n_out_rows = out.shape[-1], out.shape[-2]
     if F == 0 or n_out_rows == 0 or n_src_rows == 0:
         raise ValueError(f"{name}: empty product (F={F}, rows={n_out_rows}, {n_src_rows})")
+    if nblk.numel() != L * R or order.numel() != L * R or out.numel() * S != L * n_out_rows * F:
+        raise ValueError(f"{name}: counts {tuple(nblk.shape)} or output {tuple(out.shape)} "
+                         f"do not match indices {tuple(idx.shape)} with {S} sources per output")
     if data.data_ptr() % 16:  # blocks are read 16 bytes at a time
         raise ValueError(f"{name}: the block data must start on a 16-byte boundary")
+    # signal rows are copied 16 bytes at a time where each starts on a 16-byte boundary
+    vec = int(F % 4 == 0 and src.data_ptr() % 16 == 0)
+    part = (torch.empty((S,) + tuple(out.shape), device=out.device, dtype=torch.float32)
+            if S > 1 else None)
     fn = kernel_library()[0][role]
     with torch.cuda.device(out.device):
         stream = torch.cuda.current_stream(out.device).cuda_stream
-        err = fn(data.data_ptr(), idx.data_ptr(), src.data_ptr(), out.data_ptr(),
-                 O, S, R, C, tile, F, n_out_rows, n_src_rows, src_div, src_stride, stream)
+        err = fn(data.data_ptr(), idx.data_ptr(), nblk.data_ptr(), order.data_ptr(),
+                 src.data_ptr(), out.data_ptr(),
+                 None if part is None else part.data_ptr(), L, S, R, C, tile, F, n_out_rows,
+                 n_src_rows, src_div, src_stride, vec, stream)
     if err != 0:
         raise RuntimeError(f"{name}: kernel launch failed with cudaError {err}")
 
@@ -355,16 +423,17 @@ def _launch(name, role, data, idx, src, out, *, O, S, tile, n_src_rows,
 def stack_forward(bss: BlockSparseStack, x: torch.Tensor) -> torch.Tensor:
     """B3, or its plain version for CPU tensors: ``([M,] K, n_rows, F)``
     from a shared ``(N_c, F)`` or per-branch ``(M, N_c, F)`` ``x``."""
-    if not on_cuda("spmm_stack", (bss.data, x), (bss.idx,)):
+    if not on_cuda("spmm_stack", (bss.data, x), (bss.idx, bss.nblk, bss.row_order)):
         return spmm_stack_reference(bss, x)
     lead, K = _lead(bss), bss.n_supports
-    L = math.prod(lead)
     out = torch.empty(lead + (bss.n_rows, x.shape[-1]), device=x.device, dtype=torch.float32)
-    _launch("spmm_stack", 0, bss.data, bss.idx, x, out, O=L, S=1, tile=bss.tile,
+    _launch("spmm_stack", 0, bss.data, bss.idx, bss.nblk, bss.row_order, x, out, S=1,
+            tile=bss.tile,
             n_src_rows=bss.n_cols, src_div=K,
             src_stride=0 if x.dim() == 2 else bss.n_cols * x.shape[-1])
     with _COUNT_LOCK:
         spmm_stack.launches += 1
+        spmm_stack.launches_shared += x.dim() == 2
     return out
 
 
@@ -372,19 +441,21 @@ def spmm_stack_bwd(bss: BlockSparseStack, g: torch.Tensor, *, shared: bool) -> t
     """B4: ``dx = sum_k A_k^T @ g_k`` from :func:`spmm_stack`'s cotangent
     ``g`` ``([M,] K, n_rows, F)`` — ``(N_c, F)`` when ``x`` was ``shared``
     by the branches (or the stack has none), else ``(M, N_c, F)``. CPU
-    tensors take :func:`spmm_stack_bwd_reference`. One CTA owns each output
-    block and sums over every k (and branch) and stored slot itself, so the
-    result is bitwise repeatable."""
-    if not on_cuda("spmm_stack_bwd", (bss.data_t, g), (bss.idx_t,)):
+    tensors take :func:`spmm_stack_bwd_reference`. Each CTA sums one
+    support's block row over its real slots into a partial, and the
+    partials are added over k (and branches) in order, so the result is
+    bitwise repeatable."""
+    if not on_cuda("spmm_stack_bwd", (bss.data_t, g), (bss.idx_t, bss.nblk_t, bss.row_order_t)):
         return spmm_stack_bwd_reference(bss, g, shared=shared)
-    lead, K = _lead(bss), bss.n_supports
+    lead = _lead(bss)
     L = math.prod(lead)
     per_branch = len(lead) == 2 and not shared
     O = lead[0] if per_branch else 1
     shape = ((O,) if per_branch else ()) + (bss.n_cols, g.shape[-1])
     dx = torch.empty(shape, device=g.device, dtype=torch.float32)
-    _launch("spmm_stack_bwd", 1, bss.data_t, bss.idx_t, g, dx, O=O, S=L // O, tile=bss.tile,
-            n_src_rows=bss.n_rows, src_stride=bss.n_rows * g.shape[-1])
+    _launch("spmm_stack_bwd", 1, bss.data_t, bss.idx_t, bss.nblk_t, bss.row_order_t, g, dx,
+            S=L // O,
+            tile=bss.tile, n_src_rows=bss.n_rows, src_stride=bss.n_rows * g.shape[-1])
     with _COUNT_LOCK:
         spmm_stack_bwd.launches += 1
     return dx
@@ -393,11 +464,12 @@ def spmm_stack_bwd(bss: BlockSparseStack, g: torch.Tensor, *, shared: bool) -> t
 def block_spmm(bs: BlockSparse, x: torch.Tensor, *, transpose: bool = False) -> torch.Tensor:
     """B5, or :func:`spmm_reference` for CPU tensors: ``A @ x`` (``A^T @
     x`` with ``transpose``) for ``x`` ``(N, F)``."""
-    data, idx = (bs.data_t, bs.idx_t) if transpose else (bs.data, bs.idx)
-    if not on_cuda("spmm", (data, x), (idx,)):
+    data, idx, nblk, order = ((bs.data_t, bs.idx_t, bs.nblk_t, bs.row_order_t) if transpose
+                              else (bs.data, bs.idx, bs.nblk, bs.row_order))
+    if not on_cuda("spmm", (data, x), (idx, nblk, order)):
         return spmm_reference(bs, x, transpose=transpose)
     out = torch.empty((bs.n, x.shape[-1]), device=x.device, dtype=torch.float32)
-    _launch("spmm", 2, data, idx, x, out, O=1, S=1, tile=bs.tile, n_src_rows=bs.n)
+    _launch("spmm", 2, data, idx, nblk, order, x, out, S=1, tile=bs.tile, n_src_rows=bs.n)
     with _COUNT_LOCK:
         spmm.launches += 1
     return out
@@ -462,7 +534,10 @@ def spmm(bs: BlockSparse, x: torch.Tensor) -> torch.Tensor:
         functools.partial(block_spmm, bs, transpose=True))
 
 
-#: kernel launches since the last reset (set to 0 to start a count)
+#: kernel launches since the last reset (set to 0 to start a count);
+#: ``launches_shared`` counts B3's launches on a signal shared by every
+#: support and branch (a 2-D ``x``), the rest had one signal per branch
 spmm_stack.launches = 0
+spmm_stack.launches_shared = 0
 spmm_stack_bwd.launches = 0
 spmm.launches = 0

@@ -104,8 +104,10 @@ class TiledBranchSupports:
     inv: torch.Tensor  # (N,) int32 — y = y_reordered[inv]
     data: torch.Tensor  # (K, R, C, tile, tile) f32
     idx: torch.Tensor  # (K, R, C) int32
+    nblk: torch.Tensor  # (K, R) int32 — each row's leading nonzero slots
     data_t: torch.Tensor  # (K, R, C_t, tile, tile) f32
     idx_t: torch.Tensor  # (K, R, C_t) int32
+    nblk_t: torch.Tensor  # (K, R) int32
     n: int
     tile: int
 
@@ -115,10 +117,15 @@ class TiledBranchSupports:
 
     def as_stack(self) -> BlockSparseStack:
         """This branch's blocks as the kernels' operand (square N x N in the
-        *permuted* node order — callers permute the signal)."""
+        *permuted* node order — callers permute the signal); made once, so
+        its row order is derived once."""
+        return self._stack
+
+    @functools.cached_property
+    def _stack(self) -> BlockSparseStack:
         return BlockSparseStack(
-            data=self.data, idx=self.idx, data_t=self.data_t, idx_t=self.idx_t,
-            n_rows=self.n, n_cols=self.n, tile=self.tile,
+            data=self.data, idx=self.idx, nblk=self.nblk, data_t=self.data_t,
+            idx_t=self.idx_t, nblk_t=self.nblk_t, n_rows=self.n, n_cols=self.n, tile=self.tile,
         )
 
     def to(self, device) -> "TiledBranchSupports":
@@ -131,7 +138,9 @@ class TiledSupports:
 
     ``data``/``idx`` carry a leading ``(M, K, ...)`` pair with ONE common
     block-column count across every support (and one for the transposes),
-    so all branches run in one kernel launch (:meth:`as_stack`). Indexing
+    so all branches run in one kernel launch (:meth:`as_stack`); ``nblk``
+    (``nblk_t``) counts each block row's leading nonzero slots, the rest
+    being padding that the kernels skip. Indexing
     (``plan[m]``) yields one branch's view. Occupancy accounting is derived
     on demand (:meth:`tile_stats`), never stored.
     """
@@ -140,8 +149,10 @@ class TiledSupports:
     inv: torch.Tensor  # (N,) int32
     data: torch.Tensor  # (M, K, R, C, tile, tile) f32
     idx: torch.Tensor  # (M, K, R, C) int32
+    nblk: torch.Tensor  # (M, K, R) int32
     data_t: torch.Tensor  # (M, K, R, C_t, tile, tile) f32
     idx_t: torch.Tensor  # (M, K, R, C_t) int32
+    nblk_t: torch.Tensor  # (M, K, R) int32
     n: int
     tile: int
 
@@ -173,30 +184,36 @@ class TiledSupports:
             raise TypeError(f"branch index must be an int, got {type(m)!r}")
         return TiledBranchSupports(
             perm=self.perm, inv=self.inv, data=self.data[m], idx=self.idx[m],
-            data_t=self.data_t[m], idx_t=self.idx_t[m], n=self.n, tile=self.tile,
+            nblk=self.nblk[m], data_t=self.data_t[m], idx_t=self.idx_t[m],
+            nblk_t=self.nblk_t[m], n=self.n, tile=self.tile,
         )
 
     def as_stack(self) -> BlockSparseStack:
-        """Every branch's blocks as one branch-stacked kernel operand."""
+        """Every branch's blocks as one branch-stacked kernel operand; made
+        once, so its row order is derived once."""
+        return self._stack
+
+    @functools.cached_property
+    def _stack(self) -> BlockSparseStack:
         return BlockSparseStack(
-            data=self.data, idx=self.idx, data_t=self.data_t, idx_t=self.idx_t,
-            n_rows=self.n, n_cols=self.n, tile=self.tile,
+            data=self.data, idx=self.idx, nblk=self.nblk, data_t=self.data_t,
+            idx_t=self.idx_t, nblk_t=self.nblk_t, n_rows=self.n, n_cols=self.n, tile=self.tile,
         )
 
     def to(self, device) -> "TiledSupports":
         return _moved(self, device)
 
     def tile_stats(self) -> dict:
-        """Occupancy accounting (reads block values).
+        """Occupancy accounting.
 
-        ``blocks_kept`` counts truly-nonzero forward blocks;
+        ``blocks_kept`` counts truly-nonzero forward blocks (``nblk``'s sum);
         ``blocks_dense_equivalent`` is what a dense padded plan would
         carry (``M * K * R * R``); their ratio is the density that bounds
         the support-apply FLOP win (``flops_ratio`` uses the *stored*
         ``C / R`` — what the kernels actually execute, padding included).
         """
         r = self.block_rows
-        kept = int((self.data != 0.0).any(dim=-1).any(dim=-1).sum())
+        kept = int(self.nblk.sum())
         dense_eq = self.m_graphs * self.n_supports * r * r
         return {
             "n": self.n,
@@ -240,16 +257,16 @@ def plan_tiling(dense, tile: int = TILE) -> TiledSupports:
         return max(max(int(nz.sum(axis=1).max()), 1) for row in scans for _, nz in row)
 
     def assemble(scans, c):
+        """``(data, idx, nblk)``, each stacked to ``(M, K, ...)``."""
         parts = [[_assemble_blocks(b, nz, c, tile) for b, nz in row] for row in scans]
-        data = np.stack([np.stack([d for d, _ in row]) for row in parts])
-        idx = np.stack([np.stack([i for _, i in row]) for row in parts])
-        return torch.from_numpy(data), torch.from_numpy(idx)
+        return tuple(torch.from_numpy(np.stack([np.stack([p[i] for p in row]) for row in parts]))
+                     for i in range(3))
 
-    data, idx = assemble(fwd_scan, width(fwd_scan))
-    data_t, idx_t = assemble(bwd_scan, width(bwd_scan))
+    data, idx, nblk = assemble(fwd_scan, width(fwd_scan))
+    data_t, idx_t, nblk_t = assemble(bwd_scan, width(bwd_scan))
     return TiledSupports(
-        perm=torch.from_numpy(perm), inv=torch.from_numpy(inv),
-        data=data, idx=idx, data_t=data_t, idx_t=idx_t, n=n, tile=tile,
+        perm=torch.from_numpy(perm), inv=torch.from_numpy(inv), data=data, idx=idx,
+        nblk=nblk, data_t=data_t, idx_t=idx_t, nblk_t=nblk_t, n=n, tile=tile,
     )
 
 

@@ -12,8 +12,14 @@
   float32 products summed in another order).
 - Dispatch: CPU tensors take the plain versions (no launch is counted);
   anything the CUDA kernels cannot take raises; supports get no gradient.
+- Counts: ``nblk``/``nblk_t`` mark each block row's leading slots that hold
+  a nonzero (the rest zero blocks at index 0), ``row_order``/``row_order_t``
+  list the rows by descending count and follow the counts they derive from,
+  both survive ``.to``, and the plain versions give the same result on
+  structures truncated to the counts.
 """
 
+import dataclasses
 import importlib
 
 import jax
@@ -212,8 +218,8 @@ def test_wrappers_refuse_what_the_kernels_cannot_take():
         S.stack_forward(stack, torch.ones(32, 4, device="meta"))
     out = torch.empty(1, 32, 4)
     with pytest.raises(ValueError, match="tile in"):  # no kernel for tile 8
-        S._launch("spmm_stack", 0, stack.data, stack.idx, torch.ones(32, 4), out,
-                  O=1, S=1, tile=8, n_src_rows=32)
+        S._launch("spmm_stack", 0, stack.data, stack.idx, stack.nblk, stack.row_order,
+                  torch.ones(32, 4), out, S=1, tile=8, n_src_rows=32)
 
 
 def test_place_supports_moves_every_form():
@@ -225,3 +231,73 @@ def test_place_supports_moves_every_form():
         assert type(placed) is (tuple if isinstance(form, tuple) else
                                 torch.Tensor if isinstance(form, np.ndarray) else type(form))
     assert isinstance(place_supports(forms[2], "cpu"), BlockSparseStack)
+
+
+def check_counts(data, idx, nblk, order):
+    """Every slot before ``nblk`` holds a nonzero; every slot from it on is a
+    zero block at index 0; ``order`` lists every flat row once, by
+    descending count, ties in row order."""
+    assert nblk.dtype == torch.int32 and nblk.shape == idx.shape[:-1]
+    nonzero = (data != 0).any(dim=-1).any(dim=-1)
+    real = torch.arange(idx.shape[-1]) < nblk[..., None]
+    assert nonzero[real].all()
+    assert not nonzero[~real].any() and not idx[~real].any()
+    assert order.dtype == torch.int32
+    assert torch.equal(torch.sort(order).values, torch.arange(nblk.numel(), dtype=torch.int32))
+    counts = nblk.reshape(-1)[order.long()]
+    assert (counts[:-1] >= counts[1:]).all()
+    ties = counts[:-1] == counts[1:]
+    assert (order[:-1][ties] < order[1:][ties]).all()
+
+
+def truncated(data, idx, nblk, n, tile):
+    """Each support of a flat ``(L, R, C, ...)`` structure as a BlockSparse
+    cut to its fullest row's count (its transpose left empty)."""
+    out = []
+    for d, i, nb in zip(data, idx, nblk):
+        c = max(int(nb.max()), 1)
+        out.append(S.BlockSparse(data=d[:, :c], idx=i[:, :c], nblk=nb, data_t=d[:, :c],
+                                 idx_t=i[:, :c], nblk_t=nb, n=n, tile=tile))
+    return out
+
+
+#: a ragged N against both kernel tiles; three supports of unequal reach
+COUNT_N, COUNT_SHAPES = 300, ((300, 300), (3, 300, 300))
+
+
+@pytest.mark.parametrize("tile", S.KERNEL_TILES)
+@pytest.mark.parametrize("shape", COUNT_SHAPES)
+def test_counts_mark_the_real_slots(shape, tile):
+    mats = banded(shape, 60)  # the first and last block rows reach fewer block columns
+    if len(shape) == 3:
+        mats[0] = np.eye(shape[-1])
+        built = stack_from_dense(mats, tile)
+    else:
+        built = from_dense(mats, tile)
+    check_counts(built.data, built.idx, built.nblk, built.row_order)
+    check_counts(built.data_t, built.idx_t, built.nblk_t, built.row_order_t)
+    assert (built.nblk < built.idx.shape[-1]).any()  # padding exists to skip
+    moved = built.to("cpu")
+    for name in ("nblk", "nblk_t", "row_order", "row_order_t"):
+        assert torch.equal(getattr(moved, name), getattr(built, name))
+    assert place_supports(built, "cpu").nblk is not None
+    full = dataclasses.replace(built, nblk=torch.full_like(built.nblk, built.idx.shape[-1]))
+    assert torch.equal(full.row_order, torch.arange(built.nblk.numel(), dtype=torch.int32))
+
+
+@pytest.mark.parametrize("tile", S.KERNEL_TILES)
+def test_plain_versions_equal_on_structures_truncated_to_counts(tile):
+    mats = banded((3, COUNT_N, COUNT_N), 150, seed=3)
+    mats[0] = np.eye(COUNT_N)
+    mats[1] *= np.abs(np.subtract.outer(np.arange(COUNT_N), np.arange(COUNT_N))) < 60
+    stack = stack_from_dense(mats, tile)
+    assert len({int(n.max()) for n in stack.nblk}) > 1  # supports are cut to different widths
+    x, g = torch.tensor(signal((COUNT_N, 5))), torch.tensor(signal((3, COUNT_N, 5), seed=4))
+    full, full_bwd = spmm_stack_reference(stack, x), spmm_stack_bwd_reference(stack, g, shared=True)
+    fwd = truncated(stack.data, stack.idx, stack.nblk, COUNT_N, tile)
+    bwd = truncated(stack.data_t, stack.idx_t, stack.nblk_t, COUNT_N, tile)
+    for k in range(3):
+        np.testing.assert_allclose(S.spmm_reference(fwd[k], x).numpy(), full[k].numpy(),
+                                   rtol=1e-6, atol=1e-6)
+    got_bwd = sum(S.spmm_reference(bwd[k], g[k]) for k in range(3))
+    np.testing.assert_allclose(got_bwd.numpy(), full_bwd.numpy(), rtol=1e-6, atol=1e-5)

@@ -3,7 +3,11 @@ entry points against the JAX package's.
 
 - Host plan: ``rcm_permutation`` and ``plan_tiling`` (``perm``, ``inv`` and
   the four block arrays) array-equal to the JAX ones on scrambled grids
-  with noise, at tiles 4 and 8; ``tile_stats`` equal.
+  with noise, at tiles 4 and 8; ``tile_stats`` equal. The counts of real
+  slots (``nblk``, ``nblk_t``) at the kernel tiles 64 and 128 on a ragged
+  N: they mark each block row's nonzero slots, survive ``as_stack``,
+  ``plan[m]`` and ``.to``, and the plain versions agree on the plan cut to
+  them.
 - Ops: the gathered-tiles apply, ``SparseChebGraphConv`` (stack and K-tuple
   forms) and ``TiledChebGraphConv`` (one branch; all branches in one call)
   against the JAX layers with the same parameters: forward rtol/atol 1e-5,
@@ -59,13 +63,22 @@ from stmgcn_tpu_torch.ops.chebconv import (
     TiledChebGraphConv,
     conv_cls,
 )
-from stmgcn_tpu_torch.ops.spmm import BlockSparseStack, from_dense, stack_from_dense
+from stmgcn_tpu_torch.ops.spmm import (
+    KERNEL_TILES,
+    BlockSparseStack,
+    from_dense,
+    spmm_reference,
+    spmm_stack_bwd_reference,
+    spmm_stack_reference,
+    stack_from_dense,
+)
 from stmgcn_tpu_torch.ops.tiling import (
     TiledSupports,
     gathered_tiles_apply,
     plan_tiling,
     rcm_permutation,
 )
+from test_torch_spmm import check_counts, truncated
 
 torch.set_num_threads(1)
 
@@ -469,3 +482,53 @@ def test_chip_smoke_metro_city_equals_bench_largen_city():
         np.testing.assert_array_equal(got.adjs[key], want.adjs[key], err_msg=key)
     ds = DemandDataset(got, WindowSpec(3, 1, 1, 24))
     assert ds.n_nodes == 512
+
+
+# -- the counts of real slots ---------------------------------------------------
+
+#: a ragged N (18 x 18 = 324) against both kernel tiles, with random links
+COUNT_SIDE = 18
+
+
+@pytest.mark.parametrize("tile", KERNEL_TILES)
+def test_plan_counts_mark_the_real_slots(tile):
+    plan = plan_tiling(scrambled_supports(COUNT_SIDE, noise=0.01), tile)
+    stack = plan.as_stack()
+    check_counts(plan.data, plan.idx, plan.nblk, stack.row_order)
+    check_counts(plan.data_t, plan.idx_t, plan.nblk_t, stack.row_order_t)
+    assert (plan.nblk < plan.block_cols).any()  # padding exists to skip
+    assert plan.as_stack() is stack  # one operand per plan: its row order is derived once
+    for got in (stack, plan.to("cpu")):
+        assert all(torch.equal(getattr(got, k), getattr(plan, k)) for k in ("nblk", "nblk_t"))
+    for m in range(M):
+        branch = plan[m]
+        check_counts(branch.data, branch.idx, branch.nblk, branch.as_stack().row_order)
+        check_counts(branch.data_t, branch.idx_t, branch.nblk_t, branch.as_stack().row_order_t)
+        assert torch.equal(branch.nblk, plan.nblk[m]) and torch.equal(branch.nblk_t, plan.nblk_t[m])
+        for got in (branch.as_stack(), branch.to("cpu")):
+            assert all(torch.equal(getattr(got, k), getattr(branch, k)) for k in ("nblk", "nblk_t"))
+    assert plan.tile_stats()["blocks_kept"] == int((plan.data != 0).any(-1).any(-1).sum())
+
+
+@pytest.mark.parametrize("tile", KERNEL_TILES)
+def test_plan_plain_versions_equal_when_truncated_to_counts(tile):
+    plan = plan_tiling(scrambled_supports(COUNT_SIDE, noise=0.01), tile)
+    n, K, F = plan.n, plan.n_supports, 4
+    L = M * K
+
+    def flat(t):
+        return t.reshape((L,) + tuple(t.shape[2:]))
+
+    fwd = truncated(flat(plan.data), flat(plan.idx), flat(plan.nblk), n, tile)
+    bwd = truncated(flat(plan.data_t), flat(plan.idx_t), flat(plan.nblk_t), n, tile)
+    assert min(b.data.shape[1] for b in fwd) < plan.block_cols  # some support is cut
+    x = torch.tensor(signal((M, n, F)))
+    g = torch.tensor(signal((M, K, n, F), seed=5))
+    full = spmm_stack_reference(plan.as_stack(), x)
+    full_bwd = spmm_stack_bwd_reference(plan.as_stack(), g, shared=False)
+    for m in range(M):
+        for k in range(K):
+            np.testing.assert_allclose(spmm_reference(fwd[m * K + k], x[m]).numpy(),
+                                       full[m, k].numpy(), rtol=1e-6, atol=1e-6)
+        got = sum(spmm_reference(bwd[m * K + k], g[m, k]) for k in range(K))
+        np.testing.assert_allclose(got.numpy(), full_bwd[m].numpy(), rtol=1e-6, atol=1e-5)
