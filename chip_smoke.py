@@ -23,6 +23,11 @@ Phases, each of which ends the run with a non-zero exit code on failure:
    and on the final states), plus two runs that must agree bitwise; its
    yardstick is cuDNN's forward + backward against forward (with
    residuals) + backward kernels;
+   then (3b, ``lstm_shapes``) the kernel route at shapes the kernels do not
+   take directly, H=48 (padded to 64) with L=3 and H=64 with L=5 (two
+   groups of layers), and at the main path's H=64, L=3 as the baseline, at
+   M=3 x 16,384 rows and T=12, forward and backward against the plain
+   layered route, ceil(L/4) launches each way, timed and traced;
 5. serve the ``default``-width ST-MGCN (seeded random weights, synthetic
    16x16 city) through ``Forecaster`` and ``ServingEngine``: requests of
    1, 3, 16, 64 and 100 rows and four concurrent callers, every response
@@ -69,7 +74,31 @@ Phases, each of which ends the run with a non-zero exit code on failure:
     supports (B3/B4) and the K-tuple of ``BlockSparse`` (B5), one forward
     and backward each, equal to the dense model's output and input gradient.
 
-The last three lines are the card, one JSON object describing each kernel,
+Phases 16-18 run after phase 10, before the metro city; they are the main
+path of the checkpoint slice, and the B1/B2 launch counts of the last line
+are theirs (16 and 17):
+
+16. ``checkpoints``: the flagship at the bench point trains two epochs
+    writing best, best-k, latest and latest.prev, and a mid-epoch latest
+    every 5 steps; ``test()`` reads ``best.ckpt``; a second trainer
+    restores the first mid-epoch file, re-enters the epoch and must end
+    with the first run's losses and parameters; each file's bytes, the
+    serialize, write and read seconds and the resume's time to its first
+    step are printed;
+17. ``serve_checkpoint``: ``Forecaster.from_checkpoint(best.ckpt)`` on the
+    card → ``ServingEngine``, equal to the trainer's evaluation of the same
+    parameters; ``watch_checkpoints`` swaps in the checkpoint a further
+    epoch writes while four callers keep requesting (one generation per
+    response, the new one after the poll), and quarantines a truncated
+    ``latest.ckpt`` without moving the generation;
+18. ``cli``: ``python -m stmgcn_tpu_torch.cli`` in subprocesses on the card:
+    train the smoke preset, ``--test-only``, ``--resume``, and a bare
+    ``--resume`` with nothing to resume, which exits 1.
+
+Checkpoints go to a temporary directory that the run removes.
+
+The last three lines are the card, one JSON object describing each kernel
+(B1's and B2's records carry phase 3b's shapes as ``route_shapes``),
 and ``{"ok": true, "device": {...}}``. There is no CPU mode: without a CUDA
 device the script exits non-zero before printing any result.
 """
@@ -80,8 +109,11 @@ import dataclasses
 import importlib
 import json
 import math
+import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 
@@ -133,6 +165,10 @@ PEAK_BYTES_PER_S = 3.35e12
 TF32_PASSES = 3
 #: the mma.sync probe: rounds of 16 products per warp, 8 warps per CTA
 MMA_PROBE_ITERS = 4000
+#: checkpoints phase: latest.ckpt every CKPT_EVERY optimizer steps (13 a
+#: dense epoch, in blocks of 4: mid-epoch writes after steps 8 and 13), and
+#: the CKPT_TOP_K best snapshots kept; the CLI phase's smoke city length
+CKPT_EVERY, CKPT_TOP_K, CLI_TIMESTEPS = 5, 2, 400
 #: the metro city of bench.py's largeN point (bench.py:1155-1235): a
 #: METRO_ROWS x 2*METRO_ROWS grid, N = 8,192, planned at tile 128; batch 2
 #: and a 3+1+1-step window as bench.py runs it. 200 timesteps give 22
@@ -164,6 +200,18 @@ MODEL_RTOL, MODEL_ATOL, GRAD_RTOL = 1e-4, 1e-5, 1e-2
 
 def fail(msg: str) -> None:
     raise SystemExit(f"chip_smoke: FAILED: {msg}")
+
+
+_SCRATCH: list = []
+
+
+def scratch(name: str) -> str:
+    """A directory path for one phase's files (checkpoints), under one
+    temporary root that ``main`` removes at the end; nothing is written
+    into the checkout."""
+    if not _SCRATCH:
+        _SCRATCH.append(tempfile.mkdtemp(prefix="chip_smoke-"))
+    return os.path.join(_SCRATCH[0], name)
 
 
 def card_line() -> str:
@@ -532,6 +580,104 @@ def check_lstm_bwd_kernel(device) -> dict:
     }
 
 
+#: the LSTM route at shapes the kernels do not take directly (C1): H padded
+#: up to a kernel width, and more than four layers in groups of four; the
+#: main path's own shape first, the route's baseline (no padding, one group)
+ROUTE_SHAPES = ((64, 3), (48, 3), (64, 5))
+
+
+def check_lstm_shapes(device):
+    """Phase 3b: the kernel route (``StackedLSTM.fused``: H padded up to a
+    kernel width, layers in groups of at most four) at H=48, L=3 and H=64,
+    L=5, and at the main path's H=64, L=3 as the baseline, at M=3 x 16,384
+    rows and T=12, forward and backward, against the plain layered route on
+    the same weights and cotangents (phases 3 and 4's tolerances: outputs and the
+    input gradient elementwise, the weight gradients normwise), with
+    ceil(L/4) launches of each kernel per forward and backward, the times
+    of both routes, and a trace of the route's forward and forward +
+    backward: the kernels' device time against the rest (the hoisted
+    projections, padding, slicing). Returns one entry for B1's record and
+    one for B2's per shape."""
+    import torch
+
+    from stmgcn_tpu_torch.ops.fused_lstm import KERNEL_MAX_LAYERS, kernel_width
+    from stmgcn_tpu_torch.ops.lstm import StackedLSTM
+
+    M, R, T = 3, BATCH * GRID * GRID, SERIAL + 2
+    fwd_entries, bwd_entries = [], []
+    for H, L in ROUTE_SHAPES:
+        groups = -(-L // KERNEL_MAX_LAYERS)
+        lstm = StackedLSTM(1, H, L, branches=M, device=device,
+                           generator=torch.Generator().manual_seed(H + L))
+        g = torch.Generator(device=device).manual_seed(H * L)
+        x = torch.randn(M, R, T, 1, generator=g, device=device) * 2.0
+        g_out = torch.randn(M, R, T, H, generator=g, device=device)
+        g_fin = [(torch.randn(M, R, H, generator=g, device=device),
+                  torch.randn(M, R, H, generator=g, device=device)) for _ in range(L)]
+
+        def run(route):
+            lstm.zero_grad(set_to_none=True)
+            xg = x.clone().requires_grad_(True)
+            out, finals = getattr(lstm, route)(xg)
+            loss = (out * g_out).sum() + sum((h * gh).sum() + (c * gc).sum()
+                                             for (h, c), (gh, gc) in zip(finals, g_fin))
+            loss.backward()
+            outs = [out.detach()] + [t.detach() for hc in finals for t in hc]
+            grads = {n: p.grad for n, p in lstm.named_parameters()}
+            return outs, xg.grad, grads
+
+        reset_counts()
+        got_out, got_dx, got_grads = run("fused")
+        counts = read_counts()
+        if (counts["B1"], counts["B2"]) != (groups, groups):
+            fail(f"LSTM route H={H} L={L}: {counts['B1']} forward and {counts['B2']} backward "
+                 f"launches, expected {groups} each")
+        want_out, want_dx, want_grads = run("layered")
+        torch.cuda.synchronize()
+        what = f"LSTM route H={H} L={L} (kernel width {kernel_width(H)}, {groups} group(s))"
+        err_fwd = max_err(got_out, want_out, KERNEL_RTOL, KERNEL_ATOL, f"{what} forward")
+        err_bwd = max_err([got_dx], [want_dx], BWD_RTOL, BWD_ATOL, f"{what} input gradient")
+        for name, want in want_grads.items():
+            got = got_grads[name]
+            e, scale = (got - want).abs().max().item(), want.abs().max().item()
+            if not torch.isfinite(got).all() or e > WGRAD_RTOL * scale:
+                fail(f"{what} {name} gradient: max |err| {e:.3e} over {WGRAD_RTOL} x max "
+                     f"|want| {scale:.3e}")
+            err_bwd = max(err_bwd, e)
+        del got_out, want_out, got_dx, want_dx, got_grads, want_grads
+
+        with torch.no_grad():
+            ms = cuda_ms(lambda: lstm.fused(x), iters=10)
+            plain_ms = cuda_ms(lambda: lstm.layered(x), iters=3)
+        fwd_bwd_ms = cuda_ms(lambda: run("fused"), iters=5)
+        plain_fwd_bwd_ms = cuda_ms(lambda: run("layered"), iters=2)
+        with torch.no_grad():
+            wall, dev = profiled(lambda: lstm.fused(x), iters=5)
+        shares(f"LSTM route H={H} L={L}, per forward", wall, dev,
+               {"B1 forward": LSTM_PARTS["B1 forward"]})
+        wall, dev = profiled(lambda: run("fused"), iters=3)
+        shares(f"LSTM route H={H} L={L}, per forward + backward", wall, dev, LSTM_PARTS)
+        flops = M * R * T * (2 * H * 4 * H + (L - 1) * 2 * (2 * H) * (4 * H))
+        n_bytes = 4 * (M * R * T * 4 * H + sum(p.numel() for p in lstm.parameters())
+                       + M * R * T * H + 2 * M * L * R * H)
+        bound = route_bounds(flops, n_bytes)
+        print(f"{what}: forward max |err| {err_fwd:.3e} (rtol {KERNEL_RTOL}, atol "
+              f"{KERNEL_ATOL}), backward max |err| {err_bwd:.3e} (input gradient rtol "
+              f"{BWD_RTOL}, atol {BWD_ATOL}; weight gradients {WGRAD_RTOL} x their max) "
+              f"against the layered plain route at M={M} R={R} T={T}; launches B1 "
+              f"{counts['B1']}, B2 {counts['B2']} per forward + backward; times (ms, CUDA "
+              f"events, mean): route forward {ms:.4f} vs plain {plain_ms:.4f}, forward + "
+              f"backward {fwd_bwd_ms:.4f} vs plain {plain_fwd_bwd_ms:.4f}; forward "
+              f"{bounds_text(bound, flops, n_bytes, ms)}")
+        fwd_entries.append({"H": H, "L": L, "launches": counts["B1"], "max_abs_err": err_fwd,
+                            "ms": ms, "plain_ms": plain_ms, **bound})
+        bwd_entries.append({"H": H, "L": L, "launches": counts["B2"], "max_abs_err": err_bwd,
+                            "fwd_bwd_ms": fwd_bwd_ms, "plain_fwd_bwd_ms": plain_fwd_bwd_ms})
+        del lstm
+        torch.cuda.empty_cache()
+    return fwd_entries, bwd_entries
+
+
 #: kernel-name pieces in a profiler trace, by the kernel whose share they
 #: are: B1 is one kernel, B2 its reverse sweep, its split-K weight-gradient
 #: product (which also sums db) and the fixed-order reduce of the partials
@@ -704,6 +850,7 @@ def flagship_config(batch: int):
     cfg.data.rows, cfg.data.serial_len = GRID, SERIAL
     cfg.train.batch_size, cfg.train.epochs = batch, EPOCHS
     cfg.train.steps_per_superstep = SUPERSTEP
+    cfg.train.out_dir = scratch(f"dense_batch{batch}")
     return cfg
 
 
@@ -870,6 +1017,260 @@ def trace_training(trainer, parts, what: str, steps: int = 2) -> None:
     torch.cuda.synchronize()
     wall, device = profiled(lambda: trainer.train_batch(next(batches)), steps)
     shares(f"{what} (batch {trainer.batch_size}), per step", wall, device, parts, top=6)
+
+
+# -- checkpoints: train, resume, test and serve from files, the CLI -------------
+
+def checkpoint_config(out_dir: str):
+    """The flagship at the bench point, writing ``latest`` every
+    CKPT_EVERY optimizer steps and keeping CKPT_TOP_K best snapshots."""
+    cfg = flagship_config(BATCH)
+    cfg.train.out_dir = out_dir
+    cfg.train.checkpoint_every_steps, cfg.train.top_k = CKPT_EVERY, CKPT_TOP_K
+    return cfg
+
+
+def checkpoints(device, root: str):
+    """Phase 16: run A trains the flagship two epochs, writing best,
+    best_e*, latest and latest.prev (the first mid-epoch ``latest`` kept
+    aside), then ``test()`` reads ``best.ckpt``; a second trainer B in this
+    process restores the mid-epoch file, re-enters its epoch and finishes:
+    its losses agree with A's history and its parameters with A's
+    (normwise, as card vs CPU). Prints each file's bytes, the serialize,
+    write and read seconds, and the resume's time to its first step.
+    Returns trainer A (its launch counts run on from here)."""
+    import torch
+
+    from stmgcn_tpu_torch import build_trainer
+    from stmgcn_tpu_torch.train.checkpoint import load_checkpoint, write_checkpoint_bytes
+
+    a_dir, mid = os.path.join(root, "a"), os.path.join(root, "mid_epoch.ckpt")
+    a = build_trainer(checkpoint_config(a_dir), device=device, verbose=False)
+    initial = {k: v.detach().cpu().clone() for k, v in a.model.state_dict().items()}
+    kept: list = []
+    save = a._save
+
+    def save_and_keep(path):
+        data = save(path)
+        if path == a.latest_path and a._batch_in_epoch and not kept:
+            kept.append(a._batch_in_epoch)
+            write_checkpoint_bytes(mid, data)
+        return data
+
+    a._save = save_and_keep
+    history, _ = train_and_test(a, {"B1": 1}, {"B2": 1}, "checkpointed training")
+    a._save = save
+    if not kept:
+        fail("checkpointed training wrote no mid-epoch latest.ckpt")
+    files = {name: os.path.getsize(os.path.join(a_dir, name)) for name in sorted(os.listdir(a_dir))}
+    want = {"best.ckpt", "latest.ckpt", "latest.prev.ckpt"}
+    if not want <= set(files) or sum(n.startswith("best_e") for n in files) != len(a._kept):
+        fail(f"checkpointed training wrote {sorted(files)}")
+    print(f"checkpoint files after {EPOCHS} epochs (latest every {CKPT_EVERY} steps, top_k "
+          f"{CKPT_TOP_K}), bytes: " + ", ".join(f"{n} {b}" for n, b in files.items()))
+
+    t0 = time.perf_counter()
+    data = a.snapshot()
+    t1 = time.perf_counter()
+    timed = os.path.join(root, "timed.ckpt")
+    write_checkpoint_bytes(timed, data)
+    t2 = time.perf_counter()
+    load_checkpoint(timed)
+    t3 = time.perf_counter()
+    print(f"checkpoint I/O, {len(data)} bytes (host clock): serialize (device to host, "
+          f"msgpack) {t1 - t0:.4f} s, write {t2 - t1:.4f} s, read and verify {t3 - t2:.4f} s")
+
+    t0 = time.perf_counter()
+    b = build_trainer(checkpoint_config(os.path.join(root, "b")), device=device, verbose=False)
+    t1 = time.perf_counter()
+    meta = b.restore(mid)
+    first: list = []
+    step = b.train_batch
+
+    def timed_step(batch, mode="train"):
+        loss = step(batch, mode)
+        if not first:
+            torch.cuda.synchronize()
+            first.append(time.perf_counter())
+        return loss
+
+    b.train_batch = timed_step
+    resumed = b.train()
+    b.train_batch = step
+    print(f"resume from the mid-epoch latest.ckpt (epoch {meta['epoch']}, {meta['batch_in_epoch']} "
+          f"of {b.train_steps_per_epoch} batches consumed, host clock): build_trainer "
+          f"{t1 - t0:.4f} s, restore to the end of the first step {first[0] - t1:.4f} s")
+    print(f"resumed history: {json.dumps(resumed)}")
+    for mode in ("train", "validate"):
+        if not np.allclose(resumed[mode], history[mode], rtol=CPU_LOSS_RTOL, atol=0):
+            fail(f"resumed {mode} losses {resumed[mode]} vs uninterrupted {history[mode]}")
+    rel = {}
+    for k, v in b.model.state_dict().items():
+        want_k = a.model.state_dict()[k].cpu()
+        rel[k] = ((v.cpu() - want_k).norm() / (want_k - initial[k]).norm()).item()
+    worst = max(rel, key=rel.get)
+    if not rel[worst] <= CPU_UPDATE_RTOL:
+        fail(f"resumed run: {worst}'s parameters differ by {rel[worst]:.3e} of the run's update")
+    results = b.test()  # best.ckpt in B's own out_dir
+    if not all(np.isfinite(v) for r in results.values() for v in r.values()):
+        fail("resumed run: non-finite test metrics")
+    print(f"resumed run agrees with the uninterrupted one: epoch losses within rtol "
+          f"{CPU_LOSS_RTOL}, each tensor within {rel[worst]:.3e} of its update ({worst}; rtol "
+          f"{CPU_UPDATE_RTOL}); its test() from best.ckpt: " + json.dumps(results))
+    return a
+
+
+def serve_checkpoint(device, a) -> None:
+    """Phase 17: ``Forecaster.from_checkpoint(best.ckpt)`` on the card →
+    ``ServingEngine``: predictions equal to the trainer's evaluation of the
+    same parameters; then ``watch_checkpoints`` under four concurrent
+    callers while run A trains one more epoch and writes a newer
+    checkpoint: one swap, every response one generation's and equal to it,
+    responses after the poll on the new one; a truncated ``latest`` is
+    quarantined, counted in ``rejected``, and the generation stays."""
+    import torch
+
+    from stmgcn_tpu_torch import Forecaster, ServingConfig
+    from stmgcn_tpu_torch.experiment import build_model
+    from stmgcn_tpu_torch.models import from_jax_params
+    from stmgcn_tpu_torch.train.checkpoint import load_checkpoint
+
+    fc = Forecaster.from_checkpoint(a.best_path, device=device)
+    if any(p.device.type != device.type for p in fc.model.parameters()):
+        fail("Forecaster.from_checkpoint left parameters off the card")
+    ds, m = a.dataset, a.model.m_graphs
+    supports = a.supports.cpu().numpy()
+    windows = ds.denormalize(ds.arrays("test")[0])
+    best = {k: v.to(device) for k, v in
+            from_jax_params(load_checkpoint(a.best_path, load_opt_state=False)[1], m).items()}
+    evaluated = ds.denormalize(a._predict_mode("test", best)[0])
+
+    def state_forecaster(path):
+        state = from_jax_params(load_checkpoint(path, load_opt_state=False)[1], m)
+        model = build_model(fc.config, fc.derived["input_dim"], device=device)
+        return Forecaster(model, state, fc.normalizer, fc.config, fc.derived, device=device)
+
+    engine = fc.serving_engine(supports, config=ServingConfig(buckets=BUCKETS), device=device)
+    try:
+        worst = 0.0
+        for n in (1, 3, BUCKETS[-1], OVERSIZED):
+            got = engine.predict(windows[:n])
+            worst = max(worst, float(np.abs(got - evaluated[:n]).max()))
+            if not np.allclose(got, evaluated[:n], rtol=SERVE_RTOL, atol=SERVE_ATOL):
+                fail(f"served best.ckpt vs trainer evaluation, {n} rows: max |err| {worst:.3e}")
+        print(f"Forecaster.from_checkpoint(best.ckpt) on the card -> ServingEngine: requests of "
+              f"1, 3, {BUCKETS[-1]} and {OVERSIZED} rows equal the trainer's evaluation of the "
+              f"file's parameters, max |err| {worst:.3e} (rtol {SERVE_RTOL}, atol {SERVE_ATOL}, "
+              "raw units)")
+
+        watcher = engine.watch_checkpoints(a.out_dir)
+        if watcher.poll():
+            fail("the watcher swapped before any newer checkpoint landed")
+        stop, responses, errors = threading.Event(), [], []
+
+        def caller(k):
+            rows = windows[8 * k: 8 * k + 8]
+            try:
+                while not stop.is_set():
+                    t_start = time.perf_counter()
+                    out, gen = engine.predict(rows, with_generation=True)
+                    responses.append((k, t_start, gen, out))
+            except BaseException as e:  # noqa: BLE001 — reported below
+                errors.append(e)
+
+        threads = [threading.Thread(target=caller, args=(k,)) for k in range(CALLERS)]
+        for t in threads:
+            t.start()
+        a.n_epochs = EPOCHS + 1  # one more epoch: latest.ckpt (and best.ckpt if it improves)
+        a.verbose = False
+        a.train()
+        t_swap0 = time.perf_counter()
+        swapped = watcher.poll()
+        t_swap1 = time.perf_counter()
+        time.sleep(0.5)
+        stop.set()
+        for t in threads:
+            t.join(timeout=300)
+        if errors or any(t.is_alive() for t in threads):
+            fail(f"callers under the swap: errors={errors!r}")
+        if not swapped or engine.generation != 1 or watcher.swaps != 1:
+            fail(f"watcher: swapped={swapped}, generation {engine.generation}")
+        want = {0: fc, 1: state_forecaster(watcher.last_path)}
+        late = [r for r in responses if r[1] > t_swap1]
+        if not late or any(gen != 1 for _, _, gen, _ in late):
+            fail(f"{len(late)} responses after the poll, generations "
+                 f"{sorted({r[2] for r in late})}")
+        expected = {(k, g): want[g].predict(supports, windows[8 * k: 8 * k + 8])
+                    for k in range(CALLERS) for g in (0, 1)}
+        for k, _, gen, out in responses:
+            if gen not in (0, 1) or not np.allclose(out, expected[k, gen], rtol=SERVE_RTOL,
+                                                    atol=SERVE_ATOL):
+                fail(f"caller {k}: a generation-{gen} response differs from that generation")
+        if np.allclose(expected[0, 0], expected[0, 1], rtol=SERVE_RTOL, atol=SERVE_ATOL):
+            fail("the swapped checkpoint predicts what the old one did")
+        gens = [sum(r[2] == g for r in responses) for g in (0, 1)]
+        print(f"hot swap under {CALLERS} callers: {os.path.basename(watcher.last_path)} swapped "
+              f"in by poll() in {t_swap1 - t_swap0:.4f} s (host clock); {len(responses)} "
+              f"responses, {gens[0]} of generation 0 and {gens[1]} of generation 1, each equal "
+              f"to its generation's Forecaster; the {len(late)} after the poll all generation 1")
+
+        latest = a.latest_path
+        with open(latest, "rb") as f:
+            data = f.read()
+        with open(latest, "wb") as f:
+            f.write(data[: len(data) // 2])
+        later = time.time() + 5
+        os.utime(latest, (later, later))
+        if watcher.poll() or watcher.rejected != 1 or engine.generation != 1:
+            fail(f"truncated latest.ckpt: rejected {watcher.rejected}, generation "
+                 f"{engine.generation}")
+        if not os.path.exists(latest + ".corrupt"):
+            fail("truncated latest.ckpt was not quarantined")
+        if engine.predict(windows[:1], with_generation=True)[1] != 1:
+            fail("after the rejected checkpoint, responses left generation 1")
+        print("truncated latest.ckpt: quarantined as latest.ckpt.corrupt, rejected 1, the "
+              "engine stays on generation 1")
+    finally:
+        engine.close()
+    torch.cuda.synchronize()
+
+
+def cli_runs(root: str) -> None:
+    """Phase 18: ``python -m stmgcn_tpu_torch.cli`` on the card in
+    subprocesses: train the smoke preset one epoch, ``--test-only`` (the
+    same results from best.ckpt), ``--resume`` to a second epoch, and bare
+    ``--resume`` on an empty directory, which exits 1 as the reference
+    does."""
+    repo = os.path.dirname(os.path.abspath(__file__))
+    out, empty = os.path.join(root, "cli"), os.path.join(root, "cli_empty")
+    base = [sys.executable, "-m", "stmgcn_tpu_torch.cli", "--preset", "smoke",
+            "--timesteps", str(CLI_TIMESTEPS)]
+    results = {}
+    for what, args, code in (
+            ("train", ["--out-dir", out, "--epochs", "1"], 0),
+            ("test-only", ["--out-dir", out, "--test-only"], 0),
+            ("resume", ["--out-dir", out, "--epochs", "2", "--resume"], 0),
+            ("resume, nothing to resume", ["--out-dir", empty, "--resume"], 1)):
+        t0 = time.perf_counter()
+        proc = subprocess.run(base + args, cwd=repo, capture_output=True, text=True, timeout=600)
+        seconds = time.perf_counter() - t0
+        if proc.returncode != code:
+            fail(f"cli {what}: exit {proc.returncode}, expected {code}; stderr "
+                 f"{proc.stderr[-2000:]}")
+        if code == 0:
+            line = json.loads(proc.stdout.strip().splitlines()[-1])
+            results[what] = line["results"]
+            if not all(np.isfinite(v) for r in line["results"].values() for v in r.values()):
+                fail(f"cli {what}: non-finite metrics")
+        print(f"cli {what} ({' '.join(args[2:]) or 'train'}): exit {proc.returncode} in "
+              f"{seconds:.1f} s" + (f"; {proc.stderr.strip().splitlines()[-1]}" if code else ""))
+    for mode, report in results["train"].items():
+        for key, value in report.items():
+            if not math.isclose(value, results["test-only"][mode][key], rel_tol=1e-6):
+                fail(f"cli --test-only {mode} {key}: {results['test-only'][mode][key]} vs the "
+                     f"training run's {value}")
+    print("cli --test-only scored best.ckpt as the training run did: " + json.dumps(
+        results["test-only"]))
 
 
 # -- the metro city: the tiled and block-sparse path ---------------------------
@@ -1150,6 +1551,7 @@ def metro_config(mode: str):
     cfg.model.tile_size = METRO_TILE
     cfg.train.batch_size, cfg.train.epochs = METRO_BATCH, METRO_EPOCHS
     cfg.train.steps_per_superstep = SUPERSTEP
+    cfg.train.out_dir = scratch(f"metro_{mode}")
     return cfg
 
 
@@ -1233,7 +1635,8 @@ def metro_train(device, ds, dense_dev, plan_dev) -> dict:
         return Trainer(metro_model(mode, ds, device), ds, supports, lr=t.lr,
                        weight_decay=t.weight_decay, n_epochs=METRO_EPOCHS,
                        batch_size=METRO_BATCH, steps_per_superstep=SUPERSTEP,
-                       initial_state=state, device=device, verbose=False)
+                       out_dir=scratch(f"metro_{mode}"), initial_state=state,
+                       device=device, verbose=False)
 
     tiled = trainer("tiled", plan_dev)
     state = {k: v.detach().cpu().clone() for k, v in tiled.model.state_dict().items()}
@@ -1304,6 +1707,14 @@ def metro_sparse(device, ds, dense, dense_dev, plan_dev) -> int:
 
 
 def main() -> int:
+    try:
+        return run_phases()
+    finally:
+        for root in _SCRATCH:
+            shutil.rmtree(root, ignore_errors=True)
+
+
+def run_phases() -> int:
     import torch
 
     if not torch.cuda.is_available():
@@ -1327,6 +1738,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     records.append(check_lstm_bwd_kernel(device))
     torch.cuda.empty_cache()
+    records[0]["route_shapes"], records[1]["route_shapes"] = check_lstm_shapes(device)
 
     reset_counts()
     snapshot, forwards, launches = serve(device)
@@ -1347,13 +1759,29 @@ def main() -> int:
     trainer, counts = train_on_card(device)
     if counts["B1"] == 0 or counts["B2"] == 0:
         fail("the training path did not launch both LSTM kernels")
-    records[0]["launches"], records[1]["launches"] = counts["B1"], counts["B2"]
     step_times(trainer, "training step")
     card_vs_cpu(device)
     trace_training(trainer, LSTM_PARTS, "dense training")
     del trainer
     torch.cuda.empty_cache()
     print(f"dense phases done at {time.perf_counter() - t_start:.1f} s")
+
+    # the main path of the checkpoint slice: train writing checkpoints,
+    # resume, test() and serving from the files, a hot swap; counted from
+    # the reset in its first train_and_test to the read below
+    trained = checkpoints(device, scratch("checkpoints"))
+    serve_checkpoint(device, trained)
+    counts = read_counts()
+    if counts["B1"] == 0 or counts["B2"] == 0:
+        fail("the checkpoint path did not launch both LSTM kernels")
+    if any(counts[k] for k in ("B3", "B4", "B5")):
+        fail(f"the dense checkpoint path launched block-CSR kernels: {counts_text(counts)}")
+    records[0]["launches"], records[1]["launches"] = counts["B1"], counts["B2"]
+    print(f"checkpoint path (train, resume, test, serve, swap): launches {counts_text(counts)}")
+    del trained
+    torch.cuda.empty_cache()
+    cli_runs(scratch("cli"))
+    print(f"checkpoint phases done at {time.perf_counter() - t_start:.1f} s")
 
     ds, dense, plan = metro_host()
     dense_dev, plan_dev = torch.as_tensor(dense, device=device), plan.to(device)

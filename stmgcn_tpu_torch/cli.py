@@ -1,0 +1,172 @@
+"""Command line entry point of the port: train, resume and test.
+
+The main-path subset of ``stmgcn_tpu/cli.py``, with the same flags and the
+same exit behaviour; ``--device`` takes the place of ``--platform``::
+
+    python -m stmgcn_tpu_torch.cli --preset default --out-dir output
+    python -m stmgcn_tpu_torch.cli --preset default --out-dir output --resume
+    python -m stmgcn_tpu_torch.cli --preset default --out-dir output --test-only
+    python -m stmgcn_tpu_torch.cli --preset smoke --device cpu --timesteps 400 --epochs 1
+
+Training writes ``best.ckpt`` and ``latest.ckpt`` (the JAX package's format)
+into ``--out-dir``; ``--resume`` continues from the newest verified
+checkpoint there, and exits 1 when there is none (``--resume auto`` starts
+fresh instead); ``--test-only`` evaluates ``best.ckpt``. The run ends with
+one JSON line, ``{"preset": ..., "results": ...}``. A flag of the JAX CLI
+that the port lacks fails argument parsing, and a preset it lacks fails
+with ``preset()``'s error.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+
+from stmgcn_tpu_torch.config import PRESETS, preset
+
+__all__ = ["build_parser", "config_from_args", "main"]
+
+
+def _positive_int(value: str) -> int:
+    n = int(value)
+    if n < 1:
+        raise argparse.ArgumentTypeError(f"must be >= 1, got {n}")
+    return n
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        prog="stmgcn_tpu_torch",
+        description="ST-MGCN on PyTorch/CUDA: spatiotemporal multi-graph demand forecasting",
+    )
+    p.add_argument("--preset", default="default",
+                   help=f"baseline config to start from (ported: {', '.join(sorted(PRESETS))})")
+    p.add_argument("--epochs", type=int, default=None)
+    p.add_argument("--batch-size", type=int, default=None)
+    p.add_argument("--lr", type=float, default=None)
+    p.add_argument("--lr-schedule", choices=("none", "cosine"), default=None,
+                   help="constant lr or warmup + cosine decay sized to the full run")
+    p.add_argument("--warmup-epochs", type=float, default=None,
+                   help="linear warmup extent for --lr-schedule cosine")
+    p.add_argument("--min-lr-fraction", type=float, default=None,
+                   help="cosine floor as a fraction of --lr")
+    p.add_argument("--weight-decay", type=float, default=None)
+    p.add_argument("--grad-clip-norm", type=float, default=None,
+                   help="global-norm gradient clipping (off by default)")
+    p.add_argument("--loss", choices=("mse", "mae", "huber"), default=None)
+    p.add_argument("--patience", type=int, default=None)
+    p.add_argument("--top-k", type=int, default=None,
+                   help="keep the k best improvement snapshots (best_eN.ckpt) "
+                        "alongside best/latest")
+    p.add_argument("--shuffle", action="store_true", default=None,
+                   help="shuffle training batches (reference default is off)")
+    p.add_argument("--sparse", action="store_true", default=None,
+                   help="block-CSR supports for the graph convolutions")
+    p.add_argument("--seed", type=int, default=None)
+    p.add_argument("--out-dir", type=str, default=None)
+    p.add_argument("--steps-per-superstep", type=_positive_int, default=None, metavar="S",
+                   help="optimizer steps per block, with one loss readback per block")
+    p.add_argument("--normalize", choices=("minmax", "std", "none"), default=None,
+                   help="demand normalization (stats travel inside checkpoints)")
+    p.add_argument("--horizon", type=int, default=None,
+                   help="forecast steps per sample (default 1, next-step)")
+    p.add_argument("--rows", type=int, default=None,
+                   help="synthetic city grid rows (N = rows^2)")
+    p.add_argument("--timesteps", type=int, default=None,
+                   help="synthetic demand length in timesteps")
+    p.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
+                   help="where to train and test (default: the GPU; there is no "
+                        "fallback to the CPU)")
+    p.add_argument("--resume", nargs="?", const="strict", default=None,
+                   choices=("strict", "auto"),
+                   help="resume before training from the newest verified checkpoint in "
+                        "<out-dir> (latest -> rotated previous -> best snapshots; corrupt "
+                        "files are quarantined). Bare --resume errors when nothing "
+                        "resumable exists; --resume auto starts fresh instead")
+    p.add_argument("--checkpoint-every-steps", type=int, default=None, metavar="K",
+                   help="also rewrite latest.ckpt every K optimizer steps with the "
+                        "mid-epoch resume cursor (default 0: epoch boundaries only)")
+    p.add_argument("--test-only", action="store_true",
+                   help="skip training; evaluate <out-dir>/best.ckpt")
+    p.add_argument("--print-config", action="store_true",
+                   help="print the resolved config as JSON and exit")
+    return p
+
+
+#: flag attribute -> ``cfg.train`` field, as the JAX CLI maps them
+_TRAIN_FLAGS = (
+    "epochs", "batch_size", "lr", "lr_schedule", "warmup_epochs", "min_lr_fraction",
+    "weight_decay", "grad_clip_norm", "loss", "patience", "top_k", "seed", "out_dir",
+    "steps_per_superstep", "checkpoint_every_steps",
+)
+
+
+def config_from_args(args):
+    """The preset with the flags applied, as ``stmgcn_tpu/cli.py`` applies
+    them; raises ``ValueError`` for a preset the port lacks."""
+    cfg = preset(args.preset)
+    if args.horizon is not None:
+        cfg.data.horizon = args.horizon
+    if args.normalize is not None:
+        cfg.data.normalize = args.normalize
+    if args.rows is not None:
+        cfg.data.rows = args.rows
+    if args.timesteps is not None:
+        cfg.data.n_timesteps = args.timesteps
+    for field in _TRAIN_FLAGS:
+        val = getattr(args, field)
+        if val is not None:
+            setattr(cfg.train, field, val)
+    if args.shuffle:
+        cfg.train.shuffle = True
+    if args.sparse:
+        cfg.model.sparse = True
+    return cfg
+
+
+def main(argv=None) -> int:
+    args = build_parser().parse_args(sys.argv[1:] if argv is None else argv)
+    try:
+        cfg = config_from_args(args)
+    except ValueError as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 1
+    if args.print_config:
+        print(json.dumps(cfg.to_dict(), indent=2))
+        return 0
+
+    from stmgcn_tpu_torch.experiment import build_trainer  # defer the torch stack
+
+    try:
+        trainer = build_trainer(cfg, device=args.device)
+    except ValueError as e:  # configuration errors, without a traceback
+        print(f"error: {e}", file=sys.stderr)
+        return 1
+    except FileNotFoundError as e:
+        print(f"error: {e.filename or e} not found", file=sys.stderr)
+        return 1
+    try:
+        if args.resume == "auto":
+            meta = trainer.restore_auto()
+            if meta is None:
+                print("No resumable checkpoint found — starting fresh")
+            else:
+                print(f"Resumed from epoch {meta['epoch']} (best val {meta['best_val']:.5})")
+        elif args.resume:
+            meta = trainer.restore()
+            print(f"Resumed from epoch {meta['epoch']} (best val {meta['best_val']:.5})")
+        if not args.test_only:
+            trainer.train()
+        results = trainer.test(modes=("train", "test"))
+    except FileNotFoundError as e:
+        print(f"error: {e.filename or e} not found"
+              + (" — train first or check --out-dir" if args.test_only or args.resume else ""),
+              file=sys.stderr)
+        return 1
+    print(json.dumps({"preset": cfg.name, "results": results}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

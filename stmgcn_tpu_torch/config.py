@@ -116,7 +116,7 @@ class TrainConfig:
 
     The port trains on one device from the window-free resident series.
     The fields in :data:`UNPORTED` belong to features it does not have yet
-    (checkpoint files, sanitizers, fleet classes, the divergence guard,
+    (streaming placement, sanitizers, fleet classes, the divergence guard,
     bf16); setting one away from its default raises a ``ValueError`` naming
     it, so nothing is silently ignored.
     """
@@ -161,22 +161,18 @@ class TrainConfig:
     #: fields of features not ported yet, with the values the port accepts
     UNPORTED = {
         "checks": (None,),
-        "top_k": (1,),
         "prefetch": (1,),
         "data_placement": ("auto", "resident"),
         "window_free": (None, True),
         "fleet": (None, False),
         "fleet_max_classes": (8,),
         "fleet_max_pad_waste": (0.5,),
-        "async_checkpoint": (True,),
-        "checkpoint_every_steps": (0,),
         "divergence_guard": (False,),
         "divergence_action": ("skip",),
         "divergence_patience": (3,),
         "divergence_lr_cut": (None,),
         "precision": ("fp32",),
         "sr_seed": (None,),
-        "out_dir": ("output",),
     }
 
     def __post_init__(self):

@@ -153,8 +153,10 @@ def build_trainer(cfg: ExperimentConfig, *, device=None, initial_state: Optional
                   verbose: bool = True) -> Trainer:
     """The trainer for a homogeneous, single-device config in any of the
     three support modes; weights drawn from ``cfg.train.seed`` unless
-    ``initial_state`` is given. ``device=None`` means the GPU, and raises
-    without one."""
+    ``initial_state`` is given. Its checkpoints go to ``cfg.train.out_dir``
+    and carry the config and ``derived`` (``{"input_dim", "n_nodes"}``), so
+    ``Forecaster.from_checkpoint`` in either package rebuilds the model.
+    ``device=None`` means the GPU, and raises without one."""
     _check_support_route(cfg)
     if cfg.mesh.n_devices > 1:
         raise ValueError(
@@ -172,14 +174,22 @@ def build_trainer(cfg: ExperimentConfig, *, device=None, initial_state: Optional
         lr_schedule=t.lr_schedule, warmup_epochs=t.warmup_epochs,
         min_lr_fraction=t.min_lr_fraction, grad_clip_norm=t.grad_clip_norm, loss=t.loss,
         n_epochs=t.epochs, batch_size=t.batch_size, patience=t.patience, shuffle=t.shuffle,
-        seed=t.seed, steps_per_superstep=t.steps_per_superstep,
+        seed=t.seed, steps_per_superstep=t.steps_per_superstep, out_dir=t.out_dir,
+        top_k=t.top_k, async_checkpoint=t.async_checkpoint,
+        checkpoint_every_steps=t.checkpoint_every_steps,
+        extra_meta={
+            "config": cfg.to_dict(),
+            # what a checkpoint consumer needs to rebuild the model without
+            # the dataset (the JAX build_trainer's extra_meta)
+            "derived": {"input_dim": dataset.n_feats, "n_nodes": dataset.n_nodes},
+        },
         initial_state=initial_state, device=device, verbose=verbose,
     )
 
 
 def run(cfg: ExperimentConfig, *, device=None, verbose: bool = True) -> dict:
-    """Train, then test on the best parameters (the reference's
-    ``Main.py:78-88`` flow): ``{"history": ..., "results": ...}``."""
+    """Train, then test on ``best.ckpt`` (the reference's ``Main.py:78-88``
+    flow): ``{"history": ..., "results": ...}``."""
     trainer = build_trainer(cfg, device=device, verbose=verbose)
     history = trainer.train()
     return {"history": history, "results": trainer.test(modes=("train", "test"))}

@@ -12,8 +12,12 @@ model state: a dense stack, or for a metro-scale city a
 served by a model built with ``model.tiled=True``. The parameters are the
 same in every support mode, so weights trained on dense supports serve on
 a plan as they are: the port's counterpart of the JAX package's
-``to_tiled_serving`` is the identity. ``from_checkpoint`` waits for the
-checkpoint slice.
+``to_tiled_serving`` is the identity.
+
+A checkpoint of either package carries its config, the derived model
+facts and the normalizer, so serving from a fresh process is::
+
+    fc = Forecaster.from_checkpoint("output/best.ckpt")   # on the GPU
 """
 
 from __future__ import annotations
@@ -21,9 +25,14 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from stmgcn_tpu_torch.config import ExperimentConfig
+from stmgcn_tpu_torch.data.normalize import normalizer_from_dict
+from stmgcn_tpu_torch.experiment import build_model
+from stmgcn_tpu_torch.models.params import from_jax_params
 from stmgcn_tpu_torch.ops.layers import resolve_device
 from stmgcn_tpu_torch.ops.spmm import place_supports
 from stmgcn_tpu_torch.serving.predict import serve_predict
+from stmgcn_tpu_torch.train.checkpoint import load_checkpoint
 
 __all__ = ["Forecaster"]
 
@@ -47,6 +56,28 @@ class Forecaster:
         self.config = config
         self.derived = derived
         self._placed = None  # (supports as given, supports on the device)
+
+    @classmethod
+    def from_checkpoint(cls, path: str, device=None) -> "Forecaster":
+        """The model of a checkpoint file (written by either package's
+        trainer): rebuilt from its ``config`` and ``derived["input_dim"]``,
+        loaded with its parameters (the optimizer blob is skipped) and its
+        normalizer, on ``device`` (``None`` means the GPU)."""
+        meta, params, _ = load_checkpoint(path, load_opt_state=False)
+        if "config" not in meta or "derived" not in meta:
+            raise ValueError(
+                f"{path} lacks the config/derived metadata needed to rebuild "
+                "the model (was it written by a Trainer from build_trainer?)"
+            )
+        if "normalizers" in meta:
+            raise ValueError(f"{path} is a heterogeneous multi-city checkpoint; the port "
+                             "serves one city per model so far")
+        cfg = ExperimentConfig.from_dict(meta["config"])
+        normalizer = normalizer_from_dict(meta["normalizer"]) if "normalizer" in meta else None
+        device = resolve_device(device)
+        model = build_model(cfg, meta["derived"]["input_dim"], device=device)
+        state = from_jax_params(params, cfg.model.m_graphs)
+        return cls(model, state, normalizer, cfg, meta["derived"], device=device)
 
     def place(self, supports):
         """``supports`` on this forecaster's device, checked against the

@@ -13,6 +13,15 @@ the vmapped form (module ``branches`` with a leading ``M`` axis), so its
 layout is the Dense layers: flax ``kernel`` is ``(in, out)``, the port's
 ``weight`` is ``nn.Linear``'s ``(out, in)``. Conversions are exact in both
 directions (transposes and stacking only).
+
+Checkpoints carry the optimizer too, as the optax chain state the JAX
+trainer keeps (``stmgcn_tpu/train/step.py`` ``make_optimizer``): one
+entry per chained part, keyed by its index — the clip and L2 parts with
+empty states, Adam's ``{count, mu, nu}`` and, under the cosine schedule,
+the schedule's ``{count}`` (the constant ``scale`` is empty).
+:func:`to_optax_state` and :func:`from_optax_state` map Adam's moments
+through the same converter as the parameters, so a Dense kernel's moments
+are transposed with it.
 """
 
 from __future__ import annotations
@@ -20,7 +29,14 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["from_jax_params", "to_jax_params"]
+__all__ = [
+    "OPTAX_PARTS",
+    "from_jax_params",
+    "from_optax_state",
+    "jax_layout",
+    "to_jax_params",
+    "to_optax_state",
+]
 
 _VMAPPED_KEY = "branches"
 
@@ -95,3 +111,66 @@ def to_jax_params(state_dict, m_graphs: int, *, layout: str = "vmapped") -> dict
             for m in range(m_graphs):
                 flat[f"branch_{m}.{name[len(prefix):]}"] = stacked[m]
     return {"params": _nest(flat)}
+
+
+def jax_layout(support_mode: str) -> str:
+    """The branch layout the JAX package gives a model of this support
+    mode on one device: looped (``branch_m``) for sparse and tiled
+    supports, vmapped for dense ones (``stmgcn_tpu/experiment.py``
+    ``build_model``), so a checkpoint's tree matches the JAX model the
+    same config builds."""
+    return "vmapped" if support_mode == "dense" else "looped"
+
+
+#: the parts ``make_optimizer`` may chain, in chain order
+OPTAX_PARTS = ("clip", "l2", "adam", "scale", "schedule")
+
+
+def _count(value: int) -> np.ndarray:
+    return np.asarray(value, dtype=np.int32)
+
+
+def to_optax_state(parts, count: int, mu: dict, nu: dict, m_graphs: int, *,
+                   layout: str = "vmapped") -> dict:
+    """The optax chain state as flax stores it: ``{"<i>": state of part
+    i}`` over ``parts`` (names from :data:`OPTAX_PARTS`, in chain order),
+    with Adam's ``mu``/``nu`` given as ``state_dict``-keyed moment
+    tensors and ``count`` the optimizer steps taken."""
+    tree = {}
+    for i, part in enumerate(parts):
+        if part == "adam":
+            tree[str(i)] = {
+                "count": _count(count),
+                "mu": to_jax_params(mu, m_graphs, layout=layout),
+                "nu": to_jax_params(nu, m_graphs, layout=layout),
+            }
+        elif part == "schedule":
+            tree[str(i)] = {"count": _count(count)}
+        elif part in OPTAX_PARTS:
+            tree[str(i)] = {}
+        else:
+            raise ValueError(f"unknown optimizer part {part!r}")
+    return tree
+
+
+def from_optax_state(tree: dict, parts, m_graphs: int):
+    """``(count, mu, nu)`` from a stored optax chain state over ``parts``
+    (``state_dict``-keyed float32 moments, either layout); raises when the
+    stored chain is not the one ``parts`` describes."""
+    parts = tuple(parts)
+    keys = sorted(tree, key=lambda k: (len(k), k))
+    if keys != [str(i) for i in range(len(parts))]:
+        raise ValueError(f"optimizer state has entries {keys}, the chain {tuple(parts)} "
+                         f"needs {len(parts)}")
+    adam = tree[str(parts.index("adam"))]
+    for i, part in enumerate(parts):
+        want = {"adam": {"count", "mu", "nu"}, "schedule": {"count"}}.get(part, set())
+        if set(tree[str(i)]) != want:
+            raise ValueError(f"optimizer state entry {i} ({part}) holds "
+                             f"{sorted(tree[str(i)])}, expected {sorted(want)}")
+    count = int(np.asarray(adam["count"]))
+    if "schedule" in parts:
+        if int(np.asarray(tree[str(parts.index("schedule"))]["count"])) != count:
+            raise ValueError("optimizer state: the schedule's count differs from Adam's")
+    return (count, from_jax_params(adam["mu"], m_graphs),
+            from_jax_params(adam["nu"], m_graphs))

@@ -53,6 +53,7 @@ __all__ = [
     "fused_lstm_bwd_reference",
     "fused_lstm_reference",
     "kernel_library",
+    "kernel_width",
     "kernel_resources",
     "pack_weights",
     "unpack_weight_grads",
@@ -423,12 +424,89 @@ class FusedLSTM(torch.autograd.Function):
         return dxp, dwh, dwx, db
 
 
+def kernel_width(H: int) -> int:
+    """The narrowest kernel width ``Hk >= H`` of ``KERNEL_HIDDEN``: the
+    route pads H up to it. Raises past the widest; no preset of the JAX
+    package comes near (``stmgcn_tpu/config.py``: H is 32 or 64 in every
+    preset)."""
+    for width in KERNEL_HIDDEN:
+        if H <= width:
+            return width
+    raise ValueError(f"fused LSTM route: H={H} exceeds the kernels' widest hidden width "
+                     f"{KERNEL_HIDDEN[-1]}")
+
+
+def _pad_gates(t, H: int, Hk: int):
+    """Zero-pad each of the four gate blocks of the last axis, 4H -> 4Hk."""
+    return torch.nn.functional.pad(t.unflatten(-1, (4, H)), (0, Hk - H)).flatten(-2)
+
+
+def _pad_weights(w, H: int, Hk: int):
+    """``(..., H, 4H)`` -> ``(..., Hk, 4Hk)``: gate blocks and contraction
+    rows zero-padded."""
+    return torch.nn.functional.pad(_pad_gates(w, H, Hk), (0, 0, 0, Hk - H))
+
+
+def _group_operands(xp, wh_stack, wx_stack, b_stack, g0: int, g1: int):
+    """One launch's operands, for layers ``g0 .. g1-1``: layer ``g0``'s
+    input weights are hoisted into ``xp`` by the caller, so the group's
+    ``wx``/``b`` stacks hold layers ``g0+1 ..`` (an unread slab when the
+    group has one layer)."""
+    wh = wh_stack[..., g0:g1, :, :].contiguous()
+    if g1 - g0 > 1:
+        wx = wx_stack[..., g0:g1 - 1, :, :].contiguous()
+        b = b_stack[..., g0:g1 - 1, :].contiguous()
+    else:
+        wx, b = torch.zeros_like(wh_stack[..., :1, :, :]), torch.zeros_like(b_stack[..., :1, :])
+    return xp, wh, wx, b
+
+
 def fused_lstm_autograd(x_proj0, wh_stack, wx_stack, b_stack):
-    """:func:`fused_lstm` for a model: through :class:`FusedLSTM` (residuals
-    kept, backward kernel on ``.backward()``) when grad is enabled and an
-    operand requires it; otherwise the forward alone, without residuals, as
-    serving calls it. Returns ``(hs_top, h_fin, c_fin)``."""
+    """:func:`fused_lstm` for a model, at any ``H >= 1`` and ``L >= 1``:
+    through :class:`FusedLSTM` (residuals kept, backward kernel on
+    ``.backward()``) when grad is enabled and an operand requires it;
+    otherwise the forward alone, without residuals, as serving calls it.
+    Returns ``(hs_top, h_fin, c_fin)``.
+
+    The kernels take ``H`` in ``KERNEL_HIDDEN`` and up to
+    ``KERNEL_MAX_LAYERS`` layers; this route takes the rest, for CPU
+    tensors (the plain versions) and CUDA tensors (the kernels) alike:
+
+    - ``H`` is padded up to :func:`kernel_width`: each gate block of
+      ``x_proj0``, the weights and the biases, and the weights' contraction
+      rows (both halves of the ``[h_below, h_prev]`` product, since the
+      stacks are padded before :func:`pack_weights` joins them). A padded
+      unit's pre-activations are 0, so it holds ``c = h = 0`` at every
+      step and its zero weights pass nothing into real units: the result
+      is exact. Outputs are sliced back, and autograd slices the
+      gradients back with them;
+    - ``L`` is cut into groups of at most ``KERNEL_MAX_LAYERS`` layers, one
+      launch each way per group: a group's top h sequence, projected
+      through the next group's first input weights (a plain matmul, as
+      layer 0's is), is that group's ``x_proj0``, and in the backward the
+      group's ``dxp`` flows back through that product into the previous
+      group's top-h cotangent.
+    """
     operands = (x_proj0, wh_stack, wx_stack, b_stack)
-    if torch.is_grad_enabled() and any(t.requires_grad for t in operands):
-        return FusedLSTM.apply(*operands)
-    return fused_lstm(*operands)
+    lead, R, T, L, H = _check_shapes(*operands)
+    Hk = kernel_width(H)
+    if Hk != H:
+        x_proj0 = _pad_gates(x_proj0, H, Hk)
+        wh_stack, wx_stack = _pad_weights(wh_stack, H, Hk), _pad_weights(wx_stack, H, Hk)
+        b_stack = _pad_gates(b_stack, H, Hk)
+    grad = torch.is_grad_enabled() and any(t.requires_grad for t in operands)
+    launch = FusedLSTM.apply if grad else fused_lstm
+    xp, h_fins, c_fins = x_proj0.contiguous(), [], []
+    for g0 in range(0, L, KERNEL_MAX_LAYERS):
+        if g0:
+            w, b = wx_stack[..., g0 - 1, :, :], b_stack[..., g0 - 1, :]
+            xp = (hs_top @ w.unsqueeze(-3) + b[..., None, None, :]).contiguous()
+        g1 = min(g0 + KERNEL_MAX_LAYERS, L)
+        hs_top, h_fin, c_fin = launch(*_group_operands(xp, wh_stack, wx_stack, b_stack, g0, g1))
+        h_fins.append(h_fin)
+        c_fins.append(c_fin)
+    if len(h_fins) > 1:
+        h_fin, c_fin = torch.cat(h_fins, dim=-3), torch.cat(c_fins, dim=-3)
+    if Hk != H:
+        hs_top, h_fin, c_fin = hs_top[..., :H], h_fin[..., :H], c_fin[..., :H]
+    return hs_top, h_fin, c_fin

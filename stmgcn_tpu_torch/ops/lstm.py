@@ -10,10 +10,13 @@ Two routes, chosen by where the input lives:
 - CUDA tensors take the kernel route (the JAX ``_pallas`` path): layer 0's
   input projection ``x @ wx_0 + b_0`` for all T steps is one matmul, and
   the whole ``T x L`` recurrence is one launch of the hand-written kernel
-  (:func:`~stmgcn_tpu_torch.ops.fused_lstm.fused_lstm`) — for every branch
-  at once when the module carries a branch axis. Under autograd it goes
-  through :class:`~stmgcn_tpu_torch.ops.fused_lstm.FusedLSTM`, whose
-  backward is one launch of the backward kernel, so every parameter gets
+  (:func:`~stmgcn_tpu_torch.ops.fused_lstm.fused_lstm`) per group of up to
+  four layers — for every branch at once when the module carries a branch
+  axis — with ``H`` padded up to a kernel width where it is not one
+  (:func:`~stmgcn_tpu_torch.ops.fused_lstm.fused_lstm_autograd`). Under
+  autograd it goes through
+  :class:`~stmgcn_tpu_torch.ops.fused_lstm.FusedLSTM`, whose backward is
+  one launch of the backward kernel per group, so every parameter gets
   its gradient;
 - CPU tensors take the layered path: per layer, the hoisted input
   projection, then a Python loop over t of ``h @ wh``.
@@ -94,8 +97,9 @@ class StackedLSTM(nn.Module):
         return inputs, final_states
 
     def fused(self, x: torch.Tensor):
-        """Kernel route: hoisted layer-0 projection + one fused launch (and
-        one backward launch under autograd)."""
+        """Kernel route: hoisted layer-0 projection + one fused launch per
+        group of up to four layers (and as many backward launches under
+        autograd)."""
         L, h4 = self.num_layers, 4 * self.hidden_dim
         wx0, _, b0 = self.layer_params(0)
         x_proj0 = x @ wx0.unsqueeze(-3) if self.branches else x @ wx0

@@ -6,7 +6,7 @@
 - :mod:`.admission` — SLO admission control and the typed errors;
 - :mod:`.engine` — :class:`ServingEngine`: bucket ladder, resident
   supports, hot-swappable params behind one ``(generation, model)``
-  reference;
+  reference, and :class:`CheckpointWatcher`, its checkpoint hot-swap;
 - :mod:`.microbatch` — the request queue coalescing concurrent callers;
 - :mod:`.metrics` — per-bucket latency, queue-wait vs device-time split,
   pad waste.
@@ -21,7 +21,7 @@ from stmgcn_tpu_torch.serving.admission import (
     ShedError,
 )
 from stmgcn_tpu_torch.serving.bucketing import pad_to_bucket, smallest_covering_bucket
-from stmgcn_tpu_torch.serving.engine import ServingEngine
+from stmgcn_tpu_torch.serving.engine import CheckpointWatcher, ServingEngine
 from stmgcn_tpu_torch.serving.metrics import EngineStats
 from stmgcn_tpu_torch.serving.microbatch import MicroBatcher
 from stmgcn_tpu_torch.serving.predict import serve_predict
@@ -29,6 +29,7 @@ from stmgcn_tpu_torch.serving.predict import serve_predict
 __all__ = [
     "AdmissionController",
     "BatcherWedged",
+    "CheckpointWatcher",
     "DeadlineExceeded",
     "DispatchError",
     "EngineStats",

@@ -23,19 +23,25 @@ Counterpart of ``stmgcn_tpu/serving/engine.py`` (``ServingEngine``):
   serves shed requests inline at a smaller rung instead, and a wedged
   batcher degrades ``predict`` to the inline path.
 
-Not ported yet: ``CheckpointWatcher``, ``from_artifact`` and the drift
-monitor.
+- **checkpoint hot-swap** — :meth:`ServingEngine.watch_checkpoints`
+  polls a training run's ``out_dir`` (:class:`CheckpointWatcher`) and
+  swaps each newer verified checkpoint in through ``swap_params``.
+
+Not ported yet: ``from_artifact`` and the drift monitor.
 """
 
 from __future__ import annotations
 
 import copy
+import os
+import threading
 import time
 from typing import Optional
 
 import numpy as np
 import torch
 
+from stmgcn_tpu_torch.models.params import from_jax_params
 from stmgcn_tpu_torch.obs.registry import REGISTRY
 from stmgcn_tpu_torch.ops.layers import resolve_device
 from stmgcn_tpu_torch.ops.spmm import place_supports
@@ -48,8 +54,9 @@ from stmgcn_tpu_torch.serving.admission import (
 from stmgcn_tpu_torch.serving.bucketing import pad_to_bucket, smallest_covering_bucket
 from stmgcn_tpu_torch.serving.metrics import EngineStats
 from stmgcn_tpu_torch.serving.microbatch import MicroBatcher
+from stmgcn_tpu_torch.train.checkpoint import load_latest_verified
 
-__all__ = ["ServingEngine"]
+__all__ = ["CheckpointWatcher", "ServingEngine"]
 
 #: bound on the re-dispatch loop that keeps multi-chunk responses on one
 #: param generation — hit only under pathological swap churn
@@ -69,6 +76,107 @@ def _bucket_program(sup_dev, device: torch.device):
     return run
 
 
+class CheckpointWatcher:
+    """Hot-swap poller: the newest verified checkpoint in ``out_dir`` →
+    ``engine.swap_params`` (the JAX package's ``CheckpointWatcher``).
+
+    It watches by mtime and only ever moves forward: a new checkpoint that
+    fails verification is quarantined by ``load_latest_verified`` and
+    counted in :attr:`rejected`, and the engine keeps serving its current
+    parameters rather than fall back to a checkpoint older than the live
+    one. ``poll()`` is one synchronous scan; with ``poll_s`` a daemon
+    thread calls it every ``poll_s`` seconds until :meth:`stop`.
+    """
+
+    #: stop() waits this long for an in-flight poll before detaching
+    JOIN_TIMEOUT_S = 5.0
+
+    def __init__(self, engine, out_dir: str, poll_s: Optional[float] = None, log=None):
+        self._engine = engine
+        self.out_dir = out_dir
+        self.swaps = 0
+        self.rejected = 0
+        self.last_path: Optional[str] = None
+        self._log = log if log is not None else (lambda msg: None)
+        # start from the present: only checkpoints written from now on swap
+        self._seen_mtime = self._newest_mtime() or -1.0
+        self._applied_mtime = self._seen_mtime
+        self._stop = threading.Event()
+        self._thread: Optional[threading.Thread] = None
+        if poll_s is not None:
+            self._thread = threading.Thread(target=self._loop, args=(float(poll_s),),
+                                            name="stmgcn-ckpt-watch", daemon=True)
+            self._thread.start()
+
+    def _newest_mtime(self) -> Optional[float]:
+        try:
+            names = os.listdir(self.out_dir)
+        except OSError:
+            return None
+        mtimes = []
+        for name in names:
+            if name.endswith(".ckpt"):
+                try:
+                    mtimes.append(os.path.getmtime(os.path.join(self.out_dir, name)))
+                except OSError:
+                    continue  # rotated away between listdir and stat
+        return max(mtimes) if mtimes else None
+
+    def _loop(self, poll_s: float) -> None:
+        while not self._stop.wait(poll_s):
+            try:
+                self.poll()
+            except Exception as e:  # one bad scan must not end hot-swapping
+                self._log(f"checkpoint watch: {type(e).__name__}: {e}")
+
+    def _reject(self) -> bool:
+        self.rejected += 1
+        REGISTRY.counter("serving.ckpt_rejected").inc()
+        return False
+
+    def poll(self) -> bool:
+        """One scan; returns True when a swap was applied."""
+        newest = self._newest_mtime()
+        if newest is None or newest <= self._seen_mtime:
+            return False
+        self._seen_mtime = newest
+        got = load_latest_verified(self.out_dir, load_opt_state=False, quarantine=True,
+                                   log=self._log)
+        if got is None:
+            return self._reject()
+        path, _, params, _ = got
+        try:
+            mtime = os.path.getmtime(path)
+        except OSError:
+            mtime = newest
+        if mtime <= self._applied_mtime:
+            # the newest file failed verification and the chain fell back to
+            # something no newer than what is already serving
+            return self._reject()
+        self._engine.swap_params(from_jax_params(params, self._engine.m_graphs))
+        self.swaps += 1
+        self.last_path = path
+        self._applied_mtime = mtime
+        return True
+
+    def stop(self, timeout_s: Optional[float] = None) -> bool:
+        """Stop polling and join the thread within ``timeout_s`` (default
+        :attr:`JOIN_TIMEOUT_S`); False when an in-flight poll outlasted it
+        (the daemon thread then ends after that poll)."""
+        self._stop.set()
+        t = self._thread
+        if t is None:
+            return True
+        t.join(self.JOIN_TIMEOUT_S if timeout_s is None else timeout_s)
+        if t.is_alive():
+            REGISTRY.counter("serving.watcher_wedged").inc()
+            self._log(f"checkpoint watch on {self.out_dir}: stop() timed out joining an "
+                      "in-flight poll")
+            return False
+        self._thread = None
+        return True
+
+
 class ServingEngine:
     """Bucket ladder + micro-batcher over one model::
 
@@ -77,6 +185,7 @@ class ServingEngine:
         pred = engine.predict_direct(history)   # bypass the queue
         pred, gen = engine.predict(history, with_generation=True)
         engine.swap_params(new_state_dict)      # atomic
+        engine.watch_checkpoints(out_dir).poll() # newer verified checkpoint in
         engine.stats.snapshot()                 # per-bucket telemetry
         engine.close()
 
@@ -109,6 +218,7 @@ class ServingEngine:
             self._run_program, self._buckets, config.max_delay_ms, self.stats,
             admission=self.admission,
         )
+        self._watcher: Optional[CheckpointWatcher] = None
         self._closed = False
 
     # -- construction ---------------------------------------------------
@@ -195,6 +305,26 @@ class ServingEngine:
         REGISTRY.counter("serving.swaps").inc()
         REGISTRY.gauge("serving.generation").set(gen + 1)
         return gen + 1
+
+    @property
+    def m_graphs(self) -> int:
+        """The served model's branch count (what a checkpoint tree needs)."""
+        return self._current[1].m_graphs
+
+    def watch_checkpoints(self, out_dir: str, *, poll_s: Optional[float] = None,
+                          log=None) -> CheckpointWatcher:
+        """Hot-swap new verified checkpoints from ``out_dir`` as they land.
+
+        ``poll_s=None`` returns a passive watcher: call its ``poll()``
+        yourself. With ``poll_s`` a daemon thread polls on that period until
+        its ``stop()`` or the engine's ``close()``. Corrupt checkpoints are
+        quarantined and never swapped in (counted in ``rejected``); the
+        engine keeps its current parameters.
+        """
+        if self._watcher is not None:
+            self._watcher.stop()
+        self._watcher = CheckpointWatcher(self, out_dir, poll_s, log)
+        return self._watcher
 
     # -- serving --------------------------------------------------------
 
@@ -331,6 +461,8 @@ class ServingEngine:
     def close(self) -> None:
         if not self._closed:
             self._closed = True
+            if self._watcher is not None:
+                self._watcher.stop()
             self._batcher.close()
 
     def __enter__(self) -> "ServingEngine":

@@ -1,7 +1,13 @@
 """Training and evaluation: the optimizer, the steps, the epoch loop and
-the metrics (counterpart of ``stmgcn_tpu/train``, fp32 on one device;
-checkpoint files not ported yet)."""
+the metrics, and the checkpoint files both packages read and write
+(counterpart of ``stmgcn_tpu/train``, fp32 on one device)."""
 
+from stmgcn_tpu_torch.train.checkpoint import (
+    CorruptCheckpointError,
+    load_checkpoint,
+    load_latest_verified,
+    save_checkpoint,
+)
 from stmgcn_tpu_torch.train.metrics import MAE, MAPE, MSE, PCC, RMSE, regression_report
 from stmgcn_tpu_torch.train.step import (
     LOSSES,
@@ -15,6 +21,7 @@ from stmgcn_tpu_torch.train.step import (
 from stmgcn_tpu_torch.train.trainer import Trainer
 
 __all__ = [
+    "CorruptCheckpointError",
     "LOSSES",
     "MAE",
     "MAPE",
@@ -25,8 +32,11 @@ __all__ = [
     "Trainer",
     "eval_step",
     "gather_window_batch",
+    "load_checkpoint",
+    "load_latest_verified",
     "make_optimizer",
     "masked_loss",
     "regression_report",
+    "save_checkpoint",
     "train_step",
 ]

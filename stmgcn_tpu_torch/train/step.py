@@ -26,6 +26,8 @@ from typing import Callable, Optional
 
 import torch
 
+from stmgcn_tpu_torch.models.params import from_optax_state, to_optax_state
+
 __all__ = [
     "LOSSES",
     "Optimizer",
@@ -102,13 +104,20 @@ class Optimizer:
     """Adam with L2 regularization, clipping and a schedule, with optax's
     semantics (see the module docstring). ``step()`` takes the parameters'
     ``.grad``; a parameter without one steps on a zero gradient, as under
-    ``jax.grad`` (its L2 term still applies)."""
+    ``jax.grad`` (its L2 term still applies).
+
+    ``parts`` names the optax chain this optimizer stands for, in chain
+    order (``models/params.py`` ``OPTAX_PARTS``): checkpoints store the
+    state per part, as the JAX package does (:meth:`state_tree`,
+    :meth:`load_state_tree`)."""
 
     def __init__(self, params, lr: float, weight_decay: float,
-                 schedule: Callable[[int], float], grad_clip_norm: Optional[float]):
+                 schedule: Callable[[int], float], grad_clip_norm: Optional[float],
+                 parts: tuple):
         self.params = list(params)
         self.schedule = schedule
         self.grad_clip_norm = grad_clip_norm
+        self.parts = tuple(parts)
         #: optimizer steps taken (optax's ``count``: the schedule's input)
         self.count = 0
         self.adam = torch.optim.Adam(self.params, lr=schedule(0), betas=(0.9, 0.999),
@@ -128,6 +137,41 @@ class Optimizer:
         self.adam.step()
         self.count += 1
 
+    def state_tree(self, names, m_graphs: int, layout: str = "vmapped") -> dict:
+        """The optax chain state as the JAX package checkpoints it, with
+        ``names`` the ``state_dict`` names of ``self.params`` in order:
+        Adam's moments (zeros before the first step) become ``mu``/``nu``
+        and :attr:`count` every ``count``."""
+        mu, nu = {}, {}
+        for name, p in zip(names, self.params, strict=True):
+            st = self.adam.state.get(p, {})
+            mu[name] = st.get("exp_avg", torch.zeros_like(p))
+            nu[name] = st.get("exp_avg_sq", torch.zeros_like(p))
+        return to_optax_state(self.parts, self.count, mu, nu, m_graphs, layout=layout)
+
+    def load_state_tree(self, tree: dict, names, m_graphs: int) -> None:
+        """Install a stored optax chain state (either branch layout): Adam's
+        moments and ``step``, and :attr:`count`. Raises when the stored
+        chain, names or shapes differ from this optimizer's."""
+        count, mu, nu = from_optax_state(tree, self.parts, m_graphs)
+        names = list(names)
+        if set(mu) != set(names):
+            raise ValueError(
+                f"optimizer state: moments for {sorted(set(mu) ^ set(names))} do not "
+                "match the parameters")
+        for name, p in zip(names, self.params, strict=True):
+            if tuple(mu[name].shape) != tuple(p.shape):
+                raise ValueError(f"optimizer state: {name} is {tuple(mu[name].shape)}, the "
+                                 f"parameter {tuple(p.shape)}")
+        for name, p in zip(names, self.params):
+            if count == 0:
+                self.adam.state.pop(p, None)
+            else:
+                self.adam.state[p] = {"step": torch.tensor(float(count)),
+                                      "exp_avg": mu[name].to(p.device),
+                                      "exp_avg_sq": nu[name].to(p.device)}
+        self.count = count
+
 
 def make_optimizer(params, lr: float, weight_decay: float = 0.0, schedule: str = "none",
                    warmup_steps: int = 0, decay_steps: int = 0,
@@ -138,7 +182,10 @@ def make_optimizer(params, lr: float, weight_decay: float = 0.0, schedule: str =
     if grad_clip_norm is not None and grad_clip_norm <= 0:
         raise ValueError(f"grad_clip_norm must be > 0, got {grad_clip_norm}")
     sched = lr_schedule(lr, schedule, warmup_steps, decay_steps, min_lr_fraction)
-    return Optimizer(params, lr, weight_decay, sched, grad_clip_norm)
+    parts = (("clip",) if grad_clip_norm is not None else ()) + (
+        ("l2",) if weight_decay else ()) + (
+        "adam", "schedule" if schedule == "cosine" else "scale")
+    return Optimizer(params, lr, weight_decay, sched, grad_clip_norm, parts)
 
 
 def elementwise_loss(kind: str, pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:

@@ -1,4 +1,5 @@
-"""The training loop: epochs over the window-free resident series.
+"""The training loop: epochs over the window-free resident series, with
+checkpoints.
 
 Counterpart of ``stmgcn_tpu/train/trainer.py`` (``Trainer``) on its
 single-device, homogeneous, window-free resident path:
@@ -16,16 +17,30 @@ single-device, homogeneous, window-free resident path:
   patience and early stop, as the reference does;
 - ``test()`` reports denormalized ``regression_report``s per mode.
 
-Checkpoint files are not ported (the JAX format needs msgpack): the best
-parameters are kept as an in-memory ``state_dict`` copy, which
-``test(checkpoint="best")`` evaluates. Nothing is written to disk. Not
-ported either: streaming placement, materialized windows, fleet classes,
+Checkpoints are the JAX package's files (``train/checkpoint.py``), so
+either package resumes or serves the other's: ``best.ckpt`` on every
+improvement (and ``top_k`` ``best_e{epoch}.ckpt`` snapshots), ``latest.ckpt``
+every epoch and, with ``checkpoint_every_steps=K``, every K optimizer steps
+at block boundaries, carrying the mid-epoch resume cursor and the partial
+loss accumulators; ``latest`` rotates to ``latest.prev`` before each write.
+With ``async_checkpoint`` the state is serialized to bytes on the training
+thread and a background thread writes the file; ``flush_checkpoints()``
+waits for it and re-raises its failure. ``restore()``/``restore_auto()``
+walk the verified recovery chain and re-enter a mid-epoch checkpoint's
+epoch, skipping the batches it had consumed.
+
+Not ported: streaming placement, materialized windows, fleet classes,
 heterogeneous cities, node padding and meshes, the divergence guard and
-fault plan, health telemetry, sanitizers and bf16.
+fault plan, SIGTERM emergency checkpoints, health telemetry, sanitizers
+and bf16.
 """
 
 from __future__ import annotations
 
+import errno
+import os
+import queue
+import threading
 import time
 from typing import Optional
 
@@ -33,8 +48,15 @@ import numpy as np
 import torch
 
 from stmgcn_tpu_torch.data.splits import MODES
+from stmgcn_tpu_torch.models.params import from_jax_params, jax_layout, to_jax_params
 from stmgcn_tpu_torch.ops.layers import resolve_device
 from stmgcn_tpu_torch.ops.spmm import place_supports
+from stmgcn_tpu_torch.train.checkpoint import (
+    load_checkpoint,
+    load_latest_verified,
+    serialize_checkpoint,
+    write_checkpoint_bytes,
+)
 from stmgcn_tpu_torch.train.metrics import regression_report
 from stmgcn_tpu_torch.train.step import (
     LOSSES,
@@ -55,8 +77,11 @@ class Trainer:
     stack, a ``TiledSupports`` plan or the M per-branch block-sparse
     groups — placed on the device once, here; ``initial_state`` a
     ``state_dict`` to start from (e.g. the JAX trainer's converted initial
-    parameters, ``from_jax_params``). ``device=None`` means the GPU, and
-    raises without one. Other arguments as the JAX ``Trainer``'s.
+    parameters, ``from_jax_params``). ``out_dir`` receives the checkpoints
+    (created on the first write); ``extra_meta`` is merged into every
+    checkpoint's meta (``build_trainer`` puts the config and the derived
+    model facts there, as the JAX package does). ``device=None`` means the
+    GPU, and raises without one. Other arguments as the JAX ``Trainer``'s.
     """
 
     def __init__(self, model, dataset, supports, *, lr: float = 2e-3,
@@ -65,12 +90,19 @@ class Trainer:
                  grad_clip_norm: Optional[float] = None, loss: str = "mse",
                  n_epochs: int = 100, batch_size: int = 32, patience: int = 10,
                  shuffle: bool = False, seed: int = 0, steps_per_superstep: int = 1,
+                 out_dir: str = "output", top_k: int = 1, async_checkpoint: bool = True,
+                 checkpoint_every_steps: int = 0, extra_meta: Optional[dict] = None,
                  initial_state: Optional[dict] = None, device=None,
                  verbose: bool = True):
         if loss not in LOSSES:
             raise ValueError(f"loss must be one of {LOSSES}, got {loss!r}")
         if steps_per_superstep < 1:
             raise ValueError(f"steps_per_superstep must be >= 1, got {steps_per_superstep}")
+        if top_k < 1:
+            raise ValueError("top_k must be >= 1")
+        if checkpoint_every_steps < 0:
+            raise ValueError(
+                f"checkpoint_every_steps must be >= 0, got {checkpoint_every_steps}")
         if getattr(dataset, "heterogeneous", False) or not dataset.shared_graphs:
             raise ValueError("per-city graphs and heterogeneous cities are not ported yet")
         for mode in ("train", "validate"):
@@ -88,10 +120,19 @@ class Trainer:
         self.shuffle = shuffle
         self.seed = seed
         self.steps_per_superstep = steps_per_superstep
+        self.out_dir = out_dir
+        self.top_k = top_k
+        self.async_checkpoint = async_checkpoint
+        self.checkpoint_every_steps = checkpoint_every_steps
+        self.extra_meta = extra_meta or {}
         self.verbose = verbose
         self.model = model.to(self.device)
         if initial_state is not None:
             self.model.load_state_dict(initial_state)
+        #: the flax tree layout checkpoints use: the JAX model's for this
+        #: support mode
+        self.layout = jax_layout(self.model.support_mode)
+        self._param_names = [name for name, _ in self.model.named_parameters()]
 
         dev = self.device
         self.supports = place_supports(supports, dev)
@@ -112,20 +153,213 @@ class Trainer:
             min_lr_fraction=min_lr_fraction, grad_clip_norm=grad_clip_norm,
         )
         self.epoch = 0
+        #: optimizer steps across the whole run (survives resume)
         self.global_step = 0
         self.best_val = float("inf")
         self.patience_left = patience
-        #: the best-on-validation parameters (an in-memory copy)
-        self.best_state: Optional[dict] = None
+        self._kept: list = []  # (val_loss, -epoch, path) of the best_e*.ckpt snapshots
+        # mid-epoch resume: batches consumed in the current epoch, the skip a
+        # restored checkpoint asks for, and the epoch's loss accumulators
+        self._batch_in_epoch = 0
+        self._resume_skip = 0
+        self._epoch_losses: list = []
+        self._epoch_counts: list = []
+        self._last_cadence_step = 0
+        self._write_queue: Optional[queue.Queue] = None
+        self._writer_error: Optional[BaseException] = None
 
     @property
     def train_steps_per_epoch(self) -> int:
         return -(-self.dataset.mode_size("train") // self.batch_size)
 
+    @property
+    def best_path(self) -> str:
+        return os.path.join(self.out_dir, "best.ckpt")
+
+    @property
+    def latest_path(self) -> str:
+        return os.path.join(self.out_dir, "latest.ckpt")
+
+    @property
+    def latest_prev_path(self) -> str:
+        return os.path.join(self.out_dir, "latest.prev.ckpt")
+
     def _log(self, msg: str) -> None:
         if self.verbose:
             print(msg, flush=True)
 
+    # -- checkpoints ------------------------------------------------------
+    def _meta(self) -> dict:
+        """The JAX trainer's meta keys (``trainer.py`` ``_meta``)."""
+        meta = {
+            "epoch": self.epoch,
+            "best_val": self.best_val,
+            "patience_left": self.patience_left,
+            "seed": self.seed,
+            "kept": self._kept,
+            "global_step": self.global_step,
+            # 0 means "epoch boundary: resume at epoch + 1"
+            "batch_in_epoch": self._batch_in_epoch,
+            # (seed, shuffle, epoch) fix the data order; resume checks them
+            "shuffle": self.shuffle,
+            "steps_per_superstep": self.steps_per_superstep,
+            "precision": "fp32",
+        }
+        if self._batch_in_epoch:
+            meta["partial"] = {"losses": [float(v) for v in self._epoch_losses],
+                               "counts": [int(c) for c in self._epoch_counts]}
+        if self.dataset.normalizer is not None:
+            meta["normalizer"] = self.dataset.normalizer.to_dict()
+        meta.update(self.extra_meta)
+        return meta
+
+    def state_trees(self) -> tuple:
+        """``(params, opt_state)`` as the JAX package checkpoints them:
+        numpy flax trees in this model's layout (copied off the device)."""
+        m = self.model.m_graphs
+        params = to_jax_params(self.model.state_dict(), m, layout=self.layout)
+        return params, self.optimizer.state_tree(self._param_names, m, self.layout)
+
+    def snapshot(self) -> bytes:
+        """The current state serialized as one checkpoint file's bytes."""
+        return serialize_checkpoint(*self.state_trees(), self._meta())
+
+    def _save(self, path: str) -> bytes:
+        data = self.snapshot()
+        if path == self.latest_path:
+            # rotate first: if this write lands corrupt, latest.prev is the
+            # previous verified state and the recovery chain falls back to it
+            self._queue("rotate", path, self.latest_prev_path)
+        self._queue("write", path, data)
+        return data
+
+    @staticmethod
+    def _file_op(op: str, path: str, payload) -> None:
+        if op == "write":
+            write_checkpoint_bytes(path, payload)
+            return
+        try:
+            if op == "rotate":  # latest -> latest.prev
+                os.replace(path, payload)
+            else:  # "rm": FIFO with the writes, so a dropped snapshot stays dropped
+                os.remove(path)
+        except OSError:  # nothing to rotate or remove yet
+            pass
+
+    def _queue(self, op: str, path: str, payload=None) -> None:
+        os.makedirs(self.out_dir, exist_ok=True)
+        if not self.async_checkpoint:
+            self._file_op(op, path, payload)
+            return
+        if self._write_queue is None:
+            # bounded: each entry holds a whole serialized state, so a slow
+            # out_dir applies backpressure instead of growing host memory
+            self._write_queue = queue.Queue(maxsize=4)
+
+            def worker(jobs):
+                while True:
+                    op, path, payload = jobs.get()
+                    try:
+                        self._file_op(op, path, payload)
+                    except Exception as e:  # surfaced by flush_checkpoints
+                        self._writer_error = e
+                    finally:
+                        jobs.task_done()
+
+            threading.Thread(target=worker, args=(self._write_queue,), daemon=True,
+                             name="stmgcn-ckpt-writer").start()
+        self._write_queue.put((op, path, payload))
+
+    def flush_checkpoints(self) -> None:
+        """Block until pending checkpoint writes land; re-raise a failure."""
+        if self._write_queue is not None:
+            self._write_queue.join()
+        if self._writer_error is not None:
+            err, self._writer_error = self._writer_error, None
+            raise RuntimeError("background checkpoint write failed") from err
+
+    def _install(self, meta: dict, params: dict, opt_state) -> None:
+        """Load a checkpoint's trees into the live model and optimizer (on
+        the trainer's device) and its meta into the loop state."""
+        m = self.model.m_graphs
+        self.model.load_state_dict(from_jax_params(params, m))
+        if opt_state is not None:
+            self.optimizer.load_state_tree(opt_state, self._param_names, m)
+        self._apply_meta(meta)
+
+    def _apply_meta(self, meta: dict) -> None:
+        """The JAX trainer's ``_apply_meta``: the loop state, and for a
+        mid-epoch checkpoint the resume cursor and partial losses, refused
+        when the data order would differ."""
+        if float(meta.get("lr_scale", 1.0)) != 1.0 or meta.get("deferred"):
+            raise ValueError(
+                "checkpoint carries divergence-guard state (lr_scale / deferred "
+                "batches), which the port does not have yet; see ROADMAP.md")
+        self.epoch = meta["epoch"]
+        self.best_val = meta["best_val"]
+        self.patience_left = meta["patience_left"]
+        self._kept = [tuple(entry) for entry in meta.get("kept", [])]
+        self.global_step = int(meta.get("global_step", 0))
+        self._last_cadence_step = self.global_step
+        self._resume_skip = int(meta.get("batch_in_epoch", 0))
+        if self._resume_skip:
+            if int(meta.get("seed", self.seed)) != self.seed:
+                raise ValueError(
+                    f"mid-epoch checkpoint was written with seed {meta['seed']}, trainer "
+                    f"has seed {self.seed} — the data order would differ; resume with "
+                    "the same seed")
+            if bool(meta.get("shuffle", self.shuffle)) != self.shuffle:
+                raise ValueError(
+                    f"mid-epoch checkpoint was written with shuffle={meta['shuffle']}, "
+                    f"trainer has shuffle={self.shuffle} — the data order would differ")
+            S = int(meta.get("steps_per_superstep", self.steps_per_superstep))
+            if S != self.steps_per_superstep:
+                raise ValueError(
+                    f"mid-epoch checkpoint was written with steps_per_superstep={S}, "
+                    f"trainer has {self.steps_per_superstep} — its cursor sits on "
+                    "another block boundary")
+            if self._resume_skip > self.train_steps_per_epoch:
+                raise ValueError(
+                    f"mid-epoch resume cursor {self._resume_skip} exceeds "
+                    f"{self.train_steps_per_epoch} steps per epoch — checkpoint from a "
+                    "different data configuration?")
+            partial = meta.get("partial") or {"losses": [], "counts": []}
+            self._epoch_losses = [float(v) for v in partial["losses"]]
+            self._epoch_counts = [int(c) for c in partial["counts"]]
+        else:
+            self._epoch_losses, self._epoch_counts = [], []
+        self._batch_in_epoch = self._resume_skip
+
+    def restore(self, path: Optional[str] = None) -> dict:
+        """Load a checkpoint into the live state; returns its meta. With
+        ``path``, that file (which must verify); without, the newest
+        verified checkpoint in ``out_dir`` (:meth:`restore_auto`), raising
+        ``FileNotFoundError`` when nothing is resumable."""
+        if path is None:
+            meta = self.restore_auto()
+            if meta is None:
+                raise FileNotFoundError(errno.ENOENT, "no verified checkpoint to resume from",
+                                        self.latest_path)
+            return meta
+        self.flush_checkpoints()  # a pending write may own this path
+        meta, params, opt_state = load_checkpoint(path)
+        self._install(meta, params, opt_state)
+        return meta
+
+    def restore_auto(self) -> Optional[dict]:
+        """Resume from the newest verified checkpoint in ``out_dir`` (latest
+        -> latest.prev -> best_e* -> best, corrupt files quarantined);
+        returns its meta, or ``None`` when nothing loads."""
+        self.flush_checkpoints()
+        found = load_latest_verified(self.out_dir, log=self._log)
+        if found is None:
+            return None
+        path, meta, params, opt_state = found
+        self._install(meta, params, opt_state)
+        self._log(f"resumed from {path} (epoch {self.epoch}, step {self.global_step})")
+        return meta
+
+    # -- the loop -----------------------------------------------------------
     def batches(self, mode: str, *, shuffle: bool = False):
         """The mode's index-only batches, padded to ``batch_size``, in the
         JAX trainer's order for this epoch."""
@@ -151,15 +385,28 @@ class Trainer:
         return loss
 
     def _run_train_epoch(self) -> float:
+        """The epoch's remaining batches in blocks of S; after a mid-epoch
+        restore the first ``skip`` batches were consumed before the save."""
         batches = list(self.batches("train", shuffle=self.shuffle))
-        S = self.steps_per_superstep
-        losses, counts = [], []
-        for start in range(0, len(batches), S):
+        skip, self._resume_skip = self._resume_skip, 0
+        if skip > len(batches):
+            raise ValueError(f"resume cursor {skip} exceeds the epoch's {len(batches)} "
+                             "batches — checkpoint from a different data configuration?")
+        if skip == 0:
+            self._epoch_losses, self._epoch_counts = [], []
+        self._batch_in_epoch = skip
+        S, K = self.steps_per_superstep, self.checkpoint_every_steps
+        for start in range(skip, len(batches), S):
             block = batches[start:start + S]
             block_losses = [self.train_batch(b) for b in block]
-            losses += torch.stack(block_losses).tolist()  # one readback per block
-            counts += [b.n_real for b in block]
-        return self._weighted(losses, counts)
+            # one readback per block
+            self._epoch_losses += torch.stack(block_losses).tolist()
+            self._epoch_counts += [b.n_real for b in block]
+            self._batch_in_epoch += len(block)
+            if K and self.global_step - self._last_cadence_step >= K:
+                self._save(self.latest_path)
+                self._last_cadence_step = self.global_step
+        return self._weighted(self._epoch_losses, self._epoch_counts)
 
     def _run_eval_epoch(self, mode: str) -> float:
         losses, counts = [], []
@@ -178,34 +425,61 @@ class Trainer:
         return float(torch.tensor(losses, dtype=torch.float32) @ weights) / float(weights.sum())
 
     def train(self) -> dict:
-        """Run the epoch loop; returns ``{"train": [...], "validate": [...]}``."""
+        """Run the epoch loop; returns ``{"train": [...], "validate": [...]}``
+        for the epochs run here. Pending checkpoint writes land before it
+        returns, or before an exception leaves it."""
         history = {"train": [], "validate": []}
         self._log(f"Training starts at: {time.ctime()}")
-        for epoch in range(self.epoch + 1, self.n_epochs + 1):
+        # a mid-epoch cursor re-enters its epoch; a boundary starts the next
+        start_epoch = self.epoch + (1 if self._resume_skip == 0 else 0)
+        try:
+            self._epoch_loop(history, start_epoch)
+        except BaseException:
+            try:  # the loop's own exception stays the one raised
+                self.flush_checkpoints()
+            except Exception as flush_exc:
+                self._log(f"checkpoint flush failed during teardown: {flush_exc}")
+            raise
+        self.flush_checkpoints()
+        self._log(f"Training ends at: {time.ctime()}")
+        return history
+
+    def _epoch_loop(self, history: dict, start_epoch: int) -> None:
+        for epoch in range(start_epoch, self.n_epochs + 1):
             self.epoch = epoch
             t0 = time.time()
             train_loss = self._run_train_epoch()
             val_loss = self._run_eval_epoch("validate")
+            # the epoch is consumed: the saves below point a resume at epoch + 1
+            self._batch_in_epoch = 0
+            self._epoch_losses, self._epoch_counts = [], []
             history["train"].append(train_loss)
             history["validate"].append(val_loss)
             if val_loss <= self.best_val:  # <= : reference Model_Trainer.py:48
                 self._log(f"Epoch {epoch}, val_loss drops from {self.best_val:.5} to "
-                          f"{val_loss:.5}. Keeping the best parameters..")
+                          f"{val_loss:.5}. Updating best checkpoint..")
                 self.best_val = val_loss
                 self.patience_left = self.patience
-                self.best_state = {k: v.detach().clone()
-                                   for k, v in self.model.state_dict().items()}
+                data = self._save(self.best_path)
+                if self.top_k > 1:
+                    # best-k snapshots reuse best.ckpt's bytes; ranked by
+                    # (loss, newest first on ties) as the <= rule
+                    path = os.path.join(self.out_dir, f"best_e{epoch}.ckpt")
+                    self._queue("write", path, data)
+                    self._kept.append((val_loss, -epoch, path))
+                    self._kept.sort()
+                    while len(self._kept) > self.top_k:
+                        self._queue("rm", self._kept.pop()[2])
             else:
                 self.patience_left -= 1
                 self._log(f"Epoch {epoch}, val_loss {val_loss:.5} does not improve from "
                           f"{self.best_val:.5} (patience {self.patience_left})")
+            self._save(self.latest_path)
             self._log(f"Epoch {epoch}: train_loss {train_loss:.6g}, val_loss "
                       f"{val_loss:.6g}, {time.time() - t0:.3f} s")
             if self.patience_left == 0:
                 self._log(f"Early stopping at epoch {epoch}..")
                 break
-        self._log(f"Training ends at: {time.ctime()}")
-        return history
 
     @torch.no_grad()
     def _predict_mode(self, mode: str, state: Optional[dict] = None):
@@ -224,19 +498,17 @@ class Trainer:
 
     def test(self, modes=("train", "test"), checkpoint: Optional[str] = "best") -> dict:
         """Denormalized metrics per mode (``Model_Trainer.py:68-98``, train
-        split re-scored too). ``checkpoint="best"`` evaluates the in-memory
-        best parameters, ``None`` the live ones; checkpoint files are not
-        ported."""
-        if checkpoint == "best":
-            if self.best_state is None:
-                raise ValueError("no best parameters yet: train() first, or pass "
-                                 "checkpoint=None for the live ones")
-            state = self.best_state
-        elif checkpoint is None:
-            state = None
-        else:
-            raise ValueError(f"checkpoint={checkpoint!r}: checkpoint files are not ported "
-                             "yet; use 'best' (in memory) or None")
+        split re-scored too), with the parameters of ``out_dir/best.ckpt``
+        (``checkpoint="best"``), of the checkpoint file at a path, or the
+        live ones (``None``). The file's parameters are placed on the
+        trainer's device; the live state is left as it is."""
+        state = None
+        if checkpoint is not None:
+            path = self.best_path if checkpoint == "best" else checkpoint
+            self.flush_checkpoints()  # a pending write may own this path
+            _, params, _ = load_checkpoint(path, load_opt_state=False)
+            state = {k: v.to(self.device) for k, v in
+                     from_jax_params(params, self.model.m_graphs).items()}
         self._log(f"Testing starts at: {time.ctime()}")
         results = {}
         for mode in modes:

@@ -1,0 +1,86 @@
+"""The port's command line (``python -m stmgcn_tpu_torch.cli``) on the CPU.
+
+``main([...])`` trains a smoke-sized city into a temporary ``--out-dir``;
+``--test-only`` then scores ``best.ckpt`` exactly as the training run's own
+test did (the same file, the same arithmetic), ``--resume`` and ``--resume
+auto`` continue from it, and the exit codes follow ``stmgcn_tpu/cli.py``.
+The flags the two CLIs share reach the same config in both.
+"""
+
+import json
+
+import pytest
+import torch
+
+from stmgcn_tpu.cli import build_parser as jax_build_parser
+from stmgcn_tpu.cli import config_from_args as jax_config_from_args
+from stmgcn_tpu_torch import ExperimentConfig
+from stmgcn_tpu_torch.cli import build_parser, config_from_args, main
+
+torch.set_num_threads(1)
+
+SMALL = ["--device", "cpu", "--rows", "3", "--timesteps", "240", "--batch-size", "16"]
+
+
+def _results(capsys):
+    out = capsys.readouterr().out.strip().splitlines()
+    return json.loads(out[-1]), out
+
+
+def test_train_then_test_only_then_resume(tmp_path, capsys):
+    out_dir = str(tmp_path / "run")
+    base = ["--preset", "smoke", "--out-dir", out_dir] + SMALL
+    assert main(base + ["--epochs", "1"]) == 0
+    trained, _ = _results(capsys)
+    assert trained["preset"] == "smoke" and set(trained["results"]) == {"train", "test"}
+    assert (tmp_path / "run" / "best.ckpt").exists()
+    assert (tmp_path / "run" / "latest.ckpt").exists()
+
+    assert main(base + ["--test-only"]) == 0
+    tested, _ = _results(capsys)
+    assert tested == trained  # best.ckpt, scored again
+
+    assert main(base + ["--epochs", "2", "--resume"]) == 0
+    resumed, lines = _results(capsys)
+    assert any(line.startswith("Resumed from epoch 1") for line in lines)
+    assert "Epoch 2," in "\n".join(lines) and "Epoch 1," not in "\n".join(lines)
+
+    assert main(base + ["--epochs", "2", "--resume", "auto"]) == 0
+    again, lines = _results(capsys)
+    assert any(line.startswith("Resumed from epoch 2") for line in lines)
+    assert again == resumed  # nothing left to train: best.ckpt scored again
+
+
+def test_exit_codes_follow_the_reference(tmp_path, capsys):
+    empty = ["--preset", "smoke", "--out-dir", str(tmp_path / "empty")] + SMALL
+    assert main(empty + ["--resume"]) == 1
+    assert "not found — train first or check --out-dir" in capsys.readouterr().err
+    assert main(empty + ["--test-only"]) == 1
+    assert "best.ckpt not found" in capsys.readouterr().err
+    assert main(empty + ["--epochs", "1", "--resume", "auto"]) == 0
+    result, lines = _results(capsys)
+    assert "No resumable checkpoint found — starting fresh" in lines
+    assert main(["--preset", "scaled", "--device", "cpu"]) == 1  # preset() refuses it
+    assert "preset must be one of" in capsys.readouterr().err
+    for flag in (["--platform", "cpu"], ["--lstm-backend", "pallas"], ["--resume", "always"]):
+        with pytest.raises(SystemExit) as info:
+            main(["--preset", "smoke"] + flag)
+        assert info.value.code == 2
+    assert main(["--preset", "smoke", "--print-config", "--top-k", "3"]) == 0
+    assert json.loads(capsys.readouterr().out)["train"]["top_k"] == 3
+
+
+@pytest.mark.parametrize("flags", [
+    [],
+    ["--preset", "smoke", "--epochs", "3", "--batch-size", "8", "--lr", "0.01",
+     "--lr-schedule", "cosine", "--warmup-epochs", "0.5", "--min-lr-fraction", "0.1"],
+    ["--weight-decay", "0", "--grad-clip-norm", "2.5", "--loss", "huber", "--patience", "4",
+     "--top-k", "2", "--shuffle", "--seed", "7", "--out-dir", "runs/a"],
+    ["--steps-per-superstep", "4", "--normalize", "std", "--horizon", "3", "--rows", "6",
+     "--timesteps", "500", "--sparse", "--checkpoint-every-steps", "5"],
+])
+def test_shared_flags_reach_the_same_config(flags):
+    port = config_from_args(build_parser().parse_args(flags))
+    jax_cfg = jax_config_from_args(jax_build_parser().parse_args(flags))
+    assert port == ExperimentConfig.from_dict(jax_cfg.to_dict())
+    assert build_parser().parse_args(flags).device == "cuda"  # the card by default

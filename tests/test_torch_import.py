@@ -1,9 +1,11 @@
 """Import hygiene and device defaults of the PyTorch port.
 
-``stmgcn_tpu_torch`` imports torch and numpy only: no JAX, no flax, and
-nothing of the JAX package (whose package ``__init__``s pull JAX in). Its
-entry points default to the GPU and raise without one instead of quietly
-running on the CPU.
+``stmgcn_tpu_torch`` and ``chip_smoke.py`` import torch and numpy only: no
+JAX, flax, optax or msgpack (the card's machine has no msgpack; the
+checkpoint codec is the port's own), and nothing of the JAX package (whose
+package ``__init__``s pull JAX in). Docstrings may name them. The entry
+points default to the GPU and raise without one instead of quietly running
+on the CPU.
 """
 
 import ast
@@ -24,7 +26,8 @@ from stmgcn_tpu_torch.ops import _build
 torch.set_num_threads(1)
 
 PACKAGE = Path(stmgcn_tpu_torch.__file__).parent
-FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "stmgcn_tpu"}
+FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "msgpack", "stmgcn_tpu"}
+CHIP_SMOKE = PACKAGE.parent / "chip_smoke.py"
 
 
 def _modules():
@@ -36,7 +39,7 @@ def _modules():
 
 def test_no_file_of_the_package_imports_jax():
     found = []
-    for path, _ in _modules():
+    for path in [path for path, _ in _modules()] + [CHIP_SMOKE]:
         for node in ast.walk(ast.parse(path.read_text(), str(path))):
             if isinstance(node, ast.Import):
                 names = [alias.name for alias in node.names]

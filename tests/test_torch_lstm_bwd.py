@@ -147,6 +147,17 @@ def test_autograd_function_matches_autograd_through_plain_forward(layers, lead):
         _close(g, w)
 
 
+def _graph_nodes(fn):
+    """The names of every autograd node reachable from ``fn``."""
+    seen, todo = {}, [fn]
+    while todo:
+        node = todo.pop()
+        if node is not None and id(node) not in seen:
+            seen[id(node)] = type(node).__name__
+            todo += [n for n, _ in node.next_functions]
+    return set(seen.values())
+
+
 def test_autograd_route_keeps_serving_forward_without_grad():
     """No grad wanted: the forward alone runs (no residuals saved); grad
     wanted: the Function runs and every operand gets a gradient."""
@@ -160,7 +171,8 @@ def test_autograd_route_keeps_serving_forward_without_grad():
     assert out[0].grad_fn is None
     leaves = _leaves(ops)
     out = fused_lstm_autograd(*leaves)
-    assert type(out[0].grad_fn).__name__ == "FusedLSTMBackward"
+    # H=8 is padded up to a kernel width, so the Function sits under the slice
+    assert "FusedLSTMBackward" in _graph_nodes(out[0].grad_fn)
     out[0][:, -1].sum().backward()
     assert all(t.grad is not None and t.grad.abs().sum() > 0 for t in leaves)
 

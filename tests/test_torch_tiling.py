@@ -415,7 +415,7 @@ def test_tiled_trainer_matches_jax_trainer(tmp_path):
     jax_cfg.train.epochs, jax_cfg.train.batch_size, jax_cfg.train.shuffle = 2, 16, True
     jax_cfg.train.out_dir = str(tmp_path)
     d = jax_cfg.to_dict()
-    d["train"]["out_dir"] = "output"  # the port writes no files
+    d["train"]["out_dir"] = str(tmp_path / "port")  # its own checkpoints
     cfg = ExperimentConfig.from_dict(d)
     jax_trainer = jax_build_trainer(jax_cfg, verbose=False)
     init = from_jax_params(jax.tree.map(np.asarray, jax_trainer.params), 1)

@@ -229,7 +229,7 @@ def _configs(steps_per_superstep, out_dir):
     cfg.train.steps_per_superstep = steps_per_superstep
     cfg.train.out_dir = str(out_dir)
     port = cfg.to_dict()
-    port["train"]["out_dir"] = "output"  # the port writes no files
+    port["train"]["out_dir"] = str(out_dir / "port")  # its own checkpoints
     return cfg, ExperimentConfig.from_dict(port)
 
 
@@ -259,7 +259,7 @@ def test_trainer_matches_jax_trainer(tmp_path, steps_per_superstep):
         np.testing.assert_allclose(value.numpy(), want[name].numpy(), atol=2e-5, err_msg=name)
 
 
-def test_superstep_blocks_equal_per_step_bitwise():
+def test_superstep_blocks_equal_per_step_bitwise(tmp_path):
     """S only sets how often losses are read back: same arithmetic."""
     runs = []
     for s in (1, 4):
@@ -267,16 +267,18 @@ def test_superstep_blocks_equal_per_step_bitwise():
         cfg.data.rows, cfg.data.n_timesteps = 4, 24 * 7 + 80
         cfg.train.epochs, cfg.train.batch_size = 2, 16
         cfg.train.shuffle, cfg.train.steps_per_superstep = True, s
+        cfg.train.out_dir = str(tmp_path / f"s{s}")
         trainer = build_trainer(cfg, device="cpu", verbose=False)
         runs.append((trainer.train(), trainer.model.state_dict()))
     assert runs[0][0] == runs[1][0]
     assert all(torch.equal(v, runs[1][1][k]) for k, v in runs[0][1].items())
 
 
-def test_run_trains_and_tests_on_the_cpu():
+def test_run_trains_and_tests_on_the_cpu(tmp_path):
     cfg = preset("smoke")
     cfg.data.rows, cfg.data.n_timesteps = 4, 24 * 7 + 80
     cfg.train.epochs, cfg.train.batch_size = 2, 16
+    cfg.train.out_dir = str(tmp_path)
     out = run(cfg, device="cpu", verbose=False)
     assert len(out["history"]["train"]) == 2
     assert np.isfinite(out["history"]["validate"]).all()
@@ -284,14 +286,17 @@ def test_run_trains_and_tests_on_the_cpu():
     assert all(np.isfinite(v) for r in out["results"].values() for v in r.values())
 
 
-def test_test_needs_training_or_live_parameters():
+def test_test_needs_training_or_live_parameters(tmp_path):
+    """Before training there is no best.ckpt to read: only the live
+    parameters can be tested."""
     cfg = preset("smoke")
     cfg.data.rows, cfg.data.n_timesteps = 4, 24 * 7 + 80
+    cfg.train.out_dir = str(tmp_path)
     trainer = build_trainer(cfg, device="cpu", verbose=False)
-    with pytest.raises(ValueError, match="train"):
+    with pytest.raises(FileNotFoundError, match="best.ckpt"):
         trainer.test()
-    with pytest.raises(ValueError, match="not ported"):
-        trainer.test(checkpoint="best.ckpt")
+    with pytest.raises(FileNotFoundError, match="other.ckpt"):
+        trainer.test(checkpoint=str(tmp_path / "other.ckpt"))
     assert set(trainer.test(modes=("test",), checkpoint=None)) == {"test"}
 
 
@@ -299,8 +304,8 @@ def test_test_needs_training_or_live_parameters():
 
 @pytest.mark.parametrize("field,value", [
     ("precision", "bf16"), ("sr_seed", 3), ("fleet", True), ("divergence_guard", True),
-    ("checks", "nan"), ("checkpoint_every_steps", 5), ("top_k", 3),
-    ("data_placement", "stream"), ("window_free", False), ("out_dir", "runs/x"),
+    ("checks", "nan"), ("prefetch", 2), ("divergence_patience", 5),
+    ("data_placement", "stream"), ("window_free", False), ("fleet_max_classes", 4),
 ])
 def test_unported_train_field_raises(field, value):
     with pytest.raises(ValueError, match=f"train.{field}"):
