@@ -95,10 +95,43 @@ are theirs (16 and 17):
     train the smoke preset, ``--test-only``, ``--resume``, and a bare
     ``--resume`` with nothing to resume, which exits 1.
 
+Phases 19-25 are the bf16 slice (the kernels' bf16 forms, mixed-precision
+training, bf16 serving); 19 runs after phase 3b, 20-22 after phase 18, 23-25
+after phase 15. The bf16 kernel records' launch counts are 20's (B1, B2),
+24's (B3, B4) and 25's (B5):
+
+19. B1 and B2 in bf16 against their plain bf16 versions on the card at the
+    main path's shape (residuals on and off, a ragged row count, every H and
+    L the kernels take; B2 twice bitwise equal), timed beside the bf16 bound
+    (989 TFLOP/s or bytes), the plain version and cuDNN's ``nn.LSTM`` in
+    bf16; the bf16 kernel route at H=48 (padded) and L=5 (two groups)
+    against the CPU's plain versions; and whether ``torch.mm(..., out_dtype=torch.float32)`` runs on
+    the card with an autograd formula (the port's bf16 products take the
+    portable form, fp32 products of the bf16 values, on both devices);
+20. mixed-precision training of the dense flagship (``precision="bf16"``):
+    a twin drill against fp32 from one initial state (per-step losses within
+    1e-3, no non-finite loss or gradient, float32 parameters), both step
+    p50s, ``train()`` two epochs and ``test()``, and an ``sr_seed`` run;
+21. bf16 serving of the dense city (``model.dtype="bfloat16"``): an fp32 and
+    a bf16 engine over one set of weights, bf16 responses equal to the bf16
+    Forecaster, each rung's p50 beside fp32's, the card against the CPU port;
+22. bf16 checkpoints: meta ``precision`` bf16 over float32 masters, an exact
+    mid-epoch resume, an fp32 trainer restoring the file, and
+    ``Forecaster.from_checkpoint`` serving it in bf16;
+23. B3, B4 and B5 in bf16 against their plain versions at the metro plan,
+    timed beside the bf16 bound, the plain version and cuBLAS's bf16 product
+    with an fp32 result;
+24. the metro plan in bf16: serving (fp32 and bf16 engines, per-rung p50s,
+    card vs CPU) and a few steps of bf16 tiled training with B3 and B4's
+    launches checked;
+25. the bf16 K-tuple route (B5) at the metro city against the bf16 dense
+    model.
+
 Checkpoints go to a temporary directory that the run removes.
 
 The last three lines are the card, one JSON object describing each kernel
-(B1's and B2's records carry phase 3b's shapes as ``route_shapes``),
+form (B1's and B2's fp32 records carry phase 3b's shapes as
+``route_shapes``; the bf16 forms' records carry ``"dtype": "bfloat16"``),
 and ``{"ok": true, "device": {...}}``. There is no CPU mode: without a CUDA
 device the script exits non-zero before printing any result.
 """
@@ -110,6 +143,7 @@ import importlib
 import json
 import math
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -158,6 +192,7 @@ CPU_LOSS_RTOL, CPU_UPDATE_RTOL = 1e-5, 1e-3
 #: tensor cores, TF32 on them, and HBM3 bandwidth
 PEAK_FP32_FLOPS = 67e12
 PEAK_TF32_FLOPS = 495e12
+PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES_PER_S = 3.35e12
 #: every kernel takes its products as three TF32 passes (3xTF32) on the
 #: tensor cores: its bound is that route's, TF32_PASSES x FLOPs over the
@@ -196,6 +231,24 @@ SPMM_RTOL, SPMM_ATOL = 1e-5, 1e-5
 #: input gradient by up to 4% of its largest entry; a wrong product moves
 #: the whole gradient by O(1).
 MODEL_RTOL, MODEL_ATOL, GRAD_RTOL = 1e-4, 1e-5, 1e-2
+#: bf16 forms vs their plain bf16 versions (phases 19, 23). B1/B2: the
+#: rounding sites coincide, and the kernel's fp32 sums in another order flip
+#: a bf16 rounding of a stored state now and then (one ulp, 2^-8 relative),
+#: which the recurrence carries on: elementwise rtol 2^-6 (four ulps) plus
+#: 2^-7 of the largest entry; the weight gradients, fp32 sums of exact
+#: products over every row and step, normwise 2^-8. B3-B5 take SPMM_RTOL and
+#: SPMM_ATOL: exact bf16 products, fp32 sums.
+BF16_RTOL, BF16_ATOL_REL, BF16_WGRAD_NORM = 2.0**-6, 2.0**-7, 2.0**-8
+#: bf16 serving (phases 21, 22, 24): engine vs Forecaster, card vs CPU port,
+#: a served file vs the trainer. One bf16 model whose fp32 sums run in other
+#: orders (batch shapes, devices) and flip a bf16 rounding that the LSTM and
+#: the head carry on: within 2^-5 of the largest prediction (eight ulps);
+#: input gradients (phase 25) normwise 2^-5
+BF16_SERVE_RTOL, BF16_GRAD_RTOL = 2.0**-5, 2.0**-5
+#: the twin drill (tests/test_mixed_precision.py:84-116): bf16 per-step losses
+#: within 1e-3 of fp32's from one initial state, over the JAX drill's six
+#: steps; the sr_seed run's seed and steps; the bf16 tiled training's steps
+TWIN_STEPS, TWIN_ATOL, SR_SEED, SR_STEPS, METRO_BF16_STEPS = 6, 1e-3, 7, 4, 4
 
 
 def fail(msg: str) -> None:
@@ -222,10 +275,49 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+#: the kernels of the ptxas log by name (each source's entry points)
+_KERNEL_NAMES = ("lstm_fwd_kernel", "lstm_bwd_sweep", "lstm_bwd_wgrad", "reduce_partials",
+                 "spmm_stack_fwd_kernel", "spmm_stack_bwd_kernel", "spmm_kernel",
+                 "reduce_parts", "mma_bf16_loop", "mma_loop")
+
+
+def ptxas_table(log: str) -> dict:
+    """``{(kernel, storage, template ints): [registers, spill stores, spill
+    loads]}`` from an ``nvcc -Xptxas -v`` log (storage "F32", "BF16" or "-")."""
+    table, cur = {}, None
+    for line in log.splitlines():
+        entry = re.search(r"Compiling entry function '(\S+)'", line)
+        if entry:
+            name = entry.group(1)
+            kernel = re.search("|".join(_KERNEL_NAMES), name)
+            storage = re.search(r"lstm_mma\d(F32|BF16)E", name)
+            cur = (kernel.group(0) if kernel else name, storage.group(1) if storage else "-",
+                   tuple(int(v) for v in re.findall(r"Li(\d+)E", name)))
+            table[cur] = [None, 0, 0]
+        elif cur is not None:
+            spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            if spill:
+                table[cur][1:] = [int(spill.group(1)), int(spill.group(2))]
+            regs = re.search(r"Used (\d+) registers", line)
+            if regs:
+                table[cur][0] = int(regs.group(1))
+    return table
+
+
+#: the instantiations the main paths run (H=64, L=3; the metro plan's tile
+#: 128 at the gate conv's and graph conv's column tiles), in both storage types
+MAIN_INSTANCES = (("lstm_fwd_kernel", (64, 3)), ("lstm_bwd_sweep", (64, 3)),
+                  ("lstm_bwd_wgrad", ()), ("spmm_stack_fwd_kernel", (128, 16)),
+                  ("spmm_stack_fwd_kernel", (128, 128)), ("spmm_stack_bwd_kernel", (128, 128)),
+                  ("spmm_kernel", (128, 128)))
+
+
 def build_kernels():
-    """Phase 2: every kernel library of the port's paths and the ``mma.sync``
-    probe, one ``nvcc`` per source, all started together; ptxas's register
-    and spill lines. Returns the probe's library."""
+    """Phase 2: every kernel library of the port's paths and the two
+    ``mma.sync`` probes (TF32, bf16), one ``nvcc`` per source, all started
+    together; ptxas's registers and spills of the main paths' instantiations
+    in both storage types, and the worst over all. Returns the probes'
+    libraries (TF32, bf16)."""
     from concurrent.futures import ThreadPoolExecutor
 
     from stmgcn_tpu_torch.ops import _build
@@ -233,50 +325,68 @@ def build_kernels():
 
     spmm_library = importlib.import_module("stmgcn_tpu_torch.ops.spmm").kernel_library
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=4) as pool:
+    with ThreadPoolExecutor(max_workers=5) as pool:
         builds = [f.result() for f in [
             pool.submit(kernel_library), pool.submit(bwd_kernel_library),
             pool.submit(spmm_library),
             pool.submit(_build.load_library, [SOURCE.with_name("mma_tf32_rate.cu")],
-                        "mma_tf32_rate")]]
+                        "mma_tf32_rate"),
+            pool.submit(_build.load_library, [SOURCE.with_name("mma_bf16_rate.cu")],
+                        "mma_bf16_rate")]]
     infos = [b[-1] for b in builds]
     print(f"built {', '.join(i.path.name for i in infos)} in "
           f"{time.perf_counter() - t0:.1f} s (nvcc in parallel: "
           f"{', '.join(f'{i.seconds:.1f} s' for i in infos)})")
+    table = {}
     for info in infos:
-        for line in info.log.splitlines():
-            if "registers" in line or "spill" in line or "Compiling entry" in line:
-                print(f"  ptxas: {line.strip()}")
+        table.update(ptxas_table(info.log))
+    for storage in ("F32", "BF16"):
+        print(f"  ptxas, {storage} storage, main-path instances (registers, spill stores/loads "
+              "bytes): " + "; ".join(
+                  f"{k}<{','.join(map(str, a))}> {v[0]}, {v[1]}/{v[2]}"
+                  for (k, st, a), v in table.items()
+                  if st == storage and (k, a) in MAIN_INSTANCES))
+        mine = [v for (k, st, _), v in table.items() if st == storage]
+        print(f"  ptxas, {storage} storage, all {len(mine)} instances: at most "
+              f"{max(v[0] or 0 for v in mine)} registers, {sum(v[1] + v[2] for v in mine)} "
+              "spill bytes in all")
     from stmgcn_tpu_torch.ops.fused_lstm import KERNEL_HIDDEN, kernel_resources
     from stmgcn_tpu_torch.ops.spmm import KERNEL_TILES, kernel_plan
 
-    for tile in KERNEL_TILES:
-        print(f"  block-CSR kernels at tile {tile}, by signal width F: " + "; ".join(
-            "F={} column tile {column_tile}, 8 warps of {warp_rows}x{warp_cols}, {stages} "
-            "ring stages, {smem_bytes} bytes of dynamic shared memory".format(
-                f, **kernel_plan(tile, f))
-            for f in (10, 20, 37, 128)))
+    import torch
 
-    for h in KERNEL_HIDDEN:
-        res = [kernel_resources(layers, h) for layers in (1, 2, 3, 4)]
-        print(f"  LSTM kernels at H={h}: {res[0]['block_rows']} rows per CTA; dynamic "
-              "shared memory per CTA at L=1..4 (bytes): " + "; ".join(
-                  f"{k} {[r[k] for r in res]}" for k in
-                  ("lstm_fwd_kernel", "lstm_bwd_sweep", "lstm_bwd_wgrad")))
-    return builds[-1][0]
+    for dtype in (torch.float32, torch.bfloat16):
+        for tile in KERNEL_TILES:
+            print(f"  block-CSR kernels, {dtype}, at tile {tile}, by signal width F: " + "; ".join(
+                "F={} column tile {column_tile}, 8 warps of {warp_rows}x{warp_cols}, {stages} "
+                "ring stages, {smem_bytes} bytes of dynamic shared memory".format(
+                    f, **kernel_plan(tile, f, dtype))
+                for f in (10, 20, 37, 128)))
+        for h in KERNEL_HIDDEN:
+            res = [kernel_resources(layers, h, dtype) for layers in (1, 2, 3, 4)]
+            print(f"  LSTM kernels, {dtype}, at H={h}: {res[0]['block_rows']} rows per CTA; "
+                  "dynamic shared memory per CTA at L=1..4 (bytes): " + "; ".join(
+                      f"{k} {[r[k] for r in res]}" for k in
+                      ("lstm_fwd_kernel", "lstm_bwd_sweep", "lstm_bwd_wgrad")))
+    return builds[-2][0], builds[-1][0]
 
 
-def tensor_core_rate(probe) -> None:
+def tensor_core_rate(probes) -> None:
     """Phase 2, end: the ``mma.sync`` m16n8k8 TF32 rate, one pass and the
-    LSTM kernels' three, at one and two 8-warp CTAs per SM (CUDA events in
-    the probe), against the TF32 peak."""
+    LSTM kernels' three, and the m16n8k16 bf16 rate of the bf16 forms, at
+    one and two 8-warp CTAs per SM (CUDA events in the probes), against the
+    TF32 and bf16 peaks."""
     import ctypes
 
     import torch
 
-    fn = probe.stmgcn_mma_tf32_ms
+    tf32, bf16 = probes
+    fn = tf32.stmgcn_mma_tf32_ms
     fn.argtypes = [ctypes.c_int] * 3
     fn.restype = ctypes.c_float
+    fn16 = bf16.stmgcn_mma_bf16_ms
+    fn16.argtypes = [ctypes.c_int] * 2
+    fn16.restype = ctypes.c_float
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     for passes in (1, TF32_PASSES):
         for per_sm in (1, 2):
@@ -288,6 +398,14 @@ def tensor_core_rate(probe) -> None:
             print(f"mma.sync TF32, {passes} pass(es), {per_sm} CTA(s) x 8 warps per SM: "
                   f"{ms:.4f} ms, {rate / 1e12:.1f} TFLOP/s = {rate / PEAK_TF32_FLOPS:.3f} "
                   "of the TF32 peak")
+    for per_sm in (1, 2):
+        ms = fn16(sms * per_sm, MMA_PROBE_ITERS)
+        if ms <= 0:
+            fail("the bf16 mma.sync probe did not launch")
+        flops = sms * per_sm * 8 * 16 * MMA_PROBE_ITERS * 2 * 16 * 8 * 16
+        rate = flops / (ms * 1e-3)
+        print(f"mma.sync bf16 m16n8k16, {per_sm} CTA(s) x 8 warps per SM: {ms:.4f} ms, "
+              f"{rate / 1e12:.1f} TFLOP/s = {rate / PEAK_BF16_FLOPS:.3f} of the bf16 peak")
 
 
 def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
@@ -1649,12 +1767,12 @@ def metro_train(device, ds, dense_dev, plan_dev) -> dict:
     return counts
 
 
-def metro_sparse(device, ds, dense, dense_dev, plan_dev) -> int:
+def metro_sparse(device, ds, dense, dense_dev, plan_dev):
     """Phase 15: the block-sparse mode (per-branch ``BlockSparseStack``,
     B3/B4) and the K-tuple of ``BlockSparse`` (B5), plus the tiled plan
     with an input gradient (B4 on the shared gate signal): one forward and
     backward each against the dense model's output and input gradient.
-    Returns the K-tuple run's B5 launches."""
+    Returns the K-tuple run's B5 launches and the K-tuples."""
     import torch
 
     S = importlib.import_module("stmgcn_tpu_torch.ops.spmm")
@@ -1703,7 +1821,746 @@ def metro_sparse(device, ds, dense, dense_dev, plan_dev) -> int:
               f"{ref_grad.abs().max().item():.3e}) vs the dense model; launches "
               f"{counts_text(counts)}")
         runs[what] = counts
-    return runs["K-tuples of BlockSparse"]["B5"]
+    return runs["K-tuples of BlockSparse"]["B5"], ktuples
+
+
+# -- bf16: the kernels' bf16 forms, mixed-precision training, bf16 serving ------
+
+def bf16_bounds(flops: float, n_bytes: float) -> dict:
+    """A bf16 form's bound (ms): its products at the bf16 tensor-core peak
+    or its bytes over the HBM rate, the larger."""
+    t_ops = flops / PEAK_BF16_FLOPS * 1e3
+    t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
+    return {"bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+
+
+def bf16_bounds_text(bound: dict, flops: float, n_bytes: float, ms: float) -> str:
+    return (f"bound (bf16 tensor cores at {PEAK_BF16_FLOPS / 1e12:.0f} TFLOP/s, or bytes) "
+            f"{bound['bound_ms']:.4f} ({bound['bound_by']}; {flops / 1e9:.2f} GFLOP, "
+            f"{n_bytes / 1e6:.1f} MB) = {bound['bound_ms'] / ms:.3f} of the kernel's time")
+
+
+def bf16_err(got, want, what: str) -> float:
+    """Elementwise within BF16_RTOL plus BF16_ATOL_REL of the largest
+    |want|, after both are taken to float32; returns max |got - want|."""
+    import torch
+
+    err = 0.0
+    for a, b in zip(got, want):
+        a, b = a.float(), b.float()
+        if a.shape != b.shape or not torch.isfinite(a).all():
+            fail(f"{what}: shape {tuple(a.shape)} vs {tuple(b.shape)} or non-finite")
+        scale = b.abs().max().item()
+        err = max(err, (a - b).abs().max().item())
+        if not torch.allclose(a, b, rtol=BF16_RTOL, atol=BF16_ATOL_REL * scale):
+            fail(f"{what}: max |err| {err:.3e} over rtol {BF16_RTOL} + {BF16_ATOL_REL} x "
+                 f"{scale:.3e}")
+    return err
+
+
+def bf16_wgrad_err(got, want, what: str) -> float:
+    """Weight gradients normwise: |got - want| <= BF16_WGRAD_NORM |want|."""
+    import torch
+
+    worst = 0.0
+    for name, a, b in zip(("dwh0", "dwxh", "db"), got, want):
+        if a.shape != b.shape or not torch.isfinite(a).all():
+            fail(f"{what} {name}: shape {tuple(a.shape)} vs {tuple(b.shape)} or non-finite")
+        rel = ((a - b).norm() / b.norm().clamp_min(1e-30)).item()
+        if rel > BF16_WGRAD_NORM:
+            fail(f"{what} {name}: normwise error {rel:.3e} over {BF16_WGRAD_NORM}")
+        worst = max(worst, rel)
+    return worst
+
+
+def bf16_record(name, source, replaces, err, ms, plain_ms, library_ms, bound) -> dict:
+    return {"name": name, "dtype": "bfloat16", "route": "cuda", "source": source,
+            "replaces": replaces, "launches": None,  # filled from the bf16 main path's run
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **bound,
+            "library_ms": library_ms}
+
+
+def bf16_lstm_case(M, R, T, L, H, device, seed):
+    """Phase 3/4's operands and cotangents in bf16 (round to nearest even)."""
+    import torch
+
+    (x, wx0, b0), ops = lstm_bwd_case(M, R, T, L, H, device, seed)
+    xp, wh, wx, b, _, _, g_out, g_hfin, g_cfin = ops
+    bf = [t.to(torch.bfloat16).contiguous() for t in (xp, wh, wx, b)]
+    from stmgcn_tpu_torch.ops.fused_lstm import fused_lstm
+
+    hseq, cseq = fused_lstm(*bf, with_residuals=True)[3:]
+    cots = [t.to(torch.bfloat16) for t in (g_out, g_hfin, g_cfin)]
+    return (x, wx0, b0), bf, (*bf, hseq, cseq, *cots)
+
+
+def check_lstm_kernels_bf16(device) -> list:
+    """Phase 19: B1 and B2 in bf16 against their plain bf16 versions on the
+    card at the main path's shape (M=3 x 16,384 rows, T=12, L=3, H=64),
+    with residuals on and off, a ragged row count and every (H, L) the
+    kernels take; B2 twice bitwise equal; then CUDA-event times of kernel,
+    plain version and cuDNN's ``nn.LSTM`` in bf16, beside the bf16 bound.
+    Returns B1's and B2's bf16 records."""
+    import torch
+
+    from stmgcn_tpu_torch.ops.fused_lstm import (
+        KERNEL_HIDDEN,
+        KERNEL_MAX_LAYERS,
+        fused_lstm,
+        fused_lstm_bwd,
+        fused_lstm_bwd_reference,
+        fused_lstm_reference,
+    )
+
+    M, R, T, L, H = 3, BATCH * GRID * GRID, SERIAL + 2, 3, 64
+    (x, wx0, b0), bf, case = bf16_lstm_case(M, R, T, L, H, device, seed=30)
+    fwd_err = 0.0
+    for res in (False, True):
+        got = fused_lstm(*bf, with_residuals=res)
+        if any(t.dtype != torch.bfloat16 for t in got):
+            fail("fused_lstm in bf16 returned another dtype")
+        fwd_err = max(fwd_err, bf16_err(got, fused_lstm_reference(*bf, with_residuals=res),
+                                        f"bf16 fused_lstm M={M} R={R} residuals={res}"))
+        del got
+    got = fused_lstm_bwd(*case)
+    want = fused_lstm_bwd_reference(*case)
+    bwd_err = bf16_err(got[:1], want[:1], f"bf16 fused_lstm_bwd M={M} R={R} dxp")
+    wg = bf16_wgrad_err(got[1:], want[1:], f"bf16 fused_lstm_bwd M={M} R={R}")
+    again = fused_lstm_bwd(*case)
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        fail("bf16 fused_lstm_bwd: two runs on the same inputs differ")
+    del got, want, again
+    sweep_f = sweep_b = 0.0
+    for h in KERNEL_HIDDEN:
+        for layers in range(1, KERNEL_MAX_LAYERS + 1):
+            for rows in (77, 1000) if (h, layers) == (64, 3) else (77,):
+                _, ops, c = bf16_lstm_case(2, rows, 5, layers, h, device, seed=h + layers + rows)
+                sweep_f = max(sweep_f, bf16_err(fused_lstm(*ops, with_residuals=True),
+                                                fused_lstm_reference(*ops, with_residuals=True),
+                                                f"bf16 fused_lstm H={h} L={layers} R={rows}"))
+                g, w = fused_lstm_bwd(*c), fused_lstm_bwd_reference(*c)
+                sweep_b = max(sweep_b, bf16_err(g[:1], w[:1],
+                                                f"bf16 fused_lstm_bwd H={h} L={layers} R={rows}"))
+                wg = max(wg, bf16_wgrad_err(g[1:], w[1:], f"bf16 fused_lstm_bwd H={h} L={layers}"))
+    print(f"bf16 fused_lstm vs plain bf16: max |err| {max(fwd_err, sweep_f):.3e}; bf16 "
+          f"fused_lstm_bwd dxp max |err| {max(bwd_err, sweep_b):.3e}, weight gradients "
+          f"normwise {wg:.3e} (elementwise rtol {BF16_RTOL} + {BF16_ATOL_REL} x max |want|; "
+          f"normwise {BF16_WGRAD_NORM}); two backward runs bitwise equal; at M={M} R={R} T={T} "
+          f"L={L} H={H}, ragged R=1000 and H in {KERNEL_HIDDEN} x L in 1..{KERNEL_MAX_LAYERS} "
+          "(M=2, R=77, T=5)")
+
+    cudnn = [lstm.to(torch.bfloat16) for lstm in cudnn_lstms(wx0, b0, case[1].float(),
+                                                           case[2].float(), case[3].float())]
+    xb = x.to(torch.bfloat16)
+    with torch.no_grad():
+        ms = cuda_ms(lambda: fused_lstm(*bf), iters=20)
+        plain_ms = cuda_ms(lambda: fused_lstm_reference(*bf), iters=5)
+        library_ms = cuda_ms(lambda: [cudnn[m](xb[m]) for m in range(M)], iters=5)
+    flops = M * R * T * (2 * H * 4 * H + (L - 1) * 2 * (2 * H) * (4 * H))
+    n_bytes = 2 * (sum(t.numel() for t in bf) + M * R * T * H + 2 * M * L * R * H)
+    bound = bf16_bounds(flops, n_bytes)
+    print(f"bf16 fused_lstm times (ms, CUDA events, mean): kernel {ms:.4f}, plain {plain_ms:.4f}, "
+          f"cuDNN bf16 x{M} {library_ms:.4f}; {bf16_bounds_text(bound, flops, n_bytes, ms)}")
+    records = [bf16_record("fused_lstm_fwd", "stmgcn_tpu_torch/csrc/fused_lstm_fwd.cu",
+                           "stmgcn_tpu/ops/pallas_lstm.py:172", max(fwd_err, sweep_f), ms,
+                           plain_ms, library_ms, bound)]
+
+    ms = cuda_ms(lambda: fused_lstm_bwd(*case), iters=10)
+    plain_ms = cuda_ms(lambda: fused_lstm_bwd_reference(*case), iters=3)
+    xs = [xb[m].clone().requires_grad_(True) for m in range(M)]
+    params = [p for lstm in cudnn for p in lstm.parameters()]
+    g_out, g_hfin, g_cfin = case[6:]
+
+    def library():
+        outs, grads = [], []
+        for m in range(M):
+            out, (h_n, c_n) = cudnn[m](xs[m])
+            outs += [out, h_n, c_n]
+            grads += [g_out[m], g_hfin[m], g_cfin[m]]
+        torch.autograd.grad(outs, xs + params, grads)
+
+    def ours():
+        res = fused_lstm(*bf, with_residuals=True)
+        fused_lstm_bwd(*bf, res[3], res[4], g_out, g_hfin, g_cfin)
+
+    fwd_bwd_ms = cuda_ms(ours, iters=10)
+    library_ms = cuda_ms(library, iters=5)
+    flops = 3 * flops
+    n_bytes = (2 * (sum(t.numel() for t in case) + bf[0].numel())
+               + 4 * sum(t.numel() for t in bf[1:]))  # dxp in bf16, weight grads fp32
+    bound = bf16_bounds(flops, n_bytes)
+    print(f"bf16 fused_lstm_bwd times (ms, CUDA events, mean): kernel {ms:.4f}, plain "
+          f"{plain_ms:.4f}; forward with residuals + backward kernels {fwd_bwd_ms:.4f} vs cuDNN "
+          f"bf16 forward + backward x{M} {library_ms:.4f}; "
+          f"{bf16_bounds_text(bound, flops, n_bytes, ms)}")
+    records.append(bf16_record("fused_lstm_bwd", "stmgcn_tpu_torch/csrc/fused_lstm_bwd.cu",
+                               "stmgcn_tpu/ops/pallas_lstm.py:212", max(bwd_err, sweep_b), ms,
+                               plain_ms, library_ms, bound))
+    records[-1]["fwd_bwd_ms"] = fwd_bwd_ms
+    return records
+
+
+def check_lstm_route_bf16(device) -> None:
+    """Phase 19, route: the kernel route at a bf16 compute dtype where the
+    kernels do not take the shape directly, H=48 (padded to 64) with L=3 and
+    H=64 with L=5 (two groups), at M=3 x 2,048 rows and T=12: the card's
+    kernels against the CPU's plain versions on the same weights, input and
+    cotangent, ceil(L/4) launches each way; outputs elementwise at the bf16
+    kernels' tolerance, every gradient normwise at BF16_WGRAD_NORM."""
+    import torch
+
+    from stmgcn_tpu_torch.ops.fused_lstm import KERNEL_MAX_LAYERS
+    from stmgcn_tpu_torch.ops.lstm import StackedLSTM
+
+    M, R, T = 3, 2048, SERIAL + 2
+    for H, L in ROUTE_SHAPES[1:]:
+        groups, runs = -(-L // KERNEL_MAX_LAYERS), {}
+        for dev in (device, torch.device("cpu")):
+            lstm = StackedLSTM(1, H, L, branches=M, device=dev,
+                               generator=torch.Generator().manual_seed(H + L))
+            lstm.compute_dtype = torch.bfloat16
+            g = torch.Generator().manual_seed(H * L)
+            x = (torch.randn(M, R, T, 1, generator=g) * 2.0).to(dev).requires_grad_(True)
+            g_out = torch.randn(M, R, T, H, generator=g).to(dev)
+            reset_counts()
+            out, _ = lstm(x)
+            (out.float() * g_out).sum().backward()
+            if dev.type == "cuda":
+                counts = read_counts()
+            runs[dev.type] = (out.detach().cpu(),
+                              [x.grad.cpu()] + [p.grad.cpu() for p in lstm.parameters()])
+        if (counts["B1"], counts["B2"]) != (groups, groups):
+            fail(f"bf16 LSTM route H={H} L={L}: {counts['B1']} forward and {counts['B2']} "
+                 f"backward launches, expected {groups} each")
+        err = bf16_err([runs["cuda"][0]], [runs["cpu"][0]], f"bf16 LSTM route H={H} L={L}")
+        worst = 0.0
+        for a, b in zip(runs["cuda"][1], runs["cpu"][1]):
+            rel = ((a - b).norm() / b.norm()).item()
+            if not rel <= BF16_WGRAD_NORM:
+                fail(f"bf16 LSTM route H={H} L={L}: a gradient differs by {rel:.3e} of its norm")
+            worst = max(worst, rel)
+        print(f"bf16 LSTM route H={H} L={L} ({groups} group(s)), card vs CPU plain versions at "
+              f"M={M} R={R} T={T}: output max |err| {err:.3e}, gradients (input and every "
+              f"parameter) within {worst:.3e} of their norms ({BF16_WGRAD_NORM}); launches B1 "
+              f"{counts['B1']}, B2 {counts['B2']}")
+
+
+def accum_mm_probe(device) -> None:
+    """Phase 19, end: whether ``torch.mm(a, b, out_dtype=torch.float32)``
+    (bf16 operands, an fp32 result) runs on the card and has an autograd
+    formula; the port's bf16 products take the portable form (fp32 products
+    of the bf16 values) on both devices."""
+    import torch
+
+    a = torch.randn(64, 64, device=device).to(torch.bfloat16).requires_grad_(True)
+    b = torch.randn(64, 64, device=device).to(torch.bfloat16)
+    try:
+        out = torch.mm(a, b, out_dtype=torch.float32)
+        same = torch.equal(out, a.float() @ b.float())
+        try:
+            out.sum().backward()
+            grad = f"has an autograd formula (grad {a.grad.dtype})"
+        except RuntimeError as e:
+            grad = f"has no autograd formula ({str(e).splitlines()[0][:80]})"
+        print(f"torch.mm(bf16, bf16, out_dtype=float32) on the card: runs, dtype {out.dtype}, "
+              f"{'equal to' if same else 'differs from'} the fp32 product of the bf16 values, "
+              f"{grad}")
+    except (RuntimeError, TypeError) as e:
+        print(f"torch.mm(bf16, bf16, out_dtype=float32) on the card: not available "
+              f"({type(e).__name__}: {str(e).splitlines()[0][:100]})")
+
+
+def bf16_config(batch: int, out_dir: str, *, dtype: str = "float32"):
+    """The flagship at the bench point, trained at ``precision="bf16"``."""
+    cfg = flagship_config(batch)
+    cfg.train.precision, cfg.model.dtype, cfg.train.out_dir = "bf16", dtype, out_dir
+    return cfg
+
+
+def all_grads_finite(trainer) -> list:
+    """Wrap ``trainer.optimizer.step`` to record, at every step, whether
+    every gradient is finite (restore with ``del trainer.optimizer.step``)."""
+    import torch
+
+    seen: list = []
+    step = trainer.optimizer.step
+
+    def checking():
+        seen.append(all(p.grad is not None and bool(torch.isfinite(p.grad).all())
+                        for p in trainer.model.parameters()))
+        step()
+
+    trainer.optimizer.step = checking
+    return seen
+
+
+def bf16_training(device) -> dict:
+    """Phase 20: the dense flagship at ``precision="bf16"``. A twin drill:
+    fp32 and bf16 trainers from one initial state take TWIN_STEPS steps on
+    the same batches, every bf16 loss within TWIN_ATOL of the fp32 one,
+    every loss and gradient finite, the parameters float32 masters; their
+    step p50s in this call and a trace of two bf16 steps; then ``train()``
+    (two epochs) and ``test()`` of
+    the bf16 trainer with its launches counted (B1 per forward, B2 per
+    step); then an ``sr_seed`` run of a few steps, finite and equal to a
+    second run of the same seed. Returns the bf16 run's launch counts."""
+    import torch
+
+    from stmgcn_tpu_torch import build_trainer
+
+    t32 = build_trainer(flagship_config(BATCH), device=device, verbose=False)
+    state = {k: v.detach().cpu().clone() for k, v in t32.model.state_dict().items()}
+    t16 = build_trainer(bf16_config(BATCH, scratch("bf16_twin")), device=device,
+                        initial_state=state, verbose=False)
+    seen = all_grads_finite(t16)
+    batches = list(t32.batches("train"))[:TWIN_STEPS]
+    l32 = [t32.train_batch(b).item() for b in batches]
+    l16 = [t16.train_batch(b).item() for b in batches]
+    del t16.optimizer.step
+    gap = max(abs(a - b) for a, b in zip(l16, l32))
+    if not all(math.isfinite(v) for v in l16) or not all(seen):
+        fail(f"bf16 twin drill: non-finite losses {l16} or gradients at steps "
+             f"{[i for i, ok in enumerate(seen) if not ok]}")
+    if gap > TWIN_ATOL:
+        fail(f"bf16 twin drill: losses {l16} vs fp32 {l32}, gap {gap:.3e} over {TWIN_ATOL}")
+    dtypes = {p.dtype for p in t16.model.parameters()}
+    if dtypes != {torch.float32}:
+        fail(f"bf16 training left parameters in {dtypes}")
+    print(f"bf16 twin drill ({TWIN_STEPS} steps, batch {BATCH}, one initial state): bf16 losses "
+          f"{[f'{v:.6g}' for v in l16]} vs fp32 {[f'{v:.6g}' for v in l32]}, max gap {gap:.3e} "
+          f"(band {TWIN_ATOL}); 0 non-finite losses and gradients; parameters {dtypes}")
+    step_times(t32, "training step, fp32 (same call)")
+    step_times(t16, "training step, bf16")
+    trace_training(t16, LSTM_PARTS, "bf16 dense training")
+    del t32, t16
+    torch.cuda.empty_cache()
+
+    trainer = build_trainer(bf16_config(BATCH, scratch("bf16_train")), device=device)
+    _, counts = train_and_test(trainer, {"B1": 1}, {"B2": 1}, "bf16 dense training")
+    del trainer
+
+    runs = []
+    for _ in range(2):
+        cfg = bf16_config(BATCH, scratch("bf16_sr"))
+        cfg.train.sr_seed = SR_SEED
+        sr = build_trainer(cfg, device=device, initial_state=state, verbose=False)
+        runs.append([sr.train_batch(b).item() for b in batches[:SR_STEPS]])
+        del sr
+    if runs[0] != runs[1] or not all(math.isfinite(v) for v in runs[0]):
+        fail(f"sr_seed runs: {runs[0]} vs {runs[1]} (must be finite and equal)")
+    gap = max(abs(a - b) for a, b in zip(runs[0], l16))
+    print(f"sr_seed={SR_SEED} bf16 run, {SR_STEPS} steps: losses {runs[0]} (a second run of the "
+          f"seed equal bitwise); max gap to round-to-nearest bf16 {gap:.3e}")
+    torch.cuda.empty_cache()
+    return counts
+
+
+def rung_p50(snapshot) -> str:
+    return ", ".join(f"rung {b} {s['device_ms']['p50']} ms" for b, s in snapshot["buckets"].items())
+
+
+def bf16_engines(device, fc32, fc16, supports, windows, buckets, sizes, rounds, what,
+                 per_forward, parts):
+    """The same requests through an fp32 and a bf16 engine over one set of
+    weights: every bf16 response finite and equal to the bf16 Forecaster
+    (BF16_SERVE_RTOL), B1/B3 launches per bf16 forward as ``per_forward``,
+    each rung's p50 dispatch beside fp32's, and a trace of the bf16
+    engine's smallest and largest rung (``parts``: the kernels' shares)."""
+    from stmgcn_tpu_torch import ServingConfig
+
+    config = ServingConfig(buckets=buckets, max_batch=buckets[-1])
+    snaps, worst = {}, 0.0
+    for name, fc in (("fp32", fc32), ("bf16", fc16)):
+        engine = fc.serving_engine(supports, config=config, device=device)
+        try:
+            for b in buckets:
+                engine.predict_direct(windows[:b])
+            engine.stats.reset()
+            reset_counts()
+            calls = 0
+            for r in range(rounds):
+                for n in sizes:
+                    got = engine.predict(windows[r:r + n])
+                    if name == "bf16":
+                        want = fc.predict(supports, windows[r:r + n])
+                        calls += 1
+                        if got.dtype != np.float32 or not np.isfinite(got).all():
+                            fail(f"{what} bf16 predict({n}): {got.dtype}, finite "
+                                 f"{np.isfinite(got).all()}")
+                        scale = np.abs(want).max()
+                        worst = max(worst, float(np.abs(got - want).max()))
+                        if not np.allclose(got, want, rtol=BF16_SERVE_RTOL,
+                                           atol=BF16_SERVE_RTOL * scale):
+                            fail(f"{what} bf16 predict({n}): max |engine - forecaster| "
+                                 f"{np.abs(got - want).max():.3e} over {BF16_SERVE_RTOL} of "
+                                 f"{scale:.3e}")
+            counts = read_counts()
+            snaps[name] = engine.stats.snapshot()
+            if name == "bf16":
+                check_counts(counts, per_forward, {},
+                             snaps[name]["totals"]["dispatches"] + calls, 0, f"{what} bf16")
+                trace_rungs(engine, windows, (buckets[0], buckets[-1]), parts, what)
+        finally:
+            engine.close()
+    print(f"{what}: bf16 engine vs bf16 Forecaster.predict, requests of {sizes} rows x {rounds} "
+          f"rounds: max |err| {worst:.3e} (rtol {BF16_SERVE_RTOL} + {BF16_SERVE_RTOL} x max, raw "
+          f"units); launches per bf16 forward {counts_text(per_forward)}")
+    print(f"{what}, p50 dispatch per rung (ms, host clock, same requests, same call): bf16 "
+          f"{rung_p50(snaps['bf16'])}; fp32 {rung_p50(snaps['fp32'])}")
+
+
+def bf16_serve_dense(device) -> None:
+    """Phase 21: the dense flagship served in bf16 (``model.dtype=
+    "bfloat16"``): engine vs Forecaster, per-rung p50 beside fp32, and a
+    bucket-4 batch on the card against the CPU port at bf16 (its plain
+    versions)."""
+    import torch
+
+    from stmgcn_tpu_torch import Forecaster, preset
+    from stmgcn_tpu_torch.experiment import build_dataset, build_model, build_supports
+
+    cfg = preset("default")
+    cfg.data.rows, cfg.data.serial_len = GRID, SERIAL
+    ds = build_dataset(cfg)
+    supports = build_supports(cfg, ds)
+    derived = {"input_dim": ds.n_feats, "n_nodes": ds.n_nodes}
+    model = build_model(cfg, ds.n_feats, device=device, generator=torch.Generator().manual_seed(0))
+    state = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+    fc32 = Forecaster(model, state, ds.normalizer, cfg, derived, device=device)
+    cfg16 = preset("default")
+    cfg16.data.rows, cfg16.data.serial_len, cfg16.model.dtype = GRID, SERIAL, "bfloat16"
+    fc16 = Forecaster(build_model(cfg16, ds.n_feats, device=device), state, ds.normalizer,
+                      cfg16, derived, device=device)
+    windows = ds.denormalize(ds.arrays("test")[0])
+    bf16_engines(device, fc32, fc16, supports, windows, BUCKETS, SIZES, ROUNDS,
+                 "bf16 dense serving", {"B1": 1}, {"B1": LSTM_PARTS["B1 forward"]})
+    cpu = Forecaster(build_model(cfg16, ds.n_feats, device="cpu"), state, ds.normalizer, cfg16,
+                     derived, device="cpu")
+    rows = windows[:4]
+    got, want = fc16.predict(supports, rows), cpu.predict(supports, rows)
+    scale = np.abs(want).max()
+    err = float(np.abs(got - want).max())
+    if not np.allclose(got, want, rtol=BF16_SERVE_RTOL, atol=BF16_SERVE_RTOL * scale):
+        fail(f"bf16 dense serving, card vs CPU: max |err| {err:.3e} over {BF16_SERVE_RTOL} x "
+             f"{scale:.3e}")
+    fp32 = fc32.predict(supports, rows)
+    print(f"bf16 dense serving, a bucket-4 batch, card vs CPU port at bf16: max |err| {err:.3e} "
+          f"(rtol {BF16_SERVE_RTOL} + {BF16_SERVE_RTOL} x max {scale:.3e}, raw units); bf16 vs "
+          f"fp32 on the card: max |diff| {float(np.abs(got - fp32).max()):.3e}")
+
+
+def bf16_checkpoints(device, root: str) -> dict:
+    """Phase 22: a bf16 model (``model.dtype="bfloat16"``, ``precision=
+    "bf16"``) trains two epochs writing checkpoints, a mid-epoch ``latest``
+    every CKPT_EVERY steps: the meta says bf16, the payload is float32
+    masters; a second trainer restores the first mid-epoch file and must end
+    with the first run's losses and parameters exactly; an fp32 trainer
+    restores the bf16 file (precision is provenance); and
+    ``Forecaster.from_checkpoint(best.ckpt)`` serves in bf16, equal to the
+    trainer's evaluation. Returns the launch counts of the first run."""
+    import torch
+
+    from stmgcn_tpu_torch import Forecaster, build_trainer
+    from stmgcn_tpu_torch.models import from_jax_params
+    from stmgcn_tpu_torch.train.checkpoint import load_checkpoint, write_checkpoint_bytes
+
+    def config(name):
+        cfg = bf16_config(BATCH, os.path.join(root, name), dtype="bfloat16")
+        cfg.train.checkpoint_every_steps = CKPT_EVERY
+        return cfg
+
+    a = build_trainer(config("a"), device=device, verbose=False)
+    mid, kept, save = os.path.join(root, "mid_epoch.ckpt"), [], a._save
+
+    def save_and_keep(path):
+        data = save(path)
+        if path == a.latest_path and a._batch_in_epoch and not kept:
+            kept.append(a._batch_in_epoch)
+            write_checkpoint_bytes(mid, data)
+        return data
+
+    a._save = save_and_keep
+    history, counts = train_and_test(a, {"B1": 1}, {"B2": 1}, "bf16 checkpointed training")
+    a._save = save
+    meta, params, _ = load_checkpoint(a.latest_path)
+    leaves = {str(np.asarray(v).dtype) for v in _leaves(params)}
+    if meta.get("precision") != "bf16" or leaves != {"float32"} or not kept:
+        fail(f"bf16 checkpoint: meta precision {meta.get('precision')}, payload {leaves}, "
+             f"mid-epoch file {bool(kept)}")
+    b = build_trainer(config("b"), device=device, verbose=False)
+    meta = b.restore(mid)
+    resumed = b.train()
+    same = all(torch.equal(v, a.model.state_dict()[k]) for k, v in b.model.state_dict().items())
+    if resumed != history or not same:
+        fail(f"bf16 mid-epoch resume: history {resumed} vs {history}, parameters equal {same}")
+    c = build_trainer(flagship_config(BATCH), device=device, verbose=False)
+    c.restore(a.latest_path)
+    if not all(torch.equal(v, a.model.state_dict()[k]) for k, v in c.model.state_dict().items()):
+        fail("an fp32 trainer did not restore the bf16 run's masters exactly")
+    fc = Forecaster.from_checkpoint(a.best_path, device=device)
+    if fc.model.compute_dtype != torch.bfloat16:
+        fail(f"Forecaster.from_checkpoint of a bf16 model serves in {fc.model.compute_dtype}")
+    ds = a.dataset
+    windows = ds.denormalize(ds.arrays("test")[0])
+    best = {k: v.to(device) for k, v in from_jax_params(
+        load_checkpoint(a.best_path, load_opt_state=False)[1], a.model.m_graphs).items()}
+    evaluated = ds.denormalize(a._predict_mode("test", best)[0])
+    got = fc.predict(a.supports.cpu().numpy(), windows[:BUCKETS[-1]])
+    scale = np.abs(evaluated[:BUCKETS[-1]]).max()
+    err = float(np.abs(got - evaluated[:BUCKETS[-1]]).max())
+    if not np.allclose(got, evaluated[:BUCKETS[-1]], rtol=BF16_SERVE_RTOL,
+                       atol=BF16_SERVE_RTOL * scale):
+        fail(f"bf16 best.ckpt served vs the trainer's evaluation: max |err| {err:.3e}")
+    print(f"bf16 checkpoints: meta precision bf16, float32 masters; the resume from the "
+          f"mid-epoch latest.ckpt (epoch {meta['epoch']}, {meta['batch_in_epoch']} batches in) "
+          f"ends with the uninterrupted run's losses and parameters exactly; an fp32 trainer "
+          f"restores the file exactly; Forecaster.from_checkpoint(best.ckpt) serves in bf16, "
+          f"{BUCKETS[-1]} windows within {err:.3e} of the trainer's evaluation (raw units)")
+    return counts
+
+
+def _leaves(tree):
+    for v in tree.values():
+        if isinstance(v, dict):
+            yield from _leaves(v)
+        else:
+            yield v
+
+
+def check_spmm_kernels_bf16(device, dense, dense_dev, plan) -> list:
+    """Phase 23: B3, B4 and B5 in bf16 against their plain versions on the
+    card at the metro plan (bf16 blocks and signals, float32 out; B4's
+    cotangent bf16-representable float32, as a bf16 path hands it over),
+    B4 twice bitwise equal; each timed beside its bf16 bound, its plain
+    version and the bf16 cuBLAS product with an fp32 result over the same
+    supports. Returns the bf16 records of B3 (graph conv), B4, B5 and B3
+    (gate conv)."""
+    import torch
+
+    S = importlib.import_module("stmgcn_tpu_torch.ops.spmm")
+    bf = torch.bfloat16
+    M, K, N, t = plan.m_graphs, plan.n_supports, plan.n, plan.tile
+    T, H, B = METRO_SERIAL + 2, 64, METRO_BATCH
+    gen = torch.Generator(device=device).manual_seed(23)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device=device).to(bf)
+
+    stack = plan.as_stack().to(device).astype(bf)
+    x_gate, x_gcn = randn(N, B * T), randn(M, N, B * H)
+    err3 = err4 = 0.0
+    for what, x in (("gate conv, shared x", x_gate), ("graph conv, per-branch x", x_gcn),
+                    ("graph conv, rung 4", randn(M, N, 4 * H))):
+        shared = x.dim() == 2
+        got = S.spmm_stack(stack, x)
+        err3 = max(err3, spmm_err(got, S.spmm_stack_reference(stack, x), f"bf16 B3 {what}"))
+        g = randn(*got.shape).float()
+        dx, again = S.spmm_stack_bwd(stack, g, shared=shared), S.spmm_stack_bwd(stack, g,
+                                                                              shared=shared)
+        torch.cuda.synchronize()
+        if not torch.equal(dx, again):
+            fail(f"bf16 B4 {what}: two runs differ")
+        err4 = max(err4, spmm_err(dx, S.spmm_stack_bwd_reference(stack, g, shared=shared),
+                                  f"bf16 B4 {what}"))
+        del got, g, dx, again
+    bs = S.from_dense(dense[0, 2], tile=METRO_TILE).to(device).astype(bf)  # T_2, spatial
+    x5 = randn(N, B * H)
+    err5 = max(spmm_err(S.block_spmm(bs, x5), S.spmm_reference(bs, x5), "bf16 B5"),
+               spmm_err(S.block_spmm(bs, x5.float(), transpose=True),
+                        S.spmm_reference(bs, x5.float(), transpose=True), "bf16 B5 transposed"))
+    print(f"bf16 B3 vs plain: max |err| {err3:.3e}; bf16 B4 vs plain: max |err| {err4:.3e}, two "
+          f"runs bitwise equal; bf16 B5 (and its transpose) vs plain: max |err| {err5:.3e} "
+          f"(rtol {SPMM_RTOL} + {SPMM_ATOL} x max |want|: exact bf16 products, fp32 sums)")
+
+    g_gcn = randn(M, K, N, B * H).float()
+    perm = plan.perm.to(device).long()
+    dense_p = dense_dev.index_select(2, perm).index_select(3, perm).to(bf)  # the plan's order
+    with torch.no_grad():
+        gate = (cuda_ms(lambda: S.spmm_stack(stack, x_gate), 20),
+                cuda_ms(lambda: S.spmm_stack_reference(stack, x_gate), 5),
+                cuda_ms(lambda: bf16_library_mm(dense_p.flatten(0, 1), x_gate), 5))
+        fwd = (cuda_ms(lambda: S.spmm_stack(stack, x_gcn), 20),
+               cuda_ms(lambda: S.spmm_stack_reference(stack, x_gcn), 5),
+               cuda_ms(lambda: bf16_library_mm(dense_p, x_gcn), 5))
+        g16 = g_gcn.to(bf)
+        bwd = (cuda_ms(lambda: S.spmm_stack_bwd(stack, g_gcn, shared=False), 20),
+               cuda_ms(lambda: S.spmm_stack_bwd_reference(stack, g_gcn, shared=False), 5),
+               cuda_ms(lambda: bf16_library_mm(dense_p.transpose(-1, -2), g16)
+                       .view(M, K, N, -1).sum(1), 5))
+        a5 = dense_dev[0, 2].to(bf)
+        one = (cuda_ms(lambda: S.block_spmm(bs, x5), 20),
+               cuda_ms(lambda: S.spmm_reference(bs, x5), 5),
+               cuda_ms(lambda: bf16_library_mm(a5, x5), 10))
+    del dense_p
+    b_gate = spmm_bf16_bound(stack.nblk, stack.idx, t, B * T, 2 * N * B * T, M * K * N * B * T)
+    b_fwd = spmm_bf16_bound(stack.nblk, stack.idx, t, B * H, 2 * M * N * B * H,
+                            M * K * N * B * H)
+    b_bwd = spmm_bf16_bound(stack.nblk_t, stack.idx_t, t, B * H, 4 * M * K * N * B * H,
+                            M * N * B * H)
+    b_one = spmm_bf16_bound(bs.nblk, bs.idx, t, B * H, 2 * N * B * H, N * B * H)
+    for what, (ms, plain, lib), (b, flops, n_bytes) in (
+            ("bf16 B3 gate conv (shared x, F=10)", gate, b_gate),
+            ("bf16 B3 graph conv (per-branch x, F=128)", fwd, b_fwd),
+            ("bf16 B4 graph-conv backward (F=128)", bwd, b_bwd),
+            (f"bf16 B5 one support (C={bs.block_cols_per_row}, F=128)", one, b_one)):
+        print(f"{what} at the metro city, batch 2 (ms, CUDA events, mean): kernel {ms:.4f}, plain "
+              f"{plain:.4f}, dense cuBLAS bf16 {lib:.4f}; "
+              f"{bf16_bounds_text(b, flops, n_bytes, ms)}")
+    print(f"the dense cuBLAS yardsticks' forms (bf16 operands): {LIBRARY_FORMS}")
+    src = "stmgcn_tpu_torch/csrc/spmm_stack.cu"
+    return [
+        bf16_record("spmm_stack_fwd", src, "stmgcn_tpu/ops/spmm.py:339", err3, *fwd, b_fwd[0]),
+        bf16_record("spmm_stack_bwd", src, "stmgcn_tpu/ops/spmm.py:379", err4, *bwd, b_bwd[0]),
+        bf16_record("spmm", src, "stmgcn_tpu/ops/spmm.py:125", err5, *one, b_one[0]),
+        bf16_record("spmm_stack_fwd_gate", src, "stmgcn_tpu/ops/spmm.py:339", err3, *gate,
+                    b_gate[0]),
+    ]
+
+
+def spmm_bf16_bound(nblk, idx, tile: int, F: int, src_bytes: int, out_elems: int):
+    """``(bounds, FLOPs, bytes)`` of one bf16 block-CSR product over the
+    real blocks the counts name: each read once (2 bytes a value) and
+    multiplied once, the count and index arrays, the signal read once
+    (``src_bytes``: 2 a value, or 4 for B4's fp32 cotangent) and the fp32
+    output written once."""
+    nz = int(nblk.sum().item())
+    flops = 2 * nz * tile * tile * F
+    n_bytes = 2 * nz * tile * tile + 4 * (idx.numel() + nblk.numel() + out_elems) + src_bytes
+    return bf16_bounds(flops, n_bytes), flops, n_bytes
+
+
+#: which form each library yardstick took: "fp32 out" or "bf16 out"
+LIBRARY_FORMS: dict = {}
+
+
+def bf16_library_mm(a, b):
+    """The library yardstick: ``a @ b`` on bf16 operands through cuBLAS
+    with an fp32 result (``out_dtype``), batched over leading axes; where
+    this build lacks ``out_dtype``, the bf16 GEMM rounded to bf16 (the form
+    taken is kept in LIBRARY_FORMS)."""
+    import torch
+
+    if a.dim() == 2 and b.dim() == 2:
+        op, args = torch.mm, (a, b)
+    else:
+        a3 = a.reshape(-1, *a.shape[-2:])
+        b3 = b.reshape(-1, *b.shape[-2:]) if b.dim() > 2 else b.expand(a3.shape[0], *b.shape)
+        if b3.shape[0] != a3.shape[0]:  # per-branch signal against M x K supports
+            b3 = b3.repeat_interleave(a3.shape[0] // b3.shape[0], dim=0)
+        op, args = torch.bmm, (a3, b3)
+    try:
+        out = op(*args, out_dtype=torch.float32)
+        LIBRARY_FORMS[op.__name__] = "fp32 out"
+    except (RuntimeError, TypeError):
+        out = op(*args)
+        LIBRARY_FORMS[op.__name__] = "bf16 out"
+    return out
+
+
+def bf16_metro(device, ds, plan_dev, dense_dev) -> dict:
+    """Phase 24: the metro city in bf16 on the tiled plan: an fp32 and a
+    bf16 engine over one set of weights (ladder 1, 2, 4), bf16 responses
+    equal to the bf16 Forecaster, per-rung p50 beside fp32; one window on
+    the card against the CPU port at bf16; then METRO_BF16_STEPS steps of
+    ``precision="bf16"`` tiled training, finite, with B1, B2, B3 (two, one
+    shared) and B4 launched per step, its step p50 and a trace of two
+    steps. Returns that run's counts."""
+    import torch
+
+    from stmgcn_tpu_torch import Forecaster, Trainer
+
+    model = metro_model("tiled", ds, device)
+    state = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+    derived = {"input_dim": ds.n_feats, "n_nodes": ds.n_nodes}
+    cfg16 = metro_config("tiled")
+    cfg16.model.dtype = "bfloat16"
+    from stmgcn_tpu_torch.experiment import build_model
+
+    fc32 = Forecaster(model, state, ds.normalizer, metro_config("tiled"), derived, device=device)
+    fc16 = Forecaster(build_model(cfg16, ds.n_feats, device=device), state, ds.normalizer, cfg16,
+                      derived, device=device)
+    windows = ds.denormalize(ds.arrays("test")[0])
+    bf16_engines(device, fc32, fc16, plan_dev, windows, METRO_BUCKETS, METRO_SIZES, METRO_ROUNDS,
+                 "bf16 tiled serving at the metro city", {"B1": 1, "B3": 2, "B3 shared": 1},
+                 {"B1": LSTM_PARTS["B1 forward"], "B3": SPMM_PARTS["B3"]})
+    plan_cpu = plan_dev.to("cpu")
+    cpu = Forecaster(build_model(cfg16, ds.n_feats, device="cpu"), state, ds.normalizer, cfg16,
+                     derived, device="cpu")
+    got, want = fc16.predict(plan_dev, windows[:1]), cpu.predict(plan_cpu, windows[:1])
+    scale = np.abs(want).max()
+    err = float(np.abs(got - want).max())
+    if not np.allclose(got, want, rtol=BF16_SERVE_RTOL, atol=BF16_SERVE_RTOL * scale):
+        fail(f"bf16 tiled serving, card vs CPU: max |err| {err:.3e} over {BF16_SERVE_RTOL} x "
+             f"{scale:.3e}")
+    print(f"bf16 tiled serving at the metro city, one window, card vs CPU port at bf16: max |err| "
+          f"{err:.3e} (rtol {BF16_SERVE_RTOL} + {BF16_SERVE_RTOL} x max {scale:.3e}, raw units)")
+    del cpu, plan_cpu
+
+    t = cfg16.train
+    trainer = Trainer(metro_model("tiled", ds, device), ds, plan_dev, lr=t.lr,
+                      weight_decay=t.weight_decay, n_epochs=1, batch_size=METRO_BATCH,
+                      out_dir=scratch("metro_bf16"), initial_state=state, precision="bf16",
+                      device=device, verbose=False)
+    seen = all_grads_finite(trainer)
+    reset_counts()
+    losses = [trainer.train_batch(b).item()
+              for b in list(trainer.batches("train"))[:METRO_BF16_STEPS]]
+    counts = read_counts()
+    del trainer.optimizer.step
+    if not all(math.isfinite(v) for v in losses) or not all(seen):
+        fail(f"bf16 tiled training: losses {losses}, finite gradients {seen}")
+    check_counts(counts, {"B1": 1, "B3": 2, "B3 shared": 1}, {"B2": 1, "B4": 1},
+                 METRO_BF16_STEPS, METRO_BF16_STEPS, "bf16 tiled training at the metro city")
+    print(f"bf16 tiled training at the metro city, {METRO_BF16_STEPS} steps at batch "
+          f"{METRO_BATCH}: losses {[f'{v:.6g}' for v in losses]}, every gradient finite; "
+          f"launches {counts_text(counts)}")
+    step_times(trainer, "bf16 tiled training step at the metro city")
+    trace_training(trainer, {**LSTM_PARTS, **SPMM_PARTS}, "bf16 tiled training at the metro city")
+    return counts
+
+
+def bf16_sparse(device, ds, dense_dev, ktuples) -> int:
+    """Phase 25: the bf16 block-sparse K-tuple route (B5) at the metro
+    city, one forward and backward of the bf16 model against the bf16 model
+    on the dense supports: output and input gradient within bf16 tolerance.
+    Returns its B5 launches."""
+    import torch
+
+    from stmgcn_tpu_torch.experiment import build_model
+
+    M, K = dense_dev.shape[:2]
+    obs = torch.as_tensor(ds.arrays("test")[0][:METRO_BATCH], device=device)
+    w = torch.randn(obs.shape[0], obs.shape[2], obs.shape[3], device=device,
+                    generator=torch.Generator(device=device).manual_seed(3))
+
+    def fwd_bwd(mode, supports):
+        cfg = metro_config(mode)
+        cfg.model.dtype = "bfloat16"
+        model = build_model(cfg, ds.n_feats, device=device,
+                            generator=torch.Generator().manual_seed(0))
+        x = obs.clone().requires_grad_(True)
+        out = model(supports, x)
+        (out.float() * w).sum().backward()
+        return out.detach().float(), x.grad
+
+    reset_counts()
+    out, grad = fwd_bwd("sparse", ktuples)
+    counts = read_counts()
+    check_counts(counts, {"B1": 1, "B2": 1, "B5": 4 * M * K}, {}, 1, 0, "bf16 K-tuples")
+    ref_out, ref_grad = fwd_bwd("dense", dense_dev)
+    scale = ref_out.abs().max().item()
+    out_err = (out - ref_out).abs().max().item()
+    rel = ((grad - ref_grad).norm() / ref_grad.norm()).item()
+    if out_err > BF16_SERVE_RTOL * scale or not rel <= BF16_GRAD_RTOL:
+        fail(f"bf16 K-tuples vs bf16 dense: output max |err| {out_err:.3e} (max {scale:.3e}), "
+             f"input gradient {rel:.3e} of its norm")
+    print(f"bf16 K-tuples of BlockSparse at the metro city, one forward + backward: output max "
+          f"|err| {out_err:.3e} ({BF16_SERVE_RTOL} x max {scale:.3e}), input gradient within "
+          f"{rel:.3e} of its norm ({BF16_GRAD_RTOL}) vs the bf16 dense model; launches "
+          f"{counts_text(counts)}")
+    return counts["B5"]
 
 
 def main() -> int:
@@ -1739,6 +2596,10 @@ def run_phases() -> int:
     records.append(check_lstm_bwd_kernel(device))
     torch.cuda.empty_cache()
     records[0]["route_shapes"], records[1]["route_shapes"] = check_lstm_shapes(device)
+    bf16_records = check_lstm_kernels_bf16(device)
+    check_lstm_route_bf16(device)
+    accum_mm_probe(device)
+    torch.cuda.empty_cache()
 
     reset_counts()
     snapshot, forwards, launches = serve(device)
@@ -1783,6 +2644,15 @@ def run_phases() -> int:
     cli_runs(scratch("cli"))
     print(f"checkpoint phases done at {time.perf_counter() - t_start:.1f} s")
 
+    # the bf16 slice's dense paths: mixed-precision training (its counts are
+    # the bf16 B1/B2 records'), bf16 serving, bf16 checkpoints
+    counts = bf16_training(device)
+    bf16_records[0]["launches"], bf16_records[1]["launches"] = counts["B1"], counts["B2"]
+    bf16_serve_dense(device)
+    bf16_checkpoints(device, scratch("bf16_checkpoints"))
+    torch.cuda.empty_cache()
+    print(f"bf16 dense phases done at {time.perf_counter() - t_start:.1f} s")
+
     ds, dense, plan = metro_host()
     dense_dev, plan_dev = torch.as_tensor(dense, device=device), plan.to(device)
     records += check_spmm_kernels(device, dense, dense_dev, plan)
@@ -1795,13 +2665,26 @@ def run_phases() -> int:
     records[2]["launches"] = counts["B3"] - counts["B3 shared"]
     records[3]["launches"], records[5]["launches"] = counts["B4"], counts["B3 shared"]
     torch.cuda.empty_cache()
-    records[4]["launches"] = metro_sparse(device, ds, dense, dense_dev, plan_dev)
+    records[4]["launches"], ktuples = metro_sparse(device, ds, dense, dense_dev, plan_dev)
     if records[4]["launches"] == 0:
         fail("the K-tuple route never launched B5")
+
+    # the bf16 slice's metro paths: B3/B4/B5's bf16 forms, bf16 tiled
+    # serving and training (the bf16 B3/B4 records' counts), bf16 K-tuples (B5)
+    bf16_records += check_spmm_kernels_bf16(device, dense, dense_dev, plan)
+    torch.cuda.empty_cache()
+    counts = bf16_metro(device, ds, plan_dev, dense_dev)
+    bf16_records[2]["launches"] = counts["B3"] - counts["B3 shared"]
+    bf16_records[3]["launches"], bf16_records[5]["launches"] = counts["B4"], counts["B3 shared"]
+    torch.cuda.empty_cache()
+    bf16_records[4]["launches"] = bf16_sparse(device, ds, dense_dev, ktuples)
+    if any(not r["launches"] for r in bf16_records):
+        fail("a bf16 kernel form was not launched on its main path: " + ", ".join(
+            f"{r['name']} {r['launches']}" for r in bf16_records))
     print(f"all phases done at {time.perf_counter() - t_start:.1f} s")
 
     print(card)
-    print(json.dumps({"kernels": records}))
+    print(json.dumps({"kernels": records + bf16_records}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -63,6 +63,16 @@ def build_parser() -> argparse.ArgumentParser:
                    help="shuffle training batches (reference default is off)")
     p.add_argument("--sparse", action="store_true", default=None,
                    help="block-CSR supports for the graph convolutions")
+    p.add_argument("--dtype", choices=("float32", "bfloat16"), default=None,
+                   help="model compute dtype (bf16 products, fp32 accumulation and "
+                        "fp32 parameters); serving and training run in it")
+    p.add_argument("--precision", choices=("fp32", "bf16"), default=None,
+                   help="training step precision: fp32 (default) or bf16 (the model "
+                        "computes in bf16 over fp32 master parameters, which the "
+                        "optimizer and checkpoints keep)")
+    p.add_argument("--sr-seed", type=int, default=None, metavar="SEED",
+                   help="stochastically round the master->bf16 parameter casts with "
+                        "this seed (bf16 only; default: round to nearest even)")
     p.add_argument("--seed", type=int, default=None)
     p.add_argument("--out-dir", type=str, default=None)
     p.add_argument("--steps-per-superstep", type=_positive_int, default=None, metavar="S",
@@ -98,7 +108,7 @@ def build_parser() -> argparse.ArgumentParser:
 _TRAIN_FLAGS = (
     "epochs", "batch_size", "lr", "lr_schedule", "warmup_epochs", "min_lr_fraction",
     "weight_decay", "grad_clip_norm", "loss", "patience", "top_k", "seed", "out_dir",
-    "steps_per_superstep", "checkpoint_every_steps",
+    "steps_per_superstep", "checkpoint_every_steps", "precision", "sr_seed",
 )
 
 
@@ -122,6 +132,8 @@ def config_from_args(args):
         cfg.train.shuffle = True
     if args.sparse:
         cfg.model.sparse = True
+    if args.dtype is not None:
+        cfg.model.dtype = args.dtype
     return cfg
 
 

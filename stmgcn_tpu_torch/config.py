@@ -18,10 +18,13 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional
 
+import torch
+
 from stmgcn_tpu_torch.ops.graph import SupportConfig, support_count
 
 __all__ = [
     "DTYPES",
+    "PRECISIONS",
     "DataConfig",
     "ExperimentConfig",
     "ModelConfig",
@@ -32,8 +35,13 @@ __all__ = [
     "preset",
 ]
 
-#: storage dtypes by config name; the kernels of this slice take float32 only
-DTYPES = ("float32",)
+#: model compute dtypes by config name (``ModelConfig.dtype``), as the JAX
+#: package's ``DTYPES``; "float32" is the exact fp32 path (compute dtype
+#: None), "bfloat16" runs bf16 products with fp32 accumulation
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+#: training step precisions (``TrainConfig.precision``): "bf16" trains f32
+#: master parameters through the bf16 compute model (``train/step.py``)
+PRECISIONS = ("fp32", "bf16")
 
 
 @dataclasses.dataclass
@@ -97,6 +105,8 @@ class ModelConfig:
     #: ``build_supports`` raises when more than this fraction of the plan's
     #: stored blocks would be all-zero padding
     tile_waste_budget: float = 0.75
+    #: compute dtype (:data:`DTYPES`): "bfloat16" serves and trains the
+    #: model in bf16 over float32 master parameters
     dtype: str = "float32"
 
     @property
@@ -107,6 +117,14 @@ class ModelConfig:
     def support_config(self) -> SupportConfig:
         return SupportConfig(self.kernel_type, self.K, self.bidirectional)
 
+    @property
+    def compute_dtype(self) -> Optional[torch.dtype]:
+        """The model's compute dtype: None (the fp32 path) for "float32",
+        as the JAX ``build_model`` passes it; raises on an unknown name."""
+        if self.dtype not in DTYPES:
+            raise ValueError(f"model.dtype must be one of {sorted(DTYPES)}, got {self.dtype!r}")
+        return None if self.dtype == "float32" else DTYPES[self.dtype]
+
 
 @dataclasses.dataclass
 class TrainConfig:
@@ -116,9 +134,10 @@ class TrainConfig:
 
     The port trains on one device from the window-free resident series.
     The fields in :data:`UNPORTED` belong to features it does not have yet
-    (streaming placement, sanitizers, fleet classes, the divergence guard,
-    bf16); setting one away from its default raises a ``ValueError`` naming
-    it, so nothing is silently ignored.
+    (streaming placement, sanitizers, fleet classes, the divergence guard);
+    setting one away from its default raises a ``ValueError`` naming it, so
+    nothing is silently ignored. ``precision`` is one of :data:`PRECISIONS`
+    and ``sr_seed`` needs ``precision="bf16"``, as the JAX trainer checks.
     """
 
     epochs: int = 100
@@ -153,7 +172,9 @@ class TrainConfig:
     divergence_action: str = "skip"
     divergence_patience: int = 3
     divergence_lr_cut: Optional[float] = None
+    #: "fp32" | "bf16": the training step's compute precision
     precision: str = "fp32"
+    #: stochastic rounding of the master -> bf16 casts (bf16 only)
     sr_seed: Optional[int] = None
     seed: int = 0
     out_dir: str = "output"
@@ -171,8 +192,6 @@ class TrainConfig:
         "divergence_action": ("skip",),
         "divergence_patience": (3,),
         "divergence_lr_cut": (None,),
-        "precision": ("fp32",),
-        "sr_seed": (None,),
     }
 
     def __post_init__(self):
@@ -184,6 +203,7 @@ class TrainConfig:
                     f"train.{name}={value!r} is not ported to the PyTorch port "
                     f"yet (it accepts {accepted}); see ROADMAP.md"
                 )
+        check_precision(self.precision, self.sr_seed, where="train.")
 
 
 @dataclasses.dataclass
@@ -316,6 +336,18 @@ class ServingConfig:
                     f"{b} — no program exists for it"
                 )
         return v
+
+
+def check_precision(precision: str, sr_seed: Optional[int], where: str = "") -> None:
+    """The JAX trainer's checks (``trainer.py:231-237``): a precision of
+    :data:`PRECISIONS` (fp16 is refused), and ``sr_seed`` only with bf16;
+    ``where`` prefixes the field names in the message."""
+    if precision not in PRECISIONS:
+        raise ValueError(f"{where}precision={precision!r}: precision must be one of "
+                         f"{PRECISIONS}")
+    if sr_seed is not None and precision != "bf16":
+        raise ValueError(f"{where}sr_seed={sr_seed!r}: sr_seed (stochastic rounding) "
+                         "requires precision='bf16'")
 
 
 def _known(cls, d: dict) -> dict:

@@ -1,5 +1,5 @@
-// Fused multi-layer LSTM backward (zero initial state), fp32 storage, for
-// Hopper (sm_90a).
+// Fused multi-layer LSTM backward (zero initial state), fp32 or bf16
+// storage, for Hopper (sm_90a).
 //
 // Replaces the TPU kernel `_bwd_kernel` in stmgcn_tpu/ops/pallas_lstm.py
 // (launched by `_fused_bwd`): the reverse sweep over t and layers that
@@ -51,6 +51,20 @@
 // 3. `reduce_partials`: sums the split-K partials in a fixed order.
 // Rows past R compute on zeros and are never stored. The cell math is fp32
 // with expf/tanhf (no fast-math).
+//
+// bf16 storage follows the JAX kernel at a bf16 storage dtype: the forward's
+// operands, its bf16 residuals hseq/cseq (the gates are recomputed from
+// those rounded states) and the cotangents gout/ghfin/gcfin arrive in bf16;
+// every product is one mma.sync m16n8k16 bf16 pass with fp32 accumulation,
+// its operands rounded to bf16 where `_mm` casts them (h from the bf16
+// hin tiles, dgates rounded from the fp32 dgates tile as each fragment is
+// loaded); dxp leaves in bf16. The layer >= 1 scratch keeps the unrounded
+// fp32 dgates, because db sums them unrounded (`jnp.sum(dgates)`), and
+// lstm_bwd_wgrad rounds them where they enter dW's product; dW and db are
+// fp32 sums (the wrapper rounds them to the weights' dtype, as
+// `_fused_bwd` does). The weight ring and the hin tiles hold bf16 at half
+// the bytes; the ring takes 32-row stages at H <= 64 and its depth is
+// derived from the bytes again. The fp32 instantiation is the kernel it was.
 
 #include <cuda_runtime.h>
 
@@ -71,23 +85,27 @@ constexpr int cmax(int a, int b) { return a > b ? a : b; }
 // on an H100 SXM (700 W) the sweep took 10.2 ms at 8 warps and 6.5 ms at
 // 16 in chip_smoke.py's dense training trace, at the same rows per CTA
 // and weight traffic.
-template <int H>
-using SweepTile = Tile<H, 16>;
-constexpr int NT = SweepTile<64>::Threads;
+template <int H, typename P>
+using SweepTile = Tile<H, 16, P>;
+constexpr int NT = SweepTile<64, F32>::Threads;
 
-template <int H, int L>
+// Sizes in elements of their own type (the storage type E for hin and the
+// ring, fp32 for dgates and dc), shared-memory sums in bytes.
+template <typename P, int H, int L>
 struct BwdPlan {
-    using C = SweepTile<H>;
+    using C = SweepTile<H, P>;
+    using E = typename P::T;
     static constexpr int HT = C::BR * C::HS;  // one hin tile
     static constexpr int hin = 2 * HT;        // h_below, h_prev
-    static constexpr int DS = 4 * H + 4;      // dgates tile row stride
+    static constexpr int DS = 4 * H + 4;      // dgates tile row stride (fp32)
     static constexpr int dgt = C::BR * DS;
     // dgates @ W^T reads W in column chunks of CC columns x all K rows, as
-    // many floats as a row chunk: CC = KC * 4H / K
+    // many elements as a row chunk: CC = KC * 4H / K; rows padded by 16 bytes
     static constexpr int CC0 = 4 * C::KC;  // K = H
     static constexpr int CC1 = 2 * C::KC;  // K = 2H
+    static constexpr int CP = 16 / sizeof(E);
     static constexpr int stage =
-        cmax(C::KC * C::WS, cmax(H * (CC0 + 4), 2 * H * (CC1 + 4)));
+        cmax(C::KC * C::WS, cmax(H * (CC0 + CP), 2 * H * (CC1 + CP)));
     // the cell-state cotangents dc live in shared memory, thread-private
     // (one float per thread per slot, so no bank conflicts), where that
     // leaves room for a ring of 3 or more stages; else in registers. At the
@@ -95,15 +113,18 @@ struct BwdPlan {
     // backward took 9.06-9.08 ms against 8.76-8.79 ms with dc in shared
     // memory (H100 SXM, 700 W; chip_smoke.py's phase 4 from both trees)
     static constexpr int dc_slots = L * C::MT * C::UT * 4;
+    static constexpr int fixed_bytes = sizeof(E) * hin + 4 * dgt;
     static constexpr bool dc_shared =
-        (hin + dgt + dc_slots * NT + 3 * stage) * 4 <= kSmemLimit;
+        fixed_bytes + 4 * dc_slots * NT + 3 * static_cast<int>(sizeof(E)) * stage <= kSmemLimit;
     static constexpr int dcs = dc_shared ? dc_slots * NT : 0;
     // a step's hin tiles are loaded with its first stage, S-1 stages ahead:
     // inside the previous step's dgates @ W^T stages (at least H / KC), once
     // its recompute has read the tiles it shares with them
-    static constexpr int S = ring_stages(hin + dgt + dcs, stage, H / C::KC + 1);
-    static constexpr int smem_bytes = 4 * (hin + dgt + dcs + S * stage);
+    static constexpr int S =
+        ring_stages(fixed_bytes + 4 * dcs, sizeof(E) * stage, H / C::KC + 1);
+    static constexpr int smem_bytes = fixed_bytes + 4 * dcs + S * sizeof(E) * stage;
     static_assert(smem_bytes <= kSmemLimit, "the sweep's tiles and ring fit in shared memory");
+    static_assert(sizeof(E) * hin % 16 == 0, "dgates and the ring start on 16-byte boundaries");
     static constexpr int Q0 = 2 * H / C::KC;      // stages of layer 0 per step
     static constexpr int Q1 = 4 * H / C::KC;      // of a layer >= 1
     static constexpr int Q = Q0 + (L - 1) * Q1;   // per step
@@ -111,54 +132,64 @@ struct BwdPlan {
 };
 
 // row chunk: KC rows of w (K x 4H) from row k0, stride WS
-template <int H>
-__device__ __forceinline__ void load_rows(float* dst, const float* w, int k0, int tid) {
-    using C = SweepTile<H>;
-    const float* src = w + static_cast<size_t>(k0) * 4 * H;
+template <typename P, int H>
+__device__ __forceinline__ void load_rows(typename P::T* dst, const typename P::T* w, int k0,
+                                          int tid) {
+    using C = SweepTile<H, P>;
+    constexpr int V = 16 / sizeof(typename P::T);  // elements per 16-byte copy
+    constexpr int PR = 4 * H / V;                  // copies per row
+    static_assert(C::KC * PR % NT == 0, "copies divide the block");
+    const typename P::T* src = w + static_cast<size_t>(k0) * 4 * H;
 #pragma unroll
-    for (int j = 0; j < C::KC * H / NT; ++j) {
+    for (int j = 0; j < C::KC * PR / NT; ++j) {
         const int i = tid + j * NT;
-        const int r = i / H, c = (i % H) * 4;
+        const int r = i / PR, c = (i % PR) * V;
         cp_async16(dst + r * C::WS + c, src + r * 4 * H + c, true);
     }
 }
 
-// column chunk: all K rows x CC columns of w (K x 4H) from column c0, stride CC + 4
-template <int H, int K, int CC>
-__device__ __forceinline__ void load_cols(float* dst, const float* w, int c0, int tid) {
-    constexpr int PR = CC / 4;  // 16-byte pieces per row
+// column chunk: all K rows x CC columns of w (K x 4H) from column c0,
+// stride CC + 16 bytes
+template <typename P, int H, int K, int CC>
+__device__ __forceinline__ void load_cols(typename P::T* dst, const typename P::T* w, int c0,
+                                          int tid) {
+    constexpr int V = 16 / sizeof(typename P::T);
+    constexpr int PR = CC / V;  // 16-byte pieces per row
     static_assert(K * PR % NT == 0, "pieces divide the block");
 #pragma unroll
     for (int j = 0; j < K * PR / NT; ++j) {
         const int i = tid + j * NT;
-        const int r = i / PR, c = (i % PR) * 4;
-        cp_async16(dst + r * (CC + 4) + c, w + static_cast<size_t>(r) * 4 * H + c0 + c, true);
+        const int r = i / PR, c = (i % PR) * V;
+        cp_async16(dst + r * (CC + V) + c, w + static_cast<size_t>(r) * 4 * H + c0 + c, true);
     }
 }
 
-// Layouts (M = branches, leading everywhere):
+// Layouts (M = branches, leading everywhere; E the storage type):
 //   xp (M, R, T, 4H); wh0 (M, H, 4H); wxh (M, max(L-1,1), 2H, 4H);
 //   bias (M, max(L-1,1), 4H); hseq/cseq (M, T, L, R, H); gout (M, R, T, H);
-//   ghfin/gcfin (M, L, R, H); dxp (M, R, T, 4H); dg (M, T, L-1, R, 4H).
-template <int H, int L>
+//   ghfin/gcfin (M, L, R, H); dxp (M, R, T, 4H), all E; dg (M, T, L-1, R,
+//   4H) fp32.
+template <typename P, int H, int L>
 __global__ void __launch_bounds__(NT, 1)
-lstm_bwd_sweep(const float* __restrict__ xp, const float* __restrict__ wh0,
-               const float* __restrict__ wxh, const float* __restrict__ bias,
-               const float* __restrict__ hseq, const float* __restrict__ cseq,
-               const float* __restrict__ gout, const float* __restrict__ ghfin,
-               const float* __restrict__ gcfin, float* __restrict__ dxp,
+lstm_bwd_sweep(const typename P::T* __restrict__ xp, const typename P::T* __restrict__ wh0,
+               const typename P::T* __restrict__ wxh, const typename P::T* __restrict__ bias,
+               const typename P::T* __restrict__ hseq, const typename P::T* __restrict__ cseq,
+               const typename P::T* __restrict__ gout, const typename P::T* __restrict__ ghfin,
+               const typename P::T* __restrict__ gcfin, typename P::T* __restrict__ dxp,
                float* __restrict__ dg, int R, int T) {
-    using C = SweepTile<H>;
-    using P = BwdPlan<H, L>;
-    constexpr int S = P::S, KC = C::KC, HS = C::HS, WS = C::WS, BR = C::BR;
-    constexpr int MT = C::MT, UT = C::UT, H4 = 4 * H, DS = P::DS, HT = P::HT;
+    using C = SweepTile<H, P>;
+    using Pl = BwdPlan<P, H, L>;
+    using E = typename P::T;
+    constexpr int S = Pl::S, KC = C::KC, HS = C::HS, WS = C::WS, BR = C::BR;
+    constexpr int MT = C::MT, UT = C::UT, H4 = 4 * H, DS = Pl::DS, HT = Pl::HT;
     constexpr int LW = L > 1 ? L - 1 : 1;
+    constexpr int V = 16 / sizeof(E);
 
     extern __shared__ float4 smem4[];
-    float* hin = reinterpret_cast<float*>(smem4);
-    float* dgt = hin + P::hin;
-    float* dcs = dgt + P::dgt;
-    float* ring = dcs + P::dcs;
+    E* hin = reinterpret_cast<E*>(smem4);
+    float* dgt = reinterpret_cast<float*>(hin + Pl::hin);
+    float* dcs = dgt + Pl::dgt;
+    E* ring = reinterpret_cast<E*>(dcs + Pl::dcs);
 
     const int tid = threadIdx.x;
     const int warp = tid >> 5, lane = tid & 31;
@@ -183,39 +214,40 @@ lstm_bwd_sweep(const float* __restrict__ xp, const float* __restrict__ wh0,
         return ((static_cast<size_t>(t) * L + l) * R + row) * H;
     };
 
-    const int total = T * P::Q;
+    const int total = T * Pl::Q;
     // Stage n of the stream: step (t, l) in reverse order, then its recompute
     // row chunks and its dgates @ W^T column chunks. A step's first stage
     // also brings its hin tiles (zeros past R and at t = 0).
     auto issue = [&](int n) {
         if (n < total) {
-            const int step_t = n / P::Q;
+            const int step_t = n / Pl::Q;
             const int t = T - 1 - step_t;
-            const int p = n % P::Q;
+            const int p = n % Pl::Q;
             int l, r;
-            if (p < (L - 1) * P::Q1) {
-                l = L - 1 - p / P::Q1;
-                r = p % P::Q1;
+            if (p < (L - 1) * Pl::Q1) {
+                l = L - 1 - p / Pl::Q1;
+                r = p % Pl::Q1;
             } else {
                 l = 0;
-                r = p - (L - 1) * P::Q1;
+                r = p - (L - 1) * Pl::Q1;
             }
-            float* dst = ring + (n % S) * P::stage;
+            E* dst = ring + (n % S) * Pl::stage;
             if (l == 0) {
-                if (r < H / KC) load_rows<H>(dst, wh0, r * KC, tid);
-                else load_cols<H, H, P::CC0>(dst, wh0, (r - H / KC) * P::CC0, tid);
+                if (r < H / KC) load_rows<P, H>(dst, wh0, r * KC, tid);
+                else load_cols<P, H, H, Pl::CC0>(dst, wh0, (r - H / KC) * Pl::CC0, tid);
             } else {
-                const float* w = wxh + static_cast<size_t>(l - 1) * 2 * H * H4;
-                if (r < 2 * H / KC) load_rows<H>(dst, w, r * KC, tid);
-                else load_cols<H, 2 * H, P::CC1>(dst, w, (r - 2 * H / KC) * P::CC1, tid);
+                const E* w = wxh + static_cast<size_t>(l - 1) * 2 * H * H4;
+                if (r < 2 * H / KC) load_rows<P, H>(dst, w, r * KC, tid);
+                else load_cols<P, H, 2 * H, Pl::CC1>(dst, w, (r - 2 * H / KC) * Pl::CC1, tid);
             }
             if (r == 0) {
-                float* hb = hin;
-                constexpr int PR = H / 4;
+                E* hb = hin;
+                constexpr int PR = H / V;
+                static_assert(BR * PR % NT == 0, "hin copies divide the block");
 #pragma unroll
                 for (int j = 0; j < BR * PR / NT; ++j) {
                     const int i = tid + j * NT;
-                    const int rr = i / PR, c = (i % PR) * 4;
+                    const int rr = i / PR, c = (i % PR) * V;
                     const int row = row_base + rr;
                     const bool live = row < R;
                     const int srow = live ? row : 0;
@@ -233,9 +265,9 @@ lstm_bwd_sweep(const float* __restrict__ xp, const float* __restrict__ wh0,
     for (int s = 0; s < S - 1; ++s) issue(s);
 
     float dh[L][MT][UT][4];
-    float dc_reg[P::dc_shared ? 1 : L][MT][UT][4];
+    float dc_reg[Pl::dc_shared ? 1 : L][MT][UT][4];
     auto dc = [&](int l, int mt, int ut, int e) -> float& {
-        if constexpr (P::dc_shared)
+        if constexpr (Pl::dc_shared)
             return dcs[(((l * MT + mt) * UT + ut) * 4 + e) * NT + tid];
         else
             return dc_reg[l][mt][ut][e];
@@ -253,8 +285,8 @@ lstm_bwd_sweep(const float* __restrict__ xp, const float* __restrict__ wh0,
                     if (row < R) {
                         const size_t o = ((static_cast<size_t>(m) * L + l) * R + row) * H +
                                          wunit + ut * 8 + 2 * q;
-                        a = *reinterpret_cast<const float2*>(ghfin + o);
-                        b = *reinterpret_cast<const float2*>(gcfin + o);
+                        a = load2(ghfin + o);
+                        b = load2(gcfin + o);
                     }
                     dh[l][mt][ut][2 * hf] = a.x;
                     dh[l][mt][ut][2 * hf + 1] = a.y;
@@ -273,8 +305,8 @@ lstm_bwd_sweep(const float* __restrict__ xp, const float* __restrict__ wh0,
                 if (row >= R) continue;
 #pragma unroll
                 for (int ut = 0; ut < UT; ++ut) {
-                    const float2 v = *reinterpret_cast<const float2*>(
-                        gout + (static_cast<size_t>(row) * T + t) * H + wunit + ut * 8 + 2 * q);
+                    const float2 v =
+                        load2(gout + (static_cast<size_t>(row) * T + t) * H + wunit + ut * 8 + 2 * q);
                     dh[L - 1][mt][ut][2 * hf] += v.x;
                     dh[L - 1][mt][ut][2 * hf + 1] += v.y;
                 }
@@ -283,8 +315,8 @@ lstm_bwd_sweep(const float* __restrict__ xp, const float* __restrict__ wh0,
         for (int li = 0; li < L; ++li) {
             const int l = L - 1 - li;
             const int K = l == 0 ? H : 2 * H;
-            const float* hb = hin;       // h_below
-            const float* hp = hin + HT;  // h_prev
+            const E* hb = hin;       // h_below
+            const E* hp = hin + HT;  // h_prev
 
             // this step's cell states, loaded now, read after the recompute
             float2 c_t[MT][2][UT], c_prev[MT][2][UT];
@@ -298,11 +330,8 @@ lstm_bwd_sweep(const float* __restrict__ xp, const float* __restrict__ wh0,
                         const int unit = wunit + ut * 8 + 2 * q;
                         c_t[mt][hf][ut] = c_prev[mt][hf][ut] = make_float2(0.0f, 0.0f);
                         if (row < R) {
-                            c_t[mt][hf][ut] =
-                                *reinterpret_cast<const float2*>(cseq + seq_at(t, l, row) + unit);
-                            if (t > 0)
-                                c_prev[mt][hf][ut] = *reinterpret_cast<const float2*>(
-                                    cseq + seq_at(t - 1, l, row) + unit);
+                            c_t[mt][hf][ut] = load2(cseq + seq_at(t, l, row) + unit);
+                            if (t > 0) c_prev[mt][hf][ut] = load2(cseq + seq_at(t - 1, l, row) + unit);
                         }
                     }
                 }
@@ -322,10 +351,9 @@ lstm_bwd_sweep(const float* __restrict__ xp, const float* __restrict__ wh0,
                             float2 v = make_float2(0.0f, 0.0f);
                             if (l == 0) {
                                 if (row < R)
-                                    v = *reinterpret_cast<const float2*>(
-                                        xp + (static_cast<size_t>(row) * T + t) * H4 + col);
+                                    v = load2(xp + (static_cast<size_t>(row) * T + t) * H4 + col);
                             } else {
-                                v = *reinterpret_cast<const float2*>(bias + (l - 1) * H4 + col);
+                                v = load2(bias + (l - 1) * H4 + col);
                             }
                             acc[mt][gt][ut][2 * hf] = v.x;
                             acc[mt][gt][ut][2 * hf + 1] = v.y;
@@ -336,12 +364,12 @@ lstm_bwd_sweep(const float* __restrict__ xp, const float* __restrict__ wh0,
                 cp_async_wait<S - 2>();
                 __syncthreads();
                 issue(n + S - 1);
-                const float* wt = ring + (n % S) * P::stage;
-                const float* a = l == 0 ? hp + k0 : k0 < H ? hb + k0 : hp + (k0 - H);
+                const E* wt = ring + (n % S) * Pl::stage;
+                const E* a = l == 0 ? hp + k0 : k0 < H ? hb + k0 : hp + (k0 - H);
                 a += wrow * HS;
 #pragma unroll
-                for (int kk = 0; kk < KC; kk += 8) {
-                    FragA fa[MT];
+                for (int kk = 0; kk < KC; kk += P::KS) {
+                    typename P::FA fa[MT];
 #pragma unroll
                     for (int mt = 0; mt < MT; ++mt)
                         load_a(fa[mt], a + mt * 16 * HS + kk, HS, g, q);
@@ -349,10 +377,10 @@ lstm_bwd_sweep(const float* __restrict__ xp, const float* __restrict__ wh0,
                     for (int gt = 0; gt < 4; ++gt)
 #pragma unroll
                         for (int ut = 0; ut < UT; ++ut) {
-                            FragB fb;
+                            typename P::FB fb;
                             load_b(fb, wt + kk * WS + gt * H + wunit + ut * 8, WS, g, q);
 #pragma unroll
-                            for (int mt = 0; mt < MT; ++mt) mma3(acc[mt][gt][ut], fa[mt], fb);
+                            for (int mt = 0; mt < MT; ++mt) P::mma(acc[mt][gt][ut], fa[mt], fb);
                         }
                 }
             }
@@ -400,12 +428,13 @@ lstm_bwd_sweep(const float* __restrict__ xp, const float* __restrict__ wh0,
             // (c) dh through the weights: dgates @ W^T, W read transposed from
             // its column chunks; h_below's part adds to dh[l-1], h_prev's is
             // dh[l] for step t-1. Meanwhile the dgates tile goes out to dxp
-            // (layer 0) or the scratch lstm_bwd_wgrad reads (layers >= 1) in
-            // 16-byte pieces, whole rows per warp, a share in each stage.
-            const int CC = l == 0 ? P::CC0 : P::CC1;
-            float* out = l == 0 ? dxp + static_cast<size_t>(t) * H4
-                                : dg + (static_cast<size_t>(t) * LW + (l > 0 ? l - 1 : 0)) * R * H4;
-            const size_t row_stride = l == 0 ? static_cast<size_t>(T) * H4 : H4;
+            // (layer 0, in the storage type) or the fp32 scratch
+            // lstm_bwd_wgrad reads (layers >= 1) in 16-byte pieces of the
+            // tile, whole rows per warp, a share in each stage.
+            const int CC = l == 0 ? Pl::CC0 : Pl::CC1;
+            const int CCS = CC + 16 / static_cast<int>(sizeof(E));
+            E* out0 = dxp + static_cast<size_t>(t) * H4;
+            float* out1 = dg + (static_cast<size_t>(t) * LW + (l > 0 ? l - 1 : 0)) * R * H4;
             const int out_stride = (H4 / CC) * NT;  // pieces apart per thread
 #pragma unroll 1
             for (int c0 = 0; c0 < H4; c0 += CC, ++n) {
@@ -414,31 +443,35 @@ lstm_bwd_sweep(const float* __restrict__ xp, const float* __restrict__ wh0,
                 issue(n + S - 1);
                 for (int p = tid + (c0 / CC) * NT; p < BR * H; p += out_stride) {
                     const int rr = p / H, c = (p % H) * 4;
-                    if (row_base + rr < R)
-                        *reinterpret_cast<float4*>(out + (row_base + rr) * row_stride + c) =
-                            *reinterpret_cast<const float4*>(dgt + rr * DS + c);
+                    if (row_base + rr < R) {
+                        const float4 v = *reinterpret_cast<const float4*>(dgt + rr * DS + c);
+                        if (l == 0)
+                            store4(out0 + (row_base + rr) * static_cast<size_t>(T) * H4 + c, v);
+                        else
+                            store4(out1 + (row_base + rr) * static_cast<size_t>(H4) + c, v);
+                    }
                 }
-                const float* wt = ring + (n % S) * P::stage;
+                const E* wt = ring + (n % S) * Pl::stage;
                 // this chunk's sums start from zero and join dh with an fp32
                 // add (round to nearest): the tensor cores' own accumulation
                 // truncates, and over all 4H columns at once that biases dh
                 float below[MT][UT][4] = {}, rec[MT][UT][4] = {};
 #pragma unroll
-                for (int kk = 0; kk < CC; kk += 8) {
-                    FragA fa[MT];
+                for (int kk = 0; kk < CC; kk += P::KS) {
+                    typename P::FA fa[MT];
 #pragma unroll
                     for (int mt = 0; mt < MT; ++mt)
                         load_a(fa[mt], dgt + (wrow + mt * 16) * DS + c0 + kk, DS, g, q);
 #pragma unroll
                     for (int ut = 0; ut < UT; ++ut) {
-                        FragB fb;
-                        load_b_t(fb, wt + (wunit + ut * 8) * (CC + 4) + kk, CC + 4, g, q);
+                        typename P::FB fb;
+                        load_b_t(fb, wt + (wunit + ut * 8) * CCS + kk, CCS, g, q);
 #pragma unroll
-                        for (int mt = 0; mt < MT; ++mt) mma3(below[mt][ut], fa[mt], fb);
+                        for (int mt = 0; mt < MT; ++mt) P::mma(below[mt][ut], fa[mt], fb);
                         if (l > 0) {
-                            load_b_t(fb, wt + (H + wunit + ut * 8) * (CC + 4) + kk, CC + 4, g, q);
+                            load_b_t(fb, wt + (H + wunit + ut * 8) * CCS + kk, CCS, g, q);
 #pragma unroll
-                            for (int mt = 0; mt < MT; ++mt) mma3(rec[mt][ut], fa[mt], fb);
+                            for (int mt = 0; mt < MT; ++mt) P::mma(rec[mt][ut], fa[mt], fb);
                         }
                     }
                 }
@@ -462,24 +495,27 @@ lstm_bwd_sweep(const float* __restrict__ xp, const float* __restrict__ wh0,
 // Weight gradients: split-K tiles of 64 (k) x 128 (gate column) over
 // chunks of kChunk (t, r) rows, 32 rows per ring stage.
 constexpr int kWK = 64, kWC = 128, kWN = 32, kWStages = 3;
-constexpr int kWAS = kWK + 8, kWBS = kWC + 8;  // padded slab strides
 constexpr int kChunk = 4096;
-constexpr int kWSmem = 4 * kWStages * kWN * (kWAS + kWBS);
+// slab rows padded by kWPad elements of the slab's type (72 and 136 per row)
+constexpr int kWPad = 8;
+constexpr int kWSmem = 4 * kWStages * kWN * (kWK + kWPad + kWC + kWPad);  // fp32 slabs, the largest
 
-// Grid: (k-tiles x c-tiles, chunks, M * L); x = ct * k_tiles + kt, so the
-// k-tiles that read the same dgates slab are neighbours. The CTA sums
-// hin[n, k] * dgates[n, c] over its chunk's rows n = t * R + r and writes
-// its tile to part[chunk], laid out as dwh0 (M, H, 4H), dwxh (M, L-1, 2H,
-// 4H), then db (M, L-1, 4H); the kt == 0 CTAs of layers >= 1 also sum
-// their dgates columns into db.
-__global__ void __launch_bounds__(kThreads, 2)
-lstm_bwd_wgrad(const float* __restrict__ hseq, const float* __restrict__ dxp,
-               const float* __restrict__ dg, float* __restrict__ part, int M,
-               int R, int T, int L, int H) {
+// One CTA's tile of hin^T dgates over its chunk: A from hseq (storage type
+// E), B from dxp (E, layer 0) or the fp32 scratch dg (layers >= 1, TB =
+// float); each slab's product summed from zero and added in fp32.
+template <typename P, typename TB>
+__device__ __forceinline__ void wgrad_body(const typename P::T* __restrict__ hseq,
+                                           const TB* __restrict__ bsrc, float* __restrict__ part,
+                                           float* red, int M, int R, int T, int L, int H) {
+    using E = typename P::T;
+    constexpr int kWAS = kWK + kWPad, kWBS = kWC + kWPad;
+    constexpr int VA = 16 / sizeof(E), VB = 16 / sizeof(TB);
     extern __shared__ float4 smem4[];
-    float* As = reinterpret_cast<float*>(smem4);  // [stage][n][k]
-    float* Bs = As + kWStages * kWN * kWAS;      // [stage][n][c]
-    __shared__ float red[kThreads];
+    E* As = reinterpret_cast<E*>(smem4);           // [stage][n][k]
+    TB* Bs = reinterpret_cast<TB*>(As + kWStages * kWN * kWAS);  // [stage][n][c]
+    static_assert(sizeof(E) * kWStages * kWN * kWAS % 16 == 0, "B slabs 16-byte aligned");
+    static_assert(sizeof(E) * kWStages * kWN * kWAS + sizeof(TB) * kWStages * kWN * kWBS <=
+                      kWSmem, "slabs fit the launch's shared memory");
 
     const int m = blockIdx.z / L;
     const int l = blockIdx.z % L;
@@ -502,14 +538,14 @@ lstm_bwd_wgrad(const float* __restrict__ hseq, const float* __restrict__ dxp,
     const int g = lane >> 2, q = lane & 3;
     const int wk = warp / 4, wc = warp % 4;  // warp tile: 32 k x 32 c
 
-    const float* hs = hseq + static_cast<size_t>(m) * T * L * R * H;
+    const E* hs = hseq + static_cast<size_t>(m) * T * L * R * H;
     // (t, r) of the next slab's first row n = t * R + r, advanced one slab
     // per issue (slabs are issued in order), so no division per load
     int t_next = static_cast<int>(n_begin / R), r_next = static_cast<int>(n_begin % R);
     auto issue = [&](int s) {
         if (s < stages) {
-            float* a_dst = As + (s % kWStages) * kWN * kWAS;
-            float* b_dst = Bs + (s % kWStages) * kWN * kWBS;
+            E* a_dst = As + (s % kWStages) * kWN * kWAS;
+            TB* b_dst = Bs + (s % kWStages) * kWN * kWBS;
             const long long n0 = n_begin + static_cast<long long>(s) * kWN;
             auto row_at = [&](int rr, int& t, int& r) {  // rr < kWN
                 t = t_next;
@@ -520,11 +556,11 @@ lstm_bwd_wgrad(const float* __restrict__ hseq, const float* __restrict__ dxp,
                 }
             };
 #pragma unroll
-            for (int j = 0; j < kWN * kWK / 4 / kThreads; ++j) {
+            for (int j = 0; j < kWN * kWK / VA / kThreads; ++j) {
                 const int i = tid + j * kThreads;
-                const int rr = i / (kWK / 4), kc = (i % (kWK / 4)) * 4;
+                const int rr = i / (kWK / VA), kc = (i % (kWK / VA)) * VA;
                 const int k = kt * kWK + kc;
-                const float* src = hs;
+                const E* src = hs;
                 bool valid = false;
                 if (n0 + rr < n_end && k < K) {
                     int t, r;
@@ -539,18 +575,18 @@ lstm_bwd_wgrad(const float* __restrict__ hseq, const float* __restrict__ dxp,
                 cp_async16(a_dst + rr * kWAS + kc, src, valid);
             }
 #pragma unroll
-            for (int j = 0; j < kWN * kWC / 4 / kThreads; ++j) {
+            for (int j = 0; j < kWN * kWC / VB / kThreads; ++j) {
                 const int i = tid + j * kThreads;
-                const int rr = i / (kWC / 4), cc = (i % (kWC / 4)) * 4;
+                const int rr = i / (kWC / VB), cc = (i % (kWC / VB)) * VB;
                 const int c = ct * kWC + cc;
-                const float* src = dxp;
+                const TB* src = bsrc;
                 const bool valid = n0 + rr < n_end;
                 if (valid) {
                     int t, r;
                     row_at(rr, t, r);
                     src = l == 0
-                        ? dxp + ((static_cast<size_t>(m) * R + r) * T + t) * H4 + c
-                        : dg + (((static_cast<size_t>(m) * T + t) * LW + (l - 1)) * R + r) * H4 + c;
+                        ? bsrc + ((static_cast<size_t>(m) * R + r) * T + t) * H4 + c
+                        : bsrc + (((static_cast<size_t>(m) * T + t) * LW + (l - 1)) * R + r) * H4 + c;
                 }
                 cp_async16(b_dst + rr * kWBS + cc, src, valid);
             }
@@ -571,29 +607,29 @@ lstm_bwd_wgrad(const float* __restrict__ hseq, const float* __restrict__ dxp,
         cp_async_wait<kWStages - 2>();
         __syncthreads();
         issue(s + kWStages - 1);
-        const float* a = As + (s % kWStages) * kWN * kWAS;
-        const float* b = Bs + (s % kWStages) * kWN * kWBS;
+        const E* a = As + (s % kWStages) * kWN * kWAS;
+        const TB* b = Bs + (s % kWStages) * kWN * kWBS;
         if (with_db) {  // this thread's column, its half of the slab's rows, in order
-            const float* col = b + (tid >> 7) * (kWN / 2) * kWBS + (tid & 127);
+            const TB* col = b + (tid >> 7) * (kWN / 2) * kWBS + (tid & 127);
 #pragma unroll
-            for (int r = 0; r < kWN / 2; ++r) db_sum += col[r * kWBS];
+            for (int r = 0; r < kWN / 2; ++r) db_sum += to_f32(col[r * kWBS]);
         }
         // the slab's sums start from zero and join acc with an fp32 add
         // (round to nearest): the tensor cores' own accumulation truncates,
         // which over a 4,096-row chunk would bias the sum toward zero
         float part_acc[2][4][4] = {};
 #pragma unroll
-        for (int kk = 0; kk < kWN; kk += 8) {
-            FragA fa[2];
+        for (int kk = 0; kk < kWN; kk += P::KS) {
+            typename P::FA fa[2];
 #pragma unroll
             for (int mt = 0; mt < 2; ++mt)
                 load_a_t(fa[mt], a + kk * kWAS + wk * 32 + mt * 16, kWAS, g, q);
 #pragma unroll
             for (int nt = 0; nt < 4; ++nt) {
-                FragB fb;
+                typename P::FB fb;
                 load_b(fb, b + kk * kWBS + wc * 32 + nt * 8, kWBS, g, q);
 #pragma unroll
-                for (int mt = 0; mt < 2; ++mt) mma3(part_acc[mt][nt], fa[mt], fb);
+                for (int mt = 0; mt < 2; ++mt) P::mma(part_acc[mt][nt], fa[mt], fb);
             }
         }
 #pragma unroll
@@ -629,6 +665,28 @@ lstm_bwd_wgrad(const float* __restrict__ hseq, const float* __restrict__ dxp,
         if (tid < kWC)
             base[dw0 + dwx + (static_cast<size_t>(m) * (L - 1) + (l - 1)) * H4 + ct * kWC + tid] =
                 red[tid] + red[tid + kWC];
+    }
+}
+
+// Grid: (k-tiles x c-tiles, chunks, M * L); x = ct * k_tiles + kt, so the
+// k-tiles that read the same dgates slab are neighbours. The CTA sums
+// hin[n, k] * dgates[n, c] over its chunk's rows n = t * R + r and writes
+// its tile to part[chunk], laid out as dwh0 (M, H, 4H), dwxh (M, L-1, 2H,
+// 4H), then db (M, L-1, 4H); the kt == 0 CTAs of layers >= 1 also sum
+// their dgates columns into db.
+template <typename P>
+__global__ void __launch_bounds__(kThreads, 2)
+lstm_bwd_wgrad(const typename P::T* __restrict__ hseq, const typename P::T* __restrict__ dxp,
+               const float* __restrict__ dg, float* __restrict__ part, int M, int R, int T,
+               int L, int H) {
+    __shared__ float red[kThreads];
+    if constexpr (sizeof(typename P::T) == 4) {
+        wgrad_body<P, float>(hseq, blockIdx.z % L == 0 ? dxp : dg, part, red, M, R, T, L, H);
+    } else {
+        if (blockIdx.z % L == 0)
+            wgrad_body<P, typename P::T>(hseq, dxp, part, red, M, R, T, L, H);
+        else
+            wgrad_body<P, float>(hseq, dg, part, red, M, R, T, L, H);
     }
 }
 
@@ -671,10 +729,10 @@ Plan plan(int M, int R, int T, int L, int H, int block_rows) {
 
 int block_rows(int H) {
     switch (H) {
-        case 32: return SweepTile<32>::BR;
-        case 64: return SweepTile<64>::BR;
-        case 128: return SweepTile<128>::BR;
-        case 256: return SweepTile<256>::BR;
+        case 32: return SweepTile<32, F32>::BR;
+        case 64: return SweepTile<64, F32>::BR;
+        case 128: return SweepTile<128, F32>::BR;
+        case 256: return SweepTile<256, F32>::BR;
         default: return 0;
     }
 }
@@ -683,100 +741,83 @@ bool bad_shape(int M, int R, int T, int L, int H) {
     return block_rows(H) == 0 || M < 1 || R < 1 || T < 1 || L < 1 || L > 4;
 }
 
-template <int H, int L>
-cudaError_t launch_sweep(const Plan& p, const float* xp, const float* wh0,
-                         const float* wxh, const float* bias, const float* hseq,
-                         const float* cseq, const float* gout, const float* ghfin,
-                         const float* gcfin, float* dxp, float* dg, int M, int R,
-                         int T, cudaStream_t stream) {
-    constexpr int smem = BwdPlan<H, L>::smem_bytes;
+struct Ptrs {
+    const void *xp, *wh0, *wxh, *bias, *hseq, *cseq, *gout, *ghfin, *gcfin;
+    void* dxp;
+    float* dg;
+};
+
+template <typename P, int H, int L>
+cudaError_t launch_sweep(const Plan& p, const Ptrs& a, int M, int R, int T,
+                         cudaStream_t stream) {
+    using E = typename P::T;
+    constexpr int smem = BwdPlan<P, H, L>::smem_bytes;
     cudaError_t err = cudaFuncSetAttribute(
-        lstm_bwd_sweep<H, L>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        lstm_bwd_sweep<P, H, L>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return err;
     const dim3 grid(p.row_blocks, M);
-    lstm_bwd_sweep<H, L><<<grid, NT, smem, stream>>>(
-        xp, wh0, wxh, bias, hseq, cseq, gout, ghfin, gcfin, dxp, dg, R, T);
+    lstm_bwd_sweep<P, H, L><<<grid, NT, smem, stream>>>(
+        static_cast<const E*>(a.xp), static_cast<const E*>(a.wh0), static_cast<const E*>(a.wxh),
+        static_cast<const E*>(a.bias), static_cast<const E*>(a.hseq),
+        static_cast<const E*>(a.cseq), static_cast<const E*>(a.gout),
+        static_cast<const E*>(a.ghfin), static_cast<const E*>(a.gcfin),
+        static_cast<E*>(a.dxp), a.dg, R, T);
     return cudaGetLastError();
 }
 
-template <int H>
-cudaError_t sweep_h(int L, const Plan& p, const float* xp, const float* wh0,
-                    const float* wxh, const float* bias, const float* hseq,
-                    const float* cseq, const float* gout, const float* ghfin,
-                    const float* gcfin, float* dxp, float* dg, int M, int R, int T,
-                    cudaStream_t s) {
+template <typename P, int H>
+cudaError_t sweep_h(int L, const Plan& p, const Ptrs& a, int M, int R, int T, cudaStream_t s) {
     switch (L) {
-        case 1: return launch_sweep<H, 1>(p, xp, wh0, wxh, bias, hseq, cseq, gout, ghfin, gcfin, dxp, dg, M, R, T, s);
-        case 2: return launch_sweep<H, 2>(p, xp, wh0, wxh, bias, hseq, cseq, gout, ghfin, gcfin, dxp, dg, M, R, T, s);
-        case 3: return launch_sweep<H, 3>(p, xp, wh0, wxh, bias, hseq, cseq, gout, ghfin, gcfin, dxp, dg, M, R, T, s);
-        default: return launch_sweep<H, 4>(p, xp, wh0, wxh, bias, hseq, cseq, gout, ghfin, gcfin, dxp, dg, M, R, T, s);
+        case 1: return launch_sweep<P, H, 1>(p, a, M, R, T, s);
+        case 2: return launch_sweep<P, H, 2>(p, a, M, R, T, s);
+        case 3: return launch_sweep<P, H, 3>(p, a, M, R, T, s);
+        default: return launch_sweep<P, H, 4>(p, a, M, R, T, s);
     }
 }
 
-template <int H>
+template <typename P, int H>
 int smem_h(int L) {
     switch (L) {
-        case 1: return BwdPlan<H, 1>::smem_bytes;
-        case 2: return BwdPlan<H, 2>::smem_bytes;
-        case 3: return BwdPlan<H, 3>::smem_bytes;
-        case 4: return BwdPlan<H, 4>::smem_bytes;
+        case 1: return BwdPlan<P, H, 1>::smem_bytes;
+        case 2: return BwdPlan<P, H, 2>::smem_bytes;
+        case 3: return BwdPlan<P, H, 3>::smem_bytes;
+        case 4: return BwdPlan<P, H, 4>::smem_bytes;
         default: return 0;
     }
 }
 
-}  // namespace
-
-// Floats of scratch the backward needs (layer >= 1 dgates, split-K
-// weight-gradient partials); the wrapper allocates them.
-extern "C" size_t stmgcn_lstm_bwd_workspace(int M, int R, int T, int L, int H) {
-    if (bad_shape(M, R, T, L, H)) return 0;
-    const Plan p = plan(M, R, T, L, H, block_rows(H));
-    return p.dg_floats + p.chunks * p.dw_floats;
-}
-
-// Dynamic shared memory (bytes) of one sweep CTA at (L, H), and of one
-// weight-gradient CTA (L = 0); 0 for a shape the kernel does not take.
-extern "C" int stmgcn_lstm_bwd_smem(int L, int H) {
-    if (L == 0) return kWSmem;
+template <typename P>
+int smem_p(int L, int H) {
     switch (H) {
-        case 32: return smem_h<32>(L);
-        case 64: return smem_h<64>(L);
-        case 128: return smem_h<128>(L);
-        case 256: return smem_h<256>(L);
+        case 32: return smem_h<P, 32>(L);
+        case 64: return smem_h<P, 64>(L);
+        case 128: return smem_h<P, 128>(L);
+        case 256: return smem_h<P, 256>(L);
         default: return 0;
     }
 }
 
-// C entry point bound with ctypes. Returns a cudaError_t (0 = launched).
-// H in {32, 64, 128, 256}, 1 <= L <= 4; every pointer 16-byte aligned. For
-// L == 1, dwxh and db are placeholders that are not written.
-extern "C" int stmgcn_lstm_bwd(const float* xp, const float* wh0, const float* wxh,
-                               const float* bias, const float* hseq,
-                               const float* cseq, const float* gout,
-                               const float* ghfin, const float* gcfin, float* dxp,
-                               float* dwh0, float* dwxh, float* db,
-                               float* workspace, int M, int R, int T, int L, int H,
-                               void* stream) {
-    if (bad_shape(M, R, T, L, H)) return static_cast<int>(cudaErrorInvalidValue);
-    cudaStream_t s = static_cast<cudaStream_t>(stream);
-    const Plan p = plan(M, R, T, L, H, block_rows(H));
-    float* dg = workspace;
-    float* part = dg + p.dg_floats;
-
+template <typename P>
+int run(const Ptrs& a, float* dwh0, float* dwxh, float* db, float* part, const Plan& p, int M,
+        int R, int T, int L, int H, cudaStream_t s) {
+    using E = typename P::T;
     cudaError_t err;
     switch (H) {
-        case 32: err = sweep_h<32>(L, p, xp, wh0, wxh, bias, hseq, cseq, gout, ghfin, gcfin, dxp, dg, M, R, T, s); break;
-        case 64: err = sweep_h<64>(L, p, xp, wh0, wxh, bias, hseq, cseq, gout, ghfin, gcfin, dxp, dg, M, R, T, s); break;
-        case 128: err = sweep_h<128>(L, p, xp, wh0, wxh, bias, hseq, cseq, gout, ghfin, gcfin, dxp, dg, M, R, T, s); break;
-        default: err = sweep_h<256>(L, p, xp, wh0, wxh, bias, hseq, cseq, gout, ghfin, gcfin, dxp, dg, M, R, T, s); break;
+        case 32: err = sweep_h<P, 32>(L, p, a, M, R, T, s); break;
+        case 64: err = sweep_h<P, 64>(L, p, a, M, R, T, s); break;
+        case 128: err = sweep_h<P, 128>(L, p, a, M, R, T, s); break;
+        default: err = sweep_h<P, 256>(L, p, a, M, R, T, s); break;
     }
     if (err != cudaSuccess) return static_cast<int>(err);
 
-    err = cudaFuncSetAttribute(lstm_bwd_wgrad, cudaFuncAttributeMaxDynamicSharedMemorySize, kWSmem);
+    err = cudaFuncSetAttribute(lstm_bwd_wgrad<P>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               kWSmem);
     if (err != cudaSuccess) return static_cast<int>(err);
     const int max_tiles = ((2 * H + kWK - 1) / kWK) * (4 * H / kWC);
     const dim3 wgrid(max_tiles, p.chunks, M * L);
-    lstm_bwd_wgrad<<<wgrid, kThreads, kWSmem, s>>>(hseq, dxp, dg, part, M, R, T, L, H);
+    lstm_bwd_wgrad<P><<<wgrid, kThreads, kWSmem, s>>>(static_cast<const E*>(a.hseq),
+                                                      static_cast<const E*>(a.dxp), a.dg, part,
+                                                      M, R, T, L, H);
     err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
 
@@ -785,4 +826,43 @@ extern "C" int stmgcn_lstm_bwd(const float* xp, const float* wh0, const float* w
     reduce_partials<<<rgrid, kThreads, 0, s>>>(part, p.chunks, p.dw_floats, p.s1, p.s2,
                                                dwh0, dwxh, db);
     return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// Floats of scratch the backward needs (layer >= 1 dgates, split-K
+// weight-gradient partials), in either storage type; the wrapper allocates
+// them.
+extern "C" size_t stmgcn_lstm_bwd_workspace(int M, int R, int T, int L, int H) {
+    if (bad_shape(M, R, T, L, H)) return 0;
+    const Plan p = plan(M, R, T, L, H, block_rows(H));
+    return p.dg_floats + p.chunks * p.dw_floats;
+}
+
+// Dynamic shared memory (bytes) of one sweep CTA at (L, H) and storage
+// type, and of one weight-gradient CTA (L = 0); 0 for a shape the kernel
+// does not take.
+extern "C" int stmgcn_lstm_bwd_smem(int L, int H, int bf16) {
+    if (L == 0) return kWSmem;
+    return bf16 ? smem_p<BF16>(L, H) : smem_p<F32>(L, H);
+}
+
+// C entry point bound with ctypes. Returns a cudaError_t (0 = launched).
+// xp .. gcfin and dxp in the storage type, float32 (bf16 == 0) or bfloat16
+// (bf16 == 1); the weight gradients dwh0, dwxh, db and the workspace fp32.
+// H in {32, 64, 128, 256}, 1 <= L <= 4; every pointer 16-byte aligned. For
+// L == 1, dwxh and db are placeholders that are not written.
+extern "C" int stmgcn_lstm_bwd(const void* xp, const void* wh0, const void* wxh,
+                               const void* bias, const void* hseq, const void* cseq,
+                               const void* gout, const void* ghfin, const void* gcfin,
+                               void* dxp, float* dwh0, float* dwxh, float* db,
+                               float* workspace, int M, int R, int T, int L, int H, int bf16,
+                               void* stream) {
+    if (bad_shape(M, R, T, L, H)) return static_cast<int>(cudaErrorInvalidValue);
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    const Plan p = plan(M, R, T, L, H, block_rows(H));
+    const Ptrs a{xp, wh0, wxh, bias, hseq, cseq, gout, ghfin, gcfin, dxp, workspace};
+    float* part = workspace + p.dg_floats;
+    return bf16 ? run<BF16>(a, dwh0, dwxh, db, part, p, M, R, T, L, H, s)
+                : run<F32>(a, dwh0, dwxh, db, part, p, M, R, T, L, H, s);
 }

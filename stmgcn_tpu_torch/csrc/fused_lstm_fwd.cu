@@ -1,5 +1,5 @@
-// Fused multi-layer LSTM forward (zero initial state), fp32 storage, for
-// Hopper (sm_90a).
+// Fused multi-layer LSTM forward (zero initial state), fp32 or bf16
+// storage, for Hopper (sm_90a).
 //
 // Replaces the TPU kernel `_fwd_kernel` in stmgcn_tpu/ops/pallas_lstm.py
 // (launched by `_run_fwd`, public entry `fused_lstm`): the whole T x L
@@ -38,6 +38,18 @@
 // - padded strides make every fragment load conflict-free; rows past R
 //   (the ragged edge) compute on zeros and are never stored.
 // The cell math is fp32 with expf/tanhf (no fast-math).
+//
+// bf16 storage (the JAX kernel's numerics at a bf16 storage dtype): x_proj0,
+// the weights and biases arrive in bf16 and out, hseq, cseq, h_fin and c_fin
+// leave in bf16 (rounded to nearest even); h and c are fp32 in registers,
+// and h is rounded to bf16 where it enters a product (`_mm`), which is the
+// value the shared h tile holds. Each product is one mma.sync m16n8k16 bf16
+// pass with fp32 accumulation, at the 989 TFLOP/s bf16 peak against three
+// TF32 passes at 495; the weight ring holds bf16 at half the bytes (a stage
+// of 32 rows at H <= 64, as many bytes as fp32's 16) and the h tiles half
+// the bytes too. The rows per CTA stay: registers (fp32 accumulators and
+// cell states) bound them, not shared memory. The fp32 instantiation is the
+// kernel it was.
 
 #include <cuda_runtime.h>
 
@@ -51,44 +63,49 @@ using namespace lstm_mma;
 
 // The forward's tiling: 8 warps (16, as the backward sweep takes, measured
 // no faster here: its state is lighter and fits 255 registers unspilled)
-template <int H>
-using FwdTile = Tile<H, 8>;
-constexpr int NT = FwdTile<64>::Threads;
+template <int H, typename P>
+using FwdTile = Tile<H, 8, P>;
+constexpr int NT = FwdTile<64, F32>::Threads;
 
-template <int H, int L>
+template <typename P, int H, int L>
 struct FwdPlan {
-    using C = FwdTile<H>;
+    using C = FwdTile<H, P>;
+    using E = typename P::T;
     static constexpr int hbuf = 2 * L * C::BR * C::HS;  // h tiles, two step parities
     static constexpr int stage = C::KC * C::WS;
-    static constexpr int S = ring_stages(hbuf, stage);
-    static constexpr int smem_bytes = 4 * (hbuf + S * stage);
+    static constexpr int S = ring_stages(sizeof(E) * hbuf, sizeof(E) * stage);
+    static constexpr int smem_bytes = sizeof(E) * (hbuf + S * stage);
     static_assert(smem_bytes <= kSmemLimit, "the h tiles and ring fit in shared memory");
+    static_assert(sizeof(E) * hbuf % 16 == 0, "the ring starts on a 16-byte boundary");
     static constexpr int Q0 = H / C::KC;      // stages of layer 0's weight
     static constexpr int Q1 = 2 * H / C::KC;  // stages of a layer >= 1 weight
     static constexpr int Q = Q0 + (L - 1) * Q1;  // stages per step
 };
 
-// Layouts (M = branches, leading everywhere):
+// Layouts (M = branches, leading everywhere), in the storage type E:
 //   xp (M, R, T, 4H); wh0 (M, H, 4H); wxh (M, max(L-1,1), 2H, 4H);
 //   bias (M, max(L-1,1), 4H); out (M, R, T, H); h_fin/c_fin (M, L, R, H);
 //   hseq/cseq (M, T, L, R, H) or null.
-template <int H, int L>
+template <typename P, int H, int L>
 __global__ void __launch_bounds__(NT, 1)
-lstm_fwd_kernel(const float* __restrict__ xp, const float* __restrict__ wh0,
-                const float* __restrict__ wxh, const float* __restrict__ bias,
-                float* __restrict__ out, float* __restrict__ h_fin,
-                float* __restrict__ c_fin, float* __restrict__ hseq,
-                float* __restrict__ cseq, int R, int T) {
-    using C = FwdTile<H>;
-    using P = FwdPlan<H, L>;
-    constexpr int S = P::S, KC = C::KC, HS = C::HS, WS = C::WS, BR = C::BR;
+lstm_fwd_kernel(const typename P::T* __restrict__ xp, const typename P::T* __restrict__ wh0,
+                const typename P::T* __restrict__ wxh, const typename P::T* __restrict__ bias,
+                typename P::T* __restrict__ out, typename P::T* __restrict__ h_fin,
+                typename P::T* __restrict__ c_fin, typename P::T* __restrict__ hseq,
+                typename P::T* __restrict__ cseq, int R, int T) {
+    using C = FwdTile<H, P>;
+    using Pl = FwdPlan<P, H, L>;
+    using E = typename P::T;
+    constexpr int S = Pl::S, KC = C::KC, HS = C::HS, WS = C::WS, BR = C::BR;
     constexpr int MT = C::MT, UT = C::UT, H4 = 4 * H;
     constexpr int LW = L > 1 ? L - 1 : 1;
     constexpr int TILE = BR * HS;  // one layer's h tile
+    constexpr int V = 16 / sizeof(E);  // elements per 16-byte copy
+    static_assert(KC * H4 / V % NT == 0, "a stage's copies divide the block");
 
     extern __shared__ float4 smem4[];
-    float* hbuf = reinterpret_cast<float*>(smem4);
-    float* ring = hbuf + P::hbuf;
+    E* hbuf = reinterpret_cast<E*>(smem4);
+    E* ring = hbuf + Pl::hbuf;
 
     const int tid = threadIdx.x;
     const int warp = tid >> 5, lane = tid & 31;
@@ -104,28 +121,28 @@ lstm_fwd_kernel(const float* __restrict__ xp, const float* __restrict__ wh0,
     wxh += static_cast<size_t>(m) * LW * 2 * H * H4;
     bias += static_cast<size_t>(m) * LW * H4;
 
-    const int total = T * P::Q;
+    const int total = T * Pl::Q;
     // stage n of the weight stream: KC rows of layer l's weight, l and the
     // row offset from n's place in the step
     auto issue = [&](int n) {
         if (n < total) {
-            const int p = n % P::Q;
-            const float* w;
+            const int p = n % Pl::Q;
+            const E* w;
             int k0;
-            if (p < P::Q0) {
+            if (p < Pl::Q0) {
                 w = wh0;
                 k0 = p * KC;
             } else {
-                const int r = p - P::Q0;
-                w = wxh + static_cast<size_t>(r / P::Q1) * 2 * H * H4;
-                k0 = (r % P::Q1) * KC;
+                const int r = p - Pl::Q0;
+                w = wxh + static_cast<size_t>(r / Pl::Q1) * 2 * H * H4;
+                k0 = (r % Pl::Q1) * KC;
             }
-            float* dst = ring + (n % S) * P::stage;
-            const float* src = w + static_cast<size_t>(k0) * H4;
+            E* dst = ring + (n % S) * Pl::stage;
+            const E* src = w + static_cast<size_t>(k0) * H4;
 #pragma unroll
-            for (int j = 0; j < KC * H / NT; ++j) {
+            for (int j = 0; j < KC * H4 / V / NT; ++j) {
                 const int i = tid + j * NT;
-                const int r = i / H, c = (i % H) * 4;
+                const int r = i / (H4 / V), c = (i % (H4 / V)) * V;
                 cp_async16(dst + r * WS + c, src + r * H4 + c, true);
             }
         }
@@ -134,7 +151,8 @@ lstm_fwd_kernel(const float* __restrict__ xp, const float* __restrict__ wh0,
 
 #pragma unroll
     for (int s = 0; s < S - 1; ++s) issue(s);
-    for (int i = tid; i < P::hbuf; i += NT) hbuf[i] = 0.0f;
+    for (int i = tid; i < static_cast<int>(sizeof(E) * Pl::hbuf / 4); i += NT)
+        reinterpret_cast<uint32_t*>(hbuf)[i] = 0u;  // +0.0 in either type
 
     float c[L][MT][UT][4];
 #pragma unroll
@@ -148,8 +166,8 @@ lstm_fwd_kernel(const float* __restrict__ xp, const float* __restrict__ wh0,
 
     int n = 0;  // next stage to consume
     for (int t = 0; t < T; ++t) {
-        float* cur = hbuf + (t & 1) * L * TILE;
-        const float* prv = hbuf + ((t & 1) ^ 1) * L * TILE;
+        E* cur = hbuf + (t & 1) * L * TILE;
+        const E* prv = hbuf + ((t & 1) ^ 1) * L * TILE;
 #pragma unroll
         for (int l = 0; l < L; ++l) {
             const int K = l == 0 ? H : 2 * H;
@@ -167,10 +185,9 @@ lstm_fwd_kernel(const float* __restrict__ xp, const float* __restrict__ wh0,
                             float2 v = make_float2(0.0f, 0.0f);
                             if (l == 0) {
                                 if (row < R)
-                                    v = *reinterpret_cast<const float2*>(
-                                        xp + (static_cast<size_t>(row) * T + t) * H4 + col);
+                                    v = load2(xp + (static_cast<size_t>(row) * T + t) * H4 + col);
                             } else {
-                                v = *reinterpret_cast<const float2*>(bias + (l - 1) * H4 + col);
+                                v = load2(bias + (l - 1) * H4 + col);
                             }
                             acc[mt][gt][ut][2 * hf] = v.x;
                             acc[mt][gt][ut][2 * hf + 1] = v.y;
@@ -182,15 +199,15 @@ lstm_fwd_kernel(const float* __restrict__ xp, const float* __restrict__ wh0,
                 cp_async_wait<S - 2>();
                 __syncthreads();
                 issue(n + S - 1);
-                const float* wt = ring + (n % S) * P::stage;
+                const E* wt = ring + (n % S) * Pl::stage;
                 // this stage's rows of [h_below, h_prev] (layer 0: h_prev)
-                const float* a = l == 0   ? prv + k0
-                               : k0 < H ? cur + (l - 1) * TILE + k0
-                                        : prv + l * TILE + (k0 - H);
+                const E* a = l == 0   ? prv + k0
+                           : k0 < H ? cur + (l - 1) * TILE + k0
+                                    : prv + l * TILE + (k0 - H);
                 a += wrow * HS;
 #pragma unroll
-                for (int kk = 0; kk < KC; kk += 8) {
-                    FragA fa[MT];
+                for (int kk = 0; kk < KC; kk += P::KS) {
+                    typename P::FA fa[MT];
 #pragma unroll
                     for (int mt = 0; mt < MT; ++mt)
                         load_a(fa[mt], a + mt * 16 * HS + kk, HS, g, q);
@@ -198,10 +215,10 @@ lstm_fwd_kernel(const float* __restrict__ xp, const float* __restrict__ wh0,
                     for (int gt = 0; gt < 4; ++gt)
 #pragma unroll
                         for (int ut = 0; ut < UT; ++ut) {
-                            FragB fb;
+                            typename P::FB fb;
                             load_b(fb, wt + kk * WS + gt * H + wunit + ut * 8, WS, g, q);
 #pragma unroll
-                            for (int mt = 0; mt < MT; ++mt) mma3(acc[mt][gt][ut], fa[mt], fb);
+                            for (int mt = 0; mt < MT; ++mt) P::mma(acc[mt][gt][ut], fa[mt], fb);
                         }
                 }
             }
@@ -230,22 +247,22 @@ lstm_fwd_kernel(const float* __restrict__ xp, const float* __restrict__ wh0,
                         }
                         const float2 h2 = make_float2(hv[0], hv[1]);
                         const float2 c2 = make_float2(cv[0], cv[1]);
-                        *reinterpret_cast<float2*>(cur + l * TILE + lrow * HS + unit) = h2;
+                        store2(cur + l * TILE + lrow * HS + unit, h2);
                         if (row < R) {
                             if (hseq != nullptr) {
                                 const size_t o =
                                     (((static_cast<size_t>(m) * T + t) * L + l) * R + row) * H + unit;
-                                *reinterpret_cast<float2*>(hseq + o) = h2;
-                                *reinterpret_cast<float2*>(cseq + o) = c2;
+                                store2(hseq + o, h2);
+                                store2(cseq + o, c2);
                             }
                             if (l == L - 1)
-                                *reinterpret_cast<float2*>(
-                                    out + ((static_cast<size_t>(m) * R + row) * T + t) * H + unit) = h2;
+                                store2(out + ((static_cast<size_t>(m) * R + row) * T + t) * H + unit,
+                                       h2);
                             if (t == T - 1) {
                                 const size_t o =
                                     ((static_cast<size_t>(m) * L + l) * R + row) * H + unit;
-                                *reinterpret_cast<float2*>(h_fin + o) = h2;
-                                *reinterpret_cast<float2*>(c_fin + o) = c2;
+                                store2(h_fin + o, h2);
+                                store2(c_fin + o, c2);
                             }
                         }
                     }
@@ -257,41 +274,67 @@ lstm_fwd_kernel(const float* __restrict__ xp, const float* __restrict__ wh0,
     cp_async_wait<0>();
 }
 
-template <int H, int L>
-cudaError_t launch(const float* xp, const float* wh0, const float* wxh,
-                   const float* bias, float* out, float* h_fin, float* c_fin,
-                   float* hseq, float* cseq, int M, int R, int T,
-                   cudaStream_t stream) {
-    constexpr int smem = FwdPlan<H, L>::smem_bytes;
+template <typename P, int H, int L>
+cudaError_t launch(const void* xp, const void* wh0, const void* wxh, const void* bias,
+                   void* out, void* h_fin, void* c_fin, void* hseq, void* cseq, int M,
+                   int R, int T, cudaStream_t stream) {
+    using E = typename P::T;
+    constexpr int smem = FwdPlan<P, H, L>::smem_bytes;
     cudaError_t err = cudaFuncSetAttribute(
-        lstm_fwd_kernel<H, L>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        lstm_fwd_kernel<P, H, L>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return err;
-    const dim3 grid((R + FwdTile<H>::BR - 1) / FwdTile<H>::BR, M);
-    lstm_fwd_kernel<H, L><<<grid, NT, smem, stream>>>(
-        xp, wh0, wxh, bias, out, h_fin, c_fin, hseq, cseq, R, T);
+    const dim3 grid((R + FwdTile<H, P>::BR - 1) / FwdTile<H, P>::BR, M);
+    lstm_fwd_kernel<P, H, L><<<grid, NT, smem, stream>>>(
+        static_cast<const E*>(xp), static_cast<const E*>(wh0), static_cast<const E*>(wxh),
+        static_cast<const E*>(bias), static_cast<E*>(out), static_cast<E*>(h_fin),
+        static_cast<E*>(c_fin), static_cast<E*>(hseq), static_cast<E*>(cseq), R, T);
     return cudaGetLastError();
 }
 
-template <int H>
-cudaError_t launch_h(int L, const float* xp, const float* wh0, const float* wxh,
-                     const float* bias, float* out, float* h_fin, float* c_fin,
-                     float* hseq, float* cseq, int M, int R, int T, cudaStream_t s) {
+template <typename P, int H>
+cudaError_t launch_h(int L, const void* xp, const void* wh0, const void* wxh,
+                     const void* bias, void* out, void* h_fin, void* c_fin, void* hseq,
+                     void* cseq, int M, int R, int T, cudaStream_t s) {
     switch (L) {
-        case 1: return launch<H, 1>(xp, wh0, wxh, bias, out, h_fin, c_fin, hseq, cseq, M, R, T, s);
-        case 2: return launch<H, 2>(xp, wh0, wxh, bias, out, h_fin, c_fin, hseq, cseq, M, R, T, s);
-        case 3: return launch<H, 3>(xp, wh0, wxh, bias, out, h_fin, c_fin, hseq, cseq, M, R, T, s);
-        case 4: return launch<H, 4>(xp, wh0, wxh, bias, out, h_fin, c_fin, hseq, cseq, M, R, T, s);
+        case 1: return launch<P, H, 1>(xp, wh0, wxh, bias, out, h_fin, c_fin, hseq, cseq, M, R, T, s);
+        case 2: return launch<P, H, 2>(xp, wh0, wxh, bias, out, h_fin, c_fin, hseq, cseq, M, R, T, s);
+        case 3: return launch<P, H, 3>(xp, wh0, wxh, bias, out, h_fin, c_fin, hseq, cseq, M, R, T, s);
+        case 4: return launch<P, H, 4>(xp, wh0, wxh, bias, out, h_fin, c_fin, hseq, cseq, M, R, T, s);
         default: return cudaErrorInvalidValue;
     }
 }
 
-template <int H>
+template <typename P>
+cudaError_t launch_p(int H, int L, const void* xp, const void* wh0, const void* wxh,
+                     const void* bias, void* out, void* h_fin, void* c_fin, void* hseq,
+                     void* cseq, int M, int R, int T, cudaStream_t s) {
+    switch (H) {
+        case 32: return launch_h<P, 32>(L, xp, wh0, wxh, bias, out, h_fin, c_fin, hseq, cseq, M, R, T, s);
+        case 64: return launch_h<P, 64>(L, xp, wh0, wxh, bias, out, h_fin, c_fin, hseq, cseq, M, R, T, s);
+        case 128: return launch_h<P, 128>(L, xp, wh0, wxh, bias, out, h_fin, c_fin, hseq, cseq, M, R, T, s);
+        case 256: return launch_h<P, 256>(L, xp, wh0, wxh, bias, out, h_fin, c_fin, hseq, cseq, M, R, T, s);
+        default: return cudaErrorInvalidValue;
+    }
+}
+
+template <typename P, int H>
 int smem_h(int L) {
     switch (L) {
-        case 1: return FwdPlan<H, 1>::smem_bytes;
-        case 2: return FwdPlan<H, 2>::smem_bytes;
-        case 3: return FwdPlan<H, 3>::smem_bytes;
-        case 4: return FwdPlan<H, 4>::smem_bytes;
+        case 1: return FwdPlan<P, H, 1>::smem_bytes;
+        case 2: return FwdPlan<P, H, 2>::smem_bytes;
+        case 3: return FwdPlan<P, H, 3>::smem_bytes;
+        case 4: return FwdPlan<P, H, 4>::smem_bytes;
+        default: return 0;
+    }
+}
+
+template <typename P>
+int smem_p(int L, int H) {
+    switch (H) {
+        case 32: return smem_h<P, 32>(L);
+        case 64: return smem_h<P, 64>(L);
+        case 128: return smem_h<P, 128>(L);
+        case 256: return smem_h<P, 256>(L);
         default: return 0;
     }
 }
@@ -299,45 +342,36 @@ int smem_h(int L) {
 }  // namespace
 
 // C entry point bound with ctypes. Returns a cudaError_t (0 = launched).
-// H in {32, 64, 128, 256}; 1 <= L <= 4; hseq/cseq may be null
+// Every operand in the storage type: float32 (bf16 == 0) or bfloat16
+// (bf16 == 1). H in {32, 64, 128, 256}; 1 <= L <= 4; hseq/cseq may be null
 // (forward-only serving). Every pointer 16-byte aligned.
-extern "C" int stmgcn_lstm_fwd(const float* xp, const float* wh0,
-                               const float* wxh, const float* bias, float* out,
-                               float* h_fin, float* c_fin, float* hseq,
-                               float* cseq, int M, int R, int T, int L, int H,
-                               void* stream) {
+extern "C" int stmgcn_lstm_fwd(const void* xp, const void* wh0, const void* wxh,
+                               const void* bias, void* out, void* h_fin, void* c_fin,
+                               void* hseq, void* cseq, int M, int R, int T, int L, int H,
+                               int bf16, void* stream) {
     if (M < 1 || R < 1 || T < 1) return static_cast<int>(cudaErrorInvalidValue);
     if ((hseq == nullptr) != (cseq == nullptr))
         return static_cast<int>(cudaErrorInvalidValue);
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-    switch (H) {
-        case 32: return static_cast<int>(launch_h<32>(L, xp, wh0, wxh, bias, out, h_fin, c_fin, hseq, cseq, M, R, T, s));
-        case 64: return static_cast<int>(launch_h<64>(L, xp, wh0, wxh, bias, out, h_fin, c_fin, hseq, cseq, M, R, T, s));
-        case 128: return static_cast<int>(launch_h<128>(L, xp, wh0, wxh, bias, out, h_fin, c_fin, hseq, cseq, M, R, T, s));
-        case 256: return static_cast<int>(launch_h<256>(L, xp, wh0, wxh, bias, out, h_fin, c_fin, hseq, cseq, M, R, T, s));
-        default: return static_cast<int>(cudaErrorInvalidValue);
-    }
+    return static_cast<int>(
+        bf16 ? launch_p<BF16>(H, L, xp, wh0, wxh, bias, out, h_fin, c_fin, hseq, cseq, M, R, T, s)
+             : launch_p<F32>(H, L, xp, wh0, wxh, bias, out, h_fin, c_fin, hseq, cseq, M, R, T, s));
 }
 
-// Dynamic shared memory (bytes) of one CTA at (L, H); 0 for a shape the
-// kernel does not take.
-extern "C" int stmgcn_lstm_fwd_smem(int L, int H) {
-    switch (H) {
-        case 32: return smem_h<32>(L);
-        case 64: return smem_h<64>(L);
-        case 128: return smem_h<128>(L);
-        case 256: return smem_h<256>(L);
-        default: return 0;
-    }
+// Dynamic shared memory (bytes) of one CTA at (L, H) and storage type; 0
+// for a shape the kernel does not take.
+extern "C" int stmgcn_lstm_fwd_smem(int L, int H, int bf16) {
+    return bf16 ? smem_p<BF16>(L, H) : smem_p<F32>(L, H);
 }
 
-// Rows per CTA at hidden width H (0 for a width the kernel does not take).
+// Rows per CTA at hidden width H (0 for a width the kernel does not take);
+// the same in both storage types.
 extern "C" int stmgcn_lstm_block_rows(int H) {
     switch (H) {
-        case 32: return FwdTile<32>::BR;
-        case 64: return FwdTile<64>::BR;
-        case 128: return FwdTile<128>::BR;
-        case 256: return FwdTile<256>::BR;
+        case 32: return FwdTile<32, F32>::BR;
+        case 64: return FwdTile<64, F32>::BR;
+        case 128: return FwdTile<128, F32>::BR;
+        case 256: return FwdTile<256, F32>::BR;
         default: return 0;
     }
 }

@@ -1,7 +1,9 @@
 // Building blocks shared by the LSTM forward (fused_lstm_fwd.cu) and
 // backward (fused_lstm_bwd.cu) kernels and the block-CSR SpMMs
-// (spmm_stack.cu): the LSTM tile shapes per hidden width, 3xTF32
-// tensor-core products (mma.sync m16n8k8) and cp.async copies.
+// (spmm_stack.cu): the LSTM tile shapes per hidden width, the two product
+// routes (fp32 storage: 3xTF32 on mma.sync m16n8k8; bf16 storage: one
+// mma.sync m16n8k16 bf16 pass), both with fp32 accumulation, behind the
+// policies F32 and BF16, and cp.async copies.
 //
 // 3xTF32: an fp32 operand x is split as x = hi + lo, hi rounded to TF32 (10
 // mantissa bits, round to nearest) and lo truncated to TF32 by the tensor
@@ -17,9 +19,20 @@
 //   A (16 x 8, row-major): a0 (g, q), a1 (g + 8, q), a2 (g, q + 4), a3 (g + 8, q + 4)
 //   B (8 x 8, k x n):      b0 (q, g), b1 (q + 4, g)
 //   C (16 x 8):            c0 (g, 2q), c1 (g, 2q + 1), c2 (g + 8, 2q), c3 (g + 8, 2q + 1)
+//
+// bf16 (mma.m16n8k16 .bf16, two values per 32-bit register, the lower k in
+// the low half):
+//   A (16 x 16, row-major): r0 (g, 2q..2q+1), r1 (g + 8, 2q..2q+1),
+//                           r2 (g, 2q+8..2q+9), r3 (g + 8, 2q+8..2q+9)
+//   B (16 x 8, k x n):      r0 (2q..2q+1, g), r1 (2q+8..2q+9, g)
+//   C as m16n8k8's. A product of two bf16 values is exact in fp32, so one
+//   pass is the whole product; fp32 values are rounded to bf16 (round to
+//   nearest even, __float2bfloat16_rn, as XLA's convert) where the JAX
+//   kernel casts them.
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -37,7 +50,10 @@ constexpr int kSmemLimit = 232448;  // bytes of shared memory a block may use on
 // cell update runs in the accumulator registers. MT * UT = 32 / Warps: 64
 // fp32 accumulators per thread with 8 warps, 32 with 16; the rows per CTA
 // (BR) are the same either way.
-template <int H, int Warps = kWarps>
+struct F32;
+struct BF16;
+
+template <int H, int Warps = kWarps, typename P = F32>
 struct Tile {
     static_assert(H == 32 || H == 64 || H == 128 || H == 256, "H in {32, 64, 128, 256}");
     static_assert(Warps == 8 || Warps == 16, "8 or 16 warps");
@@ -49,10 +65,19 @@ struct Tile {
     static constexpr int MT = 32 / (Warps * UT);
     static constexpr int RW = 16 * MT;      // rows per warp
     static constexpr int BR = WM * RW;      // rows per CTA: 128, 64, 32, 16
-    static constexpr int KC = H <= 64 ? 16 : 8;  // weight rows per ring stage
-    static constexpr int HS = H + 4;        // h tile row stride (floats)
-    static constexpr int WS = 4 * H + 8;    // weight row-chunk stride
+    // The rows per CTA are set by the fp32 accumulators and cell states in
+    // registers, the same in both storage types. In shared memory (strides
+    // in elements of the storage type): weight rows per ring stage (bf16
+    // takes twice the rows, so a stage holds as many bytes and the k-loop
+    // whole m16n8k16 steps), the h tile's row stride (rows on 16-byte
+    // boundaries for cp.async; A-fragment loads conflict-free) and the
+    // weight stage's.
+    static constexpr bool kBf16 = sizeof(typename P::T) == 2;
+    static constexpr int KC = (H <= 64 ? 16 : 8) * (kBf16 ? 2 : 1);
+    static constexpr int HS = H + (kBf16 ? 8 : 4);
+    static constexpr int WS = 4 * H + 8;
     static_assert(MT >= 1 && WM * WN == Warps, "tiling covers the warps");
+    static_assert(KC % P::KS == 0, "whole mma k-steps per ring stage");
 };
 
 __device__ __forceinline__ float sigmoid_f32(float x) {
@@ -119,9 +144,130 @@ __device__ __forceinline__ void mma3(float (&d)[4], const FragA& a, const FragB&
     mma_tf32(d, a.hi, b.hi);
 }
 
+using bf16 = __nv_bfloat16;
+
+struct FragA16 {
+    uint32_t r[4];
+};
+struct FragB16 {
+    uint32_t r[2];
+};
+
+__device__ __forceinline__ uint32_t pack(bf16 lo, bf16 hi) {
+    return static_cast<uint32_t>(__bfloat16_as_ushort(lo)) |
+           (static_cast<uint32_t>(__bfloat16_as_ushort(hi)) << 16);
+}
+// two fp32 values rounded to bf16 (nearest even), the first in the low half
+__device__ __forceinline__ uint32_t pack(float lo, float hi) {
+    return pack(__float2bfloat16_rn(lo), __float2bfloat16_rn(hi));
+}
+__device__ __forceinline__ uint32_t ld32(const bf16* p) {
+    return *reinterpret_cast<const uint32_t*>(p);
+}
+
+// A from a row-major bf16 tile (p at its (row 0, k 0), row stride s, even)
+__device__ __forceinline__ void load_a(FragA16& f, const bf16* p, int s, int g, int q) {
+    f.r[0] = ld32(p + g * s + 2 * q);
+    f.r[1] = ld32(p + (g + 8) * s + 2 * q);
+    f.r[2] = ld32(p + g * s + 2 * q + 8);
+    f.r[3] = ld32(p + (g + 8) * s + 2 * q + 8);
+}
+
+// A from a row-major fp32 tile (p 8-byte aligned, s even), each value
+// rounded to bf16
+__device__ __forceinline__ void load_a(FragA16& f, const float* p, int s, int g, int q) {
+    const float2 v0 = *reinterpret_cast<const float2*>(p + g * s + 2 * q);
+    const float2 v1 = *reinterpret_cast<const float2*>(p + (g + 8) * s + 2 * q);
+    const float2 v2 = *reinterpret_cast<const float2*>(p + g * s + 2 * q + 8);
+    const float2 v3 = *reinterpret_cast<const float2*>(p + (g + 8) * s + 2 * q + 8);
+    f.r[0] = pack(v0.x, v0.y);
+    f.r[1] = pack(v1.x, v1.y);
+    f.r[2] = pack(v2.x, v2.y);
+    f.r[3] = pack(v3.x, v3.y);
+}
+
+// A = P^T from a k-major bf16 tile P (p at its (k 0, row 0), k stride s)
+__device__ __forceinline__ void load_a_t(FragA16& f, const bf16* p, int s, int g, int q) {
+    const bf16* k0 = p + 2 * q * s;
+    const bf16* k8 = p + (2 * q + 8) * s;
+    f.r[0] = pack(k0[g], k0[s + g]);
+    f.r[1] = pack(k0[g + 8], k0[s + g + 8]);
+    f.r[2] = pack(k8[g], k8[s + g]);
+    f.r[3] = pack(k8[g + 8], k8[s + g + 8]);
+}
+
+// B from a k-major tile (p at its (k 0, n 0), k stride s), bf16 or fp32
+// (rounded to bf16)
+template <typename E>
+__device__ __forceinline__ void load_b(FragB16& f, const E* p, int s, int g, int q) {
+    f.r[0] = pack(p[2 * q * s + g], p[(2 * q + 1) * s + g]);
+    f.r[1] = pack(p[(2 * q + 8) * s + g], p[(2 * q + 9) * s + g]);
+}
+
+// B = P^T from an n-major bf16 tile P (p at its (n 0, k 0), n stride s, even)
+__device__ __forceinline__ void load_b_t(FragB16& f, const bf16* p, int s, int g, int q) {
+    f.r[0] = ld32(p + g * s + 2 * q);
+    f.r[1] = ld32(p + g * s + 2 * q + 8);
+}
+
+// d += a * b, bf16 operands, fp32 accumulation: one pass
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+    asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// The storage types' product routes: T the storage type, KS the k-depth of
+// one mma step, FA/FB its fragments, mma(d, a, b) the step with fp32
+// accumulation
+struct F32 {
+    using T = float;
+    static constexpr int KS = 8;
+    using FA = FragA;
+    using FB = FragB;
+    static __device__ __forceinline__ void mma(float (&d)[4], const FA& a, const FB& b) {
+        mma3(d, a, b);
+    }
+};
+struct BF16 {
+    using T = bf16;
+    static constexpr int KS = 16;
+    using FA = FragA16;
+    using FB = FragB16;
+    static __device__ __forceinline__ void mma(float (&d)[4], const FA& a, const FB& b) {
+        mma_bf16(d, a.r, b.r);
+    }
+};
+
+// Two or four consecutive storage values to and from fp32 (stores round to
+// nearest even)
+__device__ __forceinline__ float2 load2(const float* p) {
+    return *reinterpret_cast<const float2*>(p);
+}
+__device__ __forceinline__ float2 load2(const bf16* p) {
+    return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+__device__ __forceinline__ void store2(float* p, float2 v) {
+    *reinterpret_cast<float2*>(p) = v;
+}
+__device__ __forceinline__ void store2(bf16* p, float2 v) {
+    *reinterpret_cast<__nv_bfloat162*>(p) = __float22bfloat162_rn(v);
+}
+__device__ __forceinline__ void store4(float* p, float4 v) {
+    *reinterpret_cast<float4*>(p) = v;
+}
+__device__ __forceinline__ void store4(bf16* p, float4 v) {
+    *reinterpret_cast<uint2*>(p) =
+        make_uint2(pack(v.x, v.y), pack(v.z, v.w));
+}
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(bf16 x) { return __bfloat162float(x); }
+
 // 16-byte global -> shared copy; zero-fills the 16 bytes when !valid (src
 // must still be a mapped address)
-__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool valid) {
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
     const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
     asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(s), "l"(src),
                  "r"(valid ? 16 : 0));
@@ -146,11 +292,11 @@ __device__ __forceinline__ void cp_async_wait() {
 }
 
 // The largest ring depth in [2, cap] (cap <= 4) whose stages fit beside
-// `fixed` floats; each plan static_asserts that its total fits, 2 stages too
-constexpr int ring_stages(int fixed_floats, int stage_floats, int cap = 4) {
-    return cap >= 4 && (fixed_floats + 4 * stage_floats) * 4 <= kSmemLimit ? 4
-         : cap >= 3 && (fixed_floats + 3 * stage_floats) * 4 <= kSmemLimit ? 3
-                                                                          : 2;
+// `fixed` bytes; each plan static_asserts that its total fits, 2 stages too
+constexpr int ring_stages(int fixed_bytes, int stage_bytes, int cap = 4) {
+    return cap >= 4 && fixed_bytes + 4 * stage_bytes <= kSmemLimit ? 4
+         : cap >= 3 && fixed_bytes + 3 * stage_bytes <= kSmemLimit ? 3
+                                                                  : 2;
 }
 
 }  // namespace lstm_mma

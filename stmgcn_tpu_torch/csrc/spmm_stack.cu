@@ -1,5 +1,6 @@
 // Block-CSR sparse x dense products for Hopper (sm_90a): three kernels on
-// one body, the products on the tensor cores in 3xTF32.
+// one body, the products on the tensor cores in 3xTF32 (fp32 blocks and
+// signal) or one bf16 pass (bf16 blocks and signal), fp32 out either way.
 //
 // Replaces the TPU kernels of stmgcn_tpu/ops/spmm.py:
 // - spmm_stack_fwd_kernel: `_stack_fwd_kernel` (launched by `_stack_fwd_call`,
@@ -71,6 +72,16 @@
 //   steps);
 // - output rows past n_out_rows and columns past F are never stored, so
 //   neither the signal nor the output is padded in device memory.
+//
+// bf16 (the JAX kernels at a bf16 compute dtype: blocks cast to the
+// signal's dtype, `jnp.dot(..., preferred_element_type=f32)`, f32 out): the
+// blocks and the signal arrive in bf16 and each product is one mma.sync
+// m16n8k16 bf16 pass (exact products, fp32 accumulation), each block's
+// t-deep sum again a run from zero added to the fp32 running sum; the
+// output and the backward's partials stay fp32. Stages hold bf16 at half
+// the bytes, so the ring is 4 deep at every width; signal rows go 16 bytes
+// at a time where F % 8 == 0 and rows start on 16-byte boundaries, else
+// one value at a time (no 2-byte cp.async exists).
 
 #include <cuda_runtime.h>
 
@@ -83,17 +94,19 @@ namespace {
 using namespace lstm_mma;
 
 constexpr int kKC = 64;    // block columns (gathered signal rows) per ring stage
-constexpr int kPadA = 4;      // row padding of a staged A chunk (floats)
-constexpr int kPadX = 8;      // row padding of a staged signal chunk (floats)
 
 constexpr int cmin(int a, int b) { return a < b ? a : b; }
 
-// The tiling of one (t, FT) instance: WM x WN warps, each owning MT m-tiles
-// of 16 rows and NT n-tiles of 8 columns; the padded strides make every
-// fragment load conflict-free (A: kKC + 4 = 4 mod 32 per row; X: FT + 8 = 8
-// or 24 mod 32 per row).
-template <int T, int FT>
+// The tiling of one (t, FT) instance in storage type P::T: WM x WN warps,
+// each owning MT m-tiles of 16 rows and NT n-tiles of 8 columns; the padded
+// strides make every fragment load conflict-free (fp32, in words: A kKC + 4
+// = 4 mod 32 per row, X FT + 8 = 8 or 24 mod 32 per row; bf16, in elements:
+// A kKC + 8, 36 words a row, X FT + 8, 8 q words apart for k-rows 2q).
+template <typename Pr, int T, int FT>
 struct Plan {
+    using E = typename Pr::T;
+    static constexpr int kPadA = sizeof(E) == 4 ? 4 : 8;  // row padding of a staged A chunk
+    static constexpr int kPadX = 8;                       // of a staged signal chunk
     static_assert(T == 64 || T == 128, "tile 64 or 128");
     static_assert(FT == 16 || FT == 32 || FT == 64 || FT == 128, "column tile 16..128");
     static constexpr int WM = cmin(T / 16, kWarps / (FT >= 32 ? FT / 32 : 1));
@@ -103,33 +116,38 @@ struct Plan {
     static_assert(WM * WN == kWarps && MT >= 1 && NT >= 1, "warps tile the output");
     static_assert(16 * MT * WM == T && 8 * NT * WN == FT, "warps cover the output");
     static constexpr int NCH = T / kKC;  // ring stages per block
+    static constexpr int V = 16 / sizeof(E);  // elements per 16-byte copy
     static constexpr int SA = kKC + kPadA;
     static constexpr int SX = FT + kPadX;
-    static constexpr int A_FLOATS = T * SA;
-    static constexpr int STAGE = A_FLOATS + kKC * SX;
-    static constexpr int STAGES = ring_stages(0, STAGE);
-    static constexpr int SMEM = STAGES * STAGE * 4;
-    static_assert(SMEM <= kSmemLimit && 2 * STAGE * 4 <= kSmemLimit, "ring fits");
-    static_assert(T % kKC == 0 && kKC % 8 == 0 && STAGE % 4 == 0 && SA % 4 == 0 &&
-                      SX % 4 == 0, "16-byte stage rows");
+    static constexpr int A_ELEMS = T * SA;
+    static constexpr int STAGE = A_ELEMS + kKC * SX;  // elements
+    static constexpr int STAGES = ring_stages(0, sizeof(E) * STAGE);
+    static constexpr int SMEM = STAGES * STAGE * sizeof(E);
+    static_assert(SMEM <= kSmemLimit && 2 * STAGE * sizeof(E) <= kSmemLimit, "ring fits");
+    static_assert(T % kKC == 0 && kKC % Pr::KS == 0 && STAGE % V == 0 && SA % V == 0 &&
+                      SX % V == 0, "16-byte stage rows, whole mma k-steps");
 };
 
 struct Args {
-    const float* data;
+    const void* data;  // the storage type's blocks
     const int* idx;
     const int* nblk;
     const int* order;  // the flat rows l * R + r in the order the grid takes them
-    const float* src;
+    const void* src;   // the storage type's signal
     float* out;  // (S, L / S, n_out_rows, F): the output itself when S == 1
     int L, R, C, F, n_out_rows, n_src_rows, src_div, S;
     int vec;  // signal rows start on 16-byte boundaries
     long long src_stride;
 };
 
-template <int T, int FT>
+template <typename Pr, int T, int FT>
 __device__ __forceinline__ void block_csr_body(const Args& a) {
-    using P = Plan<T, FT>;
-    extern __shared__ __align__(16) float smem[];
+    using P = Plan<Pr, T, FT>;
+    using E = typename Pr::T;
+    extern __shared__ __align__(16) float4 smem4[];
+    E* smem = reinterpret_cast<E*>(smem4);
+    const E* data = static_cast<const E*>(a.data);
+    const E* src = static_cast<const E*>(a.src);
 
     const int tid = threadIdx.x;
     const int lane = tid % 32, warp = tid / 32;
@@ -143,26 +161,27 @@ __device__ __forceinline__ void block_csr_body(const Args& a) {
     const long long row_slots = (static_cast<long long>(l) * a.R + r) * a.C;
     const int nb = a.nblk[item];
     const int total = (nb < 0 ? 0 : nb < a.C ? nb : a.C) * P::NCH;  // this CTA's stages
-    const float* xs = a.src + static_cast<long long>(l / a.src_div) * a.src_stride;
+    const E* xs = src + static_cast<long long>(l / a.src_div) * a.src_stride;
+    constexpr int V = P::V;
 
     auto load_stage = [&](int stage, int k) {  // chunk k % NCH of real slot k / NCH
-        float* As = smem + stage * P::STAGE;
-        float* Xs = As + P::A_FLOATS;
+        E* As = smem + stage * P::STAGE;
+        E* Xs = As + P::A_ELEMS;
         const long long slot = row_slots + k / P::NCH;
         const int j0 = (k % P::NCH) * kKC;
-        const float* blk = a.data + slot * (T * T) + j0;
-        for (int e = tid; e < T * kKC / 4; e += kThreads) {
-            const int row = e / (kKC / 4), c4 = e % (kKC / 4);
-            cp_async16(As + row * P::SA + c4 * 4, blk + row * T + c4 * 4, true);
+        const E* blk = data + slot * (T * T) + j0;
+        for (int e = tid; e < T * kKC / V; e += kThreads) {
+            const int row = e / (kKC / V), cv = e % (kKC / V);
+            cp_async16(As + row * P::SA + cv * V, blk + row * T + cv * V, true);
         }
         const long long x_row0 = static_cast<long long>(a.idx[slot]) * T + j0;
         if (a.vec) {
-            for (int e = tid; e < kKC * FT / 4; e += kThreads) {
-                const int jj = e / (FT / 4), c4 = e % (FT / 4);
+            for (int e = tid; e < kKC * FT / V; e += kThreads) {
+                const int jj = e / (FT / V), cv = e % (FT / V);
                 const long long xr = x_row0 + jj;
-                const int xc = f0 + c4 * 4;
+                const int xc = f0 + cv * V;
                 const bool ok = xr < a.n_src_rows && xc < a.F;
-                cp_async16(Xs + jj * P::SX + c4 * 4, ok ? xs + xr * a.F + xc : a.src, ok);
+                cp_async16(Xs + jj * P::SX + cv * V, ok ? xs + xr * a.F + xc : src, ok);
             }
         } else {
             for (int e = tid; e < kKC * FT; e += kThreads) {
@@ -170,7 +189,11 @@ __device__ __forceinline__ void block_csr_body(const Args& a) {
                 const long long xr = x_row0 + jj;
                 const int xc = f0 + ff;
                 const bool ok = xr < a.n_src_rows && xc < a.F;
-                cp_async4(Xs + jj * P::SX + ff, ok ? xs + xr * a.F + xc : a.src, ok);
+                if constexpr (sizeof(E) == 4) {
+                    cp_async4(Xs + jj * P::SX + ff, ok ? xs + xr * a.F + xc : src, ok);
+                } else {  // a plain copy: the __syncthreads before the stage is read orders it
+                    Xs[jj * P::SX + ff] = ok ? xs[xr * a.F + xc] : __float2bfloat16_rn(0.0f);
+                }
             }
         }
     };
@@ -204,23 +227,28 @@ __device__ __forceinline__ void block_csr_body(const Args& a) {
 #pragma unroll
                     for (int v = 0; v < 4; ++v) acc[m][n][v] = 0.0f;
         }
-        const float* As = smem + (k % P::STAGES) * P::STAGE + row_w * P::SA;
-        const float* Xs = smem + (k % P::STAGES) * P::STAGE + P::A_FLOATS + col_w;
+        const E* As = smem + (k % P::STAGES) * P::STAGE + row_w * P::SA;
+        const E* Xs = smem + (k % P::STAGES) * P::STAGE + P::A_ELEMS + col_w;
 #pragma unroll
-        for (int kk = 0; kk < kKC; kk += 8) {
-            FragB b[P::NT];
+        for (int kk = 0; kk < kKC; kk += Pr::KS) {
+            typename Pr::FB b[P::NT];
 #pragma unroll
             for (int n = 0; n < P::NT; ++n) load_b(b[n], Xs + kk * P::SX + n * 8, P::SX, g, q);
 #pragma unroll
             for (int m = 0; m < P::MT; ++m) {
-                FragA fa;
+                typename Pr::FA fa;
                 load_a(fa, As + m * 16 * P::SA + kk, P::SA, g, q);
+                if constexpr (sizeof(E) == 4) {
 #pragma unroll
-                for (int n = 0; n < P::NT; ++n) mma_tf32(acc[m][n], fa.lo, b[n].hi);
+                    for (int n = 0; n < P::NT; ++n) mma_tf32(acc[m][n], fa.lo, b[n].hi);
 #pragma unroll
-                for (int n = 0; n < P::NT; ++n) mma_tf32(acc[m][n], fa.hi, b[n].lo);
+                    for (int n = 0; n < P::NT; ++n) mma_tf32(acc[m][n], fa.hi, b[n].lo);
 #pragma unroll
-                for (int n = 0; n < P::NT; ++n) mma_tf32(acc[m][n], fa.hi, b[n].hi);
+                    for (int n = 0; n < P::NT; ++n) mma_tf32(acc[m][n], fa.hi, b[n].hi);
+                } else {
+#pragma unroll
+                    for (int n = 0; n < P::NT; ++n) Pr::mma(acc[m][n], fa, b[n]);
+                }
             }
         }
         if (ch == P::NCH - 1) {  // the block's product joins the running sum
@@ -261,19 +289,19 @@ __device__ __forceinline__ void block_csr_body(const Args& a) {
 }
 
 // Three names for one body, so a profiler trace tells the three apart.
-template <int T, int FT>
+template <typename Pr, int T, int FT>
 __global__ void __launch_bounds__(kThreads, 1) spmm_stack_fwd_kernel(Args a) {
-    block_csr_body<T, FT>(a);
+    block_csr_body<Pr, T, FT>(a);
 }
 
-template <int T, int FT>
+template <typename Pr, int T, int FT>
 __global__ void __launch_bounds__(kThreads, 1) spmm_stack_bwd_kernel(Args a) {
-    block_csr_body<T, FT>(a);
+    block_csr_body<Pr, T, FT>(a);
 }
 
-template <int T, int FT>
+template <typename Pr, int T, int FT>
 __global__ void __launch_bounds__(kThreads, 1) spmm_kernel(Args a) {
-    block_csr_body<T, FT>(a);
+    block_csr_body<Pr, T, FT>(a);
 }
 
 // out[i] = part[0][i] + part[1][i] + ... in order s = 0, 1, ...
@@ -289,12 +317,12 @@ __global__ void reduce_parts(const float* __restrict__ part, int S, long long X,
 
 enum Role { kStackFwd = 0, kStackBwd = 1, kSpmm = 2 };
 
-template <int T, int FT>
+template <typename Pr, int T, int FT>
 cudaError_t launch_tile(int role, const Args& a, cudaStream_t s) {
-    using P = Plan<T, FT>;
-    void (*kern)(Args) = role == kStackFwd   ? &spmm_stack_fwd_kernel<T, FT>
-                         : role == kStackBwd ? &spmm_stack_bwd_kernel<T, FT>
-                                             : &spmm_kernel<T, FT>;
+    using P = Plan<Pr, T, FT>;
+    void (*kern)(Args) = role == kStackFwd   ? &spmm_stack_fwd_kernel<Pr, T, FT>
+                         : role == kStackBwd ? &spmm_stack_bwd_kernel<Pr, T, FT>
+                                             : &spmm_kernel<Pr, T, FT>;
     const cudaError_t err =
         cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, P::SMEM);
     if (err != cudaSuccess) return err;
@@ -307,19 +335,19 @@ cudaError_t launch_tile(int role, const Args& a, cudaStream_t s) {
 // holds it, else 128
 inline int column_tile(int F) { return F <= 16 ? 16 : F <= 32 ? 32 : F <= 64 ? 64 : 128; }
 
-template <int T>
+template <typename Pr, int T>
 cudaError_t launch_width(int role, const Args& a, cudaStream_t s) {
     switch (column_tile(a.F)) {
-        case 16: return launch_tile<T, 16>(role, a, s);
-        case 32: return launch_tile<T, 32>(role, a, s);
-        case 64: return launch_tile<T, 64>(role, a, s);
-        default: return launch_tile<T, 128>(role, a, s);
+        case 16: return launch_tile<Pr, T, 16>(role, a, s);
+        case 32: return launch_tile<Pr, T, 32>(role, a, s);
+        case 64: return launch_tile<Pr, T, 64>(role, a, s);
+        default: return launch_tile<Pr, T, 128>(role, a, s);
     }
 }
 
-template <int T, int FT>
+template <typename Pr, int T, int FT>
 void plan_info(int* info) {
-    using P = Plan<T, FT>;
+    using P = Plan<Pr, T, FT>;
     info[0] = FT;
     info[1] = P::STAGES;
     info[2] = P::SMEM;
@@ -327,20 +355,29 @@ void plan_info(int* info) {
     info[4] = P::NT * 8;
 }
 
-template <int T>
+template <typename Pr, int T>
 void plan_width(int F, int* info) {
     switch (column_tile(F)) {
-        case 16: return plan_info<T, 16>(info);
-        case 32: return plan_info<T, 32>(info);
-        case 64: return plan_info<T, 64>(info);
-        default: return plan_info<T, 128>(info);
+        case 16: return plan_info<Pr, T, 16>(info);
+        case 32: return plan_info<Pr, T, 32>(info);
+        case 64: return plan_info<Pr, T, 64>(info);
+        default: return plan_info<Pr, T, 128>(info);
     }
 }
 
-int launch(int role, const float* data, const int* idx, const int* nblk, const int* order,
-           const float* src, float* out, float* part, int L, int S, int R, int C, int tile,
+template <typename Pr>
+cudaError_t launch_p(int role, int tile, const Args& a, cudaStream_t s) {
+    switch (tile) {
+        case 64: return launch_width<Pr, 64>(role, a, s);
+        case 128: return launch_width<Pr, 128>(role, a, s);
+        default: return cudaErrorInvalidValue;
+    }
+}
+
+int launch(int role, const void* data, const int* idx, const int* nblk, const int* order,
+           const void* src, float* out, float* part, int L, int S, int R, int C, int tile,
            int F, int n_out_rows, int n_src_rows, int src_div, long long src_stride, int vec,
-           void* stream) {
+           int bf16, void* stream) {
     if (L < 1 || S < 1 || L % S || R < 1 || C < 1 || F < 1 || n_out_rows < 1 ||
         n_src_rows < 1 || src_div < 1 || (S > 1 && part == nullptr) ||
         static_cast<long long>(L) * R > 0x7fffffffLL || (F + 15) / 16 > 65535)
@@ -348,12 +385,7 @@ int launch(int role, const float* data, const int* idx, const int* nblk, const i
     const Args a{data, idx, nblk, order, src, S > 1 ? part : out, L, R, C, F, n_out_rows,
                  n_src_rows, src_div, S, vec, src_stride};
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-    cudaError_t err;
-    switch (tile) {
-        case 64: err = launch_width<64>(role, a, s); break;
-        case 128: err = launch_width<128>(role, a, s); break;
-        default: return static_cast<int>(cudaErrorInvalidValue);
-    }
+    const cudaError_t err = bf16 ? launch_p<BF16>(role, tile, a, s) : launch_p<F32>(role, tile, a, s);
     if (err != cudaSuccess || S == 1) return static_cast<int>(err);
     const long long X = static_cast<long long>(L / S) * n_out_rows * F;
     const long long blocks = (X + 255) / 256;
@@ -364,14 +396,14 @@ int launch(int role, const float* data, const int* idx, const int* nblk, const i
 
 }  // namespace
 
-// The plan of the instance a launch at (tile, F) takes, into info[5]:
-// column tile, ring stages, dynamic shared memory (bytes) per CTA, and the
-// rows and columns one warp owns. Returns 0, or cudaErrorInvalidValue for a
-// tile the kernels do not take.
-extern "C" int stmgcn_spmm_plan(int tile, int F, int* info) {
+// The plan of the instance a launch at (tile, F) and storage type takes,
+// into info[5]: column tile, ring stages, dynamic shared memory (bytes) per
+// CTA, and the rows and columns one warp owns. Returns 0, or
+// cudaErrorInvalidValue for a tile the kernels do not take.
+extern "C" int stmgcn_spmm_plan(int tile, int F, int bf16, int* info) {
     switch (tile) {
-        case 64: plan_width<64>(F, info); return 0;
-        case 128: plan_width<128>(F, info); return 0;
+        case 64: bf16 ? plan_width<BF16, 64>(F, info) : plan_width<F32, 64>(F, info); return 0;
+        case 128: bf16 ? plan_width<BF16, 128>(F, info) : plan_width<F32, 128>(F, info); return 0;
         default: return static_cast<int>(cudaErrorInvalidValue);
     }
 }
@@ -381,30 +413,31 @@ extern "C" int stmgcn_spmm_plan(int tile, int F, int* info) {
 // writes source l % S of output group l / S. With S > 1, `part` is scratch
 // of L * n_out_rows * F floats and the S sources are summed into `out` in
 // order. `order` (L * R int32, a permutation) is the order the grid takes
-// the rows in.
-extern "C" int stmgcn_spmm_stack_fwd(const float* data, const int* idx, const int* nblk,
-                                     const int* order, const float* src, float* out,
+// the rows in. `data` and `src` are float32 (bf16 == 0) or both bfloat16
+// (bf16 == 1); `out` and `part` are float32 either way.
+extern "C" int stmgcn_spmm_stack_fwd(const void* data, const int* idx, const int* nblk,
+                                     const int* order, const void* src, float* out,
                                      float* part, int L, int S, int R, int C, int tile, int F,
                                      int n_out_rows, int n_src_rows, int src_div,
-                                     long long src_stride, int vec, void* stream) {
+                                     long long src_stride, int vec, int bf16, void* stream) {
     return launch(kStackFwd, data, idx, nblk, order, src, out, part, L, S, R, C, tile, F,
-                  n_out_rows, n_src_rows, src_div, src_stride, vec, stream);
+                  n_out_rows, n_src_rows, src_div, src_stride, vec, bf16, stream);
 }
 
-extern "C" int stmgcn_spmm_stack_bwd(const float* data, const int* idx, const int* nblk,
-                                     const int* order, const float* src, float* out,
+extern "C" int stmgcn_spmm_stack_bwd(const void* data, const int* idx, const int* nblk,
+                                     const int* order, const void* src, float* out,
                                      float* part, int L, int S, int R, int C, int tile, int F,
                                      int n_out_rows, int n_src_rows, int src_div,
-                                     long long src_stride, int vec, void* stream) {
+                                     long long src_stride, int vec, int bf16, void* stream) {
     return launch(kStackBwd, data, idx, nblk, order, src, out, part, L, S, R, C, tile, F,
-                  n_out_rows, n_src_rows, src_div, src_stride, vec, stream);
+                  n_out_rows, n_src_rows, src_div, src_stride, vec, bf16, stream);
 }
 
-extern "C" int stmgcn_spmm(const float* data, const int* idx, const int* nblk,
-                           const int* order, const float* src, float* out, float* part, int L,
+extern "C" int stmgcn_spmm(const void* data, const int* idx, const int* nblk,
+                           const int* order, const void* src, float* out, float* part, int L,
                            int S, int R, int C, int tile, int F, int n_out_rows,
                            int n_src_rows, int src_div, long long src_stride, int vec,
-                           void* stream) {
+                           int bf16, void* stream) {
     return launch(kSpmm, data, idx, nblk, order, src, out, part, L, S, R, C, tile, F,
-                  n_out_rows, n_src_rows, src_div, src_stride, vec, stream);
+                  n_out_rows, n_src_rows, src_div, src_stride, vec, bf16, stream);
 }

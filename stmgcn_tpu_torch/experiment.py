@@ -14,7 +14,7 @@ from typing import Optional
 
 import torch
 
-from stmgcn_tpu_torch.config import DTYPES, ExperimentConfig
+from stmgcn_tpu_torch.config import ExperimentConfig
 from stmgcn_tpu_torch.data.loader import load_npz
 from stmgcn_tpu_torch.data.pipeline import DemandDataset
 from stmgcn_tpu_torch.data.splits import date_splits, fraction_splits
@@ -123,14 +123,10 @@ def build_model(cfg: ExperimentConfig, input_dim: int, *, device=None,
                 generator: Optional[torch.Generator] = None) -> STMGCN:
     """The flagship from config plus the one data-derived scalar (feature
     count), in the config's support mode (``model.sparse`` /
-    ``model.tiled``; the parameters are the same in every mode).
-    ``device=None`` means the GPU."""
+    ``model.tiled``; the parameters are the same in every mode) and compute
+    dtype (``model.dtype``). ``device=None`` means the GPU."""
     m = cfg.model
     _check_support_route(cfg)
-    if m.dtype not in DTYPES:
-        raise ValueError(
-            f"model.dtype={m.dtype!r}: the port takes {DTYPES} storage so far"
-        )
     return STMGCN(
         m_graphs=m.m_graphs,
         n_supports=m.n_supports,
@@ -144,6 +140,7 @@ def build_model(cfg: ExperimentConfig, input_dim: int, *, device=None,
         shared_gate_fc=m.shared_gate_fc,
         sparse=m.sparse,
         support_modes=("tiled",) * m.m_graphs if m.tiled else None,
+        dtype=m.compute_dtype,
         device=device,
         generator=generator,
     )
@@ -177,6 +174,7 @@ def build_trainer(cfg: ExperimentConfig, *, device=None, initial_state: Optional
         seed=t.seed, steps_per_superstep=t.steps_per_superstep, out_dir=t.out_dir,
         top_k=t.top_k, async_checkpoint=t.async_checkpoint,
         checkpoint_every_steps=t.checkpoint_every_steps,
+        precision=t.precision, sr_seed=t.sr_seed,
         extra_meta={
             "config": cfg.to_dict(),
             # what a checkpoint consumer needs to rebuild the model without

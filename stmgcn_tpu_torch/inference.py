@@ -14,8 +14,11 @@ same in every support mode, so weights trained on dense supports serve on
 a plan as they are: the port's counterpart of the JAX package's
 ``to_tiled_serving`` is the identity.
 
-A checkpoint of either package carries its config, the derived model
-facts and the normalizer, so serving from a fresh process is::
+A model built at ``model.dtype="bfloat16"`` serves in bf16 over its float32
+parameters; its predictions come back as float32 numpy, as the JAX
+package's serve boundary hands bf16 values to numpy. A checkpoint of
+either package carries its config (and so ``model.dtype``), the derived
+model facts and the normalizer, so serving from a fresh process is::
 
     fc = Forecaster.from_checkpoint("output/best.ckpt")   # on the GPU
 """
@@ -117,7 +120,7 @@ class Forecaster:
         def call(h: np.ndarray) -> np.ndarray:
             with torch.inference_mode():
                 out = self.model(sup, torch.as_tensor(h, device=self.device))
-            return out.cpu().numpy()
+            return out.float().cpu().numpy()  # a bf16 model's predictions, exactly
 
         return serve_predict(call, self.normalizer, self.expected, history, normalized)
 

@@ -17,6 +17,11 @@ per-call real-node count of fleet serving is not ported yet.
 ``support_mode`` (``"dense" | "sparse" | "tiled"``) picks the gate's graph
 conv (:func:`~stmgcn_tpu_torch.ops.chebconv.make_conv`); its parameters are
 the same in every mode.
+
+Under a bf16 compute dtype the gate's feature sum and node mean run in
+float32 (the JAX gate's f32 reduction islands), its conv and Dense layers
+take bf16 operands with float32 results, so the gate itself stays float32;
+the LSTM runs its bf16 kernel route and hands back bf16 states.
 """
 
 from __future__ import annotations
@@ -43,6 +48,7 @@ class ContextualGate(nn.Module):
                  branches: Optional[int] = None, device=None, generator=None):
         super().__init__()
         self.n_real_nodes = n_real_nodes
+        self.compute_dtype: Optional[torch.dtype] = None
         kw = dict(branches=branches, device=device, generator=generator)
         self.temporal_gconv = make_conv(support_mode, n_supports, seq_len, seq_len,
                                         use_bias=use_bias, **kw)
@@ -50,15 +56,18 @@ class ContextualGate(nn.Module):
         self.gate_fc2 = None if shared_gate_fc else Dense(seq_len, seq_len, **kw)
 
     def forward(self, supports, obs_seq: torch.Tensor) -> torch.Tensor:
-        x_nt = obs_seq.sum(dim=-1).transpose(-1, -2)  # (B, N, T): history as features
+        f32 = {} if self.compute_dtype is None else {"dtype": torch.float32}
+        x_nt = obs_seq.sum(dim=-1, **f32).to(obs_seq.dtype)
+        x_nt = x_nt.transpose(-1, -2)  # (B, N, T): history as features
         x_hat = x_nt + self.temporal_gconv(supports, x_nt)  # eq. 6 residual
         n_nodes = x_hat.shape[-2]
         if self.n_real_nodes is not None and self.n_real_nodes != n_nodes:
             # eq. 7 over real nodes only
             mask = (torch.arange(n_nodes, device=x_hat.device) < self.n_real_nodes)
-            z = (x_hat * mask[:, None].to(x_hat.dtype)).sum(dim=-2) / self.n_real_nodes
+            z = (x_hat * mask[:, None].to(x_hat.dtype)).sum(dim=-2, **f32) / self.n_real_nodes
         else:
-            z = x_hat.mean(dim=-2)  # eq. 7: average pool over nodes -> (B, T)
+            z = x_hat.mean(dim=-2, **f32)  # eq. 7: average pool over nodes -> (B, T)
+        z = z.to(x_hat.dtype)
         second = self.gate_fc if self.gate_fc2 is None else self.gate_fc2
         s = torch.sigmoid(second(torch.relu(self.gate_fc(z))))  # eq. 8
         return obs_seq * s[..., None, None]  # eq. 9

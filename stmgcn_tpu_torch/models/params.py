@@ -1,4 +1,5 @@
-"""Weight conversion between the JAX package's flax tree and the port.
+"""Weight conversion between the JAX package's flax tree and the port, and
+the master -> compute casts of mixed-precision training.
 
 The JAX flagship stores its M branches in one of two layouts
 (``stmgcn_tpu/models/params.py``):
@@ -22,6 +23,14 @@ the schedule's ``{count}`` (the constant ``scale`` is empty).
 :func:`to_optax_state` and :func:`from_optax_state` map Adam's moments
 through the same converter as the parameters, so a Dense kernel's moments
 are transposed with it.
+
+Mixed precision (``stmgcn_tpu/models/params.py:56-131``):
+:func:`compute_cast` casts a tree of float32 masters to the compute dtype,
+round to nearest even, or stochastically rounded through
+:func:`sr_cast_bf16`, whose noise is an argument, as the JAX function's is:
+``jax.random``'s bits cannot be drawn in torch, so the port draws its own
+from an explicit ``torch.Generator`` and a test hands both the same numpy
+noise. :func:`leaf_dtype_census` counts a tree's leaves and bytes per dtype.
 """
 
 from __future__ import annotations
@@ -31,9 +40,12 @@ import torch
 
 __all__ = [
     "OPTAX_PARTS",
+    "compute_cast",
     "from_jax_params",
     "from_optax_state",
     "jax_layout",
+    "leaf_dtype_census",
+    "sr_cast_bf16",
     "to_jax_params",
     "to_optax_state",
 ]
@@ -174,3 +186,69 @@ def from_optax_state(tree: dict, parts, m_graphs: int):
             raise ValueError("optimizer state: the schedule's count differs from Adam's")
     return (count, from_jax_params(adam["mu"], m_graphs),
             from_jax_params(adam["nu"], m_graphs))
+
+
+# -- mixed precision: the master -> compute casts ------------------------------
+
+def leaf_dtype_census(tree) -> dict:
+    """Per-dtype ``{"leaves": n, "bytes": n}`` of a (nested) dict of tensors
+    or arrays, keyed by dtype name ("float32", "bfloat16", ...), as the JAX
+    census."""
+    census: dict = {}
+    for _, leaf in _flatten(tree):
+        leaf = torch.as_tensor(leaf)
+        name = str(leaf.dtype).replace("torch.", "")
+        entry = census.setdefault(name, {"leaves": 0, "bytes": 0})
+        entry["leaves"] += 1
+        entry["bytes"] += leaf.numel() * leaf.element_size()
+    return census
+
+
+def _round_to_bf16_stochastic(x: torch.Tensor, noise: torch.Tensor) -> torch.Tensor:
+    """``f32 -> bf16`` by truncation after adding ``noise`` (``U[0, 2^16)``)
+    to the raw bits: the JAX ``_round_to_bf16_stochastic``, in uint32
+    arithmetic (wrapping mod 2^32) carried in int64."""
+    bits = x.float().contiguous().view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    rounded = (bits + noise.to(torch.int64)) & 0xFFFF0000
+    rounded = torch.where(rounded >= 1 << 31, rounded - (1 << 32), rounded)
+    return rounded.to(torch.int32).view(torch.float32).to(torch.bfloat16)
+
+
+class _SRCast(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, noise):
+        return _round_to_bf16_stochastic(x, noise)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.to(torch.float32), None
+
+
+def sr_cast_bf16(x: torch.Tensor, noise: torch.Tensor) -> torch.Tensor:
+    """Stochastically rounded ``f32 -> bf16`` cast with a straight-through
+    gradient (the cotangent comes back as float32). ``noise`` is an integer
+    tensor of ``x``'s shape holding ``U[0, 2^16)`` draws; the same noise
+    gives JAX's ``sr_cast_bf16`` bit for bit."""
+    if noise.shape != x.shape:
+        raise ValueError(f"noise {tuple(noise.shape)} must have x's shape {tuple(x.shape)}")
+    return _SRCast.apply(x, noise)
+
+
+def compute_cast(tree: dict, dtype, generator=None) -> dict:
+    """The float leaves of a flat dict of tensors cast to the compute
+    ``dtype`` (others pass through): round to nearest even, or with
+    ``generator`` (bf16 only) stochastically rounded through
+    :func:`sr_cast_bf16`, one noise draw per leaf in the dict's order, on the
+    generator's device. Gradients flow back to the masters in float32."""
+    if generator is None:
+        return {k: v.to(dtype) if v.is_floating_point() else v for k, v in tree.items()}
+    if dtype != torch.bfloat16:
+        raise ValueError(f"stochastic rounding is defined for bfloat16 only, got {dtype}")
+    out = {}
+    for k, v in tree.items():
+        if v.is_floating_point():
+            noise = torch.randint(0, 1 << 16, v.shape, generator=generator,
+                                  device=generator.device, dtype=torch.int64)
+            v = sr_cast_bf16(v, noise.to(v.device))
+        out[k] = v
+    return out

@@ -8,6 +8,13 @@ tiled plan. Fusion sums the M branch outputs in float32, then a
 ``Dense(gcn_hidden -> horizon * input_dim)`` head gives the ``(B, N, C)``
 next-step prediction, or ``(B, H, N, C)`` for ``horizon > 1``.
 
+``dtype`` is the compute dtype (None or float32: the fp32 path;
+``torch.bfloat16``: the JAX model at ``dtype=bfloat16``, over float32
+parameters): the branch outputs are summed in float32 and rounded to bf16,
+the head sums in float32, and the prediction leaves in bf16, as the JAX
+model's serve boundary. :func:`~stmgcn_tpu_torch.ops.layers.set_compute_dtype`
+changes it on a built model.
+
 The support representation is one mode for the whole model (``"dense"``,
 ``"sparse"`` or ``"tiled"``, from ``sparse=`` or a uniform
 ``support_modes=``); the parameters are the same in every mode, so weights
@@ -27,7 +34,7 @@ from torch import nn
 
 from stmgcn_tpu_torch.models.cg_lstm import CGLSTM
 from stmgcn_tpu_torch.ops.chebconv import conv_cls, make_conv
-from stmgcn_tpu_torch.ops.layers import Dense, resolve_device
+from stmgcn_tpu_torch.ops.layers import Dense, resolve_device, set_compute_dtype
 from stmgcn_tpu_torch.ops.spmm import BlockSparseStack
 from stmgcn_tpu_torch.ops.tiling import TiledSupports
 
@@ -68,6 +75,7 @@ class STMGCN(nn.Module):
                  gcn_hidden_dim: int = 64, use_bias: bool = True,
                  shared_gate_fc: bool = True, n_real_nodes: Optional[int] = None,
                  sparse: bool = False, support_modes: Optional[Sequence[str]] = None,
+                 dtype: Optional[torch.dtype] = None,
                  device=None, generator: Optional[torch.Generator] = None):
         super().__init__()
         device = resolve_device(device)
@@ -87,6 +95,8 @@ class STMGCN(nn.Module):
         )
         self.head = Dense(gcn_hidden_dim, horizon * input_dim, device=device,
                           generator=generator)
+        self.compute_dtype: Optional[torch.dtype] = None
+        set_compute_dtype(self, dtype)
 
     @staticmethod
     def _mode(m_graphs, sparse, support_modes) -> str:
@@ -135,7 +145,11 @@ class STMGCN(nn.Module):
         :meth:`check_supports`); ``obs_seq`` ``(B, T, N, C)``."""
         self.check_supports(supports_stack)
         feats = self.branches(supports_stack, obs_seq)  # (M, B, N, gcn_hidden)
-        out = self.head(feats.sum(dim=0))
+        if self.compute_dtype is None:
+            out = self.head(feats.sum(dim=0))
+        else:  # f32 fusion island; the prediction leaves in the compute dtype
+            fused = feats.sum(dim=0, dtype=torch.float32).to(self.compute_dtype)
+            out = self.head(fused).to(self.compute_dtype)
         if self.horizon == 1:
             return out  # (B, N, C)
         batch, n_nodes = out.shape[:2]

@@ -24,7 +24,7 @@ from pathlib import Path
 
 import torch
 
-__all__ = ["BUILD_DIR", "BuildInfo", "load_library", "on_cuda"]
+__all__ = ["BUILD_DIR", "BuildInfo", "KERNEL_DTYPES", "load_library", "on_cuda"]
 
 _REPO_ROOT = Path(__file__).resolve().parents[2]
 BUILD_DIR = _REPO_ROOT / "build" / "kernels"
@@ -34,6 +34,9 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+
+#: the storage dtypes the kernels take (one per launch)
+KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 
 _LOCKS: dict = {}  # one lock per library, so different kernels build in parallel
 _LOCKS_GUARD = threading.Lock()
@@ -91,8 +94,10 @@ def _build(sources, name: str) -> BuildInfo:
 def on_cuda(name, operands, int_operands=()) -> bool:
     """Where a kernel wrapper's operands send it: False when every operand
     lies on the CPU (the plain version runs); True when all are contiguous
-    and on one CUDA device, ``operands`` float32 and ``int_operands`` int32
-    (the kernel runs); raises on anything else — no fallback."""
+    and on one CUDA device, ``operands`` all float32 or all bfloat16 and
+    ``int_operands`` int32 (the kernel of that storage type runs); raises on
+    anything else — no fallback, and a bfloat16 operand never goes to the
+    float32 kernel."""
     every = tuple(operands) + tuple(int_operands)
     if all(t.device.type == "cpu" for t in every):
         return False
@@ -102,10 +107,11 @@ def on_cuda(name, operands, int_operands=()) -> bool:
             f"{name}: operands must all be on one CUDA device (or all on "
             f"the CPU), got {[str(t.device) for t in every]}"
         )
-    if any(t.dtype != torch.float32 for t in operands):
+    dtypes = {t.dtype for t in operands}
+    if len(dtypes) != 1 or dtypes.pop() not in KERNEL_DTYPES:
         raise TypeError(
-            f"{name}: the CUDA kernel takes float32 storage only, got "
-            f"{[str(t.dtype) for t in operands]}"
+            f"{name}: the CUDA kernel takes float32 or bfloat16 storage, every "
+            f"operand of one dtype, got {[str(t.dtype) for t in operands]}"
         )
     if any(t.dtype != torch.int32 for t in int_operands):
         raise TypeError(

@@ -17,7 +17,16 @@ tail ``act(stacked @ W + b)``. They differ in how the K propagations run:
 
 Neither block conv has a backend switch: CUDA tensors take the kernels,
 CPU tensors their plain versions. The banded (mesh) convolution is not
-ported. Float32 throughout.
+ported.
+
+Under a bf16 compute dtype (``compute_dtype``, ``ops/layers.py``) each
+conv follows the JAX conv at ``dtype=bfloat16``
+(``stmgcn_tpu/ops/chebconv.py``): the signal, weight and bias (and dense
+supports) rounded to bf16; the K propagations summed in float32 and
+rounded to bf16 (dense: an fp32 einsum of the bf16 values; block-CSR: the
+kernels' bf16 forms over the blocks cast to bf16, float32 out); the
+projection in float32 with the bias added on the float32 side, then the
+activation, then one rounding to bf16 (``_project``).
 """
 
 from __future__ import annotations
@@ -27,7 +36,14 @@ from typing import Callable, Optional, Sequence
 import torch
 from torch import nn
 
-from stmgcn_tpu_torch.ops.layers import branch_view, new_param, xavier_normal
+from stmgcn_tpu_torch.ops.layers import (
+    accum_einsum,
+    accum_matmul,
+    branch_view,
+    promote_dtype,
+    new_param,
+    xavier_normal,
+)
 from stmgcn_tpu_torch.ops.spmm import BlockSparseStack, spmm, spmm_stack
 from stmgcn_tpu_torch.ops.tiling import TiledBranchSupports, TiledSupports
 
@@ -40,8 +56,18 @@ __all__ = [
 ]
 
 
-def _project(stacked, w, b, activation):
-    """Projection / bias / activation tail: ``act(stacked @ w + b)``."""
+def _project(stacked, w, b, activation, dtype=None):
+    """Projection / bias / activation tail: ``act(stacked @ w + b)``; under
+    a bf16 compute ``dtype``, the product and bias add in float32 and one
+    rounding to bf16 at the end."""
+    if dtype is not None:
+        stacked, w, b = promote_dtype(dtype, stacked, w, b)
+        out = accum_matmul(stacked, w)
+        if b is not None:
+            out = out + b.float()
+        if activation is not None:
+            out = activation(out)
+        return out.to(dtype)
     out = torch.matmul(stacked, w)
     if b is not None:
         out = out + b
@@ -83,6 +109,7 @@ class ChebGraphConv(nn.Module):
         self.features = features
         self.activation = activation
         self.branches = branches
+        self.compute_dtype: Optional[torch.dtype] = None
         lead = () if branches is None else (branches,)
         fan_in = n_supports * in_features
         self.W = new_param(
@@ -99,11 +126,20 @@ class ChebGraphConv(nn.Module):
         """The shared tail on the k-major ``([M,] B, N, K*F_in)`` stack."""
         w = branch_view(self.W, self.branches, 1)
         b = None if self.b is None else branch_view(self.b, self.branches, 2)
-        return _project(stacked, w, b, self.activation)
+        return _project(stacked, w, b, self.activation, self.compute_dtype)
+
+    def _propagated(self, propagated: torch.Tensor) -> torch.Tensor:
+        """A block product's float32 result in the compute dtype."""
+        return propagated if self.compute_dtype is None else propagated.to(self.compute_dtype)
 
     def forward(self, supports: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
         self._check_count(supports.shape[-3])
-        propagated = torch.einsum("...kij,...bjf->...bikf", supports, x)
+        if self.compute_dtype is not None:
+            supports, x = promote_dtype(self.compute_dtype, supports, x)
+            propagated = accum_einsum("...kij,...bjf->...bikf", supports, x)
+            propagated = propagated.to(self.compute_dtype)
+        else:
+            propagated = torch.einsum("...kij,...bjf->...bikf", supports, x)
         return self.project(propagated.flatten(-2))  # k-major (B, N, K*F_in)
 
 
@@ -126,12 +162,14 @@ class SparseChebGraphConv(ChebGraphConv):
     def _one_branch(self, supports, x_mat):
         if isinstance(supports, BlockSparseStack):
             self._check_count(supports.n_supports)
-            return spmm_stack(supports, x_mat)
+            return self._propagated(spmm_stack(supports.astype(x_mat.dtype), x_mat))
         self._check_count(len(supports))
-        return torch.stack([spmm(bs, x_mat) for bs in supports])
+        return torch.stack([self._propagated(spmm(bs.astype(x_mat.dtype), x_mat))
+                            for bs in supports])
 
     def forward(self, supports, x: torch.Tensor) -> torch.Tensor:
         batch, f_in = x.shape[-3], x.shape[-1]
+        (x,) = promote_dtype(self.compute_dtype, x)
         x_mat = _signal_matrix(x)
         if self.branches is None or isinstance(supports, BlockSparseStack):
             if isinstance(supports, BlockSparseStack) and supports.branches != self.branches:
@@ -181,8 +219,9 @@ class TiledChebGraphConv(ChebGraphConv):
         batch, n_nodes, f_in = x.shape[-3:]
         if n_nodes != supports.n:
             raise ValueError(f"x has {n_nodes} nodes, plan expects {supports.n}")
+        (x,) = promote_dtype(self.compute_dtype, x)
         x_mat = _signal_matrix(x).index_select(-2, supports.perm)
-        propagated = spmm_stack(supports.as_stack(), x_mat)
+        propagated = self._propagated(spmm_stack(supports.as_stack().astype(x.dtype), x_mat))
         out = self.project(_k_major(propagated, batch, f_in))
         # the node axis back out AFTER the (node-wise) projection
         return out.index_select(-2, supports.inv)

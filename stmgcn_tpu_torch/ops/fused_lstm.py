@@ -28,8 +28,20 @@ launch over ``M * R`` rows, each CTA reading its branch's weights.
 launch the kernel (or raise — no fallback), CPU tensors take
 :func:`fused_lstm_reference`, the plain version the CPU tests and
 ``chip_smoke.py`` hold the kernel against; :func:`fused_lstm_bwd` and
-:func:`fused_lstm_bwd_reference` are the backward's pair. Storage is
-float32 only so far; cell math is float32 either way.
+:func:`fused_lstm_bwd_reference` are the backward's pair.
+
+**Storage dtypes.** Every operand is float32 or every one bfloat16 (the
+storage dtype of ``x_proj0`` and the weights, as the JAX kernel follows
+``x_proj0.dtype``); mixed operands raise on either device. Cell math is
+float32 either way. In bfloat16 the functions follow the JAX kernel's
+rounding sites exactly: each product rounds its fp32 operand (h, dgates)
+to bf16 and sums in fp32 (``_mm``); ``out``, ``hseq``, ``cseq`` and the
+final states are stored in bf16; the backward reads the cotangents in
+bf16, recomputes the gates from the bf16 residuals, stores ``dxp`` in bf16
+and sums dW (bf16 x bf16 products) and db (the unrounded fp32 dgates) in
+fp32, which :class:`FusedLSTM` rounds to the weights' dtype as
+``_fused_bwd`` does. The CUDA kernels' bf16 forms run each product as one
+``mma.sync`` m16n8k16 bf16 pass.
 """
 
 from __future__ import annotations
@@ -74,7 +86,7 @@ def kernel_library():
     (:class:`~stmgcn_tpu_torch.ops._build.BuildInfo`); built on first call."""
     lib, info = load_library([SOURCE], "fused_lstm_fwd")
     fn = lib.stmgcn_lstm_fwd
-    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn, info
 
@@ -85,7 +97,7 @@ def bwd_kernel_library():
     build record; built on first call."""
     lib, info = load_library([BWD_SOURCE], "fused_lstm_bwd")
     fn = lib.stmgcn_lstm_bwd
-    fn.argtypes = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     workspace = lib.stmgcn_lstm_bwd_workspace
     workspace.argtypes = [ctypes.c_int] * 5
@@ -93,20 +105,41 @@ def bwd_kernel_library():
     return fn, workspace, info
 
 
-def kernel_resources(L: int, H: int) -> dict:
+def kernel_resources(L: int, H: int, dtype=torch.float32) -> dict:
     """Rows per CTA and dynamic shared memory (bytes) per CTA of each LSTM
-    kernel at ``(L, H)``, as the built libraries report them (builds them
-    on first call)."""
+    kernel at ``(L, H)`` and storage ``dtype``, as the built libraries
+    report them (builds them on first call)."""
     fwd = load_library([SOURCE], "fused_lstm_fwd")[0]
     bwd = load_library([BWD_SOURCE], "fused_lstm_bwd")[0]
     for f in (fwd.stmgcn_lstm_fwd_smem, fwd.stmgcn_lstm_block_rows, bwd.stmgcn_lstm_bwd_smem):
         f.restype = ctypes.c_int
+    bf16 = int(dtype == torch.bfloat16)
     return {
         "block_rows": fwd.stmgcn_lstm_block_rows(H),
-        "lstm_fwd_kernel": fwd.stmgcn_lstm_fwd_smem(L, H),
-        "lstm_bwd_sweep": bwd.stmgcn_lstm_bwd_smem(L, H),
-        "lstm_bwd_wgrad": bwd.stmgcn_lstm_bwd_smem(0, H),
+        "lstm_fwd_kernel": fwd.stmgcn_lstm_fwd_smem(L, H, bf16),
+        "lstm_bwd_sweep": bwd.stmgcn_lstm_bwd_smem(L, H, bf16),
+        "lstm_bwd_wgrad": bwd.stmgcn_lstm_bwd_smem(0, H, bf16),
     }
+
+
+def _storage(name, operands) -> torch.dtype:
+    """The one storage dtype of ``operands``: float32 or bfloat16, raising
+    on mixed dtypes (which the JAX package never hands its kernel) on every
+    device."""
+    dtypes = {t.dtype for t in operands}
+    if len(dtypes) != 1 or not dtypes <= {torch.float32, torch.bfloat16}:
+        raise TypeError(f"{name}: operands must all be float32 or all bfloat16, got "
+                        f"{[str(t.dtype) for t in operands]}")
+    return dtypes.pop()
+
+
+def _mm(a, w):
+    """The JAX kernel's ``_mm``: ``a`` rounded to ``w``'s storage dtype,
+    the product summed in float32 (a product of two bf16 values is exact in
+    float32). Float32 storage is the plain product."""
+    if w.dtype == torch.float32:
+        return a @ w
+    return a.to(w.dtype).float() @ w.float()
 
 
 def _check_aligned(name, copied, paired):
@@ -155,8 +188,10 @@ def _check_shapes(x_proj0, wh_stack, wx_stack, b_stack):
 
 def fused_lstm_reference(x_proj0, wh_stack, wx_stack, b_stack, *, with_residuals=False):
     """Plain PyTorch version of :func:`fused_lstm`: a Python loop over t and
-    layers with ``torch.matmul``, same arguments, same outputs."""
+    layers with ``torch.matmul``, same arguments, same outputs, at either
+    storage dtype (the module docstring's rounding sites)."""
     lead, R, T, L, H = _check_shapes(x_proj0, wh_stack, wx_stack, b_stack)
+    sd = _storage("fused_lstm", (x_proj0, wh_stack, wx_stack, b_stack))
     f32 = torch.float32
     wh0, wxh = pack_weights(wh_stack, wx_stack)
     h = [x_proj0.new_zeros(lead + (R, H), dtype=f32) for _ in range(L)]
@@ -165,10 +200,11 @@ def fused_lstm_reference(x_proj0, wh_stack, wx_stack, b_stack, *, with_residuals
     for t in range(T):
         for layer in range(L):
             if layer == 0:
-                pre = x_proj0[..., t, :].to(f32) + h[0] @ wh0
+                pre = x_proj0[..., t, :].to(f32) + _mm(h[0], wh0)
             else:
                 hcat = torch.cat([h[layer - 1], h[layer]], dim=-1)
-                pre = hcat @ wxh[..., layer - 1, :, :] + b_stack[..., layer - 1 : layer, :]
+                pre = (_mm(hcat, wxh[..., layer - 1, :, :])
+                       + b_stack[..., layer - 1 : layer, :].to(f32))
             i, f, g, o = pre.chunk(4, dim=-1)
             c[layer] = torch.sigmoid(f) * c[layer] + torch.sigmoid(i) * torch.tanh(g)
             h[layer] = torch.sigmoid(o) * torch.tanh(c[layer])
@@ -179,7 +215,7 @@ def fused_lstm_reference(x_proj0, wh_stack, wx_stack, b_stack, *, with_residuals
     result = (torch.stack(outs, dim=-2), torch.stack(h, dim=-3), torch.stack(c, dim=-3))
     if with_residuals:
         result += (torch.stack(hseq, dim=-4), torch.stack(cseq, dim=-4))
-    return result
+    return tuple(r.to(sd) for r in result)
 
 
 def _kernel_shapes(name, operands):
@@ -209,13 +245,16 @@ def fused_lstm(x_proj0, wh_stack, wx_stack, b_stack, *, with_residuals=False):
     Returns ``(hs_top ([M,] R, T, H), h_fin ([M,] L, R, H), c_fin ([M,] L,
     R, H))``, plus ``(hseq, cseq)`` with ``with_residuals``.
 
+    Outputs are in the operands' storage dtype (float32 or bfloat16).
+
     On CPU tensors this is :func:`fused_lstm_reference`. On CUDA tensors it
-    launches the kernel on the current stream (no synchronisation) and
-    raises on anything the kernel does not take: another dtype than
-    float32, non-contiguous or mixed-device operands, an ``H`` outside
-    ``KERNEL_HIDDEN``, more than ``KERNEL_MAX_LAYERS`` layers.
+    launches the kernel of the storage dtype on the current stream (no
+    synchronisation) and raises on anything the kernel does not take: mixed
+    or other dtypes, non-contiguous or mixed-device operands, an ``H``
+    outside ``KERNEL_HIDDEN``, more than ``KERNEL_MAX_LAYERS`` layers.
     """
     operands = (x_proj0, wh_stack, wx_stack, b_stack)
+    sd = _storage("fused_lstm", operands)
     if not on_cuda("fused_lstm", operands):
         return fused_lstm_reference(*operands, with_residuals=with_residuals)
     lead, M, R, T, L, H = _kernel_shapes("fused_lstm", operands)
@@ -223,12 +262,12 @@ def fused_lstm(x_proj0, wh_stack, wx_stack, b_stack, *, with_residuals=False):
     wh0, wxh = pack_weights(wh_stack, wx_stack)
     wh0, wxh = wh0.contiguous(), wxh.contiguous()
     _check_aligned("fused_lstm", (wh0, wxh), (x_proj0, b_stack))
-    out = torch.empty(lead + (R, T, H), device=device, dtype=torch.float32)
-    h_fin = torch.empty(lead + (L, R, H), device=device, dtype=torch.float32)
+    out = torch.empty(lead + (R, T, H), device=device, dtype=sd)
+    h_fin = torch.empty(lead + (L, R, H), device=device, dtype=sd)
     c_fin = torch.empty_like(h_fin)
     hseq = cseq = None
     if with_residuals:
-        hseq = torch.empty(lead + (T, L, R, H), device=device, dtype=torch.float32)
+        hseq = torch.empty(lead + (T, L, R, H), device=device, dtype=sd)
         cseq = torch.empty_like(hseq)
     fn, _ = kernel_library()
     with torch.cuda.device(device):
@@ -238,7 +277,7 @@ def fused_lstm(x_proj0, wh_stack, wx_stack, b_stack, *, with_residuals=False):
             out.data_ptr(), h_fin.data_ptr(), c_fin.data_ptr(),
             hseq.data_ptr() if hseq is not None else None,
             cseq.data_ptr() if cseq is not None else None,
-            M, R, T, L, H, stream,
+            M, R, T, L, H, int(sd == torch.bfloat16), stream,
         )
     if err != 0:
         raise RuntimeError(f"fused_lstm: kernel launch failed with cudaError {err}")
@@ -253,20 +292,20 @@ fused_lstm.launches = 0
 
 
 def _cotangents(x_proj0, L, g_out, g_hfin, g_cfin):
-    """Autograd passes ``None`` for an output whose gradient is unused
+    """The cotangents in the storage dtype, as ``_fused_bwd`` casts them.
+    Autograd passes ``None`` for an output whose gradient is unused
     (``CGLSTM`` reads only the last step, so the final-state cotangents
     usually are): those become zeros."""
     lead, (R, T, four_h) = x_proj0.shape[:-3], x_proj0.shape[-3:]
     H = four_h // 4
+    sd = x_proj0.dtype
 
-    def zeros(shape):
-        return torch.zeros(lead + shape, device=x_proj0.device, dtype=torch.float32)
+    def cast(g, shape):
+        if g is None:
+            return torch.zeros(lead + shape, device=x_proj0.device, dtype=sd)
+        return g.to(sd)
 
-    return (
-        zeros((R, T, H)) if g_out is None else g_out,
-        zeros((L, R, H)) if g_hfin is None else g_hfin,
-        zeros((L, R, H)) if g_cfin is None else g_cfin,
-    )
+    return cast(g_out, (R, T, H)), cast(g_hfin, (L, R, H)), cast(g_cfin, (L, R, H))
 
 
 def fused_lstm_bwd_reference(x_proj0, wh_stack, wx_stack, b_stack, hseq, cseq,
@@ -275,16 +314,22 @@ def fused_lstm_bwd_reference(x_proj0, wh_stack, wx_stack, b_stack, hseq, cseq,
     ``_bwd_kernel`` as a Python loop over t and layers with ``torch.matmul``
     — recompute each step's pre-activations from the saved h/c, form the
     gate cotangents, carry dh/dc back — with the same arguments and the same
-    packed outputs."""
+    packed outputs, at either storage dtype (the module docstring's
+    rounding sites; the weight gradients are float32 sums)."""
     lead, R, T, L, H = _check_shapes(x_proj0, wh_stack, wx_stack, b_stack)
+    sd = _storage("fused_lstm_bwd", (x_proj0, wh_stack, wx_stack, b_stack, hseq, cseq))
     g_out, g_hfin, g_cfin = _cotangents(x_proj0, L, g_out, g_hfin, g_cfin)
     wh0, wxh = pack_weights(wh_stack, wx_stack)
+    if sd != torch.float32:  # residuals, operands and cotangents read as fp32
+        x_proj0, b_stack, hseq, cseq, g_out, g_hfin, g_cfin = (
+            t.float() for t in (x_proj0, b_stack, hseq, cseq, g_out, g_hfin, g_cfin))
     dh = [g_hfin[..., layer, :, :] for layer in range(L)]
     dc = [g_cfin[..., layer, :, :] for layer in range(L)]
     zeros = x_proj0.new_zeros(lead + (R, H))
     dxp = [None] * T
-    dwh0 = torch.zeros_like(wh0)
-    dwxh = [torch.zeros_like(wxh[..., 0, :, :]) for _ in range(wxh.shape[-3])]
+    dwh0 = torch.zeros_like(wh0, dtype=torch.float32)
+    dwxh = [torch.zeros_like(wxh[..., 0, :, :], dtype=torch.float32)
+            for _ in range(wxh.shape[-3])]
     db = [torch.zeros_like(b_stack[..., 0, :]) for _ in range(b_stack.shape[-2])]
     for t in reversed(range(T)):
         dh[L - 1] = dh[L - 1] + g_out[..., t, :]
@@ -294,10 +339,10 @@ def fused_lstm_bwd_reference(x_proj0, wh_stack, wx_stack, b_stack, hseq, cseq,
             c_t = cseq[..., t, layer, :, :]
             if layer == 0:
                 hin = h_prev
-                pre = x_proj0[..., t, :] + h_prev @ wh0
+                pre = x_proj0[..., t, :] + _mm(h_prev, wh0)
             else:
                 hin = torch.cat([hseq[..., t, layer - 1, :, :], h_prev], dim=-1)
-                pre = hin @ wxh[..., layer - 1, :, :] + b_stack[..., layer - 1 : layer, :]
+                pre = _mm(hin, wxh[..., layer - 1, :, :]) + b_stack[..., layer - 1 : layer, :]
             i, f, g, o = (act(p) for act, p in zip(
                 (torch.sigmoid, torch.sigmoid, torch.tanh, torch.sigmoid), pre.chunk(4, dim=-1)))
             tc = torch.tanh(c_t)
@@ -310,17 +355,19 @@ def fused_lstm_bwd_reference(x_proj0, wh_stack, wx_stack, b_stack, hseq, cseq,
                 d_o * o * (1.0 - o),
             ], dim=-1)
             dc[layer] = dct * f
+            # dW: bf16(hin)^T bf16(dgates) in fp32 (hin is bf16 already)
+            dg_w = dgates if sd == torch.float32 else dgates.to(sd).float()
             if layer == 0:
-                dh[0] = dgates @ wh0.transpose(-1, -2)
-                dwh0 = dwh0 + hin.transpose(-1, -2) @ dgates
+                dh[0] = _mm(dgates, wh0.transpose(-1, -2))
+                dwh0 = dwh0 + hin.transpose(-1, -2) @ dg_w
                 dxp[t] = dgates
             else:
-                dcat = dgates @ wxh[..., layer - 1, :, :].transpose(-1, -2)
+                dcat = _mm(dgates, wxh[..., layer - 1, :, :].transpose(-1, -2))
                 dh[layer - 1] = dh[layer - 1] + dcat[..., :H]
                 dh[layer] = dcat[..., H:]
-                dwxh[layer - 1] = dwxh[layer - 1] + hin.transpose(-1, -2) @ dgates
+                dwxh[layer - 1] = dwxh[layer - 1] + hin.transpose(-1, -2) @ dg_w
                 db[layer - 1] = db[layer - 1] + dgates.sum(dim=-2)
-    return (torch.stack(dxp, dim=-2), dwh0, torch.stack(dwxh, dim=-3),
+    return (torch.stack(dxp, dim=-2).to(sd), dwh0, torch.stack(dwxh, dim=-3),
             torch.stack(db, dim=-2))
 
 
@@ -335,9 +382,11 @@ def fused_lstm_bwd(x_proj0, wh_stack, wx_stack, b_stack, hseq, cseq,
     of which may be ``None`` (zeros).
 
     Returns the packed gradients of ``_fused_bwd``'s kernel: ``dxp ([M,]
-    R, T, 4H)``, ``dwh0 ([M,] H, 4H)``, ``dwxh ([M,] max(L-1, 1), 2H, 4H)``
-    and ``db ([M,] max(L-1, 1), 4H)`` (the last two zeros when L == 1);
-    :func:`unpack_weight_grads` turns them into per-stack gradients.
+    R, T, 4H)`` in the storage dtype, and in float32 ``dwh0 ([M,] H,
+    4H)``, ``dwxh ([M,] max(L-1, 1), 2H, 4H)`` and ``db ([M,] max(L-1, 1),
+    4H)`` (the last two zeros when L == 1); :func:`unpack_weight_grads`
+    turns them into per-stack gradients. The cotangents are read in the
+    storage dtype (cast as ``_fused_bwd`` casts them).
 
     On CPU tensors this is :func:`fused_lstm_bwd_reference`. On CUDA
     tensors it launches ``csrc/fused_lstm_bwd.cu`` on the current stream,
@@ -346,6 +395,7 @@ def fused_lstm_bwd(x_proj0, wh_stack, wx_stack, b_stack, hseq, cseq,
     fixed summation order.
     """
     L = wh_stack.shape[-3]
+    sd = _storage("fused_lstm_bwd", (x_proj0, wh_stack, wx_stack, b_stack, hseq, cseq))
     g_out, g_hfin, g_cfin = _cotangents(x_proj0, L, g_out, g_hfin, g_cfin)
     operands = (x_proj0, wh_stack, wx_stack, b_stack, hseq, cseq, g_out, g_hfin, g_cfin)
     if not on_cuda("fused_lstm_bwd", operands):
@@ -362,7 +412,7 @@ def fused_lstm_bwd(x_proj0, wh_stack, wx_stack, b_stack, hseq, cseq,
     _check_aligned("fused_lstm_bwd", (wh0, wxh, hseq), (x_proj0, b_stack) + operands[5:])
     fn, workspace_floats, _ = bwd_kernel_library()
     dxp = torch.empty_like(x_proj0)
-    dwh0 = torch.empty_like(wh0)
+    dwh0 = torch.empty_like(wh0, dtype=torch.float32)
     new = torch.empty if L > 1 else torch.zeros  # L == 1: unwritten placeholders
     dwxh = new(wxh.shape, device=device, dtype=torch.float32)
     db = new(b_stack.shape, device=device, dtype=torch.float32)
@@ -372,7 +422,7 @@ def fused_lstm_bwd(x_proj0, wh_stack, wx_stack, b_stack, hseq, cseq,
         err = fn(
             *(t.data_ptr() for t in (x_proj0, wh0, wxh, b_stack, hseq, cseq,
                                      g_out, g_hfin, g_cfin, dxp, dwh0, dwxh, db, work)),
-            M, R, T, L, H, stream,
+            M, R, T, L, H, int(sd == torch.bfloat16), stream,
         )
     if err != 0:
         raise RuntimeError(f"fused_lstm_bwd: kernel launch failed with cudaError {err}")
@@ -392,7 +442,7 @@ def unpack_weight_grads(dwh0, dwxh, wh_stack, wx_stack):
     when L == 1 (its slab is never read)."""
     L, H = wh_stack.shape[-3], wh_stack.shape[-2]
     if L == 1:
-        return dwh0.unsqueeze(-3), torch.zeros_like(wx_stack)
+        return dwh0.unsqueeze(-3), torch.zeros_like(wx_stack, dtype=dwh0.dtype)
     dwh = torch.cat([dwh0.unsqueeze(-3), dwxh[..., H:, :]], dim=-3)
     return dwh, dwxh[..., :H, :]
 
@@ -400,8 +450,10 @@ def unpack_weight_grads(dwh0, dwxh, wh_stack, wx_stack):
 class FusedLSTM(torch.autograd.Function):
     """:func:`fused_lstm` with :func:`fused_lstm_bwd` as its backward: the
     forward keeps the residuals the backward reads (``x_proj0``, the
-    weights, ``hseq``, ``cseq``). Use :func:`fused_lstm_autograd`, which
-    takes this route only when a gradient is wanted."""
+    weights, ``hseq``, ``cseq``); the float32 weight gradients are rounded
+    to the weights' dtype, as ``_fused_bwd`` rounds them. Use
+    :func:`fused_lstm_autograd`, which takes this route only when a
+    gradient is wanted."""
 
     @staticmethod
     def forward(ctx, x_proj0, wh_stack, wx_stack, b_stack):
@@ -421,7 +473,7 @@ class FusedLSTM(torch.autograd.Function):
             x_proj0, wh_stack, wx_stack, b_stack, hseq, cseq,
             dense(g_out), dense(g_hfin), dense(g_cfin))
         dwh, dwx = unpack_weight_grads(dwh0, dwxh, wh_stack, wx_stack)
-        return dxp, dwh, dwx, db
+        return dxp, dwh.to(wh_stack.dtype), dwx.to(wx_stack.dtype), db.to(b_stack.dtype)
 
 
 def kernel_width(H: int) -> int:
@@ -485,7 +537,11 @@ def fused_lstm_autograd(x_proj0, wh_stack, wx_stack, b_stack):
       through the next group's first input weights (a plain matmul, as
       layer 0's is), is that group's ``x_proj0``, and in the backward the
       group's ``dxp`` flows back through that product into the previous
-      group's top-h cotangent.
+      group's top-h cotangent. In bfloat16 that projection sums in float32
+      and is rounded once to bf16, the chained group's storage: a rounding
+      the JAX kernel, which runs all layers in one launch, does not make.
+
+    Padding is exact in bfloat16 too (zeros are exact).
     """
     operands = (x_proj0, wh_stack, wx_stack, b_stack)
     lead, R, T, L, H = _check_shapes(*operands)
@@ -500,7 +556,11 @@ def fused_lstm_autograd(x_proj0, wh_stack, wx_stack, b_stack):
     for g0 in range(0, L, KERNEL_MAX_LAYERS):
         if g0:
             w, b = wx_stack[..., g0 - 1, :, :], b_stack[..., g0 - 1, :]
-            xp = (hs_top @ w.unsqueeze(-3) + b[..., None, None, :]).contiguous()
+            if hs_top.dtype == torch.float32:
+                xp = (hs_top @ w.unsqueeze(-3) + b[..., None, None, :]).contiguous()
+            else:  # fp32 sum of exact bf16 products, rounded once
+                xp = (hs_top.float() @ w.float().unsqueeze(-3)
+                      + b.float()[..., None, None, :]).to(hs_top.dtype).contiguous()
         g1 = min(g0 + KERNEL_MAX_LAYERS, L)
         hs_top, h_fin, c_fin = launch(*_group_operands(xp, wh_stack, wx_stack, b_stack, g0, g1))
         h_fins.append(h_fin)

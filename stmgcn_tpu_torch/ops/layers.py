@@ -1,6 +1,22 @@
 """Parameter plumbing shared by the port's modules: device resolution,
-seeded initializers matching the JAX package's, the branch axis, and the
-``Dense`` layer (flax ``nn.Dense``'s counterpart).
+seeded initializers matching the JAX package's, the branch axis, the
+compute dtype, and the ``Dense`` layer (flax ``nn.Dense``'s counterpart).
+
+**Compute dtype.** Every module carries ``compute_dtype``: None (the
+float32 path, unchanged) or ``torch.bfloat16``, set for a whole model by
+:func:`set_compute_dtype`. Parameters stay float32 masters; under bf16
+each module casts its operands, weights and activations alike, to bf16
+where it uses them (flax's ``promote_dtype``) and takes its products
+through :func:`accum_matmul` / :func:`accum_einsum`, the port's
+``accum_dot_general``: bf16 operands, a float32 result. Both devices take
+its portable form, which multiplies the bf16 values as float32 (each
+product of two bf16 values is exact in float32, and the sum is a float32
+sum, as XLA's ``preferred_element_type=f32``); PyTorch's default float32
+matmul precision ("highest", TF32 off) keeps the card's GEMM from
+rounding the operands again. ``torch.mm(..., out_dtype=torch.float32)``
+(bf16 operands, a float32 result) has no CPU kernel in this build and, on
+the card, no autograd formula (``chip_smoke.py`` checks); these plain
+products stay library calls, as the JAX package leaves them to XLA.
 
 Every module takes ``branches``: ``None`` gives plain parameters, an
 integer ``M`` gives every parameter a leading ``(M, ...)`` axis — the
@@ -21,11 +37,15 @@ from torch import nn
 
 __all__ = [
     "Dense",
+    "accum_einsum",
+    "accum_matmul",
     "branch_view",
     "lecun_normal",
     "lstm_uniform",
     "new_param",
+    "promote_dtype",
     "resolve_device",
+    "set_compute_dtype",
     "xavier_normal",
 ]
 
@@ -73,6 +93,37 @@ def new_param(value: torch.Tensor, device) -> nn.Parameter:
     return nn.Parameter(value.to(device=device, dtype=torch.float32))
 
 
+def set_compute_dtype(model: nn.Module, dtype: Optional[torch.dtype]) -> nn.Module:
+    """Set the compute dtype of every module of ``model`` that has one:
+    None (float32) or ``torch.bfloat16``. Returns ``model``."""
+    if dtype not in (None, torch.float32, torch.bfloat16):
+        raise ValueError(f"compute dtype must be None, float32 or bfloat16, got {dtype}")
+    dtype = None if dtype == torch.float32 else dtype
+    for mod in model.modules():
+        if hasattr(mod, "compute_dtype"):
+            mod.compute_dtype = dtype
+    return model
+
+
+def promote_dtype(dtype: Optional[torch.dtype], *tensors):
+    """``tensors`` cast to the compute ``dtype`` (flax's ``promote_dtype``
+    with a module's ``dtype``); unchanged when ``dtype`` is None."""
+    if dtype is None:
+        return tensors
+    return tuple(None if t is None else t.to(dtype) for t in tensors)
+
+
+def accum_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` of two bf16 tensors with a float32 result: the products
+    exact, the sum in float32 (``accum_dot_general``)."""
+    return a.float() @ b.float()
+
+
+def accum_einsum(spec: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """:func:`accum_matmul` for an einsum contraction."""
+    return torch.einsum(spec, a.float(), b.float())
+
+
 def branch_view(p: torch.Tensor, branches: Optional[int], n_mid: int) -> torch.Tensor:
     """``p`` with ``n_mid`` singleton axes after its branch axis (a no-op
     without one), so a per-branch parameter broadcasts over activations
@@ -84,13 +135,17 @@ def branch_view(p: torch.Tensor, branches: Optional[int], n_mid: int) -> torch.T
 
 class Dense(nn.Module):
     """``y = x W^T + b`` with ``nn.Linear``'s ``(out, in)`` weight layout;
-    lecun-normal weight, zero bias (flax ``nn.Dense`` defaults)."""
+    lecun-normal weight, zero bias (flax ``nn.Dense`` defaults). Under a
+    bf16 compute dtype (flax ``Dense(dtype=bfloat16, dot_general=
+    accum_dot_general)``): x, W and b rounded to bf16, the product and the
+    bias add in float32, the result float32."""
 
     def __init__(self, in_features: int, out_features: int, *,
                  branches: Optional[int] = None, device=None, generator=None):
         super().__init__()
         lead = () if branches is None else (branches,)
         self.branches = branches
+        self.compute_dtype: Optional[torch.dtype] = None
         self.weight = new_param(
             lecun_normal(lead + (out_features, in_features), in_features, generator),
             device,
@@ -98,6 +153,12 @@ class Dense(nn.Module):
         self.bias = new_param(torch.zeros(lead + (out_features,)), device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.compute_dtype is not None:
+            x, w, b = promote_dtype(self.compute_dtype, x, self.weight, self.bias)
+            if self.branches is None:
+                return accum_matmul(x, w.T) + b.float()
+            y = accum_einsum("m...i,moi->m...o", x, w)
+            return y + branch_view(b.float(), self.branches, x.dim() - 2)
         if self.branches is None:
             return x @ self.weight.T + self.bias
         y = torch.einsum("m...i,moi->m...o", x, self.weight)

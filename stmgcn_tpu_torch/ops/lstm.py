@@ -5,9 +5,10 @@ i, f, g, o; one fused bias ``b`` per layer (torch's ``nn.LSTM`` carries
 ``b_ih + b_hh``); ``U(-1/sqrt(H), 1/sqrt(H))`` init; per-layer parameters
 ``wx_l (in, 4H)``, ``wh_l (H, 4H)``, ``b_l (4H,)`` as in the flax tree.
 
-Two routes, chosen by where the input lives:
+Two routes, chosen by where the input lives and the compute dtype:
 
-- CUDA tensors take the kernel route (the JAX ``_pallas`` path): layer 0's
+- CUDA tensors, and every tensor under a bf16 compute dtype, take the
+  kernel route (the JAX ``_pallas`` path): layer 0's
   input projection ``x @ wx_0 + b_0`` for all T steps is one matmul, and
   the whole ``T x L`` recurrence is one launch of the hand-written kernel
   (:func:`~stmgcn_tpu_torch.ops.fused_lstm.fused_lstm`) per group of up to
@@ -18,8 +19,15 @@ Two routes, chosen by where the input lives:
   :class:`~stmgcn_tpu_torch.ops.fused_lstm.FusedLSTM`, whose backward is
   one launch of the backward kernel per group, so every parameter gets
   its gradient;
-- CPU tensors take the layered path: per layer, the hoisted input
-  projection, then a Python loop over t of ``h @ wh``.
+- float32 CPU tensors take the layered path: per layer, the hoisted
+  input projection, then a Python loop over t of ``h @ wh``.
+
+Under a bf16 compute dtype the route follows the JAX ``_pallas`` path at
+``dtype=bfloat16`` on both devices, so the CPU tests hold the function the
+card runs (the kernels' plain versions on the CPU): ``_collect_params``
+rounds x and every weight and bias to bf16, ``x_proj0 = x @ wx_0 + b_0``
+is a bf16 tensor (the product rounded, then the bias add rounded), and the
+kernels store in bf16 (``ops/fused_lstm.py``).
 
 The XLA schedule knobs (``fused_scan``, ``unroll``, ``remat``) have no
 counterpart.
@@ -33,7 +41,12 @@ import torch
 from torch import nn
 
 from stmgcn_tpu_torch.ops.fused_lstm import fused_lstm_autograd
-from stmgcn_tpu_torch.ops.layers import branch_view, lstm_uniform, new_param
+from stmgcn_tpu_torch.ops.layers import (
+    branch_view,
+    promote_dtype,
+    lstm_uniform,
+    new_param,
+)
 
 __all__ = ["StackedLSTM"]
 
@@ -56,6 +69,7 @@ class StackedLSTM(nn.Module):
         self.hidden_dim = hidden_dim
         self.num_layers = num_layers
         self.branches = branches
+        self.compute_dtype: Optional[torch.dtype] = None
         lead = () if branches is None else (branches,)
         h4 = 4 * hidden_dim
         in_dim = in_features
@@ -74,7 +88,7 @@ class StackedLSTM(nn.Module):
                 getattr(self, f"b_{layer}"))
 
     def forward(self, x: torch.Tensor):
-        if x.is_cuda:
+        if x.is_cuda or self.compute_dtype is not None:
             return self.fused(x)
         return self.layered(x)
 
@@ -101,15 +115,17 @@ class StackedLSTM(nn.Module):
         group of up to four layers (and as many backward launches under
         autograd)."""
         L, h4 = self.num_layers, 4 * self.hidden_dim
-        wx0, _, b0 = self.layer_params(0)
+        # _collect_params: x and every parameter in the compute dtype
+        params = [promote_dtype(self.compute_dtype, *self.layer_params(layer))
+                  for layer in range(L)]
+        (x,) = promote_dtype(self.compute_dtype, x)
+        wx0, _, b0 = params[0]
         x_proj0 = x @ wx0.unsqueeze(-3) if self.branches else x @ wx0
         x_proj0 = (x_proj0 + branch_view(b0, self.branches, 2)).contiguous()
-        wh_stack = torch.stack([self.layer_params(layer)[1] for layer in range(L)], dim=-3)
+        wh_stack = torch.stack([params[layer][1] for layer in range(L)], dim=-3)
         if L > 1:
-            wx_stack = torch.stack(
-                [self.layer_params(layer)[0] for layer in range(1, L)], dim=-3)
-            b_stack = torch.stack(
-                [self.layer_params(layer)[2] for layer in range(1, L)], dim=-2)
+            wx_stack = torch.stack([params[layer][0] for layer in range(1, L)], dim=-3)
+            b_stack = torch.stack([params[layer][2] for layer in range(1, L)], dim=-2)
         else:  # never-read placeholder: the kernel operand can't be empty
             lead = x_proj0.shape[:-3]
             wx_stack = x_proj0.new_zeros(lead + (1, self.hidden_dim, h4))

@@ -36,6 +36,16 @@ included). Each launch adds one to its wrapper's ``launches`` count (and
 B3's to ``launches_shared`` when its signal is shared). Gradients flow to
 ``x`` only: the supports are offline constants and get no gradient, as in
 the JAX package.
+
+**bf16.** The structures keep their float32 blocks; a bf16 compute path
+takes :meth:`BlockSparseStack.astype` (made once per dtype and kept), as
+the JAX conv casts the blocks to the signal's dtype. A product of bf16
+blocks and a bf16 signal sums in float32 and returns float32 (the JAX
+kernels' ``preferred_element_type``); its cotangent reaches the backward in
+float32 (through the caller's cast back to bf16), holding values bf16
+represents, so the CUDA backward rounds it to bf16 exactly and the plain
+version takes it as it is. Float32 blocks with a bf16 signal, which the
+JAX package never produces, raise.
 """
 
 from __future__ import annotations
@@ -136,7 +146,22 @@ def heavy_first(nblk) -> torch.Tensor:
 class _RowOrder:
     """``row_order`` and ``row_order_t``: :func:`heavy_first` of ``nblk`` and
     ``nblk_t``, derived on first use and kept with the structure, so the
-    order the kernels' grid takes always lists every row once."""
+    order the kernels' grid takes always lists every row once; and
+    :meth:`astype`, the structure with its blocks in another dtype."""
+
+    def astype(self, dtype: torch.dtype):
+        """This structure with ``data``/``data_t`` in ``dtype``, cast once
+        per dtype and kept with it (the float32 blocks stay); the indices,
+        counts and row orders are shared."""
+        if self.data.dtype == dtype:
+            return self
+        casts = self.__dict__.setdefault("_casts", {})
+        if dtype not in casts:
+            cast = dataclasses.replace(self, data=self.data.to(dtype),
+                                       data_t=self.data_t.to(dtype))
+            cast.__dict__.update(row_order=self.row_order, row_order_t=self.row_order_t)
+            casts[dtype] = cast
+        return casts[dtype]
 
     @functools.cached_property
     def row_order(self) -> torch.Tensor:
@@ -305,8 +330,31 @@ def _block_apply(data, idx, src, src_of, n_out):
     rs = -(-n_src // t)
     blocks = torch.nn.functional.pad(src, (0, 0, 0, rs * t - n_src)).reshape(-1, rs, t, F)
     gathered = blocks[src_of[:, None, None], idx.long()]  # (L, R, C, t, F)
+    if data.dtype != torch.float32:  # bf16: exact products, float32 sums
+        data, gathered = data.float(), gathered.float()
     out = torch.einsum("lrcij,lrcjf->lrif", data, gathered)
     return out.reshape(L, R * t, F)[:, :n_out]
+
+
+def _check_dtypes(name, data, src, *, cotangent: bool) -> None:
+    """Blocks and signal as the JAX package pairs them: both float32, or
+    bf16 blocks with a bf16 signal (a bf16 or float32 cotangent in a
+    backward); anything else raises."""
+    if data.dtype == torch.float32 and src.dtype == torch.float32:
+        return
+    if data.dtype == torch.bfloat16 and (
+            src.dtype == torch.bfloat16 or (cotangent and src.dtype == torch.float32)):
+        return
+    raise TypeError(f"{name}: blocks {data.dtype} with a {src.dtype} "
+                    f"{'cotangent' if cotangent else 'signal'} (float32 with float32, or "
+                    "bfloat16 blocks with a bfloat16 signal)")
+
+
+def _kernel_src(data, src):
+    """The signal the kernel of ``data``'s dtype reads: a float32 cotangent
+    of bf16 blocks rounded to bf16, exact for the cotangent of a bf16 cast
+    (the values a bf16 compute path hands the backward)."""
+    return src.to(data.dtype) if src.dtype != data.dtype else src
 
 
 def _lead(bss):
@@ -319,6 +367,7 @@ def spmm_stack_reference(bss: BlockSparseStack, x: torch.Tensor) -> torch.Tensor
     returns ``([M,] K, n_rows, F)``."""
     lead = _lead(bss)
     L, K = math.prod(lead), bss.n_supports
+    _check_dtypes("spmm_stack", bss.data, x, cotangent=False)
     data = bss.data.reshape((L,) + tuple(bss.data.shape[-4:]))
     idx = bss.idx.reshape((L,) + tuple(bss.idx.shape[-2:]))
     arange = torch.arange(L, device=x.device)
@@ -335,6 +384,7 @@ def spmm_stack_bwd_reference(bss: BlockSparseStack, g: torch.Tensor, *,
     returns ``(N_c, F)``, or ``(M, N_c, F)`` for a per-branch ``x``."""
     lead = _lead(bss)
     L = math.prod(lead)
+    _check_dtypes("spmm_stack_bwd", bss.data_t, g, cotangent=True)
     data_t = bss.data_t.reshape((L,) + tuple(bss.data_t.shape[-4:]))
     idx_t = bss.idx_t.reshape((L,) + tuple(bss.idx_t.shape[-2:]))
     src = g.reshape((L,) + tuple(g.shape[-2:]))
@@ -348,6 +398,7 @@ def spmm_reference(bs: BlockSparse, x: torch.Tensor, *, transpose: bool = False)
     """Plain version of B5: ``A @ x`` (``A^T @ x`` with ``transpose``) for
     ``x`` ``(N, F)``."""
     data, idx = (bs.data_t, bs.idx_t) if transpose else (bs.data, bs.idx)
+    _check_dtypes("spmm", data, x, cotangent=transpose)
     return _block_apply(data[None], idx[None], x[None],
                         torch.zeros(1, dtype=torch.long, device=x.device), bs.n)[0]
 
@@ -367,20 +418,21 @@ def kernel_library():
     fns = (lib.stmgcn_spmm_stack_fwd, lib.stmgcn_spmm_stack_bwd, lib.stmgcn_spmm)
     for fn in fns:
         # data, idx, nblk, order, src, out, part; L, S, R, C, tile, F,
-        # n_out_rows, n_src_rows, src_div; src_stride; vec; stream
+        # n_out_rows, n_src_rows, src_div; src_stride; vec; bf16; stream
         fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 9
-                       + [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p])
+                       + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fns, info
 
 
-def kernel_plan(tile: int, F: int) -> dict:
-    """The plan a launch at ``(tile, F)`` takes, as the built library
-    reports it: column tile, ring stages, dynamic shared memory (bytes) per
-    CTA and the rows and columns one warp owns (builds it on first call)."""
+def kernel_plan(tile: int, F: int, dtype=torch.float32) -> dict:
+    """The plan a launch at ``(tile, F)`` and storage ``dtype`` takes, as
+    the built library reports it: column tile, ring stages, dynamic shared
+    memory (bytes) per CTA and the rows and columns one warp owns (builds it
+    on first call)."""
     lib, _ = load_library([SOURCE], "spmm_stack")
     info = (ctypes.c_int * 5)()
-    if lib.stmgcn_spmm_plan(tile, F, info) != 0:
+    if lib.stmgcn_spmm_plan(tile, F, int(dtype == torch.bfloat16), info) != 0:
         raise ValueError(f"the CUDA kernel takes tile in {KERNEL_TILES}, got {tile}")
     return dict(zip(("column_tile", "stages", "smem_bytes", "warp_rows", "warp_cols"), info))
 
@@ -406,7 +458,7 @@ def _launch(name, role, data, idx, nblk, order, src, out, *, S, tile, n_src_rows
     if data.data_ptr() % 16:  # blocks are read 16 bytes at a time
         raise ValueError(f"{name}: the block data must start on a 16-byte boundary")
     # signal rows are copied 16 bytes at a time where each starts on a 16-byte boundary
-    vec = int(F % 4 == 0 and src.data_ptr() % 16 == 0)
+    vec = int(F % (16 // src.element_size()) == 0 and src.data_ptr() % 16 == 0)
     part = (torch.empty((S,) + tuple(out.shape), device=out.device, dtype=torch.float32)
             if S > 1 else None)
     fn = kernel_library()[0][role]
@@ -415,14 +467,16 @@ def _launch(name, role, data, idx, nblk, order, src, out, *, S, tile, n_src_rows
         err = fn(data.data_ptr(), idx.data_ptr(), nblk.data_ptr(), order.data_ptr(),
                  src.data_ptr(), out.data_ptr(),
                  None if part is None else part.data_ptr(), L, S, R, C, tile, F, n_out_rows,
-                 n_src_rows, src_div, src_stride, vec, stream)
+                 n_src_rows, src_div, src_stride, vec, int(data.dtype == torch.bfloat16), stream)
     if err != 0:
         raise RuntimeError(f"{name}: kernel launch failed with cudaError {err}")
 
 
 def stack_forward(bss: BlockSparseStack, x: torch.Tensor) -> torch.Tensor:
     """B3, or its plain version for CPU tensors: ``([M,] K, n_rows, F)``
-    from a shared ``(N_c, F)`` or per-branch ``(M, N_c, F)`` ``x``."""
+    float32 from a shared ``(N_c, F)`` or per-branch ``(M, N_c, F)`` ``x``,
+    in float32 or (blocks and signal) bfloat16."""
+    _check_dtypes("spmm_stack", bss.data, x, cotangent=False)
     if not on_cuda("spmm_stack", (bss.data, x), (bss.idx, bss.nblk, bss.row_order)):
         return spmm_stack_reference(bss, x)
     lead, K = _lead(bss), bss.n_supports
@@ -445,8 +499,11 @@ def spmm_stack_bwd(bss: BlockSparseStack, g: torch.Tensor, *, shared: bool) -> t
     support's block row over its real slots into a partial, and the
     partials are added over k (and branches) in order, so the result is
     bitwise repeatable."""
-    if not on_cuda("spmm_stack_bwd", (bss.data_t, g), (bss.idx_t, bss.nblk_t, bss.row_order_t)):
+    _check_dtypes("spmm_stack_bwd", bss.data_t, g, cotangent=True)
+    if all(t.device.type == "cpu" for t in (bss.data_t, g)):
         return spmm_stack_bwd_reference(bss, g, shared=shared)
+    g = _kernel_src(bss.data_t, g)
+    on_cuda("spmm_stack_bwd", (bss.data_t, g), (bss.idx_t, bss.nblk_t, bss.row_order_t))
     lead = _lead(bss)
     L = math.prod(lead)
     per_branch = len(lead) == 2 and not shared
@@ -466,8 +523,11 @@ def block_spmm(bs: BlockSparse, x: torch.Tensor, *, transpose: bool = False) -> 
     x`` with ``transpose``) for ``x`` ``(N, F)``."""
     data, idx, nblk, order = ((bs.data_t, bs.idx_t, bs.nblk_t, bs.row_order_t) if transpose
                               else (bs.data, bs.idx, bs.nblk, bs.row_order))
-    if not on_cuda("spmm", (data, x), (idx, nblk, order)):
+    _check_dtypes("spmm", data, x, cotangent=transpose)
+    if all(t.device.type == "cpu" for t in (data, x)):
         return spmm_reference(bs, x, transpose=transpose)
+    x = _kernel_src(data, x)
+    on_cuda("spmm", (data, x), (idx, nblk, order))
     out = torch.empty((bs.n, x.shape[-1]), device=x.device, dtype=torch.float32)
     _launch("spmm", 2, data, idx, nblk, order, x, out, S=1, tile=bs.tile, n_src_rows=bs.n)
     with _COUNT_LOCK:
@@ -501,8 +561,9 @@ def spmm_stack(bss: BlockSparseStack, x: torch.Tensor) -> torch.Tensor:
     launch of B3; the gradient is one launch of B4.
 
     ``x`` is ``(n_cols, F)``, shared by every support and branch, or ``(M,
-    n_cols, F)`` with one signal per branch of a branch-stacked ``bss``;
-    returns ``([M,] K, n_rows, F)`` in float32. Gradients flow to ``x``
+    n_cols, F)`` with one signal per branch of a branch-stacked ``bss``,
+    in the blocks' dtype (float32, or bfloat16 for :meth:`astype`'s
+    structure); returns ``([M,] K, n_rows, F)`` in float32. Gradients flow to ``x``
     only (the supports are offline constants). CPU tensors take the plain
     versions through the same autograd path.
     """
@@ -518,7 +579,8 @@ def spmm_stack(bss: BlockSparseStack, x: torch.Tensor) -> torch.Tensor:
 
 def spmm(bs: BlockSparse, x: torch.Tensor) -> torch.Tensor:
     """``A @ x`` for one block-sparse support, ``x`` ``(N, F)``: one launch
-    of B5, whose gradient ``A^T @ g`` is B5 again on the transposed blocks.
+    of B5, whose gradient ``A^T @ g`` is B5 again on the transposed blocks;
+    float32 out (blocks and signal float32, or both bfloat16).
 
     .. warning:: Gradients flow only to ``x``. The support's blocks get no
        gradient by design (supports are offline constants built from the

@@ -71,7 +71,7 @@ def _bucket_program(sup_dev, device: torch.device):
     def run(model, history: np.ndarray) -> np.ndarray:
         with torch.inference_mode():
             out = model(sup_dev, torch.as_tensor(history, device=device))
-        return out.cpu().numpy()
+        return out.float().cpu().numpy()  # a bf16 model's predictions, exactly
 
     return run
 

@@ -1,8 +1,8 @@
 """Train/eval steps, the masked loss, the window gather and the optimizer.
 
-Counterpart of ``stmgcn_tpu/train/step.py`` for fp32 on one device. The
-JAX package jits pure functions over explicit state; here the state is the
-model's parameters and an :class:`Optimizer`, and a step runs eagerly:
+Counterpart of ``stmgcn_tpu/train/step.py`` on one device. The JAX package
+jits pure functions over explicit state; here the state is the model's
+parameters and an :class:`Optimizer`, and a step runs eagerly:
 
 - **Optimizer parity** (``make_optimizer``, ``step.py:135-209``): optax's
   chain of global-norm clipping, ``add_decayed_weights`` (L2 added to the
@@ -17,6 +17,15 @@ model's parameters and an :class:`Optimizer`, and a step runs eagerly:
 - **Window gather** (``gather_window_batch``): the microbatch is indexed
   out of the device-resident ``(T, N, C)`` series, bit-identical to the
   materialized windows.
+- **Mixed precision** (``precision="bf16"``, ``step.py:364-458``): the
+  parameters stay float32 masters, which the optimizer owns; the model
+  computes in bf16 (the trainer sets its compute dtype, the JAX
+  ``model.clone(dtype=bfloat16)``), casting each master at its use site,
+  so autograd hands back float32 gradients, and the loss is taken on the
+  float32 prediction. With an SR ``generator`` the whole parameter tree is
+  cast at entry through ``compute_cast``'s stochastic rounding instead
+  (one noise draw per leaf per step), with straight-through gradients.
+  Adam, its moments and the loss stay float32.
 """
 
 from __future__ import annotations
@@ -26,7 +35,7 @@ from typing import Callable, Optional
 
 import torch
 
-from stmgcn_tpu_torch.models.params import from_optax_state, to_optax_state
+from stmgcn_tpu_torch.models.params import compute_cast, from_optax_state, to_optax_state
 
 __all__ = [
     "LOSSES",
@@ -230,10 +239,17 @@ def gather_window_batch(series, targets, offsets, idx, horizon: int = 1):
 
 
 def train_step(model, optimizer: Optimizer, supports, x, y, mask,
-               loss: str = "mse") -> torch.Tensor:
-    """One optimizer step; returns the (device, detached) loss, unsynced."""
+               loss: str = "mse", sr_generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """One optimizer step; returns the (device, detached) loss, unsynced.
+    With ``sr_generator`` the model runs on a stochastically rounded bf16
+    shadow of its parameters (``compute_cast``), drawn from it."""
     optimizer.zero_grad()
-    value = masked_loss(loss, model(supports, x), y, mask)
+    if sr_generator is None:
+        pred = model(supports, x)
+    else:
+        shadow = compute_cast(dict(model.named_parameters()), torch.bfloat16, sr_generator)
+        pred = torch.func.functional_call(model, shadow, (supports, x))
+    value = masked_loss(loss, pred, y, mask)
     value.backward()
     optimizer.step()
     return value.detach()

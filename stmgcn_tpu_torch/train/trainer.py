@@ -29,10 +29,19 @@ waits for it and re-raises its failure. ``restore()``/``restore_auto()``
 walk the verified recovery chain and re-enter a mid-epoch checkpoint's
 epoch, skipping the batches it had consumed.
 
+``precision="bf16"`` trains float32 master parameters through the model at
+a bf16 compute dtype (``train/step.py``), for the train and eval steps
+alike; ``sr_seed`` stochastically rounds the master -> bf16 casts with
+noise drawn from a ``torch.Generator`` seeded from ``(sr_seed,
+global_step)``, so a resumed run draws what the uninterrupted one did.
+Checkpoints hold the float32 masters at either precision, with the
+precision (and ``sr_seed``) in the meta as provenance; a restore accepts
+either.
+
 Not ported: streaming placement, materialized windows, fleet classes,
 heterogeneous cities, node padding and meshes, the divergence guard and
-fault plan, SIGTERM emergency checkpoints, health telemetry, sanitizers
-and bf16.
+fault plan, SIGTERM emergency checkpoints, health telemetry and
+sanitizers.
 """
 
 from __future__ import annotations
@@ -47,9 +56,10 @@ from typing import Optional
 import numpy as np
 import torch
 
+from stmgcn_tpu_torch.config import check_precision
 from stmgcn_tpu_torch.data.splits import MODES
 from stmgcn_tpu_torch.models.params import from_jax_params, jax_layout, to_jax_params
-from stmgcn_tpu_torch.ops.layers import resolve_device
+from stmgcn_tpu_torch.ops.layers import resolve_device, set_compute_dtype
 from stmgcn_tpu_torch.ops.spmm import place_supports
 from stmgcn_tpu_torch.train.checkpoint import (
     load_checkpoint,
@@ -91,9 +101,11 @@ class Trainer:
                  n_epochs: int = 100, batch_size: int = 32, patience: int = 10,
                  shuffle: bool = False, seed: int = 0, steps_per_superstep: int = 1,
                  out_dir: str = "output", top_k: int = 1, async_checkpoint: bool = True,
-                 checkpoint_every_steps: int = 0, extra_meta: Optional[dict] = None,
+                 checkpoint_every_steps: int = 0, precision: str = "fp32",
+                 sr_seed: Optional[int] = None, extra_meta: Optional[dict] = None,
                  initial_state: Optional[dict] = None, device=None,
                  verbose: bool = True):
+        check_precision(precision, sr_seed)
         if loss not in LOSSES:
             raise ValueError(f"loss must be one of {LOSSES}, got {loss!r}")
         if steps_per_superstep < 1:
@@ -126,7 +138,11 @@ class Trainer:
         self.checkpoint_every_steps = checkpoint_every_steps
         self.extra_meta = extra_meta or {}
         self.verbose = verbose
+        self.precision = precision
+        self.sr_seed = sr_seed
         self.model = model.to(self.device)
+        if precision == "bf16":  # the train and eval bodies' bf16 clone
+            set_compute_dtype(self.model, torch.bfloat16)
         if initial_state is not None:
             self.model.load_state_dict(initial_state)
         #: the flax tree layout checkpoints use: the JAX model's for this
@@ -203,8 +219,11 @@ class Trainer:
             # (seed, shuffle, epoch) fix the data order; resume checks them
             "shuffle": self.shuffle,
             "steps_per_superstep": self.steps_per_superstep,
-            "precision": "fp32",
+            # provenance: the parameters are float32 masters at any precision
+            "precision": self.precision,
         }
+        if self.sr_seed is not None:
+            meta["sr_seed"] = self.sr_seed
         if self._batch_in_epoch:
             meta["partial"] = {"losses": [float(v) for v in self._epoch_losses],
                                "counts": [int(c) for c in self._epoch_counts]}
@@ -377,10 +396,20 @@ class Trainer:
         mask = (np.arange(len(batch)) < batch.n_real).astype(np.float32)
         return x, y, torch.as_tensor(mask, device=self.device)
 
+    def sr_generator(self, step: int) -> Optional[torch.Generator]:
+        """The stochastic-rounding noise source of optimizer step ``step``
+        (None without ``sr_seed``): a generator on the trainer's device
+        seeded from ``(sr_seed, step)`` alone."""
+        if self.sr_seed is None:
+            return None
+        seed = (self.sr_seed * 1_000_003 + step) % (1 << 63)
+        return torch.Generator(device=self.device).manual_seed(seed)
+
     def train_batch(self, batch, mode: str = "train") -> torch.Tensor:
         """One optimizer step on ``batch``; returns its loss on the device."""
         x, y, mask = self.place(batch, mode)
-        loss = train_step(self.model, self.optimizer, self.supports, x, y, mask, self.loss)
+        loss = train_step(self.model, self.optimizer, self.supports, x, y, mask, self.loss,
+                          sr_generator=self.sr_generator(self.global_step))
         self.global_step += 1
         return loss
 
@@ -492,7 +521,7 @@ class Trainer:
                 pred = self.model(self.supports, x)
             else:
                 pred = torch.func.functional_call(self.model, state, (self.supports, x))
-            preds.append(pred[: batch.n_real].cpu().numpy())
+            preds.append(pred[: batch.n_real].float().cpu().numpy())
             trues.append(y[: batch.n_real].cpu().numpy())
         return np.concatenate(preds), np.concatenate(trues)
 

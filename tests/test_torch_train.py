@@ -303,7 +303,7 @@ def test_test_needs_training_or_live_parameters(tmp_path):
 # -- config ----------------------------------------------------------------
 
 @pytest.mark.parametrize("field,value", [
-    ("precision", "bf16"), ("sr_seed", 3), ("fleet", True), ("divergence_guard", True),
+    ("precision", "fp16"), ("sr_seed", 3), ("fleet", True), ("divergence_guard", True),
     ("checks", "nan"), ("prefetch", 2), ("divergence_patience", 5),
     ("data_placement", "stream"), ("window_free", False), ("fleet_max_classes", 4),
 ])
