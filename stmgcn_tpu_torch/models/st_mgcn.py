@@ -145,11 +145,9 @@ class STMGCN(nn.Module):
         :meth:`check_supports`); ``obs_seq`` ``(B, T, N, C)``."""
         self.check_supports(supports_stack)
         feats = self.branches(supports_stack, obs_seq)  # (M, B, N, gcn_hidden)
-        if self.compute_dtype is None:
-            out = self.head(feats.sum(dim=0))
-        else:  # f32 fusion island; the prediction leaves in the compute dtype
-            fused = feats.sum(dim=0, dtype=torch.float32).to(self.compute_dtype)
-            out = self.head(fused).to(self.compute_dtype)
+        # f32 fusion island; the prediction leaves in the compute dtype
+        dtype = self.compute_dtype or torch.float32
+        out = self.head(feats.sum(dim=0, dtype=torch.float32).to(dtype)).to(dtype)
         if self.horizon == 1:
             return out  # (B, N, C)
         batch, n_nodes = out.shape[:2]

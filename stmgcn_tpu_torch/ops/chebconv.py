@@ -60,20 +60,13 @@ def _project(stacked, w, b, activation, dtype=None):
     """Projection / bias / activation tail: ``act(stacked @ w + b)``; under
     a bf16 compute ``dtype``, the product and bias add in float32 and one
     rounding to bf16 at the end."""
-    if dtype is not None:
-        stacked, w, b = promote_dtype(dtype, stacked, w, b)
-        out = accum_matmul(stacked, w)
-        if b is not None:
-            out = out + b.float()
-        if activation is not None:
-            out = activation(out)
-        return out.to(dtype)
-    out = torch.matmul(stacked, w)
+    stacked, w, b = promote_dtype(dtype, stacked, w, b)
+    out = accum_matmul(stacked, w)
     if b is not None:
-        out = out + b
+        out = out + b.float()
     if activation is not None:
         out = activation(out)
-    return out
+    return out.to(dtype or torch.float32)
 
 
 def _signal_matrix(x):
@@ -129,17 +122,13 @@ class ChebGraphConv(nn.Module):
         return _project(stacked, w, b, self.activation, self.compute_dtype)
 
     def _propagated(self, propagated: torch.Tensor) -> torch.Tensor:
-        """A block product's float32 result in the compute dtype."""
-        return propagated if self.compute_dtype is None else propagated.to(self.compute_dtype)
+        """A product's float32 result in the compute dtype."""
+        return propagated.to(self.compute_dtype or torch.float32)
 
     def forward(self, supports: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
         self._check_count(supports.shape[-3])
-        if self.compute_dtype is not None:
-            supports, x = promote_dtype(self.compute_dtype, supports, x)
-            propagated = accum_einsum("...kij,...bjf->...bikf", supports, x)
-            propagated = propagated.to(self.compute_dtype)
-        else:
-            propagated = torch.einsum("...kij,...bjf->...bikf", supports, x)
+        supports, x = promote_dtype(self.compute_dtype, supports, x)
+        propagated = self._propagated(accum_einsum("...kij,...bjf->...bikf", supports, x))
         return self.project(propagated.flatten(-2))  # k-major (B, N, K*F_in)
 
 

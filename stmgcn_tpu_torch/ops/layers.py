@@ -3,19 +3,21 @@ seeded initializers matching the JAX package's, the branch axis, the
 compute dtype, and the ``Dense`` layer (flax ``nn.Dense``'s counterpart).
 
 **Compute dtype.** Every module carries ``compute_dtype``: None (the
-float32 path, unchanged) or ``torch.bfloat16``, set for a whole model by
-:func:`set_compute_dtype`. Parameters stay float32 masters; under bf16
-each module casts its operands, weights and activations alike, to bf16
-where it uses them (flax's ``promote_dtype``) and takes its products
-through :func:`accum_matmul` / :func:`accum_einsum`, the port's
-``accum_dot_general``: bf16 operands, a float32 result. Both devices take
+float32 path) or ``torch.bfloat16``, set for a whole model by
+:func:`set_compute_dtype`. One body serves both: under None the casts are
+the identity and the products plain float32 ones. Parameters stay float32
+masters; under bf16 each module casts its operands, weights and
+activations alike, to bf16 where it uses them (flax's ``promote_dtype``)
+and takes its products through :func:`accum_matmul` /
+:func:`accum_einsum`, the port's ``accum_dot_general``: bf16 operands, a
+float32 result. Both devices take
 its portable form, which multiplies the bf16 values as float32 (each
 product of two bf16 values is exact in float32, and the sum is a float32
 sum, as XLA's ``preferred_element_type=f32``); PyTorch's default float32
 matmul precision ("highest", TF32 off) keeps the card's GEMM from
 rounding the operands again. ``torch.mm(..., out_dtype=torch.float32)``
-(bf16 operands, a float32 result) has no CPU kernel in this build and, on
-the card, no autograd formula (``chip_smoke.py`` checks); these plain
+(bf16 operands, a float32 result) has no CPU kernel in torch 2.13's CPU
+build and no autograd formula in torch 2.11's CUDA build; these plain
 products stay library calls, as the JAX package leaves them to XLA.
 
 Every module takes ``branches``: ``None`` gives plain parameters, an
@@ -114,8 +116,9 @@ def promote_dtype(dtype: Optional[torch.dtype], *tensors):
 
 
 def accum_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """``a @ b`` of two bf16 tensors with a float32 result: the products
-    exact, the sum in float32 (``accum_dot_general``)."""
+    """``a @ b`` with a float32 result: for bf16 operands the products
+    exact, the sum in float32 (``accum_dot_general``); for float32 ones the
+    plain product."""
     return a.float() @ b.float()
 
 
@@ -153,13 +156,8 @@ class Dense(nn.Module):
         self.bias = new_param(torch.zeros(lead + (out_features,)), device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.compute_dtype is not None:
-            x, w, b = promote_dtype(self.compute_dtype, x, self.weight, self.bias)
-            if self.branches is None:
-                return accum_matmul(x, w.T) + b.float()
-            y = accum_einsum("m...i,moi->m...o", x, w)
-            return y + branch_view(b.float(), self.branches, x.dim() - 2)
+        x, w, b = promote_dtype(self.compute_dtype, x, self.weight, self.bias)
         if self.branches is None:
-            return x @ self.weight.T + self.bias
-        y = torch.einsum("m...i,moi->m...o", x, self.weight)
-        return y + branch_view(self.bias, self.branches, x.dim() - 2)
+            return accum_matmul(x, w.T) + b.float()
+        y = accum_einsum("m...i,moi->m...o", x, w)
+        return y + branch_view(b.float(), self.branches, x.dim() - 2)

@@ -41,11 +41,15 @@ the JAX package.
 takes :meth:`BlockSparseStack.astype` (made once per dtype and kept), as
 the JAX conv casts the blocks to the signal's dtype. A product of bf16
 blocks and a bf16 signal sums in float32 and returns float32 (the JAX
-kernels' ``preferred_element_type``); its cotangent reaches the backward in
-float32 (through the caller's cast back to bf16), holding values bf16
-represents, so the CUDA backward rounds it to bf16 exactly and the plain
-version takes it as it is. Float32 blocks with a bf16 signal, which the
-JAX package never produces, raise.
+kernels' ``preferred_element_type``). The backward takes the cotangent in
+the signal's dtype (:class:`BlockCSRApply` casts it) on both devices, as
+the gradient leaves in it: on a bf16 compute path the cotangent reaches it
+in float32 through the caller's cast back to bf16, holding values bf16
+represents, so the cast is exact there and the product is what the JAX
+kernel's ``jnp.dot(bf16 blocks, g)`` gives. A float32 cotangent that bf16
+cannot represent is rounded to bf16 first, on the CPU as on the card
+(the JAX kernel would read it unrounded). Blocks and signal (or cotangent)
+of different dtypes, which the JAX package never pairs, raise.
 """
 
 from __future__ import annotations
@@ -337,24 +341,13 @@ def _block_apply(data, idx, src, src_of, n_out):
 
 
 def _check_dtypes(name, data, src, *, cotangent: bool) -> None:
-    """Blocks and signal as the JAX package pairs them: both float32, or
-    bf16 blocks with a bf16 signal (a bf16 or float32 cotangent in a
-    backward); anything else raises."""
-    if data.dtype == torch.float32 and src.dtype == torch.float32:
-        return
-    if data.dtype == torch.bfloat16 and (
-            src.dtype == torch.bfloat16 or (cotangent and src.dtype == torch.float32)):
+    """Blocks and signal (or cotangent) as the JAX package pairs them: both
+    float32 or both bfloat16; anything else raises."""
+    if data.dtype == src.dtype and data.dtype in (torch.float32, torch.bfloat16):
         return
     raise TypeError(f"{name}: blocks {data.dtype} with a {src.dtype} "
-                    f"{'cotangent' if cotangent else 'signal'} (float32 with float32, or "
-                    "bfloat16 blocks with a bfloat16 signal)")
-
-
-def _kernel_src(data, src):
-    """The signal the kernel of ``data``'s dtype reads: a float32 cotangent
-    of bf16 blocks rounded to bf16, exact for the cotangent of a bf16 cast
-    (the values a bf16 compute path hands the backward)."""
-    return src.to(data.dtype) if src.dtype != data.dtype else src
+                    f"{'cotangent' if cotangent else 'signal'} (both float32 or both "
+                    "bfloat16)")
 
 
 def _lead(bss):
@@ -500,10 +493,9 @@ def spmm_stack_bwd(bss: BlockSparseStack, g: torch.Tensor, *, shared: bool) -> t
     partials are added over k (and branches) in order, so the result is
     bitwise repeatable."""
     _check_dtypes("spmm_stack_bwd", bss.data_t, g, cotangent=True)
-    if all(t.device.type == "cpu" for t in (bss.data_t, g)):
+    if not on_cuda("spmm_stack_bwd", (bss.data_t, g),
+                   (bss.idx_t, bss.nblk_t, bss.row_order_t)):
         return spmm_stack_bwd_reference(bss, g, shared=shared)
-    g = _kernel_src(bss.data_t, g)
-    on_cuda("spmm_stack_bwd", (bss.data_t, g), (bss.idx_t, bss.nblk_t, bss.row_order_t))
     lead = _lead(bss)
     L = math.prod(lead)
     per_branch = len(lead) == 2 and not shared
@@ -524,10 +516,8 @@ def block_spmm(bs: BlockSparse, x: torch.Tensor, *, transpose: bool = False) -> 
     data, idx, nblk, order = ((bs.data_t, bs.idx_t, bs.nblk_t, bs.row_order_t) if transpose
                               else (bs.data, bs.idx, bs.nblk, bs.row_order))
     _check_dtypes("spmm", data, x, cotangent=transpose)
-    if all(t.device.type == "cpu" for t in (data, x)):
+    if not on_cuda("spmm", (data, x), (idx, nblk, order)):
         return spmm_reference(bs, x, transpose=transpose)
-    x = _kernel_src(data, x)
-    on_cuda("spmm", (data, x), (idx, nblk, order))
     out = torch.empty((bs.n, x.shape[-1]), device=x.device, dtype=torch.float32)
     _launch("spmm", 2, data, idx, nblk, order, x, out, S=1, tile=bs.tile, n_src_rows=bs.n)
     with _COUNT_LOCK:
@@ -540,9 +530,10 @@ def block_spmm(bs: BlockSparse, x: torch.Tensor, *, transpose: bool = False) -> 
 class BlockCSRApply(torch.autograd.Function):
     """``forward(x)`` then, on ``.backward()``, ``backward(g)`` — two
     callables over a block structure that is a constant: the gradient goes
-    to ``x`` only, in ``x``'s dtype, and only when ``x`` requires it. Every
-    kernel route goes through here, so a kernel's history-free output never
-    cuts the graph."""
+    to ``x`` only, in ``x``'s dtype, and only when ``x`` requires it; the
+    cotangent is cast to ``x``'s dtype (the blocks') before the backward,
+    so both devices take the same product. Every kernel route goes through
+    here, so a kernel's history-free output never cuts the graph."""
 
     @staticmethod
     def forward(ctx, x, forward, backward):
@@ -553,7 +544,8 @@ class BlockCSRApply(torch.autograd.Function):
     def backward(ctx, g):
         if not ctx.needs_input_grad[0]:
             return None, None, None
-        return ctx.backward_fn(g.contiguous()).to(ctx.x_dtype), None, None
+        g = g.to(ctx.x_dtype).contiguous()
+        return ctx.backward_fn(g).to(ctx.x_dtype), None, None
 
 
 def spmm_stack(bss: BlockSparseStack, x: torch.Tensor) -> torch.Tensor:

@@ -319,6 +319,35 @@ def test_block_structures_cast_once_and_refuse_mixed_dtypes():
         spmm_stack_reference(st, x.to(BF))
     with pytest.raises(TypeError, match="blocks torch.bfloat16 with a torch.float32 signal"):
         spmm_stack(bf, x)
-    # a float32 cotangent of bf16 blocks is what the backward receives
-    g = torch.randn(2, 24, 3).to(BF).float()
+    # the backward takes its cotangent in the blocks' dtype (BlockCSRApply
+    # casts it), so a float32 cotangent of bf16 blocks raises here too
+    g = torch.randn(2, 24, 3).to(BF)
     assert spmm_stack_bwd(bf, g, shared=True).dtype == torch.float32
+    with pytest.raises(TypeError, match="blocks torch.bfloat16 with a torch.float32 cotangent"):
+        spmm_stack_bwd(bf, g.float(), shared=True)
+
+
+@pytest.mark.parametrize("form", ["stack", "spmm"])
+def test_bf16_backward_rounds_a_float32_cotangent(form):
+    """A float32 cotangent that bf16 cannot represent (the output used as
+    float32, with no cast back to bf16) reaches B4 / B5's transpose rounded
+    to bf16, on the CPU as on the card: the gradient is bitwise the one of
+    the rounded cotangent, and differs from the unrounded product."""
+    mats = _banded((2, 24, 24), 4, seed=9)
+    rng = np.random.default_rng(10)
+    x = torch.from_numpy(rng.standard_normal((24, 5)).astype(np.float32)).to(BF)
+    cot = torch.from_numpy(rng.standard_normal((2, 24, 5)).astype(np.float32))
+    if form == "spmm":
+        st, apply, cot, mats = from_dense(mats[0], 8).astype(BF), spmm, cot[0], mats[:1]
+    else:
+        st, apply = stack_from_dense(mats, 8).astype(BF), spmm_stack
+    assert not torch.equal(cot.to(BF).float(), cot)  # bf16 cannot hold it
+    xt = x.clone().requires_grad_(True)
+    (apply(st, xt) * cot).sum().backward()
+    xr = x.clone().requires_grad_(True)
+    (apply(st, xr) * cot.to(BF).float()).sum().backward()
+    assert xt.grad.dtype == BF and torch.equal(xt.grad, xr.grad)
+    # the product of the unrounded cotangent, sum_k A_k^T g_k, is another one
+    unrounded = torch.einsum("kji,kjf->if", torch.from_numpy(mats).to(BF).float(),
+                             cot.reshape(-1, 24, 5)).to(BF)
+    assert not torch.equal(xt.grad, unrounded)
