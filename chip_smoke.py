@@ -128,6 +128,30 @@ after phase 15. The bf16 kernel records' launch counts are 20's (B1, B2),
 25. the bf16 K-tuple route (B5) at the metro city against the bf16 dense
     model.
 
+Phases 26-29 are the fleet slice (heterogeneous cities in shape classes),
+run after phase 22, in fp32; every fp32 kernel record carries their
+launches as ``fleet_launches``:
+
+26. the ``multicity`` preset's cities (12x12 and 10x10: one class at rung
+    144, the second padded by 44 nodes) on one card, ``fleet=True``,
+    blocks of 4, batch 64, two epochs: ``train_path`` must be
+    ``"fleet_superstep"``, with one B1 launch per forward, one B2 per step
+    and no block-CSR launch, then ``test()`` per city, the step p50, and
+    three steps (one of each city, two of the padded one) on the card
+    against the CPU port from one state;
+27. its ``best.ckpt`` through ``FleetServingEngine``: concurrent callers
+    for both cities, every answer equal to ``Forecaster.predict(city=)``,
+    dispatches that coalesce the two cities, each rung's p50, and a
+    ``swap_params`` both cities then serve from;
+28. ``bench.py``'s 8-city fleet point (two classes, serial 3, batch 2) at
+    the default model's full width: one epoch of fleet blocks of 8 and one
+    of the per-city loop, each timed on the host clock;
+29. a tiled fleet of three cities (N = 1,024, 960 and 896; tile 128; one
+    class at rung 1,024, which grows the 896-node plan by a block row): B3
+    and B4 on each grown plan against their plain versions at the training
+    shapes, two epochs with the tiled launches per forward and step, the
+    step p50, and each city served in a private exact-fit class.
+
 Checkpoints go to a temporary directory that the run removes.
 
 The last three lines are the card, one JSON object describing each kernel
@@ -253,6 +277,21 @@ BF16_RTOL, BF16_ATOL_REL, BF16_WGRAD_NORM = 2.0**-6, 2.0**-7, 2.0**-8
 #: fail unless it does. Input gradients (phase 25, read 2.2e-3) normwise
 #: BF16_GRAD_RTOL.
 BF16_SERVE_MAX, BF16_SERVE_NORM, BF16_GRAD_RTOL = 2.0**-9, 2.0**-13, 2.0**-7
+#: the fleet phases (26-29). The multicity preset's two cities (12x12 over
+#: four weeks, 10x10 over three: one class at rung 144, the second city
+#: padded by 44 nodes) train in blocks of FLEET_S at the preset's batch 64;
+#: bench.py's 8-city fleet point (bench.py:745-760: FLEET_CITY_DIMS, two
+#: classes at rungs 16 and 6, serial 3, batch 2, its series lengths) at the
+#: default model's full width, one epoch in blocks of FLEET_BENCH_S against
+#: one of the per-city loop; a tiled fleet of TILED_FLEET_ROWS x
+#: TILED_FLEET_COLS cities (N = 1,024, 960, 896: one class at rung 1,024,
+#: which grows the 896-node plan by a block row and keeps the 960-node one
+#: inside its last tile) at tile 128
+FLEET_S, FLEET_BENCH_S = 4, 8
+BENCH_FLEET_DIMS = ((4, 4), (4, 4), (5, 3), (3, 5), (7, 2), (2, 7), (3, 2), (2, 3))
+BENCH_FLEET_SERIAL, BENCH_FLEET_BATCH = 3, 2
+TILED_FLEET_ROWS, TILED_FLEET_COLS, TILED_FLEET_TILE = (32, 30, 28), 32, 128
+TILED_FLEET_TIMESTEPS, TILED_FLEET_BATCH = 24 * 7 + 60, 8
 #: the twin drill (tests/test_mixed_precision.py:84-116): bf16 per-step losses
 #: within 1e-3 of fp32's from one initial state, over the JAX drill's six
 #: steps; the sr_seed run's seed and steps; the bf16 tiled training's steps
@@ -1001,9 +1040,12 @@ def train_and_test(trainer, per_forward, per_step, what):
     if not all(np.isfinite(history[m]).all() for m in history):
         fail(f"{what}: non-finite epoch loss")
     for mode, report in results.items():
-        print(f"{what}, test(), {mode}: " + ", ".join(f"{k} {v:.6g}" for k, v in report.items()))
-        if not all(np.isfinite(v) for v in report.values()):
-            fail(f"{what}: non-finite {mode} metrics")
+        # heterogeneous cities add a report per city
+        for name, rep in [(mode, report)] + sorted(report.get("per_city", {}).items()):
+            rep = {k: v for k, v in rep.items() if k != "per_city"}
+            print(f"{what}, test(), {name}: " + ", ".join(f"{k} {v:.6g}" for k, v in rep.items()))
+            if not all(np.isfinite(v) for v in rep.values()):
+                fail(f"{what}: non-finite {name} metrics")
     bad = sorted(n for n, ok in first.items() if not ok)
     if not first or bad:
         fail(f"{what}: parameters without a finite gradient after the first step: {bad}")
@@ -1050,11 +1092,14 @@ def step_times(trainer, what: str) -> None:
           f"{float(np.median(times)):.4f} ms, min {min(times):.4f} ms over {len(times)} steps")
 
 
-def agree_over_steps(a, b, state, what: str) -> None:
+def agree_over_steps(a, b, state, what: str, batches=None) -> None:
     """CPU_STEPS optimizer steps of trainers ``a`` and ``b`` from one
-    initial ``state`` on the same batches: losses within CPU_LOSS_RTOL,
-    each tensor's total update within CPU_UPDATE_RTOL of its norm."""
-    for i, batch in enumerate(list(a.batches("train"))[:CPU_STEPS]):
+    initial ``state`` on the same batches (``batches``, or the epoch's
+    first): losses within CPU_LOSS_RTOL, each tensor's total update within
+    CPU_UPDATE_RTOL of its norm."""
+    if batches is None:
+        batches = list(a.batches("train"))[:CPU_STEPS]
+    for i, batch in enumerate(batches):
         got, want = a.train_batch(batch).item(), b.train_batch(batch).item()
         print(f"{what}, step {i + 1}: loss {got:.8g} vs {want:.8g}")
         if not math.isclose(got, want, rel_tol=CPU_LOSS_RTOL):
@@ -1222,7 +1267,7 @@ def serve_checkpoint(device, a) -> None:
     windows = ds.denormalize(ds.arrays("test")[0])
     best = {k: v.to(device) for k, v in
             from_jax_params(load_checkpoint(a.best_path, load_opt_state=False)[1], m).items()}
-    evaluated = ds.denormalize(a._predict_mode("test", best)[0])
+    evaluated = ds.denormalize(a._predict_mode("test", best)[0][0])  # city 0: (pred, true)
 
     def state_forecaster(path):
         state = from_jax_params(load_checkpoint(path, load_opt_state=False)[1], m)
@@ -2264,7 +2309,7 @@ def bf16_checkpoints(device, root: str) -> dict:
     windows = ds.denormalize(ds.arrays("test")[0])
     best = {k: v.to(device) for k, v in from_jax_params(
         load_checkpoint(a.best_path, load_opt_state=False)[1], a.model.m_graphs).items()}
-    evaluated = ds.denormalize(a._predict_mode("test", best)[0])
+    evaluated = ds.denormalize(a._predict_mode("test", best)[0][0])  # city 0: (pred, true)
     got = fc.predict(a.supports.cpu().numpy(), windows[:BUCKETS[-1]])
     text = bf16_check(got, evaluated[:BUCKETS[-1]],
                       "bf16 best.ckpt served vs the trainer's evaluation")
@@ -2509,6 +2554,291 @@ def bf16_sparse(device, ds, dense_dev, ktuples) -> int:
     return counts["B5"]
 
 
+# -- fleets: heterogeneous cities in shape classes (phases 26-29) ----------------
+
+def fleet_config(out_dir: str, batch=None):
+    """The ``multicity`` preset on one card: its dp=8 mesh is multi-device
+    work, so ``mesh`` is reset to one device, as the JAX package's tiled
+    fleet test does (``tests/test_tiling.py:271-272``); fleet blocks of
+    FLEET_S over EPOCHS epochs."""
+    from stmgcn_tpu_torch import preset
+    from stmgcn_tpu_torch.config import MeshConfig
+
+    cfg = preset("multicity")
+    cfg.mesh = MeshConfig()
+    cfg.train.fleet, cfg.train.steps_per_superstep = True, FLEET_S
+    cfg.train.epochs, cfg.train.out_dir = EPOCHS, out_dir
+    if batch is not None:
+        cfg.train.batch_size = batch
+    return cfg
+
+
+def check_fleet(trainer, classes, what: str) -> None:
+    """The trainer took the fleet blocks over the expected shape classes."""
+    got = [(c.n_nodes, c.cities) for c in trainer.fleet_plan.classes]
+    if trainer.train_path != "fleet_superstep" or got != classes:
+        fail(f"{what}: train_path {trainer.train_path!r}, classes {got} (expected "
+             f"'fleet_superstep' over {classes}; {trainer.fallback_reason})")
+
+
+def fleet_train(device):
+    """Phase 26: the multicity cities as one shape class on the card:
+    ``train()`` and ``test()`` with one B1 launch per forward and one B2
+    per step (no block-CSR kernel), the step p50, and the card against the
+    CPU port over steps of both cities, the padded one included. Returns
+    the trainer."""
+    import torch
+
+    from stmgcn_tpu_torch import build_trainer
+
+    trainer = build_trainer(fleet_config(scratch("fleet")), device=device)
+    check_fleet(trainer, [(144, (0, 1))], "multicity fleet")
+    train_and_test(trainer, {"B1": 1}, {"B2": 1}, "multicity fleet training")
+    step_times(trainer, "multicity fleet training step")
+    cfg = fleet_config(scratch("fleet_cpu"), batch=CPU_BATCH)
+    card = build_trainer(cfg, device=device, verbose=False)
+    state = {k: v.detach().cpu().clone() for k, v in card.model.state_dict().items()}
+    cpu = build_trainer(cfg, device="cpu", initial_state=state, verbose=False)
+    batches = list(card.batches("train"))
+    pick = [b for b in batches if b.city == 0][:1] + [b for b in batches if b.city == 1][:2]
+    agree_over_steps(card, cpu, state, "multicity fleet, card vs CPU (cities 0, 1, 1)", pick)
+    del card, cpu
+    torch.cuda.empty_cache()
+    return trainer
+
+
+def fleet_serve(device, trainer) -> None:
+    """Phase 27: ``best.ckpt`` of phase 26 through ``FleetServingEngine``:
+    concurrent callers for both cities, every answer equal to
+    ``Forecaster.predict(city=)`` on the card, dispatches that coalesce the
+    two cities, and a ``swap_params`` that every class serves from."""
+    from stmgcn_tpu_torch import Forecaster, ServingConfig
+    from stmgcn_tpu_torch.experiment import build_model, build_supports
+
+    fc = Forecaster.from_checkpoint(trainer.best_path, device=device)
+    ds = trainer.dataset
+    sups = build_supports(fc.config, ds)
+    windows = {c: ds.denormalize(ds.city_arrays("test", c)[0], city=c) for c in (0, 1)}
+    engine = fc.fleet_engine(sups, config=ServingConfig(buckets=BUCKETS), device=device)
+
+    def check(got, rows, c, what, forecaster=fc):
+        want = forecaster.predict(sups.for_city(c), rows, city=c)
+        if got.shape != want.shape or not np.isfinite(got).all():
+            fail(f"{what}: got {got.shape}, want {want.shape}")
+        if not np.allclose(got, want, rtol=SERVE_RTOL, atol=SERVE_ATOL):
+            fail(f"{what}: max |engine - forecaster| {np.abs(got - want).max():.3e}")
+
+    try:
+        for c in (0, 1):
+            for b in BUCKETS:
+                engine.predict_direct(windows[c][:b], city=c)
+        cls = engine.class_of(0)
+        engine.class_stats[cls].reset()
+        results, errors = {}, []
+        barrier = threading.Barrier(CALLERS)  # CALLERS // 2 threads per city
+
+        def caller(c, k):
+            try:
+                rows = windows[c][8 * k:8 * k + 8]
+                barrier.wait(timeout=60)
+                results[(c, k)] = (rows, [engine.predict(rows, city=c) for _ in range(ROUNDS)])
+            except BaseException as e:  # noqa: BLE001 — reported below
+                errors.append(e)
+
+        threads = [threading.Thread(target=caller, args=(c, k))
+                   for c in (0, 1) for k in range(CALLERS // 2)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+        if errors or any(t.is_alive() for t in threads):
+            fail(f"fleet concurrent callers: errors={errors!r}")
+        for (c, k), (rows, outs) in results.items():
+            for out in outs:
+                check(out, rows, c, f"fleet caller {k} of city {c}")
+        for n in SIZES + (OVERSIZED,):
+            for c in (0, 1):
+                rows = windows[c][:n]  # past the top rung: split over two dispatches
+                check(engine.predict(rows, city=c), rows, c,
+                      f"fleet predict({len(rows)} rows) of city {c}")
+        if engine.cross_city_dispatches == 0:
+            fail("no fleet dispatch coalesced the two cities")
+        snapshot = engine.class_stats[cls].snapshot()
+        print(f"fleet serving, one class at rung 144 for cities 0 and 1: "
+              f"{snapshot['totals']['dispatches']} dispatches, "
+              f"{engine.cross_city_dispatches} of them coalescing both cities; every "
+              f"answer equal to Forecaster.predict(city=) on the card (rtol {SERVE_RTOL}, "
+              f"atol {SERVE_ATOL})")
+        for b, st in snapshot["buckets"].items():
+            print(f"fleet bucket {b}: {st['dispatches']} dispatches, p50 latency "
+                  f"{st['latency_ms']['p50']} ms, p50 dispatch {st['device_ms']['p50']} ms")
+        new = {k: v * 0.9 for k, v in fc.state_dict.items()}
+        scaled = Forecaster(build_model(fc.config, fc.derived["input_dim"], device=device), new,
+                            None, fc.config, fc.derived, fc.normalizers, device=device)
+        gen = engine.swap_params(new)
+        for c in (0, 1):
+            out, got_gen = engine.predict(windows[c][:4], city=c, with_generation=True)
+            if got_gen != gen:
+                fail(f"city {c} answered from generation {got_gen} after the swap to {gen}")
+            check(out, windows[c][:4], c, f"city {c} after the swap", scaled)
+        print(f"fleet swap_params: generation {gen} serves both cities, equal to a "
+              "Forecaster on the new weights")
+    finally:
+        engine.close()
+
+
+def bench_fleet(device) -> None:
+    """Phase 28: bench.py's 8-city fleet point at the default model's full
+    width: one epoch (train, validate, checkpoints) of fleet blocks of
+    FLEET_BENCH_S, then one of the per-city loop (``fleet=False``, one
+    batch a step at each city's own shape), from one set of weights."""
+    import torch
+
+    from stmgcn_tpu_torch import CitySupports, Trainer
+    from stmgcn_tpu_torch.data import HeteroCityDataset, WindowSpec, synthetic_dataset
+    from stmgcn_tpu_torch.models import STMGCN
+    from stmgcn_tpu_torch.ops import SupportConfig
+
+    datas = [synthetic_dataset(rows=r, cols=c, n_timesteps=24 * 7 * 4 + 12 * i, seed=i + 1)
+             for i, (r, c) in enumerate(BENCH_FLEET_DIMS)]
+    sups = CitySupports(SupportConfig("chebyshev", 2).build_all(d.adjs.values())
+                        for d in datas)
+    seconds = {}
+    for name, superstep, fleet in (("fleet", FLEET_BENCH_S, True), ("per-city loop", 1, False)):
+        ds = HeteroCityDataset(datas, WindowSpec(BENCH_FLEET_SERIAL, 1, 1, 24))
+        model = STMGCN(3, 3, BENCH_FLEET_SERIAL + 2, 1, device=device,
+                       generator=torch.Generator().manual_seed(0))
+        trainer = Trainer(model, ds, sups, n_epochs=1, batch_size=BENCH_FLEET_BATCH,
+                          steps_per_superstep=superstep, fleet=fleet,
+                          out_dir=scratch(f"bench_fleet_{superstep}"), device=device,
+                          verbose=False)
+        if fleet:
+            check_fleet(trainer, [(6, (6, 7)), (16, (0, 1, 2, 3, 4, 5))], "bench fleet")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        history = trainer.train()
+        torch.cuda.synchronize()
+        seconds[name] = time.perf_counter() - t0
+        if not np.isfinite(history["train"]).all():
+            fail(f"bench fleet, {name}: non-finite loss")
+        print(f"bench fleet point, {name} (train_path {trainer.train_path}): one epoch of "
+              f"{trainer.global_step} steps at batch {BENCH_FLEET_BATCH} plus validation in "
+              f"{seconds[name]:.3f} s ({seconds[name] / trainer.global_step * 1e3:.3f} ms a "
+              f"step); train loss {history['train'][0]:.6g}")
+    print(f"bench fleet point, epoch fleet / per-city loop: "
+          f"{seconds['fleet'] / seconds['per-city loop']:.4f}")
+
+
+def tiled_fleet(device) -> None:
+    """Phase 29: a tiled fleet of three cities at tile 128 in one class at
+    rung 1,024: B3 and B4 on each grown plan against their plain versions
+    at the training shapes, ``train()`` and ``test()`` with the tiled
+    launches per forward and step, the step p50, and each city served in a
+    private exact-fit class of ``FleetServingEngine`` from ``best.ckpt``."""
+    import torch
+
+    from stmgcn_tpu_torch import Forecaster, ServingConfig, build_trainer
+    from stmgcn_tpu_torch.ops.spmm import (
+        spmm_stack,
+        spmm_stack_bwd,
+        spmm_stack_bwd_reference,
+        spmm_stack_reference,
+    )
+
+    cfg = fleet_config(scratch("tiled_fleet"), batch=TILED_FLEET_BATCH)
+    cfg.data.n_cities, cfg.data.city_rows = len(TILED_FLEET_ROWS), TILED_FLEET_ROWS
+    cfg.data.cols, cfg.data.city_timesteps = TILED_FLEET_COLS, None
+    cfg.data.n_timesteps = TILED_FLEET_TIMESTEPS
+    cfg.model.tiled, cfg.model.tile_size = True, TILED_FLEET_TILE
+    t0 = time.perf_counter()
+    trainer = build_trainer(cfg, device=device)
+    print(f"tiled fleet: three cities planned and grown on the host in "
+          f"{time.perf_counter() - t0:.1f} s")
+    check_fleet(trainer, [(max(TILED_FLEET_ROWS) * TILED_FLEET_COLS, (0, 1, 2))], "tiled fleet")
+    B, T, H = TILED_FLEET_BATCH, cfg.data.seq_len, cfg.model.lstm_hidden_dim
+    gen = torch.Generator(device=device).manual_seed(3)
+    for c, rows in enumerate(TILED_FLEET_ROWS):
+        plan = trainer.supports.for_city(c)
+        st = plan.as_stack()
+        M, K = plan.m_graphs, plan.n_supports
+        grown_rows = plan.block_rows - -(-rows * TILED_FLEET_COLS // TILED_FLEET_TILE)
+        errs = []
+        for what, x in (("gate conv", torch.randn(plan.n, B * T, device=device, generator=gen)),
+                        ("graph conv", torch.randn(M, plan.n, B * H, device=device,
+                                                   generator=gen))):
+            errs.append(spmm_err(spmm_stack(st, x), spmm_stack_reference(st, x),
+                                 f"B3 ({what}) on city {c}'s grown plan"))
+            g = torch.randn(M, K, plan.n, x.shape[-1], device=device, generator=gen)
+            shared = x.dim() == 2
+            dx = spmm_stack_bwd(st, g, shared=shared)
+            errs.append(spmm_err(dx, spmm_stack_bwd_reference(st, g, shared=shared),
+                                 f"B4 ({what}) on city {c}'s grown plan"))
+            if not torch.equal(dx, spmm_stack_bwd(st, g, shared=shared)):
+                fail(f"B4 ({what}) on city {c}'s grown plan: two runs differ")
+        print(f"tiled fleet, city {c} ({rows * TILED_FLEET_COLS} nodes grown to {plan.n}, "
+              f"block rows added: {grown_rows}; C {plan.block_cols}, C_t "
+              f"{plan.data_t.shape[3]}): "
+              f"B3 and B4 against their plain versions at F = {B * T} and {B * H} (B4 twice, "
+              f"bitwise equal), max |err| "
+              f"{max(errs):.3e} (rtol {SPMM_RTOL} + {SPMM_ATOL} of the largest)")
+    train_and_test(trainer, {"B1": 1, "B3": 2, "B3 shared": 1}, {"B2": 1, "B4": 1},
+                   "tiled fleet training")
+    step_times(trainer, "tiled fleet training step")
+    fc = Forecaster.from_checkpoint(trainer.best_path, device=device)
+    from stmgcn_tpu_torch.experiment import build_dataset, build_supports
+
+    ds = build_dataset(fc.config)
+    plans = build_supports(fc.config, ds)
+    config = ServingConfig(buckets=METRO_BUCKETS, max_batch=METRO_BUCKETS[-1])
+    with fc.fleet_engine(plans, config=config, device=device) as engine:
+        if len({engine.class_of(c) for c in range(3)}) != 3:
+            fail("tiled fleet cities share a serving class")
+        for c in range(3):
+            rows = ds.denormalize(ds.city_arrays("test", c)[0][:METRO_BUCKETS[-1] + 1], city=c)
+            plan = plans.for_city(c)
+            want = fc.predict(plan, rows, city=c)
+            for got in (engine.predict(rows, city=c), engine.predict_direct(rows, city=c)):
+                if got.shape != want.shape or not np.allclose(got, want, rtol=SERVE_RTOL,
+                                                              atol=SERVE_ATOL):
+                    fail(f"tiled fleet serving, city {c}: max |err| "
+                         f"{np.abs(got - want).max():.3e}")
+    print(f"tiled fleet serving: each city in a private exact-fit class, "
+          f"{METRO_BUCKETS[-1] + 1} windows equal to Forecaster.predict(city=)")
+
+
+def fleet_phases(device) -> dict:
+    """Phases 26-29: B1 and B2 must launch on the dense fleet, B3 and B4
+    on the tiled fleet only. Returns every kernel's launches summed over
+    the three paths (the records' ``fleet_launches``), each counted from
+    its ``train_and_test``'s reset (or, for phase 28, a reset before it)
+    to its end."""
+    import torch
+
+    t0 = time.perf_counter()
+    trainer = fleet_train(device)
+    fleet_serve(device, trainer)
+    dense = read_counts()
+    if not dense["B1"] or not dense["B2"] or any(dense[k] for k in ("B3", "B4", "B5")):
+        fail(f"the dense fleet path's launches: {counts_text(dense)}")
+    print(f"dense fleet path (train, test, step p50, card vs CPU, serve, swap): launches "
+          f"{counts_text(dense)}")
+    del trainer
+    torch.cuda.empty_cache()
+    reset_counts()
+    bench_fleet(device)
+    bench = read_counts()
+    print(f"bench fleet point (one epoch on each path): launches {counts_text(bench)}")
+    torch.cuda.empty_cache()
+    tiled_fleet(device)
+    tiled = read_counts()
+    if not tiled["B3"] or not tiled["B4"]:
+        fail(f"the tiled fleet path did not launch B3 and B4: {counts_text(tiled)}")
+    print(f"tiled fleet path (train, test, serve): launches {counts_text(tiled)}")
+    torch.cuda.empty_cache()
+    print(f"fleet phases took {time.perf_counter() - t0:.1f} s")
+    return {k: dense[k] + bench[k] + tiled[k] for k in dense}
+
+
 def main() -> int:
     try:
         return run_phases()
@@ -2598,6 +2928,10 @@ def run_phases() -> int:
     torch.cuda.empty_cache()
     print(f"bf16 dense phases done at {time.perf_counter() - t_start:.1f} s")
 
+    # the fleet slice: heterogeneous cities in shape classes, dense and tiled
+    fleet_counts = fleet_phases(device)
+    print(f"fleet phases done at {time.perf_counter() - t_start:.1f} s")
+
     ds, dense, plan = metro_host()
     dense_dev, plan_dev = torch.as_tensor(dense, device=device), plan.to(device)
     records += check_spmm_kernels(device, dense, dense_dev, plan)
@@ -2626,6 +2960,10 @@ def run_phases() -> int:
     if any(not r["launches"] for r in bf16_records):
         fail("a bf16 kernel form was not launched on its main path: " + ", ".join(
             f"{r['name']} {r['launches']}" for r in bf16_records))
+    # the fp32 records' launches on the fleet paths (phases 26-29)
+    fleet_counts["B3"] -= fleet_counts["B3 shared"]
+    for rec, k in zip(records, ("B1", "B2", "B3", "B4", "B5", "B3 shared")):
+        rec["fleet_launches"] = fleet_counts[k]
     print(f"all phases done at {time.perf_counter() - t_start:.1f} s")
 
     print(card)

@@ -14,11 +14,13 @@ from stmgcn_tpu_torch.config import ExperimentConfig, ServingConfig, TrainConfig
 from stmgcn_tpu_torch.experiment import build_trainer, run
 from stmgcn_tpu_torch.inference import Forecaster
 from stmgcn_tpu_torch.models import STMGCN, from_jax_params, to_jax_params
-from stmgcn_tpu_torch.serving import ServingEngine
-from stmgcn_tpu_torch.train import Trainer
+from stmgcn_tpu_torch.serving import FleetServingEngine, ServingEngine
+from stmgcn_tpu_torch.train import CitySupports, Trainer
 
 __all__ = [
+    "CitySupports",
     "ExperimentConfig",
+    "FleetServingEngine",
     "Forecaster",
     "STMGCN",
     "ServingConfig",

@@ -77,6 +77,20 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--out-dir", type=str, default=None)
     p.add_argument("--steps-per-superstep", type=_positive_int, default=None, metavar="S",
                    help="optimizer steps per block, with one loss readback per block")
+    p.add_argument("--fleet", dest="fleet", action="store_true", default=None,
+                   help="require fleet shape-class training: heterogeneous cities "
+                        "grouped into node-count rungs, each class's cities padded to "
+                        "one shape (default: auto when --steps-per-superstep > 1 and "
+                        "the dataset is viable)")
+    p.add_argument("--no-fleet", dest="fleet", action="store_false",
+                   help="never group cities into shape classes (each city steps at "
+                        "its own shape)")
+    p.add_argument("--fleet-max-classes", type=_positive_int, default=None, metavar="C",
+                   help="most shape classes the fleet planner may open (default 8); "
+                        "cities fitting none run per-step")
+    p.add_argument("--fleet-max-pad-waste", type=float, default=None, metavar="F",
+                   help="max padded-node fraction of a rung a city may waste before "
+                        "it is excluded from the class (default 0.5)")
     p.add_argument("--normalize", choices=("minmax", "std", "none"), default=None,
                    help="demand normalization (stats travel inside checkpoints)")
     p.add_argument("--horizon", type=int, default=None,
@@ -108,7 +122,8 @@ def build_parser() -> argparse.ArgumentParser:
 _TRAIN_FLAGS = (
     "epochs", "batch_size", "lr", "lr_schedule", "warmup_epochs", "min_lr_fraction",
     "weight_decay", "grad_clip_norm", "loss", "patience", "top_k", "seed", "out_dir",
-    "steps_per_superstep", "checkpoint_every_steps", "precision", "sr_seed",
+    "steps_per_superstep", "fleet", "fleet_max_classes", "fleet_max_pad_waste",
+    "checkpoint_every_steps", "precision", "sr_seed",
 )
 
 

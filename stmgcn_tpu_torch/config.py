@@ -55,7 +55,11 @@ class DataConfig:
     n_cities: int = 1  # >1: samples from several same-shape cities, concatenated
     #: synthetic multi-city: give every city the first city's graph stack
     shared_graphs: bool = False
+    #: per-city treatment (``HeteroCityDataset``: a normalizer and split per
+    #: city) even when the cities share one shape; differing shapes imply it
     hetero: bool = False
+    #: synthetic multi-city: each city's grid rows and series length (one
+    #: value per city), in place of ``rows`` and ``n_timesteps``
     city_rows: Optional[tuple] = None
     city_timesteps: Optional[tuple] = None
     dt: int = 1  # hours per timestep
@@ -105,6 +109,11 @@ class ModelConfig:
     #: ``build_supports`` raises when more than this fraction of the plan's
     #: stored blocks would be all-zero padding
     tile_waste_budget: float = 0.75
+    #: the JAX package's rematerialized LSTM scan, which trades memory for
+    #: recompute and leaves results unchanged. Accepted and changes nothing
+    #: here: the LSTM kernels already keep only h and c per step and layer
+    #: and recompute the gates in the backward
+    remat: bool = False
     #: compute dtype (:data:`DTYPES`): "bfloat16" serves and trains the
     #: model in bf16 over float32 master parameters
     dtype: str = "float32"
@@ -133,8 +142,11 @@ class TrainConfig:
     so a JAX config dict reads as it is.
 
     The port trains on one device from the window-free resident series.
-    The fields in :data:`UNPORTED` belong to features it does not have yet
-    (streaming placement, sanitizers, fleet classes, the divergence guard);
+    ``fleet``, ``fleet_max_classes`` and ``fleet_max_pad_waste`` choose
+    fleet shape-class training of heterogeneous cities; the trainer
+    validates them as the JAX one does. The fields in :data:`UNPORTED`
+    belong to features the port does not have yet (streaming placement,
+    sanitizers, the divergence guard);
     setting one away from its default raises a ``ValueError`` naming it, so
     nothing is silently ignored. ``precision`` is one of :data:`PRECISIONS`
     and ``sr_seed`` needs ``precision="bf16"``, as the JAX trainer checks.
@@ -163,6 +175,8 @@ class TrainConfig:
     window_free: Optional[bool] = None
     #: optimizer steps per block, with one loss readback per block
     steps_per_superstep: int = 1
+    #: fleet shape-class training of heterogeneous cities: None engages it
+    #: when ``steps_per_superstep > 1``, True requires it, False never
     fleet: Optional[bool] = None
     fleet_max_classes: int = 8
     fleet_max_pad_waste: float = 0.5
@@ -185,9 +199,6 @@ class TrainConfig:
         "prefetch": (1,),
         "data_placement": ("auto", "resident"),
         "window_free": (None, True),
-        "fleet": (None, False),
-        "fleet_max_classes": (8,),
-        "fleet_max_pad_waste": (0.5,),
         "divergence_guard": (False,),
         "divergence_action": ("skip",),
         "divergence_patience": (3,),
@@ -397,7 +408,37 @@ def _default() -> ExperimentConfig:
     return ExperimentConfig(name="default", data=DataConfig(rows=10))
 
 
-PRESETS = {"smoke": _smoke, "default": _default}
+def _multicity() -> ExperimentConfig:
+    """BASELINE config 4: a heterogeneous city pair (12x12 over 4 weeks,
+    10x10 over 3 weeks; per-city normalizers, splits and support stacks),
+    on the JAX package's data-parallel mesh. ``build_trainer`` refuses the
+    mesh: set ``cfg.mesh = MeshConfig()`` to train it on one device."""
+    return ExperimentConfig(
+        name="multicity",
+        data=DataConfig(
+            rows=12,
+            n_cities=2,
+            n_timesteps=24 * 7 * 4,
+            city_rows=(12, 10),
+            city_timesteps=(24 * 7 * 4, 24 * 7 * 3),
+        ),
+        train=TrainConfig(batch_size=64),
+        mesh=MeshConfig(dp=8),
+    )
+
+
+def _longhorizon() -> ExperimentConfig:
+    """BASELINE config 5: 24-step history + 24-step forecast (``remat`` is
+    the JAX package's and changes nothing here)."""
+    return ExperimentConfig(
+        name="longhorizon",
+        data=DataConfig(rows=10, serial_len=24, horizon=24, n_timesteps=24 * 7 * 6),
+        model=ModelConfig(remat=True),
+    )
+
+
+PRESETS = {"smoke": _smoke, "default": _default, "multicity": _multicity,
+           "longhorizon": _longhorizon}
 
 
 def preset(name: str) -> ExperimentConfig:

@@ -1,7 +1,10 @@
-"""Data layer: NPZ loading, normalization, windowing, splits, batching —
+"""Data layer: NPZ loading, normalization, windowing, splits, batching,
+heterogeneous cities and the fleet shape-class planner —
 numpy copies of the JAX package's host modules (its ``data/__init__``
 pulls JAX in through ``ring.py``)."""
 
+from stmgcn_tpu_torch.data.fleet import FleetPlan, ShapeClass, plan_shape_classes
+from stmgcn_tpu_torch.data.hetero import HeteroCityDataset
 from stmgcn_tpu_torch.data.loader import ADJ_KEYS, DemandData, load_npz
 from stmgcn_tpu_torch.data.normalize import (
     MinMaxNormalizer,
@@ -18,7 +21,10 @@ __all__ = [
     "Batch",
     "DemandData",
     "DemandDataset",
+    "FleetPlan",
+    "HeteroCityDataset",
     "MinMaxNormalizer",
+    "ShapeClass",
     "SplitSpec",
     "StdNormalizer",
     "WindowSpec",
@@ -26,6 +32,7 @@ __all__ = [
     "grid_adjacency",
     "load_npz",
     "normalizer_from_dict",
+    "plan_shape_classes",
     "sliding_windows",
     "synthetic_dataset",
     "synthetic_demand",

@@ -1,11 +1,13 @@
 """Experiment assembly: config -> data, supports, model, trainer.
 
 Counterpart of ``stmgcn_tpu/experiment.py`` (``build_dataset``,
-``build_supports``, ``build_model``, ``build_trainer``, ``run``) for
-homogeneous cities on one device, with dense, block-sparse
-(``model.sparse``) or tiled (``model.tiled``) supports. Heterogeneous
-cities, node padding for region meshes and meshes are not ported: configs
-asking for them raise.
+``build_supports``, ``build_model``, ``build_trainer``, ``run``) on one
+device, with dense, block-sparse (``model.sparse``) or tiled
+(``model.tiled``) supports, for homogeneous cities and for heterogeneous
+ones (``HeteroCityDataset``: per-city shapes, normalizers and splits; one
+support stack per city in a ``CitySupports``), which the trainer can group
+into fleet shape classes (``train.fleet``). Node padding for region meshes
+and meshes are not ported: configs asking for them raise.
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ from typing import Optional
 import torch
 
 from stmgcn_tpu_torch.config import ExperimentConfig
+from stmgcn_tpu_torch.data.hetero import HeteroCityDataset
 from stmgcn_tpu_torch.data.loader import load_npz
 from stmgcn_tpu_torch.data.pipeline import DemandDataset
 from stmgcn_tpu_torch.data.splits import date_splits, fraction_splits
@@ -24,22 +27,41 @@ from stmgcn_tpu_torch.models.st_mgcn import STMGCN
 from stmgcn_tpu_torch.ops.layers import resolve_device
 from stmgcn_tpu_torch.ops.spmm import stack_from_dense
 from stmgcn_tpu_torch.ops.tiling import plan_tiling
-from stmgcn_tpu_torch.train.trainer import Trainer
+from stmgcn_tpu_torch.train.trainer import CitySupports, Trainer
 
 __all__ = ["build_dataset", "build_model", "build_supports", "build_trainer", "run"]
 
 
-def build_dataset(cfg: ExperimentConfig) -> DemandDataset:
-    """Load or synthesize demand data and window/split it per config."""
+def _split_for(d, window: WindowSpec, n_timesteps: int):
+    """One split spec over a series of ``n_timesteps`` per the data config."""
+    n_samples = window.n_samples(n_timesteps)
+    if d.dates is not None:
+        return date_splits(
+            list(d.dates), burn_in=window.burn_in, day_timesteps=d.day_timesteps,
+            val_ratio=d.val_ratio, year=d.year, n_samples=n_samples,
+        )
+    return fraction_splits(n_samples, train=d.train_frac, validate=d.val_frac)
+
+
+def build_dataset(cfg: ExperimentConfig):
+    """Load or synthesize demand data and window/split it per config: a
+    :class:`DemandDataset` for same-shape cities, or a
+    :class:`HeteroCityDataset` when city shapes differ (or ``data.hetero``
+    forces per-city treatment), each city then with its own normalizer and
+    split calendar."""
     d = cfg.data
     window = WindowSpec(
         d.serial_len, d.daily_len, d.weekly_len, d.day_timesteps, horizon=d.horizon
     )
-    if d.hetero or d.city_rows is not None or d.city_timesteps is not None:
-        raise ValueError("heterogeneous cities are not ported yet")
+    for name, per_city in (("city_rows", d.city_rows), ("city_timesteps", d.city_timesteps)):
+        if per_city is not None and len(per_city) != d.n_cities:
+            raise ValueError(
+                f"data.{name} must list one value per city "
+                f"(n_cities={d.n_cities}), got {per_city}"
+            )
     if d.path is not None:
         paths = [p for p in d.path.split(",") if p]
-        if len(paths) != d.n_cities:
+        if d.n_cities > 1 and len(paths) != d.n_cities:
             raise ValueError(
                 f"n_cities={d.n_cities} needs {d.n_cities} comma-separated "
                 f"archives in data.path, got {len(paths)}"
@@ -48,23 +70,28 @@ def build_dataset(cfg: ExperimentConfig) -> DemandDataset:
     else:
         cities = [
             synthetic_dataset(
-                rows=d.rows, cols=d.cols, n_timesteps=d.n_timesteps,
+                rows=d.city_rows[c] if d.city_rows is not None else d.rows,
+                cols=d.cols,
+                n_timesteps=(
+                    d.city_timesteps[c] if d.city_timesteps is not None else d.n_timesteps
+                ),
                 m_graphs=cfg.model.m_graphs, day_timesteps=d.day_timesteps,
                 seed=d.seed + c,
             )
             for c in range(d.n_cities)
         ]
         if d.shared_graphs:
+            if len({c.demand.shape[1] for c in cities}) > 1:
+                raise ValueError(
+                    "shared_graphs needs cities with one region count — "
+                    "a graph stack cannot be shared across differing N"
+                )
             for c in cities[1:]:
                 c.adjs = cities[0].adjs
-    n_samples = window.n_samples(cities[0].demand.shape[0])
-    if d.dates is not None:
-        split = date_splits(
-            list(d.dates), burn_in=window.burn_in, day_timesteps=d.day_timesteps,
-            val_ratio=d.val_ratio, year=d.year, n_samples=n_samples,
-        )
-    else:
-        split = fraction_splits(n_samples, train=d.train_frac, validate=d.val_frac)
+    if len(cities) > 1 and (d.hetero or len({c.demand.shape for c in cities}) > 1):
+        splits = [_split_for(d, window, c.demand.shape[0]) for c in cities]
+        return HeteroCityDataset(cities, window, splits, normalize=d.normalize)
+    split = _split_for(d, window, cities[0].demand.shape[0])
     return DemandDataset(
         cities if len(cities) > 1 else cities[0], window, split, normalize=d.normalize
     )
@@ -85,38 +112,43 @@ def _check_support_route(cfg: ExperimentConfig) -> None:
         )
 
 
-def build_supports(cfg: ExperimentConfig, dataset: DemandDataset):
-    """Supports from the dataset's (shared) graphs, built on the host.
+def build_supports(cfg: ExperimentConfig, dataset):
+    """Supports from the dataset's graphs, built on the host.
 
-    Dense mode: the ``(M, n_supports, N, N)`` float32 stack (float64 on the
-    way). Sparse mode: an M-tuple of
-    :class:`~stmgcn_tpu_torch.ops.spmm.BlockSparseStack`, one per branch
-    in the original node order. Tiled mode: one
+    Dense mode: the ``(M, n_supports, N, N)`` float32 stack. Sparse mode: an
+    M-tuple of :class:`~stmgcn_tpu_torch.ops.spmm.BlockSparseStack`, one per
+    branch in the original node order. Tiled mode: one
     :class:`~stmgcn_tpu_torch.ops.tiling.TiledSupports` plan at
     ``model.tile_size``, refused when more than ``model.tile_waste_budget``
-    of its stored blocks would be all-zero padding.
+    of its stored blocks would be all-zero padding. When the cities carry
+    differing graphs, a :class:`CitySupports` of one such form per city.
     """
     _check_support_route(cfg)
+
+    def one(adjs):
+        # N from the city's own adjacencies (heterogeneous cities differ)
+        dense = cfg.model.support_config.build_all(adjs.values())
+        if cfg.model.tiled:
+            plan = plan_tiling(dense, tile=cfg.model.tile_size)
+            stats = plan.tile_stats()
+            stored = plan.m_graphs * plan.n_supports * plan.block_rows * plan.block_cols
+            waste = 1.0 - stats["blocks_kept"] / max(stored, 1)
+            if waste > cfg.model.tile_waste_budget:
+                raise ValueError(
+                    f"tiled condensation wastes {waste:.3f} of stored blocks "
+                    f"on all-zero padding (> model.tile_waste_budget="
+                    f"{cfg.model.tile_waste_budget}) — the graph's nonzeros "
+                    "do not cluster under the reorder; use dense/sparse "
+                    "supports, a smaller model.tile_size, or raise the budget"
+                )
+            return plan
+        if cfg.model.sparse:
+            return tuple(stack_from_dense(dense[m]) for m in range(dense.shape[0]))
+        return dense
+
     if not dataset.shared_graphs:
-        raise ValueError("per-city graph stacks are not ported yet")
-    dense = cfg.model.support_config.build_all(dataset.adjs.values())
-    if cfg.model.tiled:
-        plan = plan_tiling(dense, tile=cfg.model.tile_size)
-        stats = plan.tile_stats()
-        stored = plan.m_graphs * plan.n_supports * plan.block_rows * plan.block_cols
-        waste = 1.0 - stats["blocks_kept"] / max(stored, 1)
-        if waste > cfg.model.tile_waste_budget:
-            raise ValueError(
-                f"tiled condensation wastes {waste:.3f} of stored blocks "
-                f"on all-zero padding (> model.tile_waste_budget="
-                f"{cfg.model.tile_waste_budget}) — the graph's nonzeros "
-                "do not cluster under the reorder; use dense/sparse "
-                "supports, a smaller model.tile_size, or raise the budget"
-            )
-        return plan
-    if cfg.model.sparse:
-        return tuple(stack_from_dense(dense[m]) for m in range(dense.shape[0]))
-    return dense
+        return CitySupports(one(adjs) for adjs in dataset.city_adjs)
+    return one(dataset.adjs)
 
 
 def build_model(cfg: ExperimentConfig, input_dim: int, *, device=None,
@@ -148,12 +180,14 @@ def build_model(cfg: ExperimentConfig, input_dim: int, *, device=None,
 
 def build_trainer(cfg: ExperimentConfig, *, device=None, initial_state: Optional[dict] = None,
                   verbose: bool = True) -> Trainer:
-    """The trainer for a homogeneous, single-device config in any of the
-    three support modes; weights drawn from ``cfg.train.seed`` unless
-    ``initial_state`` is given. Its checkpoints go to ``cfg.train.out_dir``
-    and carry the config and ``derived`` (``{"input_dim", "n_nodes"}``), so
-    ``Forecaster.from_checkpoint`` in either package rebuilds the model.
-    ``device=None`` means the GPU, and raises without one."""
+    """The trainer for a single-device config in any of the three support
+    modes, homogeneous or heterogeneous (with ``train.fleet`` and its
+    knobs); weights drawn from ``cfg.train.seed`` unless ``initial_state``
+    is given. Its checkpoints go to ``cfg.train.out_dir`` and carry the
+    config and ``derived`` (``{"input_dim", "n_nodes"}``, ``n_nodes`` a
+    per-city list for heterogeneous cities), so ``Forecaster.from_checkpoint``
+    in either package rebuilds the model. ``device=None`` means the GPU,
+    and raises without one."""
     _check_support_route(cfg)
     if cfg.mesh.n_devices > 1:
         raise ValueError(
@@ -162,6 +196,7 @@ def build_trainer(cfg: ExperimentConfig, *, device=None, initial_state: Optional
         )
     device = resolve_device(device)
     dataset = build_dataset(cfg)
+    hetero = getattr(dataset, "heterogeneous", False)
     supports = build_supports(cfg, dataset)
     model = build_model(cfg, dataset.n_feats, device=device,
                         generator=torch.Generator().manual_seed(cfg.train.seed))
@@ -171,7 +206,9 @@ def build_trainer(cfg: ExperimentConfig, *, device=None, initial_state: Optional
         lr_schedule=t.lr_schedule, warmup_epochs=t.warmup_epochs,
         min_lr_fraction=t.min_lr_fraction, grad_clip_norm=t.grad_clip_norm, loss=t.loss,
         n_epochs=t.epochs, batch_size=t.batch_size, patience=t.patience, shuffle=t.shuffle,
-        seed=t.seed, steps_per_superstep=t.steps_per_superstep, out_dir=t.out_dir,
+        seed=t.seed, steps_per_superstep=t.steps_per_superstep, fleet=t.fleet,
+        fleet_max_classes=t.fleet_max_classes, fleet_max_pad_waste=t.fleet_max_pad_waste,
+        out_dir=t.out_dir,
         top_k=t.top_k, async_checkpoint=t.async_checkpoint,
         checkpoint_every_steps=t.checkpoint_every_steps,
         precision=t.precision, sr_seed=t.sr_seed,
@@ -179,7 +216,10 @@ def build_trainer(cfg: ExperimentConfig, *, device=None, initial_state: Optional
             "config": cfg.to_dict(),
             # what a checkpoint consumer needs to rebuild the model without
             # the dataset (the JAX build_trainer's extra_meta)
-            "derived": {"input_dim": dataset.n_feats, "n_nodes": dataset.n_nodes},
+            "derived": {
+                "input_dim": dataset.n_feats,
+                "n_nodes": dataset.city_n_nodes if hetero else dataset.n_nodes,
+            },
         },
         initial_state=initial_state, device=device, verbose=verbose,
     )

@@ -21,9 +21,16 @@ either package carries its config (and so ``model.dtype``), the derived
 model facts and the normalizer, so serving from a fresh process is::
 
     fc = Forecaster.from_checkpoint("output/best.ckpt")   # on the GPU
+
+A heterogeneous multi-city checkpoint carries one normalizer per city
+(``normalizers``) and a per-city ``derived["n_nodes"]``; ``predict`` then
+takes ``city=`` and :meth:`Forecaster.fleet_engine` serves every city from
+one engine (``serving/fleet.py``).
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import numpy as np
 import torch
@@ -46,16 +53,21 @@ class Forecaster:
     ``model`` is an :class:`~stmgcn_tpu_torch.models.STMGCN`; it is loaded
     with ``state_dict``, moved to ``device`` (``None`` means the GPU, and
     raises without one) and put in eval mode. ``derived`` is
-    ``{"input_dim": C, "n_nodes": N}``.
+    ``{"input_dim": C, "n_nodes": N}``, with ``n_nodes`` a per-city list
+    when ``normalizers`` (one per city, a heterogeneous checkpoint's) is
+    given.
     """
 
     def __init__(self, model, state_dict, normalizer, config, derived: dict,
-                 device=None):
+                 normalizers=None, device=None):
         self.device = resolve_device(device)
         model.load_state_dict(state_dict)
         self.model = model.to(self.device).eval()
         self.state_dict = state_dict
         self.normalizer = normalizer
+        #: heterogeneous multi-city checkpoints: one normalizer per city;
+        #: ``predict`` selects with ``city=``
+        self.normalizers = None if normalizers is None else list(normalizers)
         self.config = config
         self.derived = derived
         self._placed = None  # (supports as given, supports on the device)
@@ -72,15 +84,16 @@ class Forecaster:
                 f"{path} lacks the config/derived metadata needed to rebuild "
                 "the model (was it written by a Trainer from build_trainer?)"
             )
-        if "normalizers" in meta:
-            raise ValueError(f"{path} is a heterogeneous multi-city checkpoint; the port "
-                             "serves one city per model so far")
         cfg = ExperimentConfig.from_dict(meta["config"])
         normalizer = normalizer_from_dict(meta["normalizer"]) if "normalizer" in meta else None
+        normalizers = None
+        if "normalizers" in meta:  # heterogeneous multi-city checkpoint
+            normalizers = [normalizer_from_dict(n) if n is not None else None
+                           for n in meta["normalizers"]]
         device = resolve_device(device)
         model = build_model(cfg, meta["derived"]["input_dim"], device=device)
         state = from_jax_params(params, cfg.model.m_graphs)
-        return cls(model, state, normalizer, cfg, meta["derived"], device=device)
+        return cls(model, state, normalizer, cfg, meta["derived"], normalizers, device=device)
 
     def place(self, supports):
         """``supports`` on this forecaster's device, checked against the
@@ -102,19 +115,45 @@ class Forecaster:
 
     @property
     def expected(self) -> tuple:
-        """``(seq_len, n_nodes, input_dim)`` of one history window."""
+        """``(seq_len, n_nodes, input_dim)`` of one history window (of a
+        homogeneous checkpoint; :meth:`city_view` for one city of a
+        heterogeneous one)."""
         return (self.seq_len, self.derived["n_nodes"], self.derived["input_dim"])
 
-    def predict(self, supports, history, *, normalized: bool = False) -> np.ndarray:
+    def city_view(self, city: Optional[int]) -> tuple:
+        """``(normalizer, expected)`` of one city, with the JAX package's
+        checks: ``city`` is required when a heterogeneous checkpoint holds
+        more than one normalizer, must lie in range, and applies to
+        heterogeneous checkpoints only."""
+        if self.normalizers is None:
+            if city not in (None, 0):
+                raise ValueError("city= only applies to heterogeneous multi-city checkpoints")
+            return self.normalizer, self.expected
+        if city is None:
+            if len(self.normalizers) > 1:
+                # cities may share N, so no shape check would catch a wrong default
+                raise ValueError(f"this checkpoint holds {len(self.normalizers)} per-city "
+                                 "normalizers; pass city= to select one")
+            city = 0
+        if not 0 <= city < len(self.normalizers):
+            raise ValueError(f"city must be in [0, {len(self.normalizers)}), got {city}")
+        expected = (self.seq_len, self.derived["n_nodes"][city], self.derived["input_dim"])
+        return self.normalizers[city], expected
+
+    def predict(self, supports, history, *, normalized: bool = False,
+                city: Optional[int] = None) -> np.ndarray:
         """Forecast demand from raw-scale history.
 
         ``history``: ``(B, seq_len, N, C)`` windowed observations in raw
         demand units (``normalized=True`` if already model-scaled);
         ``supports``: the model's support form — the stacked ``(M, K, N,
         N)`` array, a ``TiledSupports`` plan, or M block-sparse groups —
-        placed on the device once per object (:meth:`place`). Returns
-        raw-unit forecasts ``(B, N, C)`` or ``(B, H, N, C)``.
+        placed on the device once per object (:meth:`place`). With a
+        heterogeneous checkpoint ``city`` selects the city's normalizer and
+        region count (:meth:`city_view`). Returns raw-unit forecasts ``(B,
+        N, C)`` or ``(B, H, N, C)``.
         """
+        normalizer, expected = self.city_view(city)
         sup = self.place(supports)
 
         def call(h: np.ndarray) -> np.ndarray:
@@ -122,10 +161,23 @@ class Forecaster:
                 out = self.model(sup, torch.as_tensor(h, device=self.device))
             return out.float().cpu().numpy()  # a bf16 model's predictions, exactly
 
-        return serve_predict(call, self.normalizer, self.expected, history, normalized)
+        return serve_predict(call, normalizer, expected, history, normalized)
 
-    def serving_engine(self, supports, *, config=None, device=None):
-        """A :class:`stmgcn_tpu_torch.serving.ServingEngine` over this model."""
+    def serving_engine(self, supports, *, config=None, city=None, device=None):
+        """A :class:`stmgcn_tpu_torch.serving.ServingEngine` over this model
+        (one city of a heterogeneous checkpoint: ``city=``)."""
         from stmgcn_tpu_torch.serving.engine import ServingEngine
 
-        return ServingEngine.from_forecaster(self, supports, config=config, device=device)
+        return ServingEngine.from_forecaster(self, supports, config=config, city=city,
+                                             device=device)
+
+    def fleet_engine(self, city_supports, *, config=None, max_classes: int = 8,
+                     max_pad_waste: float = 0.5, device=None):
+        """A :class:`stmgcn_tpu_torch.serving.FleetServingEngine` over this
+        heterogeneous checkpoint: every city from one engine, requests for
+        cities of one shape class coalescing into one dispatch."""
+        from stmgcn_tpu_torch.serving.fleet import FleetServingEngine
+
+        return FleetServingEngine.from_forecaster(
+            self, city_supports, config=config, max_classes=max_classes,
+            max_pad_waste=max_pad_waste, device=device)

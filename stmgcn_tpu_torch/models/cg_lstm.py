@@ -12,8 +12,12 @@ Counterpart of ``stmgcn_tpu/models/cg_lstm.py`` (paper eqs. 6-9):
 
 ``shared_gate_fc=True`` (default) keeps the reference's quirk of applying
 the same Dense twice in eq. 8; ``False`` gives the paper's two layers.
-``n_real_nodes`` masks node-padding rows out of the eq. 7 mean. The traced
-per-call real-node count of fleet serving is not ported yet.
+``n_real_nodes`` masks node-padding rows out of the eq. 7 mean. A fleet
+shape class instead passes ``n_real`` per call (``stmgcn_tpu/models/
+cg_lstm.py:83-97``): an int tensor, one count for the batch (training) or
+a ``(B,)`` count per row (fleet serving), so one model serves every member
+city of the class; an exact fit (``n_real == N``) takes the plain mean, so
+exact-fit cities equal the unpadded model.
 ``support_mode`` (``"dense" | "sparse" | "tiled"``) picks the gate's graph
 conv (:func:`~stmgcn_tpu_torch.ops.chebconv.make_conv`); its parameters are
 the same in every mode.
@@ -55,13 +59,24 @@ class ContextualGate(nn.Module):
         self.gate_fc = Dense(seq_len, seq_len, **kw)
         self.gate_fc2 = None if shared_gate_fc else Dense(seq_len, seq_len, **kw)
 
-    def forward(self, supports, obs_seq: torch.Tensor) -> torch.Tensor:
+    def forward(self, supports, obs_seq: torch.Tensor,
+                n_real: Optional[torch.Tensor] = None) -> torch.Tensor:
         f32 = {} if self.compute_dtype is None else {"dtype": torch.float32}
         x_nt = obs_seq.sum(dim=-1, **f32).to(obs_seq.dtype)
         x_nt = x_nt.transpose(-1, -2)  # (B, N, T): history as features
         x_hat = x_nt + self.temporal_gconv(supports, x_nt)  # eq. 6 residual
         n_nodes = x_hat.shape[-2]
-        if self.n_real_nodes is not None and self.n_real_nodes != n_nodes:
+        if n_real is not None:
+            # eq. 7 over each city's real nodes: where() keeps padded rows
+            # out of the sum and out of its gradient; the unchosen arm's
+            # gradient is zero
+            nr = n_real[..., None]  # (1,) or (B, 1): broadcasts over (M, B, T)
+            keep = torch.arange(n_nodes, device=x_hat.device) < nr
+            real = torch.where(keep[..., None], x_hat, torch.zeros((), dtype=x_hat.dtype,
+                                                                   device=x_hat.device))
+            masked = real.sum(dim=-2, dtype=torch.float32) / nr.float()
+            z = torch.where(nr == n_nodes, x_hat.mean(dim=-2, **f32), masked)
+        elif self.n_real_nodes is not None and self.n_real_nodes != n_nodes:
             # eq. 7 over real nodes only
             mask = (torch.arange(n_nodes, device=x_hat.device) < self.n_real_nodes)
             z = (x_hat * mask[:, None].to(x_hat.dtype)).sum(dim=-2, **f32) / self.n_real_nodes
@@ -90,8 +105,9 @@ class CGLSTM(nn.Module):
                                    **kw)
         self.lstm = StackedLSTM(input_dim, lstm_hidden_dim, lstm_num_layers, **kw)
 
-    def forward(self, supports, obs_seq: torch.Tensor) -> torch.Tensor:
-        gated = self.gate(supports, obs_seq)  # ([M,] B, T, N, C)
+    def forward(self, supports, obs_seq: torch.Tensor,
+                n_real: Optional[torch.Tensor] = None) -> torch.Tensor:
+        gated = self.gate(supports, obs_seq, n_real)  # ([M,] B, T, N, C)
         *lead, batch, seq_len, n_nodes, n_feats = gated.shape
         # fold nodes into rows for the shared recurrence
         folded = gated.transpose(-3, -2).reshape(*lead, batch * n_nodes, seq_len, n_feats)

@@ -58,8 +58,9 @@ class Branch(nn.Module):
         self.gcn = make_conv(support_mode, n_supports, lstm_hidden_dim, gcn_hidden_dim,
                              use_bias=use_bias, **kw)
 
-    def forward(self, supports, obs_seq: torch.Tensor) -> torch.Tensor:
-        return self.gcn(supports, self.cg_lstm(supports, obs_seq))
+    def forward(self, supports, obs_seq: torch.Tensor,
+                n_real: Optional[torch.Tensor] = None) -> torch.Tensor:
+        return self.gcn(supports, self.cg_lstm(supports, obs_seq, n_real))
 
 
 class STMGCN(nn.Module):
@@ -115,17 +116,19 @@ class STMGCN(nn.Module):
 
     def check_supports(self, supports) -> None:
         """Raise unless ``supports`` is this model's form: a dense ``(M, K,
-        N, N)`` tensor, a :class:`~stmgcn_tpu_torch.ops.tiling.TiledSupports`
-        plan of M branches x K supports, or M per-branch block-sparse
-        groups (or one branch-stacked ``BlockSparseStack``)."""
+        N, N)`` tensor (or ``(B, M, K, N, N)``, one stack per batch row, as
+        fleet serving gathers them), a
+        :class:`~stmgcn_tpu_torch.ops.tiling.TiledSupports` plan of M
+        branches x K supports, or M per-branch block-sparse groups (or one
+        branch-stacked ``BlockSparseStack``)."""
         mode, want = self.support_mode, (self.m_graphs, self.n_supports)
         if mode != "tiled" and isinstance(supports, TiledSupports):
             raise ValueError(
                 f"a {mode} model got a TiledSupports plan: build the model with "
                 "model.tiled=True to serve a plan (the weights load unchanged)")
         if mode == "dense":
-            if not isinstance(supports, torch.Tensor) or supports.dim() != 4 or (
-                    tuple(supports.shape[:2]) != want):
+            if not isinstance(supports, torch.Tensor) or supports.dim() not in (4, 5) or (
+                    tuple(supports.shape[-4:-2]) != want):
                 got = tuple(supports.shape) if hasattr(supports, "shape") else type(supports)
                 raise ValueError(f"supports_stack must be ({want[0]}, {want[1]}, N, N), "
                                  f"got {got}")
@@ -140,11 +143,17 @@ class STMGCN(nn.Module):
             raise ValueError(
                 f"need {self.m_graphs} per-branch support groups, got {len(supports)}")
 
-    def forward(self, supports_stack, obs_seq: torch.Tensor) -> torch.Tensor:
+    def forward(self, supports_stack, obs_seq: torch.Tensor,
+                n_real: Optional[torch.Tensor] = None) -> torch.Tensor:
         """``supports_stack`` in the model's support form (see
-        :meth:`check_supports`); ``obs_seq`` ``(B, T, N, C)``."""
+        :meth:`check_supports`); ``obs_seq`` ``(B, T, N, C)``; ``n_real``
+        the real-node count of a node-padded fleet city (an int tensor,
+        ``()`` for the batch or ``(B,)`` per row), which the gate pools
+        over."""
         self.check_supports(supports_stack)
-        feats = self.branches(supports_stack, obs_seq)  # (M, B, N, gcn_hidden)
+        if isinstance(supports_stack, torch.Tensor) and supports_stack.dim() == 5:
+            supports_stack = supports_stack.transpose(0, 1)  # (M, B, K, N, N)
+        feats = self.branches(supports_stack, obs_seq, n_real)  # (M, B, N, gcn_hidden)
         # f32 fusion island; the prediction leaves in the compute dtype
         dtype = self.compute_dtype or torch.float32
         out = self.head(feats.sum(dim=0, dtype=torch.float32).to(dtype)).to(dtype)

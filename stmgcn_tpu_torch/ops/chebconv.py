@@ -7,7 +7,10 @@ so trained weights move between them unchanged, and share the projection
 tail ``act(stacked @ W + b)``. They differ in how the K propagations run:
 
 - :class:`ChebGraphConv`: one ``einsum('kij,bjf->bikf')`` over a dense
-  ``([M,] K, N, N)`` stack;
+  ``([M,] K, N, N)`` stack, or ``einsum('bkij,bjf->bikf')`` over one
+  stack per batch row ``([M,] B, K, N, N)`` (fleet serving, whose rows
+  belong to different cities; the JAX package computes it outside Pallas
+  too);
 - :class:`SparseChebGraphConv`: block-CSR supports through the kernels of
   :mod:`~stmgcn_tpu_torch.ops.spmm` (B3/B4 for a
   :class:`~stmgcn_tpu_torch.ops.spmm.BlockSparseStack`, B5 per support
@@ -87,8 +90,9 @@ def _k_major(propagated, batch, f_in):
 class ChebGraphConv(nn.Module):
     """Graph convolution over a stack of K dense support matrices.
 
-    Call with ``supports`` ``([M,] K, N, N)`` and a signal ``x``
-    ``([M,] B, N, F_in)``; returns ``([M,] B, N, features)``. With
+    Call with ``supports`` ``([M,] K, N, N)``, or ``([M,] B, K, N, N)``
+    with one stack per batch row, and a signal ``x`` ``([M,] B, N,
+    F_in)``; returns ``([M,] B, N, features)``. With
     ``branches=M`` the parameters carry a leading ``M`` axis and an ``x``
     without one is shared by every branch.
     """
@@ -128,7 +132,9 @@ class ChebGraphConv(nn.Module):
     def forward(self, supports: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
         self._check_count(supports.shape[-3])
         supports, x = promote_dtype(self.compute_dtype, supports, x)
-        propagated = self._propagated(accum_einsum("...kij,...bjf->...bikf", supports, x))
+        per_row = supports.dim() == 4 + (self.branches is not None)
+        spec = "...bkij,...bjf->...bikf" if per_row else "...kij,...bjf->...bikf"
+        propagated = self._propagated(accum_einsum(spec, supports, x))
         return self.project(propagated.flatten(-2))  # k-major (B, N, K*F_in)
 
 

@@ -22,8 +22,13 @@ B3 over :meth:`TiledSupports.as_stack` (B4 for the gradient), and the
 projected output permutes back out. :func:`gathered_tiles_apply` is the
 plain version of that apply on one branch, with its prepared backward.
 
-Left out: fleet rung padding (``pad_to``, ``with_block_cols``) and the
-sharded plans (``ShardedTiledBranch``, ``shard_tiled_plan``,
+A fleet shape class grows each member's plan to the class rung
+(:meth:`TiledSupports.pad_to`: isolated new nodes, all-zero block rows
+with no real slots) and widens the block columns to the class's common
+width (:meth:`TiledSupports.with_block_cols`: padding slots past every
+row's count), so the kernels read only the real slots of a grown plan.
+
+Left out: the sharded plans (``ShardedTiledBranch``, ``shard_tiled_plan``,
 ``sharded_gathered_tiles_apply``).
 """
 
@@ -202,6 +207,52 @@ class TiledSupports:
 
     def to(self, device) -> "TiledSupports":
         return _moved(self, device)
+
+    def pad_to(self, n_new: int) -> "TiledSupports":
+        """Grow to a rung of ``n_new`` nodes (fleet shape classes), as the
+        JAX plan's ``pad_to``: the new nodes are isolated (an identity tail
+        on the permutation), and block rows added once the rung crosses a
+        tile boundary hold zero blocks at index 0 with no real slots
+        (``nblk`` and ``nblk_t`` 0)."""
+        if n_new < self.n:
+            raise ValueError(f"cannot shrink a plan: n={self.n} -> {n_new}")
+        if n_new == self.n:
+            return self
+        grow = -(-n_new // self.tile) - self.block_rows
+        tail = torch.arange(self.n, n_new, dtype=self.perm.dtype, device=self.perm.device)
+
+        def rows(a):
+            pad = torch.zeros(a.shape[:2] + (grow,) + a.shape[3:], dtype=a.dtype,
+                              device=a.device)
+            return torch.cat([a, pad], dim=2)
+
+        return TiledSupports(
+            perm=torch.cat([self.perm, tail]), inv=torch.cat([self.inv, tail]),
+            data=rows(self.data), idx=rows(self.idx), nblk=rows(self.nblk),
+            data_t=rows(self.data_t), idx_t=rows(self.idx_t), nblk_t=rows(self.nblk_t),
+            n=n_new, tile=self.tile,
+        )
+
+    def with_block_cols(self, c: int, c_t: int) -> "TiledSupports":
+        """Widen the block-column axes to ``c`` (forward) and ``c_t``
+        (transposed), as the JAX plan's ``with_block_cols``: a fleet class
+        holds its members' plans at one width. The new slots are padding
+        (zero blocks at index 0); ``nblk``/``nblk_t`` keep their counts."""
+        if c < self.block_cols or c_t < self.data_t.shape[3]:
+            raise ValueError(
+                f"cannot narrow block columns: ({self.block_cols}, "
+                f"{self.data_t.shape[3]}) -> ({c}, {c_t})"
+            )
+
+        def cols(a, width):
+            pad = torch.zeros(a.shape[:3] + (width - a.shape[3],) + a.shape[4:],
+                              dtype=a.dtype, device=a.device)
+            return torch.cat([a, pad], dim=3)
+
+        return dataclasses.replace(
+            self, data=cols(self.data, c), idx=cols(self.idx, c),
+            data_t=cols(self.data_t, c_t), idx_t=cols(self.idx_t, c_t),
+        )
 
     def tile_stats(self) -> dict:
         """Occupancy accounting.

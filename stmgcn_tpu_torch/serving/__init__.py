@@ -7,6 +7,9 @@
 - :mod:`.engine` — :class:`ServingEngine`: bucket ladder, resident
   supports, hot-swappable params behind one ``(generation, model)``
   reference, and :class:`CheckpointWatcher`, its checkpoint hot-swap;
+- :mod:`.fleet` — :class:`FleetServingEngine`: a ``(city -> shape
+  class)`` router in front of per-class micro-batchers, so one engine
+  serves a whole heterogeneous fleet from one checkpoint;
 - :mod:`.microbatch` — the request queue coalescing concurrent callers;
 - :mod:`.metrics` — per-bucket latency, queue-wait vs device-time split,
   pad waste.
@@ -22,6 +25,7 @@ from stmgcn_tpu_torch.serving.admission import (
 )
 from stmgcn_tpu_torch.serving.bucketing import pad_to_bucket, smallest_covering_bucket
 from stmgcn_tpu_torch.serving.engine import CheckpointWatcher, ServingEngine
+from stmgcn_tpu_torch.serving.fleet import FleetServingEngine
 from stmgcn_tpu_torch.serving.metrics import EngineStats
 from stmgcn_tpu_torch.serving.microbatch import MicroBatcher
 from stmgcn_tpu_torch.serving.predict import serve_predict
@@ -33,6 +37,7 @@ __all__ = [
     "DeadlineExceeded",
     "DispatchError",
     "EngineStats",
+    "FleetServingEngine",
     "MicroBatcher",
     "Overloaded",
     "ServingEngine",

@@ -76,6 +76,28 @@ def _bucket_program(sup_dev, device: torch.device):
     return run
 
 
+def swapped_copy(model, state_dict):
+    """A fresh eval-mode copy of ``model`` loaded with ``state_dict``, which
+    must match its keys, shapes and dtypes exactly (``swap_params``)."""
+    live = model.state_dict()
+    if set(state_dict) != set(live):
+        raise ValueError(
+            "swap_params: new params have different keys than the served "
+            f"model (missing {sorted(set(live) - set(state_dict))}, "
+            f"unexpected {sorted(set(state_dict) - set(live))})"
+        )
+    for name, t in live.items():
+        new = state_dict[name]
+        if tuple(new.shape) != tuple(t.shape) or new.dtype != t.dtype:
+            raise ValueError(
+                f"swap_params: {name} is {tuple(t.shape)}/{t.dtype} in the "
+                f"served model, got {tuple(new.shape)}/{new.dtype}"
+            )
+    fresh = copy.deepcopy(model)
+    fresh.load_state_dict(state_dict)
+    return fresh.eval()
+
+
 class CheckpointWatcher:
     """Hot-swap poller: the newest verified checkpoint in ``out_dir`` →
     ``engine.swap_params`` (the JAX package's ``CheckpointWatcher``).
@@ -234,8 +256,12 @@ class ServingEngine:
         return cfg
 
     @classmethod
-    def from_forecaster(cls, fc, supports, *, config=None, device=None) -> "ServingEngine":
-        """Engine over a :class:`~stmgcn_tpu_torch.inference.Forecaster`.
+    def from_forecaster(cls, fc, supports, *, config=None, city=None,
+                        device=None) -> "ServingEngine":
+        """Engine over a :class:`~stmgcn_tpu_torch.inference.Forecaster`
+        (over one city of a heterogeneous checkpoint, whose normalizer and
+        region count it bakes in: ``city=``, checked as
+        ``Forecaster.city_view`` checks it).
 
         ``device=None`` means the GPU (and raises without one). The
         supports — a dense ``(M, K, N, N)`` stack, or for the large-N path
@@ -249,7 +275,11 @@ class ServingEngine:
             config if config is not None else getattr(fc.config, "serving", None)
         )
         model = fc.model
-        n_nodes = fc.derived["n_nodes"]
+        if fc.normalizers is not None and city is None:
+            raise ValueError("heterogeneous multi-city checkpoint: the engine bakes one "
+                             "city's region count and normalizer — pass city=")
+        normalizer, expected = fc.city_view(city)
+        n_nodes = expected[1]
         if isinstance(supports, TiledSupports):
             got = (supports.m_graphs, supports.n_supports, supports.n)
             want = (model.m_graphs, model.n_supports, n_nodes)
@@ -264,8 +294,8 @@ class ServingEngine:
         model.check_supports(sup_dev)
         program = _bucket_program(sup_dev, device)
         served = copy.deepcopy(model).to(device).eval()
-        return cls({b: program for b in cfg.buckets}, served, fc.normalizer,
-                   fc.expected, cfg, device)
+        return cls({b: program for b in cfg.buckets}, served, normalizer, expected, cfg,
+                   device)
 
     # -- hot swap --------------------------------------------------------
 
@@ -285,23 +315,7 @@ class ServingEngine:
         later dispatch sees the new one.
         """
         gen, cur = self._current
-        live = cur.state_dict()
-        if set(state_dict) != set(live):
-            raise ValueError(
-                "swap_params: new params have different keys than the served "
-                f"model (missing {sorted(set(live) - set(state_dict))}, "
-                f"unexpected {sorted(set(state_dict) - set(live))})"
-            )
-        for name, t in live.items():
-            new = state_dict[name]
-            if tuple(new.shape) != tuple(t.shape) or new.dtype != t.dtype:
-                raise ValueError(
-                    f"swap_params: {name} is {tuple(t.shape)}/{t.dtype} in the "
-                    f"served model, got {tuple(new.shape)}/{new.dtype}"
-                )
-        fresh = copy.deepcopy(cur)
-        fresh.load_state_dict(state_dict)
-        self._current = (gen + 1, fresh.eval())
+        self._current = (gen + 1, swapped_copy(cur, state_dict))
         REGISTRY.counter("serving.swaps").inc()
         REGISTRY.gauge("serving.generation").set(gen + 1)
         return gen + 1

@@ -1,0 +1,387 @@
+"""Fleet serving: one engine, many cities, per-shape-class programs.
+
+Counterpart of ``stmgcn_tpu/serving/fleet.py`` (``FleetServingEngine``).
+:class:`~stmgcn_tpu_torch.serving.engine.ServingEngine` pins one city: its
+region count, normalizer and supports are fixed at construction, so
+concurrent requests for different cities never coalesce. Here the cities
+of one heterogeneous checkpoint group into shape classes by the planner
+training uses (:func:`~stmgcn_tpu_torch.data.fleet.plan_shape_classes`).
+Each class keeps a ``(members, M, K, rung, rung)`` support stack and a
+``(members,)`` real-node count on the device and its own micro-batcher; a
+``(city -> class)`` routing layer lets requests for different cities of
+one class coalesce into one dispatch (counted in
+:attr:`FleetServingEngine.cross_city_dispatches`). Every row of a dispatch
+gathers its city's stack and count by slot, so the dense conv runs over
+per-row supports and the gate pools over each row's real nodes (an exact
+fit takes the plain mean). Normalization touches only a city's real-node
+slice, and padded node rows are stripped before return, so results agree
+with per-city ``Forecaster.predict``.
+
+Cities the planner leaves unassigned get a private exact-fit class. A city
+whose supports are a :class:`~stmgcn_tpu_torch.ops.tiling.TiledSupports`
+plan always serves in a private exact-fit class, through the tiled model
+(the plan owns its whole reordered node axis), never with per-row stacks.
+The models of every class sit behind one ``(generation, models)``
+reference, so one ``swap_params`` (or the checkpoint watcher) re-points
+the whole fleet, and every dispatch reads one generation.
+
+Not ported: the drift monitor (``enable_drift``, ``drift_snapshot``;
+ROADMAP A9) and fault plans and a global budget (A10), which raise by name.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Optional
+
+import numpy as np
+import torch
+
+from stmgcn_tpu_torch.obs.registry import REGISTRY
+from stmgcn_tpu_torch.ops.layers import resolve_device
+from stmgcn_tpu_torch.ops.tiling import TiledSupports
+from stmgcn_tpu_torch.serving.admission import AdmissionController, BatcherWedged, ShedError
+from stmgcn_tpu_torch.serving.bucketing import pad_to_bucket, smallest_covering_bucket
+from stmgcn_tpu_torch.serving.engine import CheckpointWatcher, ServingEngine, swapped_copy
+from stmgcn_tpu_torch.serving.metrics import EngineStats
+from stmgcn_tpu_torch.serving.microbatch import MicroBatcher
+
+__all__ = ["FleetServingEngine"]
+
+
+def _dense_program(stack_dev, n_real_dev, device):
+    """A dense class's program: ``(models, slots, history) -> predictions``;
+    each row takes its city's support stack and real-node count by slot."""
+
+    def run(models, slots: np.ndarray, history: np.ndarray) -> np.ndarray:
+        s = torch.as_tensor(slots, dtype=torch.long, device=device)
+        with torch.inference_mode():
+            out = models["dense"](stack_dev.index_select(0, s),
+                                  torch.as_tensor(history, device=device),
+                                  n_real_dev.index_select(0, s))
+        return out.float().cpu().numpy()
+
+    return run
+
+
+def _tiled_program(plan_dev, device):
+    """A tiled city's private exact-fit program (no slot gather)."""
+
+    def run(models, slots: np.ndarray, history: np.ndarray) -> np.ndarray:
+        with torch.inference_mode():
+            out = models["tiled"](plan_dev, torch.as_tensor(history, device=device))
+        return out.float().cpu().numpy()
+
+    return run
+
+
+class FleetServingEngine:
+    """City-routed, class-coalesced serving over one heterogeneous
+    checkpoint::
+
+        engine = FleetServingEngine.from_forecaster(fc, city_supports)
+        pred = engine.predict(history, city=1)        # micro-batched
+        pred = engine.predict_direct(history, city=0) # bypass the queue
+        engine.swap_params(new_state_dict)            # whole fleet, atomic
+        engine.class_stats[engine.class_of(1)].snapshot()
+        engine.cross_city_dispatches                  # coalescing proof
+        engine.close()
+    """
+
+    def __init__(self, plan, groups, programs, batch_buckets, normalizers, city_n, seq_len,
+                 input_dim, config, models, m_graphs: int):
+        #: the shape-class plan (the extra exact-fit classes of unassigned
+        #: and tiled cities appear in ``groups`` only)
+        self.plan = plan
+        self._groups = tuple(groups)  # (rung, (city, ...)) per class
+        self._programs = programs  # class -> run(models, slots, history)
+        self._buckets = tuple(sorted(batch_buckets))
+        self._normalizers = list(normalizers)
+        self._city_n = list(city_n)
+        self._seq_len = seq_len
+        self._input_dim = input_dim
+        self.config = config
+        self.m_graphs = m_graphs
+        self._city_cls: dict = {}
+        self._city_slot: dict = {}
+        for ci, (_, cities) in enumerate(self._groups):
+            for slot, c in enumerate(cities):
+                self._city_cls[c] = ci
+                self._city_slot[c] = slot
+        #: dispatches whose coalesced rows spanned more than one city
+        self.cross_city_dispatches = 0
+        # ONE reference holds (generation, models) for the whole fleet
+        self._current = (0, models)
+        self._watcher: Optional[CheckpointWatcher] = None
+        #: per-class telemetry (bucket keys are batch rungs)
+        self.class_stats = {ci: EngineStats() for ci in range(len(self._groups))}
+        slo = config.deadline_ms is not None or config.queue_bound_rows
+        self.class_admission = {
+            ci: AdmissionController(config, self.class_stats[ci], self._buckets) if slo else None
+            for ci in range(len(self._groups))
+        }
+        self._batchers = {
+            ci: MicroBatcher(
+                lambda payload, bucket, segments, k=ci: self._run_program(
+                    k, payload, bucket, segments),
+                self._buckets, config.max_delay_ms, self.class_stats[ci],
+                admission=self.class_admission[ci],
+            )
+            for ci in range(len(self._groups))
+        }
+        self._closed = False
+
+    # -- construction ---------------------------------------------------
+
+    @classmethod
+    def from_forecaster(cls, fc, city_supports, *, config=None, max_classes: int = 8,
+                        max_pad_waste: float = 0.5, fault_plan=None, global_budget=None,
+                        device=None) -> "FleetServingEngine":
+        """Engine over a heterogeneous multi-city
+        :class:`~stmgcn_tpu_torch.inference.Forecaster`.
+
+        ``city_supports``: one dense ``(M, K, n_c, n_c)`` stack or one
+        ``TiledSupports`` plan per city (a ``CitySupports`` or a plain
+        sequence). The checkpoint's weights serve in a dense model (and a
+        tiled one when a city brings a plan), on ``device`` (``None``
+        means the GPU); each dense class's rung-padded support stack and
+        real-node counts are placed there once.
+        """
+        from stmgcn_tpu_torch.data.fleet import plan_shape_classes
+        from stmgcn_tpu_torch.experiment import build_model
+
+        for name, value in (("fault_plan", fault_plan), ("global_budget", global_budget)):
+            if value is not None:
+                raise NotImplementedError(
+                    f"FleetServingEngine {name}= is not ported yet (ROADMAP.md A10)")
+        device = resolve_device(device)
+        cfg = ServingEngine._resolve_config(
+            config if config is not None else getattr(fc.config, "serving", None))
+        if getattr(fc, "normalizers", None) is None:
+            raise ValueError(
+                "FleetServingEngine needs a heterogeneous multi-city checkpoint "
+                "(per-city normalizers) — homogeneous checkpoints use ServingEngine")
+        n_nodes = [int(n) for n in fc.derived["n_nodes"]]
+        sups = list(getattr(city_supports, "per_city", city_supports))
+        if len(sups) != len(n_nodes):
+            raise ValueError(f"got {len(sups)} support stacks for {len(n_nodes)} cities")
+        m, k = fc.model.m_graphs, fc.model.n_supports
+        tiled_cities = frozenset(c for c, s in enumerate(sups) if isinstance(s, TiledSupports))
+        for c, (s, n) in enumerate(zip(sups, n_nodes)):
+            if c in tiled_cities:
+                got, want = (s.m_graphs, s.n_supports, s.n), (m, k, n)
+                if got != want:
+                    raise ValueError(f"city {c} tiled supports must plan (M, K, N)={want}, "
+                                     f"got {got}")
+                continue
+            sups[c] = np.asarray(s, dtype=np.float32)
+            if sups[c].shape != (m, k, n, n):
+                raise ValueError(f"city {c} supports must be {(m, k, n, n)}, got "
+                                 f"{sups[c].shape}")
+        plan = plan_shape_classes(n_nodes, max_classes=max_classes, max_pad_waste=max_pad_waste)
+        groups = []
+        for sc in plan.classes:
+            dense_members = tuple(c for c in sc.cities if c not in tiled_cities)
+            if dense_members:
+                groups.append((sc.n_nodes, dense_members))
+        groups += [(n_nodes[c], (c,)) for c in plan.unassigned if c not in tiled_cities]
+        groups += [(n_nodes[c], (c,)) for c in sorted(tiled_cities)]
+
+        # the weights are the same in every support mode: one model per form
+        state = fc.model.state_dict()
+        models = {}
+        for kind in {"tiled" if c in tiled_cities else "dense" for c in range(len(sups))}:
+            mcfg = dataclasses.replace(fc.config.model, tiled=kind == "tiled", sparse=False)
+            model = build_model(dataclasses.replace(fc.config, model=mcfg),
+                                fc.derived["input_dim"], device=device)
+            model.load_state_dict(state)
+            models[kind] = model.eval()
+        programs = {}
+        for ci, (rung, cities) in enumerate(groups):
+            if cities[0] in tiled_cities:
+                programs[ci] = _tiled_program(sups[cities[0]].to(device), device)
+                continue
+            stack = np.zeros((len(cities), m, k, rung, rung), np.float32)
+            for slot, c in enumerate(cities):
+                stack[slot, :, :, :n_nodes[c], :n_nodes[c]] = sups[c]
+            n_real = torch.tensor([n_nodes[c] for c in cities], dtype=torch.int32,
+                                  device=device)
+            programs[ci] = _dense_program(torch.as_tensor(stack, device=device), n_real, device)
+        return cls(plan, groups, programs, cfg.buckets, fc.normalizers, n_nodes, fc.seq_len,
+                   fc.derived["input_dim"], cfg, models, m)
+
+    # -- unported ---------------------------------------------------------
+
+    def enable_drift(self, *args, **kwargs):
+        raise NotImplementedError(
+            "FleetServingEngine.enable_drift (the drift monitor) is not ported yet "
+            "(ROADMAP.md A9)")
+
+    def drift_snapshot(self):
+        raise NotImplementedError(
+            "FleetServingEngine.drift_snapshot (the drift monitor) is not ported yet "
+            "(ROADMAP.md A9)")
+
+    # -- hot swap --------------------------------------------------------
+
+    @property
+    def generation(self) -> int:
+        """Monotonic param-generation counter (0 = construction params)."""
+        return self._current[0]
+
+    def swap_params(self, state_dict) -> int:
+        """Atomically re-point every shape class at new parameters (a
+        ``state_dict`` matching the served models'); returns the new
+        generation. In-flight dispatches finish on the generation they
+        read at entry."""
+        gen, models = self._current
+        fresh = {kind: swapped_copy(model, state_dict) for kind, model in models.items()}
+        self._current = (gen + 1, fresh)
+        REGISTRY.counter("serving.swaps").inc()
+        REGISTRY.gauge("serving.generation").set(gen + 1)
+        return gen + 1
+
+    def watch_checkpoints(self, out_dir: str, *, poll_s: Optional[float] = None,
+                          log=None) -> CheckpointWatcher:
+        """Hot-swap new verified checkpoints from ``out_dir`` fleet-wide
+        (:meth:`ServingEngine.watch_checkpoints`' semantics)."""
+        if self._watcher is not None:
+            self._watcher.stop()
+        self._watcher = CheckpointWatcher(self, out_dir, poll_s, log)
+        return self._watcher
+
+    # -- serving --------------------------------------------------------
+
+    @property
+    def buckets(self) -> tuple:
+        return self._buckets
+
+    @property
+    def n_cities(self) -> int:
+        return len(self._city_n)
+
+    def class_of(self, city: int) -> int:
+        """The shape class a city routes to."""
+        self._check_city(city)
+        return self._city_cls[city]
+
+    def _check_city(self, city) -> None:
+        if city not in self._city_cls:
+            raise ValueError(f"city must be in [0, {len(self._city_n)}), got {city}")
+
+    def _run_program(self, cls_id: int, payload: np.ndarray, bucket: int, segments):
+        """One coalesced dispatch of a class; returns ``(predictions,
+        generation)``. ``segments`` is ``((offset, n_rows, (city,
+        pre_normalized)), ...)``: each segment is normalized over its
+        city's real-node slice only (padded node rows stay zero), and
+        denormalized likewise; ``predict`` strips the padded rows."""
+        gen, models = self._current  # ONE read — whole dispatch, one gen
+        if all(pre for _, _, (_, pre) in segments):
+            batch = payload
+        else:
+            batch = payload.copy()
+            for ofs, n, (c, pre) in segments:
+                norm = self._normalizers[c]
+                if not pre and norm is not None:
+                    nc = self._city_n[c]
+                    batch[ofs:ofs + n, :, :nc, :] = norm.transform(payload[ofs:ofs + n, :, :nc, :])
+        slots = np.zeros(bucket, np.int32)
+        for ofs, n, (c, _) in segments:
+            slots[ofs:ofs + n] = self._city_slot[c]
+        out = self._programs[cls_id](models, slots, pad_to_bucket(batch, bucket))
+        for ofs, n, (c, _) in segments:
+            norm = self._normalizers[c]
+            if norm is not None:
+                nc = self._city_n[c]
+                out[ofs:ofs + n, ..., :nc, :] = norm.inverse(out[ofs:ofs + n, ..., :nc, :])
+        if len({c for _, _, (c, _) in segments}) > 1:
+            self.cross_city_dispatches += 1
+        return out, gen
+
+    def _validate(self, history, city: int) -> np.ndarray:
+        self._check_city(city)
+        history = np.asarray(history, dtype=np.float32)
+        expected = (self._seq_len, self._city_n[city], self._input_dim)
+        if history.ndim != 4 or history.shape[1:] != expected:
+            raise ValueError(
+                f"history must be (B, seq_len={expected[0]}, n_nodes={expected[1]}, "
+                f"n_feats={expected[2]}) for city {city}, got {history.shape}")
+        pad = self._groups[self._city_cls[city]][0] - self._city_n[city]
+        return np.pad(history, [(0, 0), (0, 0), (0, pad), (0, 0)]) if pad else history
+
+    def _strip(self, out: np.ndarray, city: int) -> np.ndarray:
+        nc = self._city_n[city]
+        return out[..., :nc, :] if out.shape[-2] != nc else out
+
+    def _call_batched(self, h: np.ndarray, city: int, normalized: bool):
+        batcher = self._batchers[self._city_cls[city]]
+        cap = self._buckets[-1]
+        if h.shape[0] <= cap:
+            return batcher.submit(h, tag=(city, normalized), with_info=True)
+        # oversized: ladder-top chunks, re-dispatched until one generation
+        return ServingEngine._same_generation(
+            h, cap, lambda chunk: batcher.submit(chunk, tag=(city, normalized), with_info=True))
+
+    def _dispatch_inline(self, chunk: np.ndarray, city: int, normalized: bool):
+        cls_id = self._city_cls[city]
+        bucket = smallest_covering_bucket(chunk.shape[0], self._buckets)
+        t0 = time.perf_counter()
+        out, gen = self._run_program(cls_id, chunk, bucket,
+                                     ((0, chunk.shape[0], (city, normalized)),))
+        device_ms = (time.perf_counter() - t0) * 1e3
+        self.class_stats[cls_id].record_dispatch(bucket, chunk.shape[0], [0.0], device_ms)
+        return out[:chunk.shape[0]], gen
+
+    def _call_direct(self, h: np.ndarray, city: int, normalized: bool,
+                     cap: Optional[int] = None):
+        return ServingEngine._same_generation(
+            h, cap if cap is not None else self._buckets[-1],
+            lambda chunk: self._dispatch_inline(chunk, city, normalized))
+
+    def predict(self, history, *, city: int, normalized: bool = False,
+                with_generation: bool = False) -> np.ndarray:
+        """Micro-batched raw-units forecast for one city: concurrent
+        callers, for other cities of the same class too, coalesce into one
+        dispatch. Sheds, the degrade policy and the wedged-batcher fallback
+        behave as :meth:`ServingEngine.predict`'s; ``with_generation=True``
+        returns ``(pred, generation)``."""
+        if self._closed:
+            raise RuntimeError("FleetServingEngine is closed")
+        h = self._validate(history, city)
+        try:
+            out, gen = self._call_batched(h, city, normalized)
+        except BatcherWedged:
+            out, gen = self._call_direct(h, city, normalized)
+        except ShedError:
+            if self.config.shed_policy != "degrade":
+                raise
+            self.class_stats[self._city_cls[city]].record_shed("degraded")
+            out, gen = self._call_direct(h, city, normalized,
+                                         cap=self.config.degrade_rung or self._buckets[0])
+        out = self._strip(out, city)
+        return (out, gen) if with_generation else out
+
+    def predict_direct(self, history, *, city: int, normalized: bool = False,
+                       with_generation: bool = False) -> np.ndarray:
+        """Bypass the queue: pad to the covering rung and dispatch inline
+        (same results; no coalescing)."""
+        if self._closed:
+            raise RuntimeError("FleetServingEngine is closed")
+        out, gen = self._call_direct(self._validate(history, city), city, normalized)
+        out = self._strip(out, city)
+        return (out, gen) if with_generation else out
+
+    def close(self) -> None:
+        if not self._closed:
+            self._closed = True
+            if self._watcher is not None:
+                self._watcher.stop()
+            for b in self._batchers.values():
+                b.close()
+
+    def __enter__(self) -> "FleetServingEngine":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()

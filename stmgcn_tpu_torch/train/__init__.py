@@ -18,9 +18,10 @@ from stmgcn_tpu_torch.train.step import (
     masked_loss,
     train_step,
 )
-from stmgcn_tpu_torch.train.trainer import Trainer
+from stmgcn_tpu_torch.train.trainer import CitySupports, Trainer
 
 __all__ = [
+    "CitySupports",
     "CorruptCheckpointError",
     "LOSSES",
     "MAE",

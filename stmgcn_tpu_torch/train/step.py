@@ -239,16 +239,22 @@ def gather_window_batch(series, targets, offsets, idx, horizon: int = 1):
 
 
 def train_step(model, optimizer: Optimizer, supports, x, y, mask,
-               loss: str = "mse", sr_generator: Optional[torch.Generator] = None) -> torch.Tensor:
+               loss: str = "mse", sr_generator: Optional[torch.Generator] = None,
+               n_real: Optional[torch.Tensor] = None) -> torch.Tensor:
     """One optimizer step; returns the (device, detached) loss, unsynced.
     With ``sr_generator`` the model runs on a stochastically rounded bf16
-    shadow of its parameters (``compute_cast``), drawn from it."""
+    shadow of its parameters (``compute_cast``), drawn from it.
+
+    A fleet city's step (``make_fleet_superstep_fns``' body,
+    ``stmgcn_tpu/train/step.py:809-930``) passes its rung-padded
+    ``supports``, a batch gathered from its class's series, a ``(B, N_c)``
+    ``mask`` and ``n_real``, the int real-node count the gate pools over."""
     optimizer.zero_grad()
     if sr_generator is None:
-        pred = model(supports, x)
+        pred = model(supports, x, n_real)
     else:
         shadow = compute_cast(dict(model.named_parameters()), torch.bfloat16, sr_generator)
-        pred = torch.func.functional_call(model, shadow, (supports, x))
+        pred = torch.func.functional_call(model, shadow, (supports, x, n_real))
     value = masked_loss(loss, pred, y, mask)
     value.backward()
     optimizer.step()
@@ -256,7 +262,9 @@ def train_step(model, optimizer: Optimizer, supports, x, y, mask,
 
 
 @torch.no_grad()
-def eval_step(model, supports, x, y, mask, loss: str = "mse"):
-    """``(loss, prediction)`` without gradients."""
-    pred = model(supports, x)
+def eval_step(model, supports, x, y, mask, loss: str = "mse",
+              n_real: Optional[torch.Tensor] = None):
+    """``(loss, prediction)`` without gradients (``n_real`` as
+    :func:`train_step`'s)."""
+    pred = model(supports, x, n_real)
     return masked_loss(loss, pred, y, mask), pred

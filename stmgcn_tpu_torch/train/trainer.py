@@ -38,15 +38,35 @@ Checkpoints hold the float32 masters at either precision, with the
 precision (and ``sr_seed``) in the meta as provenance; a restore accepts
 either.
 
-Not ported: streaming placement, materialized windows, fleet classes,
-heterogeneous cities, node padding and meshes, the divergence guard and
-fault plan, SIGTERM emergency checkpoints, health telemetry and
-sanitizers.
+Heterogeneous cities (``HeteroCityDataset``) and per-city graphs
+(``CitySupports``) train per city: each city's batches gather from its own
+resident series against its own supports. **Fleet shape classes**
+(``fleet``, ``stmgcn_tpu/train/trainer.py:554-640``) group heterogeneous
+cities by padded node count (``data/fleet.py``): each member's supports
+are zero-padded to the class rung (a dense stack, or a tiled plan grown by
+``pad_to`` and widened by ``with_block_cols`` to the class's block-column
+width), the members' series are node-padded and concatenated along time
+into one resident class series, and every step of a member takes its
+rung-padded supports, gathers its batch by class-absolute targets,
+feeds its real-node count to the gate and masks the loss with a ``(B,
+N_c)`` mask (``train/step.py`` ``train_step(n_real=)``). With
+``steps_per_superstep=S`` a member's consecutive batches run in blocks of
+S (``train_path == "fleet_superstep"``); cities the planner leaves
+unassigned, and every run's tail short of S, step one at a time at the
+city's own shape, and ``fallback_reason`` says so. ``test()`` reports per
+city, denormalized with each city's normalizer, and checkpoints carry one
+normalizer per city (``normalizers``).
+
+Not ported: streaming placement, materialized windows, node padding for
+meshes and meshes, the divergence guard and fault plan, SIGTERM emergency
+checkpoints, health telemetry and sanitizers.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import errno
+import itertools
 import os
 import queue
 import threading
@@ -61,6 +81,7 @@ from stmgcn_tpu_torch.data.splits import MODES
 from stmgcn_tpu_torch.models.params import from_jax_params, jax_layout, to_jax_params
 from stmgcn_tpu_torch.ops.layers import resolve_device, set_compute_dtype
 from stmgcn_tpu_torch.ops.spmm import place_supports
+from stmgcn_tpu_torch.ops.tiling import TiledSupports
 from stmgcn_tpu_torch.train.checkpoint import (
     load_checkpoint,
     load_latest_verified,
@@ -76,7 +97,58 @@ from stmgcn_tpu_torch.train.step import (
     train_step,
 )
 
-__all__ = ["Trainer"]
+__all__ = ["CitySupports", "Trainer"]
+
+
+class CitySupports:
+    """Per-city supports for multi-city training with differing graphs
+    (``stmgcn_tpu/train/trainer.py:98-120``): one support form (a dense
+    stack, a tiled plan or M block-sparse groups) per city. Batches never
+    mix cities; the trainer applies ``for_city(batch.city)``."""
+
+    def __init__(self, per_city):
+        self.per_city = tuple(per_city)
+        if not self.per_city:
+            raise ValueError("need at least one city's supports")
+
+    def __len__(self) -> int:
+        return len(self.per_city)
+
+    def for_city(self, city: int):
+        return self.per_city[city]
+
+    def map(self, fn) -> "CitySupports":
+        return CitySupports(fn(s) for s in self.per_city)
+
+    def to(self, device) -> "CitySupports":
+        """Every city's supports on ``device`` (``place_supports``)."""
+        return self.map(lambda s: place_supports(s, device))
+
+
+@dataclasses.dataclass(frozen=True)
+class _FleetCity:
+    """One fleet city's place in its shape class (the JAX trainer's record
+    less the slot and rung, which nothing here reads: a city's steps take
+    its own padded supports, and the rung is ``n_real + pad``)."""
+
+    cls: int  # shape-class index in the plan
+    n_real: int  # real node rows (the gate's pooling divisor)
+    pad: int  # rung - n_real
+    t_offset: int  # the city's time offset in the class's concatenated series
+
+
+@dataclasses.dataclass
+class _CityData:
+    """What one city's steps read on the device: its resident series (the
+    class series for a fleet city), the per-mode target vectors into it,
+    its supports (rung-padded for a fleet city), the gate's real-node count
+    (fleet cities only) and the padded node rows the loss masks out."""
+
+    series: torch.Tensor
+    targets: dict
+    supports: object
+    n_real: Optional[torch.Tensor]
+    pad: int
 
 
 class Trainer:
@@ -85,7 +157,10 @@ class Trainer:
 
     ``supports`` is the model's support form — the dense ``(M, K, N, N)``
     stack, a ``TiledSupports`` plan or the M per-branch block-sparse
-    groups — placed on the device once, here; ``initial_state`` a
+    groups, or a :class:`CitySupports` of one per city — placed on the
+    device once, here; ``dataset`` a ``DemandDataset`` or a
+    ``HeteroCityDataset``; ``fleet``, ``fleet_max_classes`` and
+    ``fleet_max_pad_waste`` as the JAX trainer's; ``initial_state`` a
     ``state_dict`` to start from (e.g. the JAX trainer's converted initial
     parameters, ``from_jax_params``). ``out_dir`` receives the checkpoints
     (created on the first write); ``extra_meta`` is merged into every
@@ -100,6 +175,8 @@ class Trainer:
                  grad_clip_norm: Optional[float] = None, loss: str = "mse",
                  n_epochs: int = 100, batch_size: int = 32, patience: int = 10,
                  shuffle: bool = False, seed: int = 0, steps_per_superstep: int = 1,
+                 fleet: Optional[bool] = None, fleet_max_classes: int = 8,
+                 fleet_max_pad_waste: float = 0.5,
                  out_dir: str = "output", top_k: int = 1, async_checkpoint: bool = True,
                  checkpoint_every_steps: int = 0, precision: str = "fp32",
                  sr_seed: Optional[int] = None, extra_meta: Optional[dict] = None,
@@ -115,8 +192,11 @@ class Trainer:
         if checkpoint_every_steps < 0:
             raise ValueError(
                 f"checkpoint_every_steps must be >= 0, got {checkpoint_every_steps}")
-        if getattr(dataset, "heterogeneous", False) or not dataset.shared_graphs:
-            raise ValueError("per-city graphs and heterogeneous cities are not ported yet")
+        if fleet_max_classes < 1:
+            raise ValueError(f"fleet_max_classes must be >= 1, got {fleet_max_classes}")
+        if not 0.0 <= fleet_max_pad_waste < 1.0:
+            raise ValueError(
+                f"fleet_max_pad_waste must be in [0, 1), got {fleet_max_pad_waste}")
         for mode in ("train", "validate"):
             if dataset.mode_size(mode) == 0:
                 raise ValueError(
@@ -151,15 +231,32 @@ class Trainer:
         self._param_names = [name for name, _ in self.model.named_parameters()]
 
         dev = self.device
-        self.supports = place_supports(supports, dev)
-        self.model.check_supports(self.supports)
-        # the resident data, uploaded once: one series serves every mode
-        self.series = torch.as_tensor(np.asarray(dataset.series_stack(), np.float32), device=dev)
+        self.hetero = getattr(dataset, "heterogeneous", False)
+        self.supports = (supports.to(dev) if isinstance(supports, CitySupports)
+                         else place_supports(supports, dev))
+        self.fleet = fleet
+        self.fleet_max_classes = fleet_max_classes
+        self.fleet_max_pad_waste = fleet_max_pad_waste
+        #: the shape classes (None when the fleet is not engaged) and each
+        #: member city's place in them
+        self.fleet_plan = None
+        self._fleet_cities: dict = {}
+        blocker = self._fleet_blocker()
+        if fleet is True and blocker is not None:
+            raise ValueError(f"fleet=True cannot engage: {blocker}")
+        if blocker is None and (fleet is True or (fleet is None and steps_per_superstep > 1)):
+            self._engage_fleet()
         self.offsets = torch.as_tensor(np.asarray(dataset.window.offsets, np.int32), device=dev)
-        self.targets = {
-            mode: torch.as_tensor(dataset.mode_targets(mode), device=dev) for mode in MODES
-        }
         self.horizon = dataset.window.horizon
+        #: the resident data, uploaded once per city (one series serves every
+        #: mode; a fleet class's members share one)
+        self._cities = self._resident_cities()
+        for data in self._cities.values():
+            self.model.check_supports(data.supports)
+        self.train_path, self.fallback_reason = self._train_path(blocker)
+        if self.fallback_reason is not None:
+            self._log(f"[slow-path] {self.fallback_reason} (steps_per_superstep="
+                      f"{steps_per_superstep}, train_path={self.train_path})")
 
         # schedule extents are optimizer steps (pad_last: one per batch)
         spe = self.train_steps_per_epoch
@@ -184,9 +281,121 @@ class Trainer:
         self._write_queue: Optional[queue.Queue] = None
         self._writer_error: Optional[BaseException] = None
 
+    # -- cities and fleet classes -------------------------------------------
+    def _fleet_blocker(self) -> Optional[str]:
+        """Why the fleet cannot engage (the JAX trainer's texts), or None."""
+        if not self.hetero:
+            return "the dataset is homogeneous (one shared graph fuses already)"
+        per_city = self.supports.per_city if isinstance(self.supports, CitySupports) else ()
+        tiled = bool(per_city) and all(isinstance(s, TiledSupports) for s in per_city)
+        dense = bool(per_city) and all(
+            isinstance(s, torch.Tensor) and s.dim() == 4 for s in per_city)
+        if not (tiled or dense):
+            return ("per-city supports are neither dense (M, K, N, N) stacks "
+                    "nor uniformly tiled (TiledSupports) plans")
+        return None
+
+    def _engage_fleet(self) -> None:
+        """Plan the shape classes and pad each member's supports to its rung:
+        dense stacks with zero rows and columns; tiled plans grown by
+        ``pad_to``, then widened to the class's common block-column counts
+        by ``with_block_cols`` (``stmgcn_tpu/train/trainer.py:595-644``)."""
+        # imported here: the planner reaches the serving package, which
+        # imports this module
+        from stmgcn_tpu_torch.data.fleet import plan_shape_classes
+
+        ds = self.dataset
+        self.fleet_plan = plan_shape_classes(
+            ds.city_n_nodes, max_classes=self.fleet_max_classes,
+            max_pad_waste=self.fleet_max_pad_waste)
+        sups = list(self.supports.per_city)
+        for ci, cls in enumerate(self.fleet_plan.classes):
+            t_off = 0
+            for c in cls.cities:
+                n = ds.city_n_nodes[c]
+                if isinstance(sups[c], TiledSupports):
+                    sups[c] = sups[c].pad_to(cls.n_nodes)
+                else:
+                    grow = cls.n_nodes - sups[c].shape[-1]
+                    sups[c] = torch.nn.functional.pad(sups[c], (0, grow, 0, grow))
+                self._fleet_cities[c] = _FleetCity(cls=ci, n_real=n, pad=cls.n_nodes - n,
+                                                   t_offset=t_off)
+                t_off += ds.series(c).shape[0]
+            if isinstance(sups[cls.cities[0]], TiledSupports):
+                c_common = max(sups[c].block_cols for c in cls.cities)
+                c_t_common = max(sups[c].data_t.shape[3] for c in cls.cities)
+                for c in cls.cities:
+                    sups[c] = sups[c].with_block_cols(c_common, c_t_common)
+        self.supports = CitySupports(sups)
+
+    def _upload(self, array: np.ndarray) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(array, np.float32), device=self.device)
+
+    def _resident_cities(self) -> dict:
+        """Each city's :class:`_CityData`; one entry (city 0) when every
+        city shares one graph stack, whose batches index the cities'
+        concatenated series."""
+        ds, dev = self.dataset, self.device
+
+        def targets(c, offset=0):
+            return {m: torch.as_tensor(np.asarray(ds.mode_targets(m, c), np.int64) + offset,
+                                       dtype=torch.int32, device=dev) for m in MODES}
+
+        if ds.shared_graphs:
+            return {0: _CityData(self._upload(ds.series_stack()), targets(None),
+                                 self.supports, None, 0)}
+        class_series = {}
+        for ci, cls in enumerate(self.fleet_plan.classes if self.fleet_plan else ()):
+            class_series[ci] = self._upload(np.concatenate([
+                np.pad(ds.series(c), [(0, 0), (0, cls.n_nodes - ds.city_n_nodes[c]), (0, 0)])
+                for c in cls.cities]))
+        cities = {}
+        for c in range(ds.n_cities):
+            info = self._fleet_cities.get(c)
+            sup = self.supports.for_city(c)
+            if info is None:
+                cities[c] = _CityData(self._upload(ds.series(c)), targets(c), sup, None, 0)
+            else:
+                cities[c] = _CityData(class_series[info.cls], targets(c, info.t_offset), sup,
+                                      torch.tensor(info.n_real, dtype=torch.int32, device=dev),
+                                      info.pad)
+        return cities
+
+    def _train_path(self, blocker) -> tuple:
+        """``(train_path, fallback_reason)`` as the JAX trainer names them:
+        the path training epochs take ("series_superstep", "fleet_superstep"
+        or "per_step") and, when S > 1 asked for blocks, why (part of) the
+        run steps one batch at a time."""
+        if self.steps_per_superstep == 1:
+            return "per_step", None
+        if self.dataset.shared_graphs:
+            return "series_superstep", None
+        if self._fleet_cities:
+            unassigned = self.fleet_plan.unassigned
+            return "fleet_superstep", None if not unassigned else (
+                f"no-class-fit: cities {sorted(unassigned)} fit no shape class "
+                f"(fleet_max_classes={self.fleet_max_classes}, fleet_max_pad_waste="
+                f"{self.fleet_max_pad_waste}) and run the per-step loop")
+        if self.hetero and self.fleet is False:
+            return "per_step", ("hetero: heterogeneous cities with fleet=False take "
+                                "the per-city loop")
+        if self.hetero and blocker is not None:
+            return "per_step", f"hetero: {blocker}"
+        if self.hetero:
+            return "per_step", "hetero: no city fits any shape class"
+        return "per_step", ("per-city support stacks (CitySupports) on a homogeneous "
+                            "dataset gather per step")
+
     @property
     def train_steps_per_epoch(self) -> int:
-        return -(-self.dataset.mode_size("train") // self.batch_size)
+        """Optimizer steps per training epoch: one per batch, and batches
+        never span two cities with their own graphs."""
+        ds, b = self.dataset, self.batch_size
+        if self.hetero:
+            return sum(-(-c.mode_size("train") // b) for c in ds.cities)
+        if ds.shared_graphs:
+            return -(-ds.mode_size("train") // b)
+        return ds.num_batches("train", b)
 
     @property
     def best_path(self) -> str:
@@ -227,7 +436,10 @@ class Trainer:
         if self._batch_in_epoch:
             meta["partial"] = {"losses": [float(v) for v in self._epoch_losses],
                                "counts": [int(c) for c in self._epoch_counts]}
-        if self.dataset.normalizer is not None:
+        if self.hetero:
+            meta["normalizers"] = [n.to_dict() if n is not None else None
+                                   for n in self.dataset.normalizers]
+        elif self.dataset.normalizer is not None:
             meta["normalizer"] = self.dataset.normalizer.to_dict()
         meta.update(self.extra_meta)
         return meta
@@ -389,11 +601,17 @@ class Trainer:
 
     def place(self, batch, mode: str):
         """``(x, y, mask)`` on the device: the window gather from the
-        resident series, and the ``(B,)`` mask of real samples."""
+        batch's city's resident series, and the mask of real samples,
+        ``(B,)``, or ``(B, N_c)`` crossed with the real nodes for a fleet
+        city (at every pad, as the JAX trainer's one mask shape per class)."""
+        data = self._cities[batch.city]
         idx = torch.as_tensor(np.asarray(batch.indices, np.int64), device=self.device)
-        x, y = gather_window_batch(self.series, self.targets[mode], self.offsets, idx,
+        x, y = gather_window_batch(data.series, data.targets[mode], self.offsets, idx,
                                    self.horizon)
         mask = (np.arange(len(batch)) < batch.n_real).astype(np.float32)
+        if batch.city in self._fleet_cities:
+            n = data.series.shape[1]
+            mask = mask[:, None] * (np.arange(n) < n - data.pad).astype(np.float32)[None, :]
         return x, y, torch.as_tensor(mask, device=self.device)
 
     def sr_generator(self, step: int) -> Optional[torch.Generator]:
@@ -408,14 +626,36 @@ class Trainer:
     def train_batch(self, batch, mode: str = "train") -> torch.Tensor:
         """One optimizer step on ``batch``; returns its loss on the device."""
         x, y, mask = self.place(batch, mode)
-        loss = train_step(self.model, self.optimizer, self.supports, x, y, mask, self.loss,
-                          sr_generator=self.sr_generator(self.global_step))
+        data = self._cities[batch.city]
+        loss = train_step(self.model, self.optimizer, data.supports, x, y, mask, self.loss,
+                          sr_generator=self.sr_generator(self.global_step),
+                          n_real=data.n_real)
         self.global_step += 1
         return loss
 
+    def _blocks(self, batches: list, skip: int) -> list:
+        """The epoch's remaining batches as dispatch blocks, each with one
+        loss readback: blocks of S over the shared series; on the fleet
+        path (entered at a block boundary, ``skip % S == 0``, as the JAX
+        trainer's), blocks of S within each run of one fleet city's
+        batches, its tail and unassigned cities one batch at a time;
+        otherwise one batch at a time."""
+        S, rest = self.steps_per_superstep, batches[skip:]
+        if self.train_path == "series_superstep":
+            return [rest[i:i + S] for i in range(0, len(rest), S)]
+        if self.train_path != "fleet_superstep" or skip % S:
+            return [[b] for b in rest]
+        blocks = []
+        for city, run in itertools.groupby(rest, key=lambda b: b.city):
+            run = list(run)
+            full = len(run) // S * S if city in self._fleet_cities else 0
+            blocks += [run[k:k + S] for k in range(0, full, S)] + [[b] for b in run[full:]]
+        return blocks
+
     def _run_train_epoch(self) -> float:
-        """The epoch's remaining batches in blocks of S; after a mid-epoch
-        restore the first ``skip`` batches were consumed before the save."""
+        """The epoch's remaining batches in blocks (:meth:`_blocks`); after a
+        mid-epoch restore the first ``skip`` batches were consumed before
+        the save."""
         batches = list(self.batches("train", shuffle=self.shuffle))
         skip, self._resume_skip = self._resume_skip, 0
         if skip > len(batches):
@@ -424,9 +664,8 @@ class Trainer:
         if skip == 0:
             self._epoch_losses, self._epoch_counts = [], []
         self._batch_in_epoch = skip
-        S, K = self.steps_per_superstep, self.checkpoint_every_steps
-        for start in range(skip, len(batches), S):
-            block = batches[start:start + S]
+        K = self.checkpoint_every_steps
+        for block in self._blocks(batches, skip):
             block_losses = [self.train_batch(b) for b in block]
             # one readback per block
             self._epoch_losses += torch.stack(block_losses).tolist()
@@ -441,7 +680,9 @@ class Trainer:
         losses, counts = [], []
         for batch in self.batches(mode):
             x, y, mask = self.place(batch, mode)
-            losses.append(eval_step(self.model, self.supports, x, y, mask, self.loss)[0])
+            data = self._cities[batch.city]
+            losses.append(eval_step(self.model, data.supports, x, y, mask, self.loss,
+                                    n_real=data.n_real)[0])
             counts.append(batch.n_real)
         return self._weighted(torch.stack(losses).tolist(), counts)
 
@@ -511,26 +752,34 @@ class Trainer:
                 break
 
     @torch.no_grad()
-    def _predict_mode(self, mode: str, state: Optional[dict] = None):
-        """Normalized ``(pred, true)`` over a mode's real samples, with
-        ``state`` (a ``state_dict``) or the live parameters."""
-        preds, trues = [], []
+    def _predict_mode(self, mode: str, state: Optional[dict] = None) -> dict:
+        """Normalized ``(pred, true)`` over a mode's real samples and each
+        city's real nodes, per city, with ``state`` (a ``state_dict``) or
+        the live parameters."""
+        preds, trues = {}, {}
         for batch in self.batches(mode):
             x, y, _ = self.place(batch, mode)
+            data = self._cities[batch.city]
+            args = (data.supports, x, data.n_real)
             if state is None:
-                pred = self.model(self.supports, x)
+                pred = self.model(*args)
             else:
-                pred = torch.func.functional_call(self.model, state, (self.supports, x))
-            preds.append(pred[: batch.n_real].float().cpu().numpy())
-            trues.append(y[: batch.n_real].cpu().numpy())
-        return np.concatenate(preds), np.concatenate(trues)
+                pred = torch.func.functional_call(self.model, state, args)
+            n = y.shape[-2] - data.pad  # drop padded node rows
+            preds.setdefault(batch.city, []).append(
+                pred[: batch.n_real, ..., :n, :].float().cpu().numpy())
+            trues.setdefault(batch.city, []).append(y[: batch.n_real, ..., :n, :].cpu().numpy())
+        return {c: (np.concatenate(preds[c]), np.concatenate(trues[c])) for c in sorted(preds)}
 
     def test(self, modes=("train", "test"), checkpoint: Optional[str] = "best") -> dict:
         """Denormalized metrics per mode (``Model_Trainer.py:68-98``, train
         split re-scored too), with the parameters of ``out_dir/best.ckpt``
         (``checkpoint="best"``), of the checkpoint file at a path, or the
         live ones (``None``). The file's parameters are placed on the
-        trainer's device; the live state is left as it is."""
+        trainer's device; the live state is left as it is. Heterogeneous
+        cities are denormalized each with its own normalizer and reported
+        per city too (``per_city``); the overall report pools every city's
+        raw-unit values."""
         state = None
         if checkpoint is not None:
             path = self.best_path if checkpoint == "best" else checkpoint
@@ -541,11 +790,25 @@ class Trainer:
         self._log(f"Testing starts at: {time.ctime()}")
         results = {}
         for mode in modes:
-            pred, true = self._predict_mode(mode, state)
-            results[mode] = report = regression_report(
-                self.dataset.denormalize(pred), self.dataset.denormalize(true))
+            per_city = self._predict_mode(mode, state)
+            if self.hetero:
+                raw = {c: tuple(self.dataset.denormalize(a, city=c) for a in pair)
+                       for c, pair in per_city.items()}
+                results[mode] = report = regression_report(
+                    np.concatenate([p.ravel() for p, _ in raw.values()]),
+                    np.concatenate([t.ravel() for _, t in raw.values()]))
+                report["per_city"] = {f"city{c}": regression_report(p, t)
+                                      for c, (p, t) in raw.items()}
+            else:
+                pred, true = (np.concatenate([pair[i] for pair in per_city.values()])
+                              for i in (0, 1))
+                results[mode] = report = regression_report(
+                    self.dataset.denormalize(pred), self.dataset.denormalize(true))
             self._log(f"{mode} true MSE: {report['mse']:.6g}  RMSE: {report['rmse']:.6g}  "
                       f"MAE: {report['mae']:.6g}  MAPE: {report['mape'] * 100:.4g}%  "
                       f"PCC: {report['pcc']:.4g}")
+            for name, rep in report.get("per_city", {}).items():
+                self._log(f"  {mode}/{name} RMSE: {rep['rmse']:.6g}  MAE: {rep['mae']:.6g}  "
+                          f"PCC: {rep['pcc']:.4g}")
         self._log(f"Testing ends at: {time.ctime()}")
         return results

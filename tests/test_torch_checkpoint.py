@@ -410,8 +410,8 @@ def test_mid_epoch_resume_ends_with_the_uninterrupted_history(tmp_path):
 
 
 def test_state_the_port_lacks_is_refused(tmp_path):
-    """Divergence-guard state and multi-city normalizers in a JAX file are
-    refused by name, not dropped."""
+    """Divergence-guard state in a JAX file is refused by name, not
+    dropped."""
     t = _port(tmp_path, epochs=1)
     for extra, match in (({"lr_scale": 0.5}, "divergence-guard"),
                          ({"deferred": [3]}, "divergence-guard")):
@@ -419,9 +419,6 @@ def test_state_the_port_lacks_is_refused(tmp_path):
         save_checkpoint(path, *t.state_trees(), {**t._meta(), **extra})
         with pytest.raises(ValueError, match=match):
             t.restore(path)
-    save_checkpoint(path, *t.state_trees(), {**t._meta(), "normalizers": [None]})
-    with pytest.raises(ValueError, match="multi-city"):
-        Forecaster.from_checkpoint(path, device="cpu")
 
 
 @pytest.mark.parametrize("async_checkpoint", [True, False])

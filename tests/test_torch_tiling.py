@@ -532,3 +532,71 @@ def test_plan_plain_versions_equal_when_truncated_to_counts(tile):
                                        full[m, k].numpy(), rtol=1e-6, atol=1e-6)
         got = sum(spmm_reference(bwd[m * K + k], g[m, k]) for k in range(K))
         np.testing.assert_allclose(got.numpy(), full_bwd[m].numpy(), rtol=1e-6, atol=1e-5)
+
+
+# -- fleet rung padding: grown plans ----------------------------------------------
+
+#: a fleet class at rung 1,024 (32 x 32) at tile 128: an 896-node city
+#: (28 x 32) grows by a block row, a 960-node one (30 x 32) inside its last
+GROW_ROWS, GROW_COLS, GROW_RUNG, GROW_TILE = (28, 30), 32, 1024, 128
+
+
+@pytest.fixture(scope="module", params=GROW_ROWS, ids=lambda r: f"n{r * GROW_COLS}")
+def grown(request):
+    """A city's dense supports (M = 2 graphs: rook and queen grids), its
+    port and JAX plans, both grown to the rung and widened to twice their
+    block columns."""
+    rows = request.param
+    adjs = [grid_adjacency(rows, GROW_COLS), grid_adjacency(rows, GROW_COLS, diagonal=True)]
+    dense = SupportConfig("chebyshev", 2).build_all(adjs)
+    plan, jplan = plan_tiling(dense, GROW_TILE), jax_plan_tiling(dense, GROW_TILE)
+    c, c_t = 2 * plan.block_cols, 2 * plan.data_t.shape[3]
+    return (plan, plan.pad_to(GROW_RUNG).with_block_cols(c, c_t),
+            jplan.pad_to(GROW_RUNG).with_block_cols(c, c_t))
+
+
+def test_grown_plan_equals_jax(grown):
+    plan, big, jbig = grown
+    crosses = plan.block_rows < GROW_RUNG // GROW_TILE
+    assert big.n == jbig.n == GROW_RUNG and big.block_rows == GROW_RUNG // GROW_TILE
+    for key in ("perm", "inv", "data", "idx", "data_t", "idx_t"):
+        got, want = getattr(big, key).numpy(), np.asarray(getattr(jbig, key))
+        assert got.dtype == want.dtype and np.array_equal(got, want), key
+    assert big.tile_stats() == jbig.tile_stats()
+    assert big.tile_stats()["blocks_kept"] == plan.tile_stats()["blocks_kept"]
+    # grown rows hold no real slot; widening leaves every count as it was
+    r = plan.block_rows
+    for counts, grown_counts in ((plan.nblk, big.nblk), (plan.nblk_t, big.nblk_t)):
+        assert torch.equal(grown_counts[..., :r], counts)
+        assert not grown_counts[..., r:].any() and (r < big.block_rows) == crosses
+    stack = big.as_stack()
+    check_counts(big.data, big.idx, big.nblk, stack.row_order)
+    check_counts(big.data_t, big.idx_t, big.nblk_t, stack.row_order_t)
+    assert big.pad_to(GROW_RUNG) is big
+    with pytest.raises(ValueError, match="cannot shrink"):
+        big.pad_to(GROW_RUNG - 1)
+    with pytest.raises(ValueError, match="cannot narrow"):
+        big.with_block_cols(plan.block_cols - 1, big.data_t.shape[3])
+
+
+def test_plain_b3_b4_on_a_grown_plan(grown):
+    """B3 and B4's plain versions on the grown plan: the real rows equal the
+    ungrown plan's result (rtol/atol 1e-6: the same products, more zero
+    slots), every padded node's row is zero, and a nonzero signal on the
+    padded nodes changes nothing real."""
+    plan, big, _ = grown
+    n, F, L = plan.n, 12, plan.m_graphs * plan.n_supports
+    x = torch.tensor(signal((plan.m_graphs, GROW_RUNG, F)))
+    g = torch.tensor(signal((plan.m_graphs, plan.n_supports, GROW_RUNG, F), seed=4))
+    fwd = spmm_stack_reference(big.as_stack(), x)
+    np.testing.assert_allclose(fwd[..., :n, :].numpy(),
+                               spmm_stack_reference(plan.as_stack(), x[:, :n]).numpy(),
+                               rtol=1e-6, atol=1e-6)
+    assert not fwd[..., n:, :].any()
+    for shared in (False, True):
+        dx = spmm_stack_bwd_reference(big.as_stack(), g, shared=shared)
+        want = spmm_stack_bwd_reference(plan.as_stack(), g[..., :n, :].contiguous(),
+                                        shared=shared)
+        np.testing.assert_allclose(dx[..., :n, :].numpy(), want.numpy(), rtol=1e-6, atol=1e-6)
+        assert not dx[..., n:, :].any()
+    assert L * big.block_rows == big.as_stack().row_order.numel()

@@ -303,9 +303,9 @@ def test_test_needs_training_or_live_parameters(tmp_path):
 # -- config ----------------------------------------------------------------
 
 @pytest.mark.parametrize("field,value", [
-    ("precision", "fp16"), ("sr_seed", 3), ("fleet", True), ("divergence_guard", True),
+    ("precision", "fp16"), ("sr_seed", 3), ("divergence_guard", True),
     ("checks", "nan"), ("prefetch", 2), ("divergence_patience", 5),
-    ("data_placement", "stream"), ("window_free", False), ("fleet_max_classes", 4),
+    ("data_placement", "stream"), ("window_free", False),
 ])
 def test_unported_train_field_raises(field, value):
     with pytest.raises(ValueError, match=f"train.{field}"):
