@@ -145,12 +145,46 @@ launches as ``fleet_launches``:
     ``swap_params`` both cities then serve from;
 28. ``bench.py``'s 8-city fleet point (two classes, serial 3, batch 2) at
     the default model's full width: one epoch of fleet blocks of 8 and one
-    of the per-city loop, each timed on the host clock;
+    of the per-city loop, each timed on the host clock (graphed and eager:
+    phase 33);
 29. a tiled fleet of three cities (N = 1,024, 960 and 896; tile 128; one
     class at rung 1,024, which grows the 896-node plan by a block row): B3
     and B4 on each grown plan against their plain versions at the training
     shapes, two epochs with the tiled launches per forward and step, the
     step p50, and each city served in a private exact-fit class.
+
+Every engine and trainer above runs captured (CUDA graphs, the default on
+the card; ``stmgcn_tpu_torch/graphs.py``): each serving rung and fleet
+(class, rung) is one graph, each training block of S steps and each
+one-step tail one graph, so the checks above hold the graphed route, and
+the launch counts count replays through each capture's record. Phases
+30-34 hold it against the eager route (``graphs=False``) in the same call,
+on the same weights; each prints the largest difference, whether the two
+were bitwise equal, each route's p50s (host clock, synchronized, taken in
+turns graphed, eager, eager, graphed), the graph pool's bytes and a trace
+of each route (busy time and idle share):
+
+30. dense serving, fp32 and bf16, every rung: the serving tolerances
+    (fp32 SERVE_RTOL/SERVE_ATOL; bf16 2^-9 and 2^-13), the launches equal;
+31. dense training, fp32, bf16 and bf16 with ``sr_seed`` (captured one step
+    at a time, its generator registered with the graph and reseeded per
+    step; it must equal the eager route bitwise): AB_BLOCKS blocks of S and
+    a tail step from one state, agree_over_steps' tolerances, the launches
+    per step equal, the p50 of a step inside a block and of a one-step
+    program; phase 7's and the other trainings' ``recaptures_after_warmup``
+    must read 0 over their epochs;
+32. the multicity fleet (after phase 27): fleet serving, both cities,
+    every rung, and fleet training blocks of its class;
+33. phase 28 runs bench.py's 8-city epoch four ways: fleet blocks and the
+    per-city loop, each graphed and eager;
+34. the metro plan (after phase 25): tiled serving, fp32 and bf16, and
+    tiled training, fp32 and bf16;
+35. concurrent callers on one graph pool (in phases 30 and 32): four
+    threads, two inline and two through the batchers, start together and
+    call every rung of the dense fp32 engine, and every rung of both
+    cities of the multicity fleet split into two classes (no padding
+    allowed), each answer held to ``Forecaster.predict`` at the serving
+    tolerance.
 
 Checkpoints go to a temporary directory that the run removes.
 
@@ -948,9 +982,10 @@ def serve(device, grid: int = GRID):
         print(f"bucket-4 batch, GPU engine vs CPU plain path: max |err| {err:.3e} "
               f"(rtol {SERVE_RTOL}, atol {SERVE_ATOL}, raw units)")
         snapshot = engine.stats.snapshot()
-        # model forwards on the card: rung warm-ups, engine dispatches,
-        # forecaster calls
-        forwards = len(BUCKETS) + snapshot["totals"]["dispatches"] + fc_calls
+        # model forwards on the card: rung warm-ups (and, graphed, each
+        # rung's warm-up before its capture), engine dispatches, forecaster
+        # calls
+        forwards = len(BUCKETS) * (1 + engine.graphs) + snapshot["totals"]["dispatches"] + fc_calls
         launches = fused_lstm.launches
         if device.type == "cuda":
             trace_rungs(engine, windows, (BUCKETS[0], BUCKETS[-1]),
@@ -1013,28 +1048,47 @@ def counts_text(counts) -> str:
     return ", ".join(f"{k} {v}" for k, v in counts.items())
 
 
+def grads_ok(trainer) -> dict:
+    """Per parameter: its gradient (the last step's: the gradients stay
+    allocated, so a captured step leaves them readable) is finite and not
+    all zero."""
+    import torch
+
+    return {n: bool(torch.isfinite(p.grad).all()) and bool(p.grad.abs().sum() > 0)
+            for n, p in trainer.model.named_parameters()}
+
+
 def train_and_test(trainer, per_forward, per_step, what):
     """``train()`` then ``test()`` with every kernel's launches counted
     around them (set to 0 just before, read just after): finite losses and
-    metrics, a finite gradient on every parameter after the first step,
-    and ``per_forward``/``per_step`` launches. Returns history and counts."""
-    import torch
+    metrics, a finite, nonzero gradient on every parameter after the first
+    block, ``per_forward``/``per_step`` launches, and (graphed) no capture
+    after the first epoch. Returns history and counts."""
+    from stmgcn_tpu_torch.obs import graphmon
 
     first: dict = {}
-    step = trainer.optimizer.step
+    run_block = trainer._run_block
 
-    def step_checking_grads():
-        if not first:  # every parameter's gradient, after the first backward
-            first.update({n: p.grad is not None and bool(torch.isfinite(p.grad).all())
-                          for n, p in trainer.model.named_parameters()})
-        step()
+    def block_checking_grads(block, mode="train"):
+        losses = run_block(block, mode)
+        if not first:  # every parameter's gradient, after the first block
+            first.update(grads_ok(trainer))
+        return losses
 
-    trainer.optimizer.step = step_checking_grads
+    trainer._run_block = block_checking_grads
     reset_counts()
     history = trainer.train()
+    snap = graphmon.snapshot()
     results = trainer.test()
     counts = read_counts()
-    trainer.optimizer.step = step
+    del trainer._run_block
+    if snap["recaptures_after_warmup"]:
+        fail(f"{what}: {snap['recaptures_after_warmup']} captures after the first epoch")
+    if trainer.graphs:
+        print(f"{what}: {len(trainer._programs)} captured training programs, "
+              f"recaptures_after_warmup {snap['recaptures_after_warmup']} over "
+              f"{len(history['train'])} epochs; graph pool {trainer.graph_pool.reserved_bytes} "
+              "bytes")
 
     print(f"{what}, history: {json.dumps(history)}")
     if not all(np.isfinite(history[m]).all() for m in history):
@@ -1048,8 +1102,10 @@ def train_and_test(trainer, per_forward, per_step, what):
                 fail(f"{what}: non-finite {name} metrics")
     bad = sorted(n for n, ok in first.items() if not ok)
     if not first or bad:
-        fail(f"{what}: parameters without a finite gradient after the first step: {bad}")
-    print(f"{what}: every parameter ({len(first)}) has a finite gradient after the first step")
+        fail(f"{what}: parameters without a finite, nonzero gradient after the first block: "
+             f"{bad}")
+    print(f"{what}: every parameter ({len(first)}) has a finite, nonzero gradient after the "
+          "first block")
     ds, bs, epochs = trainer.dataset, trainer.batch_size, len(history["train"])
     steps = trainer.global_step
     forwards = steps + epochs * ds.num_batches("validate", bs) + sum(
@@ -1161,10 +1217,8 @@ def checkpoints(device, root: str):
     process restores the mid-epoch file, re-enters its epoch and finishes:
     its losses agree with A's history and its parameters with A's
     (normwise, as card vs CPU). Prints each file's bytes, the serialize,
-    write and read seconds, and the resume's time to its first step.
+    write and read seconds, and the resume's time to its first block.
     Returns trainer A (its launch counts run on from here)."""
-    import torch
-
     from stmgcn_tpu_torch import build_trainer
     from stmgcn_tpu_torch.train.checkpoint import load_checkpoint, write_checkpoint_bytes
 
@@ -1209,21 +1263,20 @@ def checkpoints(device, root: str):
     t1 = time.perf_counter()
     meta = b.restore(mid)
     first: list = []
-    step = b.train_batch
+    run_block = b._run_block
 
-    def timed_step(batch, mode="train"):
-        loss = step(batch, mode)
+    def timed_block(block, mode="train"):
+        losses = run_block(block, mode)
         if not first:
-            torch.cuda.synchronize()
-            first.append(time.perf_counter())
-        return loss
+            first.append(time.perf_counter())  # the losses' readback synchronized
+        return losses
 
-    b.train_batch = timed_step
+    b._run_block = timed_block
     resumed = b.train()
-    b.train_batch = step
+    del b._run_block
     print(f"resume from the mid-epoch latest.ckpt (epoch {meta['epoch']}, {meta['batch_in_epoch']} "
           f"of {b.train_steps_per_epoch} batches consumed, host clock): build_trainer "
-          f"{t1 - t0:.4f} s, restore to the end of the first step {first[0] - t1:.4f} s")
+          f"{t1 - t0:.4f} s, restore to the end of the first block {first[0] - t1:.4f} s")
     print(f"resumed history: {json.dumps(resumed)}")
     for mode in ("train", "validate"):
         if not np.allclose(resumed[mode], history[mode], rtol=CPU_LOSS_RTOL, atol=0):
@@ -1257,6 +1310,7 @@ def serve_checkpoint(device, a) -> None:
     from stmgcn_tpu_torch import Forecaster, ServingConfig
     from stmgcn_tpu_torch.experiment import build_model
     from stmgcn_tpu_torch.models import from_jax_params
+    from stmgcn_tpu_torch.obs import graphmon
     from stmgcn_tpu_torch.train.checkpoint import load_checkpoint
 
     fc = Forecaster.from_checkpoint(a.best_path, device=device)
@@ -1308,9 +1362,11 @@ def serve_checkpoint(device, a) -> None:
         a.n_epochs = EPOCHS + 1  # one more epoch: latest.ckpt (and best.ckpt if it improves)
         a.verbose = False
         a.train()
+        swaps0 = graphmon.snapshot()
         t_swap0 = time.perf_counter()
         swapped = watcher.poll()
         t_swap1 = time.perf_counter()
+        swaps1 = graphmon.snapshot()
         time.sleep(0.5)
         stop.set()
         for t in threads:
@@ -1337,6 +1393,10 @@ def serve_checkpoint(device, a) -> None:
               f"in by poll() in {t_swap1 - t_swap0:.4f} s (host clock); {len(responses)} "
               f"responses, {gens[0]} of generation 0 and {gens[1]} of generation 1, each equal "
               f"to its generation's Forecaster; the {len(late)} after the poll all generation 1")
+        print(f"the swap captured {swaps1['swap_captures'] - swaps0['swap_captures']} rungs "
+              f"(counted apart: captures {swaps1['captures'] - swaps0['captures']}, "
+              f"recaptures_after_warmup {swaps1['recaptures_after_warmup']}); the new "
+              f"generation's graph pool {engine.graph_pool_bytes} bytes")
 
         latest = a.latest_path
         with open(latest, "rb") as f:
@@ -2060,21 +2120,14 @@ def bf16_config(batch: int, out_dir: str, *, dtype: str = "float32"):
     return cfg
 
 
-def all_grads_finite(trainer) -> list:
-    """Wrap ``trainer.optimizer.step`` to record, at every step, whether
-    every gradient is finite (restore with ``del trainer.optimizer.step``)."""
-    import torch
-
-    seen: list = []
-    step = trainer.optimizer.step
-
-    def checking():
-        seen.append(all(p.grad is not None and bool(torch.isfinite(p.grad).all())
-                        for p in trainer.model.parameters()))
-        step()
-
-    trainer.optimizer.step = checking
-    return seen
+def steps_checking_grads(trainer, batches) -> tuple:
+    """One optimizer step per batch; returns the losses and, per step,
+    whether every gradient it left behind is finite and nonzero."""
+    losses, seen = [], []
+    for b in batches:
+        losses.append(trainer.train_batch(b).item())
+        seen.append(all(grads_ok(trainer).values()))
+    return losses, seen
 
 
 def bf16_training(device) -> dict:
@@ -2095,11 +2148,9 @@ def bf16_training(device) -> dict:
     state = {k: v.detach().cpu().clone() for k, v in t32.model.state_dict().items()}
     t16 = build_trainer(bf16_config(BATCH, scratch("bf16_twin")), device=device,
                         initial_state=state, verbose=False)
-    seen = all_grads_finite(t16)
     batches = list(t32.batches("train"))[:TWIN_STEPS]
     l32 = [t32.train_batch(b).item() for b in batches]
-    l16 = [t16.train_batch(b).item() for b in batches]
-    del t16.optimizer.step
+    l16, seen = steps_checking_grads(t16, batches)
     gap = max(abs(a - b) for a, b in zip(l16, l32))
     if not all(math.isfinite(v) for v in l16) or not all(seen):
         fail(f"bf16 twin drill: non-finite losses {l16} or gradients at steps "
@@ -2463,8 +2514,6 @@ def bf16_metro(device, ds, plan_dev, dense_dev) -> dict:
     ``precision="bf16"`` tiled training, finite, with B1, B2, B3 (two, one
     shared) and B4 launched per step, its step p50 and a trace of two
     steps. Returns that run's counts."""
-    import torch
-
     from stmgcn_tpu_torch import Forecaster, Trainer
 
     model = metro_model("tiled", ds, device)
@@ -2496,12 +2545,10 @@ def bf16_metro(device, ds, plan_dev, dense_dev) -> dict:
                       weight_decay=t.weight_decay, n_epochs=1, batch_size=METRO_BATCH,
                       out_dir=scratch("metro_bf16"), initial_state=state, precision="bf16",
                       device=device, verbose=False)
-    seen = all_grads_finite(trainer)
     reset_counts()
-    losses = [trainer.train_batch(b).item()
-              for b in list(trainer.batches("train"))[:METRO_BF16_STEPS]]
+    losses, seen = steps_checking_grads(trainer,
+                                        list(trainer.batches("train"))[:METRO_BF16_STEPS])
     counts = read_counts()
-    del trainer.optimizer.step
     if not all(math.isfinite(v) for v in losses) or not all(seen):
         fail(f"bf16 tiled training: losses {losses}, finite gradients {seen}")
     check_counts(counts, {"B1": 1, "B3": 2, "B3 shared": 1}, {"B2": 1, "B4": 1},
@@ -2614,6 +2661,7 @@ def fleet_serve(device, trainer) -> None:
     two cities, and a ``swap_params`` that every class serves from."""
     from stmgcn_tpu_torch import Forecaster, ServingConfig
     from stmgcn_tpu_torch.experiment import build_model, build_supports
+    from stmgcn_tpu_torch.obs import graphmon
 
     fc = Forecaster.from_checkpoint(trainer.best_path, device=device)
     ds = trainer.dataset
@@ -2675,14 +2723,17 @@ def fleet_serve(device, trainer) -> None:
         new = {k: v * 0.9 for k, v in fc.state_dict.items()}
         scaled = Forecaster(build_model(fc.config, fc.derived["input_dim"], device=device), new,
                             None, fc.config, fc.derived, fc.normalizers, device=device)
+        before = graphmon.snapshot()["swap_captures"]
         gen = engine.swap_params(new)
+        swap_captures = graphmon.snapshot()["swap_captures"] - before
         for c in (0, 1):
             out, got_gen = engine.predict(windows[c][:4], city=c, with_generation=True)
             if got_gen != gen:
                 fail(f"city {c} answered from generation {got_gen} after the swap to {gen}")
             check(out, windows[c][:4], c, f"city {c} after the swap", scaled)
         print(f"fleet swap_params: generation {gen} serves both cities, equal to a "
-              "Forecaster on the new weights")
+              f"Forecaster on the new weights; the swap captured {swap_captures} (class, "
+              "rung) programs, counted apart from recaptures")
     finally:
         engine.close()
 
@@ -2704,14 +2755,18 @@ def bench_fleet(device) -> None:
     sups = CitySupports(SupportConfig("chebyshev", 2).build_all(d.adjs.values())
                         for d in datas)
     seconds = {}
-    for name, superstep, fleet in (("fleet", FLEET_BENCH_S, True), ("per-city loop", 1, False)):
+    for name, superstep, fleet, graphs in (
+            ("fleet, graphed", FLEET_BENCH_S, True, True),
+            ("per-city loop, graphed", 1, False, True),
+            ("per-city loop, eager", 1, False, False),
+            ("fleet, eager", FLEET_BENCH_S, True, False)):
         ds = HeteroCityDataset(datas, WindowSpec(BENCH_FLEET_SERIAL, 1, 1, 24))
         model = STMGCN(3, 3, BENCH_FLEET_SERIAL + 2, 1, device=device,
                        generator=torch.Generator().manual_seed(0))
         trainer = Trainer(model, ds, sups, n_epochs=1, batch_size=BENCH_FLEET_BATCH,
                           steps_per_superstep=superstep, fleet=fleet,
-                          out_dir=scratch(f"bench_fleet_{superstep}"), device=device,
-                          verbose=False)
+                          out_dir=scratch(f"bench_fleet_{superstep}_{graphs}"), device=device,
+                          graphs=graphs, verbose=False)
         if fleet:
             check_fleet(trainer, [(6, (6, 7)), (16, (0, 1, 2, 3, 4, 5))], "bench fleet")
         torch.cuda.synchronize()
@@ -2725,8 +2780,12 @@ def bench_fleet(device) -> None:
               f"{trainer.global_step} steps at batch {BENCH_FLEET_BATCH} plus validation in "
               f"{seconds[name]:.3f} s ({seconds[name] / trainer.global_step * 1e3:.3f} ms a "
               f"step); train loss {history['train'][0]:.6g}")
-    print(f"bench fleet point, epoch fleet / per-city loop: "
-          f"{seconds['fleet'] / seconds['per-city loop']:.4f}")
+    for route in ROUTES:
+        print(f"bench fleet point, {route}, epoch fleet / per-city loop: "
+              f"{seconds[f'fleet, {route}'] / seconds[f'per-city loop, {route}']:.4f}")
+    for path in ("fleet", "per-city loop"):
+        print(f"bench fleet point, {path}, epoch graphed / eager: "
+              f"{seconds[f'{path}, graphed'] / seconds[f'{path}, eager']:.4f}")
 
 
 def tiled_fleet(device) -> None:
@@ -2822,6 +2881,7 @@ def fleet_phases(device) -> dict:
         fail(f"the dense fleet path's launches: {counts_text(dense)}")
     print(f"dense fleet path (train, test, step p50, card vs CPU, serve, swap): launches "
           f"{counts_text(dense)}")
+    fleet_ab(device, trainer)
     del trainer
     torch.cuda.empty_cache()
     reset_counts()
@@ -2837,6 +2897,336 @@ def fleet_phases(device) -> dict:
     torch.cuda.empty_cache()
     print(f"fleet phases took {time.perf_counter() - t0:.1f} s")
     return {k: dense[k] + bench[k] + tiled[k] for k in dense}
+
+
+# -- captured programs: graphed against eager (phases 30-34) -------------------
+
+#: the two routes of every A/B: CUDA graphs (the default) and graphs=False
+ROUTES = ("graphed", "eager")
+#: graphed-vs-eager p50s: host-clock calls per route, taken in turns
+#: (graphed, eager, eager, graphed), AB_CALLS // 2 per turn; training A/Bs
+#: compare AB_BLOCKS blocks of S and a tail step
+AB_CALLS, AB_BLOCKS = 24, 3
+
+
+def ab_p50(fns: dict, calls: int = AB_CALLS) -> dict:
+    """Each route's median host-clock ms of ``fns[route]()`` ending in a
+    synchronize, measured in turns graphed, eager, eager, graphed (one
+    warm-up call each first)."""
+    import torch
+
+    times: dict = {route: [] for route in fns}
+    for fn in fns.values():
+        fn()
+    for route in ("graphed", "eager", "eager", "graphed"):
+        for _ in range(calls // 2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fns[route]()
+            torch.cuda.synchronize()
+            times[route].append((time.perf_counter() - t0) * 1e3)
+    return {route: float(np.median(t)) for route, t in times.items()}
+
+
+def p50_text(p50: dict) -> str:
+    return (f"graphed {p50['graphed']:.4f} ms, eager {p50['eager']:.4f} ms "
+            f"(eager / graphed {p50['eager'] / p50['graphed']:.3f})")
+
+
+def serve_check(got, want, what: str) -> None:
+    """The fp32 serving tolerance (engine vs Forecaster, card vs CPU)."""
+    if got.shape != want.shape or not np.isfinite(got).all():
+        fail(f"{what}: got {got.shape}, want {want.shape}")
+    if not np.allclose(got, want, rtol=SERVE_RTOL, atol=SERVE_ATOL):
+        fail(f"{what}: max |err| {np.abs(got - want).max():.3e} (rtol {SERVE_RTOL}, atol "
+             f"{SERVE_ATOL})")
+
+
+def ab_outputs(outs: dict, check, what: str) -> str:
+    """Hold the graphed route's outputs against the eager route's (``check``
+    fails past the path's tolerance); returns the largest difference and
+    whether every output was bitwise equal."""
+    worst, bitwise = 0.0, True
+    for key, got in outs["graphed"].items():
+        want = outs["eager"][key]
+        check(got, want, f"{what}, {key}, graphed vs eager")
+        worst = max(worst, float(np.abs(np.asarray(got, np.float64) - want).max()))
+        bitwise &= bool(np.array_equal(got, want))
+    return f"max |graphed - eager| {worst:.3e}, bitwise equal: {bitwise}"
+
+
+def serve_ab(device, make_engine, requests: dict, check, what: str, parts) -> None:
+    """Phase 30 (and 32, 34): the same weights served graphed and eager in
+    one call (``make_engine(graphs)``): every request of ``requests``
+    (name -> ``predict_direct`` keyword arguments) held graphed against
+    eager with ``check``, the kernels' launches equal on both routes, each
+    request's dispatch p50 in turns, the graphed generation's pool bytes,
+    and each route's smallest request traced."""
+    engines = {route: make_engine(route == "graphed") for route in ROUTES}
+    try:
+        if not engines["graphed"].graphs or engines["eager"].graphs:
+            fail(f"{what}: the engines' routes are not graphed and eager")
+        outs, counts = {}, {}
+        for route, engine in engines.items():
+            reset_counts()
+            outs[route] = {name: engine.predict_direct(**kw) for name, kw in requests.items()}
+            counts[route] = read_counts()
+        text = ab_outputs(outs, check, what)
+        if counts["graphed"] != counts["eager"]:
+            fail(f"{what}: launches graphed {counts_text(counts['graphed'])} vs eager "
+                 f"{counts_text(counts['eager'])}")
+        print(f"{what}, graphed vs eager, same weights: {text}; launches equal on both routes "
+              f"({counts_text(counts['graphed'])} over {len(requests)} requests); graph pool "
+              f"{engines['graphed'].graph_pool_bytes} bytes")
+        for name, kw in requests.items():
+            p50 = ab_p50({route: lambda e=e, kw=kw: e.predict_direct(**kw)
+                          for route, e in engines.items()})
+            print(f"{what}, {name}, p50 dispatch (host clock, synchronized): {p50_text(p50)}")
+        name, kw = next(iter(requests.items()))
+        for route, engine in engines.items():
+            for _ in range(3):
+                engine.predict_direct(**kw)
+            wall, dev = profiled(lambda e=engine: e.predict_direct(**kw), 10)
+            shares(f"{what}, {name}, {route}, per dispatch", wall, dev, parts)
+    finally:
+        for engine in engines.values():
+            engine.close()
+
+
+def concurrent_rungs(engine, requests: dict, want: dict, what: str) -> None:
+    """Phase 35: concurrent callers on every rung (and class) of one graphed
+    generation, whose programs share one graph pool. CALLERS threads start
+    together and call every request of ``requests`` (name -> keyword
+    arguments) in turn, each from its own offset, ROUNDS times; the odd
+    threads dispatch inline (``predict_direct``), the even ones through the
+    batchers (``predict``). Every answer is held to ``want[name]`` (the
+    Forecaster's) at the serving tolerance."""
+    if not engine.graphs:
+        fail(f"{what}: the engine is not graphed")
+    names = list(requests)
+    outs, errors = [], []
+    barrier = threading.Barrier(CALLERS)
+
+    def caller(k):
+        try:
+            call = engine.predict_direct if k % 2 else engine.predict
+            barrier.wait(timeout=60)
+            for _ in range(ROUNDS):
+                for i in range(len(names)):
+                    name = names[(k + i) % len(names)]
+                    outs.append((name, call(**requests[name])))
+        except BaseException as e:  # noqa: BLE001 — reported below
+            errors.append(e)
+
+    threads = [threading.Thread(target=caller, args=(k,)) for k in range(CALLERS)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+    if errors or any(t.is_alive() for t in threads):
+        fail(f"{what}, concurrent callers: errors={errors!r}")
+    for name, got in outs:
+        serve_check(got, want[name], f"{what}, {name}, concurrent callers")
+    print(f"{what}: {CALLERS} concurrent callers (inline and batched) over {len(names)} "
+          f"requests x {ROUNDS} rounds on one graph pool ({engine.graph_pool_bytes} bytes): "
+          f"all {len(outs)} answers within rtol {SERVE_RTOL}, atol {SERVE_ATOL} of "
+          "Forecaster.predict")
+
+
+def update_gap(a, b, state) -> tuple:
+    """``(worst tensor, its |p_a - p_b| / |p_b - p_initial|, max |p_a - p_b|)``
+    over the two trainers' parameters."""
+    want = {k: v.cpu() for k, v in b.model.state_dict().items()}
+    rel, elem = {}, {}
+    for k, v in a.model.state_dict().items():
+        diff = v.cpu() - want[k]
+        rel[k] = (diff.norm() / (want[k] - state[k]).norm()).item()
+        elem[k] = diff.abs().max().item()
+    worst = max(rel, key=rel.get)
+    return worst, rel[worst], max(elem.values())
+
+
+def train_ab(make_trainer, what: str, parts, blocks: int = AB_BLOCKS, bitwise: bool = False):
+    """Phase 31 (and 32, 34): two trainers from one state, graphed and eager
+    (``make_trainer(graphs, state)``), over the same ``blocks`` blocks of S
+    and one one-step tail: losses within agree_over_steps' tolerances
+    (``bitwise``: exactly), every tensor's update likewise, the kernels'
+    launches equal per step on both routes, the p50 of a step inside a
+    block and of a one-step program in turns, the graph pool's bytes and a
+    trace of one block on each route. Returns the graphed trainer."""
+    import torch
+
+    trainers = {"graphed": make_trainer(True, None)}
+    state = {k: v.detach().cpu().clone() for k, v in
+             trainers["graphed"].model.state_dict().items()}
+    trainers["eager"] = make_trainer(False, state)
+    g = trainers["graphed"]
+    if not g.graphs or trainers["eager"].graphs:
+        fail(f"{what}: the trainers' routes are not graphed and eager")
+    every = g._blocks(list(g.batches("train")), 0)
+    full = [b for b in every if len(b) == g.steps_per_superstep][:blocks]
+    tails = [b for b in every if len(b) == 1][:1]
+    if not full or not tails:
+        fail(f"{what}: the epoch has no full block or no tail step")
+    picked = full + tails
+    losses, counts = {}, {}
+    for route, trainer in trainers.items():
+        reset_counts()
+        losses[route] = [v for block in picked for v in trainer._run_block(block)]
+        counts[route] = read_counts()
+    steps = len(losses["graphed"])
+    same = losses["graphed"] == losses["eager"] and all(
+        torch.equal(v, trainers["eager"].model.state_dict()[k])
+        for k, v in g.model.state_dict().items())
+    for i, (a, b) in enumerate(zip(losses["graphed"], losses["eager"])):
+        if not math.isclose(a, b, rel_tol=CPU_LOSS_RTOL) or (bitwise and a != b):
+            fail(f"{what}, step {i + 1}: graphed loss {a} vs eager {b}")
+    worst, rel, elem = update_gap(g, trainers["eager"], state)
+    if not rel <= CPU_UPDATE_RTOL or (bitwise and not same):
+        fail(f"{what}: {worst}'s update differs by {rel:.3e} of its norm graphed vs eager")
+    if counts["graphed"] != counts["eager"]:
+        fail(f"{what}: launches graphed {counts_text(counts['graphed'])} vs eager "
+             f"{counts_text(counts['eager'])}")
+    S = g.steps_per_superstep
+    print(f"{what}, graphed vs eager from one state, {len(full)} blocks of {S} and a tail step "
+          f"({steps} steps, batch {g.batch_size}): losses within rtol {CPU_LOSS_RTOL}, each "
+          f"tensor's update within {rel:.3e} of its norm ({worst}), parameters max |diff| "
+          f"{elem:.3e}; bitwise equal: {same}; launches equal on both routes "
+          f"({counts_text(counts['graphed'])}); {len(g._programs)} captured programs, graph "
+          f"pool {g.graph_pool.reserved_bytes} bytes")
+    block, batch = full[0], picked[-1][0]
+    p50 = ab_p50({r: lambda t=t: t._run_block(block) for r, t in trainers.items()}, 8)
+    print(f"{what}, p50 of a step inside a block of {S} (block time / {S}): " + p50_text(
+        {r: v / S for r, v in p50.items()}))
+    p50 = ab_p50({r: lambda t=t: t.train_batch(batch) for r, t in trainers.items()}, 12)
+    print(f"{what}, p50 of a one-step program (a tail step): {p50_text(p50)}")
+    for route, trainer in trainers.items():
+        wall, dev = profiled(lambda t=trainer: t._run_block(block), 2)
+        shares(f"{what}, {route}, per step inside a block of {S}", wall / S,
+               {k: v / S for k, v in dev.items()}, parts, top=6)
+    return g
+
+
+def dense_ab(device) -> None:
+    """Phases 30-31 at the dense flagship: serving, fp32 and bf16, every
+    rung (engine vs engine, same weights), then training, fp32 and bf16,
+    and stochastically rounded bf16 training, which is captured one step
+    at a time and must agree with the eager route bitwise."""
+    import torch
+
+    from stmgcn_tpu_torch import Forecaster, ServingConfig, build_trainer, preset
+    from stmgcn_tpu_torch.experiment import build_dataset, build_model, build_supports
+
+    cfg = preset("default")
+    cfg.data.rows, cfg.data.serial_len = GRID, SERIAL
+    ds = build_dataset(cfg)
+    supports = build_supports(cfg, ds)
+    derived = {"input_dim": ds.n_feats, "n_nodes": ds.n_nodes}
+    model = build_model(cfg, ds.n_feats, device=device, generator=torch.Generator().manual_seed(0))
+    state = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+    windows = ds.denormalize(ds.arrays("test")[0])
+    requests = {f"rung {b}": {"history": windows[:b]} for b in BUCKETS}
+    for dtype, check in (("float32", serve_check), ("bfloat16", bf16_check)):
+        c = preset("default")
+        c.data.rows, c.data.serial_len, c.model.dtype = GRID, SERIAL, dtype
+        fc = Forecaster(build_model(c, ds.n_feats, device=device), state, ds.normalizer, c,
+                        derived, device=device)
+        serve_ab(device, lambda graphs, fc=fc: fc.serving_engine(
+            supports, config=ServingConfig(buckets=BUCKETS), device=device, graphs=graphs),
+            requests, check, f"dense serving, {dtype}", {"B1": LSTM_PARTS["B1 forward"]})
+        if dtype == "float32":
+            with fc.serving_engine(supports, config=ServingConfig(buckets=BUCKETS),
+                                   device=device) as engine:
+                concurrent_rungs(engine, requests, {
+                    name: fc.predict(supports, kw["history"]) for name, kw in requests.items()},
+                    "dense serving, every rung")
+    torch.cuda.empty_cache()
+    for precision, sr_seed in (("fp32", None), ("bf16", None), ("bf16", SR_SEED)):
+        def make(graphs, initial, precision=precision, sr_seed=sr_seed):
+            c = flagship_config(BATCH)
+            c.train.precision, c.train.sr_seed = precision, sr_seed
+            c.train.out_dir = scratch(f"ab_dense_{precision}_{sr_seed}_{graphs}")
+            return build_trainer(c, device=device, graphs=graphs, initial_state=initial,
+                                 verbose=False)
+
+        what = f"dense training, {precision}" + (f", sr_seed {sr_seed}" if sr_seed else "")
+        train_ab(make, what, LSTM_PARTS, blocks=1 if sr_seed else AB_BLOCKS,
+                 bitwise=sr_seed is not None)
+        torch.cuda.empty_cache()
+
+
+def fleet_ab(device, trainer) -> None:
+    """Phase 32: the multicity fleet graphed against eager: its ``best.ckpt``
+    through two ``FleetServingEngine``s (both cities, every rung), then
+    fleet training blocks of the class from one state."""
+    import torch
+
+    from stmgcn_tpu_torch import Forecaster, ServingConfig, build_trainer
+    from stmgcn_tpu_torch.experiment import build_supports
+
+    fc = Forecaster.from_checkpoint(trainer.best_path, device=device)
+    ds = trainer.dataset
+    sups = build_supports(fc.config, ds)
+    windows = {c: ds.denormalize(ds.city_arrays("test", c)[0], city=c) for c in (0, 1)}
+    requests = {f"city {c}, rung {b}": {"history": windows[c][:b], "city": c}
+                for c in (0, 1) for b in BUCKETS}
+    serve_ab(device, lambda graphs: fc.fleet_engine(
+        sups, config=ServingConfig(buckets=BUCKETS), device=device, graphs=graphs),
+        requests, serve_check, "multicity fleet serving", {"B1": LSTM_PARTS["B1 forward"]})
+    # no padding allowed: each city in a class of its own, one pool for both
+    with fc.fleet_engine(sups, config=ServingConfig(buckets=BUCKETS), max_pad_waste=0.0,
+                         device=device) as engine:
+        if engine.class_of(0) == engine.class_of(1):
+            fail("multicity fleet with max_pad_waste=0: the cities share a class")
+        concurrent_rungs(engine, requests, {
+            name: fc.predict(sups.for_city(kw["city"]), kw["history"], city=kw["city"])
+            for name, kw in requests.items()}, "multicity fleet serving, two classes")
+    torch.cuda.empty_cache()
+
+    def make(graphs, initial):
+        return build_trainer(fleet_config(scratch(f"ab_fleet_{graphs}")), device=device,
+                             graphs=graphs, initial_state=initial, verbose=False)
+
+    train_ab(make, "multicity fleet training", LSTM_PARTS)
+    torch.cuda.empty_cache()
+
+
+def metro_ab(device, ds, plan_dev) -> None:
+    """Phase 34: the metro city's tiled plan graphed against eager: serving
+    (fp32 and bf16, every rung) and tiled training (fp32 and bf16)."""
+    import torch
+
+    from stmgcn_tpu_torch import Forecaster, ServingConfig, Trainer
+    from stmgcn_tpu_torch.experiment import build_model
+
+    state = {k: v.detach().cpu().clone()
+             for k, v in metro_model("tiled", ds, device).state_dict().items()}
+    derived = {"input_dim": ds.n_feats, "n_nodes": ds.n_nodes}
+    windows = ds.denormalize(ds.arrays("test")[0])
+    config = ServingConfig(buckets=METRO_BUCKETS, max_batch=METRO_BUCKETS[-1])
+    requests = {f"rung {b}": {"history": windows[:b]} for b in METRO_BUCKETS}
+    parts = {"B1": LSTM_PARTS["B1 forward"], "B3": SPMM_PARTS["B3"]}
+    for dtype, check in (("float32", serve_check), ("bfloat16", bf16_check)):
+        cfg = metro_config("tiled")
+        cfg.model.dtype = dtype
+        fc = Forecaster(build_model(cfg, ds.n_feats, device=device), state, ds.normalizer, cfg,
+                        derived, device=device)
+        serve_ab(device, lambda graphs, fc=fc: fc.serving_engine(
+            plan_dev, config=config, device=device, graphs=graphs),
+            requests, check, f"tiled serving at the metro city, {dtype}", parts)
+        torch.cuda.empty_cache()
+    for precision in ("fp32", "bf16"):
+        def make(graphs, initial, precision=precision):
+            t = metro_config("tiled").train
+            return Trainer(metro_model("tiled", ds, device), ds, plan_dev, lr=t.lr,
+                           weight_decay=t.weight_decay, n_epochs=1, batch_size=METRO_BATCH,
+                           steps_per_superstep=SUPERSTEP, precision=precision,
+                           out_dir=scratch(f"ab_metro_{precision}_{graphs}"),
+                           initial_state=initial, device=device, graphs=graphs, verbose=False)
+
+        train_ab(make, f"tiled training at the metro city, {precision}",
+                 {**LSTM_PARTS, **SPMM_PARTS})
+        torch.cuda.empty_cache()
 
 
 def main() -> int:
@@ -2928,6 +3318,10 @@ def run_phases() -> int:
     torch.cuda.empty_cache()
     print(f"bf16 dense phases done at {time.perf_counter() - t_start:.1f} s")
 
+    # the captured programs: graphed against eager at the dense flagship
+    dense_ab(device)
+    print(f"dense graphed/eager phases done at {time.perf_counter() - t_start:.1f} s")
+
     # the fleet slice: heterogeneous cities in shape classes, dense and tiled
     fleet_counts = fleet_phases(device)
     print(f"fleet phases done at {time.perf_counter() - t_start:.1f} s")
@@ -2957,6 +3351,7 @@ def run_phases() -> int:
     bf16_records[3]["launches"], bf16_records[5]["launches"] = counts["B4"], counts["B3 shared"]
     torch.cuda.empty_cache()
     bf16_records[4]["launches"] = bf16_sparse(device, ds, dense_dev, ktuples)
+    metro_ab(device, ds, plan_dev)
     if any(not r["launches"] for r in bf16_records):
         fail("a bf16 kernel form was not launched on its main path: " + ", ".join(
             f"{r['name']} {r['launches']}" for r in bf16_records))

@@ -179,7 +179,7 @@ def build_model(cfg: ExperimentConfig, input_dim: int, *, device=None,
 
 
 def build_trainer(cfg: ExperimentConfig, *, device=None, initial_state: Optional[dict] = None,
-                  verbose: bool = True) -> Trainer:
+                  graphs: Optional[bool] = None, verbose: bool = True) -> Trainer:
     """The trainer for a single-device config in any of the three support
     modes, homogeneous or heterogeneous (with ``train.fleet`` and its
     knobs); weights drawn from ``cfg.train.seed`` unless ``initial_state``
@@ -187,7 +187,7 @@ def build_trainer(cfg: ExperimentConfig, *, device=None, initial_state: Optional
     config and ``derived`` (``{"input_dim", "n_nodes"}``, ``n_nodes`` a
     per-city list for heterogeneous cities), so ``Forecaster.from_checkpoint``
     in either package rebuilds the model. ``device=None`` means the GPU,
-    and raises without one."""
+    and raises without one; ``graphs`` as :class:`Trainer`'s."""
     _check_support_route(cfg)
     if cfg.mesh.n_devices > 1:
         raise ValueError(
@@ -221,7 +221,7 @@ def build_trainer(cfg: ExperimentConfig, *, device=None, initial_state: Optional
                 "n_nodes": dataset.city_n_nodes if hetero else dataset.n_nodes,
             },
         },
-        initial_state=initial_state, device=device, verbose=verbose,
+        initial_state=initial_state, device=device, graphs=graphs, verbose=verbose,
     )
 
 

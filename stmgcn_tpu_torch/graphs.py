@@ -1,0 +1,315 @@
+"""Captured programs: the port's counterpart of the JAX package's compiled
+programs (``jax.jit(fn).lower(...).compile()``).
+
+The JAX package never runs its main path eagerly: the serving engine
+compiles one program per ladder rung, the fleet engine one per (class,
+bucket), and training runs S optimizer steps as one jitted scan. Here a
+:class:`CapturedProgram` plays that part with a CUDA graph:
+
+- it owns its **static inputs**, packed in one buffer of 4-byte words
+  (:class:`StaticInputs`: a history window, an index block, a mask, the
+  optimizer's per-step scalars, ...), with a pinned staging copy on the
+  host, so a call is one host->device copy, a replay and one readback;
+- its first call **warms the body up** (a real, counted run on the
+  filled inputs, on the pool's capture stream, which fills every lazy
+  cache and builds every kernel library) and then **captures** it into a
+  :class:`torch.cuda.CUDAGraph` in the memory pool of its
+  :class:`GraphPool`, which every program of one engine generation, or of
+  one trainer, shares; later calls **replay** it on the pool's stream;
+- the pool's lock is held from the copy into the staging buffer to the
+  enqueue of the output copy, so concurrent callers never mix their
+  inputs, and no replay of another program of the pool runs between a
+  replay and the copy of its output: a graph captured later into a shared
+  pool may place its output in memory that an earlier graph uses as
+  scratch when it replays (replays on the pool's one stream are serialized
+  on the device anyway);
+- replays do not run the kernels' Python wrappers, so the launch counts
+  (:mod:`~stmgcn_tpu_torch.ops.counters`) are kept by hand: the capture
+  records what the body launched on the capturing stream, counts nothing
+  itself, and each replay adds that record; the warm-up counts what it
+  really launches. A graphed run and an eager run report the same launches
+  per forward and step;
+- each capture is counted in :mod:`~stmgcn_tpu_torch.obs.graphmon`, and
+  every upload's bytes too.
+
+A failure to capture raises; there is no eager fallback. :class:`Program`
+is the eager route over the same static buffers (``graphs=False``, the
+counterpart of ``jax.disable_jit``, and every program on the CPU): the
+body runs on each call.
+
+The bookkeeping (buffers, locks, counts) is kept apart from the CUDA graph
+calls, which live in :class:`GraphPool` alone, so the CPU tests drive the
+bookkeeping with a stand-in pool whose "replay" runs the body on the
+static buffers.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import threading
+import time
+from typing import Callable, Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+from stmgcn_tpu_torch.obs import graphmon
+from stmgcn_tpu_torch.ops import counters
+
+__all__ = [
+    "CapturedProgram",
+    "DeviceOps",
+    "GraphPool",
+    "Program",
+    "StaticInputs",
+    "resolve_graphs",
+]
+
+#: captures are serialized process-wide: one capture at a time records
+#: launch counts (``counters.recording``)
+_CAPTURE_LOCK = threading.Lock()
+
+_NUMPY = {torch.float32: np.float32, torch.int32: np.int32}
+
+
+def resolve_graphs(graphs: Optional[bool], device: torch.device) -> bool:
+    """Whether a component on ``device`` captures its programs: ``None``
+    means on for CUDA and off elsewhere; ``True`` off CUDA raises."""
+    if graphs is None:
+        return device.type == "cuda"
+    if graphs and device.type != "cuda":
+        raise ValueError(f"graphs=True captures CUDA graphs, but the device is {device}; "
+                         "pass graphs=False (or None) to run eagerly")
+    return bool(graphs)
+
+
+class StaticInputs:
+    """A program's inputs as named views into one device buffer of 4-byte
+    words (float32 and int32 only), filled from numpy through one staging
+    buffer on the host (pinned for CUDA; on the CPU the buffer itself).
+
+    ``spec`` maps each name to ``(shape, dtype)``. :meth:`fill` writes
+    each given array into the front of its view along the first axis and
+    zeroes the rest (a request shorter than the rung is zero-padded); a
+    name left out is all zeros."""
+
+    def __init__(self, spec: Dict[str, Tuple[tuple, torch.dtype]], ops: "DeviceOps"):
+        self._slices = {}
+        start = 0
+        for name, (shape, dtype) in spec.items():
+            if dtype not in _NUMPY:
+                raise ValueError(f"static input {name!r}: dtype must be float32 or int32, "
+                                 f"got {dtype}")
+            size = int(np.prod(shape, dtype=np.int64))
+            self._slices[name] = (start, start + size, tuple(shape), dtype)
+            start += size
+        self.words = torch.zeros(max(start, 1), dtype=torch.int32, device=ops.device)
+        self.nbytes = 4 * start
+        self.staging = ops.staging(self.words)
+        host_words = self.staging.numpy()
+        self.views = {}
+        self._host = {}
+        for name, (a, b, shape, dtype) in self._slices.items():
+            self.views[name] = self.words[a:b].view(dtype).view(shape)
+            self._host[name] = host_words[a:b].view(_NUMPY[dtype]).reshape(shape)
+
+    def fill(self, values: Dict[str, np.ndarray]) -> None:
+        unknown = set(values) - set(self._host)
+        if unknown:
+            raise KeyError(f"no static inputs named {sorted(unknown)}")
+        for name, host in self._host.items():
+            value = values.get(name)
+            if value is None:
+                host[...] = 0
+                continue
+            value = np.asarray(value)
+            if value.shape[1:] != host.shape[1:] or value.shape[0] > host.shape[0]:
+                raise ValueError(f"static input {name!r} is {host.shape}, got {value.shape}")
+            host[:value.shape[0]] = value
+            host[value.shape[0]:] = 0
+
+
+class DeviceOps:
+    """Uploads and readbacks of programs on one device. CUDA: on one
+    stream (the caller's current stream when made), from pinned staging,
+    non-blocking, each ordered by an event; the CPU: plain copies."""
+
+    def __init__(self, device: torch.device):
+        self.device = torch.device(device)
+        self.cuda = self.device.type == "cuda"
+        self.stream = torch.cuda.current_stream(self.device) if self.cuda else None
+
+    def stream_context(self):
+        return torch.cuda.stream(self.stream) if self.cuda else contextlib.nullcontext()
+
+    def staging(self, words: torch.Tensor) -> torch.Tensor:
+        if not self.cuda:
+            return words
+        return torch.zeros(words.shape, dtype=words.dtype, pin_memory=True)
+
+    def upload(self, dst: torch.Tensor, src: torch.Tensor):
+        """Copy the staging buffer in; returns the event after the copy
+        (None on the CPU, where they are one buffer)."""
+        if dst is src:
+            return None
+        with self.stream_context():
+            dst.copy_(src, non_blocking=True)
+            done = torch.cuda.Event()
+            done.record(self.stream)
+        return done
+
+    def download(self, out: torch.Tensor):
+        """``(host copy of out, event after it or None)``."""
+        if not self.cuda:
+            return out.detach().clone(), None
+        host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
+        with self.stream_context():
+            host.copy_(out, non_blocking=True)
+            done = torch.cuda.Event()
+            done.record(self.stream)
+        return host, done
+
+
+class GraphPool(DeviceOps):
+    """One CUDA-graph memory pool, one capture stream and one replay
+    stream (the caller's current stream when made), shared by the
+    programs of one engine generation or one trainer. ``lock`` orders
+    every call of its programs, from the upload to the enqueue of the
+    output copy. ``reserved_bytes`` adds up the device memory reserved
+    while its programs captured: what the pool holds."""
+
+    def __init__(self, device: torch.device):
+        device = torch.device(device)
+        if device.type != "cuda":
+            raise ValueError(f"a CUDA graph pool needs a CUDA device, got {device}")
+        super().__init__(device)
+        self.handle = torch.cuda.graph_pool_handle()
+        self.capture_stream = torch.cuda.Stream(self.device)
+        self.lock = threading.Lock()
+        self.reserved_bytes = 0
+
+    @staticmethod
+    def capturing() -> bool:
+        """Whether the calling thread's work goes into the open capture (its
+        current stream is capturing; autograd's device thread runs a
+        backward on the capture stream too)."""
+        return torch.cuda.is_current_stream_capturing()
+
+    def warmup(self, fn: Callable):
+        """Run ``fn`` on the capture stream, ordered after and before the
+        replay stream's work."""
+        self.capture_stream.wait_stream(self.stream)
+        with torch.cuda.stream(self.capture_stream):
+            out = fn()
+        self.stream.wait_stream(self.capture_stream)
+        return out
+
+    def capture(self, fn: Callable, generator: Optional[torch.Generator] = None):
+        """``(graph, outputs)``: ``fn`` captured into this pool; the
+        random state of ``generator`` registered with the graph, so each
+        replay draws from its seed and offset at that time."""
+        graph = torch.cuda.CUDAGraph()
+        if generator is not None:
+            graph.register_generator_state(generator)
+        # a capture starts by emptying the allocator's cache: empty it
+        # first, so what is reserved during the capture is the pool's
+        torch.cuda.empty_cache()
+        before = torch.cuda.memory_reserved(self.device)
+        self.capture_stream.wait_stream(self.stream)
+        with torch.cuda.graph(graph, pool=self.handle, stream=self.capture_stream,
+                              capture_error_mode="thread_local"):
+            out = fn()
+        self.stream.wait_stream(self.capture_stream)
+        self.reserved_bytes += max(0, torch.cuda.memory_reserved(self.device) - before)
+        return graph, out
+
+    def replay(self, graph) -> None:
+        with torch.cuda.stream(self.stream):
+            graph.replay()
+
+
+class Program:
+    """``body(views) -> tensor`` over :class:`StaticInputs` of ``spec``,
+    run eagerly on every call (the eager route). ``program(values)`` fills
+    the inputs from ``values`` (name -> numpy array), runs, and returns the
+    output as a host tensor. ``lock`` (default: the program's own) is held
+    from the fill to the enqueue of the output copy."""
+
+    captured = False
+
+    def __init__(self, body: Callable, spec: dict, ops: DeviceOps, *, name: str = "program",
+                 lock: Optional[threading.Lock] = None):
+        self.name = name
+        self.ops = ops
+        self._body = body
+        self.inputs = StaticInputs(spec, ops)
+        self._lock = lock if lock is not None else threading.Lock()
+        self._staged = None  # event after the last upload out of the staging buffer
+
+    def __call__(self, values: Dict[str, np.ndarray]) -> torch.Tensor:
+        with self._lock:
+            if self._staged is not None:  # the last copy has left the staging buffer
+                self._staged.synchronize()
+            self.inputs.fill(values)
+            self._staged = self.ops.upload(self.inputs.words, self.inputs.staging)
+            graphmon.record_upload(self.inputs.nbytes)
+            out = self._execute()
+            host, done = self.ops.download(out)
+        if done is not None:
+            done.synchronize()
+        return host
+
+    def _execute(self) -> torch.Tensor:
+        with self.ops.stream_context():
+            return self._body(self.inputs.views)
+
+
+class CapturedProgram(Program):
+    """A :class:`Program` captured on its first call: the body runs once
+    for real as the warm-up, is captured into ``pool`` (a
+    :class:`GraphPool`; the CPU tests pass a stand-in), and every later
+    call replays it, under the pool's lock. The first call returns the
+    warm-up's output.
+    ``swap`` marks a capture made for a serving engine's new parameter
+    generation (counted apart, :mod:`~stmgcn_tpu_torch.obs.graphmon`);
+    ``generator`` is a random generator whose state the graph registers.
+
+    ``deltas`` is the capture's record of launches (``{(wrapper, attr):
+    n}``), which each replay adds to the counts; ``capture_ms`` the
+    capture's host time."""
+
+    captured = True
+
+    def __init__(self, body: Callable, spec: dict, pool, *, name: str = "program",
+                 swap: bool = False, generator: Optional[torch.Generator] = None):
+        super().__init__(body, spec, pool, name=name, lock=pool.lock)
+        self.swap = swap
+        self.generator = generator
+        self.graph = None
+        self.outputs = None
+        self.deltas: dict = {}
+        self.capture_ms: Optional[float] = None
+
+    def _execute(self) -> torch.Tensor:
+        if self.graph is None:
+            return self._capture()
+        self.ops.replay(self.graph)
+        counters.add(self.deltas)
+        return self.outputs
+
+    def _capture(self) -> torch.Tensor:
+        views = self.inputs.views
+        with _CAPTURE_LOCK:
+            out = self.ops.warmup(lambda: self._body(views))
+            t0 = time.perf_counter()
+            try:
+                with counters.recording(self.ops.capturing) as record:
+                    graph, self.outputs = self.ops.capture(lambda: self._body(views),
+                                                           self.generator)
+            except Exception as e:
+                raise RuntimeError(f"capturing {self.name} failed: {e}") from e
+            self.capture_ms = (time.perf_counter() - t0) * 1e3
+        self.deltas = dict(record)
+        self.graph = graph
+        graphmon.record_capture(self.capture_ms, swap=self.swap)
+        return out

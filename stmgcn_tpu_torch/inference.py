@@ -163,21 +163,23 @@ class Forecaster:
 
         return serve_predict(call, normalizer, expected, history, normalized)
 
-    def serving_engine(self, supports, *, config=None, city=None, device=None):
+    def serving_engine(self, supports, *, config=None, city=None, device=None, graphs=None):
         """A :class:`stmgcn_tpu_torch.serving.ServingEngine` over this model
-        (one city of a heterogeneous checkpoint: ``city=``)."""
+        (one city of a heterogeneous checkpoint: ``city=``; ``graphs`` as
+        ``ServingEngine.from_forecaster``'s)."""
         from stmgcn_tpu_torch.serving.engine import ServingEngine
 
         return ServingEngine.from_forecaster(self, supports, config=config, city=city,
-                                             device=device)
+                                             device=device, graphs=graphs)
 
     def fleet_engine(self, city_supports, *, config=None, max_classes: int = 8,
-                     max_pad_waste: float = 0.5, device=None):
+                     max_pad_waste: float = 0.5, device=None, graphs=None):
         """A :class:`stmgcn_tpu_torch.serving.FleetServingEngine` over this
         heterogeneous checkpoint: every city from one engine, requests for
-        cities of one shape class coalescing into one dispatch."""
+        cities of one shape class coalescing into one dispatch (``graphs``
+        as ``FleetServingEngine.from_forecaster``'s)."""
         from stmgcn_tpu_torch.serving.fleet import FleetServingEngine
 
         return FleetServingEngine.from_forecaster(
             self, city_supports, config=config, max_classes=max_classes,
-            max_pad_waste=max_pad_waste, device=device)
+            max_pad_waste=max_pad_waste, device=device, graphs=graphs)

@@ -49,11 +49,11 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
-import threading
 from pathlib import Path
 
 import torch
 
+from stmgcn_tpu_torch.ops import counters
 from stmgcn_tpu_torch.ops._build import load_library, on_cuda
 
 __all__ = [
@@ -76,8 +76,6 @@ BWD_SOURCE = SOURCE.with_name("fused_lstm_bwd.cu")
 #: hidden widths the kernels' tilings take (csrc/lstm_mma.cuh ``Tile``)
 KERNEL_HIDDEN = (32, 64, 128, 256)
 KERNEL_MAX_LAYERS = 4
-
-_COUNT_LOCK = threading.Lock()
 
 
 @functools.lru_cache(maxsize=None)
@@ -281,8 +279,7 @@ def fused_lstm(x_proj0, wh_stack, wx_stack, b_stack, *, with_residuals=False):
         )
     if err != 0:
         raise RuntimeError(f"fused_lstm: kernel launch failed with cudaError {err}")
-    with _COUNT_LOCK:
-        fused_lstm.launches += 1
+    counters.bump(fused_lstm)
     result = (out, h_fin, c_fin)
     return result + (hseq, cseq) if with_residuals else result
 
@@ -426,8 +423,7 @@ def fused_lstm_bwd(x_proj0, wh_stack, wx_stack, b_stack, hseq, cseq,
         )
     if err != 0:
         raise RuntimeError(f"fused_lstm_bwd: kernel launch failed with cudaError {err}")
-    with _COUNT_LOCK:
-        fused_lstm_bwd.launches += 1
+    counters.bump(fused_lstm_bwd)
     return dxp, dwh0, dwxh, db
 
 

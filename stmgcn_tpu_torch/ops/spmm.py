@@ -58,13 +58,13 @@ import ctypes
 import dataclasses
 import functools
 import math
-import threading
 from pathlib import Path
 from typing import Optional
 
 import numpy as np
 import torch
 
+from stmgcn_tpu_torch.ops import counters
 from stmgcn_tpu_torch.ops._build import load_library, on_cuda
 
 __all__ = [
@@ -91,8 +91,6 @@ TILE = 128
 #: block sizes the CUDA kernels take (the plain versions take any)
 KERNEL_TILES = (64, 128)
 SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "spmm_stack.cu"
-
-_COUNT_LOCK = threading.Lock()
 
 
 def _ceil_to(n: int, t: int) -> int:
@@ -478,9 +476,9 @@ def stack_forward(bss: BlockSparseStack, x: torch.Tensor) -> torch.Tensor:
             tile=bss.tile,
             n_src_rows=bss.n_cols, src_div=K,
             src_stride=0 if x.dim() == 2 else bss.n_cols * x.shape[-1])
-    with _COUNT_LOCK:
-        spmm_stack.launches += 1
-        spmm_stack.launches_shared += x.dim() == 2
+    counters.bump(spmm_stack)
+    if x.dim() == 2:
+        counters.bump(spmm_stack, "launches_shared")
     return out
 
 
@@ -505,8 +503,7 @@ def spmm_stack_bwd(bss: BlockSparseStack, g: torch.Tensor, *, shared: bool) -> t
     _launch("spmm_stack_bwd", 1, bss.data_t, bss.idx_t, bss.nblk_t, bss.row_order_t, g, dx,
             S=L // O,
             tile=bss.tile, n_src_rows=bss.n_rows, src_stride=bss.n_rows * g.shape[-1])
-    with _COUNT_LOCK:
-        spmm_stack_bwd.launches += 1
+    counters.bump(spmm_stack_bwd)
     return dx
 
 
@@ -520,8 +517,7 @@ def block_spmm(bs: BlockSparse, x: torch.Tensor, *, transpose: bool = False) -> 
         return spmm_reference(bs, x, transpose=transpose)
     out = torch.empty((bs.n, x.shape[-1]), device=x.device, dtype=torch.float32)
     _launch("spmm", 2, data, idx, nblk, order, x, out, S=1, tile=bs.tile, n_src_rows=bs.n)
-    with _COUNT_LOCK:
-        spmm.launches += 1
+    counters.bump(spmm)
     return out
 
 

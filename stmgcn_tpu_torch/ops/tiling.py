@@ -53,6 +53,7 @@ from stmgcn_tpu_torch.ops.spmm import (
 )
 
 __all__ = [
+    "StackedPlans",
     "TiledBranchSupports",
     "TiledSupports",
     "gathered_tiles_apply",
@@ -278,6 +279,57 @@ class TiledSupports:
             "nbytes": int(self.nbytes),
             "dense_nbytes": int(self.m_graphs * self.n_supports * self.n * self.n * 4),
         }
+
+
+class StackedPlans:
+    """Same-shape :class:`TiledSupports` plans (a fleet shape class's grown
+    members) stacked on a leading member axis, one of them selected by a
+    device slot inside a step, as the JAX fleet superstep takes its
+    member's plan leaf by leaf (``jnp.take`` over the member axis).
+
+    The kernels' derived operands of each member — its row orders and, for
+    each dtype in ``dtypes``, its cast blocks (``BlockSparseStack.astype``)
+    — are stacked beside the plans, so a selected plan carries them and
+    derives nothing on first use: inside a CUDA-graph capture a cache
+    filled lazily would hold memory the capture never wrote."""
+
+    FIELDS = ("perm", "inv", "data", "idx", "nblk", "data_t", "idx_t", "nblk_t")
+
+    def __init__(self, plans, dtypes=()):
+        plans = list(plans)
+        first = plans[0]
+        for p in plans:
+            if (p.n, p.tile) != (first.n, first.tile) or any(
+                    getattr(p, f).shape != getattr(first, f).shape for f in self.FIELDS):
+                raise ValueError("stacked plans must share every shape (grow them with "
+                                 "pad_to and with_block_cols first)")
+        self.n, self.tile = first.n, first.tile
+        stacks = [p.as_stack() for p in plans]
+        self._fields = {f: torch.stack([getattr(p, f) for p in plans]) for f in self.FIELDS}
+        self._fields["row_order"] = torch.stack([s.row_order for s in stacks])
+        self._fields["row_order_t"] = torch.stack([s.row_order_t for s in stacks])
+        self._dtypes = tuple(d for d in dtypes if d != first.data.dtype)
+        for d in self._dtypes:
+            casts = [s.astype(d) for s in stacks]
+            self._fields[f"data {d}"] = torch.stack([c.data for c in casts])
+            self._fields[f"data_t {d}"] = torch.stack([c.data_t for c in casts])
+
+    def __len__(self) -> int:
+        return self._fields["perm"].shape[0]
+
+    def select(self, slot: torch.Tensor) -> TiledSupports:
+        """The plan of the member at ``slot`` (an int ``(1,)`` tensor on
+        the plans' device), with its kernel operands in place."""
+        f = {k: v.index_select(0, slot)[0] for k, v in self._fields.items()}
+        plan = TiledSupports(**{k: f[k] for k in self.FIELDS}, n=self.n, tile=self.tile)
+        stack = plan.as_stack()
+        orders = {"row_order": f["row_order"], "row_order_t": f["row_order_t"]}
+        stack.__dict__.update(orders)
+        casts = stack.__dict__.setdefault("_casts", {})
+        for d in self._dtypes:
+            casts[d] = dataclasses.replace(stack, data=f[f"data {d}"], data_t=f[f"data_t {d}"])
+            casts[d].__dict__.update(orders)
+        return plan
 
 
 def plan_tiling(dense, tile: int = TILE) -> TiledSupports:

@@ -2,17 +2,24 @@
 
 Counterpart of ``stmgcn_tpu/serving/engine.py`` (``ServingEngine``):
 
-- **shape buckets** — one callable per ladder rung
+- **shape buckets** — one program per ladder rung
   (``ServingConfig.buckets``); every batch is zero-padded up to the
   smallest covering rung, so the device only ever sees ladder shapes. The
-  JAX engine compiles each rung ahead of time; here a rung is a plain
-  eager forward (per-rung CUDA graphs are later work);
+  JAX engine compiles each rung ahead of time; here each rung is captured
+  ahead of time as a CUDA graph (``graphs``, default on for CUDA;
+  :mod:`stmgcn_tpu_torch.graphs`) over a static history buffer, so a
+  request is one host->device copy, one replay and one readback, with
+  concurrent callers serialized by the generation's pool lock;
+  ``graphs=False`` (and the CPU) runs the same rung programs eagerly;
 - **device-resident operands** — the support stack (for a metro-scale
-  city, the tiled plan) is placed on the device once; the model lives behind one atomic ``(generation, model)``
-  reference, so the history window is the only per-request upload and
-  :meth:`ServingEngine.swap_params` hot-swaps new weights between
-  dispatches. Every response can report the generation that produced it
-  and is never mixed-generation — a dispatch reads the reference once;
+  city, the tiled plan) is placed on the device once, and every
+  generation's graphs read it there; the model and its rungs live behind
+  one atomic ``(generation, model, programs)`` reference, so the history
+  window is the only per-request upload and :meth:`ServingEngine.swap_params`
+  hot-swaps new weights between dispatches, capturing the new
+  generation's ladder (counted apart from recaptures) before publishing
+  it. Every response can report the generation that produced it and is
+  never mixed-generation — a dispatch reads the reference once;
 - **dynamic micro-batching** — concurrent callers coalesce into the
   smallest covering rung (:mod:`stmgcn_tpu_torch.serving.microbatch`), with
   per-bucket latency/queue/pad-waste telemetry
@@ -33,14 +40,23 @@ Not ported yet: ``from_artifact`` and the drift monitor.
 from __future__ import annotations
 
 import copy
+import dataclasses
+import functools
 import os
 import threading
 import time
-from typing import Optional
+from typing import Callable, Optional
 
 import numpy as np
 import torch
 
+from stmgcn_tpu_torch.graphs import (
+    CapturedProgram,
+    DeviceOps,
+    GraphPool,
+    Program,
+    resolve_graphs,
+)
 from stmgcn_tpu_torch.models.params import from_jax_params
 from stmgcn_tpu_torch.obs.registry import REGISTRY
 from stmgcn_tpu_torch.ops.layers import resolve_device
@@ -56,7 +72,7 @@ from stmgcn_tpu_torch.serving.metrics import EngineStats
 from stmgcn_tpu_torch.serving.microbatch import MicroBatcher
 from stmgcn_tpu_torch.train.checkpoint import load_latest_verified
 
-__all__ = ["CheckpointWatcher", "ServingEngine"]
+__all__ = ["CheckpointWatcher", "Generation", "ServingEngine", "rung_program"]
 
 #: bound on the re-dispatch loop that keeps multi-chunk responses on one
 #: param generation — hit only under pathological swap churn
@@ -64,16 +80,59 @@ _SWAP_RETRIES = 20
 
 
 def _bucket_program(sup_dev, device: torch.device):
-    """One rung's serving program: ``(model, history) -> predictions`` on
-    the host, supports (a dense stack or a tiled plan) bound
-    device-resident."""
+    """A rung's forward, ``(model, history) -> predictions``, over the
+    supports (a dense stack or a tiled plan) resident on ``device``; each
+    generation builds its rung programs on it (:func:`rung_program`)."""
 
-    def run(model, history: np.ndarray) -> np.ndarray:
+    def forward(model, history: torch.Tensor) -> torch.Tensor:
+        return model(sup_dev, history)
+
+    return forward
+
+
+def rung_program(ops: DeviceOps, bucket: int, expected: tuple, forward: Callable, *,
+                 graphs: bool, name: str, swap: bool = False, slots: bool = False):
+    """One rung's program on ``ops``: ``forward(history[, slots])`` over a
+    static ``(bucket, *expected)`` history buffer (and ``(bucket,)`` int
+    slots). Under ``graphs`` it is captured into ``ops`` (a
+    :class:`GraphPool`) here, warmed up on zeros; otherwise it runs eagerly
+    on every call. Returns ``run(history[, slots]) -> predictions`` on the
+    host; the history may be shorter than the rung (its tail rows are
+    zeros)."""
+    spec = {"history": ((bucket,) + tuple(expected), torch.float32)}
+    if slots:
+        spec["slots"] = ((bucket,), torch.int32)
+
+    def body(v):
         with torch.inference_mode():
-            out = model(sup_dev, torch.as_tensor(history, device=device))
-        return out.float().cpu().numpy()  # a bf16 model's predictions, exactly
+            args = (v["history"], v["slots"]) if slots else (v["history"],)
+            return forward(*args).float()  # a bf16 model's predictions, exactly
+
+    if graphs:
+        program = CapturedProgram(body, spec, ops, name=name, swap=swap)
+        program({})
+    else:
+        program = Program(body, spec, ops, name=name)
+
+    def run(history: np.ndarray, slot_rows: Optional[np.ndarray] = None) -> np.ndarray:
+        values = {"history": history}
+        if slots:
+            values["slots"] = slot_rows
+        return program(values).numpy()
 
     return run
+
+
+@dataclasses.dataclass(frozen=True)
+class Generation:
+    """One parameter generation of an engine: its number, its model(s) and
+    its rung programs (captured into ``pool``, or eager when ``pool`` is
+    None). A dispatch reads the engine's one reference to it once."""
+
+    number: int
+    model: object
+    programs: dict
+    pool: Optional[GraphPool] = None
 
 
 def swapped_copy(model, state_dict):
@@ -219,18 +278,23 @@ class ServingEngine:
     when ``shed_policy="degrade"``).
     """
 
-    def __init__(self, programs, model, normalizer, expected, config, device):
-        self._programs = dict(programs)  # bucket -> run(model, history)
+    def __init__(self, forwards, model, normalizer, expected, config, device, *,
+                 graphs: bool = False):
+        # bucket -> forward(model, history): each rung's forward
+        self._forwards = dict(forwards)
+        #: whether each generation's rungs are captured CUDA graphs
+        self.graphs = graphs
         self.normalizer = normalizer
         self.expected = tuple(expected)  # (seq_len, n_nodes, input_dim)
         self.config = config
         self.device = device
-        self._buckets = tuple(sorted(self._programs))
+        self._buckets = tuple(sorted(self._forwards))
         self.stats = EngineStats()
-        # ONE reference holds (generation, model): dispatches read it once,
-        # swaps replace it whole — a response is never computed from a mix
-        # of generations (CPython reference reads are atomic)
-        self._current = (0, model)
+        # ONE reference holds the generation (number, model, programs):
+        # dispatches read it once, swaps replace it whole — a response is
+        # never computed from a mix of generations (CPython reference reads
+        # are atomic)
+        self._current = self._generation(0, model)
         self.admission = (
             AdmissionController(config, self.stats, self._buckets)
             if config.deadline_ms is not None or config.queue_bound_rows
@@ -255,9 +319,26 @@ class ServingEngine:
             raise ValueError("invalid serving config: " + "; ".join(bad))
         return cfg
 
+    def _generation(self, number: int, model, swap: bool = False) -> Generation:
+        """Generation ``number`` over ``model``: its rung programs, under
+        ``graphs`` captured into one new pool (a swap's captures counted as
+        such) before anything can read them."""
+        ops = GraphPool(self.device) if self.graphs else DeviceOps(self.device)
+        programs = {b: rung_program(ops, b, self.expected, functools.partial(fwd, model),
+                                    graphs=self.graphs, name=f"serving rung {b}", swap=swap)
+                    for b, fwd in self._forwards.items()}
+        return Generation(number, model, programs, ops if self.graphs else None)
+
+    @property
+    def graph_pool_bytes(self) -> Optional[int]:
+        """Device bytes the current generation's graph pool reserved
+        (None when the rungs run eagerly)."""
+        pool = self._current.pool
+        return None if pool is None else pool.reserved_bytes
+
     @classmethod
     def from_forecaster(cls, fc, supports, *, config=None, city=None,
-                        device=None) -> "ServingEngine":
+                        device=None, graphs: Optional[bool] = None) -> "ServingEngine":
         """Engine over a :class:`~stmgcn_tpu_torch.inference.Forecaster`
         (over one city of a heterogeneous checkpoint, whose normalizer and
         region count it bakes in: ``city=``, checked as
@@ -268,9 +349,13 @@ class ServingEngine:
         a :class:`~stmgcn_tpu_torch.ops.tiling.TiledSupports` plan served
         by a tiled model — are validated against the model and placed on
         the device once, where they stay across ``swap_params``; the
-        engine serves its own copy of the forecaster's model.
+        engine serves its own copy of the forecaster's model. ``graphs``
+        captures one CUDA graph per rung here and per rung at every swap
+        (``None``: on for CUDA; ``True`` on the CPU raises); ``graphs=False``
+        runs each rung eagerly.
         """
         device = resolve_device(device)
+        graphs = resolve_graphs(graphs, device)
         cfg = cls._resolve_config(
             config if config is not None else getattr(fc.config, "serving", None)
         )
@@ -292,17 +377,17 @@ class ServingEngine:
                 raise ValueError(f"supports must be {want}, got {supports.shape}")
         sup_dev = place_supports(supports, device)
         model.check_supports(sup_dev)
-        program = _bucket_program(sup_dev, device)
+        forward = _bucket_program(sup_dev, device)
         served = copy.deepcopy(model).to(device).eval()
-        return cls({b: program for b in cfg.buckets}, served, normalizer, expected, cfg,
-                   device)
+        return cls({b: forward for b in cfg.buckets}, served, normalizer, expected, cfg,
+                   device, graphs=graphs)
 
     # -- hot swap --------------------------------------------------------
 
     @property
     def generation(self) -> int:
         """Monotonic param-generation counter (0 = construction params)."""
-        return self._current[0]
+        return self._current.number
 
     def swap_params(self, state_dict) -> int:
         """Atomically replace the serving parameters; returns the new
@@ -310,20 +395,22 @@ class ServingEngine:
 
         ``state_dict`` must match the served model's keys, shapes and
         dtypes exactly. The new weights load into a fresh copy of the
-        model, which is published as one reference swap: in-flight
-        dispatches finish on the generation they read at entry, every
-        later dispatch sees the new one.
+        model (whose rungs are captured first, under ``graphs``), which is
+        published as one reference swap: in-flight dispatches finish on the
+        generation they read at entry, every later dispatch sees the new
+        one.
         """
-        gen, cur = self._current
-        self._current = (gen + 1, swapped_copy(cur, state_dict))
+        cur = self._current
+        gen = cur.number + 1
+        self._current = self._generation(gen, swapped_copy(cur.model, state_dict), swap=True)
         REGISTRY.counter("serving.swaps").inc()
-        REGISTRY.gauge("serving.generation").set(gen + 1)
-        return gen + 1
+        REGISTRY.gauge("serving.generation").set(gen)
+        return gen
 
     @property
     def m_graphs(self) -> int:
         """The served model's branch count (what a checkpoint tree needs)."""
-        return self._current[1].m_graphs
+        return self._current.model.m_graphs
 
     def watch_checkpoints(self, out_dir: str, *, poll_s: Optional[float] = None,
                           log=None) -> CheckpointWatcher:
@@ -353,7 +440,7 @@ class ServingEngine:
         on every coalesced request. ``segments`` is ``((offset, n_rows,
         pre_normalized), ...)`` in payload order; pre-normalized rows are
         kept verbatim."""
-        gen, model = self._current  # ONE read — whole dispatch, one gen
+        current = self._current  # ONE read — whole dispatch, one gen
         norm = self.normalizer
         if norm is None or all(pre for _, _, pre in segments):
             batch = payload
@@ -362,9 +449,9 @@ class ServingEngine:
             for ofs, n, pre in segments:
                 if pre:
                     batch[ofs:ofs + n] = payload[ofs:ofs + n]
-        out = self._programs[bucket](model, pad_to_bucket(batch, bucket))
+        out = current.programs[bucket](pad_to_bucket(batch, bucket))
         out = norm.inverse(out) if norm is not None else out
-        return out, gen
+        return out, current.number
 
     def _call_batched(self, history: np.ndarray, normalized: bool):
         """Micro-batched path; returns ``(out, generation)`` with every

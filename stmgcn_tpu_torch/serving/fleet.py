@@ -21,9 +21,16 @@ Cities the planner leaves unassigned get a private exact-fit class. A city
 whose supports are a :class:`~stmgcn_tpu_torch.ops.tiling.TiledSupports`
 plan always serves in a private exact-fit class, through the tiled model
 (the plan owns its whole reordered node axis), never with per-row stacks.
-The models of every class sit behind one ``(generation, models)``
-reference, so one ``swap_params`` (or the checkpoint watcher) re-points
-the whole fleet, and every dispatch reads one generation.
+The models of every class sit behind one ``(generation, models,
+programs)`` reference, so one ``swap_params`` (or the checkpoint watcher)
+re-points the whole fleet, and every dispatch reads one generation.
+
+With ``graphs`` (default on for CUDA) each (class, batch rung) is one CUDA
+graph, the counterpart of the JAX engine's one compiled program per
+(class, bucket): a dense class's graph takes the rows' slots as a static
+int buffer and gathers each row's support stack and real-node count
+inside the graph; a tiled city's private class binds its plan. A swap
+captures the new generation's programs before publishing them.
 
 Not ported: the drift monitor (``enable_drift``, ``drift_snapshot``;
 ROADMAP A9) and fault plans and a global budget (A10), which raise by name.
@@ -32,48 +39,50 @@ ROADMAP A9) and fault plans and a global budget (A10), which raise by name.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import time
 from typing import Optional
 
 import numpy as np
 import torch
 
+from stmgcn_tpu_torch.graphs import DeviceOps, GraphPool, resolve_graphs
 from stmgcn_tpu_torch.obs.registry import REGISTRY
 from stmgcn_tpu_torch.ops.layers import resolve_device
 from stmgcn_tpu_torch.ops.tiling import TiledSupports
 from stmgcn_tpu_torch.serving.admission import AdmissionController, BatcherWedged, ShedError
 from stmgcn_tpu_torch.serving.bucketing import pad_to_bucket, smallest_covering_bucket
-from stmgcn_tpu_torch.serving.engine import CheckpointWatcher, ServingEngine, swapped_copy
+from stmgcn_tpu_torch.serving.engine import (
+    CheckpointWatcher,
+    Generation,
+    ServingEngine,
+    rung_program,
+    swapped_copy,
+)
 from stmgcn_tpu_torch.serving.metrics import EngineStats
 from stmgcn_tpu_torch.serving.microbatch import MicroBatcher
 
 __all__ = ["FleetServingEngine"]
 
 
-def _dense_program(stack_dev, n_real_dev, device):
-    """A dense class's program: ``(models, slots, history) -> predictions``;
-    each row takes its city's support stack and real-node count by slot."""
+def _dense_forward(models, stack_dev, n_real_dev):
+    """A dense class's forward ``(history, slots)``: each row takes its
+    city's support stack and real-node count by slot."""
 
-    def run(models, slots: np.ndarray, history: np.ndarray) -> np.ndarray:
-        s = torch.as_tensor(slots, dtype=torch.long, device=device)
-        with torch.inference_mode():
-            out = models["dense"](stack_dev.index_select(0, s),
-                                  torch.as_tensor(history, device=device),
-                                  n_real_dev.index_select(0, s))
-        return out.float().cpu().numpy()
+    def forward(history, slots):
+        return models["dense"](stack_dev.index_select(0, slots), history,
+                               n_real_dev.index_select(0, slots))
 
-    return run
+    return forward
 
 
-def _tiled_program(plan_dev, device):
-    """A tiled city's private exact-fit program (no slot gather)."""
+def _tiled_forward(models, plan_dev):
+    """A tiled city's private exact-fit forward (no slot gather)."""
 
-    def run(models, slots: np.ndarray, history: np.ndarray) -> np.ndarray:
-        with torch.inference_mode():
-            out = models["tiled"](plan_dev, torch.as_tensor(history, device=device))
-        return out.float().cpu().numpy()
+    def forward(history, slots):
+        return models["tiled"](plan_dev, history)
 
-    return run
+    return forward
 
 
 class FleetServingEngine:
@@ -89,13 +98,17 @@ class FleetServingEngine:
         engine.close()
     """
 
-    def __init__(self, plan, groups, programs, batch_buckets, normalizers, city_n, seq_len,
-                 input_dim, config, models, m_graphs: int):
+    def __init__(self, plan, groups, forwards, batch_buckets, normalizers, city_n, seq_len,
+                 input_dim, config, models, m_graphs: int, *, graphs: bool, device):
         #: the shape-class plan (the extra exact-fit classes of unassigned
         #: and tiled cities appear in ``groups`` only)
         self.plan = plan
         self._groups = tuple(groups)  # (rung, (city, ...)) per class
-        self._programs = programs  # class -> run(models, slots, history)
+        #: class -> ``forward(models) -> (history, slots) -> out``
+        self._forwards = forwards
+        #: whether each generation's (class, rung) programs are captured
+        self.graphs = graphs
+        self.device = device
         self._buckets = tuple(sorted(batch_buckets))
         self._normalizers = list(normalizers)
         self._city_n = list(city_n)
@@ -111,8 +124,9 @@ class FleetServingEngine:
                 self._city_slot[c] = slot
         #: dispatches whose coalesced rows spanned more than one city
         self.cross_city_dispatches = 0
-        # ONE reference holds (generation, models) for the whole fleet
-        self._current = (0, models)
+        # ONE reference holds the generation (number, models, programs)
+        # for the whole fleet
+        self._current = self._generation(0, models)
         self._watcher: Optional[CheckpointWatcher] = None
         #: per-class telemetry (bucket keys are batch rungs)
         self.class_stats = {ci: EngineStats() for ci in range(len(self._groups))}
@@ -134,10 +148,31 @@ class FleetServingEngine:
 
     # -- construction ---------------------------------------------------
 
+    def _generation(self, number: int, models, swap: bool = False) -> Generation:
+        """Generation ``number`` over ``models``: each class's programs by
+        batch rung, under ``graphs`` captured into one new pool first."""
+        ops = GraphPool(self.device) if self.graphs else DeviceOps(self.device)
+        programs = {}
+        for ci, forward in self._forwards.items():
+            fwd = forward(models)
+            expected = (self._seq_len, self._groups[ci][0], self._input_dim)
+            programs[ci] = {b: rung_program(ops, b, expected, fwd, graphs=self.graphs,
+                                            swap=swap, slots=True,
+                                            name=f"fleet class {ci} rung {b}")
+                            for b in self._buckets}
+        return Generation(number, models, programs, ops if self.graphs else None)
+
+    @property
+    def graph_pool_bytes(self) -> Optional[int]:
+        """Device bytes the current generation's graph pool reserved
+        (None when the classes run eagerly)."""
+        pool = self._current.pool
+        return None if pool is None else pool.reserved_bytes
+
     @classmethod
     def from_forecaster(cls, fc, city_supports, *, config=None, max_classes: int = 8,
                         max_pad_waste: float = 0.5, fault_plan=None, global_budget=None,
-                        device=None) -> "FleetServingEngine":
+                        device=None, graphs: Optional[bool] = None) -> "FleetServingEngine":
         """Engine over a heterogeneous multi-city
         :class:`~stmgcn_tpu_torch.inference.Forecaster`.
 
@@ -146,7 +181,10 @@ class FleetServingEngine:
         sequence). The checkpoint's weights serve in a dense model (and a
         tiled one when a city brings a plan), on ``device`` (``None``
         means the GPU); each dense class's rung-padded support stack and
-        real-node counts are placed there once.
+        real-node counts are placed there once. ``graphs`` captures one CUDA
+        graph per (class, batch rung) here and at every swap (``None``: on
+        for CUDA; ``True`` on the CPU raises); ``graphs=False`` runs them
+        eagerly.
         """
         from stmgcn_tpu_torch.data.fleet import plan_shape_classes
         from stmgcn_tpu_torch.experiment import build_model
@@ -156,6 +194,7 @@ class FleetServingEngine:
                 raise NotImplementedError(
                     f"FleetServingEngine {name}= is not ported yet (ROADMAP.md A10)")
         device = resolve_device(device)
+        graphs = resolve_graphs(graphs, device)
         cfg = ServingEngine._resolve_config(
             config if config is not None else getattr(fc.config, "serving", None))
         if getattr(fc, "normalizers", None) is None:
@@ -197,19 +236,22 @@ class FleetServingEngine:
                                 fc.derived["input_dim"], device=device)
             model.load_state_dict(state)
             models[kind] = model.eval()
-        programs = {}
+        forwards = {}
         for ci, (rung, cities) in enumerate(groups):
             if cities[0] in tiled_cities:
-                programs[ci] = _tiled_program(sups[cities[0]].to(device), device)
+                forwards[ci] = functools.partial(_tiled_forward,
+                                                 plan_dev=sups[cities[0]].to(device))
                 continue
             stack = np.zeros((len(cities), m, k, rung, rung), np.float32)
             for slot, c in enumerate(cities):
                 stack[slot, :, :, :n_nodes[c], :n_nodes[c]] = sups[c]
             n_real = torch.tensor([n_nodes[c] for c in cities], dtype=torch.int32,
                                   device=device)
-            programs[ci] = _dense_program(torch.as_tensor(stack, device=device), n_real, device)
-        return cls(plan, groups, programs, cfg.buckets, fc.normalizers, n_nodes, fc.seq_len,
-                   fc.derived["input_dim"], cfg, models, m)
+            forwards[ci] = functools.partial(_dense_forward,
+                                             stack_dev=torch.as_tensor(stack, device=device),
+                                             n_real_dev=n_real)
+        return cls(plan, groups, forwards, cfg.buckets, fc.normalizers, n_nodes, fc.seq_len,
+                   fc.derived["input_dim"], cfg, models, m, graphs=graphs, device=device)
 
     # -- unported ---------------------------------------------------------
 
@@ -228,19 +270,21 @@ class FleetServingEngine:
     @property
     def generation(self) -> int:
         """Monotonic param-generation counter (0 = construction params)."""
-        return self._current[0]
+        return self._current.number
 
     def swap_params(self, state_dict) -> int:
         """Atomically re-point every shape class at new parameters (a
         ``state_dict`` matching the served models'); returns the new
         generation. In-flight dispatches finish on the generation they
-        read at entry."""
-        gen, models = self._current
-        fresh = {kind: swapped_copy(model, state_dict) for kind, model in models.items()}
-        self._current = (gen + 1, fresh)
+        read at entry; under ``graphs`` the new generation's programs are
+        captured before it is published."""
+        cur = self._current
+        gen = cur.number + 1
+        fresh = {kind: swapped_copy(model, state_dict) for kind, model in cur.model.items()}
+        self._current = self._generation(gen, fresh, swap=True)
         REGISTRY.counter("serving.swaps").inc()
-        REGISTRY.gauge("serving.generation").set(gen + 1)
-        return gen + 1
+        REGISTRY.gauge("serving.generation").set(gen)
+        return gen
 
     def watch_checkpoints(self, out_dir: str, *, poll_s: Optional[float] = None,
                           log=None) -> CheckpointWatcher:
@@ -276,7 +320,7 @@ class FleetServingEngine:
         pre_normalized)), ...)``: each segment is normalized over its
         city's real-node slice only (padded node rows stay zero), and
         denormalized likewise; ``predict`` strips the padded rows."""
-        gen, models = self._current  # ONE read — whole dispatch, one gen
+        current = self._current  # ONE read — whole dispatch, one gen
         if all(pre for _, _, (_, pre) in segments):
             batch = payload
         else:
@@ -289,7 +333,7 @@ class FleetServingEngine:
         slots = np.zeros(bucket, np.int32)
         for ofs, n, (c, _) in segments:
             slots[ofs:ofs + n] = self._city_slot[c]
-        out = self._programs[cls_id](models, slots, pad_to_bucket(batch, bucket))
+        out = current.programs[cls_id][bucket](pad_to_bucket(batch, bucket), slots)
         for ofs, n, (c, _) in segments:
             norm = self._normalizers[c]
             if norm is not None:
@@ -297,7 +341,7 @@ class FleetServingEngine:
                 out[ofs:ofs + n, ..., :nc, :] = norm.inverse(out[ofs:ofs + n, ..., :nc, :])
         if len({c for _, _, (c, _) in segments}) > 1:
             self.cross_city_dispatches += 1
-        return out, gen
+        return out, current.number
 
     def _validate(self, history, city: int) -> np.ndarray:
         self._check_city(city)

@@ -111,39 +111,88 @@ def clip_by_global_norm_(params, max_norm: float) -> torch.Tensor:
 
 class Optimizer:
     """Adam with L2 regularization, clipping and a schedule, with optax's
-    semantics (see the module docstring). ``step()`` takes the parameters'
-    ``.grad``; a parameter without one steps on a zero gradient, as under
-    ``jax.grad`` (its L2 term still applies).
+    semantics (see the module docstring), over device tensors only, so a
+    CUDA graph can capture its update (:meth:`apply`).
+
+    The moments are allocated (zeros) here, and so is every parameter's
+    ``.grad`` that is missing: the gradients stay allocated, :meth:`zero_grad`
+    zeroes them in place, and autograd accumulates into them, so a captured
+    step always reads and writes the same tensors. :attr:`count` (optax's
+    ``count``, the schedule's input) is kept on the host, which fills each
+    step's scalars (:meth:`scalars`): the scheduled rate over Adam's first
+    bias correction, negated, and the square root of the second, computed
+    in float64 as ``torch.optim.Adam`` computes them and rounded once to
+    float32. The update follows ``torch.optim.Adam``'s single-tensor
+    arithmetic op for op, so on the CPU it gives the same bits.
 
     ``parts`` names the optax chain this optimizer stands for, in chain
     order (``models/params.py`` ``OPTAX_PARTS``): checkpoints store the
     state per part, as the JAX package does (:meth:`state_tree`,
     :meth:`load_state_tree`)."""
 
+    BETAS, EPS = (0.9, 0.999), 1e-8
+
     def __init__(self, params, lr: float, weight_decay: float,
                  schedule: Callable[[int], float], grad_clip_norm: Optional[float],
                  parts: tuple):
         self.params = list(params)
         self.schedule = schedule
+        self.weight_decay = weight_decay
         self.grad_clip_norm = grad_clip_norm
         self.parts = tuple(parts)
         #: optimizer steps taken (optax's ``count``: the schedule's input)
         self.count = 0
-        self.adam = torch.optim.Adam(self.params, lr=schedule(0), betas=(0.9, 0.999),
-                                     eps=1e-8, weight_decay=weight_decay)
+        with torch.no_grad():
+            for p in self.params:
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
+        self.exp_avg = [torch.zeros_like(p) for p in self.params]
+        self.exp_avg_sq = [torch.zeros_like(p) for p in self.params]
 
     def zero_grad(self) -> None:
-        self.adam.zero_grad(set_to_none=True)
+        torch._foreach_zero_([p.grad for p in self.params if p.grad is not None])
 
-    def step(self) -> None:
+    def scalars(self, count: int) -> tuple:
+        """``(-lr / (1 - b1^t), sqrt(1 - b2^t))`` of the step that starts at
+        ``count`` (``t = count + 1``), as ``torch.optim.Adam`` computes
+        them."""
+        b1, b2 = self.BETAS
+        step = float(count + 1)
+        return (-(self.schedule(count) / (1 - b1 ** step)), (1 - b2 ** step) ** 0.5)
+
+    @torch.no_grad()
+    def apply(self, scalars: torch.Tensor) -> None:
+        """One update from the parameters' ``.grad`` and ``scalars``, a
+        float32 device tensor ``(2,)`` holding :meth:`scalars`; leaves
+        :attr:`count` to the caller. Launches kernels only (capturable)."""
+        b1, b2 = self.BETAS
         for p in self.params:
             if p.grad is None:
-                p.grad = torch.zeros_like(p)
+                raise RuntimeError("Optimizer.apply: a parameter has no .grad")
         if self.grad_clip_norm is not None:
             clip_by_global_norm_(self.params, self.grad_clip_norm)
-        for group in self.adam.param_groups:
-            group["lr"] = self.schedule(self.count)
-        self.adam.step()
+        grads = [p.grad for p in self.params]
+        if self.weight_decay:
+            grads = torch._foreach_add(grads, self.params, alpha=self.weight_decay)
+        torch._foreach_lerp_(self.exp_avg, grads, 1 - b1)
+        torch._foreach_mul_(self.exp_avg_sq, b2)
+        torch._foreach_addcmul_(self.exp_avg_sq, grads, grads, value=1 - b2)
+        denom = torch._foreach_sqrt(self.exp_avg_sq)
+        torch._foreach_div_(denom, scalars[1])
+        torch._foreach_add_(denom, self.EPS)
+        update = torch._foreach_mul(self.exp_avg, scalars[0])
+        torch._foreach_div_(update, denom)
+        torch._foreach_add_(self.params, update)
+
+    def step(self) -> None:
+        """One eager update: a missing ``.grad`` steps on zeros, as under
+        ``jax.grad`` (its L2 term still applies)."""
+        with torch.no_grad():
+            for p in self.params:
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
+        device = self.params[0].device if self.params else "cpu"
+        self.apply(torch.tensor(self.scalars(self.count), dtype=torch.float32).to(device))
         self.count += 1
 
     def state_tree(self, names, m_graphs: int, layout: str = "vmapped") -> dict:
@@ -151,16 +200,15 @@ class Optimizer:
         ``names`` the ``state_dict`` names of ``self.params`` in order:
         Adam's moments (zeros before the first step) become ``mu``/``nu``
         and :attr:`count` every ``count``."""
-        mu, nu = {}, {}
-        for name, p in zip(names, self.params, strict=True):
-            st = self.adam.state.get(p, {})
-            mu[name] = st.get("exp_avg", torch.zeros_like(p))
-            nu[name] = st.get("exp_avg_sq", torch.zeros_like(p))
+        names = list(names)
+        mu = dict(zip(names, self.exp_avg, strict=True))
+        nu = dict(zip(names, self.exp_avg_sq, strict=True))
         return to_optax_state(self.parts, self.count, mu, nu, m_graphs, layout=layout)
 
     def load_state_tree(self, tree: dict, names, m_graphs: int) -> None:
         """Install a stored optax chain state (either branch layout): Adam's
-        moments and ``step``, and :attr:`count`. Raises when the stored
+        moments, written into the live moment tensors in place (a captured
+        step keeps reading them), and :attr:`count`. Raises when the stored
         chain, names or shapes differ from this optimizer's."""
         count, mu, nu = from_optax_state(tree, self.parts, m_graphs)
         names = list(names)
@@ -172,13 +220,10 @@ class Optimizer:
             if tuple(mu[name].shape) != tuple(p.shape):
                 raise ValueError(f"optimizer state: {name} is {tuple(mu[name].shape)}, the "
                                  f"parameter {tuple(p.shape)}")
-        for name, p in zip(names, self.params):
-            if count == 0:
-                self.adam.state.pop(p, None)
-            else:
-                self.adam.state[p] = {"step": torch.tensor(float(count)),
-                                      "exp_avg": mu[name].to(p.device),
-                                      "exp_avg_sq": nu[name].to(p.device)}
+        with torch.no_grad():
+            for name, m, v in zip(names, self.exp_avg, self.exp_avg_sq):
+                m.copy_(mu[name])
+                v.copy_(nu[name])
         self.count = count
 
 
@@ -240,10 +285,14 @@ def gather_window_batch(series, targets, offsets, idx, horizon: int = 1):
 
 def train_step(model, optimizer: Optimizer, supports, x, y, mask,
                loss: str = "mse", sr_generator: Optional[torch.Generator] = None,
-               n_real: Optional[torch.Tensor] = None) -> torch.Tensor:
+               n_real: Optional[torch.Tensor] = None,
+               scalars: Optional[torch.Tensor] = None) -> torch.Tensor:
     """One optimizer step; returns the (device, detached) loss, unsynced.
     With ``sr_generator`` the model runs on a stochastically rounded bf16
-    shadow of its parameters (``compute_cast``), drawn from it.
+    shadow of its parameters (``compute_cast``), drawn from it. With
+    ``scalars`` (the step's :meth:`Optimizer.scalars` on the device) the
+    update is :meth:`Optimizer.apply` and launches kernels only, as a
+    captured step must; without, :meth:`Optimizer.step`.
 
     A fleet city's step (``make_fleet_superstep_fns``' body,
     ``stmgcn_tpu/train/step.py:809-930``) passes its rung-padded
@@ -257,7 +306,10 @@ def train_step(model, optimizer: Optimizer, supports, x, y, mask,
         pred = torch.func.functional_call(model, shadow, (supports, x, n_real))
     value = masked_loss(loss, pred, y, mask)
     value.backward()
-    optimizer.step()
+    if scalars is None:
+        optimizer.step()
+    else:
+        optimizer.apply(scalars)
     return value.detach()
 
 

@@ -10,9 +10,15 @@ single-device, homogeneous, window-free resident path:
 - batches come from ``DemandDataset.batches(..., pad_last=True,
   with_arrays=False)`` in the JAX order (``shuffle``/``seed``/``epoch``),
   and a ``(B,)`` sample mask drops the padded tail from the loss;
-- ``steps_per_superstep=S`` runs S optimizer steps per block with one loss
-  readback per block (a plain loop of steps; CUDA-graph capture is later
-  work), the short tail block included;
+- ``steps_per_superstep=S`` runs S optimizer steps per block, the tail
+  short of S one step at a time, each block one program over static
+  buffers: one host->device copy of its ``(S, B)`` index block, ``(S, B)``
+  sample mask and ``(S, 2)`` optimizer scalars, one ``loss (S,)``
+  readback. On CUDA the programs are captured (``graphs``, default on for
+  CUDA; :mod:`stmgcn_tpu_torch.graphs`): one CUDA graph per (city or
+  fleet class, S) and per one-step tail, replayed for every later block,
+  the counterpart of the JAX package's jitted superstep scans;
+  ``graphs=False`` runs the same programs eagerly;
 - epoch losses are sample-weighted; best-on-val uses ``<=``, with
   patience and early stop, as the reference does;
 - ``test()`` reports denormalized ``regression_report``s per mode.
@@ -57,6 +63,18 @@ city's own shape, and ``fallback_reason`` says so. ``test()`` reports per
 city, denormalized with each city's normalizer, and checkpoints carry one
 normalizer per city (``normalizers``).
 
+A captured step reads and writes the same tensors on every replay: the
+parameters, their ``.grad`` and Adam's moments are allocated once, and
+:meth:`Trainer.restore` writes a checkpoint into them in place. Capture
+telemetry follows the JAX trainer's jaxmon calls
+(:mod:`stmgcn_tpu_torch.obs.graphmon`): warmup is marked complete after
+the first epoch and the recapture gauge frozen on entering ``test``.
+Stochastic rounding (``sr_seed``) draws from one generator reseeded from
+``(sr_seed, step)`` before every step; under ``graphs`` its steps are
+captured one at a time with the generator's state registered with each
+graph (``CUDAGraph.register_generator_state``; a torch without it raises
+at construction). Evaluation and ``test`` forwards run eagerly.
+
 Not ported: streaming placement, materialized windows, node padding for
 meshes and meshes, the divergence guard and fault plan, SIGTERM emergency
 checkpoints, health telemetry and sanitizers.
@@ -78,10 +96,12 @@ import torch
 
 from stmgcn_tpu_torch.config import check_precision
 from stmgcn_tpu_torch.data.splits import MODES
+from stmgcn_tpu_torch.graphs import CapturedProgram, DeviceOps, GraphPool, Program, resolve_graphs
 from stmgcn_tpu_torch.models.params import from_jax_params, jax_layout, to_jax_params
+from stmgcn_tpu_torch.obs import graphmon
 from stmgcn_tpu_torch.ops.layers import resolve_device, set_compute_dtype
 from stmgcn_tpu_torch.ops.spmm import place_supports
-from stmgcn_tpu_torch.ops.tiling import TiledSupports
+from stmgcn_tpu_torch.ops.tiling import StackedPlans, TiledSupports
 from stmgcn_tpu_torch.train.checkpoint import (
     load_checkpoint,
     load_latest_verified,
@@ -151,6 +171,33 @@ class _CityData:
     pad: int
 
 
+@dataclasses.dataclass
+class _Site:
+    """What one training program's steps read: one city's resident series,
+    per-mode targets and supports; or a fleet shape class's, shared by its
+    members as the JAX fleet superstep shares one program: the class
+    series, the members' targets concatenated member after member (each
+    batch's indices shifted to its member's start), their supports stacked
+    on a member axis (a dense stack or :class:`StackedPlans`) and their
+    real-node counts, both selected by the block's slot on the device."""
+
+    series: torch.Tensor
+    targets: dict
+    supports: object
+    n_real: Optional[torch.Tensor]  # (members,) int32 for a class, None for a city
+
+    def select(self, slot: Optional[torch.Tensor]) -> tuple:
+        """``(supports, n_real)`` of the member at ``slot`` (``(1,)``; a
+        city's site has no slot)."""
+        if self.n_real is None:
+            return self.supports, None
+        if isinstance(self.supports, StackedPlans):
+            sup = self.supports.select(slot)
+        else:
+            sup = self.supports.index_select(0, slot)[0]
+        return sup, self.n_real.index_select(0, slot).reshape(())
+
+
 class Trainer:
     """Trains an :class:`~stmgcn_tpu_torch.models.STMGCN` over a
     :class:`~stmgcn_tpu_torch.data.DemandDataset`.
@@ -166,7 +213,10 @@ class Trainer:
     (created on the first write); ``extra_meta`` is merged into every
     checkpoint's meta (``build_trainer`` puts the config and the derived
     model facts there, as the JAX package does). ``device=None`` means the
-    GPU, and raises without one. Other arguments as the JAX ``Trainer``'s.
+    GPU, and raises without one. ``graphs`` captures the training programs
+    as CUDA graphs (``None``: on for CUDA; ``True`` on the CPU raises);
+    ``graphs=False`` runs them eagerly. Other arguments as the JAX
+    ``Trainer``'s.
     """
 
     def __init__(self, model, dataset, supports, *, lr: float = 2e-3,
@@ -181,7 +231,7 @@ class Trainer:
                  checkpoint_every_steps: int = 0, precision: str = "fp32",
                  sr_seed: Optional[int] = None, extra_meta: Optional[dict] = None,
                  initial_state: Optional[dict] = None, device=None,
-                 verbose: bool = True):
+                 graphs: Optional[bool] = None, verbose: bool = True):
         check_precision(precision, sr_seed)
         if loss not in LOSSES:
             raise ValueError(f"loss must be one of {LOSSES}, got {loss!r}")
@@ -204,6 +254,13 @@ class Trainer:
                     "or provide more data"
                 )
         self.device = resolve_device(device)
+        self.graphs = resolve_graphs(graphs, self.device)
+        if self.graphs and sr_seed is not None and not hasattr(
+                torch.cuda.CUDAGraph, "register_generator_state"):
+            raise RuntimeError(
+                f"sr_seed under graphs: torch {torch.__version__} has no "
+                "CUDAGraph.register_generator_state to replay the rounding draws; "
+                "pass graphs=False to train eagerly")
         self.dataset = dataset
         self.loss = loss
         self.n_epochs = n_epochs
@@ -241,6 +298,9 @@ class Trainer:
         #: member city's place in them
         self.fleet_plan = None
         self._fleet_cities: dict = {}
+        #: each fleet class's member supports stacked (dense) or
+        #: StackedPlans (tiled), by class index
+        self._class_supports: dict = {}
         blocker = self._fleet_blocker()
         if fleet is True and blocker is not None:
             raise ValueError(f"fleet=True cannot engage: {blocker}")
@@ -257,6 +317,14 @@ class Trainer:
         if self.fallback_reason is not None:
             self._log(f"[slow-path] {self.fallback_reason} (steps_per_superstep="
                       f"{steps_per_superstep}, train_path={self.train_path})")
+        self._sites, self._city_site = self._training_sites()
+        #: the graph pool of every captured training program (None when
+        #: ``graphs`` is off); its ``reserved_bytes`` is their memory
+        self.graph_pool = GraphPool(dev) if self.graphs else None
+        self._ops = self.graph_pool or DeviceOps(dev)
+        self._programs: dict = {}
+        # one stochastic-rounding generator, reseeded before each step
+        self._sr_gen = (torch.Generator(device=dev) if sr_seed is not None else None)
 
         # schedule extents are optimizer steps (pad_last: one per batch)
         spe = self.train_steps_per_epoch
@@ -326,6 +394,14 @@ class Trainer:
                 c_t_common = max(sups[c].data_t.shape[3] for c in cls.cities)
                 for c in cls.cities:
                     sups[c] = sups[c].with_block_cols(c_common, c_t_common)
+                compute = getattr(self.model, "compute_dtype", None)
+                self._class_supports[ci] = StackedPlans(
+                    [sups[c] for c in cls.cities], dtypes=(compute,) if compute else ())
+            else:  # one stack; each member's supports a view of its slot
+                stack = torch.stack([sups[c] for c in cls.cities])
+                self._class_supports[ci] = stack
+                for slot, c in enumerate(cls.cities):
+                    sups[c] = stack[slot]
         self.supports = CitySupports(sups)
 
     def _upload(self, array: np.ndarray) -> torch.Tensor:
@@ -360,6 +436,28 @@ class Trainer:
                                       torch.tensor(info.n_real, dtype=torch.int32, device=dev),
                                       info.pad)
         return cities
+
+    def _training_sites(self) -> tuple:
+        """``(sites, where)``: every training program's :class:`_Site` by
+        key (``("city", c)``, or ``("class", ci)`` shared by a fleet class's
+        members), and each city's ``(site key, slot, {mode: target
+        start})``."""
+        sites, where = {}, {}
+        for c, data in self._cities.items():
+            if c not in self._fleet_cities:
+                sites["city", c] = _Site(data.series, data.targets, data.supports, None)
+                where[c] = (("city", c), 0, dict.fromkeys(MODES, 0))
+        for ci, cls in enumerate(self.fleet_plan.classes if self._fleet_cities else ()):
+            members = [self._cities[c] for c in cls.cities]
+            targets = {m: torch.cat([d.targets[m] for d in members]) for m in MODES}
+            starts = {m: np.cumsum([0] + [len(d.targets[m]) for d in members]) for m in MODES}
+            n_real = torch.tensor([self._fleet_cities[c].n_real for c in cls.cities],
+                                  dtype=torch.int32, device=self.device)
+            sites["class", ci] = _Site(members[0].series, targets, self._class_supports[ci],
+                                       n_real)
+            for slot, c in enumerate(cls.cities):
+                where[c] = (("class", ci), slot, {m: int(starts[m][slot]) for m in MODES})
+        return sites, where
 
     def _train_path(self, blocker) -> tuple:
         """``(train_path, fallback_reason)`` as the JAX trainer names them:
@@ -614,35 +712,99 @@ class Trainer:
             mask = mask[:, None] * (np.arange(n) < n - data.pad).astype(np.float32)[None, :]
         return x, y, torch.as_tensor(mask, device=self.device)
 
-    def sr_generator(self, step: int) -> Optional[torch.Generator]:
-        """The stochastic-rounding noise source of optimizer step ``step``
-        (None without ``sr_seed``): a generator on the trainer's device
-        seeded from ``(sr_seed, step)`` alone."""
-        if self.sr_seed is None:
-            return None
-        seed = (self.sr_seed * 1_000_003 + step) % (1 << 63)
-        return torch.Generator(device=self.device).manual_seed(seed)
+    def _sr_seed(self, step: int) -> int:
+        """The stochastic-rounding seed of optimizer step ``step``, from
+        ``(sr_seed, step)`` alone, so a resumed run draws what the
+        uninterrupted one did."""
+        return (self.sr_seed * 1_000_003 + step) % (1 << 63)
+
+    def _block_body(self, site: _Site, steps: int, mode: str):
+        """The program body of ``steps`` optimizer steps over ``site``: each
+        step gathers its batch from the static index block, masks its loss
+        with the static sample mask (crossed with the member's real nodes
+        in a fleet class) and updates from its static optimizer scalars;
+        returns the ``(steps,)`` losses."""
+
+        def body(v):
+            supports, n_real = site.select(v.get("slot"))
+            node = None
+            if n_real is not None:
+                n = site.series.shape[1]
+                node = (torch.arange(n, device=self.device) < n_real).to(torch.float32)
+            losses = []
+            for s in range(steps):
+                x, y = gather_window_batch(site.series, site.targets[mode], self.offsets,
+                                           v["idx"][s], self.horizon)
+                mask = v["mask"][s] if node is None else v["mask"][s][:, None] * node[None, :]
+                losses.append(train_step(self.model, self.optimizer, supports, x, y, mask,
+                                         self.loss, sr_generator=self._sr_gen, n_real=n_real,
+                                         scalars=v["adam"][s]))
+            return torch.stack(losses)
+
+        return body
+
+    def _program(self, key, steps: int, mode: str) -> Program:
+        """The training program of ``steps`` steps over site ``key`` (made,
+        and on CUDA captured at its first call, once)."""
+        name = (key, steps, mode)
+        program = self._programs.get(name)
+        if program is None:
+            site = self._sites[key]
+            spec = {"idx": ((steps, self.batch_size), torch.int32),
+                    "mask": ((steps, self.batch_size), torch.float32),
+                    "adam": ((steps, 2), torch.float32)}
+            if site.n_real is not None:
+                spec["slot"] = ((1,), torch.int32)
+            body = self._block_body(site, steps, mode)
+            label = f"training block {key[0]} {key[1]}, {steps} step(s)"
+            if self.graphs:
+                program = CapturedProgram(body, spec, self.graph_pool, name=label,
+                                          generator=self._sr_gen)
+            else:
+                program = Program(body, spec, self._ops, name=label)
+            self._programs[name] = program
+        return program
+
+    def _run_block(self, block: list, mode: str = "train") -> list:
+        """The optimizer steps of ``block`` (one city's batches) as one
+        program call, or one call per step under stochastic rounding (its
+        generator is reseeded per step); returns the per-step losses."""
+        key, slot, starts = self._city_site[block[0].city]
+        runs = [[b] for b in block] if self._sr_gen is not None else [block]
+        losses = []
+        for run in runs:
+            count = self.optimizer.count
+            values = {
+                "idx": np.stack([np.asarray(b.indices) + starts[mode] for b in run]),
+                "mask": np.stack([np.arange(len(b)) < b.n_real for b in run]),
+                "adam": np.array([self.optimizer.scalars(count + i) for i in range(len(run))]),
+            }
+            if key[0] == "class":
+                values["slot"] = np.array([slot])
+            if self._sr_gen is not None:
+                self._sr_gen.manual_seed(self._sr_seed(self.global_step))
+            losses += self._program(key, len(run), mode)(values).tolist()
+            self.optimizer.count += len(run)
+            self.global_step += len(run)
+        return losses
 
     def train_batch(self, batch, mode: str = "train") -> torch.Tensor:
-        """One optimizer step on ``batch``; returns its loss on the device."""
-        x, y, mask = self.place(batch, mode)
-        data = self._cities[batch.city]
-        loss = train_step(self.model, self.optimizer, data.supports, x, y, mask, self.loss,
-                          sr_generator=self.sr_generator(self.global_step),
-                          n_real=data.n_real)
-        self.global_step += 1
-        return loss
+        """One optimizer step on ``batch`` (its one-step program); returns
+        its loss as a host scalar tensor."""
+        return torch.tensor(self._run_block([batch], mode)[0])
 
     def _blocks(self, batches: list, skip: int) -> list:
         """The epoch's remaining batches as dispatch blocks, each with one
-        loss readback: blocks of S over the shared series; on the fleet
-        path (entered at a block boundary, ``skip % S == 0``, as the JAX
-        trainer's), blocks of S within each run of one fleet city's
-        batches, its tail and unassigned cities one batch at a time;
-        otherwise one batch at a time."""
+        loss readback: blocks of S over the shared series, the tail short
+        of S one batch at a time; on the fleet path (entered at a block
+        boundary, ``skip % S == 0``, as the JAX trainer's), blocks of S
+        within each run of one fleet city's batches, its tail and
+        unassigned cities one batch at a time; otherwise one batch at a
+        time."""
         S, rest = self.steps_per_superstep, batches[skip:]
         if self.train_path == "series_superstep":
-            return [rest[i:i + S] for i in range(0, len(rest), S)]
+            full = len(rest) // S * S
+            return [rest[i:i + S] for i in range(0, full, S)] + [[b] for b in rest[full:]]
         if self.train_path != "fleet_superstep" or skip % S:
             return [[b] for b in rest]
         blocks = []
@@ -666,9 +828,7 @@ class Trainer:
         self._batch_in_epoch = skip
         K = self.checkpoint_every_steps
         for block in self._blocks(batches, skip):
-            block_losses = [self.train_batch(b) for b in block]
-            # one readback per block
-            self._epoch_losses += torch.stack(block_losses).tolist()
+            self._epoch_losses += self._run_block(block)
             self._epoch_counts += [b.n_real for b in block]
             self._batch_in_epoch += len(block)
             if K and self.global_step - self._last_cadence_step >= K:
@@ -720,6 +880,10 @@ class Trainer:
             t0 = time.time()
             train_loss = self._run_train_epoch()
             val_loss = self._run_eval_epoch("validate")
+            if epoch == start_epoch:
+                # every block and tail program of the loop has been captured:
+                # a later capture is a recapture (the JAX trainer's jaxmon mark)
+                graphmon.mark_warmup_complete()
             # the epoch is consumed: the saves below point a resume at epoch + 1
             self._batch_in_epoch = 0
             self._epoch_losses, self._epoch_counts = [], []
@@ -780,6 +944,8 @@ class Trainer:
         cities are denormalized each with its own normalizer and reported
         per city too (``per_city``); the overall report pools every city's
         raw-unit values."""
+        # the warmed training loop is over: pin the recapture gauge
+        graphmon.freeze_recaptures()
         state = None
         if checkpoint is not None:
             path = self.best_path if checkpoint == "best" else checkpoint

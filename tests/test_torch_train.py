@@ -59,6 +59,9 @@ OPTIMIZERS = {
                    decay_steps=6, min_lr_fraction=0.1),
     "cosine_clip_nowarmup": dict(lr=5e-3, schedule="cosine", decay_steps=5,
                                  grad_clip_norm=3.0),
+    "cosine_warmup_clip_l2": dict(lr=5e-3, weight_decay=1e-4, schedule="cosine",
+                                  warmup_steps=2, decay_steps=7, min_lr_fraction=0.1,
+                                  grad_clip_norm=0.5),
 }
 
 
