@@ -186,6 +186,48 @@ of each route (busy time and idle share):
     allowed), each answer held to ``Forecaster.predict`` at the serving
     tolerance.
 
+Phases 36-39 are the resilience slice (health twins, the divergence guard,
+fault plans, SIGTERM, serving drift), run after phase 29 at the dense
+flagship (fp32; 36 in bf16 too) and the multicity fleet; phase 40 runs
+after phase 34 on the metro plan. Every fp32 record carries their launches
+as ``resilience_launches`` (B1/B2 from 36-39, B1-B4 from 40), the bf16 B1/B2
+records those of 36's bf16 run:
+
+36. health: one step's in-graph health row against a recomputation from
+    the card's tensors after it, and (fp32) against the CPU port's plain
+    versions from one state, clean and NaN- and Inf-poisoned (norms at
+    HEALTH_RTOL, non-finite counts exact); two epochs in blocks of 4 with
+    the health twin on every dispatch, the parameters after each dispatch
+    bitwise those of a plain trainer from the same state; health.jsonl one
+    record per dispatch (every_k 1) and per second one (every_k 2); the
+    twin's step p50 beside the plain step's; the graph pools' bytes with
+    and without the twins; in each multicity fleet block's ``city_loss`` the
+    block city's slot holding each step's loss exactly and the others 0;
+37. the guard and faults: a poison at POISON_AT, skipped by the guard,
+    ends bitwise equal to a drop run; ``defer`` retries at the epoch's end
+    and ``lr_cut`` lands in meta; three poisons in a row abort with the
+    hint; the guard-on block p50 beside guard-off; truncate-, corrupt- and
+    torn-write on latest.ckpt fall back through ``load_latest_verified``;
+38. SIGTERM: a ``sigterm`` fault at SIGTERM_AT raises ``Preempted`` and a
+    fresh trainer resumes to bitwise the uninterrupted run's end (the time
+    to its first step printed); ``python -m stmgcn_tpu_torch.cli --preset
+    default`` at the flagship's grid and batch gets a real SIGTERM after
+    its first epoch, exits 143 (the seconds from the signal to the
+    emergency file printed) and ``--resume`` finishes;
+39. serving: the health run's best.ckpt (baseline, ``health.drift``) in a
+    dense engine: held-out windows silent on the input gauge's PSI, traffic
+    x DRIFT_SHIFT firing, the reset on ``swap_params``; the prediction
+    gauge equal to a host monitor's over the served predictions and silent
+    for the held-out targets (the served predictions' reading printed);
+    the rung-1 p50 with drift on and off;
+    ``batcher-die`` degrading to the inline path (answers equal
+    ``Forecaster.predict``), ``dispatch-slow`` shedding under a deadline,
+    the watcher's ``corrupt-checkpoint`` hook rejecting the file; the
+    fleet engine's drift over both cities;
+40. the metro plan: one epoch of tiled health training (B3/B4 per forward
+    and step counted), then a poison skipped by the guard against a drop
+    run, held to agree_over_steps' tolerances (B4 adds with atomics).
+
 Checkpoints go to a temporary directory that the run removes.
 
 The last three lines are the card, one JSON object describing each kernel
@@ -1067,21 +1109,21 @@ def train_and_test(trainer, per_forward, per_step, what):
     from stmgcn_tpu_torch.obs import graphmon
 
     first: dict = {}
-    run_block = trainer._run_block
+    dispatch = trainer._dispatch
 
-    def block_checking_grads(block, mode="train"):
-        losses = run_block(block, mode)
+    def block_checking_grads(*args, **kw):
+        out = dispatch(*args, **kw)
         if not first:  # every parameter's gradient, after the first block
             first.update(grads_ok(trainer))
-        return losses
+        return out
 
-    trainer._run_block = block_checking_grads
+    trainer._dispatch = block_checking_grads
     reset_counts()
     history = trainer.train()
     snap = graphmon.snapshot()
     results = trainer.test()
     counts = read_counts()
-    del trainer._run_block
+    del trainer._dispatch
     if snap["recaptures_after_warmup"]:
         fail(f"{what}: {snap['recaptures_after_warmup']} captures after the first epoch")
     if trainer.graphs:
@@ -1263,17 +1305,17 @@ def checkpoints(device, root: str):
     t1 = time.perf_counter()
     meta = b.restore(mid)
     first: list = []
-    run_block = b._run_block
+    dispatch = b._dispatch
 
-    def timed_block(block, mode="train"):
-        losses = run_block(block, mode)
+    def timed_block(*args, **kw):
+        out = dispatch(*args, **kw)
         if not first:
             first.append(time.perf_counter())  # the losses' readback synchronized
-        return losses
+        return out
 
-    b._run_block = timed_block
+    b._dispatch = timed_block
     resumed = b.train()
-    del b._run_block
+    del b._dispatch
     print(f"resume from the mid-epoch latest.ckpt (epoch {meta['epoch']}, {meta['batch_in_epoch']} "
           f"of {b.train_steps_per_epoch} batches consumed, host clock): build_trainer "
           f"{t1 - t0:.4f} s, restore to the end of the first block {first[0] - t1:.4f} s")
@@ -2911,14 +2953,15 @@ AB_CALLS, AB_BLOCKS = 24, 3
 
 def ab_p50(fns: dict, calls: int = AB_CALLS) -> dict:
     """Each route's median host-clock ms of ``fns[route]()`` ending in a
-    synchronize, measured in turns graphed, eager, eager, graphed (one
-    warm-up call each first)."""
+    synchronize, measured in turns first, second, second, first (graphed,
+    eager, eager, graphed for the A/Bs; one warm-up call each first)."""
     import torch
 
     times: dict = {route: [] for route in fns}
     for fn in fns.values():
         fn()
-    for route in ("graphed", "eager", "eager", "graphed"):
+    first, second = fns
+    for route in (first, second, second, first):
         for _ in range(calls // 2):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -3229,6 +3272,729 @@ def metro_ab(device, ds, plan_dev) -> None:
         torch.cuda.empty_cache()
 
 
+# -- resilience and health (phases 36-40) ---------------------------------------
+
+#: the health stats of one step on the card against the CPU's plain versions
+#: from one state: the losses at CPU_LOSS_RTOL, the norms (sums of squares
+#: over every gradient entry, in other orders on the two sides) at
+#: HEALTH_RTOL, the counts exactly; against a recomputation from the same
+#: card tensors after the step, the norms at HEALTH_SELF_RTOL (the same sums
+#: in another order) and the update ratio, whose update is recovered as
+#: p_after - p_before in float32, at HEALTH_RATIO_RTOL
+HEALTH_RTOL, HEALTH_SELF_RTOL, HEALTH_RATIO_RTOL = 1e-4, 1e-5, 1e-3
+#: the guard drill's poisoned batch (epoch, ordinal): inside the second
+#: block of SUPERSTEP, which is rolled back and replayed step by step
+POISON_AT = (1, 5)
+#: the in-process preemption drill's SIGTERM (epoch, ordinal)
+SIGTERM_AT = (2, 6)
+#: the CLI preemption drill: the default preset at the flagship's GRID
+#: (its 1,344 timesteps) for PREEMPT_EPOCHS epochs (long enough that the
+#: signal lands inside train()), SIGTERM once the first epoch's latest.ckpt
+#: lands; the parent waits at most PREEMPT_WAIT_S for it
+PREEMPT_EPOCHS, PREEMPT_WAIT_S = 8, 300
+#: drift: held-out traffic stays under DRIFT_CALM_PSI (the JAX tests' stable
+#: rule), traffic scaled by DRIFT_SHIFT passes DRIFT_FIRE_PSI and
+#: DRIFT_FIRE_Z; dispatch-slow's sleep against the drill's deadline
+DRIFT_CALM_PSI, DRIFT_FIRE_PSI, DRIFT_FIRE_Z, DRIFT_SHIFT = 0.1, 0.25, 10.0, 2.0
+SLOW_MS, SLOW_DEADLINE_MS = 60.0, 20.0
+
+
+def release() -> None:
+    """Free the graph pools of trainers and engines no longer referenced:
+    their programs' bodies close over them, so only the cycle collector
+    frees them, and a dense training pool holds about 4 GB."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def resilience_trainer(device, out: str, *, precision="fp32", initial=None, health_k=None,
+                       drift=False, plan=None, batch=BATCH, epochs=EPOCHS, **train):
+    """The flagship at the bench point (``flagship_config``), with health
+    every ``health_k`` dispatches (None: off), ``health.drift``, a fault
+    plan and train fields (the guard's)."""
+    from stmgcn_tpu_torch import build_trainer
+
+    cfg = flagship_config(batch)
+    cfg.train.precision, cfg.train.out_dir, cfg.train.epochs = precision, out, epochs
+    cfg.health.enabled, cfg.health.every_k = health_k is not None, health_k or 1
+    cfg.health.drift = drift
+    for key, value in train.items():
+        setattr(cfg.train, key, value)
+    return build_trainer(cfg, device=device, initial_state=initial, verbose=False,
+                         fault_plan=plan)
+
+
+def state_of(trainer) -> dict:
+    return {k: v.detach().cpu().clone() for k, v in trainer.model.state_dict().items()}
+
+
+def end_state(trainer) -> list:
+    """A trainer's parameters and Adam moments, copied to the host."""
+    opt = trainer.optimizer
+    return [t.detach().cpu().clone() for t in
+            list(trainer.model.state_dict().values()) + opt.exp_avg + opt.exp_avg_sq]
+
+
+def same_state(a, b) -> bool:
+    """Whether two trainers (or :func:`end_state` lists) hold bitwise the
+    same parameters and moments."""
+    import torch
+
+    a, b = (end_state(t) if not isinstance(t, list) else t for t in (a, b))
+    return len(a) == len(b) and all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def recording_params(trainer) -> list:
+    """After every dispatch of ``trainer``, a copy of its flattened
+    parameters on the card (the list returned)."""
+    import torch
+
+    log, dispatch = [], trainer._dispatch
+
+    def recorded(block, mode="train", health=False, poisons=None):
+        out = dispatch(block, mode, health, poisons)
+        log.append(torch.cat([p.detach().flatten() for p in trainer.model.parameters()]))
+        return out
+
+    trainer._dispatch = recorded
+    return log
+
+
+def health_stats_check(device, precision: str) -> None:
+    """The health row of one step on the card against a recomputation from
+    the card's tensors after it, and (fp32) against the CPU port's plain
+    versions from the same state, a clean step and a NaN- and an
+    Inf-poisoned one: counts exact."""
+    import torch
+
+    card = resilience_trainer(device, scratch(f"health_card_{precision}"), precision=precision,
+                              health_k=1, batch=CPU_BATCH)
+    state = state_of(card)
+    batch = next(iter(card.batches("train")))
+    names = [g for g, _ in card._health_groups]
+    before = [p.detach().clone() for p in card.model.parameters()]
+    losses, rows = card._dispatch([batch], "train", health=True)
+    row = rows[0]
+    grads = [p.grad for p in card.model.parameters()]
+    update = [p.detach() - b for p, b in zip(card.model.parameters(), before)]
+    norm = lambda ts: float(torch.sqrt(sum(torch.sum(t.double() ** 2) for t in ts)))
+    groups = [norm([grads[i] if m is None else grads[i][m] for i, m in members])
+              for _, members in card._health_groups]
+    want = [norm(grads), norm(update) / norm(before)]
+    for got, ref, what, rtol in ((row[1], want[0], "grad_norm", HEALTH_SELF_RTOL),
+                                 (row[2], want[1], "update_ratio", HEALTH_RATIO_RTOL),
+                                 *((row[5 + j], g, f"group {n}", HEALTH_SELF_RTOL)
+                                   for j, (n, g) in enumerate(zip(names, groups)))):
+        if not math.isclose(float(got), ref, rel_tol=rtol):
+            fail(f"health {precision}: in-graph {what} {got} vs {ref} from the card's tensors")
+    nonfinite = sum(int((~torch.isfinite(g)).sum()) for g in grads)
+    if row[3] != nonfinite or row[4] != 0 or not np.isfinite(row[:3]).all():
+        fail(f"health {precision}: counts {row[3:5]} vs {nonfinite} non-finite gradients")
+    print(f"health {precision} (batch {CPU_BATCH}): the in-graph row of one step agrees with "
+          f"the card's tensors after it (grad_norm {row[1]:.6g}, update_ratio {row[2]:.6g}, "
+          "groups " + ", ".join(f"{n} {v:.6g}" for n, v in zip(names, row[5:])) + f"; norms "
+          f"rtol {HEALTH_SELF_RTOL}, ratio {HEALTH_RATIO_RTOL}; counts exact)")
+    if precision != "fp32":
+        return
+    cpu = resilience_trainer("cpu", scratch("health_cpu"), initial=state, health_k=1,
+                             batch=CPU_BATCH)
+    card.model.load_state_dict(state)
+    card.optimizer.load_state_tree(cpu.optimizer.state_tree(cpu._param_names, 3),
+                                   card._param_names, 3)
+    for trainer in (card, cpu):
+        trainer._take_snapshot()
+    norms = [0, 1, 2] + list(range(5, 5 + len(names)))  # the loss, norms and the ratio
+    for poison in (None, float("nan"), float("inf")):
+        poisons = {} if poison is None else {0: poison}
+        out = {}
+        for side, trainer in (("card", card), ("cpu", cpu)):
+            trainer._rollback()
+            out[side] = trainer._dispatch([batch], "train", health=True, poisons=poisons)[1][0]
+        a, b = out["card"], out["cpu"]
+        if a[3] != b[3] or a[4] != b[4]:
+            fail(f"health, poison {poison}: non-finite counts card {a[3:5]} vs CPU {b[3:5]}")
+        if poison is None:
+            if not math.isclose(a[0], b[0], rel_tol=CPU_LOSS_RTOL) or not np.allclose(
+                    a[norms[1:]], b[norms[1:]], rtol=HEALTH_RTOL, atol=0):
+                fail(f"health: card row {a.tolist()} vs CPU {b.tolist()} (rtol {HEALTH_RTOL})")
+        print(f"health fp32, card vs CPU plain versions from one state, "
+              f"{'clean' if poison is None else f'poison {poison}'} step: "
+              f"nonfinite_grads {int(a[3])} / {int(b[3])}, nonfinite_loss {int(a[4])} / "
+              f"{int(b[4])}" + ("" if poison is not None else
+                                f"; loss, norms and ratio within rtol {HEALTH_RTOL} "
+                                f"(max rel {float(np.max(np.abs(a[norms] / b[norms] - 1))):.3e})"))
+
+
+def health_dense(device, precision: str):
+    """Phase 36, dense: two epochs in blocks of SUPERSTEP with health every
+    dispatch, the parameters after every dispatch bitwise a plain trainer's
+    from the same state; one health.jsonl record per dispatch, one per
+    second with ``every_k=2``; the twin's step p50 beside the plain step's,
+    and the graph pools' bytes. Returns (health trainer, the initial
+    state, the plain run's history and its end state)."""
+    import torch
+
+    from stmgcn_tpu_torch.obs.health import load_health
+
+    plain = resilience_trainer(device, scratch(f"plain_{precision}"), precision=precision)
+    state = state_of(plain)
+    twin = resilience_trainer(device, scratch(f"health_{precision}"), precision=precision,
+                              initial=state, health_k=1, drift=precision == "fp32")
+    logs = {"health": recording_params(twin), "plain": recording_params(plain)}
+    h_twin, h_plain = twin.train(), plain.train()
+    del twin._dispatch, plain._dispatch
+    n = len(logs["plain"])
+    if len(logs["health"]) != n or not all(torch.equal(a, b) for a, b in
+                                           zip(logs["health"], logs["plain"])):
+        fail(f"health {precision}: parameters differ from the plain run's after a dispatch")
+    reference = end_state(plain)
+    if h_twin != h_plain or not same_state(twin, reference):
+        fail(f"health {precision}: history {h_twin} vs plain {h_plain}")
+    every2 = resilience_trainer(device, scratch(f"health2_{precision}"), precision=precision,
+                                initial=state, health_k=2)
+    every2.train()
+    meta, records = load_health(twin._health_out_path())
+    _, records2 = load_health(every2._health_out_path())
+    if len(records) != n or len(records2) != (n + 1) // 2:
+        fail(f"health {precision}: {len(records)} and {len(records2)} records for {n} "
+             "dispatches (every_k 1 and 2)")
+    if any(r["nonfinite_grads"] or r["nonfinite_loss"] or not np.isfinite(r["grad_norm"])
+           for r in records):
+        fail(f"health {precision}: a record with non-finite stats")
+    print(f"health {precision}, {EPOCHS} epochs in blocks of {SUPERSTEP} at batch {BATCH}: the "
+          f"parameters after each of {n} dispatches bitwise the plain run's; health.jsonl "
+          f"{len(records)} records (every_k 1), {len(records2)} (every_k 2), groups "
+          f"{meta['groups']}; last: loss {records[-1]['loss']:.6g}, grad_norm "
+          f"{records[-1]['grad_norm']:.6g}, update_ratio {records[-1]['update_ratio']:.6g}")
+    block = [b for b in plain._blocks(list(plain.batches("train")), 0)
+             if len(b) == SUPERSTEP][0]
+    p50 = ab_p50({"health": lambda: twin._dispatch(block, "train", True),
+                  "plain": lambda: plain._dispatch(block)}, 8)
+    print(f"health {precision}, p50 of a step inside a block of {SUPERSTEP} (host clock, "
+          f"synchronized; block time / {SUPERSTEP}): twin {p50['health'] / SUPERSTEP:.4f} ms, "
+          f"plain {p50['plain'] / SUPERSTEP:.4f} ms (twin / plain "
+          f"{p50['health'] / p50['plain']:.3f})")
+    pool = {k: t.graph_pool and t.graph_pool.reserved_bytes
+            for k, t in (("plain", plain), ("twin", twin), ("both", every2))}
+    print(f"health {precision}, graph pool bytes: plain programs only {pool['plain']}, twins "
+          f"only {pool['twin']}, both (every_k 2) {pool['both']}")
+    del plain, every2
+    release()
+    return twin, state, h_plain, reference
+
+
+def health_fleet(device):
+    """Phase 36, fleet: the multicity fleet one epoch with health and drift;
+    in every fleet block's ``city_loss`` the block city's slot holds its
+    step losses exactly and every other slot 0. Returns the trainer (its
+    best.ckpt carries the baseline)."""
+    from stmgcn_tpu_torch import build_trainer
+
+    cfg = fleet_config(scratch("fleet_health"))
+    cfg.train.epochs = 1
+    cfg.health.enabled, cfg.health.drift = True, True
+    trainer = build_trainer(cfg, device=device, verbose=False)
+    emitted, emit, train_block, city = [], trainer._health_emit, trainer._train_block, [None]
+
+    def spy(stats, cities=None):
+        emitted.append((stats.copy(), cities, city[0]))
+        return emit(stats, cities=cities)
+
+    def block_of(block):
+        city[0] = block[0].city
+        return train_block(block)
+
+    trainer._health_emit, trainer._train_block = spy, block_of
+    trainer.train()
+    del trainer._health_emit, trainer._train_block
+    fleet = [e for e in emitted if e[1] is not None]
+    groups = len(trainer._health_groups)
+    if not fleet:
+        fail("fleet health: no fleet block emitted city_loss")
+    for stats, cities, c in fleet:
+        city_loss = stats[:, 5 + groups:]
+        slot = list(cities).index(c) if c in cities else None
+        others = np.delete(city_loss, slot, axis=1) if slot is not None else None
+        if (slot is None or city_loss.shape[1] != len(cities) or others.any()
+                or not np.array_equal(city_loss[:, slot], stats[:, 0])):
+            fail(f"fleet health: city {c}'s block (class members {cities}): city_loss "
+                 f"{city_loss} vs losses {stats[:, 0]}")
+    print(f"fleet health: {len(fleet)} fleet blocks (cities "
+          f"{sorted({c for _, _, c in fleet})}), each step's loss exactly in its city's "
+          f"city_loss slot and 0 in the others; {len(emitted) - len(fleet)} one-step records")
+    return trainer
+
+
+def guard_drills(device, state, reference) -> None:
+    """Phase 37 (dense fp32, from ``state``; ``reference`` the end state of
+    the unpoisoned run): a poison at POISON_AT with the
+    guard's skip ends bitwise equal to a drop run; defer retries at the
+    epoch's end and lr_cut lands in meta; three poisons in a row abort with
+    the hint; the guard-on block p50 beside guard-off."""
+    from stmgcn_tpu_torch.resilience import DivergenceError, FaultPlan, FaultSpec
+    from stmgcn_tpu_torch.train.checkpoint import verify_checkpoint
+
+    epoch, step = POISON_AT
+    skip = resilience_trainer(device, scratch("guard_skip"), initial=state,
+                              divergence_guard=True,
+                              plan=FaultPlan(FaultSpec("poison", epoch=epoch, step=step)))
+    drop = resilience_trainer(device, scratch("guard_drop"), initial=state,
+                              plan=FaultPlan(FaultSpec("drop", epoch=epoch, step=step)))
+    h_skip, h_drop = skip.train(), drop.train()
+    if skip._guard.total != 1 or h_skip != h_drop or not same_state(skip, drop):
+        fail(f"guard skip vs drop: trips {skip._guard.total}, histories {h_skip} / {h_drop}")
+    if not np.isfinite(h_skip["train"]).all() or same_state(skip, reference):
+        fail("guard skip: non-finite losses, or the poisoned batch was not skipped")
+    print(f"guard, poison at epoch {epoch} ordinal {step} (inside a block of {SUPERSTEP}): "
+          f"rolled back, replayed step by step and skipped; {EPOCHS} epochs end bitwise equal "
+          f"to a drop run (parameters, moments, history {json.dumps(h_skip)})")
+    block = [b for b in drop._blocks(list(drop.batches("train")), 0) if len(b) == SUPERSTEP][0]
+    p50 = ab_p50({"on": lambda: skip._train_block(block),
+                  "off": lambda: drop._train_block(block)}, 8)
+    print(f"guard, p50 of a block of {SUPERSTEP} (host clock, synchronized): guard on "
+          f"{p50['on']:.4f} ms, off {p50['off']:.4f} ms (on / off {p50['on'] / p50['off']:.3f})")
+    del skip, drop
+    release()
+    defer = resilience_trainer(device, scratch("guard_defer"), initial=state, epochs=1,
+                               divergence_guard=True, divergence_action="defer",
+                               divergence_lr_cut=0.5,
+                               plan=FaultPlan(FaultSpec("poison", epoch=epoch, step=step)))
+    defer.train()
+    meta = verify_checkpoint(defer.latest_path)
+    if (defer._guard.total != 1 or defer.global_step != defer.train_steps_per_epoch
+            or meta.get("lr_scale") != 0.5 or defer.optimizer.lr_scale != 0.5):
+        fail(f"guard defer: trips {defer._guard.total}, steps {defer.global_step}, lr_scale "
+             f"{meta.get('lr_scale')}")
+    print(f"guard defer + lr_cut 0.5: the poisoned batch retried at the epoch's end "
+          f"({defer.global_step} steps of {defer.train_steps_per_epoch}), meta lr_scale "
+          f"{meta['lr_scale']}")
+    del defer
+    release()
+    abort = resilience_trainer(device, scratch("guard_abort"), initial=state,
+                               divergence_guard=True, divergence_patience=3,
+                               plan=FaultPlan(*(FaultSpec("poison", epoch=1, step=k)
+                                                for k in (1, 2, 3))))
+    try:
+        abort.train()
+        fail("three poisons in a row did not abort")
+    except DivergenceError as e:
+        if "--checkify nan" not in str(e):
+            fail(f"the abort lacks the hint: {e}")
+        print(f"guard, three poisons in a row: DivergenceError ({str(e)[:80]}...)")
+
+
+def write_fault_drills(device) -> None:
+    """Phase 37, files: truncate-, corrupt- and torn-write on epoch 2's
+    latest.ckpt (the smoke preset on the card): the recovery chain falls
+    back to epoch 1's latest.prev, quarantining a bad file; the torn write
+    leaves latest untouched and a partial temp file."""
+    from stmgcn_tpu_torch import build_trainer, preset
+    from stmgcn_tpu_torch.resilience import FaultPlan, FaultSpec
+
+    for kind in ("truncate-write", "corrupt-write", "torn-write"):
+        cfg = preset("smoke")
+        cfg.data.n_timesteps, cfg.train.epochs = CLI_TIMESTEPS, 2
+        cfg.train.out_dir = out = scratch(f"write_{kind}")
+        plan = FaultPlan(FaultSpec(kind, path_glob="latest.ckpt", write_index=1))
+        trainer = build_trainer(cfg, device=device, verbose=False, fault_plan=plan)
+        try:
+            trainer.train()
+            raised = None
+        except RuntimeError as e:  # the async writer's torn write, surfaced
+            raised = e
+        if (raised is not None) != (kind == "torn-write"):
+            fail(f"{kind}: train() raised {raised!r}")
+        meta = build_trainer(cfg, device=device, verbose=False).restore_auto()
+        names = sorted(os.listdir(out))
+        bad = "latest.ckpt.corrupt" in names
+        torn = any(".tmp." in n for n in names)
+        if meta is None or meta["epoch"] != 1 or bad == (kind == "torn-write") or (
+                torn != (kind == "torn-write")):
+            fail(f"{kind}: restored {meta and meta['epoch']}, files {names}")
+        left = ("the write crashed before its rename, leaving a partial temp file" if torn else
+                "the bad file quarantined as latest.ckpt.corrupt")
+        print(f"{kind} on epoch 2's latest.ckpt: restore_auto resumed epoch 1 from "
+              f"latest.prev ({left})")
+
+
+def sigterm_in_process(device, state, reference, history) -> None:
+    """Phase 38, in process: a ``sigterm`` fault at SIGTERM_AT raises
+    ``Preempted`` after the emergency checkpoint; a fresh trainer resumes
+    and ends bitwise equal to the uninterrupted run (its end state
+    ``reference`` and ``history``)."""
+    from stmgcn_tpu_torch.resilience import FaultPlan, FaultSpec, Preempted
+    from stmgcn_tpu_torch.train.checkpoint import verify_checkpoint
+
+    out = scratch("sigterm")
+    epoch, step = SIGTERM_AT
+    run = resilience_trainer(device, out, initial=state,
+                             plan=FaultPlan(FaultSpec("sigterm", epoch=epoch, step=step)))
+    try:
+        run.train()
+        fail("the sigterm fault did not preempt")
+    except Preempted as e:
+        print(f"sigterm fault at epoch {epoch} ordinal {step}: Preempted ({e})")
+    meta = verify_checkpoint(run.latest_path)
+    t0 = time.perf_counter()
+    resumed = resilience_trainer(device, out)
+    t1 = time.perf_counter()
+    resumed.restore_auto()
+    first: list = []
+    dispatch = resumed._dispatch
+
+    def timed(*args, **kw):
+        got = dispatch(*args, **kw)
+        if not first:
+            first.append(time.perf_counter())
+        return got
+
+    resumed._dispatch = timed
+    resumed_history = resumed.train()
+    del resumed._dispatch
+    if not same_state(resumed, reference) or any(
+            resumed_history[m] != history[m][epoch - 1:] for m in history):
+        fail(f"the resumed run ({resumed_history}) does not end where the uninterrupted one "
+             f"({history}) did")
+    if not first:
+        fail(f"the resume from cursor {meta['batch_in_epoch']} ran no step")
+    print(f"preempted at epoch {meta['epoch']}, cursor {meta['batch_in_epoch']} of "
+          f"{run.train_steps_per_epoch}; a fresh trainer resumed (build_trainer {t1 - t0:.4f} "
+          f"s, restore to the end of its first dispatch {first[0] - t1:.4f} s, host clock) and "
+          "ended bitwise equal to the uninterrupted run")
+
+
+def sigterm_cli(root: str) -> None:
+    """Phase 38, the CLI: ``python -m stmgcn_tpu_torch.cli --preset
+    default`` at the flagship's width trains on the card in a subprocess;
+    once the first epoch's latest.ckpt lands the parent sends SIGTERM:
+    exit 143 and an emergency latest.ckpt, whose landing (a new file
+    renamed into place) the parent times on its own clock; then
+    ``--resume`` finishes the run."""
+    import signal
+
+    from stmgcn_tpu_torch.train.checkpoint import verify_checkpoint
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    out = os.path.join(root, "preempt")
+    base = [sys.executable, "-m", "stmgcn_tpu_torch.cli", "--preset", "default", "--rows",
+            str(GRID), "--batch-size", str(BATCH), "--epochs", str(PREEMPT_EPOCHS),
+            "--steps-per-superstep", str(SUPERSTEP), "--out-dir", out]
+    latest = os.path.join(out, "latest.ckpt")
+    os.makedirs(root, exist_ok=True)
+    log = open(os.path.join(root, "preempt.err"), "w+")
+    proc = subprocess.Popen(base, cwd=repo, stdout=subprocess.DEVNULL, stderr=log)
+    try:
+        deadline = time.time() + PREEMPT_WAIT_S
+        while not os.path.exists(latest) and proc.poll() is None and time.time() < deadline:
+            time.sleep(0.005)
+        if proc.poll() is not None or not os.path.exists(latest):
+            fail(f"cli preemption: no latest.ckpt before the run ended (exit {proc.poll()})")
+        first = verify_checkpoint(latest)
+        inode = os.stat(latest).st_ino
+        proc.send_signal(signal.SIGTERM)
+        t_signal, landed = time.perf_counter(), None
+        while landed is None and time.perf_counter() - t_signal < PREEMPT_WAIT_S:
+            try:
+                if os.stat(latest).st_ino != inode:
+                    landed = time.perf_counter()
+            except FileNotFoundError:
+                pass
+            if landed is None and proc.poll() is not None:
+                break
+            time.sleep(0.0002)
+        proc.wait(timeout=PREEMPT_WAIT_S)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    log.seek(0)
+    err = log.read()
+    log.close()
+    if proc.returncode != 143:
+        fail(f"cli preemption: exit {proc.returncode}, expected 143; stderr {err[-2000:]}")
+    meta = verify_checkpoint(latest)
+    if landed is None or (meta["epoch"], meta["batch_in_epoch"]) == (
+            first["epoch"], first["batch_in_epoch"]):
+        fail(f"cli preemption: no emergency latest.ckpt after the signal (epoch "
+             f"{meta['epoch']}, cursor {meta['batch_in_epoch']}; epoch 1's file had epoch "
+             f"{first['epoch']}, cursor {first['batch_in_epoch']})")
+    print(f"cli SIGTERM after epoch 1 (--preset default, {GRID}x{GRID} grid, batch {BATCH}, "
+          f"blocks of {SUPERSTEP}): exit 143 ({err.strip().splitlines()[-1]}); emergency "
+          f"latest.ckpt at epoch {meta['epoch']}, cursor {meta['batch_in_epoch']}, "
+          f"{os.path.getsize(latest)} bytes, renamed into place {landed - t_signal:.4f} s "
+          "after the signal (the parent's host clock, polled every 0.2 ms)")
+    t0 = time.perf_counter()
+    done = subprocess.run(base + ["--resume"], cwd=repo, capture_output=True, text=True,
+                          timeout=600)
+    if done.returncode != 0:
+        fail(f"cli --resume after preemption: exit {done.returncode}; {done.stderr[-2000:]}")
+    results = json.loads(done.stdout.strip().splitlines()[-1])["results"]
+    if not all(np.isfinite(v) for r in results.values() for v in r.values()):
+        fail("cli --resume after preemption: non-finite metrics")
+    final = verify_checkpoint(latest)
+    if final["epoch"] < meta["epoch"] or final["batch_in_epoch"]:
+        fail(f"cli --resume ended at epoch {final['epoch']}, cursor {final['batch_in_epoch']}")
+    print(f"cli --resume finished the run (to epoch {final['epoch']}, early stopping "
+          f"allowed) in "
+          f"{time.perf_counter() - t0:.1f} s (process start, build and all); test "
+          + json.dumps(results))
+
+
+def drift_serving(device, twin) -> None:
+    """Phase 39: ``best.ckpt`` of the health run (health_baseline, drift on)
+    through a dense ``ServingEngine``: held-out windows silent, shifted
+    ones firing, the reset on ``swap_params``, the rung-1 p50 with drift on
+    and off; then the serve-fault drills: ``batcher-die`` degrading to the
+    inline path, ``dispatch-slow`` shedding under a deadline, and the
+    watcher's ``corrupt-checkpoint`` hook rejecting the file."""
+    from stmgcn_tpu_torch import Forecaster, ServingConfig
+    from stmgcn_tpu_torch.resilience import ServeFaultPlan, ServeFaultSpec
+    from stmgcn_tpu_torch.serving.admission import DeadlineExceeded
+
+    fc = Forecaster.from_checkpoint(twin.best_path, device=device)
+    if fc.health_baseline is None or not fc.config.health.drift:
+        fail("the health run's best.ckpt carries no drift baseline")
+    ds, supports = twin.dataset, twin.supports.cpu().numpy()
+    windows = ds.denormalize(ds.arrays("test")[0])
+    rows = windows[:BUCKETS[-1]]
+    with fc.serving_engine(supports, config=ServingConfig(buckets=BUCKETS),
+                           device=device) as engine:
+        if engine.drift is None:
+            fail("from_forecaster did not attach the drift monitor")
+        served = engine.predict(rows)
+        calm = engine.drift_snapshot()["cities"]["0"]
+        engine.swap_params(fc.model.state_dict())
+        reset = engine.drift_snapshot()
+        engine.predict(rows * DRIFT_SHIFT)
+        hot = engine.drift_snapshot()["cities"]["0"]["input"]
+        if calm["input"]["psi"] >= DRIFT_CALM_PSI or reset["cities"] or reset["generation"] != 1:
+            fail(f"drift: held-out {calm}, after the swap {reset}")
+        if hot["psi"] <= DRIFT_FIRE_PSI or hot["z_max"] <= DRIFT_FIRE_Z:
+            fail(f"drift: shifted traffic {hot}")
+        print(f"drift, dense engine from best.ckpt: held-out {len(rows)} windows input psi "
+              f"{calm['input']['psi']:.4g} (held below {DRIFT_CALM_PSI}) z_max "
+              f"{calm['input']['z_max']:.4g} over n {calm['input']['n']} values, a mean shift "
+              f"of {calm['input']['z_max'] / math.sqrt(calm['input']['n']):.4g} baseline sd "
+              f"(not held); reset on swap_params (generation 1, no sketches); traffic "
+              f"x{DRIFT_SHIFT} psi {hot['psi']:.4g} z_max {hot['z_max']:.4g}")
+        drift_prediction_gauge(fc.health_baseline, calm["prediction"], served,
+                               ds.denormalize(ds.arrays("test")[1][:len(rows)]))
+        monitor = engine.drift
+        one = windows[:1]
+
+        def rung1(on, call):
+            engine.drift = monitor if on else None
+            call(one)
+
+        for what, call in (("micro-batched", engine.predict), ("direct", engine.predict_direct)):
+            p50 = ab_p50({"on": lambda c=call: rung1(True, c),
+                          "off": lambda c=call: rung1(False, c)})
+            print(f"drift, rung-1 p50 (host clock, synchronized, {what}): drift on "
+                  f"{p50['on']:.4f} ms, off {p50['off']:.4f} ms (on / off "
+                  f"{p50['on'] / p50['off']:.3f})")
+        engine.drift = monitor
+    want = fc.predict(supports, windows[:3])
+    plan = ServeFaultPlan(ServeFaultSpec("batcher-die", dispatch=1))
+    with fc.serving_engine(supports, config=ServingConfig(buckets=BUCKETS), device=device,
+                           fault_plan=plan) as engine:
+        for _ in range(3):  # before, at and after the batcher's death
+            got = engine.predict(windows[:3])
+            if not np.allclose(got, want, rtol=SERVE_RTOL, atol=SERVE_ATOL):
+                fail(f"batcher-die: max |err| {np.abs(got - want).max():.3e}")
+    print("batcher-die at dispatch 1: the engine degraded to the inline path; all three "
+          "answers equal Forecaster.predict")
+    config = ServingConfig(buckets=BUCKETS, deadline_ms=SLOW_DEADLINE_MS, max_delay_ms=1.0)
+    plan = ServeFaultPlan(ServeFaultSpec("dispatch-slow", slow_ms=SLOW_MS))
+    shed = []
+    with fc.serving_engine(supports, config=config, device=device, fault_plan=plan) as engine:
+        def call():
+            try:
+                engine.predict(windows[:1])
+            except DeadlineExceeded as e:
+                shed.append(e)
+
+        threads = [threading.Thread(target=call) for _ in range(CALLERS)]
+        for t in threads:
+            t.start()
+            time.sleep(0.005)
+        for t in threads:
+            t.join(timeout=60)
+    if not shed:
+        fail("dispatch-slow: nothing shed under the deadline")
+    print(f"dispatch-slow {SLOW_MS} ms under a {SLOW_DEADLINE_MS} ms deadline: {len(shed)} of "
+          f"{CALLERS} callers shed with DeadlineExceeded")
+    plan = ServeFaultPlan(ServeFaultSpec("corrupt-checkpoint", path_glob="latest.ckpt"))
+    with fc.serving_engine(supports, config=ServingConfig(buckets=BUCKETS), device=device,
+                           fault_plan=plan) as engine:
+        watcher = engine.watch_checkpoints(twin.out_dir)
+        twin.n_epochs += 1
+        twin.train()  # a newer latest.ckpt; the hook flips it at rest
+        if watcher.poll() or watcher.rejected != 1 or engine.generation != 0:
+            fail(f"corrupt-checkpoint: rejected {watcher.rejected}, generation "
+                 f"{engine.generation}")
+        if not os.path.exists(twin.latest_path + ".corrupt"):
+            fail("corrupt-checkpoint: the flipped file was not quarantined")
+    print("corrupt-checkpoint: the watcher's hook flipped latest.ckpt at rest; the poll "
+          "rejected it (rejected 1, quarantined), the engine stays on generation 0")
+
+
+def drift_prediction_gauge(baseline: dict, gauge: dict, served, targets) -> None:
+    """The prediction gauge of the held-out traffic (``gauge``): equal to
+    a host monitor fed the served predictions, so it reads what was
+    served. Its baseline is the denormalized series, so it reads silent
+    only for a model whose predictions track the data: a host monitor fed
+    the held-out targets (what such a model would serve) stays under
+    DRIFT_CALM_PSI. The two-epoch model's own reading is printed, not
+    held."""
+    from stmgcn_tpu_torch.obs.drift import DriftMonitor
+
+    read = {}
+    for what, values in (("served", served), ("targets", targets)):
+        monitor = DriftMonitor(baseline)
+        monitor.observe_prediction("0", np.asarray(values, dtype=np.float64))
+        read[what] = monitor.snapshot()["cities"]["0"]["prediction"]
+    if read["served"]["n"] != gauge["n"] or not all(
+            math.isclose(read["served"][k], gauge[k], rel_tol=1e-9) for k in ("psi", "z_max")):
+        fail(f"drift prediction gauge {gauge} vs the served predictions on the host "
+             f"{read['served']}")
+    if read["targets"]["psi"] >= DRIFT_CALM_PSI:
+        fail(f"drift prediction gauge fed the held-out targets: {read['targets']}")
+    pcc = float(np.corrcoef(np.ravel(served), np.ravel(targets))[0, 1])
+    print(f"drift, prediction gauge: the served predictions read psi {gauge['psi']:.4g} z_max "
+          f"{gauge['z_max']:.4g} (the engine's gauge equals a host monitor's over them; not "
+          f"held: the two-epoch model's predictions, pcc {pcc:.4g} with the targets, are "
+          f"nearly constant against a baseline of the denormalized series); the held-out "
+          f"targets read psi {read['targets']['psi']:.4g} (held below {DRIFT_CALM_PSI}) z_max "
+          f"{read['targets']['z_max']:.4g}")
+
+
+def drift_fleet(device, fleet) -> None:
+    """Phase 39, fleet: the health fleet's best.ckpt through
+    ``FleetServingEngine`` with drift over both cities: city 0 held-out and
+    silent, city 1 shifted and firing; the reset on ``swap_params``."""
+    from stmgcn_tpu_torch import Forecaster, ServingConfig
+    from stmgcn_tpu_torch.experiment import build_supports
+
+    fc = Forecaster.from_checkpoint(fleet.best_path, device=device)
+    ds = fleet.dataset
+    with fc.fleet_engine(build_supports(fc.config, ds), device=device,
+                         config=ServingConfig(buckets=BUCKETS)) as engine:
+        if engine.drift is None:
+            fail("fleet engine: no drift monitor from a drift checkpoint")
+        for c, scale in ((0, 1.0), (1, DRIFT_SHIFT)):
+            held_out = ds.city_arrays("test", c)[0][:BUCKETS[-1]]
+            engine.predict(ds.denormalize(held_out, city=c) * scale, city=c)
+        snap = engine.drift_snapshot()["cities"]
+        calm, hot = snap["0"]["input"], snap["1"]["input"]
+        if calm["psi"] >= DRIFT_CALM_PSI or hot["psi"] <= DRIFT_FIRE_PSI:
+            fail(f"fleet drift: city 0 {calm}, city 1 {hot}")
+        engine.swap_params(fc.model.state_dict())
+        if engine.drift_snapshot()["cities"]:
+            fail("fleet drift: sketches survived the swap")
+    print(f"drift, fleet engine: city 0 held-out input psi {calm['psi']:.4g} (held) z_max "
+          f"{calm['z_max']:.4g} (not held), prediction psi {snap['0']['prediction']['psi']:.4g} "
+          f"(not held, as on the dense engine); city 1 x{DRIFT_SHIFT} input psi "
+          f"{hot['psi']:.4g} z_max {hot['z_max']:.4g}; reset on swap_params")
+
+
+def resilience_phases(device) -> dict:
+    """Phases 36-39 at the dense flagship and the multicity fleet, fp32,
+    counted from a reset here to the read at their end (the fp32 B1/B2
+    records' ``resilience_launches``); then the bf16 health phase, counted
+    apart (the bf16 records'). Returns ``(fp32 counts, bf16 counts)``."""
+    import torch
+
+    t0 = time.perf_counter()
+    reset_counts()
+    health_stats_check(device, "fp32")
+    release()
+    twin, state, history, reference = health_dense(device, "fp32")
+    fleet = health_fleet(device)
+    guard_drills(device, state, reference)
+    write_fault_drills(device)
+    release()
+    sigterm_in_process(device, state, reference, history)
+    release()
+    sigterm_cli(scratch("cli_preempt"))
+    drift_serving(device, twin)
+    release()
+    drift_fleet(device, fleet)
+    fp32 = read_counts()
+    if not fp32["B1"] or not fp32["B2"] or any(fp32[k] for k in ("B3", "B4", "B5")):
+        fail(f"the dense resilience path's launches: {counts_text(fp32)}")
+    print(f"resilience and health phases, dense and fleet fp32: launches {counts_text(fp32)} "
+          f"({time.perf_counter() - t0:.1f} s)")
+    del twin, fleet
+    release()
+    reset_counts()
+    health_stats_check(device, "bf16")
+    release()
+    health_dense(device, "bf16")
+    bf16 = read_counts()
+    if not bf16["B1"] or not bf16["B2"]:
+        fail(f"the bf16 health path's launches: {counts_text(bf16)}")
+    print(f"bf16 health phase: launches {counts_text(bf16)}")
+    release()
+    print(f"after the resilience phases: {torch.cuda.memory_reserved() / 2**30:.2f} GiB reserved")
+    return fp32, bf16
+
+
+def metro_resilience(device, ds, plan_dev) -> dict:
+    """Phase 40: the metro plan's tiled trainer with health for one epoch
+    (B3 and B4 counted per forward and step), then a poison at POISON_AT
+    under the guard's skip against a drop run from one state, one epoch
+    each, held to agree_over_steps' tolerances (B4 adds with atomics).
+    Returns the counts from a reset here."""
+    from stmgcn_tpu_torch import Trainer
+    from stmgcn_tpu_torch.obs.health import load_health
+    from stmgcn_tpu_torch.resilience import FaultPlan, FaultSpec
+
+    def tiled(name, state=None, plan=None, **kw):
+        t = metro_config("tiled").train
+        return Trainer(metro_model("tiled", ds, device), ds, plan_dev, lr=t.lr,
+                       weight_decay=t.weight_decay, n_epochs=1, batch_size=METRO_BATCH,
+                       steps_per_superstep=SUPERSTEP, out_dir=scratch(f"metro_{name}"),
+                       initial_state=state, device=device, verbose=False, fault_plan=plan,
+                       **kw)
+
+    reset_counts()
+    health = tiled("health", health=True)
+    health.train()
+    counts = read_counts()
+    steps = health.global_step
+    forwards = steps + ds.num_batches("validate", METRO_BATCH)
+    check_counts(counts, {"B1": 1, "B3": 2, "B3 shared": 1}, {"B2": 1, "B4": 1}, forwards,
+                 steps, "tiled health training at the metro city")
+    _, records = load_health(health._health_out_path())
+    print(f"tiled health training at the metro city, one epoch: {len(records)} health records "
+          f"over {steps} steps, last grad_norm {records[-1]['grad_norm']:.6g}; launches "
+          f"{counts_text(counts)}")
+    state = state_of(health)
+    epoch, step = POISON_AT
+    skip = tiled("skip", state, FaultPlan(FaultSpec("poison", epoch=epoch, step=step)),
+                 divergence_guard=True)
+    drop = tiled("drop", state, FaultPlan(FaultSpec("drop", epoch=epoch, step=step)))
+    h_skip, h_drop = skip.train(), drop.train()
+    if skip._guard.total != 1 or skip.global_step != drop.global_step:
+        fail(f"metro guard: trips {skip._guard.total}, steps {skip.global_step} vs "
+             f"{drop.global_step}")
+    for mode in h_skip:
+        if not np.allclose(h_skip[mode], h_drop[mode], rtol=CPU_LOSS_RTOL, atol=0):
+            fail(f"metro guard skip vs drop, {mode}: {h_skip[mode]} vs {h_drop[mode]}")
+    worst, rel, elem = update_gap(skip, drop, state)
+    if not rel <= CPU_UPDATE_RTOL:
+        fail(f"metro guard skip vs drop: {worst}'s update differs by {rel:.3e} of its norm")
+    print(f"metro guard, poison at epoch {epoch} ordinal {step}: skip vs drop over one epoch, "
+          f"losses within rtol {CPU_LOSS_RTOL}, each tensor's update within {rel:.3e} of its "
+          f"norm ({worst}), parameters max |diff| {elem:.3e}; bitwise equal: "
+          f"{same_state(skip, drop)}")
+    return read_counts()
+
+
 def main() -> int:
     try:
         return run_phases()
@@ -3326,6 +4092,11 @@ def run_phases() -> int:
     fleet_counts = fleet_phases(device)
     print(f"fleet phases done at {time.perf_counter() - t_start:.1f} s")
 
+    # this slice: training health, the divergence guard, fault plans,
+    # SIGTERM, serving drift and fault drills (dense and fleet; bf16 health)
+    res_fp32, res_bf16 = resilience_phases(device)
+    print(f"resilience phases done at {time.perf_counter() - t_start:.1f} s")
+
     ds, dense, plan = metro_host()
     dense_dev, plan_dev = torch.as_tensor(dense, device=device), plan.to(device)
     records += check_spmm_kernels(device, dense, dense_dev, plan)
@@ -3352,13 +4123,22 @@ def run_phases() -> int:
     torch.cuda.empty_cache()
     bf16_records[4]["launches"] = bf16_sparse(device, ds, dense_dev, ktuples)
     metro_ab(device, ds, plan_dev)
+    res_metro = metro_resilience(device, ds, plan_dev)
+    if not res_metro["B3"] or not res_metro["B4"]:
+        fail(f"the tiled health and guard path did not launch B3 and B4: "
+             f"{counts_text(res_metro)}")
     if any(not r["launches"] for r in bf16_records):
         fail("a bf16 kernel form was not launched on its main path: " + ", ".join(
             f"{r['name']} {r['launches']}" for r in bf16_records))
     # the fp32 records' launches on the fleet paths (phases 26-29)
     fleet_counts["B3"] -= fleet_counts["B3 shared"]
+    res_metro["B3"] -= res_metro["B3 shared"]
     for rec, k in zip(records, ("B1", "B2", "B3", "B4", "B5", "B3 shared")):
         rec["fleet_launches"] = fleet_counts[k]
+        # this slice's paths: dense and fleet health/guard/drift, the metro plan's
+        rec["resilience_launches"] = res_fp32[k] + res_metro[k]
+    for rec, k in zip(bf16_records, ("B1", "B2", "B3", "B4", "B5", "B3 shared")):
+        rec["resilience_launches"] = res_bf16[k] - (res_bf16["B3 shared"] if k == "B3" else 0)
     print(f"all phases done at {time.perf_counter() - t_start:.1f} s")
 
     print(card)

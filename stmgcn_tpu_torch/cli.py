@@ -7,14 +7,20 @@ same exit behaviour; ``--device`` takes the place of ``--platform``::
     python -m stmgcn_tpu_torch.cli --preset default --out-dir output --resume
     python -m stmgcn_tpu_torch.cli --preset default --out-dir output --test-only
     python -m stmgcn_tpu_torch.cli --preset smoke --device cpu --timesteps 400 --epochs 1
+    python -m stmgcn_tpu_torch.cli health output/health.jsonl
+    python -m stmgcn_tpu_torch.cli obs trace.jsonl
 
 Training writes ``best.ckpt`` and ``latest.ckpt`` (the JAX package's format)
 into ``--out-dir``; ``--resume`` continues from the newest verified
 checkpoint there, and exits 1 when there is none (``--resume auto`` starts
 fresh instead); ``--test-only`` evaluates ``best.ckpt``. The run ends with
-one JSON line, ``{"preset": ..., "results": ...}``. A flag of the JAX CLI
-that the port lacks fails argument parsing, and a preset it lacks fails
-with ``preset()``'s error.
+one JSON line, ``{"preset": ..., "results": ...}``. SIGTERM during training
+writes an emergency ``latest.ckpt`` at the next block boundary and exits
+143; ``--resume`` continues from it. The ``health`` and ``obs`` subcommands
+report a ``health.jsonl`` stream and a span trace
+(:mod:`stmgcn_tpu_torch.obs.cli`). A flag of the JAX CLI that the port
+lacks fails argument parsing, and a preset it lacks fails with
+``preset()``'s error.
 """
 
 from __future__ import annotations
@@ -111,6 +117,24 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--checkpoint-every-steps", type=int, default=None, metavar="K",
                    help="also rewrite latest.ckpt every K optimizer steps with the "
                         "mid-epoch resume cursor (default 0: epoch boundaries only)")
+    p.add_argument("--divergence-guard", action="store_true", default=None,
+                   help="check each block's losses for NaN/Inf; on a trip, roll the "
+                        "parameters and optimizer back to the pre-block snapshot and skip "
+                        "(or defer) the batch. Costs a sync per block")
+    p.add_argument("--divergence-action", choices=("skip", "defer"), default=None,
+                   help="what the guard does with an offending batch: drop it (skip) or "
+                        "retry it once at epoch end (defer)")
+    p.add_argument("--divergence-patience", type=_positive_int, default=None,
+                   help="abort after this many consecutive guard trips (default 3)")
+    p.add_argument("--divergence-lr-cut", type=float, default=None, metavar="F",
+                   help="multiply the learning rate by F in (0,1) on each guard trip")
+    p.add_argument("--health-out", type=str, default=None, metavar="PATH",
+                   help="enable numeric-health telemetry and write health.jsonl (loss, "
+                        "grad norm, update ratio, nonfinite counts, per-group and per-city "
+                        "attribution) to PATH; inspect with the health subcommand")
+    p.add_argument("--health-every-k", type=_positive_int, default=None, metavar="K",
+                   help="health sampling cadence: every K-th block or step; implies "
+                        "health telemetry on (default 1)")
     p.add_argument("--test-only", action="store_true",
                    help="skip training; evaluate <out-dir>/best.ckpt")
     p.add_argument("--print-config", action="store_true",
@@ -123,7 +147,8 @@ _TRAIN_FLAGS = (
     "epochs", "batch_size", "lr", "lr_schedule", "warmup_epochs", "min_lr_fraction",
     "weight_decay", "grad_clip_norm", "loss", "patience", "top_k", "seed", "out_dir",
     "steps_per_superstep", "fleet", "fleet_max_classes", "fleet_max_pad_waste",
-    "checkpoint_every_steps", "precision", "sr_seed",
+    "checkpoint_every_steps", "precision", "sr_seed", "divergence_action",
+    "divergence_patience", "divergence_lr_cut",
 )
 
 
@@ -145,6 +170,14 @@ def config_from_args(args):
             setattr(cfg.train, field, val)
     if args.shuffle:
         cfg.train.shuffle = True
+    if args.divergence_guard:
+        cfg.train.divergence_guard = True
+    if args.health_out is not None or args.health_every_k is not None:
+        cfg.health.enabled = True
+        if args.health_out is not None:
+            cfg.health.out = args.health_out
+        if args.health_every_k is not None:
+            cfg.health.every_k = args.health_every_k
     if args.sparse:
         cfg.model.sparse = True
     if args.dtype is not None:
@@ -153,7 +186,14 @@ def config_from_args(args):
 
 
 def main(argv=None) -> int:
-    args = build_parser().parse_args(sys.argv[1:] if argv is None else argv)
+    argv = sys.argv[1:] if argv is None else argv
+    if argv and argv[0] in ("obs", "health"):
+        # the file reports (obs/cli.py)
+        from stmgcn_tpu_torch.obs.cli import health_main
+        from stmgcn_tpu_torch.obs.cli import main as obs_main
+
+        return (obs_main if argv[0] == "obs" else health_main)(argv[1:])
+    args = build_parser().parse_args(argv)
     try:
         cfg = config_from_args(args)
     except ValueError as e:
@@ -164,6 +204,7 @@ def main(argv=None) -> int:
         return 0
 
     from stmgcn_tpu_torch.experiment import build_trainer  # defer the torch stack
+    from stmgcn_tpu_torch.resilience import Preempted
 
     try:
         trainer = build_trainer(cfg, device=args.device)
@@ -186,6 +227,10 @@ def main(argv=None) -> int:
         if not args.test_only:
             trainer.train()
         results = trainer.test(modes=("train", "test"))
+    except Preempted as e:
+        # the emergency checkpoint has landed: SIGTERM's conventional code
+        print(f"preempted: {e}", file=sys.stderr)
+        return 143
     except FileNotFoundError as e:
         print(f"error: {e.filename or e} not found"
               + (" — train first or check --out-dir" if args.test_only or args.resume else ""),

@@ -5,11 +5,14 @@ The port's counterpart of ``stmgcn_tpu/config.py``, holding what the port
 reads: :class:`DataConfig`, :class:`ModelConfig`, :class:`TrainConfig`,
 :class:`MeshConfig` and :class:`ServingConfig`, grouped in an
 :class:`ExperimentConfig` that reads the same JSON dicts as the JAX
-package's ``ExperimentConfig.from_dict``. Sections the port does not use
-(obs, health, ...) and fields of the JAX model config that choose XLA
-schedules are ignored on read. :class:`TrainConfig` instead copies every
+package's ``ExperimentConfig.from_dict``, and :class:`HealthConfig`, the
+JAX ``health`` section. Fields of the JAX model config that choose XLA
+schedules, and the JAX ``precision`` policy section (the lint's per-role
+dtypes), are ignored on read. :class:`TrainConfig` instead copies every
 JAX training field and raises, naming it, on any field that the port does
-not implement set away from its default. ``n_nodes`` is derived from data,
+not implement set away from its default; the JAX ``obs``, ``continual``
+and ``federation`` sections (:data:`UNPORTED_SECTIONS`) raise by name on
+any field set away from its default. ``n_nodes`` is derived from data,
 never configured.
 """
 
@@ -27,11 +30,13 @@ __all__ = [
     "PRECISIONS",
     "DataConfig",
     "ExperimentConfig",
+    "HealthConfig",
     "ModelConfig",
     "PRESETS",
     "MeshConfig",
     "ServingConfig",
     "TrainConfig",
+    "UNPORTED_SECTIONS",
     "preset",
 ]
 
@@ -42,6 +47,26 @@ DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 #: training step precisions (``TrainConfig.precision``): "bf16" trains f32
 #: master parameters through the bf16 compute model (``train/step.py``)
 PRECISIONS = ("fp32", "bf16")
+#: the JAX package's bound on per-city drift sketch bins and retained
+#: samples (``stmgcn_tpu/config.py`` ``OBS_RESERVOIR_BUDGET``)
+OBS_RESERVOIR_BUDGET = 8192
+#: sections of the JAX config whose features the port does not have yet,
+#: with their JAX defaults: ``from_dict`` raises, naming the section and
+#: field, on any field set away from these
+UNPORTED_SECTIONS = {
+    "obs": {"trace": False, "trace_path": None, "ring_capacity": 4096, "reservoir": 1024},
+    "continual": {
+        "enabled": False, "ring_capacity": 1024, "reorder_window": 4, "cadence_s": 0.0,
+        "drift_z_max": 8.0, "drift_psi": 0.5, "finetune_steps": 8, "finetune_batch": 8,
+        "finetune_window": 0, "max_restarts": 3, "backoff_s": 0.25, "backoff_max_s": 4.0,
+        "promote_grad_norm_max": 1e3, "promote_update_ratio_max": 0.5,
+        "promote_eval_margin": 0.05, "superstep_ms": 0.0, "max_duty": 0.5,
+    },
+    "federation": {
+        "enabled": False, "replicas": 3, "spares": 0, "vnodes": 64, "imbalance_max": 0.5,
+        "global_queue_bound_rows": 0, "drain_timeout_s": 5.0, "handover_timeout_s": 2.0,
+    },
+}
 
 
 @dataclasses.dataclass
@@ -146,9 +171,10 @@ class TrainConfig:
     fleet shape-class training of heterogeneous cities; the trainer
     validates them as the JAX one does. The fields in :data:`UNPORTED`
     belong to features the port does not have yet (streaming placement,
-    sanitizers, the divergence guard);
-    setting one away from its default raises a ``ValueError`` naming it, so
-    nothing is silently ignored. ``precision`` is one of :data:`PRECISIONS`
+    sanitizers); setting one away from its default raises a ``ValueError``
+    naming it, so nothing is silently ignored. The divergence guard's fields
+    (``divergence_*``) are validated by the trainer when the guard is on, as
+    the JAX trainer validates them. ``precision`` is one of :data:`PRECISIONS`
     and ``sr_seed`` needs ``precision="bf16"``, as the JAX trainer checks.
     """
 
@@ -199,10 +225,6 @@ class TrainConfig:
         "prefetch": (1,),
         "data_placement": ("auto", "resident"),
         "window_free": (None, True),
-        "divergence_guard": (False,),
-        "divergence_action": ("skip",),
-        "divergence_patience": (3,),
-        "divergence_lr_cut": (None,),
     }
 
     def __post_init__(self):
@@ -229,6 +251,64 @@ class MeshConfig:
     @property
     def n_devices(self) -> int:
         return self.dp * self.region * self.branch
+
+
+@dataclasses.dataclass
+class HealthConfig:
+    """Numeric health and drift telemetry (``stmgcn_tpu/config.py:521-602``,
+    the same fields and defaults): on-device training health stats on a
+    cadence (:mod:`stmgcn_tpu_torch.obs.health`), the training-time drift
+    baseline in checkpoint meta and the serving engines' drift monitor
+    (:mod:`stmgcn_tpu_torch.obs.drift`). ``violations()`` is the JAX
+    section's contract; ``build_trainer`` raises on it. As in the JAX
+    package, only ``violations()`` reads ``reservoir``."""
+
+    #: compute on-device training health stats (grad norms, update ratio,
+    #: nonfinite counts) and stream them to ``health.jsonl``
+    enabled: bool = False
+    #: compute and download health stats every k-th dispatch (a block of S
+    #: steps, or a step); must be >= 1
+    every_k: int = 1
+    #: per-channel histogram bins of the drift sketches
+    sketch_size: int = 64
+    #: bounded sample window retained per drift sketch
+    reservoir: int = 256
+    #: compare live serving traffic against the training-time baseline
+    drift: bool = False
+    #: capture a training-time moment baseline into checkpoint meta
+    baseline: bool = True
+    #: health.jsonl destination; None = ``<out_dir>/health.jsonl``
+    out: Optional[str] = None
+
+    def violations(self) -> list:
+        """Every way this config breaks the documented overhead budget
+        (empty list = valid), in the JAX section's words."""
+        v = []
+        if self.sketch_size < 1:
+            v.append(f"sketch_size must be >= 1, got {self.sketch_size} — "
+                     "drift histograms need at least one bin")
+        elif self.sketch_size > OBS_RESERVOIR_BUDGET:
+            v.append(f"sketch_size {self.sketch_size} exceeds the documented budget "
+                     f"{OBS_RESERVOIR_BUDGET} — finer drift bins past the budget buy no "
+                     "sensitivity, only per-city memory")
+        if self.reservoir < 0:
+            v.append(f"reservoir must be >= 0, got {self.reservoir} — 0 disables sample "
+                     "retention, negatives mean nothing")
+        elif self.reservoir > OBS_RESERVOIR_BUDGET:
+            v.append(f"reservoir {self.reservoir} exceeds the documented budget "
+                     f"{OBS_RESERVOIR_BUDGET} — retained drift samples past the budget "
+                     "are unbounded per-city memory")
+        if self.drift and not self.baseline:
+            v.append("drift gauges are enabled but baseline capture is off — without a "
+                     "training-time baseline in checkpoint meta the z-score/PSI gauges "
+                     "can never fire")
+        if not self.enabled:
+            return v
+        if self.every_k < 1:
+            v.append(f"every_k must be >= 1 when health is enabled, got {self.every_k} — a "
+                     "non-positive cadence silently disables the telemetry this config "
+                     "claims to provide")
+        return v
 
 
 @dataclasses.dataclass
@@ -375,13 +455,22 @@ class ExperimentConfig:
     train: TrainConfig = dataclasses.field(default_factory=TrainConfig)
     mesh: MeshConfig = dataclasses.field(default_factory=MeshConfig)
     serving: ServingConfig = dataclasses.field(default_factory=ServingConfig)
+    health: HealthConfig = dataclasses.field(default_factory=HealthConfig)
 
     def to_dict(self) -> dict:
         return dataclasses.asdict(self)
 
     @classmethod
     def from_dict(cls, d: dict) -> "ExperimentConfig":
-        """Read a JAX-package config dict (``ExperimentConfig.to_dict``)."""
+        """Read a JAX-package config dict (``ExperimentConfig.to_dict``);
+        raises when a section of :data:`UNPORTED_SECTIONS` is set away from
+        its defaults."""
+        for section, defaults in UNPORTED_SECTIONS.items():
+            for name, value in (d.get(section) or {}).items():
+                if name not in defaults or value != defaults[name]:
+                    raise ValueError(
+                        f"{section}.{name}={value!r} is not ported to the PyTorch port yet "
+                        f"(the {section!r} section must keep its defaults); see ROADMAP.md")
         return cls(
             name=d.get("name", "default"),
             data=DataConfig(**_known(DataConfig, d.get("data", {}))),
@@ -389,6 +478,7 @@ class ExperimentConfig:
             train=TrainConfig(**d.get("train", {})),
             mesh=MeshConfig(**_known(MeshConfig, d.get("mesh", {}))),
             serving=ServingConfig(**_known(ServingConfig, d.get("serving", {}))),
+            health=HealthConfig(**d.get("health", {})),
         )
 
 

@@ -97,6 +97,19 @@ def build_dataset(cfg: ExperimentConfig):
     )
 
 
+def _check_health(cfg: ExperimentConfig) -> None:
+    """The ``health`` section's contract (``HealthConfig.violations()``),
+    and drift gauges asked for on a run that writes no baseline: the
+    trainer puts ``health_baseline`` into checkpoint meta only with
+    ``health.enabled``, so no engine could ever attach the monitor."""
+    bad = cfg.health.violations()
+    if cfg.health.drift and not cfg.health.enabled:
+        bad.append("drift gauges are enabled but training health is off — the "
+                   "training-time baseline is written only with health.enabled")
+    if bad:
+        raise ValueError("health: " + "; ".join(bad))
+
+
 def _check_support_route(cfg: ExperimentConfig) -> None:
     """The JAX package's refusals of the tiled route."""
     if cfg.model.tiled and cfg.model.sparse:
@@ -179,7 +192,8 @@ def build_model(cfg: ExperimentConfig, input_dim: int, *, device=None,
 
 
 def build_trainer(cfg: ExperimentConfig, *, device=None, initial_state: Optional[dict] = None,
-                  graphs: Optional[bool] = None, verbose: bool = True) -> Trainer:
+                  graphs: Optional[bool] = None, verbose: bool = True,
+                  fault_plan=None) -> Trainer:
     """The trainer for a single-device config in any of the three support
     modes, homogeneous or heterogeneous (with ``train.fleet`` and its
     knobs); weights drawn from ``cfg.train.seed`` unless ``initial_state``
@@ -187,7 +201,14 @@ def build_trainer(cfg: ExperimentConfig, *, device=None, initial_state: Optional
     config and ``derived`` (``{"input_dim", "n_nodes"}``, ``n_nodes`` a
     per-city list for heterogeneous cities), so ``Forecaster.from_checkpoint``
     in either package rebuilds the model. ``device=None`` means the GPU,
-    and raises without one; ``graphs`` as :class:`Trainer`'s."""
+    and raises without one; ``graphs`` as :class:`Trainer`'s. The divergence
+    guard and the ``health`` section reach the trainer as the JAX
+    ``build_trainer`` passes them (``stmgcn_tpu/experiment.py:411-422``,
+    ``:518-527``); ``fault_plan`` (a
+    :class:`~stmgcn_tpu_torch.resilience.FaultPlan`) threads deterministic
+    faults through its loop, ``None`` being the no-op plan. A ``health``
+    section that breaks its contract raises."""
+    _check_health(cfg)
     _check_support_route(cfg)
     if cfg.mesh.n_devices > 1:
         raise ValueError(
@@ -212,6 +233,11 @@ def build_trainer(cfg: ExperimentConfig, *, device=None, initial_state: Optional
         top_k=t.top_k, async_checkpoint=t.async_checkpoint,
         checkpoint_every_steps=t.checkpoint_every_steps,
         precision=t.precision, sr_seed=t.sr_seed,
+        divergence_guard=t.divergence_guard, divergence_action=t.divergence_action,
+        divergence_patience=t.divergence_patience, divergence_lr_cut=t.divergence_lr_cut,
+        fault_plan=fault_plan, health=cfg.health.enabled,
+        health_every_k=cfg.health.every_k, health_out=cfg.health.out,
+        health_baseline=cfg.health.baseline, health_sketch_size=cfg.health.sketch_size,
         extra_meta={
             "config": cfg.to_dict(),
             # what a checkpoint consumer needs to rebuild the model without

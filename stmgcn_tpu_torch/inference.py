@@ -55,11 +55,13 @@ class Forecaster:
     raises without one) and put in eval mode. ``derived`` is
     ``{"input_dim": C, "n_nodes": N}``, with ``n_nodes`` a per-city list
     when ``normalizers`` (one per city, a heterogeneous checkpoint's) is
-    given.
+    given. ``health_baseline`` is the training-time drift baseline of the
+    checkpoint's meta (None without one): what the serving engines' drift
+    monitor compares live traffic against.
     """
 
     def __init__(self, model, state_dict, normalizer, config, derived: dict,
-                 normalizers=None, device=None):
+                 normalizers=None, device=None, health_baseline: Optional[dict] = None):
         self.device = resolve_device(device)
         model.load_state_dict(state_dict)
         self.model = model.to(self.device).eval()
@@ -70,6 +72,7 @@ class Forecaster:
         self.normalizers = None if normalizers is None else list(normalizers)
         self.config = config
         self.derived = derived
+        self.health_baseline = health_baseline
         self._placed = None  # (supports as given, supports on the device)
 
     @classmethod
@@ -93,7 +96,8 @@ class Forecaster:
         device = resolve_device(device)
         model = build_model(cfg, meta["derived"]["input_dim"], device=device)
         state = from_jax_params(params, cfg.model.m_graphs)
-        return cls(model, state, normalizer, cfg, meta["derived"], normalizers, device=device)
+        return cls(model, state, normalizer, cfg, meta["derived"], normalizers, device=device,
+                   health_baseline=meta.get("health_baseline"))
 
     def place(self, supports):
         """``supports`` on this forecaster's device, checked against the
@@ -163,23 +167,25 @@ class Forecaster:
 
         return serve_predict(call, normalizer, expected, history, normalized)
 
-    def serving_engine(self, supports, *, config=None, city=None, device=None, graphs=None):
+    def serving_engine(self, supports, *, config=None, city=None, device=None, graphs=None,
+                       fault_plan=None):
         """A :class:`stmgcn_tpu_torch.serving.ServingEngine` over this model
-        (one city of a heterogeneous checkpoint: ``city=``; ``graphs`` as
-        ``ServingEngine.from_forecaster``'s)."""
+        (one city of a heterogeneous checkpoint: ``city=``; ``graphs`` and
+        ``fault_plan`` as ``ServingEngine.from_forecaster``'s)."""
         from stmgcn_tpu_torch.serving.engine import ServingEngine
 
         return ServingEngine.from_forecaster(self, supports, config=config, city=city,
-                                             device=device, graphs=graphs)
+                                             device=device, graphs=graphs,
+                                             fault_plan=fault_plan)
 
     def fleet_engine(self, city_supports, *, config=None, max_classes: int = 8,
-                     max_pad_waste: float = 0.5, device=None, graphs=None):
+                     max_pad_waste: float = 0.5, device=None, graphs=None, fault_plan=None):
         """A :class:`stmgcn_tpu_torch.serving.FleetServingEngine` over this
         heterogeneous checkpoint: every city from one engine, requests for
         cities of one shape class coalescing into one dispatch (``graphs``
-        as ``FleetServingEngine.from_forecaster``'s)."""
+        and ``fault_plan`` as ``FleetServingEngine.from_forecaster``'s)."""
         from stmgcn_tpu_torch.serving.fleet import FleetServingEngine
 
         return FleetServingEngine.from_forecaster(
             self, city_supports, config=config, max_classes=max_classes,
-            max_pad_waste=max_pad_waste, device=device, graphs=graphs)
+            max_pad_waste=max_pad_waste, device=device, graphs=graphs, fault_plan=fault_plan)

@@ -43,6 +43,7 @@ __all__ = [
     "compute_cast",
     "from_jax_params",
     "from_optax_state",
+    "health_groups",
     "jax_layout",
     "leaf_dtype_census",
     "sr_cast_bf16",
@@ -51,6 +52,11 @@ __all__ = [
 ]
 
 _VMAPPED_KEY = "branches"
+
+
+def _looped_key(m: int) -> str:
+    """The looped layout's subtree of branch ``m``."""
+    return f"branch_{m}"
 
 
 def _flatten(tree, prefix=()):
@@ -65,7 +71,7 @@ def from_jax_params(variables, m_graphs: int) -> dict:
     """Flax ``{"params": ...}`` tree (numpy leaves, either layout) -> the
     port's ``state_dict`` (float32 CPU tensors)."""
     params = dict(variables["params"])
-    looped = [f"branch_{m}" for m in range(m_graphs)]
+    looped = [_looped_key(m) for m in range(m_graphs)]
     if _VMAPPED_KEY not in params:
         missing = [k for k in looped if k not in params]
         if missing:
@@ -121,8 +127,29 @@ def to_jax_params(state_dict, m_graphs: int, *, layout: str = "vmapped") -> dict
         for name in [n for n in flat if n.startswith(prefix)]:
             stacked = flat.pop(name)
             for m in range(m_graphs):
-                flat[f"branch_{m}.{name[len(prefix):]}"] = stacked[m]
+                flat[f"{_looped_key(m)}.{name[len(prefix):]}"] = stacked[m]
     return {"params": _nest(flat)}
+
+
+def health_groups(names, m_graphs: int, *, layout: str = "vmapped") -> tuple:
+    """The JAX health stats' layer groups over the port's parameters: the
+    sorted top-level keys of the flax tree :func:`to_jax_params` builds in
+    ``layout`` (``stmgcn_tpu/train/step.py`` ``health_group_names``), each
+    with its members as ``(index into names, branch)`` pairs: ``branch`` is
+    None for a whole parameter, or ``m`` for the slice ``[m]`` of a stacked
+    branch parameter that the looped layout files under ``branch_m``.
+    Returns ``((group, ((index, branch), ...)), ...)``."""
+    if layout not in ("vmapped", "looped"):
+        raise ValueError(f"layout must be 'vmapped' or 'looped', got {layout!r}")
+    groups: dict = {}
+    for i, name in enumerate(names):
+        top = name.split(".", 1)[0]
+        if layout == "looped" and top == _VMAPPED_KEY:
+            for m in range(m_graphs):
+                groups.setdefault(_looped_key(m), []).append((i, m))
+        else:
+            groups.setdefault(top, []).append((i, None))
+    return tuple((g, tuple(groups[g])) for g in sorted(groups))
 
 
 def jax_layout(support_mode: str) -> str:

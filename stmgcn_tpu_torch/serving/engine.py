@@ -32,9 +32,19 @@ Counterpart of ``stmgcn_tpu/serving/engine.py`` (``ServingEngine``):
 
 - **checkpoint hot-swap** — :meth:`ServingEngine.watch_checkpoints`
   polls a training run's ``out_dir`` (:class:`CheckpointWatcher`) and
-  swaps each newer verified checkpoint in through ``swap_params``.
+  swaps each newer verified checkpoint in through ``swap_params``;
+- **drift** — :meth:`ServingEngine.enable_drift` attaches a
+  :class:`~stmgcn_tpu_torch.obs.drift.DriftMonitor` that compares each
+  dispatch's normalized inputs and denormalized predictions with the
+  training-time baseline of checkpoint meta, on the host after the
+  readback, outside the pool lock; ``from_forecaster`` attaches it when the
+  checkpoint has a baseline and its config ``health.drift``, and
+  ``swap_params`` resets it with the generation;
+- **fault drills** — a :class:`~stmgcn_tpu_torch.resilience.ServeFaultPlan`
+  (``fault_plan=``) reaches the micro-batcher at dispatch entry and the
+  checkpoint watcher before each poll (``corrupt-checkpoint``).
 
-Not ported yet: ``from_artifact`` and the drift monitor.
+Not ported yet: ``from_artifact``.
 """
 
 from __future__ import annotations
@@ -166,7 +176,10 @@ class CheckpointWatcher:
     counted in :attr:`rejected`, and the engine keeps serving its current
     parameters rather than fall back to a checkpoint older than the live
     one. ``poll()`` is one synchronous scan; with ``poll_s`` a daemon
-    thread calls it every ``poll_s`` seconds until :meth:`stop`.
+    thread calls it every ``poll_s`` seconds until :meth:`stop`. The
+    engine's serve fault plan gets its ``corrupt-checkpoint`` shot before
+    each scan, and a swap hands the engine the new checkpoint's
+    ``health_baseline``.
     """
 
     #: stop() waits this long for an in-flight poll before detaching
@@ -217,6 +230,10 @@ class CheckpointWatcher:
 
     def poll(self) -> bool:
         """One scan; returns True when a swap was applied."""
+        plan = getattr(self._engine, "_fault_plan", None)
+        if plan is not None:
+            for path in plan.corrupt_checkpoints(self.out_dir):
+                self._log(f"fault plan corrupted {path}")
         newest = self._newest_mtime()
         if newest is None or newest <= self._seen_mtime:
             return False
@@ -225,7 +242,7 @@ class CheckpointWatcher:
                                    log=self._log)
         if got is None:
             return self._reject()
-        path, _, params, _ = got
+        path, meta, params, _ = got
         try:
             mtime = os.path.getmtime(path)
         except OSError:
@@ -234,7 +251,8 @@ class CheckpointWatcher:
             # the newest file failed verification and the chain fell back to
             # something no newer than what is already serving
             return self._reject()
-        self._engine.swap_params(from_jax_params(params, self._engine.m_graphs))
+        self._engine.swap_params(from_jax_params(params, self._engine.m_graphs),
+                                 health_baseline=meta.get("health_baseline"))
         self.swaps += 1
         self.last_path = path
         self._applied_mtime = mtime
@@ -279,7 +297,7 @@ class ServingEngine:
     """
 
     def __init__(self, forwards, model, normalizer, expected, config, device, *,
-                 graphs: bool = False):
+                 graphs: bool = False, fault_plan=None):
         # bucket -> forward(model, history): each rung's forward
         self._forwards = dict(forwards)
         #: whether each generation's rungs are captured CUDA graphs
@@ -300,11 +318,15 @@ class ServingEngine:
             if config.deadline_ms is not None or config.queue_bound_rows
             else None
         )
+        self._fault_plan = fault_plan if fault_plan is not None and fault_plan.active else None
         self._batcher = MicroBatcher(
             self._run_program, self._buckets, config.max_delay_ms, self.stats,
-            admission=self.admission,
+            admission=self.admission, fault_plan=self._fault_plan,
         )
         self._watcher: Optional[CheckpointWatcher] = None
+        #: the live drift monitor (None until :meth:`enable_drift`)
+        self.drift = None
+        self._drift_city = "0"
         self._closed = False
 
     # -- construction ---------------------------------------------------
@@ -337,8 +359,8 @@ class ServingEngine:
         return None if pool is None else pool.reserved_bytes
 
     @classmethod
-    def from_forecaster(cls, fc, supports, *, config=None, city=None,
-                        device=None, graphs: Optional[bool] = None) -> "ServingEngine":
+    def from_forecaster(cls, fc, supports, *, config=None, city=None, device=None,
+                        graphs: Optional[bool] = None, fault_plan=None) -> "ServingEngine":
         """Engine over a :class:`~stmgcn_tpu_torch.inference.Forecaster`
         (over one city of a heterogeneous checkpoint, whose normalizer and
         region count it bakes in: ``city=``, checked as
@@ -352,7 +374,10 @@ class ServingEngine:
         engine serves its own copy of the forecaster's model. ``graphs``
         captures one CUDA graph per rung here and per rung at every swap
         (``None``: on for CUDA; ``True`` on the CPU raises); ``graphs=False``
-        runs each rung eagerly.
+        runs each rung eagerly. ``fault_plan`` is a
+        :class:`~stmgcn_tpu_torch.resilience.ServeFaultPlan`. The drift
+        monitor is attached when the checkpoint carries a
+        ``health_baseline`` and its config enables ``health.drift``.
         """
         device = resolve_device(device)
         graphs = resolve_graphs(graphs, device)
@@ -379,8 +404,29 @@ class ServingEngine:
         model.check_supports(sup_dev)
         forward = _bucket_program(sup_dev, device)
         served = copy.deepcopy(model).to(device).eval()
-        return cls({b: forward for b in cfg.buckets}, served, normalizer, expected, cfg,
-                   device, graphs=graphs)
+        engine = cls({b: forward for b in cfg.buckets}, served, normalizer, expected, cfg,
+                     device, graphs=graphs, fault_plan=fault_plan)
+        baseline = getattr(fc, "health_baseline", None)
+        health = getattr(fc.config, "health", None)
+        if baseline is not None and health is not None and health.drift:
+            engine.enable_drift(baseline, city=city if city is not None else 0)
+        return engine
+
+    # -- drift ----------------------------------------------------------
+
+    def enable_drift(self, baseline: dict, *, city: int = 0, registry=REGISTRY):
+        """Attach a :class:`~stmgcn_tpu_torch.obs.drift.DriftMonitor`
+        comparing live traffic with a training-time ``health_baseline``
+        blob (checkpoint meta), as ``city``. Returns the monitor."""
+        from stmgcn_tpu_torch.obs.drift import DriftMonitor
+
+        self._drift_city = str(city)
+        self.drift = DriftMonitor(baseline, registry=registry, generation=self.generation)
+        return self.drift
+
+    def drift_snapshot(self) -> Optional[dict]:
+        """JSON-able live drift state, or None without a monitor."""
+        return None if self.drift is None else self.drift.snapshot()
 
     # -- hot swap --------------------------------------------------------
 
@@ -389,7 +435,7 @@ class ServingEngine:
         """Monotonic param-generation counter (0 = construction params)."""
         return self._current.number
 
-    def swap_params(self, state_dict) -> int:
+    def swap_params(self, state_dict, *, health_baseline: Optional[dict] = None) -> int:
         """Atomically replace the serving parameters; returns the new
         generation.
 
@@ -398,11 +444,15 @@ class ServingEngine:
         model (whose rungs are captured first, under ``graphs``), which is
         published as one reference swap: in-flight dispatches finish on the
         generation they read at entry, every later dispatch sees the new
-        one.
+        one. An attached drift monitor resets with it (to
+        ``health_baseline`` when given), and observes no dispatch of an
+        older generation after that.
         """
         cur = self._current
         gen = cur.number + 1
         self._current = self._generation(gen, swapped_copy(cur.model, state_dict), swap=True)
+        if self.drift is not None:
+            self.drift.reset(gen, baseline=health_baseline)
         REGISTRY.counter("serving.swaps").inc()
         REGISTRY.gauge("serving.generation").set(gen)
         return gen
@@ -451,6 +501,13 @@ class ServingEngine:
                     batch[ofs:ofs + n] = payload[ofs:ofs + n]
         out = current.programs[bucket](pad_to_bucket(batch, bucket))
         out = norm.inverse(out) if norm is not None else out
+        drift = self.drift
+        if drift is not None and drift.generation == current.number:
+            # the real rows only, on the host after the readback (the pool
+            # lock is released): padded rows are bucket filler, not traffic
+            n_rows = payload.shape[0]
+            drift.observe_input(self._drift_city, batch[:n_rows])
+            drift.observe_prediction(self._drift_city, out[:n_rows])
         return out, current.number
 
     def _call_batched(self, history: np.ndarray, normalized: bool):

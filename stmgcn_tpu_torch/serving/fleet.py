@@ -32,8 +32,14 @@ int buffer and gathers each row's support stack and real-node count
 inside the graph; a tiled city's private class binds its plan. A swap
 captures the new generation's programs before publishing them.
 
-Not ported: the drift monitor (``enable_drift``, ``drift_snapshot``;
-ROADMAP A9) and fault plans and a global budget (A10), which raise by name.
+One drift monitor (:meth:`FleetServingEngine.enable_drift`) keeps a sketch
+per city: each dispatch's segments are observed over their city's real-node
+slice, after the readback. A :class:`~stmgcn_tpu_torch.resilience.ServeFaultPlan`
+(``fault_plan=``) reaches every class's micro-batcher, each counting its
+own dispatch ordinals, and the checkpoint watcher.
+
+Not ported: a global budget across the classes (``global_budget=``; it
+belongs to the serving federation), which raises by name.
 """
 
 from __future__ import annotations
@@ -99,7 +105,8 @@ class FleetServingEngine:
     """
 
     def __init__(self, plan, groups, forwards, batch_buckets, normalizers, city_n, seq_len,
-                 input_dim, config, models, m_graphs: int, *, graphs: bool, device):
+                 input_dim, config, models, m_graphs: int, *, graphs: bool, device,
+                 fault_plan=None):
         #: the shape-class plan (the extra exact-fit classes of unassigned
         #: and tiled cities appear in ``groups`` only)
         self.plan = plan
@@ -135,15 +142,19 @@ class FleetServingEngine:
             ci: AdmissionController(config, self.class_stats[ci], self._buckets) if slo else None
             for ci in range(len(self._groups))
         }
+        self._fault_plan = fault_plan if fault_plan is not None and fault_plan.active else None
         self._batchers = {
             ci: MicroBatcher(
                 lambda payload, bucket, segments, k=ci: self._run_program(
                     k, payload, bucket, segments),
                 self._buckets, config.max_delay_ms, self.class_stats[ci],
-                admission=self.class_admission[ci],
+                admission=self.class_admission[ci], fault_plan=self._fault_plan,
             )
             for ci in range(len(self._groups))
         }
+        #: the live drift monitor, per-city sketches inside (None until
+        #: :meth:`enable_drift`)
+        self.drift = None
         self._closed = False
 
     # -- construction ---------------------------------------------------
@@ -184,15 +195,17 @@ class FleetServingEngine:
         real-node counts are placed there once. ``graphs`` captures one CUDA
         graph per (class, batch rung) here and at every swap (``None``: on
         for CUDA; ``True`` on the CPU raises); ``graphs=False`` runs them
-        eagerly.
+        eagerly. ``fault_plan`` is a
+        :class:`~stmgcn_tpu_torch.resilience.ServeFaultPlan`; the drift
+        monitor is attached when the checkpoint carries a
+        ``health_baseline`` and its config enables ``health.drift``.
         """
         from stmgcn_tpu_torch.data.fleet import plan_shape_classes
         from stmgcn_tpu_torch.experiment import build_model
 
-        for name, value in (("fault_plan", fault_plan), ("global_budget", global_budget)):
-            if value is not None:
-                raise NotImplementedError(
-                    f"FleetServingEngine {name}= is not ported yet (ROADMAP.md A10)")
+        if global_budget is not None:
+            raise NotImplementedError(
+                "FleetServingEngine global_budget= is not ported yet (ROADMAP.md A10)")
         device = resolve_device(device)
         graphs = resolve_graphs(graphs, device)
         cfg = ServingEngine._resolve_config(
@@ -250,20 +263,29 @@ class FleetServingEngine:
             forwards[ci] = functools.partial(_dense_forward,
                                              stack_dev=torch.as_tensor(stack, device=device),
                                              n_real_dev=n_real)
-        return cls(plan, groups, forwards, cfg.buckets, fc.normalizers, n_nodes, fc.seq_len,
-                   fc.derived["input_dim"], cfg, models, m, graphs=graphs, device=device)
+        engine = cls(plan, groups, forwards, cfg.buckets, fc.normalizers, n_nodes, fc.seq_len,
+                     fc.derived["input_dim"], cfg, models, m, graphs=graphs, device=device,
+                     fault_plan=fault_plan)
+        baseline = getattr(fc, "health_baseline", None)
+        health = getattr(fc.config, "health", None)
+        if baseline is not None and health is not None and health.drift:
+            engine.enable_drift(baseline)
+        return engine
 
-    # -- unported ---------------------------------------------------------
+    # -- drift ----------------------------------------------------------
 
-    def enable_drift(self, *args, **kwargs):
-        raise NotImplementedError(
-            "FleetServingEngine.enable_drift (the drift monitor) is not ported yet "
-            "(ROADMAP.md A9)")
+    def enable_drift(self, baseline: dict, *, registry=REGISTRY):
+        """Attach a :class:`~stmgcn_tpu_torch.obs.drift.DriftMonitor`
+        comparing each city's live traffic with its training-time baseline
+        (checkpoint meta ``health_baseline``). Returns the monitor."""
+        from stmgcn_tpu_torch.obs.drift import DriftMonitor
 
-    def drift_snapshot(self):
-        raise NotImplementedError(
-            "FleetServingEngine.drift_snapshot (the drift monitor) is not ported yet "
-            "(ROADMAP.md A9)")
+        self.drift = DriftMonitor(baseline, registry=registry, generation=self.generation)
+        return self.drift
+
+    def drift_snapshot(self) -> Optional[dict]:
+        """JSON-able live drift state, or None without a monitor."""
+        return None if self.drift is None else self.drift.snapshot()
 
     # -- hot swap --------------------------------------------------------
 
@@ -272,16 +294,19 @@ class FleetServingEngine:
         """Monotonic param-generation counter (0 = construction params)."""
         return self._current.number
 
-    def swap_params(self, state_dict) -> int:
+    def swap_params(self, state_dict, *, health_baseline: Optional[dict] = None) -> int:
         """Atomically re-point every shape class at new parameters (a
         ``state_dict`` matching the served models'); returns the new
         generation. In-flight dispatches finish on the generation they
         read at entry; under ``graphs`` the new generation's programs are
-        captured before it is published."""
+        captured before it is published. An attached drift monitor resets
+        with it, as :meth:`ServingEngine.swap_params`'."""
         cur = self._current
         gen = cur.number + 1
         fresh = {kind: swapped_copy(model, state_dict) for kind, model in cur.model.items()}
         self._current = self._generation(gen, fresh, swap=True)
+        if self.drift is not None:
+            self.drift.reset(gen, baseline=health_baseline)
         REGISTRY.counter("serving.swaps").inc()
         REGISTRY.gauge("serving.generation").set(gen)
         return gen
@@ -339,6 +364,14 @@ class FleetServingEngine:
             if norm is not None:
                 nc = self._city_n[c]
                 out[ofs:ofs + n, ..., :nc, :] = norm.inverse(out[ofs:ofs + n, ..., :nc, :])
+        drift = self.drift
+        if drift is not None and drift.generation == current.number:
+            # per segment, over its city's real nodes: padded node columns
+            # are class filler, not any city's traffic
+            for ofs, n, (c, _) in segments:
+                nc = self._city_n[c]
+                drift.observe_input(c, batch[ofs:ofs + n, :, :nc, :])
+                drift.observe_prediction(c, out[ofs:ofs + n, ..., :nc, :])
         if len({c for _, _, (c, _) in segments}) > 1:
             self.cross_city_dispatches += 1
         return out, current.number

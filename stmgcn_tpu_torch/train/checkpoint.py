@@ -81,17 +81,31 @@ def serialize_checkpoint(params: Any, opt_state: Any, meta: dict) -> bytes:
     return b"".join(out)
 
 
-def write_checkpoint_bytes(path: str, data: bytes) -> None:
-    """Atomically write a serialized checkpoint (temp file + ``os.replace``)."""
+def write_checkpoint_bytes(path: str, data: bytes, fault_plan=None) -> None:
+    """Atomically write a serialized checkpoint (temp file + ``os.replace``).
+
+    ``fault_plan`` (a :class:`~stmgcn_tpu_torch.resilience.FaultPlan`)
+    gets its ``torn-write`` shot before the temp file is written: a crash
+    between the temp write and the rename leaves a partial
+    ``*.tmp.<pid>`` and never touches ``path``. ``None`` or the empty plan
+    is the production no-op."""
     tmp = f"{path}.tmp.{os.getpid()}"
+    if fault_plan is not None:
+        fault_plan.torn_write(path, data, tmp)
     with open(tmp, "wb") as f:
         f.write(data)
     os.replace(tmp, path)
 
 
-def save_checkpoint(path: str, params: Any, opt_state: Any, meta: dict) -> None:
-    """Atomically write ``params``/``opt_state``/``meta`` to ``path``."""
-    write_checkpoint_bytes(path, serialize_checkpoint(params, opt_state, meta))
+def save_checkpoint(path: str, params: Any, opt_state: Any, meta: dict, *,
+                    fault_plan=None) -> None:
+    """Atomically write ``params``/``opt_state``/``meta`` to ``path``;
+    ``fault_plan`` reaches the byte-mutating write faults (truncate,
+    corrupt) and the torn write."""
+    data = serialize_checkpoint(params, opt_state, meta)
+    if fault_plan is not None:
+        data = fault_plan.mutate_write(path, data)
+    write_checkpoint_bytes(path, data, fault_plan)
 
 
 def _read_exact(f, n: int, path: str, what: str) -> bytes:

@@ -26,6 +26,14 @@ parameters and an :class:`Optimizer`, and a step runs eagerly:
   cast at entry through ``compute_cast``'s stochastic rounding instead
   (one noise draw per leaf per step), with straight-through gradients.
   Adam, its moments and the loss stay float32.
+- **Numeric health** (``_health_stats``, ``step.py:312-362``): with
+  ``health`` (the groups of :func:`~stmgcn_tpu_torch.models.params.health_groups`)
+  a step also returns one float32 row, :data:`HEALTH_COLUMNS` then one
+  norm per group, read off values the step computes anyway: the raw
+  gradients and the parameters before the update, and the update
+  :meth:`Optimizer.apply` returns. It writes nothing the step reads, so the
+  update is bit for bit the plain step's. The counts are exact in float32
+  below 2^24 parameters.
 """
 
 from __future__ import annotations
@@ -38,12 +46,14 @@ import torch
 from stmgcn_tpu_torch.models.params import compute_cast, from_optax_state, to_optax_state
 
 __all__ = [
+    "HEALTH_COLUMNS",
     "LOSSES",
     "Optimizer",
     "clip_by_global_norm_",
     "elementwise_loss",
     "eval_step",
     "gather_window_batch",
+    "health_row",
     "lr_schedule",
     "make_optimizer",
     "masked_loss",
@@ -51,6 +61,9 @@ __all__ = [
 ]
 
 LOSSES = ("mse", "mae", "huber")
+#: the leading columns of a health row (:func:`health_row`); the group
+#: norms follow in the groups' order
+HEALTH_COLUMNS = ("loss", "grad_norm", "update_ratio", "nonfinite_grads", "nonfinite_loss")
 
 
 def lr_schedule(lr: float, schedule: str = "none", warmup_steps: int = 0,
@@ -128,7 +141,12 @@ class Optimizer:
     ``parts`` names the optax chain this optimizer stands for, in chain
     order (``models/params.py`` ``OPTAX_PARTS``): checkpoints store the
     state per part, as the JAX package does (:meth:`state_tree`,
-    :meth:`load_state_tree`)."""
+    :meth:`load_state_tree`).
+
+    :attr:`lr_scale` multiplies the scheduled rate in :meth:`scalars` (the
+    divergence guard's cumulative ``lr_cut``, which the JAX trainer applies
+    by rebuilding its optimizer at ``lr * scale``): the scalars are filled
+    on the host per step, so a cut needs no new program."""
 
     BETAS, EPS = (0.9, 0.999), 1e-8
 
@@ -142,6 +160,8 @@ class Optimizer:
         self.parts = tuple(parts)
         #: optimizer steps taken (optax's ``count``: the schedule's input)
         self.count = 0
+        #: factor on the scheduled learning rate (1.0: none)
+        self.lr_scale = 1.0
         with torch.no_grad():
             for p in self.params:
                 if p.grad is None:
@@ -158,13 +178,16 @@ class Optimizer:
         them."""
         b1, b2 = self.BETAS
         step = float(count + 1)
-        return (-(self.schedule(count) / (1 - b1 ** step)), (1 - b2 ** step) ** 0.5)
+        rate = self.lr_scale * self.schedule(count)
+        return (-(rate / (1 - b1 ** step)), (1 - b2 ** step) ** 0.5)
 
     @torch.no_grad()
-    def apply(self, scalars: torch.Tensor) -> None:
+    def apply(self, scalars: torch.Tensor) -> list:
         """One update from the parameters' ``.grad`` and ``scalars``, a
         float32 device tensor ``(2,)`` holding :meth:`scalars`; leaves
-        :attr:`count` to the caller. Launches kernels only (capturable)."""
+        :attr:`count` to the caller. Launches kernels only (capturable).
+        Returns the update added to each parameter (optax's ``updates``,
+        after the clip, the L2 term and Adam)."""
         b1, b2 = self.BETAS
         for p in self.params:
             if p.grad is None:
@@ -183,17 +206,21 @@ class Optimizer:
         update = torch._foreach_mul(self.exp_avg, scalars[0])
         torch._foreach_div_(update, denom)
         torch._foreach_add_(self.params, update)
+        return update
 
-    def step(self) -> None:
+    def step(self) -> list:
         """One eager update: a missing ``.grad`` steps on zeros, as under
-        ``jax.grad`` (its L2 term still applies)."""
+        ``jax.grad`` (its L2 term still applies). Returns the update, as
+        :meth:`apply`."""
         with torch.no_grad():
             for p in self.params:
                 if p.grad is None:
                     p.grad = torch.zeros_like(p)
         device = self.params[0].device if self.params else "cpu"
-        self.apply(torch.tensor(self.scalars(self.count), dtype=torch.float32).to(device))
+        update = self.apply(torch.tensor(self.scalars(self.count), dtype=torch.float32)
+                            .to(device))
         self.count += 1
+        return update
 
     def state_tree(self, names, m_graphs: int, layout: str = "vmapped") -> dict:
         """The optax chain state as the JAX package checkpoints it, with
@@ -283,10 +310,50 @@ def gather_window_batch(series, targets, offsets, idx, horizon: int = 1):
     return x, series[tgt[:, None] + steps[None, :]]
 
 
+def _member_norms(tensors, groups) -> list:
+    """Each group's float32 2-norm over ``tensors`` (indexed as
+    :func:`~stmgcn_tpu_torch.models.params.health_groups` indexes them, a
+    branch member being the slice ``[m]``), and the global norm last."""
+    members = [(i, m) for _, group in groups for i, m in group]
+    parts = [tensors[i].float() if m is None else tensors[i][m].float() for i, m in members]
+    squares = torch.stack(torch._foreach_norm(parts)).square()
+    norms, start = [], 0
+    for _, group in groups:
+        norms.append(torch.sqrt(squares[start:start + len(group)].sum()))
+        start += len(group)
+    norms.append(torch.sqrt(squares.sum()))
+    return norms
+
+
+@torch.no_grad()
+def _before_update(params, groups) -> tuple:
+    """What a health row reads before the update clips the gradients and
+    writes the parameters in place: the raw gradients' group norms and
+    global norm, their non-finite count and the parameters' norm."""
+    grads = [p.grad for p in params]
+    nonfinite = (~torch.isfinite(torch.cat([g.reshape(-1) for g in grads]))).sum()
+    return _member_norms(grads, groups), nonfinite, _member_norms(params, groups)[-1]
+
+
+@torch.no_grad()
+def health_row(loss: torch.Tensor, before: tuple, update, groups) -> torch.Tensor:
+    """One step's health stats as a float32 row (:data:`HEALTH_COLUMNS`,
+    then the group norms): the loss, the global norm of the raw gradients,
+    ‖update‖ / max(‖parameters before the update‖, 1e-12), the
+    non-finite entries of the raw gradients and of the loss, and each
+    group's gradient norm; every norm in float32. ``before`` is what
+    :func:`_before_update` read."""
+    (*group_norms, grad_norm), nonfinite, param_norm = before
+    ratio = _member_norms(update, groups)[-1] / torch.clamp(param_norm, min=1e-12)
+    loss = loss.detach().float()
+    return torch.stack([loss, grad_norm, ratio, nonfinite.float(),
+                        (~torch.isfinite(loss)).float(), *group_norms])
+
+
 def train_step(model, optimizer: Optimizer, supports, x, y, mask,
                loss: str = "mse", sr_generator: Optional[torch.Generator] = None,
                n_real: Optional[torch.Tensor] = None,
-               scalars: Optional[torch.Tensor] = None) -> torch.Tensor:
+               scalars: Optional[torch.Tensor] = None, health=None):
     """One optimizer step; returns the (device, detached) loss, unsynced.
     With ``sr_generator`` the model runs on a stochastically rounded bf16
     shadow of its parameters (``compute_cast``), drawn from it. With
@@ -297,7 +364,11 @@ def train_step(model, optimizer: Optimizer, supports, x, y, mask,
     A fleet city's step (``make_fleet_superstep_fns``' body,
     ``stmgcn_tpu/train/step.py:809-930``) passes its rung-padded
     ``supports``, a batch gathered from its class's series, a ``(B, N_c)``
-    ``mask`` and ``n_real``, the int real-node count the gate pools over."""
+    ``mask`` and ``n_real``, the int real-node count the gate pools over.
+
+    With ``health`` (the parameters' groups, :func:`health_groups`) it
+    returns ``(loss, health row)`` (:func:`health_row`) from the same
+    update."""
     optimizer.zero_grad()
     if sr_generator is None:
         pred = model(supports, x, n_real)
@@ -306,10 +377,10 @@ def train_step(model, optimizer: Optimizer, supports, x, y, mask,
         pred = torch.func.functional_call(model, shadow, (supports, x, n_real))
     value = masked_loss(loss, pred, y, mask)
     value.backward()
-    if scalars is None:
-        optimizer.step()
-    else:
-        optimizer.apply(scalars)
+    before = None if health is None else _before_update(optimizer.params, health)
+    update = optimizer.step() if scalars is None else optimizer.apply(scalars)
+    if health is not None:
+        return value.detach(), health_row(value, before, update, health)
     return value.detach()
 
 

@@ -75,9 +75,46 @@ captured one at a time with the generator's state registered with each
 graph (``CUDAGraph.register_generator_state``; a torch without it raises
 at construction). Evaluation and ``test`` forwards run eagerly.
 
+**Resilience** (``stmgcn_tpu/train/trainer.py:1615-1720``, ``:1743-2130``),
+at the JAX trainer's points:
+
+- a :class:`~stmgcn_tpu_torch.resilience.FaultPlan` (``fault_plan``; the
+  empty plan is the default and every hook a no-op) fires its step faults
+  per block or step (``before_step``); a block holding a ``drop`` runs
+  step by step; a ``poison`` payload is written into the step's row of the
+  block's static sample mask before the upload (no new program); the write
+  faults reach every checkpoint write, the async writer's too;
+- the **divergence guard** (``divergence_guard``, ``_action``,
+  ``_patience``, ``_lr_cut``) copies the parameters and Adam's moments
+  into snapshot buffers before each block, on the programs' stream, and on
+  a non-finite loss copies them back in place (the captured graphs keep
+  their addresses) and replays the block step by step, where the
+  offending step is skipped or deferred to the epoch's end (deferred
+  batches survive a mid-epoch resume, by ordinal, in meta ``deferred``).
+  A rolled-back block advances neither ``optimizer.count`` nor
+  ``global_step``, so the replay reads the scalars of the original counts.
+  ``lr_cut`` multiplies the host-side scalars (``Optimizer.lr_scale``,
+  meta ``lr_scale``); ``patience`` consecutive trips abort with
+  ``DivergenceError``;
+- **SIGTERM** (main thread only) sets a flag; at the next block boundary
+  (or eval batch, or epoch bookkeeping) the trainer writes an emergency
+  ``latest`` with the resume cursor, flushes the writer and raises
+  ``Preempted``; the previous handler is restored on the way out.
+
+**Health** (``health``, ``health_every_k``, ...; ``trainer.py:994-1120``):
+every ``health_every_k``-th dispatch (a block, or a step) runs the health
+twin of its program, captured lazily and keyed apart from the plain one,
+whose one readback packs the losses and per-step stats (``train/step.py``
+``health_row``; a fleet class's twin adds each step's loss scattered to its
+member's column, ``city_loss``); the trainer writes ``health.jsonl``
+(:class:`~stmgcn_tpu_torch.obs.health.HealthWriter`) and publishes to the
+registry, and with ``health_baseline`` puts the training-time drift
+baseline into checkpoint meta. A twin captured after the first epoch counts
+as a recapture, as the JAX trainer's lazy health compile counts as a
+recompile.
+
 Not ported: streaming placement, materialized windows, node padding for
-meshes and meshes, the divergence guard and fault plan, SIGTERM emergency
-checkpoints, health telemetry and sanitizers.
+meshes and meshes, and sanitizers.
 """
 
 from __future__ import annotations
@@ -87,8 +124,10 @@ import errno
 import itertools
 import os
 import queue
+import signal
 import threading
 import time
+import weakref
 from typing import Optional
 
 import numpy as np
@@ -97,11 +136,20 @@ import torch
 from stmgcn_tpu_torch.config import check_precision
 from stmgcn_tpu_torch.data.splits import MODES
 from stmgcn_tpu_torch.graphs import CapturedProgram, DeviceOps, GraphPool, Program, resolve_graphs
-from stmgcn_tpu_torch.models.params import from_jax_params, jax_layout, to_jax_params
+from stmgcn_tpu_torch.models.params import (
+    from_jax_params,
+    health_groups,
+    jax_layout,
+    to_jax_params,
+)
 from stmgcn_tpu_torch.obs import graphmon
+from stmgcn_tpu_torch.obs.health import HealthWriter, publish_train_health
+from stmgcn_tpu_torch.obs.registry import REGISTRY
 from stmgcn_tpu_torch.ops.layers import resolve_device, set_compute_dtype
 from stmgcn_tpu_torch.ops.spmm import place_supports
 from stmgcn_tpu_torch.ops.tiling import StackedPlans, TiledSupports
+from stmgcn_tpu_torch.resilience.faults import FaultPlan, Preempted
+from stmgcn_tpu_torch.resilience.guard import DivergenceGuard
 from stmgcn_tpu_torch.train.checkpoint import (
     load_checkpoint,
     load_latest_verified,
@@ -110,6 +158,7 @@ from stmgcn_tpu_torch.train.checkpoint import (
 )
 from stmgcn_tpu_torch.train.metrics import regression_report
 from stmgcn_tpu_torch.train.step import (
+    HEALTH_COLUMNS,
     LOSSES,
     eval_step,
     gather_window_batch,
@@ -118,6 +167,37 @@ from stmgcn_tpu_torch.train.step import (
 )
 
 __all__ = ["CitySupports", "Trainer"]
+
+
+def _file_op(op: str, path: str, payload, fault_plan) -> None:
+    """One checkpoint file operation: a write (through ``fault_plan``'s
+    torn-write hook), a rotation ``latest -> latest.prev`` or a removal."""
+    if op == "write":
+        write_checkpoint_bytes(path, payload, fault_plan)
+        return
+    try:
+        if op == "rotate":  # latest -> latest.prev
+            os.replace(path, payload)
+        else:  # "rm": FIFO with the writes, so a dropped snapshot stays dropped
+            os.remove(path)
+    except OSError:  # nothing to rotate or remove yet
+        pass
+
+
+def _write_jobs(jobs: queue.Queue, fault_plan, failures: list) -> None:
+    """The background writer: file operations in queue order until a
+    ``None`` (its trainer was freed); failures are kept for
+    ``Trainer.flush_checkpoints``."""
+    while True:
+        job = jobs.get()
+        try:
+            if job is None:
+                return
+            _file_op(*job, fault_plan)
+        except Exception as e:  # surfaced by flush_checkpoints
+            failures.append(e)
+        finally:
+            jobs.task_done()
 
 
 class CitySupports:
@@ -215,8 +295,9 @@ class Trainer:
     model facts there, as the JAX package does). ``device=None`` means the
     GPU, and raises without one. ``graphs`` captures the training programs
     as CUDA graphs (``None``: on for CUDA; ``True`` on the CPU raises);
-    ``graphs=False`` runs them eagerly. Other arguments as the JAX
-    ``Trainer``'s.
+    ``graphs=False`` runs them eagerly. ``fault_plan``, the
+    ``divergence_*`` and ``health*`` arguments: the module docstring. Other
+    arguments as the JAX ``Trainer``'s.
     """
 
     def __init__(self, model, dataset, supports, *, lr: float = 2e-3,
@@ -229,7 +310,13 @@ class Trainer:
                  fleet_max_pad_waste: float = 0.5,
                  out_dir: str = "output", top_k: int = 1, async_checkpoint: bool = True,
                  checkpoint_every_steps: int = 0, precision: str = "fp32",
-                 sr_seed: Optional[int] = None, extra_meta: Optional[dict] = None,
+                 sr_seed: Optional[int] = None, divergence_guard: bool = False,
+                 divergence_action: str = "skip", divergence_patience: int = 3,
+                 divergence_lr_cut: Optional[float] = None,
+                 fault_plan: Optional[FaultPlan] = None, health: bool = False,
+                 health_every_k: int = 1, health_out: Optional[str] = None,
+                 health_baseline: bool = True, health_sketch_size: int = 64,
+                 extra_meta: Optional[dict] = None,
                  initial_state: Optional[dict] = None, device=None,
                  graphs: Optional[bool] = None, verbose: bool = True):
         check_precision(precision, sr_seed)
@@ -247,6 +334,10 @@ class Trainer:
         if not 0.0 <= fleet_max_pad_waste < 1.0:
             raise ValueError(
                 f"fleet_max_pad_waste must be in [0, 1), got {fleet_max_pad_waste}")
+        if health_every_k < 1:
+            raise ValueError(f"health_every_k must be >= 1, got {health_every_k}")
+        if health_sketch_size < 1:
+            raise ValueError(f"health_sketch_size must be >= 1, got {health_sketch_size}")
         for mode in ("train", "validate"):
             if dataset.mode_size(mode) == 0:
                 raise ValueError(
@@ -277,6 +368,26 @@ class Trainer:
         self.verbose = verbose
         self.precision = precision
         self.sr_seed = sr_seed
+        #: deterministic fault injection; the empty plan makes every hook a no-op
+        self.fault_plan = fault_plan if fault_plan is not None else FaultPlan()
+        self._guard = (DivergenceGuard(action=divergence_action, patience=divergence_patience,
+                                       lr_cut=divergence_lr_cut)
+                       if divergence_guard else None)
+        self._snapshot: Optional[list] = None  # the guard's buffers, made on first use
+        # guard action="defer": (ordinal, batch) retried at the epoch's end;
+        # ordinals restored from a mid-epoch checkpoint's meta
+        self._deferred: list = []
+        self._resume_deferred: list = []
+        self._preempted = False  # SIGTERM arrived; unwind at the next safe point
+        self._lr_scale = 1.0  # the guard's cumulative lr cut
+        self.health = bool(health)
+        self.health_every_k = health_every_k
+        self.health_sketch_size = health_sketch_size
+        self._health_out = health_out
+        self._health_baseline_on = bool(health_baseline)
+        self._health_counter = 0
+        self._health_writer: Optional[HealthWriter] = None
+        self._health_baseline_cache: Optional[dict] = None
         self.model = model.to(self.device)
         if precision == "bf16":  # the train and eval bodies' bf16 clone
             set_compute_dtype(self.model, torch.bfloat16)
@@ -286,6 +397,9 @@ class Trainer:
         #: support mode
         self.layout = jax_layout(self.model.support_mode)
         self._param_names = [name for name, _ in self.model.named_parameters()]
+        #: the health stats' layer groups, the JAX tree's top-level keys
+        self._health_groups = health_groups(self._param_names, self.model.m_graphs,
+                                            layout=self.layout)
 
         dev = self.device
         self.hetero = getattr(dataset, "heterogeneous", False)
@@ -347,7 +461,8 @@ class Trainer:
         self._epoch_counts: list = []
         self._last_cadence_step = 0
         self._write_queue: Optional[queue.Queue] = None
-        self._writer_error: Optional[BaseException] = None
+        #: what the background writer raised since the last flush
+        self._write_failures: list = []
 
     # -- cities and fleet classes -------------------------------------------
     def _fleet_blocker(self) -> Optional[str]:
@@ -531,14 +646,22 @@ class Trainer:
         }
         if self.sr_seed is not None:
             meta["sr_seed"] = self.sr_seed
+        if self._lr_scale != 1.0:
+            meta["lr_scale"] = self._lr_scale
         if self._batch_in_epoch:
             meta["partial"] = {"losses": [float(v) for v in self._epoch_losses],
                                "counts": [int(c) for c in self._epoch_counts]}
+            if self._deferred:
+                # the guard's pending "defer" retries, by ordinal: a resume
+                # retries them at the epoch's end instead of dropping them
+                meta["deferred"] = [ordinal for ordinal, _ in self._deferred]
         if self.hetero:
             meta["normalizers"] = [n.to_dict() if n is not None else None
                                    for n in self.dataset.normalizers]
         elif self.dataset.normalizer is not None:
             meta["normalizer"] = self.dataset.normalizer.to_dict()
+        if self.health and self._health_baseline_on:
+            meta["health_baseline"] = self._health_baseline_blob()
         meta.update(self.extra_meta)
         return meta
 
@@ -562,49 +685,33 @@ class Trainer:
         self._queue("write", path, data)
         return data
 
-    @staticmethod
-    def _file_op(op: str, path: str, payload) -> None:
-        if op == "write":
-            write_checkpoint_bytes(path, payload)
-            return
-        try:
-            if op == "rotate":  # latest -> latest.prev
-                os.replace(path, payload)
-            else:  # "rm": FIFO with the writes, so a dropped snapshot stays dropped
-                os.remove(path)
-        except OSError:  # nothing to rotate or remove yet
-            pass
-
     def _queue(self, op: str, path: str, payload=None) -> None:
         os.makedirs(self.out_dir, exist_ok=True)
+        if op == "write":  # the plan's byte faults, on the training thread
+            payload = self.fault_plan.mutate_write(path, payload)
         if not self.async_checkpoint:
-            self._file_op(op, path, payload)
+            _file_op(op, path, payload, self.fault_plan)
             return
         if self._write_queue is None:
             # bounded: each entry holds a whole serialized state, so a slow
             # out_dir applies backpressure instead of growing host memory
             self._write_queue = queue.Queue(maxsize=4)
-
-            def worker(jobs):
-                while True:
-                    op, path, payload = jobs.get()
-                    try:
-                        self._file_op(op, path, payload)
-                    except Exception as e:  # surfaced by flush_checkpoints
-                        self._writer_error = e
-                    finally:
-                        jobs.task_done()
-
-            threading.Thread(target=worker, args=(self._write_queue,), daemon=True,
-                             name="stmgcn-ckpt-writer").start()
+            # the thread holds the queue, the plan and the failure list, not
+            # the trainer: a trainer (and its graph pool) it wrote for can be
+            # freed, and the thread ends with it
+            threading.Thread(target=_write_jobs,
+                             args=(self._write_queue, self.fault_plan, self._write_failures),
+                             daemon=True, name="stmgcn-ckpt-writer").start()
+            weakref.finalize(self, self._write_queue.put, None)
         self._write_queue.put((op, path, payload))
 
     def flush_checkpoints(self) -> None:
         """Block until pending checkpoint writes land; re-raise a failure."""
         if self._write_queue is not None:
             self._write_queue.join()
-        if self._writer_error is not None:
-            err, self._writer_error = self._writer_error, None
+        if self._write_failures:
+            err = self._write_failures[0]
+            self._write_failures.clear()
             raise RuntimeError("background checkpoint write failed") from err
 
     def _install(self, meta: dict, params: dict, opt_state) -> None:
@@ -618,12 +725,9 @@ class Trainer:
 
     def _apply_meta(self, meta: dict) -> None:
         """The JAX trainer's ``_apply_meta``: the loop state, and for a
-        mid-epoch checkpoint the resume cursor and partial losses, refused
-        when the data order would differ."""
-        if float(meta.get("lr_scale", 1.0)) != 1.0 or meta.get("deferred"):
-            raise ValueError(
-                "checkpoint carries divergence-guard state (lr_scale / deferred "
-                "batches), which the port does not have yet; see ROADMAP.md")
+        mid-epoch checkpoint the resume cursor, partial losses and the
+        guard's deferred ordinals, refused when the data order would differ;
+        the guard's ``lr_scale``."""
         self.epoch = meta["epoch"]
         self.best_val = meta["best_val"]
         self.patience_left = meta["patience_left"]
@@ -631,6 +735,7 @@ class Trainer:
         self.global_step = int(meta.get("global_step", 0))
         self._last_cadence_step = self.global_step
         self._resume_skip = int(meta.get("batch_in_epoch", 0))
+        self._set_lr_scale(float(meta.get("lr_scale", 1.0)))
         if self._resume_skip:
             if int(meta.get("seed", self.seed)) != self.seed:
                 raise ValueError(
@@ -655,8 +760,10 @@ class Trainer:
             partial = meta.get("partial") or {"losses": [], "counts": []}
             self._epoch_losses = [float(v) for v in partial["losses"]]
             self._epoch_counts = [int(c) for c in partial["counts"]]
+            self._resume_deferred = [int(o) for o in meta.get("deferred", [])]
         else:
             self._epoch_losses, self._epoch_counts = [], []
+            self._resume_deferred = []
         self._batch_in_epoch = self._resume_skip
 
     def restore(self, path: Optional[str] = None) -> dict:
@@ -718,12 +825,16 @@ class Trainer:
         uninterrupted one did."""
         return (self.sr_seed * 1_000_003 + step) % (1 << 63)
 
-    def _block_body(self, site: _Site, steps: int, mode: str):
+    def _block_body(self, site: _Site, steps: int, mode: str, health: bool = False):
         """The program body of ``steps`` optimizer steps over ``site``: each
         step gathers its batch from the static index block, masks its loss
         with the static sample mask (crossed with the member's real nodes
         in a fleet class) and updates from its static optimizer scalars;
-        returns the ``(steps,)`` losses."""
+        returns the ``(steps,)`` losses. The ``health`` twin returns the
+        ``(steps, 5 + G)`` health rows instead (the loss their first
+        column), and over a fleet class each step's loss scattered to its
+        member's column after them (``city_loss``)."""
+        groups = self._health_groups if health else None
 
         def body(v):
             supports, n_real = site.select(v.get("slot"))
@@ -731,22 +842,29 @@ class Trainer:
             if n_real is not None:
                 n = site.series.shape[1]
                 node = (torch.arange(n, device=self.device) < n_real).to(torch.float32)
-            losses = []
+            outs = []
             for s in range(steps):
                 x, y = gather_window_batch(site.series, site.targets[mode], self.offsets,
                                            v["idx"][s], self.horizon)
                 mask = v["mask"][s] if node is None else v["mask"][s][:, None] * node[None, :]
-                losses.append(train_step(self.model, self.optimizer, supports, x, y, mask,
-                                         self.loss, sr_generator=self._sr_gen, n_real=n_real,
-                                         scalars=v["adam"][s]))
-            return torch.stack(losses)
+                outs.append(train_step(self.model, self.optimizer, supports, x, y, mask,
+                                       self.loss, sr_generator=self._sr_gen, n_real=n_real,
+                                       scalars=v["adam"][s], health=groups))
+            if not health:
+                return torch.stack(outs)
+            rows = torch.stack([row for _, row in outs])
+            if site.n_real is None:
+                return rows
+            members = site.n_real.shape[0]
+            onehot = (torch.arange(members, device=self.device) == v["slot"]).float()
+            return torch.cat([rows, rows[:, :1] * onehot[None, :]], dim=1)
 
         return body
 
-    def _program(self, key, steps: int, mode: str) -> Program:
-        """The training program of ``steps`` steps over site ``key`` (made,
-        and on CUDA captured at its first call, once)."""
-        name = (key, steps, mode)
+    def _program(self, key, steps: int, mode: str, health: bool = False) -> Program:
+        """The training program of ``steps`` steps over site ``key``, or its
+        health twin (made, and on CUDA captured at its first call, once)."""
+        name = (key, steps, mode, health)
         program = self._programs.get(name)
         if program is None:
             site = self._sites[key]
@@ -755,8 +873,9 @@ class Trainer:
                     "adam": ((steps, 2), torch.float32)}
             if site.n_real is not None:
                 spec["slot"] = ((1,), torch.int32)
-            body = self._block_body(site, steps, mode)
-            label = f"training block {key[0]} {key[1]}, {steps} step(s)"
+            body = self._block_body(site, steps, mode, health)
+            label = (f"training block {key[0]} {key[1]}, {steps} step(s)"
+                     + (", health" if health else ""))
             if self.graphs:
                 program = CapturedProgram(body, spec, self.graph_pool, name=label,
                                           generator=self._sr_gen)
@@ -765,27 +884,50 @@ class Trainer:
             self._programs[name] = program
         return program
 
-    def _run_block(self, block: list, mode: str = "train") -> list:
+    def _dispatch(self, block: list, mode: str = "train", health: bool = False,
+                  poisons: Optional[dict] = None) -> tuple:
         """The optimizer steps of ``block`` (one city's batches) as one
         program call, or one call per step under stochastic rounding (its
-        generator is reseeded per step); returns the per-step losses."""
+        generator is reseeded per step), from the optimizer's count and the
+        global step as they stand; advances neither. ``poisons`` maps a
+        step of the block to the payload written into its first mask entry.
+        Returns ``(losses, health rows or None)``."""
         key, slot, starts = self._city_site[block[0].city]
         runs = [[b] for b in block] if self._sr_gen is not None else [block]
-        losses = []
+        count, step = self.optimizer.count, self.global_step
+        outs, first = [], 0
         for run in runs:
-            count = self.optimizer.count
+            mask = np.stack([np.arange(len(b)) < b.n_real for b in run]).astype(np.float32)
+            for s, payload in (poisons or {}).items():
+                if first <= s < first + len(run):
+                    mask[s - first, 0] = payload
             values = {
                 "idx": np.stack([np.asarray(b.indices) + starts[mode] for b in run]),
-                "mask": np.stack([np.arange(len(b)) < b.n_real for b in run]),
-                "adam": np.array([self.optimizer.scalars(count + i) for i in range(len(run))]),
+                "mask": mask,
+                "adam": np.array([self.optimizer.scalars(count + first + i)
+                                  for i in range(len(run))]),
             }
             if key[0] == "class":
                 values["slot"] = np.array([slot])
             if self._sr_gen is not None:
-                self._sr_gen.manual_seed(self._sr_seed(self.global_step))
-            losses += self._program(key, len(run), mode)(values).tolist()
-            self.optimizer.count += len(run)
-            self.global_step += len(run)
+                self._sr_gen.manual_seed(self._sr_seed(step + first))
+            outs.append(self._program(key, len(run), mode, health)(values))
+            first += len(run)
+        out = outs[0] if len(outs) == 1 else torch.cat(outs)
+        if health:
+            rows = out.numpy()
+            return rows[:, 0].tolist(), rows
+        return out.tolist(), None
+
+    def _advance(self, steps: int) -> None:
+        self.optimizer.count += steps
+        self.global_step += steps
+
+    def _run_block(self, block: list, mode: str = "train") -> list:
+        """The optimizer steps of ``block`` (:meth:`_dispatch`), counted;
+        returns the per-step losses."""
+        losses, _ = self._dispatch(block, mode)
+        self._advance(len(block))
         return losses
 
     def train_batch(self, batch, mode: str = "train") -> torch.Tensor:
@@ -814,10 +956,218 @@ class Trainer:
             blocks += [run[k:k + S] for k in range(0, full, S)] + [[b] for b in run[full:]]
         return blocks
 
+    # -- the guard, health and preemption ------------------------------------
+    def _guarded(self) -> list:
+        opt = self.optimizer
+        return list(opt.params) + opt.exp_avg + opt.exp_avg_sq
+
+    @torch.no_grad()
+    def _take_snapshot(self) -> None:
+        """Copy the parameters and Adam's moments into the guard's buffers,
+        on the programs' stream (ordered with their replays)."""
+        live = self._guarded()
+        if self._snapshot is None:
+            self._snapshot = [torch.empty_like(t) for t in live]
+        with self._ops.stream_context():
+            for dst, src in zip(self._snapshot, live):
+                dst.copy_(src)
+
+    @torch.no_grad()
+    def _rollback(self) -> None:
+        """Copy the snapshot back into the live tensors, in place: the
+        captured programs read and write those very tensors."""
+        with self._ops.stream_context():
+            for dst, src in zip(self._guarded(), self._snapshot):
+                dst.copy_(src)
+
+    def _set_lr_scale(self, scale: float) -> None:
+        """The guard's cumulative lr cut (or a resumed run's): the optimizer
+        scales its host-side scalars, so no program changes."""
+        self._lr_scale = scale
+        self.optimizer.lr_scale = scale
+
+    def _health_due(self) -> bool:
+        """Cadence gate, ticked once per dispatch unit (a block, or a
+        step)."""
+        if not self.health:
+            return False
+        due = self._health_counter % self.health_every_k == 0
+        self._health_counter += 1
+        return due
+
+    def _health_out_path(self) -> str:
+        return self._health_out or os.path.join(self.out_dir, "health.jsonl")
+
+    def _health_emit(self, stats: np.ndarray, cities=None) -> None:
+        """One health dispatch's rows (:meth:`_block_body`) as the JAX
+        trainer's record: the last step's loss and norms, the block's
+        non-finite counts, per-group norms and, for a fleet block
+        (``cities``: its class's members by slot), each member's summed
+        loss; published to the registry and appended to ``health.jsonl``."""
+        names = [g for g, _ in self._health_groups]
+        col = {c: i for i, c in enumerate(HEALTH_COLUMNS)}
+        last = stats[-1]
+        rec = {
+            "kind": "train",
+            "epoch": self.epoch,
+            "step": self.global_step,
+            "steps": int(stats.shape[0]),
+            "loss": float(last[col["loss"]]),
+            "grad_norm": float(last[col["grad_norm"]]),
+            "update_ratio": float(last[col["update_ratio"]]),
+            "nonfinite_grads": int(np.sum(stats[:, col["nonfinite_grads"]])),
+            "nonfinite_loss": int(np.sum(stats[:, col["nonfinite_loss"]])),
+            "group_norms": {g: float(v) for g, v in
+                            zip(names, last[len(HEALTH_COLUMNS):len(HEALTH_COLUMNS) + len(names)])},
+        }
+        if cities is not None:
+            csum = stats[:, len(HEALTH_COLUMNS) + len(names):].sum(axis=0)
+            rec["city_loss"] = {str(cities[slot]): float(v) for slot, v in enumerate(csum)
+                                if slot < len(cities)}
+        publish_train_health(rec, REGISTRY)
+        if self._health_writer is None:
+            os.makedirs(os.path.dirname(self._health_out_path()) or ".", exist_ok=True)
+            self._health_writer = HealthWriter(self._health_out_path(),
+                                               {"every_k": self.health_every_k,
+                                                "groups": names})
+        self._health_writer.write(rec)
+
+    def _health_baseline_blob(self) -> dict:
+        """The training-time drift baseline for checkpoint meta (the JAX
+        trainer's ``_health_baseline_blob``): per city, the normalized
+        series (``input``) and its denormalized values (``prediction``),
+        stride-subsampled to at most 65,536 rows; cached."""
+        if self._health_baseline_cache is not None:
+            return self._health_baseline_cache
+        from stmgcn_tpu_torch.obs.drift import baseline_from_samples
+
+        ds, bins = self.dataset, self.health_sketch_size
+        blob = {"schema_version": 1, "bins": bins, "input": {}, "prediction": {}}
+        for c in range(getattr(ds, "n_cities", 1)):
+            series = np.asarray(ds.series(c), dtype=np.float64)
+            flat = series.reshape(-1, series.shape[-1])
+            flat = flat[::max(1, flat.shape[0] // 65536)]
+            denorm = ds.denormalize(flat, city=c) if self.hetero else ds.denormalize(flat)
+            blob["input"][str(c)] = baseline_from_samples(flat, bins=bins)
+            blob["prediction"][str(c)] = baseline_from_samples(
+                np.asarray(denorm, dtype=np.float64), bins=bins)
+        self._health_baseline_cache = blob
+        return blob
+
+    def _after_train_batch(self) -> None:
+        """The step-cadence ``latest`` write and the SIGTERM safe point,
+        after every consumed batch or block."""
+        K = self.checkpoint_every_steps
+        if K and self.global_step - self._last_cadence_step >= K:
+            self._save(self.latest_path)
+            self._last_cadence_step = self.global_step
+        self._check_preempt()
+
+    def _check_preempt(self) -> None:
+        """After SIGTERM: write the emergency checkpoint here, a safe
+        boundary whose meta cursor is consistent, and unwind with
+        :class:`~stmgcn_tpu_torch.resilience.Preempted`."""
+        if not self._preempted:
+            return
+        self._log(f"SIGTERM received — emergency checkpoint at epoch {self.epoch}, "
+                  f"step {self.global_step}")
+        self._save(self.latest_path)
+        self.flush_checkpoints()
+        raise Preempted(f"preempted at epoch {self.epoch}, step {self.global_step}; "
+                        "restart with --resume auto to continue bit-exactly")
+
+    # -- the loop -------------------------------------------------------------
+    def _train_one(self, batch, retry: bool = False) -> None:
+        """One optimizer step with the fault plan and the guard (the JAX
+        ``_train_one``). ``retry`` marks a deferred batch's re-run at the
+        epoch's end: the plan is not consulted and the cursor does not
+        advance."""
+        plan, guard = self.fault_plan, self._guard
+        step = self._batch_in_epoch
+        poisons = {}
+        if not retry:
+            plan.before_step(self.epoch, step)
+            if plan.should_drop(self.epoch, step):
+                self._batch_in_epoch += 1
+                return
+            poison = plan.poison_value(self.epoch, step)
+            if poison is not None:
+                poisons[0] = poison
+        if guard is not None:
+            self._take_snapshot()
+        losses, stats = self._dispatch([batch], "train", self._health_due(), poisons)
+        loss = losses[0]
+        if not retry:
+            self._batch_in_epoch += 1
+        if guard is not None and not np.isfinite(loss):
+            self._rollback()
+            self._log(f"divergence guard: non-finite loss at epoch {self.epoch}, step {step} "
+                      f"— rolled back, {guard.action} batch")
+            if guard.lr_cut is not None:
+                self._set_lr_scale(self._lr_scale * guard.lr_cut)
+            guard.trip(loss, self.epoch, step)
+            if guard.action == "defer" and not retry:
+                self._deferred.append((step, batch))
+            return  # no loss or count recorded; the step counts do not advance
+        if guard is not None:
+            guard.ok()
+        self._advance(1)
+        self._epoch_losses.append(loss)
+        self._epoch_counts.append(batch.n_real)
+        if stats is not None:
+            self._health_emit(stats)
+
+    def _steps_one_by_one(self, block: list) -> None:
+        for batch in block:
+            self._train_one(batch)
+            self._after_train_batch()
+
+    def _train_block(self, block: list) -> None:
+        """A block of S steps as one program call, with the plan's step
+        faults at its boundary (a ``drop`` inside runs it step by step;
+        ``poison`` payloads go into the block's mask) and the guard's
+        snapshot: on a non-finite loss the block is rolled back and
+        replayed step by step, where the guard isolates the bad batch."""
+        plan, guard, S = self.fault_plan, self._guard, len(block)
+        start = self._batch_in_epoch
+        plan.before_step(self.epoch, start, start + S)
+        if plan.active and plan.any_drop(self.epoch, start, start + S):
+            self._steps_one_by_one(block)
+            return
+        poisons = {}
+        if plan.active:
+            for s in range(S):
+                poison = plan.poison_value(self.epoch, start + s)
+                if poison is not None:
+                    poisons[s] = poison
+        if guard is not None:
+            self._take_snapshot()
+        losses, stats = self._dispatch(block, "train", self._health_due(), poisons)
+        if guard is not None and not np.isfinite(losses).all():
+            self._rollback()
+            fleet = "fleet " if block[0].city in self._fleet_cities else ""
+            self._log(f"divergence guard: non-finite loss in {fleet}superstep block at epoch "
+                      f"{self.epoch}, steps {start}..{start + S - 1} — rolled back, "
+                      "replaying per-step")
+            self._steps_one_by_one(block)
+            return
+        if guard is not None:
+            guard.ok()
+        self._batch_in_epoch += S
+        self._advance(S)
+        self._epoch_losses += losses
+        self._epoch_counts += [b.n_real for b in block]
+        if stats is not None:
+            cls = self._fleet_cities.get(block[0].city)
+            self._health_emit(stats, cities=None if cls is None else
+                              self.fleet_plan.classes[cls.cls].cities)
+        self._after_train_batch()
+
     def _run_train_epoch(self) -> float:
-        """The epoch's remaining batches in blocks (:meth:`_blocks`); after a
-        mid-epoch restore the first ``skip`` batches were consumed before
-        the save."""
+        """The epoch's remaining batches in blocks (:meth:`_blocks`), then
+        the guard's deferred batches once each; after a mid-epoch restore
+        the first ``skip`` batches were consumed before the save, and the
+        deferred ordinals it carried come first among the retries."""
         batches = list(self.batches("train", shuffle=self.shuffle))
         skip, self._resume_skip = self._resume_skip, 0
         if skip > len(batches):
@@ -826,14 +1176,23 @@ class Trainer:
         if skip == 0:
             self._epoch_losses, self._epoch_counts = [], []
         self._batch_in_epoch = skip
-        K = self.checkpoint_every_steps
+        resume_deferred, self._resume_deferred = self._resume_deferred, []
+        unknown = sorted(o for o in resume_deferred if not 0 <= o < len(batches))
+        if unknown:
+            raise ValueError(f"mid-epoch checkpoint defers batch ordinals {unknown} that this "
+                             "epoch does not produce — checkpoint from a different data "
+                             "configuration?")
+        self._deferred = [(o, batches[o]) for o in sorted(set(resume_deferred))]
         for block in self._blocks(batches, skip):
-            self._epoch_losses += self._run_block(block)
-            self._epoch_counts += [b.n_real for b in block]
-            self._batch_in_epoch += len(block)
-            if K and self.global_step - self._last_cadence_step >= K:
-                self._save(self.latest_path)
-                self._last_cadence_step = self.global_step
+            if len(block) == 1:
+                self._train_one(block[0])
+                self._after_train_batch()
+            else:
+                self._train_block(block)
+        deferred, self._deferred = self._deferred, []
+        for _, batch in deferred:  # guard action="defer": one retry at the epoch's end
+            self._train_one(batch, retry=True)
+            self._after_train_batch()
         return self._weighted(self._epoch_losses, self._epoch_counts)
 
     def _run_eval_epoch(self, mode: str) -> float:
@@ -844,6 +1203,7 @@ class Trainer:
             losses.append(eval_step(self.model, data.supports, x, y, mask, self.loss,
                                     n_real=data.n_real)[0])
             counts.append(batch.n_real)
+            self._check_preempt()
         return self._weighted(torch.stack(losses).tolist(), counts)
 
     @staticmethod
@@ -857,9 +1217,18 @@ class Trainer:
     def train(self) -> dict:
         """Run the epoch loop; returns ``{"train": [...], "validate": [...]}``
         for the epochs run here. Pending checkpoint writes land before it
-        returns, or before an exception leaves it."""
+        returns, or before an exception leaves it. On the main thread,
+        SIGTERM is caught while it runs (module docstring) and the previous
+        handler restored on the way out."""
         history = {"train": [], "validate": []}
         self._log(f"Training starts at: {time.ctime()}")
+        in_main = threading.current_thread() is threading.main_thread()
+        previous = None
+        if in_main:
+            def on_sigterm(signum, frame):
+                self._preempted = True
+
+            previous = signal.signal(signal.SIGTERM, on_sigterm)
         # a mid-epoch cursor re-enters its epoch; a boundary starts the next
         start_epoch = self.epoch + (1 if self._resume_skip == 0 else 0)
         try:
@@ -870,6 +1239,11 @@ class Trainer:
             except Exception as flush_exc:
                 self._log(f"checkpoint flush failed during teardown: {flush_exc}")
             raise
+        finally:
+            if in_main:
+                signal.signal(signal.SIGTERM, previous)
+            if self._health_writer is not None:
+                self._health_writer.flush()
         self.flush_checkpoints()
         self._log(f"Training ends at: {time.ctime()}")
         return history
@@ -879,7 +1253,9 @@ class Trainer:
             self.epoch = epoch
             t0 = time.time()
             train_loss = self._run_train_epoch()
+            self._check_preempt()
             val_loss = self._run_eval_epoch("validate")
+            self._check_preempt()
             if epoch == start_epoch:
                 # every block and tail program of the loop has been captured:
                 # a later capture is a recapture (the JAX trainer's jaxmon mark)
@@ -914,6 +1290,7 @@ class Trainer:
             if self.patience_left == 0:
                 self._log(f"Early stopping at epoch {epoch}..")
                 break
+            self._check_preempt()  # SIGTERM during the bookkeeping
 
     @torch.no_grad()
     def _predict_mode(self, mode: str, state: Optional[dict] = None) -> dict:

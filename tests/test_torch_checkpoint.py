@@ -409,16 +409,55 @@ def test_mid_epoch_resume_ends_with_the_uninterrupted_history(tmp_path):
         fresh.restore()
 
 
+def _deferred_file(t, path: str, deferred: list) -> None:
+    meta = {**t._meta(), "epoch": 1, "batch_in_epoch": 1, "deferred": deferred,
+            "partial": {"losses": [0.5], "counts": [4]}}
+    save_checkpoint(path, *t.state_trees(), meta)
+
+
 def test_state_the_port_lacks_is_refused(tmp_path):
-    """Divergence-guard state in a JAX file is refused by name, not
-    dropped."""
+    """Divergence-guard state the resuming epoch cannot honour, deferred
+    ordinals it has no batch for, is refused by name, not dropped."""
     t = _port(tmp_path, epochs=1)
-    for extra, match in (({"lr_scale": 0.5}, "divergence-guard"),
-                         ({"deferred": [3]}, "divergence-guard")):
-        path = str(tmp_path / "x.ckpt")
-        save_checkpoint(path, *t.state_trees(), {**t._meta(), **extra})
-        with pytest.raises(ValueError, match=match):
-            t.restore(path)
+    path = str(tmp_path / "x.ckpt")
+    _deferred_file(t, path, [999])
+    t.restore(path)
+    with pytest.raises(ValueError, match="defers batch ordinals"):
+        t.train()
+
+
+def test_guard_meta_is_installed(tmp_path):
+    """Divergence-guard state in a file is installed, never dropped: the
+    ``lr_scale`` cut and a mid-epoch file's deferred ordinals."""
+    t = _port(tmp_path, epochs=1)
+    path = str(tmp_path / "x.ckpt")
+    save_checkpoint(path, *t.state_trees(), {**t._meta(), "lr_scale": 0.5})
+    t.restore(path)
+    assert t.optimizer.lr_scale == 0.5
+    _deferred_file(t, path, [2])
+    t.restore(path)
+    assert t._resume_deferred == [2]
+
+
+def test_a_trainer_that_wrote_in_the_background_is_freed(tmp_path):
+    """The background writer holds its queue, not the trainer: once the
+    trainer is unreferenced it is collected (with its device memory) and
+    the writer thread ends."""
+    import gc
+    import threading
+    import weakref
+
+    t = _port(tmp_path, epochs=1, async_checkpoint=True)
+    t.train()
+    writers = [th for th in threading.enumerate() if th.name == "stmgcn-ckpt-writer"]
+    assert writers
+    ref = weakref.ref(t)
+    del t
+    gc.collect()
+    assert ref() is None
+    for th in writers:
+        th.join(timeout=10)
+    assert not any(th.is_alive() for th in writers)
 
 
 @pytest.mark.parametrize("async_checkpoint", [True, False])

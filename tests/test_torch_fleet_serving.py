@@ -183,13 +183,8 @@ def test_validation_errors(fleet_setup, engines):
         FleetServingEngine.from_forecaster(fc, sups[:2], device="cpu")
     with pytest.raises(ValueError, match="city 1"):
         FleetServingEngine.from_forecaster(fc, [sups[0], sups[0], sups[2]], device="cpu")
-    for option in ("fault_plan", "global_budget"):
-        with pytest.raises(NotImplementedError, match=option):
-            FleetServingEngine.from_forecaster(fc, sups, device="cpu", **{option: object()})
-    with pytest.raises(NotImplementedError, match="enable_drift"):
-        eng.enable_drift({})
-    with pytest.raises(NotImplementedError, match="drift_snapshot"):
-        eng.drift_snapshot()
+    with pytest.raises(NotImplementedError, match="global_budget"):
+        FleetServingEngine.from_forecaster(fc, sups, device="cpu", global_budget=object())
     with pytest.raises(ValueError, match="pass city="):
         fc.serving_engine(sups[0], device="cpu")
 

@@ -21,7 +21,13 @@ route. These tests drive everything around the capture:
   concurrent callers of one program and of two programs whose outputs
   share the pool's memory, a swap between copy-in and replay, and a
   trainer whose programs all go through it, bitwise equal to the eager one,
-  with no capture after warmup;
+  with no capture after warmup; the same with the health twins, the
+  divergence guard's rollback and a poisoned step, where the one-step twin
+  a replay first captures in epoch 2 is the one recapture;
+- with health and the guard off, a block of 3 and a one-step program run
+  exactly the aten ops they ran before the health twins existed (the
+  counterpart of ``tests/test_health.py::TestFreeWhenOff``'s primitive-count
+  pin, counted with a ``TorchDispatchMode``);
 - ``restore`` writes into the live parameter and moment tensors;
 - ``obs/graphmon.py``'s warmup, freeze and upload semantics, as
   ``tests/test_obs.py::TestJaxMonitoring`` holds jaxmon's;
@@ -581,6 +587,68 @@ def test_trainer_through_stand_in_captures_equals_eager_bitwise(tmp_path):
     assert all(p.captured and p.graph is not None for p in programs)
     assert graphed.graph_pool.captures == len(graphed._programs) == 2  # S and the tail
     assert snap["recaptures_after_warmup"] == 0
+
+
+def test_health_twins_and_guard_through_stand_in_captures_equal_eager(tmp_path):
+    from stmgcn_tpu_torch.resilience import FaultPlan, FaultSpec
+
+    runs = []
+    for graphed in (False, True):
+        cfg = _smoke(tmp_path / str(graphed), 7)  # one block of 7 an epoch, no tail
+        cfg.train.batch_size, cfg.train.divergence_guard = 8, True
+        cfg.health.enabled = True
+        trainer = build_trainer(cfg, device="cpu", verbose=False,
+                                fault_plan=FaultPlan(FaultSpec("poison", epoch=2, step=2)))
+        assert trainer.train_steps_per_epoch == 7
+        if graphed:
+            opt = trainer.optimizer
+            trainer.graphs = True
+            trainer.graph_pool = StandInPool(
+                preserve=list(opt.params) + [p.grad for p in opt.params] + opt.exp_avg
+                + opt.exp_avg_sq)
+        runs.append((trainer, trainer.train(), graphmon.snapshot()))
+    (eager, he, _), (graphed, hg, snap) = runs
+    assert he == hg and _state_equal(eager, graphed) and graphed._guard.total == 1
+    # the 7-step twin in epoch 1; its block rolled back in epoch 2 and replayed
+    # through the one-step twin, first captured then: the one recapture
+    assert sorted(graphed._programs) == [(("city", 0), 1, "train", True),
+                                         (("city", 0), 7, "train", True)]
+    assert graphed.graph_pool.captures == 2 and snap["recaptures_after_warmup"] == 1
+    assert (tmp_path / "True" / "health.jsonl").read_text() == (
+        tmp_path / "False" / "health.jsonl").read_text()
+
+
+#: aten ops of a plain block of 3 steps and of a one-step program of the
+#: smoke trainer below, including the static inputs' fill and the readback,
+#: as counted before the health twins and the guard existed
+PLAIN_BLOCK_OPS, PLAIN_STEP_OPS = 1625, 553
+
+
+def test_plain_programs_unchanged_with_health_and_guard_off(tmp_path):
+    import collections
+
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Count(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.ops = collections.Counter()
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.ops[str(func)] += 1
+            return func(*args, **(kwargs or {}))
+
+    cfg = _smoke(tmp_path, S)
+    cfg.train.epochs, cfg.train.batch_size, cfg.train.shuffle = 1, 8, False
+    trainer = build_trainer(cfg, device="cpu", verbose=False)
+    batches = list(trainer.batches("train"))
+    counted = []
+    for block in (batches[:S], batches[S:S + 1]):
+        with Count() as c:
+            trainer._run_block(block)
+        counted.append(sum(c.ops.values()))
+    assert counted == [PLAIN_BLOCK_OPS, PLAIN_STEP_OPS]
+    assert all(not key[3] for key in trainer._programs) and trainer._snapshot is None
 
 
 # -- telemetry -------------------------------------------------------------

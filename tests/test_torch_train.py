@@ -306,8 +306,8 @@ def test_test_needs_training_or_live_parameters(tmp_path):
 # -- config ----------------------------------------------------------------
 
 @pytest.mark.parametrize("field,value", [
-    ("precision", "fp16"), ("sr_seed", 3), ("divergence_guard", True),
-    ("checks", "nan"), ("prefetch", 2), ("divergence_patience", 5),
+    ("precision", "fp16"), ("sr_seed", 3),
+    ("checks", "nan"), ("prefetch", 2),
     ("data_placement", "stream"), ("window_free", False),
 ])
 def test_unported_train_field_raises(field, value):
