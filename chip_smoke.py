@@ -226,20 +226,60 @@ records those of 36's bf16 run:
     fleet engine's drift over both cities;
 40. the metro plan: one epoch of tiled health training (B3/B4 per forward
     and step counted), then a poison skipped by the guard against a drop
-    run, held to agree_over_steps' tolerances (B4 adds with atomics).
+    run, held to agree_over_steps' tolerances (the bitwise verdict printed;
+    phase 43 holds one tiled block bitwise per route).
+
+Phases 41-45 are the slice of the xla form, a repeatable tiled step, the
+sanitizers and tracing. Every model of the phases before 41 pins
+``lstm_backend="pallas"`` (``pallas_preset``): at float32 both forms run
+the same kernels, at bf16 those phases hold the bf16-storage form as they
+did. 41 runs after phase 19, 42 after phase 39, 43-44 after phase 40 and
+45 last:
+
+41. B1 and B2 in the xla form (float32 storage, bf16 products: the JAX
+    package's default bf16 LSTM, ``lstm_backend="xla"``) against their
+    plain versions on the card at the main path's shape (M=3 x 16,384
+    rows, T=12, L=3, H=64), residuals on and off, the layered and fused
+    schedules' roundings and the fused one over a bf16 shadow of the
+    weights, a ragged row count and every (H, L) the kernels take; B2
+    twice bitwise equal; CUDA-event times of kernel, plain version and
+    cuDNN's bf16 ``nn.LSTM`` x3, beside the bound with float32 bytes;
+42. the ``default`` preset at ``model.dtype="bfloat16"`` in the xla form:
+    the serving ladder, graphed (engine vs Forecaster; card vs CPU within
+    2^-9 and 2^-13, the fp32 model the control), a training block of 4 at
+    ``precision="bf16"`` without and with ``sr_seed``, and the xla and
+    pallas forms' rung-1 and block-step p50s in turns; the xla records'
+    launch counts are this phase's ("B1 xla", "B2 xla");
+43. the repeatability drill at the metro plan: one tiled block of 4 from one state,
+    twice graphed and twice eager (fresh trainers), each pair bitwise;
+    an eager forward and backward twice (forward against backward); the
+    block under ``torch.use_deterministic_algorithms(True)`` with
+    ``CUBLAS_WORKSPACE_CONFIG=:4096:8`` for this phase only, which raises
+    at an op PyTorch knows to be nondeterministic; graphed against eager
+    printed;
+44. the sanitizers (``train.checks``) at the dense bench point: a clean
+    checked block bitwise the unchecked one, a NaN poison and an
+    out-of-range window index each raising ``CheckError`` naming its step
+    (the next dispatch in the process running), the checked and unchecked
+    block p50s in turns, one checked epoch of the metro plan;
+45. tracing: a traced dense two-epoch run and 64 micro-batched requests,
+    the JSONL read by the port's ``obs`` report, traced against untraced
+    block and rung-1 p50s in turns.
 
 Checkpoints go to a temporary directory that the run removes.
 
 The last three lines are the card, one JSON object describing each kernel
 form (B1's and B2's fp32 records carry phase 3b's shapes as
-``route_shapes``; the bf16 forms' records carry ``"dtype": "bfloat16"``),
-and ``{"ok": true, "device": {...}}``. There is no CPU mode: without a CUDA
+``route_shapes``; the bf16 forms' records carry ``"dtype": "bfloat16"``,
+the xla forms' ``"form": "xla"`` too), and ``{"ok": true, "device":
+{...}}``. There is no CPU mode: without a CUDA
 device the script exits non-zero before printing any result.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import importlib
 import json
 import math
@@ -400,19 +440,27 @@ def card_line() -> str:
 
 def build_kernels():
     """Phase 2: every kernel library of the port's paths and the two
-    ``mma.sync`` probes (TF32, bf16), one ``nvcc`` per source, all started
-    together; ptxas's register and spill lines. Returns the probes'
-    libraries (TF32, bf16)."""
+    ``mma.sync`` probes (TF32, bf16), one ``nvcc`` per library (each LSTM
+    source builds one per form: fp32, bf16, xla), all started together;
+    ptxas's register and spill lines. Returns the probes' libraries (TF32,
+    bf16)."""
     from concurrent.futures import ThreadPoolExecutor
 
     from stmgcn_tpu_torch.ops import _build
-    from stmgcn_tpu_torch.ops.fused_lstm import SOURCE, bwd_kernel_library, kernel_library
+    from stmgcn_tpu_torch.ops.fused_lstm import (
+        FORMS,
+        SOURCE,
+        bwd_kernel_library,
+        kernel_library,
+    )
 
     spmm_library = importlib.import_module("stmgcn_tpu_torch.ops.spmm").kernel_library
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=5) as pool:
+    lstm = [functools.partial(fn, form) for form in range(len(FORMS))
+            for fn in (kernel_library, bwd_kernel_library)]
+    with ThreadPoolExecutor(max_workers=len(lstm) + 3) as pool:
         builds = [f.result() for f in [
-            pool.submit(kernel_library), pool.submit(bwd_kernel_library),
+            *map(pool.submit, lstm),
             pool.submit(spmm_library),
             pool.submit(_build.load_library, [SOURCE.with_name("mma_tf32_rate.cu")],
                         "mma_tf32_rate"),
@@ -431,8 +479,8 @@ def build_kernels():
 
     import torch
 
-    for dtype in (torch.float32, torch.bfloat16):
-        for tile in KERNEL_TILES:
+    for dtype in (torch.float32, torch.bfloat16, "xla"):
+        for tile in KERNEL_TILES if dtype != "xla" else ():
             print(f"  block-CSR kernels, {dtype}, at tile {tile}, by signal width F: " + "; ".join(
                 "F={} column tile {column_tile}, 8 warps of {warp_rows}x{warp_cols}, {stages} "
                 "ring stages, {smem_bytes} bytes of dynamic shared memory".format(
@@ -947,11 +995,11 @@ def serve(device, grid: int = GRID):
     trace); raises SystemExit on any failed check."""
     import torch
 
-    from stmgcn_tpu_torch import Forecaster, ServingConfig, preset
+    from stmgcn_tpu_torch import Forecaster, ServingConfig
     from stmgcn_tpu_torch.experiment import build_dataset, build_model, build_supports
     from stmgcn_tpu_torch.ops.fused_lstm import fused_lstm
 
-    cfg = preset("default")
+    cfg = pallas_preset("default")
     cfg.data.rows, cfg.data.serial_len = grid, SERIAL
     ds = build_dataset(cfg)
     supports = build_supports(cfg, ds)
@@ -1037,11 +1085,21 @@ def serve(device, grid: int = GRID):
         engine.close()
 
 
-def flagship_config(batch: int):
-    """The ``default`` flagship at the bench point (``bench.py:68-71``)."""
+def pallas_preset(name: str):
+    """``preset(name)`` with its bf16 LSTM form pinned to ``"pallas"`` (bf16
+    storage, the JAX Pallas kernel's): the phases before 41 hold that form,
+    as they did before the xla form existed (at float32 both forms run the
+    same kernels); phase 42 serves and trains the default ``"xla"``."""
     from stmgcn_tpu_torch import preset
 
-    cfg = preset("default")
+    cfg = preset(name)
+    cfg.model.lstm_backend = "pallas"
+    return cfg
+
+
+def flagship_config(batch: int):
+    """The ``default`` flagship at the bench point (``bench.py:68-71``)."""
+    cfg = pallas_preset("default")
     cfg.data.rows, cfg.data.serial_len = GRID, SERIAL
     cfg.train.batch_size, cfg.train.epochs = batch, EPOCHS
     cfg.train.steps_per_superstep = SUPERSTEP
@@ -1063,16 +1121,20 @@ def reset_counts() -> None:
     for fn in kernels().values():
         fn.launches = 0
     kernels()["B3"].launches_shared = 0
+    kernels()["B1"].launches_xla = kernels()["B2"].launches_xla = 0
 
 
 def read_counts() -> dict:
-    """Every kernel's launches, and as "B3 shared" those of B3's launches
-    whose signal every branch shared (the tiled gate conv's)."""
+    """Every kernel's launches, as "B3 shared" those of B3's launches
+    whose signal every branch shared (the tiled gate conv's), and as "B1
+    xla" and "B2 xla" those of B1's and B2's in the xla form (phases 41-42;
+    every earlier phase pins the pallas form, so they count 0 there)."""
     import torch
 
     torch.cuda.synchronize()
     counts = {k: fn.launches for k, fn in kernels().items()}
     counts["B3 shared"] = kernels()["B3"].launches_shared
+    counts["B1 xla"], counts["B2 xla"] = kernels()["B1"].launches_xla, kernels()["B2"].launches_xla
     return counts
 
 
@@ -1769,9 +1831,7 @@ def check_spmm_kernels(device, dense, dense_dev, plan) -> list:
 def metro_config(mode: str):
     """The ``default`` flagship at full width, at the metro point, in
     support mode ``mode``."""
-    from stmgcn_tpu_torch import preset
-
-    cfg = preset("default")
+    cfg = pallas_preset("default")
     cfg.data.serial_len = METRO_SERIAL
     cfg.model.tiled, cfg.model.sparse = mode == "tiled", mode == "sparse"
     cfg.model.tile_size = METRO_TILE
@@ -2126,7 +2186,7 @@ def check_lstm_route_bf16(device) -> None:
     for H, L in ROUTE_SHAPES[1:]:
         groups, runs = -(-L // KERNEL_MAX_LAYERS), {}
         for dev in (device, torch.device("cpu")):
-            lstm = StackedLSTM(1, H, L, branches=M, device=dev,
+            lstm = StackedLSTM(1, H, L, branches=M, device=dev, backend="pallas",
                                generator=torch.Generator().manual_seed(H + L))
             lstm.compute_dtype = torch.bfloat16
             g = torch.Generator().manual_seed(H * L)
@@ -2319,10 +2379,10 @@ def bf16_serve_dense(device) -> None:
     versions)."""
     import torch
 
-    from stmgcn_tpu_torch import Forecaster, preset
+    from stmgcn_tpu_torch import Forecaster
     from stmgcn_tpu_torch.experiment import build_dataset, build_model, build_supports
 
-    cfg = preset("default")
+    cfg = pallas_preset("default")
     cfg.data.rows, cfg.data.serial_len = GRID, SERIAL
     ds = build_dataset(cfg)
     supports = build_supports(cfg, ds)
@@ -2330,7 +2390,7 @@ def bf16_serve_dense(device) -> None:
     model = build_model(cfg, ds.n_feats, device=device, generator=torch.Generator().manual_seed(0))
     state = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
     fc32 = Forecaster(model, state, ds.normalizer, cfg, derived, device=device)
-    cfg16 = preset("default")
+    cfg16 = pallas_preset("default")
     cfg16.data.rows, cfg16.data.serial_len, cfg16.model.dtype = GRID, SERIAL, "bfloat16"
     fc16 = Forecaster(build_model(cfg16, ds.n_feats, device=device), state, ds.normalizer,
                       cfg16, derived, device=device)
@@ -2650,10 +2710,9 @@ def fleet_config(out_dir: str, batch=None):
     work, so ``mesh`` is reset to one device, as the JAX package's tiled
     fleet test does (``tests/test_tiling.py:271-272``); fleet blocks of
     FLEET_S over EPOCHS epochs."""
-    from stmgcn_tpu_torch import preset
     from stmgcn_tpu_torch.config import MeshConfig
 
-    cfg = preset("multicity")
+    cfg = pallas_preset("multicity")
     cfg.mesh = MeshConfig()
     cfg.train.fleet, cfg.train.steps_per_superstep = True, FLEET_S
     cfg.train.epochs, cfg.train.out_dir = EPOCHS, out_dir
@@ -3157,10 +3216,10 @@ def dense_ab(device) -> None:
     at a time and must agree with the eager route bitwise."""
     import torch
 
-    from stmgcn_tpu_torch import Forecaster, ServingConfig, build_trainer, preset
+    from stmgcn_tpu_torch import Forecaster, ServingConfig, build_trainer
     from stmgcn_tpu_torch.experiment import build_dataset, build_model, build_supports
 
-    cfg = preset("default")
+    cfg = pallas_preset("default")
     cfg.data.rows, cfg.data.serial_len = GRID, SERIAL
     ds = build_dataset(cfg)
     supports = build_supports(cfg, ds)
@@ -3170,7 +3229,7 @@ def dense_ab(device) -> None:
     windows = ds.denormalize(ds.arrays("test")[0])
     requests = {f"rung {b}": {"history": windows[:b]} for b in BUCKETS}
     for dtype, check in (("float32", serve_check), ("bfloat16", bf16_check)):
-        c = preset("default")
+        c = pallas_preset("default")
         c.data.rows, c.data.serial_len, c.model.dtype = GRID, SERIAL, dtype
         fc = Forecaster(build_model(c, ds.n_feats, device=device), state, ds.normalizer, c,
                         derived, device=device)
@@ -3947,7 +4006,8 @@ def metro_resilience(device, ds, plan_dev) -> dict:
     """Phase 40: the metro plan's tiled trainer with health for one epoch
     (B3 and B4 counted per forward and step), then a poison at POISON_AT
     under the guard's skip against a drop run from one state, one epoch
-    each, held to agree_over_steps' tolerances (B4 adds with atomics).
+    each, held to agree_over_steps' tolerances (the bitwise verdict printed;
+    phase 43 holds one tiled block bitwise per route).
     Returns the counts from a reset here."""
     from stmgcn_tpu_torch import Trainer
     from stmgcn_tpu_torch.obs.health import load_health
@@ -3995,6 +4055,558 @@ def metro_resilience(device, ds, plan_dev) -> dict:
     return read_counts()
 
 
+# -- phases 41-45: the xla form, a repeatable tiled step, sanitizers, tracing --
+
+
+def xla_lstm_case(M, R, T, L, H, device, seed):
+    """The xla form's operands (phase 3's float32 draws: the kernels round
+    the weights to bf16), its residuals and phase 4's cotangents."""
+    import torch
+
+    from stmgcn_tpu_torch.ops.fused_lstm import fused_lstm
+
+    (x, wx0, b0), ops = lstm_bwd_case(M, R, T, L, H, device, seed)
+    xp, wh, wx, b, _, _, g_out, g_hfin, g_cfin = ops
+    hseq, cseq = fused_lstm(xp, wh, wx, b, with_residuals=True, products=torch.bfloat16)[3:]
+    return (x, wx0, b0), (xp, wh, wx, b), (xp, wh, wx, b, hseq, cseq, g_out, g_hfin, g_cfin)
+
+
+def check_lstm_kernels_xla(device) -> list:
+    """Phase 41: B1 and B2 in the xla form (float32 storage, bf16 products:
+    the JAX default bf16 LSTM) against their plain versions on the card at
+    the main path's shape (M=3 x 16,384 rows, T=12, L=3, H=64), residuals
+    on and off, both weight-gradient roundings (``round_wx_steps``), a
+    ragged row count and every (H, L) the kernels take; B2 twice bitwise
+    equal; the fused schedule over a bf16 shadow of the weights (stochastic
+    rounding: the weight gradients summed in bf16); CUDA-event times of
+    kernel, plain version and cuDNN's ``nn.LSTM`` x3 in bf16, beside the
+    bound with float32 bytes. The
+    tolerances are the bf16 forms' (BF16_RTOL, BF16_ATOL_REL elementwise,
+    BF16_WGRAD_NORM normwise): the rounding sites coincide, and an fp32
+    sum in another order flips a bf16 rounding of a product's operand (h)
+    or of a step's weight-gradient partial now and then. Returns the two
+    records."""
+    import torch
+
+    from stmgcn_tpu_torch.ops.fused_lstm import (
+        KERNEL_HIDDEN,
+        KERNEL_MAX_LAYERS,
+        fused_lstm,
+        fused_lstm_bwd,
+        fused_lstm_bwd_reference,
+        fused_lstm_reference,
+    )
+
+    bf = torch.bfloat16
+    M, R, T, L, H = 3, BATCH * GRID * GRID, SERIAL + 2, 3, 64
+    (x, wx0, b0), ops, case = xla_lstm_case(M, R, T, L, H, device, seed=41)
+    fwd_err = 0.0
+    for res in (False, True):
+        got = fused_lstm(*ops, with_residuals=res, products=bf)
+        if any(t.dtype != torch.float32 for t in got):
+            fail("fused_lstm in the xla form returned another dtype than float32")
+        fwd_err = max(fwd_err, bf16_err(
+            got, fused_lstm_reference(*ops, with_residuals=res, products=bf),
+            f"xla fused_lstm M={M} R={R} residuals={res}"))
+        del got
+    bwd_err = wg = 0.0
+    # the layered and fused schedules' roundings, and the fused one over a bf16
+    # shadow of the weights and biases (stochastic rounding: bf16 carries)
+    shadow = case[:1] + tuple(t.to(bf) for t in case[1:4]) + case[4:]
+    for round_wx, c in ((False, case), (True, case), (True, shadow)):
+        what = f"xla fused_lstm_bwd R={R} round_wx={round_wx} shadow={c is shadow}"
+        got = fused_lstm_bwd(*c, products=bf, round_wx_steps=round_wx)
+        want = fused_lstm_bwd_reference(*c, products=bf, round_wx_steps=round_wx)
+        bwd_err = max(bwd_err, bf16_err(got[:1], want[:1], f"{what} dxp"))
+        wg = max(wg, bf16_wgrad_err(got[1:], want[1:], what))
+        again = fused_lstm_bwd(*c, products=bf, round_wx_steps=round_wx)
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            fail("xla fused_lstm_bwd: two runs on the same inputs differ")
+        del got, want, again
+    sweep_f = sweep_b = 0.0
+    for h in KERNEL_HIDDEN:
+        for layers in range(1, KERNEL_MAX_LAYERS + 1):
+            for rows in (77, 1000) if (h, layers) == (64, 3) else (77,):
+                _, o, c = xla_lstm_case(2, rows, 5, layers, h, device, seed=h + layers + rows)
+                sweep_f = max(sweep_f, bf16_err(
+                    fused_lstm(*o, with_residuals=True, products=bf),
+                    fused_lstm_reference(*o, with_residuals=True, products=bf),
+                    f"xla fused_lstm H={h} L={layers} R={rows}"))
+                g = fused_lstm_bwd(*c, products=bf, round_wx_steps=layers % 2 == 0)
+                w = fused_lstm_bwd_reference(*c, products=bf, round_wx_steps=layers % 2 == 0)
+                sweep_b = max(sweep_b, bf16_err(g[:1], w[:1],
+                                                f"xla fused_lstm_bwd H={h} L={layers} R={rows}"))
+                wg = max(wg, bf16_wgrad_err(g[1:], w[1:], f"xla fused_lstm_bwd H={h} L={layers}"))
+    print(f"xla fused_lstm vs plain: max |err| {max(fwd_err, sweep_f):.3e}; xla fused_lstm_bwd "
+          f"dxp max |err| {max(bwd_err, sweep_b):.3e}, weight gradients normwise {wg:.3e} "
+          f"(elementwise rtol {BF16_RTOL} + {BF16_ATOL_REL} x max |want|; normwise "
+          f"{BF16_WGRAD_NORM}); two backward runs bitwise equal (both schedules, and the "
+          f"fused one over bf16 shadow weights); at M={M} "
+          f"R={R} T={T} L={L} H={H}, ragged R=1000 and H in {KERNEL_HIDDEN} x L in "
+          f"1..{KERNEL_MAX_LAYERS} (M=2, R=77, T=5)")
+
+    wh, wx, b = case[1:4]
+    cudnn = [lstm.to(bf) for lstm in cudnn_lstms(wx0, b0, wh, wx, b)]
+    xb = x.to(bf)
+    with torch.no_grad():
+        ms = cuda_ms(lambda: fused_lstm(*ops, products=bf), iters=20)
+        plain_ms = cuda_ms(lambda: fused_lstm_reference(*ops, products=bf), iters=5)
+        library_ms = cuda_ms(lambda: [cudnn[m](xb[m]) for m in range(M)], iters=5)
+    flops = M * R * T * (2 * H * 4 * H + (L - 1) * 2 * (2 * H) * (4 * H))
+    # float32 x_proj0, biases, out and final states; bf16 weights
+    n_bytes = (4 * (ops[0].numel() + ops[3].numel() + M * R * T * H + 2 * M * L * R * H)
+               + 2 * (ops[1].numel() + ops[2].numel()))
+    bound = bf16_bounds(flops, n_bytes)
+    print(f"xla fused_lstm times (ms, CUDA events, mean): kernel {ms:.4f}, plain {plain_ms:.4f}, "
+          f"cuDNN bf16 x{M} {library_ms:.4f}; {bf16_bounds_text(bound, flops, n_bytes, ms)}")
+    records = [bf16_record("fused_lstm_fwd_xla", "stmgcn_tpu_torch/csrc/fused_lstm_fwd.cu",
+                           "stmgcn_tpu/ops/pallas_lstm.py:172", max(fwd_err, sweep_f), ms,
+                           plain_ms, library_ms, bound)]
+
+    ms = cuda_ms(lambda: fused_lstm_bwd(*case, products=bf), iters=10)
+    plain_ms = cuda_ms(lambda: fused_lstm_bwd_reference(*case, products=bf), iters=3)
+    xs = [xb[m].clone().requires_grad_(True) for m in range(M)]
+    params = [p for lstm in cudnn for p in lstm.parameters()]
+    g_out, g_hfin, g_cfin = (t.to(bf) for t in case[6:])
+
+    def library():
+        outs, grads = [], []
+        for m in range(M):
+            out, (h_n, c_n) = cudnn[m](xs[m])
+            outs += [out, h_n, c_n]
+            grads += [g_out[m], g_hfin[m], g_cfin[m]]
+        torch.autograd.grad(outs, xs + params, grads)
+
+    def ours():
+        res = fused_lstm(*ops, with_residuals=True, products=bf)
+        fused_lstm_bwd(*ops, res[3], res[4], *case[6:], products=bf)
+
+    fwd_bwd_ms = cuda_ms(ours, iters=10)
+    library_ms = cuda_ms(library, iters=5)
+    flops = 3 * flops
+    # float32 reads (x_proj0, biases, residuals, cotangents) and writes (dxp,
+    # weight gradients); bf16 weights
+    w = ops[1].numel() + ops[2].numel()
+    n_bytes = (4 * (sum(t.numel() for t in case) - w) + 2 * w
+               + 4 * (ops[0].numel() + w + ops[3].numel()))
+    bound = bf16_bounds(flops, n_bytes)
+    print(f"xla fused_lstm_bwd times (ms, CUDA events, mean): kernel {ms:.4f}, plain "
+          f"{plain_ms:.4f}; forward with residuals + backward kernels {fwd_bwd_ms:.4f} vs cuDNN "
+          f"bf16 forward + backward x{M} {library_ms:.4f}; "
+          f"{bf16_bounds_text(bound, flops, n_bytes, ms)}")
+    records.append(bf16_record("fused_lstm_bwd_xla", "stmgcn_tpu_torch/csrc/fused_lstm_bwd.cu",
+                               "stmgcn_tpu/ops/pallas_lstm.py:212", max(bwd_err, sweep_b), ms,
+                               plain_ms, library_ms, bound))
+    records[-1]["fwd_bwd_ms"] = fwd_bwd_ms
+    for rec in records:
+        rec["form"] = "xla"
+    return records
+
+
+def xla_config(batch: int, out: str, precision: str = "fp32", sr_seed=None):
+    """The ``default`` preset at the bench point with ``model.dtype=
+    "bfloat16"`` and the preset's own LSTM form, ``lstm_backend="xla"``."""
+    from stmgcn_tpu_torch import preset
+
+    cfg = preset("default")
+    cfg.data.rows, cfg.data.serial_len, cfg.model.dtype = GRID, SERIAL, "bfloat16"
+    cfg.train.batch_size, cfg.train.epochs = batch, EPOCHS
+    cfg.train.steps_per_superstep, cfg.train.out_dir = SUPERSTEP, out
+    cfg.train.precision, cfg.train.sr_seed = precision, sr_seed
+    return cfg
+
+
+def xla_default(device) -> dict:
+    """Phase 42: the ``default`` preset at ``model.dtype="bfloat16"`` in the
+    JAX default LSTM form (``lstm_backend="xla"``). Serving the ladder,
+    graphed: an fp32 and an xla bf16 engine over one set of weights, every
+    xla response equal to the xla Forecaster and a bucket-4 batch on the
+    card equal to the CPU port's plain versions within the bf16 serving
+    limits (2^-9, 2^-13; the fp32 model the control they must reject), B1 in
+    the xla form once per forward; then a training block of SUPERSTEP steps
+    at ``precision="bf16"``, without and with ``sr_seed``, finite, with B1
+    and B2 in the xla form per forward and step; then the xla and pallas
+    forms' rung-1 dispatch p50s and block-step p50s, in turns. The counts
+    are set to 0 at its start and read at its end: the xla records'
+    launches."""
+    import torch
+
+    from stmgcn_tpu_torch import Forecaster, ServingConfig, build_trainer
+    from stmgcn_tpu_torch.experiment import build_dataset, build_model, build_supports
+
+    reset_counts()
+    cfg16 = xla_config(BATCH, scratch("xla_serve"))
+    cfg32 = xla_config(BATCH, scratch("xla_serve32"))
+    cfg32.model.dtype = "float32"
+    ds = build_dataset(cfg16)
+    supports = build_supports(cfg16, ds)
+    derived = {"input_dim": ds.n_feats, "n_nodes": ds.n_nodes}
+    model = build_model(cfg32, ds.n_feats, device=device,
+                        generator=torch.Generator().manual_seed(0))
+    state = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+    fc32 = Forecaster(model, state, ds.normalizer, cfg32, derived, device=device)
+    fc16 = Forecaster(build_model(cfg16, ds.n_feats, device=device), state, ds.normalizer,
+                      cfg16, derived, device=device)
+    if fc16.model.branches.cg_lstm.lstm.backend != "xla":
+        fail("the default preset's bf16 model did not take the xla form")
+    windows = ds.denormalize(ds.arrays("test")[0])
+    bf16_engines(device, fc32, fc16, supports, windows, BUCKETS, SIZES, ROUNDS,
+                 "xla bf16 dense serving", {"B1": 1, "B1 xla": 1},
+                 {"B1": LSTM_PARTS["B1 forward"]})
+    cpu = Forecaster(build_model(cfg16, ds.n_feats, device="cpu"), state, ds.normalizer,
+                     cfg16, derived, device="cpu")
+    rows = windows[:4]
+    text = bf16_check(fc16.predict(supports, rows), cpu.predict(supports, rows),
+                      "xla bf16 dense serving, card vs CPU", control=fc32.predict(supports, rows))
+    print(f"xla bf16 dense serving, a bucket-4 batch, card vs CPU port: {text}")
+    counts = read_counts()
+    serving = counts["B1 xla"]
+    torch.cuda.empty_cache()
+
+    trainers = {}
+    for sr_seed in (None, SR_SEED):
+        tr = build_trainer(xla_config(BATCH, scratch(f"xla_train_{sr_seed}"), "bf16", sr_seed),
+                           device=device, initial_state=state, verbose=False)
+        block = [b for b in tr._blocks(list(tr.batches("train")), 0)
+                 if len(b) == SUPERSTEP][0]
+        before = read_counts()
+        losses = tr._run_block(block)
+        after = read_counts()
+        grads = grads_ok(tr)
+        if not all(math.isfinite(v) for v in losses) or not all(grads.values()):
+            fail(f"xla bf16 training block, sr_seed {sr_seed}: losses {losses}, gradients "
+                 f"finite and nonzero {grads}")
+        got = {k: after[k] - before[k] for k in ("B1 xla", "B2 xla", "B1", "B2")}
+        if got != {"B1 xla": SUPERSTEP, "B2 xla": SUPERSTEP, "B1": SUPERSTEP,
+                   "B2": SUPERSTEP}:
+            fail(f"xla bf16 training block, sr_seed {sr_seed}: launches {got}")
+        print(f"xla bf16 training, one block of {SUPERSTEP} steps (batch {BATCH}, sr_seed "
+              f"{sr_seed}): losses {losses}; every gradient finite and nonzero; launches "
+              f"{counts_text(got)}")
+        trainers[sr_seed] = (tr, block)
+    counts = read_counts()
+
+    # the two bf16 forms side by side: rung 1 and a block step, in turns
+    cfgp = xla_config(BATCH, scratch("pallas_serve"))
+    cfgp.model.lstm_backend = "pallas"
+    fcp = Forecaster(build_model(cfgp, ds.n_feats, device=device), state, ds.normalizer, cfgp,
+                     derived, device=device)
+    config = ServingConfig(buckets=BUCKETS)
+    engines = {"xla": fc16.serving_engine(supports, config=config, device=device),
+               "pallas": fcp.serving_engine(supports, config=config, device=device)}
+    one = windows[:1]
+    p50 = ab_p50({k: lambda e=e: e.predict_direct(one) for k, e in engines.items()}, 40)
+    for e in engines.values():
+        e.close()
+    print(f"bf16 dense serving, rung-1 p50 (predict_direct, host clock, in turns): xla form "
+          f"{p50['xla']:.4f} ms, pallas form {p50['pallas']:.4f} ms "
+          f"(xla / pallas {p50['xla'] / p50['pallas']:.3f})")
+    cfgt = xla_config(BATCH, scratch("pallas_train"), "bf16")
+    cfgt.model.lstm_backend = "pallas"
+    trp = build_trainer(cfgt, device=device, initial_state=state, verbose=False)
+    tr, block = trainers[None]
+    p50 = ab_p50({"xla": lambda: tr._run_block(block), "pallas": lambda: trp._run_block(block)},
+                 8)
+    print(f"bf16 dense training, step p50 inside a block of {SUPERSTEP} (block / {SUPERSTEP}, "
+          f"in turns): xla form {p50['xla'] / SUPERSTEP:.4f} ms, pallas form "
+          f"{p50['pallas'] / SUPERSTEP:.4f} ms (xla / pallas {p50['xla'] / p50['pallas']:.3f})")
+    if not serving:
+        fail("the xla bf16 serving path never launched B1's xla form")
+    del trainers, tr, trp
+    torch.cuda.empty_cache()
+    return counts
+
+
+def pool_bytes(trainer) -> int:
+    """The bytes a trainer's graph pool reserved (0 without graphs)."""
+    return trainer.graph_pool.reserved_bytes if trainer.graph_pool is not None else 0
+
+
+def checks_phase(device, ds, plan_dev) -> None:
+    """Phase 44: the sanitizers (``train.checks``) at the dense bench point:
+    a clean checked block (``"all"``) bitwise the unchecked one from one
+    state; a NaN poison raising ``CheckError`` that names its step; an
+    out-of-range window index clamped, raising and naming its step, and the
+    next dispatch in the same process running (the CUDA context intact);
+    the checked and unchecked block p50s in turns; then one checked epoch
+    (``"all"``) of the metro city's tiled trainer."""
+    import dataclasses as dc
+
+    import torch
+
+    from stmgcn_tpu_torch import Trainer, build_trainer
+    from stmgcn_tpu_torch.resilience import FaultPlan, FaultSpec
+    from stmgcn_tpu_torch.train.step import CheckError
+
+    def trainer(checks, name, **kw):
+        cfg = flagship_config(BATCH)
+        cfg.train.checks, cfg.train.out_dir = checks, scratch(f"checks_{name}")
+        return build_trainer(cfg, device=device, verbose=False, **kw)
+
+    plain = trainer(None, "plain")
+    state = {k: v.detach().cpu().clone() for k, v in plain.model.state_dict().items()}
+    checked = trainer("all", "all", initial_state=state)
+    block = [b for b in plain._blocks(list(plain.batches("train")), 0)
+             if len(b) == SUPERSTEP][0]
+    lp, lc = plain._run_block(block), checked._run_block(block)
+    same = lp == lc and same_state(plain, checked)
+    if not same:
+        fail(f"a clean checked block differs from the unchecked one: {lc} vs {lp}")
+    p50 = ab_p50({"checked": lambda: checked._run_block(block),
+                  "unchecked": lambda: plain._run_block(block)}, 8)
+    print(f"sanitizers at the dense bench point: a clean checked block (checks='all') bitwise "
+          f"the unchecked one: {same}; block p50 (in turns) checked {p50['checked']:.4f} ms, "
+          f"unchecked {p50['unchecked']:.4f} ms (checked / unchecked "
+          f"{p50['checked'] / p50['unchecked']:.4f}); graph pools {pool_bytes(checked)} / "
+          f"{pool_bytes(plain)} bytes")
+    del plain, checked
+    torch.cuda.empty_cache()
+
+    poisoned = trainer("nan", "poison", fault_plan=FaultPlan(FaultSpec("poison", epoch=1,
+                                                                       step=POISON_AT[1])))
+    try:
+        poisoned.train()
+        fail("a NaN poison under checks='nan' did not raise")
+    except CheckError as e:
+        if e.check != "nan" or f"step {POISON_AT[1]} " not in str(e):
+            fail(f"the NaN poison's error names another check or step: {e}")
+        print(f"sanitizers, NaN poison at epoch 1 step {POISON_AT[1]}: raised {e}")
+    del poisoned
+    indexed = trainer("index", "index")
+    block = [b for b in indexed._blocks(list(indexed.batches("train")), 0)
+             if len(b) == SUPERSTEP][0]
+    bad = dc.replace(block[1], indices=np.asarray(block[1].indices) + 10**6)
+    try:
+        indexed._run_block([block[0], bad] + block[2:])
+        fail("an out-of-range window index under checks='index' did not raise")
+    except CheckError as e:
+        if e.check != "index" or "step 1 " not in str(e):
+            fail(f"the index drill's error names another check or step: {e}")
+        text = str(e)
+    after = indexed._run_block(block)
+    torch.cuda.synchronize()
+    if not all(math.isfinite(v) for v in after):
+        fail(f"the dispatch after the index drill: losses {after}")
+    print(f"sanitizers, index drill (batch 1 of a block offset by 10^6): raised {text}; the "
+          f"next dispatch ran in the same process, losses {after}")
+    del indexed
+    torch.cuda.empty_cache()
+
+    t = metro_config("tiled").train
+    metro = Trainer(metro_model("tiled", ds, device), ds, plan_dev, lr=t.lr,
+                    weight_decay=t.weight_decay, n_epochs=1, batch_size=METRO_BATCH,
+                    steps_per_superstep=SUPERSTEP, checks="all",
+                    out_dir=scratch("checks_metro"), device=device, verbose=False)
+    reset_counts()
+    history = metro.train()
+    counts = read_counts()
+    if not all(math.isfinite(v) for v in history["train"] + history["validate"]):
+        fail(f"checked metro epoch: {history}")
+    if not counts["B3"] or not counts["B4"]:
+        fail(f"checked metro epoch did not launch B3 and B4: {counts_text(counts)}")
+    print(f"sanitizers, one checked epoch (checks='all') of the metro plan's tiled trainer: "
+          f"losses {history}; launches {counts_text(counts)}")
+    del metro
+    torch.cuda.empty_cache()
+
+
+def tracing_phase(device) -> None:
+    """Phase 45: tracing (``stmgcn_tpu_torch/obs/trace.py``): a traced dense
+    run of EPOCHS epochs at the bench point, then 64 micro-batched requests
+    to an engine on its weights; the JSONL written and the port's ``obs``
+    report rendering it (one JSON line, the span coverage of the wall
+    window); then traced against untraced block p50 and micro-batched rung-1
+    p50, in turns."""
+    import contextlib
+    import io
+
+    import torch
+
+    from stmgcn_tpu_torch import Forecaster, ServingConfig, build_trainer
+    from stmgcn_tpu_torch.experiment import build_dataset, build_supports
+    from stmgcn_tpu_torch.obs import trace as obs_trace
+    from stmgcn_tpu_torch.obs.cli import main as obs_main
+
+    trc = obs_trace.configure(capacity=8192)
+    try:
+        cfg = flagship_config(BATCH)
+        cfg.train.out_dir = scratch("traced")
+        trainer = build_trainer(cfg, device=device, verbose=False)
+        trainer.train()
+        ds = build_dataset(cfg)
+        supports = build_supports(cfg, ds)
+        fc = Forecaster(trainer.model, trainer.model.state_dict(), ds.normalizer, cfg,
+                        {"input_dim": ds.n_feats, "n_nodes": ds.n_nodes}, device=device)
+        windows = ds.denormalize(ds.arrays("test")[0])
+        engine = fc.serving_engine(supports, config=ServingConfig(buckets=BUCKETS),
+                                   device=device)
+        for i in range(64):
+            engine.predict(windows[i:i + 1])
+        path = scratch("trace.jsonl")
+        n = trc.export_jsonl(path)
+    finally:
+        obs_trace.configure(enable=False)
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        code = obs_main([path, "--format", "json"])
+    doc = json.loads(out.getvalue())
+    names = {p["name"]: p for p in doc["summary"]["phases"]}
+    want = {"train.superstep", "train.upload", "train.host_pack", "train.epoch",
+            "train.eval_epoch", "train.checkpoint", "serve.admit", "serve.queue",
+            "serve.device", "serve.scatter"}
+    if code != 0 or not want <= set(names) or doc["meta"]["spans"] != n:
+        fail(f"the traced run's report: exit {code}, phases {sorted(names)}")
+    top = sorted(names.values(), key=lambda p: -p["self_ms"])[:6]
+    print(f"tracing: {n} spans written (dropped {doc['meta']['dropped']}), the obs report "
+          f"reads them: coverage {doc['summary']['coverage']} of {doc['summary']['wall_ms']} ms; "
+          "top phases by self time: " + "; ".join(
+              f"{p['name']} {p['count']} x {p['mean_ms']} ms" for p in top))
+
+    block = [b for b in trainer._blocks(list(trainer.batches("train")), 0)
+             if len(b) == SUPERSTEP][0]
+    one = windows[:1]
+
+    def traced(fn):
+        def run():
+            obs_trace.configure()
+            try:
+                fn()
+            finally:
+                obs_trace.configure(enable=False)
+        return run
+
+    def untraced(fn):
+        def run():
+            obs_trace.configure(enable=False)
+            fn()
+        return run
+
+    step = lambda: trainer._run_block(block)  # noqa: E731
+    p50 = ab_p50({"traced": traced(step), "untraced": untraced(step)}, 8)
+    request = lambda: engine.predict(one)  # noqa: E731
+    r50 = ab_p50({"traced": traced(request), "untraced": untraced(request)}, 40)
+    engine.close()
+    print(f"tracing, p50 in turns: a block of {SUPERSTEP} steps traced {p50['traced']:.4f} ms, "
+          f"untraced {p50['untraced']:.4f} ms (traced / untraced "
+          f"{p50['traced'] / p50['untraced']:.4f}); micro-batched rung 1 traced "
+          f"{r50['traced']:.4f} ms, untraced {r50['untraced']:.4f} ms (traced / untraced "
+          f"{r50['traced'] / r50['untraced']:.4f})")
+    del trainer, engine
+    torch.cuda.empty_cache()
+
+
+def bitwise_diff(a: dict, b: dict) -> list:
+    """The names of the tensors of two state dicts that differ, each with
+    its max |difference|."""
+    import torch
+
+    return [f"{k} {(a[k].float() - b[k].float()).abs().max().item():.3e}"
+            for k in a if not torch.equal(a[k], b[k])]
+
+
+def metro_repeatability(device, ds, plan_dev) -> dict:
+    """Phase 43 (the repeatability drill): one tiled training block of SUPERSTEP
+    steps at the metro plan from one state, run twice graphed and twice
+    eager (four fresh trainers), each pair compared bit for bit (losses,
+    parameters and Adam moments); then one eager forward and backward
+    twice, outputs and every parameter gradient compared (forward against
+    backward); then the same block under
+    ``torch.use_deterministic_algorithms(True)`` with
+    ``CUBLAS_WORKSPACE_CONFIG=:4096:8`` set for this phase only, where
+    PyTorch raises at an op it knows to be nondeterministic. Fails unless
+    both pairs are bitwise equal; returns the launches of the four blocks."""
+    import torch
+
+    from stmgcn_tpu_torch import Trainer
+    from stmgcn_tpu_torch.train.step import masked_loss
+
+    t = metro_config("tiled").train
+    state = {k: v.detach().cpu().clone()
+             for k, v in metro_model("tiled", ds, device).state_dict().items()}
+
+    def trainer(graphs, name):
+        return Trainer(metro_model("tiled", ds, device), ds, plan_dev, lr=t.lr,
+                       weight_decay=t.weight_decay, n_epochs=1, batch_size=METRO_BATCH,
+                       steps_per_superstep=SUPERSTEP, out_dir=scratch(f"repeat_{name}"),
+                       initial_state=state, device=device, graphs=graphs, verbose=False)
+
+    def block_of(tr):
+        return [b for b in tr._blocks(list(tr.batches("train")), 0)
+                if len(b) == SUPERSTEP][0]
+
+    def run(graphs, name):
+        tr = trainer(graphs, name)
+        losses = tr._run_block(block_of(tr))
+        torch.cuda.synchronize()
+        names = list(tr.model.state_dict())
+        names += [f"{n} (Adam m)" for n in tr._param_names]
+        names += [f"{n} (Adam v)" for n in tr._param_names]
+        out = ([float(v) for v in losses], dict(zip(names, end_state(tr), strict=True)))
+        del tr
+        torch.cuda.empty_cache()
+        return out
+
+    reset_counts()
+    verdict, first = {}, {}
+    for route, graphs in (("graphed", True), ("eager", False)):
+        (la, sa), (lb, sb) = run(graphs, f"{route}_a"), run(graphs, f"{route}_b")
+        diff = bitwise_diff(sa, sb)
+        verdict[route], first[route] = la == lb and not diff, (la, sa)
+        print(f"metro repeatability, {route} against {route}, one block of {SUPERSTEP} steps "
+              f"from one state: losses equal {la == lb} ({la} vs {lb}); state tensors that "
+              f"differ: {len(diff)} of {len(sa)} {diff[:4]}")
+    counts = read_counts()
+    (lg, sg), (le, se) = first["graphed"], first["eager"]
+    diff = bitwise_diff(sg, se)
+    print(f"metro repeatability, graphed against eager (two programs, not one run "
+          f"repeated; held to agree_over_steps' tolerances in phase 34): losses equal "
+          f"{lg == le}; state tensors that differ: {len(diff)} of {len(sg)} {diff[:4]}")
+
+    # forward against backward, eager, one batch
+    tr = trainer(False, "bisect")
+    batch = block_of(tr)[0]
+    runs = []
+    x, y, mask = tr.place(batch, "train")
+    data = tr._cities[batch.city]
+    for _ in range(2):
+        tr.model.zero_grad(set_to_none=True)
+        loss = masked_loss(tr.loss, tr.model(data.supports, x, data.n_real), y, mask)
+        loss.backward()
+        torch.cuda.synchronize()
+        runs.append((loss.detach().clone(), {n: p.grad.detach().clone()
+                                             for n, p in tr.model.named_parameters()}))
+    grads = bitwise_diff(runs[0][1], runs[1][1])
+    print(f"metro repeatability, eager forward twice: losses bitwise equal "
+          f"{torch.equal(runs[0][0], runs[1][0])}; parameter gradients that differ: "
+          f"{len(grads)} of {len(runs[0][1])} {grads[:6]}")
+
+    old = os.environ.get("CUBLAS_WORKSPACE_CONFIG")
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    torch.use_deterministic_algorithms(True)
+    try:
+        tr._run_block(block_of(tr))
+        torch.cuda.synchronize()
+        print("metro repeatability, deterministic algorithms: one eager block ran; PyTorch "
+              "flagged no op")
+    except RuntimeError as exc:
+        print(f"metro repeatability, deterministic algorithms: PyTorch raised: "
+              f"{str(exc).splitlines()[0]}")
+    finally:
+        torch.use_deterministic_algorithms(False)
+        if old is None:
+            del os.environ["CUBLAS_WORKSPACE_CONFIG"]
+        else:
+            os.environ["CUBLAS_WORKSPACE_CONFIG"] = old
+    del tr
+    torch.cuda.empty_cache()
+    for route, same in verdict.items():
+        if not same:
+            fail(f"metro repeatability: two {route} runs of one tiled block from one state "
+                 "differ")
+    return counts
+
+
 def main() -> int:
     try:
         return run_phases()
@@ -4030,6 +4642,8 @@ def run_phases() -> int:
     records[0]["route_shapes"], records[1]["route_shapes"] = check_lstm_shapes(device)
     bf16_records = check_lstm_kernels_bf16(device)
     check_lstm_route_bf16(device)
+    torch.cuda.empty_cache()
+    xla_records = check_lstm_kernels_xla(device)  # phase 41
     torch.cuda.empty_cache()
 
     reset_counts()
@@ -4097,6 +4711,14 @@ def run_phases() -> int:
     res_fp32, res_bf16 = resilience_phases(device)
     print(f"resilience phases done at {time.perf_counter() - t_start:.1f} s")
 
+    # this slice's main path: the default preset's bf16 model in the JAX
+    # default LSTM form, served and trained (phase 42; the xla records' counts)
+    counts = xla_default(device)
+    xla_records[0]["launches"], xla_records[1]["launches"] = counts["B1 xla"], counts["B2 xla"]
+    if not all(r["launches"] for r in xla_records):
+        fail("the xla form was not launched on its main path: " + counts_text(counts))
+    print(f"xla form phase done at {time.perf_counter() - t_start:.1f} s")
+
     ds, dense, plan = metro_host()
     dense_dev, plan_dev = torch.as_tensor(dense, device=device), plan.to(device)
     records += check_spmm_kernels(device, dense, dense_dev, plan)
@@ -4127,6 +4749,14 @@ def run_phases() -> int:
     if not res_metro["B3"] or not res_metro["B4"]:
         fail(f"the tiled health and guard path did not launch B3 and B4: "
              f"{counts_text(res_metro)}")
+    print(f"metro phases done at {time.perf_counter() - t_start:.1f} s")
+    metro_repeatability(device, ds, plan_dev)  # phase 43
+    print(f"repeatability phase done at {time.perf_counter() - t_start:.1f} s")
+    checks_phase(device, ds, plan_dev)  # phase 44
+    print(f"sanitizer phase done at {time.perf_counter() - t_start:.1f} s")
+    del ds, dense, dense_dev, plan, plan_dev, ktuples
+    torch.cuda.empty_cache()
+    tracing_phase(device)  # phase 45
     if any(not r["launches"] for r in bf16_records):
         fail("a bf16 kernel form was not launched on its main path: " + ", ".join(
             f"{r['name']} {r['launches']}" for r in bf16_records))
@@ -4142,7 +4772,7 @@ def run_phases() -> int:
     print(f"all phases done at {time.perf_counter() - t_start:.1f} s")
 
     print(card)
-    print(json.dumps({"kernels": records + bf16_records}))
+    print(json.dumps({"kernels": records + bf16_records + xla_records}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

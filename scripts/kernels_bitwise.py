@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Hold two trees' fp32 kernels bitwise equal on the GPU.
+"""Hold two trees' fp32 kernels, and the bf16-storage forms of the LSTM
+kernels, bitwise equal on the GPU.
 
     python3 scripts/kernels_bitwise.py dump OUT.pt      # from a tree's root
     python3 scripts/kernels_bitwise.py compare A.pt B.pt
@@ -8,7 +9,8 @@
 ``stmgcn_tpu_torch``, built into that tree's ``build/kernels/``) on inputs
 drawn from one seed on the card: B1 with residuals and B2 at the main
 path's shape (M=3 x 16,384 rows, T=12, L=3, H=64) and at other widths and
-depths, B3/B4 at tiles 64 and 128 on shared and per-branch signals of 10,
+depths, in float32 and in bfloat16 storage (the same draws rounded to
+bf16), B3/B4 at tiles 64 and 128 on shared and per-branch signals of 10,
 37, 128 and 256 columns, B5 and its transpose; and saves the outputs.
 ``compare`` exits 1 unless two dumps hold the same outputs bit for bit.
 Run ``dump`` from two unpacked trees (``git archive``) in one call.
@@ -42,11 +44,13 @@ def dump(path: str) -> None:
         ops = (randn(M, R, T, 4 * H), (torch.rand(M, L, H, 4 * H, generator=g, device=dev) * 2 - 1) * s,
                (torch.rand(M, max(L - 1, 1), H, 4 * H, generator=g, device=dev) * 2 - 1) * s,
                (torch.rand(M, max(L - 1, 1), 4 * H, generator=g, device=dev) * 2 - 1) * s)
-        res = fused_lstm(*ops, with_residuals=True)
-        grads = fused_lstm_bwd(*ops, res[3], res[4], randn(M, R, T, H), randn(M, L, R, H),
-                               randn(M, L, R, H))
-        for i, t in enumerate(res + grads):
-            out[f"lstm_{M}_{R}_{T}_{L}_{H}_{i}"] = t.cpu()
+        cots = (randn(M, R, T, H), randn(M, L, R, H), randn(M, L, R, H))
+        for name, dtype in (("lstm", torch.float32), ("lstm_bf16", torch.bfloat16)):
+            o = tuple(t.to(dtype) for t in ops)
+            res = fused_lstm(*o, with_residuals=True)
+            grads = fused_lstm_bwd(*o, res[3], res[4], *(t.to(dtype) for t in cots))
+            for i, t in enumerate(res + grads):
+                out[f"{name}_{M}_{R}_{T}_{L}_{H}_{i}"] = t.cpu()
     rng = np.random.default_rng(0)
     n = 1000
     dense = np.zeros((2, 3, n, n), np.float32)
@@ -68,7 +72,7 @@ def dump(path: str) -> None:
         out[f"b5_{tile}"] = S.block_spmm(bs, x).cpu()
         out[f"b5t_{tile}"] = S.block_spmm(bs, x, transpose=True).cpu()
     torch.save(out, path)
-    print(f"{len(out)} fp32 kernel outputs saved to {path}")
+    print(f"{len(out)} kernel outputs saved to {path}")
 
 
 def compare(a_path: str, b_path: str) -> int:
@@ -79,7 +83,7 @@ def compare(a_path: str, b_path: str) -> int:
         print(f"the dumps hold different outputs: {sorted(set(a) ^ set(b))}")
         return 1
     bad = [k for k in a if not torch.equal(a[k], b[k])]
-    print(f"{len(a) - len(bad)} of {len(a)} fp32 kernel outputs bitwise equal; differing: {bad}")
+    print(f"{len(a) - len(bad)} of {len(a)} kernel outputs bitwise equal; differing: {bad}")
     return 1 if bad else 0
 
 

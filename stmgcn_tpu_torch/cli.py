@@ -18,9 +18,12 @@ one JSON line, ``{"preset": ..., "results": ...}``. SIGTERM during training
 writes an emergency ``latest.ckpt`` at the next block boundary and exits
 143; ``--resume`` continues from it. The ``health`` and ``obs`` subcommands
 report a ``health.jsonl`` stream and a span trace
-(:mod:`stmgcn_tpu_torch.obs.cli`). A flag of the JAX CLI that the port
-lacks fails argument parsing, and a preset it lacks fails with
-``preset()``'s error.
+(:mod:`stmgcn_tpu_torch.obs.cli`); ``--trace-out PATH`` writes such a
+trace of the run. ``--checkify`` runs the in-program sanitizers
+(``train.checks``) and ``--debug-nans`` the eager debug mode
+(``train/trainer.py``). A flag of the JAX CLI that the port lacks (the
+mesh, window-placement, export and profiling ones) fails argument
+parsing, and a preset it lacks fails with ``preset()``'s error.
 """
 
 from __future__ import annotations
@@ -48,6 +51,14 @@ def build_parser() -> argparse.ArgumentParser:
     )
     p.add_argument("--preset", default="default",
                    help=f"baseline config to start from (ported: {', '.join(sorted(PRESETS))})")
+    p.add_argument("--data", type=str, default=None,
+                   help="path to a data_dict.npz archive (default: synthetic)")
+    p.add_argument("-date", "--dates", type=str, nargs=4, default=None,
+                   metavar=("TRAIN_S", "TRAIN_E", "TEST_S", "TEST_E"),
+                   help="MMDD split dates, e.g. -date 0101 0630 0701 0731")
+    p.add_argument("-cpt", "--obs-len", type=int, nargs=3, default=None,
+                   metavar=("SERIAL", "DAILY", "WEEKLY"),
+                   help="observation window lengths, e.g. -cpt 3 1 1")
     p.add_argument("--epochs", type=int, default=None)
     p.add_argument("--batch-size", type=int, default=None)
     p.add_argument("--lr", type=float, default=None)
@@ -67,8 +78,24 @@ def build_parser() -> argparse.ArgumentParser:
                         "alongside best/latest")
     p.add_argument("--shuffle", action="store_true", default=None,
                    help="shuffle training batches (reference default is off)")
+    p.add_argument("--m-graphs", type=int, default=None)
+    p.add_argument("--kernel", choices=("chebyshev", "localpool", "random_walk_diffusion"),
+                   default=None)
+    p.add_argument("--cheb-k", type=int, default=None, help="max polynomial order K")
     p.add_argument("--sparse", action="store_true", default=None,
                    help="block-CSR supports for the graph convolutions")
+    p.add_argument("--lstm-backend", choices=("xla", "pallas"), default=None,
+                   help="the LSTM kernels' bf16 form: xla (default: float32 storage, "
+                        "bf16 products, the JAX scan's roundings) or pallas (bf16 "
+                        "storage, the JAX Pallas kernel's); one form at float32")
+    p.add_argument("--lstm-unroll", type=int, default=None,
+                   help="the JAX scan's unroll factor (a schedule: no effect on the "
+                        "numbers, none here)")
+    p.add_argument("--lstm-fused", action="store_true", default=None,
+                   help="the JAX single-scan schedule: at bf16 under --lstm-backend xla "
+                        "the float32 biases are added unrounded and each step's "
+                        "input-weight gradient is rounded (the layered default rounds "
+                        "the biases and each input weight's gradient once)")
     p.add_argument("--dtype", choices=("float32", "bfloat16"), default=None,
                    help="model compute dtype (bf16 products, fp32 accumulation and "
                         "fp32 parameters); serving and training run in it")
@@ -99,6 +126,9 @@ def build_parser() -> argparse.ArgumentParser:
                         "it is excluded from the class (default 0.5)")
     p.add_argument("--normalize", choices=("minmax", "std", "none"), default=None,
                    help="demand normalization (stats travel inside checkpoints)")
+    p.add_argument("--val-ratio", type=float, default=None,
+                   help="validation fraction carved off the end of train "
+                        "(reference default 0.2)")
     p.add_argument("--horizon", type=int, default=None,
                    help="forecast steps per sample (default 1, next-step)")
     p.add_argument("--rows", type=int, default=None,
@@ -108,6 +138,26 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                    help="where to train and test (default: the GPU; there is no "
                         "fallback to the CPU)")
+    p.add_argument("--matmul-precision", choices=("default", "high", "highest"),
+                   default=None,
+                   help="torch.set_float32_matmul_precision for the float32 cuBLAS "
+                        "products (default -> medium, high -> high, highest -> highest; "
+                        "left out, nothing changes: highest). The hand-written kernels "
+                        "keep their own products")
+    p.add_argument("--debug-nans", action="store_true",
+                   help="debug mode: train eagerly (CUDA graphs off), check every "
+                        "module's output for NaN/Inf and run the backward under autograd "
+                        "anomaly detection; fails naming the module or the backward op")
+    p.add_argument("--checkify", choices=("nan", "index", "float", "all"), default=None,
+                   dest="checks",
+                   help="in-program sanitizers on the train and eval steps (nan: "
+                        "non-finite values; index: out-of-range window indices, clamped; "
+                        "float: nan + a zero loss denominator; all: everything); fails "
+                        "after the block naming the check, the step and the site")
+    p.add_argument("--trace-out", type=str, default=None, metavar="PATH",
+                   help="record wall-clock spans (host pack, upload, device block, "
+                        "epochs, checkpoints, serving) and write the JSONL timeline to "
+                        "PATH; inspect with the obs subcommand")
     p.add_argument("--resume", nargs="?", const="strict", default=None,
                    choices=("strict", "auto"),
                    help="resume before training from the newest verified checkpoint in "
@@ -148,14 +198,29 @@ _TRAIN_FLAGS = (
     "weight_decay", "grad_clip_norm", "loss", "patience", "top_k", "seed", "out_dir",
     "steps_per_superstep", "fleet", "fleet_max_classes", "fleet_max_pad_waste",
     "checkpoint_every_steps", "precision", "sr_seed", "divergence_action",
-    "divergence_patience", "divergence_lr_cut",
+    "divergence_patience", "divergence_lr_cut", "checks",
 )
+
+#: ``--matmul-precision`` -> ``torch.set_float32_matmul_precision``: JAX's
+#: "default" (bf16 passes on a TPU) is torch's "medium" (bf16 products)
+MATMUL_PRECISIONS = {"default": "medium", "high": "high", "highest": "highest"}
 
 
 def config_from_args(args):
     """The preset with the flags applied, as ``stmgcn_tpu/cli.py`` applies
     them; raises ``ValueError`` for a preset the port lacks."""
     cfg = preset(args.preset)
+    if args.data is not None:
+        cfg.data.path = args.data
+    if args.dates is not None:
+        cfg.data.dates = tuple(args.dates)
+    if args.obs_len is not None:
+        cfg.data.serial_len, cfg.data.daily_len, cfg.data.weekly_len = args.obs_len
+    if args.val_ratio is not None:
+        # the fraction carved off train, on the fraction path too (the JAX CLI's)
+        cfg.data.val_ratio = args.val_ratio
+        cfg.data.val_frac = cfg.data.train_frac * args.val_ratio
+        cfg.data.train_frac = cfg.data.train_frac * (1.0 - args.val_ratio)
     if args.horizon is not None:
         cfg.data.horizon = args.horizon
     if args.normalize is not None:
@@ -178,10 +243,22 @@ def config_from_args(args):
             cfg.health.out = args.health_out
         if args.health_every_k is not None:
             cfg.health.every_k = args.health_every_k
-    if args.sparse:
-        cfg.model.sparse = True
+    if args.m_graphs is not None:
+        cfg.model.m_graphs = args.m_graphs
+    if args.kernel is not None:
+        cfg.model.kernel_type = args.kernel
+    if args.cheb_k is not None:
+        cfg.model.K = args.cheb_k
     if args.dtype is not None:
         cfg.model.dtype = args.dtype
+    if args.sparse:
+        cfg.model.sparse = True
+    if args.lstm_unroll is not None:
+        cfg.model.lstm_unroll = args.lstm_unroll
+    if args.lstm_fused:
+        cfg.model.lstm_fused_scan = True
+    if args.lstm_backend is not None:
+        cfg.model.lstm_backend = args.lstm_backend
     return cfg
 
 
@@ -199,15 +276,24 @@ def main(argv=None) -> int:
     except ValueError as e:
         print(f"error: {e}", file=sys.stderr)
         return 1
+    if args.trace_out is not None:  # the JAX CLI sets the obs section here too
+        cfg.obs.trace, cfg.obs.trace_path = True, args.trace_out
     if args.print_config:
         print(json.dumps(cfg.to_dict(), indent=2))
         return 0
 
-    from stmgcn_tpu_torch.experiment import build_trainer  # defer the torch stack
+    import torch  # defer the torch stack
+
+    from stmgcn_tpu_torch.experiment import build_trainer
+    from stmgcn_tpu_torch.obs import trace as obs_trace
     from stmgcn_tpu_torch.resilience import Preempted
 
+    if args.matmul_precision is not None:
+        torch.set_float32_matmul_precision(MATMUL_PRECISIONS[args.matmul_precision])
+    if cfg.obs.trace:
+        obs_trace.configure(capacity=cfg.obs.ring_capacity)
     try:
-        trainer = build_trainer(cfg, device=args.device)
+        trainer = build_trainer(cfg, device=args.device, debug_nans=args.debug_nans)
     except ValueError as e:  # configuration errors, without a traceback
         print(f"error: {e}", file=sys.stderr)
         return 1
@@ -237,6 +323,11 @@ def main(argv=None) -> int:
               file=sys.stderr)
         return 1
     print(json.dumps({"preset": cfg.name, "results": results}))
+    trc = obs_trace.active_tracer()
+    if trc is not None and cfg.obs.trace_path:
+        n = trc.export_jsonl(cfg.obs.trace_path)
+        print(f"trace written to {cfg.obs.trace_path} ({n} spans) — inspect with "
+              f"`python -m stmgcn_tpu_torch.cli obs {cfg.obs.trace_path}`", file=sys.stderr)
     return 0
 
 

@@ -6,14 +6,20 @@ reads: :class:`DataConfig`, :class:`ModelConfig`, :class:`TrainConfig`,
 :class:`MeshConfig` and :class:`ServingConfig`, grouped in an
 :class:`ExperimentConfig` that reads the same JSON dicts as the JAX
 package's ``ExperimentConfig.from_dict``, and :class:`HealthConfig`, the
-JAX ``health`` section. Fields of the JAX model config that choose XLA
-schedules, and the JAX ``precision`` policy section (the lint's per-role
-dtypes), are ignored on read. :class:`TrainConfig` instead copies every
-JAX training field and raises, naming it, on any field that the port does
-not implement set away from its default; the JAX ``obs``, ``continual``
-and ``federation`` sections (:data:`UNPORTED_SECTIONS`) raise by name on
-any field set away from its default. ``n_nodes`` is derived from data,
-never configured.
+JAX ``health`` section, and :class:`ObsConfig`, the JAX ``obs`` section
+(tracing). :class:`ModelConfig` reads the JAX LSTM fields: ``lstm_unroll``
+(and ``remat``) are schedules that leave the numbers unchanged and change
+nothing here; ``lstm_backend`` picks the bf16 form of the LSTM kernels
+(``"xla"``, the default: float32 storage with bf16 products; ``"pallas"``:
+bf16 storage), and ``lstm_fused_scan`` the bias rounding of the ``"xla"``
+form at bf16 (rounded through bf16 on the layered schedule, the float32
+masters on the fused one); at float32 neither changes a number. The JAX
+``precision`` policy section (the lint's per-role dtypes) is ignored on
+read. :class:`TrainConfig` instead copies every JAX training field and
+raises, naming it, on any field that the port does not implement set away
+from its default; the JAX ``continual`` and ``federation`` sections
+(:data:`UNPORTED_SECTIONS`) raise by name on any field set away from its
+default. ``n_nodes`` is derived from data, never configured.
 """
 
 from __future__ import annotations
@@ -31,7 +37,9 @@ __all__ = [
     "DataConfig",
     "ExperimentConfig",
     "HealthConfig",
+    "LSTM_BACKENDS",
     "ModelConfig",
+    "ObsConfig",
     "PRESETS",
     "MeshConfig",
     "ServingConfig",
@@ -47,14 +55,20 @@ DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 #: training step precisions (``TrainConfig.precision``): "bf16" trains f32
 #: master parameters through the bf16 compute model (``train/step.py``)
 PRECISIONS = ("fp32", "bf16")
+#: ``ModelConfig.lstm_backend`` values, as the JAX ``StackedLSTM`` takes them
+LSTM_BACKENDS = ("xla", "pallas")
+#: ``TrainConfig.checks`` values: None (no sanitizer), then the JAX
+#: ``CHECK_SETS`` names (``stmgcn_tpu/train/step.py``)
+CHECKS = (None, "nan", "index", "float", "all")
 #: the JAX package's bound on per-city drift sketch bins and retained
 #: samples (``stmgcn_tpu/config.py`` ``OBS_RESERVOIR_BUDGET``)
 OBS_RESERVOIR_BUDGET = 8192
+#: the JAX package's bound on the span ring (``OBS_RING_BUDGET``)
+OBS_RING_BUDGET = 65536
 #: sections of the JAX config whose features the port does not have yet,
 #: with their JAX defaults: ``from_dict`` raises, naming the section and
 #: field, on any field set away from these
 UNPORTED_SECTIONS = {
-    "obs": {"trace": False, "trace_path": None, "ring_capacity": 4096, "reservoir": 1024},
     "continual": {
         "enabled": False, "ring_capacity": 1024, "reorder_window": 4, "cadence_s": 0.0,
         "drift_z_max": 8.0, "drift_psi": 0.5, "finetune_steps": 8, "finetune_batch": 8,
@@ -139,9 +153,27 @@ class ModelConfig:
     #: here: the LSTM kernels already keep only h and c per step and layer
     #: and recompute the gates in the backward
     remat: bool = False
+    #: the JAX LSTM scan's unroll factor (0 = the whole sequence): a
+    #: schedule that leaves the numbers unchanged, and changes nothing here
+    lstm_unroll: int = 1
+    #: the JAX single-scan schedule. At bf16 under ``lstm_backend="xla"`` it
+    #: picks the bias rounding: the layered schedule (False) rounds every
+    #: bias through bf16 and each hoisted input-weight gradient once, the
+    #: fused one (True) adds the float32 masters and rounds every step's
+    #: input-weight gradient; at float32 it changes nothing
+    lstm_fused_scan: bool = False
+    #: the bf16 form of the LSTM kernels (:data:`LSTM_BACKENDS`): "xla", the
+    #: JAX default, keeps x_proj0, the biases, the states and their
+    #: residuals in float32 and rounds each product's operands to bf16;
+    #: "pallas" stores them in bf16 as the JAX Pallas kernel does. At
+    #: float32 both run the same kernels
+    lstm_backend: str = "xla"
     #: compute dtype (:data:`DTYPES`): "bfloat16" serves and trains the
     #: model in bf16 over float32 master parameters
     dtype: str = "float32"
+
+    def __post_init__(self):
+        check_lstm(self.lstm_backend, self.lstm_fused_scan, self.lstm_unroll)
 
     @property
     def n_supports(self) -> int:
@@ -170,8 +202,8 @@ class TrainConfig:
     ``fleet``, ``fleet_max_classes`` and ``fleet_max_pad_waste`` choose
     fleet shape-class training of heterogeneous cities; the trainer
     validates them as the JAX one does. The fields in :data:`UNPORTED`
-    belong to features the port does not have yet (streaming placement,
-    sanitizers); setting one away from its default raises a ``ValueError``
+    belong to features the port does not have yet (streaming placement);
+    setting one away from its default raises a ``ValueError``
     naming it, so nothing is silently ignored. The divergence guard's fields
     (``divergence_*``) are validated by the trainer when the guard is on, as
     the JAX trainer validates them. ``precision`` is one of :data:`PRECISIONS`
@@ -190,6 +222,10 @@ class TrainConfig:
     #: global-norm gradient clipping before the L2 term and Adam moments
     grad_clip_norm: Optional[float] = None
     loss: str = "mse"
+    #: in-program sanitizers (:data:`CHECKS`, the JAX ``CHECK_SETS``):
+    #: "nan", "index", "float" (nan plus a zero loss denominator) or "all";
+    #: a flagged step raises ``CheckError`` after its block
+    #: (``train/step.py``)
     checks: Optional[str] = None
     patience: int = 10
     top_k: int = 1
@@ -221,7 +257,6 @@ class TrainConfig:
 
     #: fields of features not ported yet, with the values the port accepts
     UNPORTED = {
-        "checks": (None,),
         "prefetch": (1,),
         "data_placement": ("auto", "resident"),
         "window_free": (None, True),
@@ -237,6 +272,9 @@ class TrainConfig:
                     f"yet (it accepts {accepted}); see ROADMAP.md"
                 )
         check_precision(self.precision, self.sr_seed, where="train.")
+        if self.checks not in CHECKS:
+            raise ValueError(f"train.checks={self.checks!r}: unknown check set; expected "
+                             f"one of {CHECKS}")
 
 
 @dataclasses.dataclass
@@ -308,6 +346,47 @@ class HealthConfig:
             v.append(f"every_k must be >= 1 when health is enabled, got {self.every_k} — a "
                      "non-positive cadence silently disables the telemetry this config "
                      "claims to provide")
+        return v
+
+
+@dataclasses.dataclass
+class ObsConfig:
+    """Tracing (:mod:`stmgcn_tpu_torch.obs.trace`), the JAX ``obs`` section
+    (``stmgcn_tpu/config.py:463-516``, the same fields and defaults). Off by
+    default, and free when off. ``violations()`` is the JAX section's
+    overhead contract; ``from_dict`` raises on it."""
+
+    #: record spans into the ring (``--trace-out`` turns it on)
+    trace: bool = False
+    #: JSONL export destination; None keeps the ring in the process
+    trace_path: Optional[str] = None
+    #: span ring capacity (oldest spans evicted when full), within
+    #: :data:`OBS_RING_BUDGET`
+    ring_capacity: int = 4096
+    #: bounded sample window of the serving histograms, within
+    #: :data:`OBS_RESERVOIR_BUDGET`
+    reservoir: int = 1024
+
+    def violations(self) -> list:
+        """Every way this config breaks the documented overhead budget
+        (empty list = valid), in the JAX section's words."""
+        v = []
+        if self.reservoir < 1:
+            v.append(f"reservoir must be >= 1, got {self.reservoir} — histograms need a "
+                     "positive sample bound")
+        elif self.reservoir > OBS_RESERVOIR_BUDGET:
+            v.append(f"reservoir {self.reservoir} exceeds the documented budget "
+                     f"{OBS_RESERVOIR_BUDGET} — percentile windows past the budget buy no "
+                     "accuracy, only memory")
+        if not self.trace:
+            return v
+        if self.ring_capacity < 1:
+            v.append(f"ring_capacity must be >= 1 when tracing, got {self.ring_capacity} — "
+                     "an unbounded span buffer grows without limit in a long-lived process")
+        elif self.ring_capacity > OBS_RING_BUDGET:
+            v.append(f"ring_capacity {self.ring_capacity} exceeds the documented budget "
+                     f"{OBS_RING_BUDGET} — export the trace and rotate instead of growing "
+                     "the ring")
         return v
 
 
@@ -429,6 +508,22 @@ class ServingConfig:
         return v
 
 
+def check_lstm(backend: str, fused_scan: bool, unroll: int) -> None:
+    """The JAX ``StackedLSTM``'s checks (``stmgcn_tpu/ops/lstm.py:
+    192-202``): a backend of :data:`LSTM_BACKENDS`, and no scan schedule
+    knob under ``"pallas"``."""
+    if backend not in LSTM_BACKENDS:
+        raise ValueError(f"model.lstm_backend must be xla|pallas, got {backend!r}")
+    if not isinstance(unroll, int) or unroll < 0:
+        raise ValueError(f"model.lstm_unroll must be an int >= 0 (0 unrolls the whole "
+                         f"sequence), got {unroll!r}")
+    if backend == "pallas" and (fused_scan or unroll != 1):
+        raise ValueError(
+            "fused_scan/unroll are XLA scan schedule knobs and do not apply to "
+            "backend='pallas' (the kernel has one schedule); remat is inherent to the "
+            "kernel's recomputing backward")
+
+
 def check_precision(precision: str, sr_seed: Optional[int], where: str = "") -> None:
     """The JAX trainer's checks (``trainer.py:231-237``): a precision of
     :data:`PRECISIONS` (fp16 is refused), and ``sr_seed`` only with bf16;
@@ -456,6 +551,7 @@ class ExperimentConfig:
     mesh: MeshConfig = dataclasses.field(default_factory=MeshConfig)
     serving: ServingConfig = dataclasses.field(default_factory=ServingConfig)
     health: HealthConfig = dataclasses.field(default_factory=HealthConfig)
+    obs: ObsConfig = dataclasses.field(default_factory=ObsConfig)
 
     def to_dict(self) -> dict:
         return dataclasses.asdict(self)
@@ -464,14 +560,15 @@ class ExperimentConfig:
     def from_dict(cls, d: dict) -> "ExperimentConfig":
         """Read a JAX-package config dict (``ExperimentConfig.to_dict``);
         raises when a section of :data:`UNPORTED_SECTIONS` is set away from
-        its defaults."""
+        its defaults, and on an ``obs`` section that breaks
+        ``ObsConfig.violations()``."""
         for section, defaults in UNPORTED_SECTIONS.items():
             for name, value in (d.get(section) or {}).items():
                 if name not in defaults or value != defaults[name]:
                     raise ValueError(
                         f"{section}.{name}={value!r} is not ported to the PyTorch port yet "
                         f"(the {section!r} section must keep its defaults); see ROADMAP.md")
-        return cls(
+        cfg = cls(
             name=d.get("name", "default"),
             data=DataConfig(**_known(DataConfig, d.get("data", {}))),
             model=ModelConfig(**_known(ModelConfig, d.get("model", {}))),
@@ -479,7 +576,12 @@ class ExperimentConfig:
             mesh=MeshConfig(**_known(MeshConfig, d.get("mesh", {}))),
             serving=ServingConfig(**_known(ServingConfig, d.get("serving", {}))),
             health=HealthConfig(**d.get("health", {})),
+            obs=ObsConfig(**d.get("obs", {})),
         )
+        bad = cfg.obs.violations()
+        if bad:
+            raise ValueError("obs section: " + "; ".join(bad))
+        return cfg
 
 
 def _smoke() -> ExperimentConfig:

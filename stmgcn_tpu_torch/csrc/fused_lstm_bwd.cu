@@ -65,12 +65,35 @@
 // `_fused_bwd` does). The weight ring and the hin tiles hold bf16 at half
 // the bytes; the ring takes 32-row stages at H <= 64 and its depth is
 // derived from the bytes again. The fp32 instantiation is the kernel it was.
+//
+// The xla form (the JAX package's default bf16 LSTM, lstm_backend="xla")
+// takes the bf16 form's products over fp32 storage SD: x_proj0, the biases,
+// the fp32 residuals hseq/cseq, the cotangents and dxp. The hin tiles hold
+// fp32 h, rounded to bf16 as each fragment loads (the forward's rounding, so
+// the recomputed gates are the forward's). It rounds where jax.grad of the
+// JAX scan rounds, the transposes of the scan's astype(bf16) casts:
+// - dgates @ W^T is a product of the unrounded fp32 dgates, taken as two
+//   bf16 passes over dgates' halves (split2), summed over every column
+//   chunk, then rounded to bf16 once, h_below's part and h_prev's apart,
+//   before either joins dh;
+// - the weight-gradient pass takes hin rounded to bf16 and dgates' two
+//   halves, in chunks that never cross a step (chunks_per_step), so
+//   reduce_steps can sum each step's partial over its chunks, round it to
+//   bf16 (the recurrent halves always, the input halves of layers >= 1 when
+//   the JAX fused scan casts them in the step) and add the steps in fp32,
+//   t = T-1 first as the scan's carry does; db is summed unrounded.
 
 #include <cuda_runtime.h>
 
 #include <cstddef>
 
 #include "lstm_mma.cuh"
+
+// The forms this library instantiates, a bit each (1 fp32, 2 bf16, 4 xla):
+// the wrapper builds one library per form, so the builds run in parallel
+#ifndef STMGCN_LSTM_FORMS
+#define STMGCN_LSTM_FORMS 7
+#endif
 
 namespace {
 
@@ -89,9 +112,14 @@ template <int H, typename P>
 using SweepTile = Tile<H, 16, P>;
 constexpr int NT = SweepTile<64, F32>::Threads;
 
-// Sizes in elements of their own type (the storage type E for hin and the
-// ring, fp32 for dgates and dc), shared-memory sums in bytes.
-template <typename P, int H, int L>
+// the xla form: fp32 storage, bf16 products
+template <typename P, typename SD>
+constexpr bool kXla = sizeof(SD) == 4 && sizeof(typename P::T) == 2;
+
+// Sizes in elements of their own type (the storage type SD for hin, the
+// product type E for the ring, fp32 for dgates and dc), shared-memory sums
+// in bytes.
+template <typename P, typename SD, int H, int L>
 struct BwdPlan {
     using C = SweepTile<H, P>;
     using E = typename P::T;
@@ -113,7 +141,7 @@ struct BwdPlan {
     // backward took 9.06-9.08 ms against 8.76-8.79 ms with dc in shared
     // memory (H100 SXM, 700 W; chip_smoke.py's phase 4 from both trees)
     static constexpr int dc_slots = L * C::MT * C::UT * 4;
-    static constexpr int fixed_bytes = sizeof(E) * hin + 4 * dgt;
+    static constexpr int fixed_bytes = sizeof(SD) * hin + 4 * dgt;
     static constexpr bool dc_shared =
         fixed_bytes + 4 * dc_slots * NT + 3 * static_cast<int>(sizeof(E)) * stage <= kSmemLimit;
     static constexpr int dcs = dc_shared ? dc_slots * NT : 0;
@@ -124,7 +152,7 @@ struct BwdPlan {
         ring_stages(fixed_bytes + 4 * dcs, sizeof(E) * stage, H / C::KC + 1);
     static constexpr int smem_bytes = fixed_bytes + 4 * dcs + S * sizeof(E) * stage;
     static_assert(smem_bytes <= kSmemLimit, "the sweep's tiles and ring fit in shared memory");
-    static_assert(sizeof(E) * hin % 16 == 0, "dgates and the ring start on 16-byte boundaries");
+    static_assert(sizeof(SD) * hin % 16 == 0, "dgates and the ring start on 16-byte boundaries");
     static constexpr int Q0 = 2 * H / C::KC;      // stages of layer 0 per step
     static constexpr int Q1 = 4 * H / C::KC;      // of a layer >= 1
     static constexpr int Q = Q0 + (L - 1) * Q1;   // per step
@@ -164,29 +192,30 @@ __device__ __forceinline__ void load_cols(typename P::T* dst, const typename P::
     }
 }
 
-// Layouts (M = branches, leading everywhere; E the storage type):
+// Layouts (M = branches, leading everywhere; the weights in the product
+// type E, the rest in the storage type SD, which is E but in the xla form):
 //   xp (M, R, T, 4H); wh0 (M, H, 4H); wxh (M, max(L-1,1), 2H, 4H);
 //   bias (M, max(L-1,1), 4H); hseq/cseq (M, T, L, R, H); gout (M, R, T, H);
-//   ghfin/gcfin (M, L, R, H); dxp (M, R, T, 4H), all E; dg (M, T, L-1, R,
-//   4H) fp32.
-template <typename P, int H, int L>
+//   ghfin/gcfin (M, L, R, H); dxp (M, R, T, 4H); dg (M, T, L-1, R, 4H) fp32.
+template <typename P, typename SD, int H, int L>
 __global__ void __launch_bounds__(NT, 1)
-lstm_bwd_sweep(const typename P::T* __restrict__ xp, const typename P::T* __restrict__ wh0,
-               const typename P::T* __restrict__ wxh, const typename P::T* __restrict__ bias,
-               const typename P::T* __restrict__ hseq, const typename P::T* __restrict__ cseq,
-               const typename P::T* __restrict__ gout, const typename P::T* __restrict__ ghfin,
-               const typename P::T* __restrict__ gcfin, typename P::T* __restrict__ dxp,
+lstm_bwd_sweep(const SD* __restrict__ xp, const typename P::T* __restrict__ wh0,
+               const typename P::T* __restrict__ wxh, const SD* __restrict__ bias,
+               const SD* __restrict__ hseq, const SD* __restrict__ cseq,
+               const SD* __restrict__ gout, const SD* __restrict__ ghfin,
+               const SD* __restrict__ gcfin, SD* __restrict__ dxp,
                float* __restrict__ dg, int R, int T) {
     using C = SweepTile<H, P>;
-    using Pl = BwdPlan<P, H, L>;
+    using Pl = BwdPlan<P, SD, H, L>;
     using E = typename P::T;
     constexpr int S = Pl::S, KC = C::KC, HS = C::HS, WS = C::WS, BR = C::BR;
     constexpr int MT = C::MT, UT = C::UT, H4 = 4 * H, DS = Pl::DS, HT = Pl::HT;
     constexpr int LW = L > 1 ? L - 1 : 1;
-    constexpr int V = 16 / sizeof(E);
+    constexpr int VS = 16 / sizeof(SD);  // storage elements per 16-byte copy
+    constexpr bool xla = kXla<P, SD>;
 
     extern __shared__ float4 smem4[];
-    E* hin = reinterpret_cast<E*>(smem4);
+    SD* hin = reinterpret_cast<SD*>(smem4);
     float* dgt = reinterpret_cast<float*>(hin + Pl::hin);
     float* dcs = dgt + Pl::dgt;
     E* ring = reinterpret_cast<E*>(dcs + Pl::dcs);
@@ -241,13 +270,13 @@ lstm_bwd_sweep(const typename P::T* __restrict__ xp, const typename P::T* __rest
                 else load_cols<P, H, 2 * H, Pl::CC1>(dst, w, (r - 2 * H / KC) * Pl::CC1, tid);
             }
             if (r == 0) {
-                E* hb = hin;
-                constexpr int PR = H / V;
+                SD* hb = hin;
+                constexpr int PR = H / VS;
                 static_assert(BR * PR % NT == 0, "hin copies divide the block");
 #pragma unroll
                 for (int j = 0; j < BR * PR / NT; ++j) {
                     const int i = tid + j * NT;
-                    const int rr = i / PR, c = (i % PR) * V;
+                    const int rr = i / PR, c = (i % PR) * VS;
                     const int row = row_base + rr;
                     const bool live = row < R;
                     const int srow = live ? row : 0;
@@ -315,8 +344,8 @@ lstm_bwd_sweep(const typename P::T* __restrict__ xp, const typename P::T* __rest
         for (int li = 0; li < L; ++li) {
             const int l = L - 1 - li;
             const int K = l == 0 ? H : 2 * H;
-            const E* hb = hin;       // h_below
-            const E* hp = hin + HT;  // h_prev
+            const SD* hb = hin;       // h_below
+            const SD* hp = hin + HT;  // h_prev
 
             // this step's cell states, loaded now, read after the recompute
             float2 c_t[MT][2][UT], c_prev[MT][2][UT];
@@ -365,7 +394,7 @@ lstm_bwd_sweep(const typename P::T* __restrict__ xp, const typename P::T* __rest
                 __syncthreads();
                 issue(n + S - 1);
                 const E* wt = ring + (n % S) * Pl::stage;
-                const E* a = l == 0 ? hp + k0 : k0 < H ? hb + k0 : hp + (k0 - H);
+                const SD* a = l == 0 ? hp + k0 : k0 < H ? hb + k0 : hp + (k0 - H);
                 a += wrow * HS;
 #pragma unroll
                 for (int kk = 0; kk < KC; kk += P::KS) {
@@ -433,7 +462,10 @@ lstm_bwd_sweep(const typename P::T* __restrict__ xp, const typename P::T* __rest
             // tile, whole rows per warp, a share in each stage.
             const int CC = l == 0 ? Pl::CC0 : Pl::CC1;
             const int CCS = CC + 16 / static_cast<int>(sizeof(E));
-            E* out0 = dxp + static_cast<size_t>(t) * H4;
+            SD* out0 = dxp + static_cast<size_t>(t) * H4;
+            // xla: h_below's part summed over every chunk before its rounding
+            // (h_prev's sums in dh[l], zeroed in (b))
+            float below_all[xla ? MT : 1][xla ? UT : 1][4] = {};
             float* out1 = dg + (static_cast<size_t>(t) * LW + (l > 0 ? l - 1 : 0)) * R * H4;
             const int out_stride = (H4 / CC) * NT;  // pieces apart per thread
 #pragma unroll 1
@@ -458,20 +490,31 @@ lstm_bwd_sweep(const typename P::T* __restrict__ xp, const typename P::T* __rest
                 float below[MT][UT][4] = {}, rec[MT][UT][4] = {};
 #pragma unroll
                 for (int kk = 0; kk < CC; kk += P::KS) {
-                    typename P::FA fa[MT];
+                    typename P::FA fa[MT], fl[xla ? MT : 1];
 #pragma unroll
-                    for (int mt = 0; mt < MT; ++mt)
-                        load_a(fa[mt], dgt + (wrow + mt * 16) * DS + c0 + kk, DS, g, q);
+                    for (int mt = 0; mt < MT; ++mt) {
+                        const float* src = dgt + (wrow + mt * 16) * DS + c0 + kk;
+                        if constexpr (xla)
+                            load_a_split(fa[mt], fl[mt], src, DS, g, q);
+                        else
+                            load_a(fa[mt], src, DS, g, q);
+                    }
 #pragma unroll
                     for (int ut = 0; ut < UT; ++ut) {
                         typename P::FB fb;
                         load_b_t(fb, wt + (wunit + ut * 8) * CCS + kk, CCS, g, q);
 #pragma unroll
-                        for (int mt = 0; mt < MT; ++mt) P::mma(below[mt][ut], fa[mt], fb);
+                        for (int mt = 0; mt < MT; ++mt) {
+                            if constexpr (xla) P::mma(below[mt][ut], fl[mt], fb);
+                            P::mma(below[mt][ut], fa[mt], fb);
+                        }
                         if (l > 0) {
                             load_b_t(fb, wt + (H + wunit + ut * 8) * CCS + kk, CCS, g, q);
 #pragma unroll
-                            for (int mt = 0; mt < MT; ++mt) P::mma(rec[mt][ut], fa[mt], fb);
+                            for (int mt = 0; mt < MT; ++mt) {
+                                if constexpr (xla) P::mma(rec[mt][ut], fl[mt], fb);
+                                P::mma(rec[mt][ut], fa[mt], fb);
+                            }
                         }
                     }
                 }
@@ -481,8 +524,22 @@ lstm_bwd_sweep(const typename P::T* __restrict__ xp, const typename P::T* __rest
                     for (int ut = 0; ut < UT; ++ut)
 #pragma unroll
                         for (int e = 0; e < 4; ++e) {
-                            dh[l > 0 ? l - 1 : 0][mt][ut][e] += below[mt][ut][e];
+                            if constexpr (xla)
+                                below_all[mt][ut][e] += below[mt][ut][e];
+                            else
+                                dh[l > 0 ? l - 1 : 0][mt][ut][e] += below[mt][ut][e];
                             if (l > 0) dh[l][mt][ut][e] += rec[mt][ut][e];
+                        }
+            }
+            if constexpr (xla) {  // each product's h cotangent, rounded to bf16
+#pragma unroll
+                for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+                    for (int ut = 0; ut < UT; ++ut)
+#pragma unroll
+                        for (int e = 0; e < 4; ++e) {
+                            dh[l > 0 ? l - 1 : 0][mt][ut][e] += round_bf16(below_all[mt][ut][e]);
+                            if (l > 0) dh[l][mt][ut][e] = round_bf16(dh[l][mt][ut][e]);
                         }
             }
             // the next stage's __syncthreads orders these dgates-tile reads
@@ -501,21 +558,25 @@ constexpr int kWPad = 8;
 constexpr int kWSmem = 4 * kWStages * kWN * (kWK + kWPad + kWC + kWPad);  // fp32 slabs, the largest
 
 // One CTA's tile of hin^T dgates over its chunk: A from hseq (storage type
-// E), B from dxp (E, layer 0) or the fp32 scratch dg (layers >= 1, TB =
-// float); each slab's product summed from zero and added in fp32.
-template <typename P, typename TB>
-__device__ __forceinline__ void wgrad_body(const typename P::T* __restrict__ hseq,
+// TA), B from dxp (storage type, layer 0) or the fp32 scratch dg (layers >=
+// 1, TB = float); each slab's product summed from zero and added in fp32.
+// Split (the xla form): B's fp32 values as two bf16 halves, two passes.
+// chunks_per_step 0 cuts the (t, r) rows into kChunk-row chunks across
+// steps; > 0 gives each step that many chunks of its own.
+template <typename P, typename TA, typename TB, bool Split>
+__device__ __forceinline__ void wgrad_body(const TA* __restrict__ hseq,
                                            const TB* __restrict__ bsrc, float* __restrict__ part,
-                                           float* red, int M, int R, int T, int L, int H) {
-    using E = typename P::T;
+                                           float* red, int M, int R, int T, int L, int H,
+                                           int chunks_per_step) {
     constexpr int kWAS = kWK + kWPad, kWBS = kWC + kWPad;
-    constexpr int VA = 16 / sizeof(E), VB = 16 / sizeof(TB);
+    constexpr int VA = 16 / sizeof(TA), VB = 16 / sizeof(TB);
     extern __shared__ float4 smem4[];
-    E* As = reinterpret_cast<E*>(smem4);           // [stage][n][k]
+    TA* As = reinterpret_cast<TA*>(smem4);          // [stage][n][k]
     TB* Bs = reinterpret_cast<TB*>(As + kWStages * kWN * kWAS);  // [stage][n][c]
-    static_assert(sizeof(E) * kWStages * kWN * kWAS % 16 == 0, "B slabs 16-byte aligned");
-    static_assert(sizeof(E) * kWStages * kWN * kWAS + sizeof(TB) * kWStages * kWN * kWBS <=
+    static_assert(sizeof(TA) * kWStages * kWN * kWAS % 16 == 0, "B slabs 16-byte aligned");
+    static_assert(sizeof(TA) * kWStages * kWN * kWAS + sizeof(TB) * kWStages * kWN * kWBS <=
                       kWSmem, "slabs fit the launch's shared memory");
+    static_assert(!Split || sizeof(TB) == 4, "split B operands are fp32");
 
     const int m = blockIdx.z / L;
     const int l = blockIdx.z % L;
@@ -527,9 +588,17 @@ __device__ __forceinline__ void wgrad_body(const typename P::T* __restrict__ hse
     const int kt = blockIdx.x % k_tiles;
     const int ct = blockIdx.x / k_tiles;
     const int LW = L > 1 ? L - 1 : 1;
-    const long long n_total = static_cast<long long>(T) * R;
-    const long long n_begin = static_cast<long long>(blockIdx.y) * kChunk;
-    const long long n_end = n_begin + kChunk < n_total ? n_begin + kChunk : n_total;
+    long long n_begin, n_end;
+    if (chunks_per_step > 0) {  // chunk j of step t
+        const int t = blockIdx.y / chunks_per_step, j = blockIdx.y % chunks_per_step;
+        const long long r1 = static_cast<long long>(j + 1) * kChunk;
+        n_begin = static_cast<long long>(t) * R + static_cast<long long>(j) * kChunk;
+        n_end = static_cast<long long>(t) * R + (r1 < R ? r1 : R);
+    } else {
+        const long long n_total = static_cast<long long>(T) * R;
+        n_begin = static_cast<long long>(blockIdx.y) * kChunk;
+        n_end = n_begin + kChunk < n_total ? n_begin + kChunk : n_total;
+    }
     const int stages = static_cast<int>((n_end - n_begin + kWN - 1) / kWN);
     const bool with_db = l > 0 && kt == 0;
 
@@ -538,13 +607,13 @@ __device__ __forceinline__ void wgrad_body(const typename P::T* __restrict__ hse
     const int g = lane >> 2, q = lane & 3;
     const int wk = warp / 4, wc = warp % 4;  // warp tile: 32 k x 32 c
 
-    const E* hs = hseq + static_cast<size_t>(m) * T * L * R * H;
+    const TA* hs = hseq + static_cast<size_t>(m) * T * L * R * H;
     // (t, r) of the next slab's first row n = t * R + r, advanced one slab
     // per issue (slabs are issued in order), so no division per load
     int t_next = static_cast<int>(n_begin / R), r_next = static_cast<int>(n_begin % R);
     auto issue = [&](int s) {
         if (s < stages) {
-            E* a_dst = As + (s % kWStages) * kWN * kWAS;
+            TA* a_dst = As + (s % kWStages) * kWN * kWAS;
             TB* b_dst = Bs + (s % kWStages) * kWN * kWBS;
             const long long n0 = n_begin + static_cast<long long>(s) * kWN;
             auto row_at = [&](int rr, int& t, int& r) {  // rr < kWN
@@ -560,7 +629,7 @@ __device__ __forceinline__ void wgrad_body(const typename P::T* __restrict__ hse
                 const int i = tid + j * kThreads;
                 const int rr = i / (kWK / VA), kc = (i % (kWK / VA)) * VA;
                 const int k = kt * kWK + kc;
-                const E* src = hs;
+                const TA* src = hs;
                 bool valid = false;
                 if (n0 + rr < n_end && k < K) {
                     int t, r;
@@ -607,7 +676,7 @@ __device__ __forceinline__ void wgrad_body(const typename P::T* __restrict__ hse
         cp_async_wait<kWStages - 2>();
         __syncthreads();
         issue(s + kWStages - 1);
-        const E* a = As + (s % kWStages) * kWN * kWAS;
+        const TA* a = As + (s % kWStages) * kWN * kWAS;
         const TB* b = Bs + (s % kWStages) * kWN * kWBS;
         if (with_db) {  // this thread's column, its half of the slab's rows, in order
             const TB* col = b + (tid >> 7) * (kWN / 2) * kWBS + (tid & 127);
@@ -626,10 +695,16 @@ __device__ __forceinline__ void wgrad_body(const typename P::T* __restrict__ hse
                 load_a_t(fa[mt], a + kk * kWAS + wk * 32 + mt * 16, kWAS, g, q);
 #pragma unroll
             for (int nt = 0; nt < 4; ++nt) {
-                typename P::FB fb;
-                load_b(fb, b + kk * kWBS + wc * 32 + nt * 8, kWBS, g, q);
+                typename P::FB fb, fl;
+                if constexpr (Split)
+                    load_b_split(fb, fl, b + kk * kWBS + wc * 32 + nt * 8, kWBS, g, q);
+                else
+                    load_b(fb, b + kk * kWBS + wc * 32 + nt * 8, kWBS, g, q);
 #pragma unroll
-                for (int mt = 0; mt < 2; ++mt) P::mma(part_acc[mt][nt], fa[mt], fb);
+                for (int mt = 0; mt < 2; ++mt) {
+                    if constexpr (Split) P::mma(part_acc[mt][nt], fa[mt], fl);
+                    P::mma(part_acc[mt][nt], fa[mt], fb);
+                }
             }
         }
 #pragma unroll
@@ -674,19 +749,21 @@ __device__ __forceinline__ void wgrad_body(const typename P::T* __restrict__ hse
 // its tile to part[chunk], laid out as dwh0 (M, H, 4H), dwxh (M, L-1, 2H,
 // 4H), then db (M, L-1, 4H); the kt == 0 CTAs of layers >= 1 also sum
 // their dgates columns into db.
-template <typename P>
+template <typename P, typename SD>
 __global__ void __launch_bounds__(kThreads, 2)
-lstm_bwd_wgrad(const typename P::T* __restrict__ hseq, const typename P::T* __restrict__ dxp,
+lstm_bwd_wgrad(const SD* __restrict__ hseq, const SD* __restrict__ dxp,
                const float* __restrict__ dg, float* __restrict__ part, int M, int R, int T,
-               int L, int H) {
+               int L, int H, int chunks_per_step) {
     __shared__ float red[kThreads];
-    if constexpr (sizeof(typename P::T) == 4) {
-        wgrad_body<P, float>(hseq, blockIdx.z % L == 0 ? dxp : dg, part, red, M, R, T, L, H);
+    if constexpr (sizeof(SD) == 4) {
+        wgrad_body<P, float, float, kXla<P, SD>>(hseq, blockIdx.z % L == 0 ? dxp : dg, part,
+                                                 red, M, R, T, L, H, chunks_per_step);
     } else {
         if (blockIdx.z % L == 0)
-            wgrad_body<P, typename P::T>(hseq, dxp, part, red, M, R, T, L, H);
+            wgrad_body<P, SD, SD, false>(hseq, dxp, part, red, M, R, T, L, H, chunks_per_step);
         else
-            wgrad_body<P, float>(hseq, dg, part, red, M, R, T, L, H);
+            wgrad_body<P, SD, float, false>(hseq, dg, part, red, M, R, T, L, H,
+                                            chunks_per_step);
     }
 }
 
@@ -708,17 +785,59 @@ __global__ void reduce_partials(const float* __restrict__ part, int P, size_t X,
     }
 }
 
+// The xla form's reduction: out[i] = sum over t = T-1, ..., 0 of step t's
+// partial (its chunks_per_step chunks summed in order), each rounded to bf16
+// where jax.grad of the JAX scan rounds it: dwh0 always; dwxh's rows H..2H
+// (the recurrent half) always, rows 0..H (the input half) with flags bit 0
+// (the fused scan); db only with bits 0 and 1 (the fused scan's bias a bf16
+// shadow). With flags bit 1 (bf16 shadow weights, stochastic rounding) the
+// rounded partials' running sum is rounded to bf16 after every add, as the
+// scan's bf16 carry. Outputs as reduce_partials'.
+__global__ void reduce_steps(const float* __restrict__ part, int T, int chunks_per_step,
+                             size_t X, size_t s1, size_t s2, int H, int flags,
+                             float* __restrict__ out0, float* __restrict__ out1,
+                             float* __restrict__ out2) {
+    const bool wx_steps = flags & 1, carry = flags & 2;
+    for (size_t i = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x; i < X;
+         i += static_cast<size_t>(gridDim.x) * blockDim.x) {
+        bool round_it = i < s1;
+        if (i >= s1 && i < s2) {
+            const size_t k = ((i - s1) / (4 * static_cast<size_t>(H))) % (2 * H);
+            round_it = wx_steps || k >= static_cast<size_t>(H);
+        } else if (i >= s2) {
+            round_it = wx_steps && carry;
+        }
+        float total = 0.0f;
+        for (int t = T - 1; t >= 0; --t) {
+            float s = 0.0f;
+            for (int j = 0; j < chunks_per_step; ++j)
+                s += part[(static_cast<size_t>(t) * chunks_per_step + j) * X + i];
+            total += round_it ? round_bf16(s) : s;
+            if (round_it && carry) total = round_bf16(total);
+        }
+        if (i < s1)
+            out0[i] = total;
+        else if (i < s2)
+            out1[i - s1] = total;
+        else
+            out2[i - s2] = total;
+    }
+}
+
 struct Plan {
-    int block_rows, row_blocks, chunks;
+    int block_rows, row_blocks, chunks, chunks_per_step;
     size_t dg_floats, dw_floats, s1, s2;
 };
 
-Plan plan(int M, int R, int T, int L, int H, int block_rows) {
+// xla: the weight-gradient chunks never cross a step
+Plan plan(int M, int R, int T, int L, int H, int block_rows, bool xla) {
     Plan p;
     p.block_rows = block_rows;
     p.row_blocks = (R + block_rows - 1) / block_rows;
     const long long n_total = static_cast<long long>(T) * R;
-    p.chunks = static_cast<int>((n_total + kChunk - 1) / kChunk);
+    p.chunks_per_step = xla ? (R + kChunk - 1) / kChunk : 0;
+    p.chunks = xla ? T * p.chunks_per_step
+                   : static_cast<int>((n_total + kChunk - 1) / kChunk);
     const size_t h4 = 4 * static_cast<size_t>(H);
     p.dg_floats = L > 1 ? static_cast<size_t>(M) * T * (L - 1) * R * h4 : 0;
     p.s1 = static_cast<size_t>(M) * H * h4;
@@ -747,122 +866,143 @@ struct Ptrs {
     float* dg;
 };
 
-template <typename P, int H, int L>
+template <typename P, typename SD, int H, int L>
 cudaError_t launch_sweep(const Plan& p, const Ptrs& a, int M, int R, int T,
                          cudaStream_t stream) {
     using E = typename P::T;
-    constexpr int smem = BwdPlan<P, H, L>::smem_bytes;
+    constexpr int smem = BwdPlan<P, SD, H, L>::smem_bytes;
     cudaError_t err = cudaFuncSetAttribute(
-        lstm_bwd_sweep<P, H, L>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        lstm_bwd_sweep<P, SD, H, L>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return err;
     const dim3 grid(p.row_blocks, M);
-    lstm_bwd_sweep<P, H, L><<<grid, NT, smem, stream>>>(
-        static_cast<const E*>(a.xp), static_cast<const E*>(a.wh0), static_cast<const E*>(a.wxh),
-        static_cast<const E*>(a.bias), static_cast<const E*>(a.hseq),
-        static_cast<const E*>(a.cseq), static_cast<const E*>(a.gout),
-        static_cast<const E*>(a.ghfin), static_cast<const E*>(a.gcfin),
-        static_cast<E*>(a.dxp), a.dg, R, T);
+    lstm_bwd_sweep<P, SD, H, L><<<grid, NT, smem, stream>>>(
+        static_cast<const SD*>(a.xp), static_cast<const E*>(a.wh0),
+        static_cast<const E*>(a.wxh), static_cast<const SD*>(a.bias),
+        static_cast<const SD*>(a.hseq), static_cast<const SD*>(a.cseq),
+        static_cast<const SD*>(a.gout), static_cast<const SD*>(a.ghfin),
+        static_cast<const SD*>(a.gcfin), static_cast<SD*>(a.dxp), a.dg, R, T);
     return cudaGetLastError();
 }
 
-template <typename P, int H>
+template <typename P, typename SD, int H>
 cudaError_t sweep_h(int L, const Plan& p, const Ptrs& a, int M, int R, int T, cudaStream_t s) {
     switch (L) {
-        case 1: return launch_sweep<P, H, 1>(p, a, M, R, T, s);
-        case 2: return launch_sweep<P, H, 2>(p, a, M, R, T, s);
-        case 3: return launch_sweep<P, H, 3>(p, a, M, R, T, s);
-        default: return launch_sweep<P, H, 4>(p, a, M, R, T, s);
+        case 1: return launch_sweep<P, SD, H, 1>(p, a, M, R, T, s);
+        case 2: return launch_sweep<P, SD, H, 2>(p, a, M, R, T, s);
+        case 3: return launch_sweep<P, SD, H, 3>(p, a, M, R, T, s);
+        default: return launch_sweep<P, SD, H, 4>(p, a, M, R, T, s);
     }
 }
 
-template <typename P, int H>
+template <typename P, typename SD, int H>
 int smem_h(int L) {
     switch (L) {
-        case 1: return BwdPlan<P, H, 1>::smem_bytes;
-        case 2: return BwdPlan<P, H, 2>::smem_bytes;
-        case 3: return BwdPlan<P, H, 3>::smem_bytes;
-        case 4: return BwdPlan<P, H, 4>::smem_bytes;
+        case 1: return BwdPlan<P, SD, H, 1>::smem_bytes;
+        case 2: return BwdPlan<P, SD, H, 2>::smem_bytes;
+        case 3: return BwdPlan<P, SD, H, 3>::smem_bytes;
+        case 4: return BwdPlan<P, SD, H, 4>::smem_bytes;
         default: return 0;
     }
 }
 
-template <typename P>
+template <typename P, typename SD>
 int smem_p(int L, int H) {
     switch (H) {
-        case 32: return smem_h<P, 32>(L);
-        case 64: return smem_h<P, 64>(L);
-        case 128: return smem_h<P, 128>(L);
-        case 256: return smem_h<P, 256>(L);
+        case 32: return smem_h<P, SD, 32>(L);
+        case 64: return smem_h<P, SD, 64>(L);
+        case 128: return smem_h<P, SD, 128>(L);
+        case 256: return smem_h<P, SD, 256>(L);
         default: return 0;
     }
 }
 
-template <typename P>
+template <typename P, typename SD>
 int run(const Ptrs& a, float* dwh0, float* dwxh, float* db, float* part, const Plan& p, int M,
-        int R, int T, int L, int H, cudaStream_t s) {
-    using E = typename P::T;
+        int R, int T, int L, int H, int flags, cudaStream_t s) {
     cudaError_t err;
     switch (H) {
-        case 32: err = sweep_h<P, 32>(L, p, a, M, R, T, s); break;
-        case 64: err = sweep_h<P, 64>(L, p, a, M, R, T, s); break;
-        case 128: err = sweep_h<P, 128>(L, p, a, M, R, T, s); break;
-        default: err = sweep_h<P, 256>(L, p, a, M, R, T, s); break;
+        case 32: err = sweep_h<P, SD, 32>(L, p, a, M, R, T, s); break;
+        case 64: err = sweep_h<P, SD, 64>(L, p, a, M, R, T, s); break;
+        case 128: err = sweep_h<P, SD, 128>(L, p, a, M, R, T, s); break;
+        default: err = sweep_h<P, SD, 256>(L, p, a, M, R, T, s); break;
     }
     if (err != cudaSuccess) return static_cast<int>(err);
 
-    err = cudaFuncSetAttribute(lstm_bwd_wgrad<P>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               kWSmem);
+    err = cudaFuncSetAttribute(lstm_bwd_wgrad<P, SD>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, kWSmem);
     if (err != cudaSuccess) return static_cast<int>(err);
     const int max_tiles = ((2 * H + kWK - 1) / kWK) * (4 * H / kWC);
     const dim3 wgrid(max_tiles, p.chunks, M * L);
-    lstm_bwd_wgrad<P><<<wgrid, kThreads, kWSmem, s>>>(static_cast<const E*>(a.hseq),
-                                                      static_cast<const E*>(a.dxp), a.dg, part,
-                                                      M, R, T, L, H);
+    lstm_bwd_wgrad<P, SD><<<wgrid, kThreads, kWSmem, s>>>(
+        static_cast<const SD*>(a.hseq), static_cast<const SD*>(a.dxp), a.dg, part, M, R, T, L,
+        H, p.chunks_per_step);
     err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
 
     const size_t rblocks = (p.dw_floats + kThreads - 1) / kThreads;
     const int rgrid = rblocks < 2048 ? static_cast<int>(rblocks) : 2048;
-    reduce_partials<<<rgrid, kThreads, 0, s>>>(part, p.chunks, p.dw_floats, p.s1, p.s2,
-                                               dwh0, dwxh, db);
+    if (p.chunks_per_step > 0)
+        reduce_steps<<<rgrid, kThreads, 0, s>>>(part, T, p.chunks_per_step, p.dw_floats, p.s1,
+                                                p.s2, H, flags, dwh0, dwxh, db);
+    else
+        reduce_partials<<<rgrid, kThreads, 0, s>>>(part, p.chunks, p.dw_floats, p.s1, p.s2,
+                                                   dwh0, dwxh, db);
     return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // Floats of scratch the backward needs (layer >= 1 dgates, split-K
-// weight-gradient partials), in either storage type; the wrapper allocates
-// them.
-extern "C" size_t stmgcn_lstm_bwd_workspace(int M, int R, int T, int L, int H) {
+// weight-gradient partials) in form 0, 1 or 2 (stmgcn_lstm_bwd's); the
+// wrapper allocates them.
+extern "C" size_t stmgcn_lstm_bwd_workspace(int M, int R, int T, int L, int H, int form) {
     if (bad_shape(M, R, T, L, H)) return 0;
-    const Plan p = plan(M, R, T, L, H, block_rows(H));
+    const Plan p = plan(M, R, T, L, H, block_rows(H), form == 2);
     return p.dg_floats + p.chunks * p.dw_floats;
 }
 
-// Dynamic shared memory (bytes) of one sweep CTA at (L, H) and storage
-// type, and of one weight-gradient CTA (L = 0); 0 for a shape the kernel
-// does not take.
-extern "C" int stmgcn_lstm_bwd_smem(int L, int H, int bf16) {
+// Dynamic shared memory (bytes) of one sweep CTA at (L, H) and form, and of
+// one weight-gradient CTA (L = 0); 0 for a shape the kernel does not take.
+extern "C" int stmgcn_lstm_bwd_smem(int L, int H, int form) {
     if (L == 0) return kWSmem;
-    return bf16 ? smem_p<BF16>(L, H) : smem_p<F32>(L, H);
+    switch (form) {
+        case 0: return smem_p<F32, float>(L, H);
+        case 1: return smem_p<BF16, bf16>(L, H);
+        case 2: return smem_p<BF16, float>(L, H);
+        default: return 0;
+    }
 }
 
 // C entry point bound with ctypes. Returns a cudaError_t (0 = launched).
-// xp .. gcfin and dxp in the storage type, float32 (bf16 == 0) or bfloat16
-// (bf16 == 1); the weight gradients dwh0, dwxh, db and the workspace fp32.
-// H in {32, 64, 128, 256}, 1 <= L <= 4; every pointer 16-byte aligned. For
-// L == 1, dwxh and db are placeholders that are not written.
+// form 0: xp .. gcfin and dxp float32; 1: bfloat16; 2 (the xla form): the
+// weights bfloat16, the rest float32, with reduce_steps' flags (bit 0: round
+// each step's layer >= 1 input-weight partial, the JAX fused scan; bit 1:
+// the weights are a bf16 shadow, so the rounded sums run in bf16). The
+// weight gradients dwh0, dwxh, db and the workspace fp32. H in {32, 64, 128, 256},
+// 1 <= L <= 4; every pointer 16-byte aligned. For L == 1, dwxh and db are
+// placeholders that are not written.
 extern "C" int stmgcn_lstm_bwd(const void* xp, const void* wh0, const void* wxh,
                                const void* bias, const void* hseq, const void* cseq,
                                const void* gout, const void* ghfin, const void* gcfin,
                                void* dxp, float* dwh0, float* dwxh, float* db,
-                               float* workspace, int M, int R, int T, int L, int H, int bf16,
-                               void* stream) {
-    if (bad_shape(M, R, T, L, H)) return static_cast<int>(cudaErrorInvalidValue);
+                               float* workspace, int M, int R, int T, int L, int H, int form,
+                               int flags, void* stream) {
+    if (bad_shape(M, R, T, L, H) || form < 0 || form > 2)
+        return static_cast<int>(cudaErrorInvalidValue);
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-    const Plan p = plan(M, R, T, L, H, block_rows(H));
+    const Plan p = plan(M, R, T, L, H, block_rows(H), form == 2);
     const Ptrs a{xp, wh0, wxh, bias, hseq, cseq, gout, ghfin, gcfin, dxp, workspace};
     float* part = workspace + p.dg_floats;
-    return bf16 ? run<BF16>(a, dwh0, dwxh, db, part, p, M, R, T, L, H, s)
-                : run<F32>(a, dwh0, dwxh, db, part, p, M, R, T, L, H, s);
+    switch (form) {
+#if STMGCN_LSTM_FORMS & 1
+        case 0: return run<F32, float>(a, dwh0, dwxh, db, part, p, M, R, T, L, H, 0, s);
+#endif
+#if STMGCN_LSTM_FORMS & 2
+        case 1: return run<BF16, bf16>(a, dwh0, dwxh, db, part, p, M, R, T, L, H, 0, s);
+#endif
+#if STMGCN_LSTM_FORMS & 4
+        case 2: return run<BF16, float>(a, dwh0, dwxh, db, part, p, M, R, T, L, H, flags, s);
+#endif
+        default: return static_cast<int>(cudaErrorInvalidValue);  // not in this library
+    }
 }

@@ -50,12 +50,29 @@
 // the bytes too. The rows per CTA stay: registers (fp32 accumulators and
 // cell states) bound them, not shared memory. The fp32 instantiation is the
 // kernel it was.
+//
+// The xla form (the JAX package's default bf16 LSTM, lstm_backend="xla"):
+// the storage type SD of x_proj0, the biases and every output is float32,
+// the weights and the h tiles bf16 (P = BF16), so each product is the bf16
+// form's one mma.sync pass over h rounded to bf16 where it enters the
+// product (the JAX scan's h.astype(bf16)), with fp32 accumulation; h, c,
+// out, h_fin, c_fin and the hseq/cseq residuals leave unrounded in fp32. A
+// layer >= 1's accumulators start from its fp32 bias and take the h_below
+// half of the K = 2H product before the h_prev half, the JAX scan's
+// (h_below @ wx + b) + h_prev @ wh. Its bound is the bf16 form's products
+// over fp32 traffic: x_proj0 and the residuals at twice the bytes.
 
 #include <cuda_runtime.h>
 
 #include <cstddef>
 
 #include "lstm_mma.cuh"
+
+// The forms this library instantiates, a bit each (1 fp32, 2 bf16, 4 xla):
+// the wrapper builds one library per form, so the builds run in parallel
+#ifndef STMGCN_LSTM_FORMS
+#define STMGCN_LSTM_FORMS 7
+#endif
 
 namespace {
 
@@ -82,17 +99,17 @@ struct FwdPlan {
     static constexpr int Q = Q0 + (L - 1) * Q1;  // stages per step
 };
 
-// Layouts (M = branches, leading everywhere), in the storage type E:
+// Layouts (M = branches, leading everywhere); weights in the product type
+// E, the rest in the storage type SD (E for the fp32 and bf16 forms):
 //   xp (M, R, T, 4H); wh0 (M, H, 4H); wxh (M, max(L-1,1), 2H, 4H);
 //   bias (M, max(L-1,1), 4H); out (M, R, T, H); h_fin/c_fin (M, L, R, H);
 //   hseq/cseq (M, T, L, R, H) or null.
-template <typename P, int H, int L>
+template <typename P, typename SD, int H, int L>
 __global__ void __launch_bounds__(NT, 1)
-lstm_fwd_kernel(const typename P::T* __restrict__ xp, const typename P::T* __restrict__ wh0,
-                const typename P::T* __restrict__ wxh, const typename P::T* __restrict__ bias,
-                typename P::T* __restrict__ out, typename P::T* __restrict__ h_fin,
-                typename P::T* __restrict__ c_fin, typename P::T* __restrict__ hseq,
-                typename P::T* __restrict__ cseq, int R, int T) {
+lstm_fwd_kernel(const SD* __restrict__ xp, const typename P::T* __restrict__ wh0,
+                const typename P::T* __restrict__ wxh, const SD* __restrict__ bias,
+                SD* __restrict__ out, SD* __restrict__ h_fin, SD* __restrict__ c_fin,
+                SD* __restrict__ hseq, SD* __restrict__ cseq, int R, int T) {
     using C = FwdTile<H, P>;
     using Pl = FwdPlan<P, H, L>;
     using E = typename P::T;
@@ -274,45 +291,45 @@ lstm_fwd_kernel(const typename P::T* __restrict__ xp, const typename P::T* __res
     cp_async_wait<0>();
 }
 
-template <typename P, int H, int L>
+template <typename P, typename SD, int H, int L>
 cudaError_t launch(const void* xp, const void* wh0, const void* wxh, const void* bias,
                    void* out, void* h_fin, void* c_fin, void* hseq, void* cseq, int M,
                    int R, int T, cudaStream_t stream) {
     using E = typename P::T;
     constexpr int smem = FwdPlan<P, H, L>::smem_bytes;
     cudaError_t err = cudaFuncSetAttribute(
-        lstm_fwd_kernel<P, H, L>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        lstm_fwd_kernel<P, SD, H, L>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return err;
     const dim3 grid((R + FwdTile<H, P>::BR - 1) / FwdTile<H, P>::BR, M);
-    lstm_fwd_kernel<P, H, L><<<grid, NT, smem, stream>>>(
-        static_cast<const E*>(xp), static_cast<const E*>(wh0), static_cast<const E*>(wxh),
-        static_cast<const E*>(bias), static_cast<E*>(out), static_cast<E*>(h_fin),
-        static_cast<E*>(c_fin), static_cast<E*>(hseq), static_cast<E*>(cseq), R, T);
+    lstm_fwd_kernel<P, SD, H, L><<<grid, NT, smem, stream>>>(
+        static_cast<const SD*>(xp), static_cast<const E*>(wh0), static_cast<const E*>(wxh),
+        static_cast<const SD*>(bias), static_cast<SD*>(out), static_cast<SD*>(h_fin),
+        static_cast<SD*>(c_fin), static_cast<SD*>(hseq), static_cast<SD*>(cseq), R, T);
     return cudaGetLastError();
 }
 
-template <typename P, int H>
+template <typename P, typename SD, int H>
 cudaError_t launch_h(int L, const void* xp, const void* wh0, const void* wxh,
                      const void* bias, void* out, void* h_fin, void* c_fin, void* hseq,
                      void* cseq, int M, int R, int T, cudaStream_t s) {
     switch (L) {
-        case 1: return launch<P, H, 1>(xp, wh0, wxh, bias, out, h_fin, c_fin, hseq, cseq, M, R, T, s);
-        case 2: return launch<P, H, 2>(xp, wh0, wxh, bias, out, h_fin, c_fin, hseq, cseq, M, R, T, s);
-        case 3: return launch<P, H, 3>(xp, wh0, wxh, bias, out, h_fin, c_fin, hseq, cseq, M, R, T, s);
-        case 4: return launch<P, H, 4>(xp, wh0, wxh, bias, out, h_fin, c_fin, hseq, cseq, M, R, T, s);
+        case 1: return launch<P, SD, H, 1>(xp, wh0, wxh, bias, out, h_fin, c_fin, hseq, cseq, M, R, T, s);
+        case 2: return launch<P, SD, H, 2>(xp, wh0, wxh, bias, out, h_fin, c_fin, hseq, cseq, M, R, T, s);
+        case 3: return launch<P, SD, H, 3>(xp, wh0, wxh, bias, out, h_fin, c_fin, hseq, cseq, M, R, T, s);
+        case 4: return launch<P, SD, H, 4>(xp, wh0, wxh, bias, out, h_fin, c_fin, hseq, cseq, M, R, T, s);
         default: return cudaErrorInvalidValue;
     }
 }
 
-template <typename P>
+template <typename P, typename SD>
 cudaError_t launch_p(int H, int L, const void* xp, const void* wh0, const void* wxh,
                      const void* bias, void* out, void* h_fin, void* c_fin, void* hseq,
                      void* cseq, int M, int R, int T, cudaStream_t s) {
     switch (H) {
-        case 32: return launch_h<P, 32>(L, xp, wh0, wxh, bias, out, h_fin, c_fin, hseq, cseq, M, R, T, s);
-        case 64: return launch_h<P, 64>(L, xp, wh0, wxh, bias, out, h_fin, c_fin, hseq, cseq, M, R, T, s);
-        case 128: return launch_h<P, 128>(L, xp, wh0, wxh, bias, out, h_fin, c_fin, hseq, cseq, M, R, T, s);
-        case 256: return launch_h<P, 256>(L, xp, wh0, wxh, bias, out, h_fin, c_fin, hseq, cseq, M, R, T, s);
+        case 32: return launch_h<P, SD, 32>(L, xp, wh0, wxh, bias, out, h_fin, c_fin, hseq, cseq, M, R, T, s);
+        case 64: return launch_h<P, SD, 64>(L, xp, wh0, wxh, bias, out, h_fin, c_fin, hseq, cseq, M, R, T, s);
+        case 128: return launch_h<P, SD, 128>(L, xp, wh0, wxh, bias, out, h_fin, c_fin, hseq, cseq, M, R, T, s);
+        case 256: return launch_h<P, SD, 256>(L, xp, wh0, wxh, bias, out, h_fin, c_fin, hseq, cseq, M, R, T, s);
         default: return cudaErrorInvalidValue;
     }
 }
@@ -342,26 +359,39 @@ int smem_p(int L, int H) {
 }  // namespace
 
 // C entry point bound with ctypes. Returns a cudaError_t (0 = launched).
-// Every operand in the storage type: float32 (bf16 == 0) or bfloat16
-// (bf16 == 1). H in {32, 64, 128, 256}; 1 <= L <= 4; hseq/cseq may be null
-// (forward-only serving). Every pointer 16-byte aligned.
+// form 0: every operand float32; 1: every operand bfloat16; 2 (the xla
+// form): the weights bfloat16, the rest float32. H in {32, 64, 128, 256};
+// 1 <= L <= 4; hseq/cseq may be null (forward-only serving). Every pointer
+// 16-byte aligned.
 extern "C" int stmgcn_lstm_fwd(const void* xp, const void* wh0, const void* wxh,
                                const void* bias, void* out, void* h_fin, void* c_fin,
                                void* hseq, void* cseq, int M, int R, int T, int L, int H,
-                               int bf16, void* stream) {
+                               int form, void* stream) {
     if (M < 1 || R < 1 || T < 1) return static_cast<int>(cudaErrorInvalidValue);
     if ((hseq == nullptr) != (cseq == nullptr))
         return static_cast<int>(cudaErrorInvalidValue);
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-    return static_cast<int>(
-        bf16 ? launch_p<BF16>(H, L, xp, wh0, wxh, bias, out, h_fin, c_fin, hseq, cseq, M, R, T, s)
-             : launch_p<F32>(H, L, xp, wh0, wxh, bias, out, h_fin, c_fin, hseq, cseq, M, R, T, s));
+    switch (form) {
+#if STMGCN_LSTM_FORMS & 1
+        case 0: return static_cast<int>(launch_p<F32, float>(
+                    H, L, xp, wh0, wxh, bias, out, h_fin, c_fin, hseq, cseq, M, R, T, s));
+#endif
+#if STMGCN_LSTM_FORMS & 2
+        case 1: return static_cast<int>(launch_p<BF16, bf16>(
+                    H, L, xp, wh0, wxh, bias, out, h_fin, c_fin, hseq, cseq, M, R, T, s));
+#endif
+#if STMGCN_LSTM_FORMS & 4
+        case 2: return static_cast<int>(launch_p<BF16, float>(
+                    H, L, xp, wh0, wxh, bias, out, h_fin, c_fin, hseq, cseq, M, R, T, s));
+#endif
+        default: return static_cast<int>(cudaErrorInvalidValue);  // not in this library
+    }
 }
 
-// Dynamic shared memory (bytes) of one CTA at (L, H) and storage type; 0
-// for a shape the kernel does not take.
-extern "C" int stmgcn_lstm_fwd_smem(int L, int H, int bf16) {
-    return bf16 ? smem_p<BF16>(L, H) : smem_p<F32>(L, H);
+// Dynamic shared memory (bytes) of one CTA at (L, H) and form (the xla
+// form's is the bf16 form's); 0 for a shape the kernel does not take.
+extern "C" int stmgcn_lstm_fwd_smem(int L, int H, int form) {
+    return form ? smem_p<BF16>(L, H) : smem_p<F32>(L, H);
 }
 
 // Rows per CTA at hidden width H (0 for a width the kernel does not take);

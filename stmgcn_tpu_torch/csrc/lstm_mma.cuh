@@ -3,7 +3,10 @@
 // (spmm_stack.cu): the LSTM tile shapes per hidden width, the two product
 // routes (fp32 storage: 3xTF32 on mma.sync m16n8k8; bf16 storage: one
 // mma.sync m16n8k16 bf16 pass), both with fp32 accumulation, behind the
-// policies F32 and BF16, and cp.async copies.
+// policies F32 and BF16, and cp.async copies. The xla form (fp32 storage,
+// bf16 products) takes BF16's products over fp32 tiles: fragments rounded
+// to bf16 as they load, or split in two bf16 halves where an operand must
+// keep fp32 precision (split2).
 //
 // 3xTF32: an fp32 operand x is split as x = hi + lo, hi rounded to TF32 (10
 // mantissa bits, round to nearest) and lo truncated to TF32 by the tensor
@@ -196,6 +199,47 @@ __device__ __forceinline__ void load_a_t(FragA16& f, const bf16* p, int s, int g
     f.r[3] = pack(k8[g + 8], k8[s + g + 8]);
 }
 
+// A = P^T from a k-major fp32 tile P, each value rounded to bf16
+__device__ __forceinline__ void load_a_t(FragA16& f, const float* p, int s, int g, int q) {
+    const float* k0 = p + 2 * q * s;
+    const float* k8 = p + (2 * q + 8) * s;
+    f.r[0] = pack(k0[g], k0[s + g]);
+    f.r[1] = pack(k0[g + 8], k0[s + g + 8]);
+    f.r[2] = pack(k8[g], k8[s + g]);
+    f.r[3] = pack(k8[g + 8], k8[s + g + 8]);
+}
+
+// Two bf16 halves of fp32 values: hi = bf16(x), lo = bf16(x - hi), so hi + lo
+// holds x to about 2^-17 of it. A product of an fp32 operand with an exact
+// bf16 one is taken as two bf16 passes, lo first (the xla form's products
+// of the unrounded fp32 dgates; its result is rounded to bf16 after the
+// sum, 2^-9, so the dropped part does not show)
+__device__ __forceinline__ void split2(float a, float b, uint32_t& hi, uint32_t& lo) {
+    const bf16 ha = __float2bfloat16_rn(a), hb = __float2bfloat16_rn(b);
+    hi = pack(ha, hb);
+    lo = pack(a - __bfloat162float(ha), b - __bfloat162float(hb));
+}
+
+// A from a row-major fp32 tile (p 8-byte aligned, s even), split in halves
+__device__ __forceinline__ void load_a_split(FragA16& hi, FragA16& lo, const float* p, int s,
+                                             int g, int q) {
+    const float2 v0 = *reinterpret_cast<const float2*>(p + g * s + 2 * q);
+    const float2 v1 = *reinterpret_cast<const float2*>(p + (g + 8) * s + 2 * q);
+    const float2 v2 = *reinterpret_cast<const float2*>(p + g * s + 2 * q + 8);
+    const float2 v3 = *reinterpret_cast<const float2*>(p + (g + 8) * s + 2 * q + 8);
+    split2(v0.x, v0.y, hi.r[0], lo.r[0]);
+    split2(v1.x, v1.y, hi.r[1], lo.r[1]);
+    split2(v2.x, v2.y, hi.r[2], lo.r[2]);
+    split2(v3.x, v3.y, hi.r[3], lo.r[3]);
+}
+
+// B from a k-major fp32 tile, split in halves
+__device__ __forceinline__ void load_b_split(FragB16& hi, FragB16& lo, const float* p, int s,
+                                             int g, int q) {
+    split2(p[2 * q * s + g], p[(2 * q + 1) * s + g], hi.r[0], lo.r[0]);
+    split2(p[(2 * q + 8) * s + g], p[(2 * q + 9) * s + g], hi.r[1], lo.r[1]);
+}
+
 // B from a k-major tile (p at its (k 0, n 0), k stride s), bf16 or fp32
 // (rounded to bf16)
 template <typename E>
@@ -264,6 +308,11 @@ __device__ __forceinline__ void store4(bf16* p, float4 v) {
 }
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(bf16 x) { return __bfloat162float(x); }
+// x rounded to bf16 (nearest even) and read back as fp32: an fp32 value
+// through the JAX scan's astype(bf16)
+__device__ __forceinline__ float round_bf16(float x) {
+    return __bfloat162float(__float2bfloat16_rn(x));
+}
 
 // 16-byte global -> shared copy; zero-fills the 16 bytes when !valid (src
 // must still be a mapped address)

@@ -16,7 +16,7 @@ from typing import Optional
 
 import torch
 
-from stmgcn_tpu_torch.config import ExperimentConfig
+from stmgcn_tpu_torch.config import ExperimentConfig, check_lstm
 from stmgcn_tpu_torch.data.hetero import HeteroCityDataset
 from stmgcn_tpu_torch.data.loader import load_npz
 from stmgcn_tpu_torch.data.pipeline import DemandDataset
@@ -168,10 +168,12 @@ def build_model(cfg: ExperimentConfig, input_dim: int, *, device=None,
                 generator: Optional[torch.Generator] = None) -> STMGCN:
     """The flagship from config plus the one data-derived scalar (feature
     count), in the config's support mode (``model.sparse`` /
-    ``model.tiled``; the parameters are the same in every mode) and compute
-    dtype (``model.dtype``). ``device=None`` means the GPU."""
+    ``model.tiled``; the parameters are the same in every mode), compute
+    dtype (``model.dtype``) and bf16 LSTM form (``model.lstm_backend``,
+    ``model.lstm_fused_scan``). ``device=None`` means the GPU."""
     m = cfg.model
     _check_support_route(cfg)
+    check_lstm(m.lstm_backend, m.lstm_fused_scan, m.lstm_unroll)
     return STMGCN(
         m_graphs=m.m_graphs,
         n_supports=m.n_supports,
@@ -185,6 +187,8 @@ def build_model(cfg: ExperimentConfig, input_dim: int, *, device=None,
         shared_gate_fc=m.shared_gate_fc,
         sparse=m.sparse,
         support_modes=("tiled",) * m.m_graphs if m.tiled else None,
+        lstm_backend=m.lstm_backend,
+        lstm_fused_scan=m.lstm_fused_scan,
         dtype=m.compute_dtype,
         device=device,
         generator=generator,
@@ -193,7 +197,7 @@ def build_model(cfg: ExperimentConfig, input_dim: int, *, device=None,
 
 def build_trainer(cfg: ExperimentConfig, *, device=None, initial_state: Optional[dict] = None,
                   graphs: Optional[bool] = None, verbose: bool = True,
-                  fault_plan=None) -> Trainer:
+                  fault_plan=None, debug_nans: bool = False) -> Trainer:
     """The trainer for a single-device config in any of the three support
     modes, homogeneous or heterogeneous (with ``train.fleet`` and its
     knobs); weights drawn from ``cfg.train.seed`` unless ``initial_state``
@@ -207,7 +211,9 @@ def build_trainer(cfg: ExperimentConfig, *, device=None, initial_state: Optional
     ``:518-527``); ``fault_plan`` (a
     :class:`~stmgcn_tpu_torch.resilience.FaultPlan`) threads deterministic
     faults through its loop, ``None`` being the no-op plan. A ``health``
-    section that breaks its contract raises."""
+    section that breaks its contract raises. ``train.checks`` reaches the
+    trainer's sanitizers; ``debug_nans`` turns on its debug mode (the
+    CLI's ``--debug-nans``)."""
     _check_health(cfg)
     _check_support_route(cfg)
     if cfg.mesh.n_devices > 1:
@@ -238,6 +244,7 @@ def build_trainer(cfg: ExperimentConfig, *, device=None, initial_state: Optional
         fault_plan=fault_plan, health=cfg.health.enabled,
         health_every_k=cfg.health.every_k, health_out=cfg.health.out,
         health_baseline=cfg.health.baseline, health_sketch_size=cfg.health.sketch_size,
+        checks=t.checks, debug_nans=debug_nans,
         extra_meta={
             "config": cfg.to_dict(),
             # what a checkpoint consumer needs to rebuild the model without

@@ -46,6 +46,7 @@ static buffers.
 from __future__ import annotations
 
 import contextlib
+import gc
 import threading
 import time
 from typing import Callable, Dict, Optional, Tuple
@@ -54,6 +55,7 @@ import numpy as np
 import torch
 
 from stmgcn_tpu_torch.obs import graphmon
+from stmgcn_tpu_torch.obs import trace as obs_trace
 from stmgcn_tpu_torch.ops import counters
 
 __all__ = [
@@ -207,18 +209,30 @@ class GraphPool(DeviceOps):
     def capture(self, fn: Callable, generator: Optional[torch.Generator] = None):
         """``(graph, outputs)``: ``fn`` captured into this pool; the
         random state of ``generator`` registered with the graph, so each
-        replay draws from its seed and offset at that time."""
+        replay draws from its seed and offset at that time. The garbage
+        collector runs before the capture and not during it."""
         graph = torch.cuda.CUDAGraph()
         if generator is not None:
             graph.register_generator_state(generator)
+        # a dead reference cycle that holds CUDA graphs or memory (a trainer,
+        # an engine generation) must not be collected while the capture
+        # runs: its destructors' CUDA calls invalidate the capture. So
+        # collect them first, and keep the collector off until the end
+        gc.collect()
         # a capture starts by emptying the allocator's cache: empty it
         # first, so what is reserved during the capture is the pool's
         torch.cuda.empty_cache()
         before = torch.cuda.memory_reserved(self.device)
         self.capture_stream.wait_stream(self.stream)
-        with torch.cuda.graph(graph, pool=self.handle, stream=self.capture_stream,
-                              capture_error_mode="thread_local"):
-            out = fn()
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.graph(graph, pool=self.handle, stream=self.capture_stream,
+                                  capture_error_mode="thread_local"):
+                out = fn()
+        finally:
+            if collecting:
+                gc.enable()
         self.stream.wait_stream(self.capture_stream)
         self.reserved_bytes += max(0, torch.cuda.memory_reserved(self.device) - before)
         return graph, out
@@ -233,13 +247,16 @@ class Program:
     run eagerly on every call (the eager route). ``program(values)`` fills
     the inputs from ``values`` (name -> numpy array), runs, and returns the
     output as a host tensor. ``lock`` (default: the program's own) is held
-    from the fill to the enqueue of the output copy."""
+    from the fill to the enqueue of the output copy. ``upload_span`` names
+    the trace span (:mod:`~stmgcn_tpu_torch.obs.trace`) of each call's fill
+    and upload, with its bytes, while tracing is on."""
 
     captured = False
 
     def __init__(self, body: Callable, spec: dict, ops: DeviceOps, *, name: str = "program",
-                 lock: Optional[threading.Lock] = None):
+                 lock: Optional[threading.Lock] = None, upload_span: Optional[str] = None):
         self.name = name
+        self.upload_span = upload_span
         self.ops = ops
         self._body = body
         self.inputs = StaticInputs(spec, ops)
@@ -247,12 +264,17 @@ class Program:
         self._staged = None  # event after the last upload out of the staging buffer
 
     def __call__(self, values: Dict[str, np.ndarray]) -> torch.Tensor:
+        trc = obs_trace.active_tracer() if self.upload_span else None
         with self._lock:
             if self._staged is not None:  # the last copy has left the staging buffer
                 self._staged.synchronize()
+            t0 = time.perf_counter() if trc is not None else 0.0
             self.inputs.fill(values)
             self._staged = self.ops.upload(self.inputs.words, self.inputs.staging)
             graphmon.record_upload(self.inputs.nbytes)
+            if trc is not None:
+                trc.record_span(self.upload_span, t0, time.perf_counter(),
+                                {"bytes": self.inputs.nbytes})
             out = self._execute()
             host, done = self.ops.download(out)
         if done is not None:
@@ -281,8 +303,9 @@ class CapturedProgram(Program):
     captured = True
 
     def __init__(self, body: Callable, spec: dict, pool, *, name: str = "program",
-                 swap: bool = False, generator: Optional[torch.Generator] = None):
-        super().__init__(body, spec, pool, name=name, lock=pool.lock)
+                 swap: bool = False, generator: Optional[torch.Generator] = None,
+                 upload_span: Optional[str] = None):
+        super().__init__(body, spec, pool, name=name, lock=pool.lock, upload_span=upload_span)
         self.swap = swap
         self.generator = generator
         self.graph = None

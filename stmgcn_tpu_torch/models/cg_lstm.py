@@ -25,7 +25,9 @@ the same in every mode.
 Under a bf16 compute dtype the gate's feature sum and node mean run in
 float32 (the JAX gate's f32 reduction islands), its conv and Dense layers
 take bf16 operands with float32 results, so the gate itself stays float32;
-the LSTM runs its bf16 kernel route and hands back bf16 states.
+the LSTM runs its bf16 kernel route in the form ``lstm_backend`` names
+(``ops/lstm.py``) and hands back float32 states ("xla") or bf16 ones
+("pallas").
 """
 
 from __future__ import annotations
@@ -95,6 +97,7 @@ class CGLSTM(nn.Module):
                  lstm_hidden_dim: int, lstm_num_layers: int, *,
                  use_bias: bool = True, shared_gate_fc: bool = True,
                  n_real_nodes: Optional[int] = None, support_mode: str = "dense",
+                 lstm_backend: str = "xla", lstm_fused_scan: bool = False,
                  branches: Optional[int] = None, device=None, generator=None):
         super().__init__()
         kw = dict(branches=branches, device=device, generator=generator)
@@ -103,7 +106,8 @@ class CGLSTM(nn.Module):
                                    shared_gate_fc=shared_gate_fc,
                                    n_real_nodes=n_real_nodes, support_mode=support_mode,
                                    **kw)
-        self.lstm = StackedLSTM(input_dim, lstm_hidden_dim, lstm_num_layers, **kw)
+        self.lstm = StackedLSTM(input_dim, lstm_hidden_dim, lstm_num_layers,
+                                backend=lstm_backend, fused_scan=lstm_fused_scan, **kw)
 
     def forward(self, supports, obs_seq: torch.Tensor,
                 n_real: Optional[torch.Tensor] = None) -> torch.Tensor:

@@ -10,7 +10,8 @@ next-step prediction, or ``(B, H, N, C)`` for ``horizon > 1``.
 
 ``dtype`` is the compute dtype (None or float32: the fp32 path;
 ``torch.bfloat16``: the JAX model at ``dtype=bfloat16``, over float32
-parameters): the branch outputs are summed in float32 and rounded to bf16,
+parameters, its LSTM in the bf16 form ``lstm_backend`` names with the
+rounding ``lstm_fused_scan`` picks, ``ops/lstm.py``): the branch outputs are summed in float32 and rounded to bf16,
 the head sums in float32, and the prediction leaves in bf16, as the JAX
 model's serve boundary. :func:`~stmgcn_tpu_torch.ops.layers.set_compute_dtype`
 changes it on a built model.
@@ -48,13 +49,16 @@ class Branch(nn.Module):
                  lstm_hidden_dim: int, lstm_num_layers: int, gcn_hidden_dim: int, *,
                  use_bias: bool = True, shared_gate_fc: bool = True,
                  n_real_nodes: Optional[int] = None, support_mode: str = "dense",
+                 lstm_backend: str = "xla", lstm_fused_scan: bool = False,
                  branches: Optional[int] = None, device=None, generator=None):
         super().__init__()
         kw = dict(branches=branches, device=device, generator=generator)
         self.cg_lstm = CGLSTM(n_supports, seq_len, input_dim, lstm_hidden_dim,
                               lstm_num_layers, use_bias=use_bias,
                               shared_gate_fc=shared_gate_fc,
-                              n_real_nodes=n_real_nodes, support_mode=support_mode, **kw)
+                              n_real_nodes=n_real_nodes, support_mode=support_mode,
+                              lstm_backend=lstm_backend, lstm_fused_scan=lstm_fused_scan,
+                              **kw)
         self.gcn = make_conv(support_mode, n_supports, lstm_hidden_dim, gcn_hidden_dim,
                              use_bias=use_bias, **kw)
 
@@ -76,6 +80,7 @@ class STMGCN(nn.Module):
                  gcn_hidden_dim: int = 64, use_bias: bool = True,
                  shared_gate_fc: bool = True, n_real_nodes: Optional[int] = None,
                  sparse: bool = False, support_modes: Optional[Sequence[str]] = None,
+                 lstm_backend: str = "xla", lstm_fused_scan: bool = False,
                  dtype: Optional[torch.dtype] = None,
                  device=None, generator: Optional[torch.Generator] = None):
         super().__init__()
@@ -91,7 +96,8 @@ class STMGCN(nn.Module):
         self.branches = Branch(
             n_supports, seq_len, input_dim, lstm_hidden_dim, lstm_num_layers,
             gcn_hidden_dim, use_bias=use_bias, shared_gate_fc=shared_gate_fc,
-            n_real_nodes=n_real_nodes, support_mode=self.support_mode, branches=m_graphs,
+            n_real_nodes=n_real_nodes, support_mode=self.support_mode,
+            lstm_backend=lstm_backend, lstm_fused_scan=lstm_fused_scan, branches=m_graphs,
             device=device, generator=generator,
         )
         self.head = Dense(gcn_hidden_dim, horizon * input_dim, device=device,

@@ -67,8 +67,9 @@ def _nvcc() -> str:
     )
 
 
-def _build(sources, name: str) -> BuildInfo:
-    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+def _build(sources, name: str, defines=()) -> BuildInfo:
+    flags = (*NVCC_FLAGS, *defines)
+    digest = hashlib.sha256(" ".join(flags).encode())
     # the sources and every header beside them, which they may include
     headers = sorted({h for src in sources for h in Path(src).parent.glob("*.cuh")})
     for path in [*sources, *headers]:
@@ -77,7 +78,7 @@ def _build(sources, name: str) -> BuildInfo:
     if path.exists():
         return BuildInfo(path, 0.0, "")
     tmp = path.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
+    cmd = [_nvcc(), *flags, "-o", str(tmp), *map(str, sources)]
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, capture_output=True, text=True)
@@ -123,8 +124,10 @@ def on_cuda(name, operands, int_operands=()) -> bool:
     return True
 
 
-def load_library(sources, name: str) -> tuple[ctypes.CDLL, BuildInfo]:
+def load_library(sources, name: str, defines=()) -> tuple[ctypes.CDLL, BuildInfo]:
     """Build (if needed) and load one kernel library; cached per process.
+    ``defines`` are ``-D`` flags of this library (one source may build
+    several libraries under several names).
 
     Raises when ``nvcc`` is missing or the build fails — there is no
     fallback: a caller holding CUDA tensors gets the kernel or an error.
@@ -135,6 +138,6 @@ def load_library(sources, name: str) -> tuple[ctypes.CDLL, BuildInfo]:
         lock = _LOCKS.setdefault(name, threading.Lock())
     with lock:
         if name not in _LOADED:
-            info = _build(sources, name)
+            info = _build(sources, name, defines)
             _LOADED[name] = (ctypes.CDLL(str(info.path)), info)
         return _LOADED[name]

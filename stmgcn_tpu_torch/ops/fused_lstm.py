@@ -76,13 +76,24 @@ BWD_SOURCE = SOURCE.with_name("fused_lstm_bwd.cu")
 #: hidden widths the kernels' tilings take (csrc/lstm_mma.cuh ``Tile``)
 KERNEL_HIDDEN = (32, 64, 128, 256)
 KERNEL_MAX_LAYERS = 4
+#: the kernels' forms by code (``_form``): each source builds one library
+#: per form, so the six builds run in parallel
+FORMS = ("fp32", "bf16", "xla")
+
+
+def _library(source, name: str, form: int):
+    """One form's library of ``source`` (``STMGCN_LSTM_FORMS`` selects the
+    instances it compiles)."""
+    return load_library([source], f"{name}_{FORMS[form]}",
+                        (f"-DSTMGCN_LSTM_FORMS={1 << form}",))
 
 
 @functools.lru_cache(maxsize=None)
-def kernel_library():
-    """The built, loaded kernel entry point and its build record
+def kernel_library(form: int = 0):
+    """The built, loaded forward kernel entry point of ``form`` (0 fp32, 1
+    bf16, 2 xla) and its build record
     (:class:`~stmgcn_tpu_torch.ops._build.BuildInfo`); built on first call."""
-    lib, info = load_library([SOURCE], "fused_lstm_fwd")
+    lib, info = _library(SOURCE, "fused_lstm_fwd", form)
     fn = lib.stmgcn_lstm_fwd
     fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
@@ -90,45 +101,87 @@ def kernel_library():
 
 
 @functools.lru_cache(maxsize=None)
-def bwd_kernel_library():
-    """The backward kernel's entry point, its workspace-size query and its
-    build record; built on first call."""
-    lib, info = load_library([BWD_SOURCE], "fused_lstm_bwd")
+def bwd_kernel_library(form: int = 0):
+    """The backward kernel's entry point of ``form``, its workspace-size
+    query and its build record; built on first call."""
+    lib, info = _library(BWD_SOURCE, "fused_lstm_bwd", form)
     fn = lib.stmgcn_lstm_bwd
-    fn.argtypes = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     workspace = lib.stmgcn_lstm_bwd_workspace
-    workspace.argtypes = [ctypes.c_int] * 5
+    workspace.argtypes = [ctypes.c_int] * 6
     workspace.restype = ctypes.c_size_t
     return fn, workspace, info
 
 
 def kernel_resources(L: int, H: int, dtype=torch.float32) -> dict:
     """Rows per CTA and dynamic shared memory (bytes) per CTA of each LSTM
-    kernel at ``(L, H)`` and storage ``dtype``, as the built libraries
-    report them (builds them on first call)."""
-    fwd = load_library([SOURCE], "fused_lstm_fwd")[0]
-    bwd = load_library([BWD_SOURCE], "fused_lstm_bwd")[0]
+    kernel at ``(L, H)`` and storage ``dtype`` (``"xla"`` for the xla
+    form), as the built libraries report them (builds them on first
+    call)."""
+    form = 2 if dtype == "xla" else int(dtype == torch.bfloat16)
+    fwd, bwd = _library(SOURCE, "fused_lstm_fwd", form)[0], _library(
+        BWD_SOURCE, "fused_lstm_bwd", form)[0]
     for f in (fwd.stmgcn_lstm_fwd_smem, fwd.stmgcn_lstm_block_rows, bwd.stmgcn_lstm_bwd_smem):
         f.restype = ctypes.c_int
-    bf16 = int(dtype == torch.bfloat16)
     return {
         "block_rows": fwd.stmgcn_lstm_block_rows(H),
-        "lstm_fwd_kernel": fwd.stmgcn_lstm_fwd_smem(L, H, bf16),
-        "lstm_bwd_sweep": bwd.stmgcn_lstm_bwd_smem(L, H, bf16),
-        "lstm_bwd_wgrad": bwd.stmgcn_lstm_bwd_smem(0, H, bf16),
+        "lstm_fwd_kernel": fwd.stmgcn_lstm_fwd_smem(L, H, form),
+        "lstm_bwd_sweep": bwd.stmgcn_lstm_bwd_smem(L, H, form),
+        "lstm_bwd_wgrad": bwd.stmgcn_lstm_bwd_smem(0, H, form),
     }
 
 
-def _storage(name, operands) -> torch.dtype:
+def _storage(name, operands, products=None) -> torch.dtype:
     """The one storage dtype of ``operands``: float32 or bfloat16, raising
     on mixed dtypes (which the JAX package never hands its kernel) on every
-    device."""
+    device. The xla form (``products=torch.bfloat16``) stores in float32:
+    every operand float32 but the weights (operands 1 and 2) and biases
+    (operand 3), which may be the float32 masters or a bf16 shadow (the
+    stochastically rounded parameters)."""
+    if products is not None and products != operands[0].dtype:  # the xla form
+        kinds = {torch.float32, torch.bfloat16}
+        if (products != torch.bfloat16 or operands[0].dtype != torch.float32
+                or any(t.dtype != torch.float32 for t in operands[4:])
+                or not {t.dtype for t in operands[1:4]} <= kinds):
+            raise TypeError(f"{name}: the xla form (products={products}) takes float32 "
+                            "operands, the weights and biases float32 or bfloat16, got "
+                            f"{[str(t.dtype) for t in operands]}")
+        return torch.float32
     dtypes = {t.dtype for t in operands}
     if len(dtypes) != 1 or not dtypes <= {torch.float32, torch.bfloat16}:
         raise TypeError(f"{name}: operands must all be float32 or all bfloat16, got "
                         f"{[str(t.dtype) for t in operands]}")
     return dtypes.pop()
+
+
+def _form(sd: torch.dtype, products) -> int:
+    """The kernels' form code: 0 fp32, 1 bf16 storage, 2 the xla form."""
+    if products == torch.bfloat16 and sd == torch.float32:
+        return 2
+    return int(sd == torch.bfloat16)
+
+
+def _kernel_operands(name, operands, form):
+    """Whether ``operands`` lie on a CUDA device (:func:`~stmgcn_tpu_torch.
+    ops._build.on_cuda`'s rules), and on one, the operands as the kernel of
+    ``form`` reads them (the xla form: weights in bf16, biases in
+    float32)."""
+    if form != 2:
+        return operands, on_cuda(name, operands)
+    x_proj0, wh, wx, b, *rest = operands
+    if not on_cuda(name, (x_proj0, *rest)):  # the float32 operands
+        return operands, False
+    if any(t.device != x_proj0.device for t in (wh, wx, b)):
+        raise ValueError(f"{name}: operands must all be on one CUDA device")
+    bf16 = torch.bfloat16
+    return (x_proj0, wh.to(bf16), wx.to(bf16), b.float().contiguous(), *rest), True
+
+
+def _bf16r(t):
+    """``t`` rounded to bf16 and read back as float32 (a JAX
+    ``astype(bf16)`` seen from the float32 side)."""
+    return t.to(torch.bfloat16).float()
 
 
 def _mm(a, w):
@@ -184,25 +237,27 @@ def _check_shapes(x_proj0, wh_stack, wx_stack, b_stack):
     return lead, R, T, L, H
 
 
-def fused_lstm_reference(x_proj0, wh_stack, wx_stack, b_stack, *, with_residuals=False):
+def fused_lstm_reference(x_proj0, wh_stack, wx_stack, b_stack, *, with_residuals=False,
+                         products=None):
     """Plain PyTorch version of :func:`fused_lstm`: a Python loop over t and
-    layers with ``torch.matmul``, same arguments, same outputs, at either
-    storage dtype (the module docstring's rounding sites)."""
+    layers with ``torch.matmul``, same arguments, same outputs, in every
+    form (the module docstring's rounding sites; the xla form's from the
+    JAX layered scan)."""
     lead, R, T, L, H = _check_shapes(x_proj0, wh_stack, wx_stack, b_stack)
-    sd = _storage("fused_lstm", (x_proj0, wh_stack, wx_stack, b_stack))
+    sd = _storage("fused_lstm", (x_proj0, wh_stack, wx_stack, b_stack), products)
     f32 = torch.float32
+    xla = _form(sd, products) == 2
+    if xla:
+        wh_stack, wx_stack = wh_stack.to(products), wx_stack.to(products)
+        b_stack = b_stack.float()
     wh0, wxh = pack_weights(wh_stack, wx_stack)
     h = [x_proj0.new_zeros(lead + (R, H), dtype=f32) for _ in range(L)]
     c = [x_proj0.new_zeros(lead + (R, H), dtype=f32) for _ in range(L)]
     outs, hseq, cseq = [], [], []
     for t in range(T):
         for layer in range(L):
-            if layer == 0:
-                pre = x_proj0[..., t, :].to(f32) + _mm(h[0], wh0)
-            else:
-                hcat = torch.cat([h[layer - 1], h[layer]], dim=-1)
-                pre = (_mm(hcat, wxh[..., layer - 1, :, :])
-                       + b_stack[..., layer - 1 : layer, :].to(f32))
+            pre = _pre(x_proj0, wh0, wxh, b_stack, h[layer - 1] if layer else None,
+                       h[layer], t, layer, xla)
             i, f, g, o = pre.chunk(4, dim=-1)
             c[layer] = torch.sigmoid(f) * c[layer] + torch.sigmoid(i) * torch.tanh(g)
             h[layer] = torch.sigmoid(o) * torch.tanh(c[layer])
@@ -214,6 +269,20 @@ def fused_lstm_reference(x_proj0, wh_stack, wx_stack, b_stack, *, with_residuals
     if with_residuals:
         result += (torch.stack(hseq, dim=-4), torch.stack(cseq, dim=-4))
     return tuple(r.to(sd) for r in result)
+
+
+def _pre(x_proj0, wh0, wxh, b_stack, h_below, h_prev, t, layer, xla):
+    """Step t's pre-activations of ``layer`` in float32: layer 0 adds its
+    recurrent product to ``x_proj0``; a layer >= 1 contracts ``[h_below,
+    h_prev]`` with its packed weight and adds its bias, in the xla form in
+    the JAX scan's order ``(h_below @ wx + b) + h_prev @ wh``."""
+    if layer == 0:
+        return x_proj0[..., t, :].float() + _mm(h_prev, wh0)
+    w, b = wxh[..., layer - 1, :, :], b_stack[..., layer - 1 : layer, :].float()
+    if xla:
+        H = h_prev.shape[-1]
+        return (_mm(h_below, w[..., :H, :]) + b) + _mm(h_prev, w[..., H:, :])
+    return _mm(torch.cat([h_below, h_prev], dim=-1), w) + b
 
 
 def _kernel_shapes(name, operands):
@@ -228,7 +297,8 @@ def _kernel_shapes(name, operands):
     return lead, math.prod(lead), R, T, L, H
 
 
-def fused_lstm(x_proj0, wh_stack, wx_stack, b_stack, *, with_residuals=False):
+def fused_lstm(x_proj0, wh_stack, wx_stack, b_stack, *, with_residuals=False,
+               products=None):
     """Run the fused recurrence from zero initial state.
 
     Args:
@@ -244,6 +314,9 @@ def fused_lstm(x_proj0, wh_stack, wx_stack, b_stack, *, with_residuals=False):
     R, H))``, plus ``(hseq, cseq)`` with ``with_residuals``.
 
     Outputs are in the operands' storage dtype (float32 or bfloat16).
+    ``products=torch.bfloat16`` over float32 operands is the xla form (the
+    module docstring): the weights are rounded to bf16, every output and
+    residual stays float32.
 
     On CPU tensors this is :func:`fused_lstm_reference`. On CUDA tensors it
     launches the kernel of the storage dtype on the current stream (no
@@ -252,9 +325,13 @@ def fused_lstm(x_proj0, wh_stack, wx_stack, b_stack, *, with_residuals=False):
     outside ``KERNEL_HIDDEN``, more than ``KERNEL_MAX_LAYERS`` layers.
     """
     operands = (x_proj0, wh_stack, wx_stack, b_stack)
-    sd = _storage("fused_lstm", operands)
-    if not on_cuda("fused_lstm", operands):
-        return fused_lstm_reference(*operands, with_residuals=with_residuals)
+    sd = _storage("fused_lstm", operands, products)
+    form = _form(sd, products)
+    (x_proj0, wh_stack, wx_stack, b_stack), cuda = _kernel_operands("fused_lstm", operands,
+                                                                    form)
+    if not cuda:
+        return fused_lstm_reference(*operands, with_residuals=with_residuals,
+                                    products=products)
     lead, M, R, T, L, H = _kernel_shapes("fused_lstm", operands)
     device = x_proj0.device
     wh0, wxh = pack_weights(wh_stack, wx_stack)
@@ -267,7 +344,7 @@ def fused_lstm(x_proj0, wh_stack, wx_stack, b_stack, *, with_residuals=False):
     if with_residuals:
         hseq = torch.empty(lead + (T, L, R, H), device=device, dtype=sd)
         cseq = torch.empty_like(hseq)
-    fn, _ = kernel_library()
+    fn, _ = kernel_library(form)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = fn(
@@ -275,17 +352,21 @@ def fused_lstm(x_proj0, wh_stack, wx_stack, b_stack, *, with_residuals=False):
             out.data_ptr(), h_fin.data_ptr(), c_fin.data_ptr(),
             hseq.data_ptr() if hseq is not None else None,
             cseq.data_ptr() if cseq is not None else None,
-            M, R, T, L, H, int(sd == torch.bfloat16), stream,
+            M, R, T, L, H, form, stream,
         )
     if err != 0:
         raise RuntimeError(f"fused_lstm: kernel launch failed with cudaError {err}")
     counters.bump(fused_lstm)
+    if form == 2:
+        counters.bump(fused_lstm, "launches_xla")
     result = (out, h_fin, c_fin)
     return result + (hseq, cseq) if with_residuals else result
 
 
-#: kernel launches since the last reset (set to 0 to start a count)
+#: kernel launches since the last reset (set to 0 to start a count), and
+#: those of them in the xla form
 fused_lstm.launches = 0
+fused_lstm.launches_xla = 0
 
 
 def _cotangents(x_proj0, L, g_out, g_hfin, g_cfin):
@@ -306,16 +387,23 @@ def _cotangents(x_proj0, L, g_out, g_hfin, g_cfin):
 
 
 def fused_lstm_bwd_reference(x_proj0, wh_stack, wx_stack, b_stack, hseq, cseq,
-                             g_out, g_hfin, g_cfin):
+                             g_out, g_hfin, g_cfin, *, products=None, round_wx_steps=False):
     """Plain PyTorch version of :func:`fused_lstm_bwd`: the reverse sweep of
     ``_bwd_kernel`` as a Python loop over t and layers with ``torch.matmul``
     — recompute each step's pre-activations from the saved h/c, form the
     gate cotangents, carry dh/dc back — with the same arguments and the same
-    packed outputs, at either storage dtype (the module docstring's
-    rounding sites; the weight gradients are float32 sums)."""
+    packed outputs, in every form (the module docstring's rounding sites;
+    the weight gradients are float32 sums, or bf16 sums in the xla form
+    over bf16 weights)."""
     lead, R, T, L, H = _check_shapes(x_proj0, wh_stack, wx_stack, b_stack)
-    sd = _storage("fused_lstm_bwd", (x_proj0, wh_stack, wx_stack, b_stack, hseq, cseq))
+    sd = _storage("fused_lstm_bwd", (x_proj0, wh_stack, wx_stack, b_stack, hseq, cseq),
+                  products)
     g_out, g_hfin, g_cfin = _cotangents(x_proj0, L, g_out, g_hfin, g_cfin)
+    xla = _form(sd, products) == 2
+    carry = xla and wh_stack.dtype == torch.bfloat16  # the scan's bf16 carries
+    if xla:
+        wh_stack, wx_stack = wh_stack.to(products), wx_stack.to(products)
+        b_stack = b_stack.float()
     wh0, wxh = pack_weights(wh_stack, wx_stack)
     if sd != torch.float32:  # residuals, operands and cotangents read as fp32
         x_proj0, b_stack, hseq, cseq, g_out, g_hfin, g_cfin = (
@@ -334,12 +422,9 @@ def fused_lstm_bwd_reference(x_proj0, wh_stack, wx_stack, b_stack, hseq, cseq,
             h_prev = hseq[..., t - 1, layer, :, :] if t > 0 else zeros
             c_prev = cseq[..., t - 1, layer, :, :] if t > 0 else zeros
             c_t = cseq[..., t, layer, :, :]
-            if layer == 0:
-                hin = h_prev
-                pre = x_proj0[..., t, :] + _mm(h_prev, wh0)
-            else:
-                hin = torch.cat([hseq[..., t, layer - 1, :, :], h_prev], dim=-1)
-                pre = _mm(hin, wxh[..., layer - 1, :, :]) + b_stack[..., layer - 1 : layer, :]
+            h_below = hseq[..., t, layer - 1, :, :] if layer else None
+            hin = h_prev if layer == 0 else torch.cat([h_below, h_prev], dim=-1)
+            pre = _pre(x_proj0, wh0, wxh, b_stack, h_below, h_prev, t, layer, xla)
             i, f, g, o = (act(p) for act, p in zip(
                 (torch.sigmoid, torch.sigmoid, torch.tanh, torch.sigmoid), pre.chunk(4, dim=-1)))
             tc = torch.tanh(c_t)
@@ -352,6 +437,14 @@ def fused_lstm_bwd_reference(x_proj0, wh_stack, wx_stack, b_stack, hseq, cseq,
                 d_o * o * (1.0 - o),
             ], dim=-1)
             dc[layer] = dct * f
+            if xla:
+                _xla_step_grads(dgates, hin, wh0, wxh, layer, H, round_wx_steps, carry,
+                                dh, dwxh, db)
+                if layer == 0:
+                    dwh0 = _carry(dwh0 + _bf16r(_bf16r(hin).transpose(-1, -2) @ dgates),
+                                  carry)
+                    dxp[t] = dgates
+                continue
             # dW: bf16(hin)^T bf16(dgates) in fp32 (hin is bf16 already)
             dg_w = dgates if sd == torch.float32 else dgates.to(sd).float()
             if layer == 0:
@@ -368,8 +461,47 @@ def fused_lstm_bwd_reference(x_proj0, wh_stack, wx_stack, b_stack, hseq, cseq,
             torch.stack(db, dim=-2))
 
 
+def _carry(total, bf16: bool):
+    """A running weight-gradient sum over steps: the JAX scan's carry, a
+    float32 one over float32 masters, a bf16 one over a bf16 shadow."""
+    return _bf16r(total) if bf16 else total
+
+
+def _xla_step_grads(dgates, hin, wh0, wxh, layer, H, round_wx_steps, carry, dh, dwxh, db):
+    """One (step, layer) of the xla form's backward, as ``jax.grad`` of the
+    JAX scan rounds it: each product's h cotangent, a float32 product of
+    the unrounded dgates, rounded to bf16 (the transpose of the operand's
+    ``astype(bf16)``); a layer >= 1's recurrent weight partial rounded to
+    bf16, its input-weight partial too with ``round_wx_steps``, its bias
+    partial a float32 sum, rounded too when the fused scan's bias is a bf16
+    shadow. ``carry``: the weights are a bf16 shadow, so the per-step
+    rounded sums run in bf16 (:func:`_carry`). Updates ``dh``, ``dwxh`` and
+    ``db`` in place (layer 0's dW and dxp are the caller's)."""
+    if layer == 0:
+        dh[0] = _bf16r(dgates @ wh0.float().transpose(-1, -2))
+        return
+    w = wxh[..., layer - 1, :, :].float()
+    dh[layer - 1] = dh[layer - 1] + _bf16r(dgates @ w[..., :H, :].transpose(-1, -2))
+    dh[layer] = _bf16r(dgates @ w[..., H:, :].transpose(-1, -2))
+    hb = _bf16r(hin)
+    d_wx = hb[..., :H].transpose(-1, -2) @ dgates
+    d_wh = _bf16r(hb[..., H:].transpose(-1, -2) @ dgates)
+    if round_wx_steps:
+        d_wx = _carry(dwxh[layer - 1][..., :H, :] + _bf16r(d_wx), carry)
+    else:
+        d_wx = dwxh[layer - 1][..., :H, :] + d_wx
+    d_wh = _carry(dwxh[layer - 1][..., H:, :] + d_wh, carry)
+    dwxh[layer - 1] = torch.cat([d_wx, d_wh], dim=-2)
+    d_b = dgates.sum(dim=-2)
+    if round_wx_steps and carry:
+        db[layer - 1] = _bf16r(db[layer - 1] + _bf16r(d_b))
+    else:
+        db[layer - 1] = db[layer - 1] + d_b
+
+
 def fused_lstm_bwd(x_proj0, wh_stack, wx_stack, b_stack, hseq, cseq,
-                   g_out=None, g_hfin=None, g_cfin=None):
+                   g_out=None, g_hfin=None, g_cfin=None, *, products=None,
+                   round_wx_steps=False):
     """Backward of :func:`fused_lstm`: the reverse sweep over its saved
     per-step states.
 
@@ -383,7 +515,9 @@ def fused_lstm_bwd(x_proj0, wh_stack, wx_stack, b_stack, hseq, cseq,
     4H)``, ``dwxh ([M,] max(L-1, 1), 2H, 4H)`` and ``db ([M,] max(L-1, 1),
     4H)`` (the last two zeros when L == 1); :func:`unpack_weight_grads`
     turns them into per-stack gradients. The cotangents are read in the
-    storage dtype (cast as ``_fused_bwd`` casts them).
+    storage dtype (cast as ``_fused_bwd`` casts them). ``products`` as
+    :func:`fused_lstm`'s; ``round_wx_steps`` (xla form) rounds each step's
+    input-weight partial to bf16, as the JAX fused scan does.
 
     On CPU tensors this is :func:`fused_lstm_bwd_reference`. On CUDA
     tensors it launches ``csrc/fused_lstm_bwd.cu`` on the current stream,
@@ -392,11 +526,17 @@ def fused_lstm_bwd(x_proj0, wh_stack, wx_stack, b_stack, hseq, cseq,
     fixed summation order.
     """
     L = wh_stack.shape[-3]
-    sd = _storage("fused_lstm_bwd", (x_proj0, wh_stack, wx_stack, b_stack, hseq, cseq))
+    sd = _storage("fused_lstm_bwd", (x_proj0, wh_stack, wx_stack, b_stack, hseq, cseq),
+                  products)
     g_out, g_hfin, g_cfin = _cotangents(x_proj0, L, g_out, g_hfin, g_cfin)
     operands = (x_proj0, wh_stack, wx_stack, b_stack, hseq, cseq, g_out, g_hfin, g_cfin)
-    if not on_cuda("fused_lstm_bwd", operands):
-        return fused_lstm_bwd_reference(*operands)
+    form = _form(sd, products)
+    carry = form == 2 and wh_stack.dtype == torch.bfloat16
+    kernel_ops, cuda = _kernel_operands("fused_lstm_bwd", operands, form)
+    if not cuda:
+        return fused_lstm_bwd_reference(*operands, products=products,
+                                        round_wx_steps=round_wx_steps)
+    operands = kernel_ops
     lead, M, R, T, L, H = _kernel_shapes("fused_lstm_bwd", operands)
     want = {"hseq": lead + (T, L, R, H), "cseq": lead + (T, L, R, H),
             "g_out": lead + (R, T, H), "g_hfin": lead + (L, R, H), "g_cfin": lead + (L, R, H)}
@@ -404,31 +544,37 @@ def fused_lstm_bwd(x_proj0, wh_stack, wx_stack, b_stack, hseq, cseq,
         if tuple(t.shape) != want[name]:
             raise ValueError(f"fused_lstm_bwd: {name} must be {want[name]}, got {tuple(t.shape)}")
     device = x_proj0.device
+    x_proj0, wh_stack, wx_stack, b_stack = operands[:4]
     wh0, wxh = pack_weights(wh_stack, wx_stack)
     wh0, wxh = wh0.contiguous(), wxh.contiguous()
     _check_aligned("fused_lstm_bwd", (wh0, wxh, hseq), (x_proj0, b_stack) + operands[5:])
-    fn, workspace_floats, _ = bwd_kernel_library()
+    fn, workspace_floats, _ = bwd_kernel_library(form)
     dxp = torch.empty_like(x_proj0)
     dwh0 = torch.empty_like(wh0, dtype=torch.float32)
     new = torch.empty if L > 1 else torch.zeros  # L == 1: unwritten placeholders
     dwxh = new(wxh.shape, device=device, dtype=torch.float32)
     db = new(b_stack.shape, device=device, dtype=torch.float32)
-    work = torch.empty(workspace_floats(M, R, T, L, H), device=device, dtype=torch.float32)
+    work = torch.empty(workspace_floats(M, R, T, L, H, form), device=device,
+                       dtype=torch.float32)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = fn(
             *(t.data_ptr() for t in (x_proj0, wh0, wxh, b_stack, hseq, cseq,
                                      g_out, g_hfin, g_cfin, dxp, dwh0, dwxh, db, work)),
-            M, R, T, L, H, int(sd == torch.bfloat16), stream,
+            M, R, T, L, H, form, int(bool(round_wx_steps)) | (2 * int(carry)), stream,
         )
     if err != 0:
         raise RuntimeError(f"fused_lstm_bwd: kernel launch failed with cudaError {err}")
     counters.bump(fused_lstm_bwd)
+    if form == 2:
+        counters.bump(fused_lstm_bwd, "launches_xla")
     return dxp, dwh0, dwxh, db
 
 
-#: kernel launches since the last reset (set to 0 to start a count)
+#: kernel launches since the last reset (set to 0 to start a count), and
+#: those of them in the xla form
 fused_lstm_bwd.launches = 0
+fused_lstm_bwd.launches_xla = 0
 
 
 def unpack_weight_grads(dwh0, dwxh, wh_stack, wx_stack):
@@ -447,15 +593,18 @@ class FusedLSTM(torch.autograd.Function):
     """:func:`fused_lstm` with :func:`fused_lstm_bwd` as its backward: the
     forward keeps the residuals the backward reads (``x_proj0``, the
     weights, ``hseq``, ``cseq``); the float32 weight gradients are rounded
-    to the weights' dtype, as ``_fused_bwd`` rounds them. Use
+    to the weights' dtype, as ``_fused_bwd`` rounds them (in the xla form
+    the weights are the float32 masters, so they are not rounded). Use
     :func:`fused_lstm_autograd`, which takes this route only when a
     gradient is wanted."""
 
     @staticmethod
-    def forward(ctx, x_proj0, wh_stack, wx_stack, b_stack):
+    def forward(ctx, x_proj0, wh_stack, wx_stack, b_stack, products=None,
+                round_wx_steps=False):
         out, h_fin, c_fin, hseq, cseq = fused_lstm(
-            x_proj0, wh_stack, wx_stack, b_stack, with_residuals=True)
+            x_proj0, wh_stack, wx_stack, b_stack, with_residuals=True, products=products)
         ctx.save_for_backward(x_proj0, wh_stack, wx_stack, b_stack, hseq, cseq)
+        ctx.products, ctx.round_wx_steps = products, round_wx_steps
         return out, h_fin, c_fin
 
     @staticmethod
@@ -467,9 +616,11 @@ class FusedLSTM(torch.autograd.Function):
 
         dxp, dwh0, dwxh, db = fused_lstm_bwd(
             x_proj0, wh_stack, wx_stack, b_stack, hseq, cseq,
-            dense(g_out), dense(g_hfin), dense(g_cfin))
+            dense(g_out), dense(g_hfin), dense(g_cfin), products=ctx.products,
+            round_wx_steps=ctx.round_wx_steps)
         dwh, dwx = unpack_weight_grads(dwh0, dwxh, wh_stack, wx_stack)
-        return dxp, dwh.to(wh_stack.dtype), dwx.to(wx_stack.dtype), db.to(b_stack.dtype)
+        return (dxp, dwh.to(wh_stack.dtype), dwx.to(wx_stack.dtype), db.to(b_stack.dtype),
+                None, None)
 
 
 def kernel_width(H: int) -> int:
@@ -509,7 +660,8 @@ def _group_operands(xp, wh_stack, wx_stack, b_stack, g0: int, g1: int):
     return xp, wh, wx, b
 
 
-def fused_lstm_autograd(x_proj0, wh_stack, wx_stack, b_stack):
+def fused_lstm_autograd(x_proj0, wh_stack, wx_stack, b_stack, *, products=None,
+                        round_wx_steps=False):
     """:func:`fused_lstm` for a model, at any ``H >= 1`` and ``L >= 1``:
     through :class:`FusedLSTM` (residuals kept, backward kernel on
     ``.backward()``) when grad is enabled and an operand requires it;
@@ -536,8 +688,12 @@ def fused_lstm_autograd(x_proj0, wh_stack, wx_stack, b_stack):
       group's top-h cotangent. In bfloat16 that projection sums in float32
       and is rounded once to bf16, the chained group's storage: a rounding
       the JAX kernel, which runs all layers in one launch, does not make.
+      In the xla form it is the JAX layered scan's own hoisted projection,
+      bf16 operands and a float32 result (under ``round_wx_steps`` that
+      layer's input-weight gradient is then rounded once, not per step).
 
-    Padding is exact in bfloat16 too (zeros are exact).
+    Padding is exact in bfloat16 too (zeros are exact). ``products`` and
+    ``round_wx_steps`` as :func:`fused_lstm_bwd`'s.
     """
     operands = (x_proj0, wh_stack, wx_stack, b_stack)
     lead, R, T, L, H = _check_shapes(*operands)
@@ -547,12 +703,20 @@ def fused_lstm_autograd(x_proj0, wh_stack, wx_stack, b_stack):
         wh_stack, wx_stack = _pad_weights(wh_stack, H, Hk), _pad_weights(wx_stack, H, Hk)
         b_stack = _pad_gates(b_stack, H, Hk)
     grad = torch.is_grad_enabled() and any(t.requires_grad for t in operands)
-    launch = FusedLSTM.apply if grad else fused_lstm
+    if grad:
+        def launch(*ops):
+            return FusedLSTM.apply(*ops, products, round_wx_steps)
+    else:
+        def launch(*ops):
+            return fused_lstm(*ops, products=products)
     xp, h_fins, c_fins = x_proj0.contiguous(), [], []
     for g0 in range(0, L, KERNEL_MAX_LAYERS):
         if g0:
             w, b = wx_stack[..., g0 - 1, :, :], b_stack[..., g0 - 1, :]
-            if hs_top.dtype == torch.float32:
+            if products is not None and products != hs_top.dtype:  # the xla form
+                xp = (_bf16r(hs_top) @ _bf16r(w).unsqueeze(-3)
+                      + b[..., None, None, :]).contiguous()
+            elif hs_top.dtype == torch.float32:
                 xp = (hs_top @ w.unsqueeze(-3) + b[..., None, None, :]).contiguous()
             else:  # fp32 sum of exact bf16 products, rounded once
                 xp = (hs_top.float() @ w.float().unsqueeze(-3)

@@ -22,15 +22,28 @@ Two routes, chosen by where the input lives and the compute dtype:
 - float32 CPU tensors take the layered path: per layer, the hoisted
   input projection, then a Python loop over t of ``h @ wh``.
 
-Under a bf16 compute dtype the route follows the JAX ``_pallas`` path at
-``dtype=bfloat16`` on both devices, so the CPU tests hold the function the
-card runs (the kernels' plain versions on the CPU): ``_collect_params``
-rounds x and every weight and bias to bf16, ``x_proj0 = x @ wx_0 + b_0``
-is a bf16 tensor (the product rounded, then the bias add rounded), and the
-kernels store in bf16 (``ops/fused_lstm.py``).
+Under a bf16 compute dtype the route takes the kernel route on both
+devices, so the CPU tests hold the function the card runs (the kernels'
+plain versions on the CPU), in the form ``backend`` names, as the JAX
+``StackedLSTM``'s ``backend`` does:
 
-The XLA schedule knobs (``fused_scan``, ``unroll``, ``remat``) have no
-counterpart.
+- ``"xla"`` (the default, as in the JAX package): the JAX scan paths at
+  ``dtype=bfloat16``. ``x_proj0 = bf16(x) @ bf16(wx_0) + b_0`` is float32
+  (an f32 product of exact bf16 values), the states and ``hs_top`` stay
+  float32, and each product rounds its operands to bf16 (the kernels' xla
+  form, ``ops/fused_lstm.py``). ``fused_scan`` picks the schedule's
+  rounding: the layered scan (False) rounds every bias through bf16 and
+  each layer's input weight as a whole (its gradient rounded once, through
+  autograd's casts here); the fused scan (True) adds the float32 bias
+  masters and rounds each step's input-weight gradient (in the kernel).
+- ``"pallas"``: the JAX ``_pallas`` path: ``_collect_params`` rounds x and
+  every weight and bias to bf16, ``x_proj0 = x @ wx_0 + b_0`` is a bf16
+  tensor (the product rounded, then the bias add rounded), and the kernels
+  store in bf16.
+
+At float32 both backends and both schedules are one function (the JAX
+backends agree to float32 rounding), and run the same kernels. The JAX
+``unroll`` and ``remat`` schedules have no counterpart.
 """
 
 from __future__ import annotations
@@ -64,11 +77,17 @@ class StackedLSTM(nn.Module):
     a list of per-layer ``(h, c)`` pairs."""
 
     def __init__(self, in_features: int, hidden_dim: int, num_layers: int = 1, *,
+                 backend: str = "xla", fused_scan: bool = False,
                  branches: Optional[int] = None, device=None, generator=None):
         super().__init__()
+        if backend not in ("xla", "pallas"):
+            raise ValueError(f"backend must be xla|pallas, got {backend!r}")
         self.hidden_dim = hidden_dim
         self.num_layers = num_layers
         self.branches = branches
+        #: the bf16 form (module docstring); read at every forward
+        self.backend = backend
+        self.fused_scan = fused_scan
         self.compute_dtype: Optional[torch.dtype] = None
         lead = () if branches is None else (branches,)
         h4 = 4 * hidden_dim
@@ -114,6 +133,8 @@ class StackedLSTM(nn.Module):
         """Kernel route: hoisted layer-0 projection + one fused launch per
         group of up to four layers (and as many backward launches under
         autograd)."""
+        if self.compute_dtype is not None and self.backend == "xla":
+            return self._fused_xla(x)
         L, h4 = self.num_layers, 4 * self.hidden_dim
         # _collect_params: x and every parameter in the compute dtype
         params = [promote_dtype(self.compute_dtype, *self.layer_params(layer))
@@ -131,5 +152,39 @@ class StackedLSTM(nn.Module):
             wx_stack = x_proj0.new_zeros(lead + (1, self.hidden_dim, h4))
             b_stack = x_proj0.new_zeros(lead + (1, h4))
         hs_top, h_fin, c_fin = fused_lstm_autograd(x_proj0, wh_stack, wx_stack, b_stack)
+        return hs_top, [(h_fin[..., layer, :, :], c_fin[..., layer, :, :])
+                        for layer in range(L)]
+
+    def _fused_xla(self, x: torch.Tensor):
+        """The kernel route in the xla form (module docstring). Each
+        ``astype(bf16)`` of the JAX scan is a round trip through bf16 here,
+        whose autograd rounds the cotangent as the cast's transpose does.
+        The parameters may be a bf16 shadow (stochastic rounding), as the
+        JAX scan then closes over bf16 weights: their gradients come back in
+        bf16, summed over the steps in bf16 as the scan's carries sum them
+        (``ops/fused_lstm.py``)."""
+        L, h4, cdt = self.num_layers, 4 * self.hidden_dim, self.compute_dtype
+
+        def rnd(t):
+            return t.to(cdt).float()
+
+        bias = (lambda b: b) if self.fused_scan else rnd
+        wx0, _, b0 = self.layer_params(0)
+        xb = rnd(x)
+        x_proj0 = xb @ rnd(wx0).unsqueeze(-3) if self.branches else xb @ rnd(wx0)
+        x_proj0 = (x_proj0 + branch_view(bias(b0), self.branches, 2)).contiguous()
+        wh_stack = torch.stack([self.layer_params(layer)[1] for layer in range(L)], dim=-3)
+        if L > 1:
+            wx = [self.layer_params(layer)[0] for layer in range(1, L)]
+            wx_stack = torch.stack(wx if self.fused_scan else [rnd(w) for w in wx], dim=-3)
+            b_stack = torch.stack([bias(self.layer_params(layer)[2]) for layer in range(1, L)],
+                                  dim=-2)
+        else:  # never-read placeholder: the kernel operand can't be empty
+            lead = x_proj0.shape[:-3]
+            wx_stack = wh_stack.new_zeros(lead + (1, self.hidden_dim, h4))
+            b_stack = x_proj0.new_zeros(lead + (1, h4))
+        hs_top, h_fin, c_fin = fused_lstm_autograd(
+            x_proj0, wh_stack, wx_stack, b_stack, products=cdt,
+            round_wx_steps=self.fused_scan)
         return hs_top, [(h_fin[..., layer, :, :], c_fin[..., layer, :, :])
                         for layer in range(L)]

@@ -44,6 +44,11 @@ saturation triggers a dispatch — intermediate arrivals just enqueue),
 and results scatter back to callers as numpy *views* of the batched
 output — zero-copy. A single request whose rows exactly fill a rung is
 passed through to the dispatch without a pad copy at all.
+
+With tracing on (:mod:`~stmgcn_tpu_torch.obs.trace`), each admitted
+arrival records ``serve.admit`` and each dispatch ``serve.queue`` (one per
+coalesced request), ``serve.device`` and ``serve.scatter``, after the
+fact, as the JAX batcher does.
 """
 
 from __future__ import annotations
@@ -55,6 +60,7 @@ from typing import Callable, List, Optional
 
 import numpy as np
 
+from stmgcn_tpu_torch.obs import trace as obs_trace
 from stmgcn_tpu_torch.serving.admission import (
     BatcherWedged,
     DeadlineExceeded,
@@ -159,6 +165,9 @@ class MicroBatcher:
                 raise self._wedged_error()
             if adm is not None:
                 adm.admit(req.n, self._pending_rows)  # raises the typed shed
+            trc = obs_trace.active_tracer()
+            if trc is not None:  # submit -> admitted (lock wait, admission)
+                trc.record_span("serve.admit", req.t_enqueue, time.perf_counter())
             self._pending.append(req)
             self._pending_rows += req.n
             # wake the worker only when it can act: the first arrival
@@ -341,3 +350,14 @@ class MicroBatcher:
         device_ms = (t1 - t0) * 1e3
         queue_ms = [(t0 - req.t_enqueue) * 1e3 for req in batch]
         self._stats.record_dispatch(bucket, total, queue_ms, device_ms)
+        trc = obs_trace.active_tracer()
+        if trc is not None:
+            # per-dispatch spans after the fact: the dispatch hands back
+            # host numpy, so t1 is past the device's work; each coalesced
+            # request adds its own queue wait
+            t_end = time.perf_counter()
+            attrs = {"bucket": bucket, "rows": total, "requests": len(batch), "gen": info}
+            for req in batch:
+                trc.record_span("serve.queue", req.t_enqueue, t0)
+            trc.record_span("serve.device", t0, t1, attrs)
+            trc.record_span("serve.scatter", t1, t_end, attrs)

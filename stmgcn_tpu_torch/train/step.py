@@ -34,6 +34,23 @@ parameters and an :class:`Optimizer`, and a step runs eagerly:
   :meth:`Optimizer.apply` returns. It writes nothing the step reads, so the
   update is bit for bit the plain step's. The counts are exact in float32
   below 2^24 parameters.
+- **Sanitizers** (``checks``, the JAX ``CHECK_SETS``, ``step.py:296-309``,
+  ``:465-556``): the JAX package checkifies its jitted steps; a captured
+  program cannot raise part-way through, so a :class:`Sanitizer` computes
+  one int32 flag word per step inside the program, one bit per site of
+  :data:`CHECK_SITES`, which the trainer reads back with the losses and
+  raises on as :class:`CheckError` after the block, naming the check, the
+  step and the site. ``"nan"`` flags a NaN in the LSTM output, either
+  graph conv's output, the loss, the gradients or the updated parameters
+  (each a reduction; as JAX's ``nan_checks``, an Inf alone is no NaN);
+  ``"float"`` adds a zero loss denominator (JAX's ``float_checks``: nan
+  and division by zero, not index); ``"index"`` clamps an out-of-range
+  window index into range, as a JAX gather does, and flags it (a negative
+  index would wrap silently in PyTorch, one past the end trip a device
+  assert that kills the CUDA context); ``"all"`` is the three. The eval
+  forwards take the same checks. The flags write nothing the step reads,
+  so a clean checked step is bitwise the unchecked one, and with
+  ``checks=None`` no sanitizer op exists.
 """
 
 from __future__ import annotations
@@ -43,9 +60,13 @@ from typing import Callable, Optional
 
 import torch
 
+from stmgcn_tpu_torch.config import CHECKS
 from stmgcn_tpu_torch.models.params import compute_cast, from_optax_state, to_optax_state
 
 __all__ = [
+    "CHECK_SETS",
+    "CHECK_SITES",
+    "CheckError",
     "HEALTH_COLUMNS",
     "LOSSES",
     "Optimizer",
@@ -57,6 +78,7 @@ __all__ = [
     "lr_schedule",
     "make_optimizer",
     "masked_loss",
+    "Sanitizer",
     "train_step",
 ]
 
@@ -64,6 +86,90 @@ LOSSES = ("mse", "mae", "huber")
 #: the leading columns of a health row (:func:`health_row`); the group
 #: norms follow in the groups' order
 HEALTH_COLUMNS = ("loss", "grad_norm", "update_ratio", "nonfinite_grads", "nonfinite_loss")
+#: the ``checks`` names (``stmgcn_tpu/train/step.py`` ``CHECK_SETS``)
+CHECK_SETS = CHECKS[1:]
+#: the sites a step's flag word names, bit i for site i, with its check
+#: kind, in the order a step reaches them: an error names the lowest set
+#: bit, the first site that went wrong
+CHECK_SITES = (("window index", "index"), ("LSTM output", "nan"),
+               ("graph conv output", "nan"), ("loss denominator", "div"), ("loss", "nan"),
+               ("gradients", "nan"), ("updated parameters", "nan"))
+_CHECK_KINDS = {"nan": ("nan",), "index": ("index",), "float": ("nan", "div"),
+                "all": ("nan", "div", "index")}
+_SITE_BIT = {site: bit for bit, (site, _) in enumerate(CHECK_SITES)}
+_SITE_TEXT = {"nan": "a NaN in the {site}", "div": "a zero {site}",
+              "index": "an out-of-range {site} (clamped)"}
+
+
+class CheckError(RuntimeError):
+    """A sanitizer's flag (``checks``): ``check`` (its name in
+    :data:`CHECK_SETS` terms: "nan", "div" or "index"), ``site`` (of
+    :data:`CHECK_SITES`) and ``where`` (the block and step)."""
+
+    def __init__(self, check: str, site: str, where: str):
+        self.check, self.site, self.where = check, site, where
+        super().__init__(f"{check} check failed at {where}: "
+                         + _SITE_TEXT[check].format(site=site))
+
+    @classmethod
+    def from_word(cls, word: int, where: str) -> "CheckError":
+        """The error of a nonzero flag word: its lowest set bit's site."""
+        bit = (word & -word).bit_length() - 1
+        site, check = CHECK_SITES[bit]
+        return cls(check, site, where)
+
+
+class Sanitizer:
+    """The in-program checks of one check set (``checks``, module
+    docstring): between :meth:`begin` and :meth:`end` every flag joins the
+    open step's int32 flag word on the device; outside them nothing is
+    computed. :meth:`watch` hooks a model's LSTMs and graph convs."""
+
+    def __init__(self, checks: str):
+        if checks not in CHECK_SETS:
+            raise ValueError(f"checks must be one of {CHECK_SETS}, got {checks!r}")
+        self.checks = checks
+        self.kinds = _CHECK_KINDS[checks]
+        self.word: Optional[torch.Tensor] = None
+
+    def begin(self, device) -> None:
+        self.word = torch.zeros((), dtype=torch.int32, device=device)
+
+    def end(self) -> torch.Tensor:
+        word, self.word = self.word, None
+        return word
+
+    def flag(self, site: str, bad: torch.Tensor) -> None:
+        """Set ``site``'s bit where the bool scalar ``bad`` holds (its kind
+        in this check set, a step open)."""
+        if self.word is None or CHECK_SITES[_SITE_BIT[site]][1] not in self.kinds:
+            return
+        self.word = torch.bitwise_or(self.word, bad.to(torch.int32) << _SITE_BIT[site])
+
+    def nan(self, site: str, tensor: torch.Tensor) -> None:
+        if self.word is not None and "nan" in self.kinds:
+            self.flag(site, torch.isnan(tensor).any())
+
+    def nan_all(self, site: str, tensors) -> None:
+        """One multi-tensor norm: a NaN anywhere makes their sum NaN."""
+        if self.word is not None and "nan" in self.kinds:
+            self.flag(site, torch.isnan(torch.stack(torch._foreach_norm(list(tensors))).sum()))
+
+    def watch(self, model) -> list:
+        """Forward hooks on ``model``'s LSTMs (their output sequence) and
+        graph convs (their output); returns the handles."""
+        from stmgcn_tpu_torch.ops.chebconv import ChebGraphConv
+        from stmgcn_tpu_torch.ops.lstm import StackedLSTM
+
+        handles = []
+        for module in model.modules():
+            if isinstance(module, StackedLSTM):
+                handles.append(module.register_forward_hook(
+                    lambda mod, args, out: self.nan("LSTM output", out[0])))
+            elif isinstance(module, ChebGraphConv):
+                handles.append(module.register_forward_hook(
+                    lambda mod, args, out: self.nan("graph conv output", out)))
+        return handles
 
 
 def lr_schedule(lr: float, schedule: str = "none", warmup_steps: int = 0,
@@ -282,10 +388,10 @@ def elementwise_loss(kind: str, pred: torch.Tensor, target: torch.Tensor) -> tor
 
 
 def masked_loss(kind: str, pred: torch.Tensor, y: torch.Tensor,
-                mask: torch.Tensor) -> torch.Tensor:
+                mask: torch.Tensor, sanitizer: Optional[Sanitizer] = None) -> torch.Tensor:
     """Mean loss over real elements. ``y`` is ``(B, N, C)`` or ``(B, H, N,
     C)``; ``mask`` is ``(B,)`` (per sample) or ``(B, N)`` (sample x real
-    node), 0/1."""
+    node), 0/1. ``sanitizer`` flags a zero denominator and a NaN loss."""
     err = elementwise_loss(kind, pred.float(), y.float())
     if mask.dim() == 1:
         w = mask.reshape(mask.shape + (1,) * (y.dim() - 1))
@@ -294,20 +400,47 @@ def masked_loss(kind: str, pred: torch.Tensor, y: torch.Tensor,
         w = mask[:, None, :, None] if y.dim() == 4 else mask[:, :, None]
         per_node = y.shape[-1] * (y.shape[1] if y.dim() == 4 else 1)
         denom = mask.sum() * per_node
-    return (err * w).sum() / denom
+    if sanitizer is None:
+        return (err * w).sum() / denom
+    sanitizer.flag("loss denominator", denom == 0)
+    value = (err * w).sum() / denom
+    sanitizer.nan("loss", value)
+    return value
 
 
-def gather_window_batch(series, targets, offsets, idx, horizon: int = 1):
+def gather_window_batch(series, targets, offsets, idx, horizon: int = 1,
+                        sanitizer: Optional[Sanitizer] = None):
     """A microbatch ``(x, y)`` from the resident series: ``x[b] =
     series[targets[idx[b]] + offsets]`` and ``y[b] = series[targets[idx[b]]
     (+ arange(horizon))]``. Pure index copies, so bit-identical to the
-    materialized windows."""
+    materialized windows. Under an ``"index"`` sanitizer every index is
+    clamped into range first, and one out of range is flagged."""
+    if sanitizer is not None and "index" in sanitizer.kinds:
+        return _checked_gather(series, targets, offsets, idx, horizon, sanitizer)
     tgt = targets.index_select(0, idx)
     x = series[tgt[:, None] + offsets[None, :]]
     if horizon == 1:
         return x, series[tgt]
     steps = torch.arange(horizon, device=tgt.device, dtype=tgt.dtype)
     return x, series[tgt[:, None] + steps[None, :]]
+
+
+def _checked_gather(series, targets, offsets, idx, horizon, sanitizer):
+    """:func:`gather_window_batch` with every index clamped, as a JAX gather
+    clamps, and the window-index flag set when one was out of range."""
+    n, T = targets.shape[0], series.shape[0]
+    steps = offsets[None, :] if horizon == 1 else torch.cat(
+        [offsets, torch.arange(horizon, device=offsets.device, dtype=offsets.dtype)])[None, :]
+    bad = ((idx < 0) | (idx >= n)).any()
+    tgt = targets.index_select(0, idx.clamp(0, n - 1))
+    pos = tgt[:, None] + steps
+    bad = bad | ((tgt < 0) | (tgt >= T)).any() | ((pos < 0) | (pos >= T)).any()
+    sanitizer.flag("window index", bad)
+    pos = pos.clamp(0, T - 1)
+    x = series[pos[:, :offsets.shape[0]]]
+    if horizon == 1:
+        return x, series[tgt.clamp(0, T - 1)]
+    return x, series[pos[:, offsets.shape[0]:]]
 
 
 def _member_norms(tensors, groups) -> list:
@@ -353,7 +486,8 @@ def health_row(loss: torch.Tensor, before: tuple, update, groups) -> torch.Tenso
 def train_step(model, optimizer: Optimizer, supports, x, y, mask,
                loss: str = "mse", sr_generator: Optional[torch.Generator] = None,
                n_real: Optional[torch.Tensor] = None,
-               scalars: Optional[torch.Tensor] = None, health=None):
+               scalars: Optional[torch.Tensor] = None, health=None,
+               sanitizer: Optional[Sanitizer] = None):
     """One optimizer step; returns the (device, detached) loss, unsynced.
     With ``sr_generator`` the model runs on a stochastically rounded bf16
     shadow of its parameters (``compute_cast``), drawn from it. With
@@ -368,17 +502,23 @@ def train_step(model, optimizer: Optimizer, supports, x, y, mask,
 
     With ``health`` (the parameters' groups, :func:`health_groups`) it
     returns ``(loss, health row)`` (:func:`health_row`) from the same
-    update."""
+    update. ``sanitizer`` (a step open on it) adds the step's flags: the
+    loss's, the gradients' and the updated parameters' here, the model's
+    through its hooks."""
     optimizer.zero_grad()
     if sr_generator is None:
         pred = model(supports, x, n_real)
     else:
         shadow = compute_cast(dict(model.named_parameters()), torch.bfloat16, sr_generator)
         pred = torch.func.functional_call(model, shadow, (supports, x, n_real))
-    value = masked_loss(loss, pred, y, mask)
+    value = masked_loss(loss, pred, y, mask, sanitizer)
     value.backward()
+    if sanitizer is not None:
+        sanitizer.nan_all("gradients", [p.grad for p in optimizer.params])
     before = None if health is None else _before_update(optimizer.params, health)
     update = optimizer.step() if scalars is None else optimizer.apply(scalars)
+    if sanitizer is not None:
+        sanitizer.nan_all("updated parameters", optimizer.params)
     if health is not None:
         return value.detach(), health_row(value, before, update, health)
     return value.detach()
@@ -386,8 +526,8 @@ def train_step(model, optimizer: Optimizer, supports, x, y, mask,
 
 @torch.no_grad()
 def eval_step(model, supports, x, y, mask, loss: str = "mse",
-              n_real: Optional[torch.Tensor] = None):
-    """``(loss, prediction)`` without gradients (``n_real`` as
-    :func:`train_step`'s)."""
+              n_real: Optional[torch.Tensor] = None, sanitizer: Optional[Sanitizer] = None):
+    """``(loss, prediction)`` without gradients (``n_real`` and
+    ``sanitizer`` as :func:`train_step`'s)."""
     pred = model(supports, x, n_real)
-    return masked_loss(loss, pred, y, mask), pred
+    return masked_loss(loss, pred, y, mask, sanitizer), pred

@@ -113,12 +113,35 @@ baseline into checkpoint meta. A twin captured after the first epoch counts
 as a recapture, as the JAX trainer's lazy health compile counts as a
 recompile.
 
+**Sanitizers** (``checks``, the JAX ``make_step_fns(checks=...)``): each
+step of a program computes its flag word (``train/step.py``
+:class:`~stmgcn_tpu_torch.train.step.Sanitizer`), read back with the
+block's losses as one more column; the first set bit raises
+:class:`~stmgcn_tpu_torch.train.step.CheckError` after the block, naming
+the check, the epoch, the step and the site. Evaluation forwards take the
+same checks, read back once per epoch. ``debug_nans`` (the CLI's
+``--debug-nans``, the JAX ``jax_debug_nans``) is a debug mode: the
+programs run eagerly (graphs off, logged), every module's output is held
+finite by a hook that raises ``FloatingPointError`` naming the module, and
+the epochs run under autograd's anomaly detection, which names the
+backward op that made a NaN.
+
+**Tracing** (:mod:`~stmgcn_tpu_torch.obs.trace`, the JAX trainer's spans,
+``trainer.py:756-797``, ``:1799-1876``, ``:2136-2143``, ``:2417``):
+``event.*`` marks, ``train.checkpoint``, per dispatch ``train.host_pack``,
+``train.upload`` (the program's static-input copy) and ``train.superstep``
+(to the readback, so past the device's work), ``train.epoch`` over
+``train.train_epoch`` and ``train.eval_epoch``, and ``train.test``; the
+tracer is read once per dispatch or epoch and nothing is recorded inside
+a program, so tracing changes no program.
+
 Not ported: streaming placement, materialized windows, node padding for
-meshes and meshes, and sanitizers.
+meshes and meshes.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import errno
 import itertools
@@ -143,6 +166,7 @@ from stmgcn_tpu_torch.models.params import (
     to_jax_params,
 )
 from stmgcn_tpu_torch.obs import graphmon
+from stmgcn_tpu_torch.obs import trace as obs_trace
 from stmgcn_tpu_torch.obs.health import HealthWriter, publish_train_health
 from stmgcn_tpu_torch.obs.registry import REGISTRY
 from stmgcn_tpu_torch.ops.layers import resolve_device, set_compute_dtype
@@ -160,6 +184,8 @@ from stmgcn_tpu_torch.train.metrics import regression_report
 from stmgcn_tpu_torch.train.step import (
     HEALTH_COLUMNS,
     LOSSES,
+    CheckError,
+    Sanitizer,
     eval_step,
     gather_window_batch,
     make_optimizer,
@@ -167,6 +193,24 @@ from stmgcn_tpu_torch.train.step import (
 )
 
 __all__ = ["CitySupports", "Trainer"]
+
+
+def _watch_finite(model) -> None:
+    """``debug_nans``: a forward hook on every module of ``model`` that
+    raises ``FloatingPointError`` naming the module whose output holds a
+    NaN or an Inf (a host sync per module: a debug mode)."""
+    def check(name):
+        def hook(module, args, out):
+            for t in out if isinstance(out, (tuple, list)) else (out,):
+                if isinstance(t, torch.Tensor) and t.is_floating_point() and (
+                        not bool(torch.isfinite(t).all())):
+                    raise FloatingPointError(
+                        f"debug-nans: non-finite output of module {name or 'model'} "
+                        f"({type(module).__name__})")
+        return hook
+
+    for name, module in model.named_modules():
+        module.register_forward_hook(check(name))
 
 
 def _file_op(op: str, path: str, payload, fault_plan) -> None:
@@ -296,8 +340,9 @@ class Trainer:
     GPU, and raises without one. ``graphs`` captures the training programs
     as CUDA graphs (``None``: on for CUDA; ``True`` on the CPU raises);
     ``graphs=False`` runs them eagerly. ``fault_plan``, the
-    ``divergence_*`` and ``health*`` arguments: the module docstring. Other
-    arguments as the JAX ``Trainer``'s.
+    ``divergence_*`` and ``health*`` arguments, ``checks`` and
+    ``debug_nans``: the module docstring. Other arguments as the JAX
+    ``Trainer``'s.
     """
 
     def __init__(self, model, dataset, supports, *, lr: float = 2e-3,
@@ -316,6 +361,7 @@ class Trainer:
                  fault_plan: Optional[FaultPlan] = None, health: bool = False,
                  health_every_k: int = 1, health_out: Optional[str] = None,
                  health_baseline: bool = True, health_sketch_size: int = 64,
+                 checks: Optional[str] = None, debug_nans: bool = False,
                  extra_meta: Optional[dict] = None,
                  initial_state: Optional[dict] = None, device=None,
                  graphs: Optional[bool] = None, verbose: bool = True):
@@ -344,8 +390,13 @@ class Trainer:
                     f"the {mode!r} split is empty — adjust split fractions/dates "
                     "or provide more data"
                 )
+        #: the in-program checks (None: no sanitizer op exists)
+        self.sanitizer = Sanitizer(checks) if checks is not None else None
+        self.debug_nans = bool(debug_nans)
         self.device = resolve_device(device)
-        self.graphs = resolve_graphs(graphs, self.device)
+        if self.debug_nans and graphs:
+            raise ValueError("debug_nans runs the programs eagerly; it cannot take graphs=True")
+        self.graphs = resolve_graphs(False if self.debug_nans else graphs, self.device)
         if self.graphs and sr_seed is not None and not hasattr(
                 torch.cuda.CUDAGraph, "register_generator_state"):
             raise RuntimeError(
@@ -393,6 +444,13 @@ class Trainer:
             set_compute_dtype(self.model, torch.bfloat16)
         if initial_state is not None:
             self.model.load_state_dict(initial_state)
+        if self.sanitizer is not None:
+            self.sanitizer.watch(self.model)
+        if self.debug_nans:
+            _watch_finite(self.model)
+            self._log("[debug-nans] CUDA graphs off: the programs run eagerly, every "
+                      "module's output is held finite and the backward runs under "
+                      "anomaly detection")
         #: the flax tree layout checkpoints use: the JAX model's for this
         #: support mode
         self.layout = jax_layout(self.model.support_mode)
@@ -626,6 +684,15 @@ class Trainer:
         if self.verbose:
             print(msg, flush=True)
 
+    def _event(self, name: str, text: str) -> None:
+        """A phase event: a zero-length ``event.<name>`` span in the active
+        trace, and ``text`` logged (the JAX trainer's ``_event``)."""
+        trc = obs_trace.active_tracer()
+        if trc is not None:
+            t = time.perf_counter()
+            trc.record_span(f"event.{name}", t, t)
+        self._log(text)
+
     # -- checkpoints ------------------------------------------------------
     def _meta(self) -> dict:
         """The JAX trainer's meta keys (``trainer.py`` ``_meta``)."""
@@ -677,12 +744,17 @@ class Trainer:
         return serialize_checkpoint(*self.state_trees(), self._meta())
 
     def _save(self, path: str) -> bytes:
+        trc = obs_trace.active_tracer()
+        t0 = time.perf_counter() if trc is not None else 0.0
         data = self.snapshot()
         if path == self.latest_path:
             # rotate first: if this write lands corrupt, latest.prev is the
             # previous verified state and the recovery chain falls back to it
             self._queue("rotate", path, self.latest_prev_path)
         self._queue("write", path, data)
+        if trc is not None:  # serialize and enqueue; the writer's IO is off-thread
+            trc.record_span("train.checkpoint", t0, time.perf_counter(),
+                            {"path": os.path.basename(path), "bytes": len(data)})
         return data
 
     def _queue(self, op: str, path: str, payload=None) -> None:
@@ -804,15 +876,16 @@ class Trainer:
             pad_last=True, with_arrays=False,
         )
 
-    def place(self, batch, mode: str):
+    def place(self, batch, mode: str, sanitizer: Optional[Sanitizer] = None):
         """``(x, y, mask)`` on the device: the window gather from the
         batch's city's resident series, and the mask of real samples,
         ``(B,)``, or ``(B, N_c)`` crossed with the real nodes for a fleet
-        city (at every pad, as the JAX trainer's one mask shape per class)."""
+        city (at every pad, as the JAX trainer's one mask shape per class).
+        ``sanitizer`` (a step open on it) checks the gather's indices."""
         data = self._cities[batch.city]
         idx = torch.as_tensor(np.asarray(batch.indices, np.int64), device=self.device)
         x, y = gather_window_batch(data.series, data.targets[mode], self.offsets, idx,
-                                   self.horizon)
+                                   self.horizon, sanitizer)
         mask = (np.arange(len(batch)) < batch.n_real).astype(np.float32)
         if batch.city in self._fleet_cities:
             n = data.series.shape[1]
@@ -833,8 +906,10 @@ class Trainer:
         returns the ``(steps,)`` losses. The ``health`` twin returns the
         ``(steps, 5 + G)`` health rows instead (the loss their first
         column), and over a fleet class each step's loss scattered to its
-        member's column after them (``city_loss``)."""
+        member's column after them (``city_loss``). Under ``checks`` each
+        step's flag word follows as a last column (``(steps, 2)`` plain)."""
         groups = self._health_groups if health else None
+        san = self.sanitizer
 
         def body(v):
             supports, n_real = site.select(v.get("slot"))
@@ -842,22 +917,30 @@ class Trainer:
             if n_real is not None:
                 n = site.series.shape[1]
                 node = (torch.arange(n, device=self.device) < n_real).to(torch.float32)
-            outs = []
+            outs, flags = [], []
             for s in range(steps):
+                if san is not None:
+                    san.begin(self.device)
                 x, y = gather_window_batch(site.series, site.targets[mode], self.offsets,
-                                           v["idx"][s], self.horizon)
+                                           v["idx"][s], self.horizon, san)
                 mask = v["mask"][s] if node is None else v["mask"][s][:, None] * node[None, :]
                 outs.append(train_step(self.model, self.optimizer, supports, x, y, mask,
                                        self.loss, sr_generator=self._sr_gen, n_real=n_real,
-                                       scalars=v["adam"][s], health=groups))
+                                       scalars=v["adam"][s], health=groups, sanitizer=san))
+                if san is not None:
+                    flags.append(san.end())
             if not health:
-                return torch.stack(outs)
-            rows = torch.stack([row for _, row in outs])
-            if site.n_real is None:
-                return rows
-            members = site.n_real.shape[0]
-            onehot = (torch.arange(members, device=self.device) == v["slot"]).float()
-            return torch.cat([rows, rows[:, :1] * onehot[None, :]], dim=1)
+                out = torch.stack(outs)
+            else:
+                out = torch.stack([row for _, row in outs])
+                if site.n_real is not None:
+                    members = site.n_real.shape[0]
+                    onehot = (torch.arange(members, device=self.device) == v["slot"]).float()
+                    out = torch.cat([out, out[:, :1] * onehot[None, :]], dim=1)
+            if san is None:
+                return out
+            words = torch.stack(flags).float()[:, None]  # exact: words < 2^24
+            return torch.cat([out[:, None] if out.dim() == 1 else out, words], dim=1)
 
         return body
 
@@ -878,9 +961,10 @@ class Trainer:
                      + (", health" if health else ""))
             if self.graphs:
                 program = CapturedProgram(body, spec, self.graph_pool, name=label,
-                                          generator=self._sr_gen)
+                                          generator=self._sr_gen, upload_span="train.upload")
             else:
-                program = Program(body, spec, self._ops, name=label)
+                program = Program(body, spec, self._ops, name=label,
+                                  upload_span="train.upload")
             self._programs[name] = program
         return program
 
@@ -895,8 +979,10 @@ class Trainer:
         key, slot, starts = self._city_site[block[0].city]
         runs = [[b] for b in block] if self._sr_gen is not None else [block]
         count, step = self.optimizer.count, self.global_step
+        trc = obs_trace.active_tracer()
         outs, first = [], 0
         for run in runs:
+            t_p0 = time.perf_counter() if trc is not None else 0.0
             mask = np.stack([np.arange(len(b)) < b.n_real for b in run]).astype(np.float32)
             for s, payload in (poisons or {}).items():
                 if first <= s < first + len(run):
@@ -911,13 +997,40 @@ class Trainer:
                 values["slot"] = np.array([slot])
             if self._sr_gen is not None:
                 self._sr_gen.manual_seed(self._sr_seed(step + first))
-            outs.append(self._program(key, len(run), mode, health)(values))
+            program = self._program(key, len(run), mode, health)
+            if trc is None:
+                outs.append(program(values))
+            else:
+                t_d0 = time.perf_counter()
+                trc.record_span("train.host_pack", t_p0, t_d0, {"steps": len(run)})
+                outs.append(program(values))  # ends in the readback: the device is done
+                trc.record_span("train.superstep", t_d0, time.perf_counter(),
+                                {"step": step + first, "s": len(run)})
             first += len(run)
         out = outs[0] if len(outs) == 1 else torch.cat(outs)
+        if self.sanitizer is not None:
+            self._raise_flags(out[:, -1], block, "train")
+            out = out[:, :-1] if health else out[:, 0]
         if health:
             rows = out.numpy()
             return rows[:, 0].tolist(), rows
         return out.tolist(), None
+
+    def _raise_flags(self, words, batches, mode: str) -> None:
+        """The sanitizers' verdict on a dispatch or an eval epoch: raise
+        :class:`CheckError` at the first step whose flag word is set,
+        naming it (``words`` float32, one per entry of ``batches``)."""
+        bad = np.flatnonzero(np.asarray(words) != 0)
+        if not bad.size:
+            return
+        i = int(bad[0])
+        if mode == "train":
+            where = (f"epoch {self.epoch}, step {self._batch_in_epoch + i} (global step "
+                     f"{self.global_step + i}; step {i + 1} of a block of {len(batches)} from "
+                     f"step {self._batch_in_epoch})")
+        else:
+            where = f"epoch {self.epoch}, {mode} batch {i} of {len(batches)}"
+        raise CheckError.from_word(int(words[i]), where)
 
     def _advance(self, steps: int) -> None:
         self.optimizer.count += steps
@@ -1196,14 +1309,21 @@ class Trainer:
         return self._weighted(self._epoch_losses, self._epoch_counts)
 
     def _run_eval_epoch(self, mode: str) -> float:
-        losses, counts = [], []
+        losses, counts, words = [], [], []
+        san = self.sanitizer
         for batch in self.batches(mode):
-            x, y, mask = self.place(batch, mode)
+            if san is not None:
+                san.begin(self.device)
+            x, y, mask = self.place(batch, mode, san)
             data = self._cities[batch.city]
             losses.append(eval_step(self.model, data.supports, x, y, mask, self.loss,
-                                    n_real=data.n_real)[0])
+                                    n_real=data.n_real, sanitizer=san)[0])
             counts.append(batch.n_real)
+            if san is not None:
+                words.append(san.end())
             self._check_preempt()
+        if san is not None:
+            self._raise_flags(torch.stack(words).cpu().numpy(), counts, mode)
         return self._weighted(torch.stack(losses).tolist(), counts)
 
     @staticmethod
@@ -1221,7 +1341,7 @@ class Trainer:
         SIGTERM is caught while it runs (module docstring) and the previous
         handler restored on the way out."""
         history = {"train": [], "validate": []}
-        self._log(f"Training starts at: {time.ctime()}")
+        self._event("train_start", f"Training starts at: {time.ctime()}")
         in_main = threading.current_thread() is threading.main_thread()
         previous = None
         if in_main:
@@ -1232,7 +1352,9 @@ class Trainer:
         # a mid-epoch cursor re-enters its epoch; a boundary starts the next
         start_epoch = self.epoch + (1 if self._resume_skip == 0 else 0)
         try:
-            self._epoch_loop(history, start_epoch)
+            with (torch.autograd.set_detect_anomaly(True) if self.debug_nans
+                  else contextlib.nullcontext()):
+                self._epoch_loop(history, start_epoch)
         except BaseException:
             try:  # the loop's own exception stays the one raised
                 self.flush_checkpoints()
@@ -1245,16 +1367,24 @@ class Trainer:
             if self._health_writer is not None:
                 self._health_writer.flush()
         self.flush_checkpoints()
-        self._log(f"Training ends at: {time.ctime()}")
+        self._event("train_end", f"Training ends at: {time.ctime()}")
         return history
 
     def _epoch_loop(self, history: dict, start_epoch: int) -> None:
+        trc = obs_trace.active_tracer()
         for epoch in range(start_epoch, self.n_epochs + 1):
             self.epoch = epoch
             t0 = time.time()
+            sp_epoch = None if trc is None else trc.span("train.epoch", epoch=epoch)
+            sp = None if trc is None else trc.span("train.train_epoch")
             train_loss = self._run_train_epoch()
+            if sp is not None:
+                sp.end()
             self._check_preempt()
+            sp = None if trc is None else trc.span("train.eval_epoch")
             val_loss = self._run_eval_epoch("validate")
+            if sp is not None:
+                sp.end()
             self._check_preempt()
             if epoch == start_epoch:
                 # every block and tail program of the loop has been captured:
@@ -1287,6 +1417,8 @@ class Trainer:
             self._save(self.latest_path)
             self._log(f"Epoch {epoch}: train_loss {train_loss:.6g}, val_loss "
                       f"{val_loss:.6g}, {time.time() - t0:.3f} s")
+            if sp_epoch is not None:
+                sp_epoch.end()
             if self.patience_left == 0:
                 self._log(f"Early stopping at epoch {epoch}..")
                 break
@@ -1330,7 +1462,8 @@ class Trainer:
             _, params, _ = load_checkpoint(path, load_opt_state=False)
             state = {k: v.to(self.device) for k, v in
                      from_jax_params(params, self.model.m_graphs).items()}
-        self._log(f"Testing starts at: {time.ctime()}")
+        sp_test = obs_trace.span("train.test")  # the shared no-op when tracing is off
+        self._event("test_start", f"Testing starts at: {time.ctime()}")
         results = {}
         for mode in modes:
             per_city = self._predict_mode(mode, state)
@@ -1353,5 +1486,6 @@ class Trainer:
             for name, rep in report.get("per_city", {}).items():
                 self._log(f"  {mode}/{name} RMSE: {rep['rmse']:.6g}  MAE: {rep['mae']:.6g}  "
                           f"PCC: {rep['pcc']:.4g}")
-        self._log(f"Testing ends at: {time.ctime()}")
+        self._event("test_end", f"Testing ends at: {time.ctime()}")
+        sp_test.end()
         return results

@@ -1,5 +1,6 @@
 """The port's model at a bf16 compute dtype against the JAX model at
-``dtype=bfloat16`` with ``lstm_backend="pallas"`` (interpret mode), the
+``dtype=bfloat16`` with ``lstm_backend="pallas"`` (interpret mode) and
+``"xla"`` (the default scan), the port pinned to the same backend, the
 stochastic-rounding casts, and the bf16 configuration surface.
 
 - The model: dense, block-sparse and tiled supports, the same converted
@@ -59,7 +60,7 @@ def _supports(n, seed):
     return mat
 
 
-def _case(mode, horizon=1, seed=0):
+def _case(mode, horizon=1, seed=0, backend="pallas"):
     n = 16
     dense = _supports(n, seed)
     rng = np.random.default_rng(seed + 1)
@@ -75,7 +76,7 @@ def _case(mode, horizon=1, seed=0):
     else:
         jsup, sup = jax_plan_tiling(dense, TILE), plan_tiling(dense, TILE)
         jkw = pkw = dict(support_modes=("tiled",) * 3)
-    jmod = JaxSTMGCN(**kw, **jkw, lstm_backend="pallas", dtype=jnp.bfloat16)
+    jmod = JaxSTMGCN(**kw, **jkw, lstm_backend=backend, dtype=jnp.bfloat16)
     params = jmod.init(jax.random.key(seed), jsup, jnp.asarray(obs))
     cot = rng.normal(size=jmod.apply(params, jsup, jnp.asarray(obs)).shape).astype(np.float32)
 
@@ -85,7 +86,7 @@ def _case(mode, horizon=1, seed=0):
 
     want = jmod.apply(params, jsup, jnp.asarray(obs))
     want_g = from_jax_params(jax.tree.map(np.asarray, jax.grad(loss)(params)), 3)
-    model = STMGCN(**kw, **pkw, dtype=BF, device="cpu")
+    model = STMGCN(**kw, **pkw, lstm_backend=backend, dtype=BF, device="cpu")
     model.load_state_dict(from_jax_params(jax.tree.map(np.asarray, params), 3))
     return model, sup, obs, cot, want, want_g
 
@@ -95,10 +96,11 @@ def _f32(a):
         jnp.asarray(a).astype(jnp.float32))
 
 
+@pytest.mark.parametrize("backend", ["pallas", "xla"])
 @pytest.mark.parametrize("mode,horizon", [("dense", 1), ("dense", 2), ("sparse", 1),
                                           ("tiled", 1)])
-def test_bf16_model_matches_jax_pallas_bf16(mode, horizon):
-    model, sup, obs, cot, want, want_g = _case(mode, horizon)
+def test_bf16_model_matches_jax_pallas_bf16(mode, horizon, backend):
+    model, sup, obs, cot, want, want_g = _case(mode, horizon, backend=backend)
     out = model(sup, torch.from_numpy(obs))
     assert out.dtype == BF and want.dtype == jnp.bfloat16 and out.shape == want.shape
     got, ref = _f32(out), _f32(want)

@@ -2,8 +2,9 @@
 checkpoints, in the port and across the two packages.
 
 - **Port against JAX**: the JAX trainer at ``precision="bf16"`` with
-  ``lstm_backend="pallas"`` (interpret mode) and the port's from the same
-  converted weights, one epoch. Both run the same bf16 function, which
+  ``lstm_backend="pallas"`` (interpret mode) or ``"xla"`` (the default
+  scan) and the port's at the same backend (the config carries it) from
+  the same converted weights, one epoch. Both run the same bf16 function, which
   differs where an fp32 sum in another order flips a bf16 rounding, and Adam
   divides each step by the gradient's own size, so a flip in a near-zero
   gradient entry moves that entry's step: epoch losses are held at rtol
@@ -61,15 +62,17 @@ def _port(out_dir, **train):
                          verbose=False)
 
 
-def test_bf16_trainer_matches_jax_pallas_bf16_trainer(tmp_path):
+@pytest.mark.parametrize("backend", ["pallas", "xla"])
+def test_bf16_trainer_matches_jax_pallas_bf16_trainer(tmp_path, backend):
     jax_cfg = _jax_cfg(tmp_path / "jax", precision="bf16")
-    jax_cfg.model.lstm_backend = "pallas"
+    jax_cfg.model.lstm_backend = backend
     jt = jax_build_trainer(jax_cfg, verbose=False)
     init = from_jax_params(jax.tree.map(np.asarray, jt.params), 3)
     jh = jt.train()
     pt = build_trainer(_port_cfg(jax_cfg, tmp_path / "port"), device="cpu",
                        initial_state=init, verbose=False)
     assert pt.precision == "bf16" and pt.model.compute_dtype == torch.bfloat16
+    assert {m.backend for m in pt.model.modules() if hasattr(m, "backend")} == {backend}
     ph = pt.train()
     for mode in ("train", "validate"):
         np.testing.assert_allclose(ph[mode], jh[mode], rtol=EPOCH_RTOL)

@@ -4,7 +4,10 @@
 ``--test-only`` then scores ``best.ckpt`` exactly as the training run's own
 test did (the same file, the same arithmetic), ``--resume`` and ``--resume
 auto`` continue from it, and the exit codes follow ``stmgcn_tpu/cli.py``.
-The flags the two CLIs share reach the same config in both.
+The flags the two CLIs share reach the same config in both, and the JAX
+flags whose features are ported (the data and model flags, the LSTM
+forms, the matmul precision, the sanitizers and tracing) have the JAX
+names, defaults and choices.
 """
 
 import json
@@ -62,7 +65,7 @@ def test_exit_codes_follow_the_reference(tmp_path, capsys):
     assert "No resumable checkpoint found — starting fresh" in lines
     assert main(["--preset", "scaled", "--device", "cpu"]) == 1  # preset() refuses it
     assert "preset must be one of" in capsys.readouterr().err
-    for flag in (["--platform", "cpu"], ["--lstm-backend", "pallas"], ["--resume", "always"]):
+    for flag in (["--platform", "cpu"], ["--profile", "trace"], ["--resume", "always"]):
         with pytest.raises(SystemExit) as info:
             main(["--preset", "smoke"] + flag)
         assert info.value.code == 2
@@ -78,9 +81,30 @@ def test_exit_codes_follow_the_reference(tmp_path, capsys):
      "--top-k", "2", "--shuffle", "--seed", "7", "--out-dir", "runs/a"],
     ["--steps-per-superstep", "4", "--normalize", "std", "--horizon", "3", "--rows", "6",
      "--timesteps", "500", "--sparse", "--checkpoint-every-steps", "5"],
+    ["--data", "city.npz", "-date", "0101", "0630", "0701", "0731", "-cpt", "4", "2", "1",
+     "--val-ratio", "0.3", "--m-graphs", "2", "--kernel", "localpool", "--cheb-k", "3",
+     "--lstm-backend", "pallas", "--checkify", "nan"],
+    ["--lstm-fused", "--lstm-unroll", "4", "--dtype", "bfloat16", "--checkify", "all",
+     "--val-ratio", "0.25"],
 ])
 def test_shared_flags_reach_the_same_config(flags):
     port = config_from_args(build_parser().parse_args(flags))
     jax_cfg = jax_config_from_args(jax_build_parser().parse_args(flags))
     assert port == ExperimentConfig.from_dict(jax_cfg.to_dict())
     assert build_parser().parse_args(flags).device == "cuda"  # the card by default
+
+
+#: the JAX CLI's flags whose features the port has (their ``dest``)
+PORTED_FLAGS = ("data", "dates", "obs_len", "val_ratio", "m_graphs", "kernel", "cheb_k",
+                "lstm_backend", "lstm_fused", "lstm_unroll", "matmul_precision", "checks",
+                "debug_nans", "trace_out")
+
+
+@pytest.mark.parametrize("dest", PORTED_FLAGS)
+def test_ported_flag_has_the_jax_names_default_and_choices(dest):
+    def action(parser):
+        return next(a for a in parser._actions if a.dest == dest)
+
+    port, ref = action(build_parser()), action(jax_build_parser())
+    fields = ("option_strings", "default", "choices", "nargs", "type", "const", "metavar")
+    assert {f: getattr(port, f) for f in fields} == {f: getattr(ref, f) for f in fields}

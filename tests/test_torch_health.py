@@ -453,7 +453,8 @@ def test_health_section_reads():
 
 
 @pytest.mark.parametrize("section,field,value", [
-    ("obs", "trace", True), ("continual", "enabled", True), ("federation", "replicas", 5)])
+    ("continual", "cadence_s", 1.0), ("continual", "enabled", True),
+    ("federation", "replicas", 5)])
 def test_unported_section_set_away_from_its_defaults_raises(section, field, value):
     d = jax_preset("default").to_dict()
     ExperimentConfig.from_dict(d)  # the JAX defaults read as they are

@@ -307,7 +307,7 @@ def test_test_needs_training_or_live_parameters(tmp_path):
 
 @pytest.mark.parametrize("field,value", [
     ("precision", "fp16"), ("sr_seed", 3),
-    ("checks", "nan"), ("prefetch", 2),
+    ("checks", "bogus"), ("prefetch", 2),
     ("data_placement", "stream"), ("window_free", False),
 ])
 def test_unported_train_field_raises(field, value):
