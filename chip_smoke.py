@@ -266,6 +266,41 @@ did. 41 runs after phase 19, 42 after phase 39, 43-44 after phase 40 and
     the JSONL read by the port's ``obs`` report, traced against untraced
     block and rung-1 p50s in turns.
 
+Phases 46-48 are the slice of the closed continual loop and the serving
+federation, run last. Every fp32 record carries the launches of 47 as
+``continual_launches`` and of 48 as ``federation_launches``:
+
+46. the ingest ring (``SeriesRing``) at the dense city (N = 256) and the
+    JAX default capacity 1,024: RING_ROWS rows of the synthetic series
+    through an ``IngestFaultPlan`` of late, duplicate, gap, nonfinite and
+    stale rows, the card's ring against a CPU ring fed the same arrivals
+    (outcomes, ``series()``, ``target_indices`` and ``window_at`` bitwise),
+    the allocated bytes unchanged after warmup, the ingest p50;
+47. the closed loop at the dense flagship, fp32: a graphed engine with
+    drift on (the baseline of a one-epoch health run), the ring pre-filled
+    past its capacity, a ``ContinualTrainer`` at the JAX defaults (8 steps
+    at batch 8, one captured block) with ``holdout`` 4, a ``PromotionGate``
+    with a real held-out eval and a ``ContinualDaemon``, while a serving
+    thread answers held-out windows throughout (no error, the generation
+    never going back): a clean promotion, a poisoned fine-tune rejected
+    ``nonfinite``, a corrupt candidate write rejected ``corrupt``, a raise
+    retried after the daemon's backoff and promoted, one run of the
+    background thread and a bounded stop; the calm traffic's drift and
+    whether it triggers a retrain, the fine-tune, gate and swap times, the
+    time from the triggering row to the first answer of the new
+    generation, no recapture after the first fine-tune, and the card's
+    first candidate against a CPU port fine-tune from the same start
+    (each tensor's update normwise within CPU_UPDATE_RTOL);
+48. the federation: the ``multicity`` preset's model over three cities,
+    FED_REPLICAS fleet engines and a warm spare sharing one
+    ``GlobalBudget`` behind a ``FederationRouter`` with the serve-bench
+    drills of one ``FederationFaultPlan`` (a poisoned candidate that a
+    ``TierPromotionGate`` quarantines once, a replica killed at a scatter,
+    a herd spike, hang-on-drain), a tier promotion cutting every live
+    replica over, the spare joining, every scattered answer bitwise the
+    answering engine's direct one, the ``predict_many`` p50 over the three
+    cities, and the reserved memory back down after ``close()``.
+
 Checkpoints go to a temporary directory that the run removes.
 
 The last three lines are the card, one JSON object describing each kernel
@@ -4607,6 +4642,514 @@ def metro_repeatability(device, ds, plan_dev) -> dict:
     return counts
 
 
+#: the closed loop and the federation (phases 46-48). The ring: the JAX
+#: default capacity and reorder window (``ContinualConfig``), RING_ROWS
+#: source rows of the dense city through an IngestFaultPlan of RING_FAULTS
+#: rounds of late, duplicate, gap, nonfinite and stale rows, the allocated
+#: bytes read after RING_WARMUP arrivals. The loop: LOOP_LIVE rows ingested
+#: live before each of its cycles, the held-out targets, the calm traffic
+#: served before the first trigger (s), the bound on waiting for the
+#: background daemon's decision (s). The federation: the multicity preset's
+#: model over FED_CITY_ROWS grids (its two cities and a third, 3 replicas
+#: need 3 cities) and their series lengths, FED_REPLICAS replicas and one
+#: warm spare over one GlobalBudget of 2 x the replicas' queue bound, the
+#: ladder FED_BUCKETS, FED_CALLS scatters for the predict_many p50, the
+#: drills' scatter ordinals and the herd burst
+RING_ROWS, RING_FAULTS, RING_WARMUP = 2000, 8, 200
+LOOP_LIVE, LOOP_HOLDOUT, LOOP_CALM_S, LOOP_WAIT_S = 20, 4, 1.0, 60.0
+FED_CITY_ROWS, FED_CITY_TIMESTEPS = (12, 10, 11), (24 * 7 * 4, 24 * 7 * 3, 24 * 7 * 3)
+FED_REPLICAS, FED_BUCKETS, FED_CALLS = 3, (1, 4, 16), 30
+FED_KILL_AT, FED_HERD_AT, FED_HERD_BURST = 2, 4, 32
+
+
+def ring_phase(device) -> None:
+    """Phase 46: the ingest ring at the dense city (N = 256) and the JAX
+    default capacity: RING_ROWS rows of the synthetic series through a fault
+    plan, the card's ring against a CPU ring fed the same arrivals (every
+    outcome, ``series()``, ``target_indices`` and ``window_at`` bitwise),
+    no allocation growth after warmup, the p50 host time of an ingest."""
+    import torch
+
+    from stmgcn_tpu_torch.config import ContinualConfig
+    from stmgcn_tpu_torch.data import SeriesRing, StaleObservationError
+    from stmgcn_tpu_torch.experiment import build_dataset
+    from stmgcn_tpu_torch.resilience import IngestFaultPlan, IngestFaultSpec
+
+    ccfg = ContinualConfig()
+    cfg = pallas_preset("default")
+    cfg.data.rows, cfg.data.serial_len, cfg.data.n_timesteps = GRID, SERIAL, RING_ROWS + 64
+    ds = build_dataset(cfg)
+    series = ds.series()
+    specs = []
+    for k in range(RING_FAULTS):
+        base = 100 + k * (RING_ROWS - 200) // RING_FAULTS
+        specs += [IngestFaultSpec(kind="out-of-order", row=base, delay=2),
+                  IngestFaultSpec(kind="duplicate", row=base + 30),
+                  IngestFaultSpec(kind="gap", row=base + 60),
+                  IngestFaultSpec(kind="nonfinite", row=base + 90),
+                  IngestFaultSpec(kind="out-of-order", row=base + 120,
+                                  delay=ccfg.reorder_window + 3)]
+    plan = IngestFaultPlan(specs)
+    arrivals = [a for t in range(RING_ROWS) for a in plan.feed(t, series[t])]
+    rings = {d: SeriesRing(ccfg.ring_capacity, ds.n_nodes, ds.n_feats,
+                           reorder_window=ccfg.reorder_window, device=d)
+             for d in (device, "cpu")}
+    card, host = rings[device], rings["cpu"]
+    address = card.buffer.data_ptr()
+    outcomes = {d: [] for d in rings}
+    ms, allocated = [], None
+    for i, (ts, row) in enumerate(arrivals):
+        for d, ring in rings.items():
+            t0 = time.perf_counter()
+            try:
+                outcomes[d].append(ring.ingest(ts, row))
+            except StaleObservationError:
+                outcomes[d].append("stale")
+            if ring is card:
+                ms.append((time.perf_counter() - t0) * 1e3)
+        if i == RING_WARMUP and device.type == "cuda":
+            torch.cuda.synchronize()
+            allocated = torch.cuda.memory_allocated(device)
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+        grown = torch.cuda.memory_allocated(device) - allocated
+        if grown:
+            fail(f"ring: {grown} more bytes allocated on the card after warmup")
+    if outcomes[device] != outcomes["cpu"]:
+        fail("ring: the card's and the CPU's outcomes differ")
+    kinds = {k: outcomes["cpu"].count(k) for k in sorted(set(outcomes["cpu"]))}
+    if set(kinds) != {"append", "gap-fill", "late", "duplicate", "nonfinite", "stale"}:
+        fail(f"ring: the fault mix gave outcomes {kinds}")
+    if card.buffer.data_ptr() != address:
+        fail("ring: the buffer moved")
+    spec = ds.window
+    got, want = card.series().cpu(), host.series()
+    targets = card.target_indices(spec)
+    same = (torch.equal(got, want) and np.array_equal(targets, host.target_indices(spec))
+            and all(np.array_equal(card.window_at(spec, card.origin_ts + int(t)),
+                                   host.window_at(spec, host.origin_ts + int(t)))
+                    for t in targets[::97]))
+    if not same or not torch.isfinite(got).all():
+        fail("ring: the card's series, targets or windows differ from the CPU ring's")
+    for attr in ("count", "rows", "gaps", "out_of_order", "duplicates", "nonfinite"):
+        if getattr(card, attr) != getattr(host, attr):
+            fail(f"ring: {attr} {getattr(card, attr)} on the card, {getattr(host, attr)} on "
+                 "the CPU")
+    print(f"ring (N = {ds.n_nodes}, capacity {ccfg.ring_capacity}, reorder window "
+          f"{ccfg.reorder_window}): {len(arrivals)} arrivals of {RING_ROWS} source rows, "
+          f"outcomes {kinds}; series ({len(card)} rows, origin slot {card.origin_slot}), "
+          f"{len(targets)} targets and windows bitwise the CPU ring's; allocated bytes "
+          f"unchanged after {RING_WARMUP} arrivals, the buffer in place; ingest p50 "
+          f"{np.percentile(ms, 50):.4f} ms, p99 {np.percentile(ms, 99):.4f} ms (host clock)")
+
+
+def _timed(obj, name: str, log: list):
+    """Wrap method ``name`` of ``obj`` to append the host ms of each call
+    that returns to ``log``."""
+    fn = getattr(obj, name)
+
+    @functools.wraps(fn)
+    def timed(*args, **kwargs):
+        t0 = time.perf_counter()
+        out = fn(*args, **kwargs)
+        log.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    setattr(obj, name, timed)
+
+
+def _drift_peak(snapshot) -> tuple:
+    """The largest ``z_max`` and ``psi`` of any city and phase."""
+    gauges = [g for phases in (snapshot or {}).get("cities", {}).values()
+              for g in phases.values()]
+    return (max((float(g.get("z_max", 0.0)) for g in gauges), default=0.0),
+            max((float(g.get("psi", 0.0)) for g in gauges), default=0.0))
+
+
+def closed_loop_phase(device) -> dict:
+    """Phase 47: the closed loop at the dense flagship, fp32. A graphed
+    ``ServingEngine`` with drift on (the baseline of a one-epoch health
+    run), a ring pre-filled past its capacity, a ``ContinualTrainer`` at
+    the JAX defaults and a ``PromotionGate`` with a real held-out eval,
+    supervised by a ``ContinualDaemon``, while a serving thread answers
+    held-out windows throughout. Five cycles: a clean promotion, a poisoned
+    fine-tune (rejected ``nonfinite``), a corrupt candidate write
+    (``corrupt``), a raise retried after the daemon's backoff (promoted),
+    one run of the background thread and a bounded stop. The card's first
+    candidate against a CPU port fine-tune from the same start, normwise.
+    Returns the launches of its main path."""
+    import torch
+
+    from stmgcn_tpu_torch import Forecaster, ServingConfig
+    from stmgcn_tpu_torch.config import ContinualConfig
+    from stmgcn_tpu_torch.data import SeriesRing
+    from stmgcn_tpu_torch.obs import graphmon
+    from stmgcn_tpu_torch.resilience import FaultPlan, FaultSpec
+    from stmgcn_tpu_torch.serving import PromotionGate
+    from stmgcn_tpu_torch.train import (
+        ContinualDaemon,
+        ContinualTrainer,
+        make_holdout_eval,
+        make_optimizer,
+    )
+
+    root = scratch("closed_loop")
+    base = resilience_trainer(device, os.path.join(root, "train"), health_k=1, drift=True,
+                              epochs=1)
+    base.train()
+    fc = Forecaster.from_checkpoint(base.best_path, device=device)
+    ds, supports = base.dataset, base.supports.cpu().numpy()
+    del base
+    release()
+    if fc.health_baseline is None:
+        fail("closed loop: the health run's best.ckpt carries no drift baseline")
+    series, spec = ds.series(), ds.window
+    ccfg = ContinualConfig(enabled=True)
+    warm = series.shape[0] - 5 * LOOP_LIVE
+    adam = functools.partial(make_optimizer, lr=1e-3)
+    initial = {k: v.detach().cpu().clone() for k, v in fc.model.state_dict().items()}
+
+    reset_counts()
+    ring = SeriesRing.from_series(series[:warm], capacity=ccfg.ring_capacity,
+                                  reorder_window=ccfg.reorder_window, device=device)
+    engine = fc.serving_engine(supports, config=ServingConfig(buckets=BUCKETS), device=device)
+    if engine.drift is None or engine.graphs != (device.type == "cuda"):
+        fail("closed loop: the engine is not graphed with drift on")
+    plan = FaultPlan(FaultSpec("poison", epoch=1, step=0),
+                     FaultSpec("corrupt-write", path_glob="candidate-0002.ckpt"),
+                     FaultSpec("raise", epoch=3, step=0))
+    trainer = ContinualTrainer(fc.model, adam, supports, ring, spec, ccfg, root,
+                               holdout=LOOP_HOLDOUT, fault_plan=plan,
+                               health_baseline=fc.health_baseline, device=device)
+    gate = PromotionGate.from_config(
+        engine, os.path.join(root, "watch"), ccfg, live_params=initial,
+        holdout_eval=make_holdout_eval(fc.model, supports, ring, spec, holdout=LOOP_HOLDOUT,
+                                       device=device))
+    events: list = []
+    daemon = ContinualDaemon(trainer, gate, config=ccfg, log=events.append)
+    times = {"finetune": [], "gate": [], "swap": []}
+    _timed(trainer, "finetune", times["finetune"])
+    _timed(gate, "_evaluate", times["gate"])
+    _timed(engine, "swap_params", times["swap"])
+
+    windows = ds.denormalize(ds.arrays("test")[0])
+    stop = threading.Event()
+    seen = {"answers": 0, "errors": [], "back": 0, "first": {}}
+
+    def serving():
+        last, k = -1, 0
+        while not stop.is_set():
+            rows = windows[k % len(windows)][None]
+            k += 1
+            try:
+                out, gen = engine.predict(rows, with_generation=True)
+            except Exception as e:  # noqa: BLE001 — reported below
+                seen["errors"].append(repr(e))
+                continue
+            if not np.isfinite(out).all():
+                seen["errors"].append(f"non-finite answer at generation {gen}")
+            seen["back"] += gen < last
+            seen["first"].setdefault(gen, time.perf_counter())
+            last = gen
+            seen["answers"] += 1
+
+    def feed(n: int) -> float:
+        for _ in range(n):
+            ring.ingest(ring.next_ts, series[ring.next_ts])
+        return time.perf_counter()
+
+    def wait_for(generation: int) -> float:
+        deadline = time.perf_counter() + LOOP_WAIT_S
+        while generation not in seen["first"] and time.perf_counter() < deadline:
+            time.sleep(0.001)
+        if generation not in seen["first"]:
+            fail(f"closed loop: no answer of generation {generation} within {LOOP_WAIT_S} s")
+        return seen["first"][generation]
+
+    thread = threading.Thread(target=serving, name="closed-loop-serving", daemon=True)
+    thread.start()
+    try:
+        time.sleep(LOOP_CALM_S)
+        z_calm, psi_calm = _drift_peak(engine.drift_snapshot())
+        fired = daemon.should_retrain()
+        print(f"closed loop, calm held-out traffic ({seen['answers']} answers in "
+              f"{LOOP_CALM_S} s): drift z_max {z_calm:.4f} (drift_z_max {ccfg.drift_z_max}), "
+              f"psi {psi_calm:.4f} (drift_psi {ccfg.drift_psi}); should_retrain -> {fired!r}")
+
+        # the CPU twin of the first fine-tune: the same ring contents and start
+        cpu_ring = SeriesRing.from_series(ring.series().cpu().numpy(),
+                                          start_ts=ring.origin_ts, capacity=len(ring),
+                                          reorder_window=ccfg.reorder_window, device="cpu")
+        t_trigger = feed(LOOP_LIVE)
+        for ts in range(cpu_ring.next_ts, ring.next_ts):
+            cpu_ring.ingest(ts, series[ts])
+        cpu_trainer = ContinualTrainer(fc.model, adam, supports, cpu_ring, spec, ccfg,
+                                       os.path.join(root, "cpu"), params=initial,
+                                       holdout=LOOP_HOLDOUT, device="cpu")
+        cycles = [daemon.retrain(fired or "cadence")]
+        if cycles[0] is None or not cycles[0].accepted:
+            fail(f"closed loop: the clean cycle gave {cycles[0]}; log {events}")
+        t_new = wait_for(1)
+        graphmon.mark_warmup_complete()
+        cpu_trainer.finetune()
+        cpu_trainer.commit()
+        worst = max(float((trainer.params[k] - cpu_trainer.params[k]).norm()
+                          / (cpu_trainer.params[k] - initial[k]).norm()) for k in initial)
+        if not worst <= CPU_UPDATE_RTOL:
+            fail(f"closed loop: the card's candidate differs from the CPU port's by {worst:.3e} "
+                 f"of its update (limit {CPU_UPDATE_RTOL})")
+        for _ in range(3):  # poison, corrupt write, raise then retry
+            feed(LOOP_LIVE)
+            cycles.append(daemon.retrain("drift"))
+        feed(LOOP_LIVE)
+        daemon.config = dataclasses.replace(ccfg, cadence_s=0.05)
+        decided = len(gate.decisions)
+        daemon.start(poll_s=0.05)
+        deadline = time.perf_counter() + LOOP_WAIT_S
+        while len(gate.decisions) == decided and time.perf_counter() < deadline:
+            time.sleep(0.01)
+        t0 = time.perf_counter()
+        stopped = daemon.stop()
+        stop_ms = (time.perf_counter() - t0) * 1e3
+        if len(gate.decisions) == decided or not stopped:
+            fail(f"closed loop: the background daemon decided {len(gate.decisions) - decided} "
+                 f"candidates, stop() -> {stopped}")
+        cycles.append(gate.decisions[-1])
+        time.sleep(0.1)
+    finally:
+        stop.set()
+        thread.join(timeout=60)
+        daemon.stop()
+    counts = read_counts()
+    reasons = [None if d is None else d.reason for d in cycles]
+    if reasons[:4] != ["promoted", "nonfinite", "corrupt", "promoted"] or daemon.restarts != 1:
+        fail(f"closed loop: cycles {reasons}, daemon restarts {daemon.restarts}, log {events}")
+    if seen["errors"] or seen["back"] or thread.is_alive():
+        fail(f"closed loop: serving errors {seen['errors'][:3]}, generation went back "
+             f"{seen['back']} times")
+    if max(seen["first"]) != engine.generation or engine.generation != gate.promotions:
+        fail(f"closed loop: serving saw generations {sorted(seen['first'])}, the engine is at "
+             f"{engine.generation} after {gate.promotions} promotions")
+    recaptures = graphmon.snapshot()["recaptures_after_warmup"]
+    if recaptures:
+        fail(f"closed loop: {recaptures} recaptures after the first fine-tune")
+    if not counts["B1"] or not counts["B2"] or any(counts[k] for k in ("B3", "B4", "B5")):
+        fail(f"closed loop: launches {counts_text(counts)}")
+    capture_ms = getattr(trainer._program, "capture_ms", None)
+    pool = trainer.graph_pool and trainer.graph_pool.reserved_bytes
+    print(f"closed loop cycles: {reasons} (daemon restarts {daemon.restarts}, background stop "
+          f"{stop_ms:.1f} ms); serving thread {seen['answers']} answers, 0 errors, generations "
+          f"{sorted(seen['first'])} never going back; recaptures after the first fine-tune 0")
+    print(f"closed loop times (host clock): fine-tune {ccfg.finetune_steps} steps at batch "
+          f"{ccfg.finetune_batch} (with the candidate write) first {times['finetune'][0]:.2f} ms "
+          f"(capture {capture_ms} ms), then p50 "
+          f"{np.percentile(times['finetune'][1:], 50):.2f} ms; gate checks (verify, two held-out "
+          f"evaluations) p50 {np.percentile(times['gate'], 50):.2f} ms; swap (the ladder's "
+          f"capture) p50 {np.percentile(times['swap'], 50):.2f} ms; triggering row to the first "
+          f"answer of generation 1 {(t_new - t_trigger) * 1e3:.2f} ms; fine-tune pool "
+          f"{pool} bytes")
+    print(f"closed loop, card vs CPU port fine-tune from one start: worst tensor "
+          f"|card - cpu| / |cpu update| {worst:.3e} (limit {CPU_UPDATE_RTOL}); the held-out "
+          f"eval of the first promotion {cycles[0].checks['eval']}")
+    print(f"closed loop launches: {counts_text(counts)}")
+    engine.close()
+    del engine, trainer, gate, daemon, cpu_trainer
+    release()
+    return counts
+
+
+def federation_phase(device) -> dict:
+    """Phase 48: the multicity preset's fleet engines as a replica tier:
+    FED_REPLICAS replicas and a warm spare sharing one ``GlobalBudget`` of
+    twice the replicas' queue bound behind a ``FederationRouter`` with the
+    four serve-bench drills of one ``FederationFaultPlan`` (a poisoned
+    candidate quarantined once by a ``TierPromotionGate``, a replica killed
+    at a scatter, a herd spike on one city, hang-on-drain), a tier
+    promotion cutting every live replica over, the spare's promotion;
+    scattered answers bitwise the owning engine's direct answers, the
+    predict_many p50, and the reserved memory after ``close()``. Returns
+    the launches of its main path."""
+    import torch
+
+    from stmgcn_tpu_torch import Forecaster, ServingConfig, to_jax_params
+    from stmgcn_tpu_torch.config import FederationConfig, MeshConfig
+    from stmgcn_tpu_torch.experiment import build_dataset, build_model, build_supports
+    from stmgcn_tpu_torch.resilience import FederationFaultPlan, FederationFaultSpec
+    from stmgcn_tpu_torch.serving import (
+        FederationRouter,
+        FleetServingEngine,
+        GlobalBudget,
+        ShedError,
+        TierPromotionGate,
+    )
+    from stmgcn_tpu_torch.train import save_checkpoint
+
+    cfg = pallas_preset("multicity")
+    cfg.mesh = MeshConfig()
+    cfg.data.n_cities = len(FED_CITY_ROWS)
+    cfg.data.city_rows, cfg.data.city_timesteps = FED_CITY_ROWS, FED_CITY_TIMESTEPS
+    ds = build_dataset(cfg)
+    sups = build_supports(cfg, ds)
+    model = build_model(cfg, ds.n_feats, device=device, generator=torch.Generator().manual_seed(0))
+    state = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+    n_nodes = ds.city_n_nodes
+    fc = Forecaster(model, state, None, cfg, {"input_dim": ds.n_feats, "n_nodes": n_nodes},
+                    ds.normalizers, device=device)
+    cities = range(len(n_nodes))
+    hists = {c: ds.denormalize(ds.city_arrays("test", c)[0][:1], city=c) for c in cities}
+    top = FED_BUCKETS[-1]
+    serving = ServingConfig(buckets=FED_BUCKETS, max_batch=top, queue_bound_rows=4 * top)
+    fed = FederationConfig(enabled=True, replicas=FED_REPLICAS, spares=1,
+                           global_queue_bound_rows=2 * serving.queue_bound_rows)
+    bad = fed.violations(serving=serving, n_cities=len(n_nodes))
+    if bad:
+        fail(f"federation: config {bad}")
+    drain_rid, kill_rid, spare_rid = 1, FED_REPLICAS - 1, FED_REPLICAS
+    plan = FederationFaultPlan(
+        FederationFaultSpec(kind="poisoned-candidate", path_glob="candidate-0.ckpt"),
+        FederationFaultSpec(kind="replica-kill", replica=kill_rid, dispatch=FED_KILL_AT),
+        FederationFaultSpec(kind="herd-spike", city=0, dispatch=FED_HERD_AT,
+                            burst=FED_HERD_BURST),
+        FederationFaultSpec(kind="hang-on-drain", replica=drain_rid, hang_ms=80.0))
+    cuda = device.type == "cuda"
+    release()
+    reserved0 = torch.cuda.memory_reserved(device) if cuda else 0
+
+    reset_counts()
+    budget = GlobalBudget(fed.global_queue_bound_rows)
+    engines = [FleetServingEngine.from_forecaster(fc, sups, config=serving, device=device,
+                                                  global_budget=budget)
+               for _ in range(FED_REPLICAS + 1)]
+    router = FederationRouter(engines[:FED_REPLICAS], cities, config=fed,
+                              spare_engines=engines[FED_REPLICAS:], global_budget=budget,
+                              fault_plan=plan)
+    reserved1 = torch.cuda.memory_reserved(device) if cuda else 0
+    root = scratch("federation")
+    gate = TierPromotionGate(router, os.path.join(root, "watch"))
+    clean = {"nonfinite": 0, "grad_norm_max": 1.0, "update_ratio_max": 0.01}
+    m = cfg.model.m_graphs
+    checks, ms = [], []
+
+    def scatter(what: str, direct: bool = True) -> dict:
+        """One predict_many over every city (the fault plan's scatter
+        ordinals count these); with ``direct``, each answer held bitwise to
+        the answering engine's direct call (the same rung-1 program)."""
+        t0 = time.perf_counter()
+        outs = router.predict_many(hists)
+        ms.append((time.perf_counter() - t0) * 1e3)
+        gens = {o.generation for o in outs.values() if o.ok}
+        if len(gens) > 1:
+            fail(f"federation, {what}: a mixed-generation response {gens}")
+        for c, o in outs.items():
+            if o.ok and direct:
+                got = engines[o.replica].predict_direct(hists[c], city=c)
+                checks.append(np.array_equal(o.prediction, got))
+        return outs
+
+    try:
+        poisoned = os.path.join(root, "candidate-0.ckpt")
+        save_checkpoint(poisoned, to_jax_params(state, m), None, {"drill": "poison"})
+        rejected = gate.consider(poisoned, clean)
+        if (rejected.reason, gate.rejections) != ("corrupt", 1) or any(
+                e.generation for e in router.engines().values()):
+            fail(f"federation: the poisoned candidate gave {rejected.reason}, "
+                 f"{gate.rejections} rejections")
+        herd = {"ok": 0, "shed": 0}
+        herd_threads = []
+        for k in range(FED_CALLS):
+            for city, burst in plan.herd_burst(k):
+                def hammer(city=city, n=burst // 4):
+                    for _ in range(n):
+                        try:
+                            router.predict(hists[city], city=city)
+                            herd["ok"] += 1
+                        except ShedError:
+                            herd["shed"] += 1
+                herd_threads = [threading.Thread(target=hammer) for _ in range(4)]
+                for t in herd_threads:
+                    t.start()
+            outs = scatter(f"scatter {k}", direct=not herd_threads)
+            if k > FED_KILL_AT and not all(o.ok for o in outs.values()):
+                fail("federation: after the kill, " + ", ".join(
+                    f"city {c} {o.error!r}" for c, o in outs.items() if not o.ok))
+            for t in herd_threads:  # herd answers may share a rung with a scatter's
+                t.join(timeout=60)
+            herd_threads = []
+        if router.kills != 1 or kill_rid in router.assignment().values():
+            fail(f"federation: kills {router.kills}, assignment {router.assignment()}")
+        if herd["ok"] + herd["shed"] == 0:
+            fail("federation: the herd spike sent nothing")
+        good = os.path.join(root, "candidate-1.ckpt")
+        new = {k: v * 1.001 for k, v in state.items()}
+        save_checkpoint(good, to_jax_params(new, m), None, {"drill": "promote"})
+        live = sorted(router.engines())
+        promoted = gate.consider(good, clean)
+        tier = promoted.checks.get("tier", {})
+        if not promoted.accepted or tier.get("swapped") != live or tier.get("failed"):
+            fail(f"federation: the tier promotion gave {promoted.reason}, {tier}")
+        if {e.generation for e in router.engines().values()} != {1}:
+            fail("federation: a live replica missed the cutover")
+        outs = scatter("after the cutover")
+        ref = Forecaster(build_model(cfg, ds.n_feats, device=device), new, None, cfg,
+                         fc.derived, ds.normalizers, device=device)
+        for c, o in outs.items():
+            want = ref.predict(sups.for_city(c), hists[c], city=c)
+            if not o.ok or o.generation != 1 or not np.allclose(o.prediction, want,
+                                                                rtol=SERVE_RTOL,
+                                                                atol=SERVE_ATOL):
+                fail(f"federation: city {c} after the cutover: {o}")
+        drained = router.drain(drain_rid)
+        if not drained["flushed"] or drained["watcher_wedged"]:
+            fail(f"federation: drain {drained}")
+        if not all(o.ok for o in scatter("after the drain").values()):
+            fail("federation: a city went unanswered after the drain")
+        joined = router.promote_spare(spare_rid)
+        if spare_rid not in router.assignment().values() or not joined["handover_flushed"]:
+            fail(f"federation: the spare did not join: {joined}")
+        if not all(o.ok for o in scatter("after the spare joined").values()):
+            fail("federation: a city went unanswered after the spare joined")
+        if not all(checks):
+            fail(f"federation: {checks.count(False)} of {len(checks)} scattered answers differ "
+                 "from the owning engine's direct answer")
+        health = router.health()
+        pools = sum(e.graph_pool_bytes or 0 for e in engines)  # the live generations'
+        reserved_live = torch.cuda.memory_reserved(device) if cuda else 0
+    finally:
+        router.close()
+    counts = read_counts()
+    del engines, router, gate
+    release()
+    reserved2 = torch.cuda.memory_reserved(device) if cuda else 0
+    if cuda and reserved_live - reserved2 < 0.75 * pools:
+        fail(f"federation: close() returned {reserved_live - reserved2} reserved bytes of the "
+             f"live graph pools' {pools}")
+    # what stays reserved: cuBLAS keeps a workspace per (handle, stream), and
+    # each graph pool captured on a stream of its own
+    clear = getattr(torch._C, "_cuda_clearCublasWorkspaces", None)
+    if cuda and clear is not None:
+        clear()
+        torch.cuda.empty_cache()
+    reserved3 = torch.cuda.memory_reserved(device) if cuda else 0
+    if not counts["B1"] or any(counts[k] for k in ("B2", "B3", "B4", "B5")):
+        fail(f"federation: launches {counts_text(counts)}")
+    print(f"federation ({FED_REPLICAS} replicas + 1 spare, cities N = {n_nodes}, budget "
+          f"{budget.total_rows} rows): the poisoned candidate quarantined once "
+          f"({os.path.basename(rejected.path)}); "
+          f"replica {kill_rid} killed at scatter {FED_KILL_AT}, every city answered after; "
+          f"herd spike on city 0: {herd['ok']} answered, {herd['shed']} shed; tier promotion "
+          f"to generation 1 on replicas {tier['swapped']}; drain of replica {drain_rid} "
+          f"(hang 80 ms) {drained['drain_ms']} ms, {drained['moved_cities']} cities moved; "
+          f"spare {spare_rid} joined, {joined['moved_cities']} cities moved")
+    print(f"federation: {len(checks)} scattered answers bitwise the owning engine's; "
+          f"predict_many p50 over {len(n_nodes)} cities {np.percentile(ms, 50):.4f} ms "
+          f"(host clock); budget {health['budget']}; reserved MiB: {reserved0 / 2**20:.1f} "
+          f"before the tier, {reserved1 / 2**20:.1f} built, {reserved_live / 2**20:.1f} before "
+          f"close() (live graph pools {pools / 2**20:.1f}), {reserved2 / 2**20:.1f} after it, "
+          f"{reserved3 / 2**20:.1f} with cuBLAS's workspaces cleared; launches "
+          f"{counts_text(counts)}")
+    return counts
+
+
 def main() -> int:
     try:
         return run_phases()
@@ -4757,6 +5300,12 @@ def run_phases() -> int:
     del ds, dense, dense_dev, plan, plan_dev, ktuples
     torch.cuda.empty_cache()
     tracing_phase(device)  # phase 45
+    print(f"tracing phase done at {time.perf_counter() - t_start:.1f} s")
+    # this slice's main paths: the ring, the closed loop, the federation
+    ring_phase(device)  # phase 46
+    loop_counts = closed_loop_phase(device)  # phase 47
+    fed_counts = federation_phase(device)  # phase 48
+    print(f"closed-loop and federation phases done at {time.perf_counter() - t_start:.1f} s")
     if any(not r["launches"] for r in bf16_records):
         fail("a bf16 kernel form was not launched on its main path: " + ", ".join(
             f"{r['name']} {r['launches']}" for r in bf16_records))
@@ -4767,6 +5316,7 @@ def run_phases() -> int:
         rec["fleet_launches"] = fleet_counts[k]
         # this slice's paths: dense and fleet health/guard/drift, the metro plan's
         rec["resilience_launches"] = res_fp32[k] + res_metro[k]
+        rec["continual_launches"], rec["federation_launches"] = loop_counts[k], fed_counts[k]
     for rec, k in zip(bf16_records, ("B1", "B2", "B3", "B4", "B5", "B3 shared")):
         rec["resilience_launches"] = res_bf16[k] - (res_bf16["B3 shared"] if k == "B3" else 0)
     print(f"all phases done at {time.perf_counter() - t_start:.1f} s")

@@ -6,8 +6,10 @@ reads: :class:`DataConfig`, :class:`ModelConfig`, :class:`TrainConfig`,
 :class:`MeshConfig` and :class:`ServingConfig`, grouped in an
 :class:`ExperimentConfig` that reads the same JSON dicts as the JAX
 package's ``ExperimentConfig.from_dict``, and :class:`HealthConfig`, the
-JAX ``health`` section, and :class:`ObsConfig`, the JAX ``obs`` section
-(tracing). :class:`ModelConfig` reads the JAX LSTM fields: ``lstm_unroll``
+JAX ``health`` section, :class:`ObsConfig`, the JAX ``obs`` section
+(tracing), and :class:`ContinualConfig` and :class:`FederationConfig`, the
+JAX ``continual`` (the closed loop) and ``federation`` (the replica tier)
+sections, copied with their ``violations()``. :class:`ModelConfig` reads the JAX LSTM fields: ``lstm_unroll``
 (and ``remat``) are schedules that leave the numbers unchanged and change
 nothing here; ``lstm_backend`` picks the bf16 form of the LSTM kernels
 (``"xla"``, the default: float32 storage with bf16 products; ``"pallas"``:
@@ -17,9 +19,7 @@ masters on the fused one); at float32 neither changes a number. The JAX
 ``precision`` policy section (the lint's per-role dtypes) is ignored on
 read. :class:`TrainConfig` instead copies every JAX training field and
 raises, naming it, on any field that the port does not implement set away
-from its default; the JAX ``continual`` and ``federation`` sections
-(:data:`UNPORTED_SECTIONS`) raise by name on any field set away from its
-default. ``n_nodes`` is derived from data, never configured.
+from its default. ``n_nodes`` is derived from data, never configured.
 """
 
 from __future__ import annotations
@@ -32,10 +32,12 @@ import torch
 from stmgcn_tpu_torch.ops.graph import SupportConfig, support_count
 
 __all__ = [
+    "ContinualConfig",
     "DTYPES",
     "PRECISIONS",
     "DataConfig",
     "ExperimentConfig",
+    "FederationConfig",
     "HealthConfig",
     "LSTM_BACKENDS",
     "ModelConfig",
@@ -44,7 +46,6 @@ __all__ = [
     "MeshConfig",
     "ServingConfig",
     "TrainConfig",
-    "UNPORTED_SECTIONS",
     "preset",
 ]
 
@@ -65,24 +66,6 @@ CHECKS = (None, "nan", "index", "float", "all")
 OBS_RESERVOIR_BUDGET = 8192
 #: the JAX package's bound on the span ring (``OBS_RING_BUDGET``)
 OBS_RING_BUDGET = 65536
-#: sections of the JAX config whose features the port does not have yet,
-#: with their JAX defaults: ``from_dict`` raises, naming the section and
-#: field, on any field set away from these
-UNPORTED_SECTIONS = {
-    "continual": {
-        "enabled": False, "ring_capacity": 1024, "reorder_window": 4, "cadence_s": 0.0,
-        "drift_z_max": 8.0, "drift_psi": 0.5, "finetune_steps": 8, "finetune_batch": 8,
-        "finetune_window": 0, "max_restarts": 3, "backoff_s": 0.25, "backoff_max_s": 4.0,
-        "promote_grad_norm_max": 1e3, "promote_update_ratio_max": 0.5,
-        "promote_eval_margin": 0.05, "superstep_ms": 0.0, "max_duty": 0.5,
-    },
-    "federation": {
-        "enabled": False, "replicas": 3, "spares": 0, "vnodes": 64, "imbalance_max": 0.5,
-        "global_queue_bound_rows": 0, "drain_timeout_s": 5.0, "handover_timeout_s": 2.0,
-    },
-}
-
-
 @dataclasses.dataclass
 class DataConfig:
     """Data source + windowing. ``path=None`` generates synthetic data."""
@@ -391,6 +374,210 @@ class ObsConfig:
 
 
 @dataclasses.dataclass
+class ContinualConfig:
+    """The closed loop (``stmgcn_tpu/config.py:603-765``, the same fields and
+    defaults): the ingest ring (:mod:`stmgcn_tpu_torch.data.ring`), the
+    fine-tune daemon (:mod:`stmgcn_tpu_torch.train.continual`) and the
+    promotion gate (:mod:`stmgcn_tpu_torch.serving.promotion`). Off by
+    default. ``violations()`` is the JAX section's contract: a ring over
+    the resident budget, a cadence the measured fine-tune cannot sustain,
+    missing or unordered gate bands, and a drift trigger with no baseline
+    to fire against; ``from_dict`` raises on it."""
+
+    #: run the continual-training daemon (the ring can be used alone)
+    enabled: bool = False
+    #: ring rows (timesteps) resident on the device per city
+    ring_capacity: int = 1024
+    #: how many steps behind the head a late row may arrive and still be
+    #: placed; older is a typed reject. Must be < ring_capacity
+    reorder_window: int = 4
+    #: wall-clock retrain cadence in seconds; 0 = drift-triggered only
+    cadence_s: float = 0.0
+    #: retrain when any city's drift z_max gauge crosses this
+    drift_z_max: float = 8.0
+    #: retrain when any city's drift PSI gauge crosses this
+    drift_psi: float = 0.5
+    #: optimizer steps per fine-tune (one captured block)
+    finetune_steps: int = 8
+    #: microbatch of each fine-tune step
+    finetune_batch: int = 8
+    #: train on only the freshest K targets; 0 = the whole resident series
+    finetune_window: int = 0
+    #: consecutive daemon failures tolerated before it stays down
+    max_restarts: int = 3
+    #: initial retry backoff (doubles per failure, with jitter)
+    backoff_s: float = 0.25
+    #: backoff ceiling; must be >= backoff_s
+    backoff_max_s: float = 4.0
+    #: gate: reject a candidate whose fine-tune grad norm exceeded this
+    promote_grad_norm_max: float = 1e3
+    #: gate: reject a candidate whose update ratio exceeded this
+    promote_update_ratio_max: float = 0.5
+    #: gate: reject a candidate whose held-out loss exceeds the live
+    #: generation's by more than this relative margin
+    promote_eval_margin: float = 0.05
+    #: measured fine-tune step time (ms) for the duty-cycle check; 0 = not
+    #: measured (check skipped)
+    superstep_ms: float = 0.0
+    #: largest fraction of the cadence the fine-tune may occupy
+    max_duty: float = 0.5
+
+    def violations(self, *, row_bytes: Optional[int] = None,
+                   budget_bytes: Optional[int] = None, health=None, data=None) -> list:
+        """Every way this config breaks the closed-loop contract (empty list
+        = valid), in the JAX section's words. Ring bounds always apply; the
+        trigger, retry and gate checks once the loop is enabled.
+        ``row_bytes``/``budget_bytes`` bring in a resident budget,
+        ``health``/``data`` the sibling sections."""
+        v = []
+        if self.ring_capacity < 1:
+            v.append(f"ring_capacity must be >= 1, got {self.ring_capacity} — an empty ring "
+                     "can never hold a series")
+        elif not 0 <= self.reorder_window < self.ring_capacity:
+            v.append(f"reorder_window {self.reorder_window} must be in [0, ring_capacity="
+                     f"{self.ring_capacity}) — a late row can only overwrite a slot that is "
+                     "still resident")
+        if row_bytes is not None and budget_bytes is not None:
+            need = self.ring_capacity * row_bytes
+            if need > budget_bytes:
+                v.append(f"ring_capacity {self.ring_capacity} needs {need} resident bytes "
+                         f"({row_bytes} B/row) — over the per-core resident budget "
+                         f"{budget_bytes}")
+        if data is not None and self.ring_capacity >= 1:
+            from stmgcn_tpu_torch.data.windowing import WindowSpec
+
+            spec = WindowSpec(data.serial_len, data.daily_len, data.weekly_len,
+                              data.day_timesteps, horizon=data.horizon)
+            need = spec.burn_in + spec.horizon
+            if self.ring_capacity < need:
+                v.append(f"ring_capacity {self.ring_capacity} cannot hold one training "
+                         f"window — burn_in+horizon is {need} for this window spec, so the "
+                         "fine-tune would never have a valid target")
+        if not self.enabled:
+            return v
+        if self.cadence_s < 0:
+            v.append(f"cadence_s must be >= 0, got {self.cadence_s}")
+        if self.cadence_s == 0 and health is not None and not (health.drift
+                                                               and health.baseline):
+            v.append("cadence_s=0 makes drift gauges the only retrain trigger, but "
+                     "health.drift/health.baseline are not both on — the daemon would never "
+                     "fire")
+        if self.drift_z_max <= 0 or self.drift_psi <= 0:
+            v.append(f"drift thresholds must be positive, got z_max={self.drift_z_max}, "
+                     f"psi={self.drift_psi} — a non-positive threshold retrains on every "
+                     "poll")
+        if self.finetune_steps < 1 or self.finetune_batch < 1:
+            v.append(f"finetune_steps/finetune_batch must be >= 1, got "
+                     f"{self.finetune_steps}/{self.finetune_batch}")
+        if self.finetune_window < 0:
+            v.append(f"finetune_window must be >= 0, got {self.finetune_window}")
+        if self.max_restarts < 0:
+            v.append(f"max_restarts must be >= 0, got {self.max_restarts}")
+        if self.backoff_s <= 0 or self.backoff_max_s < self.backoff_s:
+            v.append(f"retry backoff must satisfy 0 < backoff_s <= backoff_max_s, got "
+                     f"{self.backoff_s}/{self.backoff_max_s}")
+        if self.promote_grad_norm_max <= 0 or self.promote_update_ratio_max <= 0:
+            v.append("promotion-gate bands must be positive, got grad_norm_max="
+                     f"{self.promote_grad_norm_max}, update_ratio_max="
+                     f"{self.promote_update_ratio_max} — a non-positive band rejects every "
+                     "candidate")
+        if self.promote_eval_margin < 0:
+            v.append(f"promote_eval_margin must be >= 0, got {self.promote_eval_margin} — a "
+                     "negative margin demands the candidate be strictly better than live to "
+                     "even tie")
+        if not 0 < self.max_duty <= 1:
+            v.append(f"max_duty must be in (0, 1], got {self.max_duty}")
+        elif self.cadence_s > 0 and self.superstep_ms > 0:
+            duty = (self.finetune_steps * self.superstep_ms / 1e3) / self.cadence_s
+            if duty > self.max_duty:
+                v.append(f"fine-tune duty cycle {duty:.2f} exceeds max_duty {self.max_duty} "
+                         f"— {self.finetune_steps} supersteps x {self.superstep_ms} ms every "
+                         f"{self.cadence_s} s starves serving on a shared core")
+        return v
+
+
+@dataclasses.dataclass
+class FederationConfig:
+    """The replica tier (``stmgcn_tpu/config.py:766-900``, the same fields
+    and defaults; :mod:`stmgcn_tpu_torch.serving.federation`). Off by
+    default. ``violations()`` is the JAX section's contract: more replicas
+    than cities, a hash ring with too few points for its imbalance bound, a
+    tier budget below one replica's local bound, and a handover longer
+    than a drain; ``from_dict`` raises on it."""
+
+    #: run the federation router
+    enabled: bool = False
+    #: active engine replicas the ring shards cities across
+    replicas: int = 3
+    #: warm spares kept built and checkpoint-watching outside the ring
+    spares: int = 0
+    #: hash-ring points per replica (virtual nodes)
+    vnodes: int = 64
+    #: bound on the ring's relative per-replica load imbalance
+    imbalance_max: float = 0.5
+    #: tier-wide pending-row budget shared by every replica's admission
+    #: controller; 0 = no global budget (local bounds only)
+    global_queue_bound_rows: int = 0
+    #: drain: seconds to wait for a replica's in-flight work to flush
+    drain_timeout_s: float = 5.0
+    #: re-shard: seconds moved cities may wait for their old owner
+    handover_timeout_s: float = 2.0
+
+    def violations(self, *, serving=None, n_cities=None) -> list:
+        """Every way this config breaks the tier contract (empty list =
+        valid), in the JAX section's words. Ring bounds always apply; the
+        replica, budget and lifecycle checks once the tier is enabled.
+        ``serving`` brings in the :class:`ServingConfig` for the budget
+        check, ``n_cities`` the data's city count."""
+        v = []
+        if self.vnodes < 1:
+            v.append(f"vnodes must be >= 1, got {self.vnodes}")
+        if not 0.0 < self.imbalance_max <= 1.0:
+            v.append(f"imbalance_max must be in (0, 1], got {self.imbalance_max}")
+        elif self.vnodes >= 1 and self.replicas >= 1:
+            # ring imbalance shrinks ~ 1/sqrt(total points)
+            need = int(4.0 / (self.imbalance_max * self.imbalance_max))
+            if self.replicas * self.vnodes < need:
+                v.append(f"hash ring has {self.replicas * self.vnodes} points "
+                         f"({self.replicas} replicas x {self.vnodes} vnodes) — fewer than "
+                         f"the {need} needed to bound imbalance at {self.imbalance_max}; add "
+                         "vnodes or relax the bound")
+        if not self.enabled:
+            return v
+        if self.replicas < 1:
+            v.append(f"replicas must be >= 1, got {self.replicas}")
+        if self.spares < 0:
+            v.append(f"spares must be >= 0, got {self.spares}")
+        if n_cities is not None and self.replicas > n_cities:
+            v.append(f"{self.replicas} replicas for {n_cities} cities — city->replica "
+                     "sharding leaves at least one replica permanently idle; shrink the tier "
+                     "or add cities")
+        if self.global_queue_bound_rows < 0:
+            v.append(f"global_queue_bound_rows must be >= 0, got "
+                     f"{self.global_queue_bound_rows}")
+        elif self.global_queue_bound_rows and serving is not None:
+            local = int(serving.queue_bound_rows)
+            if local and self.global_queue_bound_rows < local:
+                v.append(f"global_queue_bound_rows {self.global_queue_bound_rows} is below "
+                         f"the per-replica bound {local} — the tier budget would shed before "
+                         "any single replica's queue could legally fill")
+            top = serving.buckets[-1] if serving.buckets else 0
+            if top and self.global_queue_bound_rows < top:
+                v.append(f"global_queue_bound_rows {self.global_queue_bound_rows} is below "
+                         f"the top ladder rung {top} — no saturated dispatch could ever be "
+                         "admitted tier-wide")
+        if self.drain_timeout_s <= 0 or self.handover_timeout_s <= 0:
+            v.append(f"lifecycle timeouts must be positive, got drain="
+                     f"{self.drain_timeout_s}, handover={self.handover_timeout_s}")
+        elif self.handover_timeout_s > self.drain_timeout_s:
+            v.append(f"handover_timeout_s {self.handover_timeout_s} exceeds drain_timeout_s "
+                     f"{self.drain_timeout_s} — a re-shard handover flushes a subset of one "
+                     "replica's in-flight work and can never be allowed longer than a full "
+                     "drain")
+        return v
+
+
+@dataclasses.dataclass
 class ServingConfig:
     """Engine shape policy (:mod:`stmgcn_tpu_torch.serving.engine`).
 
@@ -552,6 +739,8 @@ class ExperimentConfig:
     serving: ServingConfig = dataclasses.field(default_factory=ServingConfig)
     health: HealthConfig = dataclasses.field(default_factory=HealthConfig)
     obs: ObsConfig = dataclasses.field(default_factory=ObsConfig)
+    continual: ContinualConfig = dataclasses.field(default_factory=ContinualConfig)
+    federation: FederationConfig = dataclasses.field(default_factory=FederationConfig)
 
     def to_dict(self) -> dict:
         return dataclasses.asdict(self)
@@ -559,15 +748,10 @@ class ExperimentConfig:
     @classmethod
     def from_dict(cls, d: dict) -> "ExperimentConfig":
         """Read a JAX-package config dict (``ExperimentConfig.to_dict``);
-        raises when a section of :data:`UNPORTED_SECTIONS` is set away from
-        its defaults, and on an ``obs`` section that breaks
-        ``ObsConfig.violations()``."""
-        for section, defaults in UNPORTED_SECTIONS.items():
-            for name, value in (d.get(section) or {}).items():
-                if name not in defaults or value != defaults[name]:
-                    raise ValueError(
-                        f"{section}.{name}={value!r} is not ported to the PyTorch port yet "
-                        f"(the {section!r} section must keep its defaults); see ROADMAP.md")
+        raises on an ``obs``, ``continual`` or ``federation`` section that
+        breaks its ``violations()`` (the continual one's cross-checks with
+        ``health`` and ``data`` once the loop is enabled; the federation
+        one's with ``serving`` and the city count)."""
         cfg = cls(
             name=d.get("name", "default"),
             data=DataConfig(**_known(DataConfig, d.get("data", {}))),
@@ -577,10 +761,18 @@ class ExperimentConfig:
             serving=ServingConfig(**_known(ServingConfig, d.get("serving", {}))),
             health=HealthConfig(**d.get("health", {})),
             obs=ObsConfig(**d.get("obs", {})),
+            continual=ContinualConfig(**d.get("continual", {})),
+            federation=FederationConfig(**d.get("federation", {})),
         )
-        bad = cfg.obs.violations()
-        if bad:
-            raise ValueError("obs section: " + "; ".join(bad))
+        cont = cfg.continual
+        for section, bad in (
+                ("obs", cfg.obs.violations()),
+                ("continual", cont.violations(health=cfg.health, data=cfg.data)
+                 if cont.enabled else cont.violations()),
+                ("federation", cfg.federation.violations(serving=cfg.serving,
+                                                         n_cities=cfg.data.n_cities))):
+            if bad:
+                raise ValueError(f"{section} section: " + "; ".join(bad))
         return cfg
 
 

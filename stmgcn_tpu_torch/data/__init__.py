@@ -1,7 +1,7 @@
 """Data layer: NPZ loading, normalization, windowing, splits, batching,
-heterogeneous cities and the fleet shape-class planner —
-numpy copies of the JAX package's host modules (its ``data/__init__``
-pulls JAX in through ``ring.py``)."""
+heterogeneous cities and the fleet shape-class planner — numpy copies of
+the JAX package's host modules — and the device-resident ingest ring of
+the closed loop (:mod:`.ring`)."""
 
 from stmgcn_tpu_torch.data.fleet import FleetPlan, ShapeClass, plan_shape_classes
 from stmgcn_tpu_torch.data.hetero import HeteroCityDataset
@@ -12,6 +12,7 @@ from stmgcn_tpu_torch.data.normalize import (
     normalizer_from_dict,
 )
 from stmgcn_tpu_torch.data.pipeline import Batch, DemandDataset
+from stmgcn_tpu_torch.data.ring import SeriesRing, StaleObservationError, ingest_stream
 from stmgcn_tpu_torch.data.splits import SplitSpec, date_splits
 from stmgcn_tpu_torch.data.synthetic import grid_adjacency, synthetic_dataset, synthetic_demand
 from stmgcn_tpu_torch.data.windowing import WindowSpec, sliding_windows
@@ -24,12 +25,15 @@ __all__ = [
     "FleetPlan",
     "HeteroCityDataset",
     "MinMaxNormalizer",
+    "SeriesRing",
     "ShapeClass",
     "SplitSpec",
+    "StaleObservationError",
     "StdNormalizer",
     "WindowSpec",
     "date_splits",
     "grid_adjacency",
+    "ingest_stream",
     "load_npz",
     "normalizer_from_dict",
     "plan_shape_classes",

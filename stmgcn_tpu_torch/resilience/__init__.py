@@ -1,9 +1,9 @@
 """Preemption-safe training: fault injection, divergence rollback.
 
 Copy of ``stmgcn_tpu/resilience/__init__.py`` (the modules are stdlib
-only); the trainer, the serving engines and the checkpoint writer of this
-package consult these plans at the JAX package's points. The ingest and
-federation plans are copied as they are; nothing here calls them yet.
+only); the trainer, the continual loop, the serving engines, the
+federation router and the checkpoint writer of this package consult these
+plans at the JAX package's points.
 
 Training on preemptible machines means workers die mid-epoch, disks
 truncate files, and one bad batch can NaN the params hours in. This

@@ -28,11 +28,16 @@ Counterpart of ``stmgcn_tpu/serving/engine.py`` (``ServingEngine``):
   ``queue_bound_rows`` set, overload sheds at arrival with typed errors
   (:mod:`stmgcn_tpu_torch.serving.admission`); ``shed_policy="degrade"``
   serves shed requests inline at a smaller rung instead, and a wedged
-  batcher degrades ``predict`` to the inline path.
+  batcher degrades ``predict`` to the inline path. A
+  :class:`~stmgcn_tpu_torch.serving.admission.GlobalBudget`
+  (``global_budget=``) is drawn down by every engine that shares it, so a
+  replica tier's pending rows stay bounded as a whole.
 
 - **checkpoint hot-swap** — :meth:`ServingEngine.watch_checkpoints`
   polls a training run's ``out_dir`` (:class:`CheckpointWatcher`) and
-  swaps each newer verified checkpoint in through ``swap_params``;
+  swaps each newer verified checkpoint in through ``swap_params``, and
+  :meth:`ServingEngine.params_from_checkpoint` reads a checkpoint into the
+  served model's ``state_dict`` layout (what the promotion gate scores);
 - **drift** — :meth:`ServingEngine.enable_drift` attaches a
   :class:`~stmgcn_tpu_torch.obs.drift.DriftMonitor` that compares each
   dispatch's normalized inputs and denormalized predictions with the
@@ -80,7 +85,7 @@ from stmgcn_tpu_torch.serving.admission import (
 from stmgcn_tpu_torch.serving.bucketing import pad_to_bucket, smallest_covering_bucket
 from stmgcn_tpu_torch.serving.metrics import EngineStats
 from stmgcn_tpu_torch.serving.microbatch import MicroBatcher
-from stmgcn_tpu_torch.train.checkpoint import load_latest_verified
+from stmgcn_tpu_torch.train.checkpoint import load_checkpoint, load_latest_verified
 
 __all__ = ["CheckpointWatcher", "Generation", "ServingEngine", "rung_program"]
 
@@ -131,6 +136,19 @@ def rung_program(ops: DeviceOps, bucket: int, expected: tuple, forward: Callable
         return program(values).numpy()
 
     return run
+
+
+def params_from_checkpoint(path: str, m_graphs: int) -> dict:
+    """A checkpoint's parameters as a ``state_dict`` of ``m_graphs``
+    branches (the optimizer blob skipped)."""
+    _, params, _ = load_checkpoint(path, load_opt_state=False)
+    return from_jax_params(params, m_graphs)
+
+
+def release_programs(generation: "Generation") -> "Generation":
+    """``generation`` without its programs and pool: what a closed engine
+    keeps (its number, for reports)."""
+    return dataclasses.replace(generation, programs={}, pool=None)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -297,7 +315,7 @@ class ServingEngine:
     """
 
     def __init__(self, forwards, model, normalizer, expected, config, device, *,
-                 graphs: bool = False, fault_plan=None):
+                 graphs: bool = False, fault_plan=None, global_budget=None):
         # bucket -> forward(model, history): each rung's forward
         self._forwards = dict(forwards)
         #: whether each generation's rungs are captured CUDA graphs
@@ -314,8 +332,10 @@ class ServingEngine:
         # are atomic)
         self._current = self._generation(0, model)
         self.admission = (
-            AdmissionController(config, self.stats, self._buckets)
-            if config.deadline_ms is not None or config.queue_bound_rows
+            AdmissionController(config, self.stats, self._buckets,
+                                global_budget=global_budget)
+            if (config.deadline_ms is not None or config.queue_bound_rows
+                or global_budget is not None)
             else None
         )
         self._fault_plan = fault_plan if fault_plan is not None and fault_plan.active else None
@@ -360,7 +380,8 @@ class ServingEngine:
 
     @classmethod
     def from_forecaster(cls, fc, supports, *, config=None, city=None, device=None,
-                        graphs: Optional[bool] = None, fault_plan=None) -> "ServingEngine":
+                        graphs: Optional[bool] = None, fault_plan=None,
+                        global_budget=None) -> "ServingEngine":
         """Engine over a :class:`~stmgcn_tpu_torch.inference.Forecaster`
         (over one city of a heterogeneous checkpoint, whose normalizer and
         region count it bakes in: ``city=``, checked as
@@ -375,8 +396,10 @@ class ServingEngine:
         captures one CUDA graph per rung here and per rung at every swap
         (``None``: on for CUDA; ``True`` on the CPU raises); ``graphs=False``
         runs each rung eagerly. ``fault_plan`` is a
-        :class:`~stmgcn_tpu_torch.resilience.ServeFaultPlan`. The drift
-        monitor is attached when the checkpoint carries a
+        :class:`~stmgcn_tpu_torch.resilience.ServeFaultPlan`;
+        ``global_budget`` a :class:`~stmgcn_tpu_torch.serving.admission.GlobalBudget`
+        the engine's admission draws down (with engines sharing it). The
+        drift monitor is attached when the checkpoint carries a
         ``health_baseline`` and its config enables ``health.drift``.
         """
         device = resolve_device(device)
@@ -405,7 +428,7 @@ class ServingEngine:
         forward = _bucket_program(sup_dev, device)
         served = copy.deepcopy(model).to(device).eval()
         engine = cls({b: forward for b in cfg.buckets}, served, normalizer, expected, cfg,
-                     device, graphs=graphs, fault_plan=fault_plan)
+                     device, graphs=graphs, fault_plan=fault_plan, global_budget=global_budget)
         baseline = getattr(fc, "health_baseline", None)
         health = getattr(fc.config, "health", None)
         if baseline is not None and health is not None and health.drift:
@@ -461,6 +484,12 @@ class ServingEngine:
     def m_graphs(self) -> int:
         """The served model's branch count (what a checkpoint tree needs)."""
         return self._current.model.m_graphs
+
+    def params_from_checkpoint(self, path: str) -> dict:
+        """The parameters of checkpoint ``path`` as the served model's
+        ``state_dict`` (CPU tensors, what ``swap_params`` takes; the JAX
+        engine's ``_params_template`` load). Raises on a corrupt file."""
+        return params_from_checkpoint(path, self.m_graphs)
 
     def watch_checkpoints(self, out_dir: str, *, poll_s: Optional[float] = None,
                           log=None) -> CheckpointWatcher:
@@ -617,11 +646,15 @@ class ServingEngine:
         return (out, gen) if with_generation else out
 
     def close(self) -> None:
+        """Stop the watcher and the batcher, and release the generation's
+        programs (its graph pool's memory returns to the allocator once no
+        dispatch still holds it)."""
         if not self._closed:
             self._closed = True
             if self._watcher is not None:
                 self._watcher.stop()
             self._batcher.close()
+            self._current = release_programs(self._current)
 
     def __enter__(self) -> "ServingEngine":
         return self

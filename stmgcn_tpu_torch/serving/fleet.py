@@ -36,10 +36,10 @@ One drift monitor (:meth:`FleetServingEngine.enable_drift`) keeps a sketch
 per city: each dispatch's segments are observed over their city's real-node
 slice, after the readback. A :class:`~stmgcn_tpu_torch.resilience.ServeFaultPlan`
 (``fault_plan=``) reaches every class's micro-batcher, each counting its
-own dispatch ordinals, and the checkpoint watcher.
-
-Not ported: a global budget across the classes (``global_budget=``; it
-belongs to the serving federation), which raises by name.
+own dispatch ordinals, and the checkpoint watcher. A
+:class:`~stmgcn_tpu_torch.serving.admission.GlobalBudget`
+(``global_budget=``) is shared by every class's admission controller, and
+by every engine of a replica tier that was given it.
 """
 
 from __future__ import annotations
@@ -62,6 +62,8 @@ from stmgcn_tpu_torch.serving.engine import (
     CheckpointWatcher,
     Generation,
     ServingEngine,
+    params_from_checkpoint,
+    release_programs,
     rung_program,
     swapped_copy,
 )
@@ -106,7 +108,7 @@ class FleetServingEngine:
 
     def __init__(self, plan, groups, forwards, batch_buckets, normalizers, city_n, seq_len,
                  input_dim, config, models, m_graphs: int, *, graphs: bool, device,
-                 fault_plan=None):
+                 fault_plan=None, global_budget=None):
         #: the shape-class plan (the extra exact-fit classes of unassigned
         #: and tiled cities appear in ``groups`` only)
         self.plan = plan
@@ -137,9 +139,11 @@ class FleetServingEngine:
         self._watcher: Optional[CheckpointWatcher] = None
         #: per-class telemetry (bucket keys are batch rungs)
         self.class_stats = {ci: EngineStats() for ci in range(len(self._groups))}
-        slo = config.deadline_ms is not None or config.queue_bound_rows
+        slo = (config.deadline_ms is not None or config.queue_bound_rows
+               or global_budget is not None)
         self.class_admission = {
-            ci: AdmissionController(config, self.class_stats[ci], self._buckets) if slo else None
+            ci: AdmissionController(config, self.class_stats[ci], self._buckets,
+                                    global_budget=global_budget) if slo else None
             for ci in range(len(self._groups))
         }
         self._fault_plan = fault_plan if fault_plan is not None and fault_plan.active else None
@@ -196,16 +200,15 @@ class FleetServingEngine:
         graph per (class, batch rung) here and at every swap (``None``: on
         for CUDA; ``True`` on the CPU raises); ``graphs=False`` runs them
         eagerly. ``fault_plan`` is a
-        :class:`~stmgcn_tpu_torch.resilience.ServeFaultPlan`; the drift
-        monitor is attached when the checkpoint carries a
-        ``health_baseline`` and its config enables ``health.drift``.
+        :class:`~stmgcn_tpu_torch.resilience.ServeFaultPlan`;
+        ``global_budget`` a :class:`~stmgcn_tpu_torch.serving.admission.GlobalBudget`
+        every class's admission draws down. The drift monitor is attached
+        when the checkpoint carries a ``health_baseline`` and its config
+        enables ``health.drift``.
         """
         from stmgcn_tpu_torch.data.fleet import plan_shape_classes
         from stmgcn_tpu_torch.experiment import build_model
 
-        if global_budget is not None:
-            raise NotImplementedError(
-                "FleetServingEngine global_budget= is not ported yet (ROADMAP.md A10)")
         device = resolve_device(device)
         graphs = resolve_graphs(graphs, device)
         cfg = ServingEngine._resolve_config(
@@ -265,7 +268,7 @@ class FleetServingEngine:
                                              n_real_dev=n_real)
         engine = cls(plan, groups, forwards, cfg.buckets, fc.normalizers, n_nodes, fc.seq_len,
                      fc.derived["input_dim"], cfg, models, m, graphs=graphs, device=device,
-                     fault_plan=fault_plan)
+                     fault_plan=fault_plan, global_budget=global_budget)
         baseline = getattr(fc, "health_baseline", None)
         health = getattr(fc.config, "health", None)
         if baseline is not None and health is not None and health.drift:
@@ -310,6 +313,11 @@ class FleetServingEngine:
         REGISTRY.counter("serving.swaps").inc()
         REGISTRY.gauge("serving.generation").set(gen)
         return gen
+
+    def params_from_checkpoint(self, path: str) -> dict:
+        """The parameters of checkpoint ``path`` as the served models'
+        ``state_dict`` (:meth:`ServingEngine.params_from_checkpoint`)."""
+        return params_from_checkpoint(path, self.m_graphs)
 
     def watch_checkpoints(self, out_dir: str, *, poll_s: Optional[float] = None,
                           log=None) -> CheckpointWatcher:
@@ -450,12 +458,15 @@ class FleetServingEngine:
         return (out, gen) if with_generation else out
 
     def close(self) -> None:
+        """Stop the watcher and every batcher, and release the generation's
+        programs (:meth:`ServingEngine.close`)."""
         if not self._closed:
             self._closed = True
             if self._watcher is not None:
                 self._watcher.stop()
             for b in self._batchers.values():
                 b.close()
+            self._current = release_programs(self._current)
 
     def __enter__(self) -> "FleetServingEngine":
         return self

@@ -1,12 +1,19 @@
 """Training and evaluation: the optimizer, the steps, the epoch loop and
-the metrics, and the checkpoint files both packages read and write
-(counterpart of ``stmgcn_tpu/train``, fp32 on one device)."""
+the metrics, the checkpoint files both packages read and write, and the
+continual loop's fine-tune side (counterpart of ``stmgcn_tpu/train``, on
+one device)."""
 
 from stmgcn_tpu_torch.train.checkpoint import (
     CorruptCheckpointError,
     load_checkpoint,
     load_latest_verified,
     save_checkpoint,
+)
+from stmgcn_tpu_torch.train.continual import (
+    ContinualDaemon,
+    ContinualTrainer,
+    closed_loop_smoke,
+    make_holdout_eval,
 )
 from stmgcn_tpu_torch.train.metrics import MAE, MAPE, MSE, PCC, RMSE, regression_report
 from stmgcn_tpu_torch.train.step import (
@@ -22,6 +29,8 @@ from stmgcn_tpu_torch.train.trainer import CitySupports, Trainer
 
 __all__ = [
     "CitySupports",
+    "ContinualDaemon",
+    "ContinualTrainer",
     "CorruptCheckpointError",
     "LOSSES",
     "MAE",
@@ -31,10 +40,12 @@ __all__ = [
     "PCC",
     "RMSE",
     "Trainer",
+    "closed_loop_smoke",
     "eval_step",
     "gather_window_batch",
     "load_checkpoint",
     "load_latest_verified",
+    "make_holdout_eval",
     "make_optimizer",
     "masked_loss",
     "regression_report",

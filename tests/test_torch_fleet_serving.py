@@ -11,8 +11,8 @@ demand units (a normalizer range of ~1e2; the port's padded rung sums in
 another order than each city's own shape); routing, buckets, cross-city
 coalescing, the oversized split, private classes for unassigned cities,
 validation errors, a homogeneous checkpoint refused, support-shape
-mismatches, a fleet-wide ``swap_params`` and ``watch_checkpoints``, and the
-unported options refused by name.
+mismatches, a ``GlobalBudget`` shared by every class, and a fleet-wide
+``swap_params`` and ``watch_checkpoints``.
 
 Tiled cities (``tests/test_tiling.py:265-287``'s fleet, narrow widths): the
 plans are grown by ``pad_to`` and widened by ``with_block_cols`` to JAX's
@@ -51,6 +51,7 @@ from stmgcn_tpu_torch.experiment import build_dataset, build_model, build_suppor
 from stmgcn_tpu_torch.ops import SupportConfig
 from stmgcn_tpu_torch.models import to_jax_params
 from stmgcn_tpu_torch.ops.tiling import TiledSupports
+from stmgcn_tpu_torch.serving import GlobalBudget
 from stmgcn_tpu_torch.train.checkpoint import save_checkpoint
 
 torch.set_num_threads(1)
@@ -183,8 +184,13 @@ def test_validation_errors(fleet_setup, engines):
         FleetServingEngine.from_forecaster(fc, sups[:2], device="cpu")
     with pytest.raises(ValueError, match="city 1"):
         FleetServingEngine.from_forecaster(fc, [sups[0], sups[0], sups[2]], device="cpu")
-    with pytest.raises(NotImplementedError, match="global_budget"):
-        FleetServingEngine.from_forecaster(fc, sups, device="cpu", global_budget=object())
+    budget = GlobalBudget(8)  # one tier budget, drawn down by every class
+    with FleetServingEngine.from_forecaster(fc, sups, config=ServingConfig(**LADDER),
+                                            device="cpu", global_budget=budget) as shared:
+        controllers = list(shared.class_admission.values())
+        assert len(controllers) == 2 and all(c._global is budget for c in controllers)
+        shared.predict(np.zeros((4, fc.seq_len, n_nodes[0], 1), np.float32), city=0)
+        assert budget.snapshot()["peak"] == 4 and budget.snapshot()["outstanding"] == 0
     with pytest.raises(ValueError, match="pass city="):
         fc.serving_engine(sups[0], device="cpu")
 

@@ -20,11 +20,12 @@
   captured through ``tests/test_torch_graphs.py``'s stand-in pool: a
   held-out city silent, a shifted one firing, the reset on
   ``swap_params``, and the wiring from a ``health.drift`` checkpoint;
-- the ``health``/``obs`` report subcommands, and the config's ``health``
-  section and the ``obs``/``continual``/``federation`` refusals.
+- the ``health``/``obs`` report subcommands, and the config's ``health``,
+  ``continual`` and ``federation`` sections and the ``obs`` refusals.
 """
 
 import copy
+import dataclasses
 import json
 
 import jax
@@ -33,6 +34,7 @@ import numpy as np
 import pytest
 import torch
 
+import stmgcn_tpu.config as jax_config
 from stmgcn_tpu.config import preset as jax_preset
 from stmgcn_tpu.experiment import build_trainer as jax_build_trainer
 from stmgcn_tpu.inference import Forecaster as JaxForecaster
@@ -452,15 +454,31 @@ def test_health_section_reads():
     assert not HealthConfig().violations()
 
 
-@pytest.mark.parametrize("section,field,value", [
-    ("continual", "cadence_s", 1.0), ("continual", "enabled", True),
-    ("federation", "replicas", 5)])
-def test_unported_section_set_away_from_its_defaults_raises(section, field, value):
+@pytest.mark.parametrize("section,field,value,match", [
+    ("continual", "cadence_s", 1.0, None),
+    ("continual", "enabled", True, "daemon would never fire"),
+    ("federation", "replicas", 5, None)])
+def test_unported_section_set_away_from_its_defaults_raises(section, field, value, match):
+    """The ``continual`` and ``federation`` sections (ported since the
+    closed loop and the federation were): a field set away from its default
+    reads as the JAX package reads it and round-trips, and a section that
+    breaks its ``violations()`` raises, in the JAX contract's words."""
     d = jax_preset("default").to_dict()
     ExperimentConfig.from_dict(d)  # the JAX defaults read as they are
     d[section][field] = value
-    with pytest.raises(ValueError, match=f"{section}.{field}"):
-        ExperimentConfig.from_dict(d)
+    if match is not None:  # the loop on without drift gauges to fire it
+        with pytest.raises(ValueError, match=f"{section} section: .*{match}"):
+            ExperimentConfig.from_dict(d)
+        d["health"].update(enabled=True, drift=True)
+    cfg = ExperimentConfig.from_dict(d)
+    assert getattr(getattr(cfg, section), field) == value
+    assert ExperimentConfig.from_dict(cfg.to_dict()) == cfg
+    want = getattr(jax_config, f"{section.capitalize()}Config")(**d[section])
+    assert dataclasses.asdict(getattr(cfg, section)) == dataclasses.asdict(want)
+    bad = dict(d, **{section: dict(d[section], **(
+        {"ring_capacity": 0} if section == "continual" else {"vnodes": 0}))})
+    with pytest.raises(ValueError, match=f"{section} section: "):
+        ExperimentConfig.from_dict(bad)
 
 
 @pytest.mark.parametrize("fields,match", [
