@@ -267,7 +267,7 @@ did. 41 runs after phase 19, 42 after phase 39, 43-44 after phase 40 and
     block and rung-1 p50s in turns.
 
 Phases 46-48 are the slice of the closed continual loop and the serving
-federation, run last. Every fp32 record carries the launches of 47 as
+federation, run after phase 45. Every fp32 record carries the launches of 47 as
 ``continual_launches`` and of 48 as ``federation_launches``:
 
 46. the ingest ring (``SeriesRing``) at the dense city (N = 256) and the
@@ -301,11 +301,40 @@ federation, run last. Every fp32 record carries the launches of 47 as
     answering engine's direct one, the ``predict_many`` p50 over the three
     cities, and the reserved memory back down after ``close()``.
 
+Phases 49-51 are the slice of the deployment and measurement path, run
+last. The B1 records carry the launches of 49 as ``export_launches`` (the
+fp32 record the fp32 artifact's, the xla record the bf16 artifact's; the
+bf16-storage record 0, as an artifact runs the xla form):
+
+49. export: the ``default`` flagship (dense city, N = 256, seeded random
+    weights) exported in fp32 and in bf16 with ``export_forecaster``, each
+    file loaded into a fresh ``ExportedForecaster`` on the card and on the
+    CPU; requests of 1, 3, 7 and 64 rows from one program (its batch
+    symbolic, one B1 operator node in it) against ``Forecaster.predict``
+    on the card (fp32 at SERVE_RTOL/SERVE_ATOL, bf16 within BF16_SERVE_MAX
+    and BF16_SERVE_NORM, the fp32 model the control they must reject) and
+    against the CPU load; B1's launches per predict (one; the bf16 file in
+    the xla form); each file's bytes and its export and load seconds; a
+    graphed ``ServingEngine.from_artifact`` beside ``from_forecaster``
+    (every rung, launches equal, each rung's p50 in turns, no capture after
+    warmup), ``ex.predict`` through the engine, ``swap_params`` refused;
+    rung 1 through the B1 operator against the launch called directly
+    (the route before the operator), graphed and eager, in turns;
+50. ``python -m stmgcn_tpu_torch.cli serve-bench --full-model --rows 16
+    --soak --federation 2`` in a subprocess: one JSON line, every leg's
+    throughput, the soak's hung callers, hot swap and per-generation
+    parity, the closed-loop drill's promotion and ``nonfinite`` rejection,
+    the federation's drills; the legs' p50s and speedups printed;
+51. the CLI at the smoke preset with ``--profile DIR``: the Chrome trace
+    names B1 and B2; the MFU of phase 31's graphed dense block steps (fp32
+    against the TF32 and fp32 peaks, bf16 against the bf16 peak), from
+    ``stmgcn_step_flops``.
+
 Checkpoints go to a temporary directory that the run removes.
 
 The last three lines are the card, one JSON object describing each kernel
 form (B1's and B2's fp32 records carry phase 3b's shapes as
-``route_shapes``; the bf16 forms' records carry ``"dtype": "bfloat16"``,
+``route_shapes``, the B1 records their ``export_launches``; the bf16 forms' records carry ``"dtype": "bfloat16"``,
 the xla forms' ``"form": "xla"`` too), and ``{"ok": true, "device":
 {...}}``. There is no CPU mode: without a CUDA
 device the script exits non-zero before printing any result.
@@ -3235,6 +3264,7 @@ def train_ab(make_trainer, what: str, parts, blocks: int = AB_BLOCKS, bitwise: b
     p50 = ab_p50({r: lambda t=t: t._run_block(block) for r, t in trainers.items()}, 8)
     print(f"{what}, p50 of a step inside a block of {S} (block time / {S}): " + p50_text(
         {r: v / S for r, v in p50.items()}))
+    STEP_P50[what] = p50["graphed"] / S
     p50 = ab_p50({r: lambda t=t: t.train_batch(batch) for r, t in trainers.items()}, 12)
     print(f"{what}, p50 of a one-step program (a tail step): {p50_text(p50)}")
     for route, trainer in trainers.items():
@@ -5150,6 +5180,356 @@ def federation_phase(device) -> dict:
     return counts
 
 
+# -- export artifacts, serve-bench, profile and MFU (phases 49-51) -------------
+
+#: phase 49: the requests each artifact answers (batches 1, 3 and 7 from one
+#: symbolic batch, and the top rung), and the rung-1 calls per route and turn
+EXPORT_BATCHES = (1, 3, 7, 64)
+OP_AB_CALLS = 40
+#: the graphed block-step p50 (ms) of each dense training A/B of phase 31, by
+#: its name: phase 51's MFU reads it
+STEP_P50: dict = {}
+
+
+def export_phase(device) -> dict:
+    """Phase 49: the ``default`` flagship (dense city, N = 256, seeded random
+    weights) exported in fp32 and in bf16 (the xla form of B1), each file
+    loaded into a fresh ``ExportedForecaster`` on the card and on the CPU:
+    requests of EXPORT_BATCHES rows against ``Forecaster.predict`` on the
+    card (fp32 at SERVE_RTOL/SERVE_ATOL, bf16 within BF16_SERVE_MAX and
+    BF16_SERVE_NORM with the fp32 model as the control the limits must
+    reject) and against the CPU load of the same file; B1's launches per
+    predict (one, and in bf16 one in the xla form); the file's bytes, the
+    export and load seconds. Then a graphed ``from_artifact`` engine beside
+    a graphed ``from_forecaster`` one (every rung equal, the launches equal,
+    each rung's p50 in turns, no capture after warmup), the artifact's own
+    ``predict`` routed through the engine, ``swap_params`` refused, and
+    rung 1 through the B1 operator against the launch called directly from
+    Python (the route before the operator). Returns the launches of the
+    export path (``fp32``: B1 in fp32, ``xla``: B1 in the xla form)."""
+    import torch
+
+    from stmgcn_tpu_torch import Forecaster, ServingConfig, ServingEngine, preset
+    from stmgcn_tpu_torch.experiment import build_dataset, build_model, build_supports
+    from stmgcn_tpu_torch.export import ExportedForecaster, export_forecaster
+    from stmgcn_tpu_torch.obs import graphmon
+
+    cfg = preset("default")
+    cfg.data.rows, cfg.data.serial_len = GRID, SERIAL
+    ds = build_dataset(cfg)
+    supports = build_supports(cfg, ds)
+    derived = {"input_dim": ds.n_feats, "n_nodes": ds.n_nodes}
+    model = build_model(cfg, ds.n_feats, device=device, generator=torch.Generator().manual_seed(0))
+    state = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+    windows = ds.denormalize(ds.arrays("test")[0])
+    fcs = {"fp32": Forecaster(model, state, ds.normalizer, cfg, derived, device=device)}
+    cfg16 = preset("default")
+    cfg16.data.rows, cfg16.data.serial_len, cfg16.model.dtype = GRID, SERIAL, "bfloat16"
+    fcs["bf16"] = Forecaster(build_model(cfg16, ds.n_feats, device=device), state,
+                             ds.normalizer, cfg16, derived, device=device)
+    per_predict = {"fp32": {"B1": 1}, "bf16": {"B1": 1, "B1 xla": 1}}
+    launches = {"fp32": 0, "xla": 0}
+    loaded = {}
+    for name, fc in fcs.items():
+        path = scratch(f"flagship_{name}.stmgx")
+        t0 = time.perf_counter()
+        export_forecaster(fc, path)
+        export_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ex = ExportedForecaster.load(path)
+        load_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ex_cpu = ExportedForecaster.load(path, device="cpu")
+        cpu_load_s = time.perf_counter() - t0
+        if ex.device.type != "cuda" or ex.meta["dtype"] != ("float32" if name == "fp32"
+                                                            else "bfloat16"):
+            fail(f"export {name}: loaded on {ex.device}, meta dtype {ex.meta['dtype']}")
+        nodes = [n.target for n in ex.exported.graph.nodes if n.op == "call_function"]
+        n_ops = sum("stmgcn.fused_lstm_fwd" in str(t) for t in nodes)
+        if n_ops != 1:
+            fail(f"export {name}: the program holds {n_ops} B1 operator nodes, expected one")
+        texts = []
+        for b in EXPORT_BATCHES:
+            rows = windows[:b]
+            reset_counts()
+            got = ex.predict(supports, rows)
+            counts = read_counts()
+            check_counts(counts, per_predict[name], {}, 1, 0, f"export {name}, predict({b})")
+            launches["fp32" if name == "fp32" else "xla"] += 1
+            want, cpu = fc.predict(supports, rows), ex_cpu.predict(supports, rows)
+            if got.shape != want.shape or got.dtype != np.float32:
+                fail(f"export {name}, predict({b}): {got.shape} {got.dtype}, want {want.shape}")
+            if name == "fp32":
+                serve_check(got, want, f"export fp32, predict({b}), artifact vs Forecaster")
+                serve_check(got, cpu, f"export fp32, predict({b}), card vs CPU load")
+                texts.append(f"{b} rows: max |err| vs Forecaster {np.abs(got - want).max():.3e}, "
+                             f"vs CPU {np.abs(got - cpu).max():.3e}")
+            else:
+                control = fcs["fp32"].predict(supports, rows)
+                a = bf16_check(got, want, f"export bf16, predict({b}), artifact vs Forecaster",
+                               control=control)
+                c = bf16_check(got, cpu, f"export bf16, predict({b}), card vs CPU load",
+                               control=control)
+                texts.append(f"{b} rows: vs Forecaster {a}; vs CPU {c}")
+        print(f"export {name}: {os.path.getsize(path)} bytes, export {export_s:.3f} s (traced on "
+              f"the CPU), load {load_s:.3f} s on the card, {cpu_load_s:.3f} s on the CPU; "
+              f"launches per predict {counts_text(per_predict[name])}, held at every batch")
+        for text in texts:
+            print(f"export {name}, {text}")
+        loaded[name] = ex
+
+    config = ServingConfig(buckets=BUCKETS, max_batch=BUCKETS[-1])
+    requests = {b: windows[:b] for b in BUCKETS}
+    ex = loaded["fp32"]
+    with ServingEngine.from_artifact(ex, supports, config=config) as art, \
+            fcs["fp32"].serving_engine(supports, config=config, device=device) as ref:
+        if not art.graphs or not ref.graphs:
+            fail("export: the from_artifact or from_forecaster engine is not graphed")
+        graphmon.mark_warmup_complete()
+        outs, counts = {}, {}
+        for name, engine in (("artifact", art), ("forecaster", ref)):
+            reset_counts()
+            outs[name] = {b: engine.predict_direct(rows) for b, rows in requests.items()}
+            counts[name] = read_counts()
+        for b in BUCKETS:
+            serve_check(outs["artifact"][b], outs["forecaster"][b],
+                        f"export, rung {b}, from_artifact vs from_forecaster")
+        if counts["artifact"] != counts["forecaster"]:
+            fail(f"export: launches from_artifact {counts_text(counts['artifact'])} vs "
+                 f"from_forecaster {counts_text(counts['forecaster'])}")
+        launches["fp32"] += counts["artifact"]["B1"]
+        p50s = {b: ab_p50({"artifact": lambda r=rows: art.predict_direct(r),
+                           "forecaster": lambda r=rows: ref.predict_direct(r)})
+                for b, rows in requests.items()}
+        art.stats.reset()
+        reset_counts()
+        routed = ex.predict(supports, windows[:3])
+        if art.stats.snapshot()["totals"]["requests"] != 1:
+            fail("export: ex.predict did not route through the from_artifact engine")
+        serve_check(routed, art.predict_direct(windows[:3]),
+                    "export, ex.predict through the engine")
+        launches["fp32"] += read_counts()["B1"]
+        try:
+            art.swap_params(state)
+        except RuntimeError as e:
+            refused = str(e)
+        else:
+            fail("export: a from_artifact engine accepted swap_params")
+        recaptures = graphmon.snapshot()["recaptures_after_warmup"]
+        if recaptures:
+            fail(f"export: {recaptures} captures after warmup")
+        print(f"export, graphed from_artifact vs from_forecaster, same weights: every rung within "
+              f"rtol {SERVE_RTOL}, atol {SERVE_ATOL}; launches equal "
+              f"({counts_text(counts['artifact'])} over {len(BUCKETS)} rungs); graph pools "
+              f"{art.graph_pool_bytes} and {ref.graph_pool_bytes} bytes; 0 captures after warmup; "
+              f"ex.predict routed through the engine; swap_params refused ({refused[:60]}...)")
+        print("export, p50 dispatch per rung (ms, host clock, synchronized, in turns): "
+              + "; ".join(f"rung {b} from_artifact {p['artifact']:.4f}, from_forecaster "
+                          f"{p['forecaster']:.4f}" for b, p in p50s.items()))
+    op_route_ab(device, fcs["fp32"], supports, windows)
+    return launches
+
+
+def op_route_ab(device, fc, supports, windows) -> None:
+    """Phase 49, end: rung 1 of the dense flagship, graphed and eager, with
+    B1 launched through its operator (``torch.ops.stmgcn.fused_lstm_fwd``)
+    and called directly from Python as before the operator existed (the
+    operator's CUDA implementation as a plain function): outputs bitwise
+    equal, the same launches, each route's p50 in turns."""
+    import torch
+
+    from stmgcn_tpu_torch import ServingConfig
+
+    fl = importlib.import_module("stmgcn_tpu_torch.ops.fused_lstm")
+    ns, packet = torch.ops.stmgcn, torch.ops.stmgcn.fused_lstm_fwd
+    config = ServingConfig(buckets=(1,), max_batch=1)
+    rows = windows[:1]
+    routes = {"operator": packet, "direct": fl._fwd_cuda}
+    engines, outs, counts = {}, {}, {}
+    try:
+        for route, launch in routes.items():
+            ns.fused_lstm_fwd = launch
+            for graphs in (True, False):
+                key = (route, "graphed" if graphs else "eager")
+                engines[key] = fc.serving_engine(supports, config=config, device=device,
+                                                 graphs=graphs)
+                reset_counts()
+                outs[key] = engines[key].predict_direct(rows)
+                counts[key] = read_counts()
+        ns.fused_lstm_fwd = packet
+        want = outs["operator", "graphed"]
+        for key, out in outs.items():
+            if not np.array_equal(out, want) or counts[key] != counts["operator", "graphed"]:
+                fail(f"B1 operator vs direct launch, {key}: outputs bitwise equal "
+                     f"{np.array_equal(out, want)}, launches {counts_text(counts[key])}")
+        times: dict = {key: [] for key in engines}
+        for route in ("operator", "direct", "direct", "operator"):
+            ns.fused_lstm_fwd = routes[route]
+            for mode in ("graphed", "eager"):
+                engine = engines[route, mode]
+                for _ in range(OP_AB_CALLS // 2):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    engine.predict_direct(rows)
+                    torch.cuda.synchronize()
+                    times[route, mode].append((time.perf_counter() - t0) * 1e3)
+        ns.fused_lstm_fwd = packet
+        p50 = {key: float(np.median(t)) for key, t in times.items()}
+        print("B1 operator vs direct launch (the route before it), dense flagship rung 1, p50 "
+              "dispatch (host clock, synchronized, in turns): " + "; ".join(
+                  f"{mode}: operator {p50['operator', mode]:.4f} ms, direct "
+                  f"{p50['direct', mode]:.4f} ms" for mode in ("graphed", "eager"))
+              + "; outputs bitwise equal, launches equal")
+    finally:
+        ns.fused_lstm_fwd = packet
+        for engine in engines.values():
+            engine.close()
+
+
+#: phase 50: serve-bench at the default preset's full width on the dense
+#: city, with the soak (and its closed-loop drill) and a 2-replica federation
+SERVE_BENCH_ARGS = ("--full-model", "--rows", str(GRID), "--soak", "--federation", "2")
+SERVE_BENCH_LEGS = ("forecaster/b1", "exported/b1", "engine/b1", "forecaster/b16",
+                    "exported/b16", "engine/b16", "engine/microbatch16")
+FLEET_BENCH_LEGS = ("naive/b1-alternating", "engine/b1-alternating",
+                    "engine/microbatch-mixed-city")
+
+
+def serve_bench_phase() -> dict:
+    """Phase 50: ``python -m stmgcn_tpu_torch.cli serve-bench`` with
+    SERVE_BENCH_ARGS in a subprocess on the card: exactly one JSON line on
+    stdout; every leg (and the fleet's) with predictions_per_sec > 0 and
+    the fleet's per-city parity; the soak with no hung client, its hot swap
+    applied and each generation bitwise the Forecaster of its parameters;
+    its closed-loop drill with one promotion and one ``nonfinite``
+    rejection; every federation drill passing (the poisoned candidate
+    rejected once with every replica untouched, a replica killed, the herd
+    spike fired, the drain flushed, the spare's handover flushed, no
+    cross-generation response, the mid-soak promotion accepted, every city
+    serveable after). Prints the legs' p50s, the speedups, the soak's and
+    the federation's readings. Returns the record."""
+    repo = os.path.dirname(os.path.abspath(__file__))
+    cmd = [sys.executable, "-m", "stmgcn_tpu_torch.cli", "serve-bench", *SERVE_BENCH_ARGS]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=repo, capture_output=True, text=True, timeout=900)
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        fail(f"serve-bench: exit {proc.returncode}; stderr {proc.stderr[-3000:]}")
+    lines = [line for line in proc.stdout.splitlines() if line.strip()]
+    if len(lines) != 1:
+        fail(f"serve-bench printed {len(lines)} lines on stdout, expected one JSON line")
+    record = json.loads(lines[0])
+    legs, fleet = record["legs"], record["fleet"]
+    for name, group, want in (("legs", legs, SERVE_BENCH_LEGS),
+                              ("fleet legs", fleet["legs"], FLEET_BENCH_LEGS)):
+        bad = [k for k in want if not group.get(k, {}).get("predictions_per_sec", 0) > 0]
+        if bad or set(group) != set(want):
+            fail(f"serve-bench {name}: {sorted(group)}, without throughput: {bad}")
+    soak, fed = record["soak"], record["federation"]
+    swap, loop = soak["hot_swap"], soak["continual"]
+    drills = fed["drills"]
+    checks = {
+        "fleet parity": fleet["parity"],
+        "soak: no hung client": soak["hung_clients"] == 0,
+        "soak: swap applied": swap["swap_applied"] and swap["generation_after"] == 1,
+        "soak: per-generation parity": swap["parity_gen0"] and swap["parity_gen1"],
+        "continual: one promotion": loop["promotions"] == 1 and loop["generation"] == 1,
+        "continual: one nonfinite rejection": (loop["rejections"] == 1
+                                               and loop["rejection_reason"] == "nonfinite"),
+        "federation: tier rejection": (not drills["tier_rejection"]["accepted"]
+                                       and drills["tier_rejection"]["rejections_counted"] == 1
+                                       and drills["tier_rejection"]["generations_untouched"]),
+        "federation: replica kill": drills["replica_kill"]["kills"] == 1,
+        "federation: herd spike": drills["herd"]["extra_ok"] + drills["herd"]["extra_shed"] > 0,
+        "federation: drain": drills["drain"]["flushed"] and not drills["drain"]["watcher_wedged"],
+        "federation: spare re-shard": (
+            drills["reshard_promote"]["handover_flushed"]
+            and drills["reshard_promote"]["burst_cross_generation"] == 0),
+        "federation: no hung caller, no cross-generation response": (
+            fed["soak"]["hung_clients"] == 0 and fed["soak"]["cross_generation"] == 0),
+        "federation: mid-soak promotion": (isinstance(fed["promotion"]["mid_soak"], dict)
+                                           and fed["promotion"]["mid_soak"]["accepted"]),
+        "federation: every city serveable": (fed["recovery"]["cities_serveable"]
+                                             == fed["recovery"]["cities_total"]),
+    }
+    bad = [k for k, ok in checks.items() if not ok]
+    if bad:
+        fail(f"serve-bench record: {bad}; soak {json.dumps(soak)[:1500]}; federation "
+             f"{json.dumps(fed)[:1500]}")
+    print(f"serve-bench ({' '.join(SERVE_BENCH_ARGS)}): exit 0 in {seconds:.1f} s, one JSON line; "
+          f"shapes {json.dumps(record['shapes'])}; every check held ({len(checks)})")
+    print("serve-bench legs, p50 ms / predictions per s: " + "; ".join(
+        f"{k} {v['p50_ms']} / {v['predictions_per_sec']}" for k, v in legs.items()))
+    print(f"serve-bench speedup {json.dumps(record['speedup'])}; fleet legs: " + "; ".join(
+        f"{k} {v['p50_ms']} ms / {v['predictions_per_sec']} per s" for k, v in
+        fleet["legs"].items()) + f"; fleet speedup {json.dumps(fleet['speedup'])}, shape classes "
+        f"{json.dumps(fleet['cities']['shape_classes'])}")
+    print(f"serve-bench soak: calibration {json.dumps(soak['calibration'])}, admitted "
+          f"{soak['admitted']}, shed {json.dumps(soak['shed'])}, admitted latency "
+          f"{json.dumps(soak['admitted_latency_ms'])} vs SLO {soak['slo_target_ms']} ms "
+          f"(met {soak['slo_met']}), responses by generation "
+          f"{json.dumps(swap['responses_by_generation'])}, contended {soak['contended']}; "
+          "continual " + json.dumps({k: loop[k] for k in (
+              "promotions", "rejections", "rejection_reason", "generation")}))
+    print(f"serve-bench federation: calibration {json.dumps(fed['calibration'])}, capacity "
+          f"{json.dumps(fed['capacity'])}, outcomes {json.dumps(fed['soak']['outcomes'])}, "
+          f"request latency {json.dumps(fed['soak']['request_latency_ms'])} vs SLO "
+          f"{fed['soak']['slo_target_ms']} ms (met {fed['soak']['slo_met']}), drain "
+          f"{drills['drain']['drain_ms']} ms, handover "
+          f"{drills['reshard_promote']['handover_ms']} ms")
+    return record
+
+
+def profile_phase(root: str) -> None:
+    """Phase 51: ``python -m stmgcn_tpu_torch.cli --preset smoke --profile
+    DIR`` on the card (one epoch): the Chrome trace exists and names the B1
+    and B2 kernels; then the MFU of phase 31's graphed dense block steps
+    (fp32 and bf16): ``stmgcn_step_flops`` at the bench point over the
+    step's p50, against the TF32 and bf16 peaks of ``device_peak_flops``
+    (and the fp32-FMA peak beside the fp32 step's)."""
+    import glob
+
+    from stmgcn_tpu_torch.experiment import build_dataset
+    from stmgcn_tpu_torch.utils import device_peak_flops, mfu, stmgcn_step_flops
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    out, prof = os.path.join(root, "out"), os.path.join(root, "prof")
+    cmd = [sys.executable, "-m", "stmgcn_tpu_torch.cli", "--preset", "smoke", "--timesteps",
+           str(CLI_TIMESTEPS), "--epochs", "1", "--out-dir", out, "--profile", prof]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=repo, capture_output=True, text=True, timeout=600)
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        fail(f"cli --profile: exit {proc.returncode}; stderr {proc.stderr[-2000:]}")
+    traces = glob.glob(os.path.join(prof, "*.json"))
+    if len(traces) != 1:
+        fail(f"cli --profile wrote {traces}, expected one Chrome trace")
+    with open(traces[0]) as f:
+        text = f.read()
+    found = {part: sum(text.count(k) for k in keys) for part, keys in LSTM_PARTS.items()}
+    if not found["B1 forward"] or not found["B2 sweep"] or not found["B2 weight gradients"]:
+        fail(f"cli --profile: the trace does not name B1 and B2: {found}")
+    print(f"cli --profile (smoke preset, one epoch): exit 0 in {seconds:.1f} s, trace "
+          f"{os.path.basename(traces[0])} {len(text)} bytes, kernel name occurrences "
+          + ", ".join(f"{k} {v}" for k, v in found.items()))
+    cfg = flagship_config(BATCH)
+    ds = build_dataset(cfg)
+    m = cfg.model
+    flops = stmgcn_step_flops(BATCH, cfg.data.seq_len, ds.n_nodes, ds.n_feats, m.m_graphs,
+                              m.n_supports, m.lstm_hidden_dim, m.lstm_num_layers,
+                              m.gcn_hidden_dim, horizon=cfg.data.horizon)
+    texts = []
+    for name, peaks in (("fp32", ("tf32", "fp32")), ("bf16", ("bf16",))):
+        ms = STEP_P50.get(f"dense training, {name}")
+        if ms is None:
+            fail(f"MFU: phase 31 left no graphed {name} block-step p50")
+        texts.append(f"{name} step {ms:.4f} ms: " + ", ".join(
+            f"MFU {mfu(flops, ms / 1e3, device_peak_flops(precision=p)):.4f} of the {p} peak "
+            f"({device_peak_flops(precision=p) / 1e12:.1f} TFLOP/s)" for p in peaks))
+    print(f"MFU of the graphed dense block step (phase 31; batch {BATCH}, N={ds.n_nodes}, "
+          f"analytic {flops / 1e9:.3f} GFLOP per step): " + "; ".join(texts))
+
+
 def main() -> int:
     try:
         return run_phases()
@@ -5306,6 +5686,19 @@ def run_phases() -> int:
     loop_counts = closed_loop_phase(device)  # phase 47
     fed_counts = federation_phase(device)  # phase 48
     print(f"closed-loop and federation phases done at {time.perf_counter() - t_start:.1f} s")
+    # this slice's main path: the exported artifact on the card (its B1
+    # launches are the export_launches of the B1 records), then serve-bench
+    # and the profile in subprocesses, and the dense step's MFU
+    export_counts = export_phase(device)  # phase 49
+    records[0]["export_launches"] = export_counts["fp32"]
+    xla_records[0]["export_launches"] = export_counts["xla"]
+    bf16_records[0]["export_launches"] = 0  # an artifact runs the xla form, never this one
+    if not export_counts["fp32"] or not export_counts["xla"]:
+        fail(f"the exported programs did not launch B1: {export_counts}")
+    torch.cuda.empty_cache()
+    serve_bench_phase()  # phase 50
+    profile_phase(scratch("profile"))  # phase 51
+    print(f"export, serve-bench and profile phases done at {time.perf_counter() - t_start:.1f} s")
     if any(not r["launches"] for r in bf16_records):
         fail("a bf16 kernel form was not launched on its main path: " + ", ".join(
             f"{r['name']} {r['launches']}" for r in bf16_records))

@@ -1,4 +1,5 @@
-"""Command line entry point of the port: train, resume and test.
+"""Command line entry point of the port: train, resume, test, export and
+benchmark serving.
 
 The main-path subset of ``stmgcn_tpu/cli.py``, with the same flags and the
 same exit behaviour; ``--device`` takes the place of ``--platform``::
@@ -7,6 +8,9 @@ same exit behaviour; ``--device`` takes the place of ``--platform``::
     python -m stmgcn_tpu_torch.cli --preset default --out-dir output --resume
     python -m stmgcn_tpu_torch.cli --preset default --out-dir output --test-only
     python -m stmgcn_tpu_torch.cli --preset smoke --device cpu --timesteps 400 --epochs 1
+    python -m stmgcn_tpu_torch.cli --preset default --out-dir output --export m.stmgx
+    python -m stmgcn_tpu_torch.cli --preset default --out-dir output --profile prof/
+    python -m stmgcn_tpu_torch.cli serve-bench --full-model --rows 16 --soak --federation 2
     python -m stmgcn_tpu_torch.cli health output/health.jsonl
     python -m stmgcn_tpu_torch.cli obs trace.jsonl
 
@@ -21,14 +25,22 @@ report a ``health.jsonl`` stream and a span trace
 (:mod:`stmgcn_tpu_torch.obs.cli`); ``--trace-out PATH`` writes such a
 trace of the run. ``--checkify`` runs the in-program sanitizers
 (``train.checks``) and ``--debug-nans`` the eager debug mode
-(``train/trainer.py``). A flag of the JAX CLI that the port lacks (the
-mesh, window-placement, export and profiling ones) fails argument
-parsing, and a preset it lacks fails with ``preset()``'s error.
+(``train/trainer.py``). ``--profile DIR`` captures a ``torch.profiler``
+trace of the run (the kernels named) into ``DIR``; ``--export PATH``
+writes ``best.ckpt`` as a serving artifact after the results line
+(``stmgcn_tpu_torch/export.py``; one file per city of a heterogeneous
+checkpoint, ``PATH`` with ``.cityN`` before its suffix), and exits 1 if
+that fails. ``serve-bench`` is the serving benchmark
+(``stmgcn_tpu_torch/serving/bench.py``): one JSON record line on stdout. A
+flag of the JAX CLI that the port lacks (the mesh and window-placement
+ones) fails argument parsing, and a preset it lacks fails with
+``preset()``'s error.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import sys
 
@@ -185,6 +197,13 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--health-every-k", type=_positive_int, default=None, metavar="K",
                    help="health sampling cadence: every K-th block or step; implies "
                         "health telemetry on (default 1)")
+    p.add_argument("--profile", type=str, default=None, metavar="DIR",
+                   help="capture a torch.profiler trace of the run (host and CUDA "
+                        "activity, the kernels named) into DIR as a Chrome trace")
+    p.add_argument("--export", type=str, default=None, metavar="PATH",
+                   help="after training/testing, write the best checkpoint as a "
+                        "self-contained serving artifact (a torch.export program with "
+                        "the normalizer; see stmgcn_tpu_torch.export)")
     p.add_argument("--test-only", action="store_true",
                    help="skip training; evaluate <out-dir>/best.ckpt")
     p.add_argument("--print-config", action="store_true",
@@ -264,6 +283,11 @@ def config_from_args(args):
 
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
+    if argv and argv[0] == "serve-bench":
+        # the serving benchmark: one JSON record line on stdout
+        from stmgcn_tpu_torch.serving.bench import main as serve_bench_main
+
+        return serve_bench_main(argv[1:])
     if argv and argv[0] in ("obs", "health"):
         # the file reports (obs/cli.py)
         from stmgcn_tpu_torch.obs.cli import health_main
@@ -310,9 +334,16 @@ def main(argv=None) -> int:
         elif args.resume:
             meta = trainer.restore()
             print(f"Resumed from epoch {meta['epoch']} (best val {meta['best_val']:.5})")
-        if not args.test_only:
-            trainer.train()
-        results = trainer.test(modes=("train", "test"))
+        with contextlib.ExitStack() as stack:
+            if args.profile:
+                from stmgcn_tpu_torch.utils import trace
+
+                stack.enter_context(trace(args.profile))
+            if not args.test_only:
+                trainer.train()
+            results = trainer.test(modes=("train", "test"))
+        if args.profile:
+            print(f"profiler trace written to {args.profile}", file=sys.stderr)
     except Preempted as e:
         # the emergency checkpoint has landed: SIGTERM's conventional code
         print(f"preempted: {e}", file=sys.stderr)
@@ -328,7 +359,37 @@ def main(argv=None) -> int:
         n = trc.export_jsonl(cfg.obs.trace_path)
         print(f"trace written to {cfg.obs.trace_path} ({n} spans) — inspect with "
               f"`python -m stmgcn_tpu_torch.cli obs {cfg.obs.trace_path}`", file=sys.stderr)
+    # export last: a failed export must not cost the run its results line
+    if args.export and not export_best(cfg, args.export, args.device):
+        return 1
     return 0
+
+
+def export_best(cfg, path: str, device) -> bool:
+    """Write ``<out-dir>/best.ckpt`` as a serving artifact at ``path`` (one
+    file per city of a heterogeneous checkpoint); False, with the error on
+    stderr, when that fails."""
+    import os
+
+    from stmgcn_tpu_torch.export import export_forecaster
+    from stmgcn_tpu_torch.inference import Forecaster
+
+    try:
+        fc = Forecaster.from_checkpoint(os.path.join(cfg.train.out_dir, "best.ckpt"),
+                                        device=device)
+        if fc.normalizers is not None:
+            root, ext = os.path.splitext(path)
+            for c in range(len(fc.normalizers)):
+                city_path = f"{root}.city{c}{ext}"
+                export_forecaster(fc, city_path, city=c)
+                print(f"serving artifact written to {city_path}", file=sys.stderr)
+        else:
+            export_forecaster(fc, path)
+            print(f"serving artifact written to {path}", file=sys.stderr)
+    except Exception as e:  # noqa: BLE001 — reported, and the exit code says so
+        print(f"error: export failed: {type(e).__name__}: {e}", file=sys.stderr)
+        return False
+    return True
 
 
 if __name__ == "__main__":

@@ -7,8 +7,9 @@ carries a hash of the sources, the ``*.cuh`` headers beside them and the
 flags, so an edited source or header rebuilds and an unchanged one loads
 in milliseconds. Nothing here runs at import time:
 the CPU tests import every module on a host with no ``nvcc``.
-:func:`on_cuda` is every wrapper's choice between its kernel and its
-plain version.
+:func:`on_cuda` is the wrappers' choice between a kernel and its plain
+version (B1's operator leaves that choice to PyTorch's dispatcher, and
+its CUDA implementation checks its operands with :func:`on_cuda`).
 """
 
 from __future__ import annotations

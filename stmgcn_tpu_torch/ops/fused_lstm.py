@@ -24,11 +24,17 @@ Every operand may carry a leading branch axis ``M`` (what ``vmap`` over the
 model's branches gives the TPU kernel): all ``M`` branches then run in one
 launch over ``M * R`` rows, each CTA reading its branch's weights.
 
-:func:`fused_lstm` dispatches on where its tensors live: CUDA tensors
-launch the kernel (or raise — no fallback), CPU tensors take
+:func:`fused_lstm` launches the forward through one PyTorch operator,
+``torch.ops.stmgcn.fused_lstm_fwd`` (registered here through
+``torch.library``), whose implementation the dispatcher picks by where the tensors live: CUDA
+tensors launch the kernel (or raise — no fallback), CPU tensors take
 :func:`fused_lstm_reference`, the plain version the CPU tests and
-``chip_smoke.py`` hold the kernel against; :func:`fused_lstm_bwd` and
-:func:`fused_lstm_bwd_reference` are the backward's pair.
+``chip_smoke.py`` hold the kernel against. Being an operator, the launch
+survives ``torch.export``: an exported program keeps it as one node and
+picks the implementation where it runs (``stmgcn_tpu_torch/export.py``),
+and the launch count lives in the CUDA implementation, which the program
+calls. :func:`fused_lstm_bwd` and :func:`fused_lstm_bwd_reference` are the
+backward's pair.
 
 **Storage dtypes.** Every operand is float32 or every one bfloat16 (the
 storage dtype of ``x_proj0`` and the weights, as the JAX kernel follows
@@ -297,6 +303,97 @@ def _kernel_shapes(name, operands):
     return lead, math.prod(lead), R, T, L, H
 
 
+#: B1 as one PyTorch operator, ``torch.ops.stmgcn.fused_lstm_fwd``: the
+#: forward's operands, the form code (:func:`_form`) and whether the
+#: per-step residuals are wanted (they come back empty, ``(0,)``, without)
+_LIBRARY = torch.library.Library("stmgcn", "DEF")
+_LIBRARY.define(
+    "fused_lstm_fwd(Tensor x_proj0, Tensor wh_stack, Tensor wx_stack, Tensor b_stack, "
+    "int form, bool with_residuals) -> (Tensor, Tensor, Tensor, Tensor, Tensor)")
+
+
+def _fwd_cpu(x_proj0, wh_stack, wx_stack, b_stack, form, with_residuals):
+    """The operator's CPU implementation: the plain version
+    (:func:`fused_lstm_reference`). The dispatcher picks an implementation
+    per device at run time, so a traced or exported program, which keeps
+    the operator as one node, runs this on the CPU and launches the kernel
+    (:func:`_fwd_cuda`) on the card."""
+    result = fused_lstm_reference(x_proj0, wh_stack, wx_stack, b_stack,
+                                  with_residuals=with_residuals,
+                                  products=torch.bfloat16 if form == 2 else None)
+    if with_residuals:
+        return result
+    empty = x_proj0.new_empty((0,), dtype=result[0].dtype)
+    return result + (empty, empty.clone())
+
+
+def _fwd_fake(x_proj0, wh_stack, wx_stack, b_stack, form, with_residuals):
+    """The outputs' shapes and dtypes, for tracing (a symbolic row count
+    carries through)."""
+    lead, (R, T, four_h) = tuple(x_proj0.shape[:-3]), tuple(x_proj0.shape[-3:])
+    H, L = four_h // 4, wh_stack.shape[-3]
+    sd = torch.bfloat16 if form == 1 else torch.float32
+    out = x_proj0.new_empty(lead + (R, T, H), dtype=sd)
+    h_fin = x_proj0.new_empty(lead + (L, R, H), dtype=sd)
+    shape = lead + (T, L, R, H) if with_residuals else (0,)
+    return (out, h_fin, torch.empty_like(h_fin), x_proj0.new_empty(shape, dtype=sd),
+            x_proj0.new_empty(shape, dtype=sd))
+
+
+def _fwd_cuda(x_proj0, wh_stack, wx_stack, b_stack, form, with_residuals):
+    """The CUDA implementation: one launch of ``csrc/fused_lstm_fwd.cu`` in
+    ``form`` on the current stream (no synchronisation), counted in
+    ``fused_lstm.launches`` (and ``launches_xla``); raises on anything the
+    kernel does not take. There is no fallback to the plain version."""
+    operands = (x_proj0, wh_stack, wx_stack, b_stack)
+    (x_proj0, wh_stack, wx_stack, b_stack), cuda = _kernel_operands("fused_lstm", operands,
+                                                                    form)
+    if not cuda:
+        raise ValueError("fused_lstm: operands must all be on one CUDA device")
+    lead, M, R, T, L, H = _kernel_shapes("fused_lstm", operands)
+    sd = torch.bfloat16 if form == 1 else torch.float32
+    device = x_proj0.device
+    wh0, wxh = pack_weights(wh_stack, wx_stack)
+    wh0, wxh = wh0.contiguous(), wxh.contiguous()
+    _check_aligned("fused_lstm", (wh0, wxh), (x_proj0, b_stack))
+    out = torch.empty(lead + (R, T, H), device=device, dtype=sd)
+    h_fin = torch.empty(lead + (L, R, H), device=device, dtype=sd)
+    c_fin = torch.empty_like(h_fin)
+    shape = lead + (T, L, R, H) if with_residuals else (0,)
+    hseq = torch.empty(shape, device=device, dtype=sd)
+    cseq = torch.empty_like(hseq)
+    fn, _ = kernel_library(form)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = fn(
+            x_proj0.data_ptr(), wh0.data_ptr(), wxh.data_ptr(), b_stack.data_ptr(),
+            out.data_ptr(), h_fin.data_ptr(), c_fin.data_ptr(),
+            hseq.data_ptr() if with_residuals else None,
+            cseq.data_ptr() if with_residuals else None,
+            M, R, T, L, H, form, stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"fused_lstm: kernel launch failed with cudaError {err}")
+    counters.bump(fused_lstm)
+    if form == 2:
+        counters.bump(fused_lstm, "launches_xla")
+    return out, h_fin, c_fin, hseq, cseq
+
+
+_LIBRARY.impl("fused_lstm_fwd", _fwd_cpu, "CPU")
+_LIBRARY.impl("fused_lstm_fwd", _fwd_cuda, "CUDA")
+torch.library.register_fake("stmgcn::fused_lstm_fwd", _fwd_fake, lib=_LIBRARY)
+
+
+def _check_devices(name, operands) -> None:
+    """Every operand on one device, the CPU or a CUDA device (the
+    operator's dispatch picks the implementation from them)."""
+    devices = {t.device for t in operands}
+    if len(devices) != 1 or next(iter(devices)).type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: operands must all be on one CUDA device (or all on "
+                         f"the CPU), got {[str(t.device) for t in operands]}")
+
+
 def fused_lstm(x_proj0, wh_stack, wx_stack, b_stack, *, with_residuals=False,
                products=None):
     """Run the fused recurrence from zero initial state.
@@ -318,49 +415,20 @@ def fused_lstm(x_proj0, wh_stack, wx_stack, b_stack, *, with_residuals=False,
     module docstring): the weights are rounded to bf16, every output and
     residual stays float32.
 
-    On CPU tensors this is :func:`fused_lstm_reference`. On CUDA tensors it
-    launches the kernel of the storage dtype on the current stream (no
-    synchronisation) and raises on anything the kernel does not take: mixed
-    or other dtypes, non-contiguous or mixed-device operands, an ``H``
-    outside ``KERNEL_HIDDEN``, more than ``KERNEL_MAX_LAYERS`` layers.
+    The launch is the operator ``torch.ops.stmgcn.fused_lstm_fwd``: on CPU
+    tensors it
+    runs :func:`fused_lstm_reference`; on CUDA tensors it launches the kernel
+    of the storage dtype on the current stream (no synchronisation)
+    and raises on anything the kernel does not take: mixed or other dtypes,
+    non-contiguous or mixed-device operands, an ``H`` outside
+    ``KERNEL_HIDDEN``, more than ``KERNEL_MAX_LAYERS`` layers.
     """
     operands = (x_proj0, wh_stack, wx_stack, b_stack)
+    _check_shapes(*operands)
     sd = _storage("fused_lstm", operands, products)
-    form = _form(sd, products)
-    (x_proj0, wh_stack, wx_stack, b_stack), cuda = _kernel_operands("fused_lstm", operands,
-                                                                    form)
-    if not cuda:
-        return fused_lstm_reference(*operands, with_residuals=with_residuals,
-                                    products=products)
-    lead, M, R, T, L, H = _kernel_shapes("fused_lstm", operands)
-    device = x_proj0.device
-    wh0, wxh = pack_weights(wh_stack, wx_stack)
-    wh0, wxh = wh0.contiguous(), wxh.contiguous()
-    _check_aligned("fused_lstm", (wh0, wxh), (x_proj0, b_stack))
-    out = torch.empty(lead + (R, T, H), device=device, dtype=sd)
-    h_fin = torch.empty(lead + (L, R, H), device=device, dtype=sd)
-    c_fin = torch.empty_like(h_fin)
-    hseq = cseq = None
-    if with_residuals:
-        hseq = torch.empty(lead + (T, L, R, H), device=device, dtype=sd)
-        cseq = torch.empty_like(hseq)
-    fn, _ = kernel_library(form)
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = fn(
-            x_proj0.data_ptr(), wh0.data_ptr(), wxh.data_ptr(), b_stack.data_ptr(),
-            out.data_ptr(), h_fin.data_ptr(), c_fin.data_ptr(),
-            hseq.data_ptr() if hseq is not None else None,
-            cseq.data_ptr() if cseq is not None else None,
-            M, R, T, L, H, form, stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"fused_lstm: kernel launch failed with cudaError {err}")
-    counters.bump(fused_lstm)
-    if form == 2:
-        counters.bump(fused_lstm, "launches_xla")
-    result = (out, h_fin, c_fin)
-    return result + (hseq, cseq) if with_residuals else result
+    _check_devices("fused_lstm", operands)
+    result = torch.ops.stmgcn.fused_lstm_fwd(*operands, _form(sd, products), with_residuals)
+    return result if with_residuals else result[:3]
 
 
 #: kernel launches since the last reset (set to 0 to start a count), and

@@ -20,7 +20,9 @@ Two routes, chosen by where the input lives and the compute dtype:
   one launch of the backward kernel per group, so every parameter gets
   its gradient;
 - float32 CPU tensors take the layered path: per layer, the hoisted
-  input projection, then a Python loop over t of ``h @ wh``.
+  input projection, then a Python loop over t of ``h @ wh`` (unless
+  ``kernel_route`` is set, as an exported program sets it: then the kernel
+  route, whose operator runs the plain version on the CPU).
 
 Under a bf16 compute dtype the route takes the kernel route on both
 devices, so the CPU tests hold the function the card runs (the kernels'
@@ -89,6 +91,10 @@ class StackedLSTM(nn.Module):
         self.backend = backend
         self.fused_scan = fused_scan
         self.compute_dtype: Optional[torch.dtype] = None
+        #: take the kernel route on every device, the CPU too: what an
+        #: exported program needs, whose operator picks the kernel or its
+        #: plain version where the program runs (``export.py``)
+        self.kernel_route = False
         lead = () if branches is None else (branches,)
         h4 = 4 * hidden_dim
         in_dim = in_features
@@ -107,7 +113,7 @@ class StackedLSTM(nn.Module):
                 getattr(self, f"b_{layer}"))
 
     def forward(self, x: torch.Tensor):
-        if x.is_cuda or self.compute_dtype is not None:
+        if x.is_cuda or self.compute_dtype is not None or self.kernel_route:
             return self.fused(x)
         return self.layered(x)
 

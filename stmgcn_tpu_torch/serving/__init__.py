@@ -17,57 +17,56 @@
   re-shard, warm spares), sharing one :class:`GlobalBudget`;
 - :mod:`.microbatch` — the request queue coalescing concurrent callers;
 - :mod:`.metrics` — per-bucket latency, queue-wait vs device-time split,
-  pad waste.
+  pad waste;
+- :mod:`.bench` — ``serve-bench``, the serving benchmark (imported by
+  name only: its throwaway trainer pulls the whole stack).
+
+The names below resolve lazily (a module ``__getattr__``), so
+``stmgcn_tpu_torch.serving.predict`` imports without the engine and its
+model stack: what ``stmgcn_tpu_torch.export`` needs.
 """
 
-from stmgcn_tpu_torch.serving.admission import (
-    AdmissionController,
-    BatcherWedged,
-    DeadlineExceeded,
-    DispatchError,
-    GlobalBudget,
-    Overloaded,
-    ShedError,
-)
-from stmgcn_tpu_torch.serving.bucketing import pad_to_bucket, smallest_covering_bucket
-from stmgcn_tpu_torch.serving.engine import CheckpointWatcher, ServingEngine
-from stmgcn_tpu_torch.serving.federation import (
-    CityOutcome,
-    FederationRouter,
-    HashRing,
-    ReplicaHandle,
-    ReplicaUnavailable,
-    ring_hash,
-)
-from stmgcn_tpu_torch.serving.fleet import FleetServingEngine
-from stmgcn_tpu_torch.serving.metrics import EngineStats
-from stmgcn_tpu_torch.serving.microbatch import MicroBatcher
-from stmgcn_tpu_torch.serving.predict import serve_predict
-from stmgcn_tpu_torch.serving.promotion import GateDecision, PromotionGate, TierPromotionGate
+import importlib
 
-__all__ = [
-    "AdmissionController",
-    "BatcherWedged",
-    "CheckpointWatcher",
-    "CityOutcome",
-    "DeadlineExceeded",
-    "DispatchError",
-    "EngineStats",
-    "FederationRouter",
-    "FleetServingEngine",
-    "GateDecision",
-    "GlobalBudget",
-    "HashRing",
-    "MicroBatcher",
-    "Overloaded",
-    "PromotionGate",
-    "ReplicaHandle",
-    "ReplicaUnavailable",
-    "ServingEngine",
-    "ShedError",
-    "TierPromotionGate",
-    "pad_to_bucket",
-    "ring_hash",
-    "serve_predict",
-    "smallest_covering_bucket",
-]
+#: every name and the submodule it lives in
+_LAZY = {
+    "AdmissionController": "admission",
+    "BatcherWedged": "admission",
+    "DeadlineExceeded": "admission",
+    "DispatchError": "admission",
+    "GlobalBudget": "admission",
+    "Overloaded": "admission",
+    "ShedError": "admission",
+    "pad_to_bucket": "bucketing",
+    "smallest_covering_bucket": "bucketing",
+    "CheckpointWatcher": "engine",
+    "ServingEngine": "engine",
+    "CityOutcome": "federation",
+    "FederationRouter": "federation",
+    "HashRing": "federation",
+    "ReplicaHandle": "federation",
+    "ReplicaUnavailable": "federation",
+    "ring_hash": "federation",
+    "FleetServingEngine": "fleet",
+    "EngineStats": "metrics",
+    "MicroBatcher": "microbatch",
+    "serve_predict": "predict",
+    "GateDecision": "promotion",
+    "PromotionGate": "promotion",
+    "TierPromotionGate": "promotion",
+}
+
+__all__ = sorted(_LAZY)
+
+
+def __getattr__(name):
+    if name in _LAZY:
+        module = importlib.import_module(f"{__name__}.{_LAZY[name]}")
+        value = getattr(module, name)
+        globals()[name] = value
+        return value
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
+
+def __dir__():
+    return sorted(set(globals()) | set(_LAZY))

@@ -47,9 +47,13 @@ Counterpart of ``stmgcn_tpu/serving/engine.py`` (``ServingEngine``):
   ``swap_params`` resets it with the generation;
 - **fault drills** — a :class:`~stmgcn_tpu_torch.resilience.ServeFaultPlan`
   (``fault_plan=``) reaches the micro-batcher at dispatch entry and the
-  checkpoint watcher before each poll (``corrupt-checkpoint``).
-
-Not ported yet: ``from_artifact``.
+  checkpoint watcher before each poll (``corrupt-checkpoint``);
+- **export artifacts** — :meth:`ServingEngine.from_artifact` serves an
+  :class:`~stmgcn_tpu_torch.export.ExportedForecaster`: each rung is the
+  artifact's exported program (its LSTM the B1 operator) over the pinned
+  supports, captured as a CUDA graph like any other rung; the parameters
+  are baked into the program, so such an engine refuses ``swap_params``
+  and checkpoint watching.
 """
 
 from __future__ import annotations
@@ -348,6 +352,10 @@ class ServingEngine:
         self.drift = None
         self._drift_city = "0"
         self._closed = False
+        #: the wrapped artifact of an engine built :meth:`from_artifact`
+        #: (None otherwise), and the dense supports it was pinned to
+        self.exported = None
+        self.supports_np: Optional[np.ndarray] = None
 
     # -- construction ---------------------------------------------------
 
@@ -435,6 +443,53 @@ class ServingEngine:
             engine.enable_drift(baseline, city=city if city is not None else 0)
         return engine
 
+    @classmethod
+    def from_artifact(cls, source, supports, *, config=None, device=None,
+                      graphs: Optional[bool] = None, fault_plan=None) -> "ServingEngine":
+        """Engine over an export artifact: a path, or a loaded
+        :class:`~stmgcn_tpu_torch.export.ExportedForecaster` (the JAX
+        engine's ``from_artifact``).
+
+        ``device=None`` means the GPU for a path (and raises without one);
+        a loaded artifact serves on its own device. Each rung of the ladder
+        runs the artifact's exported program over the dense ``(M, K, N,
+        N)`` ``supports``, placed on the device once; under ``graphs`` (the
+        default on CUDA) each rung is captured as one CUDA graph, as
+        :meth:`from_forecaster` captures them. The artifact's own
+        ``predict`` is re-routed through this engine's ladder (the same
+        supports required). The parameters are baked into the program, so
+        :meth:`swap_params` and :meth:`watch_checkpoints` raise: rebuild
+        from a new artifact.
+        """
+        from stmgcn_tpu_torch.export import ExportedForecaster
+
+        if isinstance(source, ExportedForecaster):
+            ex = source
+            if device is not None and torch.device(device) != ex.device:
+                raise ValueError(f"the artifact was loaded on {ex.device}, not {device}: "
+                                 "load it there, or pass its path")
+        else:
+            ex = ExportedForecaster.load(source, device=device)
+        device = ex.device
+        graphs = resolve_graphs(graphs, device)
+        cfg = cls._resolve_config(config)
+        supports_np = ex.check_supports(supports)
+        forward = _bucket_program(torch.as_tensor(supports_np, device=device), device)
+        meta = ex.meta
+        expected = (meta["seq_len"], meta["n_nodes"], meta["input_dim"])
+        engine = cls({b: forward for b in cfg.buckets}, ex.module, ex.normalizer, expected,
+                     cfg, device, graphs=graphs, fault_plan=fault_plan)
+        engine.exported, engine.supports_np = ex, supports_np
+        ex._engine = engine  # route ex.predict through the bucket ladder
+        return engine
+
+    def _refuse_baked(self, what: str) -> None:
+        if self.exported is not None:
+            raise RuntimeError(
+                f"this engine was built from_artifact — the parameters are baked into "
+                f"the exported program, so it cannot {what}; rebuild the engine from a "
+                "new artifact")
+
     # -- drift ----------------------------------------------------------
 
     def enable_drift(self, baseline: dict, *, city: int = 0, registry=REGISTRY):
@@ -471,6 +526,7 @@ class ServingEngine:
         ``health_baseline`` when given), and observes no dispatch of an
         older generation after that.
         """
+        self._refuse_baked("swap_params")
         cur = self._current
         gen = cur.number + 1
         self._current = self._generation(gen, swapped_copy(cur.model, state_dict), swap=True)
@@ -501,6 +557,7 @@ class ServingEngine:
         quarantined and never swapped in (counted in ``rejected``); the
         engine keeps its current parameters.
         """
+        self._refuse_baked("hot-swap checkpoints")
         if self._watcher is not None:
             self._watcher.stop()
         self._watcher = CheckpointWatcher(self, out_dir, poll_s, log)
@@ -655,6 +712,8 @@ class ServingEngine:
                 self._watcher.stop()
             self._batcher.close()
             self._current = release_programs(self._current)
+            if self.exported is not None and self.exported._engine is self:
+                self.exported._engine = None  # the artifact serves on its own again
 
     def __enter__(self) -> "ServingEngine":
         return self

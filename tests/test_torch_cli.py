@@ -6,8 +6,10 @@ test did (the same file, the same arithmetic), ``--resume`` and ``--resume
 auto`` continue from it, and the exit codes follow ``stmgcn_tpu/cli.py``.
 The flags the two CLIs share reach the same config in both, and the JAX
 flags whose features are ported (the data and model flags, the LSTM
-forms, the matmul precision, the sanitizers and tracing) have the JAX
-names, defaults and choices.
+forms, the matmul precision, the sanitizers, tracing, profiling and
+export) have the JAX names, defaults and choices. ``--export`` writes an
+artifact that serves what ``best.ckpt`` serves, ``--profile`` a Chrome
+trace, and ``serve-bench`` prints one JSON record line.
 """
 
 import json
@@ -65,7 +67,7 @@ def test_exit_codes_follow_the_reference(tmp_path, capsys):
     assert "No resumable checkpoint found — starting fresh" in lines
     assert main(["--preset", "scaled", "--device", "cpu"]) == 1  # preset() refuses it
     assert "preset must be one of" in capsys.readouterr().err
-    for flag in (["--platform", "cpu"], ["--profile", "trace"], ["--resume", "always"]):
+    for flag in (["--platform", "cpu"], ["--distributed"], ["--resume", "always"]):
         with pytest.raises(SystemExit) as info:
             main(["--preset", "smoke"] + flag)
         assert info.value.code == 2
@@ -97,7 +99,7 @@ def test_shared_flags_reach_the_same_config(flags):
 #: the JAX CLI's flags whose features the port has (their ``dest``)
 PORTED_FLAGS = ("data", "dates", "obs_len", "val_ratio", "m_graphs", "kernel", "cheb_k",
                 "lstm_backend", "lstm_fused", "lstm_unroll", "matmul_precision", "checks",
-                "debug_nans", "trace_out")
+                "debug_nans", "trace_out", "profile", "export")
 
 
 @pytest.mark.parametrize("dest", PORTED_FLAGS)
@@ -108,3 +110,50 @@ def test_ported_flag_has_the_jax_names_default_and_choices(dest):
     port, ref = action(build_parser()), action(jax_build_parser())
     fields = ("option_strings", "default", "choices", "nargs", "type", "const", "metavar")
     assert {f: getattr(port, f) for f in fields} == {f: getattr(ref, f) for f in fields}
+
+
+def test_export_writes_an_artifact_that_loads_and_matches(tmp_path, capsys):
+    import numpy as np
+
+    from stmgcn_tpu_torch import Forecaster
+    from stmgcn_tpu_torch.data import synthetic_dataset
+    from stmgcn_tpu_torch.export import ExportedForecaster
+
+    out_dir, path = tmp_path / "run", str(tmp_path / "model.stmgx")
+    base = ["--preset", "smoke", "--out-dir", str(out_dir)] + SMALL
+    assert main(base + ["--epochs", "1", "--export", path]) == 0
+    trained, _ = _results(capsys)  # the results line comes before the export
+    assert set(trained["results"]) == {"train", "test"}
+    fc = Forecaster.from_checkpoint(str(out_dir / "best.ckpt"), device="cpu")
+    ex = ExportedForecaster.load(path, device="cpu")
+    city = synthetic_dataset(rows=3, n_timesteps=240, seed=fc.config.data.seed)
+    supports = fc.config.model.support_config.build_all(
+        list(city.adjs.values())[:fc.config.model.m_graphs])
+    rows = np.random.default_rng(0).uniform(0, 50, (3, fc.seq_len, 9, 1)).astype(np.float32)
+    np.testing.assert_allclose(ex.predict(supports, rows), fc.predict(supports, rows),
+                               rtol=1e-5, atol=1e-4)
+    missing = str(tmp_path / "no_such_dir" / "model.stmgx")
+    assert main(base + ["--test-only", "--export", missing]) == 1
+    assert "export failed" in capsys.readouterr().err
+
+
+def test_profile_writes_a_trace(tmp_path, capsys):
+    prof = tmp_path / "prof"
+    base = ["--preset", "smoke", "--out-dir", str(tmp_path / "run")] + SMALL
+    assert main(base + ["--epochs", "1", "--profile", str(prof)]) == 0
+    assert set(_results(capsys)[0]["results"]) == {"train", "test"}
+    traces = list(prof.glob("*.json"))
+    assert len(traces) == 1
+    events = json.loads(traces[0].read_text())["traceEvents"]
+    assert any(e.get("name", "").startswith("aten::") for e in events)
+
+
+def test_serve_bench_prints_one_json_line(capsys):
+    assert main(["serve-bench", "--device", "cpu", "--rows", "2", "--batch", "4",
+                 "--buckets", "1,4", "--clients", "2", "--per-client", "2", "--iters", "2",
+                 "--warmup", "1", "--no-fleet"]) == 0
+    lines = [line for line in capsys.readouterr().out.splitlines() if line.strip()]
+    assert len(lines) == 1
+    record = json.loads(lines[0])
+    assert set(record) == {"shapes", "legs", "engine_stats", "speedup", "captured_at"}
+    assert record["shapes"]["n_nodes"] == 4

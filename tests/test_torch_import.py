@@ -105,3 +105,54 @@ def test_kernel_build_has_no_fallback(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.load_library([src], "missing_nvcc_probe")
     assert not (tmp_path / "kernels").exists()
+
+
+#: the top-level names of ``stmgcn_tpu_torch`` before its ``__init__`` became
+#: lazy, and those of ``stmgcn_tpu_torch.serving``
+TOP_LEVEL = (
+    "CitySupports", "CityOutcome", "ContinualDaemon", "ContinualTrainer", "ExperimentConfig",
+    "FederationRouter", "FleetServingEngine", "Forecaster", "GateDecision", "GlobalBudget",
+    "HashRing", "PromotionGate", "ReplicaHandle", "ReplicaUnavailable", "STMGCN", "SeriesRing",
+    "ServingConfig", "ServingEngine", "StaleObservationError", "TierPromotionGate",
+    "TrainConfig", "Trainer", "build_trainer", "closed_loop_smoke", "from_jax_params",
+    "ingest_stream", "make_holdout_eval", "preset", "run", "to_jax_params",
+)
+SERVING = (
+    "AdmissionController", "BatcherWedged", "CheckpointWatcher", "CityOutcome",
+    "DeadlineExceeded", "DispatchError", "EngineStats", "FederationRouter",
+    "FleetServingEngine", "GateDecision", "GlobalBudget", "HashRing", "MicroBatcher",
+    "Overloaded", "PromotionGate", "ReplicaHandle", "ReplicaUnavailable", "ServingEngine",
+    "ShedError", "TierPromotionGate", "pad_to_bucket", "ring_hash", "serve_predict",
+    "smallest_covering_bucket",
+)
+
+
+def test_lazy_init_resolves_every_name_it_exported():
+    import importlib
+
+    import stmgcn_tpu_torch.serving as serving
+
+    for package, names, extra in ((stmgcn_tpu_torch, TOP_LEVEL, ("ExportedForecaster",
+                                                                  "export_forecaster")),
+                                  (serving, SERVING, ())):
+        assert set(names) | set(extra) == set(package.__all__)
+        for name in (*names, *extra):
+            value = getattr(package, name)
+            home = importlib.import_module(value.__module__)
+            assert getattr(home, name) is value, name
+            assert name in dir(package)
+        with pytest.raises(AttributeError, match="no attribute"):
+            getattr(package, "NotAName")
+
+
+def test_importing_the_package_loads_no_submodule():
+    """``import stmgcn_tpu_torch`` and ``stmgcn_tpu_torch.serving`` load
+    nothing until a name is asked for."""
+    code = ("import sys, stmgcn_tpu_torch, stmgcn_tpu_torch.serving; print(sorted(m for m in "
+            "sys.modules if m.startswith('stmgcn_tpu_torch')))")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = str(PACKAGE.parent)
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         env=env, timeout=300, cwd=str(PACKAGE.parent))
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == str(["stmgcn_tpu_torch", "stmgcn_tpu_torch.serving"])
