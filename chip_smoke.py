@@ -330,6 +330,52 @@ bf16-storage record 0, as an artifact runs the xla form):
     against the TF32 and fp32 peaks, bf16 against the bf16 peak), from
     ``stmgcn_step_flops``.
 
+Phases 52-56 are the slice of data placement, bf16 fleets and the lint
+(the fp32 records carry the placement paths' launches as
+``placement_launches``, 52's fp32 runs and 53's; the xla records 52's bf16
+runs' and 55's as ``placement_launches`` and ``fleet_bf16_launches``).
+55 runs after phase 29, 53-54 after phase 44 (on the metro plan), 52 and
+56 last:
+
+52. the dense city at the bench point (the ``default`` preset, its own xla
+    bf16 form), fp32 and bf16 (``precision="bf16"``): two epochs at batch
+    64, shuffled, from one state, window-free resident in blocks of 4,
+    materialized resident (``window_free=False``) in blocks of 4, which
+    must equal the first bitwise (losses, parameters, Adam moments),
+    window-free one step at a time, and streamed (``data_placement=
+    "stream"``) at prefetch 0, 1 and 2, which must equal it bitwise,
+    graphed and eager; one B1 launch per forward and one B2 per step in
+    every run; each route's step p50 (two more epochs, in turns, twice)
+    and host->device bytes a step;
+53. the metro plan, fp32: one epoch at batch 2 from one state, resident
+    (one step at a time) against streamed at prefetch METRO_PREFETCH:
+    bitwise, B1-B4 launches per forward and step, both step p50s in turns
+    and bytes a step, and a ``torch.profiler`` trace of one more epoch of
+    each: the streams the batch uploads and the kernels ran on, how many
+    uploads after the first prefetch + 1 batches' overlapped a kernel on
+    another stream, and the device's idle share (it fails on a trace with
+    no device events, on streamed uploads sharing the kernels' stream or
+    overlapping none, and on any batch upload of the resident route);
+54. the "auto" decision: ``_resident_cap_bytes()`` on the card and what
+    "auto" picks at both cities; a class ``RESIDENT_CAP_BYTES`` above the
+    free memory becomes the budget; under a budget below the metro city's
+    windows "auto" streams them;
+55. bf16 fleets: the ``multicity`` fleet at ``precision="bf16"`` (xla form)
+    against the bf16 per-city loop and the fp32 fleet from one state
+    (per-step losses within TWIN_ATOL over steps of both cities), two
+    epochs of it with its launches counted, then a ``FleetServingEngine``
+    at ``model.dtype="bfloat16"`` against the CPU port's bf16 forecaster
+    per city within the bf16 serving limits, the fp32 model the control
+    (seeded weights: the served outputs; the trained checkpoint's: the
+    model's output before the final bf16 cast, and the served bf16 outputs
+    at most one bf16 step apart);
+56. ``python -m stmgcn_tpu_torch.cli lint --format json`` in a subprocess
+    (exit 0); the lint's Python mirror of every kernel plan equal to what
+    each built kernel form reports; each compiled instance's
+    ``cudaFuncGetAttributes`` (registers, spilled bytes, max threads) within
+    the budgets the lint holds them to, beside ptxas's registers and
+    spills.
+
 Checkpoints go to a temporary directory that the run removes.
 
 The last three lines are the card, one JSON object describing each kernel
@@ -2385,6 +2431,37 @@ def bf16_check(got, want, what: str, control=None) -> str:
     return text
 
 
+def tapped(fc, supports, rows, city) -> tuple:
+    """``fc.predict(supports, rows, city=city)`` with hooks on the model:
+    ``(raw forecasts, the head's float32 output (the last value before the
+    serve boundary's cast to the compute dtype), the model's output)``,
+    the last two on the host."""
+    import torch
+
+    taps = {"head": [], "out": []}
+    hooks = [fc.model.head.register_forward_hook(
+                 lambda m, a, o: taps["head"].append(o.float().cpu())),
+             fc.model.register_forward_hook(lambda m, a, o: taps["out"].append(o.cpu()))]
+    try:
+        raw = fc.predict(supports, rows, city=city)
+    finally:
+        for h in hooks:
+            h.remove()
+    return raw, torch.cat(taps["head"]).numpy(), torch.cat(taps["out"])
+
+
+def bf16_steps(a, b):
+    """How many bf16 values lie between bf16 tensors ``a`` and ``b``,
+    elementwise (0: equal; 1: neighbours)."""
+    import torch
+
+    def ordered(t):
+        i = t.contiguous().view(torch.int16).int()
+        return torch.where(i < 0, -(i & 0x7FFF), i)
+
+    return (ordered(a) - ordered(b)).abs()
+
+
 def rung_p50(snapshot) -> str:
     return ", ".join(f"rung {b} {s['device_ms']['p50']} ms" for b, s in snapshot["buckets"].items())
 
@@ -3479,8 +3556,8 @@ def recording_params(trainer) -> list:
 
     log, dispatch = [], trainer._dispatch
 
-    def recorded(block, mode="train", health=False, poisons=None):
-        out = dispatch(block, mode, health, poisons)
+    def recorded(*args, **kw):
+        out = dispatch(*args, **kw)
         log.append(torch.cat([p.detach().flatten() for p in trainer.model.parameters()]))
         return out
 
@@ -5530,6 +5607,524 @@ def profile_phase(root: str) -> None:
           f"analytic {flops / 1e9:.3f} GFLOP per step): " + "; ".join(texts))
 
 
+# -- phases 52-56: data placement, bf16 fleets, lint and kernel budgets ---------
+
+#: the streaming route's prefetch depths (phase 52) and the metro drill's;
+#: extra epochs timed per route for the step p50s
+PLACEMENT_PREFETCH, METRO_PREFETCH, PLACEMENT_TIMED_EPOCHS = (0, 1, 2), 2, 2
+
+
+def placement_config(out: str, precision: str = "fp32", **train):
+    """The ``default`` preset (its own ``"xla"`` bf16 form) at the bench
+    point, batch 64, two epochs, shuffled, with ``train`` fields."""
+    from stmgcn_tpu_torch import preset
+
+    cfg = preset("default")
+    cfg.data.rows, cfg.data.serial_len = GRID, SERIAL
+    cfg.train.batch_size, cfg.train.epochs, cfg.train.shuffle = BATCH, EPOCHS, True
+    cfg.train.precision, cfg.train.out_dir = precision, out
+    for key, value in train.items():
+        setattr(cfg.train, key, value)
+    return cfg
+
+
+def placed_training(make, per_forward, per_step, what: str) -> tuple:
+    """``make()`` a trainer, ``train()`` it with every kernel's launches
+    counted around the call (set to 0 just before, read just after), held
+    to ``per_forward``/``per_step``; returns ``(trainer, history,
+    counts)``."""
+    trainer = make()
+    reset_counts()
+    history = trainer.train()
+    counts = read_counts()
+    if not all(np.isfinite(history[m]).all() for m in history):
+        fail(f"{what}: non-finite epoch loss {history}")
+    steps, epochs = trainer.global_step, len(history["train"])
+    forwards = steps + epochs * trainer.dataset.num_batches("validate", trainer.batch_size)
+    check_counts(counts, per_forward, per_step, forwards, steps, what)
+    return trainer, history, counts
+
+
+def route_p50(trainer, epochs: int = PLACEMENT_TIMED_EPOCHS) -> tuple:
+    """``(p50 ms of an optimizer step, host->device bytes per step)`` over
+    ``epochs`` more training epochs of the trainer's own loop (placement,
+    prefetch and blocks included): the host clock between consecutive
+    dispatch completions over the steps each covered, and every upload
+    of those epochs (``graphmon``)."""
+    from stmgcn_tpu_torch.obs import graphmon
+
+    times, last = [], []
+    up0, step0 = graphmon.snapshot()["upload_bytes"], trainer.global_step
+    after = trainer._after_train_batch
+
+    def stamp():
+        now, step = time.perf_counter(), trainer.global_step
+        if last:
+            t0, s0 = last[0]
+            if step > s0:
+                times.extend([(now - t0) * 1e3 / (step - s0)] * (step - s0))
+        last[:] = [(now, step)]
+        after()
+
+    trainer._after_train_batch = stamp
+    try:
+        for _ in range(epochs):
+            trainer.epoch += 1
+            last.clear()
+            last.append((time.perf_counter(), trainer.global_step))
+            trainer._run_train_epoch()
+    finally:
+        del trainer._after_train_batch
+    uploaded = graphmon.snapshot()["upload_bytes"] - up0
+    return float(np.median(times)), uploaded / (trainer.global_step - step0)
+
+
+def placement_dense(device) -> dict:
+    """Phase 52: the dense city at the bench point, fp32 and bf16 (the
+    preset's xla form), two epochs at batch 64 from one state four ways:
+    window-free resident in blocks of 4, materialized resident in blocks of
+    4 (bitwise the first), window-free resident one step at a time, and
+    streamed at each prefetch depth (bitwise the third), graphed and eager;
+    the launches per forward and step of every run, the host->device bytes
+    per step and each route's step p50 in turns. Returns the launches of
+    the graphed runs, fp32 and bf16."""
+    from stmgcn_tpu_torch import build_trainer
+
+    totals = {}
+    for precision in ("fp32", "bf16"):
+        xla = precision == "bf16"
+        per_forward = {"B1": 1, "B1 xla": 1} if xla else {"B1": 1}
+        per_step = {"B2": 1, "B2 xla": 1} if xla else {"B2": 1}
+        state = state_of(build_trainer(placement_config(scratch("place_init"), precision),
+                                       device=device, verbose=False))
+        routes = {"window-free S=4": dict(steps_per_superstep=SUPERSTEP),
+                  "materialized S=4": dict(steps_per_superstep=SUPERSTEP, window_free=False),
+                  "window-free S=1": {}}
+        routes.update({f"stream prefetch {k}": dict(data_placement="stream", prefetch=k)
+                       for k in PLACEMENT_PREFETCH})
+        runs, total = {}, {}
+        for name, train in routes.items():
+            for graphs in (True, False) if "S=4" not in name else (True,):
+                what = f"placement, dense {precision}, {name}, {'graphed' if graphs else 'eager'}"
+                out = scratch("place_" + name.replace(" ", "_").replace("=", ""))
+
+                def make(train=train, graphs=graphs, out=out):
+                    return build_trainer(placement_config(out, precision, **train), device=device,
+                                         initial_state=state, graphs=graphs, verbose=False)
+
+                trainer, history, counts = placed_training(make, per_forward, per_step, what)
+                runs[name, graphs] = (trainer, history, end_state(trainer))
+                if graphs:
+                    for k, v in counts.items():
+                        total[k] = total.get(k, 0) + v
+                print(f"{what}: train_path {trainer.train_path}, resident {trainer._resident}, "
+                      f"window-free {trainer._window_free}; {trainer.global_step} steps, "
+                      f"launches {counts_text(counts)}; epoch losses {history['train']}")
+        for ref, others in (("window-free S=4", ["materialized S=4"]),
+                            ("window-free S=1", [n for n in routes if n.startswith("stream")])):
+            base = runs[ref, True]
+            for name in others:
+                for graphs in (True, False):
+                    if (name, graphs) not in runs:
+                        continue
+                    got = runs[name, graphs]
+                    if got[1] != base[1] or not same_state(got[2], base[2]):
+                        fail(f"placement, dense {precision}: {name} "
+                             f"({'graphed' if graphs else 'eager'}) is not bitwise {ref} "
+                             f"graphed: {got[1]} vs {base[1]}")
+            if (ref, False) in runs and not (runs[ref, False][1] == base[1]
+                                             and same_state(runs[ref, False][2], base[2])):
+                fail(f"placement, dense {precision}: {ref} eager is not bitwise graphed")
+        blocks_vs_steps = (runs["window-free S=4", True][1] == runs["window-free S=1", True][1]
+                           and same_state(runs["window-free S=4", True][2],
+                                          runs["window-free S=1", True][2]))
+        print(f"placement, dense {precision}: materialized S=4 bitwise window-free S=4; every "
+              f"stream run (prefetch {PLACEMENT_PREFETCH}, graphed and eager) and the eager "
+              f"window-free S=1 bitwise window-free S=1 graphed (losses, parameters, Adam "
+              f"moments); blocks of 4 vs one step at a time bitwise: {blocks_vs_steps}")
+        p50 = {}
+        for _ in range(2):  # in turns, twice
+            for (name, graphs), run in runs.items():
+                if graphs:
+                    p50.setdefault(name, []).append(route_p50(run[0]))
+        print(f"placement, dense {precision}, step p50 (ms, host clock between dispatch "
+              f"completions, graphed, two turns; host->device bytes a training step): "
+              + "; ".join(f"{n} {v[0][0]:.4f} / {v[1][0]:.4f} ({v[0][1]:.0f} B)"
+                          for n, v in p50.items()))
+        totals[precision] = total
+        del runs
+        release()
+    return totals
+
+
+def trace_streams(run, path: str, batch_bytes: int, skip: int = 0) -> dict:
+    """``run`` under ``torch.profiler``, its Chrome trace read back: the
+    batch uploads (host->device copies of at least ``batch_bytes``), the
+    streams they and the kernels ran on, how many uploads after the first
+    ``skip`` (in device start order) overlapped a kernel on another stream,
+    and the device's idle share (1 - the union of kernel and copy time over
+    the span from the first to the last)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    dev = [e for e in events if e.get("ph") == "X"
+           and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    if not dev:
+        return {"measured": False}
+    kernels = [(e["ts"], e["ts"] + e["dur"], e.get("args", {}).get("stream")) for e in dev
+               if e["cat"] == "kernel"]
+    uploads = [(e["ts"], e["ts"] + e["dur"], e.get("args", {}).get("stream")) for e in dev
+               if e["cat"] == "gpu_memcpy" and "HtoD" in e["name"]
+               and e.get("args", {}).get("bytes", 0) >= batch_bytes]
+    overlapped = sum(1 for a, b, s in sorted(uploads)[skip:]
+                     if any(ka < b and a < kb and ks != s for ka, kb, ks in kernels))
+    spans = sorted((e["ts"], e["ts"] + e["dur"]) for e in dev)
+    busy, end = 0.0, spans[0][0]
+    for a, b in spans:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    return {"measured": True, "uploads": len(uploads), "overlapped": overlapped,
+            "upload_streams": sorted({s for _, _, s in uploads}, key=str),
+            "kernel_streams": sorted({s for _, _, s in kernels}, key=str),
+            "idle_share": 1 - busy / (spans[-1][1] - spans[0][0])}
+
+
+def placement_metro(device, ds, plan_dev) -> dict:
+    """Phase 53: the metro plan, fp32, one epoch at batch 2 from one state,
+    resident (window-free, one step at a time) against streamed at
+    prefetch METRO_PREFETCH, graphed: bitwise losses and parameters, B3/B4
+    launches per step, host->device bytes per step, both step p50s in
+    turns, and a ``torch.profiler`` trace of one more epoch of each: the
+    batch uploads' stream against the kernels', how many of the later ones
+    overlapped the previous step's kernels (at least one must, on a stream
+    of their own), and the device's idle share. Returns the launches of
+    both runs."""
+    from stmgcn_tpu_torch import Trainer
+
+    state = {k: v.detach().cpu().clone()
+             for k, v in metro_model("tiled", ds, device).state_dict().items()}
+    runs, total = {}, {}
+    for name, place in (("resident", {}),
+                        ("stream", dict(data_placement="stream", prefetch=METRO_PREFETCH))):
+        t = metro_config("tiled").train
+
+        def make(place=place, name=name):
+            return Trainer(metro_model("tiled", ds, device), ds, plan_dev, lr=t.lr,
+                           weight_decay=t.weight_decay, n_epochs=1, batch_size=METRO_BATCH,
+                           shuffle=True, out_dir=scratch(f"metro_place_{name}"),
+                           initial_state=state, device=device, verbose=False, **place)
+
+        trainer, history, counts = placed_training(
+            make, {"B1": 1, "B3": 2, "B3 shared": 1}, {"B2": 1, "B4": 1},
+            f"placement, metro {name}")
+        runs[name] = (trainer, history, end_state(trainer))
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+        print(f"placement, metro {name}: train_path {trainer.train_path}, resident "
+              f"{trainer._resident}; {trainer.global_step} steps, launches "
+              f"{counts_text(counts)} (per step B2 1, B4 1; per forward B1 1, B3 2); "
+              f"epoch loss {history['train']}")
+    res, stream = runs["resident"], runs["stream"]
+    if stream[1] != res[1] or not same_state(stream[2], res[2]):
+        fail(f"placement, metro: stream is not bitwise resident: {stream[1]} vs {res[1]}")
+    p50 = {n: [] for n in runs}
+    for _ in range(2):
+        for n, run in runs.items():
+            p50[n].append(route_p50(run[0], 1))
+    print("placement, metro: stream (prefetch {}) bitwise resident (losses, parameters, Adam "
+          "moments); step p50 (ms, host clock, two turns; host->device bytes a training "
+          "step): {}".format(METRO_PREFETCH, "; ".join(
+              f"{n} {v[0][0]:.4f} / {v[1][0]:.4f} ({v[0][1]:.0f} B)" for n, v in p50.items())))
+    batch_bytes = METRO_BATCH * ds.arrays("train")[1][0].nbytes  # a batch's y, its smaller upload
+    for n, run in runs.items():
+        trainer = run[0]
+
+        def epoch(trainer=trainer):
+            trainer.epoch += 1
+            trainer._run_train_epoch()
+
+        # the stream route's later batches (after the first prefetch + 1, each
+        # an x and a y) are placed once the previous step's program is enqueued
+        ahead = 2 * (METRO_PREFETCH + 1) if n == "stream" else 0
+        tr = trace_streams(epoch, scratch(f"trace_{n}.json"), batch_bytes, skip=ahead)
+        if not tr["measured"]:
+            fail(f"trace, metro {n} epoch: the profiler recorded no device events")
+        steps = trainer.train_steps_per_epoch
+        expected = 2 * max(steps - METRO_PREFETCH - 1, 0) if n == "stream" else 0
+        print(f"trace, metro {n} epoch ({steps} steps): {tr['uploads']} batch uploads on "
+              f"stream(s) {tr['upload_streams']} (expected {2 * steps if ahead else 0}), "
+              f"kernels on {tr['kernel_streams']}; of the uploads after the first "
+              f"{ahead}, {tr['overlapped']} overlapped a kernel on another stream "
+              f"(expected {expected}); device idle share {tr['idle_share']:.3f}")
+        if n == "stream" and (not tr["uploads"]
+                              or set(tr["upload_streams"]) & set(tr["kernel_streams"])
+                              or not tr["overlapped"]):
+            fail(f"trace, metro stream epoch: the batch uploads did not run on a copy "
+                 f"stream of their own beside the step's kernels: {tr}")
+        if n == "resident" and tr["uploads"]:
+            fail(f"trace, metro resident epoch: {tr['uploads']} batch uploads")
+    del runs
+    release()
+    return total
+
+
+def placement_auto(device, ds, plan_dev) -> None:
+    """Phase 54: the "auto" decision on the card: ``_resident_cap_bytes()``
+    and what "auto" picks at both cities; a class ``RESIDENT_CAP_BYTES``
+    above the free memory becomes the budget (and "auto" stays resident);
+    under a budget below the metro city's materialized windows "auto"
+    streams them, and keeps the window-free series resident if it fits
+    (at the metro city's 200 timesteps, 168 of them the weekly window's
+    burn-in, the series is the larger)."""
+    from unittest import mock
+
+    import torch
+
+    from stmgcn_tpu_torch import Trainer, build_trainer
+
+    def metro(**kw):
+        return Trainer(metro_model("tiled", ds, device), ds, plan_dev, n_epochs=1,
+                       batch_size=METRO_BATCH, out_dir=scratch("metro_auto"), device=device,
+                       verbose=False, **kw)
+
+    dense = build_trainer(placement_config(scratch("auto")), device=device, verbose=False)
+    free, total = torch.cuda.mem_get_info(device)
+    for name, tr in (("dense", dense), ("metro", metro())):
+        d = tr.dataset
+        print(f"auto placement, {name} city: _resident_cap_bytes() {tr._resident_cap_bytes():,} "
+              f"(card free {free:,} of {total:,}); series {d.resident_nbytes:,} bytes, "
+              f"windows {d.nbytes:,}; auto picks resident {tr._resident}, window-free "
+              f"{tr._window_free}, train_path {tr.train_path}")
+        if not (tr._resident and tr._window_free):
+            fail(f"auto placement, {name}: not window-free resident on the card")
+    floor = Trainer.RESIDENT_CAP_BYTES
+    try:
+        Trainer.RESIDENT_CAP_BYTES = free + (1 << 30)
+        tr = metro(window_free=False)
+        if tr._resident_cap_bytes() != Trainer.RESIDENT_CAP_BYTES or not tr._resident:
+            fail("auto placement: a class RESIDENT_CAP_BYTES above the free memory is not "
+                 "the budget")
+    finally:
+        Trainer.RESIDENT_CAP_BYTES = floor
+    cap = ds.nbytes - 1
+    with mock.patch.object(Trainer, "_resident_cap_bytes", lambda self: cap):
+        mat, wf = metro(window_free=False), metro()
+    series_fits = ds.resident_nbytes <= cap
+    if mat._resident or mat.fallback_reason or wf._resident != series_fits:
+        fail(f"auto placement under a {cap:,}-byte budget: materialized resident "
+             f"{mat._resident}, window-free resident {wf._resident} (series "
+             f"{ds.resident_nbytes:,} bytes)")
+    print(f"auto placement, metro: a class RESIDENT_CAP_BYTES of free + 1 GiB "
+          f"({free + (1 << 30):,}) is the budget and auto stays resident; under a budget of "
+          f"{cap:,} bytes (the windows less one) auto streams the materialized windows "
+          f"(prefetch {mat.prefetch}, train_path {mat.train_path}) and "
+          f"{'keeps' if series_fits else 'streams'} the {ds.resident_nbytes:,}-byte "
+          "window-free series")
+
+
+def fleet_bf16(device) -> dict:
+    """Phase 55: bf16 fleets (the ``multicity`` preset's own xla form). From
+    one state, per-step losses of the fleet at ``precision="bf16"`` against
+    the bf16 per-city loop and against the fp32 fleet, within TWIN_ATOL,
+    over steps of both cities; then two epochs of the bf16 fleet with its
+    launches counted (returned); then ``FleetServingEngine`` at
+    ``model.dtype="bfloat16"``, equal to the card's bf16 Forecaster, against
+    the CPU port's bf16 Forecaster per city, the fp32 model the control that
+    the bf16 serving limits must reject: on seeded weights the served
+    outputs; on the trained checkpoint's weights the model's float32 output
+    before the serve boundary's bf16 cast, and the served bf16 outputs at
+    most one bf16 step apart (``scripts/bf16_fleet_gap.py``: on these
+    weights the card and the CPU differ after that cast only by flips of
+    its rounding, one step of which is about 1e-2 of the largest output in
+    raw units)."""
+    import torch
+
+    from stmgcn_tpu_torch import Forecaster, ServingConfig, build_trainer, preset
+    from stmgcn_tpu_torch.config import MeshConfig
+    from stmgcn_tpu_torch.experiment import build_model, build_supports
+
+    def config(out, precision="bf16", fleet=True, dtype="float32"):
+        cfg = preset("multicity")
+        cfg.mesh = MeshConfig()
+        cfg.train.fleet, cfg.train.steps_per_superstep = fleet, FLEET_S
+        cfg.train.epochs, cfg.train.out_dir, cfg.train.precision = EPOCHS, out, precision
+        cfg.model.dtype = dtype
+        return cfg
+
+    fleet16 = build_trainer(config(scratch("fleet16")), device=device, verbose=False)
+    check_fleet(fleet16, [(144, (0, 1))], "bf16 multicity fleet")
+    state = state_of(fleet16)
+    loop16 = build_trainer(config(scratch("loop16"), fleet=False), device=device,
+                           initial_state=state, verbose=False)
+    fleet32 = build_trainer(config(scratch("fleet32"), "fp32"), device=device,
+                            initial_state=state, verbose=False)
+    if loop16.fleet_plan is not None or fleet32.train_path != "fleet_superstep":
+        fail("bf16 fleet drill: the per-city loop engaged a fleet, or the fp32 fleet did not")
+    batches = list(fleet16.batches("train"))
+    pick = ([b for b in batches if b.city == 0][:TWIN_STEPS // 2]
+            + [b for b in batches if b.city == 1][:TWIN_STEPS // 2])
+    gaps = {"per-city loop bf16": [], "fleet fp32": []}
+    for batch in pick:
+        got = fleet16.train_batch(batch).item()
+        for name, other in (("per-city loop bf16", loop16), ("fleet fp32", fleet32)):
+            gaps[name].append(abs(got - other.train_batch(batch).item()))
+    for name, g in gaps.items():
+        if not max(g) <= TWIN_ATOL:
+            fail(f"bf16 fleet vs {name}: per-step loss gaps {g} (limit {TWIN_ATOL})")
+    print(f"bf16 fleet (one class at rung 144, xla form) over {len(pick)} steps of cities 0 and "
+          "1 from one state: per-step loss gaps " + "; ".join(
+              f"vs {n} max {max(g):.3e}" for n, g in gaps.items()) + f" (limit {TWIN_ATOL})")
+    del loop16, fleet32
+    release()
+    trainer = build_trainer(config(scratch("fleet16_run")), device=device, initial_state=state,
+                            verbose=False)
+    _, counts = train_and_test(trainer, {"B1": 1, "B1 xla": 1}, {"B2": 1, "B2 xla": 1},
+                               "bf16 multicity fleet training")
+    step_times(trainer, "bf16 multicity fleet training step")
+    trained = Forecaster.from_checkpoint(trainer.best_path, device=device)
+    ds = trainer.dataset
+    sups = build_supports(trained.config, ds)
+    cfg32 = config(scratch("fleet32_serve"), dtype="float32")
+    cfg16 = config(scratch("fleet16_serve"), dtype="bfloat16")
+    derived, norms = trained.derived, trained.normalizers
+    seeded = build_model(cfg32, derived["input_dim"], device="cpu",
+                         generator=torch.Generator().manual_seed(0)).state_dict()
+    # seeded weights, as phases 21, 24 and 42 serve, at the bf16 limits; the
+    # trained checkpoint's at the same limits before the final bf16 cast, and
+    # within one bf16 step after it
+    for name, weights in (("seeded", seeded), ("trained", trained.state_dict)):
+        fc32, fc16, cpu16 = (Forecaster(build_model(c, derived["input_dim"], device=dev), weights,
+                                        None, c, derived, norms, device=dev)
+                             for c, dev in ((cfg32, device), (cfg16, device), (cfg16, "cpu")))
+        engine = fc16.fleet_engine(sups, config=ServingConfig(buckets=BUCKETS), device=device)
+        try:
+            for c in (0, 1):
+                rows = ds.denormalize(ds.city_arrays("test", c)[0], city=c)[:4]
+                got = engine.predict(rows, city=c)
+                want, want_head, want_out = tapped(cpu16, sups.for_city(c), rows, c)
+                same, head, out = tapped(fc16, sups.for_city(c), rows, c)
+                control, control_head, _ = tapped(fc32, sups.for_city(c), rows, c)
+                if not np.allclose(got, same, rtol=SERVE_RTOL, atol=SERVE_ATOL):
+                    fail(f"bf16 fleet engine, {name} weights, city {c}: max |engine - "
+                         f"Forecaster| {np.abs(got - same).max():.3e}")
+                what = f"bf16 fleet serving, {name} weights, city {c}, card vs CPU"
+                if name == "seeded":
+                    text = bf16_check(got, want, what, control=control)
+                else:
+                    text = "before the bf16 cast (model units): " + bf16_check(
+                        head, want_head, f"{what}, before the bf16 cast", control=control_head)
+                    steps = bf16_steps(out, want_out)
+                    text += (f"; after it, {int((steps == 1).sum())} of {steps.numel()} "
+                             f"outputs one bf16 step apart, at most {int(steps.max())} "
+                             f"(limit 1), served {gap_text(bf16_gap(got, want))}")
+                    if steps.max() > 1:
+                        fail(f"{what}: bf16 outputs more than one bf16 step apart: {text}")
+                print(f"{what} (FleetServingEngine at model.dtype=bfloat16, 4 windows, max "
+                      f"|want| {np.abs(want).max():.4e} raw units): {text}")
+            snap = engine.class_stats[engine.class_of(0)].snapshot()
+            print(f"bf16 fleet serving, {name} weights: {rung_p50(snap)}")
+        finally:
+            engine.close()
+    return counts
+
+
+def lint_and_budgets() -> None:
+    """Phase 56: ``python -m stmgcn_tpu_torch.cli lint --format json`` in a
+    subprocess (exit 0, no error on the shipped presets); the lint's
+    Python mirror of every kernel plan against what each built kernel form
+    reports (``stmgcn_lstm_*_smem``, ``stmgcn_spmm_plan``); and each
+    compiled instance's ``cudaFuncGetAttributes`` (registers, spilled bytes,
+    max threads) within the budgets the lint holds them to, beside
+    ptxas's."""
+    import torch
+
+    from stmgcn_tpu_torch.analysis import kernel_check as kc
+
+    fused_lstm = importlib.import_module("stmgcn_tpu_torch.ops.fused_lstm")
+    spmm = importlib.import_module("stmgcn_tpu_torch.ops.spmm")
+
+    proc = subprocess.run([sys.executable, "-m", "stmgcn_tpu_torch.cli", "lint", "--format",
+                           "json"], capture_output=True, text=True, timeout=300)
+    if proc.returncode != 0:
+        fail(f"lint exited {proc.returncode}: {proc.stdout[-2000:]} {proc.stderr[-2000:]}")
+    report = json.loads(proc.stdout)
+    print(f"lint on the shipped presets: exit 0, {report['errors']} errors, "
+          f"{report['warnings']} warnings, {len(report['findings'])} findings")
+    mismatches, checked = [], 0
+    for dtype, form in ((torch.float32, "fp32"), (torch.bfloat16, "bf16"), ("xla", "xla")):
+        for h in kc.KERNEL_HIDDEN:
+            for layers in range(1, kc.KERNEL_MAX_LAYERS + 1):
+                got = fused_lstm.kernel_resources(layers, h, dtype)
+                want = {"block_rows": kc.lstm_block_rows(h),
+                        "lstm_fwd_kernel": kc.lstm_fwd_smem(layers, h, form),
+                        "lstm_bwd_sweep": kc.lstm_bwd_smem(layers, h, form),
+                        "lstm_bwd_wgrad": kc.lstm_bwd_smem(0, h, form)}
+                checked += len(want)
+                mismatches += [(form, h, layers, k, got[k], v) for k, v in want.items()
+                               if got[k] != v]
+        for tile in kc.KERNEL_TILES if form != "xla" else ():
+            for f in (10, 20, 37, 128):
+                got, want = spmm.kernel_plan(tile, f, dtype), kc.spmm_plan(tile, f, form == "bf16")
+                checked += len(want)
+                mismatches += [(form, tile, f, k, got[k], v) for k, v in want.items()
+                               if got[k] != v]
+    if mismatches:
+        fail(f"kernel plans: the lint's mirror disagrees with the built kernels: {mismatches}")
+    print(f"kernel plans: the lint's mirror equals all {checked} figures the built kernels "
+          "report (LSTM forms fp32, bf16, xla at every H and L; block-CSR tiles 64 and 128 at "
+          "every column tile, fp32 and bf16)")
+    worst = {}
+    for dtype, form in ((torch.float32, "fp32"), (torch.bfloat16, "bf16"), ("xla", "xla")):
+        for h in kc.KERNEL_HIDDEN:
+            for layers in range(1, kc.KERNEL_MAX_LAYERS + 1):
+                attrs = fused_lstm.kernel_attributes(layers, h, dtype)
+                for name, a in attrs.items():
+                    threads = 512 if name == "lstm_bwd_sweep" else 256
+                    worst.setdefault((name, form), []).append((a, threads, (layers, h)))
+        for tile in kc.KERNEL_TILES if form != "xla" else ():
+            for f in (16, 32, 64, 128):
+                for role, name in enumerate(spmm.KERNEL_ROLES):
+                    a = spmm.kernel_attributes(role, tile, f, dtype)
+                    worst.setdefault((name, form), []).append((a, 256, (tile, f)))
+    over = []
+    for (name, form), entries in worst.items():
+        regs = max(a["registers"] for a, _, _ in entries)
+        spill = max(a["local_bytes"] for a, _, _ in entries)
+        threads = entries[0][1]
+        budget = kc.register_budget(threads)
+        over += [(name, form, shape, a) for a, t, shape in entries
+                 if a["registers"] > kc.register_budget(t) or a["max_threads"] < t]
+        print(f"  cudaFuncGetAttributes {name} ({form}, {len(entries)} instances, {threads} "
+              f"threads a block): registers max {regs} (budget {budget}), local (spilled) bytes "
+              f"per thread max {spill}, max threads per block min "
+              f"{min(a['max_threads'] for a, _, _ in entries)}")
+    if over:
+        fail(f"kernel attributes past their budgets: {over}")
+    main = [(n, f, a) for (n, f), entries in worst.items() for a, _, shape in entries
+            if shape in ((3, 64), (128, 16), (128, 128))]
+    print("  at the main paths' shapes (LSTM L=3, H=64; block-CSR tile 128, column tiles 16 "
+          "and 128): " + "; ".join(f"{n} {f} {a['registers']} registers, {a['local_bytes']} "
+                                   "spilled bytes" for n, f, a in main))
+    logs = [info.log for info in (
+        *(fused_lstm.kernel_library(f)[1] for f in range(3)),
+        *(fused_lstm.bwd_kernel_library(f)[2] for f in range(3)), spmm.kernel_library()[1])]
+    lines = [line for log in logs for line in log.splitlines()]
+    regs = [int(line.split("Used ")[1].split()[0]) for line in lines if "registers" in line]
+    spills = [line for line in lines if "spill stores" in line
+              and not (" 0 bytes spill stores" in line and " 0 bytes spill loads" in line)]
+    print(f"  ptxas (the LSTM libraries of every form and the block-CSR library, {len(regs)} "
+          f"entries): registers max {max(regs)}; entries spilling: {len(spills)}"
+          + "".join(f"\n  ptxas: {line.strip()}" for line in spills[:8]))
+
+
 def main() -> int:
     try:
         return run_phases()
@@ -5628,6 +6223,9 @@ def run_phases() -> int:
     # the fleet slice: heterogeneous cities in shape classes, dense and tiled
     fleet_counts = fleet_phases(device)
     print(f"fleet phases done at {time.perf_counter() - t_start:.1f} s")
+    fleet16_counts = fleet_bf16(device)  # phase 55
+    release()
+    print(f"bf16 fleet phase done at {time.perf_counter() - t_start:.1f} s")
 
     # this slice: training health, the divergence guard, fault plans,
     # SIGTERM, serving drift and fault drills (dense and fleet; bf16 health)
@@ -5677,6 +6275,9 @@ def run_phases() -> int:
     print(f"repeatability phase done at {time.perf_counter() - t_start:.1f} s")
     checks_phase(device, ds, plan_dev)  # phase 44
     print(f"sanitizer phase done at {time.perf_counter() - t_start:.1f} s")
+    metro_place = placement_metro(device, ds, plan_dev)  # phase 53
+    placement_auto(device, ds, plan_dev)  # phase 54
+    print(f"metro placement phases done at {time.perf_counter() - t_start:.1f} s")
     del ds, dense, dense_dev, plan, plan_dev, ktuples
     torch.cuda.empty_cache()
     tracing_phase(device)  # phase 45
@@ -5699,6 +6300,26 @@ def run_phases() -> int:
     serve_bench_phase()  # phase 50
     profile_phase(scratch("profile"))  # phase 51
     print(f"export, serve-bench and profile phases done at {time.perf_counter() - t_start:.1f} s")
+    # this slice's main path: training of the default preset over each data
+    # placement at the dense city (52; the metro plan's, 53, ran above), then
+    # the lint and the kernels' launch budgets
+    dense_place = placement_dense(device)  # phase 52
+    lint_and_budgets()  # phase 56
+    print(f"placement and lint phases done at {time.perf_counter() - t_start:.1f} s")
+    # the placement paths' launches: the dense city's fp32 runs and the metro
+    # plan's (B3's gate-conv launches are the shared signal's); the xla form's
+    # from the dense city's bf16 runs, and the bf16 fleet's
+    for rec, k in zip(records, ("B1", "B2", "B3", "B4", "B5", "B3 shared")):
+        rec["placement_launches"] = (dense_place["fp32"].get(k, 0) + metro_place[k]
+                                     - (metro_place["B3 shared"] if k == "B3" else 0))
+    for rec, k in zip(xla_records, ("B1 xla", "B2 xla")):
+        rec["placement_launches"] = dense_place["bf16"][k]
+        rec["fleet_bf16_launches"] = fleet16_counts[k]
+    if not all(records[i]["placement_launches"] for i in (0, 1, 2, 3, 5)) or not all(
+            r["placement_launches"] and r["fleet_bf16_launches"] for r in xla_records):
+        fail("a kernel of the placement or bf16 fleet paths was not launched: "
+             + ", ".join(f"{r['name']} {r.get('placement_launches')}"
+                         for r in records + xla_records))
     if any(not r["launches"] for r in bf16_records):
         fail("a bf16 kernel form was not launched on its main path: " + ", ".join(
             f"{r['name']} {r['launches']}" for r in bf16_records))

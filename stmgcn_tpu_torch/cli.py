@@ -13,6 +13,7 @@ same exit behaviour; ``--device`` takes the place of ``--platform``::
     python -m stmgcn_tpu_torch.cli serve-bench --full-model --rows 16 --soak --federation 2
     python -m stmgcn_tpu_torch.cli health output/health.jsonl
     python -m stmgcn_tpu_torch.cli obs trace.jsonl
+    python -m stmgcn_tpu_torch.cli lint --format json
 
 Training writes ``best.ckpt`` and ``latest.ckpt`` (the JAX package's format)
 into ``--out-dir``; ``--resume`` continues from the newest verified
@@ -31,9 +32,13 @@ writes ``best.ckpt`` as a serving artifact after the results line
 (``stmgcn_tpu_torch/export.py``; one file per city of a heterogeneous
 checkpoint, ``PATH`` with ``.cityN`` before its suffix), and exits 1 if
 that fails. ``serve-bench`` is the serving benchmark
-(``stmgcn_tpu_torch/serving/bench.py``): one JSON record line on stdout. A
-flag of the JAX CLI that the port lacks (the mesh and window-placement
-ones) fails argument parsing, and a preset it lacks fails with
+(``stmgcn_tpu_torch/serving/bench.py``): one JSON record line on stdout.
+``lint`` checks the presets' configs and the CUDA kernels' launch budgets
+without a GPU (``stmgcn_tpu_torch/analysis/cli.py``); it exits 1 on an
+error finding. ``--data-placement``, ``--window-free`` and
+``--no-window-free`` choose where batches come from
+(``train/trainer.py``). A flag of the JAX CLI that the port lacks (the
+mesh ones) fails argument parsing, and a preset it lacks fails with
 ``preset()``'s error.
 """
 
@@ -120,8 +125,23 @@ def build_parser() -> argparse.ArgumentParser:
                         "this seed (bf16 only; default: round to nearest even)")
     p.add_argument("--seed", type=int, default=None)
     p.add_argument("--out-dir", type=str, default=None)
+    p.add_argument("--data-placement", choices=("auto", "resident", "stream"),
+                   default=None,
+                   help="batch data residency: upload splits once and gather "
+                        "on device (resident), upload per batch with "
+                        "prefetch (stream), or pick by device/size (auto)")
     p.add_argument("--steps-per-superstep", type=_positive_int, default=None, metavar="S",
                    help="optimizer steps per block, with one loss readback per block")
+    p.add_argument("--window-free", dest="window_free", action="store_true",
+                   default=None,
+                   help="require the window-free resident path: keep the raw "
+                        "(T, N, C) series on device and gather each batch's "
+                        "windows inside the step program (~seq_len x less "
+                        "resident device memory; default: on wherever it can hold)")
+    p.add_argument("--no-window-free", dest="window_free",
+                   action="store_false",
+                   help="force materialized window arrays (the bit-parity "
+                        "oracle / streaming-hetero fallback path)")
     p.add_argument("--fleet", dest="fleet", action="store_true", default=None,
                    help="require fleet shape-class training: heterogeneous cities "
                         "grouped into node-count rungs, each class's cities padded to "
@@ -215,7 +235,8 @@ def build_parser() -> argparse.ArgumentParser:
 _TRAIN_FLAGS = (
     "epochs", "batch_size", "lr", "lr_schedule", "warmup_epochs", "min_lr_fraction",
     "weight_decay", "grad_clip_norm", "loss", "patience", "top_k", "seed", "out_dir",
-    "steps_per_superstep", "fleet", "fleet_max_classes", "fleet_max_pad_waste",
+    "data_placement", "window_free", "steps_per_superstep", "fleet", "fleet_max_classes",
+    "fleet_max_pad_waste",
     "checkpoint_every_steps", "precision", "sr_seed", "divergence_action",
     "divergence_patience", "divergence_lr_cut", "checks",
 )
@@ -283,6 +304,11 @@ def config_from_args(args):
 
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
+    if argv and argv[0] == "lint":
+        # the config and kernel-budget checks: no torch model stack, no GPU
+        from stmgcn_tpu_torch.analysis.cli import main as lint_main
+
+        return lint_main(argv[1:])
     if argv and argv[0] == "serve-bench":
         # the serving benchmark: one JSON record line on stdout
         from stmgcn_tpu_torch.serving.bench import main as serve_bench_main

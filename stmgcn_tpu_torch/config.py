@@ -15,11 +15,13 @@ nothing here; ``lstm_backend`` picks the bf16 form of the LSTM kernels
 (``"xla"``, the default: float32 storage with bf16 products; ``"pallas"``:
 bf16 storage), and ``lstm_fused_scan`` the bias rounding of the ``"xla"``
 form at bf16 (rounded through bf16 on the layered schedule, the float32
-masters on the fused one); at float32 neither changes a number. The JAX
-``precision`` policy section (the lint's per-role dtypes) is ignored on
-read. :class:`TrainConfig` instead copies every JAX training field and
-raises, naming it, on any field that the port does not implement set away
-from its default. ``n_nodes`` is derived from data, never configured.
+masters on the fused one); at float32 neither changes a number.
+:class:`PrecisionPolicy` is the JAX ``precision`` section (the lint's
+per-role dtypes), read and checked by its ``violations()`` (the
+``precision-policy`` lint rule). :class:`TrainConfig` copies every JAX
+training field, the data placement ones (``prefetch``, ``data_placement``,
+``window_free``) with the JAX trainer's checks. ``n_nodes`` is derived from
+data, never configured.
 """
 
 from __future__ import annotations
@@ -43,7 +45,10 @@ __all__ = [
     "ModelConfig",
     "ObsConfig",
     "PRESETS",
+    "PRECISION_FLOAT_DTYPES",
+    "PRECISION_SITE_ROLES",
     "MeshConfig",
+    "PrecisionPolicy",
     "ServingConfig",
     "TrainConfig",
     "preset",
@@ -181,13 +186,14 @@ class TrainConfig:
     ``TrainConfig`` (``stmgcn_tpu/config.py:178-273``), defaults included,
     so a JAX config dict reads as it is.
 
-    The port trains on one device from the window-free resident series.
-    ``fleet``, ``fleet_max_classes`` and ``fleet_max_pad_waste`` choose
+    The port trains on one device. ``data_placement`` (``"auto"``,
+    ``"resident"``, ``"stream"``), ``window_free`` and ``prefetch`` choose
+    where batches come from (``train/trainer.py``), checked here with the
+    JAX trainer's messages: ``prefetch >= 0``, a known placement, and
+    ``window_free=True`` only on resident placement. ``fleet``,
+    ``fleet_max_classes`` and ``fleet_max_pad_waste`` choose
     fleet shape-class training of heterogeneous cities; the trainer
-    validates them as the JAX one does. The fields in :data:`UNPORTED`
-    belong to features the port does not have yet (streaming placement);
-    setting one away from its default raises a ``ValueError``
-    naming it, so nothing is silently ignored. The divergence guard's fields
+    validates them as the JAX one does. The divergence guard's fields
     (``divergence_*``) are validated by the trainer when the guard is on, as
     the JAX trainer validates them. ``precision`` is one of :data:`PRECISIONS`
     and ``sr_seed`` needs ``precision="bf16"``, as the JAX trainer checks.
@@ -213,10 +219,13 @@ class TrainConfig:
     patience: int = 10
     top_k: int = 1
     shuffle: bool = False
+    #: streamed batches placed ahead of the step consuming them
     prefetch: int = 1
-    #: "auto" and "resident" both mean the resident series here
+    #: "auto" (resident when it fits the card's budget) | "resident" |
+    #: "stream" (upload per batch)
     data_placement: str = "auto"
-    #: None/True: the window-free resident series (the only path ported)
+    #: None: the window-free series wherever resident; True requires it;
+    #: False keeps materialized windows (the parity oracle)
     window_free: Optional[bool] = None
     #: optimizer steps per block, with one loss readback per block
     steps_per_superstep: int = 1
@@ -238,22 +247,9 @@ class TrainConfig:
     seed: int = 0
     out_dir: str = "output"
 
-    #: fields of features not ported yet, with the values the port accepts
-    UNPORTED = {
-        "prefetch": (1,),
-        "data_placement": ("auto", "resident"),
-        "window_free": (None, True),
-    }
-
     def __post_init__(self):
-        for name, accepted in self.UNPORTED.items():
-            value = getattr(self, name)
-            if not any(value is a or (type(value) is type(a) and value == a)
-                       for a in accepted):
-                raise ValueError(
-                    f"train.{name}={value!r} is not ported to the PyTorch port "
-                    f"yet (it accepts {accepted}); see ROADMAP.md"
-                )
+        check_placement(self.prefetch, self.data_placement, self.window_free,
+                        where="train.")
         check_precision(self.precision, self.sr_seed, where="train.")
         if self.checks not in CHECKS:
             raise ValueError(f"train.checks={self.checks!r}: unknown check set; expected "
@@ -695,6 +691,124 @@ class ServingConfig:
         return v
 
 
+#: float dtype names the precision policy can legislate over
+PRECISION_FLOAT_DTYPES = ("float16", "bfloat16", "float32", "float64")
+
+#: the site-role taxonomy of the JAX dtype-flow pass; ``role_dtypes`` keys
+#: must come from here
+PRECISION_SITE_ROLES = (
+    "dot_general",        # matmul operand
+    "dot_general_accum",  # matmul accumulator
+    "reduce_sum",         # accumulating reduction
+    "reduce_order",       # order statistic (max/min): never accumulates
+    "scan_carry",         # loop-carried state
+    "psum",               # cross-device gradient sync operand
+    "normalization",      # variance/norm statistic
+    "cast",               # explicit dtype boundary
+    "loss",               # the loss output
+    "optimizer_update",   # optimizer state outputs
+    "master_param",       # parameter inputs/outputs
+    "prediction",         # served prediction outputs
+)
+
+
+@dataclasses.dataclass
+class PrecisionPolicy:
+    """The JAX ``precision`` section (``stmgcn_tpu/config.py:903-1040``),
+    the declarative mixed-precision contract, with its ``violations()``:
+    the policy half of the ``precision-policy`` lint rule. The defaults:
+    bf16 allowed at matmul operands and order statistics, float32 at every
+    accumulation site, float32 master parameters, and only the
+    float32 <-> bf16 boundary casts whitelisted. (The JAX dtype-flow pass
+    that judges traced programs against it has no counterpart here.)"""
+
+    #: role -> allowed compute dtype names at sites of that role
+    role_dtypes: dict = dataclasses.field(default_factory=lambda: {
+        "dot_general": ("float32", "bfloat16"),
+        "dot_general_accum": ("float32",),
+        "reduce_sum": ("float32",),
+        "reduce_order": ("float32", "bfloat16"),
+        "scan_carry": ("float32",),
+        "psum": ("float32",),
+        "normalization": ("float32",),
+        "loss": ("float32",),
+        "optimizer_update": ("float32",),
+        "prediction": ("float32", "bfloat16"),
+    })
+    #: roles where a float dtype narrower than float32 is an error
+    reduction_f32_roles: tuple = ("reduce_sum", "scan_carry", "psum", "dot_general_accum")
+    #: dtype of the trained parameters and optimizer moments between steps
+    master_param_dtype: str = "float32"
+    #: ``(src, dst)`` float casts a program may contain
+    cast_whitelist: tuple = (("float32", "bfloat16"), ("bfloat16", "float32"))
+
+    def __post_init__(self):
+        # JSON hands lists back; canonicalize to tuples
+        self.role_dtypes = {k: tuple(v) for k, v in dict(self.role_dtypes).items()}
+        self.reduction_f32_roles = tuple(self.reduction_f32_roles)
+        self.cast_whitelist = tuple(tuple(p) for p in self.cast_whitelist)
+
+    def allowed(self, role: str) -> Optional[tuple]:
+        """Allowed dtype names for a role, None when the role is ungated."""
+        if role == "master_param":
+            return (self.master_param_dtype,)
+        return self.role_dtypes.get(role)
+
+    def violations(self) -> list:
+        """Every way this policy contradicts itself (empty = valid), with
+        the JAX texts."""
+        v = []
+        itemsize = {"float16": 2, "bfloat16": 2, "float32": 4, "float64": 8}
+        if self.master_param_dtype not in PRECISION_FLOAT_DTYPES:
+            v.append(f"master_param_dtype {self.master_param_dtype!r} is not a "
+                     f"float dtype name {PRECISION_FLOAT_DTYPES}")
+        elif itemsize[self.master_param_dtype] < 4:
+            v.append(f"master_param_dtype {self.master_param_dtype!r} is "
+                     "narrower than float32 — optimizer updates underflow in "
+                     "sub-f32 master params; keep masters wide and cast for "
+                     "compute instead")
+        for role, allowed in self.role_dtypes.items():
+            if role not in PRECISION_SITE_ROLES:
+                v.append(f"role_dtypes names unknown role {role!r} — the site "
+                         f"taxonomy is {PRECISION_SITE_ROLES}")
+                continue
+            if not allowed:
+                v.append(f"role_dtypes[{role!r}] allows no dtype at all")
+            for d in allowed:
+                if d not in PRECISION_FLOAT_DTYPES:
+                    v.append(f"role_dtypes[{role!r}] names unknown float dtype {d!r}")
+        if not self.reduction_f32_roles:
+            v.append("reduction_f32_roles is empty — with no mandatory-f32 "
+                     "accumulation roles a bf16 accumulator certifies clean, "
+                     "which defeats the policy's purpose")
+        for role in self.reduction_f32_roles:
+            if role not in PRECISION_SITE_ROLES:
+                v.append(f"reduction_f32_roles names unknown role {role!r}")
+                continue
+            narrow = [d for d in self.role_dtypes.get(role, ()) if itemsize.get(d, 4) < 4]
+            if narrow:
+                v.append(f"role {role!r} is in reduction_f32_roles (mandatory "
+                         f"f32) but role_dtypes allows {narrow} — the two "
+                         "knobs contradict each other")
+        for pair in self.cast_whitelist:
+            if len(pair) != 2:
+                v.append(f"cast_whitelist entry {pair!r} is not a (src, dst) pair")
+                continue
+            src, dst = pair
+            bad = [d for d in (src, dst) if d not in PRECISION_FLOAT_DTYPES]
+            if bad:
+                v.append(f"cast_whitelist pair {pair!r} names unknown float dtype(s) {bad}")
+                continue
+            if src == dst:
+                v.append(f"cast_whitelist pair {pair!r} casts a dtype to itself "
+                         "— not a precision boundary")
+            if dst == "float64":
+                v.append(f"cast_whitelist pair {pair!r} whitelists a promotion "
+                         "to float64, which the fp64-promotion rule bans "
+                         "unconditionally (TPUs have no fp64 MXU path)")
+        return v
+
+
 def check_lstm(backend: str, fused_scan: bool, unroll: int) -> None:
     """The JAX ``StackedLSTM``'s checks (``stmgcn_tpu/ops/lstm.py:
     192-202``): a backend of :data:`LSTM_BACKENDS`, and no scan schedule
@@ -709,6 +823,32 @@ def check_lstm(backend: str, fused_scan: bool, unroll: int) -> None:
             "fused_scan/unroll are XLA scan schedule knobs and do not apply to "
             "backend='pallas' (the kernel has one schedule); remat is inherent to the "
             "kernel's recomputing backward")
+
+
+#: the JAX trainer's text for ``window_free=True`` without resident data
+WINDOW_FREE_NEEDS_RESIDENT = ("window_free=True requires resident data placement "
+                              "(stream/mesh placements upload per batch)")
+
+
+def check_placement(prefetch: int, data_placement: str, window_free: Optional[bool] = None,
+                    where: str = "") -> None:
+    """The JAX trainer's data-placement checks (``trainer.py:252-285,
+    450-452``), for ``TrainConfig`` and the ``Trainer`` alike: ``prefetch
+    >= 0``, a placement of ``auto|resident|stream``, and no
+    ``window_free=True`` over explicitly streamed data (the trainer raises
+    :data:`WINDOW_FREE_NEEDS_RESIDENT` too when "auto" streams). Without
+    ``where`` the messages are the JAX texts; with it each starts
+    ``{where}{field}={value!r}: ``."""
+    def refuse(field, value, text):
+        raise ValueError(f"{where}{field}={value!r}: {text}" if where else text)
+
+    if prefetch < 0:
+        refuse("prefetch", prefetch, "prefetch must be >= 0 (batches placed ahead)")
+    if data_placement not in ("auto", "resident", "stream"):
+        refuse("data_placement", data_placement,
+               f"data_placement must be auto|resident|stream, got {data_placement!r}")
+    if window_free and data_placement == "stream":
+        refuse("window_free", window_free, WINDOW_FREE_NEEDS_RESIDENT)
 
 
 def check_precision(precision: str, sr_seed: Optional[int], where: str = "") -> None:
@@ -741,6 +881,7 @@ class ExperimentConfig:
     obs: ObsConfig = dataclasses.field(default_factory=ObsConfig)
     continual: ContinualConfig = dataclasses.field(default_factory=ContinualConfig)
     federation: FederationConfig = dataclasses.field(default_factory=FederationConfig)
+    precision: PrecisionPolicy = dataclasses.field(default_factory=PrecisionPolicy)
 
     def to_dict(self) -> dict:
         return dataclasses.asdict(self)
@@ -763,6 +904,7 @@ class ExperimentConfig:
             obs=ObsConfig(**d.get("obs", {})),
             continual=ContinualConfig(**d.get("continual", {})),
             federation=FederationConfig(**d.get("federation", {})),
+            precision=PrecisionPolicy(**d.get("precision", {})),
         )
         cont = cfg.continual
         for section, bad in (

@@ -916,6 +916,29 @@ int smem_p(int L, int H) {
     }
 }
 
+template <typename P, typename SD, int H>
+int attrs_h(int L, int* info) {
+    switch (L) {
+        case 0: return func_attrs(lstm_bwd_wgrad<P, SD>, info);
+        case 1: return func_attrs(lstm_bwd_sweep<P, SD, H, 1>, info);
+        case 2: return func_attrs(lstm_bwd_sweep<P, SD, H, 2>, info);
+        case 3: return func_attrs(lstm_bwd_sweep<P, SD, H, 3>, info);
+        case 4: return func_attrs(lstm_bwd_sweep<P, SD, H, 4>, info);
+        default: return static_cast<int>(cudaErrorInvalidValue);
+    }
+}
+
+template <typename P, typename SD>
+int attrs_p(int L, int H, int* info) {
+    switch (H) {
+        case 32: return attrs_h<P, SD, 32>(L, info);
+        case 64: return attrs_h<P, SD, 64>(L, info);
+        case 128: return attrs_h<P, SD, 128>(L, info);
+        case 256: return attrs_h<P, SD, 256>(L, info);
+        default: return static_cast<int>(cudaErrorInvalidValue);
+    }
+}
+
 template <typename P, typename SD>
 int run(const Ptrs& a, float* dwh0, float* dwxh, float* db, float* part, const Plan& p, int M,
         int R, int T, int L, int H, int flags, cudaStream_t s) {
@@ -970,6 +993,25 @@ extern "C" int stmgcn_lstm_bwd_smem(int L, int H, int form) {
         case 1: return smem_p<BF16, bf16>(L, H);
         case 2: return smem_p<BF16, float>(L, H);
         default: return 0;
+    }
+}
+
+// The compiled sweep instance at (L, H) and form, or the weight-gradient
+// kernel (L = 0), into info[4] (func_attrs: registers, spilled bytes per
+// thread, max threads per block, static shared bytes); cudaErrorInvalidValue
+// for a shape or form not in this library.
+extern "C" int stmgcn_lstm_bwd_attrs(int L, int H, int form, int* info) {
+    switch (form) {
+#if STMGCN_LSTM_FORMS & 1
+        case 0: return attrs_p<F32, float>(L, H, info);
+#endif
+#if STMGCN_LSTM_FORMS & 2
+        case 1: return attrs_p<BF16, bf16>(L, H, info);
+#endif
+#if STMGCN_LSTM_FORMS & 4
+        case 2: return attrs_p<BF16, float>(L, H, info);
+#endif
+        default: return static_cast<int>(cudaErrorInvalidValue);
     }
 }
 

@@ -356,6 +356,28 @@ int smem_p(int L, int H) {
     }
 }
 
+template <typename P, typename SD, int H>
+int attrs_h(int L, int* info) {
+    switch (L) {
+        case 1: return func_attrs(lstm_fwd_kernel<P, SD, H, 1>, info);
+        case 2: return func_attrs(lstm_fwd_kernel<P, SD, H, 2>, info);
+        case 3: return func_attrs(lstm_fwd_kernel<P, SD, H, 3>, info);
+        case 4: return func_attrs(lstm_fwd_kernel<P, SD, H, 4>, info);
+        default: return static_cast<int>(cudaErrorInvalidValue);
+    }
+}
+
+template <typename P, typename SD>
+int attrs_p(int L, int H, int* info) {
+    switch (H) {
+        case 32: return attrs_h<P, SD, 32>(L, info);
+        case 64: return attrs_h<P, SD, 64>(L, info);
+        case 128: return attrs_h<P, SD, 128>(L, info);
+        case 256: return attrs_h<P, SD, 256>(L, info);
+        default: return static_cast<int>(cudaErrorInvalidValue);
+    }
+}
+
 }  // namespace
 
 // C entry point bound with ctypes. Returns a cudaError_t (0 = launched).
@@ -392,6 +414,24 @@ extern "C" int stmgcn_lstm_fwd(const void* xp, const void* wh0, const void* wxh,
 // form's is the bf16 form's); 0 for a shape the kernel does not take.
 extern "C" int stmgcn_lstm_fwd_smem(int L, int H, int form) {
     return form ? smem_p<BF16>(L, H) : smem_p<F32>(L, H);
+}
+
+// The compiled instance at (L, H) and form, into info[4] (func_attrs:
+// registers, spilled bytes per thread, max threads per block, static shared
+// bytes); cudaErrorInvalidValue for a shape or form not in this library.
+extern "C" int stmgcn_lstm_fwd_attrs(int L, int H, int form, int* info) {
+    switch (form) {
+#if STMGCN_LSTM_FORMS & 1
+        case 0: return attrs_p<F32, float>(L, H, info);
+#endif
+#if STMGCN_LSTM_FORMS & 2
+        case 1: return attrs_p<BF16, bf16>(L, H, info);
+#endif
+#if STMGCN_LSTM_FORMS & 4
+        case 2: return attrs_p<BF16, float>(L, H, info);
+#endif
+        default: return static_cast<int>(cudaErrorInvalidValue);
+    }
 }
 
 // Rows per CTA at hidden width H (0 for a width the kernel does not take);

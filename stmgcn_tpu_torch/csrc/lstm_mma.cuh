@@ -348,4 +348,19 @@ constexpr int ring_stages(int fixed_bytes, int stage_bytes, int cap = 4) {
                                                                   : 2;
 }
 
+// cudaFuncGetAttributes of one kernel instance into info[4]: registers per
+// thread, local (spilled) bytes per thread, the most threads a block of it
+// may have, static shared bytes. Returns a cudaError_t.
+template <typename Kernel>
+int func_attrs(Kernel kernel, int* info) {
+    cudaFuncAttributes a;
+    const cudaError_t err = cudaFuncGetAttributes(&a, kernel);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    info[0] = a.numRegs;
+    info[1] = static_cast<int>(a.localSizeBytes);
+    info[2] = a.maxThreadsPerBlock;
+    info[3] = static_cast<int>(a.sharedSizeBytes);
+    return 0;
+}
+
 }  // namespace lstm_mma

@@ -355,6 +355,24 @@ void plan_info(int* info) {
     info[4] = P::NT * 8;
 }
 
+template <typename Pr, int T, int FT>
+int attrs_tile(int role, int* info) {
+    void (*kern)(Args) = role == kStackFwd   ? &spmm_stack_fwd_kernel<Pr, T, FT>
+                         : role == kStackBwd ? &spmm_stack_bwd_kernel<Pr, T, FT>
+                                             : &spmm_kernel<Pr, T, FT>;
+    return func_attrs(kern, info);
+}
+
+template <typename Pr, int T>
+int attrs_width(int role, int F, int* info) {
+    switch (column_tile(F)) {
+        case 16: return attrs_tile<Pr, T, 16>(role, info);
+        case 32: return attrs_tile<Pr, T, 32>(role, info);
+        case 64: return attrs_tile<Pr, T, 64>(role, info);
+        default: return attrs_tile<Pr, T, 128>(role, info);
+    }
+}
+
 template <typename Pr, int T>
 void plan_width(int F, int* info) {
     switch (column_tile(F)) {
@@ -404,6 +422,22 @@ extern "C" int stmgcn_spmm_plan(int tile, int F, int bf16, int* info) {
     switch (tile) {
         case 64: bf16 ? plan_width<BF16, 64>(F, info) : plan_width<F32, 64>(F, info); return 0;
         case 128: bf16 ? plan_width<BF16, 128>(F, info) : plan_width<F32, 128>(F, info); return 0;
+        default: return static_cast<int>(cudaErrorInvalidValue);
+    }
+}
+
+// The compiled instance of kernel `role` (0 stack forward, 1 stack
+// backward, 2 single support) a launch at (tile, F) and storage type takes,
+// into info[4] (func_attrs: registers, spilled bytes per thread, max
+// threads per block, static shared bytes); cudaErrorInvalidValue for a tile
+// or role the kernels do not take.
+extern "C" int stmgcn_spmm_attrs(int role, int tile, int F, int bf16, int* info) {
+    if (role < kStackFwd || role > kSpmm) return static_cast<int>(cudaErrorInvalidValue);
+    switch (tile) {
+        case 64: return bf16 ? attrs_width<BF16, 64>(role, F, info)
+                             : attrs_width<F32, 64>(role, F, info);
+        case 128: return bf16 ? attrs_width<BF16, 128>(role, F, info)
+                              : attrs_width<F32, 128>(role, F, info);
         default: return static_cast<int>(cudaErrorInvalidValue);
     }
 }

@@ -6,8 +6,9 @@ device, with dense, block-sparse (``model.sparse``) or tiled
 (``model.tiled``) supports, for homogeneous cities and for heterogeneous
 ones (``HeteroCityDataset``: per-city shapes, normalizers and splits; one
 support stack per city in a ``CitySupports``), which the trainer can group
-into fleet shape classes (``train.fleet``). Node padding for region meshes
-and meshes are not ported: configs asking for them raise.
+into fleet shape classes (``train.fleet``), over resident or streamed data
+(``train.data_placement``, ``window_free``, ``prefetch``). Node padding for
+region meshes and meshes are not ported: configs asking for them raise.
 """
 
 from __future__ import annotations
@@ -233,7 +234,8 @@ def build_trainer(cfg: ExperimentConfig, *, device=None, initial_state: Optional
         lr_schedule=t.lr_schedule, warmup_epochs=t.warmup_epochs,
         min_lr_fraction=t.min_lr_fraction, grad_clip_norm=t.grad_clip_norm, loss=t.loss,
         n_epochs=t.epochs, batch_size=t.batch_size, patience=t.patience, shuffle=t.shuffle,
-        seed=t.seed, steps_per_superstep=t.steps_per_superstep, fleet=t.fleet,
+        seed=t.seed, steps_per_superstep=t.steps_per_superstep, prefetch=t.prefetch,
+        data_placement=t.data_placement, window_free=t.window_free, fleet=t.fleet,
         fleet_max_classes=t.fleet_max_classes, fleet_max_pad_waste=t.fleet_max_pad_waste,
         out_dir=t.out_dir,
         top_k=t.top_k, async_checkpoint=t.async_checkpoint,

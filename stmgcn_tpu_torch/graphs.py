@@ -37,6 +37,19 @@ is the eager route over the same static buffers (``graphs=False``, the
 counterpart of ``jax.disable_jit``, and every program on the CPU): the
 body runs on each call.
 
+A program may also read **device inputs**: static device tensors (a
+streamed batch's ``x`` and ``y``) that a call fills by one
+device-to-device copy, on the program's stream, from a batch that a
+:class:`Prefetcher` placed ahead. The prefetcher copies on a stream of its
+own from a ring of pinned staging buffers, so batch i+1's upload runs
+while step i's kernels do; the consuming stream waits on the copy's event
+(never the host), the copied tensor is marked used on that stream
+(``record_stream``) so the caching allocator cannot hand its memory to a
+later copy while the consumer still reads it, and a staging buffer is
+rewritten only after its last copy has completed. The captured graph keeps
+reading the same static tensors, and the eager route copies into the same
+ones, so both see the same bits.
+
 The bookkeeping (buffers, locks, counts) is kept apart from the CUDA graph
 calls, which live in :class:`GraphPool` alone, so the CPU tests drive the
 bookkeeping with a stand-in pool whose "replay" runs the body on the
@@ -62,6 +75,8 @@ __all__ = [
     "CapturedProgram",
     "DeviceOps",
     "GraphPool",
+    "Placed",
+    "Prefetcher",
     "Program",
     "StaticInputs",
     "resolve_graphs",
@@ -172,6 +187,87 @@ class DeviceOps:
         return host, done
 
 
+class Placed:
+    """One batch's device tensors, by name, and the event after their copy
+    (None on the CPU, where the copy is done when :meth:`Prefetcher.place`
+    returns)."""
+
+    __slots__ = ("tensors", "event", "nbytes")
+
+    def __init__(self, tensors: Dict[str, torch.Tensor], event=None):
+        self.tensors = tensors
+        self.event = event
+        self.nbytes = sum(t.numel() * t.element_size() for t in tensors.values())
+
+    def ready(self, stream=None) -> Dict[str, torch.Tensor]:
+        """The tensors, usable on ``stream`` (CUDA; default the current
+        stream): the stream waits for the copy, and each tensor is marked
+        used there, so its memory is not reused before that stream's work
+        on it is done."""
+        if self.event is not None:
+            stream = stream if stream is not None else torch.cuda.current_stream()
+            stream.wait_event(self.event)
+            for t in self.tensors.values():
+                t.record_stream(stream)
+        return self.tensors
+
+
+class Prefetcher:
+    """Host->device copies of batches that can run ahead of the programs
+    consuming them. CUDA: each :meth:`place` fills the next of ``depth``
+    pinned staging buffers (after that buffer's previous copy has
+    completed) and copies it, non-blocking, on the prefetcher's own copy
+    stream into fresh device tensors, recording an event after the copy.
+    The CPU: plain copies. Every placement's bytes count as one upload
+    (:mod:`~stmgcn_tpu_torch.obs.graphmon`)."""
+
+    def __init__(self, device: torch.device, depth: int):
+        if depth < 1:
+            raise ValueError(f"a prefetcher needs at least one staging buffer, got {depth}")
+        self.device = torch.device(device)
+        self.cuda = self.device.type == "cuda"
+        self.stream = torch.cuda.Stream(self.device) if self.cuda else None
+        # per ring slot: {name: pinned host tensor}, and the event after its last copy
+        self._staging: list = [{} for _ in range(depth)]
+        self._copied: list = [None] * depth
+        self._next = 0
+
+    @property
+    def depth(self) -> int:
+        return len(self._staging)
+
+    def place(self, arrays: Dict[str, np.ndarray]) -> Placed:
+        """``arrays`` (name -> float32-convertible numpy) on the device."""
+        arrays = {k: np.asarray(v, np.float32) for k, v in arrays.items()}
+        if not self.cuda:
+            placed = Placed({k: torch.tensor(v, device=self.device) for k, v in arrays.items()})
+        else:
+            slot = self._next
+            self._next = (slot + 1) % self.depth
+            if self._copied[slot] is not None:  # the DMA has left this buffer
+                self._copied[slot].synchronize()
+            host = self._staging[slot]
+            for name, a in arrays.items():
+                buf = host.get(name)
+                if buf is None or tuple(buf.shape) != a.shape:
+                    buf = host[name] = torch.empty(a.shape, dtype=torch.float32,
+                                                   pin_memory=True)
+                buf.numpy()[...] = a
+            with torch.cuda.stream(self.stream):
+                # allocated on the copy stream: the consumer's record_stream
+                # keeps the block from a later copy until its work is done
+                dev = {name: torch.empty(a.shape, dtype=torch.float32, device=self.device)
+                       for name, a in arrays.items()}
+                for name, t in dev.items():
+                    t.copy_(host[name], non_blocking=True)
+                done = torch.cuda.Event()
+                done.record(self.stream)
+            self._copied[slot] = done
+            placed = Placed(dev, done)
+        graphmon.record_upload(placed.nbytes)
+        return placed
+
+
 class GraphPool(DeviceOps):
     """One CUDA-graph memory pool, one capture stream and one replay
     stream (the caller's current stream when made), shared by the
@@ -246,24 +342,45 @@ class Program:
     """``body(views) -> tensor`` over :class:`StaticInputs` of ``spec``,
     run eagerly on every call (the eager route). ``program(values)`` fills
     the inputs from ``values`` (name -> numpy array), runs, and returns the
-    output as a host tensor. ``lock`` (default: the program's own) is held
-    from the fill to the enqueue of the output copy. ``upload_span`` names
+    output as a host tensor. ``device_spec`` (name -> ``(shape, dtype)``)
+    adds static device tensors to the views, which ``program(values,
+    placed)`` fills from a :class:`Placed` batch by a device-to-device copy
+    on the program's stream; ``before_wait`` runs on the host after the
+    program and its readback are enqueued, before the wait for them (a
+    prefetcher's next upload, overlapping the program). ``lock``
+    (default: the program's own) is held from the fill to the enqueue of
+    the output copy. ``upload_span`` names
     the trace span (:mod:`~stmgcn_tpu_torch.obs.trace`) of each call's fill
     and upload, with its bytes, while tracing is on."""
 
     captured = False
 
     def __init__(self, body: Callable, spec: dict, ops: DeviceOps, *, name: str = "program",
-                 lock: Optional[threading.Lock] = None, upload_span: Optional[str] = None):
+                 lock: Optional[threading.Lock] = None, upload_span: Optional[str] = None,
+                 device_spec: Optional[dict] = None):
         self.name = name
         self.upload_span = upload_span
         self.ops = ops
         self._body = body
         self.inputs = StaticInputs(spec, ops)
+        self.device_inputs = {name: torch.zeros(shape, dtype=dtype, device=ops.device)
+                              for name, (shape, dtype) in (device_spec or {}).items()}
+        self.views = {**self.inputs.views, **self.device_inputs}
         self._lock = lock if lock is not None else threading.Lock()
         self._staged = None  # event after the last upload out of the staging buffer
 
-    def __call__(self, values: Dict[str, np.ndarray]) -> torch.Tensor:
+    def _land(self, placed: Placed) -> None:
+        """Copy a placed batch into the device inputs, on the program's
+        stream, after its upload."""
+        if set(placed.tensors) != set(self.device_inputs):
+            raise KeyError(f"{self.name}: device inputs {sorted(self.device_inputs)}, "
+                           f"got {sorted(placed.tensors)}")
+        with self.ops.stream_context():
+            for name, t in placed.ready(self.ops.stream).items():
+                self.device_inputs[name].copy_(t)
+
+    def __call__(self, values: Dict[str, np.ndarray], placed: Optional[Placed] = None,
+                 before_wait: Optional[Callable[[], None]] = None) -> torch.Tensor:
         trc = obs_trace.active_tracer() if self.upload_span else None
         with self._lock:
             if self._staged is not None:  # the last copy has left the staging buffer
@@ -275,15 +392,21 @@ class Program:
             if trc is not None:
                 trc.record_span(self.upload_span, t0, time.perf_counter(),
                                 {"bytes": self.inputs.nbytes})
+            if placed is not None:
+                self._land(placed)
+            elif self.device_inputs:
+                raise ValueError(f"{self.name} reads device inputs: pass a placed batch")
             out = self._execute()
             host, done = self.ops.download(out)
+        if before_wait is not None:  # host work while the device runs the program
+            before_wait()
         if done is not None:
             done.synchronize()
         return host
 
     def _execute(self) -> torch.Tensor:
         with self.ops.stream_context():
-            return self._body(self.inputs.views)
+            return self._body(self.views)
 
 
 class CapturedProgram(Program):
@@ -304,8 +427,9 @@ class CapturedProgram(Program):
 
     def __init__(self, body: Callable, spec: dict, pool, *, name: str = "program",
                  swap: bool = False, generator: Optional[torch.Generator] = None,
-                 upload_span: Optional[str] = None):
-        super().__init__(body, spec, pool, name=name, lock=pool.lock, upload_span=upload_span)
+                 upload_span: Optional[str] = None, device_spec: Optional[dict] = None):
+        super().__init__(body, spec, pool, name=name, lock=pool.lock, upload_span=upload_span,
+                         device_spec=device_spec)
         self.swap = swap
         self.generator = generator
         self.graph = None
@@ -321,7 +445,7 @@ class CapturedProgram(Program):
         return self.outputs
 
     def _capture(self) -> torch.Tensor:
-        views = self.inputs.views
+        views = self.views
         with _CAPTURE_LOCK:
             out = self.ops.warmup(lambda: self._body(views))
             t0 = time.perf_counter()

@@ -63,6 +63,7 @@ from stmgcn_tpu_torch.ops import counters
 from stmgcn_tpu_torch.ops._build import load_library, on_cuda
 
 __all__ = [
+    "ATTRIBUTES",
     "FusedLSTM",
     "bwd_kernel_library",
     "fused_lstm",
@@ -70,9 +71,10 @@ __all__ = [
     "fused_lstm_bwd",
     "fused_lstm_bwd_reference",
     "fused_lstm_reference",
+    "kernel_attributes",
     "kernel_library",
-    "kernel_width",
     "kernel_resources",
+    "kernel_width",
     "pack_weights",
     "unpack_weight_grads",
 ]
@@ -136,6 +138,34 @@ def kernel_resources(L: int, H: int, dtype=torch.float32) -> dict:
         "lstm_bwd_sweep": bwd.stmgcn_lstm_bwd_smem(L, H, form),
         "lstm_bwd_wgrad": bwd.stmgcn_lstm_bwd_smem(0, H, form),
     }
+
+
+#: what :func:`kernel_attributes` reports of each compiled kernel instance
+ATTRIBUTES = ("registers", "local_bytes", "max_threads", "static_smem")
+
+
+def kernel_attributes(L: int, H: int, dtype=torch.float32) -> dict:
+    """``cudaFuncGetAttributes`` of each LSTM kernel instance a launch at
+    ``(L, H)`` and storage ``dtype`` (``"xla"`` for the xla form) takes:
+    ``{kernel: {registers, local_bytes (spilled, per thread), max_threads,
+    static_smem}}`` for ``lstm_fwd_kernel``, ``lstm_bwd_sweep`` and
+    ``lstm_bwd_wgrad`` (builds the libraries on first call; needs the
+    card)."""
+    form = 2 if dtype == "xla" else int(dtype == torch.bfloat16)
+    fwd, bwd = _library(SOURCE, "fused_lstm_fwd", form)[0], _library(
+        BWD_SOURCE, "fused_lstm_bwd", form)[0]
+    out = {}
+    for name, fn, layers in (("lstm_fwd_kernel", fwd.stmgcn_lstm_fwd_attrs, L),
+                             ("lstm_bwd_sweep", bwd.stmgcn_lstm_bwd_attrs, L),
+                             ("lstm_bwd_wgrad", bwd.stmgcn_lstm_bwd_attrs, 0)):
+        fn.restype = ctypes.c_int
+        info = (ctypes.c_int * len(ATTRIBUTES))()
+        err = fn(layers, H, form, info)
+        if err != 0:
+            raise RuntimeError(f"{name} (L={layers}, H={H}, form {form}): "
+                               f"cudaFuncGetAttributes failed with cudaError {err}")
+        out[name] = dict(zip(ATTRIBUTES, info))
+    return out
 
 
 def _storage(name, operands, products=None) -> torch.dtype:

@@ -70,10 +70,12 @@ from stmgcn_tpu_torch.ops._build import load_library, on_cuda
 __all__ = [
     "BlockSparse",
     "BlockSparseStack",
+    "KERNEL_ROLES",
     "KERNEL_TILES",
     "TILE",
     "from_dense",
     "heavy_first",
+    "kernel_attributes",
     "kernel_library",
     "kernel_plan",
     "place_supports",
@@ -426,6 +428,25 @@ def kernel_plan(tile: int, F: int, dtype=torch.float32) -> dict:
     if lib.stmgcn_spmm_plan(tile, F, int(dtype == torch.bfloat16), info) != 0:
         raise ValueError(f"the CUDA kernel takes tile in {KERNEL_TILES}, got {tile}")
     return dict(zip(("column_tile", "stages", "smem_bytes", "warp_rows", "warp_cols"), info))
+
+
+#: the kernels by role, as :func:`kernel_attributes` and the library take them
+KERNEL_ROLES = ("spmm_stack_fwd_kernel", "spmm_stack_bwd_kernel", "spmm_kernel")
+
+
+def kernel_attributes(role: int, tile: int, F: int, dtype=torch.float32) -> dict:
+    """``cudaFuncGetAttributes`` of the instance of kernel ``role`` (an
+    index of :data:`KERNEL_ROLES`) a launch at ``(tile, F)`` and storage
+    ``dtype`` takes: registers, local (spilled) bytes per thread, max
+    threads per block, static shared bytes (builds the library on first
+    call; needs the card)."""
+    lib, _ = load_library([SOURCE], "spmm_stack")
+    info = (ctypes.c_int * 4)()
+    err = lib.stmgcn_spmm_attrs(role, tile, F, int(dtype == torch.bfloat16), info)
+    if err != 0:
+        raise RuntimeError(f"{KERNEL_ROLES[role]} (tile {tile}, F {F}): "
+                           f"cudaFuncGetAttributes failed with cudaError {err}")
+    return dict(zip(("registers", "local_bytes", "max_threads", "static_smem"), info))
 
 
 def _launch(name, role, data, idx, nblk, order, src, out, *, S, tile, n_src_rows, src_div=1,

@@ -1,20 +1,42 @@
-"""The training loop: epochs over the window-free resident series, with
+"""The training loop: epochs over resident or streamed data, with
 checkpoints.
 
-Counterpart of ``stmgcn_tpu/train/trainer.py`` (``Trainer``) on its
-single-device, homogeneous, window-free resident path:
+Counterpart of ``stmgcn_tpu/train/trainer.py`` (``Trainer``) on one
+device. **Data placement** (``data_placement``, ``window_free``,
+``prefetch``; ``trainer.py:163-180``, ``:410-455``) decides where batches
+come from, as the JAX trainer decides it:
 
-- the normalized ``(T, N, C)`` series, the per-mode int32 target vectors
-  and the window's offset table are uploaded once; every batch is an
-  index vector, gathered on the device (``gather_window_batch``);
+- *window-free resident* (the default wherever it fits): the normalized
+  ``(T, N, C)`` series, the per-mode int32 target vectors and the window's
+  offset table are uploaded once; every batch is an index vector, gathered
+  on the device (``gather_window_batch``);
+- *materialized resident* (``window_free=False``): each mode's windowed
+  ``(S, T, N, C)`` / ``(S, [H,] N, C)`` arrays are uploaded once, on first
+  use (``_resident_arrays``), and each step takes its batch by
+  ``index_select`` on axis 0 (the JAX ``jnp.take``); a pure copy, so every
+  loss and parameter is bitwise the window-free route's;
+- *streaming* (``data_placement="stream"``): batches carry host arrays and
+  each is uploaded per step, ``prefetch`` batches ahead
+  (:class:`~stmgcn_tpu_torch.graphs.Prefetcher`: a copy stream of its own,
+  a ring of ``prefetch + 1`` pinned buffers), and lands in the one-step
+  program's static ``x``/``y`` by a device-to-device copy in the replay's
+  stream order; streamed training never takes blocks (the JAX
+  ``_superstep_ready``), and a mid-epoch resume skips consumed batches
+  without placing them;
+- ``"auto"`` is resident when the bytes that would sit on the device
+  (``resident_nbytes`` window-free, ``nbytes`` materialized) fit
+  :meth:`Trainer._resident_cap_bytes`: half of what the card can still
+  give this process, never below ``RESIDENT_CAP_BYTES`` (the CPU: that
+  floor);
 - batches come from ``DemandDataset.batches(..., pad_last=True,
   with_arrays=False)`` in the JAX order (``shuffle``/``seed``/``epoch``),
   and a ``(B,)`` sample mask drops the padded tail from the loss;
-- ``steps_per_superstep=S`` runs S optimizer steps per block, the tail
-  short of S one step at a time, each block one program over static
-  buffers: one host->device copy of its ``(S, B)`` index block, ``(S, B)``
-  sample mask and ``(S, 2)`` optimizer scalars, one ``loss (S,)``
-  readback. On CUDA the programs are captured (``graphs``, default on for
+- ``steps_per_superstep=S`` runs S optimizer steps per block on resident
+  data (``train_path`` ``"series_superstep"``, or ``"superstep"`` over
+  materialized windows), the tail short of S one step at a time, each
+  block one program over static buffers: one host->device copy of its
+  ``(S, B)`` index block, ``(S, B)`` sample mask and ``(S, 2)`` optimizer
+  scalars, one ``loss (S,)`` readback. On CUDA the programs are captured (``graphs``, default on for
   CUDA; :mod:`stmgcn_tpu_torch.graphs`): one CUDA graph per (city or
   fleet class, S) and per one-step tail, replayed for every later block,
   the counterpart of the JAX package's jitted superstep scans;
@@ -59,7 +81,9 @@ N_c)`` mask (``train/step.py`` ``train_step(n_real=)``). With
 ``steps_per_superstep=S`` a member's consecutive batches run in blocks of
 S (``train_path == "fleet_superstep"``); cities the planner leaves
 unassigned, and every run's tail short of S, step one at a time at the
-city's own shape, and ``fallback_reason`` says so. ``test()`` reports per
+city's own shape, and ``fallback_reason`` says so. The fleet engages on
+resident data only; over materialized windows its cities step one at a
+time from their rung-padded arrays (the JAX parity oracle). ``test()`` reports per
 city, denormalized with each city's normalizer, and checkpoints carry one
 normalizer per city (``normalizers``).
 
@@ -135,12 +159,12 @@ backward op that made a NaN.
 tracer is read once per dispatch or epoch and nothing is recorded inside
 a program, so tracing changes no program.
 
-Not ported: streaming placement, materialized windows, node padding for
-meshes and meshes.
+Not ported: node padding for meshes and meshes.
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import dataclasses
 import errno
@@ -156,9 +180,16 @@ from typing import Optional
 import numpy as np
 import torch
 
-from stmgcn_tpu_torch.config import check_precision
+from stmgcn_tpu_torch.config import WINDOW_FREE_NEEDS_RESIDENT, check_placement, check_precision
 from stmgcn_tpu_torch.data.splits import MODES
-from stmgcn_tpu_torch.graphs import CapturedProgram, DeviceOps, GraphPool, Program, resolve_graphs
+from stmgcn_tpu_torch.graphs import (
+    CapturedProgram,
+    DeviceOps,
+    GraphPool,
+    Prefetcher,
+    Program,
+    resolve_graphs,
+)
 from stmgcn_tpu_torch.models.params import (
     from_jax_params,
     health_groups,
@@ -283,13 +314,14 @@ class _FleetCity:
 
 @dataclasses.dataclass
 class _CityData:
-    """What one city's steps read on the device: its resident series (the
-    class series for a fleet city), the per-mode target vectors into it,
-    its supports (rung-padded for a fleet city), the gate's real-node count
+    """What one city's steps read on the device: on the window-free route
+    its resident series (the class series for a fleet city) and the
+    per-mode target vectors into it (None on the other routes); its
+    supports (rung-padded for a fleet city), the gate's real-node count
     (fleet cities only) and the padded node rows the loss masks out."""
 
-    series: torch.Tensor
-    targets: dict
+    series: Optional[torch.Tensor]
+    targets: Optional[dict]
     supports: object
     n_real: Optional[torch.Tensor]
     pad: int
@@ -305,10 +337,30 @@ class _Site:
     on a member axis (a dense stack or :class:`StackedPlans`) and their
     real-node counts, both selected by the block's slot on the device."""
 
-    series: torch.Tensor
-    targets: dict
+    series: Optional[torch.Tensor]
+    targets: Optional[dict]
     supports: object
     n_real: Optional[torch.Tensor]  # (members,) int32 for a class, None for a city
+    rung: Optional[int] = None  # a class's padded node count
+    #: materialized windows, uploaded on first use: mode -> (x_all, y_all),
+    #: the members' rung-padded arrays concatenated for a class
+    arrays: dict = dataclasses.field(default_factory=dict)
+
+    def gather(self, mode: str, idx: torch.Tensor, offsets, horizon: int,
+               sanitizer: Optional[Sanitizer] = None) -> tuple:
+        """The batch ``(x, y)`` at ``idx``: the window gather from the
+        series, or rows of the materialized arrays (``index_select`` on
+        axis 0, indices clamped and flagged under an ``"index"``
+        sanitizer, as a JAX take clamps)."""
+        if self.series is not None:
+            return gather_window_batch(self.series, self.targets[mode], offsets, idx,
+                                       horizon, sanitizer)
+        x_all, y_all = self.arrays[mode]
+        if sanitizer is not None and "index" in sanitizer.kinds:
+            n = x_all.shape[0]
+            sanitizer.flag("window index", ((idx < 0) | (idx >= n)).any())
+            idx = idx.clamp(0, n - 1)
+        return x_all.index_select(0, idx), y_all.index_select(0, idx)
 
     def select(self, slot: Optional[torch.Tensor]) -> tuple:
         """``(supports, n_real)`` of the member at ``slot`` (``(1,)``; a
@@ -320,6 +372,46 @@ class _Site:
         else:
             sup = self.supports.index_select(0, slot)[0]
         return sup, self.n_real.index_select(0, slot).reshape(())
+
+
+class _Ahead:
+    """Batches placed ``prefetch`` ahead of their consumer, with the JAX
+    ``_placed_batches`` queue's counts: when batch i is consumed, batches
+    0 .. i + prefetch have been placed. The first ``prefetch + 1`` are
+    placed before batch 0 is handed out; each later one when the consumer
+    calls :meth:`advance` (the trainer does, once a step's program is
+    enqueued, so its upload runs while that step's kernels do), or else at
+    the next hand-out. ``prefetch=0`` places and consumes in turn."""
+
+    def __init__(self, batches, place, prefetch: int):
+        self._batches = iter(batches)
+        self._place = place
+        self._prefetch = prefetch
+        self._queue: collections.deque = collections.deque()
+        self._started = False
+        self._owed = False  # a hand-out whose placement ahead has not run yet
+
+    def advance(self) -> None:
+        """Place the next batch, if any."""
+        self._owed = False
+        batch = next(self._batches, None)
+        if batch is not None:
+            self._queue.append((batch, self._place(batch)))
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        if not self._started:
+            self._started = True
+            for _ in range(self._prefetch + 1):
+                self.advance()
+        elif self._owed:
+            self.advance()
+        if not self._queue:
+            raise StopIteration
+        self._owed = True
+        return self._queue.popleft()
 
 
 class Trainer:
@@ -339,11 +431,18 @@ class Trainer:
     model facts there, as the JAX package does). ``device=None`` means the
     GPU, and raises without one. ``graphs`` captures the training programs
     as CUDA graphs (``None``: on for CUDA; ``True`` on the CPU raises);
-    ``graphs=False`` runs them eagerly. ``fault_plan``, the
-    ``divergence_*`` and ``health*`` arguments, ``checks`` and
+    ``graphs=False`` runs them eagerly. ``data_placement``
+    (``"auto"``, ``"resident"`` or ``"stream"``), ``window_free`` (None:
+    wherever resident; True requires it; False materializes the windows)
+    and ``prefetch`` (batches placed ahead when streaming), ``fault_plan``,
+    the ``divergence_*`` and ``health*`` arguments, ``checks`` and
     ``debug_nans``: the module docstring. Other arguments as the JAX
     ``Trainer``'s.
     """
+
+    #: "auto" placement stays resident up to this many bytes at least (the
+    #: CPU's whole budget; on the card the floor of :meth:`_resident_cap_bytes`)
+    RESIDENT_CAP_BYTES = 1 << 30
 
     def __init__(self, model, dataset, supports, *, lr: float = 2e-3,
                  weight_decay: float = 1e-4, lr_schedule: str = "none",
@@ -351,8 +450,9 @@ class Trainer:
                  grad_clip_norm: Optional[float] = None, loss: str = "mse",
                  n_epochs: int = 100, batch_size: int = 32, patience: int = 10,
                  shuffle: bool = False, seed: int = 0, steps_per_superstep: int = 1,
-                 fleet: Optional[bool] = None, fleet_max_classes: int = 8,
-                 fleet_max_pad_waste: float = 0.5,
+                 prefetch: int = 1, data_placement: str = "auto",
+                 window_free: Optional[bool] = None, fleet: Optional[bool] = None,
+                 fleet_max_classes: int = 8, fleet_max_pad_waste: float = 0.5,
                  out_dir: str = "output", top_k: int = 1, async_checkpoint: bool = True,
                  checkpoint_every_steps: int = 0, precision: str = "fp32",
                  sr_seed: Optional[int] = None, divergence_guard: bool = False,
@@ -368,6 +468,7 @@ class Trainer:
         check_precision(precision, sr_seed)
         if loss not in LOSSES:
             raise ValueError(f"loss must be one of {LOSSES}, got {loss!r}")
+        check_placement(prefetch, data_placement)
         if steps_per_superstep < 1:
             raise ValueError(f"steps_per_superstep must be >= 1, got {steps_per_superstep}")
         if top_k < 1:
@@ -411,6 +512,9 @@ class Trainer:
         self.shuffle = shuffle
         self.seed = seed
         self.steps_per_superstep = steps_per_superstep
+        self.prefetch = prefetch
+        self.data_placement = data_placement
+        self._place_resident(window_free)
         self.out_dir = out_dir
         self.top_k = top_k
         self.async_checkpoint = async_checkpoint
@@ -480,6 +584,8 @@ class Trainer:
             self._engage_fleet()
         self.offsets = torch.as_tensor(np.asarray(dataset.window.offsets, np.int32), device=dev)
         self.horizon = dataset.window.horizon
+        #: the streaming route's copies, ``prefetch + 1`` staging buffers
+        self._prefetcher = None if self._resident else Prefetcher(dev, prefetch + 1)
         #: the resident data, uploaded once per city (one series serves every
         #: mode; a fleet class's members share one)
         self._cities = self._resident_cities()
@@ -522,11 +628,49 @@ class Trainer:
         #: what the background writer raised since the last flush
         self._write_failures: list = []
 
+    # -- data placement -----------------------------------------------------
+    def _resident_cap_bytes(self) -> int:
+        """Byte budget of "auto" resident placement: half of what the card
+        can still give this process (``torch.cuda.mem_get_info``'s free
+        bytes plus the caching allocator's reserved but unallocated ones),
+        the other half left for parameters, optimizer state, activations
+        and graph pools; never below :attr:`RESIDENT_CAP_BYTES`, which is
+        the whole budget off CUDA (the JAX ``_resident_cap_bytes``)."""
+        if self.device.type != "cuda":
+            return self.RESIDENT_CAP_BYTES
+        free, _ = torch.cuda.mem_get_info(self.device)
+        spare = torch.cuda.memory_reserved(self.device) - torch.cuda.memory_allocated(self.device)
+        return max(self.RESIDENT_CAP_BYTES, (free + spare) // 2)
+
+    def _place_resident(self, window_free: Optional[bool]) -> None:
+        """``_resident`` and ``_window_free`` as the JAX trainer decides
+        them (``trainer.py:426-455``): "auto" sizes against what would sit
+        on the device, the raw series where the window-free gather can
+        serve, the windowed arrays otherwise."""
+        ds = self.dataset
+        wf_supported = hasattr(ds, "series") and hasattr(ds, "mode_targets")
+        if window_free and not wf_supported:
+            raise ValueError(
+                "window_free=True requires the series/mode_targets protocol "
+                "(DemandDataset or HeteroCityDataset) — this dataset only "
+                "materializes windows")
+        wf_candidate = wf_supported and window_free is not False
+        resident_bytes = ds.resident_nbytes if wf_candidate else ds.nbytes
+        self._resident = self.data_placement == "resident" or (
+            self.data_placement == "auto" and resident_bytes <= self._resident_cap_bytes())
+        #: resident batches gather from the raw series on the device instead
+        #: of materialized window arrays (bitwise the same batches)
+        self._window_free = wf_candidate and self._resident
+        if window_free and not self._window_free:
+            raise ValueError(WINDOW_FREE_NEEDS_RESIDENT)
+
     # -- cities and fleet classes -------------------------------------------
     def _fleet_blocker(self) -> Optional[str]:
         """Why the fleet cannot engage (the JAX trainer's texts), or None."""
         if not self.hetero:
             return "the dataset is homogeneous (one shared graph fuses already)"
+        if not self._resident:
+            return "data placement is not resident (stream/mesh upload per batch)"
         per_city = self.supports.per_city if isinstance(self.supports, CitySupports) else ()
         tiled = bool(per_city) and all(isinstance(s, TiledSupports) for s in per_city)
         dense = bool(per_city) and all(
@@ -583,18 +727,24 @@ class Trainer:
     def _resident_cities(self) -> dict:
         """Each city's :class:`_CityData`; one entry (city 0) when every
         city shares one graph stack, whose batches index the cities'
-        concatenated series."""
-        ds, dev = self.dataset, self.device
+        concatenated series. Only the window-free route uploads a series
+        here."""
+        ds, dev, wf = self.dataset, self.device, self._window_free
 
         def targets(c, offset=0):
+            if not wf:
+                return None
             return {m: torch.as_tensor(np.asarray(ds.mode_targets(m, c), np.int64) + offset,
                                        dtype=torch.int32, device=dev) for m in MODES}
 
+        def upload(series):
+            return self._upload(series) if wf else None
+
         if ds.shared_graphs:
-            return {0: _CityData(self._upload(ds.series_stack()), targets(None),
+            return {0: _CityData(upload(ds.series_stack()), targets(None),
                                  self.supports, None, 0)}
         class_series = {}
-        for ci, cls in enumerate(self.fleet_plan.classes if self.fleet_plan else ()):
+        for ci, cls in enumerate(self.fleet_plan.classes if self.fleet_plan and wf else ()):
             class_series[ci] = self._upload(np.concatenate([
                 np.pad(ds.series(c), [(0, 0), (0, cls.n_nodes - ds.city_n_nodes[c]), (0, 0)])
                 for c in cls.cities]))
@@ -603,12 +753,41 @@ class Trainer:
             info = self._fleet_cities.get(c)
             sup = self.supports.for_city(c)
             if info is None:
-                cities[c] = _CityData(self._upload(ds.series(c)), targets(c), sup, None, 0)
+                cities[c] = _CityData(upload(ds.series(c)), targets(c), sup, None, 0)
             else:
-                cities[c] = _CityData(class_series[info.cls], targets(c, info.t_offset), sup,
+                cities[c] = _CityData(class_series.get(info.cls), targets(c, info.t_offset), sup,
                                       torch.tensor(info.n_real, dtype=torch.int32, device=dev),
                                       info.pad)
         return cities
+
+    def _resident_arrays(self, mode: str, key) -> tuple:
+        """The materialized route's ``(x_all, y_all)`` of ``mode`` at site
+        ``key``, uploaded once per run (the JAX ``_resident_arrays``): the
+        mode's windows of every city over a shared graph stack, of one city,
+        or of a fleet class's members node-padded to the rung and
+        concatenated member after member (the order of the class's
+        concatenated targets)."""
+        site = self._sites[key]
+        if mode not in site.arrays:
+            ds = self.dataset
+            if key[0] == "city" and ds.shared_graphs:
+                x, y = ds.arrays(mode)
+            else:
+                cities = ((key[1],) if key[0] == "city"
+                          else self.fleet_plan.classes[key[1]].cities)
+                xs, ys = [], []
+                for c in cities:
+                    x, y = ds.city_arrays(mode, c)
+                    info = self._fleet_cities.get(c)
+                    if info is not None and info.pad:
+                        x = np.pad(x, [(0, 0)] * 2 + [(0, info.pad), (0, 0)])
+                        y = np.pad(y, [(0, 0)] * (y.ndim - 2) + [(0, info.pad), (0, 0)])
+                    xs.append(x)
+                    ys.append(y)
+                x, y = (xs[0], ys[0]) if len(xs) == 1 else (np.concatenate(xs),
+                                                            np.concatenate(ys))
+            site.arrays[mode] = (self._upload(x), self._upload(y))
+        return site.arrays[mode]
 
     def _training_sites(self) -> tuple:
         """``(sites, where)``: every training program's :class:`_Site` by
@@ -622,36 +801,43 @@ class Trainer:
                 where[c] = (("city", c), 0, dict.fromkeys(MODES, 0))
         for ci, cls in enumerate(self.fleet_plan.classes if self._fleet_cities else ()):
             members = [self._cities[c] for c in cls.cities]
-            targets = {m: torch.cat([d.targets[m] for d in members]) for m in MODES}
-            starts = {m: np.cumsum([0] + [len(d.targets[m]) for d in members]) for m in MODES}
+            targets = ({m: torch.cat([d.targets[m] for d in members]) for m in MODES}
+                       if self._window_free else None)
+            starts = {m: np.cumsum([0] + [len(self.dataset.mode_targets(m, c))
+                                          for c in cls.cities]) for m in MODES}
             n_real = torch.tensor([self._fleet_cities[c].n_real for c in cls.cities],
                                   dtype=torch.int32, device=self.device)
             sites["class", ci] = _Site(members[0].series, targets, self._class_supports[ci],
-                                       n_real)
+                                       n_real, cls.n_nodes)
             for slot, c in enumerate(cls.cities):
                 where[c] = (("class", ci), slot, {m: int(starts[m][slot]) for m in MODES})
         return sites, where
 
     def _train_path(self, blocker) -> tuple:
         """``(train_path, fallback_reason)`` as the JAX trainer names them:
-        the path training epochs take ("series_superstep", "fleet_superstep"
-        or "per_step") and, when S > 1 asked for blocks, why (part of) the
+        the path training epochs take ("series_superstep", "superstep",
+        "fleet_superstep" or "per_step") and, when S > 1 asked for blocks, why (part of) the
         run steps one batch at a time."""
         if self.steps_per_superstep == 1:
             return "per_step", None
-        if self.dataset.shared_graphs:
-            return "series_superstep", None
-        if self._fleet_cities:
+        if self._resident and self.dataset.shared_graphs:
+            return "series_superstep" if self._window_free else "superstep", None
+        if self._fleet_cities and self._window_free:
             unassigned = self.fleet_plan.unassigned
             return "fleet_superstep", None if not unassigned else (
                 f"no-class-fit: cities {sorted(unassigned)} fit no shape class "
                 f"(fleet_max_classes={self.fleet_max_classes}, fleet_max_pad_waste="
                 f"{self.fleet_max_pad_waste}) and run the per-step loop")
+        if not self._resident:
+            return "per_step", "stream: data placement is not resident, batches upload per step"
         if self.hetero and self.fleet is False:
-            return "per_step", ("hetero: heterogeneous cities with fleet=False take "
-                                "the per-city loop")
+            return "per_step", ("hetero: heterogeneous cities with fleet=False take the "
+                                "materialized per-city loop")
         if self.hetero and blocker is not None:
             return "per_step", f"hetero: {blocker}"
+        if self.hetero and not self._window_free:
+            return "per_step", ("hetero: window_free=False keeps the materialized per-city "
+                                "loop (the fleet parity oracle)")
         if self.hetero:
             return "per_step", "hetero: no city fits any shape class"
         return "per_step", ("per-city support stacks (CitySupports) on a homogeneous "
@@ -876,20 +1062,52 @@ class Trainer:
             pad_last=True, with_arrays=False,
         )
 
-    def place(self, batch, mode: str, sanitizer: Optional[Sanitizer] = None):
-        """``(x, y, mask)`` on the device: the window gather from the
-        batch's city's resident series, and the mask of real samples,
+    def _placed_batches(self, mode: str, *, shuffle: bool = False, skip: int = 0) -> "_Ahead":
+        """``(batch, placed)`` of the streaming route with ``prefetch``
+        batches placed ahead (:class:`_Ahead`, the JAX ``_placed_batches``
+        queue); the first ``skip`` batches (a mid-epoch resume's consumed
+        ones) are not placed."""
+        batches = self.dataset.batches(
+            mode, self.batch_size, shuffle=shuffle, seed=self.seed, epoch=self.epoch,
+            pad_last=True, with_arrays=True)
+        return _Ahead(itertools.islice(batches, skip, None),
+                      lambda batch: self._place_stream(batch, mode), self.prefetch)
+
+    def _place_stream(self, batch, mode: str):
+        """Start the upload of a streamed batch's ``x`` and ``y`` (from the
+        mode's windowed arrays when it carries only indices: a deferred
+        batch of a resumed epoch)."""
+        x, y = batch.x, batch.y
+        if x is None:
+            ds = self.dataset
+            x_all, y_all = (ds.arrays(mode) if ds.shared_graphs
+                            else ds.city_arrays(mode, batch.city))
+            x, y = x_all[batch.indices], y_all[batch.indices]
+        return self._prefetcher.place({"x": x, "y": y})
+
+    def place(self, batch, mode: str, sanitizer: Optional[Sanitizer] = None, placed=None):
+        """``(x, y, mask)`` on the device: the batch gathered from its
+        city's resident data (the series, or the materialized windows), or
+        streamed (``placed``, or placed now), and the mask of real samples,
         ``(B,)``, or ``(B, N_c)`` crossed with the real nodes for a fleet
         city (at every pad, as the JAX trainer's one mask shape per class).
         ``sanitizer`` (a step open on it) checks the gather's indices."""
-        data = self._cities[batch.city]
-        idx = torch.as_tensor(np.asarray(batch.indices, np.int64), device=self.device)
-        x, y = gather_window_batch(data.series, data.targets[mode], self.offsets, idx,
-                                   self.horizon, sanitizer)
+        if not self._resident:
+            placed = placed if placed is not None else self._place_stream(batch, mode)
+            tensors = placed.ready()
+            x, y = tensors["x"], tensors["y"]
+        else:
+            key, _, starts = self._city_site[batch.city]
+            if not self._window_free:
+                self._resident_arrays(mode, key)
+            idx = torch.as_tensor(np.asarray(batch.indices, np.int64) + starts[mode],
+                                  device=self.device)
+            x, y = self._sites[key].gather(mode, idx, self.offsets, self.horizon, sanitizer)
         mask = (np.arange(len(batch)) < batch.n_real).astype(np.float32)
-        if batch.city in self._fleet_cities:
-            n = data.series.shape[1]
-            mask = mask[:, None] * (np.arange(n) < n - data.pad).astype(np.float32)[None, :]
+        info = self._fleet_cities.get(batch.city)
+        if info is not None:
+            n = info.n_real + info.pad
+            mask = mask[:, None] * (np.arange(n) < info.n_real).astype(np.float32)[None, :]
         return x, y, torch.as_tensor(mask, device=self.device)
 
     def _sr_seed(self, step: int) -> int:
@@ -910,19 +1128,21 @@ class Trainer:
         step's flag word follows as a last column (``(steps, 2)`` plain)."""
         groups = self._health_groups if health else None
         san = self.sanitizer
+        streamed = not self._resident
 
         def body(v):
             supports, n_real = site.select(v.get("slot"))
             node = None
             if n_real is not None:
-                n = site.series.shape[1]
-                node = (torch.arange(n, device=self.device) < n_real).to(torch.float32)
+                node = (torch.arange(site.rung, device=self.device) < n_real).to(torch.float32)
             outs, flags = [], []
             for s in range(steps):
                 if san is not None:
                     san.begin(self.device)
-                x, y = gather_window_batch(site.series, site.targets[mode], self.offsets,
-                                           v["idx"][s], self.horizon, san)
+                if streamed:  # one step over the landed batch
+                    x, y = v["x"], v["y"]
+                else:
+                    x, y = site.gather(mode, v["idx"][s], self.offsets, self.horizon, san)
                 mask = v["mask"][s] if node is None else v["mask"][s][:, None] * node[None, :]
                 outs.append(train_step(self.model, self.optimizer, supports, x, y, mask,
                                        self.loss, sr_generator=self._sr_gen, n_real=n_real,
@@ -944,38 +1164,62 @@ class Trainer:
 
         return body
 
-    def _program(self, key, steps: int, mode: str, health: bool = False) -> Program:
+    def _route(self) -> str:
+        """Where the programs' batches come from: ``"series"``
+        (window-free), ``"windows"`` (materialized) or ``"stream"``."""
+        if not self._resident:
+            return "stream"
+        return "series" if self._window_free else "windows"
+
+    def _program(self, key, steps: int, mode: str, health: bool = False,
+                 placed=None) -> Program:
         """The training program of ``steps`` steps over site ``key``, or its
-        health twin (made, and on CUDA captured at its first call, once)."""
-        name = (key, steps, mode, health)
+        health twin (made, and on CUDA captured at its first call, once).
+        Keyed ``(key, steps, mode, health)`` on the window-free route, with
+        the route appended on the others; a streamed program (one step)
+        reads static ``x``/``y`` device inputs shaped as ``placed``'s."""
+        route = self._route()
+        name = (key, steps, mode, health) + (() if route == "series" else (route,))
         program = self._programs.get(name)
         if program is None:
             site = self._sites[key]
-            spec = {"idx": ((steps, self.batch_size), torch.int32),
-                    "mask": ((steps, self.batch_size), torch.float32),
+            spec = {"mask": ((steps, self.batch_size), torch.float32),
                     "adam": ((steps, 2), torch.float32)}
+            device_spec = None
+            if route == "stream":
+                device_spec = {k: (tuple(t.shape), t.dtype) for k, t in placed.tensors.items()}
+            else:
+                spec = {"idx": ((steps, self.batch_size), torch.int32), **spec}
+            if route == "windows":
+                self._resident_arrays(mode, key)
             if site.n_real is not None:
                 spec["slot"] = ((1,), torch.int32)
             body = self._block_body(site, steps, mode, health)
             label = (f"training block {key[0]} {key[1]}, {steps} step(s)"
+                     + ("" if route == "series" else f", {route}")
                      + (", health" if health else ""))
             if self.graphs:
                 program = CapturedProgram(body, spec, self.graph_pool, name=label,
-                                          generator=self._sr_gen, upload_span="train.upload")
+                                          generator=self._sr_gen, upload_span="train.upload",
+                                          device_spec=device_spec)
             else:
                 program = Program(body, spec, self._ops, name=label,
-                                  upload_span="train.upload")
+                                  upload_span="train.upload", device_spec=device_spec)
             self._programs[name] = program
         return program
 
     def _dispatch(self, block: list, mode: str = "train", health: bool = False,
-                  poisons: Optional[dict] = None) -> tuple:
+                  poisons: Optional[dict] = None, placed=None, ahead=None) -> tuple:
         """The optimizer steps of ``block`` (one city's batches) as one
         program call, or one call per step under stochastic rounding (its
         generator is reseeded per step), from the optimizer's count and the
         global step as they stand; advances neither. ``poisons`` maps a
         step of the block to the payload written into its first mask entry.
-        Returns ``(losses, health rows or None)``."""
+        A streamed block is one batch, ``placed`` ahead or placed here;
+        ``ahead`` (host work, the next batch's placement) runs while the
+        program does. Returns ``(losses, health rows or None)``."""
+        if not self._resident and placed is None:
+            placed = self._place_stream(block[0], mode)
         key, slot, starts = self._city_site[block[0].city]
         runs = [[b] for b in block] if self._sr_gen is not None else [block]
         count, step = self.optimizer.count, self.global_step
@@ -988,22 +1232,24 @@ class Trainer:
                 if first <= s < first + len(run):
                     mask[s - first, 0] = payload
             values = {
-                "idx": np.stack([np.asarray(b.indices) + starts[mode] for b in run]),
                 "mask": mask,
                 "adam": np.array([self.optimizer.scalars(count + first + i)
                                   for i in range(len(run))]),
             }
+            if self._resident:
+                values["idx"] = np.stack([np.asarray(b.indices) + starts[mode] for b in run])
             if key[0] == "class":
                 values["slot"] = np.array([slot])
             if self._sr_gen is not None:
                 self._sr_gen.manual_seed(self._sr_seed(step + first))
-            program = self._program(key, len(run), mode, health)
+            program = self._program(key, len(run), mode, health, placed)
             if trc is None:
-                outs.append(program(values))
+                outs.append(program(values, placed, ahead))
             else:
                 t_d0 = time.perf_counter()
                 trc.record_span("train.host_pack", t_p0, t_d0, {"steps": len(run)})
-                outs.append(program(values))  # ends in the readback: the device is done
+                # ends in the readback: the device is done
+                outs.append(program(values, placed, ahead))
                 trc.record_span("train.superstep", t_d0, time.perf_counter(),
                                 {"step": step + first, "s": len(run)})
             first += len(run)
@@ -1057,7 +1303,7 @@ class Trainer:
         unassigned cities one batch at a time; otherwise one batch at a
         time."""
         S, rest = self.steps_per_superstep, batches[skip:]
-        if self.train_path == "series_superstep":
+        if self.train_path in ("series_superstep", "superstep"):
             full = len(rest) // S * S
             return [rest[i:i + S] for i in range(0, full, S)] + [[b] for b in rest[full:]]
         if self.train_path != "fleet_superstep" or skip % S:
@@ -1190,11 +1436,12 @@ class Trainer:
                         "restart with --resume auto to continue bit-exactly")
 
     # -- the loop -------------------------------------------------------------
-    def _train_one(self, batch, retry: bool = False) -> None:
+    def _train_one(self, batch, retry: bool = False, placed=None, ahead=None) -> None:
         """One optimizer step with the fault plan and the guard (the JAX
         ``_train_one``). ``retry`` marks a deferred batch's re-run at the
         epoch's end: the plan is not consulted and the cursor does not
-        advance."""
+        advance. ``placed``: a streamed batch's upload, started ahead;
+        ``ahead``: the next placement, run while the step does."""
         plan, guard = self.fault_plan, self._guard
         step = self._batch_in_epoch
         poisons = {}
@@ -1208,7 +1455,8 @@ class Trainer:
                 poisons[0] = poison
         if guard is not None:
             self._take_snapshot()
-        losses, stats = self._dispatch([batch], "train", self._health_due(), poisons)
+        losses, stats = self._dispatch([batch], "train", self._health_due(), poisons, placed,
+                                       ahead)
         loss = losses[0]
         if not retry:
             self._batch_in_epoch += 1
@@ -1296,7 +1544,12 @@ class Trainer:
                              "epoch does not produce — checkpoint from a different data "
                              "configuration?")
         self._deferred = [(o, batches[o]) for o in sorted(set(resume_deferred))]
-        for block in self._blocks(batches, skip):
+        if not self._resident:  # streamed: one step per batch, placed ahead
+            feed = self._placed_batches("train", shuffle=self.shuffle, skip=skip)
+            for batch, placed in feed:
+                self._train_one(batch, placed=placed, ahead=feed.advance)
+                self._after_train_batch()
+        for block in self._blocks(batches, skip) if self._resident else ():
             if len(block) == 1:
                 self._train_one(block[0])
                 self._after_train_batch()
@@ -1308,13 +1561,21 @@ class Trainer:
             self._after_train_batch()
         return self._weighted(self._epoch_losses, self._epoch_counts)
 
+    def _eval_batches(self, mode: str):
+        """``(batch, placed)`` over an evaluation mode: index-only batches
+        gathered when consumed on the resident routes (``placed`` None),
+        host batches placed ahead when streaming."""
+        if not self._resident:
+            return self._placed_batches(mode)
+        return ((batch, None) for batch in self.batches(mode))
+
     def _run_eval_epoch(self, mode: str) -> float:
         losses, counts, words = [], [], []
         san = self.sanitizer
-        for batch in self.batches(mode):
+        for batch, placed in self._eval_batches(mode):
             if san is not None:
                 san.begin(self.device)
-            x, y, mask = self.place(batch, mode, san)
+            x, y, mask = self.place(batch, mode, san, placed)
             data = self._cities[batch.city]
             losses.append(eval_step(self.model, data.supports, x, y, mask, self.loss,
                                     n_real=data.n_real, sanitizer=san)[0])
@@ -1430,8 +1691,10 @@ class Trainer:
         city's real nodes, per city, with ``state`` (a ``state_dict``) or
         the live parameters."""
         preds, trues = {}, {}
-        for batch in self.batches(mode):
-            x, y, _ = self.place(batch, mode)
+        for batch, placed in self._eval_batches(mode):
+            x, y, _ = self.place(batch, mode, placed=placed)
+            if batch.y is not None:  # streamed: the metrics read the host arrays
+                y = torch.from_numpy(np.asarray(batch.y))
             data = self._cities[batch.city]
             args = (data.supports, x, data.n_real)
             if state is None:

@@ -307,14 +307,21 @@ def test_test_needs_training_or_live_parameters(tmp_path):
 
 @pytest.mark.parametrize("field,value", [
     ("precision", "fp16"), ("sr_seed", 3),
-    ("checks", "bogus"), ("prefetch", 2),
-    ("data_placement", "stream"), ("window_free", False),
+    ("checks", "bogus"), ("prefetch", -1),
+    ("data_placement", "disk"), ("window_free", True),
 ])
 def test_unported_train_field_raises(field, value):
+    """A training field the port refuses names itself. The placement
+    fields are ported, so what stays refused is what the JAX trainer
+    refuses too: a negative prefetch, an unknown placement, and
+    ``window_free=True`` over streamed data."""
+    fields = {field: value}
+    if field == "window_free":
+        fields["data_placement"] = "stream"
     with pytest.raises(ValueError, match=f"train.{field}"):
-        TrainConfig(**{field: value})
+        TrainConfig(**fields)
     d = jax_preset("default").to_dict()
-    d["train"][field] = value
+    d["train"].update(fields)
     with pytest.raises(ValueError, match=f"train.{field}"):
         ExperimentConfig.from_dict(d)
 
