@@ -376,12 +376,53 @@ runs' and 55's as ``placement_launches`` and ``fleet_bf16_launches``).
     the budgets the lint holds them to, beside ptxas's registers and
     spills.
 
+Phases 57-60 are the mesh slice (data- and branch-parallel training on
+``torch.distributed``), run last. Each mesh job is a set of rank processes
+of this script (``chip_smoke.py --mesh-rank JOB DIR``) sharing the card
+over gloo (NCCL refuses two ranks on one device), loading the kernels the
+parent built (``STMGCN_KERNELS_PREBUILT``: a rank never runs ``nvcc``); a
+rank that fails, or a job past MESH_TIMEOUT, fails the run and the other
+ranks are killed. Each mesh run is held against its single-device twin on
+the card (the same config without the mesh, the same seed; graphed, as a
+user runs it). The B1/B2 launches summed over the ranks of 57-58 (fp32)
+and 59 (xla) are the records' ``mesh_launches``:
+
+57. ``multicity`` at its own dp=8 mesh, fp32, full width (cities 12x12 and
+    10x10, batch 64, eight ranks; the epochs cut to MESH_EPOCHS): per-step
+    losses (rtol 1e-5) and final parameters (rtol 5e-4, atol 2e-5) against
+    the twin; one B1 launch per forward of 3,456 or 2,400 rows and one B2
+    per step on every rank; one dp gradient all-reduce of 1,145,132 bytes a
+    step (286,283 fp32 parameters); one more step under
+    ``step_comm_report`` keeps to ``manifest_for_config`` (``DP_GRAD_SYNC``
+    seen, nothing undeclared); each rank's step p50 beside the twin's;
+58. ``branchpar`` at dp=2 x branch=3, fp32, full width (N = 100, batch 16,
+    six ranks), the same checks: B1 at 800 rows a launch (one branch a
+    rank), the fusion all-reduce 204,800 bytes a forward per rank, the dp
+    all-reduce 381,884 bytes a step (95,406 branch parameters and the
+    head's 65), ``BRANCH_FUSION`` and ``DP_GRAD_SYNC`` seen; ``test()`` on
+    every rank equal to the twin's;
+59. ``branchpar`` at ``model.dtype="bfloat16"`` (the xla form), one epoch:
+    the first TWIN_STEPS per-step losses within TWIN_ATOL of the bf16
+    twin's; over the whole epoch every step's loss, each parameter tensor
+    of at least BF16_NORM_MIN entries and the whole final state (normwise)
+    no farther from the fp32 twin of one epoch than BF16_GAP_FACTOR times
+    the bf16 twin's own gap to it; the xla B1/B2 counted per forward and
+    step, the fusion still an fp32 all-reduce;
+60. the files and the CLI: the lead wrote phase 58's checkpoints;
+    ``Forecaster.from_checkpoint(best.ckpt)`` on one device serves what the
+    mesh evaluated from that file (fp32 serving tolerance; the twin's own
+    best beside it); a mesh resume gives every rank the lead file's
+    parameter digest; a corrupt lead file raises on every rank;
+    ``python -m stmgcn_tpu_torch.cli --preset branchpar --distributed`` in
+    six processes launched as ``torchrun`` would prints one JSON line.
+
 Checkpoints go to a temporary directory that the run removes.
 
 The last three lines are the card, one JSON object describing each kernel
 form (B1's and B2's fp32 records carry phase 3b's shapes as
 ``route_shapes``, the B1 records their ``export_launches``; the bf16 forms' records carry ``"dtype": "bfloat16"``,
-the xla forms' ``"form": "xla"`` too), and ``{"ok": true, "device":
+the xla forms' ``"form": "xla"`` too; every record its ``mesh_launches``),
+and ``{"ok": true, "device":
 {...}}``. There is no CPU mode: without a CUDA
 device the script exits non-zero before printing any result.
 """
@@ -6125,7 +6166,559 @@ def lint_and_budgets() -> None:
           + "".join(f"\n  ptxas: {line.strip()}" for line in spills[:8]))
 
 
+# -- the mesh phases (57-60) -------------------------------------------------------
+
+#: the mesh phases: epochs of each preset (the one cut: the presets' 100);
+#: a rank job's seconds before the parent kills it and fails; the twin
+#: tolerances of tests/test_parallel.py:96-104 (per-step losses rtol 1e-5;
+#: parameters rtol 5e-4, atol 2e-5: gloo's ring sums the dp gradients and
+#: the branch fusion in another order than one device does, so allclose,
+#: not bitwise) and the bf16 twin drill's TWIN_ATOL
+MESH_EPOCHS, MESH_BF16_EPOCHS, MESH_TIMEOUT = 2, 1, 420
+MESH_LOSS_RTOL, MESH_PARAM_RTOL, MESH_PARAM_ATOL = 1e-5, 5e-4, 2e-5
+#: phase 59's whole-epoch rule: a bf16 run whose sums go in another order is
+#: another bf16 run, so the mesh may sit as far from the fp32 twin (of the
+#: same epochs) as the bf16 twin does, and no more than BF16_GAP_FACTOR
+#: times that: every step's loss against the bf16 twin's largest loss gap,
+#: and normwise each parameter tensor of at least BF16_NORM_MIN entries (a
+#: norm over fewer is too few roundings to compare) and the whole state
+BF16_GAP_FACTOR, BF16_NORM_MIN = 2.0, 1024
+#: the analytic counts of phases 57-58 (fp32, default widths: M=3, K=2 with
+#: 3 supports, a 3-layer 64-wide LSTM, gcn 64, T=5): 286,283 parameters;
+#: 95,406 per branch plus the head's 65; B1's rows a launch per rank
+#: (B/dp x N x M/branch: 8 x 144 x 3 and 8 x 100 x 3 for the multicity
+#: cities, 8 x 100 x 1 for branchpar); the fusion's bytes a forward per rank
+#: (8 x 100 x gcn 64 float32)
+MESH_PARAMS, BRANCH_PARAMS, HEAD_PARAMS = 286_283, 95_406, 65
+MULTICITY_ROWS, BRANCHPAR_ROWS = {8 * 144 * 3, 8 * 100 * 3}, {8 * 100 * 1}
+FUSION_BYTES = 8 * 100 * 64 * 4
+#: rows of test windows the Forecaster check serves
+MESH_SERVE_ROWS = 64
+
+
+def mesh_config(name: str, out: str, *, dtype: str = "float32", epochs: int = MESH_EPOCHS,
+                seed: int | None = None):
+    """The preset as configured, its epochs cut to ``epochs``; ``seed``
+    (None: the preset's) seeds the data, the weights and the batch order."""
+    from stmgcn_tpu_torch.config import preset
+
+    cfg = preset(name)
+    cfg.train.epochs, cfg.train.out_dir, cfg.model.dtype = epochs, out, dtype
+    if seed is not None:
+        cfg.data.seed = cfg.train.seed = seed
+    return cfg
+
+
+def recorded(trainer) -> dict:
+    """Record each dispatch's losses and host seconds (each ends in its
+    readback), each model forward and each LSTM launch's rows (the
+    ``(M, R, T, F)`` input of the branch-stacked LSTM: ``M x R`` rows)."""
+    rec = {"losses": [], "seconds": [], "forwards": 0, "rows": set()}
+    dispatch = trainer._dispatch
+
+    def timed(*a, **k):
+        t0 = time.perf_counter()
+        losses, stats = dispatch(*a, **k)
+        rec["losses"] += losses
+        rec["seconds"].append(time.perf_counter() - t0)
+        return losses, stats
+
+    def forward(module, args, out):
+        rec["forwards"] += 1
+
+    def lstm(module, args):
+        rec["rows"].add(int(args[0].shape[0] * args[0].shape[1]))
+
+    trainer._dispatch = timed
+    trainer.model.register_forward_hook(forward)
+    trainer.model.branches.cg_lstm.lstm.register_forward_pre_hook(lstm)
+    return rec
+
+
+def p50_ms(seconds) -> float:
+    return float(np.median(seconds) * 1e3) if seconds else float("nan")
+
+
+def mesh_train(cfg, device, *, test: bool = False) -> dict:
+    """One rank (or the twin) of a phase: build, train with the recorder on,
+    read the launches, the comm counts and the initial and final (whole)
+    parameters; then one more step under ``step_comm_report`` for the
+    manifest check."""
+    import torch
+
+    from stmgcn_tpu_torch.experiment import build_trainer
+    from stmgcn_tpu_torch.models import from_jax_params
+    from stmgcn_tpu_torch.parallel import check_executed, manifest_for_config
+    from stmgcn_tpu_torch.utils import comm, step_comm_report
+
+    trainer = build_trainer(cfg, device=device, verbose=False)
+    init = from_jax_params(trainer.state_trees()[0], trainer.model.m_graphs)
+    rec = recorded(trainer)
+    comm.STATS.reset()
+    reset_counts()
+    t0 = time.perf_counter()
+    trainer.train()
+    seconds = time.perf_counter() - t0
+    counts = read_counts()
+    stats = comm.collective_stats()
+    params, _ = trainer.state_trees()
+    out = {"losses": list(rec["losses"]), "p50_ms": p50_ms(rec["seconds"]),
+           "seconds": seconds,
+           "steps": len(rec["losses"]), "forwards": rec["forwards"],
+           "rows": sorted(rec["rows"]), "counts": counts, "comm": stats,
+           "path": trainer.train_path, "graphs": trainer.graphs,
+           "state": from_jax_params(params, trainer.model.m_graphs), "init": init,
+           "best_val": trainer.best_val}
+    if test:
+        out["test"] = trainer.test(modes=("test",), checkpoint="best")["test"]
+    if trainer.mesh is not None:
+        out["mesh"] = {**trainer.mesh.shape, "coords": trainer.mesh.coords,
+                       "backend": trainer.mesh.backend}
+        batch = next(iter(trainer.batches("train")))
+        report = step_comm_report(trainer.train_batch, batch)
+        out["step_comm"] = {k: v for k, v in report.items() if k != "result"}
+        out["manifest"] = check_executed(manifest_for_config(cfg), report)
+    out["trainer"] = trainer
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    return out
+
+
+def check_mesh_run(got: dict, twin: dict, what: str, *, loss_atol: float = 0.0,
+                   loss_rtol: float = MESH_LOSS_RTOL, params: bool = True,
+                   steps: int | None = None) -> str:
+    """A rank's run against its single-device twin: the per-step losses
+    (the first ``steps`` of them, None: all; every one finite) and the
+    final parameters."""
+    a, b = np.asarray(got["losses"]), np.asarray(twin["losses"])
+    if a.shape != b.shape or not np.all(np.isfinite(a)):
+        fail(f"{what}: {a.shape[0]} finite-checked steps against the twin's {b.shape[0]}")
+    n = a.shape[0] if steps is None else steps
+    if not np.allclose(a[:n], b[:n], rtol=loss_rtol, atol=loss_atol):
+        fail(f"{what}: per-step losses of the first {n} steps differ from the twin's by up "
+             f"to {np.max(np.abs(a[:n] - b[:n])):.3e} (rtol {loss_rtol}, atol {loss_atol})")
+    worst = 0.0
+    if params:
+        for name, value in got["state"].items():
+            want = twin["state"][name].cpu().numpy()
+            value = value.cpu().numpy()
+            worst = max(worst, float(np.max(np.abs(value - want))))
+            if not np.allclose(value, want, rtol=MESH_PARAM_RTOL, atol=MESH_PARAM_ATOL):
+                fail(f"{what}: parameter {name} differs from the twin's by up to "
+                     f"{np.max(np.abs(value - want)):.3e} (rtol {MESH_PARAM_RTOL}, atol "
+                     f"{MESH_PARAM_ATOL})")
+    return (f"{a.shape[0]} steps, losses max |diff| {np.max(np.abs(a - b)):.3e}"
+            + (f" ({np.max(np.abs(a[:n] - b[:n])):.3e} over the first {n})" if n < a.shape[0]
+               else "") + (f", parameters max |diff| {worst:.3e}" if params else ""))
+
+
+def check_bf16_run(got: dict, twin16: dict, twin32: dict, what: str) -> str:
+    """Phase 59: a bf16 mesh run against its bf16 twin and its fp32 twin of
+    the same epochs. The first TWIN_STEPS losses within TWIN_ATOL of the
+    bf16 twin's (the drill's window), then the whole epoch by the
+    BF16_GAP_FACTOR rule: every step's loss, each large tensor and the
+    whole final state as far from the fp32 twin as the bf16 twin is, at
+    most that factor more."""
+    text = check_mesh_run(got, twin16, what, loss_rtol=0.0, loss_atol=TWIN_ATOL,
+                          params=False, steps=TWIN_STEPS)
+    a, b, f = (np.asarray(r["losses"]) for r in (got, twin16, twin32))
+    if not a.shape == b.shape == f.shape:
+        fail(f"{what}: {a.shape[0]} steps, the bf16 twin {b.shape[0]}, the fp32 twin "
+             f"{f.shape[0]}")
+    twin_gap, gaps = float(np.max(np.abs(b - f))), np.abs(a - f)
+    limit = BF16_GAP_FACTOR * twin_gap
+    if np.any(gaps > limit):
+        i = int(np.argmax(gaps > limit))
+        fail(f"{what}: step {i}'s loss sits {gaps[i]:.3e} from the fp32 twin's, past "
+             f"{BF16_GAP_FACTOR} x the bf16 twin's largest gap {twin_gap:.3e}")
+    worst, sq = (0.0, ""), [0.0, 0.0]
+    for name, value in got["state"].items():
+        ref = twin32["state"][name].float().cpu().numpy()
+        mine = float(np.linalg.norm(value.float().cpu().numpy() - ref))
+        theirs = float(np.linalg.norm(twin16["state"][name].float().cpu().numpy() - ref))
+        sq[0], sq[1] = sq[0] + mine ** 2, sq[1] + theirs ** 2
+        if value.numel() < BF16_NORM_MIN:
+            continue
+        if mine > BF16_GAP_FACTOR * theirs:
+            fail(f"{what}: parameter {name} sits {mine:.3e} from the fp32 twin's (norm), "
+                 f"past {BF16_GAP_FACTOR} x the bf16 twin's {theirs:.3e}")
+        worst = max(worst, (mine / max(theirs, 1e-30), name))
+    whole = (float(np.sqrt(sq[0])), float(np.sqrt(sq[1])))
+    if whole[0] > BF16_GAP_FACTOR * whole[1]:
+        fail(f"{what}: the final state sits {whole[0]:.3e} from the fp32 twin's (norm), past "
+             f"{BF16_GAP_FACTOR} x the bf16 twin's {whole[1]:.3e}")
+    return (f"{text}; gap to the fp32 twin, losses {np.max(gaps):.3e} (the bf16 twin's "
+            f"{twin_gap:.3e}), whole state {whole[0]:.3e} (the bf16 twin's {whole[1]:.3e}), "
+            f"worst tensor {worst[1]} at {worst[0]:.3f} of the bf16 twin's gap (limit "
+            f"{BF16_GAP_FACTOR})")
+
+
+def param_gaps(got: dict, twin: dict) -> dict:
+    """Per tensor, a rank's final parameters against its twin's: the
+    largest elementwise difference, whether the elementwise tolerance of
+    phase 57 holds (and at how many entries it does not), and the
+    normwise update gap ``|p - p_twin| / |p_twin - p_init|``. Where
+    entries are past the tolerance and the twin kept its Adam moments
+    (``twin["rms_grad"]``, :func:`mesh_twin`): the twin's rms gradient at
+    them (median) beside the tensor's median (an entry whose gradient is
+    near zero takes a step of O(lr) whatever its size, so a reordered
+    sum moves it the most)."""
+    out = {}
+    for name, value in got["state"].items():
+        value, want = value.cpu().numpy(), twin["state"][name].cpu().numpy()
+        update = np.linalg.norm(want - twin["init"][name].cpu().numpy())
+        close = np.isclose(value, want, rtol=MESH_PARAM_RTOL, atol=MESH_PARAM_ATOL)
+        out[name] = {"max_diff": float(np.max(np.abs(value - want))),
+                     "elementwise_ok": bool(close.all()), "past": int((~close).sum()),
+                     "update_gap": float(np.linalg.norm(value - want) / max(update, 1e-30))}
+        rms = twin.get("rms_grad", {}).get(name)
+        if rms is not None and not close.all():
+            out[name].update(rms_grad_at_past=float(np.median(rms[~close])),
+                             rms_grad_median=float(np.median(rms)))
+    return out
+
+
+def gaps_text(gaps: dict) -> str:
+    """The tensors past phase 57's elementwise tolerance, for a line."""
+    past = {k: v for k, v in gaps.items() if not v["elementwise_ok"]}
+    return "; ".join(
+        f"{k} {v['past']} of its entries (max |diff| {v['max_diff']:.3e}"
+        + (f", the twin's rms gradient there {v['rms_grad_at_past']:.3e} against the "
+           f"tensor's median {v['rms_grad_median']:.3e}" if "rms_grad_at_past" in v else "")
+        + ")" for k, v in past.items()) or "none"
+
+
+def check_comm(got: dict, what: str, *, grads: int, fusion: int = 0, steps: int) -> None:
+    """A rank's collective counts over its run: one gradient all-reduce of
+    ``grads`` bytes a step, and (branch meshes) one fusion all-reduce of
+    ``fusion`` bytes a forward; its extra step kept to the manifest."""
+    table = got["comm"]["what"]
+    g = table.get("all-reduce/dp/grads", {"calls": 0, "bytes": 0})
+    if g["calls"] != steps or g["bytes"] != steps * grads:
+        fail(f"{what}: the dp gradient all-reduce ran {g['calls']} times, {g['bytes']} bytes; "
+             f"expected {steps} x {grads}")
+    if fusion:
+        f = table.get("all-reduce/branch/fusion", {"calls": 0, "bytes": 0})
+        if f["calls"] != got["forwards"] or f["bytes"] != got["forwards"] * fusion:
+            fail(f"{what}: the fusion all-reduce ran {f['calls']} times, {f['bytes']} bytes; "
+                 f"expected {got['forwards']} forwards x {fusion}")
+    if got["manifest"]:
+        fail(f"{what}: the step broke its collective manifest: {got['manifest']}")
+    step = got["step_comm"]["ops"]
+    if "all-reduce/dp" not in step or (fusion and "all-reduce/branch" not in step):
+        fail(f"{what}: the step's required collectives did not run: {step}")
+
+
+def check_mesh_launches(got: dict, what: str, rows: set, xla: bool = False) -> None:
+    """One B1 launch per forward (of ``rows`` rows) and one B2 per step,
+    on this rank, in the form named."""
+    c = got["counts"]
+    b1, b2 = (c["B1 xla"], c["B2 xla"]) if xla else (c["B1"], c["B2"])
+    steps = got["steps"]
+    if b1 != got["forwards"] or b2 != steps or not b1 or not b2:
+        fail(f"{what}: {b1} B1 and {b2} B2 launches for {got['forwards']} forwards and "
+             f"{steps} steps ({counts_text(c)})")
+    if set(got["rows"]) != rows:
+        fail(f"{what}: B1 took {got['rows']} rows a launch, expected {sorted(rows)}")
+    if any(c[k] for k in ("B3", "B4", "B5")):
+        fail(f"{what}: the dense mesh path launched block-CSR kernels: {counts_text(c)}")
+
+
+def digest(state: dict) -> str:
+    import hashlib
+
+    h = hashlib.sha256()
+    for name in sorted(state):
+        h.update(name.encode())
+        h.update(state[name].detach().cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def mesh_job_multicity(args, out: str, device) -> dict:
+    """Phase 57 in one rank: ``multicity`` at its dp=8 mesh (``args["dp"]``:
+    another extent, as ``scripts/mesh_nccl.py`` runs it)."""
+    cfg = mesh_config("multicity", os.path.join(out, "run"))
+    cfg.mesh.dp = args.get("dp", cfg.mesh.dp)
+    got = mesh_train(cfg, device)
+    del got["trainer"]
+    return {"57": got}
+
+
+def mesh_job_bf16(args, out: str, device) -> dict:
+    """Phase 59 alone in one rank of a 6-rank job, at ``args["seed"]`` (the
+    data, weights and batch order; ``scripts/mesh_gaps.py``)."""
+    got = mesh_train(mesh_config("branchpar", os.path.join(out, "run"), dtype="bfloat16",
+                                 epochs=MESH_BF16_EPOCHS, seed=args.get("seed")), device)
+    del got["trainer"]
+    return {"59": got}
+
+
+def mesh_job_branchpar(args, out: str, device) -> dict:
+    """Phases 58, 60 (the files) and 59 in one rank of the 6-rank job."""
+    import torch
+
+    from stmgcn_tpu_torch.experiment import build_trainer
+    from stmgcn_tpu_torch.models import from_jax_params
+    from stmgcn_tpu_torch.train.checkpoint import load_checkpoint
+
+    run = os.path.join(args["root"], "branchpar")
+    got = mesh_train(mesh_config("branchpar", run), device, test=True)
+    trainer = got.pop("trainer")
+    res = {"58": got}
+    # 60: the lead wrote best/latest; the best file's parameters evaluated on
+    # the mesh (gathered over dp), for the parent's one-device Forecaster
+    _, _, params, _ = trainer._lead_read(
+        lambda: (trainer.best_path, *load_checkpoint(trainer.best_path, load_opt_state=False)))
+    best = {k: v.to(device) for k, v in
+            from_jax_params(params, trainer.model.m_graphs, trainer._branches()).items()}
+    pred = trainer._predict_mode("test", best)[0][0][:MESH_SERVE_ROWS]
+    res["60"] = {"evaluated": trainer.dataset.denormalize(pred)}
+    del trainer
+    # a mesh resume: every rank from the lead's latest.ckpt (the others read nothing)
+    t0 = time.perf_counter()
+    fresh = build_trainer(mesh_config("branchpar", run, epochs=MESH_EPOCHS + 1), device=device,
+                          verbose=False)
+    meta = fresh.restore_auto()
+    res["60"].update(resume_s=time.perf_counter() - t0, resumed_epoch=meta["epoch"],
+                     digest=digest(from_jax_params(fresh.state_trees()[0], 3)))
+    if fresh.is_lead:
+        res["60"]["file_digest"] = digest(from_jax_params(
+            load_checkpoint(fresh.latest_path, load_opt_state=False)[1], 3))
+        with open(fresh.latest_path, "rb") as f:
+            data = bytearray(f.read())
+        data[len(data) // 2] ^= 0xFF
+        with open(os.path.join(run, "corrupt.ckpt"), "wb") as f:
+            f.write(data)
+    t0 = time.perf_counter()
+    try:
+        fresh.restore(os.path.join(run, "corrupt.ckpt"))
+        res["60"]["corrupt"] = None
+    except Exception as e:  # noqa: BLE001 — every rank must raise; the parent checks
+        res["60"]["corrupt"] = f"{type(e).__name__}: {e}"
+    res["60"]["corrupt_s"] = time.perf_counter() - t0
+    del fresh
+    torch.cuda.empty_cache()
+    # 59: the preset in its bf16 (xla) form
+    got = mesh_train(mesh_config("branchpar", os.path.join(out, "bf16"), dtype="bfloat16",
+                                 epochs=MESH_BF16_EPOCHS), device)
+    del got["trainer"]
+    res["59"] = got
+    return res
+
+
+MESH_JOBS = {"multicity": mesh_job_multicity, "branchpar": mesh_job_branchpar,
+             "branchpar-bf16": mesh_job_bf16}
+
+
+def mesh_rank(job: str, out: str) -> int:
+    """A rank process of a mesh job (``chip_smoke.py --mesh-rank JOB DIR``,
+    started by :func:`run_ranks`): joins the job, runs it, saves its
+    results to ``DIR/rank<r>.pt``."""
+    import torch
+    import torch.distributed as dist
+
+    from stmgcn_tpu_torch.parallel import init_distributed
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    device = init_distributed(device="cuda", timeout=MESH_TIMEOUT)
+    args = torch.load(os.path.join(out, "args.pt"), weights_only=False)
+    result = MESH_JOBS[job](args, out, device)
+    torch.save(result, os.path.join(out, f"rank{dist.get_rank()}.pt"))
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def launch_ranks(cmd, world: int, out: str, timeout: float) -> list:
+    """``cmd`` in ``world`` local rank processes (``launch_local``: the
+    ``torchrun`` environment, the kernels prebuilt), each logging to
+    ``out/rank<r>.log``. Any rank that fails or outlives ``timeout`` fails
+    the run, the others killed. Returns each rank's log."""
+    from stmgcn_tpu_torch.ops._build import PREBUILT_ENV
+    from stmgcn_tpu_torch.parallel.mesh import launch_local
+
+    _, problem = launch_local(cmd, world, env={PREBUILT_ENV: "1"}, log_dir=out,
+                              timeout=timeout, cwd=os.path.dirname(os.path.abspath(__file__)))
+    logs = [open(os.path.join(out, f"rank{r}.log")).read() for r in range(world)]
+    if problem is not None:
+        tails = "".join(f"\n--- rank {r} ---\n{log[-3000:]}" for r, log in enumerate(logs))
+        fail(f"{' '.join(cmd[-4:])}: {problem}{tails}")
+    return logs
+
+
+def run_ranks(job: str, world: int, **args) -> list:
+    """The mesh job ``job`` in ``world`` rank processes of this script on
+    the card (gloo: the ranks share it); each rank's results."""
+    import torch
+
+    out = scratch(f"mesh-{job}")
+    os.makedirs(out, exist_ok=True)
+    torch.save(args, os.path.join(out, "args.pt"))
+    launch_ranks([sys.executable, os.path.abspath(__file__), "--mesh-rank", job, out], world,
+                 out, MESH_TIMEOUT)
+    return [torch.load(os.path.join(out, f"rank{r}.pt"), weights_only=False)
+            for r in range(world)]
+
+
+def mesh_twin(name: str, device, *, dtype: str = "float32", epochs: int = MESH_EPOCHS,
+              test: bool = False, seed: int | None = None) -> dict:
+    """The preset's single-device twin on the card (graphed, as a user
+    runs it): the same config without the mesh, the same seed."""
+    from stmgcn_tpu_torch.config import MeshConfig
+
+    cfg = mesh_config(name, scratch(f"twin-{name}-{dtype}-{epochs}-{seed}"), dtype=dtype,
+                      epochs=epochs, seed=seed)
+    cfg.mesh = MeshConfig()
+    got = mesh_train(cfg, device, test=test)
+    got["cfg"] = cfg
+    opt = got["trainer"].optimizer  # Adam's rms gradient per entry, for param_gaps
+    got["rms_grad"] = {n: np.sqrt(v.detach().float().cpu().numpy())
+                       for n, v in zip(got["trainer"]._param_names, opt.exp_avg_sq)}
+    return got
+
+
+def mesh_phases(device, card: str) -> dict:
+    """Phases 57-60; returns the B1/B2 launches summed over the ranks:
+    ``{"fp32": {"B1", "B2"}, "xla": {"B1 xla", "B2 xla"}}``."""
+    t0 = time.perf_counter()
+    # 57: multicity at its dp=8 mesh
+    twin = mesh_twin("multicity", device)
+    twin.pop("trainer")
+    release()
+    ranks = [r["57"] for r in run_ranks("multicity", 8)]
+    rows = MULTICITY_ROWS
+    for r, got in enumerate(ranks):
+        what = f"phase 57 (multicity dp=8) rank {r}"
+        text = check_mesh_run(got, twin, what)
+        check_comm(got, what, grads=4 * MESH_PARAMS, steps=got["steps"])
+        check_mesh_launches(got, what, rows)
+        if got["mesh"]["backend"] != "gloo" or got["path"] != "per_step" or got["graphs"]:
+            fail(f"{what}: ran {got['path']} over {got['mesh']['backend']}, graphs "
+                 f"{got['graphs']}; expected per_step (streamed), gloo, eager")
+        print(f"{what}: {text}; dp all-reduce {got['comm']['what']['all-reduce/dp/grads']}"
+              f" ({4 * MESH_PARAMS} bytes a step); B1 {got['counts']['B1']} launches of "
+              f"{got['rows']} rows, B2 {got['counts']['B2']}; manifest clean; step p50 "
+              f"{got['p50_ms']:.2f} ms ({card})")
+    print(f"phase 57 twin (one device, graphed, {twin['path']}): step p50 "
+          f"{twin['p50_ms']:.2f} ms; the ranks' p50s "
+          f"{[round(g['p50_ms'], 2) for g in ranks]} ms (eight processes sharing the card "
+          f"over gloo; {card}); {time.perf_counter() - t0:.1f} s")
+    launches = {"fp32": {k: sum(g["counts"][k] for g in ranks) for k in ("B1", "B2")}}
+
+    # 58-60: branchpar at dp=2 x branch=3 (and its bf16 form, 59)
+    twin = mesh_twin("branchpar", device, test=True)
+    twin_trainer = twin.pop("trainer")
+    twin16 = mesh_twin("branchpar", device, dtype="bfloat16", epochs=MESH_BF16_EPOCHS)
+    twin16.pop("trainer")
+    twin32 = mesh_twin("branchpar", device, epochs=MESH_BF16_EPOCHS)  # 59's fp32 yardstick
+    twin32.pop("trainer")
+    release()
+    results = run_ranks("branchpar", 6, root=scratch("mesh-files"))
+    rows, fusion = BRANCHPAR_ROWS, FUSION_BYTES
+    for r, res in enumerate(results):
+        got, what = res["58"], f"phase 58 (branchpar dp=2 x branch=3) rank {r}"
+        text = check_mesh_run(got, twin, what)
+        check_comm(got, what, grads=4 * (BRANCH_PARAMS + HEAD_PARAMS), fusion=fusion,
+                   steps=got["steps"])
+        check_mesh_launches(got, what, rows)
+        for key in ("mse", "mae"):
+            if not np.isclose(got["test"][key], twin["test"][key], rtol=1e-4):
+                fail(f"{what}: test() {key} {got['test'][key]} vs the twin's "
+                     f"{twin['test'][key]}")
+        print(f"{what} at {got['mesh']['coords']}: {text}; fusion all-reduce "
+              f"{got['comm']['what']['all-reduce/branch/fusion']} ({fusion} bytes a forward), "
+              f"dp all-reduce {got['comm']['what']['all-reduce/dp/grads']} "
+              f"({4 * (BRANCH_PARAMS + HEAD_PARAMS)} bytes a step); B1 "
+              f"{got['counts']['B1']} launches of {got['rows']} rows, B2 {got['counts']['B2']};"
+              f" test() mse {got['test']['mse']:.6g} (twin {twin['test']['mse']:.6g}); step "
+              f"p50 {got['p50_ms']:.2f} ms ({card})")
+        got16, what = res["59"], f"phase 59 (branchpar bf16, xla form) rank {r}"
+        text = check_bf16_run(got16, twin16, twin32, what)
+        check_mesh_launches(got16, what, rows, xla=True)
+        if got16["comm"]["what"]["all-reduce/branch/fusion"]["bytes"] != (
+                got16["forwards"] * fusion):
+            fail(f"{what}: the bf16 fusion is not an fp32 all-reduce of {fusion} bytes")
+        print(f"{what}: {text} (atol {TWIN_ATOL}); B1 xla {got16['counts']['B1 xla']}, B2 xla "
+              f"{got16['counts']['B2 xla']}; step p50 {got16['p50_ms']:.2f} ms "
+              f"(twin {twin16['p50_ms']:.2f} ms; {card})")
+    print(f"phase 58 twin (one device, graphed): step p50 {twin['p50_ms']:.2f} ms; "
+          f"{time.perf_counter() - t0:.1f} s")
+    launches["fp32"] = {k: launches["fp32"][k] + sum(r["58"]["counts"][k] for r in results)
+                        for k in ("B1", "B2")}
+    launches["xla"] = {k: sum(r["59"]["counts"][k] for r in results)
+                       for k in ("B1 xla", "B2 xla")}
+    mesh_files(device, results, twin_trainer, card)
+    del twin_trainer
+    release()
+    mesh_cli()
+    print(f"mesh phases done in {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
+def mesh_files(device, results, twin_trainer, card: str) -> None:
+    """Phase 60: the lead's files. ``Forecaster.from_checkpoint`` of the
+    mesh's ``best.ckpt`` on one device serves what the mesh evaluated from
+    the file (and the twin's own best beside it); every rank resumed the
+    lead's digest; a corrupt lead file raised on every rank."""
+    from stmgcn_tpu_torch import Forecaster
+
+    run = os.path.join(scratch("mesh-files"), "branchpar")
+    files = sorted(os.listdir(run))
+    if "best.ckpt" not in files or "latest.ckpt" not in files:
+        fail(f"phase 60: the lead wrote {files}, not best.ckpt and latest.ckpt")
+    fc = Forecaster.from_checkpoint(os.path.join(run, "best.ckpt"), device=device)
+    ds = twin_trainer.dataset
+    windows = ds.denormalize(ds.arrays("test")[0])[:MESH_SERVE_ROWS]
+    supports = twin_trainer.supports.cpu().numpy()
+    served = fc.predict(supports, windows)
+    evaluated = results[0]["60"]["evaluated"]
+    err = float(np.max(np.abs(served - evaluated)))
+    if not np.allclose(served, evaluated, rtol=SERVE_RTOL, atol=SERVE_ATOL):
+        fail(f"phase 60: Forecaster.from_checkpoint of the mesh's best.ckpt vs the mesh's "
+             f"evaluation of it: max |err| {err:.3e}")
+    twin_fc = Forecaster.from_checkpoint(twin_trainer.best_path, device=device)
+    gap = float(np.max(np.abs(served - twin_fc.predict(supports, windows))))
+    print(f"phase 60: the lead wrote {files}; Forecaster.from_checkpoint(best.ckpt) on one "
+          f"device serves the mesh's evaluation of the file, {MESH_SERVE_ROWS} test windows, "
+          f"max |err| {err:.3e} (rtol {SERVE_RTOL}, atol {SERVE_ATOL}, raw units); the twin's "
+          f"own best.ckpt served beside it: max |diff| {gap:.3e}")
+    digests = {r["60"]["digest"] for r in results}
+    want = results[0]["60"]["file_digest"]
+    if digests != {want}:
+        fail(f"phase 60: a mesh resume gave digests {digests}, the lead's file {want}")
+    errors = [r["60"]["corrupt"] for r in results]
+    if any(e is None for e in errors) or not all("CRC32 mismatch" in e for e in errors):
+        fail(f"phase 60: a corrupt lead file did not raise on every rank: {errors}")
+    print(f"phase 60: a mesh resume (epoch {results[0]['60']['resumed_epoch']}) gave every rank "
+          f"the lead's parameter digest {want} in "
+          f"{max(r['60']['resume_s'] for r in results):.2f} s; a corrupt lead file raised on "
+          f"all 6 ranks in {max(r['60']['corrupt_s'] for r in results):.2f} s: "
+          f"{errors[0][:60]}... / {errors[1][:70]}...")
+
+
+def mesh_cli() -> None:
+    """Phase 60, end: ``python -m stmgcn_tpu_torch.cli --preset branchpar
+    --distributed`` in six processes launched as torchrun would (one card,
+    so gloo): one JSON line for the job, from the lead."""
+    out = scratch("mesh-cli")
+    os.makedirs(out, exist_ok=True)
+    t0 = time.perf_counter()
+    logs = launch_ranks([sys.executable, "-m", "stmgcn_tpu_torch.cli", "--preset", "branchpar",
+                         "--distributed", "--epochs", "1", "--out-dir", os.path.join(out, "run")],
+                        6, out, MESH_TIMEOUT)
+    lines = [line for log in logs for line in log.splitlines() if line.startswith('{"preset"')]
+    if len(lines) != 1 or json.loads(lines[0])["preset"] != "branchpar":
+        fail(f"phase 60: the CLI job printed {len(lines)} JSON lines, expected one")
+    transport = [line for line in logs[0].splitlines() if line.startswith("[mesh]")]
+    print(f"phase 60: the CLI on 6 ranks (--distributed, {transport[0] if transport else '?'}) "
+          f"printed one JSON line in {time.perf_counter() - t0:.1f} s: "
+          f"test mse {json.loads(lines[0])['results']['test']['mse']:.6g}")
+
+
 def main() -> int:
+    if len(sys.argv) == 4 and sys.argv[1] == "--mesh-rank":
+        return mesh_rank(sys.argv[2], sys.argv[3])
     try:
         return run_phases()
     finally:
@@ -6306,6 +6899,11 @@ def run_phases() -> int:
     dense_place = placement_dense(device)  # phase 52
     lint_and_budgets()  # phase 56
     print(f"placement and lint phases done at {time.perf_counter() - t_start:.1f} s")
+    # this slice's main path: multicity at dp=8 and branchpar at dp=2 x branch=3
+    # (fp32, then bf16), in rank processes sharing the card over gloo, and
+    # the mesh's files and CLI (phases 57-60)
+    mesh = mesh_phases(device, card)
+    print(f"mesh phases done at {time.perf_counter() - t_start:.1f} s")
     # the placement paths' launches: the dense city's fp32 runs and the metro
     # plan's (B3's gate-conv launches are the shared signal's); the xla form's
     # from the dense city's bf16 runs, and the bf16 fleet's
@@ -6333,6 +6931,13 @@ def run_phases() -> int:
         rec["continual_launches"], rec["federation_launches"] = loop_counts[k], fed_counts[k]
     for rec, k in zip(bf16_records, ("B1", "B2", "B3", "B4", "B5", "B3 shared")):
         rec["resilience_launches"] = res_bf16[k] - (res_bf16["B3 shared"] if k == "B3" else 0)
+    # the mesh phases' launches, summed over the ranks: fp32 (57-58), xla (59)
+    for rec in records + bf16_records + xla_records:
+        rec["mesh_launches"] = 0
+    records[0]["mesh_launches"], records[1]["mesh_launches"] = (mesh["fp32"]["B1"],
+                                                                mesh["fp32"]["B2"])
+    xla_records[0]["mesh_launches"], xla_records[1]["mesh_launches"] = (
+        mesh["xla"]["B1 xla"], mesh["xla"]["B2 xla"])
     print(f"all phases done at {time.perf_counter() - t_start:.1f} s")
 
     print(card)

@@ -54,14 +54,20 @@ _LAZY = {
 
 __all__ = sorted(_LAZY)
 
+#: subpackages reachable as attributes, imported on first use
+_SUBPACKAGES = ("parallel", "utils")
+
 
 def __getattr__(name):
-    """``stmgcn_tpu_torch.Forecaster`` and the other top-level names,
+    """``stmgcn_tpu_torch.Forecaster`` and the other top-level names, and
+    the subpackages ``parallel`` (the mesh) and ``utils`` (with ``comm``),
     imported on first use."""
     if name in _LAZY:
         value = getattr(importlib.import_module(_LAZY[name]), name)
         globals()[name] = value
         return value
+    if name in _SUBPACKAGES:
+        return importlib.import_module(f"{__name__}.{name}")
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 

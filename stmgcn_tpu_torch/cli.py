@@ -37,9 +37,23 @@ that fails. ``serve-bench`` is the serving benchmark
 without a GPU (``stmgcn_tpu_torch/analysis/cli.py``); it exits 1 on an
 error finding. ``--data-placement``, ``--window-free`` and
 ``--no-window-free`` choose where batches come from
-(``train/trainer.py``). A flag of the JAX CLI that the port lacks (the
-mesh ones) fails argument parsing, and a preset it lacks fails with
-``preset()``'s error.
+(``train/trainer.py``). A preset it lacks fails with ``preset()``'s error.
+
+**Meshes** (``stmgcn_tpu_torch/parallel``): a preset with a mesh
+(``multicity``: dp=8; ``branchpar``: dp=2 x branch=3) trains on that many
+ranks. ``--virtual-devices N`` launches N local CPU ranks over gloo (it
+implies ``--device cpu``: the JAX CLI's N emulated CPU devices), each this
+command with ``--distributed``; ``--distributed`` joins a ``torchrun``-style
+job (``RANK``, ``WORLD_SIZE``, ``MASTER_ADDR``, ``MASTER_PORT``), one rank
+per process, NCCL when each local rank has a card of its own and gloo
+otherwise (printed). ``--branch-parallel B`` sets ``mesh.branch``;
+``--region-strategy`` and ``--halo`` are read into the config, and a
+region axis is refused by name. The lead rank prints the one JSON line
+and exports; the export's status reaches every rank, so a failed export
+fails each one::
+
+    python -m stmgcn_tpu_torch.cli --preset branchpar --virtual-devices 6 --epochs 1
+    torchrun --nproc-per-node 8 -m stmgcn_tpu_torch.cli --preset multicity --distributed
 """
 
 from __future__ import annotations
@@ -170,6 +184,22 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                    help="where to train and test (default: the GPU; there is no "
                         "fallback to the CPU)")
+    p.add_argument("--virtual-devices", type=int, default=None, metavar="N",
+                   help="launch N local CPU ranks over gloo for a mesh config of N "
+                        "devices (implies --device cpu)")
+    p.add_argument("--distributed", action="store_true",
+                   help="join a multi-process job from the environment torchrun sets "
+                        "(RANK, WORLD_SIZE, MASTER_ADDR, MASTER_PORT): one rank per "
+                        "process, NCCL when each local rank has its own card, else gloo")
+    p.add_argument("--branch-parallel", type=_positive_int, default=None, metavar="B",
+                   help="shard the M graph branches over a 'branch' mesh axis of "
+                        "extent B (B must divide m_graphs)")
+    p.add_argument("--region-strategy", choices=("gspmd", "banded", "auto"), default=None,
+                   help="region-sharded conv plan (read into the config; the region "
+                        "axis is not ported yet)")
+    p.add_argument("--halo", type=int, default=None,
+                   help="halo budget for the banded region strategy (read into the "
+                        "config; the region axis is not ported yet)")
     p.add_argument("--matmul-precision", choices=("default", "high", "highest"),
                    default=None,
                    help="torch.set_float32_matmul_precision for the float32 cuBLAS "
@@ -299,6 +329,12 @@ def config_from_args(args):
         cfg.model.lstm_fused_scan = True
     if args.lstm_backend is not None:
         cfg.model.lstm_backend = args.lstm_backend
+    if args.branch_parallel is not None:
+        cfg.mesh.branch = args.branch_parallel
+    if args.region_strategy is not None:
+        cfg.mesh.region_strategy = args.region_strategy
+    if args.halo is not None:
+        cfg.mesh.halo = args.halo
     return cfg
 
 
@@ -331,6 +367,8 @@ def main(argv=None) -> int:
     if args.print_config:
         print(json.dumps(cfg.to_dict(), indent=2))
         return 0
+    if args.virtual_devices:
+        return launch_ranks(argv, args.virtual_devices, cfg.mesh.n_devices)
 
     import torch  # defer the torch stack
 
@@ -342,8 +380,13 @@ def main(argv=None) -> int:
         torch.set_float32_matmul_precision(MATMUL_PRECISIONS[args.matmul_precision])
     if cfg.obs.trace:
         obs_trace.configure(capacity=cfg.obs.ring_capacity)
+    device = args.device
     try:
-        trainer = build_trainer(cfg, device=args.device, debug_nans=args.debug_nans)
+        if args.distributed:
+            from stmgcn_tpu_torch.parallel import init_distributed
+
+            device = init_distributed(device=args.device)
+        trainer = build_trainer(cfg, device=device, debug_nans=args.debug_nans)
     except ValueError as e:  # configuration errors, without a traceback
         print(f"error: {e}", file=sys.stderr)
         return 1
@@ -379,16 +422,55 @@ def main(argv=None) -> int:
               + (" — train first or check --out-dir" if args.test_only or args.resume else ""),
               file=sys.stderr)
         return 1
-    print(json.dumps({"preset": cfg.name, "results": results}))
+    lead = trainer.is_lead
+    if lead:  # one JSON line per job
+        print(json.dumps({"preset": cfg.name, "results": results}))
     trc = obs_trace.active_tracer()
-    if trc is not None and cfg.obs.trace_path:
+    if trc is not None and cfg.obs.trace_path and lead:
         n = trc.export_jsonl(cfg.obs.trace_path)
         print(f"trace written to {cfg.obs.trace_path} ({n} spans) — inspect with "
               f"`python -m stmgcn_tpu_torch.cli obs {cfg.obs.trace_path}`", file=sys.stderr)
     # export last: a failed export must not cost the run its results line
-    if args.export and not export_best(cfg, args.export, args.device):
-        return 1
+    if args.export:
+        ok = export_best(cfg, args.export, device) if lead else True
+        if trainer.mesh is not None:  # every rank exits with the lead's status
+            from stmgcn_tpu_torch.utils import comm
+
+            status = (b"1" if ok else b"0") if lead else None
+            ok = comm.broadcast_bytes(status, trainer.mesh, what="export-status") == b"1"
+        if not ok:
+            return 1
     return 0
+
+
+def launch_ranks(argv, n: int, mesh_devices: int) -> int:
+    """``--virtual-devices N``: this command with ``--distributed --device
+    cpu`` in N local processes (ranks 0..N-1 of a gloo job; one OpenMP
+    thread each unless ``OMP_NUM_THREADS`` says otherwise, as torchrun
+    sets it); returns the first failing rank's exit code, or 0. A rank
+    that fails stops the others."""
+    import os
+
+    from stmgcn_tpu_torch.parallel.mesh import launch_local
+
+    if n != mesh_devices:
+        print(f"error: --virtual-devices {n} needs a config mesh of {n} devices, "
+              f"this one has {mesh_devices} (dp x region x branch)", file=sys.stderr)
+        return 1
+    rest, skip = [], False
+    for a in argv:
+        if skip:
+            skip = False
+        elif a == "--virtual-devices":
+            skip = True
+        elif not a.startswith("--virtual-devices="):
+            rest.append(a)
+    codes, problem = launch_local(
+        [sys.executable, "-m", "stmgcn_tpu_torch.cli", *rest, "--distributed", "--device",
+         "cpu"], n, env={"OMP_NUM_THREADS": os.environ.get("OMP_NUM_THREADS", "1")})
+    if problem is None:
+        return 0
+    return next((c for c in codes if c not in (None, 0) and c > 0), 1)
 
 
 def export_best(cfg, path: str, device) -> bool:

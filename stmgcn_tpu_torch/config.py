@@ -49,10 +49,14 @@ __all__ = [
     "PRECISION_SITE_ROLES",
     "MeshConfig",
     "PrecisionPolicy",
+    "REGION_STRATEGIES",
     "ServingConfig",
     "TrainConfig",
     "preset",
 ]
+
+#: ``MeshConfig.region_strategy`` values (``stmgcn_tpu/experiment.py:208``)
+REGION_STRATEGIES = ("gspmd", "banded", "auto")
 
 #: model compute dtypes by config name (``ModelConfig.dtype``), as the JAX
 #: package's ``DTYPES``; "float32" is the exact fp32 path (compute dtype
@@ -186,7 +190,8 @@ class TrainConfig:
     ``TrainConfig`` (``stmgcn_tpu/config.py:178-273``), defaults included,
     so a JAX config dict reads as it is.
 
-    The port trains on one device. ``data_placement`` (``"auto"``,
+    The port trains on one device or a ``dp x branch`` mesh
+    (:class:`MeshConfig`). ``data_placement`` (``"auto"``,
     ``"resident"``, ``"stream"``), ``window_free`` and ``prefetch`` choose
     where batches come from (``train/trainer.py``), checked here with the
     JAX trainer's messages: ``prefetch >= 0``, a known placement, and
@@ -258,12 +263,39 @@ class TrainConfig:
 
 @dataclasses.dataclass
 class MeshConfig:
-    """The JAX package's device-mesh extents. The port runs on one device:
-    ``build_trainer`` raises when they ask for more."""
+    """The device mesh (``stmgcn_tpu/config.py:276-312``, the same fields
+    and checks): ``dp`` data parallelism (the batch split over ranks, one
+    gradient all-reduce a step), ``branch`` graph-branch parallelism (the M
+    stacked branches split over ranks, the fusion sum one all-reduce), and
+    ``region`` graph-node parallelism with its ``region_strategy`` and
+    ``halo`` budget. ``build_trainer`` trains a mesh of ``dp x branch``
+    ranks on ``torch.distributed`` (:mod:`stmgcn_tpu_torch.parallel`); a
+    ``region`` extent above 1 is read, checked and written back, and
+    refused by name when training."""
 
     dp: int = 1
     region: int = 1
+    #: the M stacked branches sharded over this axis (M % branch == 0)
     branch: int = 1
+    #: how region-sharded graph convs communicate: "gspmd" (all-gather the
+    #: signal's node axis), "banded" (halo exchange) or "auto" (per branch)
+    region_strategy: str = "gspmd"
+    #: halo budget of banded routing; None: the tightest
+    halo: Optional[int] = None
+
+    def __post_init__(self):
+        # extent 0 would silently zero n_devices and skip the mesh entirely
+        if min(self.dp, self.region, self.branch) < 1:
+            raise ValueError(
+                f"mesh extents must be >= 1, got dp={self.dp} "
+                f"region={self.region} branch={self.branch}"
+            )
+        if self.region_strategy not in REGION_STRATEGIES:
+            raise ValueError(f"mesh.region_strategy must be gspmd|banded|auto, got "
+                             f"{self.region_strategy!r}")
+        if self.halo is not None and (isinstance(self.halo, bool) or int(self.halo) != self.halo
+                                      or self.halo < 0):
+            raise ValueError(f"mesh.halo must be None or an int >= 0, got {self.halo!r}")
 
     @property
     def n_devices(self) -> int:
@@ -937,8 +969,10 @@ def _default() -> ExperimentConfig:
 def _multicity() -> ExperimentConfig:
     """BASELINE config 4: a heterogeneous city pair (12x12 over 4 weeks,
     10x10 over 3 weeks; per-city normalizers, splits and support stacks),
-    on the JAX package's data-parallel mesh. ``build_trainer`` refuses the
-    mesh: set ``cfg.mesh = MeshConfig()`` to train it on one device."""
+    on a data-parallel mesh of eight ranks: each takes an eighth of every
+    batch (``build_trainer`` in each rank of a job of eight, e.g. the CLI's
+    ``--virtual-devices 8``); ``cfg.mesh = MeshConfig()`` trains it on one
+    device."""
     return ExperimentConfig(
         name="multicity",
         data=DataConfig(
@@ -963,8 +997,21 @@ def _longhorizon() -> ExperimentConfig:
     )
 
 
+def _branchpar() -> ExperimentConfig:
+    """Branch model parallelism (``stmgcn_tpu/config.py:1153-1167``): the
+    flagship's M=3 stacked branches, their parameters and supports split
+    over a ``branch`` axis of three ranks, composed with ``dp=2``: six
+    ranks. The fusion sum is one all-reduce over ``branch``."""
+    return ExperimentConfig(
+        name="branchpar",
+        data=DataConfig(rows=10, n_timesteps=24 * 7 * 4),
+        train=TrainConfig(batch_size=16),
+        mesh=MeshConfig(dp=2, branch=3),
+    )
+
+
 PRESETS = {"smoke": _smoke, "default": _default, "multicity": _multicity,
-           "longhorizon": _longhorizon}
+           "longhorizon": _longhorizon, "branchpar": _branchpar}
 
 
 def preset(name: str) -> ExperimentConfig:

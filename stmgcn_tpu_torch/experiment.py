@@ -7,8 +7,11 @@ device, with dense, block-sparse (``model.sparse``) or tiled
 ones (``HeteroCityDataset``: per-city shapes, normalizers and splits; one
 support stack per city in a ``CitySupports``), which the trainer can group
 into fleet shape classes (``train.fleet``), over resident or streamed data
-(``train.data_placement``, ``window_free``, ``prefetch``). Node padding for
-region meshes and meshes are not ported: configs asking for them raise.
+(``train.data_placement``, ``window_free``, ``prefetch``), on one device or
+on a ``dp x branch`` mesh of ranks (``build_trainer`` in every rank of a
+``torch.distributed`` job, :mod:`stmgcn_tpu_torch.parallel`). The region
+axis (node padding, banded and sharded-sparse supports) is not ported: a
+config asking for it raises by name.
 """
 
 from __future__ import annotations
@@ -28,6 +31,8 @@ from stmgcn_tpu_torch.models.st_mgcn import STMGCN
 from stmgcn_tpu_torch.ops.layers import resolve_device
 from stmgcn_tpu_torch.ops.spmm import stack_from_dense
 from stmgcn_tpu_torch.ops.tiling import plan_tiling
+from stmgcn_tpu_torch.parallel.mesh import mesh_from_config
+from stmgcn_tpu_torch.parallel.placement import REGION_NOT_PORTED, MeshPlacement
 from stmgcn_tpu_torch.train.trainer import CitySupports, Trainer
 
 __all__ = ["build_dataset", "build_model", "build_supports", "build_trainer", "run"]
@@ -166,12 +171,15 @@ def build_supports(cfg: ExperimentConfig, dataset):
 
 
 def build_model(cfg: ExperimentConfig, input_dim: int, *, device=None,
-                generator: Optional[torch.Generator] = None) -> STMGCN:
+                generator: Optional[torch.Generator] = None, placement=None) -> STMGCN:
     """The flagship from config plus the one data-derived scalar (feature
     count), in the config's support mode (``model.sparse`` /
     ``model.tiled``; the parameters are the same in every mode), compute
     dtype (``model.dtype``) and bf16 LSTM form (``model.lstm_backend``,
-    ``model.lstm_fused_scan``). ``device=None`` means the GPU."""
+    ``model.lstm_fused_scan``). ``device=None`` means the GPU. ``placement``
+    (this rank's ``MeshPlacement``) rides on the model for the trainer; with
+    ``branch > 1`` the model keeps the rank's branch slice and fuses over
+    the mesh."""
     m = cfg.model
     _check_support_route(cfg)
     check_lstm(m.lstm_backend, m.lstm_fused_scan, m.lstm_unroll)
@@ -193,7 +201,26 @@ def build_model(cfg: ExperimentConfig, input_dim: int, *, device=None,
         dtype=m.compute_dtype,
         device=device,
         generator=generator,
+        placement=placement,
     )
+
+
+def _check_mesh_route(cfg: ExperimentConfig) -> None:
+    """What a mesh refuses before any rank is needed: the region axis, and
+    the JAX package's refusals (``stmgcn_tpu/experiment.py:466-475``)."""
+    if cfg.mesh.n_devices <= 1:
+        return
+    if cfg.mesh.region > 1:
+        raise ValueError(f"mesh.region={cfg.mesh.region} (region_strategy="
+                         f"{cfg.mesh.region_strategy!r}, halo={cfg.mesh.halo}): "
+                         + REGION_NOT_PORTED)
+    if cfg.model.lstm_backend == "pallas" and cfg.mesh.branch > 1:
+        raise ValueError(
+            "lstm_backend='pallas' does not compose with mesh.branch > 1 "
+            "— use the xla backend for branch-parallel meshes")
+    if cfg.model.sparse:
+        raise ValueError("model.sparse on a mesh (sharded block-CSR strips) is not ported "
+                         "yet (ROADMAP A11b); use dense supports on a mesh")
 
 
 def build_trainer(cfg: ExperimentConfig, *, device=None, initial_state: Optional[dict] = None,
@@ -214,20 +241,33 @@ def build_trainer(cfg: ExperimentConfig, *, device=None, initial_state: Optional
     faults through its loop, ``None`` being the no-op plan. A ``health``
     section that breaks its contract raises. ``train.checks`` reaches the
     trainer's sanitizers; ``debug_nans`` turns on its debug mode (the
-    CLI's ``--debug-nans``)."""
+    CLI's ``--debug-nans``).
+
+    **A mesh** (``cfg.mesh`` of more than one device): every rank of a
+    joined ``torch.distributed`` job of ``dp x branch`` ranks calls this
+    with the same config; it builds the rank's mesh and placement
+    (``mesh_from_config``: raises unless the job has exactly that many
+    ranks), checks divisibility as the JAX ``build_trainer`` does, and
+    builds the rank's slice of the model from the same seed. ``region >
+    1``, block-CSR supports, and ``lstm_backend="pallas"`` with ``branch >
+    1`` raise by name; so do the trainer's options that do not compose with
+    a mesh yet. ``initial_state`` is the whole, mesh-free ``state_dict``."""
     _check_health(cfg)
     _check_support_route(cfg)
-    if cfg.mesh.n_devices > 1:
-        raise ValueError(
-            f"mesh dp={cfg.mesh.dp} region={cfg.mesh.region} branch={cfg.mesh.branch}: "
-            "the port trains on one device (multi-device is not ported yet)"
-        )
+    _check_mesh_route(cfg)
     device = resolve_device(device)
+    mesh = mesh_from_config(cfg.mesh, device=device)
+    placement = MeshPlacement(mesh) if mesh is not None else None
     dataset = build_dataset(cfg)
     hetero = getattr(dataset, "heterogeneous", False)
+    if placement is not None:
+        for n_nodes in (dataset.city_n_nodes if hetero else [dataset.n_nodes]):
+            placement.check_divisibility(cfg.train.batch_size, n_nodes,
+                                         m_graphs=cfg.model.m_graphs)
     supports = build_supports(cfg, dataset)
     model = build_model(cfg, dataset.n_feats, device=device,
-                        generator=torch.Generator().manual_seed(cfg.train.seed))
+                        generator=torch.Generator().manual_seed(cfg.train.seed),
+                        placement=placement)
     t = cfg.train
     return Trainer(
         model, dataset, supports, lr=t.lr, weight_decay=t.weight_decay,
@@ -256,7 +296,8 @@ def build_trainer(cfg: ExperimentConfig, *, device=None, initial_state: Optional
                 "n_nodes": dataset.city_n_nodes if hetero else dataset.n_nodes,
             },
         },
-        initial_state=initial_state, device=device, graphs=graphs, verbose=verbose,
+        initial_state=initial_state, device=device, graphs=graphs,
+        verbose=verbose and (mesh is None or mesh.is_lead),
     )
 
 

@@ -24,6 +24,11 @@ the schedule's ``{count}`` (the constant ``scale`` is empty).
 through the same converter as the parameters, so a Dense kernel's moments
 are transposed with it.
 
+On a branch mesh each rank holds a slice of the stacked branches:
+:func:`from_jax_params` takes the rank's slice with ``branches=``, and a
+checkpoint's tree is always the whole, mesh-free one (the trainer gathers
+the slices before it converts).
+
 Mixed precision (``stmgcn_tpu/models/params.py:56-131``):
 :func:`compute_cast` casts a tree of float32 masters to the compute dtype,
 round to nearest even, or stochastically rounded through
@@ -34,6 +39,8 @@ noise. :func:`leaf_dtype_census` counts a tree's leaves and bytes per dtype.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import numpy as np
 import torch
@@ -67,9 +74,12 @@ def _flatten(tree, prefix=()):
             yield prefix + (key,), value
 
 
-def from_jax_params(variables, m_graphs: int) -> dict:
+def from_jax_params(variables, m_graphs: int, branches: Optional[slice] = None) -> dict:
     """Flax ``{"params": ...}`` tree (numpy leaves, either layout) -> the
-    port's ``state_dict`` (float32 CPU tensors)."""
+    port's ``state_dict`` (float32 CPU tensors). ``branches`` (a branch
+    mesh rank's slice of the M stacked branches,
+    ``MeshPlacement.branches``) keeps that slice of every stacked
+    ``(M, ...)`` leaf."""
     params = dict(variables["params"])
     looped = [_looped_key(m) for m in range(m_graphs)]
     if _VMAPPED_KEY not in params:
@@ -91,6 +101,8 @@ def from_jax_params(variables, m_graphs: int) -> dict:
             raise ValueError(
                 f"{'/'.join(path)}: branch axis is {arr.shape[:1]}, expected ({m_graphs},)"
             )
+        if path[0] == _VMAPPED_KEY and branches is not None:
+            arr = arr[branches]
         name = ".".join(path)
         if name.rsplit(".", 1)[-1] == "kernel":
             name = name[: -len("kernel")] + "weight"
@@ -192,10 +204,11 @@ def to_optax_state(parts, count: int, mu: dict, nu: dict, m_graphs: int, *,
     return tree
 
 
-def from_optax_state(tree: dict, parts, m_graphs: int):
+def from_optax_state(tree: dict, parts, m_graphs: int, branches: Optional[slice] = None):
     """``(count, mu, nu)`` from a stored optax chain state over ``parts``
-    (``state_dict``-keyed float32 moments, either layout); raises when the
-    stored chain is not the one ``parts`` describes."""
+    (``state_dict``-keyed float32 moments, either layout; ``branches`` as
+    :func:`from_jax_params`'s); raises when the stored chain is not the one
+    ``parts`` describes."""
     parts = tuple(parts)
     keys = sorted(tree, key=lambda k: (len(k), k))
     if keys != [str(i) for i in range(len(parts))]:
@@ -211,8 +224,8 @@ def from_optax_state(tree: dict, parts, m_graphs: int):
     if "schedule" in parts:
         if int(np.asarray(tree[str(parts.index("schedule"))]["count"])) != count:
             raise ValueError("optimizer state: the schedule's count differs from Adam's")
-    return (count, from_jax_params(adam["mu"], m_graphs),
-            from_jax_params(adam["nu"], m_graphs))
+    return (count, from_jax_params(adam["mu"], m_graphs, branches),
+            from_jax_params(adam["nu"], m_graphs, branches))
 
 
 # -- mixed precision: the master -> compute casts ------------------------------

@@ -24,6 +24,18 @@ runs non-dense branches as a Python loop (its Pallas SpMM has no batching
 rule) and stores them as ``branch_0 .. branch_{M-1}``;
 :func:`~stmgcn_tpu_torch.models.params.from_jax_params` reads that layout
 into this one. Mixed per-branch modes and the banded mode are not ported.
+
+**On a mesh** (``placement``, a
+:class:`~stmgcn_tpu_torch.parallel.placement.MeshPlacement`, the one the
+trainer reads as ``model.placement``) with ``branch > 1`` each rank's :class:`Branch` holds
+``M / branch`` of the stacked branches: the weights are drawn for all M
+from the generator, as on one device, and the rank keeps its slice, so a
+mesh model is the single-device one split up. Its supports are the rank's
+slice too. The fusion is a float32 partial sum over the local branches,
+then :class:`~stmgcn_tpu_torch.parallel.collectives.BranchFusion` (an
+all-reduce over ``branch`` whose backward is the identity), then the cast;
+the head runs on every branch rank. ``m_graphs`` stays M (checkpoints hold
+all M branches, gathered); ``m_local`` is the rank's count.
 """
 
 from __future__ import annotations
@@ -38,6 +50,7 @@ from stmgcn_tpu_torch.ops.chebconv import conv_cls, make_conv
 from stmgcn_tpu_torch.ops.layers import Dense, resolve_device, set_compute_dtype
 from stmgcn_tpu_torch.ops.spmm import BlockSparseStack
 from stmgcn_tpu_torch.ops.tiling import TiledSupports
+from stmgcn_tpu_torch.parallel.collectives import branch_fusion
 
 __all__ = ["Branch", "STMGCN"]
 
@@ -82,7 +95,7 @@ class STMGCN(nn.Module):
                  sparse: bool = False, support_modes: Optional[Sequence[str]] = None,
                  lstm_backend: str = "xla", lstm_fused_scan: bool = False,
                  dtype: Optional[torch.dtype] = None,
-                 device=None, generator: Optional[torch.Generator] = None):
+                 device=None, generator: Optional[torch.Generator] = None, placement=None):
         super().__init__()
         device = resolve_device(device)
         if generator is None:
@@ -102,8 +115,29 @@ class STMGCN(nn.Module):
         )
         self.head = Dense(gcn_hidden_dim, horizon * input_dim, device=device,
                           generator=generator)
+        #: this rank's mesh placement (None: one device)
+        self.placement = placement
+        mesh = getattr(placement, "mesh", None)
+        #: the branch mesh the fusion all-reduces over (None: one device, or
+        #: a mesh without a branch axis)
+        self.mesh = mesh if mesh is not None and mesh.branch > 1 else None
+        self.m_local = m_graphs
+        if self.mesh is not None:
+            self._keep_branches()
         self.compute_dtype: Optional[torch.dtype] = None
         set_compute_dtype(self, dtype)
+
+    def _keep_branches(self) -> None:
+        """Keep this rank's ``M / branch`` stacked branches: every
+        parameter of :attr:`branches` cut on its leading axis, and every
+        module's branch count set to the local one."""
+        keep = self.placement.branches(self.m_graphs)
+        self.m_local = keep.stop - keep.start
+        for module in self.branches.modules():
+            if getattr(module, "branches", None) is not None:
+                module.branches = self.m_local
+            for name, p in list(module.named_parameters(recurse=False)):
+                setattr(module, name, nn.Parameter(p.detach()[keep].clone()))
 
     @staticmethod
     def _mode(m_graphs, sparse, support_modes) -> str:
@@ -127,7 +161,7 @@ class STMGCN(nn.Module):
         :class:`~stmgcn_tpu_torch.ops.tiling.TiledSupports` plan of M
         branches x K supports, or M per-branch block-sparse groups (or one
         branch-stacked ``BlockSparseStack``)."""
-        mode, want = self.support_mode, (self.m_graphs, self.n_supports)
+        mode, want = self.support_mode, (self.m_local, self.n_supports)
         if mode != "tiled" and isinstance(supports, TiledSupports):
             raise ValueError(
                 f"a {mode} model got a TiledSupports plan: build the model with "
@@ -145,9 +179,9 @@ class STMGCN(nn.Module):
                     f"a tiled model takes a TiledSupports plan of (M, K)={want}, got "
                     f"{type(supports).__name__}; a dense-built model serves a plan once "
                     "rebuilt with model.tiled=True (its weights load unchanged)")
-        elif not isinstance(supports, BlockSparseStack) and len(supports) != self.m_graphs:
+        elif not isinstance(supports, BlockSparseStack) and len(supports) != self.m_local:
             raise ValueError(
-                f"need {self.m_graphs} per-branch support groups, got {len(supports)}")
+                f"need {self.m_local} per-branch support groups, got {len(supports)}")
 
     def forward(self, supports_stack, obs_seq: torch.Tensor,
                 n_real: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -162,7 +196,10 @@ class STMGCN(nn.Module):
         feats = self.branches(supports_stack, obs_seq, n_real)  # (M, B, N, gcn_hidden)
         # f32 fusion island; the prediction leaves in the compute dtype
         dtype = self.compute_dtype or torch.float32
-        out = self.head(feats.sum(dim=0, dtype=torch.float32).to(dtype)).to(dtype)
+        fused = feats.sum(dim=0, dtype=torch.float32)
+        if self.mesh is not None:  # the other ranks' branches: one all-reduce
+            fused = branch_fusion(fused, self.mesh)
+        out = self.head(fused.to(dtype)).to(dtype)
         if self.horizon == 1:
             return out  # (B, N, C)
         batch, n_nodes = out.shape[:2]

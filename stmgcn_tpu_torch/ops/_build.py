@@ -25,7 +25,7 @@ from pathlib import Path
 
 import torch
 
-__all__ = ["BUILD_DIR", "BuildInfo", "KERNEL_DTYPES", "load_library", "on_cuda"]
+__all__ = ["BUILD_DIR", "BuildInfo", "KERNEL_DTYPES", "PREBUILT_ENV", "load_library", "on_cuda"]
 
 _REPO_ROOT = Path(__file__).resolve().parents[2]
 BUILD_DIR = _REPO_ROOT / "build" / "kernels"
@@ -38,6 +38,10 @@ NVCC_FLAGS = (
 
 #: the storage dtypes the kernels take (one per launch)
 KERNEL_DTYPES = (torch.float32, torch.bfloat16)
+
+#: set (to anything) in a process that must only load libraries already
+#: built, never build one: the ranks of a job whose launcher built them
+PREBUILT_ENV = "STMGCN_KERNELS_PREBUILT"
 
 _LOCKS: dict = {}  # one lock per library, so different kernels build in parallel
 _LOCKS_GUARD = threading.Lock()
@@ -78,6 +82,11 @@ def _build(sources, name: str, defines=()) -> BuildInfo:
     path = BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
     if path.exists():
         return BuildInfo(path, 0.0, "")
+    if os.environ.get(PREBUILT_ENV):
+        raise RuntimeError(
+            f"{path.name} is not built and {PREBUILT_ENV} is set: this process loads the "
+            "kernels its launcher built and never runs nvcc (a rank of a multi-process "
+            "job on one card)")
     tmp = path.with_suffix(f".{os.getpid()}.tmp")
     cmd = [_nvcc(), *flags, "-o", str(tmp), *map(str, sources)]
     BUILD_DIR.mkdir(parents=True, exist_ok=True)

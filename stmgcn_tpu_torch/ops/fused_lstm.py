@@ -48,6 +48,18 @@ and sums dW (bf16 x bf16 products) and db (the unrounded fp32 dgates) in
 fp32, which :class:`FusedLSTM` rounds to the weights' dtype as
 ``_fused_bwd`` does. The CUDA kernels' bf16 forms run each product as one
 ``mma.sync`` m16n8k16 bf16 pass.
+
+**On a mesh** (the counterpart of ``sharded_fused_lstm``,
+``stmgcn_tpu/ops/pallas_lstm.py:456``, which ``shard_map``s the Pallas
+kernel over the row axis): each rank is a process that holds its rows
+only, so it calls these same functions on them and launches B1 and B2 on
+``R_local = B/dp x N`` rows per branch over its ``M/branch`` branches. It
+is not a kernel of its own. The weight gradients a launch returns are its
+rows' sums; the step's one all-reduce over ``dp``
+(``parallel/collectives.py`` ``GradSync``) sums them over the ranks, once,
+so :class:`FusedLSTM`'s backward adds no collective of its own
+(``tests/test_torch_parallel.py`` holds the per-split sums to the
+whole-batch gradients).
 """
 
 from __future__ import annotations

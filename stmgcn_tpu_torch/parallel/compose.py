@@ -1,0 +1,115 @@
+"""Composed multi-device trainers: one shrunk trainer per mesh preset.
+
+Counterpart of ``stmgcn_tpu/parallel/compose.py``, with the JAX shrinks
+(``compose.py:80-135``): for each multi-device preset a small trainer
+built through the real assembly path (``build_dataset`` ->
+``build_supports`` -> ``build_model`` -> ``Trainer``) whose window-free
+resident blocks engage on the preset's mesh, and its parity twin.
+
+========== ================== =========================================
+preset      mesh               composed program
+========== ================== =========================================
+multicity   dp=8               ``fleet_superstep`` (hetero city pair)
+scaled      region=8 (auto)    not ported yet (region parallelism)
+branchpar   dp=2 x branch=3    ``series_superstep``, branch-sharded
+bandedbranch dp=2 x region=2    not ported yet (region parallelism)
+            x branch=2
+========== ================== =========================================
+
+The dense presets have a true single-device twin: the same config with
+the mesh removed, the same initial parameters (the mesh model is the
+single-device one split up, ``models/st_mgcn.py``). ``composed_trainer``
+of a mesh preset runs in every rank of a job of that many ranks
+(``init_distributed``); its twin (``twin="single"``) on one process.
+"""
+
+from __future__ import annotations
+
+from stmgcn_tpu_torch.parallel.placement import REGION_NOT_PORTED
+
+__all__ = [
+    "COMPOSED_PRESETS",
+    "composed_config",
+    "composed_trainer",
+    "parity_twin_kind",
+]
+
+#: every multi-device preset with a composed program (the JAX table's)
+COMPOSED_PRESETS = ("multicity", "scaled", "branchpar", "bandedbranch")
+
+#: twin kind per preset (the JAX ``_TWIN``)
+_TWIN = {
+    "multicity": "single",
+    "scaled": "per_step",
+    "branchpar": "single",
+    "bandedbranch": "per_step",
+}
+
+#: the presets whose composition needs the region axis
+_REGION = ("scaled", "bandedbranch")
+
+
+def _shrink_model(cfg) -> None:
+    cfg.model.lstm_hidden_dim = 8
+    cfg.model.lstm_num_layers = 1
+    cfg.model.gcn_hidden_dim = 8
+    cfg.model.dtype = "float32"
+
+
+def composed_config(name: str):
+    """The preset's shrunk config whose blocks engage on its mesh (the JAX
+    shrinks): mesh axes kept; data and model shrunk; the window-free
+    resident blocks opted into (``data_placement="resident"``,
+    ``window_free=True``, ``steps_per_superstep=2``)."""
+    from stmgcn_tpu_torch.config import preset
+
+    if name not in COMPOSED_PRESETS:
+        raise ValueError(
+            f"no composed program for preset {name!r}; known: {COMPOSED_PRESETS}")
+    if name in _REGION:
+        raise ValueError(f"composed {name!r}: " + REGION_NOT_PORTED)
+    cfg = preset(name)
+    _shrink_model(cfg)
+    cfg.train.epochs = 2
+    cfg.train.steps_per_superstep = 2
+    cfg.train.window_free = True
+    cfg.train.data_placement = "resident"
+    if name == "multicity":
+        # hetero city pair, both cities in one fleet shape class (rows
+        # 4/3 both rung-pad to 16 nodes); batch 16 = dp x 2
+        cfg.data.rows = 4
+        cfg.data.city_rows = (4, 3)
+        cfg.data.n_timesteps = 24 * 7 * 2 + 40
+        cfg.data.city_timesteps = (24 * 7 * 2 + 40, 24 * 7 * 2 + 30)
+        cfg.train.batch_size = 16
+    else:  # branchpar
+        cfg.data.rows = 4
+        cfg.data.n_timesteps = 24 * 7 + 64
+        cfg.train.batch_size = 4
+    return cfg
+
+
+def parity_twin_kind(name: str) -> str:
+    return _TWIN[name]
+
+
+def composed_trainer(name: str, *, twin: str | None = None, out_dir: str | None = None,
+                     epochs: int | None = None, device=None, initial_state=None,
+                     verbose: bool = False):
+    """The preset's composed trainer (``twin=None``, in every rank of its
+    job) or its single-device twin (``twin="single"``); ``initial_state``
+    (mesh-free) as ``build_trainer``'s. The JAX ``twin="per_step"`` belongs
+    to the region presets, which raise by name."""
+    from stmgcn_tpu_torch.config import MeshConfig
+    from stmgcn_tpu_torch.experiment import build_trainer
+
+    cfg = composed_config(name)
+    if epochs is not None:
+        cfg.train.epochs = epochs
+    if out_dir is not None:
+        cfg.train.out_dir = out_dir
+    if twin == "single":
+        cfg.mesh = MeshConfig()
+    elif twin is not None:
+        raise ValueError(f'twin must be None or "single", got {twin!r}')
+    return build_trainer(cfg, device=device, initial_state=initial_state, verbose=verbose)

@@ -1,7 +1,7 @@
 """Training and evaluation: the optimizer, the steps, the epoch loop and
 the metrics, the checkpoint files both packages read and write, and the
 continual loop's fine-tune side (counterpart of ``stmgcn_tpu/train``, on
-one device)."""
+one device or as a mesh rank)."""
 
 from stmgcn_tpu_torch.train.checkpoint import (
     CorruptCheckpointError,

@@ -29,6 +29,7 @@ trailing bytes, an unknown magic or a blob that does not decode raises
 from __future__ import annotations
 
 import glob as _glob
+import io
 import json
 import os
 import re
@@ -42,6 +43,7 @@ __all__ = [
     "CorruptCheckpointError",
     "FORMAT_VERSION",
     "load_checkpoint",
+    "load_checkpoint_bytes",
     "load_latest_verified",
     "save_checkpoint",
     "serialize_checkpoint",
@@ -118,13 +120,15 @@ def _read_exact(f, n: int, path: str, what: str) -> bytes:
     return data
 
 
-def _read_blobs(path: str, *, skip_opt_state: bool = False, verify_crc: bool = True):
+def _read_blobs(path: str, *, skip_opt_state: bool = False, verify_crc: bool = True,
+                data: Optional[bytes] = None):
     """``(version, [meta, params, opt_state | None])`` bytes, every extent
     checked against the file and (v2, ``verify_crc``) every CRC. With
     ``skip_opt_state`` the optimizer blob's extent is still checked, and its
-    CRC too unless ``verify_crc`` is off (the cheap inference read)."""
-    with open(path, "rb") as f:
-        size = os.fstat(f.fileno()).st_size
+    CRC too unless ``verify_crc`` is off (the cheap inference read). With
+    ``data`` the file's bytes are read from it (``path`` names them)."""
+    with open(path, "rb") if data is None else io.BytesIO(data) as f:
+        size = os.fstat(f.fileno()).st_size if data is None else len(data)
         magic = f.read(len(_MAGIC_V2))
         if magic == _MAGIC_V2:
             version = 2
@@ -182,6 +186,18 @@ def load_checkpoint(path: str, *, load_opt_state: bool = True) -> tuple[dict, An
     ``None`` for it — the inference read; its extent is still verified,
     its CRC is not."""
     _, blobs = _read_blobs(path, skip_opt_state=not load_opt_state, verify_crc=load_opt_state)
+    meta = _decode(path, "meta", blobs[0])
+    params = _decode(path, "params", blobs[1])
+    opt_state = None if blobs[2] is None else _decode(path, "opt_state", blobs[2])
+    return meta, params, opt_state
+
+
+def load_checkpoint_bytes(data: bytes, path: str = "<bytes>", *,
+                          load_opt_state: bool = True) -> tuple[dict, Any, Any]:
+    """:func:`load_checkpoint` of a file's bytes (``path`` names them in
+    errors): what a mesh rank decodes after the lead broadcast the file."""
+    _, blobs = _read_blobs(path, skip_opt_state=not load_opt_state,
+                           verify_crc=load_opt_state, data=data)
     meta = _decode(path, "meta", blobs[0])
     params = _decode(path, "params", blobs[1])
     opt_state = None if blobs[2] is None else _decode(path, "opt_state", blobs[2])

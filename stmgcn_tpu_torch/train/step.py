@@ -1,8 +1,9 @@
 """Train/eval steps, the masked loss, the window gather and the optimizer.
 
-Counterpart of ``stmgcn_tpu/train/step.py`` on one device. The JAX package
-jits pure functions over explicit state; here the state is the model's
-parameters and an :class:`Optimizer`, and a step runs eagerly:
+Counterpart of ``stmgcn_tpu/train/step.py``, on one device or as one rank
+of a mesh. The JAX package jits pure functions over explicit state; here
+the state is the model's parameters and an :class:`Optimizer`, and a step
+runs eagerly:
 
 - **Optimizer parity** (``make_optimizer``, ``step.py:135-209``): optax's
   chain of global-norm clipping, ``add_decayed_weights`` (L2 added to the
@@ -14,6 +15,10 @@ parameters and an :class:`Optimizer`, and a step runs eagerly:
 - **Loss parity** (``_elementwise_loss``/``loss_fn``): MSE, MAE and Huber
   (delta 1) over real elements only, with ``(B,)`` sample masks or
   ``(B, N)`` sample-by-node masks and the same denominator.
+- **On a mesh** a rank's step takes its ``rows`` of the batch with the
+  whole batch's mask (the loss over the global count, :func:`masked_loss`),
+  and :attr:`Optimizer.sync` sums the gradients over ``dp`` once and gives
+  the clip its global norm (``parallel/collectives.py``).
 - **Window gather** (``gather_window_batch``): the microbatch is indexed
   out of the device-resident ``(T, N, C)`` series, bit-identical to the
   materialized windows.
@@ -215,13 +220,18 @@ def lr_schedule(lr: float, schedule: str = "none", warmup_steps: int = 0,
 
 
 @torch.no_grad()
-def clip_by_global_norm_(params, max_norm: float) -> torch.Tensor:
+def clip_by_global_norm_(params, max_norm: float, sync=None) -> torch.Tensor:
     """optax ``clip_by_global_norm`` on the ``.grad`` of ``params``, in
     place and without a host sync: unchanged while the global norm is below
     ``max_norm``, else every gradient becomes ``g / norm * max_norm``.
-    Returns the norm (a device scalar)."""
+    Returns the norm (a device scalar). On a mesh, ``sync`` (a
+    :class:`~stmgcn_tpu_torch.parallel.collectives.GradSync`) gives the
+    norm over every rank's branch slices."""
     grads = [p.grad for p in params if p.grad is not None]
-    norm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
+    if sync is not None:
+        norm = torch.sqrt(sync.norm_sq(grads))
+    else:
+        norm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
     keep = norm < max_norm
     for g in grads:
         g.copy_(torch.where(keep, g, g / norm * max_norm))
@@ -252,7 +262,14 @@ class Optimizer:
     :attr:`lr_scale` multiplies the scheduled rate in :meth:`scalars` (the
     divergence guard's cumulative ``lr_cut``, which the JAX trainer applies
     by rebuilding its optimizer at ``lr * scale``): the scalars are filled
-    on the host per step, so a cut needs no new program."""
+    on the host per step, so a cut needs no new program.
+
+    On a mesh, :attr:`sync` (a
+    :class:`~stmgcn_tpu_torch.parallel.collectives.GradSync`) sums the
+    gradients over ``dp`` at the start of every update, once a step (the
+    float32 master gradients at either precision), and gives the clip its
+    global norm; the moments and the update are then each rank's own, as
+    its parameters are (replicated, or its branch slice)."""
 
     BETAS, EPS = (0.9, 0.999), 1e-8
 
@@ -268,6 +285,8 @@ class Optimizer:
         self.count = 0
         #: factor on the scheduled learning rate (1.0: none)
         self.lr_scale = 1.0
+        #: the mesh's gradient sync (None: one device)
+        self.sync = None
         with torch.no_grad():
             for p in self.params:
                 if p.grad is None:
@@ -298,8 +317,10 @@ class Optimizer:
         for p in self.params:
             if p.grad is None:
                 raise RuntimeError("Optimizer.apply: a parameter has no .grad")
+        if self.sync is not None:
+            self.sync.reduce([p.grad for p in self.params])
         if self.grad_clip_norm is not None:
-            clip_by_global_norm_(self.params, self.grad_clip_norm)
+            clip_by_global_norm_(self.params, self.grad_clip_norm, self.sync)
         grads = [p.grad for p in self.params]
         if self.weight_decay:
             grads = torch._foreach_add(grads, self.params, alpha=self.weight_decay)
@@ -328,22 +349,29 @@ class Optimizer:
         self.count += 1
         return update
 
-    def state_tree(self, names, m_graphs: int, layout: str = "vmapped") -> dict:
+    def state_tree(self, names, m_graphs: int, layout: str = "vmapped",
+                   gather=None) -> dict:
         """The optax chain state as the JAX package checkpoints it, with
         ``names`` the ``state_dict`` names of ``self.params`` in order:
         Adam's moments (zeros before the first step) become ``mu``/``nu``
-        and :attr:`count` every ``count``."""
+        and :attr:`count` every ``count``. ``gather`` (a branch mesh's
+        ``MeshPlacement.state_gather``) makes each moment dict the whole,
+        mesh-free one first."""
         names = list(names)
         mu = dict(zip(names, self.exp_avg, strict=True))
         nu = dict(zip(names, self.exp_avg_sq, strict=True))
+        if gather is not None:
+            mu, nu = gather(mu, "moments"), gather(nu, "moments")
         return to_optax_state(self.parts, self.count, mu, nu, m_graphs, layout=layout)
 
-    def load_state_tree(self, tree: dict, names, m_graphs: int) -> None:
+    def load_state_tree(self, tree: dict, names, m_graphs: int,
+                        branches: Optional[slice] = None) -> None:
         """Install a stored optax chain state (either branch layout): Adam's
         moments, written into the live moment tensors in place (a captured
-        step keeps reading them), and :attr:`count`. Raises when the stored
+        step keeps reading them), and :attr:`count`; ``branches``: a branch
+        mesh rank's slice of the stacked moments. Raises when the stored
         chain, names or shapes differ from this optimizer's."""
-        count, mu, nu = from_optax_state(tree, self.parts, m_graphs)
+        count, mu, nu = from_optax_state(tree, self.parts, m_graphs, branches)
         names = list(names)
         if set(mu) != set(names):
             raise ValueError(
@@ -388,16 +416,24 @@ def elementwise_loss(kind: str, pred: torch.Tensor, target: torch.Tensor) -> tor
 
 
 def masked_loss(kind: str, pred: torch.Tensor, y: torch.Tensor,
-                mask: torch.Tensor, sanitizer: Optional[Sanitizer] = None) -> torch.Tensor:
+                mask: torch.Tensor, sanitizer: Optional[Sanitizer] = None,
+                rows: Optional[slice] = None) -> torch.Tensor:
     """Mean loss over real elements. ``y`` is ``(B, N, C)`` or ``(B, H, N,
     C)``; ``mask`` is ``(B,)`` (per sample) or ``(B, N)`` (sample x real
-    node), 0/1. ``sanitizer`` flags a zero denominator and a NaN loss."""
+    node), 0/1. ``sanitizer`` flags a zero denominator and a NaN loss.
+
+    On a ``dp`` mesh ``pred`` and ``y`` are a rank's ``rows`` of the
+    global batch and ``mask`` the whole batch's: the value is the rank's
+    error sum over the *global* count of real elements, so the ranks'
+    values (and gradients) sum to the single-device mean, a padded tail
+    batch included."""
     err = elementwise_loss(kind, pred.float(), y.float())
+    local = mask if rows is None else mask[rows]
     if mask.dim() == 1:
-        w = mask.reshape(mask.shape + (1,) * (y.dim() - 1))
+        w = local.reshape(local.shape + (1,) * (y.dim() - 1))
         denom = mask.sum() * math.prod(y.shape[1:])
     else:
-        w = mask[:, None, :, None] if y.dim() == 4 else mask[:, :, None]
+        w = local[:, None, :, None] if y.dim() == 4 else local[:, :, None]
         per_node = y.shape[-1] * (y.shape[1] if y.dim() == 4 else 1)
         denom = mask.sum() * per_node
     if sanitizer is None:
@@ -487,7 +523,7 @@ def train_step(model, optimizer: Optimizer, supports, x, y, mask,
                loss: str = "mse", sr_generator: Optional[torch.Generator] = None,
                n_real: Optional[torch.Tensor] = None,
                scalars: Optional[torch.Tensor] = None, health=None,
-               sanitizer: Optional[Sanitizer] = None):
+               sanitizer: Optional[Sanitizer] = None, rows: Optional[slice] = None):
     """One optimizer step; returns the (device, detached) loss, unsynced.
     With ``sr_generator`` the model runs on a stochastically rounded bf16
     shadow of its parameters (``compute_cast``), drawn from it. With
@@ -504,14 +540,15 @@ def train_step(model, optimizer: Optimizer, supports, x, y, mask,
     returns ``(loss, health row)`` (:func:`health_row`) from the same
     update. ``sanitizer`` (a step open on it) adds the step's flags: the
     loss's, the gradients' and the updated parameters' here, the model's
-    through its hooks."""
+    through its hooks. ``rows``: a ``dp`` mesh rank's rows of the batch
+    (:func:`masked_loss`); the optimizer's ``sync`` sums the gradients."""
     optimizer.zero_grad()
     if sr_generator is None:
         pred = model(supports, x, n_real)
     else:
         shadow = compute_cast(dict(model.named_parameters()), torch.bfloat16, sr_generator)
         pred = torch.func.functional_call(model, shadow, (supports, x, n_real))
-    value = masked_loss(loss, pred, y, mask, sanitizer)
+    value = masked_loss(loss, pred, y, mask, sanitizer, rows)
     value.backward()
     if sanitizer is not None:
         sanitizer.nan_all("gradients", [p.grad for p in optimizer.params])
@@ -526,8 +563,9 @@ def train_step(model, optimizer: Optimizer, supports, x, y, mask,
 
 @torch.no_grad()
 def eval_step(model, supports, x, y, mask, loss: str = "mse",
-              n_real: Optional[torch.Tensor] = None, sanitizer: Optional[Sanitizer] = None):
-    """``(loss, prediction)`` without gradients (``n_real`` and
-    ``sanitizer`` as :func:`train_step`'s)."""
+              n_real: Optional[torch.Tensor] = None, sanitizer: Optional[Sanitizer] = None,
+              rows: Optional[slice] = None):
+    """``(loss, prediction)`` without gradients (``n_real``, ``sanitizer``
+    and ``rows`` as :func:`train_step`'s)."""
     pred = model(supports, x, n_real)
-    return masked_loss(loss, pred, y, mask, sanitizer), pred
+    return masked_loss(loss, pred, y, mask, sanitizer, rows), pred

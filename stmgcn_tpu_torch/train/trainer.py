@@ -1,10 +1,11 @@
 """The training loop: epochs over resident or streamed data, with
 checkpoints.
 
-Counterpart of ``stmgcn_tpu/train/trainer.py`` (``Trainer``) on one
-device. **Data placement** (``data_placement``, ``window_free``,
-``prefetch``; ``trainer.py:163-180``, ``:410-455``) decides where batches
-come from, as the JAX trainer decides it:
+Counterpart of ``stmgcn_tpu/train/trainer.py`` (``Trainer``), on one
+device or as one rank of a mesh (**Meshes**, below). **Data placement**
+(``data_placement``, ``window_free``, ``prefetch``;
+``trainer.py:163-180``, ``:410-455``) decides where batches come from, as
+the JAX trainer decides it:
 
 - *window-free resident* (the default wherever it fits): the normalized
   ``(T, N, C)`` series, the per-mode int32 target vectors and the window's
@@ -159,7 +160,42 @@ backward op that made a NaN.
 tracer is read once per dispatch or epoch and nothing is recorded inside
 a program, so tracing changes no program.
 
-Not ported: node padding for meshes and meshes.
+**Meshes** (``model.placement``, a
+:class:`~stmgcn_tpu_torch.parallel.placement.MeshPlacement`; the JAX
+trainer's mesh routing, ``trainer.py:411-455``): each rank of a ``dp x
+branch`` job runs this trainer on its slice.
+
+- *Data*: every rank draws the same global batch order from the seed and
+  takes its contiguous ``dp`` rows; on the window-free resident route
+  each holds the whole series and gathers its rows, and streamed (the
+  mesh default under "auto", as in JAX) each uploads only its rows;
+  materialized windows cannot be resident on a mesh (raises, as in JAX).
+  Every rank holds the whole ``(B,)`` (or fleet ``(B, N_c)``) mask, so
+  each step's loss is its rows' error sum over the global count
+  (``train/step.py`` ``masked_loss``), and fleet classes take their rows
+  over ``dp`` likewise.
+- *Steps*: the optimizer's ``GradSync`` sums the gradients over ``dp``
+  once a step (one float32 bucket) and gives the clip its global norm;
+  the model's branch fusion all-reduces over ``branch``. The block
+  programs run eagerly: a gloo collective cannot be captured, so
+  ``graphs=None`` resolves to eager (logged) and ``graphs=True`` raises.
+  Each dispatch's losses are summed over ``dp`` (all ranks read the same
+  values), evaluation's loss sums once per epoch, and ``test()``
+  all-gathers the predictions: every rank's history, decisions (best,
+  top-k, patience, early stop) and report equal the single-device ones.
+- *Checkpoints*: the branch slices (parameters and moments) are gathered
+  over ``branch`` into the mesh-free layout; only the lead (global rank 0)
+  serializes and writes. Reads (``restore``, ``restore_auto``,
+  ``test(checkpoint=...)``) happen on the lead, which broadcasts the file's
+  length and bytes; an error travels in that payload and raises on every
+  rank (the JAX ``trainer.py:2215-2249``, ``:2339-2393``).
+- *SIGTERM*: each safe point sums the ranks' flags over the whole job
+  (a 4-byte all-reduce), so a signal to any rank stops every rank at the
+  same boundary, where all of them save (the lead writes) and raise
+  ``Preempted``.
+- *Not on a mesh yet*: the divergence guard, health, ``checks``,
+  ``debug_nans``, fault plans and ``sr_seed`` raise by name; region
+  parallelism (node padding for meshes) is not ported.
 """
 
 from __future__ import annotations
@@ -168,6 +204,7 @@ import collections
 import contextlib
 import dataclasses
 import errno
+import functools
 import itertools
 import os
 import queue
@@ -203,10 +240,13 @@ from stmgcn_tpu_torch.obs.registry import REGISTRY
 from stmgcn_tpu_torch.ops.layers import resolve_device, set_compute_dtype
 from stmgcn_tpu_torch.ops.spmm import place_supports
 from stmgcn_tpu_torch.ops.tiling import StackedPlans, TiledSupports
+from stmgcn_tpu_torch.parallel.collectives import GradSync
+from stmgcn_tpu_torch.parallel.placement import sharded_names
 from stmgcn_tpu_torch.resilience.faults import FaultPlan, Preempted
 from stmgcn_tpu_torch.resilience.guard import DivergenceGuard
 from stmgcn_tpu_torch.train.checkpoint import (
     load_checkpoint,
+    load_checkpoint_bytes,
     load_latest_verified,
     serialize_checkpoint,
     write_checkpoint_bytes,
@@ -222,6 +262,7 @@ from stmgcn_tpu_torch.train.step import (
     make_optimizer,
     train_step,
 )
+from stmgcn_tpu_torch.utils import comm
 
 __all__ = ["CitySupports", "Trainer"]
 
@@ -436,8 +477,11 @@ class Trainer:
     wherever resident; True requires it; False materializes the windows)
     and ``prefetch`` (batches placed ahead when streaming), ``fault_plan``,
     the ``divergence_*`` and ``health*`` arguments, ``checks`` and
-    ``debug_nans``: the module docstring. Other arguments as the JAX
-    ``Trainer``'s.
+    ``debug_nans``: the module docstring. A ``model`` built with a
+    ``placement`` (a
+    :class:`~stmgcn_tpu_torch.parallel.placement.MeshPlacement`) trains
+    this rank's slice of that mesh (module docstring); without one, one
+    device. Other arguments as the JAX ``Trainer``'s.
     """
 
     #: "auto" placement stays resident up to this many bytes at least (the
@@ -495,9 +539,21 @@ class Trainer:
         self.sanitizer = Sanitizer(checks) if checks is not None else None
         self.debug_nans = bool(debug_nans)
         self.device = resolve_device(device)
+        self.verbose = verbose
+        #: the model's mesh placement and this rank's mesh (None: one device)
+        self.placement = placement = getattr(model, "placement", None)
+        self.mesh = getattr(placement, "mesh", None)
+        if self.mesh is not None:
+            self._check_mesh(graphs, dict(
+                divergence_guard=divergence_guard, health=health, checks=checks,
+                debug_nans=debug_nans, sr_seed=sr_seed,
+                fault_plan=fault_plan is not None and fault_plan.active))
         if self.debug_nans and graphs:
             raise ValueError("debug_nans runs the programs eagerly; it cannot take graphs=True")
-        self.graphs = resolve_graphs(False if self.debug_nans else graphs, self.device)
+        self.graphs = resolve_graphs(
+            False if self.debug_nans or self.mesh is not None else graphs, self.device)
+        #: this rank's rows of every batch (None: the whole batch)
+        self._rows = None if self.mesh is None else placement.rows(batch_size)
         if self.graphs and sr_seed is not None and not hasattr(
                 torch.cuda.CUDAGraph, "register_generator_state"):
             raise RuntimeError(
@@ -520,7 +576,6 @@ class Trainer:
         self.async_checkpoint = async_checkpoint
         self.checkpoint_every_steps = checkpoint_every_steps
         self.extra_meta = extra_meta or {}
-        self.verbose = verbose
         self.precision = precision
         self.sr_seed = sr_seed
         #: deterministic fault injection; the empty plan makes every hook a no-op
@@ -546,8 +601,8 @@ class Trainer:
         self.model = model.to(self.device)
         if precision == "bf16":  # the train and eval bodies' bf16 clone
             set_compute_dtype(self.model, torch.bfloat16)
-        if initial_state is not None:
-            self.model.load_state_dict(initial_state)
+        if initial_state is not None:  # mesh-free: this rank takes its slice
+            self.model.load_state_dict(self._local_state(initial_state))
         if self.sanitizer is not None:
             self.sanitizer.watch(self.model)
         if self.debug_nans:
@@ -565,6 +620,9 @@ class Trainer:
 
         dev = self.device
         self.hetero = getattr(dataset, "heterogeneous", False)
+        if self.mesh is not None:  # the rank's branch slice of each stack
+            put = functools.partial(self.placement.put, kind="supports")
+            supports = supports.map(put) if isinstance(supports, CitySupports) else put(supports)
         self.supports = (supports.to(dev) if isinstance(supports, CitySupports)
                          else place_supports(supports, dev))
         self.fleet = fleet
@@ -611,6 +669,9 @@ class Trainer:
             warmup_steps=int(warmup_epochs * spe), decay_steps=n_epochs * spe,
             min_lr_fraction=min_lr_fraction, grad_clip_norm=grad_clip_norm,
         )
+        if self.mesh is not None:
+            self.optimizer.sync = GradSync(self.mesh, self.optimizer.params,
+                                           sharded_names(self._param_names, self.mesh.branch))
         self.epoch = 0
         #: optimizer steps across the whole run (survives resume)
         self.global_step = 0
@@ -627,6 +688,90 @@ class Trainer:
         self._write_queue: Optional[queue.Queue] = None
         #: what the background writer raised since the last flush
         self._write_failures: list = []
+
+    # -- the mesh -------------------------------------------------------------
+    #: the opt-in features that do not compose with a mesh yet, by argument
+    MESH_REFUSED = {
+        "divergence_guard": "the divergence guard",
+        "health": "training health telemetry",
+        "checks": "the in-program sanitizers (checks)",
+        "debug_nans": "debug_nans",
+        "sr_seed": "stochastic rounding (sr_seed)",
+        "fault_plan": "fault plans",
+    }
+
+    def _check_mesh(self, graphs, options: dict) -> None:
+        """The mesh's refusals, each by name, and its eager blocks."""
+        mesh = self.mesh
+        for name, on in options.items():
+            if on:
+                raise ValueError(f"{self.MESH_REFUSED[name]} on a mesh is not ported yet "
+                                 "(ROADMAP A11c); train on one device for it")
+        if graphs:
+            raise ValueError(
+                "graphs=True on a mesh: a block's collectives cannot be captured into a "
+                "CUDA graph (gloo's cannot at all), so mesh blocks run eagerly; pass "
+                "graphs=None or False")
+        self._log(f"[mesh] rank {mesh.rank} of {mesh.world} at {mesh.coords} over "
+                  f"{mesh.backend}: blocks of S run eagerly (no CUDA graphs on a mesh)")
+
+    def _branches(self) -> Optional[slice]:
+        """This rank's slice of the stacked branches (None: all)."""
+        if self.mesh is None or self.mesh.branch == 1:
+            return None
+        return self.placement.branches(self.model.m_graphs)
+
+    def _local_state(self, state: dict) -> dict:
+        """A mesh-free ``state_dict``'s slice that this rank holds."""
+        return state if self.mesh is None else self.placement.state_slice(state)
+
+    @property
+    def is_lead(self) -> bool:
+        """Whether this rank writes checkpoints (one device: always)."""
+        return self.mesh is None or self.mesh.is_lead
+
+    def _lead_read(self, read):
+        """``read()`` on the lead only, its result on every rank: the lead
+        sends the file it read (its path and bytes), or its error, which
+        then raises on every rank; ``read`` returns ``(path, meta, params,
+        opt_state)`` or None, and the other ranks decode the bytes as the
+        lead did (``opt_state`` None when the lead skipped it)."""
+        if self.mesh is None:
+            return read()
+        result, error = None, None
+        if self.mesh.is_lead:
+            try:
+                result = read()
+                if result is None:
+                    payload = b"N"
+                else:
+                    path = result[0].encode()
+                    with open(result[0], "rb") as f:
+                        body = f.read()
+                    flag = b"C" if result[3] is not None else b"P"
+                    payload = flag + len(path).to_bytes(4, "little") + path + body
+            except Exception as e:  # noqa: BLE001 — sent to every rank, then raised
+                error = e
+                payload = b"E" + f"{type(e).__name__}\0{e}".encode()
+        payload = comm.broadcast_bytes(payload if self.mesh.is_lead else None, self.mesh,
+                                       what="checkpoint")
+        if self.mesh.is_lead:
+            if error is not None:
+                raise error
+            return result
+        flag = payload[:1]
+        if flag == b"E":
+            name, _, msg = payload[1:].decode().partition("\0")
+            cls = {"FileNotFoundError": FileNotFoundError, "ValueError": ValueError,
+                   "CorruptCheckpointError": ValueError}.get(name, RuntimeError)
+            raise cls(f"the lead rank failed to read the checkpoint: {name}: {msg}")
+        if flag == b"N":
+            return None
+        n = int.from_bytes(payload[1:5], "little")
+        path = payload[5:5 + n].decode()
+        meta, params, opt_state = load_checkpoint_bytes(payload[5 + n:], path,
+                                                        load_opt_state=flag == b"C")
+        return path, meta, params, opt_state
 
     # -- data placement -----------------------------------------------------
     def _resident_cap_bytes(self) -> int:
@@ -655,9 +800,18 @@ class Trainer:
                 "(DemandDataset or HeteroCityDataset) — this dataset only "
                 "materializes windows")
         wf_candidate = wf_supported and window_free is not False
+        meshy = self.mesh is not None
+        if self.data_placement == "resident" and meshy and not wf_candidate:
+            raise ValueError(
+                "data_placement='resident' on a mesh placement composes only through "
+                "the window-free gather (window_free must not be False and the dataset "
+                "must speak the series/mode_targets protocol); materialized windows "
+                "stream on meshes")
         resident_bytes = ds.resident_nbytes if wf_candidate else ds.nbytes
+        # a mesh under "auto" streams unless window_free=True opts in (the JAX rule)
         self._resident = self.data_placement == "resident" or (
-            self.data_placement == "auto" and resident_bytes <= self._resident_cap_bytes())
+            self.data_placement == "auto" and (not meshy or window_free is True)
+            and resident_bytes <= self._resident_cap_bytes())
         #: resident batches gather from the raw series on the device instead
         #: of materialized window arrays (bitwise the same batches)
         self._window_free = wf_candidate and self._resident
@@ -899,6 +1053,8 @@ class Trainer:
         }
         if self.sr_seed is not None:
             meta["sr_seed"] = self.sr_seed
+        if self.mesh is not None:  # provenance: the mesh and its transport
+            meta["mesh"] = {**self.mesh.shape, "transport": self.mesh.backend}
         if self._lr_scale != 1.0:
             meta["lr_scale"] = self._lr_scale
         if self._batch_in_epoch:
@@ -922,14 +1078,23 @@ class Trainer:
         """``(params, opt_state)`` as the JAX package checkpoints them:
         numpy flax trees in this model's layout (copied off the device)."""
         m = self.model.m_graphs
-        params = to_jax_params(self.model.state_dict(), m, layout=self.layout)
-        return params, self.optimizer.state_tree(self._param_names, m, self.layout)
+        gather = None
+        if self._branches() is not None:  # every rank: the branch slices, gathered
+            gather = self.placement.state_gather
+        state = self.model.state_dict()
+        params = to_jax_params(state if gather is None else gather(state, "params"), m,
+                               layout=self.layout)
+        return params, self.optimizer.state_tree(self._param_names, m, self.layout, gather)
 
     def snapshot(self) -> bytes:
         """The current state serialized as one checkpoint file's bytes."""
         return serialize_checkpoint(*self.state_trees(), self._meta())
 
     def _save(self, path: str) -> bytes:
+        if not self.is_lead:  # its part of the gather; the lead writes
+            if self._branches() is not None:
+                self.state_trees()
+            return b""
         trc = obs_trace.active_tracer()
         t0 = time.perf_counter() if trc is not None else 0.0
         data = self.snapshot()
@@ -944,6 +1109,8 @@ class Trainer:
         return data
 
     def _queue(self, op: str, path: str, payload=None) -> None:
+        if not self.is_lead:  # only the lead touches the files
+            return
         os.makedirs(self.out_dir, exist_ok=True)
         if op == "write":  # the plan's byte faults, on the training thread
             payload = self.fault_plan.mutate_write(path, payload)
@@ -975,10 +1142,10 @@ class Trainer:
     def _install(self, meta: dict, params: dict, opt_state) -> None:
         """Load a checkpoint's trees into the live model and optimizer (on
         the trainer's device) and its meta into the loop state."""
-        m = self.model.m_graphs
-        self.model.load_state_dict(from_jax_params(params, m))
+        m, branches = self.model.m_graphs, self._branches()
+        self.model.load_state_dict(from_jax_params(params, m, branches))
         if opt_state is not None:
-            self.optimizer.load_state_tree(opt_state, self._param_names, m)
+            self.optimizer.load_state_tree(opt_state, self._param_names, m, branches)
         self._apply_meta(meta)
 
     def _apply_meta(self, meta: dict) -> None:
@@ -1036,7 +1203,7 @@ class Trainer:
                                         self.latest_path)
             return meta
         self.flush_checkpoints()  # a pending write may own this path
-        meta, params, opt_state = load_checkpoint(path)
+        _, meta, params, opt_state = self._lead_read(lambda: (path, *load_checkpoint(path)))
         self._install(meta, params, opt_state)
         return meta
 
@@ -1045,7 +1212,7 @@ class Trainer:
         -> latest.prev -> best_e* -> best, corrupt files quarantined);
         returns its meta, or ``None`` when nothing loads."""
         self.flush_checkpoints()
-        found = load_latest_verified(self.out_dir, log=self._log)
+        found = self._lead_read(lambda: load_latest_verified(self.out_dir, log=self._log))
         if found is None:
             return None
         path, meta, params, opt_state = found
@@ -1083,6 +1250,8 @@ class Trainer:
             x_all, y_all = (ds.arrays(mode) if ds.shared_graphs
                             else ds.city_arrays(mode, batch.city))
             x, y = x_all[batch.indices], y_all[batch.indices]
+        if self._rows is not None:  # a dp rank uploads its rows only
+            x, y = x[self._rows], y[self._rows]
         return self._prefetcher.place({"x": x, "y": y})
 
     def place(self, batch, mode: str, sanitizer: Optional[Sanitizer] = None, placed=None):
@@ -1091,6 +1260,8 @@ class Trainer:
         streamed (``placed``, or placed now), and the mask of real samples,
         ``(B,)``, or ``(B, N_c)`` crossed with the real nodes for a fleet
         city (at every pad, as the JAX trainer's one mask shape per class).
+        On a ``dp`` mesh ``x`` and ``y`` are this rank's rows, the mask the
+        whole batch's.
         ``sanitizer`` (a step open on it) checks the gather's indices."""
         if not self._resident:
             placed = placed if placed is not None else self._place_stream(batch, mode)
@@ -1100,8 +1271,10 @@ class Trainer:
             key, _, starts = self._city_site[batch.city]
             if not self._window_free:
                 self._resident_arrays(mode, key)
-            idx = torch.as_tensor(np.asarray(batch.indices, np.int64) + starts[mode],
-                                  device=self.device)
+            idx = np.asarray(batch.indices, np.int64) + starts[mode]
+            if self._rows is not None:  # a dp rank gathers its rows only
+                idx = idx[self._rows]
+            idx = torch.as_tensor(idx, device=self.device)
             x, y = self._sites[key].gather(mode, idx, self.offsets, self.horizon, sanitizer)
         mask = (np.arange(len(batch)) < batch.n_real).astype(np.float32)
         info = self._fleet_cities.get(batch.city)
@@ -1129,6 +1302,7 @@ class Trainer:
         groups = self._health_groups if health else None
         san = self.sanitizer
         streamed = not self._resident
+        rows = self._rows
 
         def body(v):
             supports, n_real = site.select(v.get("slot"))
@@ -1142,11 +1316,13 @@ class Trainer:
                 if streamed:  # one step over the landed batch
                     x, y = v["x"], v["y"]
                 else:
-                    x, y = site.gather(mode, v["idx"][s], self.offsets, self.horizon, san)
+                    idx = v["idx"][s] if rows is None else v["idx"][s][rows]
+                    x, y = site.gather(mode, idx, self.offsets, self.horizon, san)
                 mask = v["mask"][s] if node is None else v["mask"][s][:, None] * node[None, :]
                 outs.append(train_step(self.model, self.optimizer, supports, x, y, mask,
                                        self.loss, sr_generator=self._sr_gen, n_real=n_real,
-                                       scalars=v["adam"][s], health=groups, sanitizer=san))
+                                       scalars=v["adam"][s], health=groups, sanitizer=san,
+                                       rows=rows))
                 if san is not None:
                     flags.append(san.end())
             if not health:
@@ -1254,6 +1430,8 @@ class Trainer:
                                 {"step": step + first, "s": len(run)})
             first += len(run)
         out = outs[0] if len(outs) == 1 else torch.cat(outs)
+        if self.mesh is not None:  # each rank's share of the global means
+            out = comm.all_reduce(out, "dp", self.mesh, what="loss")
         if self.sanitizer is not None:
             self._raise_flags(out[:, -1], block, "train")
             out = out[:, :-1] if health else out[:, 0]
@@ -1425,8 +1603,16 @@ class Trainer:
     def _check_preempt(self) -> None:
         """After SIGTERM: write the emergency checkpoint here, a safe
         boundary whose meta cursor is consistent, and unwind with
-        :class:`~stmgcn_tpu_torch.resilience.Preempted`."""
-        if not self._preempted:
+        :class:`~stmgcn_tpu_torch.resilience.Preempted`. On a mesh the
+        ranks agree first: every safe point sums the flag over all ranks,
+        so a signal to any one of them stops every rank at the same
+        boundary (a rank that stopped alone would leave its peers waiting
+        in the next collective)."""
+        stop = self._preempted
+        if self.mesh is not None:
+            flag = torch.tensor([float(stop)])
+            stop = bool(comm.all_reduce(flag, "world", self.mesh, what="preempt").item())
+        if not stop:
             return
         self._log(f"SIGTERM received — emergency checkpoint at epoch {self.epoch}, "
                   f"step {self.global_step}")
@@ -1578,14 +1764,17 @@ class Trainer:
             x, y, mask = self.place(batch, mode, san, placed)
             data = self._cities[batch.city]
             losses.append(eval_step(self.model, data.supports, x, y, mask, self.loss,
-                                    n_real=data.n_real, sanitizer=san)[0])
+                                    n_real=data.n_real, sanitizer=san, rows=self._rows)[0])
             counts.append(batch.n_real)
             if san is not None:
                 words.append(san.end())
             self._check_preempt()
         if san is not None:
             self._raise_flags(torch.stack(words).cpu().numpy(), counts, mode)
-        return self._weighted(torch.stack(losses).tolist(), counts)
+        losses = torch.stack(losses)
+        if self.mesh is not None:  # the ranks' shares, summed once per epoch
+            losses = comm.all_reduce(losses, "dp", self.mesh, what="eval-loss")
+        return self._weighted(losses.tolist(), counts)
 
     @staticmethod
     def _weighted(losses, counts) -> float:
@@ -1701,6 +1890,10 @@ class Trainer:
                 pred = self.model(*args)
             else:
                 pred = torch.func.functional_call(self.model, state, args)
+            if self.mesh is not None:  # the whole batch on every rank
+                pred = comm.all_gather(pred, "dp", self.mesh, what="predictions")
+                if batch.y is None:
+                    y = comm.all_gather(y, "dp", self.mesh, what="targets")
             n = y.shape[-2] - data.pad  # drop padded node rows
             preds.setdefault(batch.city, []).append(
                 pred[: batch.n_real, ..., :n, :].float().cpu().numpy())
@@ -1722,9 +1915,10 @@ class Trainer:
         if checkpoint is not None:
             path = self.best_path if checkpoint == "best" else checkpoint
             self.flush_checkpoints()  # a pending write may own this path
-            _, params, _ = load_checkpoint(path, load_opt_state=False)
+            _, _, params, _ = self._lead_read(
+                lambda: (path, *load_checkpoint(path, load_opt_state=False)))
             state = {k: v.to(self.device) for k, v in
-                     from_jax_params(params, self.model.m_graphs).items()}
+                     from_jax_params(params, self.model.m_graphs, self._branches()).items()}
         sp_test = obs_trace.span("train.test")  # the shared no-op when tracing is off
         self._event("test_start", f"Testing starts at: {time.ctime()}")
         results = {}

@@ -1,0 +1,195 @@
+"""The port's one collective layer, with its communication accounting.
+
+Counterpart of ``stmgcn_tpu/utils/comm.py``. The JAX package lets GSPMD
+insert the collectives and counts them by parsing the compiled HLO; here
+every collective of the port is one call of this module over a named mesh
+axis (``"dp"``, ``"region"``, ``"branch"``, or ``"world"`` for every rank)
+of a :class:`~stmgcn_tpu_torch.parallel.mesh.Mesh`, and no other module
+calls ``torch.distributed``'s collectives. Each call adds to
+:data:`STATS` one entry ``(kind, axis, bytes, calls)``, kinds named as the
+HLO ops (``"all-reduce"``, ``"all-gather"``, ``"broadcast"``), and counts
+the same under ``what`` (the payload's name: ``"grads"``, ``"loss"``,
+``"fusion"``, ...). Bytes follow the JAX rule: the op's *output* bytes
+(an all-gather's output is the gathered tensor, ``calls x`` the input
+times the group size), a proxy for wire volume, not a hardware counter.
+The counts also go to the obs registry as the counters ``comm.bytes`` and
+``comm.calls`` labelled ``kind`` and ``axis``.
+
+:func:`collective_stats` reads the tallies; :func:`step_comm_report` runs
+a function (one training step, say) and returns what it moved, where the
+JAX function compiles it and parses the HLO. An axis of extent 1 moves
+nothing and counts nothing, as XLA emits no collective over it.
+
+Tensors go to the backend on their own device, except that NCCL takes
+CUDA tensors only: a CPU tensor is then moved to the mesh's device and
+back.
+"""
+
+from __future__ import annotations
+
+import collections
+import threading
+from typing import Callable, Optional
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+from stmgcn_tpu_torch.obs.registry import REGISTRY
+
+__all__ = [
+    "COLLECTIVES",
+    "CommStats",
+    "STATS",
+    "all_gather",
+    "all_reduce",
+    "broadcast",
+    "broadcast_bytes",
+    "collective_stats",
+    "step_comm_report",
+]
+
+COLLECTIVES = ("all-reduce", "all-gather", "broadcast")
+
+
+class CommStats:
+    """Tallies of the collectives run, by ``(kind, axis)`` and by ``(kind,
+    axis, what)``: ``{"calls": n, "bytes": n}`` each; thread-safe."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._ops: dict = collections.defaultdict(lambda: [0, 0])
+        self._what: dict = collections.defaultdict(lambda: [0, 0])
+
+    def add(self, kind: str, axis: str, nbytes: int, what: str = "") -> None:
+        if kind not in COLLECTIVES:
+            raise ValueError(f"unknown collective {kind!r}; known: {COLLECTIVES}")
+        with self._lock:
+            for table, key in ((self._ops, (kind, axis)), (self._what, (kind, axis, what))):
+                table[key][0] += 1
+                table[key][1] += int(nbytes)
+        labels = {"kind": kind, "axis": axis}
+        REGISTRY.counter("comm.calls", labels).inc(1)
+        REGISTRY.counter("comm.bytes", labels).inc(nbytes)
+
+    def reset(self) -> None:
+        with self._lock:
+            self._ops.clear()
+            self._what.clear()
+
+    def snapshot(self) -> dict:
+        """``{"ops": {"kind/axis": {"calls", "bytes"}}, "what": {"kind/axis/what":
+        {...}}, "total_bytes": n, "calls": n}``."""
+        with self._lock:
+            ops = {f"{k}/{a}": {"calls": c, "bytes": b} for (k, a), (c, b) in self._ops.items()}
+            what = {f"{k}/{a}/{w}": {"calls": c, "bytes": b}
+                    for (k, a, w), (c, b) in self._what.items()}
+        return {"ops": ops, "what": what,
+                "total_bytes": sum(v["bytes"] for v in ops.values()),
+                "calls": sum(v["calls"] for v in ops.values())}
+
+
+#: the process's tallies
+STATS = CommStats()
+
+
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
+
+
+def _on_backend(t: torch.Tensor, mesh) -> torch.Tensor:
+    """``t`` where the backend takes it: NCCL only CUDA tensors."""
+    if mesh.backend == "nccl" and t.device.type != "cuda":
+        return t.to(mesh.device)
+    return t
+
+
+def all_reduce(tensor: torch.Tensor, axis: str, mesh, *, what: str = "") -> torch.Tensor:
+    """The sum of ``tensor`` over this rank's ``axis`` line, as a new
+    tensor on ``tensor``'s device (``tensor`` itself is left as it is)."""
+    group = mesh.group(axis)
+    if group is None:
+        return tensor
+    buf = _on_backend(tensor, mesh)
+    buf = buf.clone() if buf is tensor else buf
+    buf = buf.contiguous()
+    dist.all_reduce(buf, op=dist.ReduceOp.SUM, group=group)
+    STATS.add("all-reduce", axis, _nbytes(buf), what)
+    return buf.to(tensor.device)
+
+
+def all_gather(tensor: torch.Tensor, axis: str, mesh, *, dim: int = 0,
+               what: str = "") -> torch.Tensor:
+    """The ``axis`` line's tensors (one shape on every rank) concatenated
+    along ``dim`` in line order."""
+    group = mesh.group(axis)
+    if group is None:
+        return tensor
+    buf = _on_backend(tensor, mesh).contiguous()
+    parts = [torch.empty_like(buf) for _ in range(mesh.size(axis))]
+    dist.all_gather(parts, buf, group=group)
+    out = torch.cat(parts, dim=dim)
+    STATS.add("all-gather", axis, _nbytes(out), what)
+    return out.to(tensor.device)
+
+
+def broadcast(tensor: Optional[torch.Tensor], mesh, *, shape=None, dtype=None, src: int = 0,
+              axis: str = "world", what: str = "") -> torch.Tensor:
+    """Global rank ``src``'s ``tensor`` on every rank of the ``axis`` line
+    (``src`` must lie on it); the other ranks pass ``tensor=None`` with
+    its ``shape`` and ``dtype``."""
+    group = mesh.group(axis)
+    if group is None:
+        return tensor
+    if mesh.rank == src:
+        buf = _on_backend(tensor, mesh).contiguous()
+        buf = buf.clone() if buf is tensor else buf
+    else:
+        dev = mesh.device if mesh.backend == "nccl" else torch.device("cpu")
+        buf = torch.empty(shape, dtype=dtype, device=dev)
+    dist.broadcast(buf, src=src, group=group)
+    STATS.add("broadcast", axis, _nbytes(buf), what)
+    return buf
+
+
+def broadcast_bytes(data: Optional[bytes], mesh, *, src: int = 0, what: str = "") -> bytes:
+    """Rank ``src``'s ``data`` on every rank: its length (an int64), then
+    its bytes; the other ranks pass None."""
+    own = mesh.rank == src
+    size = broadcast(torch.tensor([len(data)], dtype=torch.int64) if own else None, mesh,
+                     shape=(1,), dtype=torch.int64, src=src, what=what)
+    n = int(size.item())
+    payload = torch.from_numpy(np.frombuffer(data, np.uint8).copy()) if own else None
+    got = broadcast(payload, mesh, shape=(n,), dtype=torch.uint8, src=src, what=what)
+    return data if own else got.cpu().numpy().tobytes()
+
+
+def collective_stats() -> dict:
+    """The process's tallies (:meth:`CommStats.snapshot`)."""
+    return STATS.snapshot()
+
+
+def _delta(after: dict, before: dict) -> dict:
+    out = {}
+    for key in ("ops", "what"):
+        table = {}
+        for name, v in after[key].items():
+            b = before[key].get(name, {"calls": 0, "bytes": 0})
+            if v["calls"] != b["calls"]:
+                table[name] = {"calls": v["calls"] - b["calls"],
+                               "bytes": v["bytes"] - b["bytes"]}
+        out[key] = table
+    out["total_bytes"] = sum(v["bytes"] for v in out["ops"].values())
+    out["calls"] = sum(v["calls"] for v in out["ops"].values())
+    return out
+
+
+def step_comm_report(fn: Callable, *args, **kwargs) -> dict:
+    """Run ``fn(*args, **kwargs)`` and return what its collectives moved
+    on this rank (:meth:`CommStats.snapshot` over the call alone), with
+    ``fn``'s return value under ``"result"``."""
+    before = STATS.snapshot()
+    result = fn(*args, **kwargs)
+    report = _delta(STATS.snapshot(), before)
+    report["result"] = result
+    return report

@@ -1,0 +1,346 @@
+"""Rank processes for the port's multi-device tests, on the CPU over gloo.
+
+``launch(world, scenarios, tmp_path, **args)`` starts ``world`` processes
+of this file (one per rank, one thread each, through the port's
+``launch_local``: a free localhost port) and waits for them under a
+timeout; any rank that fails or outlives it fails
+the call and the others are killed. Each rank joins the job
+(``init_distributed(device="cpu")``), runs the named scenarios of
+:data:`SCENARIOS` in order (several per spawn: a process start costs
+seconds) and saves ``{scenario: result}`` to ``rank<r>.pt``, which
+``launch`` returns per rank. A scenario is ``fn(args, out_dir) -> result``
+with ``args`` the keyword arguments of ``launch`` (``torch.save``-able).
+"""
+
+from __future__ import annotations
+
+import os
+import sys
+import time
+
+_REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+TIMEOUT = 240.0
+
+
+def launch(world: int, scenarios, tmp_path, timeout: float = TIMEOUT, **args) -> list:
+    """Run ``scenarios`` in ``world`` rank processes; returns each rank's
+    ``{scenario: result}``."""
+    import torch
+
+    from stmgcn_tpu_torch.parallel.mesh import launch_local
+
+    out = os.path.join(str(tmp_path), f"ranks-{time.monotonic_ns()}")
+    os.makedirs(out)
+    torch.save(args, os.path.join(out, "args.pt"))
+    _, problem = launch_local([sys.executable, __file__, out, ",".join(scenarios)], world,
+                              env={"OMP_NUM_THREADS": "1", "PYTHONPATH": _REPO},
+                              log_dir=out, timeout=timeout)
+    if problem is not None:
+        logs = "".join(
+            f"--- rank {r} ---\n" + open(os.path.join(out, f"rank{r}.log")).read()[-6000:]
+            for r in range(world))
+        raise AssertionError(f"{problem}:\n{logs}")
+    return [torch.load(os.path.join(out, f"rank{r}.pt"), weights_only=False)
+            for r in range(world)]
+
+
+# -- scenarios ---------------------------------------------------------------
+
+def tiny_config(out_dir, dp=1, branch=1, **train):
+    """The default preset shrunk for the CPU: a 3x3 city, one 8-wide LSTM
+    layer, batch 4, one epoch; ``train`` fields override."""
+    from stmgcn_tpu_torch.config import MeshConfig, preset
+
+    cfg = preset("default")
+    cfg.data.rows, cfg.data.n_timesteps = 3, 24 * 7 + 42  # train 29: a padded tail
+    cfg.model.lstm_hidden_dim = cfg.model.gcn_hidden_dim = 8
+    cfg.model.lstm_num_layers = 1
+    cfg.train.batch_size, cfg.train.epochs, cfg.train.out_dir = 4, 1, str(out_dir)
+    for k, v in train.items():
+        setattr(cfg.train, k, v)
+    cfg.mesh = MeshConfig(dp=dp, branch=branch)
+    return cfg
+
+
+def _state(trainer) -> dict:
+    """The trainer's whole (mesh-free) parameters, gathered on a branch mesh."""
+    from stmgcn_tpu_torch.models.params import from_jax_params
+
+    params, _ = trainer.state_trees()
+    return from_jax_params(params, trainer.model.m_graphs)
+
+
+def train_tiny(args, out_dir):
+    """``tiny_config`` at the args' mesh: history and final parameters."""
+    from stmgcn_tpu_torch.experiment import build_trainer
+
+    import torch
+
+    cfg = tiny_config(out_dir, args.get("dp", 1), args.get("branch", 1),
+                      **args.get("train", {}))
+    t = build_trainer(cfg, device="cpu", verbose=False,
+                      initial_state=args.get("tiny_initial_state", args.get("initial_state")))
+    history = t.train()
+    # the clip's global squared norm of the last step's gradients, against
+    # the gathered whole gradient's
+    grads = [p.grad for p in t.optimizer.params]
+    norm_sq = float(t.optimizer.sync.norm_sq(grads)) if t.optimizer.sync else None
+    whole = t.placement.state_gather(dict(zip(t._param_names, grads))) if t.mesh else {}
+    return {"history": history, "state": _state(t), "path": t.train_path,
+            "norm_sq": norm_sq,
+            "norm_sq_whole": float(sum(torch.sum(g * g) for g in whole.values()))}
+
+
+def composed(args, out_dir):
+    """``composed_config(args["preset"])`` at the args' ``dp`` (the preset's
+    by default) on this job's mesh, trained: its path, history and final
+    parameters."""
+    from stmgcn_tpu_torch.experiment import build_trainer
+    from stmgcn_tpu_torch.parallel import composed_config
+
+    cfg = composed_config(args["preset"])
+    cfg.train.out_dir = out_dir
+    cfg.mesh.dp = args.get("dp", cfg.mesh.dp)
+    t = build_trainer(cfg, device="cpu", initial_state=args.get("initial_state"),
+                      verbose=False)
+    history = t.train()
+    return {"history": history, "state": _state(t), "path": t.train_path}
+
+
+def mesh_info(args, out_dir):
+    """The mesh of ``args["mesh"]`` (dp, branch) on this job: shape, this
+    rank's coordinates and its axis lines."""
+    from stmgcn_tpu_torch.config import MeshConfig
+    from stmgcn_tpu_torch.parallel import mesh_from_config
+
+    mesh = mesh_from_config(MeshConfig(*args["mesh"]), device="cpu")
+    return {"shape": mesh.shape, "coords": mesh.coords, "lines": mesh.lines,
+            "rank": mesh.rank, "backend": mesh.backend}
+
+
+def _problem(args):
+    """A small model's seeded weights, supports and batch (numpy, from
+    ``args["seed"]``), as ``tests/test_parallel.py``'s ``setup_problem``."""
+    import numpy as np
+
+    rng = np.random.default_rng(args.get("seed", 0))
+    n, b, m, t = args.get("N", 9), args.get("B", 8), args.get("M", 3), 5
+    sup = (rng.standard_normal((m, 3, n, n)) * 0.2).astype(np.float32)
+    x = rng.standard_normal((b, t, n, 1)).astype(np.float32)
+    y = (rng.standard_normal((b, n, 1)) * 0.1).astype(np.float32)
+    return sup, x, y
+
+
+def _model(args, placement=None):
+    import torch
+
+    from stmgcn_tpu_torch.models import STMGCN
+
+    return STMGCN(m_graphs=args.get("M", 3), n_supports=3, seq_len=5, input_dim=1,
+                  lstm_hidden_dim=8, lstm_num_layers=2, gcn_hidden_dim=8, device="cpu",
+                  generator=torch.Generator().manual_seed(3), placement=placement)
+
+
+def forward(args, out_dir):
+    """This rank's slice of the model on its rows, the whole batch's output
+    gathered over ``dp``; and with ``args["grads"]`` a loss's gradients,
+    gathered mesh-free, under the real fusion and under a summing one."""
+    import torch
+
+    from stmgcn_tpu_torch.config import MeshConfig
+    from stmgcn_tpu_torch.parallel import MeshPlacement, mesh_from_config
+    from stmgcn_tpu_torch.parallel.collectives import BranchFusion
+    from stmgcn_tpu_torch.utils import comm
+
+    mesh = mesh_from_config(MeshConfig(*args["mesh"]), device="cpu")
+    pl = MeshPlacement(mesh)
+    sup, x, y = _problem(args)
+    model = _model(args, pl)
+    sup_l = torch.from_numpy(pl.put(sup, "supports"))
+    x_l, y_l = torch.from_numpy(pl.put(x, "x")), torch.from_numpy(pl.put(y, "y"))
+    out = {"pred": comm.all_gather(model(sup_l, x_l).detach(), "dp", mesh)}
+    if not args.get("grads"):
+        return out
+
+    def grads():
+        model.zero_grad()
+        mask = torch.ones(x.shape[0])
+        from stmgcn_tpu_torch.train.step import masked_loss
+
+        masked_loss("mse", model(sup_l, x_l), y_l, mask, rows=pl.rows(x.shape[0])).backward()
+        local = {k: p.grad.clone() for k, p in model.named_parameters()}
+        local = {k: comm.all_reduce(g, "dp", mesh) for k, g in local.items()}
+        return pl.state_gather(local)
+
+    out["grads"] = grads()
+    identity = BranchFusion.backward
+    try:  # the summing backward a distributed-autograd all-reduce would give
+        BranchFusion.backward = staticmethod(
+            lambda ctx, g: (comm.all_reduce(g, "branch", mesh), None))
+        out["grads_summing"] = grads()
+    finally:
+        BranchFusion.backward = identity
+    return out
+
+
+def step_report(args, out_dir):
+    """One training step of ``tiny_config`` at the args' mesh under
+    ``step_comm_report``, its manifest check, and the same step with an
+    undeclared all-gather over ``dp`` added."""
+    from stmgcn_tpu_torch.experiment import build_trainer
+    from stmgcn_tpu_torch.parallel import check_executed, manifest_for_config
+    from stmgcn_tpu_torch.utils import comm, step_comm_report
+
+    cfg = tiny_config(out_dir, args.get("dp", 1), args.get("branch", 1),
+                      **args.get("train", {}))
+    t = build_trainer(cfg, device="cpu", verbose=False)
+    batch = next(iter(t.batches("train")))
+    report = step_comm_report(t.train_batch, batch)
+    manifest = manifest_for_config(cfg)
+
+    def leaky(b):
+        loss = t.train_batch(b)
+        comm.all_gather(loss.reshape(1), "dp", t.mesh, what="leak")
+        return loss
+
+    leak = step_comm_report(leaky, batch)
+    return {"report": {k: v for k, v in report.items() if k != "result"},
+            "problems": check_executed(manifest, report),
+            "leak_problems": check_executed(manifest, leak),
+            "dp_only_problems": check_executed(
+                manifest_for_config(tiny_config(out_dir, 2, 1)), report),
+            "numel": sum(p.numel() for p in t.model.parameters()),
+            "rows": t._rows, "nodes": t.dataset.n_nodes,
+            "gcn": cfg.model.gcn_hidden_dim, "loss": float(report["result"])}
+
+
+def _digest(trainer) -> str:
+    import hashlib
+
+    h = hashlib.sha256()
+    for name, tensor in sorted(trainer.model.state_dict().items()):
+        h.update(name.encode())
+        h.update(tensor.detach().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def restore(args, out_dir):
+    """The lead trains ``tiny_config`` at dp=2 writing checkpoints into its
+    own directory; a fresh trainer on every rank, the others pointed at an
+    empty directory, resumes from the lead's file; then a corrupt lead
+    file: what each rank raised."""
+    import os
+
+    from stmgcn_tpu_torch.experiment import build_trainer
+
+    rank = int(os.environ["RANK"])
+    lead_dir = os.path.join(out_dir, "lead")
+    cfg = tiny_config(lead_dir, 2, 1)
+    t = build_trainer(cfg, device="cpu", verbose=False)
+    t.train()
+    trained = _digest(t)
+    mine = lead_dir if rank == 0 else os.path.join(out_dir, f"empty{rank}")
+    fresh = build_trainer(tiny_config(mine, 2, 1, epochs=2), device="cpu", verbose=False)
+    meta = fresh.restore_auto()
+    out = {"trained": trained, "restored": _digest(fresh), "epoch": meta["epoch"],
+           "global_step": fresh.global_step, "history": fresh.train()}
+    if rank == 0:
+        with open(os.path.join(lead_dir, "best.ckpt"), "r+b") as f:
+            f.seek(40)
+            f.write(b"\xff\xfe\xfd\xfc")
+    try:
+        fresh.restore(os.path.join(lead_dir, "best.ckpt"))
+        out["corrupt"] = None
+    except Exception as e:  # noqa: BLE001 — the test reads what each rank raised
+        out["corrupt"] = f"{type(e).__name__}: {e}"
+    return out
+
+
+#: the preemption drill: the rank that receives SIGTERM, and the global step
+#: after which it does
+PREEMPT_RANK, PREEMPT_STEP = 4, 3
+
+
+def _preempted(cfg, kill: bool) -> dict:
+    """Train ``cfg``; with ``kill`` this process sends itself SIGTERM at the
+    first safe point after global step ``PREEMPT_STEP``. Returns what
+    ``train`` raised, the trainer's cursor and the wall-clock times of the
+    signal and the raise."""
+    import signal
+
+    from stmgcn_tpu_torch.experiment import build_trainer
+    from stmgcn_tpu_torch.resilience import Preempted
+
+    t = build_trainer(cfg, device="cpu", verbose=False)
+    out = {"sent": None, "raised": None}
+    if kill:
+        after = t._after_train_batch
+
+        def signalled():
+            if out["sent"] is None and t.global_step >= PREEMPT_STEP:
+                out["sent"] = time.time()
+                os.kill(os.getpid(), signal.SIGTERM)
+            after()
+
+        t._after_train_batch = signalled
+    try:
+        t.train()
+    except Preempted as e:
+        out["raised"] = f"Preempted: {e}"
+    out["at"], out["global_step"], out["epoch"] = time.time(), t.global_step, t.epoch
+    return out
+
+
+def _read_back(path: str, out_dir: str) -> dict:
+    """``path`` restored into a fresh single-device trainer: its cursor and
+    whole parameters."""
+    from stmgcn_tpu_torch.experiment import build_trainer
+
+    fresh = build_trainer(tiny_config(out_dir, epochs=2, steps_per_superstep=1),
+                          device="cpu", verbose=False)
+    meta = fresh.restore(path)
+    return {"global_step": fresh.global_step, "epoch": meta["epoch"],
+            "mesh": meta.get("mesh"), "state": _state(fresh)}
+
+
+def preempt(args, out_dir):
+    """SIGTERM to rank ``PREEMPT_RANK`` (not the lead) of a dp=2 x branch=3
+    job of ``tiny_config`` (two epochs, one step a block) after global step
+    ``PREEMPT_STEP``: what each rank raised, where and when. The lead then
+    runs the single-device twin preempted the same way and reads both
+    emergency ``latest.ckpt`` files back on one device."""
+    rank = int(os.environ["RANK"])
+    cfg = tiny_config(os.path.join(out_dir, "mesh"), 2, 3, epochs=2, steps_per_superstep=1)
+    out = _preempted(cfg, kill=rank == PREEMPT_RANK)
+    if rank == 0:
+        twin_dir = os.path.join(out_dir, "twin")
+        out["twin"] = _preempted(tiny_config(twin_dir, epochs=2, steps_per_superstep=1),
+                                 kill=True)
+        out["mesh_ckpt"] = _read_back(os.path.join(out_dir, "mesh", "latest.ckpt"),
+                                      os.path.join(out_dir, "read-mesh"))
+        out["twin_ckpt"] = _read_back(os.path.join(twin_dir, "latest.ckpt"),
+                                      os.path.join(out_dir, "read-twin"))
+    return out
+
+
+def main(out: str, names: str) -> None:
+    import torch
+
+    torch.set_num_threads(1)
+    from stmgcn_tpu_torch.parallel import init_distributed
+
+    init_distributed(device="cpu", init_method="env://", timeout=TIMEOUT)
+    args = torch.load(os.path.join(out, "args.pt"), weights_only=False)
+    rank = int(os.environ["RANK"])
+    results = {}
+    for name in names.split(","):
+        results[name] = globals()[name](args, os.path.join(out, name))
+    torch.save(results, os.path.join(out, f"rank{rank}.pt"))
+    import torch.distributed as dist
+
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+if __name__ == "__main__":
+    main(sys.argv[1], sys.argv[2])

@@ -67,10 +67,13 @@ def test_exit_codes_follow_the_reference(tmp_path, capsys):
     assert "No resumable checkpoint found — starting fresh" in lines
     assert main(["--preset", "scaled", "--device", "cpu"]) == 1  # preset() refuses it
     assert "preset must be one of" in capsys.readouterr().err
-    for flag in (["--platform", "cpu"], ["--distributed"], ["--resume", "always"]):
+    for flag in (["--platform", "cpu"], ["--resume", "always"]):
         with pytest.raises(SystemExit) as info:
             main(["--preset", "smoke"] + flag)
         assert info.value.code == 2
+    # --distributed joins a job from the launcher's environment; none here
+    assert main(["--preset", "smoke", "--distributed"] + SMALL) == 1
+    assert "init_distributed needs world_size and rank" in capsys.readouterr().err
     assert main(["--preset", "smoke", "--print-config", "--top-k", "3"]) == 0
     assert json.loads(capsys.readouterr().out)["train"]["top_k"] == 3
 
@@ -88,6 +91,9 @@ def test_exit_codes_follow_the_reference(tmp_path, capsys):
      "--lstm-backend", "pallas", "--checkify", "nan"],
     ["--lstm-fused", "--lstm-unroll", "4", "--dtype", "bfloat16", "--checkify", "all",
      "--val-ratio", "0.25"],
+    ["--preset", "branchpar", "--branch-parallel", "1", "--region-strategy", "auto",
+     "--halo", "4"],
+    ["--preset", "multicity", "--region-strategy", "banded"],
 ])
 def test_shared_flags_reach_the_same_config(flags):
     port = config_from_args(build_parser().parse_args(flags))
@@ -99,7 +105,8 @@ def test_shared_flags_reach_the_same_config(flags):
 #: the JAX CLI's flags whose features the port has (their ``dest``)
 PORTED_FLAGS = ("data", "dates", "obs_len", "val_ratio", "m_graphs", "kernel", "cheb_k",
                 "lstm_backend", "lstm_fused", "lstm_unroll", "matmul_precision", "checks",
-                "debug_nans", "trace_out", "profile", "export")
+                "debug_nans", "trace_out", "profile", "export", "virtual_devices",
+                "distributed", "region_strategy", "halo")
 
 
 @pytest.mark.parametrize("dest", PORTED_FLAGS)
@@ -110,6 +117,25 @@ def test_ported_flag_has_the_jax_names_default_and_choices(dest):
     port, ref = action(build_parser()), action(jax_build_parser())
     fields = ("option_strings", "default", "choices", "nargs", "type", "const", "metavar")
     assert {f: getattr(port, f) for f in fields} == {f: getattr(ref, f) for f in fields}
+
+
+@pytest.mark.parametrize("name", ["scaled", "bandedbranch", "branchpar", "multicity"])
+def test_jax_mesh_section_round_trips_unchanged(name):
+    """``MeshConfig`` reads, checks and writes every JAX mesh field, so a
+    ``scaled`` config (``region_strategy="auto"``) or a ``bandedbranch`` one
+    (``halo=16``) read by the port and written back keeps them."""
+    from stmgcn_tpu.config import preset as jax_preset
+    from stmgcn_tpu_torch.config import MeshConfig
+
+    want = jax_preset(name).to_dict()
+    cfg = ExperimentConfig.from_dict(want)
+    assert json.loads(json.dumps(cfg.to_dict()["mesh"])) == json.loads(
+        json.dumps(want["mesh"]))
+    assert ExperimentConfig.from_dict(cfg.to_dict()) == cfg
+    for bad, match in (({"region_strategy": "ring"}, "gspmd|banded|auto"),
+                       ({"halo": -1}, "halo"), ({"dp": 0}, "mesh extents")):
+        with pytest.raises(ValueError, match=match):
+            MeshConfig(**bad)
 
 
 def test_export_writes_an_artifact_that_loads_and_matches(tmp_path, capsys):

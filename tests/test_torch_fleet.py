@@ -290,7 +290,7 @@ def test_fleet_paths_and_blockers(tmp_path):
 
 def test_build_trainer_engages_the_fleet_and_refuses_the_mesh(tmp_path):
     cfg = ExperimentConfig.from_dict(jax_preset("multicity").to_dict())
-    with pytest.raises(ValueError, match="one device"):
+    with pytest.raises(ValueError, match="needs 8 ranks, but this job has 1"):
         build_trainer(cfg, device="cpu", verbose=False)
     cfg.mesh.dp = 1
     cfg.data.n_cities, cfg.data.city_rows = 3, (3, 3, 2)
@@ -320,7 +320,7 @@ def test_cli_refuses_the_multicity_mesh_by_name(tmp_path, capsys):
     out = str(tmp_path)
     argv = ["--preset", "multicity", "--device", "cpu", "--epochs", "1", "--batch-size", "16",
             "--fleet", "--steps-per-superstep", "2", "--out-dir", out]
-    assert main(argv) == 1 and "one device" in capsys.readouterr().err
+    assert main(argv) == 1 and "needs 8 ranks, but this job has 1" in capsys.readouterr().err
     assert main(argv + ["--print-config"]) == 0
     assert not os.listdir(out)
 

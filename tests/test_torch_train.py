@@ -336,7 +336,7 @@ def test_jax_config_dict_reads_with_its_train_section():
 
 
 @pytest.mark.parametrize("edits,match", [
-    ({"mesh": {"dp": 2}}, "one device"),
+    ({"mesh": {"dp": 2}}, "needs 2 ranks, but this job has 1"),
     ({"mesh": {"dp": 2}, "model": {"tiled": True}}, "does not compose"),
     ({"model": {"tiled": True, "sparse": True}}, "mutually exclusive"),
 ], ids=["mesh-dp-2", "model-tiled-True", "model-sparse-True"])
