@@ -391,15 +391,16 @@ and 59 (xla) are the records' ``mesh_launches``:
     10x10, batch 64, eight ranks; the epochs cut to MESH_EPOCHS): per-step
     losses (rtol 1e-5) and final parameters (rtol 5e-4, atol 2e-5) against
     the twin; one B1 launch per forward of 3,456 or 2,400 rows and one B2
-    per step on every rank; one dp gradient all-reduce of 1,145,132 bytes a
-    step (286,283 fp32 parameters); one more step under
+    per step on every rank; one dp gradient all-reduce of 2,290,264 bytes a
+    step (286,283 fp32 parameters summed as float64, so the sum does not
+    depend on its order); one more step under
     ``step_comm_report`` keeps to ``manifest_for_config`` (``DP_GRAD_SYNC``
     seen, nothing undeclared); each rank's step p50 beside the twin's;
 58. ``branchpar`` at dp=2 x branch=3, fp32, full width (N = 100, batch 16,
     six ranks), the same checks: B1 at 800 rows a launch (one branch a
     rank), the fusion all-reduce 204,800 bytes a forward per rank, the dp
-    all-reduce 381,884 bytes a step (95,406 branch parameters and the
-    head's 65), ``BRANCH_FUSION`` and ``DP_GRAD_SYNC`` seen; ``test()`` on
+    all-reduce 763,768 bytes a step (95,406 branch parameters and the
+    head's 65, as float64), ``BRANCH_FUSION`` and ``DP_GRAD_SYNC`` seen; ``test()`` on
     every rank equal to the twin's;
 59. ``branchpar`` at ``model.dtype="bfloat16"`` (the xla form), one epoch:
     the first TWIN_STEPS per-step losses within TWIN_ATOL of the bf16
@@ -416,12 +417,40 @@ and 59 (xla) are the records' ``mesh_launches``:
     ``python -m stmgcn_tpu_torch.cli --preset branchpar --distributed`` in
     six processes launched as ``torchrun`` would prints one JSON line.
 
+The region phases, run last: ``scaled`` (BASELINE config 3: a 50x50 grid,
+N = 2,500 padded to 2,504 = 8 x 313, K=3, M=3, a 3-layer 64-wide LSTM,
+batch 16, ``region=8``, ``region_strategy="auto"``) at full width through
+``build_trainer`` -> ``train`` in eight rank processes sharing the card
+over gloo, one epoch (22 steps; the one cut: the preset's 100 epochs),
+each against the unpadded single-device twin of the same seed (graphed):
+
+61. at ``model.dtype="bfloat16"`` (the preset's; the xla LSTM form): the
+    routes (grid branch banded at its halo of 150, the other two dense),
+    one xla B1 per forward of 15,024 rows (M=3 x B 16 x N_local 313) and
+    one xla B2 per step on every rank; one more step under
+    ``step_comm_report`` moves exactly the analytic bytes (``region_bytes``:
+    the signal's node-row all-gathers and halo permutes, their cotangents,
+    the pooled gate sums, the float64 gradient bucket and the loss) and
+    keeps to ``manifest_for_config(banded=True)``; the losses and the final
+    state by phase 59's whole-run rule (BF16_GAP_FACTOR against the bf16
+    twin's own gap to the fp32 twin of one epoch);
+62. the same at float32: B1/B2 counted alike, the bytes, and every step's
+    loss (rtol 1e-5) and the final parameters elementwise (rtol 5e-4, atol
+    2e-5) against the fp32 twin;
+63. the files: the lead's ``best.ckpt`` of 62 (the JAX loop layout)
+    served by ``Forecaster.from_checkpoint`` on one device equals what the
+    mesh evaluated from it (fp32 serving tolerance); then ``python -m
+    stmgcn_tpu_torch.cli --preset scaled --distributed --region-strategy
+    auto`` in eight processes (its series cut to REGION_CLI_TIMESTEPS)
+    prints one JSON line.
+
 Checkpoints go to a temporary directory that the run removes.
 
 The last three lines are the card, one JSON object describing each kernel
 form (B1's and B2's fp32 records carry phase 3b's shapes as
 ``route_shapes``, the B1 records their ``export_launches``; the bf16 forms' records carry ``"dtype": "bfloat16"``,
-the xla forms' ``"form": "xla"`` too; every record its ``mesh_launches``),
+the xla forms' ``"form": "xla"`` too; every record its ``mesh_launches``
+and ``region_launches``, summed over the ranks of 57-59 and of 61-62),
 and ``{"ok": true, "device":
 {...}}``. There is no CPU mode: without a CUDA
 device the script exits non-zero before printing any result.
@@ -6277,7 +6306,9 @@ def mesh_train(cfg, device, *, test: bool = False) -> dict:
         batch = next(iter(trainer.batches("train")))
         report = step_comm_report(trainer.train_batch, batch)
         out["step_comm"] = {k: v for k, v in report.items() if k != "result"}
-        out["manifest"] = check_executed(manifest_for_config(cfg), report)
+        banded = "banded" in trainer.model.support_modes
+        out["manifest"] = check_executed(manifest_for_config(cfg, banded=banded), report)
+        out["numel"] = sum(p.numel() for p in trainer.model.parameters())
     out["trainer"] = trainer
     if device.type == "cuda":
         torch.cuda.synchronize()
@@ -6591,13 +6622,13 @@ def mesh_phases(device, card: str) -> dict:
     for r, got in enumerate(ranks):
         what = f"phase 57 (multicity dp=8) rank {r}"
         text = check_mesh_run(got, twin, what)
-        check_comm(got, what, grads=4 * MESH_PARAMS, steps=got["steps"])
+        check_comm(got, what, grads=8 * MESH_PARAMS, steps=got["steps"])
         check_mesh_launches(got, what, rows)
         if got["mesh"]["backend"] != "gloo" or got["path"] != "per_step" or got["graphs"]:
             fail(f"{what}: ran {got['path']} over {got['mesh']['backend']}, graphs "
                  f"{got['graphs']}; expected per_step (streamed), gloo, eager")
         print(f"{what}: {text}; dp all-reduce {got['comm']['what']['all-reduce/dp/grads']}"
-              f" ({4 * MESH_PARAMS} bytes a step); B1 {got['counts']['B1']} launches of "
+              f" ({8 * MESH_PARAMS} bytes a step); B1 {got['counts']['B1']} launches of "
               f"{got['rows']} rows, B2 {got['counts']['B2']}; manifest clean; step p50 "
               f"{got['p50_ms']:.2f} ms ({card})")
     print(f"phase 57 twin (one device, graphed, {twin['path']}): step p50 "
@@ -6619,7 +6650,7 @@ def mesh_phases(device, card: str) -> dict:
     for r, res in enumerate(results):
         got, what = res["58"], f"phase 58 (branchpar dp=2 x branch=3) rank {r}"
         text = check_mesh_run(got, twin, what)
-        check_comm(got, what, grads=4 * (BRANCH_PARAMS + HEAD_PARAMS), fusion=fusion,
+        check_comm(got, what, grads=8 * (BRANCH_PARAMS + HEAD_PARAMS), fusion=fusion,
                    steps=got["steps"])
         check_mesh_launches(got, what, rows)
         for key in ("mse", "mae"):
@@ -6629,7 +6660,7 @@ def mesh_phases(device, card: str) -> dict:
         print(f"{what} at {got['mesh']['coords']}: {text}; fusion all-reduce "
               f"{got['comm']['what']['all-reduce/branch/fusion']} ({fusion} bytes a forward), "
               f"dp all-reduce {got['comm']['what']['all-reduce/dp/grads']} "
-              f"({4 * (BRANCH_PARAMS + HEAD_PARAMS)} bytes a step); B1 "
+              f"({8 * (BRANCH_PARAMS + HEAD_PARAMS)} bytes a step); B1 "
               f"{got['counts']['B1']} launches of {got['rows']} rows, B2 {got['counts']['B2']};"
               f" test() mse {got['test']['mse']:.6g} (twin {twin['test']['mse']:.6g}); step "
               f"p50 {got['p50_ms']:.2f} ms ({card})")
@@ -6714,6 +6745,233 @@ def mesh_cli() -> None:
     print(f"phase 60: the CLI on 6 ranks (--distributed, {transport[0] if transport else '?'}) "
           f"printed one JSON line in {time.perf_counter() - t0:.1f} s: "
           f"test mse {json.loads(lines[0])['results']['test']['mse']:.6g}")
+
+
+# -- the region phases (61-63) -------------------------------------------------------
+
+#: the region phases: the epochs of each run (the one cut: the preset's 100;
+#: one epoch is 22 steps at batch 16) and the CLI run's series length
+REGION_EPOCHS, REGION_CLI_TIMESTEPS = 1, 24 * 7 + 120
+#: scaled at full width, as routed: each branch's mode, the grid branch's
+#: halo, the node padding, and B1's rows a launch per rank (M=3 x B 16 x
+#: N_local 313)
+REGION_MODES, REGION_HALO, REGION_PAD, REGION_ROWS = (
+    ("banded", "dense", "dense"), 150, 4, {3 * 16 * 313})
+
+
+def region_bytes(cfg, numel: int, halo: int, n_nodes: int, modes) -> dict:
+    """The collectives one training step of a region mesh moves, per rank
+    (``comm``'s ``what`` table: calls and output bytes), from the config,
+    the parameter count, the banded branches' halo, the padded node count
+    and the routes. Forward, each graph conv (the gate's over the T-step
+    history, the branch's over the LSTM's H states) moves its signal in
+    the compute dtype: a dense branch all-gathers the whole node axis, a
+    banded one permutes ``halo`` rows each way; the gate pools once (``(M,
+    B, T)``, float64 at fp32, float32 under bf16). Backward only the branch
+    convs' signals carry
+    gradients (the gate's is data): a banded branch permutes the halos'
+    cotangents back (compute dtype), a dense one all-reduces its float32
+    whole-axis cotangent; the pooling's cotangent; then the float64
+    gradient bucket and the 4-byte loss."""
+    b, t = cfg.train.batch_size // cfg.mesh.dp, cfg.data.seq_len
+    h, m = cfg.model.lstm_hidden_dim, cfg.model.m_graphs
+    isz = 2 if cfg.model.dtype == "bfloat16" else 4
+    pool = 4 if cfg.model.dtype == "bfloat16" else 8
+    dense, banded = modes.count("dense"), modes.count("banded")
+    want = {
+        "all-reduce/region/node-pool": {"calls": 1, "bytes": pool * m * b * t},
+        "all-reduce/region/node-pool-grad": {"calls": 1, "bytes": pool * m * b * t},
+        "all-reduce/region/grads": {"calls": 1, "bytes": 8 * numel},
+        "all-reduce/region/loss": {"calls": 1, "bytes": 4},
+    }
+    if dense:
+        want["all-gather/region/node-rows"] = {"calls": 2 * dense,
+                                               "bytes": dense * isz * b * n_nodes * (t + h)}
+        want["all-reduce/region/node-rows-grad"] = {"calls": dense,
+                                                    "bytes": dense * 4 * b * n_nodes * h}
+    if banded:
+        want["collective-permute/region/halo"] = {"calls": 4 * banded,
+                                                  "bytes": banded * 2 * isz * halo * b * (t + h)}
+        want["collective-permute/region/halo-grad"] = {"calls": 2 * banded,
+                                                       "bytes": banded * 2 * isz * halo * b * h}
+    return want
+
+
+def scaled_config(out: str, dtype: str, epochs: int = REGION_EPOCHS):
+    """The ``scaled`` preset at ``dtype``, its epochs cut to ``epochs``."""
+    return mesh_config("scaled", out, dtype=dtype, epochs=epochs)
+
+
+def route_info(trainer) -> dict:
+    """A region trainer's routing: each branch's mode, the banded strips'
+    halos, the node padding and the padded node count."""
+    sup = trainer.supports if isinstance(trainer.supports, tuple) else ()
+    pad = trainer._node_pads[0]
+    return {"modes": trainer.model.support_modes,
+            "halos": [s.halo for s in sup if hasattr(s, "halo")], "node_pad": pad,
+            "n_nodes": trainer.dataset.n_nodes + pad}
+
+
+def mesh_job_scaled(args, out: str, device) -> dict:
+    """Phases 61 (bf16), 62 (fp32) and 63's mesh side (the lead's
+    ``best.ckpt`` of 62 evaluated on the mesh) in one rank of the 8-rank
+    job; ``args["region"]`` another extent (``scripts/mesh_nccl.py``)."""
+    import torch
+
+    from stmgcn_tpu_torch.models import from_jax_params
+    from stmgcn_tpu_torch.train.checkpoint import load_checkpoint
+
+    res = {}
+    for phase, dtype in (("61", "bfloat16"), ("62", "float32")):
+        if phase not in args.get("phases", ("61", "62")):
+            continue
+        cfg = scaled_config(os.path.join(args["root"], dtype), dtype)
+        cfg.mesh.region = args.get("region", cfg.mesh.region)
+        got = mesh_train(cfg, device)
+        trainer = got.pop("trainer")
+        got["route"] = route_info(trainer)
+        res[phase] = got
+        if phase == "62" and args.get("files", True):
+            _, _, params, _ = trainer._lead_read(lambda: (
+                trainer.best_path, *load_checkpoint(trainer.best_path, load_opt_state=False)))
+            best = {k: v.to(device) for k, v in from_jax_params(params, 3).items()}
+            pred = trainer._predict_mode("test", best)[0][0][:MESH_SERVE_ROWS]
+            res["63"] = {"evaluated": trainer.dataset.denormalize(pred),
+                         "best": trainer.best_path}
+        del trainer
+        torch.cuda.empty_cache()
+    return res
+
+
+MESH_JOBS["scaled"] = mesh_job_scaled
+
+
+def check_routes(got: dict, what: str, rows: set, halo: int | None = None,
+                 pad: int | None = None) -> None:
+    """A region rank's routing and B1's rows a launch: the preset's
+    (REGION_HALO, REGION_PAD unless given)."""
+    halo = REGION_HALO if halo is None else halo
+    pad = REGION_PAD if pad is None else pad
+    route = got["route"]
+    if (route["modes"], route["halos"], route["node_pad"]) != (REGION_MODES, [halo], pad):
+        fail(f"{what}: routed {route['modes']} at halos {route['halos']} with {route['node_pad']}"
+             f" padded rows; expected {REGION_MODES} at [{halo}] with {pad}")
+    if set(got["rows"]) != rows:
+        fail(f"{what}: B1 took {got['rows']} rows a launch, expected {sorted(rows)}")
+
+
+def check_region_comm(got: dict, cfg, what: str) -> dict:
+    """A region rank's one-step collectives equal :func:`region_bytes`;
+    one gradient all-reduce over ``region`` a step over the run; the
+    manifest clean. Returns the step's table."""
+    route = got["route"]
+    want = region_bytes(cfg, got["numel"], route["halos"][0], route["n_nodes"], route["modes"])
+    step = got["step_comm"]["what"]
+    if step != want:
+        fail(f"{what}: one step moved {step}, the analytic counts are {want}")
+    g = got["comm"]["what"].get("all-reduce/region/grads", {"calls": 0, "bytes": 0})
+    if g["calls"] != got["steps"] or g["bytes"] != got["steps"] * 8 * got["numel"]:
+        fail(f"{what}: the gradient all-reduce ran {g['calls']} times, {g['bytes']} bytes over "
+             f"{got['steps']} steps; expected one of {8 * got['numel']} bytes a step")
+    if got["manifest"]:
+        fail(f"{what}: the step broke its collective manifest: {got['manifest']}")
+    return step
+
+
+def region_phases(device, card: str) -> dict:
+    """Phases 61-63; returns the LSTM launches summed over the ranks:
+    ``{"fp32": {"B1", "B2"}, "xla": {"B1 xla", "B2 xla"}}``."""
+    t0 = time.perf_counter()
+    twin16 = mesh_twin("scaled", device, dtype="bfloat16", epochs=REGION_EPOCHS)
+    twin16.pop("trainer")
+    twin32 = mesh_twin("scaled", device, epochs=REGION_EPOCHS)  # 62's twin, 61's yardstick
+    twin_trainer = twin32.pop("trainer")
+    release()
+    print(f"region twins (one device, graphed, N = 2,500 unpadded, dense): step p50 bf16 "
+          f"{twin16['p50_ms']:.2f} ms, fp32 {twin32['p50_ms']:.2f} ms ({card}); "
+          f"{time.perf_counter() - t0:.1f} s")
+    results = run_ranks("scaled", 8, root=scratch("region-files"))
+    cfgs = {"61": scaled_config("", "bfloat16"), "62": scaled_config("", "float32")}
+    for r, res in enumerate(results):
+        got, what = res["61"], f"phase 61 (scaled region=8, bf16) rank {r}"
+        check_routes(got, what, REGION_ROWS)
+        check_mesh_launches(got, what, REGION_ROWS, xla=True)
+        step = check_region_comm(got, cfgs["61"], what)
+        text = check_bf16_run(got, twin16, twin32, what)
+        if r == 0:
+            print(f"phase 61: routes {got['route']['modes']}, halo {got['route']['halos'][0]} "
+                  f"rows, {got['route']['node_pad']} padded node rows ({got['route']['n_nodes']}"
+                  f" = 8 x {got['route']['n_nodes'] // 8}); B1 rows a launch per rank "
+                  f"{got['rows']} (M=3 x B 16 x N_local 313 = 3 x 5,008); one step moved "
+                  f"{step} (the analytic counts)")
+        print(f"{what} at {got['mesh']['coords']}: {text}; B1 xla {got['counts']['B1 xla']}, "
+              f"B2 xla {got['counts']['B2 xla']} for {got['forwards']} forwards and "
+              f"{got['steps']} steps; manifest clean; step p50 {got['p50_ms']:.2f} ms (twin "
+              f"{twin16['p50_ms']:.2f} ms; {card})")
+        got, what = res["62"], f"phase 62 (scaled region=8, fp32) rank {r}"
+        check_routes(got, what, REGION_ROWS)
+        check_mesh_launches(got, what, REGION_ROWS)
+        check_region_comm(got, cfgs["62"], what)
+        text = check_mesh_run(got, twin32, what)
+        print(f"{what}: {text}; B1 {got['counts']['B1']}, B2 {got['counts']['B2']}; bytes and "
+              f"manifest as analytic; step p50 {got['p50_ms']:.2f} ms (twin "
+              f"{twin32['p50_ms']:.2f} ms; {card})")
+    launches = {"fp32": {k: sum(r["62"]["counts"][k] for r in results) for k in ("B1", "B2")},
+                "xla": {k: sum(r["61"]["counts"][k] for r in results)
+                        for k in ("B1 xla", "B2 xla")}}
+    region_files(device, results, twin_trainer)
+    del twin_trainer
+    release()
+    region_cli()
+    print(f"region phases done in {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
+def region_files(device, results, twin_trainer) -> None:
+    """Phase 63: the lead's ``best.ckpt`` of phase 62, in the JAX loop
+    layout, served by ``Forecaster.from_checkpoint`` on one device (dense
+    supports at the true N) equals what the mesh evaluated from it."""
+    from stmgcn_tpu_torch import Forecaster
+    from stmgcn_tpu_torch.train.checkpoint import load_checkpoint
+
+    path = results[0]["63"]["best"]
+    params = load_checkpoint(path, load_opt_state=False)[1]["params"]
+    layout = sorted(k for k in params if k.startswith("branch"))
+    if layout != ["branch_0", "branch_1", "branch_2"]:
+        fail(f"phase 63: the lead's best.ckpt holds {layout}, not the loop layout")
+    fc = Forecaster.from_checkpoint(path, device=device)
+    ds = twin_trainer.dataset
+    windows = ds.denormalize(ds.arrays("test")[0])[:MESH_SERVE_ROWS]
+    served = fc.predict(twin_trainer.supports.cpu().numpy(), windows)
+    evaluated = results[0]["63"]["evaluated"]
+    err = float(np.max(np.abs(served - evaluated)))
+    if served.shape != evaluated.shape or not np.allclose(served, evaluated, rtol=SERVE_RTOL,
+                                                          atol=SERVE_ATOL):
+        fail(f"phase 63: Forecaster.from_checkpoint of the mesh's best.ckpt vs the mesh's "
+             f"evaluation of it: shapes {served.shape} / {evaluated.shape}, max |err| {err:.3e}")
+    print(f"phase 63: the lead's best.ckpt ({layout}) served on one device at N = "
+          f"{served.shape[1]} equals the region mesh's evaluation of it, {MESH_SERVE_ROWS} test "
+          f"windows, max |err| {err:.3e} (rtol {SERVE_RTOL}, atol {SERVE_ATOL}, raw units)")
+
+
+def region_cli() -> None:
+    """Phase 63, end: ``python -m stmgcn_tpu_torch.cli --preset scaled
+    --distributed --region-strategy auto`` in eight processes launched as
+    torchrun would (one card, so gloo): one JSON line, from the lead."""
+    out = scratch("region-cli")
+    os.makedirs(out, exist_ok=True)
+    t0 = time.perf_counter()
+    logs = launch_ranks([sys.executable, "-m", "stmgcn_tpu_torch.cli", "--preset", "scaled",
+                         "--distributed", "--region-strategy", "auto", "--epochs", "1",
+                         "--timesteps", str(REGION_CLI_TIMESTEPS),
+                         "--out-dir", os.path.join(out, "run")], 8, out, MESH_TIMEOUT)
+    lines = [line for log in logs for line in log.splitlines() if line.startswith('{"preset"')]
+    if len(lines) != 1 or json.loads(lines[0])["preset"] != "scaled":
+        fail(f"phase 63: the CLI job printed {len(lines)} JSON lines, expected one")
+    print(f"phase 63: the CLI on 8 ranks (--distributed --region-strategy auto, series cut to "
+          f"{REGION_CLI_TIMESTEPS} steps) printed one JSON line in "
+          f"{time.perf_counter() - t0:.1f} s: test mse "
+          f"{json.loads(lines[0])['results']['test']['mse']:.6g}")
 
 
 def main() -> int:
@@ -6904,6 +7162,11 @@ def run_phases() -> int:
     # the mesh's files and CLI (phases 57-60)
     mesh = mesh_phases(device, card)
     print(f"mesh phases done at {time.perf_counter() - t_start:.1f} s")
+    # this slice's main path: scaled on its region=8 mesh, bf16 then fp32,
+    # in rank processes sharing the card over gloo, and its files and CLI
+    # (phases 61-63)
+    region = region_phases(device, card)
+    print(f"region phases done at {time.perf_counter() - t_start:.1f} s")
     # the placement paths' launches: the dense city's fp32 runs and the metro
     # plan's (B3's gate-conv launches are the shared signal's); the xla form's
     # from the dense city's bf16 runs, and the bf16 fleet's
@@ -6938,6 +7201,13 @@ def run_phases() -> int:
                                                                 mesh["fp32"]["B2"])
     xla_records[0]["mesh_launches"], xla_records[1]["mesh_launches"] = (
         mesh["xla"]["B1 xla"], mesh["xla"]["B2 xla"])
+    # the region phases' launches, summed over the ranks: fp32 (62), xla (61)
+    for rec in records + bf16_records + xla_records:
+        rec["region_launches"] = 0
+    records[0]["region_launches"], records[1]["region_launches"] = (region["fp32"]["B1"],
+                                                                    region["fp32"]["B2"])
+    xla_records[0]["region_launches"], xla_records[1]["region_launches"] = (
+        region["xla"]["B1 xla"], region["xla"]["B2 xla"])
     print(f"all phases done at {time.perf_counter() - t_start:.1f} s")
 
     print(card)

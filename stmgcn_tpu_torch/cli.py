@@ -40,20 +40,25 @@ error finding. ``--data-placement``, ``--window-free`` and
 (``train/trainer.py``). A preset it lacks fails with ``preset()``'s error.
 
 **Meshes** (``stmgcn_tpu_torch/parallel``): a preset with a mesh
-(``multicity``: dp=8; ``branchpar``: dp=2 x branch=3) trains on that many
+(``multicity``: dp=8; ``branchpar``: dp=2 x branch=3; ``scaled``:
+region=8, its node rows split over eight ranks) trains on that many
 ranks. ``--virtual-devices N`` launches N local CPU ranks over gloo (it
 implies ``--device cpu``: the JAX CLI's N emulated CPU devices), each this
 command with ``--distributed``; ``--distributed`` joins a ``torchrun``-style
 job (``RANK``, ``WORLD_SIZE``, ``MASTER_ADDR``, ``MASTER_PORT``), one rank
 per process, NCCL when each local rank has a card of its own and gloo
 otherwise (printed). ``--branch-parallel B`` sets ``mesh.branch``;
-``--region-strategy`` and ``--halo`` are read into the config, and a
-region axis is refused by name. The lead rank prints the one JSON line
+``--region-strategy`` picks a region mesh's plan per branch (``gspmd``:
+every branch on the dense node-row plan; ``banded``: every branch on the
+halo plan, or an error; ``auto``: the banded ones) and ``--halo`` the halo
+budget. The lead rank prints the one JSON line
 and exports; the export's status reaches every rank, so a failed export
 fails each one::
 
     python -m stmgcn_tpu_torch.cli --preset branchpar --virtual-devices 6 --epochs 1
     torchrun --nproc-per-node 8 -m stmgcn_tpu_torch.cli --preset multicity --distributed
+    torchrun --nproc-per-node 8 -m stmgcn_tpu_torch.cli --preset scaled --distributed \
+        --region-strategy auto
 """
 
 from __future__ import annotations
@@ -195,11 +200,12 @@ def build_parser() -> argparse.ArgumentParser:
                    help="shard the M graph branches over a 'branch' mesh axis of "
                         "extent B (B must divide m_graphs)")
     p.add_argument("--region-strategy", choices=("gspmd", "banded", "auto"), default=None,
-                   help="region-sharded conv plan (read into the config; the region "
-                        "axis is not ported yet)")
+                   help="region-sharded conv plan per branch: gspmd (all-gather the "
+                        "signal's node rows), banded (halo exchange, every branch) or "
+                        "auto (halo exchange for the banded branches)")
     p.add_argument("--halo", type=int, default=None,
-                   help="halo budget for the banded region strategy (read into the "
-                        "config; the region axis is not ported yet)")
+                   help="halo budget (rows) for the banded region strategy; default "
+                        "half a rank's node rows")
     p.add_argument("--matmul-precision", choices=("default", "high", "highest"),
                    default=None,
                    help="torch.set_float32_matmul_precision for the float32 cuBLAS "
@@ -438,9 +444,12 @@ def main(argv=None) -> int:
 
             status = (b"1" if ok else b"0") if lead else None
             ok = comm.broadcast_bytes(status, trainer.mesh, what="export-status") == b"1"
-        if not ok:
-            return 1
-    return 0
+    if args.distributed:  # every rank leaves the job together, its transport torn down
+        import torch.distributed as dist
+
+        dist.barrier()
+        dist.destroy_process_group()
+    return 0 if not args.export or ok else 1
 
 
 def launch_ranks(argv, n: int, mesh_devices: int) -> int:

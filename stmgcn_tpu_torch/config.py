@@ -267,11 +267,12 @@ class MeshConfig:
     and checks): ``dp`` data parallelism (the batch split over ranks, one
     gradient all-reduce a step), ``branch`` graph-branch parallelism (the M
     stacked branches split over ranks, the fusion sum one all-reduce), and
-    ``region`` graph-node parallelism with its ``region_strategy`` and
-    ``halo`` budget. ``build_trainer`` trains a mesh of ``dp x branch``
-    ranks on ``torch.distributed`` (:mod:`stmgcn_tpu_torch.parallel`); a
-    ``region`` extent above 1 is read, checked and written back, and
-    refused by name when training."""
+    ``region`` graph-node parallelism (node rows split over ranks) with its
+    ``region_strategy`` and ``halo`` budget. ``build_trainer`` trains a
+    mesh of ``dp x region`` or ``dp x branch`` ranks on
+    ``torch.distributed`` (:mod:`stmgcn_tpu_torch.parallel`); ``region``
+    with ``branch`` (the JAX ``bandedbranch`` composition) is read, checked
+    and written back, and refused by name when training."""
 
     dp: int = 1
     region: int = 1
@@ -997,6 +998,24 @@ def _longhorizon() -> ExperimentConfig:
     )
 
 
+def _scaled() -> ExperimentConfig:
+    """BASELINE config 3 (``stmgcn_tpu/config.py:1101-1117``): a 50x50 grid,
+    K=3, bf16, its node axis sharded over a region axis of eight ranks.
+    N = 2,500 does not divide 8: the node axis carries 4 zero-padded rows
+    (2,504 = 8 x 313; isolated nodes, out of the gate, the loss and the
+    metrics). ``region_strategy="auto"`` puts the banded grid branch on the
+    halo plan (Chebyshev K=3 bandwidth 150 <= the shard's 313 // 2 = 156)
+    and the transport and similarity branches on the dense node-row
+    plan."""
+    return ExperimentConfig(
+        name="scaled",
+        data=DataConfig(rows=50, n_timesteps=24 * 7 * 4),
+        model=ModelConfig(K=3, dtype="bfloat16"),
+        train=TrainConfig(batch_size=16),
+        mesh=MeshConfig(region=8, region_strategy="auto"),
+    )
+
+
 def _branchpar() -> ExperimentConfig:
     """Branch model parallelism (``stmgcn_tpu/config.py:1153-1167``): the
     flagship's M=3 stacked branches, their parameters and supports split
@@ -1010,11 +1029,20 @@ def _branchpar() -> ExperimentConfig:
     )
 
 
-PRESETS = {"smoke": _smoke, "default": _default, "multicity": _multicity,
+PRESETS = {"smoke": _smoke, "default": _default, "scaled": _scaled, "multicity": _multicity,
            "longhorizon": _longhorizon, "branchpar": _branchpar}
+
+#: the JAX presets still to port, each with its refusal
+PRESETS_NOT_PORTED = {
+    "bandedbranch": "preset 'bandedbranch' (dp=2 x region=2 x branch=2): the region x branch "
+                    "composition of branch-stacked banded strips is not ported yet (ROADMAP "
+                    "A11b-2)",
+}
 
 
 def preset(name: str) -> ExperimentConfig:
+    if name in PRESETS_NOT_PORTED:
+        raise ValueError(PRESETS_NOT_PORTED[name])
     if name not in PRESETS:
         raise ValueError(f"preset must be one of {sorted(PRESETS)}, got {name!r}")
     return PRESETS[name]()

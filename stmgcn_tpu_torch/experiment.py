@@ -8,16 +8,20 @@ ones (``HeteroCityDataset``: per-city shapes, normalizers and splits; one
 support stack per city in a ``CitySupports``), which the trainer can group
 into fleet shape classes (``train.fleet``), over resident or streamed data
 (``train.data_placement``, ``window_free``, ``prefetch``), on one device or
-on a ``dp x branch`` mesh of ranks (``build_trainer`` in every rank of a
-``torch.distributed`` job, :mod:`stmgcn_tpu_torch.parallel`). The region
-axis (node padding, banded and sharded-sparse supports) is not ported: a
-config asking for it raises by name.
+on a ``dp x region`` or ``dp x branch`` mesh of ranks (``build_trainer`` in
+every rank of a ``torch.distributed`` job, :mod:`stmgcn_tpu_torch.parallel`).
+On a region mesh that does not divide ``N`` the node axis is zero-padded
+(:func:`node_pad_target`), and an active ``mesh.region_strategy`` routes
+each branch's supports to the halo plan or the dense node-row plan
+(:func:`route_supports`). Block-CSR supports on a mesh and the region x
+branch composition raise by name (``REGION_PARTS_NOT_PORTED``).
 """
 
 from __future__ import annotations
 
 from typing import Optional
 
+import numpy as np
 import torch
 
 from stmgcn_tpu_torch.config import ExperimentConfig, check_lstm
@@ -31,11 +35,13 @@ from stmgcn_tpu_torch.models.st_mgcn import STMGCN
 from stmgcn_tpu_torch.ops.layers import resolve_device
 from stmgcn_tpu_torch.ops.spmm import stack_from_dense
 from stmgcn_tpu_torch.ops.tiling import plan_tiling
+from stmgcn_tpu_torch.parallel.banded import banded_decompose, bandwidth
 from stmgcn_tpu_torch.parallel.mesh import mesh_from_config
-from stmgcn_tpu_torch.parallel.placement import REGION_NOT_PORTED, MeshPlacement
+from stmgcn_tpu_torch.parallel.placement import REGION_PARTS_NOT_PORTED, MeshPlacement
 from stmgcn_tpu_torch.train.trainer import CitySupports, Trainer
 
-__all__ = ["build_dataset", "build_model", "build_supports", "build_trainer", "run"]
+__all__ = ["build_dataset", "build_model", "build_supports", "build_trainer", "node_pad_target",
+           "route_supports", "run"]
 
 
 def _split_for(d, window: WindowSpec, n_timesteps: int):
@@ -131,6 +137,43 @@ def _check_support_route(cfg: ExperimentConfig) -> None:
         )
 
 
+def node_pad_target(cfg: ExperimentConfig, n_nodes: int):
+    """The padded node count of a region mesh that does not divide
+    ``n_nodes`` (None when no padding is needed;
+    ``stmgcn_tpu/experiment.py:114-128``).
+
+    Supports are built at the true ``N`` and then zero-padded: padding the
+    adjacency instead would change the Laplacian's spectrum (the ``2L/λmax
+    - I`` rescale) and the model at real nodes. Padded rows are isolated:
+    zero support rows and columns, zero inputs, left out of the gate's
+    pooling (``STMGCN(n_real_nodes=)``) and out of the loss and the metrics
+    by the ``(B, N)`` mask."""
+    region = cfg.mesh.region
+    if cfg.mesh.n_devices > 1 and region > 1 and n_nodes % region:
+        return -(-n_nodes // region) * region
+    return None
+
+
+def _pad_support_nodes(dense, n_pad: int):
+    """Zero-pad the trailing two (node) axes of a dense support stack."""
+    dense = np.asarray(dense)
+    extra = n_pad - dense.shape[-1]
+    if extra <= 0:
+        return dense
+    widths = [(0, 0)] * (dense.ndim - 2) + [(0, extra), (0, extra)]
+    return np.pad(dense, widths)
+
+
+def _dense_supports(cfg: ExperimentConfig, adjs):
+    """One city's dense support stack at its true ``N`` (from the
+    adjacencies themselves), node-padded iff the mesh needs it: the one
+    padding site every support representation derives from."""
+    n_nodes = next(iter(adjs.values())).shape[0]
+    dense = cfg.model.support_config.build_all(adjs.values())
+    n_pad = node_pad_target(cfg, n_nodes)
+    return _pad_support_nodes(dense, n_pad) if n_pad is not None else dense
+
+
 def build_supports(cfg: ExperimentConfig, dataset):
     """Supports from the dataset's graphs, built on the host.
 
@@ -140,13 +183,14 @@ def build_supports(cfg: ExperimentConfig, dataset):
     :class:`~stmgcn_tpu_torch.ops.tiling.TiledSupports` plan at
     ``model.tile_size``, refused when more than ``model.tile_waste_budget``
     of its stored blocks would be all-zero padding. When the cities carry
-    differing graphs, a :class:`CitySupports` of one such form per city.
+    differing graphs, a :class:`CitySupports` of one such form per city. On
+    a region mesh that does not divide ``N`` the node axes carry zero
+    padding (:func:`node_pad_target`).
     """
     _check_support_route(cfg)
 
     def one(adjs):
-        # N from the city's own adjacencies (heterogeneous cities differ)
-        dense = cfg.model.support_config.build_all(adjs.values())
+        dense = _dense_supports(cfg, adjs)
         if cfg.model.tiled:
             plan = plan_tiling(dense, tile=cfg.model.tile_size)
             stats = plan.tile_stats()
@@ -170,19 +214,97 @@ def build_supports(cfg: ExperimentConfig, dataset):
     return one(dataset.adjs)
 
 
+def _strategy_active(cfg: ExperimentConfig) -> bool:
+    """Whether the mesh's region strategy replaces the dense node-row plan
+    (``stmgcn_tpu/experiment.py:206-216``)."""
+    s = cfg.mesh.region_strategy
+    if s not in ("gspmd", "banded", "auto"):
+        raise ValueError(f"mesh.region_strategy must be gspmd|banded|auto, got {s!r}")
+    return s != "gspmd" and cfg.mesh.region > 1 and not cfg.model.sparse
+
+
+def route_supports(cfg: ExperimentConfig, dataset, supports=None):
+    """Route each branch's supports per the mesh's region strategy
+    (``stmgcn_tpu/experiment.py:219-341``, its dense and banded branches).
+    Returns ``(supports, modes)``: ``modes`` None when the dense node-row
+    plan handles every branch (``region_strategy="gspmd"``, or no region
+    axis), else one mode per branch: a branch whose supports are banded
+    enough (the largest bandwidth of its K supports within the halo budget,
+    ``mesh.halo`` or ``n_local // 2``, at most ``n_local``) goes to the halo
+    plan as :class:`~stmgcn_tpu_torch.parallel.banded.BandedSupports`
+    strips at its own bandwidth, the rest stay dense;
+    ``region_strategy="banded"`` demands every branch qualify. With a
+    banded branch the supports are an M-tuple of per-branch forms; when
+    every branch stays dense, the dense stack itself. Block-CSR supports
+    on a mesh and the branch-stacked strips of a region x branch mesh raise
+    by name (``REGION_PARTS_NOT_PORTED``)."""
+    active = _strategy_active(cfg)
+    if cfg.model.tiled:
+        supports = build_supports(cfg, dataset) if supports is None else supports
+        return supports, ("tiled",) * cfg.model.m_graphs
+    if not dataset.shared_graphs and (
+            (cfg.model.sparse and cfg.mesh.n_devices > 1) or active):
+        raise ValueError(
+            "per-city graphs currently compose with dense GSPMD or single-device sparse "
+            "supports only — set data.shared_graphs=True, region_strategy='gspmd', or dense "
+            "mode for multi-city mesh configs")
+    if cfg.model.sparse and cfg.mesh.n_devices > 1:
+        raise ValueError("model.sparse on a mesh: " + REGION_PARTS_NOT_PORTED)
+    supports = build_supports(cfg, dataset) if supports is None else supports
+    if not active:
+        return supports, None
+    if cfg.mesh.branch > 1:
+        raise ValueError(f"region_strategy={cfg.mesh.region_strategy!r} with mesh.branch="
+                         f"{cfg.mesh.branch}: " + REGION_PARTS_NOT_PORTED)
+    region = cfg.mesh.region
+    n = supports.shape[-1]  # node-padded when the mesh required it
+    if n % region:
+        raise ValueError(f"n_nodes {n} not divisible by region={region}")
+    n_local = n // region
+    budget = min(cfg.mesh.halo if cfg.mesh.halo is not None else n_local // 2, n_local)
+    routed, modes = [], []
+    for m in range(supports.shape[0]):
+        bw = max(bandwidth(supports[m, k]) for k in range(supports.shape[1]))
+        if bw <= budget:
+            routed.append(banded_decompose(np.asarray(supports[m]), region, halo=bw))
+            modes.append("banded")
+        elif cfg.mesh.region_strategy == "banded":
+            raise ValueError(
+                f"region_strategy='banded' but branch {m}'s supports have bandwidth {bw} > "
+                f"halo budget {budget} (shard size {n_local}) — use 'auto' to keep "
+                "non-banded branches on GSPMD, raise mesh.halo, or reorder nodes to reduce "
+                "bandwidth")
+        else:
+            routed.append(supports[m])
+            modes.append("dense")
+    if "banded" not in modes:
+        return supports, tuple(modes)
+    return tuple(routed), tuple(modes)
+
+
 def build_model(cfg: ExperimentConfig, input_dim: int, *, device=None,
-                generator: Optional[torch.Generator] = None, placement=None) -> STMGCN:
+                generator: Optional[torch.Generator] = None, placement=None,
+                support_modes=None, n_real_nodes: Optional[int] = None) -> STMGCN:
     """The flagship from config plus the one data-derived scalar (feature
     count), in the config's support mode (``model.sparse`` /
-    ``model.tiled``; the parameters are the same in every mode), compute
-    dtype (``model.dtype``) and bf16 LSTM form (``model.lstm_backend``,
+    ``model.tiled``, or ``support_modes`` from :func:`route_supports`; the
+    parameters are the same in every mode), compute dtype
+    (``model.dtype``) and bf16 LSTM form (``model.lstm_backend``,
     ``model.lstm_fused_scan``). ``device=None`` means the GPU. ``placement``
     (this rank's ``MeshPlacement``) rides on the model for the trainer; with
     ``branch > 1`` the model keeps the rank's branch slice and fuses over
-    the mesh."""
+    the mesh, with ``region > 1`` its convs and gate take the rank's node
+    rows. ``n_real_nodes``: the real node count of a node-padded model.
+    Under an active region strategy checkpoints use the JAX loop layout,
+    whatever each branch routed to: the layout is a function of the config
+    alone (``stmgcn_tpu/experiment.py`` ``build_model``)."""
     m = cfg.model
     _check_support_route(cfg)
     check_lstm(m.lstm_backend, m.lstm_fused_scan, m.lstm_unroll)
+    if m.tiled and support_modes is None:
+        support_modes = ("tiled",) * m.m_graphs
+    if support_modes is not None and set(support_modes) == {"dense"}:
+        support_modes = None  # every branch dense: the one batched dense form
     return STMGCN(
         m_graphs=m.m_graphs,
         n_supports=m.n_supports,
@@ -194,33 +316,35 @@ def build_model(cfg: ExperimentConfig, input_dim: int, *, device=None,
         gcn_hidden_dim=m.gcn_hidden_dim,
         use_bias=m.use_bias,
         shared_gate_fc=m.shared_gate_fc,
-        sparse=m.sparse,
-        support_modes=("tiled",) * m.m_graphs if m.tiled else None,
+        n_real_nodes=n_real_nodes,
+        sparse=m.sparse and support_modes is None,
+        support_modes=support_modes,
         lstm_backend=m.lstm_backend,
         lstm_fused_scan=m.lstm_fused_scan,
         dtype=m.compute_dtype,
         device=device,
         generator=generator,
         placement=placement,
+        loop_layout=_strategy_active(cfg) and cfg.mesh.branch == 1,
     )
 
 
 def _check_mesh_route(cfg: ExperimentConfig) -> None:
-    """What a mesh refuses before any rank is needed: the region axis, and
-    the JAX package's refusals (``stmgcn_tpu/experiment.py:466-475``)."""
+    """What a mesh refuses before any rank is needed: the JAX package's
+    refusals (``stmgcn_tpu/experiment.py:466-475``), and the parts of the
+    region axis still to port."""
     if cfg.mesh.n_devices <= 1:
         return
-    if cfg.mesh.region > 1:
-        raise ValueError(f"mesh.region={cfg.mesh.region} (region_strategy="
-                         f"{cfg.mesh.region_strategy!r}, halo={cfg.mesh.halo}): "
-                         + REGION_NOT_PORTED)
+    if cfg.mesh.region > 1 and cfg.mesh.branch > 1:
+        raise ValueError(f"mesh region={cfg.mesh.region} x branch={cfg.mesh.branch} (the "
+                         "bandedbranch composition): " + REGION_PARTS_NOT_PORTED)
     if cfg.model.lstm_backend == "pallas" and cfg.mesh.branch > 1:
         raise ValueError(
             "lstm_backend='pallas' does not compose with mesh.branch > 1 "
             "— use the xla backend for branch-parallel meshes")
     if cfg.model.sparse:
-        raise ValueError("model.sparse on a mesh (sharded block-CSR strips) is not ported "
-                         "yet (ROADMAP A11b); use dense supports on a mesh")
+        raise ValueError("model.sparse on a mesh: " + REGION_PARTS_NOT_PORTED
+                         + "; use dense supports on a mesh")
 
 
 def build_trainer(cfg: ExperimentConfig, *, device=None, initial_state: Optional[dict] = None,
@@ -244,14 +368,16 @@ def build_trainer(cfg: ExperimentConfig, *, device=None, initial_state: Optional
     CLI's ``--debug-nans``).
 
     **A mesh** (``cfg.mesh`` of more than one device): every rank of a
-    joined ``torch.distributed`` job of ``dp x branch`` ranks calls this
-    with the same config; it builds the rank's mesh and placement
-    (``mesh_from_config``: raises unless the job has exactly that many
-    ranks), checks divisibility as the JAX ``build_trainer`` does, and
-    builds the rank's slice of the model from the same seed. ``region >
-    1``, block-CSR supports, and ``lstm_backend="pallas"`` with ``branch >
-    1`` raise by name; so do the trainer's options that do not compose with
-    a mesh yet. ``initial_state`` is the whole, mesh-free ``state_dict``."""
+    joined ``torch.distributed`` job of ``dp x region`` or ``dp x branch``
+    ranks calls this with the same config; it builds the rank's mesh and
+    placement (``mesh_from_config``: raises unless the job has exactly that
+    many ranks), node-pads and routes the supports (:func:`route_supports`),
+    checks divisibility as the JAX ``build_trainer`` does, and builds the
+    rank's slice of the model from the same seed. Block-CSR supports on a
+    mesh, region x branch meshes, and ``lstm_backend="pallas"`` with
+    ``branch > 1`` raise by name; so do the trainer's options that do not
+    compose with a mesh yet. ``initial_state`` is the whole, mesh-free
+    ``state_dict``."""
     _check_health(cfg)
     _check_support_route(cfg)
     _check_mesh_route(cfg)
@@ -260,17 +386,23 @@ def build_trainer(cfg: ExperimentConfig, *, device=None, initial_state: Optional
     placement = MeshPlacement(mesh) if mesh is not None else None
     dataset = build_dataset(cfg)
     hetero = getattr(dataset, "heterogeneous", False)
+    # each city's node axis rounded up to the region extent (the JAX
+    # build_trainer's per-city pads)
+    true_nodes = dataset.city_n_nodes if hetero else [dataset.n_nodes]
+    pads = [(node_pad_target(cfg, n) or n) - n for n in true_nodes]
     if placement is not None:
-        for n_nodes in (dataset.city_n_nodes if hetero else [dataset.n_nodes]):
-            placement.check_divisibility(cfg.train.batch_size, n_nodes,
+        for n_nodes, pad in zip(true_nodes, pads):
+            placement.check_divisibility(cfg.train.batch_size, n_nodes + pad,
                                          m_graphs=cfg.model.m_graphs)
-    supports = build_supports(cfg, dataset)
+    supports, support_modes = route_supports(cfg, dataset)
     model = build_model(cfg, dataset.n_feats, device=device,
                         generator=torch.Generator().manual_seed(cfg.train.seed),
-                        placement=placement)
+                        placement=placement, support_modes=support_modes,
+                        n_real_nodes=dataset.n_nodes if not hetero and pads[0] else None)
     t = cfg.train
     return Trainer(
-        model, dataset, supports, lr=t.lr, weight_decay=t.weight_decay,
+        model, dataset, supports, node_pad=tuple(pads) if hetero else pads[0],
+        lr=t.lr, weight_decay=t.weight_decay,
         lr_schedule=t.lr_schedule, warmup_epochs=t.warmup_epochs,
         min_lr_fraction=t.min_lr_fraction, grad_clip_norm=t.grad_clip_norm, loss=t.loss,
         n_epochs=t.epochs, batch_size=t.batch_size, patience=t.patience, shuffle=t.shuffle,

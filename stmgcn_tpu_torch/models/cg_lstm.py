@@ -18,9 +18,18 @@ cg_lstm.py:83-97``): an int tensor, one count for the batch (training) or
 a ``(B,)`` count per row (fleet serving), so one model serves every member
 city of the class; an exact fit (``n_real == N``) takes the plain mean, so
 exact-fit cities equal the unpadded model.
-``support_mode`` (``"dense" | "sparse" | "tiled"``) picks the gate's graph
-conv (:func:`~stmgcn_tpu_torch.ops.chebconv.make_conv`); its parameters are
+``support_mode`` (``"dense" | "sparse" | "tiled" | "banded"``, or a
+per-branch tuple of ``"dense"``/``"banded"``) picks the gate's graph conv
+(:func:`~stmgcn_tpu_torch.ops.chebconv.make_conv`); its parameters are
 the same in every mode.
+
+At float32 compute eq. 7's node sum runs in float64, so it rounds to one
+float32 whatever order its addends come in. On a region mesh
+(``region_mesh``, set by the model) the gate holds its rank's node rows:
+eq. 7's node sum is the rank's partial summed over ``region``
+(:func:`~stmgcn_tpu_torch.parallel.region.region_sum`) and divided by
+the global real-node count, the padded rows (global index at or past
+``n_real_nodes``, or ``n_real``) left out of the partial.
 
 Under a bf16 compute dtype the gate's feature sum and node mean run in
 float32 (the JAX gate's f32 reduction islands), its conv and Dense layers
@@ -40,6 +49,7 @@ from torch import nn
 from stmgcn_tpu_torch.ops.chebconv import make_conv
 from stmgcn_tpu_torch.ops.layers import Dense
 from stmgcn_tpu_torch.ops.lstm import StackedLSTM
+from stmgcn_tpu_torch.parallel.region import node_offset, region_sum
 
 __all__ = ["CGLSTM", "ContextualGate"]
 
@@ -55,6 +65,8 @@ class ContextualGate(nn.Module):
         super().__init__()
         self.n_real_nodes = n_real_nodes
         self.compute_dtype: Optional[torch.dtype] = None
+        #: the region mesh the node rows are sharded over (None: all here)
+        self.region_mesh = None
         kw = dict(branches=branches, device=device, generator=generator)
         self.temporal_gconv = make_conv(support_mode, n_supports, seq_len, seq_len,
                                         use_bias=use_bias, **kw)
@@ -68,7 +80,9 @@ class ContextualGate(nn.Module):
         x_nt = x_nt.transpose(-1, -2)  # (B, N, T): history as features
         x_hat = x_nt + self.temporal_gconv(supports, x_nt)  # eq. 6 residual
         n_nodes = x_hat.shape[-2]
-        if n_real is not None:
+        if self.region_mesh is not None:
+            z = self._region_pool(x_hat, n_real)
+        elif n_real is not None:
             # eq. 7 over each city's real nodes: where() keeps padded rows
             # out of the sum and out of its gradient; the unchosen arm's
             # gradient is zero
@@ -76,18 +90,50 @@ class ContextualGate(nn.Module):
             keep = torch.arange(n_nodes, device=x_hat.device) < nr
             real = torch.where(keep[..., None], x_hat, torch.zeros((), dtype=x_hat.dtype,
                                                                    device=x_hat.device))
-            masked = real.sum(dim=-2, dtype=torch.float32) / nr.float()
-            z = torch.where(nr == n_nodes, x_hat.mean(dim=-2, **f32), masked)
+            acc = self._pool_dtype()
+            masked = real.sum(dim=-2, dtype=acc) / nr.to(acc)
+            z = torch.where(nr == n_nodes, x_hat.mean(dim=-2, dtype=acc), masked)
         elif self.n_real_nodes is not None and self.n_real_nodes != n_nodes:
             # eq. 7 over real nodes only
             mask = (torch.arange(n_nodes, device=x_hat.device) < self.n_real_nodes)
-            z = (x_hat * mask[:, None].to(x_hat.dtype)).sum(dim=-2, **f32) / self.n_real_nodes
+            z = (x_hat * mask[:, None].to(x_hat.dtype)).sum(
+                dim=-2, dtype=self._pool_dtype()) / self.n_real_nodes
         else:
-            z = x_hat.mean(dim=-2, **f32)  # eq. 7: average pool over nodes -> (B, T)
+            # eq. 7: average pool over nodes -> (B, T); at float32 summed in
+            # float64 (:meth:`_pool_dtype`), so a node-sharded mesh's pooled sum rounds
+            # to the same float32 as this one
+            z = x_hat.mean(dim=-2, dtype=self._pool_dtype())
         z = z.to(x_hat.dtype)
         second = self.gate_fc if self.gate_fc2 is None else self.gate_fc2
         s = torch.sigmoid(second(torch.relu(self.gate_fc(z))))  # eq. 8
         return obs_seq * s[..., None, None]  # eq. 9
+
+    def _pool_dtype(self) -> torch.dtype:
+        """The node pooling's accumulator: float64 at float32 compute (an
+        order-free sum: every float32 addend exact in float64, so the
+        pooled mean rounds the same whatever the nodes' split over ranks),
+        float32 under a bf16 compute dtype (the JAX gate's f32 island)."""
+        return torch.float64 if self.compute_dtype is None else torch.float32
+
+    def _region_pool(self, x_hat: torch.Tensor, n_real: Optional[torch.Tensor]) -> torch.Tensor:
+        """Eq. 7 over a region mesh: this rank's node sum over its real
+        rows (in :meth:`_pool_dtype`), summed over ``region``, over the
+        global real count."""
+        mesh, n_local = self.region_mesh, x_hat.shape[-2]
+        n_global = n_local * mesh.region
+        real = self.n_real_nodes if self.n_real_nodes is not None else n_global
+        if n_real is not None:
+            real = n_real[..., None]  # (1,) or (B, 1): broadcasts over (M, B, T)
+        acc = self._pool_dtype()
+        if isinstance(real, int) and real == n_global:
+            partial = x_hat.sum(dim=-2, dtype=acc)
+        else:
+            node = node_offset(mesh, n_local) + torch.arange(n_local, device=x_hat.device)
+            keep = node < real
+            partial = torch.where(keep[..., None], x_hat, torch.zeros(
+                (), dtype=x_hat.dtype, device=x_hat.device)).sum(dim=-2, dtype=acc)
+        total = region_sum(partial, mesh)
+        return total / (real.to(acc) if isinstance(real, torch.Tensor) else float(real))
 
 
 class CGLSTM(nn.Module):

@@ -164,13 +164,14 @@ def health_groups(names, m_graphs: int, *, layout: str = "vmapped") -> tuple:
     return tuple((g, tuple(groups[g])) for g in sorted(groups))
 
 
-def jax_layout(support_mode: str) -> str:
+def jax_layout(support_mode: str, loop: bool = False) -> str:
     """The branch layout the JAX package gives a model of this support
-    mode on one device: looped (``branch_m``) for sparse and tiled
-    supports, vmapped for dense ones (``stmgcn_tpu/experiment.py``
+    mode: looped (``branch_m``) for sparse, tiled, banded and mixed
+    supports, and for any model under an active region strategy
+    (``loop``), vmapped for dense ones otherwise (``stmgcn_tpu/experiment.py``
     ``build_model``), so a checkpoint's tree matches the JAX model the
     same config builds."""
-    return "vmapped" if support_mode == "dense" else "looped"
+    return "vmapped" if support_mode == "dense" and not loop else "looped"
 
 
 #: the parts ``make_optimizer`` may chain, in chain order

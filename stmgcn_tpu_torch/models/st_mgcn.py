@@ -18,12 +18,24 @@ changes it on a built model.
 
 The support representation is one mode for the whole model (``"dense"``,
 ``"sparse"`` or ``"tiled"``, from ``sparse=`` or a uniform
-``support_modes=``); the parameters are the same in every mode, so weights
-trained on one representation serve on another unchanged. The JAX package
-runs non-dense branches as a Python loop (its Pallas SpMM has no batching
-rule) and stores them as ``branch_0 .. branch_{M-1}``;
+``support_modes=``), or per branch: ``support_modes`` of ``"banded"`` and
+``"dense"`` (the region mesh's halo plan beside dense branches, JAX's
+``("banded", "dense", "dense")``), whose graph convs run branch by branch
+(:class:`~stmgcn_tpu_torch.ops.chebconv.MixedChebGraphConv`) while the
+gate's Dense layers and the LSTM stay one batched computation, so the M
+branches still share one LSTM launch. The parameters are the same in every
+mode and layout, so weights trained on one representation serve on another
+unchanged. The JAX package runs non-dense branches as a Python loop and
+stores them as ``branch_0 .. branch_{M-1}``;
 :func:`~stmgcn_tpu_torch.models.params.from_jax_params` reads that layout
-into this one. Mixed per-branch modes and the banded mode are not ported.
+into this one, and ``loop_layout`` (a model trained under an active region
+strategy) makes checkpoints write it.
+
+**On a region mesh** (``placement`` with ``region > 1``) every node-indexed
+array holds the rank's ``N / region`` rows: the graph convs and the gate
+pooling take the mesh (``region_mesh``), the LSTM and the head run on the
+rank's rows alone. ``n_real_nodes`` is the real node count of a
+node-padded model (the gate pools over it).
 
 **On a mesh** (``placement``, a
 :class:`~stmgcn_tpu_torch.parallel.placement.MeshPlacement`, the one the
@@ -46,11 +58,13 @@ import torch
 from torch import nn
 
 from stmgcn_tpu_torch.models.cg_lstm import CGLSTM
-from stmgcn_tpu_torch.ops.chebconv import conv_cls, make_conv
+from stmgcn_tpu_torch.ops.chebconv import LOOP_MODES, conv_cls, make_conv
 from stmgcn_tpu_torch.ops.layers import Dense, resolve_device, set_compute_dtype
 from stmgcn_tpu_torch.ops.spmm import BlockSparseStack
 from stmgcn_tpu_torch.ops.tiling import TiledSupports
+from stmgcn_tpu_torch.parallel.banded import BandedSupports
 from stmgcn_tpu_torch.parallel.collectives import branch_fusion
+from stmgcn_tpu_torch.parallel.placement import REGION_PARTS_NOT_PORTED
 
 __all__ = ["Branch", "STMGCN"]
 
@@ -95,7 +109,8 @@ class STMGCN(nn.Module):
                  sparse: bool = False, support_modes: Optional[Sequence[str]] = None,
                  lstm_backend: str = "xla", lstm_fused_scan: bool = False,
                  dtype: Optional[torch.dtype] = None,
-                 device=None, generator: Optional[torch.Generator] = None, placement=None):
+                 device=None, generator: Optional[torch.Generator] = None, placement=None,
+                 loop_layout: bool = False):
         super().__init__()
         device = resolve_device(device)
         if generator is None:
@@ -105,11 +120,19 @@ class STMGCN(nn.Module):
         self.seq_len = seq_len
         self.input_dim = input_dim
         self.horizon = horizon
-        self.support_mode = self._mode(m_graphs, sparse, support_modes)
+        #: each branch's support mode; ``support_mode`` is their one mode,
+        #: or "mixed"
+        self.support_modes = self._modes(m_graphs, sparse, support_modes)
+        modes = set(self.support_modes)
+        self.support_mode = self.support_modes[0] if len(modes) == 1 else "mixed"
+        #: checkpoints write the JAX loop layout (``branch_m``)
+        self.loop_layout = bool(loop_layout) or self.support_mode != "dense"
+        per_branch = "banded" in modes
         self.branches = Branch(
             n_supports, seq_len, input_dim, lstm_hidden_dim, lstm_num_layers,
             gcn_hidden_dim, use_bias=use_bias, shared_gate_fc=shared_gate_fc,
-            n_real_nodes=n_real_nodes, support_mode=self.support_mode,
+            n_real_nodes=n_real_nodes,
+            support_mode=self.support_modes if per_branch else self.support_mode,
             lstm_backend=lstm_backend, lstm_fused_scan=lstm_fused_scan, branches=m_graphs,
             device=device, generator=generator,
         )
@@ -124,6 +147,15 @@ class STMGCN(nn.Module):
         self.m_local = m_graphs
         if self.mesh is not None:
             self._keep_branches()
+        #: the region mesh the node rows shard over (None: all rows here)
+        self.region_mesh = mesh if mesh is not None and mesh.region > 1 else None
+        if self.region_mesh is not None:
+            if self.support_mode in ("sparse", "tiled"):
+                raise ValueError(f"a {self.support_mode} model on a region mesh: "
+                                 + REGION_PARTS_NOT_PORTED)
+            for module in self.modules():
+                if hasattr(module, "region_mesh"):
+                    module.region_mesh = self.region_mesh
         self.compute_dtype: Optional[torch.dtype] = None
         set_compute_dtype(self, dtype)
 
@@ -140,19 +172,21 @@ class STMGCN(nn.Module):
                 setattr(module, name, nn.Parameter(p.detach()[keep].clone()))
 
     @staticmethod
-    def _mode(m_graphs, sparse, support_modes) -> str:
-        """The one support mode of every branch."""
+    def _modes(m_graphs, sparse, support_modes) -> tuple:
+        """Each branch's support mode: one mode for all, or a mix of
+        :data:`~stmgcn_tpu_torch.ops.chebconv.LOOP_MODES`."""
         if support_modes is None:
-            return "sparse" if sparse else "dense"
+            return ("sparse" if sparse else "dense",) * m_graphs
         if sparse:
             raise ValueError("pass either sparse=True or support_modes, not both")
         modes = tuple(support_modes)
         if len(modes) != m_graphs:
             raise ValueError(f"support_modes needs {m_graphs} entries, got {len(modes)}")
-        if len(set(modes)) != 1:
-            raise ValueError(f"mixed per-branch support modes {modes} are not ported yet")
-        conv_cls(modes[0])  # rejects unknown and unported modes
-        return modes[0]
+        for mode in modes:
+            conv_cls(mode)  # rejects unknown modes
+        if len(set(modes)) > 1 and not set(modes) <= set(LOOP_MODES):
+            raise ValueError(f"mixed per-branch support modes {modes}: only {LOOP_MODES} mix")
+        return modes
 
     def check_supports(self, supports) -> None:
         """Raise unless ``supports`` is this model's form: a dense ``(M, K,
@@ -162,6 +196,9 @@ class STMGCN(nn.Module):
         branches x K supports, or M per-branch block-sparse groups (or one
         branch-stacked ``BlockSparseStack``)."""
         mode, want = self.support_mode, (self.m_local, self.n_supports)
+        if mode in ("banded", "mixed"):
+            self._check_per_branch(supports)
+            return
         if mode != "tiled" and isinstance(supports, TiledSupports):
             raise ValueError(
                 f"a {mode} model got a TiledSupports plan: build the model with "
@@ -182,6 +219,20 @@ class STMGCN(nn.Module):
         elif not isinstance(supports, BlockSparseStack) and len(supports) != self.m_local:
             raise ValueError(
                 f"need {self.m_local} per-branch support groups, got {len(supports)}")
+
+    def _check_per_branch(self, supports) -> None:
+        """A per-branch model's supports: M forms, each its branch's mode."""
+        if isinstance(supports, torch.Tensor) or not isinstance(supports, Sequence) or (
+                len(supports) != self.m_local):
+            got = len(supports) if isinstance(supports, Sequence) else type(supports).__name__
+            raise ValueError(f"need {self.m_local} per-branch support groups "
+                             f"{self.support_modes}, got {got}")
+        for m, (mode, sup) in enumerate(zip(self.support_modes, supports)):
+            ok = (isinstance(sup, BandedSupports) if mode == "banded" else
+                  isinstance(sup, torch.Tensor) and sup.dim() == 3)
+            if not ok:
+                raise ValueError(f"branch {m} ({mode}) got {type(sup).__name__}"
+                                 f"{tuple(sup.shape) if hasattr(sup, 'shape') else ''}")
 
     def forward(self, supports_stack, obs_seq: torch.Tensor,
                 n_real: Optional[torch.Tensor] = None) -> torch.Tensor:

@@ -6,21 +6,36 @@ the same parameters — one k-major ``(K*F_in, F_out)`` weight (matching
 so trained weights move between them unchanged, and share the projection
 tail ``act(stacked @ W + b)``. They differ in how the K propagations run:
 
-- :class:`ChebGraphConv`: one ``einsum('kij,bjf->bikf')`` over a dense
+- :class:`ChebGraphConv`: ``einsum('kij,bjf->bikf')`` over a dense
   ``([M,] K, N, N)`` stack, or ``einsum('bkij,bjf->bikf')`` over one
   stack per batch row ``([M,] B, K, N, N)`` (fleet serving, whose rows
   belong to different cities; the JAX package computes it outside Pallas
-  too);
+  too), one product per branch
+  (:func:`~stmgcn_tpu_torch.ops.layers.branchwise_einsum`);
 - :class:`SparseChebGraphConv`: block-CSR supports through the kernels of
   :mod:`~stmgcn_tpu_torch.ops.spmm` (B3/B4 for a
   :class:`~stmgcn_tpu_torch.ops.spmm.BlockSparseStack`, B5 per support
   for a K-tuple of :class:`~stmgcn_tpu_torch.ops.spmm.BlockSparse`);
 - :class:`TiledChebGraphConv`: a reordered and condensed plan
-  (:mod:`~stmgcn_tpu_torch.ops.tiling`), all branches in one B3 launch.
+  (:mod:`~stmgcn_tpu_torch.ops.tiling`), all branches in one B3 launch;
+- :class:`BandedChebGraphConv`: one rank's strip of region-sharded banded
+  supports (:class:`~stmgcn_tpu_torch.parallel.banded.BandedSupports`),
+  through the ring halo exchange
+  (:func:`~stmgcn_tpu_torch.parallel.banded.sharded_banded_apply`);
+- :class:`MixedChebGraphConv`: M branches each in its own mode
+  (``"banded"`` or ``"dense"``, the JAX loop layout's per-branch convs),
+  the K propagations branch by branch and one projection for all M.
 
 Neither block conv has a backend switch: CUDA tensors take the kernels,
-CPU tensors their plain versions. The banded (mesh) convolution is not
-ported.
+CPU tensors their plain versions.
+
+**On a region mesh** (``region_mesh``, set by the model: node rows split
+over ``region``) a dense conv holds its rows' strip of the supports, ``(...,
+K, N_local, N)``, and its node rows of the signal; the product goes through
+:func:`~stmgcn_tpu_torch.parallel.region.region_dense_apply` (the signal's
+node rows all-gathered forward, the input cotangent summed over ``region``
+backward), the GSPMD plan of the JAX package written out. The projection
+is node-wise and runs on the rank's rows alone.
 
 Under a bf16 compute dtype (``compute_dtype``, ``ops/layers.py``) each
 conv follows the JAX conv at ``dtype=bfloat16``
@@ -40,18 +55,23 @@ import torch
 from torch import nn
 
 from stmgcn_tpu_torch.ops.layers import (
-    accum_einsum,
     accum_matmul,
     branch_view,
+    branchwise_einsum,
     promote_dtype,
     new_param,
     xavier_normal,
 )
 from stmgcn_tpu_torch.ops.spmm import BlockSparseStack, spmm, spmm_stack
 from stmgcn_tpu_torch.ops.tiling import TiledBranchSupports, TiledSupports
+from stmgcn_tpu_torch.parallel.banded import BandedSupports, sharded_banded_apply
+from stmgcn_tpu_torch.parallel.region import region_dense_apply
 
 __all__ = [
+    "BandedChebGraphConv",
     "ChebGraphConv",
+    "LOOP_MODES",
+    "MixedChebGraphConv",
     "SparseChebGraphConv",
     "TiledChebGraphConv",
     "conv_cls",
@@ -107,6 +127,9 @@ class ChebGraphConv(nn.Module):
         self.activation = activation
         self.branches = branches
         self.compute_dtype: Optional[torch.dtype] = None
+        #: the region mesh this conv's node rows are sharded over (None: the
+        #: whole node axis on this rank)
+        self.region_mesh = None
         lead = () if branches is None else (branches,)
         fan_in = n_supports * in_features
         self.W = new_param(
@@ -129,13 +152,24 @@ class ChebGraphConv(nn.Module):
         """A product's float32 result in the compute dtype."""
         return propagated.to(self.compute_dtype or torch.float32)
 
-    def forward(self, supports: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    def _dense(self, supports: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+        """The K propagations over dense supports, ``([M,] B, N, K, F)`` in
+        the compute dtype; on a region mesh over the rank's row strip."""
         self._check_count(supports.shape[-3])
         supports, x = promote_dtype(self.compute_dtype, supports, x)
         per_row = supports.dim() == 4 + (self.branches is not None)
-        spec = "...bkij,...bjf->...bikf" if per_row else "...kij,...bjf->...bikf"
-        propagated = self._propagated(accum_einsum(spec, supports, x))
-        return self.project(propagated.flatten(-2))  # k-major (B, N, K*F_in)
+        spec = "bkij,bjf->bikf" if per_row else "kij,bjf->bikf"
+        mesh = self.region_mesh
+        if mesh is None:
+            return self._propagated(branchwise_einsum(spec, supports, x))
+        if per_row:
+            raise ValueError("per-row support stacks (fleet serving) do not shard "
+                             "over a region mesh")
+        return self._propagated(region_dense_apply(supports, x, mesh, spec))
+
+    def forward(self, supports: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+        # k-major (B, N, K*F_in)
+        return self.project(self._dense(supports, x).flatten(-2))
 
 
 class SparseChebGraphConv(ChebGraphConv):
@@ -222,16 +256,88 @@ class TiledChebGraphConv(ChebGraphConv):
         return out.index_select(-2, supports.inv)
 
 
+def _banded(conv: ChebGraphConv, supports, x: torch.Tensor) -> torch.Tensor:
+    """One branch's K propagations over a rank's banded strip, ``(B,
+    N_local, K, F)`` in the compute dtype."""
+    if not isinstance(supports, BandedSupports):
+        raise TypeError(f"banded mode consumes BandedSupports strips, got "
+                        f"{type(supports).__name__}")
+    conv._check_count(supports.n_supports)
+    if supports.n_shards != 1:
+        raise ValueError(f"BandedSupports of {supports.n_shards} shards: a rank applies its own "
+                         "strip (MeshPlacement.put(..., 'supports') or .shard(i))")
+    if x.shape[-2] != supports.n_local:
+        raise ValueError(f"x has {x.shape[-2]} nodes, strips expect {supports.n_local}")
+    (x,) = promote_dtype(conv.compute_dtype, x)
+    propagated = sharded_banded_apply(supports.strips[0], x, supports.halo, conv.region_mesh)
+    return conv._propagated(propagated.permute(1, 2, 0, 3))  # (K, B, N, F) -> (B, N, K, F)
+
+
+class BandedChebGraphConv(ChebGraphConv):
+    """Graph convolution over one rank's strip of region-sharded banded
+    supports (``stmgcn_tpu/ops/chebconv.py`` ``BandedChebGraphConv``).
+
+    Same parameters and math as :class:`ChebGraphConv` (trained weights are
+    interchangeable); the K propagations run through the halo plan: the
+    rank contracts its strip against its node rows and ``halo`` boundary
+    rows from each ring neighbour. Call with a one-shard
+    :class:`~stmgcn_tpu_torch.parallel.banded.BandedSupports` and the
+    rank's ``(B, N_local, F_in)`` signal; one branch (``branches=None``).
+    On one device (``region_mesh`` None) a one-shard strip is the whole
+    support, its halos zero.
+    """
+
+    def forward(self, supports, x: torch.Tensor) -> torch.Tensor:
+        if self.branches is not None:
+            raise ValueError("BandedChebGraphConv is one branch's conv; M branches take "
+                             "MixedChebGraphConv")
+        return self.project(_banded(self, supports, x).flatten(-2))
+
+
+#: the support modes a per-branch (loop layout) model mixes
+LOOP_MODES = ("dense", "banded")
+
+
+class MixedChebGraphConv(ChebGraphConv):
+    """M branches, each with its own support mode (``modes``: ``"banded"``
+    or ``"dense"`` per branch), the JAX model's loop layout
+    (``stmgcn_tpu/models/st_mgcn.py``, ``support_modes``). Same stacked
+    parameters as :class:`ChebGraphConv` with ``branches=M``. Call with an
+    M-sequence of per-branch supports (a one-shard ``BandedSupports`` or a
+    dense ``(K, N, N)`` stack, its row strip ``(K, N_local, N)`` on a region
+    mesh) and a signal ``(B, N, F)`` shared by every branch or ``(M, B, N,
+    F)``: the propagations run branch by branch, the projection once."""
+
+    def __init__(self, *args, modes=(), **kwargs):
+        super().__init__(*args, **kwargs)
+        self.modes = tuple(modes)
+        bad = sorted(set(self.modes) - set(LOOP_MODES))
+        if bad or len(self.modes) != self.branches:
+            raise ValueError(f"per-branch modes must be {self.branches} of {LOOP_MODES}, "
+                             f"got {self.modes}")
+
+    def forward(self, supports, x: torch.Tensor) -> torch.Tensor:
+        if not isinstance(supports, Sequence) or len(supports) != len(self.modes):
+            got = len(supports) if isinstance(supports, Sequence) else type(supports).__name__
+            raise ValueError(f"need {len(self.modes)} per-branch support groups, got {got}")
+        parts = []
+        for m, (mode, sup) in enumerate(zip(self.modes, supports)):
+            xm = x[m] if x.dim() == 4 else x
+            parts.append(_banded(self, sup, xm) if mode == "banded" else self._dense(sup, xm))
+        return self.project(torch.stack(parts).flatten(-2))
+
+
 def conv_cls(mode):
     """The graph-conv class for a support representation: ``"dense" |
-    "sparse" | "tiled"`` (bools accepted: ``True`` = sparse, ``False`` =
-    dense). The JAX package's ``"banded"`` (mesh) mode is not ported."""
+    "sparse" | "tiled" | "banded"`` (bools accepted: ``True`` = sparse,
+    ``False`` = dense), or a per-branch tuple of :data:`LOOP_MODES`
+    (:class:`MixedChebGraphConv`)."""
     if isinstance(mode, bool):
         mode = "sparse" if mode else "dense"
+    if isinstance(mode, tuple):
+        return MixedChebGraphConv
     classes = {"dense": ChebGraphConv, "sparse": SparseChebGraphConv,
-               "tiled": TiledChebGraphConv}
-    if mode == "banded":
-        raise ValueError("support mode 'banded' (the mesh halo plan) is not ported yet")
+               "tiled": TiledChebGraphConv, "banded": BandedChebGraphConv}
     if mode not in classes:
         raise ValueError(f"support mode must be one of {sorted(classes)}, got {mode!r}")
     return classes[mode]
@@ -239,5 +345,8 @@ def conv_cls(mode):
 
 def make_conv(mode, *args, **kwargs) -> ChebGraphConv:
     """Construct the graph conv for ``mode`` (arguments as
-    :class:`ChebGraphConv`'s)."""
+    :class:`ChebGraphConv`'s; a per-branch tuple builds a
+    :class:`MixedChebGraphConv` of those modes)."""
+    if isinstance(mode, tuple):
+        return MixedChebGraphConv(*args, modes=mode, **kwargs)
     return conv_cls(mode)(*args, **kwargs)

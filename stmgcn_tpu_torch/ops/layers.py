@@ -42,6 +42,7 @@ __all__ = [
     "accum_einsum",
     "accum_matmul",
     "branch_view",
+    "branchwise_einsum",
     "lecun_normal",
     "lstm_uniform",
     "new_param",
@@ -125,6 +126,23 @@ def accum_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 def accum_einsum(spec: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """:func:`accum_matmul` for an einsum contraction."""
     return torch.einsum(spec, a.float(), b.float())
+
+
+def branchwise_einsum(spec: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """:func:`accum_einsum` of a ``spec`` written for one branch, where an
+    operand with one more axis than its term carries a leading branch axis
+    ``M``: then one product per branch, stacked (an operand without the axis
+    is shared by every branch). One batched GEMM over stacked branches
+    rounds differently from the per-branch products, so every dense support
+    product (one device, per-row stacks, a region strip) takes this one form."""
+    terms = spec.split("->")[0].split(",")
+    lead_a, lead_b = a.dim() > len(terms[0]), b.dim() > len(terms[1])
+    if not (lead_a or lead_b):
+        return accum_einsum(spec, a, b)
+    m = a.shape[0] if lead_a else b.shape[0]
+    parts_a = a.unbind(0) if lead_a else (a,) * m
+    parts_b = b.unbind(0) if lead_b else (b,) * m
+    return torch.stack([accum_einsum(spec, pa, pb) for pa, pb in zip(parts_a, parts_b)])
 
 
 def branch_view(p: torch.Tensor, branches: Optional[int], n_mid: int) -> torch.Tensor:

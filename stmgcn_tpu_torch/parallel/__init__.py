@@ -1,10 +1,11 @@
 """Multi-device training on ``torch.distributed``: the mesh, placement,
 the collective manifests, autograd across ranks and the composed presets.
 
-Counterpart of ``stmgcn_tpu/parallel`` for the data (``dp``) and branch
-(``branch``) axes; the region axis (node-row sharding, the banded halo
-plan, sharded block-CSR strips) is not ported yet. Each rank is one
-process; every collective goes through :mod:`stmgcn_tpu_torch.utils.comm`.
+Counterpart of ``stmgcn_tpu/parallel`` for the data (``dp``), node
+(``region``) and branch (``branch``) axes; block-CSR strips on a region
+mesh (``parallel/sparse.py``) and the region x branch composition are not
+ported yet. Each rank is one process; every collective goes through
+:mod:`stmgcn_tpu_torch.utils.comm`.
 
 - :mod:`~stmgcn_tpu_torch.parallel.mesh`: ``init_distributed``,
   ``build_mesh``, ``mesh_from_config``, the transport rule;
@@ -13,9 +14,14 @@ process; every collective goes through :mod:`stmgcn_tpu_torch.utils.comm`.
 - :mod:`~stmgcn_tpu_torch.parallel.manifest`: declared collective
   manifests and the check of one executed step against them;
 - :mod:`~stmgcn_tpu_torch.parallel.collectives`: ``BranchFusion`` and the
-  step's gradient sync;
-- :mod:`~stmgcn_tpu_torch.parallel.compose`: the composed ``multicity``
-  and ``branchpar`` trainers and their single-device twins.
+  step's order-free gradient sync;
+- :mod:`~stmgcn_tpu_torch.parallel.region`: the dense node-row plan
+  (``region_dense_apply``) and the gate's pooled sum (``region_sum``);
+- :mod:`~stmgcn_tpu_torch.parallel.halo`,
+  :mod:`~stmgcn_tpu_torch.parallel.banded`: the ring halo exchange and the
+  banded strips' product;
+- :mod:`~stmgcn_tpu_torch.parallel.compose`: the composed ``multicity``,
+  ``scaled`` and ``branchpar`` trainers and their single-device twins.
 
 The names resolve lazily (``compose`` reaches the experiment stack).
 """
@@ -26,7 +32,17 @@ _LAZY = {
     "BRANCH_FUSION": "stmgcn_tpu_torch.parallel.placement",
     "DP_GRAD_SYNC": "stmgcn_tpu_torch.parallel.placement",
     "GSPMD_REGION": "stmgcn_tpu_torch.parallel.placement",
+    "HALO_EXCHANGE": "stmgcn_tpu_torch.parallel.placement",
     "MeshPlacement": "stmgcn_tpu_torch.parallel.placement",
+    "REGION_PARTS_NOT_PORTED": "stmgcn_tpu_torch.parallel.placement",
+    "BandedSupports": "stmgcn_tpu_torch.parallel.banded",
+    "banded_decompose": "stmgcn_tpu_torch.parallel.banded",
+    "bandwidth": "stmgcn_tpu_torch.parallel.banded",
+    "sharded_banded_apply": "stmgcn_tpu_torch.parallel.banded",
+    "strip_decompose": "stmgcn_tpu_torch.parallel.banded",
+    "halo_exchange": "stmgcn_tpu_torch.parallel.halo",
+    "region_dense_apply": "stmgcn_tpu_torch.parallel.region",
+    "region_sum": "stmgcn_tpu_torch.parallel.region",
     "CollectiveDecl": "stmgcn_tpu_torch.parallel.manifest",
     "CollectiveManifest": "stmgcn_tpu_torch.parallel.manifest",
     "check_executed": "stmgcn_tpu_torch.parallel.manifest",
@@ -38,6 +54,7 @@ _LAZY = {
     "transport": "stmgcn_tpu_torch.parallel.mesh",
     "BranchFusion": "stmgcn_tpu_torch.parallel.collectives",
     "GradSync": "stmgcn_tpu_torch.parallel.collectives",
+    "replica_sum": "stmgcn_tpu_torch.parallel.collectives",
     "COMPOSED_PRESETS": "stmgcn_tpu_torch.parallel.compose",
     "composed_config": "stmgcn_tpu_torch.parallel.compose",
     "composed_trainer": "stmgcn_tpu_torch.parallel.compose",

@@ -3,8 +3,9 @@ mesh training step.
 
 The JAX package gets both from GSPMD: the fusion sum over a
 branch-sharded axis lowers to a ``psum`` whose transpose XLA derives, and
-the gradients of replicated parameters are summed over ``dp``. Here they
-are written out, each one call of :mod:`stmgcn_tpu_torch.utils.comm`:
+the gradients of replicated parameters are summed over ``dp`` (and
+``region``). Here they are written out, each one call of
+:mod:`stmgcn_tpu_torch.utils.comm` per axis:
 
 - :class:`BranchFusion`: the forward all-reduces (float32) each rank's
   partial branch sum over ``branch``; **the backward is the identity**.
@@ -13,14 +14,27 @@ are written out, each one call of :mod:`stmgcn_tpu_torch.utils.comm`:
   backward (``torch.distributed.nn.functional.all_reduce``'s) would add
   ``branch`` equal copies of it and scale every branch gradient by
   ``branch``.
-- :class:`GradSync`: once a step, one flat float32 bucket of every
-  gradient, in the parameters' fixed order, all-reduced over ``dp``. Each
-  rank's loss is its rows' share of the *global* mean (its error sum over
-  the global count of real elements, ``train/step.py`` ``masked_loss``),
-  so the summed gradients are the single-device ones; nothing is divided
-  by ``dp``. :meth:`GradSync.norm_sq` is the clip's global squared norm:
-  the branch-sliced gradients' squares summed over ``branch`` (a 4-byte
-  all-reduce), the replicated head's counted once.
+- :class:`GradSync`: once a step, one flat bucket of every gradient, in
+  the parameters' fixed order, summed over the replicas: the ranks that
+  hold the same parameters, the ``dp x region`` group (one all-reduce over
+  ``dp``, one over ``region`` first on a region mesh). Each rank's loss is
+  its rows' share of the *global* mean (its error sum over the global
+  count of real elements, ``train/step.py`` ``masked_loss``), so the
+  summed gradients are the single-device ones; nothing is divided by the
+  group's size. :meth:`GradSync.norm_sq` is the clip's global squared
+  norm: the branch-sliced gradients' squares summed over ``branch`` (a
+  4-byte all-reduce), the replicated head's counted once.
+
+**The sum does not depend on its order.** Each rank casts its float32
+bucket to float64, the all-reduce sums float64, and the result is cast
+back to float32. A float64 holds 53 bits: the sum of a handful of float32
+addends (24 bits each) whose binary exponents lie within 29 of one another
+is exact in float64, in any order, so the float32 after the cast is the
+correctly rounded sum whatever order the transport adds in: NCCL's ring
+or tree and gloo's give the same bits. (Addends further apart than that
+round in float64, at 2^-53 of the sum, and the cast to float32 hides it
+unless the sum sits on a float32 rounding tie.) The bucket's bytes
+double; the branch fusion's sum stays float32, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -31,7 +45,19 @@ import torch
 
 from stmgcn_tpu_torch.utils import comm
 
-__all__ = ["BranchFusion", "GradSync", "branch_fusion"]
+__all__ = ["BranchFusion", "GradSync", "REPLICA_AXES", "branch_fusion", "replica_sum"]
+
+#: the axes over which ranks hold the same (unsliced) parameters, in the
+#: order their sums run
+REPLICA_AXES = ("region", "dp")
+
+
+def replica_sum(tensor: torch.Tensor, mesh, *, what: str = "") -> torch.Tensor:
+    """``tensor`` summed over the ``dp x region`` group: one all-reduce
+    over each axis of extent above 1, ``region`` first."""
+    for axis in REPLICA_AXES:
+        tensor = comm.all_reduce(tensor, axis, mesh, what=what)
+    return tensor
 
 
 class BranchFusion(torch.autograd.Function):
@@ -70,17 +96,19 @@ class GradSync:
 
     @torch.no_grad()
     def reduce(self, grads: Sequence[torch.Tensor]) -> None:
-        """Sum ``grads`` over ``dp`` in place: one float32 all-reduce."""
-        if self.mesh.dp == 1:
+        """Sum ``grads`` over the ``dp x region`` group in place: the
+        float32 gradients in one float64 bucket, all-reduced, cast back
+        (module docstring: the result does not depend on the order)."""
+        if self.mesh.dp == 1 and self.mesh.region == 1:
             return
         if self._bucket is None:
-            self._bucket = torch.empty(self.numel, dtype=torch.float32, device=grads[0].device)
-        torch.cat([g.reshape(-1).float() for g in grads], out=self._bucket)
-        summed = comm.all_reduce(self._bucket, "dp", self.mesh, what="grads")
+            self._bucket = torch.empty(self.numel, dtype=torch.float64, device=grads[0].device)
+        torch.cat([g.reshape(-1).to(torch.float64) for g in grads], out=self._bucket)
+        summed = replica_sum(self._bucket, self.mesh, what="grads")
         start = 0
         for g in grads:
             n = g.numel()
-            g.copy_(summed[start:start + n].view_as(g))
+            g.copy_(summed[start:start + n].view_as(g))  # one rounding to float32
             start += n
 
     @torch.no_grad()

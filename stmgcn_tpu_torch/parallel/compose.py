@@ -10,22 +10,25 @@ resident blocks engage on the preset's mesh, and its parity twin.
 preset      mesh               composed program
 ========== ================== =========================================
 multicity   dp=8               ``fleet_superstep`` (hetero city pair)
-scaled      region=8 (auto)    not ported yet (region parallelism)
+scaled      region=8 (auto)    ``series_superstep``, node rows sharded:
+                               the grid branch banded, the others dense
 branchpar   dp=2 x branch=3    ``series_superstep``, branch-sharded
-bandedbranch dp=2 x region=2    not ported yet (region parallelism)
+bandedbranch dp=2 x region=2    not ported yet (A11b-2: region x branch)
             x branch=2
 ========== ================== =========================================
 
-The dense presets have a true single-device twin: the same config with
+Every ported preset has a true single-device twin: the same config with
 the mesh removed, the same initial parameters (the mesh model is the
-single-device one split up, ``models/st_mgcn.py``). ``composed_trainer``
-of a mesh preset runs in every rank of a job of that many ranks
-(``init_distributed``); its twin (``twin="single"``) on one process.
+single-device one split up, ``models/st_mgcn.py``; the port draws the same
+weights in every branch layout, so unlike the JAX package the banded
+``scaled`` has one too). ``composed_trainer`` of a mesh preset runs in
+every rank of a job of that many ranks (``init_distributed``); its twin
+(``twin="single"``) on one process.
 """
 
 from __future__ import annotations
 
-from stmgcn_tpu_torch.parallel.placement import REGION_NOT_PORTED
+from stmgcn_tpu_torch.parallel.placement import REGION_PARTS_NOT_PORTED
 
 __all__ = [
     "COMPOSED_PRESETS",
@@ -37,16 +40,17 @@ __all__ = [
 #: every multi-device preset with a composed program (the JAX table's)
 COMPOSED_PRESETS = ("multicity", "scaled", "branchpar", "bandedbranch")
 
-#: twin kind per preset (the JAX ``_TWIN``)
+#: twin kind per preset (the JAX ``_TWIN``, but ``scaled`` has a true
+#: single-device twin in the port)
 _TWIN = {
     "multicity": "single",
-    "scaled": "per_step",
+    "scaled": "single",
     "branchpar": "single",
     "bandedbranch": "per_step",
 }
 
-#: the presets whose composition needs the region axis
-_REGION = ("scaled", "bandedbranch")
+#: the presets whose composition is still to port
+_NOT_PORTED = ("bandedbranch",)
 
 
 def _shrink_model(cfg) -> None:
@@ -66,8 +70,8 @@ def composed_config(name: str):
     if name not in COMPOSED_PRESETS:
         raise ValueError(
             f"no composed program for preset {name!r}; known: {COMPOSED_PRESETS}")
-    if name in _REGION:
-        raise ValueError(f"composed {name!r}: " + REGION_NOT_PORTED)
+    if name in _NOT_PORTED:
+        raise ValueError(f"composed {name!r}: " + REGION_PARTS_NOT_PORTED)
     cfg = preset(name)
     _shrink_model(cfg)
     cfg.train.epochs = 2
@@ -82,6 +86,15 @@ def composed_config(name: str):
         cfg.data.n_timesteps = 24 * 7 * 2 + 40
         cfg.data.city_timesteps = (24 * 7 * 2 + 40, 24 * 7 * 2 + 30)
         cfg.train.batch_size = 16
+    elif name == "scaled":
+        # 32x2 grid, Chebyshev K=2: grid bandwidth K x cols = 4 <= n_local // 2
+        # = 4 (the 50x50 K=3 original routes the same way at preset scale);
+        # the random transport and similarity branches rightly stay dense:
+        # the preset's mixed banded/dense plan
+        cfg.data.rows, cfg.data.cols = 32, 2
+        cfg.data.n_timesteps = 24 * 7 + 64
+        cfg.model.K = 2
+        cfg.train.batch_size = 4
     else:  # branchpar
         cfg.data.rows = 4
         cfg.data.n_timesteps = 24 * 7 + 64
@@ -98,8 +111,8 @@ def composed_trainer(name: str, *, twin: str | None = None, out_dir: str | None 
                      verbose: bool = False):
     """The preset's composed trainer (``twin=None``, in every rank of its
     job) or its single-device twin (``twin="single"``); ``initial_state``
-    (mesh-free) as ``build_trainer``'s. The JAX ``twin="per_step"`` belongs
-    to the region presets, which raise by name."""
+    (mesh-free) as ``build_trainer``'s. A composed ``scaled`` whose routing
+    did not put a branch on the halo plan raises (the JAX check)."""
     from stmgcn_tpu_torch.config import MeshConfig
     from stmgcn_tpu_torch.experiment import build_trainer
 
@@ -112,4 +125,8 @@ def composed_trainer(name: str, *, twin: str | None = None, out_dir: str | None 
         cfg.mesh = MeshConfig()
     elif twin is not None:
         raise ValueError(f'twin must be None or "single", got {twin!r}')
-    return build_trainer(cfg, device=device, initial_state=initial_state, verbose=verbose)
+    trainer = build_trainer(cfg, device=device, initial_state=initial_state, verbose=verbose)
+    if name == "scaled" and twin is None and "banded" not in trainer.model.support_modes:
+        raise RuntimeError(f"composed {name!r}: routing did not engage the banded plan — the "
+                           "shrink no longer matches the router's bandwidth budget")
+    return trainer

@@ -6,8 +6,9 @@ rank:
 
 - ``dp``: data parallelism (the batch split over ranks, the gradients
   summed once a step);
-- ``region``: graph-node parallelism (not ported yet: a mesh with
-  ``region > 1`` is built, and refused by the trainer);
+- ``region``: graph-node parallelism (each rank holds ``N / region``
+  node rows; the dense graph convs all-gather the signal's rows, banded
+  ones exchange halos with the ring neighbours);
 - ``branch``: the M stacked graph branches split over ranks, the fusion
   sum one all-reduce.
 

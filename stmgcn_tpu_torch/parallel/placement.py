@@ -11,16 +11,26 @@ array kinds (``placement.py:1-44`` of the JAX package):
   are sliced on their leading M axis by the rank's ``branch`` coordinate
   (the JAX ``P('branch', ...)``);
 - ``supports``: a dense ``(M, K, N, N)`` stack, or a tuple of M per-branch
-  forms, sliced on M by the branch coordinate likewise;
+  forms, sliced on M by the branch coordinate likewise; on a region mesh
+  each dense stack keeps the rank's output-node rows, ``(..., K, N_local,
+  N)`` (``P(None, None, 'region', None)``), and each
+  :class:`~stmgcn_tpu_torch.parallel.banded.BandedSupports` the rank's one
+  strip (its leading shard axis over ``region``);
 - ``x``, ``y``, ``mask``: split contiguously on the batch axis over
   ``dp``, as ``P('dp')`` splits (rank ``i`` of the ``dp`` axis holds rows
   ``[i * B/dp, (i + 1) * B/dp)``); ``index`` ``(B,)`` likewise, and
-  ``index``/``mask_block`` ``(S, B)`` blocks on their second axis;
-- ``series``, ``replicated``: whole on every rank.
+  ``index``/``mask_block`` ``(S, B)`` blocks on their second axis; on a
+  region mesh the node axis of ``x`` ``(B, T, N, C)`` and ``y`` ``(B, N, C)``
+  / ``(B, H, N, C)`` is split over ``region`` too, contiguously as the
+  batch is (rank ``j`` of the region axis holds nodes ``[j * N/region, (j
+  + 1) * N/region)``); a ``(B, N)`` mask keeps its batch rows and all
+  nodes (the loss reads the whole mask's count);
+- ``series`` ``(T, N, C)``: its node rows over ``region`` (whole without
+  one); ``replicated``: whole on every rank.
 
-The region kinds (node rows split over ``region``) are not ported yet: a
-placement over a mesh with ``region > 1`` raises by name.
 :meth:`MeshPlacement.check_divisibility` raises with the JAX messages.
+What the region axis does not take yet raises by name
+(:data:`REGION_PARTS_NOT_PORTED`).
 """
 
 from __future__ import annotations
@@ -28,11 +38,13 @@ from __future__ import annotations
 from stmgcn_tpu_torch.parallel.manifest import CollectiveDecl
 
 __all__ = ["BRANCH_FUSION", "DP_GRAD_SYNC", "GSPMD_REGION", "HALO_EXCHANGE", "MeshPlacement",
-           "REGION_NOT_PORTED", "sharded_names"]
+           "REGION_PARTS_NOT_PORTED", "sharded_names"]
 
-#: the refusal of every region-parallel path
-REGION_NOT_PORTED = ("region parallelism (mesh.region > 1: node-row sharding, the banded "
-                     "halo plan, sharded block-CSR strips) is not ported yet (ROADMAP A11b)")
+#: the refusal of the region-parallel parts still to port
+REGION_PARTS_NOT_PORTED = (
+    "block-CSR supports on a region mesh (model.sparse: sharded block-CSR strips) and the "
+    "three-axis bandedbranch composition (region x branch) are not ported yet "
+    "(ROADMAP A11b-2)")
 
 #: collective signature of the data-parallel placement: gradients (one
 #: bucket a step) and the step's loss summed over ``dp`` — the
@@ -77,8 +89,9 @@ class MeshPlacement:
              "replicated")
 
     def __init__(self, mesh):
-        if mesh.region > 1:
-            raise ValueError(REGION_NOT_PORTED)
+        if mesh.region > 1 and mesh.branch > 1:
+            raise ValueError(f"mesh region={mesh.region} x branch={mesh.branch}: "
+                             + REGION_PARTS_NOT_PORTED)
         self.mesh = mesh
 
     @property
@@ -88,6 +101,19 @@ class MeshPlacement:
     @property
     def branch(self) -> int:
         return self.mesh.branch
+
+    @property
+    def region(self) -> int:
+        return self.mesh.region
+
+    def nodes(self, n_nodes: int) -> slice:
+        """The node rows this rank holds: its ``region`` coordinate's
+        contiguous ``n_nodes / region``."""
+        if n_nodes % self.region:
+            raise ValueError(f"n_nodes {n_nodes} not divisible by region={self.region}")
+        n = n_nodes // self.region
+        j = self.mesh.coords["region"]
+        return slice(j * n, (j + 1) * n)
 
     def rows(self, batch_size: int) -> slice:
         """The batch rows this rank holds: its ``dp`` coordinate's
@@ -113,11 +139,15 @@ class MeshPlacement:
         per-branch forms for ``supports``)."""
         if kind not in self.KINDS:
             raise ValueError(f"unknown array kind {kind!r}; known: {sorted(self.KINDS)}")
-        if kind in ("series", "replicated"):
+        if kind == "replicated":
             return value
+        if kind == "series":
+            return value[:, self.nodes(value.shape[1])] if self.region > 1 else value
         if kind == "state":
             return self.state_slice(value)
         if kind == "supports":
+            if self.region > 1:
+                return self._region_supports(value)
             if self.branch == 1:
                 return value
             if isinstance(value, (tuple, list)):
@@ -125,7 +155,31 @@ class MeshPlacement:
             return value[self.branches(value.shape[0])]
         if kind in ("index", "mask_block") and value.ndim == 2:
             return value[:, self.rows(value.shape[1])]
-        return value[self.rows(value.shape[0])]
+        value = value[self.rows(value.shape[0])]
+        if self.region > 1 and kind in ("x", "y"):
+            axis = value.ndim - 2  # the node axis of (B, T, N, C), (B, N, C), (B, H, N, C)
+            index = [slice(None)] * value.ndim
+            index[axis] = self.nodes(value.shape[axis])
+            value = value[tuple(index)]
+        return value
+
+    def _region_supports(self, value):
+        """This rank's support rows: a dense stack's row strip, a banded
+        form's own strip; an M-sequence form by form."""
+        from stmgcn_tpu_torch.parallel.banded import BandedSupports
+
+        if isinstance(value, (tuple, list)):
+            return tuple(self._region_supports(v) for v in value)
+        if isinstance(value, BandedSupports):
+            if value.n_shards != self.region:
+                raise ValueError(f"BandedSupports of {value.n_shards} shards on a mesh of "
+                                 f"region={self.region}")
+            return value.shard(self.mesh.coords["region"])
+        if not hasattr(value, "shape") or value.ndim not in (3, 4):
+            raise ValueError("supports on a region mesh must be dense (M, K, N, N) or (K, N, "
+                             f"N) stacks or BandedSupports; got {type(value).__name__}: "
+                             + REGION_PARTS_NOT_PORTED)
+        return value[..., self.nodes(value.shape[-2]), :]
 
     def state_slice(self, state: dict) -> dict:
         """A mesh-free ``state_dict``'s slice on this rank: the branch

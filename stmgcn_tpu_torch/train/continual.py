@@ -124,7 +124,7 @@ class ContinualTrainer:
         self._supports = place_supports(supports, self.device)
         self.model.check_supports(self._supports)
         self._names = [name for name, _ in self.model.named_parameters()]
-        self.layout = jax_layout(self.model.support_mode)
+        self.layout = jax_layout(self.model.support_mode, self.model.loop_layout)
         self._groups = health_groups(self._names, self.model.m_graphs, layout=self.layout)
         self.optimizer = optimizer(list(self.model.parameters()))
         if opt_state is not None:

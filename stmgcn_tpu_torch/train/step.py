@@ -15,10 +15,11 @@ runs eagerly:
 - **Loss parity** (``_elementwise_loss``/``loss_fn``): MSE, MAE and Huber
   (delta 1) over real elements only, with ``(B,)`` sample masks or
   ``(B, N)`` sample-by-node masks and the same denominator.
-- **On a mesh** a rank's step takes its ``rows`` of the batch with the
-  whole batch's mask (the loss over the global count, :func:`masked_loss`),
-  and :attr:`Optimizer.sync` sums the gradients over ``dp`` once and gives
-  the clip its global norm (``parallel/collectives.py``).
+- **On a mesh** a rank's step takes its ``rows`` of the batch (and on a
+  region mesh its ``nodes``) with the whole batch's mask (the loss over
+  the global count, :func:`masked_loss`), and :attr:`Optimizer.sync` sums
+  the gradients over the ``dp x region`` group once and gives the clip its
+  global norm (``parallel/collectives.py``).
 - **Window gather** (``gather_window_batch``): the microbatch is indexed
   out of the device-resident ``(T, N, C)`` series, bit-identical to the
   materialized windows.
@@ -417,7 +418,7 @@ def elementwise_loss(kind: str, pred: torch.Tensor, target: torch.Tensor) -> tor
 
 def masked_loss(kind: str, pred: torch.Tensor, y: torch.Tensor,
                 mask: torch.Tensor, sanitizer: Optional[Sanitizer] = None,
-                rows: Optional[slice] = None) -> torch.Tensor:
+                rows: Optional[slice] = None, nodes: Optional[slice] = None) -> torch.Tensor:
     """Mean loss over real elements. ``y`` is ``(B, N, C)`` or ``(B, H, N,
     C)``; ``mask`` is ``(B,)`` (per sample) or ``(B, N)`` (sample x real
     node), 0/1. ``sanitizer`` flags a zero denominator and a NaN loss.
@@ -426,9 +427,14 @@ def masked_loss(kind: str, pred: torch.Tensor, y: torch.Tensor,
     global batch and ``mask`` the whole batch's: the value is the rank's
     error sum over the *global* count of real elements, so the ranks'
     values (and gradients) sum to the single-device mean, a padded tail
-    batch included."""
+    batch included. On a region mesh ``nodes`` are the rank's node rows of
+    ``pred`` and ``y`` and ``mask`` is the whole ``(B, N)`` one."""
     err = elementwise_loss(kind, pred.float(), y.float())
     local = mask if rows is None else mask[rows]
+    if nodes is not None:
+        if mask.dim() != 2:
+            raise ValueError("a region mesh's loss takes the (B, N) sample x node mask")
+        local = local[:, nodes]
     if mask.dim() == 1:
         w = local.reshape(local.shape + (1,) * (y.dim() - 1))
         denom = mask.sum() * math.prod(y.shape[1:])
@@ -523,7 +529,8 @@ def train_step(model, optimizer: Optimizer, supports, x, y, mask,
                loss: str = "mse", sr_generator: Optional[torch.Generator] = None,
                n_real: Optional[torch.Tensor] = None,
                scalars: Optional[torch.Tensor] = None, health=None,
-               sanitizer: Optional[Sanitizer] = None, rows: Optional[slice] = None):
+               sanitizer: Optional[Sanitizer] = None, rows: Optional[slice] = None,
+               nodes: Optional[slice] = None):
     """One optimizer step; returns the (device, detached) loss, unsynced.
     With ``sr_generator`` the model runs on a stochastically rounded bf16
     shadow of its parameters (``compute_cast``), drawn from it. With
@@ -540,15 +547,16 @@ def train_step(model, optimizer: Optimizer, supports, x, y, mask,
     returns ``(loss, health row)`` (:func:`health_row`) from the same
     update. ``sanitizer`` (a step open on it) adds the step's flags: the
     loss's, the gradients' and the updated parameters' here, the model's
-    through its hooks. ``rows``: a ``dp`` mesh rank's rows of the batch
-    (:func:`masked_loss`); the optimizer's ``sync`` sums the gradients."""
+    through its hooks. ``rows`` and ``nodes``: a mesh rank's rows of the
+    batch and node rows (:func:`masked_loss`); the optimizer's ``sync``
+    sums the gradients."""
     optimizer.zero_grad()
     if sr_generator is None:
         pred = model(supports, x, n_real)
     else:
         shadow = compute_cast(dict(model.named_parameters()), torch.bfloat16, sr_generator)
         pred = torch.func.functional_call(model, shadow, (supports, x, n_real))
-    value = masked_loss(loss, pred, y, mask, sanitizer, rows)
+    value = masked_loss(loss, pred, y, mask, sanitizer, rows, nodes)
     value.backward()
     if sanitizer is not None:
         sanitizer.nan_all("gradients", [p.grad for p in optimizer.params])
@@ -564,8 +572,8 @@ def train_step(model, optimizer: Optimizer, supports, x, y, mask,
 @torch.no_grad()
 def eval_step(model, supports, x, y, mask, loss: str = "mse",
               n_real: Optional[torch.Tensor] = None, sanitizer: Optional[Sanitizer] = None,
-              rows: Optional[slice] = None):
-    """``(loss, prediction)`` without gradients (``n_real``, ``sanitizer``
-    and ``rows`` as :func:`train_step`'s)."""
+              rows: Optional[slice] = None, nodes: Optional[slice] = None):
+    """``(loss, prediction)`` without gradients (``n_real``, ``sanitizer``,
+    ``rows`` and ``nodes`` as :func:`train_step`'s)."""
     pred = model(supports, x, n_real)
-    return masked_loss(loss, pred, y, mask, sanitizer, rows), pred
+    return masked_loss(loss, pred, y, mask, sanitizer, rows, nodes), pred

@@ -163,7 +163,7 @@ a program, so tracing changes no program.
 **Meshes** (``model.placement``, a
 :class:`~stmgcn_tpu_torch.parallel.placement.MeshPlacement`; the JAX
 trainer's mesh routing, ``trainer.py:411-455``): each rank of a ``dp x
-branch`` job runs this trainer on its slice.
+region`` or ``dp x branch`` job runs this trainer on its slice.
 
 - *Data*: every rank draws the same global batch order from the seed and
   takes its contiguous ``dp`` rows; on the window-free resident route
@@ -174,15 +174,25 @@ branch`` job runs this trainer on its slice.
   each step's loss is its rows' error sum over the global count
   (``train/step.py`` ``masked_loss``), and fleet classes take their rows
   over ``dp`` likewise.
-- *Steps*: the optimizer's ``GradSync`` sums the gradients over ``dp``
-  once a step (one float32 bucket) and gives the clip its global norm;
-  the model's branch fusion all-reduces over ``branch``. The block
+- *Region*: on a ``region > 1`` mesh each rank also holds only its node
+  rows: of the resident series, of each streamed batch, of every dense
+  support stack (a row strip) or banded strip; the mask is the whole
+  ``(B, N)`` sample-by-node one, its padded node rows (``node_pad``: a
+  city's node axis rounded up to a multiple of ``region``, zero series
+  rows) zero. Fleet classes do not engage (each city steps alone), and a
+  padded city of a heterogeneous set passes its real count as ``n_real``
+  to the gate.
+- *Steps*: the optimizer's ``GradSync`` sums the gradients over the ``dp x
+  region`` group once a step (one float64 bucket, so the sum does not
+  depend on its order) and gives the clip its global norm; the model's
+  branch fusion all-reduces over ``branch``. The block
   programs run eagerly: a gloo collective cannot be captured, so
   ``graphs=None`` resolves to eager (logged) and ``graphs=True`` raises.
-  Each dispatch's losses are summed over ``dp`` (all ranks read the same
-  values), evaluation's loss sums once per epoch, and ``test()``
-  all-gathers the predictions: every rank's history, decisions (best,
-  top-k, patience, early stop) and report equal the single-device ones.
+  Each dispatch's losses are summed over ``dp x region`` (all ranks read
+  the same values), evaluation's loss sums once per epoch, and ``test()``
+  all-gathers the predictions (node rows over ``region``, then batch rows
+  over ``dp``): every rank's history, decisions (best, top-k, patience,
+  early stop) and report equal the single-device ones.
 - *Checkpoints*: the branch slices (parameters and moments) are gathered
   over ``branch`` into the mesh-free layout; only the lead (global rank 0)
   serializes and writes. Reads (``restore``, ``restore_auto``,
@@ -194,8 +204,7 @@ branch`` job runs this trainer on its slice.
   same boundary, where all of them save (the lead writes) and raise
   ``Preempted``.
 - *Not on a mesh yet*: the divergence guard, health, ``checks``,
-  ``debug_nans``, fault plans and ``sr_seed`` raise by name; region
-  parallelism (node padding for meshes) is not ported.
+  ``debug_nans``, fault plans and ``sr_seed`` raise by name.
 """
 
 from __future__ import annotations
@@ -240,7 +249,7 @@ from stmgcn_tpu_torch.obs.registry import REGISTRY
 from stmgcn_tpu_torch.ops.layers import resolve_device, set_compute_dtype
 from stmgcn_tpu_torch.ops.spmm import place_supports
 from stmgcn_tpu_torch.ops.tiling import StackedPlans, TiledSupports
-from stmgcn_tpu_torch.parallel.collectives import GradSync
+from stmgcn_tpu_torch.parallel.collectives import GradSync, replica_sum
 from stmgcn_tpu_torch.parallel.placement import sharded_names
 from stmgcn_tpu_torch.resilience.faults import FaultPlan, Preempted
 from stmgcn_tpu_torch.resilience.guard import DivergenceGuard
@@ -366,6 +375,9 @@ class _CityData:
     supports: object
     n_real: Optional[torch.Tensor]
     pad: int
+    #: on a region mesh the real-node mask ``(N_padded,)`` the loss mask
+    #: crosses (None elsewhere)
+    node_mask: Optional[torch.Tensor] = None
 
 
 @dataclasses.dataclass
@@ -383,6 +395,10 @@ class _Site:
     supports: object
     n_real: Optional[torch.Tensor]  # (members,) int32 for a class, None for a city
     rung: Optional[int] = None  # a class's padded node count
+    #: a region mesh city's real-node mask (``_CityData.node_mask``) and
+    #: this rank's node rows of it
+    node_mask: Optional[torch.Tensor] = None
+    nodes: Optional[slice] = None
     #: materialized windows, uploaded on first use: mode -> (x_all, y_all),
     #: the members' rung-padded arrays concatenated for a class
     arrays: dict = dataclasses.field(default_factory=dict)
@@ -406,8 +422,8 @@ class _Site:
     def select(self, slot: Optional[torch.Tensor]) -> tuple:
         """``(supports, n_real)`` of the member at ``slot`` (``(1,)``; a
         city's site has no slot)."""
-        if self.n_real is None:
-            return self.supports, None
+        if self.rung is None:  # a city: its own supports (and real count, padded)
+            return self.supports, self.n_real
         if isinstance(self.supports, StackedPlans):
             sup = self.supports.select(slot)
         else:
@@ -506,7 +522,7 @@ class Trainer:
                  health_every_k: int = 1, health_out: Optional[str] = None,
                  health_baseline: bool = True, health_sketch_size: int = 64,
                  checks: Optional[str] = None, debug_nans: bool = False,
-                 extra_meta: Optional[dict] = None,
+                 node_pad=0, extra_meta: Optional[dict] = None,
                  initial_state: Optional[dict] = None, device=None,
                  graphs: Optional[bool] = None, verbose: bool = True):
         check_precision(precision, sr_seed)
@@ -554,6 +570,18 @@ class Trainer:
             False if self.debug_nans or self.mesh is not None else graphs, self.device)
         #: this rank's rows of every batch (None: the whole batch)
         self._rows = None if self.mesh is None else placement.rows(batch_size)
+        #: on a region mesh (None elsewhere): the mesh
+        self._region = self.mesh if self.mesh is not None and self.mesh.region > 1 else None
+        n_cities = getattr(dataset, "n_cities", 1) if not dataset.shared_graphs else 1
+        pads = tuple(node_pad) if isinstance(node_pad, (tuple, list)) else (node_pad,) * n_cities
+        if len(pads) != n_cities or min(pads) < 0:
+            raise ValueError(f"node_pad must be >= 0, one per city (n_cities={n_cities}), "
+                             f"got {node_pad!r}")
+        if any(pads) and self._region is None:
+            raise ValueError("node_pad pads the node axis of a region mesh; this trainer "
+                             "has none")
+        #: padded node rows per city (per support stack: one for a shared graph)
+        self._node_pads = pads
         if self.graphs and sr_seed is not None and not hasattr(
                 torch.cuda.CUDAGraph, "register_generator_state"):
             raise RuntimeError(
@@ -612,7 +640,7 @@ class Trainer:
                       "anomaly detection")
         #: the flax tree layout checkpoints use: the JAX model's for this
         #: support mode
-        self.layout = jax_layout(self.model.support_mode)
+        self.layout = jax_layout(self.model.support_mode, self.model.loop_layout)
         self._param_names = [name for name, _ in self.model.named_parameters()]
         #: the health stats' layer groups, the JAX tree's top-level keys
         self._health_groups = health_groups(self._param_names, self.model.m_graphs,
@@ -823,6 +851,8 @@ class Trainer:
         """Why the fleet cannot engage (the JAX trainer's texts), or None."""
         if not self.hetero:
             return "the dataset is homogeneous (one shared graph fuses already)"
+        if self._region is not None:
+            return "a region mesh steps each city on its own node rows"
         if not self._resident:
             return "data placement is not resident (stream/mesh upload per batch)"
         per_city = self.supports.per_city if isinstance(self.supports, CitySupports) else ()
@@ -878,6 +908,45 @@ class Trainer:
     def _upload(self, array: np.ndarray) -> torch.Tensor:
         return torch.as_tensor(np.asarray(array, np.float32), device=self.device)
 
+    def _node_pad(self, city: int) -> int:
+        """The padded node rows of ``city``'s support stack."""
+        return self._node_pads[0 if self.dataset.shared_graphs else city]
+
+    def _local_nodes(self, array: np.ndarray, city: int, axis: int) -> np.ndarray:
+        """A region rank's node rows of a host array whose node axis is
+        ``axis``: zero-padded to the city's padded count, then cut (the
+        array as it is off a region mesh)."""
+        if self._region is None:
+            return array
+        pad = self._node_pad(city)
+        if pad:
+            widths = [(0, 0)] * array.ndim
+            widths[axis] = (0, pad)
+            array = np.pad(array, widths)
+        index = [slice(None)] * array.ndim
+        index[axis] = self.placement.nodes(array.shape[axis])
+        return array[tuple(index)]
+
+    def _node_counts(self, city: int) -> tuple:
+        """``(real, padded)`` node counts of ``city``'s support stack."""
+        ds = self.dataset
+        n = ds.n_nodes if ds.shared_graphs else ds.city_n_nodes[city]
+        return n, n + self._node_pad(city)
+
+    def _nodes(self, city: int) -> Optional[slice]:
+        """A region rank's node rows of ``city`` (None off a region mesh)."""
+        if self._region is None:
+            return None
+        return self.placement.nodes(self._node_counts(city)[1])
+
+    def _node_mask(self, city: int) -> Optional[torch.Tensor]:
+        """On a region mesh, ``city``'s real-node mask over its padded node
+        axis (float32 0/1)."""
+        if self._region is None:
+            return None
+        n, padded = self._node_counts(city)
+        return torch.as_tensor((np.arange(padded) < n).astype(np.float32), device=self.device)
+
     def _resident_cities(self) -> dict:
         """Each city's :class:`_CityData`; one entry (city 0) when every
         city shares one graph stack, whose batches index the cities'
@@ -891,12 +960,12 @@ class Trainer:
             return {m: torch.as_tensor(np.asarray(ds.mode_targets(m, c), np.int64) + offset,
                                        dtype=torch.int32, device=dev) for m in MODES}
 
-        def upload(series):
-            return self._upload(series) if wf else None
+        def upload(series, c=0):
+            return self._upload(self._local_nodes(series, c, 1)) if wf else None
 
         if ds.shared_graphs:
             return {0: _CityData(upload(ds.series_stack()), targets(None),
-                                 self.supports, None, 0)}
+                                 self.supports, None, self._node_pads[0], self._node_mask(0))}
         class_series = {}
         for ci, cls in enumerate(self.fleet_plan.classes if self.fleet_plan and wf else ()):
             class_series[ci] = self._upload(np.concatenate([
@@ -907,7 +976,12 @@ class Trainer:
             info = self._fleet_cities.get(c)
             sup = self.supports.for_city(c)
             if info is None:
-                cities[c] = _CityData(upload(ds.series(c)), targets(c), sup, None, 0)
+                pad = self._node_pads[c]
+                # a padded city of a region mesh pools over its real count
+                n_real = (torch.tensor(ds.city_n_nodes[c], dtype=torch.int32, device=dev)
+                          if pad else None)
+                cities[c] = _CityData(upload(ds.series(c), c), targets(c), sup, n_real, pad,
+                                      self._node_mask(c))
             else:
                 cities[c] = _CityData(class_series.get(info.cls), targets(c, info.t_offset), sup,
                                       torch.tensor(info.n_real, dtype=torch.int32, device=dev),
@@ -951,7 +1025,8 @@ class Trainer:
         sites, where = {}, {}
         for c, data in self._cities.items():
             if c not in self._fleet_cities:
-                sites["city", c] = _Site(data.series, data.targets, data.supports, None)
+                sites["city", c] = _Site(data.series, data.targets, data.supports, data.n_real,
+                                         node_mask=data.node_mask, nodes=self._nodes(c))
                 where[c] = (("city", c), 0, dict.fromkeys(MODES, 0))
         for ci, cls in enumerate(self.fleet_plan.classes if self._fleet_cities else ()):
             members = [self._cities[c] for c in cls.cities]
@@ -1252,6 +1327,8 @@ class Trainer:
             x, y = x_all[batch.indices], y_all[batch.indices]
         if self._rows is not None:  # a dp rank uploads its rows only
             x, y = x[self._rows], y[self._rows]
+        # a region rank its node rows
+        x, y = self._local_nodes(x, batch.city, 2), self._local_nodes(y, batch.city, y.ndim - 2)
         return self._prefetcher.place({"x": x, "y": y})
 
     def place(self, batch, mode: str, sanitizer: Optional[Sanitizer] = None, placed=None):
@@ -1276,12 +1353,21 @@ class Trainer:
                 idx = idx[self._rows]
             idx = torch.as_tensor(idx, device=self.device)
             x, y = self._sites[key].gather(mode, idx, self.offsets, self.horizon, sanitizer)
-        mask = (np.arange(len(batch)) < batch.n_real).astype(np.float32)
+        mask = torch.as_tensor((np.arange(len(batch)) < batch.n_real).astype(np.float32),
+                               device=self.device)
         info = self._fleet_cities.get(batch.city)
         if info is not None:
             n = info.n_real + info.pad
-            mask = mask[:, None] * (np.arange(n) < info.n_real).astype(np.float32)[None, :]
-        return x, y, torch.as_tensor(mask, device=self.device)
+            node = torch.as_tensor((np.arange(n) < info.n_real).astype(np.float32),
+                                   device=self.device)
+            mask = mask[:, None] * node[None, :]
+        elif self._region is not None:  # the whole (B, N) mask on every region rank
+            mask = mask[:, None] * self._cities[self._city_key(batch.city)].node_mask[None, :]
+        return x, y, mask
+
+    def _city_key(self, city: int) -> int:
+        """The ``_cities`` entry of ``city`` (one for a shared graph)."""
+        return 0 if self.dataset.shared_graphs else city
 
     def _sr_seed(self, step: int) -> int:
         """The stochastic-rounding seed of optimizer step ``step``, from
@@ -1303,11 +1389,12 @@ class Trainer:
         san = self.sanitizer
         streamed = not self._resident
         rows = self._rows
+        nodes = site.nodes
 
         def body(v):
             supports, n_real = site.select(v.get("slot"))
-            node = None
-            if n_real is not None:
+            node = site.node_mask
+            if n_real is not None and site.rung is not None:
                 node = (torch.arange(site.rung, device=self.device) < n_real).to(torch.float32)
             outs, flags = [], []
             for s in range(steps):
@@ -1322,14 +1409,14 @@ class Trainer:
                 outs.append(train_step(self.model, self.optimizer, supports, x, y, mask,
                                        self.loss, sr_generator=self._sr_gen, n_real=n_real,
                                        scalars=v["adam"][s], health=groups, sanitizer=san,
-                                       rows=rows))
+                                       rows=rows, nodes=nodes))
                 if san is not None:
                     flags.append(san.end())
             if not health:
                 out = torch.stack(outs)
             else:
                 out = torch.stack([row for _, row in outs])
-                if site.n_real is not None:
+                if site.rung is not None:
                     members = site.n_real.shape[0]
                     onehot = (torch.arange(members, device=self.device) == v["slot"]).float()
                     out = torch.cat([out, out[:, :1] * onehot[None, :]], dim=1)
@@ -1368,7 +1455,7 @@ class Trainer:
                 spec = {"idx": ((steps, self.batch_size), torch.int32), **spec}
             if route == "windows":
                 self._resident_arrays(mode, key)
-            if site.n_real is not None:
+            if site.rung is not None:
                 spec["slot"] = ((1,), torch.int32)
             body = self._block_body(site, steps, mode, health)
             label = (f"training block {key[0]} {key[1]}, {steps} step(s)"
@@ -1431,7 +1518,7 @@ class Trainer:
             first += len(run)
         out = outs[0] if len(outs) == 1 else torch.cat(outs)
         if self.mesh is not None:  # each rank's share of the global means
-            out = comm.all_reduce(out, "dp", self.mesh, what="loss")
+            out = replica_sum(out, self.mesh, what="loss")
         if self.sanitizer is not None:
             self._raise_flags(out[:, -1], block, "train")
             out = out[:, :-1] if health else out[:, 0]
@@ -1764,7 +1851,8 @@ class Trainer:
             x, y, mask = self.place(batch, mode, san, placed)
             data = self._cities[batch.city]
             losses.append(eval_step(self.model, data.supports, x, y, mask, self.loss,
-                                    n_real=data.n_real, sanitizer=san, rows=self._rows)[0])
+                                    n_real=data.n_real, sanitizer=san, rows=self._rows,
+                                    nodes=self._nodes(batch.city))[0])
             counts.append(batch.n_real)
             if san is not None:
                 words.append(san.end())
@@ -1773,7 +1861,7 @@ class Trainer:
             self._raise_flags(torch.stack(words).cpu().numpy(), counts, mode)
         losses = torch.stack(losses)
         if self.mesh is not None:  # the ranks' shares, summed once per epoch
-            losses = comm.all_reduce(losses, "dp", self.mesh, what="eval-loss")
+            losses = replica_sum(losses, self.mesh, what="eval-loss")
         return self._weighted(losses.tolist(), counts)
 
     @staticmethod
@@ -1891,10 +1979,14 @@ class Trainer:
             else:
                 pred = torch.func.functional_call(self.model, state, args)
             if self.mesh is not None:  # the whole batch on every rank
+                pred = comm.all_gather(pred.contiguous(), "region", self.mesh,
+                                       dim=pred.dim() - 2, what="predictions")
                 pred = comm.all_gather(pred, "dp", self.mesh, what="predictions")
                 if batch.y is None:
+                    y = comm.all_gather(y.contiguous(), "region", self.mesh, dim=y.dim() - 2,
+                                        what="targets")
                     y = comm.all_gather(y, "dp", self.mesh, what="targets")
-            n = y.shape[-2] - data.pad  # drop padded node rows
+            n = pred.shape[-2] - data.pad  # drop padded node rows
             preds.setdefault(batch.city, []).append(
                 pred[: batch.n_real, ..., :n, :].float().cpu().numpy())
             trues.setdefault(batch.city, []).append(y[: batch.n_real, ..., :n, :].cpu().numpy())

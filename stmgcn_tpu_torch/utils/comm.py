@@ -7,7 +7,8 @@ axis (``"dp"``, ``"region"``, ``"branch"``, or ``"world"`` for every rank)
 of a :class:`~stmgcn_tpu_torch.parallel.mesh.Mesh`, and no other module
 calls ``torch.distributed``'s collectives. Each call adds to
 :data:`STATS` one entry ``(kind, axis, bytes, calls)``, kinds named as the
-HLO ops (``"all-reduce"``, ``"all-gather"``, ``"broadcast"``), and counts
+HLO ops (``"all-reduce"``, ``"all-gather"``, ``"broadcast"``,
+``"collective-permute"`` for a ring exchange's point-to-point sends), and counts
 the same under ``what`` (the payload's name: ``"grads"``, ``"loss"``,
 ``"fusion"``, ...). Bytes follow the JAX rule: the op's *output* bytes
 (an all-gather's output is the gathered tensor, ``calls x`` the input
@@ -21,8 +22,9 @@ JAX function compiles it and parses the HLO. An axis of extent 1 moves
 nothing and counts nothing, as XLA emits no collective over it.
 
 Tensors go to the backend on their own device, except that NCCL takes
-CUDA tensors only: a CPU tensor is then moved to the mesh's device and
-back.
+CUDA tensors only (a CPU tensor is then moved to the mesh's device and
+back) and gloo sends and receives CPU tensors only (a CUDA tensor of a
+ring exchange goes through the host).
 """
 
 from __future__ import annotations
@@ -46,10 +48,11 @@ __all__ = [
     "broadcast",
     "broadcast_bytes",
     "collective_stats",
+    "ring_exchange",
     "step_comm_report",
 ]
 
-COLLECTIVES = ("all-reduce", "all-gather", "broadcast")
+COLLECTIVES = ("all-reduce", "all-gather", "broadcast", "collective-permute")
 
 
 class CommStats:
@@ -162,6 +165,41 @@ def broadcast_bytes(data: Optional[bytes], mesh, *, src: int = 0, what: str = ""
     payload = torch.from_numpy(np.frombuffer(data, np.uint8).copy()) if own else None
     got = broadcast(payload, mesh, shape=(n,), dtype=torch.uint8, src=src, what=what)
     return data if own else got.cpu().numpy().tobytes()
+
+
+def ring_exchange(send_prev: torch.Tensor, send_next: torch.Tensor, axis: str, mesh, *,
+                  what: str = "") -> tuple:
+    """A non-periodic ±1 exchange along this rank's ``axis`` line (the JAX
+    ``ppermute`` pair of ``halo_exchange``): ``send_prev`` goes to the
+    line's previous rank and ``send_next`` to its next one, all sends and
+    receives posted at once (``batch_isend_irecv``). Returns ``(from_prev,
+    from_next)``: the previous rank's ``send_next`` and the next rank's
+    ``send_prev``, on ``send_prev``'s device, each None at the line's end
+    that has no neighbour (and both None on an axis of extent 1). Counted
+    as two ``collective-permute`` calls of the sent tensors' bytes on every
+    rank of the line, as XLA gives every device each permute's output."""
+    group = mesh.group(axis)
+    if group is None:
+        return None, None
+    line, i = mesh.lines[axis], mesh.coords[axis]
+    dev = mesh.device if mesh.backend == "nccl" else torch.device("cpu")
+    sp, sn = (t.to(dev).contiguous() for t in (send_prev, send_next))
+    ops, from_prev, from_next = [], None, None
+    if i > 0:
+        from_prev = torch.empty_like(sn)
+        ops += [dist.P2POp(dist.isend, sp, line[i - 1], group),
+                dist.P2POp(dist.irecv, from_prev, line[i - 1], group)]
+    if i < len(line) - 1:
+        from_next = torch.empty_like(sp)
+        ops += [dist.P2POp(dist.isend, sn, line[i + 1], group),
+                dist.P2POp(dist.irecv, from_next, line[i + 1], group)]
+    for req in dist.batch_isend_irecv(ops):
+        req.wait()
+    STATS.add("collective-permute", axis, _nbytes(sp), what)
+    STATS.add("collective-permute", axis, _nbytes(sn), what)
+    out = send_prev.device
+    return (None if from_prev is None else from_prev.to(out),
+            None if from_next is None else from_next.to(out))
 
 
 def collective_stats() -> dict:

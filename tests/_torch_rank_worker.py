@@ -323,6 +323,190 @@ def preempt(args, out_dir):
     return out
 
 
+# -- the region axis ---------------------------------------------------------
+
+def _region_mesh(args, key="region"):
+    from stmgcn_tpu_torch.config import MeshConfig
+    from stmgcn_tpu_torch.parallel import mesh_from_config
+
+    return mesh_from_config(MeshConfig(region=args[key]), device="cpu")
+
+
+def region_config(args, out_dir):
+    """``args["cfg"]`` (an ``ExperimentConfig`` dict) with ``out_dir``."""
+    from stmgcn_tpu_torch.config import ExperimentConfig
+
+    cfg = ExperimentConfig.from_dict(args["cfg"])
+    cfg.train.out_dir = str(out_dir)
+    return cfg
+
+
+def region_train(args, out_dir):
+    """``args["cfg"]`` trained on this job's region mesh from
+    ``args["region_initial_state"]``: history, final parameters, routing,
+    the node padding, ``test()``'s metrics of the lead's ``best.ckpt`` and
+    its path."""
+    from stmgcn_tpu_torch.experiment import build_trainer
+
+    t = build_trainer(region_config(args, out_dir), device="cpu", verbose=False,
+                      initial_state=args.get("region_initial_state"))
+    history = t.train()
+    return {"history": history, "state": _state(t), "path": t.train_path,
+            "modes": t.model.support_modes, "node_pads": t._node_pads,
+            "layout": t.layout, "test": t.test(modes=("test",))["test"], "best": t.best_path}
+
+
+def hetero_region_train(args, out_dir):
+    """:func:`region_train` of ``args["hetero_cfg"]`` (a heterogeneous
+    city set) from ``args["hetero_initial_state"]``."""
+    return region_train({**args, "cfg": args["hetero_cfg"],
+                         "region_initial_state": args.get("hetero_initial_state")}, out_dir)
+
+
+def banded_region_train(args, out_dir):
+    """:func:`region_train` of ``args["banded_cfg"]`` (a node-padded
+    config whose grid branch routes to the halo plan) from
+    ``args["banded_initial_state"]``."""
+    return region_train({**args, "cfg": args["banded_cfg"],
+                         "region_initial_state": args.get("banded_initial_state")}, out_dir)
+
+
+def region_step(args, out_dir):
+    """One training step of ``args["step_cfg"]`` on this job's region mesh
+    under ``step_comm_report``: the report, its check against the config's
+    manifest (banded as routed), the parameter count and the routing."""
+    from stmgcn_tpu_torch.config import ExperimentConfig
+    from stmgcn_tpu_torch.experiment import build_trainer
+    from stmgcn_tpu_torch.parallel import check_executed, manifest_for_config
+    from stmgcn_tpu_torch.utils import step_comm_report
+
+    cfg = ExperimentConfig.from_dict(args["step_cfg"])
+    cfg.train.out_dir = str(out_dir)
+    t = build_trainer(cfg, device="cpu", verbose=False)
+    report = step_comm_report(t.train_batch, next(iter(t.batches("train"))))
+    banded = "banded" in t.model.support_modes
+    halos = [s.halo for s in t.supports if hasattr(s, "halo")] if banded else []
+    return {"report": {k: v for k, v in report.items() if k != "result"},
+            "problems": check_executed(manifest_for_config(cfg, banded=banded), report),
+            "numel": sum(p.numel() for p in t.model.parameters()),
+            "modes": t.model.support_modes, "halos": halos, "nodes": t._nodes(0),
+            "path": t.train_path}
+
+
+def region_preempt(args, out_dir):
+    """SIGTERM to rank ``PREEMPT_RANK`` (not the lead) of a region mesh
+    training ``args["cfg"]`` for two epochs one step a block: what each
+    rank raised, where; the lead reads its emergency file back."""
+    rank = int(os.environ["RANK"])
+    cfg = region_config(args, os.path.join(out_dir, "mesh"))
+    cfg.train.epochs, cfg.train.steps_per_superstep = 2, 1
+    out = _preempted(cfg, kill=rank == PREEMPT_RANK)
+    if rank == 0:
+        from stmgcn_tpu_torch.train.checkpoint import load_checkpoint
+
+        meta = load_checkpoint(os.path.join(out_dir, "mesh", "latest.ckpt"),
+                               load_opt_state=False)[0]
+        out["ckpt"] = {"global_step": meta["global_step"], "mesh": meta.get("mesh")}
+    return out
+
+
+def halo_apply(args, out_dir):
+    """``halo_exchange`` and ``sharded_banded_apply`` on this rank's shard
+    of ``args["strips"]`` and node rows of ``args["x"]`` (region mesh
+    ``args["region"]``): the exchanged block, the product, and the
+    gradient of ``sum(product * args["cot"])`` w.r.t. the rank's rows."""
+    import torch
+
+    from stmgcn_tpu_torch.parallel import halo_exchange, sharded_banded_apply
+
+    mesh = _region_mesh(args)
+    j, halo = mesh.coords["region"], args["halo"]
+    strips = torch.from_numpy(args["strips"])
+    nl = strips.shape[2]
+    x = torch.from_numpy(args["x"][:, j * nl:(j + 1) * nl]).requires_grad_()
+    block = halo_exchange(x.detach().transpose(0, 1).contiguous(), halo, mesh)
+    out = sharded_banded_apply(strips[j], x, halo, mesh)
+    cot = torch.from_numpy(args["cot"][:, :, j * nl:(j + 1) * nl])
+    (out * cot).sum().backward()
+    return {"block": block, "out": out.detach(), "grad": x.grad}
+
+
+def dense_region_conv(args, out_dir):
+    """A ``ChebGraphConv`` of ``args["W"]``, ``args["b"]`` on this rank's
+    row strip of ``args["sup"]`` (region mesh ``args["region"]``): its
+    output rows, and the gradients of ``sum(out * args["cot"])`` w.r.t.
+    the rank's signal rows and (this rank's share of) the parameters."""
+    import torch
+
+    from stmgcn_tpu_torch.ops.chebconv import ChebGraphConv
+
+    mesh = _region_mesh(args)
+    sup, x_all = args["sup"], args["x"]
+    k, n = sup.shape[0], sup.shape[-1]
+    nl = n // mesh.region
+    rows = slice(mesh.coords["region"] * nl, (mesh.coords["region"] + 1) * nl)
+    conv = ChebGraphConv(k, x_all.shape[-1], args["W"].shape[-1], device="cpu")
+    conv.load_state_dict({"W": torch.from_numpy(args["W"]), "b": torch.from_numpy(args["b"])})
+    conv.region_mesh = mesh
+    x = torch.from_numpy(x_all[:, rows]).requires_grad_()
+    out = conv(torch.from_numpy(sup[:, rows]), x)
+    (out * torch.from_numpy(args["cot"][:, rows])).sum().backward()
+    return {"out": out.detach(), "dx": x.grad, "dW": conv.W.grad, "db": conv.b.grad}
+
+
+def mixed_model(args, out_dir):
+    """A (banded, dense, dense) ``STMGCN`` of ``args["state"]`` over
+    ``args["sup"]`` on this region mesh: its prediction rows for
+    ``args["mixed_x"]``, and (this rank's share of) the gradients of
+    ``sum(pred * args["mixed_cot"])``."""
+    import numpy as np
+    import torch
+
+    from stmgcn_tpu_torch.models import STMGCN
+    from stmgcn_tpu_torch.parallel import MeshPlacement, banded_decompose
+
+    mesh = _region_mesh(args)
+    pl = MeshPlacement(mesh)
+    sup, x, cot = args["sup"], args["mixed_x"], args["mixed_cot"]
+    model = STMGCN(m_graphs=sup.shape[0], n_supports=sup.shape[1], seq_len=x.shape[1],
+                   input_dim=1, lstm_hidden_dim=8, lstm_num_layers=2, gcn_hidden_dim=8,
+                   support_modes=("banded",) + ("dense",) * (sup.shape[0] - 1), device="cpu",
+                   placement=pl)
+    model.load_state_dict(args["state"])
+    routed = (banded_decompose(sup[0], mesh.region),) + tuple(sup[1:])
+    placed = tuple(s.to("cpu") if hasattr(s, "halo") else torch.from_numpy(np.ascontiguousarray(s))
+                   for s in pl.put(routed, "supports"))
+    pred = model(placed, torch.from_numpy(np.ascontiguousarray(pl.put(x, "x"))))
+    (pred * torch.from_numpy(np.ascontiguousarray(pl.put(cot, "y")))).sum().backward()
+    return {"pred": pred.detach(), "grads": {k: p.grad for k, p in model.named_parameters()},
+            "modes": model.support_modes, "layout": model.loop_layout}
+
+
+def grad_sync_order(args, out_dir):
+    """C4: ``GradSync.reduce`` over a dp mesh of ``args["dp"]`` ranks, rank
+    r holding partial ``perm[r]`` of ``args["partials"]`` (two gradient
+    tensors), for every permutation in ``args["perms"]``: the reduced
+    gradients, and the bucket's bytes."""
+    import torch
+
+    from stmgcn_tpu_torch.config import MeshConfig
+    from stmgcn_tpu_torch.parallel import GradSync, mesh_from_config
+    from stmgcn_tpu_torch.utils import comm, step_comm_report
+
+    mesh = mesh_from_config(MeshConfig(dp=args["dp"]), device="cpu")
+    parts = args["partials"]
+    cut = parts.shape[1] // 2
+    outs, report = [], None
+    for perm in args["perms"]:
+        mine = torch.from_numpy(parts[perm[mesh.rank]].copy())
+        grads = [mine[:cut].clone(), mine[cut:].clone().reshape(-1, 1)]
+        sync = GradSync(mesh, grads, [False, False])
+        report = step_comm_report(sync.reduce, grads)
+        outs.append(torch.cat([g.reshape(-1) for g in grads]))
+    return {"outs": outs, "bytes": report["what"]["all-reduce/dp/grads"]["bytes"],
+            "backend": mesh.backend, "collectives": list(comm.COLLECTIVES)}
+
+
 def main(out: str, names: str) -> None:
     import torch
 

@@ -65,8 +65,10 @@ def test_exit_codes_follow_the_reference(tmp_path, capsys):
     assert main(empty + ["--epochs", "1", "--resume", "auto"]) == 0
     result, lines = _results(capsys)
     assert "No resumable checkpoint found — starting fresh" in lines
-    assert main(["--preset", "scaled", "--device", "cpu"]) == 1  # preset() refuses it
+    assert main(["--preset", "nope", "--device", "cpu"]) == 1  # preset() refuses it
     assert "preset must be one of" in capsys.readouterr().err
+    assert main(["--preset", "bandedbranch", "--device", "cpu"]) == 1  # refused by name
+    assert "bandedbranch" in capsys.readouterr().err
     for flag in (["--platform", "cpu"], ["--resume", "always"]):
         with pytest.raises(SystemExit) as info:
             main(["--preset", "smoke"] + flag)

@@ -7,8 +7,9 @@ HLO, the port counts every collective it runs. One training step of a
 small model on a dp=2 x branch=3 CPU mesh (gloo) with the clip on moves
 exactly (each the op's output bytes, the JAX rule):
 
-- the gradient bucket: one all-reduce over ``dp`` of 4 bytes per local
-  parameter (the rank's branch slice plus the head);
+- the gradient bucket: one all-reduce over ``dp`` of 8 bytes per local
+  parameter (the rank's branch slice plus the head: the float32 gradients
+  summed as float64, so the sum does not depend on its order);
 - the step's loss: one 4-byte all-reduce over ``dp``;
 - the fusion: one all-reduce over ``branch`` of ``B/dp x N x gcn_hidden``
   float32 per forward;
@@ -49,16 +50,16 @@ def test_step_bytes_match_the_analytic_counts(step):
         rows = r["rows"].stop - r["rows"].start
         fusion = rows * r["nodes"] * r["gcn"] * 4
         assert r["report"]["what"] == {
-            "all-reduce/dp/grads": {"calls": 1, "bytes": 4 * r["numel"]},
+            "all-reduce/dp/grads": {"calls": 1, "bytes": 8 * r["numel"]},
             "all-reduce/dp/loss": {"calls": 1, "bytes": 4},
             "all-reduce/branch/fusion": {"calls": 1, "bytes": fusion},
             "all-reduce/branch/clip-norm": {"calls": 1, "bytes": 4},
         }
         assert r["report"]["ops"] == {
-            "all-reduce/dp": {"calls": 2, "bytes": 4 * r["numel"] + 4},
+            "all-reduce/dp": {"calls": 2, "bytes": 8 * r["numel"] + 4},
             "all-reduce/branch": {"calls": 2, "bytes": fusion + 4},
         }
-        assert r["report"]["total_bytes"] == 4 * r["numel"] + 8 + fusion
+        assert r["report"]["total_bytes"] == 8 * r["numel"] + 8 + fusion
 
 
 def test_step_keeps_to_its_manifest(step):

@@ -125,8 +125,17 @@ def test_divisibility_messages_match_jax():
         assert errs[0] == errs[1], args
     with pytest.raises(ValueError, match="batch_size 6 not divisible by dp=4"):
         port.check_divisibility(6, 9)
-    with pytest.raises(ValueError, match="region parallelism"):
-        MeshPlacement(_fake_mesh(2, region=2))
+    region = MeshPlacement(_fake_mesh(2, region=2))
+    jax_region = JaxMeshPlacement(jax_build_mesh(dp=2, region=2))
+    for args in ((16, 9), (16, 10), (5, 10)):
+        errs = []
+        for pl in (region, jax_region):
+            try:
+                pl.check_divisibility(*args)
+                errs.append(None)
+            except ValueError as e:
+                errs.append(str(e))
+        assert errs[0] == errs[1], args
     with pytest.raises(ValueError, match="unknown array kind"):
         port.put(np.ones(4), "gradients")
 

@@ -58,6 +58,7 @@ from stmgcn_tpu_torch.experiment import build_dataset, build_model, build_suppor
 from stmgcn_tpu_torch.models import STMGCN
 from stmgcn_tpu_torch.ops import SupportConfig
 from stmgcn_tpu_torch.ops.chebconv import (
+    BandedChebGraphConv,
     ChebGraphConv,
     SparseChebGraphConv,
     TiledChebGraphConv,
@@ -264,8 +265,9 @@ def test_convs_share_one_parameter_layout_and_refuse_wrong_forms():
         convs[2](plan[0], x)
     with pytest.raises(ValueError, match="per-branch support groups"):
         convs[1](stacks[:2], x)
-    with pytest.raises(ValueError, match="banded"):
-        conv_cls("banded")
+    assert conv_cls("banded") is BandedChebGraphConv
+    with pytest.raises(ValueError, match="support mode must be one of"):
+        conv_cls("ring")
     assert conv_cls(True) is SparseChebGraphConv and conv_cls("tiled") is TiledChebGraphConv
 
 
