@@ -444,13 +444,45 @@ each against the unpadded single-device twin of the same seed (graphed):
     auto`` in eight processes (its series cut to REGION_CLI_TIMESTEPS)
     prints one JSON line.
 
+The sparse mesh phases, in the same eight-rank job as 61-62 (a world of
+eight holds the region=8 and 2x2x2 meshes; each builds its process groups
+once); each holds the kernels B3/B4 on a rank's strips and B1/B2 on its
+rows:
+
+64. ``scaled`` at fp32 with ``model.sparse`` (block-CSR row strips of 313
+    rows over region=8): per rank, every step's
+    loss (rtol 1e-5) and the final parameters elementwise (phase 62's
+    rules) against the one-device block-CSR twin at N = 2,500 (one epoch);
+    B3 two per
+    forward (the gate's shared-signal launch and the graph conv's, all
+    branches in one), B4 one per step, B1/B2 one per forward and step;
+    each branch's strip C, C_t and stored-block density; one step's bytes
+    against ``stacked_bytes`` and the manifest; and one conv's strip
+    output against the twin's rows on a seeded signal (bit for bit, and
+    the largest difference);
+65. ``bandedbranch`` (dp=2 x region=2 x branch=2, M=2, its width) on each
+    route, one epoch: the preset's synthetic graphs
+    (``auto`` falls back to the dense plan), banded city adjacencies
+    (branch-stacked strips, each branch group its own halo ring) and
+    block-CSR supports (branch-stacked strips): ``branch_modes()`` and
+    the routed form; every step's loss within BRANCH_LOSS_RTOL and the
+    parameters (phase 57's rule) against the one-device twin on the same
+    data and weights; the bytes; B1/B2 on every route, B3/B4 on the
+    block-CSR one;
+66. the metro plan's branch 0 split over the largest region its block
+    bandwidth fits (``shard_tiled_plan``; the parent shards it while the
+    metro city is on hand, with the one-device B3/B4 reference), each
+    rank's sharded apply (halo-local stacks, B3 forward, B4 for the input
+    gradient) within TILED_ATOL of the largest value.
+
 Checkpoints go to a temporary directory that the run removes.
 
 The last three lines are the card, one JSON object describing each kernel
 form (B1's and B2's fp32 records carry phase 3b's shapes as
 ``route_shapes``, the B1 records their ``export_launches``; the bf16 forms' records carry ``"dtype": "bfloat16"``,
 the xla forms' ``"form": "xla"`` too; every record its ``mesh_launches``
-and ``region_launches``, summed over the ranks of 57-59 and of 61-62),
+``region_launches`` and ``sparse_mesh_launches``, summed over the ranks of
+57-59, of 61-62 and of 64-66),
 and ``{"ok": true, "device":
 {...}}``. There is no CPU mode: without a CUDA
 device the script exits non-zero before printing any result.
@@ -458,6 +490,7 @@ device the script exits non-zero before printing any result.
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import functools
 import importlib
@@ -2115,6 +2148,25 @@ def metro_train(device, ds, dense_dev, plan_dev) -> dict:
     return counts
 
 
+def ktuple_of(stack):
+    """A one-branch ``BlockSparseStack``'s K supports as ``BlockSparse``,
+    each cut to its own block-column widths: the arrays ``from_dense`` of
+    that support gives (each row's nonzero blocks first, in column order,
+    at one common width in the stack), without scanning the dense supports
+    again."""
+    S = importlib.import_module("stmgcn_tpu_torch.ops.spmm")
+    out = []
+    for k in range(stack.n_supports):
+        c = max(int(stack.nblk[k].max()), 1)
+        c_t = max(int(stack.nblk_t[k].max()), 1)
+        out.append(S.BlockSparse(
+            data=stack.data[k, :, :c].contiguous(), idx=stack.idx[k, :, :c].contiguous(),
+            nblk=stack.nblk[k].contiguous(), data_t=stack.data_t[k, :, :c_t].contiguous(),
+            idx_t=stack.idx_t[k, :, :c_t].contiguous(), nblk_t=stack.nblk_t[k].contiguous(),
+            n=stack.n_rows, tile=stack.tile))
+    return tuple(out)
+
+
 def metro_sparse(device, ds, dense, dense_dev, plan_dev):
     """Phase 15: the block-sparse mode (per-branch ``BlockSparseStack``,
     B3/B4) and the K-tuple of ``BlockSparse`` (B5), plus the tiled plan
@@ -2126,14 +2178,15 @@ def metro_sparse(device, ds, dense, dense_dev, plan_dev):
     S = importlib.import_module("stmgcn_tpu_torch.ops.spmm")
     M, K = dense.shape[:2]
     t0 = time.perf_counter()
-    stacks = S.place_supports(tuple(S.stack_from_dense(dense[m]) for m in range(M)), device)
+    host = tuple(S.stack_from_dense(dense[m]) for m in range(M))
+    stacks = S.place_supports(host, device)
     t1 = time.perf_counter()
-    ktuples = S.place_supports(
-        tuple(tuple(S.from_dense(dense[m, k]) for k in range(K)) for m in range(M)), device)
+    ktuples = S.place_supports(tuple(ktuple_of(st) for st in host), device)
     t2 = time.perf_counter()
     print(f"block-sparse supports of the metro city in the original node order, host seconds: "
           f"per-branch stacks {t1 - t0:.2f} (C {[s.data.shape[2] for s in stacks]}), K-tuples "
-          f"{t2 - t1:.2f} (C {[[b.block_cols_per_row for b in g] for g in ktuples]})")
+          f"cut from them {t2 - t1:.2f} (C {[[b.block_cols_per_row for b in g] for g in ktuples]};"
+          f" the arrays from_dense gives, tests/test_torch_tiling.py)")
     obs = torch.as_tensor(ds.arrays("test")[0][:METRO_BATCH], device=device)
     w = torch.randn(obs.shape[0], obs.shape[2], obs.shape[3], device=device,
                     generator=torch.Generator(device=device).manual_seed(3))
@@ -6268,8 +6321,9 @@ def p50_ms(seconds) -> float:
     return float(np.median(seconds) * 1e3) if seconds else float("nan")
 
 
-def mesh_train(cfg, device, *, test: bool = False) -> dict:
-    """One rank (or the twin) of a phase: build, train with the recorder on,
+def mesh_train(cfg, device, *, test: bool = False, dataset=None, supports=None) -> dict:
+    """One rank (or the twin) of a phase: build (on ``dataset`` and its
+    dense ``supports``, None: the config's), train with the recorder on,
     read the launches, the comm counts and the initial and final (whole)
     parameters; then one more step under ``step_comm_report`` for the
     manifest check."""
@@ -6280,7 +6334,10 @@ def mesh_train(cfg, device, *, test: bool = False) -> dict:
     from stmgcn_tpu_torch.parallel import check_executed, manifest_for_config
     from stmgcn_tpu_torch.utils import comm, step_comm_report
 
-    trainer = build_trainer(cfg, device=device, verbose=False)
+    t_build = time.perf_counter()
+    trainer = build_trainer(cfg, device=device, verbose=False, dataset=dataset,
+                            supports=supports)
+    t_build = time.perf_counter() - t_build
     init = from_jax_params(trainer.state_trees()[0], trainer.model.m_graphs)
     rec = recorded(trainer)
     comm.STATS.reset()
@@ -6292,7 +6349,7 @@ def mesh_train(cfg, device, *, test: bool = False) -> dict:
     stats = comm.collective_stats()
     params, _ = trainer.state_trees()
     out = {"losses": list(rec["losses"]), "p50_ms": p50_ms(rec["seconds"]),
-           "seconds": seconds,
+           "seconds": seconds, "build_s": t_build,
            "steps": len(rec["losses"]), "forwards": rec["forwards"],
            "rows": sorted(rec["rows"]), "counts": counts, "comm": stats,
            "path": trainer.train_path, "graphs": trainer.graphs,
@@ -6307,7 +6364,8 @@ def mesh_train(cfg, device, *, test: bool = False) -> dict:
         report = step_comm_report(trainer.train_batch, batch)
         out["step_comm"] = {k: v for k, v in report.items() if k != "result"}
         banded = "banded" in trainer.model.support_modes
-        out["manifest"] = check_executed(manifest_for_config(cfg, banded=banded), report)
+        out["manifest"] = check_executed(
+            manifest_for_config(cfg, banded=banded, transport=trainer.mesh.backend), report)
         out["numel"] = sum(p.numel() for p in trainer.model.parameters())
     out["trainer"] = trainer
     if device.type == "cuda":
@@ -6593,15 +6651,19 @@ def run_ranks(job: str, world: int, **args) -> list:
 
 
 def mesh_twin(name: str, device, *, dtype: str = "float32", epochs: int = MESH_EPOCHS,
-              test: bool = False, seed: int | None = None) -> dict:
+              test: bool = False, seed: int | None = None, cfg=None, dataset=None,
+              supports=None) -> dict:
     """The preset's single-device twin on the card (graphed, as a user
-    runs it): the same config without the mesh, the same seed."""
+    runs it): the same config without the mesh, the same seed (``cfg``: a
+    mesh config of its own, its mesh removed; ``dataset`` and its dense
+    ``supports``: the data it trains on)."""
     from stmgcn_tpu_torch.config import MeshConfig
 
-    cfg = mesh_config(name, scratch(f"twin-{name}-{dtype}-{epochs}-{seed}"), dtype=dtype,
-                      epochs=epochs, seed=seed)
+    if cfg is None:
+        cfg = mesh_config(name, scratch(f"twin-{name}-{dtype}-{epochs}-{seed}"), dtype=dtype,
+                          epochs=epochs, seed=seed)
     cfg.mesh = MeshConfig()
-    got = mesh_train(cfg, device, test=test)
+    got = mesh_train(cfg, device, test=test, dataset=dataset, supports=supports)
     got["cfg"] = cfg
     opt = got["trainer"].optimizer  # Adam's rms gradient per entry, for param_gaps
     got["rms_grad"] = {n: np.sqrt(v.detach().float().cpu().numpy())
@@ -6759,7 +6821,19 @@ REGION_MODES, REGION_HALO, REGION_PAD, REGION_ROWS = (
     ("banded", "dense", "dense"), 150, 4, {3 * 16 * 313})
 
 
-def region_bytes(cfg, numel: int, halo: int, n_nodes: int, modes) -> dict:
+def cotangent_bytes(calls: int, whole: int, region: int, transport: str) -> dict:
+    """The region convs' input-cotangent sums of a step (``what``
+    ``node-rows-grad``): over NCCL a reduce-scatter whose output is a
+    rank's rows (a ``1/region`` of the ``whole`` cotangent's bytes), over
+    gloo an all-reduce of the whole (``comm.reduce_scatter``)."""
+    if transport == "nccl":
+        return {"reduce-scatter/region/node-rows-grad": {"calls": calls,
+                                                         "bytes": whole // region}}
+    return {"all-reduce/region/node-rows-grad": {"calls": calls, "bytes": whole}}
+
+
+def region_bytes(cfg, numel: int, halo: int, n_nodes: int, modes,
+                 transport: str = "gloo") -> dict:
     """The collectives one training step of a region mesh moves, per rank
     (``comm``'s ``what`` table: calls and output bytes), from the config,
     the parameter count, the banded branches' halo, the padded node count
@@ -6771,7 +6845,8 @@ def region_bytes(cfg, numel: int, halo: int, n_nodes: int, modes) -> dict:
     convs' signals carry
     gradients (the gate's is data): a banded branch permutes the halos'
     cotangents back (compute dtype), a dense one all-reduces its float32
-    whole-axis cotangent; the pooling's cotangent; then the float64
+    whole-axis cotangent (over NCCL reduce-scatters it,
+    :func:`cotangent_bytes`); the pooling's cotangent; then the float64
     gradient bucket and the 4-byte loss."""
     b, t = cfg.train.batch_size // cfg.mesh.dp, cfg.data.seq_len
     h, m = cfg.model.lstm_hidden_dim, cfg.model.m_graphs
@@ -6787,8 +6862,8 @@ def region_bytes(cfg, numel: int, halo: int, n_nodes: int, modes) -> dict:
     if dense:
         want["all-gather/region/node-rows"] = {"calls": 2 * dense,
                                                "bytes": dense * isz * b * n_nodes * (t + h)}
-        want["all-reduce/region/node-rows-grad"] = {"calls": dense,
-                                                    "bytes": dense * 4 * b * n_nodes * h}
+        want.update(cotangent_bytes(dense, dense * 4 * b * n_nodes * h, cfg.mesh.region,
+                                    transport))
     if banded:
         want["collective-permute/region/halo"] = {"calls": 4 * banded,
                                                   "bytes": banded * 2 * isz * halo * b * (t + h)}
@@ -6800,6 +6875,28 @@ def region_bytes(cfg, numel: int, halo: int, n_nodes: int, modes) -> dict:
 def scaled_config(out: str, dtype: str, epochs: int = REGION_EPOCHS):
     """The ``scaled`` preset at ``dtype``, its epochs cut to ``epochs``."""
     return mesh_config("scaled", out, dtype=dtype, epochs=epochs)
+
+
+def scaled_city(region: int | None = None) -> dict:
+    """The scaled phases' city, built once per process: the dataset and
+    its dense (node-padded at ``region``, None: the preset's) Chebyshev
+    stack, which phases 61, 62 and 64 (and their dense twins) share: each
+    ``build_trainer`` would build the same arrays again (N = 2,504: about
+    40 s a rank while eight ranks build at once)."""
+    from stmgcn_tpu_torch.experiment import build_dataset, build_supports
+
+    cfg = scaled_config("", "float32")
+    if region is not None:
+        cfg.mesh.region = region
+    key = ("scaled", cfg.mesh.region, cfg.mesh.n_devices)
+    if key not in _CITIES:
+        ds = build_dataset(cfg)
+        _CITIES[key] = {"dataset": ds, "supports": build_supports(cfg, ds)}
+    return _CITIES[key]
+
+
+#: :func:`scaled_city`'s cities, by (preset, region, devices)
+_CITIES: dict = {}
 
 
 def route_info(trainer) -> dict:
@@ -6814,20 +6911,23 @@ def route_info(trainer) -> dict:
 
 def mesh_job_scaled(args, out: str, device) -> dict:
     """Phases 61 (bf16), 62 (fp32) and 63's mesh side (the lead's
-    ``best.ckpt`` of 62 evaluated on the mesh) in one rank of the 8-rank
-    job; ``args["region"]`` another extent (``scripts/mesh_nccl.py``)."""
+    ``best.ckpt`` of 62 evaluated on the mesh), then 64-66 (the block-CSR
+    strips, the region x branch routes, the sharded tiled plan) in one
+    rank of the 8-rank job; ``args["region"]`` another extent and
+    ``args["phases"]`` fewer phases (``scripts/mesh_nccl.py``)."""
     import torch
 
     from stmgcn_tpu_torch.models import from_jax_params
     from stmgcn_tpu_torch.train.checkpoint import load_checkpoint
 
     res = {}
+    phases = args.get("phases", ("61", "62", "64", "65", "66"))
     for phase, dtype in (("61", "bfloat16"), ("62", "float32")):
-        if phase not in args.get("phases", ("61", "62")):
+        if phase not in phases:
             continue
         cfg = scaled_config(os.path.join(args["root"], dtype), dtype)
         cfg.mesh.region = args.get("region", cfg.mesh.region)
-        got = mesh_train(cfg, device)
+        got = mesh_train(cfg, device, **scaled_city(cfg.mesh.region))
         trainer = got.pop("trainer")
         got["route"] = route_info(trainer)
         res[phase] = got
@@ -6840,6 +6940,12 @@ def mesh_job_scaled(args, out: str, device) -> dict:
                          "best": trainer.best_path}
         del trainer
         torch.cuda.empty_cache()
+    if "64" in phases:
+        res["64"] = strip_rank(args, device)
+    if "65" in phases:
+        res["65"] = {route: branch_rank(route, args, device) for route in BRANCH_ROUTES}
+    if "66" in phases:
+        res["66"] = tiled_rank(args["tiled"], device)
     return res
 
 
@@ -6865,7 +6971,8 @@ def check_region_comm(got: dict, cfg, what: str) -> dict:
     one gradient all-reduce over ``region`` a step over the run; the
     manifest clean. Returns the step's table."""
     route = got["route"]
-    want = region_bytes(cfg, got["numel"], route["halos"][0], route["n_nodes"], route["modes"])
+    want = region_bytes(cfg, got["numel"], route["halos"][0], route["n_nodes"], route["modes"],
+                        got["mesh"]["backend"])
     step = got["step_comm"]["what"]
     if step != want:
         fail(f"{what}: one step moved {step}, the analytic counts are {want}")
@@ -6878,19 +6985,29 @@ def check_region_comm(got: dict, cfg, what: str) -> dict:
     return step
 
 
-def region_phases(device, card: str) -> dict:
-    """Phases 61-63; returns the LSTM launches summed over the ranks:
-    ``{"fp32": {"B1", "B2"}, "xla": {"B1 xla", "B2 xla"}}``."""
+def region_phases(device, card: str, tiled: dict) -> dict:
+    """Phases 61-66 (64-66 in the same eight-rank job as 61-62; ``tiled``:
+    phase 66's shards, :func:`tiled_shards`); returns the launches summed
+    over the ranks: ``{"fp32": {"B1", "B2"}, "xla": {"B1 xla", "B2 xla"},
+    "sparse": {...}}`` (``"sparse"``: phases 64-66)."""
     t0 = time.perf_counter()
-    twin16 = mesh_twin("scaled", device, dtype="bfloat16", epochs=REGION_EPOCHS)
+    city = scaled_city(1)  # the unpadded city of the twins
+    twin16 = mesh_twin("scaled", device, dtype="bfloat16", epochs=REGION_EPOCHS, **city)
     twin16.pop("trainer")
-    twin32 = mesh_twin("scaled", device, epochs=REGION_EPOCHS)  # 62's twin, 61's yardstick
+    twin32 = mesh_twin("scaled", device, epochs=REGION_EPOCHS, **city)  # 62's, 61's yardstick
     twin_trainer = twin32.pop("trainer")
     release()
     print(f"region twins (one device, graphed, N = 2,500 unpadded, dense): step p50 bf16 "
           f"{twin16['p50_ms']:.2f} ms, fp32 {twin32['p50_ms']:.2f} ms ({card}); "
           f"{time.perf_counter() - t0:.1f} s")
-    results = run_ranks("scaled", 8, root=scratch("region-files"))
+    t1 = time.perf_counter()
+    twins = {"64": strip_twin(device), "65": branch_twins(device)}
+    release()
+    print(f"phases 64-65 twins (one device, graphed): {time.perf_counter() - t1:.1f} s")
+    t1 = time.perf_counter()
+    results = run_ranks("scaled", 8, root=scratch("region-files"), tiled=tiled)
+    print(f"the eight-rank job (phases 61-62, 63's mesh side, 64-66): "
+          f"{time.perf_counter() - t1:.1f} s")
     cfgs = {"61": scaled_config("", "bfloat16"), "62": scaled_config("", "float32")}
     for r, res in enumerate(results):
         got, what = res["61"], f"phase 61 (scaled region=8, bf16) rank {r}"
@@ -6919,6 +7036,10 @@ def region_phases(device, card: str) -> dict:
     launches = {"fp32": {k: sum(r["62"]["counts"][k] for r in results) for k in ("B1", "B2")},
                 "xla": {k: sum(r["61"]["counts"][k] for r in results)
                         for k in ("B1 xla", "B2 xla")}}
+    launches["sparse"] = sparse_phases(device, card, results, twins, tiled)
+    del twins
+    print(f"sparse mesh phases (64-66) checked at {time.perf_counter() - t0:.1f} s of the region "
+          "phases")
     region_files(device, results, twin_trainer)
     del twin_trainer
     release()
@@ -6972,6 +7093,399 @@ def region_cli() -> None:
           f"{REGION_CLI_TIMESTEPS} steps) printed one JSON line in "
           f"{time.perf_counter() - t0:.1f} s: test mse "
           f"{json.loads(lines[0])['results']['test']['mse']:.6g}")
+
+
+# -- the block-CSR strips, region x branch and the sharded tiled plan (64-66) ---------
+
+#: phase 64 (``scaled`` with ``model.sparse``, region=8, fp32, one epoch as
+#: the region phases'): each rank's B3 per forward (the gate's shared-signal
+#: launch and the graph conv's) and B4 per step; the signal width of the
+#: strip probe
+STRIP_PER_FORWARD = {"B1": 1, "B3": 2, "B3 shared": 1}
+STRIP_PER_STEP = {"B2": 1, "B4": 1}
+STRIP_PROBE_F = 64
+#: phase 65: ``bandedbranch`` (dp=2 x region=2 x branch=2) on each route,
+#: one epoch (22 steps at batch 16); per-step losses within BRANCH_LOSS_RTOL
+#: of the one-device twin's; B1's rows a launch per rank (M/branch 1 x B/dp
+#: 8 x N/region 32)
+BRANCH_ROUTES = ("synthetic", "banded", "sparse")
+BRANCH_LOSS_RTOL, BRANCH_ROWS = 1e-6, {1 * 8 * 32}
+#: phase 66: the metro plan's branch 0 split over the largest region of
+#: TILED_REGIONS its block bandwidth fits, checked against one device at
+#: TILED_ATOL of the largest output (and input gradient) value; the
+#: signal width (batch 2 x 64 hidden, the metro graph conv's)
+TILED_REGIONS, TILED_ATOL, TILED_F = (8, 4, 2), 1e-5, 128
+
+
+def strip_config(out: str):
+    """Phase 64's config: ``scaled`` (region=8) at fp32 with block-CSR
+    supports, one epoch as the region phases'."""
+    cfg = scaled_config(out, "float32")
+    cfg.model.sparse = True
+    return cfg
+
+
+def branch_config(route: str, out: str):
+    """Phase 65's config of ``route``: ``bandedbranch`` at its width, fp32,
+    one epoch; block-CSR supports on the sparse route."""
+    cfg = mesh_config("bandedbranch", out, epochs=REGION_EPOCHS)
+    cfg.model.sparse = route == "sparse"
+    return cfg
+
+
+def branch_data(route: str, cfg):
+    """The route's data: the preset's synthetic graphs, or banded city
+    adjacencies (``banded_dataset``, the JAX ``composed_trainer``'s)."""
+    from stmgcn_tpu_torch.parallel import banded_dataset
+
+    return None if route == "synthetic" else banded_dataset(cfg)
+
+
+def stacked_bytes(cfg, numel: int, n_nodes: int, route: str, halo: int = 0,
+                  transport: str = "gloo") -> dict:
+    """The collectives one fp32 training step moves per rank on a region
+    mesh whose branches are one stacked operand (phases 64-65): dense row
+    strips or block-CSR strips (``route`` "dense"/"sparse": forward the
+    gate's shared T-step signal and the graph conv's per-branch H states
+    each one node-row all-gather, backward the graph conv's whole float32
+    cotangent one all-reduce, a reduce-scatter over NCCL) or
+    branch-stacked banded strips ("banded":
+    each local branch's halo permutes, as ``region_bytes``); the gate's
+    float64 pooling both ways; with a branch axis the fusion (a forward);
+    the float64 gradient bucket and the 4-byte loss over ``region``, then
+    ``dp``."""
+    mesh = cfg.mesh
+    b, t = cfg.train.batch_size // mesh.dp, cfg.data.seq_len
+    h, m = cfg.model.lstm_hidden_dim, cfg.model.m_graphs // mesh.branch
+    want = {
+        "all-reduce/region/node-pool": {"calls": 1, "bytes": 8 * m * b * t},
+        "all-reduce/region/node-pool-grad": {"calls": 1, "bytes": 8 * m * b * t},
+    }
+    for axis in ("region", "dp"):
+        if getattr(mesh, axis) > 1:
+            want[f"all-reduce/{axis}/grads"] = {"calls": 1, "bytes": 8 * numel}
+            want[f"all-reduce/{axis}/loss"] = {"calls": 1, "bytes": 4}
+    if mesh.branch > 1:
+        n_local = n_nodes // mesh.region
+        want["all-reduce/branch/fusion"] = {
+            "calls": 1, "bytes": 4 * b * n_local * cfg.model.gcn_hidden_dim}
+    if route == "banded":
+        want["collective-permute/region/halo"] = {"calls": 4 * m,
+                                                  "bytes": m * 2 * 4 * halo * b * (t + h)}
+        want["collective-permute/region/halo-grad"] = {"calls": 2 * m,
+                                                       "bytes": m * 2 * 4 * halo * b * h}
+    else:
+        want["all-gather/region/node-rows"] = {"calls": 2,
+                                               "bytes": 4 * b * n_nodes * (t + m * h)}
+        want.update(cotangent_bytes(1, 4 * m * b * n_nodes * h, mesh.region, transport))
+    return want
+
+
+def strip_info(strip) -> list:
+    """Per branch of a rank's block-CSR strip: the widest row's real
+    blocks (C), the transpose's (C_t), the real blocks stored and their
+    share of the strip's dense block grid."""
+    nblk, nblk_t = strip.nblk.cpu().numpy(), strip.nblk_t.cpu().numpy()
+    k, r = nblk.shape[-2:]
+    cols = nblk_t.shape[-1]
+    out = []
+    for m in range(nblk.shape[0]):
+        blocks = int(nblk[m].sum())
+        out.append({"C": int(nblk[m].max()), "C_t": int(nblk_t[m].max()), "blocks": blocks,
+                    "density": blocks / (k * r * cols)})
+    return out
+
+
+def probe_signal(n_real: int, n_nodes: int, device):
+    """Phase 64's strip probe: a seeded ``(n_nodes, STRIP_PROBE_F)`` signal,
+    zero on the padded node rows."""
+    import torch
+
+    x = torch.randn(n_nodes, STRIP_PROBE_F, generator=torch.Generator().manual_seed(64))
+    x[n_real:] = 0.0
+    return x.to(device)
+
+
+def strip_rank(args, device) -> dict:
+    """Phase 64 in one rank: ``strip_config`` trained on the region=8 mesh
+    (``mesh_train``), its routing and each branch's strip, and one conv's
+    strip output on the probe signal (B3 over the rank's strip against the
+    whole signal, outside the counted run)."""
+    from stmgcn_tpu_torch.ops.spmm import stack_forward
+
+    t0 = time.perf_counter()
+    cfg = strip_config(os.path.join(args["root"], "sparse"))
+    cfg.mesh.region = args.get("region", cfg.mesh.region)
+    got = mesh_train(cfg, device, **scaled_city(cfg.mesh.region))
+    trainer = got.pop("trainer")
+    got["route"] = route_info(trainer)
+    strip = trainer.supports
+    got["strips"] = strip_info(strip)
+    got["stored"] = (int(strip.data.shape[-3]), int(strip.data_t.shape[-3]))
+    got["strip_type"] = type(strip).__name__
+    x = probe_signal(trainer.dataset.n_nodes, strip.n, device)
+    got["probe"] = stack_forward(strip.stack(), x).cpu()
+    got["coords"] = trainer.mesh.coords
+    got["job_s"] = time.perf_counter() - t0
+    del trainer
+    release()
+    return got
+
+
+def branch_rank(route: str, args, device) -> dict:
+    """Phase 65 in one rank: ``branch_config(route)`` on its 2x2x2 mesh,
+    trained; its branch modes and routed form."""
+    t0 = time.perf_counter()
+    cfg = branch_config(route, os.path.join(args["root"], f"branch-{route}"))
+    got = mesh_train(cfg, device, dataset=branch_data(route, cfg))
+    trainer = got.pop("trainer")
+    sup = trainer.supports
+    got.update(modes=trainer.model.branch_modes(), form=type(sup).__name__,
+               branch_stacked=getattr(sup, "branch_stacked", None),
+               halo=getattr(sup, "halo", 0), layout=trainer.layout,
+               n_nodes=trainer.dataset.n_nodes + trainer._node_pads[0],
+               job_s=time.perf_counter() - t0)
+    del trainer
+    release()
+    return got
+
+
+def tiled_shards(plan, plan_dev, device) -> dict:
+    """Phase 66, the parent's half, while the metro city is on hand: branch
+    0 of the metro plan split over the largest region of TILED_REGIONS
+    its block bandwidth fits (``shard_tiled_plan``), each shard written to
+    a scratch file with its rows of a seeded signal and cotangent and of
+    the one-device B3 output and B4 input gradient on the same plan (the
+    reference; these launches are not counted)."""
+    import torch
+
+    from stmgcn_tpu_torch.ops.spmm import spmm_stack_bwd, stack_forward
+    from stmgcn_tpu_torch.ops.tiling import shard_tiled_plan
+
+    t0 = time.perf_counter()
+    refused = []
+    for region in TILED_REGIONS:
+        try:
+            sharded = shard_tiled_plan(plan[0], region)
+            break
+        except ValueError as e:
+            refused.append(f"region={region}: {e}")
+    else:
+        fail(f"phase 66: the metro plan fits no region of {TILED_REGIONS}: {refused}")
+    gen = torch.Generator().manual_seed(66)
+    n, k = plan.n, plan.n_supports
+    n_pad = sharded.n_shards * sharded.block_rows_local * sharded.tile
+    x = torch.zeros(n_pad, TILED_F)
+    x[:n] = torch.randn(n, TILED_F, generator=gen)
+    cot = torch.zeros(k, n_pad, TILED_F)
+    cot[:, :n] = torch.randn(k, n, TILED_F, generator=gen)
+    stack = plan_dev[0].as_stack()
+    want = stack_forward(stack, x[:n].to(device)).cpu()
+    want_dx = spmm_stack_bwd(stack, cot[:, :n].contiguous().to(device), shared=True).cpu()
+    reset_counts()
+    out = scratch("tiled-shards")
+    os.makedirs(out, exist_ok=True)
+    rows = sharded.block_rows_local * sharded.tile
+    for j in range(sharded.n_shards):
+        lo, hi = j * rows, min((j + 1) * rows, n)
+        torch.save({"shard": sharded.shard(j), "x": x[j * rows:(j + 1) * rows].clone(),
+                    "cot": cot[:, j * rows:(j + 1) * rows].clone(), "rows": (lo, hi),
+                    "want": want[:, lo:hi].clone(), "want_dx": want_dx[lo:hi].clone()},
+                   os.path.join(out, f"shard{j}.pt"))
+    info = {"dir": out, "region": sharded.n_shards, "halo": sharded.halo,
+            "halo_t": sharded.halo_t, "r_loc": sharded.block_rows_local, "refused": refused,
+            "scale": float(want.abs().max()), "scale_dx": float(want_dx.abs().max()),
+            "seconds": time.perf_counter() - t0}
+    print(f"phase 66 (parent): the metro plan's branch 0 (R={plan.block_rows} block rows of "
+          f"{plan.tile}) split over region={info['region']}: halo {info['halo']}, halo_t "
+          f"{info['halo_t']} block rows, r_loc {info['r_loc']}"
+          + (f" (refused: {'; '.join(refused)})" if refused else "")
+          + f"; shards, signal and one-device B3/B4 reference written in {info['seconds']:.1f} s")
+    return info
+
+
+def tiled_rank(info: dict, device) -> dict:
+    """Phase 66 in one rank: its shard of the metro plan on the card, the
+    sharded apply forward (B3) and its input gradient (B4) against the
+    one-device reference rows."""
+    import torch
+
+    from stmgcn_tpu_torch.config import MeshConfig
+    from stmgcn_tpu_torch.ops.tiling import sharded_gathered_tiles_apply
+    from stmgcn_tpu_torch.parallel import mesh_from_config
+
+    t0 = time.perf_counter()
+    region = info["region"]
+    mesh = mesh_from_config(MeshConfig(dp=8 // region, region=region), device=device)
+    j = mesh.coords["region"]
+    part = torch.load(os.path.join(info["dir"], f"shard{j}.pt"), weights_only=False)
+    shard = part["shard"].to(device)
+    x = part["x"].to(device).requires_grad_()
+    reset_counts()
+    out = sharded_gathered_tiles_apply(shard, x, mesh)
+    (out * part["cot"].to(device)).sum().backward()
+    counts = read_counts()
+    lo, hi = part["rows"]
+    err = float((out.detach().cpu()[:, :hi - lo] - part["want"]).abs().max())
+    err_dx = float((x.grad.cpu()[:hi - lo] - part["want_dx"]).abs().max())
+    del shard
+    release()
+    return {"err": err, "err_dx": err_dx, "counts": counts, "coords": mesh.coords,
+            "rows": (lo, hi), "job_s": time.perf_counter() - t0}
+
+
+def strip_twin(device) -> dict:
+    """Phase 64's twin: the one-device block-CSR trainer at N = 2,500 (per
+    branch stacks, graphed), its stacks kept for the strip probe."""
+    got = mesh_twin("scaled", device, cfg=strip_config(scratch("twin-sparse")))
+    trainer = got.pop("trainer")
+    got["n_real"] = trainer.dataset.n_nodes
+    got["stacks"] = trainer.supports
+    return got
+
+
+def branch_twins(device) -> dict:
+    """Phase 65's twins: each route's config on one device (graphed) on the
+    same data, the same seed."""
+    twins = {}
+    for route in BRANCH_ROUTES:
+        cfg = branch_config(route, scratch(f"twin-branch-{route}"))
+        twins[route] = mesh_twin("bandedbranch", device, cfg=cfg, dataset=branch_data(route, cfg))
+        twins[route].pop("trainer")
+    return twins
+
+
+def check_step_bytes(got: dict, want: dict, what: str) -> None:
+    """A rank's one-step collectives equal ``want``; the run's gradient
+    sums one a step; the manifest clean."""
+    step = got["step_comm"]["what"]
+    if step != want:
+        fail(f"{what}: one step moved {step}, the analytic counts are {want}")
+    g = got["comm"]["what"].get("all-reduce/region/grads", {"calls": 0, "bytes": 0})
+    if g["calls"] != got["steps"] or g["bytes"] != got["steps"] * 8 * got["numel"]:
+        fail(f"{what}: the gradient all-reduce ran {g['calls']} times, {g['bytes']} bytes over "
+             f"{got['steps']} steps; expected one of {8 * got['numel']} bytes a step")
+    if got["manifest"]:
+        fail(f"{what}: the step broke its collective manifest: {got['manifest']}")
+
+
+def check_block_counts(got: dict, what: str, rows: set, sparse: bool) -> None:
+    """B1 one per forward (of ``rows`` rows) and B2 one per step; on a
+    block-CSR route B3 two per forward (one on the gate's shared signal)
+    and B4 one per step, none elsewhere; B5 never."""
+    per_forward = dict(STRIP_PER_FORWARD) if sparse else {"B1": 1}
+    per_step = dict(STRIP_PER_STEP) if sparse else {"B2": 1}
+    counts = {k: v for k, v in got["counts"].items() if k not in ("B1 xla", "B2 xla")}
+    check_counts(counts, per_forward, per_step, got["forwards"], got["steps"], what)
+    if set(got["rows"]) != rows:
+        fail(f"{what}: B1 took {got['rows']} rows a launch, expected {sorted(rows)}")
+
+
+def sparse_phases(device, card: str, results, twins: dict, tiled: dict) -> dict:
+    """Phases 64-66 checked: each rank's run against its twin (phase 62's
+    rules for 64, BRANCH_LOSS_RTOL and phase 57's parameter rule for 65),
+    launches, bytes against the analytic counts, the strip probe against
+    the twin's rows, the sharded tiled plan against one device. Returns
+    the launches summed over the ranks."""
+    import torch
+
+    from stmgcn_tpu_torch.ops.spmm import stack_forward
+
+    t0 = time.perf_counter()
+    sums = collections.Counter()
+    # 64: the block-CSR strips at region=8
+    twin = twins["64"]
+    cfg = strip_config("")
+    x = probe_signal(twin["n_real"], results[0]["64"]["route"]["n_nodes"], device)
+    probe = torch.stack([stack_forward(st, x[:twin["n_real"]]) for st in twin["stacks"]]).cpu()
+    bitwise, worst = 0, 0.0
+    for r, res in enumerate(results):
+        got, what = res["64"], f"phase 64 (scaled sparse region=8, fp32) rank {r}"
+        route = got["route"]
+        if route["modes"] != ("sparse",) * 3 or route["node_pad"] != REGION_PAD or (
+                got["strip_type"] != "ShardedBlockSparse"):
+            fail(f"{what}: routed {route['modes']} as {got['strip_type']} with "
+                 f"{route['node_pad']} padded rows")
+        check_block_counts(got, what, REGION_ROWS, sparse=True)
+        check_step_bytes(got, stacked_bytes(cfg, got["numel"], route["n_nodes"], "sparse",
+                                            transport=got["mesh"]["backend"]), what)
+        text = check_mesh_run(got, twin, what)
+        gaps = param_gaps(got, twin)
+        n_local = route["n_nodes"] // cfg.mesh.region
+        lo = got["coords"]["region"] * n_local
+        hi = min(lo + n_local, twin["n_real"])
+        mine, want = got["probe"][:, :, :hi - lo], probe[:, :, lo:hi]
+        diff = float((mine - want).abs().max()) if hi > lo else 0.0
+        same = bool(torch.equal(mine, want))
+        bitwise += same
+        worst = max(worst, diff)
+        strips = "; ".join(f"branch {m}: C {s['C']}, C_t {s['C_t']}, {s['blocks']} blocks, "
+                           f"density {s['density']:.4f}" for m, s in enumerate(got["strips"]))
+        c = got["counts"]
+        print(f"{what} at {got['mesh']['coords']}: {text}; B3 {c['B3']} ({c['B3 shared']} on "
+              f"the gate's shared signal), B4 {c['B4']}, B1 {c['B1']}, B2 {c['B2']} for "
+              f"{got['forwards']} forwards and {got['steps']} steps; strips (stored C "
+              f"{got['stored'][0]}, C_t {got['stored'][1]}): {strips}; the strip probe against "
+              f"the twin's rows {lo}-{hi}: bitwise {same}, max |diff| {diff:.3e}; bytes and "
+              f"manifest as analytic; step p50 {got['p50_ms']:.2f} ms (twin "
+              f"{twin['p50_ms']:.2f} ms; {card}); past phase 57's rule: {gaps_text(gaps)}; "
+              f"rank job {got['job_s']:.1f} s (build {got['build_s']:.1f} s)")
+        for k in ("B1", "B2", "B3", "B3 shared", "B4"):
+            sums[k] += c[k]
+    print(f"phase 64: one step moved {results[0]['64']['step_comm']['what']} (the analytic "
+          f"counts); the strip probe equal bit for bit on {bitwise} of {len(results)} ranks, "
+          f"max |diff| {worst:.3e}; twin (one device, graphed, per-branch stacks at N = 2,500) "
+          f"step p50 {twin['p50_ms']:.2f} ms")
+    # 65: bandedbranch on each route
+    for route in BRANCH_ROUTES:
+        twin = twins["65"][route]
+        cfg = branch_config(route, "")
+        for r, res in enumerate(results):
+            got, what = res["65"][route], f"phase 65 (bandedbranch 2x2x2, {route}) rank {r}"
+            want_modes = {"synthetic": ("dense",) * 2, "banded": ("banded",) * 2,
+                          "sparse": ("sparse",) * 2}[route]
+            if got["modes"] != want_modes or got["layout"] != "vmapped" or (
+                    got["branch_stacked"] != (None if route == "synthetic" else True)):
+                fail(f"{what}: branch_modes {got['modes']}, {got['form']} (branch_stacked "
+                     f"{got['branch_stacked']}), layout {got['layout']}")
+            check_block_counts(got, what, BRANCH_ROWS, sparse=route == "sparse")
+            plan = "dense" if route == "synthetic" else route
+            check_step_bytes(got, stacked_bytes(cfg, got["numel"], got["n_nodes"], plan,
+                                                got["halo"], got["mesh"]["backend"]), what)
+            text = check_mesh_run(got, twin, what, loss_rtol=BRANCH_LOSS_RTOL)
+            c = got["counts"]
+            for k in ("B1", "B2", "B3", "B3 shared", "B4"):
+                sums[k] += c[k]
+            if r in (0, len(results) - 1):
+                print(f"{what} at {got['mesh']['coords']}: branch_modes {got['modes']}, routed "
+                      f"{got['form']} (branch_stacked {got['branch_stacked']}"
+                      + (f", halo {got['halo']}" if got["halo"] else "") + f"); {text}; "
+                      f"launches {counts_text(c)}; bytes and manifest as analytic; step p50 "
+                      f"{got['p50_ms']:.2f} ms (twin {twin['p50_ms']:.2f} ms; {card}); rank job "
+                      f"{got['job_s']:.1f} s")
+        print(f"phase 65 ({route}): one step moved {results[0]['65'][route]['step_comm']['what']}")
+    # 66: the sharded tiled plan
+    for r, res in enumerate(results):
+        got, what = res["66"], f"phase 66 (metro plan, region={tiled['region']}) rank {r}"
+        c = got["counts"]
+        if (c["B3"], c["B4"]) != (1, 1) or any(c[k] for k in ("B1", "B2", "B5")):
+            fail(f"{what}: launches {counts_text(c)}, expected B3 1 and B4 1")
+        if got["err"] > TILED_ATOL * tiled["scale"] or got["err_dx"] > TILED_ATOL * tiled[
+                "scale_dx"]:
+            fail(f"{what}: output max |err| {got['err']:.3e}, input gradient {got['err_dx']:.3e} "
+                 f"against the one-device B3/B4 (limit {TILED_ATOL} of {tiled['scale']:.3e}, "
+                 f"{tiled['scale_dx']:.3e})")
+        sums["B3"] += c["B3"]
+        sums["B4"] += c["B4"]
+        if r in (0, len(results) - 1):
+            print(f"{what} at {got['coords']}, rows {got['rows']}: B3 {c['B3']}, B4 {c['B4']}; "
+                  f"output max |err| {got['err']:.3e} (of max {tiled['scale']:.3e}), input "
+                  f"gradient {got['err_dx']:.3e} (of max {tiled['scale_dx']:.3e}) against one "
+                  f"device (limit {TILED_ATOL} of each); rank job {got['job_s']:.1f} s")
+    print(f"phase 66: halo {tiled['halo']}, halo_t {tiled['halo_t']}, r_loc {tiled['r_loc']} "
+          f"block rows at region={tiled['region']}; every rank within {TILED_ATOL} of the "
+          f"largest value; checks {time.perf_counter() - t0:.1f} s")
+    return dict(sums)
 
 
 def main() -> int:
@@ -7129,6 +7643,7 @@ def run_phases() -> int:
     metro_place = placement_metro(device, ds, plan_dev)  # phase 53
     placement_auto(device, ds, plan_dev)  # phase 54
     print(f"metro placement phases done at {time.perf_counter() - t_start:.1f} s")
+    tiled = tiled_shards(plan, plan_dev, device)  # phase 66's shards and reference
     del ds, dense, dense_dev, plan, plan_dev, ktuples
     torch.cuda.empty_cache()
     tracing_phase(device)  # phase 45
@@ -7165,7 +7680,9 @@ def run_phases() -> int:
     # this slice's main path: scaled on its region=8 mesh, bf16 then fp32,
     # in rank processes sharing the card over gloo, and its files and CLI
     # (phases 61-63)
-    region = region_phases(device, card)
+    # and (phases 64-66) scaled with block-CSR strips, bandedbranch's routes on
+    # its region x branch mesh and the metro plan's shards, in the same job
+    region = region_phases(device, card, tiled)
     print(f"region phases done at {time.perf_counter() - t_start:.1f} s")
     # the placement paths' launches: the dense city's fp32 runs and the metro
     # plan's (B3's gate-conv launches are the shared signal's); the xla form's
@@ -7208,6 +7725,18 @@ def run_phases() -> int:
                                                                     region["fp32"]["B2"])
     xla_records[0]["region_launches"], xla_records[1]["region_launches"] = (
         region["xla"]["B1 xla"], region["xla"]["B2 xla"])
+    # the block-CSR strips, region x branch and sharded tiled phases' launches
+    # (64-66, fp32), summed over the ranks: B3's gate-conv launches are the
+    # shared signal's (phase 66's tiled launches go to the graph conv's record)
+    sp = region["sparse"]
+    for rec in records + bf16_records + xla_records:
+        rec["sparse_mesh_launches"] = 0
+    for rec, k in zip(records, ("B1", "B2", "B3", "B4")):
+        rec["sparse_mesh_launches"] = sp[k] - (sp["B3 shared"] if k == "B3" else 0)
+    records[5]["sparse_mesh_launches"] = sp["B3 shared"]
+    if not all(records[i]["sparse_mesh_launches"] for i in (0, 1, 2, 3, 5)):
+        fail("a kernel of the sparse mesh phases was not launched: " + ", ".join(
+            f"{r['name']} {r['sparse_mesh_launches']}" for r in records))
     print(f"all phases done at {time.perf_counter() - t_start:.1f} s")
 
     print(card)

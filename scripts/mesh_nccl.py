@@ -3,7 +3,7 @@
 
     python3 scripts/mesh_nccl.py      # from the repo root, on a host with 4 cards
 
-Four legs, each read in full before the verdict; every number beside the
+Five legs, each read in full before the verdict; every number beside the
 cards' ``nvidia-smi`` name and power limit; the last line one JSON object
 of the numbers. Needs four CUDA cards; exits 1 without them.
 
@@ -32,8 +32,14 @@ of the numbers. Needs four CUDA cards; exits 1 without them.
    width and float32 (N = 2,500 = 4 x 625, no padding; the grid branch
    banded at its halo of 150, the others dense), one epoch: the routes,
    one B1 per forward of 30,000 rows (M=3 x B 16 x N_local 625) and one B2
-   per step, the step's bytes (``region_bytes``) and manifest, and phase
-   62's rule against the fp32 twin.
+   per step, the step's bytes (``region_bytes``: the dense convs' input
+   cotangents reduce-scattered, ``comm.reduce_scatter``) and manifest, and
+   phase 62's rule against the fp32 twin.
+5. **``scaled`` with block-CSR strips at region=4 over NCCL** (phase 64 at
+   region=4, 625-row strips): routes, B1 rows, B3 two per forward and B4
+   one per step, the step's bytes (``stacked_bytes``: the strips' input
+   cotangent reduce-scattered) and manifest, and phase 62's rule against
+   the one-device block-CSR twin.
 
 ``--record-only`` runs leg 1 alone: the script copied into another
 checkout (the code before the float64 bucket, say) records that code's
@@ -274,6 +280,39 @@ def region_leg(device, cards: list, problems: list) -> dict:
     return {"ranks": out, "twin_p50_ms": twin["p50_ms"]}
 
 
+def sparse_leg(device, cards: list, problems: list) -> dict:
+    """Leg 5: ``scaled`` with block-CSR strips at region=4 over NCCL
+    against the one-device block-CSR twin."""
+    twin = cs.strip_twin(device)
+    cs.release()
+    results = cs.run_ranks("scaled", REGION, root=cs.scratch("nccl-sparse"), region=REGION,
+                           phases=("64",))
+    cfg = cs.strip_config("")
+    cfg.mesh.region = REGION
+    rows = {3 * 16 * 2500 // REGION}
+    out = []
+    for r, res in enumerate(results):
+        got, what = res["64"], f"leg 5 (scaled sparse region={REGION} over NCCL, fp32) rank {r}"
+        if got["mesh"]["backend"] != "nccl":
+            problems.append(f"{what}: the transport was {got['mesh']['backend']}")
+        try:
+            if got["route"]["modes"] != ("sparse",) * 3 or got["route"]["node_pad"] != 0:
+                cs.fail(f"{what}: routed {got['route']}")
+            cs.check_block_counts(got, what, rows, sparse=True)
+            want = cs.stacked_bytes(cfg, got["numel"], got["route"]["n_nodes"], "sparse",
+                                    transport="nccl")
+            cs.check_step_bytes(got, want, what)
+            text = cs.check_mesh_run(got, twin, what)
+        except SystemExit as e:
+            problems.append(str(e))
+            text = str(e)
+        out.append({"rank": r, "p50_ms": got["p50_ms"], "check": text})
+        print(f"{what}: {text}; launches {cs.counts_text(got['counts'])}; one step moved "
+              f"{got['step_comm']['what']}; step p50 {got['p50_ms']:.2f} ms (twin "
+              f"{twin['p50_ms']:.2f} ms; {cards[r]})")
+    return {"ranks": out, "twin_p50_ms": twin["p50_ms"]}
+
+
 def main() -> int:
     import torch
 
@@ -303,6 +342,8 @@ def main() -> int:
             del twin
             cs.release()
             legs["region"] = region_leg(device, cards, problems)
+            cs.release()
+            legs["sparse"] = sparse_leg(device, cards, problems)
         print(json.dumps({"dp": DP, "region": REGION, "legs": legs, "cards": cards,
                           "problems": problems}, default=str))
     finally:

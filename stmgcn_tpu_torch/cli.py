@@ -41,8 +41,9 @@ error finding. ``--data-placement``, ``--window-free`` and
 
 **Meshes** (``stmgcn_tpu_torch/parallel``): a preset with a mesh
 (``multicity``: dp=8; ``branchpar``: dp=2 x branch=3; ``scaled``:
-region=8, its node rows split over eight ranks) trains on that many
-ranks. ``--virtual-devices N`` launches N local CPU ranks over gloo (it
+region=8, its node rows split over eight ranks; ``bandedbranch``: dp=2 x
+region=2 x branch=2) trains on that many ranks; ``--sparse`` gives each
+rank block-CSR row strips of the supports. ``--virtual-devices N`` launches N local CPU ranks over gloo (it
 implies ``--device cpu``: the JAX CLI's N emulated CPU devices), each this
 command with ``--distributed``; ``--distributed`` joins a ``torchrun``-style
 job (``RANK``, ``WORLD_SIZE``, ``MASTER_ADDR``, ``MASTER_PORT``), one rank
@@ -59,6 +60,8 @@ fails each one::
     torchrun --nproc-per-node 8 -m stmgcn_tpu_torch.cli --preset multicity --distributed
     torchrun --nproc-per-node 8 -m stmgcn_tpu_torch.cli --preset scaled --distributed \
         --region-strategy auto
+    torchrun --nproc-per-node 8 -m stmgcn_tpu_torch.cli --preset scaled --distributed --sparse
+    torchrun --nproc-per-node 8 -m stmgcn_tpu_torch.cli --preset bandedbranch --distributed
 """
 
 from __future__ import annotations

@@ -190,7 +190,7 @@ class TrainConfig:
     ``TrainConfig`` (``stmgcn_tpu/config.py:178-273``), defaults included,
     so a JAX config dict reads as it is.
 
-    The port trains on one device or a ``dp x branch`` mesh
+    The port trains on one device or a ``dp x region x branch`` mesh
     (:class:`MeshConfig`). ``data_placement`` (``"auto"``,
     ``"resident"``, ``"stream"``), ``window_free`` and ``prefetch`` choose
     where batches come from (``train/trainer.py``), checked here with the
@@ -269,10 +269,8 @@ class MeshConfig:
     stacked branches split over ranks, the fusion sum one all-reduce), and
     ``region`` graph-node parallelism (node rows split over ranks) with its
     ``region_strategy`` and ``halo`` budget. ``build_trainer`` trains a
-    mesh of ``dp x region`` or ``dp x branch`` ranks on
-    ``torch.distributed`` (:mod:`stmgcn_tpu_torch.parallel`); ``region``
-    with ``branch`` (the JAX ``bandedbranch`` composition) is read, checked
-    and written back, and refused by name when training."""
+    mesh of ``dp x region x branch`` ranks on ``torch.distributed``
+    (:mod:`stmgcn_tpu_torch.parallel`)."""
 
     dp: int = 1
     region: int = 1
@@ -1029,20 +1027,30 @@ def _branchpar() -> ExperimentConfig:
     )
 
 
-PRESETS = {"smoke": _smoke, "default": _default, "scaled": _scaled, "multicity": _multicity,
-           "longhorizon": _longhorizon, "branchpar": _branchpar}
+def _bandedbranch() -> ExperimentConfig:
+    """The banded x branch composition (``stmgcn_tpu/config.py:1169-1192``)
+    on a three-axis ``dp=2 x region=2 x branch=2`` mesh of eight ranks: an
+    8x8 grid, M=2. ``region_strategy="auto"`` routes by the measured
+    bandwidths: the grid's Chebyshev supports fit the halo budget (16), but
+    the synthetic transport branch is a random graph no node order bands,
+    so on the synthetic data the composition falls back to the dense
+    region plan, as in JAX; on banded city pairs (every branch within the
+    budget) each rank holds its branch's strips, branch-stacked at one
+    common halo, and each branch group runs its own region ring."""
+    return ExperimentConfig(
+        name="bandedbranch",
+        data=DataConfig(rows=8, n_timesteps=24 * 7 * 4),
+        model=ModelConfig(m_graphs=2),
+        train=TrainConfig(batch_size=16),
+        mesh=MeshConfig(dp=2, region=2, branch=2, region_strategy="auto", halo=16),
+    )
 
-#: the JAX presets still to port, each with its refusal
-PRESETS_NOT_PORTED = {
-    "bandedbranch": "preset 'bandedbranch' (dp=2 x region=2 x branch=2): the region x branch "
-                    "composition of branch-stacked banded strips is not ported yet (ROADMAP "
-                    "A11b-2)",
-}
+
+PRESETS = {"smoke": _smoke, "default": _default, "scaled": _scaled, "multicity": _multicity,
+           "longhorizon": _longhorizon, "branchpar": _branchpar, "bandedbranch": _bandedbranch}
 
 
 def preset(name: str) -> ExperimentConfig:
-    if name in PRESETS_NOT_PORTED:
-        raise ValueError(PRESETS_NOT_PORTED[name])
     if name not in PRESETS:
         raise ValueError(f"preset must be one of {sorted(PRESETS)}, got {name!r}")
     return PRESETS[name]()

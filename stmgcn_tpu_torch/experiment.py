@@ -8,13 +8,14 @@ ones (``HeteroCityDataset``: per-city shapes, normalizers and splits; one
 support stack per city in a ``CitySupports``), which the trainer can group
 into fleet shape classes (``train.fleet``), over resident or streamed data
 (``train.data_placement``, ``window_free``, ``prefetch``), on one device or
-on a ``dp x region`` or ``dp x branch`` mesh of ranks (``build_trainer`` in
-every rank of a ``torch.distributed`` job, :mod:`stmgcn_tpu_torch.parallel`).
+on a ``dp x region x branch`` mesh of ranks (``build_trainer`` in every
+rank of a ``torch.distributed`` job, :mod:`stmgcn_tpu_torch.parallel`).
 On a region mesh that does not divide ``N`` the node axis is zero-padded
-(:func:`node_pad_target`), and an active ``mesh.region_strategy`` routes
-each branch's supports to the halo plan or the dense node-row plan
-(:func:`route_supports`). Block-CSR supports on a mesh and the region x
-branch composition raise by name (``REGION_PARTS_NOT_PORTED``).
+(:func:`node_pad_target`); an active ``mesh.region_strategy`` routes each
+branch's supports to the halo plan or the dense node-row plan, block-CSR
+supports on a mesh become row strips (:func:`route_supports`), and on a
+``region x branch`` mesh every branch's strips stack into one operand the
+branch axis cuts.
 """
 
 from __future__ import annotations
@@ -35,9 +36,10 @@ from stmgcn_tpu_torch.models.st_mgcn import STMGCN
 from stmgcn_tpu_torch.ops.layers import resolve_device
 from stmgcn_tpu_torch.ops.spmm import stack_from_dense
 from stmgcn_tpu_torch.ops.tiling import plan_tiling
-from stmgcn_tpu_torch.parallel.banded import banded_decompose, bandwidth
+from stmgcn_tpu_torch.parallel.banded import banded_decompose, bandwidth, branch_stack
 from stmgcn_tpu_torch.parallel.mesh import mesh_from_config
-from stmgcn_tpu_torch.parallel.placement import REGION_PARTS_NOT_PORTED, MeshPlacement
+from stmgcn_tpu_torch.parallel.placement import MeshPlacement
+from stmgcn_tpu_torch.parallel.sparse import branch_stack_sparse, sharded_from_dense
 from stmgcn_tpu_torch.train.trainer import CitySupports, Trainer
 
 __all__ = ["build_dataset", "build_model", "build_supports", "build_trainer", "node_pad_target",
@@ -225,19 +227,33 @@ def _strategy_active(cfg: ExperimentConfig) -> bool:
 
 def route_supports(cfg: ExperimentConfig, dataset, supports=None):
     """Route each branch's supports per the mesh's region strategy
-    (``stmgcn_tpu/experiment.py:219-341``, its dense and banded branches).
-    Returns ``(supports, modes)``: ``modes`` None when the dense node-row
-    plan handles every branch (``region_strategy="gspmd"``, or no region
-    axis), else one mode per branch: a branch whose supports are banded
-    enough (the largest bandwidth of its K supports within the halo budget,
-    ``mesh.halo`` or ``n_local // 2``, at most ``n_local``) goes to the halo
-    plan as :class:`~stmgcn_tpu_torch.parallel.banded.BandedSupports`
-    strips at its own bandwidth, the rest stay dense;
-    ``region_strategy="banded"`` demands every branch qualify. With a
-    banded branch the supports are an M-tuple of per-branch forms; when
-    every branch stays dense, the dense stack itself. Block-CSR supports
-    on a mesh and the branch-stacked strips of a region x branch mesh raise
-    by name (``REGION_PARTS_NOT_PORTED``)."""
+    (``stmgcn_tpu/experiment.py:219-341``). Returns ``(supports, modes)``:
+    ``modes`` None when the dense node-row plan handles every branch
+    (``region_strategy="gspmd"``, no region axis, or one device), else one
+    mode per branch:
+
+    - block-CSR supports on a mesh: ``("sparse",) * M``, each branch's
+      row strips over ``region``
+      (:class:`~stmgcn_tpu_torch.parallel.sparse.ShardedBlockSparse`, an
+      M-tuple), or at ``branch > 1`` one branch-stacked form
+      (:func:`~stmgcn_tpu_torch.parallel.sparse.branch_stack_sparse`);
+    - an active strategy: a branch whose supports are banded enough (the
+      largest bandwidth of its K supports within the halo budget,
+      ``mesh.halo`` or ``n_local // 2``, at most ``n_local``) goes to the
+      halo plan as :class:`~stmgcn_tpu_torch.parallel.banded.BandedSupports`
+      strips at its own bandwidth, the rest stay dense (an M-tuple with a
+      banded branch; the dense stack when every branch stays dense);
+      ``region_strategy="banded"`` demands every branch qualify;
+    - an active strategy at ``branch > 1``: every branch banded gives one
+      branch-stacked ``BandedSupports`` at their common halo
+      (:func:`~stmgcn_tpu_torch.parallel.banded.branch_stack`) and
+      ``("banded",) * M``; a branch over the budget sends ``"auto"`` back
+      to the all-dense plan (``modes`` None) and makes ``"banded"``
+      raise.
+
+    ``supports``: the dense (node-padded) stack :func:`build_supports`
+    gives the config's data, when the caller has built it (the block-CSR
+    strips are cut from it too)."""
     active = _strategy_active(cfg)
     if cfg.model.tiled:
         supports = build_supports(cfg, dataset) if supports is None else supports
@@ -249,22 +265,40 @@ def route_supports(cfg: ExperimentConfig, dataset, supports=None):
             "supports only — set data.shared_graphs=True, region_strategy='gspmd', or dense "
             "mode for multi-city mesh configs")
     if cfg.model.sparse and cfg.mesh.n_devices > 1:
-        raise ValueError("model.sparse on a mesh: " + REGION_PARTS_NOT_PORTED)
+        dense = _dense_supports(cfg, dataset.adjs) if supports is None else np.asarray(supports)
+        modes = ("sparse",) * dense.shape[0]
+        if cfg.mesh.branch > 1:  # one operand the branch axis cuts
+            return branch_stack_sparse(dense, cfg.mesh.region), modes
+        return tuple(sharded_from_dense(dense[m], cfg.mesh.region)
+                     for m in range(dense.shape[0])), modes
     supports = build_supports(cfg, dataset) if supports is None else supports
     if not active:
         return supports, None
-    if cfg.mesh.branch > 1:
-        raise ValueError(f"region_strategy={cfg.mesh.region_strategy!r} with mesh.branch="
-                         f"{cfg.mesh.branch}: " + REGION_PARTS_NOT_PORTED)
     region = cfg.mesh.region
     n = supports.shape[-1]  # node-padded when the mesh required it
     if n % region:
         raise ValueError(f"n_nodes {n} not divisible by region={region}")
     n_local = n // region
     budget = min(cfg.mesh.halo if cfg.mesh.halo is not None else n_local // 2, n_local)
+    bws = [max(bandwidth(supports[m, k]) for k in range(supports.shape[1]))
+           for m in range(supports.shape[0])]
+    if cfg.mesh.branch > 1:
+        over = [m for m, bw in enumerate(bws) if bw > budget]
+        if over and cfg.mesh.region_strategy == "banded":
+            raise ValueError(
+                "mesh.branch > 1 with region_strategy='banded' needs every "
+                f"branch banded, but branches {over} have support bandwidth "
+                f"> halo budget {budget} (shard size {n_local}) — use "
+                "'auto' (falls back to GSPMD), raise mesh.halo, or reorder "
+                "nodes to reduce bandwidth")
+        if over:  # "auto": the whole dense branch-parallel plan
+            return supports, None
+        stacked = branch_stack([np.asarray(supports[m]) for m in range(supports.shape[0])],
+                               region, halo=max(bws))
+        return stacked, ("banded",) * supports.shape[0]
     routed, modes = [], []
     for m in range(supports.shape[0]):
-        bw = max(bandwidth(supports[m, k]) for k in range(supports.shape[1]))
+        bw = bws[m]
         if bw <= budget:
             routed.append(banded_decompose(np.asarray(supports[m]), region, halo=bw))
             modes.append("banded")
@@ -295,9 +329,13 @@ def build_model(cfg: ExperimentConfig, input_dim: int, *, device=None,
     ``branch > 1`` the model keeps the rank's branch slice and fuses over
     the mesh, with ``region > 1`` its convs and gate take the rank's node
     rows. ``n_real_nodes``: the real node count of a node-padded model.
-    Under an active region strategy checkpoints use the JAX loop layout,
-    whatever each branch routed to: the layout is a function of the config
-    alone (``stmgcn_tpu/experiment.py`` ``build_model``)."""
+    Checkpoints take the JAX package's branch layout, a function of the
+    config alone (``stmgcn_tpu/experiment.py`` ``build_model``): under an
+    active region strategy at ``branch == 1`` the loop layout whatever each
+    branch routed to; at ``branch > 1`` the stacked (vmapped) one, whose
+    branch axis the mesh cuts (a block-CSR config there rebuilds without a
+    mesh as a dense model, as JAX's does); otherwise by the support mode.
+    """
     m = cfg.model
     _check_support_route(cfg)
     check_lstm(m.lstm_backend, m.lstm_fused_scan, m.lstm_unroll)
@@ -305,6 +343,10 @@ def build_model(cfg: ExperimentConfig, input_dim: int, *, device=None,
         support_modes = ("tiled",) * m.m_graphs
     if support_modes is not None and set(support_modes) == {"dense"}:
         support_modes = None  # every branch dense: the one batched dense form
+    if cfg.mesh.branch > 1 and not m.tiled:
+        loop_layout = False
+    else:
+        loop_layout = True if _strategy_active(cfg) else None
     return STMGCN(
         m_graphs=m.m_graphs,
         n_supports=m.n_supports,
@@ -317,7 +359,7 @@ def build_model(cfg: ExperimentConfig, input_dim: int, *, device=None,
         use_bias=m.use_bias,
         shared_gate_fc=m.shared_gate_fc,
         n_real_nodes=n_real_nodes,
-        sparse=m.sparse and support_modes is None,
+        sparse=m.sparse and support_modes is None and cfg.mesh.branch == 1,
         support_modes=support_modes,
         lstm_backend=m.lstm_backend,
         lstm_fused_scan=m.lstm_fused_scan,
@@ -325,31 +367,25 @@ def build_model(cfg: ExperimentConfig, input_dim: int, *, device=None,
         device=device,
         generator=generator,
         placement=placement,
-        loop_layout=_strategy_active(cfg) and cfg.mesh.branch == 1,
+        loop_layout=loop_layout,
     )
 
 
 def _check_mesh_route(cfg: ExperimentConfig) -> None:
     """What a mesh refuses before any rank is needed: the JAX package's
-    refusals (``stmgcn_tpu/experiment.py:466-475``), and the parts of the
-    region axis still to port."""
+    refusals (``stmgcn_tpu/experiment.py:466-475``)."""
     if cfg.mesh.n_devices <= 1:
         return
-    if cfg.mesh.region > 1 and cfg.mesh.branch > 1:
-        raise ValueError(f"mesh region={cfg.mesh.region} x branch={cfg.mesh.branch} (the "
-                         "bandedbranch composition): " + REGION_PARTS_NOT_PORTED)
     if cfg.model.lstm_backend == "pallas" and cfg.mesh.branch > 1:
         raise ValueError(
             "lstm_backend='pallas' does not compose with mesh.branch > 1 "
             "— use the xla backend for branch-parallel meshes")
-    if cfg.model.sparse:
-        raise ValueError("model.sparse on a mesh: " + REGION_PARTS_NOT_PORTED
-                         + "; use dense supports on a mesh")
 
 
 def build_trainer(cfg: ExperimentConfig, *, device=None, initial_state: Optional[dict] = None,
                   graphs: Optional[bool] = None, verbose: bool = True,
-                  fault_plan=None, debug_nans: bool = False) -> Trainer:
+                  fault_plan=None, debug_nans: bool = False, dataset=None,
+                  supports=None) -> Trainer:
     """The trainer for a single-device config in any of the three support
     modes, homogeneous or heterogeneous (with ``train.fleet`` and its
     knobs); weights drawn from ``cfg.train.seed`` unless ``initial_state``
@@ -368,23 +404,28 @@ def build_trainer(cfg: ExperimentConfig, *, device=None, initial_state: Optional
     CLI's ``--debug-nans``).
 
     **A mesh** (``cfg.mesh`` of more than one device): every rank of a
-    joined ``torch.distributed`` job of ``dp x region`` or ``dp x branch``
-    ranks calls this with the same config; it builds the rank's mesh and
+    joined ``torch.distributed`` job of ``dp x region x branch`` ranks
+    calls this with the same config; it builds the rank's mesh and
     placement (``mesh_from_config``: raises unless the job has exactly that
     many ranks), node-pads and routes the supports (:func:`route_supports`),
     checks divisibility as the JAX ``build_trainer`` does, and builds the
-    rank's slice of the model from the same seed. Block-CSR supports on a
-    mesh, region x branch meshes, and ``lstm_backend="pallas"`` with
-    ``branch > 1`` raise by name; so do the trainer's options that do not
-    compose with a mesh yet. ``initial_state`` is the whole, mesh-free
-    ``state_dict``."""
+    rank's slice of the model from the same seed. ``lstm_backend="pallas"``
+    with ``branch > 1`` and ``model.tiled`` raise with the JAX messages; the
+    trainer's options that do not compose with a mesh yet raise by name.
+    ``initial_state`` is the whole, mesh-free ``state_dict``. ``dataset``
+    replaces the config-built one (the same config, edited data:
+    :func:`~stmgcn_tpu_torch.parallel.compose.banded_dataset` swaps in banded
+    adjacencies before routing); ``supports`` the dense stack the caller
+    built from it (:func:`route_supports`'), so several trainers of one
+    city build it once."""
     _check_health(cfg)
     _check_support_route(cfg)
     _check_mesh_route(cfg)
     device = resolve_device(device)
     mesh = mesh_from_config(cfg.mesh, device=device)
     placement = MeshPlacement(mesh) if mesh is not None else None
-    dataset = build_dataset(cfg)
+    if dataset is None:
+        dataset = build_dataset(cfg)
     hetero = getattr(dataset, "heterogeneous", False)
     # each city's node axis rounded up to the region extent (the JAX
     # build_trainer's per-city pads)
@@ -394,7 +435,7 @@ def build_trainer(cfg: ExperimentConfig, *, device=None, initial_state: Optional
         for n_nodes, pad in zip(true_nodes, pads):
             placement.check_divisibility(cfg.train.batch_size, n_nodes + pad,
                                          m_graphs=cfg.model.m_graphs)
-    supports, support_modes = route_supports(cfg, dataset)
+    supports, support_modes = route_supports(cfg, dataset, supports)
     model = build_model(cfg, dataset.n_feats, device=device,
                         generator=torch.Generator().manual_seed(cfg.train.seed),
                         placement=placement, support_modes=support_modes,

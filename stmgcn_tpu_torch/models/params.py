@@ -164,14 +164,17 @@ def health_groups(names, m_graphs: int, *, layout: str = "vmapped") -> tuple:
     return tuple((g, tuple(groups[g])) for g in sorted(groups))
 
 
-def jax_layout(support_mode: str, loop: bool = False) -> str:
+def jax_layout(support_mode: str, loop: Optional[bool] = None) -> str:
     """The branch layout the JAX package gives a model of this support
-    mode: looped (``branch_m``) for sparse, tiled, banded and mixed
-    supports, and for any model under an active region strategy
-    (``loop``), vmapped for dense ones otherwise (``stmgcn_tpu/experiment.py``
-    ``build_model``), so a checkpoint's tree matches the JAX model the
-    same config builds."""
-    return "vmapped" if support_mode == "dense" and not loop else "looped"
+    mode: ``loop`` None derives it (looped, ``branch_m``, for sparse,
+    tiled, banded and mixed supports; vmapped for dense ones); a bool
+    says it (a model's ``loop_layout``: looped under an active region
+    strategy at ``branch == 1``, vmapped for branch-stacked strips on a
+    ``branch`` mesh; ``stmgcn_tpu/experiment.py`` ``build_model``), so a
+    checkpoint's tree matches the JAX model the same config builds."""
+    if loop is None:
+        loop = support_mode != "dense"
+    return "looped" if loop else "vmapped"
 
 
 #: the parts ``make_optimizer`` may chain, in chain order

@@ -26,15 +26,22 @@ gate's Dense layers and the LSTM stay one batched computation, so the M
 branches still share one LSTM launch. The parameters are the same in every
 mode and layout, so weights trained on one representation serve on another
 unchanged. The JAX package runs non-dense branches as a Python loop and
-stores them as ``branch_0 .. branch_{M-1}``;
-:func:`~stmgcn_tpu_torch.models.params.from_jax_params` reads that layout
-into this one, and ``loop_layout`` (a model trained under an active region
-strategy) makes checkpoints write it.
+stores them as ``branch_0 .. branch_{M-1}``, except branch-stacked banded
+strips or block-CSR strips on a ``branch`` mesh, which keep the stacked
+(vmapped) layout;
+:func:`~stmgcn_tpu_torch.models.params.from_jax_params` reads either
+layout into this one, and ``loop_layout`` (derived from the support mode
+when not given: looped for any non-dense mode) makes checkpoints write the
+one the JAX package gives the same config.
 
 **On a region mesh** (``placement`` with ``region > 1``) every node-indexed
 array holds the rank's ``N / region`` rows: the graph convs and the gate
 pooling take the mesh (``region_mesh``), the LSTM and the head run on the
-rank's rows alone. ``n_real_nodes`` is the real node count of a
+rank's rows alone. The convs take a row strip of a dense stack, banded
+strips (per branch, or branch-stacked on a ``region x branch`` mesh: each
+branch group then runs its own region ring) or block-CSR strips
+(:class:`~stmgcn_tpu_torch.parallel.sparse.ShardedBlockSparse`, one kernel
+launch for the rank's branches). ``n_real_nodes`` is the real node count of a
 node-padded model (the gate pools over it).
 
 **On a mesh** (``placement``, a
@@ -64,7 +71,7 @@ from stmgcn_tpu_torch.ops.spmm import BlockSparseStack
 from stmgcn_tpu_torch.ops.tiling import TiledSupports
 from stmgcn_tpu_torch.parallel.banded import BandedSupports
 from stmgcn_tpu_torch.parallel.collectives import branch_fusion
-from stmgcn_tpu_torch.parallel.placement import REGION_PARTS_NOT_PORTED
+from stmgcn_tpu_torch.parallel.sparse import ShardedBlockSparse
 
 __all__ = ["Branch", "STMGCN"]
 
@@ -110,7 +117,7 @@ class STMGCN(nn.Module):
                  lstm_backend: str = "xla", lstm_fused_scan: bool = False,
                  dtype: Optional[torch.dtype] = None,
                  device=None, generator: Optional[torch.Generator] = None, placement=None,
-                 loop_layout: bool = False):
+                 loop_layout: Optional[bool] = None):
         super().__init__()
         device = resolve_device(device)
         if generator is None:
@@ -125,8 +132,10 @@ class STMGCN(nn.Module):
         self.support_modes = self._modes(m_graphs, sparse, support_modes)
         modes = set(self.support_modes)
         self.support_mode = self.support_modes[0] if len(modes) == 1 else "mixed"
-        #: checkpoints write the JAX loop layout (``branch_m``)
-        self.loop_layout = bool(loop_layout) or self.support_mode != "dense"
+        #: checkpoints write the JAX loop layout (``branch_m``); None: any
+        #: non-dense mode does
+        self.loop_layout = (self.support_mode != "dense" if loop_layout is None
+                            else bool(loop_layout))
         per_branch = "banded" in modes
         self.branches = Branch(
             n_supports, seq_len, input_dim, lstm_hidden_dim, lstm_num_layers,
@@ -145,14 +154,18 @@ class STMGCN(nn.Module):
         #: a mesh without a branch axis)
         self.mesh = mesh if mesh is not None and mesh.branch > 1 else None
         self.m_local = m_graphs
+        #: the support modes of this rank's branches
+        self.local_modes = self.support_modes
         if self.mesh is not None:
             self._keep_branches()
         #: the region mesh the node rows shard over (None: all rows here)
         self.region_mesh = mesh if mesh is not None and mesh.region > 1 else None
         if self.region_mesh is not None:
-            if self.support_mode in ("sparse", "tiled"):
-                raise ValueError(f"a {self.support_mode} model on a region mesh: "
-                                 + REGION_PARTS_NOT_PORTED)
+            if self.support_mode == "tiled":
+                raise ValueError(
+                    "model.tiled does not compose with a >1-device mesh — the reordered tile "
+                    "plan owns the whole node axis; use dense GSPMD or sharded sparse supports "
+                    "for multi-device configs")
             for module in self.modules():
                 if hasattr(module, "region_mesh"):
                     module.region_mesh = self.region_mesh
@@ -165,11 +178,18 @@ class STMGCN(nn.Module):
         module's branch count set to the local one."""
         keep = self.placement.branches(self.m_graphs)
         self.m_local = keep.stop - keep.start
+        self.local_modes = self.support_modes[keep]
         for module in self.branches.modules():
             if getattr(module, "branches", None) is not None:
                 module.branches = self.m_local
+            if hasattr(module, "modes"):  # a per-branch conv keeps its branches' modes
+                module.modes = module.modes[keep]
             for name, p in list(module.named_parameters(recurse=False)):
                 setattr(module, name, nn.Parameter(p.detach()[keep].clone()))
+
+    def branch_modes(self) -> tuple:
+        """Each branch's support mode (the JAX ``STMGCN.branch_modes``)."""
+        return self.support_modes
 
     @staticmethod
     def _modes(m_graphs, sparse, support_modes) -> tuple:
@@ -194,10 +214,17 @@ class STMGCN(nn.Module):
         fleet serving gathers them), a
         :class:`~stmgcn_tpu_torch.ops.tiling.TiledSupports` plan of M
         branches x K supports, or M per-branch block-sparse groups (or one
-        branch-stacked ``BlockSparseStack``)."""
+        branch-stacked ``BlockSparseStack``, or on a mesh the rank's
+        ``ShardedBlockSparse`` strip); banded branches take M per-branch
+        forms or one branch-stacked ``BandedSupports``."""
         mode, want = self.support_mode, (self.m_local, self.n_supports)
         if mode in ("banded", "mixed"):
-            self._check_per_branch(supports)
+            self._check_per_branch(self._per_branch(supports))
+            return
+        if mode == "sparse" and isinstance(supports, ShardedBlockSparse):
+            if (supports.branches, supports.n_supports) != want:
+                raise ValueError(f"a ShardedBlockSparse strip of {supports.branches} branches x "
+                                 f"{supports.n_supports} supports for a model of {want}")
             return
         if mode != "tiled" and isinstance(supports, TiledSupports):
             raise ValueError(
@@ -220,14 +247,21 @@ class STMGCN(nn.Module):
             raise ValueError(
                 f"need {self.m_local} per-branch support groups, got {len(supports)}")
 
+    @staticmethod
+    def _per_branch(supports):
+        """A branch-stacked ``BandedSupports`` as its per-branch strips."""
+        if isinstance(supports, BandedSupports) and supports.branch_stacked:
+            return tuple(supports.branch(m) for m in range(supports.strips.shape[0]))
+        return supports
+
     def _check_per_branch(self, supports) -> None:
         """A per-branch model's supports: M forms, each its branch's mode."""
         if isinstance(supports, torch.Tensor) or not isinstance(supports, Sequence) or (
                 len(supports) != self.m_local):
             got = len(supports) if isinstance(supports, Sequence) else type(supports).__name__
             raise ValueError(f"need {self.m_local} per-branch support groups "
-                             f"{self.support_modes}, got {got}")
-        for m, (mode, sup) in enumerate(zip(self.support_modes, supports)):
+                             f"{self.local_modes}, got {got}")
+        for m, (mode, sup) in enumerate(zip(self.local_modes, supports)):
             ok = (isinstance(sup, BandedSupports) if mode == "banded" else
                   isinstance(sup, torch.Tensor) and sup.dim() == 3)
             if not ok:
@@ -242,6 +276,7 @@ class STMGCN(nn.Module):
         ``()`` for the batch or ``(B,)`` per row), which the gate pools
         over."""
         self.check_supports(supports_stack)
+        supports_stack = self._per_branch(supports_stack)
         if isinstance(supports_stack, torch.Tensor) and supports_stack.dim() == 5:
             supports_stack = supports_stack.transpose(0, 1)  # (M, B, K, N, N)
         feats = self.branches(supports_stack, obs_seq, n_real)  # (M, B, N, gcn_hidden)

@@ -15,7 +15,12 @@ tail ``act(stacked @ W + b)``. They differ in how the K propagations run:
 - :class:`SparseChebGraphConv`: block-CSR supports through the kernels of
   :mod:`~stmgcn_tpu_torch.ops.spmm` (B3/B4 for a
   :class:`~stmgcn_tpu_torch.ops.spmm.BlockSparseStack`, B5 per support
-  for a K-tuple of :class:`~stmgcn_tpu_torch.ops.spmm.BlockSparse`);
+  for a K-tuple of :class:`~stmgcn_tpu_torch.ops.spmm.BlockSparse`), or
+  on a region mesh a rank's row strip
+  (:class:`~stmgcn_tpu_torch.parallel.sparse.ShardedBlockSparse`: the
+  signal's node rows all-gathered, then B3 over the strip for every
+  branch at once, B4 for the gradient,
+  :func:`~stmgcn_tpu_torch.parallel.sparse.sharded_spmm_apply`);
 - :class:`TiledChebGraphConv`: a reordered and condensed plan
   (:mod:`~stmgcn_tpu_torch.ops.tiling`), all branches in one B3 launch;
 - :class:`BandedChebGraphConv`: one rank's strip of region-sharded banded
@@ -66,6 +71,8 @@ from stmgcn_tpu_torch.ops.spmm import BlockSparseStack, spmm, spmm_stack
 from stmgcn_tpu_torch.ops.tiling import TiledBranchSupports, TiledSupports
 from stmgcn_tpu_torch.parallel.banded import BandedSupports, sharded_banded_apply
 from stmgcn_tpu_torch.parallel.region import region_dense_apply
+# the module, not its names: parallel.sparse imports ops.spmm, which loads this package
+from stmgcn_tpu_torch.parallel import sparse as sharded_sparse
 
 __all__ = [
     "BandedChebGraphConv",
@@ -186,6 +193,12 @@ class SparseChebGraphConv(ChebGraphConv):
     With ``branches=M``: a branch-stacked ``BlockSparseStack`` (one launch
     for every branch), or an M-sequence of the one-branch forms (one launch
     group per branch: each branch's stack has its own block-column count).
+
+    On a region mesh (``region_mesh``): a rank's one-shard
+    :class:`~stmgcn_tpu_torch.parallel.sparse.ShardedBlockSparse` strip
+    (branch-stacked with ``branches=M``) and the rank's node rows of the
+    signal; the propagations are one B3 launch over the strip against the
+    all-gathered signal (:func:`~stmgcn_tpu_torch.parallel.sparse.sharded_spmm_apply`).
     """
 
     def _one_branch(self, supports, x_mat):
@@ -200,7 +213,14 @@ class SparseChebGraphConv(ChebGraphConv):
         batch, f_in = x.shape[-3], x.shape[-1]
         (x,) = promote_dtype(self.compute_dtype, x)
         x_mat = _signal_matrix(x)
-        if self.branches is None or isinstance(supports, BlockSparseStack):
+        if isinstance(supports, sharded_sparse.ShardedBlockSparse):
+            if supports.branches != self.branches:
+                raise ValueError(f"a ShardedBlockSparse strip with branch axis "
+                                 f"{supports.branches} for a conv with branches={self.branches}")
+            self._check_count(supports.n_supports)
+            propagated = self._propagated(
+                sharded_sparse.sharded_spmm_apply(supports, x_mat, self.region_mesh))
+        elif self.branches is None or isinstance(supports, BlockSparseStack):
             if isinstance(supports, BlockSparseStack) and supports.branches != self.branches:
                 raise ValueError(
                     f"a BlockSparseStack with branch axis {supports.branches} for a conv "

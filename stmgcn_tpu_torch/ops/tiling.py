@@ -28,8 +28,14 @@ with no real slots) and widens the block columns to the class's common
 width (:meth:`TiledSupports.with_block_cols`: padding slots past every
 row's count), so the kernels read only the real slots of a grown plan.
 
-Left out: the sharded plans (``ShardedTiledBranch``, ``shard_tiled_plan``,
-``sharded_gathered_tiles_apply``).
+**Sharded plans.** The RCM order that makes blocks dense also makes them
+banded, so one branch's plan splits along its block rows into contiguous
+shards that need only a ``halo``-block boundary exchange each
+(:func:`shard_tiled_plan`, :class:`ShardedTiledBranch`, the JAX
+``tiling.py:467-676``); :func:`sharded_gathered_tiles_apply` runs a rank's
+shard through kernels B3 and B4 over a halo-local
+:class:`~stmgcn_tpu_torch.ops.spmm.BlockSparseStack`, the boundary blocks
+riding :func:`~stmgcn_tpu_torch.parallel.halo.halo_exchange`.
 """
 
 from __future__ import annotations
@@ -45,6 +51,8 @@ from stmgcn_tpu_torch.ops.spmm import (
     BlockCSRApply,
     BlockSparseStack,
     _assemble_blocks,
+    spmm_stack_bwd,
+    stack_forward,
     _moved,
     _nbytes,
     _scan_blocks,
@@ -53,12 +61,15 @@ from stmgcn_tpu_torch.ops.spmm import (
 )
 
 __all__ = [
+    "ShardedTiledBranch",
     "StackedPlans",
     "TiledBranchSupports",
     "TiledSupports",
     "gathered_tiles_apply",
     "plan_tiling",
     "rcm_permutation",
+    "shard_tiled_plan",
+    "sharded_gathered_tiles_apply",
 ]
 
 
@@ -387,3 +398,176 @@ def gathered_tiles_apply(branch: TiledBranchSupports, x_mat: torch.Tensor) -> to
     return BlockCSRApply.apply(
         x_mat, functools.partial(spmm_stack_reference, stack),
         functools.partial(spmm_stack_bwd_reference, stack, shared=True))
+
+
+@dataclasses.dataclass
+class ShardedTiledBranch:
+    """One branch's tiled plan split along its permuted block-row axis into
+    ``S`` contiguous shards (the JAX ``ShardedTiledBranch``): ``data``
+    ``(S, K, r_loc, C, tile, tile)``, ``idx`` ``(S, K, r_loc, C)``
+    **halo-local** (global block column ``j`` of shard ``s`` stored as ``j
+    - s*r_loc + halo``, clamped into the halo-extended range for padding
+    slots), ``nblk`` ``(S, K, r_loc)`` each row's real slots; the
+    prepared-transpose stacks likewise at their own ``halo_t``. Numpy on
+    the host (:func:`shard_tiled_plan`), tensors after :meth:`to`."""
+
+    data: object
+    idx: object
+    nblk: object
+    data_t: object
+    idx_t: object
+    nblk_t: object
+    halo: int
+    halo_t: int
+    n: int
+    tile: int
+
+    @property
+    def n_shards(self) -> int:
+        return self.data.shape[0]
+
+    @property
+    def n_supports(self) -> int:
+        return self.data.shape[1]
+
+    @property
+    def block_rows_local(self) -> int:
+        return self.data.shape[2]
+
+    _FIELDS = ("data", "idx", "nblk", "data_t", "idx_t", "nblk_t")
+
+    def shard(self, index: int) -> "ShardedTiledBranch":
+        """Shard ``index`` alone (what region rank ``index`` holds), its
+        shard axis kept at extent 1."""
+        return dataclasses.replace(
+            self, **{f: getattr(self, f)[index:index + 1] for f in self._FIELDS})
+
+    def to(self, device) -> "ShardedTiledBranch":
+        def move(a):
+            t = a if isinstance(a, torch.Tensor) else torch.from_numpy(np.ascontiguousarray(a))
+            return t.to(device).contiguous()
+
+        return dataclasses.replace(self, **{f: move(getattr(self, f)) for f in self._FIELDS})
+
+    def stacks(self) -> tuple:
+        """A one-shard plan as the kernels' two operands: the forward stack
+        (``r_loc * tile`` rows over the ``(r_loc + 2*halo) * tile`` rows of
+        the halo-extended signal) and the backward one (its transposed
+        fields give ``r_loc * tile`` rows of the input gradient from the
+        ``(r_loc + 2*halo_t) * tile`` rows of the halo-extended cotangent);
+        made once, so their row orders are derived once."""
+        return self._stacks
+
+    @functools.cached_property
+    def _stacks(self) -> tuple:
+        if self.n_shards != 1:
+            raise ValueError(f"ShardedTiledBranch of {self.n_shards} shards: a rank applies "
+                             "its own shard (.shard(i))")
+        f = {name: torch.as_tensor(getattr(self, name))[0] for name in self._FIELDS}
+        r, t = self.block_rows_local, self.tile
+        fwd = BlockSparseStack(**f, n_rows=r * t, n_cols=(r + 2 * self.halo) * t, tile=t)
+        bwd = BlockSparseStack(**f, n_rows=(r + 2 * self.halo_t) * t, n_cols=r * t, tile=t)
+        return fwd, bwd
+
+
+def _block_halo(data, idx) -> int:
+    """Largest block distance ``|column - row|`` over the truly nonzero
+    blocks: the boundary depth a contiguous block-row shard imports
+    (padding slots do not count)."""
+    data, idx = np.asarray(data), np.asarray(idx)
+    nz = np.any(data != 0.0, axis=(-1, -2))  # (K, R, C)
+    rows = np.arange(idx.shape[1], dtype=np.int64)[None, :, None]
+    dist = np.abs(idx.astype(np.int64) - rows)
+    return int(dist[nz].max(initial=0))
+
+
+def shard_tiled_plan(branch: TiledBranchSupports, n_shards: int) -> ShardedTiledBranch:
+    """Split one branch's tiled plan into ``n_shards`` contiguous block-row
+    shards with halo-local column indices (host numpy, as
+    :func:`plan_tiling`; the JAX ``shard_tiled_plan``). Raises when the
+    block rows do not divide into ``n_shards`` (``pad_to`` a divisible
+    rung first) or when the plan's block bandwidth exceeds a shard's block
+    rows (the ring exchange reaches the adjacent shards only)."""
+    data, idx, nblk = (np.asarray(getattr(branch, f)) for f in ("data", "idx", "nblk"))
+    data_t, idx_t, nblk_t = (np.asarray(getattr(branch, f))
+                             for f in ("data_t", "idx_t", "nblk_t"))
+    r = idx.shape[1]
+    if n_shards < 1:
+        raise ValueError(f"n_shards must be >= 1, got {n_shards}")
+    if r % n_shards:
+        raise ValueError(f"{r} block rows not divisible by n_shards={n_shards} — "
+                         "pad_to a divisible rung first")
+    r_loc = r // n_shards
+    # halo_exchange needs 1 <= halo <= r_loc
+    halo = max(_block_halo(data, idx), 1)
+    halo_t = max(_block_halo(data_t, idx_t), 1)
+    over = max(halo, halo_t)
+    if over > r_loc:
+        raise ValueError(
+            f"block bandwidth {over} exceeds the {r_loc} block rows per shard at "
+            f"n_shards={n_shards} — the ring halo exchange only reaches adjacent shards; "
+            "use fewer shards or a larger tile")
+
+    def split(d, i, c, h):
+        rows = [slice(s * r_loc, (s + 1) * r_loc) for s in range(n_shards)]
+        ds = np.stack([d[:, sl] for sl in rows])
+        loc = np.stack([i[:, sl].astype(np.int64) - s * r_loc + h for s, sl in enumerate(rows)])
+        return ds, np.clip(loc, 0, r_loc + 2 * h - 1).astype(np.int32), np.stack(
+            [c[:, sl] for sl in rows])
+
+    data_s, idx_s, nblk_s = split(data, idx, nblk, halo)
+    data_ts, idx_ts, nblk_ts = split(data_t, idx_t, nblk_t, halo_t)
+    return ShardedTiledBranch(data=data_s, idx=idx_s, nblk=nblk_s, data_t=data_ts,
+                              idx_t=idx_ts, nblk_t=nblk_ts, halo=halo, halo_t=halo_t,
+                              n=branch.n, tile=branch.tile)
+
+
+class ShardedTilesApply(torch.autograd.Function):
+    """A rank's shard of :func:`sharded_gathered_tiles_apply`: forward, the
+    signal's boundary blocks exchanged with the ring neighbours, then B3
+    over the halo-local forward stack; backward, the cotangent's boundary
+    blocks exchanged at ``halo_t``, then B4 over the halo-local transposed
+    stack."""
+
+    @staticmethod
+    def forward(ctx, x_loc: torch.Tensor, sharded: ShardedTiledBranch, mesh, axis: str):
+        from stmgcn_tpu_torch.parallel.halo import halo_exchange
+
+        fwd, bwd = sharded.stacks()
+        ctx.bwd, ctx.halo_t, ctx.mesh, ctx.axis = bwd, sharded.halo_t, mesh, axis
+        ctx.dtype, t = x_loc.dtype, sharded.tile
+        r, f = sharded.block_rows_local, x_loc.shape[-1]
+        blocks = halo_exchange(x_loc.reshape(r, t, f), sharded.halo, mesh, axis)
+        return stack_forward(fwd.astype(x_loc.dtype), blocks.reshape(-1, f).contiguous())
+
+    @staticmethod
+    def backward(ctx, grad: torch.Tensor):
+        from stmgcn_tpu_torch.parallel.halo import halo_exchange
+
+        bwd, t = ctx.bwd, ctx.bwd.tile
+        k, rows, f = grad.shape
+        # block rows lead for the exchange: (r_loc, K, t, F)
+        g = grad.to(ctx.dtype).reshape(k, rows // t, t, f).transpose(0, 1)
+        g = halo_exchange(g.contiguous(), ctx.halo_t, ctx.mesh, ctx.axis)
+        g = g.transpose(0, 1).reshape(k, -1, f).contiguous()
+        dx = spmm_stack_bwd(bwd.astype(ctx.dtype), g, shared=True)
+        return dx.to(ctx.dtype), None, None, None
+
+
+def sharded_gathered_tiles_apply(sharded: ShardedTiledBranch, x_loc: torch.Tensor, mesh,
+                                 axis: str = "region") -> torch.Tensor:
+    """This rank's shard of the JAX ``sharded_gathered_tiles_apply``:
+    ``sharded`` the rank's one shard (:meth:`ShardedTiledBranch.shard`),
+    ``x_loc`` its ``(r_loc * tile, F)`` rows of the *permuted* signal
+    (zero-padded past ``n`` to the plan's block rows); returns ``(K, r_loc
+    * tile, F)`` float32. No node-axis gather: each rank exchanges
+    ``halo`` boundary blocks with its ring neighbours (``halo_t`` for the
+    gradient), and its product is one launch of B3 (the gradient one of
+    B4) over the halo-local stacks on CUDA tensors, their plain versions on
+    CPU ones. Every rank of the line calls it together; ``mesh`` None is
+    one device (zero halos)."""
+    r, t = sharded.block_rows_local, sharded.tile
+    if x_loc.dim() != 2 or x_loc.shape[0] != r * t:
+        raise ValueError(f"x_loc must be ({r * t}, F) (the shard's {r} block rows of "
+                         f"{t}), got {tuple(x_loc.shape)}")
+    return ShardedTilesApply.apply(x_loc.contiguous(), sharded, mesh, axis)

@@ -2,9 +2,8 @@
 the collective manifests, autograd across ranks and the composed presets.
 
 Counterpart of ``stmgcn_tpu/parallel`` for the data (``dp``), node
-(``region``) and branch (``branch``) axes; block-CSR strips on a region
-mesh (``parallel/sparse.py``) and the region x branch composition are not
-ported yet. Each rank is one process; every collective goes through
+(``region``) and branch (``branch``) axes and their composition. Each rank
+is one process; every collective goes through
 :mod:`stmgcn_tpu_torch.utils.comm`.
 
 - :mod:`~stmgcn_tpu_torch.parallel.mesh`: ``init_distributed``,
@@ -19,9 +18,12 @@ ported yet. Each rank is one process; every collective goes through
   (``region_dense_apply``) and the gate's pooled sum (``region_sum``);
 - :mod:`~stmgcn_tpu_torch.parallel.halo`,
   :mod:`~stmgcn_tpu_torch.parallel.banded`: the ring halo exchange and the
-  banded strips' product;
+  banded strips' product (per branch, or branch-stacked);
+- :mod:`~stmgcn_tpu_torch.parallel.sparse`: block-CSR row strips and
+  their product through kernels B3 and B4;
 - :mod:`~stmgcn_tpu_torch.parallel.compose`: the composed ``multicity``,
-  ``scaled`` and ``branchpar`` trainers and their single-device twins.
+  ``scaled``, ``branchpar`` and ``bandedbranch`` trainers and their
+  single-device twins.
 
 The names resolve lazily (``compose`` reaches the experiment stack).
 """
@@ -34,10 +36,15 @@ _LAZY = {
     "GSPMD_REGION": "stmgcn_tpu_torch.parallel.placement",
     "HALO_EXCHANGE": "stmgcn_tpu_torch.parallel.placement",
     "MeshPlacement": "stmgcn_tpu_torch.parallel.placement",
-    "REGION_PARTS_NOT_PORTED": "stmgcn_tpu_torch.parallel.placement",
     "BandedSupports": "stmgcn_tpu_torch.parallel.banded",
     "banded_decompose": "stmgcn_tpu_torch.parallel.banded",
     "bandwidth": "stmgcn_tpu_torch.parallel.banded",
+    "branch_stack": "stmgcn_tpu_torch.parallel.banded",
+    "ShardedBlockSparse": "stmgcn_tpu_torch.parallel.sparse",
+    "branch_stack_sparse": "stmgcn_tpu_torch.parallel.sparse",
+    "merge_branches": "stmgcn_tpu_torch.parallel.sparse",
+    "sharded_from_dense": "stmgcn_tpu_torch.parallel.sparse",
+    "sharded_spmm_apply": "stmgcn_tpu_torch.parallel.sparse",
     "sharded_banded_apply": "stmgcn_tpu_torch.parallel.banded",
     "strip_decompose": "stmgcn_tpu_torch.parallel.banded",
     "halo_exchange": "stmgcn_tpu_torch.parallel.halo",
@@ -56,6 +63,7 @@ _LAZY = {
     "GradSync": "stmgcn_tpu_torch.parallel.collectives",
     "replica_sum": "stmgcn_tpu_torch.parallel.collectives",
     "COMPOSED_PRESETS": "stmgcn_tpu_torch.parallel.compose",
+    "banded_dataset": "stmgcn_tpu_torch.parallel.compose",
     "composed_config": "stmgcn_tpu_torch.parallel.compose",
     "composed_trainer": "stmgcn_tpu_torch.parallel.compose",
     "parity_twin_kind": "stmgcn_tpu_torch.parallel.compose",

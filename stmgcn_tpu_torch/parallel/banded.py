@@ -15,8 +15,8 @@ The halo plan is cheaper:
    rows on the wire per rank instead of ``O(N)``.
 
 The numpy functions (:func:`bandwidth`, :func:`strip_decompose`,
-:func:`banded_decompose`) are the port's own copies of the JAX package's
-and give the same arrays. The strip product is an einsum, as in the JAX
+:func:`banded_decompose`, :func:`branch_stack`) are the port's own copies
+of the JAX package's and give the same arrays. The strip product is an einsum, as in the JAX
 package, where it runs outside any Pallas kernel.
 """
 
@@ -29,8 +29,8 @@ import torch
 
 from stmgcn_tpu_torch.parallel.halo import halo_exchange
 
-__all__ = ["BandedSupports", "banded_decompose", "bandwidth", "sharded_banded_apply",
-           "strip_decompose"]
+__all__ = ["BandedSupports", "banded_decompose", "bandwidth", "branch_stack",
+           "sharded_banded_apply", "strip_decompose"]
 
 
 @dataclasses.dataclass
@@ -39,7 +39,10 @@ class BandedSupports:
     N)`` stack: ``strips`` ``(n_shards, K, n_local, n_local + 2*halo)``
     (:func:`strip_decompose`), ``halo`` and the global node count ``n``.
     A rank of a region mesh holds its one shard (``n_shards`` 1,
-    :meth:`shard`); ``n`` stays the global count."""
+    :meth:`shard`); ``n`` stays the global count. The branch-stacked form
+    (:func:`branch_stack`) leads with a graph axis, ``(M, n_shards, K,
+    n_local, n_local + 2*halo)`` at one common halo; shape properties index
+    from the end, so both forms answer."""
 
     strips: object  # numpy array or tensor
     halo: int
@@ -57,9 +60,23 @@ class BandedSupports:
     def n_shards(self) -> int:
         return self.strips.shape[-4]
 
+    @property
+    def branch_stacked(self) -> bool:
+        return self.strips.ndim == 5
+
     def shard(self, index: int) -> "BandedSupports":
-        """Shard ``index``'s strip alone (what region rank ``index`` holds)."""
+        """Shard ``index``'s strip alone (what region rank ``index`` holds),
+        of every branch of a branch-stacked form."""
+        if self.branch_stacked:
+            return BandedSupports(self.strips[:, index:index + 1], self.halo, self.n)
         return BandedSupports(self.strips[index:index + 1], self.halo, self.n)
+
+    def branch(self, m) -> "BandedSupports":
+        """Branch ``m`` of a branch-stacked form (an int: its one-branch
+        strips; a slice: those branches, still stacked)."""
+        if not self.branch_stacked:
+            raise ValueError("a one-branch BandedSupports has no branch axis")
+        return BandedSupports(self.strips[m], self.halo, self.n)
 
     def to(self, device) -> "BandedSupports":
         strips = torch.as_tensor(np.asarray(self.strips, np.float32)
@@ -103,6 +120,20 @@ def strip_decompose(supports, n_shards: int, halo: int) -> np.ndarray:
         lo = s * n_local
         strips[s] = padded[:, lo:lo + n_local, lo:lo + n_local + 2 * halo]
     return strips
+
+
+def branch_stack(per_branch_supports, n_shards: int, halo: int | None = None) -> BandedSupports:
+    """M branches' dense ``(K, N, N)`` supports as ONE branch-stacked
+    :class:`BandedSupports` at their common halo (the largest bandwidth
+    over the branches' supports unless ``halo`` is given;
+    :func:`strip_decompose` still checks it): the form a ``branch`` mesh
+    axis cuts, each branch group then running its own region ring. The
+    narrower branches exchange a few more rows than they need."""
+    mats = [np.asarray(s, dtype=np.float32) for s in per_branch_supports]
+    if halo is None:
+        halo = max(max(bandwidth(m[k]) for k in range(m.shape[0])) for m in mats)
+    stacked = np.stack([strip_decompose(m, n_shards, halo) for m in mats])
+    return BandedSupports(stacked, halo, mats[0].shape[1])
 
 
 def banded_decompose(supports, n_shards: int, halo: int | None = None) -> BandedSupports:

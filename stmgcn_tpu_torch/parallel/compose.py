@@ -13,24 +13,26 @@ multicity   dp=8               ``fleet_superstep`` (hetero city pair)
 scaled      region=8 (auto)    ``series_superstep``, node rows sharded:
                                the grid branch banded, the others dense
 branchpar   dp=2 x branch=3    ``series_superstep``, branch-sharded
-bandedbranch dp=2 x region=2    not ported yet (A11b-2: region x branch)
-            x branch=2
+bandedbranch dp=2 x region=2    ``series_superstep``, branch-stacked
+            x branch=2          banded strips (injected banded adjs)
 ========== ================== =========================================
 
-Every ported preset has a true single-device twin: the same config with
-the mesh removed, the same initial parameters (the mesh model is the
-single-device one split up, ``models/st_mgcn.py``; the port draws the same
-weights in every branch layout, so unlike the JAX package the banded
-``scaled`` has one too). ``composed_trainer`` of a mesh preset runs in
-every rank of a job of that many ranks (``init_distributed``); its twin
-(``twin="single"``) on one process.
+Every preset has a true single-device twin: the same config with the mesh
+removed, the same initial parameters (the mesh model is the single-device
+one split up, ``models/st_mgcn.py``; the port draws the same weights in
+every branch layout, so unlike the JAX package the banded ``scaled`` and
+``bandedbranch`` have one too). ``composed_trainer`` of a mesh preset runs
+in every rank of a job of that many ranks (``init_distributed``); its twin
+(``twin="single"``) on one process. ``bandedbranch``'s synthetic transport
+graph cannot be banded, so, as the JAX ``composed_trainer`` does, its
+composed trainer (and its twin) train on banded city adjacencies
+(:func:`banded_dataset`) and the branch-stacked halo plan engages.
 """
 
 from __future__ import annotations
 
-from stmgcn_tpu_torch.parallel.placement import REGION_PARTS_NOT_PORTED
-
 __all__ = [
+    "banded_dataset",
     "COMPOSED_PRESETS",
     "composed_config",
     "composed_trainer",
@@ -40,17 +42,40 @@ __all__ = [
 #: every multi-device preset with a composed program (the JAX table's)
 COMPOSED_PRESETS = ("multicity", "scaled", "branchpar", "bandedbranch")
 
-#: twin kind per preset (the JAX ``_TWIN``, but ``scaled`` has a true
-#: single-device twin in the port)
+#: twin kind per preset (the JAX ``_TWIN``, but the banded ``scaled`` and
+#: ``bandedbranch`` have true single-device twins in the port)
 _TWIN = {
     "multicity": "single",
     "scaled": "single",
     "branchpar": "single",
-    "bandedbranch": "per_step",
+    "bandedbranch": "single",
 }
 
-#: the presets whose composition is still to port
-_NOT_PORTED = ("bandedbranch",)
+
+def _band_adj(n: int, w: int, seed: int):
+    """Symmetric adjacency with every edge within index distance ``w``
+    (the JAX ``compose.py:68``)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    a = np.zeros((n, n), np.float32)
+    for d in range(1, w + 1):
+        band = (rng.random(n - d) < 0.7).astype(np.float32)
+        a += np.diag(band, d) + np.diag(band, -d)
+    return a
+
+
+def banded_dataset(cfg):
+    """``cfg``'s dataset with banded city adjacencies in place of the
+    synthetic graphs (bandwidths 1 and 2; the JAX ``composed_trainer``'s
+    stand-in, ``compose.py:200-207``), so a ``bandedbranch`` config routes
+    every branch to the halo plan."""
+    from stmgcn_tpu_torch.experiment import build_dataset
+
+    dataset = build_dataset(cfg)
+    n = dataset.n_nodes
+    dataset.adjs = {"g0": _band_adj(n, 1, 1), "g1": _band_adj(n, 2, 2)}
+    return dataset
 
 
 def _shrink_model(cfg) -> None:
@@ -70,8 +95,6 @@ def composed_config(name: str):
     if name not in COMPOSED_PRESETS:
         raise ValueError(
             f"no composed program for preset {name!r}; known: {COMPOSED_PRESETS}")
-    if name in _NOT_PORTED:
-        raise ValueError(f"composed {name!r}: " + REGION_PARTS_NOT_PORTED)
     cfg = preset(name)
     _shrink_model(cfg)
     cfg.train.epochs = 2
@@ -95,10 +118,15 @@ def composed_config(name: str):
         cfg.data.n_timesteps = 24 * 7 + 64
         cfg.model.K = 2
         cfg.train.batch_size = 4
-    else:  # branchpar
+    elif name == "branchpar":
         cfg.data.rows = 4
         cfg.data.n_timesteps = 24 * 7 + 64
         cfg.train.batch_size = 4
+    else:  # bandedbranch
+        cfg.data.rows = 4
+        cfg.data.n_timesteps = 24 * 7 + 64
+        cfg.train.batch_size = 4
+        cfg.mesh.halo = 4
     return cfg
 
 
@@ -111,8 +139,11 @@ def composed_trainer(name: str, *, twin: str | None = None, out_dir: str | None 
                      verbose: bool = False):
     """The preset's composed trainer (``twin=None``, in every rank of its
     job) or its single-device twin (``twin="single"``); ``initial_state``
-    (mesh-free) as ``build_trainer``'s. A composed ``scaled`` whose routing
-    did not put a branch on the halo plan raises (the JAX check)."""
+    (mesh-free) as ``build_trainer``'s. ``bandedbranch`` (and its twin)
+    train on :func:`banded_dataset`. A composed ``scaled`` whose routing
+    did not put a branch on the halo plan raises (the JAX check), and so
+    does a composed ``bandedbranch`` whose supports are not branch-stacked
+    strips."""
     from stmgcn_tpu_torch.config import MeshConfig
     from stmgcn_tpu_torch.experiment import build_trainer
 
@@ -125,8 +156,13 @@ def composed_trainer(name: str, *, twin: str | None = None, out_dir: str | None 
         cfg.mesh = MeshConfig()
     elif twin is not None:
         raise ValueError(f'twin must be None or "single", got {twin!r}')
-    trainer = build_trainer(cfg, device=device, initial_state=initial_state, verbose=verbose)
+    dataset = banded_dataset(cfg) if name == "bandedbranch" else None
+    trainer = build_trainer(cfg, device=device, initial_state=initial_state, verbose=verbose,
+                            dataset=dataset)
     if name == "scaled" and twin is None and "banded" not in trainer.model.support_modes:
         raise RuntimeError(f"composed {name!r}: routing did not engage the banded plan — the "
                            "shrink no longer matches the router's bandwidth budget")
+    if name == "bandedbranch" and twin is None and not getattr(
+            trainer.supports, "branch_stacked", False):
+        raise RuntimeError(f"composed {name!r}: routing did not stack the banded strips")
     return trainer

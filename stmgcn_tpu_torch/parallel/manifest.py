@@ -70,7 +70,7 @@ class CollectiveManifest:
 
 
 def manifest_for_config(
-    cfg, program: str = "train", banded: bool = False
+    cfg, program: str = "train", banded: bool = False, transport: str = "gloo"
 ) -> CollectiveManifest:
     """Compose a config's plan fragments into one program manifest.
 
@@ -81,6 +81,10 @@ def manifest_for_config(
     explicit halo plan for the region axis — permutes required — which
     is exactly when routing produced banded strips; otherwise a
     ``region`` axis gets GSPMD's dense signature (node all-gathers).
+    ``transport`` is the job's backend: over NCCL a region mesh's training
+    step also reduce-scatters its input cotangents
+    (:func:`~stmgcn_tpu_torch.utils.comm.reduce_scatter`), which gloo
+    all-reduces; the gloo manifest is the JAX package's.
     """
     from stmgcn_tpu_torch.parallel.placement import (
         HALO_EXCHANGE,
@@ -111,6 +115,14 @@ def manifest_for_config(
                 "region-sharded node axis",
             )
         )
+        if train and transport == "nccl":
+            decls.append(
+                CollectiveDecl(
+                    "reduce-scatter", "region", required=False,
+                    reason="the graph convs' input cotangent summed over the node "
+                    "rows (gloo, which has no reduce-scatter, all-reduces it)",
+                )
+            )
     if cfg.mesh.branch > 1:
         decls.extend(BRANCH_FUSION)
         if train:

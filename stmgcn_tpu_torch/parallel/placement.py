@@ -10,12 +10,17 @@ array kinds (``placement.py:1-44`` of the JAX package):
   replicated, except that leaves of the branch-stacked ``branches`` module
   are sliced on their leading M axis by the rank's ``branch`` coordinate
   (the JAX ``P('branch', ...)``);
-- ``supports``: a dense ``(M, K, N, N)`` stack, or a tuple of M per-branch
-  forms, sliced on M by the branch coordinate likewise; on a region mesh
-  each dense stack keeps the rank's output-node rows, ``(..., K, N_local,
-  N)`` (``P(None, None, 'region', None)``), and each
-  :class:`~stmgcn_tpu_torch.parallel.banded.BandedSupports` the rank's one
-  strip (its leading shard axis over ``region``);
+- ``supports``: a dense ``(M, K, N, N)`` stack, a branch-stacked form
+  (:class:`~stmgcn_tpu_torch.parallel.banded.BandedSupports` or
+  :class:`~stmgcn_tpu_torch.parallel.sparse.ShardedBlockSparse` with a
+  leading M axis), or a tuple of M per-branch forms: sliced on M by the
+  branch coordinate (``P('branch', ...)``); on a region mesh each dense
+  stack keeps the rank's output-node rows, ``(..., K, N_local, N)``
+  (``P(None, None, 'region', None)``), and each strip form the rank's one
+  shard (its shard axis over ``region``). A rank's one-branch block-CSR
+  strips merge into one branch-stacked strip
+  (:func:`~stmgcn_tpu_torch.parallel.sparse.merge_branches`), so its
+  branches take one kernel launch;
 - ``x``, ``y``, ``mask``: split contiguously on the batch axis over
   ``dp``, as ``P('dp')`` splits (rank ``i`` of the ``dp`` axis holds rows
   ``[i * B/dp, (i + 1) * B/dp)``); ``index`` ``(B,)`` likewise, and
@@ -29,8 +34,6 @@ array kinds (``placement.py:1-44`` of the JAX package):
   one); ``replicated``: whole on every rank.
 
 :meth:`MeshPlacement.check_divisibility` raises with the JAX messages.
-What the region axis does not take yet raises by name
-(:data:`REGION_PARTS_NOT_PORTED`).
 """
 
 from __future__ import annotations
@@ -38,13 +41,7 @@ from __future__ import annotations
 from stmgcn_tpu_torch.parallel.manifest import CollectiveDecl
 
 __all__ = ["BRANCH_FUSION", "DP_GRAD_SYNC", "GSPMD_REGION", "HALO_EXCHANGE", "MeshPlacement",
-           "REGION_PARTS_NOT_PORTED", "sharded_names"]
-
-#: the refusal of the region-parallel parts still to port
-REGION_PARTS_NOT_PORTED = (
-    "block-CSR supports on a region mesh (model.sparse: sharded block-CSR strips) and the "
-    "three-axis bandedbranch composition (region x branch) are not ported yet "
-    "(ROADMAP A11b-2)")
+           "sharded_names"]
 
 #: collective signature of the data-parallel placement: gradients (one
 #: bucket a step) and the step's loss summed over ``dp`` — the
@@ -89,9 +86,6 @@ class MeshPlacement:
              "replicated")
 
     def __init__(self, mesh):
-        if mesh.region > 1 and mesh.branch > 1:
-            raise ValueError(f"mesh region={mesh.region} x branch={mesh.branch}: "
-                             + REGION_PARTS_NOT_PORTED)
         self.mesh = mesh
 
     @property
@@ -146,13 +140,7 @@ class MeshPlacement:
         if kind == "state":
             return self.state_slice(value)
         if kind == "supports":
-            if self.region > 1:
-                return self._region_supports(value)
-            if self.branch == 1:
-                return value
-            if isinstance(value, (tuple, list)):
-                return tuple(value[self.branches(len(value))])
-            return value[self.branches(value.shape[0])]
+            return self._supports(value)
         if kind in ("index", "mask_block") and value.ndim == 2:
             return value[:, self.rows(value.shape[1])]
         value = value[self.rows(value.shape[0])]
@@ -163,22 +151,45 @@ class MeshPlacement:
             value = value[tuple(index)]
         return value
 
-    def _region_supports(self, value):
-        """This rank's support rows: a dense stack's row strip, a banded
-        form's own strip; an M-sequence form by form."""
+    def _supports(self, value):
+        """This rank's supports: its branches of a stacked form or of a
+        tuple of per-branch forms, then its node rows of each."""
         from stmgcn_tpu_torch.parallel.banded import BandedSupports
+        from stmgcn_tpu_torch.parallel.sparse import ShardedBlockSparse, merge_branches
 
         if isinstance(value, (tuple, list)):
-            return tuple(self._region_supports(v) for v in value)
-        if isinstance(value, BandedSupports):
+            forms = tuple(value[self.branches(len(value))]) if self.branch > 1 else tuple(value)
+            placed = tuple(self._rows(v) for v in forms)
+            if placed and all(isinstance(p, ShardedBlockSparse) for p in placed):
+                return merge_branches(placed)  # every branch in one launch
+            return placed
+        if self.branch > 1:
+            if isinstance(value, (BandedSupports, ShardedBlockSparse)):
+                if value.branch_stacked:
+                    lead = value.strips if isinstance(value, BandedSupports) else value.data
+                    value = value.branch(self.branches(lead.shape[0]))
+            elif hasattr(value, "shape"):  # a stack on its leading M axis
+                value = value[self.branches(value.shape[0])]
+        return self._rows(value)
+
+    def _rows(self, value):
+        """This rank's node rows of one support form: a dense stack's row
+        strip, a strip form's own shard (a block-CSR one at ``region ==
+        1`` too: its one shard)."""
+        from stmgcn_tpu_torch.parallel.banded import BandedSupports
+        from stmgcn_tpu_torch.parallel.sparse import ShardedBlockSparse
+
+        if isinstance(value, (BandedSupports, ShardedBlockSparse)):
             if value.n_shards != self.region:
-                raise ValueError(f"BandedSupports of {value.n_shards} shards on a mesh of "
-                                 f"region={self.region}")
+                raise ValueError(f"{type(value).__name__} of {value.n_shards} shards on a mesh "
+                                 f"of region={self.region}")
             return value.shard(self.mesh.coords["region"])
+        if self.region == 1:
+            return value
         if not hasattr(value, "shape") or value.ndim not in (3, 4):
             raise ValueError("supports on a region mesh must be dense (M, K, N, N) or (K, N, "
-                             f"N) stacks or BandedSupports; got {type(value).__name__}: "
-                             + REGION_PARTS_NOT_PORTED)
+                             "N) stacks, BandedSupports or ShardedBlockSparse strips; got "
+                             f"{type(value).__name__}")
         return value[..., self.nodes(value.shape[-2]), :]
 
     def state_slice(self, state: dict) -> dict:

@@ -14,9 +14,10 @@ cotangent on the way back; here both are written out, each one call of
   signal (an einsum summed in float32, as the JAX einsum outside any
   Pallas kernel; one per branch, as the one-device conv,
   :func:`~stmgcn_tpu_torch.ops.layers.branchwise_einsum`); the backward multiplies the strip's transpose into the
-  cotangent, giving this rank's share of the whole input cotangent, sums
-  the shares over ``region`` (a float32 all-reduce; gloo has no
-  reduce-scatter) and keeps this rank's rows.
+  cotangent, giving this rank's share of the whole input cotangent, and
+  sums the shares over ``region`` keeping this rank's rows (a float32
+  :func:`~stmgcn_tpu_torch.utils.comm.reduce_scatter`: over NCCL a
+  reduce-scatter, over gloo, which has none, an all-reduce and a cut).
 - :class:`RegionSum`: a sum over ``region`` of each rank's partial (the
   gate's node pooling: float64 at float32 compute, float32 under bf16).
   Unlike the branch fusion its backward sums too: what consumes the pooled
@@ -62,9 +63,8 @@ class RegionDenseApply(torch.autograd.Function):
         share = branchwise_einsum(f"{a},{out}->{x}", strip, grad)
         if share.dim() > ctx.x_dim:  # a signal shared by every branch
             share = share.sum(dim=0)
-        whole = comm.all_reduce(share, "region", ctx.mesh, what="node-rows-grad")
-        lo = node_offset(ctx.mesh, ctx.n_local)
-        return None, whole.narrow(-2, lo, ctx.n_local).to(ctx.dtype), None, None
+        mine = comm.reduce_scatter(share, "region", ctx.mesh, dim=-2, what="node-rows-grad")
+        return None, mine.to(ctx.dtype), None, None
 
 
 def region_dense_apply(strip: torch.Tensor, x: torch.Tensor, mesh, spec: str) -> torch.Tensor:

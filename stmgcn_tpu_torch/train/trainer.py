@@ -163,7 +163,7 @@ a program, so tracing changes no program.
 **Meshes** (``model.placement``, a
 :class:`~stmgcn_tpu_torch.parallel.placement.MeshPlacement`; the JAX
 trainer's mesh routing, ``trainer.py:411-455``): each rank of a ``dp x
-region`` or ``dp x branch`` job runs this trainer on its slice.
+region x branch`` job runs this trainer on its slice.
 
 - *Data*: every rank draws the same global batch order from the seed and
   takes its contiguous ``dp`` rows; on the window-free resident route

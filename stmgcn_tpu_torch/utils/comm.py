@@ -8,7 +8,8 @@ of a :class:`~stmgcn_tpu_torch.parallel.mesh.Mesh`, and no other module
 calls ``torch.distributed``'s collectives. Each call adds to
 :data:`STATS` one entry ``(kind, axis, bytes, calls)``, kinds named as the
 HLO ops (``"all-reduce"``, ``"all-gather"``, ``"broadcast"``,
-``"collective-permute"`` for a ring exchange's point-to-point sends), and counts
+``"reduce-scatter"``, ``"collective-permute"`` for a ring exchange's
+point-to-point sends), and counts
 the same under ``what`` (the payload's name: ``"grads"``, ``"loss"``,
 ``"fusion"``, ...). Bytes follow the JAX rule: the op's *output* bytes
 (an all-gather's output is the gathered tensor, ``calls x`` the input
@@ -48,11 +49,12 @@ __all__ = [
     "broadcast",
     "broadcast_bytes",
     "collective_stats",
+    "reduce_scatter",
     "ring_exchange",
     "step_comm_report",
 ]
 
-COLLECTIVES = ("all-reduce", "all-gather", "broadcast", "collective-permute")
+COLLECTIVES = ("all-reduce", "all-gather", "broadcast", "reduce-scatter", "collective-permute")
 
 
 class CommStats:
@@ -134,6 +136,34 @@ def all_gather(tensor: torch.Tensor, axis: str, mesh, *, dim: int = 0,
     out = torch.cat(parts, dim=dim)
     STATS.add("all-gather", axis, _nbytes(out), what)
     return out.to(tensor.device)
+
+
+def reduce_scatter(tensor: torch.Tensor, axis: str, mesh, *, dim: int = 0,
+                   what: str = "") -> torch.Tensor:
+    """This rank's block of the sum of ``tensor`` over its ``axis`` line:
+    ``dim`` cut into ``size`` contiguous blocks in line order, the rank at
+    line position ``i`` keeping block ``i`` (every rank passes the same
+    shape; ``dim``'s extent a multiple of the line's size). Over NCCL one
+    ``reduce_scatter_tensor`` (counted ``"reduce-scatter"``, its output's
+    bytes, a ``1/size`` of an all-reduce's); gloo has no reduce-scatter,
+    so there it is an all-reduce of the whole tensor and the block cut out
+    (counted ``"all-reduce"``, the whole tensor's bytes)."""
+    group = mesh.group(axis)
+    if group is None:
+        return tensor
+    size, i = mesh.size(axis), mesh.coords[axis]
+    dim = dim % tensor.dim()
+    block = tensor.shape[dim] // size
+    if block * size != tensor.shape[dim]:
+        raise ValueError(f"reduce_scatter: dim {dim} of extent {tensor.shape[dim]} does not "
+                         f"split over {size} ranks")
+    if mesh.backend != "nccl":
+        return all_reduce(tensor, axis, mesh, what=what).narrow(dim, i * block, block)
+    lead = _on_backend(tensor, mesh).movedim(dim, 0).contiguous()
+    out = torch.empty((block,) + tuple(lead.shape[1:]), dtype=lead.dtype, device=lead.device)
+    dist.reduce_scatter_tensor(out, lead, op=dist.ReduceOp.SUM, group=group)
+    STATS.add("reduce-scatter", axis, _nbytes(out), what)
+    return out.movedim(0, dim).to(tensor.device)
 
 
 def broadcast(tensor: Optional[torch.Tensor], mesh, *, shape=None, dtype=None, src: int = 0,

@@ -507,6 +507,162 @@ def grad_sync_order(args, out_dir):
             "backend": mesh.backend, "collectives": list(comm.COLLECTIVES)}
 
 
+# -- block-CSR strips and the region x branch composition -----------------------
+
+def _mesh3(dp=1, region=1, branch=1):
+    from stmgcn_tpu_torch.config import MeshConfig
+    from stmgcn_tpu_torch.parallel import mesh_from_config
+
+    return mesh_from_config(MeshConfig(dp=dp, region=region, branch=branch), device="cpu")
+
+
+def sparse_apply(args, out_dir):
+    """``sharded_spmm_apply`` on a dp=2 x region=4 mesh: this rank's strip
+    of ``args["sp_mats"]`` against its batch and node rows of
+    ``args["sp_x"]``; the product ``(K, b, n_local, F)`` and the gradient
+    of ``sum(product * args["sp_cot"])`` w.r.t. the rank's rows."""
+    import torch
+
+    from stmgcn_tpu_torch.parallel import MeshPlacement, sharded_from_dense, sharded_spmm_apply
+
+    mesh = _mesh3(dp=2, region=4)
+    pl = MeshPlacement(mesh)
+    mats, x_all = args["sp_mats"], args["sp_x"]
+    strip = sharded_from_dense(mats, 4).shard(mesh.coords["region"])
+    x = torch.from_numpy(pl.put(x_all, "y")).requires_grad_()  # (b, n_local, F)
+    b, nl, f = x.shape
+    out = sharded_spmm_apply(strip, x.transpose(0, 1).reshape(nl, b * f), mesh)
+    out = out.reshape(-1, nl, b, f).transpose(1, 2)  # (K, b, n_local, F)
+    cot = args["sp_cot"][:, pl.rows(x_all.shape[0])][:, :, pl.nodes(x_all.shape[1])]
+    (out * torch.from_numpy(cot.copy())).sum().backward()
+    return {"out": out.detach(), "grad": x.grad, "coords": mesh.coords}
+
+
+def tiled_apply(args, out_dir):
+    """``sharded_gathered_tiles_apply`` of this rank's shard of
+    ``args["plan"]``'s branch 0 split over region=8: its output rows and
+    the gradient of ``sum(out * args["tile_cot"])`` w.r.t. its signal
+    rows (the permuted signal ``args["tile_x"]``)."""
+    import torch
+
+    from stmgcn_tpu_torch.ops.tiling import shard_tiled_plan, sharded_gathered_tiles_apply
+
+    mesh = _mesh3(region=8)
+    j = mesh.coords["region"]
+    sharded = shard_tiled_plan(args["plan"][0], 8)
+    mine = sharded.shard(j)
+    rows = mine.block_rows_local * mine.tile
+    x = torch.from_numpy(args["tile_x"][j * rows:(j + 1) * rows].copy()).requires_grad_()
+    out = sharded_gathered_tiles_apply(mine, x, mesh)
+    cot = torch.from_numpy(args["tile_cot"][:, j * rows:(j + 1) * rows].copy())
+    (out * cot).sum().backward()
+    return {"out": out.detach(), "grad": x.grad, "halo": sharded.halo,
+            "halo_t": sharded.halo_t, "r_loc": sharded.block_rows_local}
+
+
+def sparse_mesh_train(args, out_dir):
+    """``args["sp_cfg"]`` (block-CSR supports, dp=2 x region=4) trained
+    from ``args["sp_initial_state"]``: history, final parameters, routing,
+    layout and the rank's strip form."""
+    from stmgcn_tpu_torch.experiment import build_trainer
+
+    cfg = region_config({"cfg": args["sp_cfg"]}, out_dir)
+    t = build_trainer(cfg, device="cpu", verbose=False,
+                      initial_state=args.get("sp_initial_state"))
+    history = t.train()
+    return {"history": history, "state": _state(t), "modes": t.model.branch_modes(),
+            "layout": t.layout, "strip": type(t.supports).__name__,
+            "branch_stacked": t.supports.branch_stacked}
+
+
+def branch_parity(args, out_dir):
+    """``tests/test_branch_banded.py``'s ``TestBranchStackedParity`` on a
+    dp=2 x region=2 x branch=2 mesh, for each mode of ``args["bp_modes"]``:
+    the model of ``args["bp_state"]`` over the branch-stacked strips of
+    ``args["bp_dense"][mode]``, its forward (gathered to the whole batch)
+    and three training steps' losses (Adam 1e-2, L2 1e-4)."""
+    import numpy as np
+    import torch
+
+    from stmgcn_tpu_torch.models import STMGCN
+    from stmgcn_tpu_torch.parallel import (GradSync, MeshPlacement, branch_stack,
+                                           branch_stack_sparse, replica_sum)
+    from stmgcn_tpu_torch.parallel.placement import sharded_names
+    from stmgcn_tpu_torch.train.step import make_optimizer, train_step
+    from stmgcn_tpu_torch.utils import comm
+
+    mesh = _mesh3(dp=2, region=2, branch=2)
+    pl = MeshPlacement(mesh)
+    x, y = args["bp_x"], args["bp_y"]
+    b, t, n, _ = x.shape
+    out = {}
+    for mode in args["bp_modes"]:
+        dense = args["bp_dense"][mode]
+        m, k = dense.shape[:2]
+        model = STMGCN(m_graphs=m, n_supports=k, seq_len=t, input_dim=1, lstm_hidden_dim=8,
+                       lstm_num_layers=2, gcn_hidden_dim=8, support_modes=(mode,) * m,
+                       device="cpu", placement=pl, loop_layout=False)
+        model.load_state_dict(pl.state_slice(args["bp_state"]))
+        host = branch_stack(list(dense), 2) if mode == "banded" else branch_stack_sparse(dense, 2)
+        sup = pl.put(host, "supports").to("cpu")
+        x_l = torch.from_numpy(np.ascontiguousarray(pl.put(x, "x")))
+        y_l = torch.from_numpy(np.ascontiguousarray(pl.put(y, "y")))
+        with torch.no_grad():
+            pred = model(sup, x_l)
+        pred = comm.all_gather(pred.contiguous(), "region", mesh, dim=pred.dim() - 2)
+        pred = comm.all_gather(pred, "dp", mesh)
+        opt = make_optimizer(model.parameters(), 1e-2, 1e-4)
+        names = [name for name, _ in model.named_parameters()]
+        opt.sync = GradSync(mesh, opt.params, sharded_names(names, mesh.branch))
+        mask = torch.ones(b, n)
+        losses = []
+        for _ in range(3):
+            loss = train_step(model, opt, sup, x_l, y_l, mask, rows=pl.rows(b),
+                              nodes=pl.nodes(n))
+            losses.append(float(replica_sum(loss.reshape(1), mesh)[0]))
+        out[mode] = {"pred": pred, "losses": losses, "modes": model.branch_modes(),
+                     "stacked": host.branch_stacked,
+                     "wh_0": model.branches.cg_lstm.lstm.wh_0.shape}
+    return out
+
+
+def branch_region_train(args, out_dir):
+    """The composed ``bandedbranch`` on this dp=2 x region=2 x branch=2 job,
+    for each route of ``args["br_routes"]``: ``"synthetic"`` (the preset's
+    own graphs: ``auto`` falls back to dense), ``"banded"`` (banded city
+    adjacencies: branch-stacked strips) and ``"sparse"`` (block-CSR strips,
+    branch-stacked), each from ``args["br_initial_state"]``: routing,
+    history, final parameters, the lead's ``best.ckpt`` and one step's
+    collectives against the manifest."""
+    from stmgcn_tpu_torch.experiment import build_trainer
+    from stmgcn_tpu_torch.parallel import banded_dataset, check_executed, composed_config
+    from stmgcn_tpu_torch.parallel import manifest_for_config
+    from stmgcn_tpu_torch.utils import step_comm_report
+
+    out = {}
+    for route in args["br_routes"]:
+        cfg = composed_config("bandedbranch")
+        cfg.train.out_dir = os.path.join(out_dir, route)
+        cfg.train.epochs = 1
+        cfg.model.sparse = route == "sparse"
+        data = None if route == "synthetic" else banded_dataset(cfg)
+        t = build_trainer(cfg, device="cpu", verbose=False, dataset=data,
+                          initial_state=args.get("br_initial_state"))
+        report = step_comm_report(t.train_batch, next(iter(t.batches("train"))))
+        t = build_trainer(cfg, device="cpu", verbose=False, dataset=data,
+                          initial_state=args.get("br_initial_state"))
+        history = t.train()
+        banded = "banded" in t.model.branch_modes()
+        out[route] = {"history": history, "state": _state(t), "modes": t.model.branch_modes(),
+                      "branch_stacked": getattr(t.supports, "branch_stacked", None),
+                      "layout": t.layout, "path": t.train_path, "best": t.best_path,
+                      "coords": t.mesh.coords,
+                      "report": {k: v for k, v in report.items() if k != "result"},
+                      "problems": check_executed(manifest_for_config(cfg, banded=banded),
+                                                 report)}
+    return out
+
+
 def main(out: str, names: str) -> None:
     import torch
 

@@ -67,8 +67,8 @@ def test_exit_codes_follow_the_reference(tmp_path, capsys):
     assert "No resumable checkpoint found — starting fresh" in lines
     assert main(["--preset", "nope", "--device", "cpu"]) == 1  # preset() refuses it
     assert "preset must be one of" in capsys.readouterr().err
-    assert main(["--preset", "bandedbranch", "--device", "cpu"]) == 1  # refused by name
-    assert "bandedbranch" in capsys.readouterr().err
+    assert main(["--preset", "bandedbranch", "--print-config"]) == 0  # ported
+    assert json.loads(capsys.readouterr().out)["mesh"]["branch"] == 2
     for flag in (["--platform", "cpu"], ["--resume", "always"]):
         with pytest.raises(SystemExit) as info:
             main(["--preset", "smoke"] + flag)

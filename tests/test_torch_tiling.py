@@ -486,6 +486,23 @@ def test_chip_smoke_metro_city_equals_bench_largen_city():
     assert ds.n_nodes == 512
 
 
+@pytest.mark.parametrize("n, tile", [(300, 64), (257, 128)])
+def test_chip_smoke_ktuples_cut_from_stacks_equal_from_dense(n, tile):
+    """``chip_smoke.py``'s metro K-tuples are cut from the per-branch stacks
+    instead of scanned again: each support's arrays equal ``from_dense``'s."""
+    from stmgcn_tpu_torch.ops.spmm import from_dense, stack_from_dense
+
+    rng = np.random.default_rng(n)
+    mats = ((rng.random((3, n, n)) < 0.01) * rng.standard_normal((3, n, n))).astype(np.float32)
+    mats[2] = 0.0
+    mats[2, :5, :5] = 1.0  # one support of a single block: widths differ per support
+    for k, got in enumerate(chip_smoke.ktuple_of(stack_from_dense(mats, tile))):
+        want = from_dense(mats[k], tile)
+        assert (got.n, got.tile) == (want.n, want.tile)
+        for f in ("data", "idx", "nblk", "data_t", "idx_t", "nblk_t"):
+            assert torch.equal(getattr(got, f), getattr(want, f)), (k, f)
+
+
 # -- the counts of real slots ---------------------------------------------------
 
 #: a ragged N (18 x 18 = 324) against both kernel tiles, with random links
