@@ -49,8 +49,10 @@ Phases, each of which ends the run with a non-zero exit code on failure:
     forward and backward kernels' shares;
 11. the metro city of ``bench.py``'s largeN point on the host: a 64x128 grid
     (N = 8,192) with structured transit and district-similarity graphs
-    (this file's own copy of the builder), its dense Chebyshev supports and
-    their tiled plan at tile 128, with the host seconds of each;
+    (this file's own copy of the builder), its dense Chebyshev supports
+    (``lambda_max`` over the sparse Laplacian, the one N^3 product,
+    ``T_2``, in float64 on the card) and their tiled plan at tile 128, with
+    the seconds of each;
 12. the block-CSR kernels against their plain versions on the card: the
     stacked forward (B3) and backward (B4, two runs bitwise equal) at the
     plan's gate-conv and graph-conv shapes for batch 2 and the top serving
@@ -384,8 +386,8 @@ parent built (``STMGCN_KERNELS_PREBUILT``: a rank never runs ``nvcc``); a
 rank that fails, or a job past MESH_TIMEOUT, fails the run and the other
 ranks are killed. Each mesh run is held against its single-device twin on
 the card (the same config without the mesh, the same seed; graphed, as a
-user runs it). The B1/B2 launches summed over the ranks of 57-58 (fp32)
-and 59 (xla) are the records' ``mesh_launches``:
+user runs it). The B1/B2 launches summed over the ranks of 57-58 and 67
+(fp32) and 59 and 67 (xla) are the records' ``mesh_launches``:
 
 57. ``multicity`` at its own dp=8 mesh, fp32, full width (cities 12x12 and
     10x10, batch 64, eight ranks; the epochs cut to MESH_EPOCHS): per-step
@@ -415,7 +417,20 @@ and 59 (xla) are the records' ``mesh_launches``:
     best beside it); a mesh resume gives every rank the lead file's
     parameter digest; a corrupt lead file raises on every rank;
     ``python -m stmgcn_tpu_torch.cli --preset branchpar --distributed`` in
-    six processes launched as ``torchrun`` would prints one JSON line.
+    six processes launched as ``torchrun`` would prints one JSON line;
+67. the trainer's opt-in features on the same six ranks: ``branchpar``
+    for one epoch, window-free resident in blocks of FEATURE_S, with the
+    divergence guard (skip), health at every dispatch, the index
+    sanitizers and a fault plan that poisons step FEATURE_POISON and drops
+    step FEATURE_DROP, at bf16 (the xla form) with stochastic rounding
+    (SR_SEED) and at fp32 without, each against its one-device twin of the
+    same plan (graphed): the poisoned block's non-finite steps and the
+    guard's trips where the twin's are; at fp32 the losses and parameters
+    by phase 57's rules and every health record's norms within
+    HEALTH_RTOL (relative) of the twin's; at bf16 phase 59's rule for the
+    losses, the parameters and (against the fp32 twin) the health norms;
+    the health stats' branch all-reduce one a step; the lead alone writes
+    ``health.jsonl``; B1/B2 and the manifests as in 58-59.
 
 The region phases, run last: ``scaled`` (BASELINE config 3: a 50x50 grid,
 N = 2,500 padded to 2,504 = 8 x 313, K=3, M=3, a 3-layer 64-wide LSTM,
@@ -473,7 +488,19 @@ rows:
     bandwidth fits (``shard_tiled_plan``; the parent shards it while the
     metro city is on hand, with the one-device B3/B4 reference), each
     rank's sharded apply (halo-local stacks, B3 forward, B4 for the input
-    gradient) within TILED_ATOL of the largest value.
+    gradient) within TILED_ATOL of the largest value;
+68. in the same eight-rank job: (a) ``multicity`` (its 12x12 and 10x10
+    cities, batch 64, full width) on a ``region=8`` mesh, window-free
+    resident in blocks of FLEET_REGION_S, one epoch: ``fleet_superstep``
+    (the shape classes planned over the padded node counts, every rung a
+    multiple of 8), every step's loss and the final parameters against the
+    one-device fleet twin (phase 57's rules), one B1 a forward of ``64 x
+    rung / 8 x 3`` rows and one B2 a step, one gradient all-reduce over
+    ``region`` a step, the manifest clean; (b) the NaN drill: the scaled
+    city (window-free resident) with a NaN in node DRILL_NODE's series,
+    whose rows one rank alone holds, trained under ``checks="nan"`` and
+    then under ``debug_nans``: every rank raises the same error at the
+    same step, within DRILL_SPREAD_S of one another.
 
 Checkpoints go to a temporary directory that the run removes.
 
@@ -482,7 +509,7 @@ form (B1's and B2's fp32 records carry phase 3b's shapes as
 ``route_shapes``, the B1 records their ``export_launches``; the bf16 forms' records carry ``"dtype": "bfloat16"``,
 the xla forms' ``"form": "xla"`` too; every record its ``mesh_launches``
 ``region_launches`` and ``sparse_mesh_launches``, summed over the ranks of
-57-59, of 61-62 and of 64-66),
+57-59 and 67, of 61-62 and 68, and of 64-66),
 and ``{"ok": true, "device":
 {...}}``. There is no CPU mode: without a CUDA
 device the script exits non-zero before printing any result.
@@ -1836,11 +1863,42 @@ def metro_city(rows: int, cols: int, n_timesteps: int, seed: int = 0):
     )
 
 
-def metro_host():
-    """Phase 11: the metro city, its dense Chebyshev supports and their
-    tiled plan, built on the host as ``bench.py`` builds them."""
-    from stmgcn_tpu_torch.data import DemandDataset, WindowSpec
+def chebyshev_stack(adjs, device=None) -> np.ndarray:
+    """``SupportConfig("chebyshev", 2).build_all(adjs)``; with ``device``
+    its two costly parts made cheap, the rest as the library builds them
+    (at N = 8,192 they took about 55 s of the metro start-up on the
+    card's host): ``lambda_max`` by the same Lanczos solver (ARPACK's
+    ``eigsh``) over the sparse Laplacian rather than its dense copy, and
+    the one product of order N^3, ``T_2 = 2 x @ x - I``, in float64 on the
+    card; each another float64 rounding of the same numbers."""
+    import scipy.sparse
+    import torch
+    from scipy.sparse.linalg import eigsh
+
     from stmgcn_tpu_torch.ops import SupportConfig
+    from stmgcn_tpu_torch.ops.graph import normalized_laplacian, rescale_laplacian
+
+    if device is None:
+        return SupportConfig("chebyshev", 2).build_all(adjs)
+    stacks = []
+    for adj in adjs:
+        lap = normalized_laplacian(adj)
+        lam = eigsh(scipy.sparse.csr_matrix(lap), k=1, which="LA", return_eigenvectors=False)
+        x = rescale_laplacian(lap, lambda_max=float(lam[0]))
+        x_dev = torch.from_numpy(x).to(device)
+        eye = torch.eye(x.shape[0], dtype=torch.float64, device=device)
+        t2 = (2.0 * (x_dev @ x_dev) - eye).cpu().numpy()
+        del x_dev, eye
+        stacks.append(np.stack([np.eye(x.shape[0]), x, t2]).astype(np.float32))
+    torch.cuda.empty_cache()
+    return np.stack(stacks)
+
+
+def metro_host(device=None):
+    """Phase 11: the metro city, its dense Chebyshev supports and their
+    tiled plan, built as ``bench.py`` builds them (with ``device``, the
+    supports' one N^3 product on the card: :func:`chebyshev_stack`)."""
+    from stmgcn_tpu_torch.data import DemandDataset, WindowSpec
     from stmgcn_tpu_torch.ops.tiling import plan_tiling
 
     rows, cols = METRO_ROWS, 2 * METRO_ROWS
@@ -1848,7 +1906,7 @@ def metro_host():
     ds = DemandDataset(metro_city(rows, cols, METRO_TIMESTEPS),
                        WindowSpec(METRO_SERIAL, 1, 1, 24))
     t1 = time.perf_counter()
-    dense = SupportConfig("chebyshev", 2).build_all(ds.adjs.values())
+    dense = chebyshev_stack(ds.adjs.values(), device)
     t2 = time.perf_counter()
     plan = plan_tiling(dense, tile=METRO_TILE)
     t3 = time.perf_counter()
@@ -6293,10 +6351,12 @@ def mesh_config(name: str, out: str, *, dtype: str = "float32", epochs: int = ME
 
 def recorded(trainer) -> dict:
     """Record each dispatch's losses and host seconds (each ends in its
-    readback), each model forward and each LSTM launch's rows (the
-    ``(M, R, T, F)`` input of the branch-stacked LSTM: ``M x R`` rows)."""
-    rec = {"losses": [], "seconds": [], "forwards": 0, "rows": set()}
-    dispatch = trainer._dispatch
+    readback), each model forward, each LSTM launch's rows (the ``(M, R,
+    T, F)`` input of the branch-stacked LSTM: ``M x R`` rows), each health
+    record's rows and each divergence-guard trip."""
+    rec = {"losses": [], "seconds": [], "forwards": 0, "rows": set(), "health": [],
+           "trips": []}
+    dispatch, emit = trainer._dispatch, trainer._health_emit
 
     def timed(*a, **k):
         t0 = time.perf_counter()
@@ -6304,6 +6364,20 @@ def recorded(trainer) -> dict:
         rec["losses"] += losses
         rec["seconds"].append(time.perf_counter() - t0)
         return losses, stats
+
+    def emitted(stats, cities=None):  # each health record's rows
+        rec["health"].append(np.array(stats))
+        emit(stats, cities)
+
+    if trainer._guard is not None:  # each trip's (epoch, step)
+        trip = trainer._guard.trip
+
+        def tripped(loss, epoch, step):
+            rec["trips"].append((epoch, step))
+            trip(loss, epoch, step)
+
+        trainer._guard.trip = tripped
+    trainer._health_emit = emitted
 
     def forward(module, args, out):
         rec["forwards"] += 1
@@ -6321,12 +6395,14 @@ def p50_ms(seconds) -> float:
     return float(np.median(seconds) * 1e3) if seconds else float("nan")
 
 
-def mesh_train(cfg, device, *, test: bool = False, dataset=None, supports=None) -> dict:
+def mesh_train(cfg, device, *, test: bool = False, dataset=None, supports=None,
+               fault_plan=None) -> dict:
     """One rank (or the twin) of a phase: build (on ``dataset`` and its
-    dense ``supports``, None: the config's), train with the recorder on,
-    read the launches, the comm counts and the initial and final (whole)
-    parameters; then one more step under ``step_comm_report`` for the
-    manifest check."""
+    dense ``supports``, None: the config's; with ``fault_plan``), train
+    with the recorder on, read the launches, the comm counts, the initial
+    and final (whole) parameters, the health records (and the lines of
+    the lead's ``health.jsonl``), the node pads and fleet rungs; then one
+    more step under ``step_comm_report`` for the manifest check."""
     import torch
 
     from stmgcn_tpu_torch.experiment import build_trainer
@@ -6336,7 +6412,7 @@ def mesh_train(cfg, device, *, test: bool = False, dataset=None, supports=None) 
 
     t_build = time.perf_counter()
     trainer = build_trainer(cfg, device=device, verbose=False, dataset=dataset,
-                            supports=supports)
+                            supports=supports, fault_plan=fault_plan)
     t_build = time.perf_counter() - t_build
     init = from_jax_params(trainer.state_trees()[0], trainer.model.m_graphs)
     rec = recorded(trainer)
@@ -6354,7 +6430,14 @@ def mesh_train(cfg, device, *, test: bool = False, dataset=None, supports=None) 
            "rows": sorted(rec["rows"]), "counts": counts, "comm": stats,
            "path": trainer.train_path, "graphs": trainer.graphs,
            "state": from_jax_params(params, trainer.model.m_graphs), "init": init,
-           "best_val": trainer.best_val}
+           "best_val": trainer.best_val, "health": rec["health"], "trips": rec["trips"],
+           "node_pads": trainer._node_pads,
+           "rungs": [c.n_nodes for c in trainer.fleet_plan.classes] if trainer.fleet_plan else [],
+           "health_writer": trainer._health_writer is not None}
+    health = trainer._health_out_path()
+    if trainer.health and trainer.is_lead and os.path.exists(health):
+        with open(health) as f:
+            out["health_lines"] = sum(1 for _ in f)
     if test:
         out["test"] = trainer.test(modes=("test",), checkpoint="best")["test"]
     if trainer.mesh is not None:
@@ -6440,6 +6523,84 @@ def check_bf16_run(got: dict, twin16: dict, twin32: dict, what: str) -> str:
             f"{twin_gap:.3e}), whole state {whole[0]:.3e} (the bf16 twin's {whole[1]:.3e}), "
             f"worst tensor {worst[1]} at {worst[0]:.3f} of the bf16 twin's gap (limit "
             f"{BF16_GAP_FACTOR})")
+
+
+def finite_steps(got: dict) -> dict:
+    """A run's record without its non-finite losses (the steps of a
+    poisoned block, rolled back)."""
+    losses = np.asarray(got["losses"])
+    return {**got, "losses": losses[np.isfinite(losses)].tolist()}
+
+
+def check_features(got16: dict, got32: dict, twin16: dict, twin32: dict, what: str) -> str:
+    """Phase 67: a rank's two runs with every opt-in feature (bf16 with
+    stochastic rounding, and fp32 without) against the one-device twins of
+    the same plan. In both, the non-finite steps (the poisoned block's)
+    and the guard's trips where the twin's are, the non-finite counts of
+    the health records equal, the health stats' branch all-reduce one a
+    step of ``3 P + 2`` floats (P parameters), and the lead alone wrote
+    ``health.jsonl`` with the twin's lines. At fp32 the finite losses and
+    the final state by phase 57's rules (:func:`check_mesh_run`) and every
+    health record's norms within HEALTH_RTOL (relative) of the twin's; at
+    bf16 the losses and the final state by phase 59's rule
+    (:func:`check_bf16_run`) and, as its losses, every health record's
+    norms no farther from the fp32 twin's than BF16_GAP_FACTOR times the
+    bf16 twin's largest gap (relative; each dp rank rounds its
+    half-batch's bf16 gradient products, one device the whole batch's, so
+    a gradient norm moves by bf16 roundings from the first step)."""
+    from stmgcn_tpu_torch.train.step import HEALTH_COLUMNS
+
+    counts = [HEALTH_COLUMNS.index(c) for c in ("nonfinite_grads", "nonfinite_loss")]
+
+    def rel(a, b):  # the largest relative gap of a's health norms to b's
+        norms = [i for i in range(1, b.shape[-1]) if i not in counts]
+        return float(np.max(np.abs(a[..., norms] - b[..., norms])
+                            / np.maximum(np.abs(b[..., norms]), 1e-30)))
+
+    texts = []
+    for got, twin, dtype in ((got16, twin16, "bf16"), (got32, twin32, "fp32")):
+        where = f"{what}, {dtype}"
+        a, b = np.asarray(got["losses"]), np.asarray(twin["losses"])
+        if a.shape != b.shape or not np.array_equal(np.isfinite(a), np.isfinite(b)):
+            fail(f"{where}: {a.shape[0]} steps, non-finite at {np.flatnonzero(~np.isfinite(a))};"
+                 f" the twin's {b.shape[0]} at {np.flatnonzero(~np.isfinite(b))}")
+        if not got["trips"] or got["trips"] != twin["trips"]:
+            fail(f"{where}: the guard tripped at {got['trips']}, the twin's at {twin['trips']}")
+        rows, want = got["health"], twin["health"]
+        if len(rows) != len(want) or not rows or any(
+                not np.array_equal(r[:, counts], w[:, counts]) for r, w in zip(rows, want)):
+            fail(f"{where}: {len(rows)} health records, the twin's {len(want)}, or their "
+                 "non-finite counts differ")
+        lead = got["mesh"]["coords"] == {"dp": 0, "region": 0, "branch": 0}
+        if got["health_writer"] != lead or (lead and got["health_lines"] != twin["health_lines"]):
+            fail(f"{where}: health writer {got['health_writer']} (lead {lead}), lines "
+                 f"{got.get('health_lines')} against the twin's {twin['health_lines']}")
+        h = got["comm"]["what"].get("all-reduce/branch/health", {"calls": 0, "bytes": 0})
+        if h != {"calls": got["steps"], "bytes": got["steps"] * 4 * (3 * got["params"] + 2)}:
+            fail(f"{where}: the health all-reduce {h}; expected one of "
+                 f"{4 * (3 * got['params'] + 2)} bytes a step over {got['steps']} steps")
+        gap = max(rel(r, w) for r, w in zip(rows, want))
+        if dtype == "fp32":
+            text = check_mesh_run(finite_steps(got), finite_steps(twin), where)
+            if gap > HEALTH_RTOL:
+                fail(f"{where}: the health norms sit up to {gap:.3e} (relative) from the "
+                     f"twin's (rule {HEALTH_RTOL})")
+            text += f"; health norms within {gap:.3e} of the twin's (relative)"
+        else:
+            text = check_bf16_run(finite_steps(got), finite_steps(twin),
+                                  finite_steps(twin32), where)
+            mine = max(rel(r, f) for r, f in zip(rows, twin32["health"]))
+            theirs = max(rel(w, f) for w, f in zip(want, twin32["health"]))
+            if mine > BF16_GAP_FACTOR * theirs:
+                fail(f"{where}: a health record's norms sit {mine:.3e} (relative) from the fp32 "
+                     f"twin's, past {BF16_GAP_FACTOR} x the bf16 twin's largest gap {theirs:.3e}")
+            text += (f"; health norms within {gap:.3e} of the twin's (relative), at most "
+                     f"{mine:.3e} from the fp32 twin's (the bf16 twin's largest gap {theirs:.3e})")
+        agreed = {k.split("/")[-1]: v["calls"] for k, v in got["comm"]["what"].items()
+                  if k.startswith("all-reduce/world/")}
+        texts.append(f"{dtype}: {text}; trips {got['trips']}, {len(rows)} health records, "
+                     f"world agreements {agreed}")
+    return "; ".join(texts)
 
 
 def param_gaps(got: dict, twin: dict) -> dict:
@@ -6542,8 +6703,67 @@ def mesh_job_bf16(args, out: str, device) -> dict:
     return {"59": got}
 
 
+#: phase 67: ``branchpar`` at bf16 (the xla form) for one epoch, window-free
+#: resident in blocks of FEATURE_S, with every opt-in feature: stochastic
+#: rounding (SR_SEED), health at every dispatch, the index sanitizers (a NaN
+#: check would stop the run at the poisoned step before the guard sees it:
+#: phase 68b's drill), the divergence guard (skip) and a fault plan that
+#: poisons step FEATURE_POISON (a block rolled back and replayed step by
+#: step) and drops step FEATURE_DROP (a block run step by step); the health
+#: norms' rule against the twin (relative)
+FEATURE_S, FEATURE_POISON, FEATURE_DROP, HEALTH_RTOL = 4, 5, 9, 1e-5
+
+
+def feature_config(out: str, dtype: str = "bfloat16"):
+    """Phase 67's config (``dtype="float32"``: its fp32 yardstick, the same
+    without stochastic rounding)."""
+    cfg = mesh_config("branchpar", out, dtype=dtype, epochs=MESH_BF16_EPOCHS)
+    t = cfg.train
+    t.steps_per_superstep, t.window_free, t.data_placement = FEATURE_S, True, "resident"
+    t.divergence_guard, t.divergence_action, t.checks = True, "skip", "index"
+    if dtype == "bfloat16":
+        t.precision, t.sr_seed = "bf16", SR_SEED
+    cfg.health.enabled, cfg.health.every_k = True, 1
+    return cfg
+
+
+def feature_plan():
+    """Phase 67's fault plan (a fresh one per run)."""
+    from stmgcn_tpu_torch.resilience import FaultPlan, FaultSpec
+
+    return FaultPlan(FaultSpec("poison", epoch=1, step=FEATURE_POISON),
+                     FaultSpec("drop", epoch=1, step=FEATURE_DROP))
+
+
 def mesh_job_branchpar(args, out: str, device) -> dict:
-    """Phases 58, 60 (the files) and 59 in one rank of the 6-rank job."""
+    """Phases 58, 60 (the files), 59 and 67 in one rank of the 6-rank job
+    (``args["phases"]``: fewer)."""
+    import torch
+
+    phases = args.get("phases", ("58", "59", "67"))
+    res = {}
+    if "58" in phases:
+        res.update(branchpar_files(args, device))
+    if "59" in phases:  # the preset in its bf16 (xla) form
+        got = mesh_train(mesh_config("branchpar", os.path.join(out, "bf16"),
+                                     dtype="bfloat16", epochs=MESH_BF16_EPOCHS), device)
+        del got["trainer"]
+        res["59"] = got
+        torch.cuda.empty_cache()
+    if "67" in phases:  # every opt-in feature, at bf16 and at fp32
+        res["67"] = {}
+        for dtype in ("bfloat16", "float32"):
+            got = mesh_train(feature_config(os.path.join(out, f"features-{dtype}"), dtype),
+                             device, fault_plan=feature_plan())
+            got["params"] = len(got.pop("trainer")._param_names)
+            res["67"][dtype] = got
+            torch.cuda.empty_cache()
+    return res
+
+
+def branchpar_files(args, device) -> dict:
+    """Phases 58 and 60 in one rank: ``branchpar`` at fp32 with
+    ``test()``, then the lead's files read, resumed and corrupted."""
     import torch
 
     from stmgcn_tpu_torch.experiment import build_trainer
@@ -6587,11 +6807,6 @@ def mesh_job_branchpar(args, out: str, device) -> dict:
     res["60"]["corrupt_s"] = time.perf_counter() - t0
     del fresh
     torch.cuda.empty_cache()
-    # 59: the preset in its bf16 (xla) form
-    got = mesh_train(mesh_config("branchpar", os.path.join(out, "bf16"), dtype="bfloat16",
-                                 epochs=MESH_BF16_EPOCHS), device)
-    del got["trainer"]
-    res["59"] = got
     return res
 
 
@@ -6652,18 +6867,19 @@ def run_ranks(job: str, world: int, **args) -> list:
 
 def mesh_twin(name: str, device, *, dtype: str = "float32", epochs: int = MESH_EPOCHS,
               test: bool = False, seed: int | None = None, cfg=None, dataset=None,
-              supports=None) -> dict:
+              supports=None, fault_plan=None) -> dict:
     """The preset's single-device twin on the card (graphed, as a user
     runs it): the same config without the mesh, the same seed (``cfg``: a
     mesh config of its own, its mesh removed; ``dataset`` and its dense
-    ``supports``: the data it trains on)."""
+    ``supports``: the data it trains on; ``fault_plan``: the rank's)."""
     from stmgcn_tpu_torch.config import MeshConfig
 
     if cfg is None:
         cfg = mesh_config(name, scratch(f"twin-{name}-{dtype}-{epochs}-{seed}"), dtype=dtype,
                           epochs=epochs, seed=seed)
     cfg.mesh = MeshConfig()
-    got = mesh_train(cfg, device, test=test, dataset=dataset, supports=supports)
+    got = mesh_train(cfg, device, test=test, dataset=dataset, supports=supports,
+                     fault_plan=fault_plan)
     got["cfg"] = cfg
     opt = got["trainer"].optimizer  # Adam's rms gradient per entry, for param_gaps
     got["rms_grad"] = {n: np.sqrt(v.detach().float().cpu().numpy())
@@ -6706,6 +6922,13 @@ def mesh_phases(device, card: str) -> dict:
     twin16.pop("trainer")
     twin32 = mesh_twin("branchpar", device, epochs=MESH_BF16_EPOCHS)  # 59's fp32 yardstick
     twin32.pop("trainer")
+    feat16 = mesh_twin("branchpar", device, cfg=feature_config(scratch("twin-67")),
+                       fault_plan=feature_plan())  # 67's bf16 twin and its fp32 yardstick
+    feat16.pop("trainer")
+    feat32 = mesh_twin("branchpar", device,
+                       cfg=feature_config(scratch("twin-67-fp32"), "float32"),
+                       fault_plan=feature_plan())
+    feat32.pop("trainer")
     release()
     results = run_ranks("branchpar", 6, root=scratch("mesh-files"))
     rows, fusion = BRANCHPAR_ROWS, FUSION_BYTES
@@ -6735,12 +6958,25 @@ def mesh_phases(device, card: str) -> dict:
         print(f"{what}: {text} (atol {TWIN_ATOL}); B1 xla {got16['counts']['B1 xla']}, B2 xla "
               f"{got16['counts']['B2 xla']}; step p50 {got16['p50_ms']:.2f} ms "
               f"(twin {twin16['p50_ms']:.2f} ms; {card})")
+        got67, what = res["67"], f"phase 67 (branchpar, every opt-in feature) rank {r}"
+        text = check_features(got67["bfloat16"], got67["float32"], feat16, feat32, what)
+        for dtype, twin67 in (("bfloat16", feat16), ("float32", feat32)):
+            got = got67[dtype]
+            check_mesh_launches(got, f"{what}, {dtype}", rows, xla=dtype == "bfloat16")
+            check_comm(got, f"{what}, {dtype}", grads=8 * (BRANCH_PARAMS + HEAD_PARAMS),
+                       fusion=fusion, steps=got["steps"])
+            text += (f"; {dtype} step p50 {got['p50_ms']:.2f} ms (twin {twin67['p50_ms']:.2f}"
+                     " ms)")
+        print(f"{what}: {text}; B1/B2 xla {got67['bfloat16']['counts']['B1 xla']}/"
+              f"{got67['bfloat16']['counts']['B2 xla']}, fp32 {got67['float32']['counts']['B1']}/"
+              f"{got67['float32']['counts']['B2']}; manifests clean ({card})")
     print(f"phase 58 twin (one device, graphed): step p50 {twin['p50_ms']:.2f} ms; "
           f"{time.perf_counter() - t0:.1f} s")
-    launches["fp32"] = {k: launches["fp32"][k] + sum(r["58"]["counts"][k] for r in results)
-                        for k in ("B1", "B2")}
-    launches["xla"] = {k: sum(r["59"]["counts"][k] for r in results)
-                       for k in ("B1 xla", "B2 xla")}
+    launches["fp32"] = {k: launches["fp32"][k] + sum(r["58"]["counts"][k]
+                                                     + r["67"]["float32"]["counts"][k]
+                                                     for r in results) for k in ("B1", "B2")}
+    launches["xla"] = {k: sum(r["59"]["counts"][k] + r["67"]["bfloat16"]["counts"][k]
+                              for r in results) for k in ("B1 xla", "B2 xla")}
     mesh_files(device, results, twin_trainer, card)
     del twin_trainer
     release()
@@ -6912,16 +7148,17 @@ def route_info(trainer) -> dict:
 def mesh_job_scaled(args, out: str, device) -> dict:
     """Phases 61 (bf16), 62 (fp32) and 63's mesh side (the lead's
     ``best.ckpt`` of 62 evaluated on the mesh), then 64-66 (the block-CSR
-    strips, the region x branch routes, the sharded tiled plan) in one
-    rank of the 8-rank job; ``args["region"]`` another extent and
-    ``args["phases"]`` fewer phases (``scripts/mesh_nccl.py``)."""
+    strips, the region x branch routes, the sharded tiled plan), 68a (a
+    fleet on a region mesh) and 68b (the NaN drill) in one rank of the
+    8-rank job; ``args["region"]`` another extent and ``args["phases"]``
+    fewer phases (``scripts/mesh_nccl.py``)."""
     import torch
 
     from stmgcn_tpu_torch.models import from_jax_params
     from stmgcn_tpu_torch.train.checkpoint import load_checkpoint
 
     res = {}
-    phases = args.get("phases", ("61", "62", "64", "65", "66"))
+    phases = args.get("phases", ("61", "62", "64", "65", "66", "68", "68b"))
     for phase, dtype in (("61", "bfloat16"), ("62", "float32")):
         if phase not in phases:
             continue
@@ -6946,10 +7183,77 @@ def mesh_job_scaled(args, out: str, device) -> dict:
         res["65"] = {route: branch_rank(route, args, device) for route in BRANCH_ROUTES}
     if "66" in phases:
         res["66"] = tiled_rank(args["tiled"], device)
+    if "68" in phases:
+        got = mesh_train(fleet_region_config(os.path.join(args["root"], "fleet")), device)
+        del got["trainer"]
+        res["68"] = got
+        torch.cuda.empty_cache()
+    if "68b" in phases:
+        res["68b"] = nan_drill(args, device)
     return res
 
 
 MESH_JOBS["scaled"] = mesh_job_scaled
+
+#: phase 68a: blocks of FLEET_REGION_S; 68b: the NaN drill's node (rank 3's
+#: rows of 313 at region=8), the training window at whose target its series
+#: turns NaN (batch 16: step 2) and the most seconds between the ranks'
+#: raises (MESH_TIMEOUT is 420)
+FLEET_REGION_S, DRILL_NODE, DRILL_SAMPLE, DRILL_SPREAD_S = 4, 1000, 40, 30.0
+
+
+def fleet_region_config(out: str):
+    """Phase 68a: ``multicity`` (its two cities, batch 64, full width) on
+    a ``region=8`` mesh, window-free resident in blocks of FLEET_REGION_S,
+    REGION_EPOCHS epochs: the fleet's shape classes on a region mesh."""
+    from stmgcn_tpu_torch.config import MeshConfig
+
+    cfg = mesh_config("multicity", out, epochs=REGION_EPOCHS)
+    cfg.mesh = MeshConfig(region=8)
+    t = cfg.train
+    t.window_free, t.data_placement, t.steps_per_superstep = True, "resident", FLEET_REGION_S
+    return cfg
+
+
+def nan_drill(args, device) -> dict:
+    """Phase 68b in one rank: the scaled city (bf16, window-free resident)
+    with a NaN in node DRILL_NODE's series, trained under ``checks="nan"``,
+    then under ``debug_nans``: what each raised, at which step, when (the
+    wall clock), and the launches. The series is restored after."""
+    import torch
+
+    from stmgcn_tpu_torch.experiment import build_trainer
+
+    city = scaled_city(8)
+    series = city["dataset"].series(0)
+    t_nan = int(city["dataset"].mode_targets("train")[DRILL_SAMPLE])
+    saved = float(series[t_nan, DRILL_NODE, 0])
+    out = {}
+    try:
+        series[t_nan, DRILL_NODE, 0] = np.nan
+        for kind in ("checks", "debug_nans"):
+            cfg = scaled_config(os.path.join(args["root"], f"drill-{kind}"), "bfloat16")
+            cfg.train.window_free, cfg.train.data_placement = True, "resident"
+            cfg.train.checks = "nan" if kind == "checks" else None
+            reset_counts()
+            t0 = time.perf_counter()
+            trainer = build_trainer(cfg, device=device, verbose=False,
+                                    debug_nans=kind == "debug_nans", **city)
+            t1 = time.perf_counter()
+            nodes = trainer._nodes(0)
+            try:
+                trainer.train()
+                raised = None
+            except (RuntimeError, FloatingPointError) as e:  # CheckError: a RuntimeError
+                raised = f"{type(e).__name__}: {e}"
+            out[kind] = {"raised": raised, "at": time.time(), "step": trainer.global_step,
+                         "build_s": t1 - t0, "train_s": time.perf_counter() - t1,
+                         "counts": read_counts(), "holds": nodes.start <= DRILL_NODE < nodes.stop}
+            del trainer
+            torch.cuda.empty_cache()
+    finally:
+        series[t_nan, DRILL_NODE, 0] = saved
+    return out
 
 
 def check_routes(got: dict, what: str, rows: set, halo: int | None = None,
@@ -7002,8 +7306,10 @@ def region_phases(device, card: str, tiled: dict) -> dict:
           f"{time.perf_counter() - t0:.1f} s")
     t1 = time.perf_counter()
     twins = {"64": strip_twin(device), "65": branch_twins(device)}
+    fleet_twin = mesh_twin("multicity", device, cfg=fleet_region_config(scratch("twin-68")))
+    fleet_twin.pop("trainer")
     release()
-    print(f"phases 64-65 twins (one device, graphed): {time.perf_counter() - t1:.1f} s")
+    print(f"phases 64-65 and 68a twins (one device, graphed): {time.perf_counter() - t1:.1f} s")
     t1 = time.perf_counter()
     results = run_ranks("scaled", 8, root=scratch("region-files"), tiled=tiled)
     print(f"the eight-rank job (phases 61-62, 63's mesh side, 64-66): "
@@ -7038,6 +7344,9 @@ def region_phases(device, card: str, tiled: dict) -> dict:
                         for k in ("B1 xla", "B2 xla")}}
     launches["sparse"] = sparse_phases(device, card, results, twins, tiled)
     del twins
+    fleet = fleet_region_phases(results, fleet_twin, card)
+    for key in ("fp32", "xla"):
+        launches[key] = {k: launches[key][k] + fleet[key][k] for k in launches[key]}
     print(f"sparse mesh phases (64-66) checked at {time.perf_counter() - t0:.1f} s of the region "
           "phases")
     region_files(device, results, twin_trainer)
@@ -7046,6 +7355,47 @@ def region_phases(device, card: str, tiled: dict) -> dict:
     region_cli()
     print(f"region phases done in {time.perf_counter() - t0:.1f} s")
     return launches
+
+
+def fleet_region_phases(results, twin: dict, card: str) -> dict:
+    """Phases 68a and 68b, checked: per rank, the fleet run's path, its
+    losses and parameters against the one-device fleet twin (phase 57's
+    rules), B1 one a forward of ``B x rung / 8 x M`` rows and B2 one a
+    step, one gradient all-reduce over ``region`` a step, the manifest
+    clean; the NaN drill's error, step and time the same on every rank.
+    Returns the launches summed over the ranks (68a fp32, 68b xla)."""
+    for r, res in enumerate(results):
+        got, what = res["68"], f"phase 68a (multicity region=8, fleet classes) rank {r}"
+        if (got["path"], twin["path"]) != ("fleet_superstep", "fleet_superstep"):
+            fail(f"{what}: trained {got['path']}, the twin {twin['path']}; expected "
+                 "fleet_superstep on both")
+        text = check_mesh_run(got, twin, what)
+        check_mesh_launches(got, what, {64 * (n // 8) * 3 for n in got["rungs"]})
+        g = got["comm"]["what"].get("all-reduce/region/grads", {"calls": 0})
+        if g["calls"] != got["steps"] or got["manifest"]:
+            fail(f"{what}: {g['calls']} gradient all-reduces over {got['steps']} steps; "
+                 f"manifest {got['manifest']}")
+        print(f"{what}: rungs {got['rungs']} (the twin's {twin['rungs']}), node pads "
+              f"{got['node_pads']}; {text}; B1 {got['counts']['B1']} launches of {got['rows']} "
+              f"rows, B2 {got['counts']['B2']}; manifest clean; step p50 {got['p50_ms']:.2f} ms "
+              f"(twin {twin['p50_ms']:.2f} ms; {card})")
+    for kind in ("checks", "debug_nans"):
+        drill = [res["68b"][kind] for res in results]
+        seen = {(d["raised"], d["step"]) for d in drill}
+        spread = max(d["at"] for d in drill) - min(d["at"] for d in drill)
+        holds = [r for r, d in enumerate(drill) if d["holds"]]
+        if len(seen) != 1 or drill[0]["raised"] is None or spread > DRILL_SPREAD_S or len(
+                holds) != 1:
+            fail(f"phase 68b ({kind}): the ranks raised {seen}, {spread:.1f} s apart (at most "
+                 f"{DRILL_SPREAD_S} s); node {DRILL_NODE} on ranks {holds}")
+        print(f"phase 68b ({kind}, a NaN in node {DRILL_NODE}'s series, rank "
+              f"{holds[0]}'s rows alone): every rank raised at global step "
+              f"{drill[0]['step']} within {spread:.2f} s: {drill[0]['raised']} (build "
+              f"{max(d['build_s'] for d in drill):.1f} s, train "
+              f"{max(d['train_s'] for d in drill):.1f} s)")
+    return {"fp32": {k: sum(res["68"]["counts"][k] for res in results) for k in ("B1", "B2")},
+            "xla": {k: sum(res["68b"][kind]["counts"][k] for res in results
+                           for kind in ("checks", "debug_nans")) for k in ("B1 xla", "B2 xla")}}
 
 
 def region_files(device, results, twin_trainer) -> None:
@@ -7605,7 +7955,7 @@ def run_phases() -> int:
         fail("the xla form was not launched on its main path: " + counts_text(counts))
     print(f"xla form phase done at {time.perf_counter() - t_start:.1f} s")
 
-    ds, dense, plan = metro_host()
+    ds, dense, plan = metro_host(device)
     dense_dev, plan_dev = torch.as_tensor(dense, device=device), plan.to(device)
     records += check_spmm_kernels(device, dense, dense_dev, plan)
     torch.cuda.empty_cache()

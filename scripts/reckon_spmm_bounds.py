@@ -1,12 +1,13 @@
 #!/usr/bin/env python3
 """Reckoned bounds of the three block-CSR SpMM TPU kernels at the largeN point.
 
-    JAX_PLATFORMS=cpu python scripts/reckon_spmm_bounds.py
+    python scripts/reckon_spmm_bounds.py
 
 The kernels are ``_stack_fwd_kernel`` (B3), ``_stack_bwd_kernel`` (B4) and
 ``_spmm_kernel`` (B5) in ``stmgcn_tpu/ops/spmm.py``. The point is
 ``STMGCN_BENCH_MODE=largeN`` of ``bench.py``: one N=8192 city (64 x 128
-grid, ``bench._largen_city``'s three structured graphs), Chebyshev K=2 (3
+grid, the three structured graphs of ``chip_smoke.metro_city``, the port's
+copy of ``bench._largen_city``), Chebyshev K=2 (3
 supports per graph), tile 128, batch 2, a 3+1+1-step window, LSTM and
 graph-conv widths 4. Per branch, a forward calls B3 twice: the gate's
 temporal conv on ``B * seq_len = 10`` columns and the graph conv on
@@ -17,7 +18,8 @@ Nothing here is measured. The block structure comes from sparsity
 patterns, not values: ``T0 = I``, ``T1`` has the pattern of ``A + I`` and
 ``T2`` that of ``(A + I)^2``, diagonals counted as nonzero. The tiled plan
 uses the JAX package's RCM order over the union of all nine patterns and
-one common block-column count ``C`` (``plan_tiling``); B5's per-support
+one common block-column count ``C`` (``plan_tiling``; the port's copy of
+the order, ``stmgcn_tpu_torch.ops.tiling.rcm_permutation``); B5's per-support
 structure is unpermuted (``spmm.from_dense``). Bounds count each input read
 once and each output written once at float32, real columns only (the
 kernels pad x to 128 columns), and operations on kept (nonzero) blocks,
@@ -38,6 +40,8 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 PEAK_BYTES, PEAK_FLOPS = 3.35e12, 67e12
 TILE, BATCH, SEQ_LEN, HIDDEN = 128, 2, 5, 4
+#: the largeN city's grid rows (``bench.py``'s ``LARGEN_ROWS`` default)
+LARGEN_ROWS = 64
 
 
 def patterns(adj: sp.csr_matrix):
@@ -67,11 +71,10 @@ def ms(n_bytes: float, flops: float):
 
 
 def main() -> None:
-    import bench
-    from stmgcn_tpu.ops.tiling import rcm_permutation
+    from chip_smoke import metro_city
+    from stmgcn_tpu_torch.ops.tiling import rcm_permutation
 
-    data = bench._largen_city(bench.LARGEN_ROWS, 2 * bench.LARGEN_ROWS,
-                              n_timesteps=24 * 7 + 14)
+    data = metro_city(LARGEN_ROWS, 2 * LARGEN_ROWS, n_timesteps=24 * 7 + 14)
     adjs = [sp.csr_matrix(a != 0) for a in data.adjs.values()]
     del data
     n = adjs[0].shape[0]

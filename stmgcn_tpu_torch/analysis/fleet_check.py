@@ -10,7 +10,9 @@ class covers within the waste budget (they silently step one at a time),
 and a class whose resident footprint (the members' series concatenated at
 the rung, their int32 targets and the ``(members, M, K, rung, rung)``
 dense support stack) exceeds the trainer's ``RESIDENT_CAP_BYTES`` floor.
-The port pads no city for a mesh, so the planner sees the real sizes.
+As in the JAX pass, the planner sees the real sizes: on a region mesh the
+trainer plans over sizes rounded up to a multiple of ``region``, which
+this pass leaves out.
 """
 
 from __future__ import annotations

@@ -410,8 +410,8 @@ def build_trainer(cfg: ExperimentConfig, *, device=None, initial_state: Optional
     many ranks), node-pads and routes the supports (:func:`route_supports`),
     checks divisibility as the JAX ``build_trainer`` does, and builds the
     rank's slice of the model from the same seed. ``lstm_backend="pallas"``
-    with ``branch > 1`` and ``model.tiled`` raise with the JAX messages; the
-    trainer's options that do not compose with a mesh yet raise by name.
+    with ``branch > 1`` and ``model.tiled`` raise with the JAX messages;
+    every trainer option composes with the mesh (``Trainer``, **Meshes**).
     ``initial_state`` is the whole, mesh-free ``state_dict``. ``dataset``
     replaces the config-built one (the same config, edited data:
     :func:`~stmgcn_tpu_torch.parallel.compose.banded_dataset` swaps in banded

@@ -278,12 +278,18 @@ def sr_cast_bf16(x: torch.Tensor, noise: torch.Tensor) -> torch.Tensor:
     return _SRCast.apply(x, noise)
 
 
-def compute_cast(tree: dict, dtype, generator=None) -> dict:
+def compute_cast(tree: dict, dtype, generator=None, *, m_graphs: Optional[int] = None,
+                 branches: Optional[slice] = None) -> dict:
     """The float leaves of a flat dict of tensors cast to the compute
     ``dtype`` (others pass through): round to nearest even, or with
     ``generator`` (bf16 only) stochastically rounded through
     :func:`sr_cast_bf16`, one noise draw per leaf in the dict's order, on the
-    generator's device. Gradients flow back to the masters in float32."""
+    generator's device. Gradients flow back to the masters in float32.
+    ``branches`` (a branch mesh rank's slice of the ``m_graphs`` stacked
+    branches, ``MeshPlacement.branches``): each stacked leaf (a
+    ``state_dict`` key under ``branches.``) holds that slice, draws its
+    noise at the whole stack's shape and keeps the slice's, so the rank
+    rounds as one device does, bit for bit."""
     if generator is None:
         return {k: v.to(dtype) if v.is_floating_point() else v for k, v in tree.items()}
     if dtype != torch.bfloat16:
@@ -291,8 +297,10 @@ def compute_cast(tree: dict, dtype, generator=None) -> dict:
     out = {}
     for k, v in tree.items():
         if v.is_floating_point():
-            noise = torch.randint(0, 1 << 16, v.shape, generator=generator,
+            stacked = branches is not None and k.split(".", 1)[0] == _VMAPPED_KEY
+            shape = (m_graphs,) + tuple(v.shape[1:]) if stacked else v.shape
+            noise = torch.randint(0, 1 << 16, shape, generator=generator,
                                   device=generator.device, dtype=torch.int64)
-            v = sr_cast_bf16(v, noise.to(v.device))
+            v = sr_cast_bf16(v, (noise[branches] if stacked else noise).to(v.device))
         out[k] = v
     return out

@@ -23,7 +23,13 @@ the gradients of replicated parameters are summed over ``dp`` (and
   summed gradients are the single-device ones; nothing is divided by the
   group's size. :meth:`GradSync.norm_sq` is the clip's global squared
   norm: the branch-sliced gradients' squares summed over ``branch`` (a
-  4-byte all-reduce), the replicated head's counted once.
+  4-byte all-reduce), the replicated head's counted once, and
+:meth:`GradSync.branch_sum` sums the health stats' partials so.
+- :func:`world_any` and :func:`world_or`: a flag, or a word of flag bits,
+  agreed over every rank, so that every rank takes one decision (the
+  divergence guard's, the sanitizers', ``debug_nans``'). The collective
+  layer only sums (NCCL has no bitwise or), so a word is unpacked to its
+  bits, the bits summed over ``world`` and compared with 0.
 
 **The sum does not depend on its order.** Each rank casts its float32
 bucket to float64, the all-reduce sums float64, and the result is cast
@@ -39,13 +45,14 @@ double; the branch fusion's sum stays float32, as in the JAX package.
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Optional, Sequence
 
 import torch
 
 from stmgcn_tpu_torch.utils import comm
 
-__all__ = ["BranchFusion", "GradSync", "REPLICA_AXES", "branch_fusion", "replica_sum"]
+__all__ = ["BranchFusion", "GradSync", "REPLICA_AXES", "branch_fusion", "replica_sum",
+           "world_any", "world_or"]
 
 #: the axes over which ranks hold the same (unsliced) parameters, in the
 #: order their sums run
@@ -58,6 +65,24 @@ def replica_sum(tensor: torch.Tensor, mesh, *, what: str = "") -> torch.Tensor:
     for axis in REPLICA_AXES:
         tensor = comm.all_reduce(tensor, axis, mesh, what=what)
     return tensor
+
+
+def world_any(flag: bool, mesh, *, what: str) -> bool:
+    """Whether ``flag`` holds on any rank of the job: a 4-byte all-reduce
+    over ``world``, the same answer on every rank."""
+    summed = comm.all_reduce(torch.tensor([float(flag)]), "world", mesh, what=what)
+    return bool(summed.item() > 0)
+
+
+def world_or(words: torch.Tensor, bits: int, mesh, *, what: str) -> torch.Tensor:
+    """The bitwise or over every rank of ``words`` (integer-valued, each
+    below ``2 ** bits``; any float or int dtype): each word's bits summed
+    over ``world`` in one all-reduce, then repacked, in ``words``' dtype
+    and device."""
+    shifts = torch.arange(bits, device=words.device)
+    unpacked = (words.to(torch.int64)[..., None] >> shifts) & 1
+    summed = comm.all_reduce(unpacked.to(torch.float32), "world", mesh, what=what)
+    return ((summed > 0).to(torch.int64) << shifts).sum(-1).to(words.dtype)
 
 
 class BranchFusion(torch.autograd.Function):
@@ -84,11 +109,14 @@ def branch_fusion(partial: torch.Tensor, mesh) -> torch.Tensor:
 class GradSync:
     """The gradient sync and the global clip norm of one rank's
     parameters (module docstring). ``sharded[i]`` says whether parameter
-    i is a branch slice."""
+    i is a branch slice; ``branches`` is the rank's slice of the stacked
+    branches (None: it holds them all)."""
 
-    def __init__(self, mesh, params: Sequence[torch.Tensor], sharded: Sequence[bool]):
+    def __init__(self, mesh, params: Sequence[torch.Tensor], sharded: Sequence[bool],
+                 branches: Optional[slice] = None):
         self.mesh = mesh
         self.sharded = list(sharded)
+        self.branches = branches
         if len(self.sharded) != len(params):
             raise ValueError(f"{len(params)} parameters but {len(self.sharded)} sharded flags")
         self.numel = sum(p.numel() for p in params)
@@ -122,3 +150,13 @@ class GradSync:
             part = comm.all_reduce(part.reshape(1), "branch", self.mesh,
                                    what="clip-norm").reshape(())
         return part + whole
+
+    @torch.no_grad()
+    def branch_sum(self, values: torch.Tensor, sharded: torch.Tensor) -> torch.Tensor:
+        """``values`` (a float32 vector of this rank's partials) with the
+        entries where ``sharded`` holds summed over ``branch`` (the branch
+        slices' parts, one all-reduce) and the rest kept (the replicated
+        parameters', counted once)."""
+        part = torch.where(sharded, values, torch.zeros_like(values))
+        summed = comm.all_reduce(part, "branch", self.mesh, what="health")
+        return summed + torch.where(sharded, torch.zeros_like(values), values)

@@ -70,7 +70,8 @@ class CollectiveManifest:
 
 
 def manifest_for_config(
-    cfg, program: str = "train", banded: bool = False, transport: str = "gloo"
+    cfg, program: str = "train", banded: bool = False, transport: str = "gloo",
+    debug_nans: bool = False,
 ) -> CollectiveManifest:
     """Compose a config's plan fragments into one program manifest.
 
@@ -84,9 +85,14 @@ def manifest_for_config(
     ``transport`` is the job's backend: over NCCL a region mesh's training
     step also reduce-scatters its input cotangents
     (:func:`~stmgcn_tpu_torch.utils.comm.reduce_scatter`), which gloo
-    all-reduces; the gloo manifest is the JAX package's.
+    all-reduces; the gloo manifest is the JAX package's. A training step
+    with the sanitizers on (``train.checks``), the divergence guard or
+    ``debug_nans`` (the trainer's argument, not the config's) also agrees
+    its flags over every rank (``AGREED_FLAGS``, optional); without them
+    the manifest is the plain one.
     """
     from stmgcn_tpu_torch.parallel.placement import (
+        AGREED_FLAGS,
         HALO_EXCHANGE,
         BRANCH_FUSION,
         DP_GRAD_SYNC,
@@ -133,6 +139,9 @@ def manifest_for_config(
                     "parameter updates",
                 )
             )
+    if train and cfg.mesh.n_devices > 1 and (
+            cfg.train.checks is not None or cfg.train.divergence_guard or debug_nans):
+        decls.extend(AGREED_FLAGS)
     return CollectiveManifest(program=program, decls=tuple(decls))
 
 

@@ -40,8 +40,8 @@ from __future__ import annotations
 
 from stmgcn_tpu_torch.parallel.manifest import CollectiveDecl
 
-__all__ = ["BRANCH_FUSION", "DP_GRAD_SYNC", "GSPMD_REGION", "HALO_EXCHANGE", "MeshPlacement",
-           "sharded_names"]
+__all__ = ["AGREED_FLAGS", "BRANCH_FUSION", "DP_GRAD_SYNC", "GSPMD_REGION", "HALO_EXCHANGE",
+           "MeshPlacement", "sharded_names"]
 
 #: collective signature of the data-parallel placement: gradients (one
 #: bucket a step) and the step's loss summed over ``dp`` — the
@@ -73,6 +73,17 @@ HALO_EXCHANGE = (
                    reason="±1 ring halo exchange of boundary signal rows "
                    "(halo_exchange) — the op that replaces GSPMD's full "
                    "node-axis gather"),
+)
+
+#: collective signature of the trainer's agreed decisions: the sanitizers'
+#: flag words (``train.checks``) and ``debug_nans``' finite flags, a word's
+#: bits or a flag summed over every rank, so that every rank raises at one
+#: step (and the divergence guard's flag, outside a step's program) —
+#: declared only when one of them is on
+AGREED_FLAGS = (
+    CollectiveDecl("all-reduce", "world", required=False,
+                   reason="a flag (or a flag word's bits) summed over every rank: one "
+                   "decision on every rank"),
 )
 
 #: the parameters of the branch-stacked module (``STMGCN.branches``)

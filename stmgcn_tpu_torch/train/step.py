@@ -85,6 +85,7 @@ __all__ = [
     "make_optimizer",
     "masked_loss",
     "Sanitizer",
+    "sr_shadow",
     "train_step",
 ]
 
@@ -288,6 +289,7 @@ class Optimizer:
         self.lr_scale = 1.0
         #: the mesh's gradient sync (None: one device)
         self.sync = None
+        self._synced = False  # sync_grads ran in the step under way
         with torch.no_grad():
             for p in self.params:
                 if p.grad is None:
@@ -297,6 +299,16 @@ class Optimizer:
 
     def zero_grad(self) -> None:
         torch._foreach_zero_([p.grad for p in self.params if p.grad is not None])
+        self._synced = False
+
+    def sync_grads(self) -> None:
+        """Sum the gradients over the mesh's replicas (:attr:`sync`; a
+        no-op on one device), once a step: :meth:`apply` does it unless the
+        step did it already, to read the summed gradients (health,
+        checks)."""
+        if self.sync is not None and not self._synced:
+            self.sync.reduce([p.grad for p in self.params])
+            self._synced = True
 
     def scalars(self, count: int) -> tuple:
         """``(-lr / (1 - b1^t), sqrt(1 - b2^t))`` of the step that starts at
@@ -318,8 +330,8 @@ class Optimizer:
         for p in self.params:
             if p.grad is None:
                 raise RuntimeError("Optimizer.apply: a parameter has no .grad")
-        if self.sync is not None:
-            self.sync.reduce([p.grad for p in self.params])
+        self.sync_grads()
+        self._synced = False
         if self.grad_clip_norm is not None:
             clip_by_global_norm_(self.params, self.grad_clip_norm, self.sync)
         grads = [p.grad for p in self.params]
@@ -485,13 +497,28 @@ def _checked_gather(series, targets, offsets, idx, horizon, sanitizer):
     return x, series[pos[:, offsets.shape[0]:]]
 
 
-def _member_norms(tensors, groups) -> list:
-    """Each group's float32 2-norm over ``tensors`` (indexed as
-    :func:`~stmgcn_tpu_torch.models.params.health_groups` indexes them, a
-    branch member being the slice ``[m]``), and the global norm last."""
-    members = [(i, m) for _, group in groups for i, m in group]
-    parts = [tensors[i].float() if m is None else tensors[i][m].float() for i, m in members]
-    squares = torch.stack(torch._foreach_norm(parts)).square()
+def _member_squares(tensors, groups, branches: Optional[slice] = None) -> torch.Tensor:
+    """Each group member's float32 sum of squares over ``tensors``
+    (indexed as :func:`~stmgcn_tpu_torch.models.params.health_groups`
+    indexes them, a branch member being the slice ``[m]``), as one vector
+    in the groups' order. ``branches``: a branch mesh rank's slice of the
+    stacked branches, whose tensors hold only those: a member ``[m]`` of
+    another rank's counts 0 here, a whole stacked tensor its local slice."""
+    parts = []
+    for _, group in groups:
+        for i, m in group:
+            t = tensors[i]
+            if m is not None and branches is not None:
+                t = t[m - branches.start] if branches.start <= m < branches.stop else t[:0]
+            elif m is not None:
+                t = t[m]
+            parts.append(t.float())
+    return torch.stack(torch._foreach_norm(parts)).square()
+
+
+def _norms(squares: torch.Tensor, groups) -> list:
+    """Each group's 2-norm from its members' squares
+    (:func:`_member_squares`), and the global norm last."""
     norms, start = [], 0
     for _, group in groups:
         norms.append(torch.sqrt(squares[start:start + len(group)].sum()))
@@ -500,29 +527,83 @@ def _member_norms(tensors, groups) -> list:
     return norms
 
 
+def _nonfinite(tensors) -> torch.Tensor:
+    if not tensors:
+        return torch.zeros((), dtype=torch.int64)
+    return (~torch.isfinite(torch.cat([t.reshape(-1) for t in tensors]))).sum()
+
+
+def _branch_split(sync) -> Optional[slice]:
+    """The rank's slice of the stacked branches when ``sync`` (a mesh's
+    :class:`~stmgcn_tpu_torch.parallel.collectives.GradSync`) has branch
+    slices among its parameters, else None."""
+    return None if sync is None or not any(sync.sharded) else sync.branches
+
+
 @torch.no_grad()
-def _before_update(params, groups) -> tuple:
+def _before_update(params, groups, sync=None) -> tuple:
     """What a health row reads before the update clips the gradients and
-    writes the parameters in place: the raw gradients' group norms and
-    global norm, their non-finite count and the parameters' norm."""
+    writes the parameters in place: the raw gradients' member squares and
+    non-finite count, and the parameters' member squares. On a branch mesh
+    (``sync`` with branch slices) each is this rank's part, the non-finite
+    count split ``(branch slices, replicated)``: :func:`health_row` sums
+    them over ``branch``."""
     grads = [p.grad for p in params]
-    nonfinite = (~torch.isfinite(torch.cat([g.reshape(-1) for g in grads]))).sum()
-    return _member_norms(grads, groups), nonfinite, _member_norms(params, groups)[-1]
+    branches = _branch_split(sync)
+    if branches is None:
+        nonfinite = _nonfinite(grads)
+    else:
+        nonfinite = torch.stack([
+            _nonfinite([g for g, s in zip(grads, sync.sharded) if s]).to(grads[0].device),
+            _nonfinite([g for g, s in zip(grads, sync.sharded) if not s]).to(grads[0].device)])
+    return (_member_squares(grads, groups, branches), nonfinite,
+            _member_squares(params, groups, branches))
 
 
 @torch.no_grad()
-def health_row(loss: torch.Tensor, before: tuple, update, groups) -> torch.Tensor:
+def health_row(loss: torch.Tensor, before: tuple, update, groups, sync=None) -> torch.Tensor:
     """One step's health stats as a float32 row (:data:`HEALTH_COLUMNS`,
     then the group norms): the loss, the global norm of the raw gradients,
     ‖update‖ / max(‖parameters before the update‖, 1e-12), the
     non-finite entries of the raw gradients and of the loss, and each
     group's gradient norm; every norm in float32. ``before`` is what
-    :func:`_before_update` read."""
-    (*group_norms, grad_norm), nonfinite, param_norm = before
-    ratio = _member_norms(update, groups)[-1] / torch.clamp(param_norm, min=1e-12)
+    :func:`_before_update` read. On a mesh the gradients were summed
+    before it read them; on a branch mesh (``sync`` with branch slices)
+    the branch slices' squares and counts are summed over ``branch`` here,
+    in one all-reduce, and the replicated parameters' counted once (as
+    :meth:`~stmgcn_tpu_torch.parallel.collectives.GradSync.norm_sq`)."""
+    grad_sq, nonfinite, param_sq = before
+    branches = _branch_split(sync)
+    update_sq = _member_squares(update, groups, branches)
+    if branches is not None:
+        sharded = torch.tensor([sync.sharded[i] for _, group in groups for i, _ in group],
+                               device=grad_sq.device)
+        n = sharded.numel()
+        packed = torch.cat([grad_sq, param_sq, update_sq, nonfinite.float()])
+        mask = torch.cat([sharded, sharded, sharded,
+                          torch.tensor([True, False], device=grad_sq.device)])
+        packed = sync.branch_sum(packed, mask)
+        grad_sq, param_sq, update_sq = packed[:n], packed[n:2 * n], packed[2 * n:3 * n]
+        nonfinite = packed[3 * n:].sum()
+    *group_norms, grad_norm = _norms(grad_sq, groups)
+    ratio = torch.sqrt(update_sq.sum()) / torch.clamp(torch.sqrt(param_sq.sum()), min=1e-12)
     loss = loss.detach().float()
     return torch.stack([loss, grad_norm, ratio, nonfinite.float(),
                         (~torch.isfinite(loss)).float(), *group_norms])
+
+
+def sr_shadow(model, generator: torch.Generator) -> dict:
+    """``model``'s parameters stochastically rounded to bf16 from
+    ``generator`` (``compute_cast``, one noise draw per leaf); on a branch
+    mesh (``model.placement``) each stacked leaf's noise drawn at the
+    whole stack's shape and cut to the rank's branches, so the rank's
+    shadow is one device's slice, bit for bit."""
+    params = dict(model.named_parameters())
+    placement = getattr(model, "placement", None)
+    if placement is None or placement.branch == 1:
+        return compute_cast(params, torch.bfloat16, generator)
+    return compute_cast(params, torch.bfloat16, generator, m_graphs=model.m_graphs,
+                        branches=placement.branches(model.m_graphs))
 
 
 def train_step(model, optimizer: Optimizer, supports, x, y, mask,
@@ -530,7 +611,7 @@ def train_step(model, optimizer: Optimizer, supports, x, y, mask,
                n_real: Optional[torch.Tensor] = None,
                scalars: Optional[torch.Tensor] = None, health=None,
                sanitizer: Optional[Sanitizer] = None, rows: Optional[slice] = None,
-               nodes: Optional[slice] = None):
+               nodes: Optional[slice] = None, grad_check: Optional[Callable] = None):
     """One optimizer step; returns the (device, detached) loss, unsynced.
     With ``sr_generator`` the model runs on a stochastically rounded bf16
     shadow of its parameters (``compute_cast``), drawn from it. With
@@ -549,23 +630,33 @@ def train_step(model, optimizer: Optimizer, supports, x, y, mask,
     loss's, the gradients' and the updated parameters' here, the model's
     through its hooks. ``rows`` and ``nodes``: a mesh rank's rows of the
     batch and node rows (:func:`masked_loss`); the optimizer's ``sync``
-    sums the gradients."""
+    sums the gradients before the checks and the health stats read them,
+    and on a branch mesh the stochastic rounding draws each stacked leaf's
+    noise at the whole stack's shape (``compute_cast``'s ``branches``), so
+    a rank rounds its slice as one device does. ``grad_check`` (the
+    trainer's ``debug_nans`` on a mesh) is called with the summed
+    gradients."""
     optimizer.zero_grad()
     if sr_generator is None:
         pred = model(supports, x, n_real)
     else:
-        shadow = compute_cast(dict(model.named_parameters()), torch.bfloat16, sr_generator)
-        pred = torch.func.functional_call(model, shadow, (supports, x, n_real))
+        pred = torch.func.functional_call(model, sr_shadow(model, sr_generator),
+                                          (supports, x, n_real))
     value = masked_loss(loss, pred, y, mask, sanitizer, rows, nodes)
     value.backward()
+    optimizer.sync_grads()
+    grads = [p.grad for p in optimizer.params]
+    if grad_check is not None:
+        grad_check(grads)
     if sanitizer is not None:
-        sanitizer.nan_all("gradients", [p.grad for p in optimizer.params])
-    before = None if health is None else _before_update(optimizer.params, health)
+        sanitizer.nan_all("gradients", grads)
+    before = None if health is None else _before_update(optimizer.params, health,
+                                                        optimizer.sync)
     update = optimizer.step() if scalars is None else optimizer.apply(scalars)
     if sanitizer is not None:
         sanitizer.nan_all("updated parameters", optimizer.params)
     if health is not None:
-        return value.detach(), health_row(value, before, update, health)
+        return value.detach(), health_row(value, before, update, health, optimizer.sync)
     return value.detach()
 
 

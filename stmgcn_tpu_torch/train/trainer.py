@@ -179,9 +179,14 @@ region x branch`` job runs this trainer on its slice.
   support stack (a row strip) or banded strip; the mask is the whole
   ``(B, N)`` sample-by-node one, its padded node rows (``node_pad``: a
   city's node axis rounded up to a multiple of ``region``, zero series
-  rows) zero. Fleet classes do not engage (each city steps alone), and a
-  padded city of a heterogeneous set passes its real count as ``n_real``
-  to the gate.
+  rows) zero. A padded city of a heterogeneous set passes its real count
+  as ``n_real`` to the gate. Fleet classes engage where the JAX trainer's
+  do (window-free resident data, dense per-city stacks): the classes are
+  planned over the padded node counts, so every rung is a multiple of
+  ``region`` and a member's pad is ``rung - n_real``; each member's stack
+  is grown to the rung before the rank keeps its row strip, the class
+  series is cut to the rank's node rows, and every rank selects the same
+  slot, real-node mask and gate divisor.
 - *Steps*: the optimizer's ``GradSync`` sums the gradients over the ``dp x
   region`` group once a step (one float64 bucket, so the sum does not
   depend on its order) and gives the clip its global norm; the model's
@@ -203,8 +208,22 @@ region x branch`` job runs this trainer on its slice.
   (a 4-byte all-reduce), so a signal to any rank stops every rank at the
   same boundary, where all of them save (the lead writes) and raise
   ``Preempted``.
-- *Not on a mesh yet*: the divergence guard, health, ``checks``,
-  ``debug_nans``, fault plans and ``sr_seed`` raise by name.
+- *The opt-in features*: no rank decides alone. The divergence guard's
+  non-finite flag is summed over every rank, so every rank rolls back (its
+  own slice), cuts the rate and replays at the same steps; the
+  sanitizers' flag words are or-ed over every rank (their bits summed),
+  so every rank raises the same ``CheckError``; under ``debug_nans`` each
+  module hook's flag is agreed the same way, and the backward's NaN check
+  is one agreed check of the summed gradients (anomaly detection keeps its
+  traces, not its per-rank raise). Health rows read the summed gradients,
+  the branch slices' squares and counts summed over ``branch`` (the
+  replicated head's counted once), the losses summed as the loss is;
+  only the lead writes ``health.jsonl``. A fault plan's step faults fire
+  on every rank at the same boundary (a ``poison`` payload in the whole
+  mask every rank holds; ``sigterm`` takes the summed stop); its write
+  faults reach the lead's writes only. ``sr_seed`` reseeds from ``(sr_seed,
+  step)`` on every rank, and a branch rank draws each stacked leaf's noise
+  at the whole stack's shape, rounding its slice as one device does.
 """
 
 from __future__ import annotations
@@ -249,7 +268,7 @@ from stmgcn_tpu_torch.obs.registry import REGISTRY
 from stmgcn_tpu_torch.ops.layers import resolve_device, set_compute_dtype
 from stmgcn_tpu_torch.ops.spmm import place_supports
 from stmgcn_tpu_torch.ops.tiling import StackedPlans, TiledSupports
-from stmgcn_tpu_torch.parallel.collectives import GradSync, replica_sum
+from stmgcn_tpu_torch.parallel.collectives import GradSync, replica_sum, world_any, world_or
 from stmgcn_tpu_torch.parallel.placement import sharded_names
 from stmgcn_tpu_torch.resilience.faults import FaultPlan, Preempted
 from stmgcn_tpu_torch.resilience.guard import DivergenceGuard
@@ -262,6 +281,7 @@ from stmgcn_tpu_torch.train.checkpoint import (
 )
 from stmgcn_tpu_torch.train.metrics import regression_report
 from stmgcn_tpu_torch.train.step import (
+    CHECK_SITES,
     HEALTH_COLUMNS,
     LOSSES,
     CheckError,
@@ -276,18 +296,25 @@ from stmgcn_tpu_torch.utils import comm
 __all__ = ["CitySupports", "Trainer"]
 
 
-def _watch_finite(model) -> None:
+def _watch_finite(model, mesh=None) -> None:
     """``debug_nans``: a forward hook on every module of ``model`` that
     raises ``FloatingPointError`` naming the module whose output holds a
-    NaN or an Inf (a host sync per module: a debug mode)."""
+    NaN or an Inf (a host sync per module: a debug mode). On a ``mesh``
+    each hook's flag is agreed over every rank first (every rank runs the
+    same modules in the same order), so every rank raises at the same
+    module, which then names the first module whose output is non-finite
+    on any rank: one device's."""
     def check(name):
         def hook(module, args, out):
-            for t in out if isinstance(out, (tuple, list)) else (out,):
-                if isinstance(t, torch.Tensor) and t.is_floating_point() and (
-                        not bool(torch.isfinite(t).all())):
-                    raise FloatingPointError(
-                        f"debug-nans: non-finite output of module {name or 'model'} "
-                        f"({type(module).__name__})")
+            bad = any(isinstance(t, torch.Tensor) and t.is_floating_point()
+                      and not bool(torch.isfinite(t).all())
+                      for t in (out if isinstance(out, (tuple, list)) else (out,)))
+            if mesh is not None:
+                bad = world_any(bad, mesh, what="debug-nans")
+            if bad:
+                raise FloatingPointError(
+                    f"debug-nans: non-finite output of module {name or 'model'} "
+                    f"({type(module).__name__})")
         return hook
 
     for name, module in model.named_modules():
@@ -560,10 +587,7 @@ class Trainer:
         self.placement = placement = getattr(model, "placement", None)
         self.mesh = getattr(placement, "mesh", None)
         if self.mesh is not None:
-            self._check_mesh(graphs, dict(
-                divergence_guard=divergence_guard, health=health, checks=checks,
-                debug_nans=debug_nans, sr_seed=sr_seed,
-                fault_plan=fault_plan is not None and fault_plan.active))
+            self._check_mesh(graphs)
         if self.debug_nans and graphs:
             raise ValueError("debug_nans runs the programs eagerly; it cannot take graphs=True")
         self.graphs = resolve_graphs(
@@ -634,7 +658,7 @@ class Trainer:
         if self.sanitizer is not None:
             self.sanitizer.watch(self.model)
         if self.debug_nans:
-            _watch_finite(self.model)
+            _watch_finite(self.model, self.mesh)
             self._log("[debug-nans] CUDA graphs off: the programs run eagerly, every "
                       "module's output is held finite and the backward runs under "
                       "anomaly detection")
@@ -648,11 +672,6 @@ class Trainer:
 
         dev = self.device
         self.hetero = getattr(dataset, "heterogeneous", False)
-        if self.mesh is not None:  # the rank's branch slice of each stack
-            put = functools.partial(self.placement.put, kind="supports")
-            supports = supports.map(put) if isinstance(supports, CitySupports) else put(supports)
-        self.supports = (supports.to(dev) if isinstance(supports, CitySupports)
-                         else place_supports(supports, dev))
         self.fleet = fleet
         self.fleet_max_classes = fleet_max_classes
         self.fleet_max_pad_waste = fleet_max_pad_waste
@@ -663,11 +682,22 @@ class Trainer:
         #: each fleet class's member supports stacked (dense) or
         #: StackedPlans (tiled), by class index
         self._class_supports: dict = {}
-        blocker = self._fleet_blocker()
+        blocker = self._fleet_blocker(supports)
         if fleet is True and blocker is not None:
             raise ValueError(f"fleet=True cannot engage: {blocker}")
         if blocker is None and (fleet is True or (fleet is None and steps_per_superstep > 1)):
-            self._engage_fleet()
+            self._plan_fleet()
+            if self._region is not None:  # grown to the rung before the node-row cut
+                supports = CitySupports(
+                    self._grow(sup, self._node_counts(c)[1])
+                    for c, sup in enumerate(supports.per_city))
+        if self.mesh is not None:  # the rank's branch slice (and node rows) of each stack
+            put = functools.partial(self.placement.put, kind="supports")
+            supports = supports.map(put) if isinstance(supports, CitySupports) else put(supports)
+        self.supports = (supports.to(dev) if isinstance(supports, CitySupports)
+                         else place_supports(supports, dev))
+        if self._fleet_cities:
+            self._stack_classes()
         self.offsets = torch.as_tensor(np.asarray(dataset.window.offsets, np.int32), device=dev)
         self.horizon = dataset.window.horizon
         #: the streaming route's copies, ``prefetch + 1`` staging buffers
@@ -699,7 +729,8 @@ class Trainer:
         )
         if self.mesh is not None:
             self.optimizer.sync = GradSync(self.mesh, self.optimizer.params,
-                                           sharded_names(self._param_names, self.mesh.branch))
+                                           sharded_names(self._param_names, self.mesh.branch),
+                                           self._branches())
         self.epoch = 0
         #: optimizer steps across the whole run (survives resume)
         self.global_step = 0
@@ -718,23 +749,9 @@ class Trainer:
         self._write_failures: list = []
 
     # -- the mesh -------------------------------------------------------------
-    #: the opt-in features that do not compose with a mesh yet, by argument
-    MESH_REFUSED = {
-        "divergence_guard": "the divergence guard",
-        "health": "training health telemetry",
-        "checks": "the in-program sanitizers (checks)",
-        "debug_nans": "debug_nans",
-        "sr_seed": "stochastic rounding (sr_seed)",
-        "fault_plan": "fault plans",
-    }
-
-    def _check_mesh(self, graphs, options: dict) -> None:
-        """The mesh's refusals, each by name, and its eager blocks."""
+    def _check_mesh(self, graphs) -> None:
+        """A mesh's one refusal (``graphs=True``) and its eager blocks."""
         mesh = self.mesh
-        for name, on in options.items():
-            if on:
-                raise ValueError(f"{self.MESH_REFUSED[name]} on a mesh is not ported yet "
-                                 "(ROADMAP A11c); train on one device for it")
         if graphs:
             raise ValueError(
                 "graphs=True on a mesh: a block's collectives cannot be captured into a "
@@ -847,49 +864,69 @@ class Trainer:
             raise ValueError(WINDOW_FREE_NEEDS_RESIDENT)
 
     # -- cities and fleet classes -------------------------------------------
-    def _fleet_blocker(self) -> Optional[str]:
-        """Why the fleet cannot engage (the JAX trainer's texts), or None."""
+    def _fleet_blocker(self, supports) -> Optional[str]:
+        """Why the fleet cannot engage on ``supports`` (as given, before
+        placement; the JAX trainer's texts), or None."""
         if not self.hetero:
             return "the dataset is homogeneous (one shared graph fuses already)"
-        if self._region is not None:
-            return "a region mesh steps each city on its own node rows"
         if not self._resident:
             return "data placement is not resident (stream/mesh upload per batch)"
-        per_city = self.supports.per_city if isinstance(self.supports, CitySupports) else ()
+        per_city = supports.per_city if isinstance(supports, CitySupports) else ()
         tiled = bool(per_city) and all(isinstance(s, TiledSupports) for s in per_city)
-        dense = bool(per_city) and all(
-            isinstance(s, torch.Tensor) and s.dim() == 4 for s in per_city)
+        dense = bool(per_city) and all(getattr(s, "ndim", None) == 4 for s in per_city)
         if not (tiled or dense):
             return ("per-city supports are neither dense (M, K, N, N) stacks "
                     "nor uniformly tiled (TiledSupports) plans")
         return None
 
-    def _engage_fleet(self) -> None:
-        """Plan the shape classes and pad each member's supports to its rung:
-        dense stacks with zero rows and columns; tiled plans grown by
-        ``pad_to``, then widened to the class's common block-column counts
-        by ``with_block_cols`` (``stmgcn_tpu/train/trainer.py:595-644``)."""
+    def _plan_fleet(self) -> None:
+        """Plan the shape classes over the cities' node counts padded as the
+        mesh pads them (``node_pad``: a rung then stays a multiple of
+        ``region``), each member's pad then becoming ``rung - n_real``
+        (``stmgcn_tpu/train/trainer.py:595-626``)."""
         # imported here: the planner reaches the serving package, which
         # imports this module
         from stmgcn_tpu_torch.data.fleet import plan_shape_classes
 
         ds = self.dataset
         self.fleet_plan = plan_shape_classes(
-            ds.city_n_nodes, max_classes=self.fleet_max_classes,
-            max_pad_waste=self.fleet_max_pad_waste)
-        sups = list(self.supports.per_city)
+            [self._node_counts(c)[1] for c in range(ds.n_cities)],
+            max_classes=self.fleet_max_classes, max_pad_waste=self.fleet_max_pad_waste)
+        pads = list(self._node_pads)
         for ci, cls in enumerate(self.fleet_plan.classes):
             t_off = 0
             for c in cls.cities:
                 n = ds.city_n_nodes[c]
-                if isinstance(sups[c], TiledSupports):
-                    sups[c] = sups[c].pad_to(cls.n_nodes)
-                else:
-                    grow = cls.n_nodes - sups[c].shape[-1]
-                    sups[c] = torch.nn.functional.pad(sups[c], (0, grow, 0, grow))
-                self._fleet_cities[c] = _FleetCity(cls=ci, n_real=n, pad=cls.n_nodes - n,
+                pads[c] = cls.n_nodes - n
+                self._fleet_cities[c] = _FleetCity(cls=ci, n_real=n, pad=pads[c],
                                                    t_offset=t_off)
                 t_off += ds.series(c).shape[0]
+        self._node_pads = tuple(pads)
+
+    @staticmethod
+    def _grow(sup, n: int):
+        """A member's supports grown to its class rung of ``n`` nodes: a
+        tiled plan by ``pad_to``, a dense stack (array or tensor) by zero
+        node rows and columns (none when its columns number ``n``
+        already: a region rank's row strip of a grown stack)."""
+        if isinstance(sup, TiledSupports):
+            return sup.pad_to(n)
+        grow = n - sup.shape[-1]
+        if not grow:
+            return sup
+        if isinstance(sup, torch.Tensor):
+            return torch.nn.functional.pad(sup, (0, grow, 0, grow))
+        return np.pad(np.asarray(sup), [(0, 0)] * (sup.ndim - 2) + [(0, grow), (0, grow)])
+
+    def _stack_classes(self) -> None:
+        """Each class's members' supports, placed, at one shape: grown to
+        the rung (:meth:`_grow`), tiled plans then widened to the class's
+        common block-column counts by ``with_block_cols``, and stacked on a
+        member axis (``stmgcn_tpu/train/trainer.py:626-644``)."""
+        sups = list(self.supports.per_city)
+        for ci, cls in enumerate(self.fleet_plan.classes):
+            for c in cls.cities:
+                sups[c] = self._grow(sups[c], cls.n_nodes)
             if isinstance(sups[cls.cities[0]], TiledSupports):
                 c_common = max(sups[c].block_cols for c in cls.cities)
                 c_t_common = max(sups[c].data_t.shape[3] for c in cls.cities)
@@ -913,16 +950,16 @@ class Trainer:
         return self._node_pads[0 if self.dataset.shared_graphs else city]
 
     def _local_nodes(self, array: np.ndarray, city: int, axis: int) -> np.ndarray:
-        """A region rank's node rows of a host array whose node axis is
-        ``axis``: zero-padded to the city's padded count, then cut (the
-        array as it is off a region mesh)."""
-        if self._region is None:
-            return array
+        """A host array whose node axis is ``axis``, zero-padded to the
+        city's padded count (a region mesh's multiple, a fleet member's
+        rung), then on a region mesh cut to the rank's node rows."""
         pad = self._node_pad(city)
         if pad:
             widths = [(0, 0)] * array.ndim
             widths[axis] = (0, pad)
             array = np.pad(array, widths)
+        if self._region is None:
+            return array
         index = [slice(None)] * array.ndim
         index[axis] = self.placement.nodes(array.shape[axis])
         return array[tuple(index)]
@@ -966,11 +1003,10 @@ class Trainer:
         if ds.shared_graphs:
             return {0: _CityData(upload(ds.series_stack()), targets(None),
                                  self.supports, None, self._node_pads[0], self._node_mask(0))}
-        class_series = {}
+        class_series = {}  # the members' series at the rung (a region rank's rows)
         for ci, cls in enumerate(self.fleet_plan.classes if self.fleet_plan and wf else ()):
             class_series[ci] = self._upload(np.concatenate([
-                np.pad(ds.series(c), [(0, 0), (0, cls.n_nodes - ds.city_n_nodes[c]), (0, 0)])
-                for c in cls.cities]))
+                self._local_nodes(ds.series(c), c, 1) for c in cls.cities]))
         cities = {}
         for c in range(ds.n_cities):
             info = self._fleet_cities.get(c)
@@ -1037,7 +1073,7 @@ class Trainer:
             n_real = torch.tensor([self._fleet_cities[c].n_real for c in cls.cities],
                                   dtype=torch.int32, device=self.device)
             sites["class", ci] = _Site(members[0].series, targets, self._class_supports[ci],
-                                       n_real, cls.n_nodes)
+                                       n_real, cls.n_nodes, nodes=self._nodes(cls.cities[0]))
             for slot, c in enumerate(cls.cities):
                 where[c] = (("class", ci), slot, {m: int(starts[m][slot]) for m in MODES})
         return sites, where
@@ -1390,6 +1426,7 @@ class Trainer:
         streamed = not self._resident
         rows = self._rows
         nodes = site.nodes
+        grad_check = self._grad_check if self.debug_nans and self.mesh is not None else None
 
         def body(v):
             supports, n_real = site.select(v.get("slot"))
@@ -1409,7 +1446,7 @@ class Trainer:
                 outs.append(train_step(self.model, self.optimizer, supports, x, y, mask,
                                        self.loss, sr_generator=self._sr_gen, n_real=n_real,
                                        scalars=v["adam"][s], health=groups, sanitizer=san,
-                                       rows=rows, nodes=nodes))
+                                       rows=rows, nodes=nodes, grad_check=grad_check))
                 if san is not None:
                     flags.append(san.end())
             if not health:
@@ -1517,8 +1554,8 @@ class Trainer:
                                 {"step": step + first, "s": len(run)})
             first += len(run)
         out = outs[0] if len(outs) == 1 else torch.cat(outs)
-        if self.mesh is not None:  # each rank's share of the global means
-            out = replica_sum(out, self.mesh, what="loss")
+        if self.mesh is not None:
+            out = self._mesh_reduce(out, health)
         if self.sanitizer is not None:
             self._raise_flags(out[:, -1], block, "train")
             out = out[:, :-1] if health else out[:, 0]
@@ -1526,6 +1563,45 @@ class Trainer:
             rows = out.numpy()
             return rows[:, 0].tolist(), rows
         return out.tolist(), None
+
+    def _mesh_reduce(self, out: torch.Tensor, health: bool) -> torch.Tensor:
+        """A dispatch's readback agreed over the mesh: each rank's share of
+        the global means summed over ``dp x region`` (the losses, and a
+        fleet class's ``city_loss`` columns), the health rows' norms and
+        counts kept (every rank's already: read after the gradient sum,
+        branch slices summed in the step), their non-finite-loss flag read
+        again off the summed loss, and the sanitizers' flag words or-ed over
+        every rank (:func:`world_or`)."""
+        if out.dim() == 1:  # the plain losses
+            return replica_sum(out, self.mesh, what="loss")
+        out = out.clone()
+        width = out.shape[1] - (self.sanitizer is not None)
+        first = len(HEALTH_COLUMNS) + len(self._health_groups)
+        cols = torch.tensor([0] + (list(range(first, width)) if health else []))
+        out[:, cols] = replica_sum(out[:, cols].contiguous(), self.mesh, what="loss")
+        if health:
+            out[:, HEALTH_COLUMNS.index("nonfinite_loss")] = (~torch.isfinite(out[:, 0])).float()
+        if self.sanitizer is not None:
+            out[:, -1] = world_or(out[:, -1], len(CHECK_SITES), self.mesh, what="checks")
+        return out
+
+    def _all_finite(self, losses) -> bool:
+        """Whether every loss is finite, on a mesh agreed over every rank
+        (the divergence guard's one decision)."""
+        bad = not np.isfinite(losses).all()
+        if self.mesh is not None:
+            bad = world_any(bad, self.mesh, what="guard")
+        return not bad
+
+    def _grad_check(self, grads) -> None:
+        """``debug_nans`` on a mesh: the summed gradients' finiteness,
+        agreed over every rank, raising on all of them (the backward's
+        anomaly detection there names no op: a rank raising alone inside
+        its backward would leave its peers waiting in a collective)."""
+        bad = not bool(torch.isfinite(torch.stack([g.abs().max() for g in grads])).all())
+        if world_any(bad, self.mesh, what="debug-nans"):
+            raise FloatingPointError("debug-nans: non-finite gradients after the backward "
+                                     "(summed over the mesh)")
 
     def _raise_flags(self, words, batches, mode: str) -> None:
         """The sanitizers' verdict on a dispatch or an eval epoch: raise
@@ -1649,6 +1725,8 @@ class Trainer:
             rec["city_loss"] = {str(cities[slot]): float(v) for slot, v in enumerate(csum)
                                 if slot < len(cities)}
         publish_train_health(rec, REGISTRY)
+        if not self.is_lead:  # every rank's record is the lead's; the lead writes it
+            return
         if self._health_writer is None:
             os.makedirs(os.path.dirname(self._health_out_path()) or ".", exist_ok=True)
             self._health_writer = HealthWriter(self._health_out_path(),
@@ -1733,7 +1811,7 @@ class Trainer:
         loss = losses[0]
         if not retry:
             self._batch_in_epoch += 1
-        if guard is not None and not np.isfinite(loss):
+        if guard is not None and not self._all_finite([loss]):
             self._rollback()
             self._log(f"divergence guard: non-finite loss at epoch {self.epoch}, step {step} "
                       f"— rolled back, {guard.action} batch")
@@ -1777,7 +1855,7 @@ class Trainer:
         if guard is not None:
             self._take_snapshot()
         losses, stats = self._dispatch(block, "train", self._health_due(), poisons)
-        if guard is not None and not np.isfinite(losses).all():
+        if guard is not None and not self._all_finite(losses):
             self._rollback()
             fleet = "fleet " if block[0].city in self._fleet_cities else ""
             self._log(f"divergence guard: non-finite loss in {fleet}superstep block at epoch "
@@ -1858,7 +1936,10 @@ class Trainer:
                 words.append(san.end())
             self._check_preempt()
         if san is not None:
-            self._raise_flags(torch.stack(words).cpu().numpy(), counts, mode)
+            words = torch.stack(words)
+            if self.mesh is not None:
+                words = world_or(words, len(CHECK_SITES), self.mesh, what="checks")
+            self._raise_flags(words.cpu().numpy(), counts, mode)
         losses = torch.stack(losses)
         if self.mesh is not None:  # the ranks' shares, summed once per epoch
             losses = replica_sum(losses, self.mesh, what="eval-loss")
@@ -1890,8 +1971,9 @@ class Trainer:
         # a mid-epoch cursor re-enters its epoch; a boundary starts the next
         start_epoch = self.epoch + (1 if self._resume_skip == 0 else 0)
         try:
-            with (torch.autograd.set_detect_anomaly(True) if self.debug_nans
-                  else contextlib.nullcontext()):
+            # on a mesh the backward's NaN check is the agreed _grad_check
+            with (torch.autograd.set_detect_anomaly(True, check_nan=self.mesh is None)
+                  if self.debug_nans else contextlib.nullcontext()):
                 self._epoch_loop(history, start_epoch)
         except BaseException:
             try:  # the loop's own exception stays the one raised

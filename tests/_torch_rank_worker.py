@@ -663,6 +663,210 @@ def branch_region_train(args, out_dir):
     return out
 
 
+# -- the opt-in features on a mesh ----------------------------------------------
+
+#: each opt-in feature run: ``guarded`` (fp32, blocks of 2, window-free
+#: resident so that a mesh takes the twin's blocks): the divergence guard
+#: (skip), health at every dispatch, the index sanitizers and a fault plan
+#: that poisons step POISON_STEP and drops step DROP_STEP; ``rounded``
+#: (bf16): stochastic rounding and debug_nans
+FEATURE_RUNS = {
+    "guarded": dict(steps_per_superstep=2, divergence_guard=True, checks="index"),
+    "rounded": dict(precision="bf16", sr_seed=7),
+}
+POISON_STEP, DROP_STEP = 2, 5
+#: the NaN drill: a NaN written into this node's normalized series at the
+#: target of training sample NAN_SAMPLE (region=8 pads the 3x3 city to 16
+#: rows, two a rank: node 5 lives on rank 2 alone)
+NAN_NODE, NAN_SAMPLE = 5, 10
+
+
+def feature_config(out_dir, mesh, run, **train):
+    """``tiny_config`` on ``mesh`` (dp, region, branch) with the features
+    of ``FEATURE_RUNS[run]`` (and ``train``), resident and window-free."""
+    dp, region, branch = mesh
+    cfg = tiny_config(out_dir, dp, branch, window_free=True, data_placement="resident",
+                      **{**FEATURE_RUNS.get(run, {}), **train})
+    cfg.mesh.region = region
+    if run == "guarded":
+        cfg.health.enabled, cfg.health.every_k = True, 1
+    return cfg
+
+
+def feature_run(mesh, out_dir, run, initial_state=None) -> dict:
+    """One ``FEATURE_RUNS`` run of ``tiny_config`` on ``mesh`` (``(1, 1,
+    1)``: the one-device twin): history, per-dispatch losses, health rows,
+    the guard's trips, whether it wrote health records and (the lead) the
+    lines of ``health.jsonl``, and the final whole parameters."""
+    import numpy as np
+
+    from stmgcn_tpu_torch.experiment import build_trainer
+    from stmgcn_tpu_torch.resilience import FaultPlan, FaultSpec
+
+    cfg = feature_config(out_dir, mesh, run)
+    plan = (FaultPlan(FaultSpec("poison", epoch=1, step=POISON_STEP),
+                      FaultSpec("drop", epoch=1, step=DROP_STEP)) if run == "guarded" else None)
+    t = build_trainer(cfg, device="cpu", verbose=False, fault_plan=plan,
+                      debug_nans=run == "rounded", initial_state=initial_state)
+    rec = {"losses": [], "rows": [], "trips": []}
+    dispatch, emit = t._dispatch, t._health_emit
+
+    def recorded(*a, **k):
+        losses, stats = dispatch(*a, **k)
+        rec["losses"].append(list(losses))
+        return losses, stats
+
+    def emitted(stats, cities=None):
+        rec["rows"].append(np.array(stats))
+        emit(stats, cities)
+
+    t._dispatch, t._health_emit = recorded, emitted
+    if t._guard is not None:
+        trip = t._guard.trip
+
+        def tripped(loss, epoch, step):
+            rec["trips"].append((epoch, step))
+            trip(loss, epoch, step)
+
+        t._guard.trip = tripped
+    rec["history"] = t.train()
+    path = t._health_out_path()
+    rec["health_lines"] = (sum(1 for _ in open(path))
+                           if t.is_lead and os.path.exists(path) else None)
+    rec.update(state=_state(t), path=t.train_path, lead=t.is_lead,
+               wrote=t._health_writer is not None)
+    return rec
+
+
+def nan_drill(mesh, out_dir, initial_state=None) -> dict:
+    """``tiny_config`` on ``mesh`` with a NaN in node ``NAN_NODE``'s
+    series, under ``checks="nan"`` and then ``debug_nans``: what each run
+    raised, at which step and when."""
+    from stmgcn_tpu_torch.experiment import build_dataset, build_trainer
+
+    out = {}
+    for kind in ("checks", "debug_nans"):
+        cfg = feature_config(os.path.join(out_dir, kind), mesh, None,
+                             checks="nan" if kind == "checks" else None)
+        ds = build_dataset(cfg)
+        ds.series(0)[int(ds.mode_targets("train")[NAN_SAMPLE]), NAN_NODE, 0] = float("nan")
+        t = build_trainer(cfg, device="cpu", verbose=False, dataset=ds,
+                          debug_nans=kind == "debug_nans", initial_state=initial_state)
+        try:
+            t.train()
+            raised = None
+        except (RuntimeError, FloatingPointError) as e:  # CheckError is a RuntimeError
+            raised = f"{type(e).__name__}: {e}"
+        out[kind] = {"raised": raised, "at": time.time(), "global_step": t.global_step}
+    return out
+
+
+def features(args, out_dir):
+    """The ``FEATURE_RUNS`` on this job's mesh ``args["feat_mesh"]`` from
+    ``args["feat_init"]``; the SR noise of the first step (the rank's
+    stacked leaves) from the rounded trainer; with ``args["feat_nan"]``
+    the NaN drill."""
+    from stmgcn_tpu_torch.experiment import build_trainer
+    from stmgcn_tpu_torch.train.step import sr_shadow
+
+    mesh, init = args["feat_mesh"], args.get("feat_init")
+    out = {run: feature_run(mesh, os.path.join(out_dir, run), run, init)
+           for run in FEATURE_RUNS}
+    t = build_trainer(feature_config(os.path.join(out_dir, "sr"), mesh, "rounded"),
+                      device="cpu", verbose=False, initial_state=init)
+    t._sr_gen.manual_seed(t._sr_seed(0))
+    out["shadow"] = {k: v.detach() for k, v in sr_shadow(t.model, t._sr_gen).items()}
+    out["branches"] = t._branches()
+    if args.get("feat_nan"):
+        out["nan"] = nan_drill(mesh, os.path.join(out_dir, "nan"), init)
+    return out
+
+
+def feature_step(args, out_dir):
+    """One guarded step (``_train_one``: the guard's agreed flag, a health
+    row, the ``nan`` sanitizers' agreed word) of ``feature_config`` at
+    dp=2 x branch=3 under ``step_comm_report``: the report, its check
+    against the config's manifest and against the plain config's, and the
+    counts the bytes follow from."""
+    from stmgcn_tpu_torch.experiment import build_trainer
+    from stmgcn_tpu_torch.parallel import check_executed, manifest_for_config
+    from stmgcn_tpu_torch.utils import step_comm_report
+
+    cfg = feature_config(out_dir, (2, 1, 3), "guarded", checks="nan")
+    t = build_trainer(cfg, device="cpu", verbose=False)
+    report = step_comm_report(t._train_one, next(iter(t.batches("train"))))
+    return {"report": {k: v for k, v in report.items() if k != "result"},
+            "problems": check_executed(manifest_for_config(cfg), report),
+            "plain_problems": check_executed(manifest_for_config(tiny_config(out_dir, 2, 3)),
+                                             report),
+            "numel": sum(p.numel() for p in t.model.parameters()),
+            "members": sum(len(g) for _, g in t._health_groups),
+            "fusion": (cfg.train.batch_size // 2) * t.dataset.n_nodes * cfg.model.gcn_hidden_dim
+            * 4}
+
+
+def feature_twins(root, init, nan: bool = False) -> dict:
+    """The one-device twins of :func:`features` (in the test's process)."""
+    from stmgcn_tpu_torch.experiment import build_trainer
+    from stmgcn_tpu_torch.train.step import sr_shadow
+
+    root, mesh = str(root), (1, 1, 1)
+    out = {run: feature_run(mesh, os.path.join(root, run), run, init) for run in FEATURE_RUNS}
+    t = build_trainer(feature_config(os.path.join(root, "sr"), mesh, "rounded"),
+                      device="cpu", verbose=False, initial_state=init)
+    t._sr_gen.manual_seed(t._sr_seed(0))
+    out["shadow"] = {k: v.detach() for k, v in sr_shadow(t.model, t._sr_gen).items()}
+    if nan:
+        out["nan"] = nan_drill(mesh, os.path.join(root, "nan"), init)
+    out["init"] = init if init is not None else dict(t.model.state_dict())
+    return out
+
+
+def check_run(got: dict, twin: dict, loss_rtol: float, params: dict,
+              init: dict | None = None) -> None:
+    """A mesh rank's feature run against its twin: the path, every
+    dispatch's losses (non-finite where the twin's are), the epoch
+    history and the final whole parameters: elementwise at ``params``, or
+    with ``init`` (the initial state; a bf16 run, whose sums in another
+    order flip roundings that Adam's normalized step amplifies at
+    near-zero gradients) each tensor's update normwise, ``|p - p_twin| <=
+    params["rtol"] |p_twin - p_init|`` (``tests/test_torch_bf16_train.py``'s
+    rule)."""
+    import numpy as np
+
+    assert got["path"] == twin["path"]
+    assert [len(x) for x in got["losses"]] == [len(x) for x in twin["losses"]]
+    np.testing.assert_allclose(np.concatenate(got["losses"]), np.concatenate(twin["losses"]),
+                               rtol=loss_rtol, equal_nan=True)
+    for mode in ("train", "validate"):
+        np.testing.assert_allclose(got["history"][mode], twin["history"][mode], rtol=loss_rtol)
+    for name, value in got["state"].items():
+        want = twin["state"][name]
+        if init is None:
+            np.testing.assert_allclose(value.numpy(), want.numpy(), **params, err_msg=name)
+        else:
+            assert (value - want).norm() <= params["rtol"] * (want - init[name]).norm(), name
+
+
+def check_health(got: dict, twin: dict, loss_rtol: float, norm_rtol: float) -> None:
+    """A mesh rank's health rows against the twin's: the losses at
+    ``loss_rtol``, the norms at ``norm_rtol``, the counts exactly; the lead
+    alone wrote ``health.jsonl``, as many lines as the twin's."""
+    import numpy as np
+
+    from stmgcn_tpu_torch.train.step import HEALTH_COLUMNS
+
+    assert len(got["rows"]) == len(twin["rows"]) > 0
+    counts = [HEALTH_COLUMNS.index(c) for c in ("nonfinite_grads", "nonfinite_loss")]
+    norms = [i for i in range(1, twin["rows"][0].shape[1]) if i not in counts]
+    for a, b in zip(got["rows"], twin["rows"]):
+        np.testing.assert_allclose(a[:, 0], b[:, 0], rtol=loss_rtol)
+        np.testing.assert_allclose(a[:, norms], b[:, norms], rtol=norm_rtol)
+        np.testing.assert_array_equal(a[:, counts], b[:, counts])
+    assert got["wrote"] == got["lead"] and twin["wrote"]
+    assert got["health_lines"] == (twin["health_lines"] if got["lead"] else None)
+
+
 def main(out: str, names: str) -> None:
     import torch
 

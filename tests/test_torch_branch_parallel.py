@@ -17,7 +17,17 @@ Mirrors ``tests/test_branch_parallel.py``:
   5e-4, atol 2e-5 (``tests/test_parallel.py:96-104``);
 - the global clip norm: a run whose clip engages at every step (max norm
   0.05) equals one device, and the sync's squared norm is the whole
-  gradient's.
+  gradient's;
+- the trainer's opt-in features on this mesh against their one-device
+  twins (``tests/_torch_rank_worker.py`` ``FEATURE_RUNS``, the twins held
+  against JAX by the one-device tests): the divergence guard with a fault
+  plan (a poisoned step, a dropped one) trips at the twin's steps; the
+  health rows equal the twin's (norms rtol 1e-5), the branch slices'
+  squares summed over ``branch``, and only the lead writes
+  ``health.jsonl``; the index sanitizers run clean; stochastic rounding's
+  noise on a branch rank is the twin's slice bit for bit, and a bf16 run
+  with it and ``debug_nans`` tracks the twin (its parameter updates
+  normwise within 1e-2, ``tests/test_torch_bf16_train.py``'s bf16 rule).
 """
 
 import os
@@ -43,6 +53,8 @@ MESH = (2, 1, 3)
 FWD = dict(rtol=2e-5, atol=2e-6)
 GRADS = dict(rtol=1e-4, atol=1e-7)
 LOSS_RTOL, PARAMS = 2e-5, dict(rtol=5e-4, atol=2e-5)
+#: a bf16 run's parameter updates, normwise (tests/test_torch_bf16_train.py)
+UPDATE = dict(rtol=1e-2)
 CLIP = dict(grad_clip_norm=0.05, steps_per_superstep=2)
 
 
@@ -60,10 +72,12 @@ def runs(tmp_path_factory):
                          verbose=False)
     clip_init = {k: v.clone() for k, v in clip.model.state_dict().items()}
     clip_run = (clip.train(), ranks._state(clip))
-    out = ranks.launch(6, ["mesh_info", "forward", "composed", "train_tiny"], root,
-                       mesh=MESH, grads=True, preset="branchpar", initial_state=init,
-                       dp=2, branch=3, train=CLIP, tiny_initial_state=clip_init)
-    return out, port_twin, (jax_hist, jax_state), clip_run
+    feat_twins = ranks.feature_twins(root / "ftwin", clip_init)
+    out = ranks.launch(6, ["mesh_info", "forward", "composed", "train_tiny", "features"],
+                       root, mesh=MESH, grads=True, preset="branchpar", initial_state=init,
+                       dp=2, branch=3, train=CLIP, tiny_initial_state=clip_init,
+                       feat_mesh=MESH, feat_init=clip_init)
+    return out, port_twin, (jax_hist, jax_state), clip_run, feat_twins
 
 
 def test_three_axis_mesh_coords(runs):
@@ -111,7 +125,7 @@ def test_a_summing_fusion_backward_scales_branch_gradients(runs):
 
 
 def test_branchpar_trajectory_matches_twins_and_jax(runs):
-    out, (twin_hist, twin_state, twin_path), (jax_hist, jax_state), _ = runs
+    out, (twin_hist, twin_state, twin_path), (jax_hist, jax_state) = runs[:3]
     assert twin_path == "series_superstep"
     for res in out:
         got = res["composed"]
@@ -127,7 +141,7 @@ def test_branchpar_trajectory_matches_twins_and_jax(runs):
 
 
 def test_global_clip_norm_matches_single_device(runs):
-    _, _, _, (history, state) = runs
+    history, state = runs[3]
     for res in runs[0]:
         got = res["train_tiny"]
         for mode in ("train", "validate"):
@@ -136,3 +150,34 @@ def test_global_clip_norm_matches_single_device(runs):
             np.testing.assert_allclose(value.numpy(), state[name].numpy(), **PARAMS,
                                        err_msg=name)
         np.testing.assert_allclose(got["norm_sq"], got["norm_sq_whole"], rtol=1e-5)
+
+
+def test_guard_and_fault_plan_on_a_branch_mesh_match_the_twin(runs):
+    twin = runs[4]["guarded"]
+    assert twin["trips"] == [(1, ranks.POISON_STEP)]
+    for res in runs[0]:
+        got = res["features"]["guarded"]
+        assert got["trips"] == twin["trips"]
+        ranks.check_run(got, twin, LOSS_RTOL, PARAMS)
+
+
+def test_health_on_a_branch_mesh_matches_the_twin(runs):
+    for res in runs[0]:
+        ranks.check_health(res["features"]["guarded"], runs[4]["guarded"], LOSS_RTOL, 1e-5)
+
+
+def test_sr_noise_on_a_branch_rank_is_the_twins_slice_bitwise(runs):
+    twin = runs[4]["shadow"]
+    for res in runs[0]:
+        got, keep = res["features"]["shadow"], res["features"]["branches"]
+        assert keep.stop - keep.start == 1 and set(got) == set(twin)
+        for name, value in got.items():
+            want = twin[name][keep] if name.startswith("branches.") else twin[name]
+            assert value.dtype == torch.bfloat16 and torch.equal(value, want), name
+
+
+def test_sr_seed_and_debug_nans_on_a_branch_mesh_match_the_twin(runs):
+    for res in runs[0]:
+        ranks.check_run(res["features"]["rounded"], runs[4]["rounded"], LOSS_RTOL, UPDATE,
+                        init=runs[4]["init"])
+

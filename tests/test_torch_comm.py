@@ -40,8 +40,8 @@ from stmgcn_tpu_torch.utils import comm  # noqa: E402
 
 @pytest.fixture(scope="module")
 def step(tmp_path_factory):
-    return ranks.launch(6, ["step_report"], tmp_path_factory.mktemp("comm"), dp=2, branch=3,
-                        train={"grad_clip_norm": 0.01})
+    return ranks.launch(6, ["step_report", "feature_step"], tmp_path_factory.mktemp("comm"),
+                        dp=2, branch=3, train={"grad_clip_norm": 0.01})
 
 
 def test_step_bytes_match_the_analytic_counts(step):
@@ -70,6 +70,47 @@ def test_step_keeps_to_its_manifest(step):
             "undeclared all-gather over 'dp' (1 call(s), 8 bytes) in program 'train'"]
         assert len(r["dp_only_problems"]) == 1
         assert "undeclared all-reduce over 'branch'" in r["dp_only_problems"][0]
+
+
+def test_a_guarded_step_agrees_its_flags_in_the_analytic_bytes(step):
+    """A step with the divergence guard, health and the ``nan`` sanitizers
+    at dp=2 x branch=3 moves the plain step's collectives, the health row's
+    loss in the loss sum, and three more: the health stats' branch slices
+    (three member vectors and the split non-finite count) over ``branch``,
+    the flag word's seven bits and the guard's flag over ``world``; all
+    declared only for a config with these features on."""
+    for res in step:
+        r = res["feature_step"]
+        assert r["report"]["what"] == {
+            "all-reduce/dp/grads": {"calls": 1, "bytes": 8 * r["numel"]},
+            "all-reduce/dp/loss": {"calls": 1, "bytes": 4},
+            "all-reduce/branch/fusion": {"calls": 1, "bytes": r["fusion"]},
+            "all-reduce/branch/health": {"calls": 1, "bytes": 4 * (3 * r["members"] + 2)},
+            "all-reduce/world/checks": {"calls": 1, "bytes": 4 * 7},
+            "all-reduce/world/guard": {"calls": 1, "bytes": 4},
+        }
+        assert r["problems"] == []
+        assert r["plain_problems"] == [
+            "undeclared all-reduce over 'world' (2 call(s), 32 bytes) in program 'train'"]
+
+
+def test_agreed_flags_are_declared_with_their_features_only():
+    cfg = ExperimentConfig.from_dict(jax_preset("branchpar").to_dict())
+    plain = manifest_for_config(cfg).to_dict()
+    assert manifest_for_config(cfg).lookup("all-reduce", "world") is None
+    for train in ({"checks": "nan"}, {"divergence_guard": True}, {}):
+        on = ExperimentConfig.from_dict(cfg.to_dict())
+        for k, v in train.items():
+            setattr(on.train, k, v)
+        decl = manifest_for_config(on, debug_nans=not train).lookup("all-reduce", "world")
+        assert decl is not None and not decl.required
+        assert manifest_for_config(on, program="serve").to_dict() == manifest_for_config(
+            cfg, program="serve").to_dict()
+    one = ExperimentConfig.from_dict(cfg.to_dict())
+    one.mesh.dp = one.mesh.branch = 1
+    one.train.checks = "all"
+    assert manifest_for_config(one).lookup("all-reduce", "world") is None
+    assert manifest_for_config(cfg).to_dict() == plain
 
 
 @pytest.mark.parametrize("name", ["multicity", "scaled", "bandedbranch", "default"])

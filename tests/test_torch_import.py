@@ -1,9 +1,11 @@
 """Import hygiene and device defaults of the PyTorch port.
 
-``stmgcn_tpu_torch`` and ``chip_smoke.py`` import torch and numpy only: no
-JAX, flax, optax or msgpack (the card's machine has no msgpack; the
-checkpoint codec is the port's own), and nothing of the JAX package (whose
-package ``__init__``s pull JAX in). Docstrings may name them. The entry
+``stmgcn_tpu_torch``, ``chip_smoke.py`` and the port's scripts
+(``scripts/*.py``) import torch and numpy only: no JAX, flax, optax or
+msgpack (the card's machine has no msgpack; the checkpoint codec is the
+port's own), and nothing of the JAX package (whose package ``__init__``s
+pull JAX in) or its benchmark (``bench.py``, which imports JAX).
+Docstrings may name them. The entry
 points default to the GPU and raise without one instead of quietly running
 on the CPU.
 """
@@ -26,8 +28,9 @@ from stmgcn_tpu_torch.ops import _build
 torch.set_num_threads(1)
 
 PACKAGE = Path(stmgcn_tpu_torch.__file__).parent
-FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "msgpack", "stmgcn_tpu"}
+FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "msgpack", "stmgcn_tpu", "bench"}
 CHIP_SMOKE = PACKAGE.parent / "chip_smoke.py"
+SCRIPTS = sorted((PACKAGE.parent / "scripts").glob("*.py"))
 
 
 def _modules():
@@ -39,7 +42,7 @@ def _modules():
 
 def test_no_file_of_the_package_imports_jax():
     found = []
-    for path in [path for path, _ in _modules()] + [CHIP_SMOKE]:
+    for path in [path for path, _ in _modules()] + [CHIP_SMOKE] + SCRIPTS:
         for node in ast.walk(ast.parse(path.read_text(), str(path))):
             if isinstance(node, ast.Import):
                 names = [alias.name for alias in node.names]

@@ -22,7 +22,14 @@ CPU devices.
   trainer over a split with a padded tail equals one device;
 - the LSTM's weight gradients of rows split 2 and 4 ways, summed, equal
   the whole batch's (``sharded_fused_lstm``'s counterpart: no collective
-  in ``FusedLSTM``'s backward).
+  in ``FusedLSTM``'s backward);
+- the trainer's opt-in features at dp=2 against their one-device twins
+  (``tests/_torch_rank_worker.py`` ``FEATURE_RUNS``): the divergence guard
+  with a fault plan (poison, drop) trips at the twin's steps; the health
+  rows equal the twin's (norms rtol 1e-5) and only the lead writes
+  ``health.jsonl``; the index sanitizers run clean; a bf16 run with
+  ``sr_seed`` and ``debug_nans`` tracks the twin (its parameter updates
+  normwise within 1e-2, ``tests/test_torch_bf16_train.py``'s bf16 rule).
 """
 
 import os
@@ -52,6 +59,8 @@ torch.set_num_threads(1)
 FWD = dict(rtol=2e-5, atol=2e-6)
 LOSS_RTOL = 2e-5
 PARAMS = dict(rtol=5e-4, atol=2e-5)
+#: a bf16 run's parameter updates, normwise (tests/test_torch_bf16_train.py)
+UPDATE = dict(rtol=1e-2)
 
 
 def _single_forward(args):
@@ -68,9 +77,11 @@ def dp2(tmp_path_factory):
     init = {k: v.clone() for k, v in single.model.state_dict().items()}
     batches = list(single.batches("train"))
     history = single.train()
-    out = ranks.launch(2, ["mesh_info", "forward", "train_tiny"], root, mesh=(2, 1, 1), dp=2,
-                       initial_state=init)
-    return out, (batches, history, ranks._state(single))
+    twins = ranks.feature_twins(root / "ftwin", init)
+    out = ranks.launch(2, ["mesh_info", "forward", "train_tiny", "features"], root,
+                       mesh=(2, 1, 1), dp=2, initial_state=init, feat_mesh=(2, 1, 1),
+                       feat_init=init)
+    return out, (batches, history, ranks._state(single)), twins
 
 
 @pytest.fixture(scope="module")
@@ -203,7 +214,7 @@ def test_padded_tail_loss_needs_the_global_denominator():
 
 
 def test_dp2_training_over_a_padded_tail_matches_single_device(dp2):
-    out, (batches, history, state) = dp2
+    out, (batches, history, state), _ = dp2
     assert any(b.n_real < len(b) for b in batches)  # the split ends in a padded batch
     for res in out:
         got = res["train_tiny"]
@@ -238,3 +249,26 @@ def test_lstm_weight_grads_of_row_splits_sum_to_the_whole(splits):
     for k, want in enumerate(whole):
         np.testing.assert_allclose(sum(p[k] for p in parts).numpy(), want.numpy(),
                                    rtol=1e-5, atol=1e-6)
+
+
+def test_guard_and_fault_plan_at_dp2_match_the_twin(dp2):
+    twin = dp2[2]["guarded"]
+    assert twin["trips"] == [(1, ranks.POISON_STEP)]
+    for res in dp2[0]:
+        got = res["features"]["guarded"]
+        assert got["trips"] == twin["trips"] and got["path"] == "series_superstep"
+        ranks.check_run(got, twin, LOSS_RTOL, PARAMS)
+
+
+def test_health_at_dp2_matches_the_twin(dp2):
+    for res in dp2[0]:
+        ranks.check_health(res["features"]["guarded"], dp2[2]["guarded"], LOSS_RTOL, 1e-5)
+
+
+def test_sr_seed_and_debug_nans_at_dp2_match_the_twin(dp2):
+    for res in dp2[0]:
+        ranks.check_run(res["features"]["rounded"], dp2[2]["rounded"], LOSS_RTOL, UPDATE,
+                        init=dp2[2]["init"])
+        for name, value in res["features"]["shadow"].items():  # replicated: the twin's draw
+            assert torch.equal(value, dp2[2]["shadow"][name]), name
+

@@ -34,8 +34,21 @@ runs in this process on the conftest's virtual CPU devices.
   eight ranks against its one-device twin, and one step's collectives
   against the analytic counts and the manifest;
 - the composed ``multicity`` city pair (3x3 and 4x4 grids) on a region=8
-  mesh, each city node-padded on its own (9 -> 16 rows), against its
-  one-device fleet twin (the same tolerances);
+  mesh (window-free resident) trains as one fleet shape class
+  (``fleet_superstep``: planned over the padded sizes, the 3x3 city padded
+  9 -> 16 rows inside the 16-node rung) against its one-device fleet twin
+  (the same tolerances);
+- the trainer's opt-in features on a region=8 mesh (the 3x3 ``tiny``
+  city padded to 16 rows) against their one-device twins
+  (``tests/_torch_rank_worker.py`` ``FEATURE_RUNS``): the divergence guard
+  with a fault plan trips at the twin's steps, the health rows equal the
+  twin's (norms rtol 1e-5) and only the lead writes ``health.jsonl``, a
+  bf16 run with ``sr_seed`` and ``debug_nans`` tracks the twin (its
+  parameter updates normwise within 1e-2, ``tests/test_torch_bf16_train.py``'s
+  bf16 rule); and the NaN drill: a NaN in one node's series, which lives on
+  one rank, makes every rank raise the twin's ``CheckError`` (``checks``)
+  and ``FloatingPointError`` (``debug_nans``) at the twin's step, within
+  seconds of each other;
 - SIGTERM to one non-lead rank of a region mesh stops every rank at one
   safe point;
 - the refusals that remain are JAX's own (``model.tiled`` on a mesh,
@@ -90,6 +103,8 @@ torch.set_num_threads(1)
 FWD = dict(rtol=2e-5, atol=2e-6)
 LOSS_RTOL = 2e-5
 PARAMS = dict(rtol=5e-4, atol=2e-5)
+#: a bf16 run's parameter updates, normwise (tests/test_torch_bf16_train.py)
+UPDATE = dict(rtol=1e-2)
 METRICS_RTOL = 1e-4
 #: the first step's gradients against JAX's, of each tensor's largest value
 GRAD_ATOL = 1e-5
@@ -390,13 +405,17 @@ def eight(tmp_path_factory):
     htwin = build_trainer(hetero, device="cpu", verbose=False)
     hinit = {k: v.clone() for k, v in htwin.model.state_dict().items()}
     scaled["hetero"] = {"history": htwin.train(), "state": ranks._state(htwin),
-                        "path": htwin.train_path}
+                        "path": htwin.train_path, "pads": htwin._node_pads}
+    # the opt-in features' one-device twins, from the tiny city's seeded weights
+    scaled["features"] = ranks.feature_twins(root / "ftwin", None, nan=True)
     out = ranks.launch(8, ["region_train", "banded_region_train", "composed", "region_step",
-                           "hetero_region_train", "region_preempt"], root,
+                           "hetero_region_train", "region_preempt", "features"], root,
                        cfg=_pad_cfg().to_dict(), region_initial_state=init, preset="scaled",
                        banded_cfg=_banded_pad_cfg().to_dict(), banded_initial_state=binit,
                        step_cfg=composed_config("scaled").to_dict(),
-                       hetero_cfg=_hetero_cfg().to_dict(), hetero_initial_state=hinit)
+                       hetero_cfg=_hetero_cfg().to_dict(), hetero_initial_state=hinit,
+                       feat_mesh=(1, 8, 1), feat_init=scaled["features"]["init"],
+                       feat_nan=True)
     return out, twin_run, jax_run, scaled
 
 
@@ -524,10 +543,11 @@ def test_composed_scaled_on_eight_ranks_matches_its_twin(eight):
 def test_heterogeneous_cities_pad_each_on_a_region_mesh(eight):
     out, _, _, twins = eight
     twin = twins["hetero"]
-    assert twin["path"] == "fleet_superstep"  # one device fleets; a region mesh steps per city
+    assert twin["path"] == "fleet_superstep" and twin["pads"] == (0, 7)
     for res in out:
         got = res["hetero_region_train"]
-        assert got["node_pads"] == (0, 7) and got["path"] == "per_step"
+        # one class of rung 16 (a multiple of region), as on one device
+        assert got["node_pads"] == (0, 7) and got["path"] == "fleet_superstep"
         for mode in ("train", "validate"):
             np.testing.assert_allclose(got["history"][mode], twin["history"][mode],
                                        rtol=LOSS_RTOL)
@@ -573,3 +593,36 @@ def test_sigterm_to_one_region_rank_stops_every_rank_at_one_safe_point(eight):
     assert len({g["global_step"] for g in got}) == 1 and len({g["epoch"] for g in got}) == 1
     lead = got[0]["ckpt"]
     assert lead["global_step"] == got[0]["global_step"] and lead["mesh"]["region"] == 8
+
+
+def test_guard_and_fault_plan_on_a_region_mesh_match_the_twin(eight):
+    twin = eight[3]["features"]["guarded"]
+    assert twin["trips"] == [(1, ranks.POISON_STEP)]
+    for res in eight[0]:
+        got = res["features"]["guarded"]
+        assert got["trips"] == twin["trips"] and got["path"] == "series_superstep"
+        ranks.check_run(got, twin, LOSS_RTOL, PARAMS)
+
+
+def test_health_on_a_region_mesh_matches_the_twin(eight):
+    for res in eight[0]:
+        ranks.check_health(res["features"]["guarded"], eight[3]["features"]["guarded"],
+                           LOSS_RTOL, 1e-5)
+
+
+def test_sr_seed_and_debug_nans_on_a_region_mesh_match_the_twin(eight):
+    twins = eight[3]["features"]
+    for res in eight[0]:
+        ranks.check_run(res["features"]["rounded"], twins["rounded"], LOSS_RTOL, UPDATE,
+                        init=twins["init"])
+
+
+@pytest.mark.parametrize("kind", ["checks", "debug_nans"])
+def test_a_nan_on_one_region_rank_raises_the_twins_error_on_every_rank(eight, kind):
+    twin = eight[3]["features"]["nan"][kind]
+    assert twin["raised"].startswith("CheckError" if kind == "checks" else "FloatingPointError")
+    got = [res["features"]["nan"][kind] for res in eight[0]]
+    for g in got:
+        assert (g["raised"], g["global_step"]) == (twin["raised"], twin["global_step"])
+    assert max(g["at"] for g in got) - min(g["at"] for g in got) < 30.0
+
