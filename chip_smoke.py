@@ -371,12 +371,18 @@ runs' and 55's as ``placement_launches`` and ``fleet_bf16_launches``).
     (seeded weights: the served outputs; the trained checkpoint's: the
     model's output before the final bf16 cast, and the served bf16 outputs
     at most one bf16 step apart);
-56. ``python -m stmgcn_tpu_torch.cli lint --format json`` in a subprocess
-    (exit 0); the lint's Python mirror of every kernel plan equal to what
-    each built kernel form reports; each compiled instance's
-    ``cudaFuncGetAttributes`` (registers, spilled bytes, max threads) within
-    the budgets the lint holds them to, beside ptxas's registers and
-    spills.
+56. ``python -m stmgcn_tpu_torch.cli lint --format json
+    --include-suppressed`` in a subprocess, every pass (the whole-program
+    AST and concurrency passes over the package, then every config and
+    mesh pass over every preset): exit 0, no live finding, a program
+    database of more than zero modules and classes, printed with the
+    findings by rule, the suppressed count and the lint's seconds; each
+    mesh preset's per-rank footprint (``estimate_shard_footprint``) beside
+    ``Trainer._resident_cap_bytes()`` on the card; the lint's Python
+    mirror of every kernel plan equal to what each built kernel form
+    reports; each compiled instance's ``cudaFuncGetAttributes``
+    (registers, spilled bytes, max threads) within the budgets the lint
+    holds them to, beside ptxas's registers and spills.
 
 Phases 57-60 are the mesh slice (data- and branch-parallel training on
 ``torch.distributed``), run last. Each mesh job is a set of rank processes
@@ -386,7 +392,13 @@ parent built (``STMGCN_KERNELS_PREBUILT``: a rank never runs ``nvcc``); a
 rank that fails, or a job past MESH_TIMEOUT, fails the run and the other
 ranks are killed. Each mesh run is held against its single-device twin on
 the card (the same config without the mesh, the same seed; graphed, as a
-user runs it). The B1/B2 launches summed over the ranks of 57-58 and 67
+user runs it). Every rank of every mesh job (57-59, 61-62, 64-65, 67,
+68a) also holds its extra step to the lint's executed half
+(``analysis/spmd_check.py``: ``manifest_findings``, and ``wire_findings``
+with ``parallel.banded_meta`` and the float32 parameter bytes): a
+finding fails the job, and each phase prints its largest dp all-reduce a
+step beside ``2 x param_bytes + 4096`` and its largest halo permute call
+beside ``halo x B_local x M_local x F_cap x 4``. The B1/B2 launches summed over the ranks of 57-58 and 67
 (fp32) and 59 and 67 (xla) are the records' ``mesh_launches``:
 
 57. ``multicity`` at its own dp=8 mesh, fp32, full width (cities 12x12 and
@@ -524,6 +536,7 @@ import importlib
 import json
 import math
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -6218,27 +6231,67 @@ def fleet_bf16(device) -> dict:
 
 
 def lint_and_budgets() -> None:
-    """Phase 56: ``python -m stmgcn_tpu_torch.cli lint --format json`` in a
-    subprocess (exit 0, no error on the shipped presets); the lint's
-    Python mirror of every kernel plan against what each built kernel form
+    """Phase 56: ``python -m stmgcn_tpu_torch.cli lint --format json
+    --include-suppressed`` in a subprocess, every pass (the whole-program
+    AST and concurrency passes over the package, every config and mesh
+    pass over every preset): exit 0, no unsuppressed finding, a program
+    database of more than zero modules and classes; the findings by rule,
+    the suppressed count and the lint's seconds; each multi-device
+    preset's per-rank footprint (``estimate_shard_footprint``) beside
+    ``Trainer._resident_cap_bytes()`` on this card; the lint's Python
+    mirror of every kernel plan against what each built kernel form
     reports (``stmgcn_lstm_*_smem``, ``stmgcn_spmm_plan``); and each
     compiled instance's ``cudaFuncGetAttributes`` (registers, spilled bytes,
     max threads) within the budgets the lint holds them to, beside
     ptxas's."""
+    import types
+
     import torch
 
     from stmgcn_tpu_torch.analysis import kernel_check as kc
+    from stmgcn_tpu_torch.analysis.spmd_check import estimate_shard_footprint
+    from stmgcn_tpu_torch.config import PRESETS, preset
+    from stmgcn_tpu_torch.train.trainer import Trainer
 
     fused_lstm = importlib.import_module("stmgcn_tpu_torch.ops.fused_lstm")
     spmm = importlib.import_module("stmgcn_tpu_torch.ops.spmm")
 
+    t0 = time.perf_counter()
     proc = subprocess.run([sys.executable, "-m", "stmgcn_tpu_torch.cli", "lint", "--format",
-                           "json"], capture_output=True, text=True, timeout=300)
+                           "json", "--include-suppressed"], capture_output=True, text=True,
+                          timeout=300)
+    seconds = time.perf_counter() - t0
     if proc.returncode != 0:
         fail(f"lint exited {proc.returncode}: {proc.stdout[-2000:]} {proc.stderr[-2000:]}")
     report = json.loads(proc.stdout)
-    print(f"lint on the shipped presets: exit 0, {report['errors']} errors, "
-          f"{report['warnings']} warnings, {len(report['findings'])} findings")
+    db = re.search(r"program database of (\d+) modules, (\d+) classes; whole-program pass "
+                   r"([0-9.]+) s", proc.stderr)
+    if db is None or min(int(db.group(1)), int(db.group(2))) == 0:
+        fail(f"lint: the program database came out empty or unreported: {proc.stderr[-2000:]}")
+    live = [f for f in report["findings"] if not f["suppressed"]]
+    if live or report["errors"] or report["warnings"]:
+        fail(f"lint: unsuppressed findings on the shipped tree: {live}")
+    by_rule = collections.Counter(f["rule"] for f in report["findings"])
+    print(f"lint (every pass, the package and every preset): exit 0, {report['errors']} errors, "
+          f"{report['warnings']} warnings; program database {db.group(1)} modules, "
+          f"{db.group(2)} classes; suppressed findings by rule {dict(sorted(by_rule.items()))} "
+          f"({sum(by_rule.values())} in all, none live); {seconds:.2f} s in the subprocess "
+          f"(whole-program pass {db.group(3)} s)")
+    cap = Trainer._resident_cap_bytes(types.SimpleNamespace(
+        device=torch.device("cuda"), RESIDENT_CAP_BYTES=Trainer.RESIDENT_CAP_BYTES))
+    for name in PRESETS:
+        cfg = preset(name)
+        if cfg.mesh.n_devices == 1:
+            continue
+        est = estimate_shard_footprint(cfg)
+        if est["total_bytes"] > cap:
+            fail(f"lint: {name}'s per-rank footprint {est['total_bytes']:,} bytes exceeds "
+                 f"_resident_cap_bytes() {cap:,} on this card")
+        print(f"  spmd-shard-footprint {name} ({cfg.mesh.dp}x{cfg.mesh.region}x"
+              f"{cfg.mesh.branch}): {est['total_bytes']:,} bytes a rank (supports "
+              f"{est['supports_bytes']:,} + batch {est['batch_bytes']:,}) beside "
+              f"_resident_cap_bytes() {cap:,} on this card (the lint's floor "
+              f"{Trainer.RESIDENT_CAP_BYTES:,})")
     mismatches, checked = [], 0
     for dtype, form in ((torch.float32, "fp32"), (torch.bfloat16, "bf16"), ("xla", "xla")):
         for h in kc.KERNEL_HIDDEN:
@@ -6405,9 +6458,15 @@ def mesh_train(cfg, device, *, test: bool = False, dataset=None, supports=None,
     more step under ``step_comm_report`` for the manifest check."""
     import torch
 
+    from stmgcn_tpu_torch.analysis.spmd_check import (
+        manifest_findings,
+        param_bytes,
+        wire_figures,
+        wire_findings,
+    )
     from stmgcn_tpu_torch.experiment import build_trainer
     from stmgcn_tpu_torch.models import from_jax_params
-    from stmgcn_tpu_torch.parallel import check_executed, manifest_for_config
+    from stmgcn_tpu_torch.parallel import banded_meta, check_executed, manifest_for_config
     from stmgcn_tpu_torch.utils import comm, step_comm_report
 
     t_build = time.perf_counter()
@@ -6447,13 +6506,40 @@ def mesh_train(cfg, device, *, test: bool = False, dataset=None, supports=None,
         report = step_comm_report(trainer.train_batch, batch)
         out["step_comm"] = {k: v for k, v in report.items() if k != "result"}
         banded = "banded" in trainer.model.support_modes
-        out["manifest"] = check_executed(
-            manifest_for_config(cfg, banded=banded, transport=trainer.mesh.backend), report)
+        manifest = manifest_for_config(cfg, banded=banded, transport=trainer.mesh.backend)
+        out["manifest"] = check_executed(manifest, report)
         out["numel"] = sum(p.numel() for p in trainer.model.parameters())
+        # the lint's executed half on this rank's step: any finding fails the job
+        meta = dict(banded_meta(trainer, cfg), param_bytes=param_bytes(trainer.model))
+        spmd = (manifest_findings("train", manifest, report)
+                + wire_findings("train", report, meta))
+        if spmd:
+            fail(f"rank {trainer.mesh.rank}: the step's spmd findings: "
+                 + "; ".join(str(f) for f in spmd))
+        out["wire"] = wire_figures(report, meta)
     out["trainer"] = trainer
     if device.type == "cuda":
         torch.cuda.synchronize()
     return out
+
+
+def spmd_text(gots: list) -> str:
+    """The lint's wire figures of a phase's ranks (``wire_figures`` of each
+    rank's one step; a rank with an ``spmd-collective-manifest`` or
+    ``spmd-wire-budget`` finding failed its job): the largest dp
+    all-reduce a step beside ``2 x param_bytes + 4096``, the largest halo
+    permute call beside its boundary-rows cap."""
+    figs = [g["wire"] for g in gots]
+    parts = [f"0 spmd findings on {len(figs)} ranks"]
+    dp = [f["dp_bytes"] for f in figs if f.get("dp_bytes") is not None]
+    if dp:
+        parts.append(f"dp all-reduce a step {max(dp):,} bytes (cap 2 x param_bytes + 4096 = "
+                     f"{min(f['dp_cap'] for f in figs):,})")
+    perm = [f["permute_max"] for f in figs if f.get("permute_max") is not None]
+    if perm:
+        parts.append(f"largest halo permute call {max(perm):,} bytes (cap halo x B_local x "
+                     f"M_local x F_cap x 4 = {min(f['permute_cap'] for f in figs):,})")
+    return "; ".join(parts)
 
 
 def check_mesh_run(got: dict, twin: dict, what: str, *, loss_atol: float = 0.0,
@@ -6909,6 +6995,7 @@ def mesh_phases(device, card: str) -> dict:
               f" ({8 * MESH_PARAMS} bytes a step); B1 {got['counts']['B1']} launches of "
               f"{got['rows']} rows, B2 {got['counts']['B2']}; manifest clean; step p50 "
               f"{got['p50_ms']:.2f} ms ({card})")
+    print(f"phase 57 lint, executed half: {spmd_text(ranks)}")
     print(f"phase 57 twin (one device, graphed, {twin['path']}): step p50 "
           f"{twin['p50_ms']:.2f} ms; the ranks' p50s "
           f"{[round(g['p50_ms'], 2) for g in ranks]} ms (eight processes sharing the card "
@@ -6970,6 +7057,9 @@ def mesh_phases(device, card: str) -> dict:
         print(f"{what}: {text}; B1/B2 xla {got67['bfloat16']['counts']['B1 xla']}/"
               f"{got67['bfloat16']['counts']['B2 xla']}, fp32 {got67['float32']['counts']['B1']}/"
               f"{got67['float32']['counts']['B2']}; manifests clean ({card})")
+    for phase, gots in (("58", [r["58"] for r in results]), ("59", [r["59"] for r in results]),
+                        ("67", [r["67"][d] for r in results for d in ("bfloat16", "float32")])):
+        print(f"phase {phase} lint, executed half: {spmd_text(gots)}")
     print(f"phase 58 twin (one device, graphed): step p50 {twin['p50_ms']:.2f} ms; "
           f"{time.perf_counter() - t0:.1f} s")
     launches["fp32"] = {k: launches["fp32"][k] + sum(r["58"]["counts"][k]
@@ -7339,6 +7429,8 @@ def region_phases(device, card: str, tiled: dict) -> dict:
         print(f"{what}: {text}; B1 {got['counts']['B1']}, B2 {got['counts']['B2']}; bytes and "
               f"manifest as analytic; step p50 {got['p50_ms']:.2f} ms (twin "
               f"{twin32['p50_ms']:.2f} ms; {card})")
+    for phase in ("61", "62"):
+        print(f"phase {phase} lint, executed half: {spmd_text([r[phase] for r in results])}")
     launches = {"fp32": {k: sum(r["62"]["counts"][k] for r in results) for k in ("B1", "B2")},
                 "xla": {k: sum(r["61"]["counts"][k] for r in results)
                         for k in ("B1 xla", "B2 xla")}}
@@ -7379,6 +7471,7 @@ def fleet_region_phases(results, twin: dict, card: str) -> dict:
               f"{got['node_pads']}; {text}; B1 {got['counts']['B1']} launches of {got['rows']} "
               f"rows, B2 {got['counts']['B2']}; manifest clean; step p50 {got['p50_ms']:.2f} ms "
               f"(twin {twin['p50_ms']:.2f} ms; {card})")
+    print(f"phase 68a lint, executed half: {spmd_text([res['68'] for res in results])}")
     for kind in ("checks", "debug_nans"):
         drill = [res["68b"][kind] for res in results]
         seen = {(d["raised"], d["step"]) for d in drill}
@@ -7786,6 +7879,7 @@ def sparse_phases(device, card: str, results, twins: dict, tiled: dict) -> dict:
           f"counts); the strip probe equal bit for bit on {bitwise} of {len(results)} ranks, "
           f"max |diff| {worst:.3e}; twin (one device, graphed, per-branch stacks at N = 2,500) "
           f"step p50 {twin['p50_ms']:.2f} ms")
+    print(f"phase 64 lint, executed half: {spmd_text([r['64'] for r in results])}")
     # 65: bandedbranch on each route
     for route in BRANCH_ROUTES:
         twin = twins["65"][route]
@@ -7813,7 +7907,8 @@ def sparse_phases(device, card: str, results, twins: dict, tiled: dict) -> dict:
                       f"launches {counts_text(c)}; bytes and manifest as analytic; step p50 "
                       f"{got['p50_ms']:.2f} ms (twin {twin['p50_ms']:.2f} ms; {card}); rank job "
                       f"{got['job_s']:.1f} s")
-        print(f"phase 65 ({route}): one step moved {results[0]['65'][route]['step_comm']['what']}")
+        print(f"phase 65 ({route}): one step moved {results[0]['65'][route]['step_comm']['what']}"
+              f"; lint, executed half: {spmd_text([r['65'][route] for r in results])}")
     # 66: the sharded tiled plan
     for r, res in enumerate(results):
         got, what = res["66"], f"phase 66 (metro plan, region={tiled['region']}) rank {r}"

@@ -7,8 +7,14 @@ kernels' tiles where the JAX one names the Pallas kernels' VMEM, and
 ``precision-policy`` covers only the policy's own contract (the JAX
 dtype-flow pass has no counterpart). ``kernel-smem`` and ``kernel-shape``
 are the port's own: the hand-written kernels' launch budgets on sm_90
-(:mod:`~stmgcn_tpu_torch.analysis.kernel_check`). There is no JAX symbol
-compatibility table: the port imports no JAX.
+(:mod:`~stmgcn_tpu_torch.analysis.kernel_check`), and so is
+``unparseable-module``. The mesh, AST and concurrency rules keep the JAX
+ids and severities; the AST rules' texts name CUDA-graph capture where the
+JAX ones name ``jit``, and ``spmd-collective-manifest``/``spmd-wire-budget``
+read an executed step's counted collectives where the JAX ones read
+compiled HLO. There is no JAX symbol compatibility table: the port imports
+no JAX, and the JAX rules without a counterpart are listed in
+:mod:`~stmgcn_tpu_torch.analysis.lint`.
 """
 
 from __future__ import annotations
@@ -159,6 +165,112 @@ _ALL_RULES = [
         "above 256 (the widest kernel width) or a tiled plan whose "
         "tile_size is not 64 or 128 — the wrapper raises at the first "
         "forward",
+    ),
+]
+
+_ALL_RULES += [
+    # -- the mesh passes (collective_check, spmd_check; JAX ids) -----------
+    Rule(
+        "collective-shape",
+        "error",
+        "a preset's mesh extents and collective operand shapes disagree "
+        "(halo ring-exchange rows vs shard size, batch vs dp, m_graphs vs "
+        "branch) — the collective fails or drops data at runtime",
+    ),
+    Rule(
+        "spmd-shard-footprint",
+        "error",
+        "a multi-device preset's per-device sharded operand footprint "
+        "(support strips/shards + batch shard) exceeds the per-core "
+        "budget — the resident-memory math extended to mesh shards; the "
+        "step OOMs on every device at once",
+    ),
+    Rule(
+        "spmd-collective-manifest",
+        "error",
+        "a multi-device step, as executed and counted (step_comm_report), "
+        "runs a collective (kind x mesh axis) its plan never declared — "
+        "traffic the plan never asked for — or a declared required "
+        "collective never runs, meaning the plan did not engage; or a "
+        "multi-device preset lacks its declared train/serve manifests, or "
+        "requires a collective over an axis of extent 1",
+    ),
+    Rule(
+        "spmd-wire-budget",
+        "error",
+        "an executed step's halo ring exchange moves more than the "
+        "boundary-rows bound in one call, or its dp all-reduce traffic "
+        "exceeds the gradient-sync model (2 x param_bytes + slack) — a "
+        "communication regression. The JAX rule's rebaselined "
+        "per-program ceilings (WIRE_BUDGETS, --rebaseline) have no "
+        "counterpart: the port has no compiled programs to re-measure",
+    ),
+    # -- the AST lint (lint; JAX ids, worded for CUDA-graph capture) -------
+    Rule(
+        "host-sync-in-jit",
+        "error",
+        "host-synchronizing call (.item()/.cpu()/.tolist()/.numpy()/float()/"
+        "np.asarray/torch.cuda.synchronize) inside a function reachable from "
+        "a CUDA-graph-captured body — a hidden device->host readback that "
+        "fails the capture on the card",
+    ),
+    Rule(
+        "traced-control-flow",
+        "error",
+        "Python if/while on a device tensor (a torch.* call or .any()/.all())"
+        " inside a capture-reachable function — a hidden readback that fails"
+        " under capture, or silently freezes one branch into the graph",
+    ),
+    Rule(
+        "unfenced-timing",
+        "warning",
+        "time.time()/perf_counter() span around device dispatch with no "
+        "readback fence — CUDA launches are asynchronous, so it times the "
+        "launch, not the work (see stmgcn_tpu_torch.utils.profiling)",
+    ),
+    Rule(
+        "partition-axis-name",
+        "error",
+        "a stmgcn_tpu_torch.utils.comm collective names a mesh axis that no "
+        "mesh in this repo defines (known axes: dp, region, branch, and "
+        "world for every rank)",
+    ),
+    Rule(
+        "unparseable-module",
+        "error",
+        "a module of the linted tree does not parse — no rule can check it "
+        "(the JAX lint files this under jax-compat-import, which has no "
+        "counterpart in the port)",
+    ),
+    # -- static concurrency analysis (concurrency_check; JAX ids) ----------
+    Rule(
+        "unguarded-attr",
+        "error",
+        "an attribute written under `with self._lock` in one method is "
+        "read/written lock-free in another method of the same class — a "
+        "data race; the finding carries the guarding-writer -> lock-free-"
+        "access chain",
+    ),
+    Rule(
+        "lock-order-cycle",
+        "error",
+        "the global lock-acquisition graph (built across modules through "
+        "the type-informed call graph) contains a cycle — two threads "
+        "taking the locks in opposite orders deadlock",
+    ),
+    Rule(
+        "condvar-discipline",
+        "error",
+        "Condition.wait() outside a while-predicate loop (spurious "
+        "wakeup / missed notify), or wait/notify without the condvar's "
+        "owning lock held (RuntimeError at runtime)",
+    ),
+    Rule(
+        "thread-lifecycle",
+        "error",
+        "a non-daemon Thread started with no reachable join()/cancel() "
+        "path (shutdown hangs on it), or a blocking call (queue.get/put, "
+        "sleep, join, Event.wait, device sync) made while holding a lock",
     ),
 ]
 

@@ -319,7 +319,10 @@ def place_supports(supports, device):
         return supports.to(device=device, dtype=torch.float32)
     if hasattr(supports, "to"):
         return supports.to(device)
-    return torch.as_tensor(np.asarray(supports, np.float32), device=device)
+    # host data, placed before any capture: a captured body's tensor `.to`
+    # reaches this function only by name (through CitySupports.to)
+    dense = np.asarray(supports, np.float32)  # stmgcn: ignore[host-sync-in-jit]
+    return torch.as_tensor(dense, device=device)
 
 
 # -- plain versions -------------------------------------------------------------

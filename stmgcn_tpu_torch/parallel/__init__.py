@@ -64,6 +64,7 @@ _LAZY = {
     "replica_sum": "stmgcn_tpu_torch.parallel.collectives",
     "COMPOSED_PRESETS": "stmgcn_tpu_torch.parallel.compose",
     "banded_dataset": "stmgcn_tpu_torch.parallel.compose",
+    "banded_meta": "stmgcn_tpu_torch.parallel.compose",
     "composed_config": "stmgcn_tpu_torch.parallel.compose",
     "composed_trainer": "stmgcn_tpu_torch.parallel.compose",
     "parity_twin_kind": "stmgcn_tpu_torch.parallel.compose",

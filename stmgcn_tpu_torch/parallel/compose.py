@@ -33,6 +33,7 @@ from __future__ import annotations
 
 __all__ = [
     "banded_dataset",
+    "banded_meta",
     "COMPOSED_PRESETS",
     "composed_config",
     "composed_trainer",
@@ -128,6 +129,27 @@ def composed_config(name: str):
         cfg.train.batch_size = 4
         cfg.mesh.halo = 4
     return cfg
+
+
+def banded_meta(trainer, cfg) -> dict:
+    """The halo wire model's inputs for a trainer on a region mesh
+    (``analysis/spmd_check.py``'s permute bound; the JAX
+    ``compose.py:230-258``): the largest halo of its routed banded strips,
+    and the per-shard batch, graph and feature extents from ``cfg``. Empty
+    when no branch took the halo plan (a dense program has no permute
+    bound)."""
+    from stmgcn_tpu_torch.parallel.banded import BandedSupports
+
+    sups = trainer.supports if isinstance(trainer.supports, tuple) else (trainer.supports,)
+    banded = [s for s in sups if isinstance(s, BandedSupports)]
+    if not banded:
+        return {}
+    f_cap = (cfg.data.serial_len + cfg.data.daily_len + cfg.data.weekly_len
+             + 2 * cfg.model.lstm_hidden_dim + cfg.model.gcn_hidden_dim)
+    return {"halo": max(s.halo for s in banded),
+            "b_local": cfg.train.batch_size // cfg.mesh.dp,
+            "m_local": max(1, cfg.model.m_graphs // cfg.mesh.branch),
+            "f_cap": f_cap}
 
 
 def parity_twin_kind(name: str) -> str:

@@ -315,7 +315,7 @@ class Optimizer:
         ``count`` (``t = count + 1``), as ``torch.optim.Adam`` computes
         them."""
         b1, b2 = self.BETAS
-        step = float(count + 1)
+        step = float(count + 1)  # stmgcn: ignore[host-sync-in-jit] a host int
         rate = self.lr_scale * self.schedule(count)
         return (-(rate / (1 - b1 ** step)), (1 - b2 ** step) ** 0.5)
 

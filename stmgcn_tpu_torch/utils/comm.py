@@ -31,6 +31,7 @@ ring exchange goes through the host).
 from __future__ import annotations
 
 import collections
+import contextlib
 import threading
 from typing import Callable, Optional
 
@@ -59,12 +60,17 @@ COLLECTIVES = ("all-reduce", "all-gather", "broadcast", "reduce-scatter", "colle
 
 class CommStats:
     """Tallies of the collectives run, by ``(kind, axis)`` and by ``(kind,
-    axis, what)``: ``{"calls": n, "bytes": n}`` each; thread-safe."""
+    axis, what)``: ``{"calls": n, "bytes": n}`` each, and the largest
+    single call by ``(kind, axis)`` (the halo wire model's per-call bound
+    reads it; sums cannot give it back); thread-safe."""
 
     def __init__(self):
         self._lock = threading.Lock()
         self._ops: dict = collections.defaultdict(lambda: [0, 0])
         self._what: dict = collections.defaultdict(lambda: [0, 0])
+        self._max: dict = {}
+        #: open :meth:`window` tables, each the largest call since it opened
+        self._windows: list = []
 
     def add(self, kind: str, axis: str, nbytes: int, what: str = "") -> None:
         if kind not in COLLECTIVES:
@@ -73,6 +79,8 @@ class CommStats:
             for table, key in ((self._ops, (kind, axis)), (self._what, (kind, axis, what))):
                 table[key][0] += 1
                 table[key][1] += int(nbytes)
+            for peak in [self._max] + self._windows:
+                peak[(kind, axis)] = max(peak.get((kind, axis), 0), int(nbytes))
         labels = {"kind": kind, "axis": axis}
         REGISTRY.counter("comm.calls", labels).inc(1)
         REGISTRY.counter("comm.bytes", labels).inc(nbytes)
@@ -81,15 +89,33 @@ class CommStats:
         with self._lock:
             self._ops.clear()
             self._what.clear()
+            self._max.clear()
+
+    @contextlib.contextmanager
+    def window(self):
+        """A ``{"kind/axis": bytes}`` table of the largest call of each
+        kind and axis run while the block runs (filled when it ends)."""
+        peak: dict = {}
+        with self._lock:
+            self._windows.append(peak)
+        out: dict = {}
+        try:
+            yield out
+        finally:
+            with self._lock:  # by identity: two open windows may hold equal tables
+                self._windows = [w for w in self._windows if w is not peak]
+            out.update({f"{k}/{a}": b for (k, a), b in peak.items()})
 
     def snapshot(self) -> dict:
         """``{"ops": {"kind/axis": {"calls", "bytes"}}, "what": {"kind/axis/what":
-        {...}}, "total_bytes": n, "calls": n}``."""
+        {...}}, "max_bytes": {"kind/axis": largest call}, "total_bytes": n,
+        "calls": n}``."""
         with self._lock:
             ops = {f"{k}/{a}": {"calls": c, "bytes": b} for (k, a), (c, b) in self._ops.items()}
             what = {f"{k}/{a}/{w}": {"calls": c, "bytes": b}
                     for (k, a, w), (c, b) in self._what.items()}
-        return {"ops": ops, "what": what,
+            peak = {f"{k}/{a}": b for (k, a), b in self._max.items()}
+        return {"ops": ops, "what": what, "max_bytes": peak,
                 "total_bytes": sum(v["bytes"] for v in ops.values()),
                 "calls": sum(v["calls"] for v in ops.values())}
 
@@ -254,10 +280,13 @@ def _delta(after: dict, before: dict) -> dict:
 
 def step_comm_report(fn: Callable, *args, **kwargs) -> dict:
     """Run ``fn(*args, **kwargs)`` and return what its collectives moved
-    on this rank (:meth:`CommStats.snapshot` over the call alone), with
+    on this rank (:meth:`CommStats.snapshot` over the call alone, its
+    ``max_bytes`` the largest call of each kind and axis in it), with
     ``fn``'s return value under ``"result"``."""
     before = STATS.snapshot()
-    result = fn(*args, **kwargs)
+    with STATS.window() as peak:
+        result = fn(*args, **kwargs)
     report = _delta(STATS.snapshot(), before)
+    report["max_bytes"] = peak
     report["result"] = result
     return report

@@ -183,10 +183,20 @@ def forward(args, out_dir):
     return out
 
 
+def _wire_meta(t, cfg) -> dict:
+    """The wire models' inputs of trainer ``t``: the halo plan's extents
+    (``banded_meta``) and the float32 parameter bytes."""
+    from stmgcn_tpu_torch.analysis.spmd_check import param_bytes
+    from stmgcn_tpu_torch.parallel import banded_meta
+
+    return dict(banded_meta(t, cfg), param_bytes=param_bytes(t.model))
+
+
 def step_report(args, out_dir):
     """One training step of ``tiny_config`` at the args' mesh under
     ``step_comm_report``, its manifest check, and the same step with an
-    undeclared all-gather over ``dp`` added."""
+    undeclared all-gather over ``dp`` added; the reports and the wire
+    models' inputs."""
     from stmgcn_tpu_torch.experiment import build_trainer
     from stmgcn_tpu_torch.parallel import check_executed, manifest_for_config
     from stmgcn_tpu_torch.utils import comm, step_comm_report
@@ -205,6 +215,8 @@ def step_report(args, out_dir):
 
     leak = step_comm_report(leaky, batch)
     return {"report": {k: v for k, v in report.items() if k != "result"},
+            "leak": {k: v for k, v in leak.items() if k != "result"},
+            "meta": _wire_meta(t, cfg),
             "problems": check_executed(manifest, report),
             "leak_problems": check_executed(manifest, leak),
             "dp_only_problems": check_executed(
@@ -374,7 +386,8 @@ def banded_region_train(args, out_dir):
 def region_step(args, out_dir):
     """One training step of ``args["step_cfg"]`` on this job's region mesh
     under ``step_comm_report``: the report, its check against the config's
-    manifest (banded as routed), the parameter count and the routing."""
+    manifest (banded as routed), the wire models' inputs, the parameter
+    count and the routing."""
     from stmgcn_tpu_torch.config import ExperimentConfig
     from stmgcn_tpu_torch.experiment import build_trainer
     from stmgcn_tpu_torch.parallel import check_executed, manifest_for_config
@@ -388,6 +401,7 @@ def region_step(args, out_dir):
     halos = [s.halo for s in t.supports if hasattr(s, "halo")] if banded else []
     return {"report": {k: v for k, v in report.items() if k != "result"},
             "problems": check_executed(manifest_for_config(cfg, banded=banded), report),
+            "meta": _wire_meta(t, cfg),
             "numel": sum(p.numel() for p in t.model.parameters()),
             "modes": t.model.support_modes, "halos": halos, "nodes": t._nodes(0),
             "path": t.train_path}

@@ -434,5 +434,12 @@ def test_rules_carry_the_jax_ids_severities_and_summaries():
         if rid != "tile-plan":  # the CUDA kernels' tiles replace the VMEM estimate
             assert RULES[rid].summary == JAX_RULES[rid].summary, rid
     assert RULES["precision-policy"].severity == JAX_RULES["precision-policy"].severity
-    assert {RULES[r].severity for r in ("kernel-smem", "kernel-shape")} == {"error"}
-    assert not set(RULES) - set(JAX_RULES) - {"kernel-smem", "kernel-shape"}
+    assert {RULES[r].severity for r in ("kernel-smem", "kernel-shape",
+                                        "unparseable-module")} == {"error"}
+    assert not set(RULES) - set(JAX_RULES) - {"kernel-smem", "kernel-shape",
+                                              "unparseable-module"}
+    for rid in ("collective-shape", "spmd-shard-footprint", "spmd-collective-manifest",
+                "spmd-wire-budget", "unguarded-attr", "lock-order-cycle", "condvar-discipline",
+                "thread-lifecycle", "host-sync-in-jit", "traced-control-flow",
+                "unfenced-timing", "partition-axis-name"):
+        assert RULES[rid].severity == JAX_RULES[rid].severity, rid

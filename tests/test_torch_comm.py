@@ -72,6 +72,33 @@ def test_step_keeps_to_its_manifest(step):
         assert "undeclared all-reduce over 'branch'" in r["dp_only_problems"][0]
 
 
+def test_step_raises_no_spmd_finding(step, tmp_path):
+    """The step held to the executed manifest and the dp wire model: the
+    float64 gradient bucket is exactly ``2 x param_bytes`` (float32) and
+    the 4-byte loss rides the 4,096-byte slack; the leaky step's undeclared
+    all-gather is one ``spmd-collective-manifest`` finding."""
+    from stmgcn_tpu_torch.analysis.spmd_check import (
+        manifest_findings,
+        wire_figures,
+        wire_findings,
+    )
+
+    manifest = manifest_for_config(ranks.tiny_config(str(tmp_path), 2, 3))
+    for res in step:
+        r = res["step_report"]
+        assert r["meta"] == {"param_bytes": 4 * r["numel"]}
+        assert manifest_findings("train", manifest, r["report"]) == []
+        assert wire_findings("train", r["report"], r["meta"]) == []
+        assert wire_figures(r["report"], r["meta"]) == {
+            "dp_bytes": 8 * r["numel"] + 4, "dp_cap": 8 * r["numel"] + 4096}
+        assert r["report"]["max_bytes"]["all-reduce/dp"] == 8 * r["numel"]
+        (f,) = manifest_findings("train", manifest, r["leak"])
+        assert (f.rule, f.severity, f.path) == (
+            "spmd-collective-manifest", "error", "<contract:spmd:train>")
+        assert "undeclared all-gather over 'dp'" in f.message
+        assert wire_findings("train", r["leak"], r["meta"]) == []
+
+
 def test_a_guarded_step_agrees_its_flags_in_the_analytic_bytes(step):
     """A step with the divergence guard, health and the ``nan`` sanitizers
     at dp=2 x branch=3 moves the plain step's collectives, the health row's

@@ -586,6 +586,39 @@ def test_scaled_step_moves_the_analytic_bytes(eight):
         assert r["report"]["what"] == want
 
 
+def test_scaled_step_raises_no_spmd_finding(eight):
+    """The same step held to the executed manifest and the wire models:
+    no finding, the largest halo permute call (the forward's, ``halo x B x
+    max(T, H)`` float32) within its boundary-rows cap ``halo x B_local x
+    M_local x F_cap x 4``; a cap one feature below that call fires."""
+    from stmgcn_tpu_torch.analysis.spmd_check import (
+        manifest_findings,
+        wire_figures,
+        wire_findings,
+    )
+    from stmgcn_tpu_torch.parallel import manifest_for_config
+
+    cfg = composed_config("scaled")
+    b, t, h = cfg.train.batch_size, cfg.data.seq_len, cfg.model.lstm_hidden_dim
+    manifest = manifest_for_config(cfg, banded=True)
+    for res in eight[0]:
+        r = res["region_step"]
+        halo = r["halos"][0]
+        assert r["meta"] == {"halo": halo, "b_local": b, "m_local": 3,
+                             "f_cap": t + 2 * h + cfg.model.gcn_hidden_dim,
+                             "param_bytes": 4 * r["numel"]}
+        assert manifest_findings("scaled/train", manifest, r["report"]) == []
+        assert wire_findings("scaled/train", r["report"], r["meta"]) == []
+        fig = wire_figures(r["report"], r["meta"])
+        assert fig == {"permute_max": 4 * halo * b * max(t, h),
+                       "permute_cap": 4 * halo * b * 3 * r["meta"]["f_cap"],
+                       "dp_bytes": None, "dp_cap": 8 * r["numel"] + 4096}  # no dp axis
+        assert r["report"]["max_bytes"]["collective-permute/region"] == fig["permute_max"]
+        tight = dict(r["meta"], m_local=1, f_cap=max(t, h) - 1)
+        (f,) = wire_findings("scaled/train", r["report"], tight)
+        assert f.rule == "spmd-wire-budget" and "boundary-rows bound" in f.message
+
+
 def test_sigterm_to_one_region_rank_stops_every_rank_at_one_safe_point(eight):
     got = [res["region_preempt"] for res in eight[0]]
     assert got[ranks.PREEMPT_RANK]["sent"] is not None
