@@ -145,8 +145,9 @@ launches as ``fleet_launches``:
     for both cities, every answer equal to ``Forecaster.predict(city=)``,
     dispatches that coalesce the two cities, each rung's p50, and a
     ``swap_params`` both cities then serve from;
-28. ``bench.py``'s 8-city fleet point (two classes, serial 3, batch 2) at
-    the default model's full width: one epoch of fleet blocks of 8 and one
+28. ``bench.py``'s 8-city fleet point (two classes, serial 3, batch 2;
+    two weeks of series, not four) at the default model's full width: one
+    epoch of fleet blocks of 8 and one
     of the per-city loop, each timed on the host clock (graphed and eager:
     phase 33);
 29. a tiled fleet of three cities (N = 1,024, 960 and 896; tile 128; one
@@ -442,7 +443,14 @@ beside ``halo x B_local x M_local x F_cap x 4``. The B1/B2 launches summed over 
     HEALTH_RTOL (relative) of the twin's; at bf16 phase 59's rule for the
     losses, the parameters and (against the fp32 twin) the health norms;
     the health stats' branch all-reduce one a step; the lead alone writes
-    ``health.jsonl``; B1/B2 and the manifests as in 58-59.
+    ``health.jsonl``; B1/B2 and the manifests as in 58-59. Last, C5's
+    drill on the same six ranks: ``branchpar`` for one epoch writing
+    ``latest.ckpt`` every WRITE_DRILL_EVERY steps, the lead's first write torn
+    (``InjectedFault`` in the writer), with synchronous and with
+    asynchronous checkpoints: every rank raises the lead's error type
+    (``InjectedFault`` at the first cadence write; the flush's
+    ``RuntimeError`` caused by ``InjectedFault``) at the lead's global
+    step, each rank's type and step printed.
 
 The region phases, run last: ``scaled`` (BASELINE config 3: a 50x50 grid,
 N = 2,500 padded to 2,504 = 8 x 313, K=3, M=3, a 3-layer 64-wide LSTM,
@@ -513,6 +521,17 @@ rows:
     whose rows one rank alone holds, trained under ``checks="nan"`` and
     then under ``debug_nans``: every rank raises the same error at the
     same step, within DRILL_SPREAD_S of one another.
+
+Phase 69 runs last, after the region phases:
+
+69. the port's lint gate, ``bash scripts/lint_gate_torch.sh --device
+    cuda`` in a subprocess loading the kernels this run built: exit 0 and
+    exactly one JSON line with ``"gate": "PASS"``; each section's figures
+    and seconds printed, and the kernels its processes launched: B1 and B2
+    in the ``obs``, ``continual`` and ``spmd_exec`` sections' training
+    (``spmd_exec``: the composed ``branchpar`` on six gloo ranks sharing
+    the card, against its one-device twin), B1 in ``federation``'s
+    serving.
 
 Checkpoints go to a temporary directory that the run removes.
 
@@ -650,15 +669,16 @@ BF16_SERVE_MAX, BF16_SERVE_NORM, BF16_GRAD_RTOL = 2.0**-9, 2.0**-13, 2.0**-7
 #: four weeks, 10x10 over three: one class at rung 144, the second city
 #: padded by 44 nodes) train in blocks of FLEET_S at the preset's batch 64;
 #: bench.py's 8-city fleet point (bench.py:745-760: FLEET_CITY_DIMS, two
-#: classes at rungs 16 and 6, serial 3, batch 2, its series lengths) at the
-#: default model's full width, one epoch in blocks of FLEET_BENCH_S against
-#: one of the per-city loop; a tiled fleet of TILED_FLEET_ROWS x
+#: classes at rungs 16 and 6, serial 3, batch 2; its series cut from four
+#: weeks to BENCH_FLEET_WEEKS, for the script's time) at the default model's
+#: full width, one epoch in blocks of FLEET_BENCH_S against one of the
+#: per-city loop; a tiled fleet of TILED_FLEET_ROWS x
 #: TILED_FLEET_COLS cities (N = 1,024, 960, 896: one class at rung 1,024,
 #: which grows the 896-node plan by a block row and keeps the 960-node one
 #: inside its last tile) at tile 128
 FLEET_S, FLEET_BENCH_S = 4, 8
 BENCH_FLEET_DIMS = ((4, 4), (4, 4), (5, 3), (3, 5), (7, 2), (2, 7), (3, 2), (2, 3))
-BENCH_FLEET_SERIAL, BENCH_FLEET_BATCH = 3, 2
+BENCH_FLEET_SERIAL, BENCH_FLEET_BATCH, BENCH_FLEET_WEEKS = 3, 2, 2
 TILED_FLEET_ROWS, TILED_FLEET_COLS, TILED_FLEET_TILE = (32, 30, 28), 32, 128
 TILED_FLEET_TIMESTEPS, TILED_FLEET_BATCH = 24 * 7 + 60, 8
 #: the twin drill (tests/test_mixed_precision.py:84-116): bf16 per-step losses
@@ -3186,7 +3206,8 @@ def bench_fleet(device) -> None:
     from stmgcn_tpu_torch.models import STMGCN
     from stmgcn_tpu_torch.ops import SupportConfig
 
-    datas = [synthetic_dataset(rows=r, cols=c, n_timesteps=24 * 7 * 4 + 12 * i, seed=i + 1)
+    datas = [synthetic_dataset(rows=r, cols=c, n_timesteps=24 * 7 * BENCH_FLEET_WEEKS + 12 * i,
+                               seed=i + 1)
              for i, (r, c) in enumerate(BENCH_FLEET_DIMS)]
     sups = CitySupports(SupportConfig("chebyshev", 2).build_all(d.adjs.values())
                         for d in datas)
@@ -6780,6 +6801,56 @@ def mesh_job_multicity(args, out: str, device) -> dict:
     return {"57": got}
 
 
+#: phase 69: the gate's limit, seconds
+GATE_TIMEOUT = 600
+
+
+def gate_phase(card: str) -> dict:
+    """Phase 69: the port's lint gate, ``bash scripts/lint_gate_torch.sh
+    --device cuda`` in a subprocess (the kernels this run built, never
+    ``nvcc``): exit 0 and exactly one JSON line, ``"gate": "PASS"``; each
+    section and its seconds (the gate's ``--report``) printed; B1 and B2
+    launched by the training sections (``obs``, ``continual``,
+    ``spmd_exec``) and B1 by ``federation``'s serving. Returns the
+    launches by section."""
+    from stmgcn_tpu_torch.ops._build import PREBUILT_ENV
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    report = os.path.join(scratch("gate"), "report.json")
+    t0 = time.perf_counter()
+    proc = subprocess.run(["bash", os.path.join(root, "scripts", "lint_gate_torch.sh"),
+                           "--device", "cuda", "--report", report], cwd=root,
+                          env=dict(os.environ, PYTHON=sys.executable, **{PREBUILT_ENV: "1"}),
+                          capture_output=True, text=True, timeout=GATE_TIMEOUT)
+    seconds = time.perf_counter() - t0
+    lines = proc.stdout.splitlines()
+    if proc.returncode != 0 or len(lines) != 1:
+        fail(f"phase 69: the gate exited {proc.returncode} with {len(lines)} stdout lines: "
+             f"{proc.stdout[-2000:]}\n{proc.stderr[-6000:]}")
+    payload = json.loads(lines[0])
+    if payload["gate"] != "PASS":
+        fail(f"phase 69: the gate says {payload}\n{proc.stderr[-6000:]}")
+    with open(report) as f:
+        rep = json.load(f)
+    launches = rep["launches"]
+    for name in ("obs", "continual", "spmd_exec", "federation"):
+        need = ("B1",) if name == "federation" else ("B1", "B2")
+        if not launches.get(name) or not all(launches[name][k] for k in need):
+            fail(f"phase 69: the gate's {name} section did not launch {need} on the card: "
+                 f"{launches.get(name)}")
+    for name, section in payload.items():
+        if name == "gate":
+            continue
+        took = rep["seconds"].get("obs" if name == "health" else name)
+        counts = launches.get(name) or {}
+        kernels = ", ".join(f"{k} {v}" for k, v in counts.items() if v)
+        print(f"phase 69 gate section {name}: {section}; {took} s"
+              + (f"; launches {kernels}" if kernels else ""))
+    print(f"phase 69: the gate (--device cuda) PASS, one JSON line, exit 0, in {seconds:.1f} s "
+          f"({rep['seconds']['gate']} s in the gate; {card})")
+    return launches
+
+
 def mesh_job_bf16(args, out: str, device) -> dict:
     """Phase 59 alone in one rank of a 6-rank job, at ``args["seed"]`` (the
     data, weights and batch order; ``scripts/mesh_gaps.py``)."""
@@ -6821,9 +6892,61 @@ def feature_plan():
                      FaultSpec("drop", epoch=1, step=FEATURE_DROP))
 
 
+def write_drill(out: str, device) -> dict:
+    """Phase 67's last step in one rank, C5: ``branchpar`` (one epoch) under
+    the port's write drill (``resilience.faults``: ``latest.ckpt`` every
+    WRITE_DRILL_EVERY steps, the lead's first write torn), with synchronous
+    and with asynchronous checkpoints: what this rank raised
+    (``raised_record``) and at which global step."""
+    from stmgcn_tpu_torch.experiment import build_trainer
+    from stmgcn_tpu_torch.resilience.faults import (
+        WRITE_DRILL_EVERY,
+        raised_record,
+        write_drill_plan,
+    )
+
+    res = {}
+    for mode in ("sync", "async"):
+        cfg = mesh_config("branchpar", os.path.join(out, f"torn-{mode}"), epochs=1)
+        cfg.train.checkpoint_every_steps = WRITE_DRILL_EVERY
+        cfg.train.async_checkpoint = mode == "async"
+        t = build_trainer(cfg, device=device, verbose=False, fault_plan=write_drill_plan())
+        t0 = time.perf_counter()
+        try:
+            t.train()
+            raised = None
+        except Exception as e:  # noqa: BLE001 — every rank must raise; the parent checks
+            raised = raised_record(e)
+        res[mode] = {"raised": raised, "global_step": t.global_step, "at": time.time(),
+                     "seconds": time.perf_counter() - t0}
+        del t
+    return res
+
+
+def check_write_drill(results: list, card: str) -> None:
+    """Phase 67's last step over the ranks, held to
+    ``resilience.faults.write_drill_problems``: the lead raised its own
+    error and every other rank the same type and cause at the lead's
+    global step, under a message naming the lead."""
+    from stmgcn_tpu_torch.resilience.faults import write_drill_problems
+
+    for mode in ("sync", "async"):
+        runs = [r["67c5"][mode] for r in results]
+        problems = write_drill_problems(runs, mode)
+        if problems:
+            fail(f"phase 67 C5 ({mode} checkpoints): " + "; ".join(problems))
+        spread = max(g["at"] for g in runs) - min(g["at"] for g in runs)
+        print(f"phase 67 C5, a torn latest.ckpt write on the lead, {mode} checkpoints: "
+              + "; ".join(f"rank {r} {g['raised']['type']}"
+                          + (f" (cause {g['raised']['cause']})" if g["raised"]["cause"] else "")
+                          + f" at global step {g['global_step']}" for r, g in enumerate(runs))
+              + f"; {spread:.2f} s apart, each run {max(g['seconds'] for g in runs):.1f} s "
+              f"({card})")
+
+
 def mesh_job_branchpar(args, out: str, device) -> dict:
-    """Phases 58, 60 (the files), 59 and 67 in one rank of the 6-rank job
-    (``args["phases"]``: fewer)."""
+    """Phases 58, 60 (the files), 59 and 67 (with C5's drill last) in one
+    rank of the 6-rank job (``args["phases"]``: fewer)."""
     import torch
 
     phases = args.get("phases", ("58", "59", "67"))
@@ -6844,6 +6967,9 @@ def mesh_job_branchpar(args, out: str, device) -> dict:
             got["params"] = len(got.pop("trainer")._param_names)
             res["67"][dtype] = got
             torch.cuda.empty_cache()
+    if "67" in phases or "67c5" in phases:  # C5's drill, phase 67's last step
+        res["67c5"] = write_drill(os.path.join(out, "write-drill"), device)
+        torch.cuda.empty_cache()
     return res
 
 
@@ -7060,6 +7186,7 @@ def mesh_phases(device, card: str) -> dict:
     for phase, gots in (("58", [r["58"] for r in results]), ("59", [r["59"] for r in results]),
                         ("67", [r["67"][d] for r in results for d in ("bfloat16", "float32")])):
         print(f"phase {phase} lint, executed half: {spmd_text(gots)}")
+    check_write_drill(results, card)
     print(f"phase 58 twin (one device, graphed): step p50 {twin['p50_ms']:.2f} ms; "
           f"{time.perf_counter() - t0:.1f} s")
     launches["fp32"] = {k: launches["fp32"][k] + sum(r["58"]["counts"][k]
@@ -8182,6 +8309,9 @@ def run_phases() -> int:
     if not all(records[i]["sparse_mesh_launches"] for i in (0, 1, 2, 3, 5)):
         fail("a kernel of the sparse mesh phases was not launched: " + ", ".join(
             f"{r['name']} {r['sparse_mesh_launches']}" for r in records))
+    # this slice's main path: the port's lint gate on the card (phase 69)
+    gate_phase(card)
+    print(f"gate phase done at {time.perf_counter() - t_start:.1f} s")
     print(f"all phases done at {time.perf_counter() - t_start:.1f} s")
 
     print(card)

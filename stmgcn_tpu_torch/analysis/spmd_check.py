@@ -56,6 +56,7 @@ __all__ = [
     "estimate_shard_footprint",
     "manifest_findings",
     "param_bytes",
+    "spmd_summary",
     "wire_figures",
     "wire_findings",
 ]
@@ -131,6 +132,20 @@ def check_manifest_coverage(
                           f"axis of extent 1 ({', '.join(flat)}) — no collective runs there,"
                           " so every executed step would break the manifest")
     return findings
+
+
+def spmd_summary(configs: Optional[Iterable[Tuple[str, object]]] = None) -> dict:
+    """The lint gate's ``spmd`` section (the JAX ``spmd_summary``'s keys):
+    ``programs``, the declared manifests of :data:`PROGRAM_SPECS` checked
+    over ``configs`` (default: every preset); ``collectives``, their
+    declarations; ``findings``, :func:`check_spmd_contracts`'. The JAX
+    section counts lowered programs and their compiled collectives; the
+    port's executed steps are the gate's ``spmd_exec`` section."""
+    configs = list(preset_configs() if configs is None else configs)
+    manifests = declared_manifests(configs)
+    return {"programs": len(manifests),
+            "collectives": sum(len(m.decls) for m in manifests.values()),
+            "findings": len(check_spmd_contracts(configs))}
 
 
 # -- the executed half ---------------------------------------------------------

@@ -89,16 +89,29 @@ def manifest_for_config(
     with the sanitizers on (``train.checks``), the divergence guard or
     ``debug_nans`` (the trainer's argument, not the config's) also agrees
     its flags over every rank (``AGREED_FLAGS``, optional); without them
-    the manifest is the plain one.
+    the manifest is the plain one. ``program="checkpoint"`` is one
+    checkpoint read, synchronous write or asynchronous flush on a mesh:
+    the lead's outcome broadcast over every rank (``CHECKPOINT_AGREEMENT``,
+    required) and, on a branch mesh, a save's gather of the branch slices;
+    a port program with no JAX counterpart, since a JAX mesh on one host is
+    one process.
     """
     from stmgcn_tpu_torch.parallel.placement import (
         AGREED_FLAGS,
+        CHECKPOINT_AGREEMENT,
         HALO_EXCHANGE,
         BRANCH_FUSION,
         DP_GRAD_SYNC,
         GSPMD_REGION,
     )
 
+    if program == "checkpoint":
+        decls = CHECKPOINT_AGREEMENT if cfg.mesh.n_devices > 1 else ()
+        if cfg.mesh.branch > 1:
+            decls += (CollectiveDecl(
+                "all-gather", "branch", required=False,
+                reason="a save gathers the branch slices of the parameters and moments"),)
+        return CollectiveManifest(program=program, decls=decls)
     train = program == "train"
     decls: list = []
     if cfg.mesh.dp > 1 and train:

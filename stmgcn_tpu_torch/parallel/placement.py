@@ -40,8 +40,8 @@ from __future__ import annotations
 
 from stmgcn_tpu_torch.parallel.manifest import CollectiveDecl
 
-__all__ = ["AGREED_FLAGS", "BRANCH_FUSION", "DP_GRAD_SYNC", "GSPMD_REGION", "HALO_EXCHANGE",
-           "MeshPlacement", "sharded_names"]
+__all__ = ["AGREED_FLAGS", "BRANCH_FUSION", "CHECKPOINT_AGREEMENT", "DP_GRAD_SYNC",
+           "GSPMD_REGION", "HALO_EXCHANGE", "MeshPlacement", "sharded_names"]
 
 #: collective signature of the data-parallel placement: gradients (one
 #: bucket a step) and the step's loss summed over ``dp`` — the
@@ -84,6 +84,17 @@ AGREED_FLAGS = (
     CollectiveDecl("all-reduce", "world", required=False,
                    reason="a flag (or a flag word's bits) summed over every rank: one "
                    "decision on every rank"),
+)
+
+#: collective signature of a checkpoint read or write on a mesh: the lead's
+#: outcome (a read's file or a write's status byte, or its error)
+#: broadcast to every rank as its length, then its bytes, so that a failure
+#: raises on every rank (``Trainer._lead_read``, ``Trainer._agree_write``);
+#: one agreement per read, synchronous write or asynchronous flush
+CHECKPOINT_AGREEMENT = (
+    CollectiveDecl("broadcast", "world", required=True, max_count=2,
+                   reason="the lead's checkpoint outcome (length, then bytes) on every "
+                   "rank: one read, write or flush agreed"),
 )
 
 #: the parameters of the branch-stacked module (``STMGCN.branches``)

@@ -73,6 +73,11 @@ __all__ = [
     "SERVE_KINDS",
     "ServeFaultPlan",
     "ServeFaultSpec",
+    "WRITE_DRILL_EVERY",
+    "WRITE_DRILL_RAISES",
+    "raised_record",
+    "write_drill_plan",
+    "write_drill_problems",
 ]
 
 _STEP_KINDS = ("raise", "sigterm", "hang", "poison", "drop")
@@ -339,6 +344,65 @@ class FaultPlan:
                 f"injected torn write: crashed before renaming {tmp} "
                 f"over {path}"
             )
+
+
+# -- the drill of a failed checkpoint write on a mesh (the port's own) --------
+
+#: the drill's ``latest`` cadence (``checkpoint_every_steps``): the lead's
+#: first ``latest.ckpt`` write, which :func:`write_drill_plan` tears, lands
+#: after this many steps
+WRITE_DRILL_EVERY = 2
+#: what every rank raises in the drill, by checkpoint mode: (type, its
+#: cause's type); a synchronous write raises the writer's fault, an
+#: asynchronous one the flush's wrapper of it
+WRITE_DRILL_RAISES = {"sync": ("InjectedFault", None),
+                      "async": ("RuntimeError", "InjectedFault")}
+
+
+def write_drill_plan() -> FaultPlan:
+    """The drill's plan: the lead's first ``latest.ckpt`` write torn
+    (:class:`InjectedFault` in the writer)."""
+    return FaultPlan(FaultSpec("torn-write", path_glob="latest.ckpt", write_index=0))
+
+
+def raised_record(error: Optional[BaseException]) -> Optional[dict]:
+    """What a rank raised in the drill, as :func:`write_drill_problems`
+    reads it: its type, its cause's type and its message; None for none."""
+    if error is None:
+        return None
+    cause = error.__cause__
+    return {"type": type(error).__name__, "message": str(error),
+            "cause": None if cause is None else type(cause).__name__}
+
+
+def write_drill_problems(runs: list, mode: str) -> list:
+    """What went wrong in the drill in ``mode`` ("sync" or "async") over the
+    ranks of a mesh: ``runs[r]`` is rank r's ``{"raised": raised_record,
+    "global_step": int}``. The lead must raise ``WRITE_DRILL_RAISES[mode]``
+    (with synchronous writes at the first cadence write, global step
+    WRITE_DRILL_EVERY), and every other rank the same type and cause at the
+    lead's global step, under a message that names the lead. Empty: the
+    drill passed."""
+    want = WRITE_DRILL_RAISES[mode]
+    lead_step = runs[0]["global_step"]
+    problems = []
+    if mode == "sync" and lead_step != WRITE_DRILL_EVERY:
+        problems.append(f"the lead raised at global step {lead_step}, not at the first "
+                        f"cadence write ({WRITE_DRILL_EVERY})")
+    for r, got in enumerate(runs):
+        raised = got["raised"]
+        if raised is None:
+            problems.append(f"rank {r} went on past the lead's failed write")
+            continue
+        if (raised["type"], raised["cause"]) != want:
+            problems.append(f"rank {r} raised {raised['type']} (cause {raised['cause']}), "
+                            f"not {want[0]} (cause {want[1]})")
+        if got["global_step"] != lead_step:
+            problems.append(f"rank {r} raised at global step {got['global_step']}, the lead "
+                            f"at {lead_step}")
+        if r and not raised["message"].startswith("the lead rank failed to write a checkpoint"):
+            problems.append(f"rank {r}'s message does not name the lead: {raised['message']}")
+    return problems
 
 
 @dataclasses.dataclass(frozen=True)

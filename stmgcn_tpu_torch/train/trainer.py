@@ -234,6 +234,7 @@ import dataclasses
 import errno
 import functools
 import itertools
+import json
 import os
 import queue
 import signal
@@ -270,7 +271,7 @@ from stmgcn_tpu_torch.ops.spmm import place_supports
 from stmgcn_tpu_torch.ops.tiling import StackedPlans, TiledSupports
 from stmgcn_tpu_torch.parallel.collectives import GradSync, replica_sum, world_any, world_or
 from stmgcn_tpu_torch.parallel.placement import sharded_names
-from stmgcn_tpu_torch.resilience.faults import FaultPlan, Preempted
+from stmgcn_tpu_torch.resilience.faults import FaultPlan, InjectedFault, Preempted
 from stmgcn_tpu_torch.resilience.guard import DivergenceGuard
 from stmgcn_tpu_torch.train.checkpoint import (
     load_checkpoint,
@@ -350,6 +351,35 @@ def _write_jobs(jobs: queue.Queue, fault_plan, failures: list) -> None:
             failures.append(e)
         finally:
             jobs.task_done()
+
+
+#: the types a rank raises its lead's checkpoint error under, by the lead's
+#: type name (the lead raises its own exception); any other raises as
+#: RuntimeError
+_LEAD_ERRORS = {"InjectedFault": InjectedFault, "OSError": OSError,
+                "FileNotFoundError": FileNotFoundError, "PermissionError": PermissionError,
+                "ValueError": ValueError, "CorruptCheckpointError": ValueError,
+                "RuntimeError": RuntimeError}
+
+
+def _error_payload(error: BaseException) -> bytes:
+    """The lead's checkpoint error as it sends it: ``E`` and a JSON list of
+    its type name and message, then its cause's, if any."""
+    parts = [type(error).__name__, str(error)]
+    if error.__cause__ is not None:
+        parts += [type(error.__cause__).__name__, str(error.__cause__)]
+    return b"E" + json.dumps(parts).encode()
+
+
+def _lead_error(payload: bytes, what: str) -> Exception:
+    """The lead's error of an :func:`_error_payload` as another rank raises
+    it: under the lead's type where :data:`_LEAD_ERRORS` knows it, a
+    message that names the lead, the lead's cause as its cause."""
+    name, msg, *cause = json.loads(payload[1:].decode())
+    error = _LEAD_ERRORS.get(name, RuntimeError)(f"the lead rank failed to {what}: {name}: {msg}")
+    if cause:
+        error.__cause__ = _LEAD_ERRORS.get(cause[0], RuntimeError)(f"{cause[0]}: {cause[1]}")
+    return error
 
 
 class CitySupports:
@@ -797,7 +827,7 @@ class Trainer:
                     payload = flag + len(path).to_bytes(4, "little") + path + body
             except Exception as e:  # noqa: BLE001 — sent to every rank, then raised
                 error = e
-                payload = b"E" + f"{type(e).__name__}\0{e}".encode()
+                payload = _error_payload(e)
         payload = comm.broadcast_bytes(payload if self.mesh.is_lead else None, self.mesh,
                                        what="checkpoint")
         if self.mesh.is_lead:
@@ -806,10 +836,7 @@ class Trainer:
             return result
         flag = payload[:1]
         if flag == b"E":
-            name, _, msg = payload[1:].decode().partition("\0")
-            cls = {"FileNotFoundError": FileNotFoundError, "ValueError": ValueError,
-                   "CorruptCheckpointError": ValueError}.get(name, RuntimeError)
-            raise cls(f"the lead rank failed to read the checkpoint: {name}: {msg}")
+            raise _lead_error(payload, "read the checkpoint")
         if flag == b"N":
             return None
         n = int.from_bytes(payload[1:5], "little")
@@ -1205,19 +1232,61 @@ class Trainer:
         if not self.is_lead:  # its part of the gather; the lead writes
             if self._branches() is not None:
                 self.state_trees()
+            with self._agreed_writes():  # the lead's outcome
+                pass
             return b""
         trc = obs_trace.active_tracer()
         t0 = time.perf_counter() if trc is not None else 0.0
         data = self.snapshot()
-        if path == self.latest_path:
-            # rotate first: if this write lands corrupt, latest.prev is the
-            # previous verified state and the recovery chain falls back to it
-            self._queue("rotate", path, self.latest_prev_path)
-        self._queue("write", path, data)
+        with self._agreed_writes():
+            if path == self.latest_path:
+                # rotate first: if this write lands corrupt, latest.prev is the
+                # previous verified state and the recovery chain falls back to it
+                self._queue("rotate", path, self.latest_prev_path)
+            self._queue("write", path, data)
         if trc is not None:  # serialize and enqueue; the writer's IO is off-thread
             trc.record_span("train.checkpoint", t0, time.perf_counter(),
                             {"path": os.path.basename(path), "bytes": len(data)})
         return data
+
+    @contextlib.contextmanager
+    def _agreed_writes(self):
+        """The block's checkpoint file operations (the lead's; every rank
+        enters the block at the same point), their outcome agreed on a
+        mesh: with synchronous writes at the block's end, where a failure
+        raises on every rank (:meth:`_agree_write`); with asynchronous ones
+        a failure of the lead's training thread joins the writer's, raised
+        on every rank by the next :meth:`flush_checkpoints`. One device:
+        a failure raises as it happens."""
+        if self.mesh is None:
+            yield
+            return
+        error = None
+        try:
+            yield
+        except Exception as e:  # noqa: BLE001 — agreed below, then raised on every rank
+            if not self.is_lead:
+                raise
+            error = e
+        if not self.async_checkpoint:
+            self._agree_write(error)
+        elif error is not None:
+            self._write_failures.append(error)
+
+    def _agree_write(self, error: Optional[BaseException]) -> None:
+        """The lead's checkpoint write outcome on every rank of the mesh
+        (the way :meth:`_lead_read` agrees a read): the lead broadcasts a
+        status byte or its ``error``; the lead re-raises its own exception,
+        every other rank the lead's error (:func:`_lead_error`), so a failed
+        write stops every rank at one step instead of leaving the others
+        waiting in their next collective."""
+        lead = self.mesh.is_lead
+        payload = (b"K" if error is None else _error_payload(error)) if lead else None
+        payload = comm.broadcast_bytes(payload, self.mesh, what="checkpoint")
+        if lead and error is not None:
+            raise error
+        if payload[:1] == b"E":
+            raise _lead_error(payload, f"write a checkpoint at global step {self.global_step}")
 
     def _queue(self, op: str, path: str, payload=None) -> None:
         if not self.is_lead:  # only the lead touches the files
@@ -1242,13 +1311,27 @@ class Trainer:
         self._write_queue.put((op, path, payload))
 
     def flush_checkpoints(self) -> None:
-        """Block until pending checkpoint writes land; re-raise a failure."""
+        """Block until pending checkpoint writes land; re-raise a failure.
+        On a mesh with asynchronous writes every rank calls it at the same
+        points and the lead's outcome is agreed (:meth:`_agree_write`), so
+        a failure raises on every rank."""
+        error = self._drain_writes()
+        if self.mesh is not None and self.async_checkpoint:
+            self._agree_write(error)
+        elif error is not None:
+            raise error
+
+    def _drain_writes(self) -> Optional[RuntimeError]:
+        """Wait for this rank's writer to land its pending writes; their
+        first failure, wrapped, or None."""
         if self._write_queue is not None:
             self._write_queue.join()
-        if self._write_failures:
-            err = self._write_failures[0]
-            self._write_failures.clear()
-            raise RuntimeError("background checkpoint write failed") from err
+        if not self._write_failures:
+            return None
+        error = RuntimeError("background checkpoint write failed")
+        error.__cause__ = self._write_failures[0]
+        self._write_failures.clear()
+        return error
 
     def _install(self, meta: dict, params: dict, opt_state) -> None:
         """Load a checkpoint's trees into the live model and optimizer (on
@@ -1976,9 +2059,10 @@ class Trainer:
                   if self.debug_nans else contextlib.nullcontext()):
                 self._epoch_loop(history, start_epoch)
         except BaseException:
-            try:  # the loop's own exception stays the one raised
-                self.flush_checkpoints()
-            except Exception as flush_exc:
+            # the loop's own exception stays the one raised; other ranks may
+            # not share this teardown, so nothing is agreed here
+            flush_exc = self._drain_writes()
+            if flush_exc is not None:
                 self._log(f"checkpoint flush failed during teardown: {flush_exc}")
             raise
         finally:
@@ -2025,11 +2109,12 @@ class Trainer:
                     # best-k snapshots reuse best.ckpt's bytes; ranked by
                     # (loss, newest first on ties) as the <= rule
                     path = os.path.join(self.out_dir, f"best_e{epoch}.ckpt")
-                    self._queue("write", path, data)
                     self._kept.append((val_loss, -epoch, path))
                     self._kept.sort()
-                    while len(self._kept) > self.top_k:
-                        self._queue("rm", self._kept.pop()[2])
+                    with self._agreed_writes():
+                        self._queue("write", path, data)
+                        while len(self._kept) > self.top_k:
+                            self._queue("rm", self._kept.pop()[2])
             else:
                 self.patience_left -= 1
                 self._log(f"Epoch {epoch}, val_loss {val_loss:.5} does not improve from "

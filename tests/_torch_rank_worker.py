@@ -819,6 +819,169 @@ def feature_step(args, out_dir):
             * 4}
 
 
+# -- C5: a failed checkpoint write on a mesh ------------------------------------
+
+#: the write fault drill's own limit (seconds): a rank still in the scenario
+#: then (a peer waiting in a collective the lead never reached) ends its
+#: process, which fails the spawn at once instead of at ``TIMEOUT``
+WRITE_FAULT_LIMIT = 60.0
+
+
+def _watchdog(what: str, limit: float):
+    """A daemon timer that ends this process (exit 3) after ``limit``
+    seconds, naming ``what``; ``cancel()`` it when the work is done."""
+    import threading
+
+    def expire():
+        print(f"rank {os.environ.get('RANK')}: {what} outlived its {limit:.0f} s "
+              f"({_WATCHDOG_AT.get('case')}): a rank hangs", flush=True)
+        os._exit(3)
+
+    timer = threading.Timer(limit, expire)
+    timer.daemon = True
+    timer.start()
+    return timer
+
+
+_WATCHDOG_AT: dict = {}
+
+
+def _files(out_dir: str) -> dict:
+    """``{name: bytes}`` of the checkpoint files in ``out_dir``."""
+    return {name: open(os.path.join(out_dir, name), "rb").read()
+            for name in sorted(os.listdir(out_dir)) if name.endswith((".ckpt", ".prev"))}
+
+
+def write_fault(args, out_dir):
+    """C5 on this job's mesh ``args["wf_mesh"]`` (dp, branch): ``tiny_config``
+    under the port's write drill (``resilience.faults``: ``latest.ckpt``
+    every WRITE_DRILL_EVERY steps, the lead's first write torn), with
+    synchronous and with asynchronous checkpoints: what each rank raised
+    (``raised_record``) and at which global step. Then, with no fault and top-k snapshots on, each mode twice from
+    ``args["wf_init"]``: as shipped, and with the write agreement
+    (``Trainer._agree_write``) patched out, the trainer before C5's repair:
+    the lead's files, the final parameters, the ``what`` tags of the
+    collectives each run moved, and the collectives of one ``latest`` save
+    (sync) or one flush (async) against the checkpoint manifest. Bounded by
+    WRITE_FAULT_LIMIT."""
+    import shutil
+
+    from stmgcn_tpu_torch.experiment import build_trainer
+    from stmgcn_tpu_torch.parallel import check_executed, manifest_for_config
+    from stmgcn_tpu_torch.resilience.faults import (
+        WRITE_DRILL_EVERY,
+        raised_record,
+        write_drill_plan,
+    )
+    from stmgcn_tpu_torch.train.trainer import Trainer
+    from stmgcn_tpu_torch.utils import comm, step_comm_report
+
+    dp, branch = args["wf_mesh"]
+    watchdog = _watchdog("write_fault", WRITE_FAULT_LIMIT)
+    out = {}
+    try:
+        for mode in ("sync", "async"):
+            _WATCHDOG_AT["case"] = f"torn {mode}"
+            cfg = tiny_config(os.path.join(out_dir, f"torn-{mode}"), dp, branch,
+                              checkpoint_every_steps=WRITE_DRILL_EVERY,
+                              async_checkpoint=mode == "async")
+            t = build_trainer(cfg, device="cpu", verbose=False, fault_plan=write_drill_plan(),
+                              initial_state=args.get("wf_init"))
+            try:
+                t.train()
+                raised = None
+            except Exception as e:  # noqa: BLE001 — the test reads what each rank raised
+                raised = raised_record(e)
+            out[f"torn-{mode}"] = {"raised": raised, "global_step": t.global_step,
+                                   "at": time.time()}
+            print(f"rank {os.environ['RANK']}: torn {mode}: {raised} at global step "
+                  f"{t.global_step}", flush=True)
+        agree = Trainer._agree_write
+        for mode in ("sync", "async"):
+            for form in ("agreed", "unagreed"):
+                _WATCHDOG_AT["case"] = f"clean {mode} {form}"
+                # one directory for both forms (the meta's best-k list holds
+                # paths), emptied by the lead, which alone writes there
+                run_dir = os.path.join(out_dir, f"clean-{mode}")
+                if os.environ["RANK"] == "0":
+                    shutil.rmtree(run_dir, ignore_errors=True)
+                cfg = tiny_config(run_dir, dp, branch, epochs=2, top_k=2,
+                                  checkpoint_every_steps=WRITE_DRILL_EVERY,
+                                  async_checkpoint=mode == "async")
+                if form == "unagreed":  # the lead's outcome raises on the lead alone
+                    Trainer._agree_write = _unagreed
+                try:
+                    t = build_trainer(cfg, device="cpu", verbose=False,
+                                      initial_state=args.get("wf_init"))
+                    comm.STATS.reset()
+                    history = t.train()
+                    tags = comm.collective_stats()["what"]
+                    # the agreement's point: each write (sync), each flush (async)
+                    report = (step_comm_report(t._save, t.latest_path) if mode == "sync"
+                              else step_comm_report(t.flush_checkpoints))
+                finally:
+                    Trainer._agree_write = agree
+                manifest = manifest_for_config(cfg, program="checkpoint")
+                out[f"clean-{mode}-{form}"] = {
+                    "history": history, "state": _state(t),
+                    "files": _files(run_dir) if t.is_lead else {},
+                    "what": tags, "report": report["what"],
+                    "problems": check_executed(manifest, report)}
+    finally:
+        watchdog.cancel()
+    return out
+
+
+def _unagreed(self, error) -> None:
+    """``Trainer._agree_write`` before C5's repair: a failure raises where
+    it happened, nothing moves."""
+    if error is not None:
+        raise error
+
+
+def check_write_fault(results: list, mode: str) -> None:
+    """C5's drill of :func:`write_fault` in ``mode`` on every rank of a
+    spawn, held to ``resilience.faults.write_drill_problems``: the lead
+    raised its own error and every other rank the same type and cause, at
+    the lead's global step, under a message naming the lead."""
+    from stmgcn_tpu_torch.resilience.faults import write_drill_problems
+
+    runs = [res["write_fault"][f"torn-{mode}"] for res in results]
+    assert write_drill_problems(runs, mode) == [], runs
+
+
+def check_clean_writes(results: list, mode: str) -> None:
+    """:func:`write_fault`'s runs with no fault in ``mode``: on every rank
+    the run with the write agreement equals the run without it (the
+    trainer before C5's repair) in its losses, final parameters and the
+    lead's checkpoint bytes, and moved no other collective than the
+    agreement's ``broadcast/world/checkpoint``: two calls of 9 bytes (an
+    int64 length and the status byte) at each agreement point (beside a
+    branch mesh's gather of a save), which keep to the checkpoint
+    manifest."""
+    import torch
+
+    for rank, res in enumerate(results):
+        agreed, before = (res["write_fault"][f"clean-{mode}-{form}"]
+                          for form in ("agreed", "unagreed"))
+        assert agreed["history"] == before["history"], rank
+        for name, value in agreed["state"].items():
+            assert torch.equal(value, before["state"][name]), (rank, name)
+        assert agreed["files"].keys() == before["files"].keys(), rank
+        assert all(agreed["files"][n] == before["files"][n] for n in agreed["files"]), rank
+        if rank == 0:
+            assert {"best.ckpt", "latest.ckpt"} <= set(agreed["files"])
+        else:
+            assert not agreed["files"]
+        tag = "broadcast/world/checkpoint"
+        changed = {k for k in set(agreed["what"]) | set(before["what"])
+                   if agreed["what"].get(k) != before["what"].get(k)}
+        assert changed == {tag} and tag not in before["what"], (rank, changed)
+        new = {k: v for k, v in agreed["report"].items() if before["report"].get(k) != v}
+        assert new == {tag: {"calls": 2, "bytes": 9}}, (rank, agreed["report"])
+        assert agreed["problems"] == [], (rank, agreed["problems"])
+
+
 def feature_twins(root, init, nan: bool = False) -> dict:
     """The one-device twins of :func:`features` (in the test's process)."""
     from stmgcn_tpu_torch.experiment import build_trainer

@@ -27,7 +27,12 @@ Mirrors ``tests/test_branch_parallel.py``:
   ``health.jsonl``; the index sanitizers run clean; stochastic rounding's
   noise on a branch rank is the twin's slice bit for bit, and a bf16 run
   with it and ``debug_nans`` tracks the twin (its parameter updates
-  normwise within 1e-2, ``tests/test_torch_bf16_train.py``'s bf16 rule).
+  normwise within 1e-2, ``tests/test_torch_bf16_train.py``'s bf16 rule);
+- C5 on this mesh (``tests/_torch_rank_worker.py`` ``write_fault``, where
+  every rank enters the save for the branch gather): a torn write on the
+  lead raises the lead's error type on all six ranks at one global step,
+  synchronous and asynchronous; a run with no fault is unchanged by the
+  write agreement.
 """
 
 import os
@@ -73,10 +78,11 @@ def runs(tmp_path_factory):
     clip_init = {k: v.clone() for k, v in clip.model.state_dict().items()}
     clip_run = (clip.train(), ranks._state(clip))
     feat_twins = ranks.feature_twins(root / "ftwin", clip_init)
-    out = ranks.launch(6, ["mesh_info", "forward", "composed", "train_tiny", "features"],
+    out = ranks.launch(6, ["mesh_info", "forward", "composed", "train_tiny", "features",
+                           "write_fault"],
                        root, mesh=MESH, grads=True, preset="branchpar", initial_state=init,
                        dp=2, branch=3, train=CLIP, tiny_initial_state=clip_init,
-                       feat_mesh=MESH, feat_init=clip_init)
+                       feat_mesh=MESH, feat_init=clip_init, wf_mesh=(2, 3), wf_init=clip_init)
     return out, port_twin, (jax_hist, jax_state), clip_run, feat_twins
 
 
@@ -181,3 +187,12 @@ def test_sr_seed_and_debug_nans_on_a_branch_mesh_match_the_twin(runs):
         ranks.check_run(res["features"]["rounded"], runs[4]["rounded"], LOSS_RTOL, UPDATE,
                         init=runs[4]["init"])
 
+
+@pytest.mark.parametrize("mode", ["sync", "async"])
+def test_failed_checkpoint_write_raises_on_all_six_ranks(runs, mode):
+    ranks.check_write_fault(runs[0], mode)
+
+
+@pytest.mark.parametrize("mode", ["sync", "async"])
+def test_write_agreement_leaves_a_branch_run_unchanged(runs, mode):
+    ranks.check_clean_writes(runs[0], mode)

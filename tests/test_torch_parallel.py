@@ -29,7 +29,13 @@ CPU devices.
   rows equal the twin's (norms rtol 1e-5) and only the lead writes
   ``health.jsonl``; the index sanitizers run clean; a bf16 run with
   ``sr_seed`` and ``debug_nans`` tracks the twin (its parameter updates
-  normwise within 1e-2, ``tests/test_torch_bf16_train.py``'s bf16 rule).
+  normwise within 1e-2, ``tests/test_torch_bf16_train.py``'s bf16 rule);
+- C5, a failed checkpoint write (``tests/_torch_rank_worker.py``
+  ``write_fault``): a torn ``latest.ckpt`` write on the lead raises the
+  lead's error type on both ranks at one global step, with synchronous and
+  asynchronous checkpoints, within the scenario's own 60 s; with no fault,
+  the write agreement leaves the losses, parameters and checkpoint bytes
+  as they were without it and moves only its own broadcast.
 """
 
 import os
@@ -78,9 +84,9 @@ def dp2(tmp_path_factory):
     batches = list(single.batches("train"))
     history = single.train()
     twins = ranks.feature_twins(root / "ftwin", init)
-    out = ranks.launch(2, ["mesh_info", "forward", "train_tiny", "features"], root,
-                       mesh=(2, 1, 1), dp=2, initial_state=init, feat_mesh=(2, 1, 1),
-                       feat_init=init)
+    out = ranks.launch(2, ["mesh_info", "forward", "train_tiny", "features", "write_fault"],
+                       root, mesh=(2, 1, 1), dp=2, initial_state=init, feat_mesh=(2, 1, 1),
+                       feat_init=init, wf_mesh=(2, 1), wf_init=init)
     return out, (batches, history, ranks._state(single)), twins
 
 
@@ -272,3 +278,12 @@ def test_sr_seed_and_debug_nans_at_dp2_match_the_twin(dp2):
         for name, value in res["features"]["shadow"].items():  # replicated: the twin's draw
             assert torch.equal(value, dp2[2]["shadow"][name]), name
 
+
+@pytest.mark.parametrize("mode", ["sync", "async"])
+def test_failed_checkpoint_write_raises_on_every_rank(dp2, mode):
+    ranks.check_write_fault(dp2[0], mode)
+
+
+@pytest.mark.parametrize("mode", ["sync", "async"])
+def test_write_agreement_leaves_a_clean_run_unchanged(dp2, mode):
+    ranks.check_clean_writes(dp2[0], mode)
