@@ -373,9 +373,11 @@ runs' and 55's as ``placement_launches`` and ``fleet_bf16_launches``).
     model's output before the final bf16 cast, and the served bf16 outputs
     at most one bf16 step apart);
 56. ``python -m stmgcn_tpu_torch.cli lint --format json
-    --include-suppressed`` in a subprocess, every pass (the whole-program
-    AST and concurrency passes over the package, then every config and
-    mesh pass over every preset): exit 0, no live finding, a program
+    --include-suppressed --device cuda`` in a subprocess, every pass (the
+    whole-program AST and concurrency passes over the package, then every
+    config and mesh pass over every preset, then the contract pass over
+    the step programs traced on the card's route, phase 70's): exit 0, no
+    live finding, a program
     database of more than zero modules and classes, printed with the
     findings by rule, the suppressed count and the lint's seconds; each
     mesh preset's per-rank footprint (``estimate_shard_footprint``) beside
@@ -532,6 +534,27 @@ Phase 69 runs last, after the region phases:
     (``spmd_exec``: the composed ``branchpar`` on six gloo ranks sharing
     the card, against its one-device twin), B1 in ``federation``'s
     serving.
+
+Phase 70 runs last, after the gate:
+
+70. the contract pass on the card. First ``torch.library.opcheck`` (its
+    schema, autograd-registration, fake-tensor and dynamic-shape tests) of
+    each kernel operator in each form at the main path's shapes: B1
+    (``stmgcn::fused_lstm_fwd``) and B2 (``stmgcn::fused_lstm_bwd``) in
+    fp32, bf16 and the xla form at the flagship's M=3, R=16,384, T=12,
+    L=3, H=64 (B1 with and without residuals); B3, B4 (shared and
+    per-branch signals) and B5 (``stmgcn::spmm_stack_fwd``,
+    ``spmm_stack_bwd``, ``spmm``) in fp32 and bf16 at the metro plan
+    (phase 11), B5 at its T_2 support. This holds each fake implementation
+    against the CUDA launch. Then the smoke preset's 13 step programs
+    traced on the CUDA route (``analysis/programs.py``, what the card
+    replays): each program's node count, its kernel nodes (B1 and B2, S of
+    each, in every training program; one B1 in each serving program and
+    ``eval_step``; no B3/B4/B5, the smoke city being dense) and its
+    tracing seconds; 0 unsuppressed findings of ``fp64-promotion``,
+    ``primitive-budget`` and the precision rules against the ``cuda``
+    entries of ``PRIMITIVE_BUDGETS`` and ``PRECISION_BASELINES``; and no
+    kernel launched while tracing (the counts equal before and after).
 
 Checkpoints go to a temporary directory that the run removes.
 
@@ -6253,9 +6276,10 @@ def fleet_bf16(device) -> dict:
 
 def lint_and_budgets() -> None:
     """Phase 56: ``python -m stmgcn_tpu_torch.cli lint --format json
-    --include-suppressed`` in a subprocess, every pass (the whole-program
-    AST and concurrency passes over the package, every config and mesh
-    pass over every preset): exit 0, no unsuppressed finding, a program
+    --include-suppressed --device cuda`` in a subprocess, every pass (the
+    whole-program AST and concurrency passes over the package, every config
+    and mesh pass over every preset, the contract pass over the step
+    programs traced on the card's route): exit 0, no unsuppressed finding, a program
     database of more than zero modules and classes; the findings by rule,
     the suppressed count and the lint's seconds; each multi-device
     preset's per-rank footprint (``estimate_shard_footprint``) beside
@@ -6279,8 +6303,8 @@ def lint_and_budgets() -> None:
 
     t0 = time.perf_counter()
     proc = subprocess.run([sys.executable, "-m", "stmgcn_tpu_torch.cli", "lint", "--format",
-                           "json", "--include-suppressed"], capture_output=True, text=True,
-                          timeout=300)
+                           "json", "--include-suppressed", "--device", "cuda"],
+                          capture_output=True, text=True, timeout=300)
     seconds = time.perf_counter() - t0
     if proc.returncode != 0:
         fail(f"lint exited {proc.returncode}: {proc.stdout[-2000:]} {proc.stderr[-2000:]}")
@@ -6293,7 +6317,8 @@ def lint_and_budgets() -> None:
     if live or report["errors"] or report["warnings"]:
         fail(f"lint: unsuppressed findings on the shipped tree: {live}")
     by_rule = collections.Counter(f["rule"] for f in report["findings"])
-    print(f"lint (every pass, the package and every preset): exit 0, {report['errors']} errors, "
+    print(f"lint (every pass, the package, every preset and the CUDA route's step programs): "
+          f"exit 0, {report['errors']} errors, "
           f"{report['warnings']} warnings; program database {db.group(1)} modules, "
           f"{db.group(2)} classes; suppressed findings by rule {dict(sorted(by_rule.items()))} "
           f"({sum(by_rule.values())} in all, none live); {seconds:.2f} s in the subprocess "
@@ -6849,6 +6874,102 @@ def gate_phase(card: str) -> dict:
     print(f"phase 69: the gate (--device cuda) PASS, one JSON line, exit 0, in {seconds:.1f} s "
           f"({rep['seconds']['gate']} s in the gate; {card})")
     return launches
+
+
+def opcheck_phase(device, metro: tuple) -> None:
+    """Phase 70, first half: ``torch.library.opcheck`` of each kernel
+    operator in each form at the main path's shapes (the module docstring),
+    raising on the first test that fails. ``metro``: the metro plan's
+    branch stack and its T_2 spatial support, on the host."""
+    import torch
+
+    S = importlib.import_module("stmgcn_tpu_torch.ops.spmm")
+    ops = torch.ops.stmgcn
+    t0 = time.perf_counter()
+    cases = []
+    M, R, T, L, H = 3, BATCH * GRID * GRID, SERIAL + 2, 3, 64
+    xp, wh, wx, b = lstm_inputs(M, R, T, L, H, device, seed=70)[3:]
+    for form, dtype in ((0, torch.float32), (1, torch.bfloat16), (2, torch.float32)):
+        fwd = tuple(t.to(dtype) for t in (xp, wh, wx, b))
+        out, h_fin, c_fin, hseq, cseq = ops.fused_lstm_fwd(*fwd, form, True)
+        g = torch.Generator(device=device).manual_seed(form)
+        cots = tuple(torch.randn(t.shape, generator=g, device=device).to(dtype) * 1e-2
+                     for t in (out, h_fin, c_fin))
+        name = ("fp32", "bf16", "xla")[form]
+        cases += [(f"B1 {name}", ops.fused_lstm_fwd.default, (*fwd, form, False)),
+                  (f"B1 {name} residuals", ops.fused_lstm_fwd.default, (*fwd, form, True)),
+                  (f"B2 {name}", ops.fused_lstm_bwd.default,
+                   (*fwd, hseq, cseq, *cots, form, form == 2))]
+    stack, bs = (m.to(device) for m in metro)
+    M, K, N, F = stack.branches, stack.n_supports, stack.n_cols, METRO_BATCH * H
+    g = torch.Generator(device=device).manual_seed(71)
+    for dtype in (torch.float32, torch.bfloat16):
+        st, b5 = stack.astype(dtype), bs.astype(dtype)
+        name = "fp32" if dtype == torch.float32 else "bf16"
+        for shared in (True, False):
+            x = torch.randn((N, F) if shared else (M, N, F), generator=g, device=device)
+            gy = torch.randn((M, K, st.n_rows, F), generator=g, device=device)
+            cases += [(f"B3 {name} {'shared' if shared else 'per-branch'}",
+                       ops.spmm_stack_fwd.default,
+                       (st.data, st.idx, st.nblk, st.row_order, x.to(dtype), st.n_rows,
+                        st.n_cols, st.tile)),
+                      (f"B4 {name} {'shared' if shared else 'per-branch'}",
+                       ops.spmm_stack_bwd.default,
+                       (st.data_t, st.idx_t, st.nblk_t, st.row_order_t, gy.to(dtype),
+                        st.n_rows, st.n_cols, st.tile, shared))]
+        x = torch.randn((N, F), generator=g, device=device).to(dtype)
+        cases += [(f"B5 {name}", ops.spmm.default,
+                   (b5.data, b5.idx, b5.nblk, b5.row_order, x, b5.n, b5.tile)),
+                  (f"B5 {name} transposed", ops.spmm.default,
+                   (b5.data_t, b5.idx_t, b5.nblk_t, b5.row_order_t, x, b5.n, b5.tile))]
+    for what, op, args in cases:
+        got = torch.library.opcheck(op, args)
+        torch.cuda.synchronize()
+        bad = {k: v for k, v in got.items() if v != "SUCCESS"}
+        if bad:
+            fail(f"phase 70: opcheck of {what}: {bad}")
+        print(f"phase 70 opcheck {what} ({op}): " + ", ".join(f"{k} {v}" for k, v in got.items()))
+    print(f"phase 70: opcheck passed for {len(cases)} operator forms in "
+          f"{time.perf_counter() - t0:.1f} s")
+
+
+def contract_phase(device, card: str) -> dict:
+    """Phase 70: the contract pass on the CUDA route (the module
+    docstring); returns each program's node and kernel-node counts."""
+    from stmgcn_tpu_torch.analysis import contract_pass
+    from stmgcn_tpu_torch.analysis.programs import PROGRAMS, kernel_nodes, traced_programs
+
+    before = read_counts()
+    t0 = time.perf_counter()
+    findings = contract_pass("cuda")
+    seconds = time.perf_counter() - t0
+    after = read_counts()
+    if after != before:
+        fail(f"phase 70: the trace launched kernels: {counts_text(before)} before, "
+             f"{counts_text(after)} after")
+    if findings:
+        fail("phase 70: the contract pass on the card found:\n"
+             + "\n".join(str(f) for f in findings[:20]))
+    programs = traced_programs("cuda")
+    if tuple(programs) != PROGRAMS:
+        fail(f"phase 70: traced {sorted(programs)}, registered {PROGRAMS}")
+    out = {}
+    for name, prog in programs.items():
+        nodes = sum(n.op == "call_function" for n in prog.graph.graph.nodes)
+        kernels = kernel_nodes(prog.graph)
+        train = name.startswith("train_")
+        want = ({"fused_lstm_bwd": prog.steps, "fused_lstm_fwd": prog.steps} if train
+                else {"fused_lstm_fwd": 1})
+        if kernels != want:
+            fail(f"phase 70: {name}'s kernel nodes {kernels}, expected {want}")
+        out[name] = {"nodes": nodes, "kernels": kernels, "steps": prog.steps,
+                     "seconds": round(prog.seconds, 2)}
+        print(f"phase 70 program {name}: S={prog.steps}, {nodes} nodes, kernel nodes "
+              f"{kernels}, traced in {prog.seconds:.2f} s")
+    print(f"phase 70: the contract pass on the CUDA route: {len(programs)} programs, 0 "
+          f"findings, 0 launches while tracing ({counts_text(after)} before and after), "
+          f"{seconds:.1f} s ({card})")
+    return out
 
 
 def mesh_job_bf16(args, out: str, device) -> dict:
@@ -8216,6 +8337,9 @@ def run_phases() -> int:
     placement_auto(device, ds, plan_dev)  # phase 54
     print(f"metro placement phases done at {time.perf_counter() - t_start:.1f} s")
     tiled = tiled_shards(plan, plan_dev, device)  # phase 66's shards and reference
+    # phase 70's operands on the host: the plan's branch stack, the T_2 support
+    metro_ops = (plan.as_stack(), importlib.import_module("stmgcn_tpu_torch.ops.spmm")
+                 .from_dense(dense[0, 2], tile=METRO_TILE))
     del ds, dense, dense_dev, plan, plan_dev, ktuples
     torch.cuda.empty_cache()
     tracing_phase(device)  # phase 45
@@ -8312,6 +8436,11 @@ def run_phases() -> int:
     # this slice's main path: the port's lint gate on the card (phase 69)
     gate_phase(card)
     print(f"gate phase done at {time.perf_counter() - t_start:.1f} s")
+    # this slice's main path: the kernel operators' opcheck and the
+    # contract pass over the traced step programs on the CUDA route (70)
+    opcheck_phase(device, metro_ops)
+    contract_phase(device, card)
+    print(f"contract phase done at {time.perf_counter() - t_start:.1f} s")
     print(f"all phases done at {time.perf_counter() - t_start:.1f} s")
 
     print(card)

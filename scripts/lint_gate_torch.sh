@@ -11,7 +11,7 @@
 # Each section's torch meaning (its fail conditions: the docstring and
 # gate_failures of stmgcn_tpu_torch/analysis/gate.py, the one description):
 #
-#   lint         python -m stmgcn_tpu_torch.cli lint --format json
+#   lint         python -m stmgcn_tpu_torch.cli lint --format json --device ...
 #   concurrency  the port's program database and check_concurrency
 #   ruff         ruff over the port's files, when the image has it
 #   obs/health   the JAX gate's traced smoke training with health records;
@@ -22,11 +22,12 @@
 #   spmd         the declared collective manifests of the presets
 #   spmd_exec    composed_trainer("branchpar") on six gloo ranks against its
 #                one-device twin; the program must be "series_superstep"
-#   precision    the presets' PrecisionPolicy
+#   precision    the smoke preset's 13 step programs traced on --device's
+#                route (programs, bf16 programs, dtype sites, findings)
 #
 # JAX keys with no counterpart of their own: both recompiles_after_warmup
-# (they count CUDA-graph recaptures), spmd.programs/collectives and the
-# precision counts (no lowered programs: declarations and policies).
+# (they count CUDA-graph recaptures) and spmd.programs/collectives (no
+# lowered programs: declarations).
 set -u -o pipefail
 
 cd "$(dirname "$0")/.."

@@ -25,11 +25,18 @@ or given ``(name, ExperimentConfig)`` pairs (:func:`run_passes`):
 - ``kernel-smem`` and ``kernel-shape`` (:mod:`.kernel_check`), the Hopper
   counterpart of the Pallas kernels' VMEM model.
 
+Then the contract pass over the smoke preset's 13 step programs, traced
+into aten graphs (:mod:`.programs`, the counterpart of the JAX jaxpr
+registry) and walked once each (:mod:`.dtype_flow`): ``fp64-promotion``
+and ``primitive-budget`` (:mod:`.program_check`), and the program half of
+``precision-policy`` with ``accum-dtype`` and ``implicit-cast``
+(:mod:`.precision_check`).
+
 ``python -m stmgcn_tpu_torch.cli lint`` runs them all (:mod:`.cli`). Each
 pass imports what it reads when it runs, so importing this package pulls
-in neither JAX nor the port's model stack. The JAX package's jaxpr, HLO
-and dtype-flow passes have no counterpart (the port traces no programs;
-:mod:`.lint` lists the rules left out, with the reason for each).
+in neither JAX nor the port's model stack. The JAX package's HLO passes
+have no counterpart (the port lowers no programs; :mod:`.lint` lists the
+rules left out, with the reason for each).
 """
 
 from stmgcn_tpu_torch.analysis.collective_check import (
@@ -95,6 +102,7 @@ __all__ = [
     "check_spmd_contracts",
     "check_tile_plan",
     "config_launches",
+    "contract_pass",
     "estimate_fleet_plan",
     "estimate_resident_bytes",
     "estimate_shard_footprint",
@@ -130,8 +138,27 @@ PASSES = (
 )
 
 
-def run_passes(configs=None) -> list:
+def contract_pass(route: str = "cpu", include_suppressed: bool = False) -> list:
+    """The contract pass's findings on ``route`` (``"cpu"``, or ``"cuda"``
+    on the card): the smoke preset's traced programs held to
+    ``fp64-promotion``, ``primitive-budget`` and the precision rules, with
+    the suppressions at their source lines applied."""
+    from stmgcn_tpu_torch.analysis.precision_check import check_precision
+    from stmgcn_tpu_torch.analysis.program_check import check_step_contracts
+
+    return (check_step_contracts(route, include_suppressed)
+            + check_precision(route, include_suppressed=include_suppressed))
+
+
+def run_passes(configs=None, *, contracts: bool = True, route: str = "cpu",
+               include_suppressed: bool = False) -> list:
     """Every config pass's findings over ``configs`` (``(name,
-    ExperimentConfig)`` pairs; default: every preset)."""
+    ExperimentConfig)`` pairs; default: every preset), then, unless
+    ``contracts`` is off, the contract pass on ``route``
+    (:func:`contract_pass`; the smoke preset's programs, whatever
+    ``configs`` holds, as the JAX contract pass traces its ``--preset``)."""
     configs = list(configs) if configs is not None else None
-    return [f for check in PASSES for f in check(configs)]
+    findings = [f for check in PASSES for f in check(configs)]
+    if contracts:
+        findings += contract_pass(route, include_suppressed)
+    return findings

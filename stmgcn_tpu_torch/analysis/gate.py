@@ -17,8 +17,10 @@ writes each section's seconds and the kernel launches its process counted
 
 The sections and what fails each (:func:`gate_failures`):
 
-- ``lint``: ``python -m stmgcn_tpu_torch.cli lint --format json``: exit,
-  errors, warnings, report version; fails on exit != 0 or errors != 0;
+- ``lint``: ``python -m stmgcn_tpu_torch.cli lint --format json --device
+  DEVICE`` (its contract pass traces the step programs on the gate's
+  route): exit, errors, warnings, report version; fails on exit != 0 or
+  errors != 0;
 - ``concurrency``: the program database of the port's package
   (``type_informed``) and :func:`check_concurrency`: classes, typed edges,
   findings; fails on findings != 0 or classes == 0 (an empty database);
@@ -47,8 +49,10 @@ The sections and what fails each (:func:`gate_failures`):
   SPMD_PROGRAM, a world other than SPMD_WORLD, a per-epoch loss gap above
   PARITY_RTOL (relative) or a recapture on a rank;
 - ``precision``: :func:`~stmgcn_tpu_torch.analysis.precision_check.
-  precision_summary`; fails on programs == 0, bf16_programs == 0 or
-  findings != 0.
+  precision_summary` on the gate's route, the JAX meaning: the traced step
+  programs the dtype walk covered, the ``_bf16`` twins among them, their
+  role-classified sites and the unsuppressed precision findings; fails on
+  programs == 0, bf16_programs == 0 or findings != 0.
 """
 
 from __future__ import annotations
@@ -289,7 +293,7 @@ def _spmd(device: str) -> dict:
 def _precision(device: str) -> dict:
     from stmgcn_tpu_torch.analysis.precision_check import precision_summary
 
-    return precision_summary()
+    return precision_summary(device)
 
 
 def _spmd_exec(device: str) -> dict:
@@ -428,7 +432,8 @@ def _text(out) -> str:
 def _section(name: str, device: str, env: dict) -> tuple:
     """One section's process: (exit, stdout, stderr, seconds); exit 124
     when it outlives SECTION_TIMEOUT."""
-    cmd = ([sys.executable, "-m", "stmgcn_tpu_torch.cli", "lint", "--format", "json"]
+    cmd = ([sys.executable, "-m", "stmgcn_tpu_torch.cli", "lint", "--format", "json",
+            "--device", device]
            if name == "lint" else
            [sys.executable, "-m", "stmgcn_tpu_torch.analysis.gate", "--section", name,
             "--device", device])

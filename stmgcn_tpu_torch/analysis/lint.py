@@ -59,10 +59,19 @@ The JAX lint's rules without a counterpart, none of them registered:
   replays into static buffers and has no trace cache;
 - ``partition-rank``: the port's ``MeshPlacement`` slices by array kind
   and has no ``PartitionSpec`` table to hold to operand ranks;
-- ``fp64-promotion``, ``weak-type-output``, ``primitive-budget``,
-  ``accum-dtype``, ``implicit-cast``, ``pallas-blockspec``,
-  ``pallas-vmem``: they walk traced jaxprs and Pallas calls, which the
+- ``weak-type-output``: PyTorch has no weak types; the recapture it guards
+  against (a program whose input types change between calls) is what
+  :mod:`~stmgcn_tpu_torch.obs.graphmon`'s ``recaptures_after_warmup``
+  counts;
+- ``pallas-blockspec``, ``pallas-vmem``: they read Pallas calls, which the
   port has not (its kernels' budgets are ``kernel-smem``/``kernel-shape``).
+
+The JAX contract pass's other rules (``fp64-promotion``,
+``primitive-budget``, ``accum-dtype``, ``implicit-cast`` and the program
+half of ``precision-policy``) walk the port's step programs traced into
+aten graphs (:mod:`.programs`, :mod:`.program_check`,
+:mod:`.precision_check`), and their findings take the suppressions below
+at the source line of the node they name.
 
 Suppression: ``# stmgcn: ignore[rule-id]`` (or bare ``# stmgcn: ignore``)
 on the finding's reported line; ``include_suppressed=True`` keeps them,

@@ -3,9 +3,11 @@ lint``).
 
 The config rules carry the JAX package's ids, severities and summaries
 (``stmgcn_tpu/analysis/rules.py``); ``tile-plan``'s summary names the CUDA
-kernels' tiles where the JAX one names the Pallas kernels' VMEM, and
-``precision-policy`` covers only the policy's own contract (the JAX
-dtype-flow pass has no counterpart). ``kernel-smem`` and ``kernel-shape``
+kernels' tiles where the JAX one names the Pallas kernels' VMEM. The
+contract pass's rules (``fp64-promotion``, ``primitive-budget``,
+``precision-policy``, ``accum-dtype``, ``implicit-cast``) keep the JAX ids
+and texts, worded for traced aten graphs where the JAX ones name jaxprs.
+``kernel-smem`` and ``kernel-shape``
 are the port's own: the hand-written kernels' launch budgets on sm_90
 (:mod:`~stmgcn_tpu_torch.analysis.kernel_check`), and so is
 ``unparseable-module``. The mesh, AST and concurrency rules keep the JAX
@@ -125,14 +127,83 @@ _ALL_RULES = [
         "or 128) — pure config math, detectable before any adjacency is "
         "built",
     ),
+    # -- the contract pass over the traced step programs (program_check,
+    # dtype_flow, precision_check; JAX ids) --------------------------------
+    Rule(
+        "fp64-promotion",
+        "error",
+        "a traced step program contains a cast to float64 or a float64 "
+        "value — a silent 2x memory/bandwidth promotion (the H100's float64 "
+        "rate is a fraction of its float32 one, and no kernel here takes it)",
+    ),
+    Rule(
+        "primitive-budget",
+        "error",
+        "a traced step program's node count exceeds the recorded budget of "
+        "its route — a fusion or op-count regression (rebaseline "
+        "deliberately if intended)",
+    ),
     Rule(
         "precision-policy",
         "error",
-        "the preset's PrecisionPolicy is self-contradictory (a master dtype"
-        " narrower than float32, an accumulation role allowed a sub-f32 "
-        "dtype, unknown roles or dtypes, a whitelisted cast to itself or to"
-        " float64) — PrecisionPolicy.violations() config math; the JAX "
-        "dtype-flow half over traced programs has no counterpart here",
+        "a dtype site's compute dtype is outside its role's PrecisionPolicy "
+        "allowance, the policy itself is self-contradictory, a registered "
+        "contract program escaped the dtype-flow walk, or the measured "
+        "dtype census drifted from PRECISION_BASELINES (rebaseline "
+        "deliberately with the feature that moved it)",
+        description=(
+            "The dtype-flow pass walks the traced aten graph of every "
+            "registered contract program, classifies each node into the "
+            "precision role taxonomy (dot-general operand/accumulator, "
+            "accumulating reduction, order statistic, normalization stat, "
+            "cast, and each kernel operator's documented contract), and "
+            "checks each site's dtype against the declarative "
+            "PrecisionPolicy in config.py. This rule fires when a site's "
+            "dtype falls outside its role's allowance, when "
+            "PrecisionPolicy.violations() reports the policy "
+            "self-contradictory (for every preset too), when a program in "
+            "the contract registry was not walked (a coverage hole is a "
+            "finding, not silence), when a master-state or loss leaf at a "
+            "program's edge is off its declared dtype, or when the "
+            "per-program dtype census (float dtype set, cast count) drifts "
+            "from the PRECISION_BASELINES literal — a precision migration "
+            "lands as a deliberate `lint --rebaseline`, never as silent "
+            "drift. Each finding names the node, role, provenance chain, "
+            "and the policy knob that bans it."
+        ),
+    ),
+    Rule(
+        "accum-dtype",
+        "error",
+        "a reduction accumulator — sum-family output or dot-general "
+        "accumulator — has a floating dtype narrower than float32 (the "
+        "classic bf16 accumulation hazard: low-order bits lost on every add)",
+        description=(
+            "Accumulation sites sum many addends, so precision loss "
+            "compounds. For every role in PrecisionPolicy.reduction_f32_roles "
+            "(by default reduce_sum, scan_carry, psum, dot_general_accum; the "
+            "port's programs have no scan carry and, on one device, no psum) "
+            "this rule fires on any floating dtype with itemsize < 4 bytes, "
+            "naming the exact node, its source line, and the full dtype "
+            "provenance chain back to the program input, constant, or cast "
+            "site that introduced the narrow dtype. bf16 *compute* with f32 "
+            "accumulation passes; bf16 accumulation never does."
+        ),
+    ),
+    Rule(
+        "implicit-cast",
+        "error",
+        "a float->float dtype-changing cast the PrecisionPolicy.cast_whitelist "
+        "did not declare — a silent up- or downcast the migration plan never "
+        "audited",
+        description=(
+            "Every dtype-changing float cast in a traced program must appear "
+            "in PrecisionPolicy.cast_whitelist as a (src, dst) pair (by "
+            "default exactly the f32<->bf16 boundary). Casts to float64 are "
+            "excluded here — the fp64-promotion rule owns those "
+            "unconditionally. Each finding names the node, the src->dst "
+            "pair, and the provenance chain of the value being cast."
+        ),
     ),
     # -- the CUDA kernels' launch budgets (kernel_check) -------------------
     Rule(
@@ -202,8 +273,9 @@ _ALL_RULES += [
         "boundary-rows bound in one call, or its dp all-reduce traffic "
         "exceeds the gradient-sync model (2 x param_bytes + slack) — a "
         "communication regression. The JAX rule's rebaselined "
-        "per-program ceilings (WIRE_BUDGETS, --rebaseline) have no "
-        "counterpart: the port has no compiled programs to re-measure",
+        "per-program ceilings (WIRE_BUDGETS, which its --rebaseline "
+        "re-measures from compiled programs) have no counterpart: the "
+        "port lowers no programs, so it holds executed steps to a model",
     ),
     # -- the AST lint (lint; JAX ids, worded for CUDA-graph capture) -------
     Rule(

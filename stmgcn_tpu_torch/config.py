@@ -750,8 +750,10 @@ class PrecisionPolicy:
     the policy half of the ``precision-policy`` lint rule. The defaults:
     bf16 allowed at matmul operands and order statistics, float32 at every
     accumulation site, float32 master parameters, and only the
-    float32 <-> bf16 boundary casts whitelisted. (The JAX dtype-flow pass
-    that judges traced programs against it has no counterpart here.)"""
+    float32 <-> bf16 boundary casts whitelisted. The contract pass judges
+    the smoke preset's traced step programs against it
+    (``analysis/dtype_flow.py``, ``analysis/precision_check.py``), as the
+    JAX dtype-flow pass judges its jaxprs."""
 
     #: role -> allowed compute dtype names at sites of that role
     role_dtypes: dict = dataclasses.field(default_factory=lambda: {

@@ -90,9 +90,14 @@ class ContextualGate(nn.Module):
             keep = torch.arange(n_nodes, device=x_hat.device) < nr
             real = torch.where(keep[..., None], x_hat, torch.zeros((), dtype=x_hat.dtype,
                                                                    device=x_hat.device))
+            # float64 sums at float32 compute, on purpose (:meth:`_pool_dtype`): the
+            # contract pass's fp64-promotion and implicit-cast findings on them are
+            # suppressed here and on the cast back below
             acc = self._pool_dtype()
-            masked = real.sum(dim=-2, dtype=acc) / nr.to(acc)
-            z = torch.where(nr == n_nodes, x_hat.mean(dim=-2, dtype=acc), masked)
+            total = real.sum(dim=-2, dtype=acc)  # stmgcn: ignore[fp64-promotion, implicit-cast]
+            masked = total / nr.to(acc)  # stmgcn: ignore[fp64-promotion, implicit-cast]
+            mean = x_hat.mean(dim=-2, dtype=acc)  # stmgcn: ignore[fp64-promotion, implicit-cast]
+            z = torch.where(nr == n_nodes, mean, masked)  # stmgcn: ignore[fp64-promotion]
         elif self.n_real_nodes is not None and self.n_real_nodes != n_nodes:
             # eq. 7 over real nodes only
             mask = (torch.arange(n_nodes, device=x_hat.device) < self.n_real_nodes)
@@ -101,9 +106,10 @@ class ContextualGate(nn.Module):
         else:
             # eq. 7: average pool over nodes -> (B, T); at float32 summed in
             # float64 (:meth:`_pool_dtype`), so a node-sharded mesh's pooled sum rounds
-            # to the same float32 as this one
-            z = x_hat.mean(dim=-2, dtype=self._pool_dtype())
-        z = z.to(x_hat.dtype)
+            # to the same float32 as this one (the contract pass's findings suppressed)
+            acc = self._pool_dtype()
+            z = x_hat.mean(dim=-2, dtype=acc)  # stmgcn: ignore[fp64-promotion, implicit-cast]
+        z = z.to(x_hat.dtype)  # stmgcn: ignore[fp64-promotion, implicit-cast] float64 -> compute
         second = self.gate_fc if self.gate_fc2 is None else self.gate_fc2
         s = torch.sigmoid(second(torch.relu(self.gate_fc(z))))  # eq. 8
         return obs_seq * s[..., None, None]  # eq. 9

@@ -33,8 +33,12 @@ tensors launch the kernel (or raise — no fallback), CPU tensors take
 survives ``torch.export``: an exported program keeps it as one node and
 picks the implementation where it runs (``stmgcn_tpu_torch/export.py``),
 and the launch count lives in the CUDA implementation, which the program
-calls. :func:`fused_lstm_bwd` and :func:`fused_lstm_bwd_reference` are the
-backward's pair.
+calls. :func:`fused_lstm_bwd` launches the backward the same way, through
+``torch.ops.stmgcn.fused_lstm_bwd``, with :func:`fused_lstm_bwd_reference`
+as its CPU implementation. Each operator also has a fake implementation
+(its outputs' shapes and dtypes), so a program that calls it traces with
+``make_fx(..., tracing_mode="fake")`` into one node per launch, on either
+device, without running it (``analysis/programs.py``).
 
 **Storage dtypes.** Every operand is float32 or every one bfloat16 (the
 storage dtype of ``x_proj0`` and the weights, as the JAX kernel follows
@@ -609,44 +613,48 @@ def _xla_step_grads(dgates, hin, wh0, wxh, layer, H, round_wx_steps, carry, dh, 
         db[layer - 1] = db[layer - 1] + d_b
 
 
-def fused_lstm_bwd(x_proj0, wh_stack, wx_stack, b_stack, hseq, cseq,
-                   g_out=None, g_hfin=None, g_cfin=None, *, products=None,
-                   round_wx_steps=False):
-    """Backward of :func:`fused_lstm`: the reverse sweep over its saved
-    per-step states.
+#: B2 as one PyTorch operator, ``torch.ops.stmgcn.fused_lstm_bwd``: the
+#: forward's operands, its residuals and cotangents, the form code and
+#: ``round_wx_steps``; returns ``(dxp, dwh0, dwxh, db)``
+_LIBRARY.define(
+    "fused_lstm_bwd(Tensor x_proj0, Tensor wh_stack, Tensor wx_stack, Tensor b_stack, "
+    "Tensor hseq, Tensor cseq, Tensor g_out, Tensor g_hfin, Tensor g_cfin, int form, "
+    "bool round_wx_steps) -> (Tensor, Tensor, Tensor, Tensor)")
 
-    Args: the forward's four operands; its residuals ``hseq``/``cseq``
-    ``([M,] T, L, R, H)``; the cotangents of its three outputs, ``g_out``
-    ``([M,] R, T, H)`` and ``g_hfin``/``g_cfin`` ``([M,] L, R, H)``, each
-    of which may be ``None`` (zeros).
 
-    Returns the packed gradients of ``_fused_bwd``'s kernel: ``dxp ([M,]
-    R, T, 4H)`` in the storage dtype, and in float32 ``dwh0 ([M,] H,
-    4H)``, ``dwxh ([M,] max(L-1, 1), 2H, 4H)`` and ``db ([M,] max(L-1, 1),
-    4H)`` (the last two zeros when L == 1); :func:`unpack_weight_grads`
-    turns them into per-stack gradients. The cotangents are read in the
-    storage dtype (cast as ``_fused_bwd`` casts them). ``products`` as
-    :func:`fused_lstm`'s; ``round_wx_steps`` (xla form) rounds each step's
-    input-weight partial to bf16, as the JAX fused scan does.
+def _bwd_cpu(x_proj0, wh_stack, wx_stack, b_stack, hseq, cseq, g_out, g_hfin, g_cfin, form,
+             round_wx_steps):
+    """The operator's CPU implementation: the plain version
+    (:func:`fused_lstm_bwd_reference`)."""
+    return fused_lstm_bwd_reference(x_proj0, wh_stack, wx_stack, b_stack, hseq, cseq, g_out,
+                                    g_hfin, g_cfin,
+                                    products=torch.bfloat16 if form == 2 else None,
+                                    round_wx_steps=round_wx_steps)
 
-    On CPU tensors this is :func:`fused_lstm_bwd_reference`. On CUDA
-    tensors it launches ``csrc/fused_lstm_bwd.cu`` on the current stream,
-    with the scratch it needs, and raises on what the kernel does not take
-    (the forward's rules). The result is deterministic: no atomics, a
-    fixed summation order.
-    """
-    L = wh_stack.shape[-3]
-    sd = _storage("fused_lstm_bwd", (x_proj0, wh_stack, wx_stack, b_stack, hseq, cseq),
-                  products)
-    g_out, g_hfin, g_cfin = _cotangents(x_proj0, L, g_out, g_hfin, g_cfin)
+
+def _bwd_fake(x_proj0, wh_stack, wx_stack, b_stack, hseq, cseq, g_out, g_hfin, g_cfin, form,
+              round_wx_steps):
+    """The outputs' shapes and dtypes, for tracing: ``dxp`` in the storage
+    dtype, the packed weight gradients in float32."""
+    lead, four_h = tuple(wh_stack.shape[:-3]), wh_stack.shape[-1]
+    H, slabs = four_h // 4, wx_stack.shape[-3]
+    f32 = torch.float32
+    return (torch.empty_like(x_proj0), x_proj0.new_empty(lead + (H, four_h), dtype=f32),
+            x_proj0.new_empty(lead + (slabs, 2 * H, four_h), dtype=f32),
+            x_proj0.new_empty(tuple(b_stack.shape), dtype=f32))
+
+
+def _bwd_cuda(x_proj0, wh_stack, wx_stack, b_stack, hseq, cseq, g_out, g_hfin, g_cfin, form,
+              round_wx_steps):
+    """The CUDA implementation: one launch of ``csrc/fused_lstm_bwd.cu`` in
+    ``form`` on the current stream, with the scratch it needs, counted in
+    ``fused_lstm_bwd.launches`` (and ``launches_xla``); raises on anything
+    the kernel does not take. There is no fallback to the plain version."""
     operands = (x_proj0, wh_stack, wx_stack, b_stack, hseq, cseq, g_out, g_hfin, g_cfin)
-    form = _form(sd, products)
     carry = form == 2 and wh_stack.dtype == torch.bfloat16
-    kernel_ops, cuda = _kernel_operands("fused_lstm_bwd", operands, form)
+    operands, cuda = _kernel_operands("fused_lstm_bwd", operands, form)
     if not cuda:
-        return fused_lstm_bwd_reference(*operands, products=products,
-                                        round_wx_steps=round_wx_steps)
-    operands = kernel_ops
+        raise ValueError("fused_lstm_bwd: operands must all be on one CUDA device")
     lead, M, R, T, L, H = _kernel_shapes("fused_lstm_bwd", operands)
     want = {"hseq": lead + (T, L, R, H), "cseq": lead + (T, L, R, H),
             "g_out": lead + (R, T, H), "g_hfin": lead + (L, R, H), "g_cfin": lead + (L, R, H)}
@@ -670,7 +678,7 @@ def fused_lstm_bwd(x_proj0, wh_stack, wx_stack, b_stack, hseq, cseq,
         stream = torch.cuda.current_stream(device).cuda_stream
         err = fn(
             *(t.data_ptr() for t in (x_proj0, wh0, wxh, b_stack, hseq, cseq,
-                                     g_out, g_hfin, g_cfin, dxp, dwh0, dwxh, db, work)),
+                                     *operands[6:], dxp, dwh0, dwxh, db, work)),
             M, R, T, L, H, form, int(bool(round_wx_steps)) | (2 * int(carry)), stream,
         )
     if err != 0:
@@ -679,6 +687,47 @@ def fused_lstm_bwd(x_proj0, wh_stack, wx_stack, b_stack, hseq, cseq,
     if form == 2:
         counters.bump(fused_lstm_bwd, "launches_xla")
     return dxp, dwh0, dwxh, db
+
+
+_LIBRARY.impl("fused_lstm_bwd", _bwd_cpu, "CPU")
+_LIBRARY.impl("fused_lstm_bwd", _bwd_cuda, "CUDA")
+torch.library.register_fake("stmgcn::fused_lstm_bwd", _bwd_fake, lib=_LIBRARY)
+
+
+def fused_lstm_bwd(x_proj0, wh_stack, wx_stack, b_stack, hseq, cseq,
+                   g_out=None, g_hfin=None, g_cfin=None, *, products=None,
+                   round_wx_steps=False):
+    """Backward of :func:`fused_lstm`: the reverse sweep over its saved
+    per-step states.
+
+    Args: the forward's four operands; its residuals ``hseq``/``cseq``
+    ``([M,] T, L, R, H)``; the cotangents of its three outputs, ``g_out``
+    ``([M,] R, T, H)`` and ``g_hfin``/``g_cfin`` ``([M,] L, R, H)``, each
+    of which may be ``None`` (zeros).
+
+    Returns the packed gradients of ``_fused_bwd``'s kernel: ``dxp ([M,]
+    R, T, 4H)`` in the storage dtype, and in float32 ``dwh0 ([M,] H,
+    4H)``, ``dwxh ([M,] max(L-1, 1), 2H, 4H)`` and ``db ([M,] max(L-1, 1),
+    4H)`` (the last two zeros when L == 1); :func:`unpack_weight_grads`
+    turns them into per-stack gradients. The cotangents are read in the
+    storage dtype (cast as ``_fused_bwd`` casts them). ``products`` as
+    :func:`fused_lstm`'s; ``round_wx_steps`` (xla form) rounds each step's
+    input-weight partial to bf16, as the JAX fused scan does.
+
+    The launch is the operator ``torch.ops.stmgcn.fused_lstm_bwd``: on CPU
+    tensors it runs :func:`fused_lstm_bwd_reference`; on CUDA tensors it
+    launches ``csrc/fused_lstm_bwd.cu`` on the current stream, with the
+    scratch it needs, and raises on what the kernel does not take (the
+    forward's rules). The result is deterministic: no atomics, a fixed
+    summation order.
+    """
+    L = wh_stack.shape[-3]
+    sd = _storage("fused_lstm_bwd", (x_proj0, wh_stack, wx_stack, b_stack, hseq, cseq),
+                  products)
+    g_out, g_hfin, g_cfin = _cotangents(x_proj0, L, g_out, g_hfin, g_cfin)
+    operands = (x_proj0, wh_stack, wx_stack, b_stack, hseq, cseq, g_out, g_hfin, g_cfin)
+    _check_devices("fused_lstm_bwd", operands)
+    return torch.ops.stmgcn.fused_lstm_bwd(*operands, _form(sd, products), bool(round_wx_steps))
 
 
 #: kernel launches since the last reset (set to 0 to start a count), and

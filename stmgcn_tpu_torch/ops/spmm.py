@@ -27,15 +27,19 @@ Three kernels in ``csrc/spmm_stack.cu`` carry the products:
 - **B5** (:func:`spmm`): one support's ``A @ x``, whose backward is the
   same kernel on the transposed structure.
 
-Each wrapper dispatches on where its tensors live: CUDA tensors launch the
-kernel (or raise — no fallback), CPU tensors take the plain version
+Each wrapper calls one PyTorch operator (``torch.ops.stmgcn.spmm_stack_fwd``,
+``spmm_stack_bwd``, ``spmm``, registered here beside B1's and B2's), whose
+implementation the dispatcher picks by where the tensors live: CUDA
+tensors launch the kernel (or raise — no fallback), CPU tensors take the
+plain version
 (:func:`spmm_stack_reference`, :func:`spmm_stack_bwd_reference`,
 :func:`spmm_reference`: a gather of the signal's row blocks by the index
 lists and one batched tile contraction over every stored slot, padding
 included). Each launch adds one to its wrapper's ``launches`` count (and
 B3's to ``launches_shared`` when its signal is shared). Gradients flow to
 ``x`` only: the supports are offline constants and get no gradient, as in
-the JAX package.
+the JAX package. A trace takes each operator's fake implementation (its
+output's shape and dtype), one node a launch (``analysis/programs.py``).
 
 **bf16.** The structures keep their float32 blocks; a bf16 compute path
 takes :meth:`BlockSparseStack.astype` (made once per dtype and kept), as
@@ -353,23 +357,44 @@ def _check_dtypes(name, data, src, *, cotangent: bool) -> None:
                     "bfloat16)")
 
 
-def _lead(bss):
-    return tuple(bss.idx.shape[:-2])  # ([M,] K)
+def _stack_plain(data, idx, x, n_rows: int) -> torch.Tensor:
+    """B3's plain version over the structure's tensors: ``data`` ``([M,] K,
+    R, C, t, t)``, ``idx`` ``([M,] K, R, C)``."""
+    lead = tuple(idx.shape[:-2])
+    L, K = math.prod(lead), lead[-1]
+    data = data.reshape((L,) + tuple(data.shape[-4:]))
+    idx = idx.reshape((L,) + tuple(idx.shape[-2:]))
+    arange = torch.arange(L, device=x.device)
+    src, src_of = (x[None], arange * 0) if x.dim() == 2 else (x, arange // K)
+    out = _block_apply(data, idx, src, src_of, n_rows)
+    return out.reshape(lead + out.shape[1:])
+
+
+def _stack_bwd_plain(data_t, idx_t, g, n_cols: int, shared: bool) -> torch.Tensor:
+    """B4's plain version over the transposed structure's tensors."""
+    lead = tuple(idx_t.shape[:-2])
+    L = math.prod(lead)
+    data_t = data_t.reshape((L,) + tuple(data_t.shape[-4:]))
+    idx_t = idx_t.reshape((L,) + tuple(idx_t.shape[-2:]))
+    src = g.reshape((L,) + tuple(g.shape[-2:]))
+    dx = _block_apply(data_t, idx_t, src, torch.arange(L, device=g.device), n_cols)
+    if shared or len(lead) == 1:
+        return dx.sum(dim=0)
+    return dx.reshape(lead + dx.shape[1:]).sum(dim=1)
+
+
+def _spmm_plain(data, idx, x, n: int) -> torch.Tensor:
+    """B5's plain version over one structure's (or its transpose's) tensors."""
+    return _block_apply(data[None], idx[None], x[None],
+                        torch.zeros(1, dtype=torch.long, device=x.device), n)[0]
 
 
 def spmm_stack_reference(bss: BlockSparseStack, x: torch.Tensor) -> torch.Tensor:
     """Plain version of B3: the gathered-tiles forward. ``x`` ``(N_c, F)``
     (shared by every support and branch) or ``(M, N_c, F)`` (per branch);
     returns ``([M,] K, n_rows, F)``."""
-    lead = _lead(bss)
-    L, K = math.prod(lead), bss.n_supports
     _check_dtypes("spmm_stack", bss.data, x, cotangent=False)
-    data = bss.data.reshape((L,) + tuple(bss.data.shape[-4:]))
-    idx = bss.idx.reshape((L,) + tuple(bss.idx.shape[-2:]))
-    arange = torch.arange(L, device=x.device)
-    src, src_of = (x[None], arange * 0) if x.dim() == 2 else (x, arange // K)
-    out = _block_apply(data, idx, src, src_of, bss.n_rows)
-    return out.reshape(lead + out.shape[1:])
+    return _stack_plain(bss.data, bss.idx, x, bss.n_rows)
 
 
 def spmm_stack_bwd_reference(bss: BlockSparseStack, g: torch.Tensor, *,
@@ -378,16 +403,8 @@ def spmm_stack_bwd_reference(bss: BlockSparseStack, g: torch.Tensor, *,
     g_k`` over the pre-transposed blocks (no scatter), summed over the
     branches too when ``x`` was ``shared``. ``g`` ``([M,] K, n_rows, F)``;
     returns ``(N_c, F)``, or ``(M, N_c, F)`` for a per-branch ``x``."""
-    lead = _lead(bss)
-    L = math.prod(lead)
     _check_dtypes("spmm_stack_bwd", bss.data_t, g, cotangent=True)
-    data_t = bss.data_t.reshape((L,) + tuple(bss.data_t.shape[-4:]))
-    idx_t = bss.idx_t.reshape((L,) + tuple(bss.idx_t.shape[-2:]))
-    src = g.reshape((L,) + tuple(g.shape[-2:]))
-    dx = _block_apply(data_t, idx_t, src, torch.arange(L, device=g.device), bss.n_cols)
-    if shared or len(lead) == 1:
-        return dx.sum(dim=0)
-    return dx.reshape(lead + dx.shape[1:]).sum(dim=1)
+    return _stack_bwd_plain(bss.data_t, bss.idx_t, g, bss.n_cols, shared)
 
 
 def spmm_reference(bs: BlockSparse, x: torch.Tensor, *, transpose: bool = False) -> torch.Tensor:
@@ -395,8 +412,7 @@ def spmm_reference(bs: BlockSparse, x: torch.Tensor, *, transpose: bool = False)
     ``x`` ``(N, F)``."""
     data, idx = (bs.data_t, bs.idx_t) if transpose else (bs.data, bs.idx)
     _check_dtypes("spmm", data, x, cotangent=transpose)
-    return _block_apply(data[None], idx[None], x[None],
-                        torch.zeros(1, dtype=torch.long, device=x.device), bs.n)[0]
+    return _spmm_plain(data, idx, x, bs.n)
 
 
 def spmm_dense_reference(mat, x) -> torch.Tensor:
@@ -487,62 +503,139 @@ def _launch(name, role, data, idx, nblk, order, src, out, *, S, tile, n_src_rows
         raise RuntimeError(f"{name}: kernel launch failed with cudaError {err}")
 
 
-def stack_forward(bss: BlockSparseStack, x: torch.Tensor) -> torch.Tensor:
-    """B3, or its plain version for CPU tensors: ``([M,] K, n_rows, F)``
-    float32 from a shared ``(N_c, F)`` or per-branch ``(M, N_c, F)`` ``x``,
-    in float32 or (blocks and signal) bfloat16."""
-    _check_dtypes("spmm_stack", bss.data, x, cotangent=False)
-    if not on_cuda("spmm_stack", (bss.data, x), (bss.idx, bss.nblk, bss.row_order)):
-        return spmm_stack_reference(bss, x)
-    lead, K = _lead(bss), bss.n_supports
-    out = torch.empty(lead + (bss.n_rows, x.shape[-1]), device=x.device, dtype=torch.float32)
-    _launch("spmm_stack", 0, bss.data, bss.idx, bss.nblk, bss.row_order, x, out, S=1,
-            tile=bss.tile,
-            n_src_rows=bss.n_cols, src_div=K,
-            src_stride=0 if x.dim() == 2 else bss.n_cols * x.shape[-1])
+#: B3, B4 and B5 as PyTorch operators (``torch.ops.stmgcn.spmm_stack_fwd``,
+#: ``spmm_stack_bwd``, ``spmm``) beside B1 and B2 (``ops/fused_lstm.py``):
+#: the structure's tensors, the signal (or cotangent) and the structure's
+#: sizes. The dispatcher takes the CPU implementation (the plain version)
+#: for CPU tensors and the CUDA one (the launch) for CUDA tensors, and a
+#: trace takes the fake one (the output's shape and dtype): one node a
+#: launch, nothing run (``analysis/programs.py``)
+_LIBRARY = torch.library.Library("stmgcn", "FRAGMENT")
+_LIBRARY.define("spmm_stack_fwd(Tensor data, Tensor idx, Tensor nblk, Tensor order, Tensor x, "
+                "int n_rows, int n_cols, int tile) -> Tensor")
+_LIBRARY.define("spmm_stack_bwd(Tensor data_t, Tensor idx_t, Tensor nblk_t, Tensor order_t, "
+                "Tensor g, int n_rows, int n_cols, int tile, bool shared) -> Tensor")
+_LIBRARY.define("spmm(Tensor data, Tensor idx, Tensor nblk, Tensor order, Tensor x, int n, "
+                "int tile) -> Tensor")
+
+
+def _stack_fwd_cpu(data, idx, nblk, order, x, n_rows, n_cols, tile):
+    return _stack_plain(data, idx, x, n_rows).contiguous()  # the launch's layout
+
+
+def _stack_fwd_fake(data, idx, nblk, order, x, n_rows, n_cols, tile):
+    return x.new_empty(tuple(idx.shape[:-2]) + (n_rows, x.shape[-1]), dtype=torch.float32)
+
+
+def _stack_fwd_cuda(data, idx, nblk, order, x, n_rows, n_cols, tile):
+    """B3's launch, counted in ``spmm_stack.launches`` (and
+    ``launches_shared`` for a shared signal); no fallback."""
+    if not on_cuda("spmm_stack", (data, x), (idx, nblk, order)):
+        raise ValueError("spmm_stack: operands must all be on one CUDA device")
+    lead = tuple(idx.shape[:-2])
+    out = torch.empty(lead + (n_rows, x.shape[-1]), device=x.device, dtype=torch.float32)
+    _launch("spmm_stack", 0, data, idx, nblk, order, x, out, S=1, tile=tile,
+            n_src_rows=n_cols, src_div=lead[-1],
+            src_stride=0 if x.dim() == 2 else n_cols * x.shape[-1])
     counters.bump(spmm_stack)
     if x.dim() == 2:
         counters.bump(spmm_stack, "launches_shared")
     return out
 
 
-def spmm_stack_bwd(bss: BlockSparseStack, g: torch.Tensor, *, shared: bool) -> torch.Tensor:
-    """B4: ``dx = sum_k A_k^T @ g_k`` from :func:`spmm_stack`'s cotangent
-    ``g`` ``([M,] K, n_rows, F)`` — ``(N_c, F)`` when ``x`` was ``shared``
-    by the branches (or the stack has none), else ``(M, N_c, F)``. CPU
-    tensors take :func:`spmm_stack_bwd_reference`. Each CTA sums one
-    support's block row over its real slots into a partial, and the
-    partials are added over k (and branches) in order, so the result is
-    bitwise repeatable."""
-    _check_dtypes("spmm_stack_bwd", bss.data_t, g, cotangent=True)
-    if not on_cuda("spmm_stack_bwd", (bss.data_t, g),
-                   (bss.idx_t, bss.nblk_t, bss.row_order_t)):
-        return spmm_stack_bwd_reference(bss, g, shared=shared)
-    lead = _lead(bss)
-    L = math.prod(lead)
+def _stack_bwd_cpu(data_t, idx_t, nblk_t, order_t, g, n_rows, n_cols, tile, shared):
+    return _stack_bwd_plain(data_t, idx_t, g, n_cols, shared).contiguous()
+
+
+def _stack_bwd_shape(idx_t, g, n_cols, shared) -> tuple:
+    """B4's output shape and its output groups ``O`` (branches kept apart)."""
+    lead = tuple(idx_t.shape[:-2])
     per_branch = len(lead) == 2 and not shared
-    O = lead[0] if per_branch else 1
-    shape = ((O,) if per_branch else ()) + (bss.n_cols, g.shape[-1])
+    return ((lead[0],) if per_branch else ()) + (n_cols, g.shape[-1]), (
+        lead[0] if per_branch else 1)
+
+
+def _stack_bwd_fake(data_t, idx_t, nblk_t, order_t, g, n_rows, n_cols, tile, shared):
+    return g.new_empty(_stack_bwd_shape(idx_t, g, n_cols, shared)[0], dtype=torch.float32)
+
+
+def _stack_bwd_cuda(data_t, idx_t, nblk_t, order_t, g, n_rows, n_cols, tile, shared):
+    """B4's launch, its partials summed over k (and branches) in order by
+    the library's ``reduce_parts``, counted in ``spmm_stack_bwd.launches``;
+    no fallback."""
+    if not on_cuda("spmm_stack_bwd", (data_t, g), (idx_t, nblk_t, order_t)):
+        raise ValueError("spmm_stack_bwd: operands must all be on one CUDA device")
+    shape, O = _stack_bwd_shape(idx_t, g, n_cols, shared)
+    L = math.prod(idx_t.shape[:-2])
     dx = torch.empty(shape, device=g.device, dtype=torch.float32)
-    _launch("spmm_stack_bwd", 1, bss.data_t, bss.idx_t, bss.nblk_t, bss.row_order_t, g, dx,
-            S=L // O,
-            tile=bss.tile, n_src_rows=bss.n_rows, src_stride=bss.n_rows * g.shape[-1])
+    _launch("spmm_stack_bwd", 1, data_t, idx_t, nblk_t, order_t, g, dx, S=L // O,
+            tile=tile, n_src_rows=n_rows, src_stride=n_rows * g.shape[-1])
     counters.bump(spmm_stack_bwd)
     return dx
 
 
+def _spmm_cpu(data, idx, nblk, order, x, n, tile):
+    return _spmm_plain(data, idx, x, n).contiguous()
+
+
+def _spmm_fake(data, idx, nblk, order, x, n, tile):
+    return x.new_empty((n, x.shape[-1]), dtype=torch.float32)
+
+
+def _spmm_cuda(data, idx, nblk, order, x, n, tile):
+    """B5's launch, counted in ``spmm.launches``; no fallback."""
+    if not on_cuda("spmm", (data, x), (idx, nblk, order)):
+        raise ValueError("spmm: operands must all be on one CUDA device")
+    out = torch.empty((n, x.shape[-1]), device=x.device, dtype=torch.float32)
+    _launch("spmm", 2, data, idx, nblk, order, x, out, S=1, tile=tile, n_src_rows=n)
+    counters.bump(spmm)
+    return out
+
+
+for _name, _cpu, _cuda, _fake in (
+        ("spmm_stack_fwd", _stack_fwd_cpu, _stack_fwd_cuda, _stack_fwd_fake),
+        ("spmm_stack_bwd", _stack_bwd_cpu, _stack_bwd_cuda, _stack_bwd_fake),
+        ("spmm", _spmm_cpu, _spmm_cuda, _spmm_fake)):
+    _LIBRARY.impl(_name, _cpu, "CPU")
+    _LIBRARY.impl(_name, _cuda, "CUDA")
+    torch.library.register_fake(f"stmgcn::{_name}", _fake, lib=_LIBRARY)
+
+
+def stack_forward(bss: BlockSparseStack, x: torch.Tensor) -> torch.Tensor:
+    """B3, or its plain version for CPU tensors: ``([M,] K, n_rows, F)``
+    float32 from a shared ``(N_c, F)`` or per-branch ``(M, N_c, F)`` ``x``,
+    in float32 or (blocks and signal) bfloat16; the operator
+    ``torch.ops.stmgcn.spmm_stack_fwd``."""
+    _check_dtypes("spmm_stack", bss.data, x, cotangent=False)
+    on_cuda("spmm_stack", (bss.data, x), (bss.idx, bss.nblk, bss.row_order))
+    return torch.ops.stmgcn.spmm_stack_fwd(bss.data, bss.idx, bss.nblk, bss.row_order, x,
+                                           bss.n_rows, bss.n_cols, bss.tile)
+
+
+def spmm_stack_bwd(bss: BlockSparseStack, g: torch.Tensor, *, shared: bool) -> torch.Tensor:
+    """B4: ``dx = sum_k A_k^T @ g_k`` from :func:`spmm_stack`'s cotangent
+    ``g`` ``([M,] K, n_rows, F)`` — ``(N_c, F)`` when ``x`` was ``shared``
+    by the branches (or the stack has none), else ``(M, N_c, F)``; the
+    operator ``torch.ops.stmgcn.spmm_stack_bwd``. CPU tensors take
+    :func:`spmm_stack_bwd_reference`'s arithmetic. Each CTA sums one
+    support's block row over its real slots into a partial, and the
+    partials are added over k (and branches) in order, so the result is
+    bitwise repeatable."""
+    _check_dtypes("spmm_stack_bwd", bss.data_t, g, cotangent=True)
+    on_cuda("spmm_stack_bwd", (bss.data_t, g), (bss.idx_t, bss.nblk_t, bss.row_order_t))
+    return torch.ops.stmgcn.spmm_stack_bwd(bss.data_t, bss.idx_t, bss.nblk_t, bss.row_order_t,
+                                           g, bss.n_rows, bss.n_cols, bss.tile, bool(shared))
+
+
 def block_spmm(bs: BlockSparse, x: torch.Tensor, *, transpose: bool = False) -> torch.Tensor:
-    """B5, or :func:`spmm_reference` for CPU tensors: ``A @ x`` (``A^T @
-    x`` with ``transpose``) for ``x`` ``(N, F)``."""
+    """B5, or :func:`spmm_reference`'s arithmetic for CPU tensors: ``A @ x``
+    (``A^T @ x`` with ``transpose``) for ``x`` ``(N, F)``; the operator
+    ``torch.ops.stmgcn.spmm``."""
     data, idx, nblk, order = ((bs.data_t, bs.idx_t, bs.nblk_t, bs.row_order_t) if transpose
                               else (bs.data, bs.idx, bs.nblk, bs.row_order))
     _check_dtypes("spmm", data, x, cotangent=transpose)
-    if not on_cuda("spmm", (data, x), (idx, nblk, order)):
-        return spmm_reference(bs, x, transpose=transpose)
-    out = torch.empty((bs.n, x.shape[-1]), device=x.device, dtype=torch.float32)
-    _launch("spmm", 2, data, idx, nblk, order, x, out, S=1, tile=bs.tile, n_src_rows=bs.n)
-    counters.bump(spmm)
-    return out
+    on_cuda("spmm", (data, x), (idx, nblk, order))
+    return torch.ops.stmgcn.spmm(data, idx, nblk, order, x, bs.n, bs.tile)
 
 
 # -- autograd ---------------------------------------------------------------------

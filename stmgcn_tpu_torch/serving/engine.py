@@ -91,7 +91,7 @@ from stmgcn_tpu_torch.serving.metrics import EngineStats
 from stmgcn_tpu_torch.serving.microbatch import MicroBatcher
 from stmgcn_tpu_torch.train.checkpoint import load_checkpoint, load_latest_verified
 
-__all__ = ["CheckpointWatcher", "Generation", "ServingEngine", "rung_program"]
+__all__ = ["CheckpointWatcher", "Generation", "ServingEngine", "rung_body", "rung_program"]
 
 #: bound on the re-dispatch loop that keeps multi-chunk responses on one
 #: param generation — hit only under pathological swap churn
@@ -109,6 +109,20 @@ def _bucket_program(sup_dev, device: torch.device):
     return forward
 
 
+def rung_body(forward: Callable, *, slots: bool = False) -> Callable:
+    """A rung program's body over its static views: ``forward(history[,
+    slots])`` under inference mode, the predictions in float32 (what
+    :func:`rung_program` captures, and the contract pass traces:
+    ``analysis/programs.py``)."""
+
+    def body(v):
+        with torch.inference_mode():
+            args = (v["history"], v["slots"]) if slots else (v["history"],)
+            return forward(*args).float()  # a bf16 model's predictions, exactly
+
+    return body
+
+
 def rung_program(ops: DeviceOps, bucket: int, expected: tuple, forward: Callable, *,
                  graphs: bool, name: str, swap: bool = False, slots: bool = False):
     """One rung's program on ``ops``: ``forward(history[, slots])`` over a
@@ -121,12 +135,7 @@ def rung_program(ops: DeviceOps, bucket: int, expected: tuple, forward: Callable
     spec = {"history": ((bucket,) + tuple(expected), torch.float32)}
     if slots:
         spec["slots"] = ((bucket,), torch.int32)
-
-    def body(v):
-        with torch.inference_mode():
-            args = (v["history"], v["slots"]) if slots else (v["history"],)
-            return forward(*args).float()  # a bf16 model's predictions, exactly
-
+    body = rung_body(forward, slots=slots)
     if graphs:
         program = CapturedProgram(body, spec, ops, name=name, swap=swap)
         program({})

@@ -471,7 +471,7 @@ def test_cli_flags_and_exit_codes(small_pkg, capsys, monkeypatch):
     assert rc == 0 and [f["rule"] for f in rep["findings"]] == ["unfenced-timing"]
     assert err == ""
     # paths: the AST rules alone, never the config passes
-    monkeypatch.setattr(analysis, "run_passes", lambda configs=None: 1 / 0)
+    monkeypatch.setattr(analysis, "run_passes", lambda configs=None, **kw: 1 / 0)
     rc, rep, _ = _run(capsys, str(small_pkg / "helpers.py"))
     assert rc == 0 and [f["rule"] for f in rep["findings"]] == ["unfenced-timing"]
     with pytest.raises(ZeroDivisionError):

@@ -15,8 +15,9 @@
   the span and declared-collective counts, which only the port's gate
   reads;
 - the config sections' counts (``spmd_summary``, ``precision_summary``);
-  ``bf16_programs`` counts only the configs that compute in bfloat16, so
-  a port without one fails the gate;
+  ``precision`` has the JAX meaning: the traced step programs (13), their
+  ``_bf16`` twins (4), their dtype sites and findings, so a registry without
+  a bf16 program, or a policy that bans its bf16 products, fails the gate;
 - ``--device cuda`` with no card fails a device section and runs nothing
   on the CPU;
 - (slow, as the JAX gate's test) the whole gate on the CPU prints exactly
@@ -34,9 +35,9 @@ from pathlib import Path
 import pytest
 import torch
 
-from stmgcn_tpu_torch.analysis import gate
-from stmgcn_tpu_torch.analysis._configs import preset_configs
+from stmgcn_tpu_torch.analysis import dtype_flow, gate
 from stmgcn_tpu_torch.analysis.precision_check import precision_summary
+from stmgcn_tpu_torch.analysis.programs import CONTRACT_PRESET, PROGRAMS
 from stmgcn_tpu_torch.analysis.spmd_check import PROGRAM_SPECS, declared_manifests, spmd_summary
 from stmgcn_tpu_torch.config import PRESETS
 
@@ -56,7 +57,7 @@ PASSING = {
     "spmd": {"programs": 8, "collectives": 21, "findings": 0},
     "spmd_exec": {"program": "series_superstep", "n_devices": 6, "parity_drift": 3e-7,
                   "recompiles_after_warmup": 0},
-    "precision": {"programs": 7, "bf16_programs": 1, "sites": 119, "findings": 0},
+    "precision": {"programs": 13, "bf16_programs": 4, "sites": 2074, "findings": 0},
 }
 
 #: each fail condition: (section, key, value); key "exit" is the process's
@@ -215,25 +216,30 @@ def test_config_section_counts():
                     "findings": 0}
     assert spmd["collectives"] > 0
     prec = precision_summary()
-    assert prec["programs"] == len(PRESETS)
-    assert prec["bf16_programs"] == sum(cfg.model.dtype == "bfloat16"
-                                        for _, cfg in preset_configs()) > 0
+    assert prec["programs"] == len(PROGRAMS) == 13
+    assert prec["bf16_programs"] == sum(name.endswith("_bf16") for name in PROGRAMS) == 4
     assert prec["sites"] > 0 and prec["findings"] == 0
 
 
 @pytest.mark.parametrize("drop", ["dtype", "policy"])
-def test_no_bf16_config_fails_the_precision_section(drop):
-    """With every config at float32 (``dtype``), or the bf16 configs' policy
-    no longer admitting bfloat16 at ``dot_general`` (``policy``), the
-    section counts no bf16 program, and the gate fails on it."""
-    configs = preset_configs()
-    for _, cfg in configs:
-        if drop == "dtype":
-            cfg.model.dtype = "float32"
-        else:
-            cfg.precision.role_dtypes["dot_general"] = ("float32",)
-    prec = precision_summary(configs)
-    assert prec["programs"] == len(PRESETS) and prec["bf16_programs"] == 0
+def test_no_bf16_config_fails_the_precision_section(drop, monkeypatch):
+    """With the registry's bf16 twins gone (``dtype``), the section counts no
+    bf16 program; with the contract preset's policy no longer admitting
+    bfloat16 at ``dot_general`` (``policy``), the twins' bf16 products are
+    findings. Either way the gate fails on the section, and on it alone."""
+    flows = dtype_flow.program_flows()
+    if drop == "dtype":
+        monkeypatch.setattr(dtype_flow, "program_flows", lambda route="cpu": {
+            name: f for name, f in flows.items() if not name.endswith("_bf16")})
+    else:
+        smoke = PRESETS[CONTRACT_PRESET]()
+        smoke.precision.role_dtypes["dot_general"] = ("float32",)
+        monkeypatch.setitem(PRESETS, CONTRACT_PRESET, lambda: smoke)
+    prec = precision_summary()
+    if drop == "dtype":
+        assert prec["programs"] == len(PROGRAMS) - 4 and prec["bf16_programs"] == 0
+    else:
+        assert prec["programs"] == len(PROGRAMS) and prec["findings"] > 0
     outs, exits, ruff = _case()
     outs["precision"] = prec
     why = gate.gate_failures({n: {"exit": exits[n], "out": outs[n]} for n in PASSING}
